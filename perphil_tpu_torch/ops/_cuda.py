@@ -1,0 +1,147 @@
+"""Build, load and launch the package's CUDA kernels.
+
+The sources under ``perphil_tpu_torch/csrc/`` (``*.cu``, ``*.cuh``) are
+compiled at first use with ``nvcc`` into one shared library with a plain C
+interface, loaded with ``ctypes``. The library's name carries a hash of the
+sources and flags, so an edit rebuilds and an unchanged tree reuses the
+build. Nothing here runs at import; a machine without ``nvcc`` fails only
+when a kernel is launched.
+
+Every ``extern "C"`` launcher returns ``cudaGetLastError()`` after its
+launch; :func:`check` raises on a non-zero code. ``KERNEL_LAUNCHES`` counts
+launches per kernel name: each wrapper adds one where it launches, and
+nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "perphil_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+#: Launches per kernel name since the last ``clear()``.
+KERNEL_LAUNCHES: Dict[str, int] = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+_F = ctypes.c_float
+
+# argtypes of every launcher (pointers and the stream as c_void_p, so no
+# pointer is cut to 32 bits)
+_SIGNATURES = {
+    # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode, stream
+    "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # b, x, r, work, Sx, Sy, Sz, a11, a22, det, a12, weights, nz, ny, nx, dim,
+    # refinements, stream
+    "perphil_fused_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
+                             _I, _I, _I, _I, _I, _P],
+    # b, x, its, work, Sx, Sy, Sz, sc, weights, nz, ny, nx, dim, rtol,
+    # max_it, stream
+    "perphil_fused_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _D, _I, _P],
+}
+
+_LIB = None
+BUILD_INFO: Dict[str, object] = {}
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> Path:
+    """Compile the kernels (if this source hash has no library yet) and
+    return the library path."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib = BUILD_DIR / f"libperphil_kernels_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    lib.with_suffix(".log").write_text(log)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, lib)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, log=log)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.perphil_error_string.argtypes = [ctypes.c_int]
+        lib.perphil_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launcher reported a CUDA error."""
+    if err != 0:
+        msg = library().perphil_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
+    """Call launcher ``symbol`` on ``device``'s current stream, check its
+    error code and count one launch of ``kernel``."""
+    fn = getattr(library(), symbol)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, symbol)
+    KERNEL_LAUNCHES[kernel] += 1
+
+
+def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device):
+    """Validate one kernel argument: device, dtype and contiguity."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

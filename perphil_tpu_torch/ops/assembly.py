@@ -1,0 +1,174 @@
+"""Operator assembly with Dirichlet boundary conditions.
+
+Counterpart of ``perphil_tpu/ops/assembly.py`` (the matrix-free monolithic
+operator). Dirichlet BCs are eliminated symmetrically: boundary rows and
+columns are zeroed with a unit diagonal, and the RHS is lifted. Both the
+matvec and the lift go through K1 (``ops/fused_apply.py``), which folds the
+box-boundary masking into the stencil pass.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import cached_property, lru_cache
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from perphil_tpu_torch.config import default_dtype
+from perphil_tpu_torch.forms.spaces import Expr, FunctionSpace, MixedFunctionSpace, _evaluate
+from perphil_tpu_torch.mesh.structured import StructuredMesh
+from perphil_tpu_torch.models.dpp.parameters import DPPParameters
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply
+from perphil_tpu_torch.ops.stencil import compile_stencils
+
+
+@dataclass(frozen=True)
+class DirichletBC:
+    """Dirichlet condition on the whole boundary of one (sub-)space.
+
+    :param space: a ``FunctionSpace`` or an indexed sub-space ``W.sub(i)``.
+    :param value: constant, array/tensor, or callable of coordinate tensors.
+    :param region: only "on_boundary" is supported.
+    """
+
+    space: FunctionSpace
+    value: Expr
+    region: str = "on_boundary"
+
+    def __post_init__(self):
+        if self.region != "on_boundary":
+            raise ValueError("Only region='on_boundary' is supported")
+
+    @property
+    def sub_index(self) -> int:
+        return getattr(self.space, "index", 0)
+
+    def grid_values(self, mesh: StructuredMesh) -> torch.Tensor:
+        """Values at the mesh vertices on the space's device (only the
+        boundary entries are used)."""
+        return _evaluate(self.value, mesh, (), self.space.device)
+
+
+def bc_values_per_field(
+    W: MixedFunctionSpace, bcs: Optional[Sequence[DirichletBC]]
+) -> Tuple[torch.Tensor, ...]:
+    """Per-field boundary-value grids on ``W``'s device (zero where no BC)."""
+    vals = [
+        torch.zeros(s.dof_shape, dtype=default_dtype(), device=W.device) for s in W.spaces
+    ]
+    for bc in bcs or ():
+        vals[bc.sub_index] = bc.grid_values(W.mesh)
+    return tuple(vals)
+
+
+def _masks(mesh: StructuredMesh, padding: Tuple[int, ...] = ()):
+    """(boundary, interior) boolean node grids, numpy."""
+    if padding and any(padding):
+        raise NotImplementedError(
+            "phantom padding (sharding) is ported in ROADMAP slice 9 (multi-device)"
+        )
+    bdry = mesh.boundary_mask()
+    return bdry, ~bdry
+
+
+@lru_cache(maxsize=None)
+def dpp_stencils(
+    mesh: StructuredMesh, params: DPPParameters
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Combined two-field stencils (S1, S2, C), host numpy:
+    ``S_i = (k_i/mu) K + (beta/mu) M`` and ``C = -(beta/mu) M``."""
+    K_st, M_st = compile_stencils(mesh)
+    p = params
+    S1 = (p.k1 / p.mu) * K_st + (p.beta / p.mu) * M_st
+    S2 = (p.k2 / p.mu) * K_st + (p.beta / p.mu) * M_st
+    C = -(p.beta / p.mu) * M_st
+    return S1, S2, C
+
+
+@dataclass(frozen=True)
+class DPPOperator:
+    """The BC-eliminated monolithic DPP operator:
+
+        A = [[ (k1/mu) K + (beta/mu) M,        -(beta/mu) M        ],
+             [       -(beta/mu) M,        (k2/mu) K + (beta/mu) M ]]
+
+    with identity rows/columns at the boundary DoFs of each field. The
+    stencil weights are host constants that K1 takes by value at launch.
+    """
+
+    W: MixedFunctionSpace
+    params: DPPParameters
+    padding: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.W.num_sub_spaces() != 2:
+            raise ValueError(f"Expected a 2-field MixedFunctionSpace, got {type(self.W)}")
+        _masks(self.W.mesh, self.padding)  # rejects padding
+
+    @property
+    def mesh(self) -> StructuredMesh:
+        return self.W.mesh
+
+    @property
+    def grid_shape(self) -> Tuple[int, ...]:
+        return self.mesh.node_shape
+
+    @property
+    def _combined_stencils(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return dpp_stencils(self.mesh, self.params)
+
+    @cached_property
+    def _mask_arrays(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        bdry, interior = _masks(self.mesh)
+        dev = self.W.device
+        return torch.as_tensor(bdry, device=dev), torch.as_tensor(interior, device=dev)
+
+    def matvec(self, z1: torch.Tensor, z2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Apply the BC-eliminated operator to grid-shaped fields (K1)."""
+        return fused_dpp_apply(z1, z2, *self._combined_stencils, mode="matvec")
+
+    def residual(
+        self, z1: torch.Tensor, z2: torch.Tensor, b1: torch.Tensor, b2: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        y1, y2 = self.matvec(z1, z2)
+        return b1 - y1, b2 - y2
+
+    def lifted_rhs(
+        self, g1: torch.Tensor, g2: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """RHS of the BC-eliminated system for zero forcing (K1): interior
+        rows get ``-A[interior, boundary] g``, boundary rows get ``g``."""
+        return fused_dpp_apply(g1, g2, *self._combined_stencils, mode="lift")
+
+    def flat_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        shape = self.grid_shape
+        n = int(np.prod(shape))
+
+        def mv(x: torch.Tensor) -> torch.Tensor:
+            y1, y2 = self.matvec(x[:n].reshape(shape), x[n:].reshape(shape))
+            return torch.cat([y1.reshape(-1), y2.reshape(-1)])
+
+        return mv
+
+    def stacked_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Operator on stacked fields ``(2, *node_shape)``."""
+
+        def mv(x: torch.Tensor) -> torch.Tensor:
+            return torch.stack(self.matvec(x[0], x[1]))
+
+        return mv
+
+    def diagonal(self) -> torch.Tensor:
+        """Flat diagonal of the BC-eliminated operator (field-major)."""
+        S1, S2, _ = self._combined_stencils
+        center = (1,) * self.mesh.dim
+        bdry, _ = self._mask_arrays
+        d = [
+            torch.full(bdry.shape, float(S[center]), dtype=default_dtype(), device=bdry.device)
+            .masked_fill_(bdry, 1.0)
+            .reshape(-1)
+            for S in (S1, S2)
+        ]
+        return torch.cat(d)

@@ -1,0 +1,206 @@
+"""Exact fast direct solvers via tensor-product fast diagonalization.
+
+Counterpart of ``perphil_tpu/ops/direct.py``. On uniform quad/hex meshes the
+interior (Dirichlet-eliminated) Q1 operators are tensor products of 1D
+tridiagonal stiffness/mass pairs; the generalized eigenproblem
+``K1 S = M1 S diag(lam)`` (host scipy) diagonalizes every block, so a solve
+is d small dense products per direction plus a diagonal scaling. The
+monolithic 2-field DPP system shares one eigenbasis across both fields and
+decouples into 2x2 systems per mode.
+
+On simplicial meshes the same machinery built from the lumped mass is a
+spectrally-equivalent preconditioner (``lumped=True``).
+
+The solvers are ``nn.Module``s whose buffers (per-axis eigenvectors and
+per-mode coefficients) live on the device they were built for, in the dtype
+they were built with. The transforms are ``torch.tensordot`` products (the
+JAX package leaves them to XLA outside any kernel).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import List, Tuple
+
+import numpy as np
+import scipy.linalg
+import torch
+from torch import nn
+
+from perphil_tpu_torch.config import DeviceLike, default_dtype, resolve_device
+from perphil_tpu_torch.mesh.structured import StructuredMesh
+from perphil_tpu_torch.models.dpp.parameters import DPPParameters
+
+
+@lru_cache(maxsize=None)
+def _interior_eig_1d(n_cells: int, h: float, lumped: bool) -> Tuple[np.ndarray, np.ndarray]:
+    """Generalized eigenpairs of the interior 1D (K, M) pair (host scipy).
+
+    Returns (S, lam) with S^T M S = I and K S = M S diag(lam); ``lumped``
+    replaces the consistent M1 by diag(h).
+    """
+    m = n_cells - 1
+    if m < 1:
+        raise ValueError("Fast diagonalization needs at least one interior node")
+    K = (np.diag(np.full(m, 2.0)) - np.diag(np.ones(m - 1), 1) - np.diag(np.ones(m - 1), -1)) / h
+    if lumped:
+        M = np.eye(m) * h
+    else:
+        M = (np.diag(np.full(m, 4.0)) + np.diag(np.ones(m - 1), 1) + np.diag(np.ones(m - 1), -1)) * (h / 6.0)
+    lam, S = scipy.linalg.eigh(K, M)
+    return np.ascontiguousarray(S), np.ascontiguousarray(lam)
+
+
+def _transform(f: torch.Tensor, mats: List[torch.Tensor], transpose: bool) -> torch.Tensor:
+    """Apply per-axis matrices (S or S^T) to a grid tensor.
+
+    ``mats`` are coordinate-ordered (x first); grid axes are slowest first,
+    so grid axis ``a`` uses ``mats[d-1-a]``.
+    """
+    d = f.dim()
+    out = f
+    for ax in range(d):
+        S = mats[d - 1 - ax].to(f.dtype)
+        out = torch.movedim(torch.tensordot(S.T if transpose else S, out, dims=([1], [ax])), 0, ax)
+    return out
+
+
+def _lam_sum(eig) -> np.ndarray:
+    """sum_i lam_i on the interior mode grid (slowest axis first)."""
+    lams = [lam for (_, lam) in eig]
+    d = len(lams)
+    lam_sum = np.zeros(tuple(len(l) for l in reversed(lams)))
+    for ax in range(d):
+        shape = [1] * d
+        shape[ax] = len(lams[d - 1 - ax])
+        lam_sum = lam_sum + lams[d - 1 - ax].reshape(shape)
+    return lam_sum
+
+
+class _FastDiagBase(nn.Module):
+    """Per-axis eigenvector buffers ``S0`` (x), ``S1`` (y)[, ``S2`` (z)]."""
+
+    def __init__(self, mesh: StructuredMesh, lumped: bool, device: DeviceLike, dtype: torch.dtype):
+        super().__init__()
+        self.mesh = mesh
+        self.eig = tuple(_interior_eig_1d(n, hi, lumped) for n, hi in zip(mesh.cells, mesh.h))
+        self._device = resolve_device(device)
+        self.dtype = dtype
+        for a, (S, _) in enumerate(self.eig):
+            self.register_buffer(f"S{a}", self._tensor(S))
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self._device)
+
+    @property
+    def mats(self) -> List[torch.Tensor]:
+        return [getattr(self, f"S{a}") for a in range(self.mesh.dim)]
+
+    @property
+    def inner(self) -> Tuple[slice, ...]:
+        return tuple(slice(1, n - 1) for n in self.mesh.node_shape)
+
+
+class FastDiagFieldSolver(_FastDiagBase):
+    """Exact interior solve of one block ``(k/mu) K + (beta/mu) M`` on a
+    tensor-product mesh, or (``lumped=True``) its lumped-mass proxy, the
+    simplicial preconditioner. Buffer ``mode_scale`` on the interior grid."""
+
+    def __init__(
+        self,
+        mesh: StructuredMesh,
+        k: float,
+        beta: float,
+        mu: float,
+        lumped: bool = False,
+        device: DeviceLike = "cpu",
+        dtype: torch.dtype = default_dtype(),
+    ):
+        if not (mesh.is_tensor_product or lumped):
+            raise ValueError(
+                "Exact fast diagonalization needs quad/hex cells; "
+                "use lumped=True for the simplicial proxy preconditioner"
+            )
+        super().__init__(mesh, lumped, device, dtype)
+        self.register_buffer("mode_scale", self._tensor((k / mu) * _lam_sum(self.eig) + (beta / mu)))
+
+    def solve_interior(self, f: torch.Tensor) -> torch.Tensor:
+        fhat = _transform(f, self.mats, transpose=True) / self.mode_scale.to(f.dtype)
+        return _transform(fhat, self.mats, transpose=False)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """Solve the BC-eliminated block on the full node grid: boundary
+        entries pass through (identity rows), the interior is solved."""
+        out = b.clone()
+        out[self.inner] = self.solve_interior(b[self.inner])
+        return out
+
+
+class LumpedDPPPreconditioner(nn.Module):
+    """Block-diagonal lumped fast-diag preconditioner of the monolithic
+    simplicial system: one lumped field solve per field on the interior,
+    identity on the boundary. Acts on stacked ``(2, *node_shape)`` grids."""
+
+    def __init__(self, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = "cpu"):
+        super().__init__()
+        p = params
+        self.pc1 = FastDiagFieldSolver(mesh, p.k1, p.beta, p.mu, lumped=True, device=device)
+        self.pc2 = FastDiagFieldSolver(mesh, p.k2, p.beta, p.mu, lumped=True, device=device)
+
+    def forward(self, r: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self.pc1.solve(r[0]), self.pc2.solve(r[1])])
+
+
+class FastDiagDPPSolver(_FastDiagBase):
+    """Exact direct solve of the monolithic 2-field DPP system on a
+    tensor-product mesh. After the forward transforms the system decouples
+    into per-mode 2x2 solves
+
+        [[ (k1 lam + beta)/mu,      -beta/mu      ] [u1]   [f1]
+         [      -beta/mu,       (k2 lam + beta)/mu]] [u2] = [f2]
+
+    Buffers ``a11``, ``a22`` and ``det`` on the interior mode grid.
+    """
+
+    def __init__(
+        self,
+        mesh: StructuredMesh,
+        params: DPPParameters,
+        device: DeviceLike = "cpu",
+        dtype: torch.dtype = default_dtype(),
+    ):
+        if not mesh.is_tensor_product:
+            raise ValueError("Exact fast diagonalization needs quad/hex cells")
+        super().__init__(mesh, False, device, dtype)
+        self.params = params
+        lam_sum = _lam_sum(self.eig)
+        p = params
+        a11 = (p.k1 * lam_sum + p.beta) / p.mu
+        a22 = (p.k2 * lam_sum + p.beta) / p.mu
+        self.a12 = -p.beta / p.mu
+        self.register_buffer("a11", self._tensor(a11))
+        self.register_buffer("a22", self._tensor(a22))
+        self.register_buffer("det", self._tensor(a11 * a22 - self.a12 * self.a12))
+
+    def solve_interior(
+        self, f1: torch.Tensor, f2: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        a11, a22, det = (t.to(f1.dtype) for t in (self.a11, self.a22, self.det))
+        a12 = self.a12
+        f1h = _transform(f1, self.mats, transpose=True)
+        f2h = _transform(f2, self.mats, transpose=True)
+        u1h = (a22 * f1h - a12 * f2h) / det
+        u2h = (a11 * f2h - a12 * f1h) / det
+        return (
+            _transform(u1h, self.mats, transpose=False),
+            _transform(u2h, self.mats, transpose=False),
+        )
+
+    def solve(
+        self, b1: torch.Tensor, b2: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        z1i, z2i = self.solve_interior(b1[self.inner], b2[self.inner])
+        z1, z2 = b1.clone(), b2.clone()
+        z1[self.inner] = z1i
+        z2[self.inner] = z2i
+        return z1, z2

@@ -1,0 +1,100 @@
+"""The port's CUDA kernels K1-K3 against their plain PyTorch twins, on the
+card. A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
+(marker ``cuda``) and skips without one; run them on the card with
+``python -m pytest tests/test_torch_kernels.py -q``."""
+
+import numpy as np
+import pytest
+import torch
+
+from perphil_tpu_torch.interop import from_numpy_state
+from perphil_tpu_torch.ops import _cuda
+from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_plain
+from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _state(element, cells, device, seed=0):
+    shape = tuple(c + 1 for c in reversed(cells))
+    rng = np.random.default_rng(seed)
+    g1, g2 = (rng.standard_normal(shape) for _ in range(2))
+    return from_numpy_state({"k1": 1.2, "beta": 0.9}, cells, element, g1, g2, device=device)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+K1_CASES = [
+    ("quad", (13, 9), torch.float64, 1e-13), ("hex", (7, 6, 5), torch.float64, 1e-13),
+    ("triangle", (13, 9), torch.float32, 2e-6), ("tet", (7, 6, 5), torch.float32, 2e-6),
+    ("quad", (1, 1), torch.float64, 0.0),  # no interior: every row is a boundary row
+]
+
+
+@pytest.mark.parametrize(
+    "element,cells,dtype,tol", K1_CASES, ids=[f"{c[0]}{len(c[1])}d-{c[1][0]}" for c in K1_CASES]
+)
+@pytest.mark.parametrize("mode", ["matvec", "lift"])
+def test_k1_matches_twin(cuda, element, cells, dtype, tol, mode):
+    state = _state(element, cells, cuda)
+    S = dpp_stencils(state.mesh, state.params)
+    z1, z2 = (g.to(dtype) for g in state.grids)
+    before = _cuda.KERNEL_LAUNCHES["fused_dpp_apply"]
+    out = fused_dpp_apply(z1, z2, *S, mode=mode)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply"] == before + 1
+    for a, b in zip(out, fused_dpp_apply_plain(z1, z2, *S, mode=mode)):
+        assert a.dtype == dtype and a.device == cuda
+        assert _rel(a, b) <= tol
+
+
+def test_k1_rejects_bad_inputs(cuda):
+    state = _state("quad", (4, 4), cuda)
+    S = dpp_stencils(state.mesh, state.params)
+    g1, g2 = state.grids
+    with pytest.raises(ValueError):
+        fused_dpp_apply(g1, g2.cpu(), *S)
+    with pytest.raises(TypeError):
+        fused_dpp_apply(g1, g2.float(), *S)
+    with pytest.raises(ValueError):
+        fused_dpp_apply(g1.t(), g2.t(), *S)
+
+
+@pytest.mark.parametrize(
+    "element,cells", [("quad", (16, 16)), ("quad", (64, 64)), ("hex", (8, 8, 8))],
+    ids=["quad16", "quad64", "hex8"],
+)
+def test_k2_matches_twin(cuda, element, cells):
+    state = _state(element, cells, cuda, seed=1)
+    k2 = fused_direct_solve(DPPOperator(state.W, state.params))
+    b = torch.stack(state.grids)
+    x = k2.launch(b)
+    torch.cuda.synchronize()
+    assert _rel(x, k2.plain(b)) <= 1e-11
+
+
+@pytest.mark.parametrize(
+    "element,cells", [("triangle", (8, 8)), ("tet", (4, 4, 4)), ("tet", (8, 8, 8))],
+    ids=["tri8", "tet4", "tet8"],
+)
+def test_k3_matches_twin(cuda, element, cells):
+    state = _state(element, cells, cuda, seed=2)
+    k3 = fused_simplicial_direct_solve(DPPOperator(state.W, state.params))
+    b = torch.stack(state.grids)
+    x, its = k3.launch(b)
+    torch.cuda.synchronize()
+    xp, its_p = k3.plain(b)
+    assert _rel(x, xp) <= 1e-11
+    assert abs(int(its.item()) - its_p) <= 2

@@ -1,0 +1,210 @@
+"""Parity of the PyTorch port's host-side modules with the JAX package:
+meshes, element matrices, stencils, quadrature, spaces, manufactured
+solutions, parameters, presets and options. Both packages get the same
+inputs, made with numpy from a seed."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import perphil_tpu.forms.spaces as jspaces
+import perphil_tpu.mesh.structured as jmesh
+import perphil_tpu.ops.element as jelement
+import perphil_tpu.ops.stencil as jstencil
+import perphil_tpu.solvers.options as joptions
+import perphil_tpu.solvers.parameters as jparams
+import perphil_tpu.solvers.solver as jsolver
+import perphil_tpu.utils.manufactured_solutions as jms
+import perphil_tpu.utils.quadrature as jquad
+from perphil_tpu.models.dpp import DPPParameters as JParams
+
+import perphil_tpu_torch.forms.spaces as tspaces
+import perphil_tpu_torch.mesh.structured as tmesh
+import perphil_tpu_torch.ops.element as telement
+import perphil_tpu_torch.ops.stencil as tstencil
+import perphil_tpu_torch.solvers.options as toptions
+import perphil_tpu_torch.solvers.parameters as tparams
+import perphil_tpu_torch.solvers.solver as tsolver
+import perphil_tpu_torch.utils.manufactured_solutions as tms
+import perphil_tpu_torch.utils.quadrature as tquad
+from perphil_tpu_torch.config import default_dtype, resolve_device
+from perphil_tpu_torch.models.dpp import DPPParameters as TParams
+
+REPO = Path(__file__).resolve().parents[1]
+
+CASES = [("quad", (5, 4)), ("triangle", (4, 5)), ("hex", (3, 4, 2)), ("tet", (2, 3, 4))]
+CASE_IDS = [c[0] for c in CASES]
+
+
+@pytest.mark.parametrize("element,cells", CASES, ids=CASE_IDS)
+def test_mesh_arrays_equal(element, cells):
+    jm = jmesh.StructuredMesh(cells=cells, element=element)
+    tm = tmesh.StructuredMesh(cells=cells, element=element)
+    assert tm.node_shape == jm.node_shape
+    assert tm.num_cells == jm.num_cells and tm.h == jm.h and tm.hmax() == jm.hmax()
+    assert np.array_equal(tm.boundary_mask(), jm.boundary_mask())
+    for a, b in zip(tm.coordinates(), jm.coordinates()):
+        assert np.array_equal(a, b)
+
+
+def test_mesh_factories_match():
+    from perphil_tpu.mesh.builtin import create_cube_mesh as jcube, create_mesh as jsq
+    from perphil_tpu_torch.mesh.builtin import create_cube_mesh as tcube, create_mesh as tsq
+
+    for args in ((3, 4), (3, 4, False)):
+        assert tsq(*args).cells == jsq(*args).cells and tsq(*args).element == jsq(*args).element
+    for kw in ({}, {"hexahedral": True}):
+        assert tcube(2, 3, 4, **kw).element == jcube(2, 3, 4, **kw).element
+
+
+@pytest.mark.parametrize("element,cells", CASES, ids=CASE_IDS)
+def test_element_matrices_and_stencils_bit_equal(element, cells):
+    jm = jmesh.StructuredMesh(cells=cells, element=element)
+    tm = tmesh.StructuredMesh(cells=cells, element=element)
+    for (tv, tK, tM), (jv, jK, jM) in zip(
+        telement.cell_subcells(element, tm.h), jelement.cell_subcells(element, jm.h)
+    ):
+        assert np.array_equal(tv, jv) and np.array_equal(tK, jK) and np.array_equal(tM, jM)
+    for ts, js in zip(tstencil.compile_stencils(tm), jstencil.compile_stencils(jm)):
+        assert np.array_equal(ts, js)
+
+
+@pytest.mark.parametrize("element,cells", CASES, ids=CASE_IDS)
+def test_apply_stencil_matches(element, cells):
+    tm = tmesh.StructuredMesh(cells=cells, element=element)
+    K, M = tstencil.compile_stencils(tm)
+    st = 2.0 * K + 0.5 * M
+    u = np.random.default_rng(1).standard_normal(tm.node_shape)
+    yt = tstencil.apply_stencil(torch.as_tensor(u), st).numpy()
+    yj = np.asarray(jstencil.apply_stencil(jnp.asarray(u), st))
+    assert np.abs(yt - yj).max() <= 1e-14 * np.abs(yj).max()
+
+
+@pytest.mark.parametrize("element,cells", CASES, ids=CASE_IDS)
+def test_quadrature_tables_equal(element, cells):
+    tq = tquad.cell_quadrature(tmesh.StructuredMesh(cells=cells, element=element))
+    jq = jquad.cell_quadrature(jmesh.StructuredMesh(cells=cells, element=element))
+    assert len(tq) == len(jq)
+    for a, b in zip(tq, jq):
+        assert a.weight == b.weight and a.point == b.point
+        assert a.vertex_offsets == b.vertex_offsets
+        assert a.basis == b.basis and a.basis_grad == b.basis_grad
+
+
+def test_parameters_fields_equal():
+    for kw in ({}, {"k1": 2.0, "beta": 0.5}, {"k1": 3.0, "k2": 0.2, "mu": 2.0, "scale_contrast": 10.0}):
+        t, j = TParams(**kw), JParams(**kw)
+        assert (t.k1, t.k2, t.beta, t.mu, t.scale_contrast, t.eta) == (
+            j.k1, j.k2, j.beta, j.mu, j.scale_contrast, j.eta
+        )
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_manufactured_values_match(dim):
+    cells = (5, 4) if dim == 2 else (3, 4, 2)
+    element = "quad" if dim == 2 else "hex"
+    tm = tmesh.StructuredMesh(cells=cells, element=element)
+    jm = jmesh.StructuredMesh(cells=cells, element=element)
+    p = dict(k1=1.5, beta=0.7)
+    tex = (tms.exact_expressions if dim == 2 else tms.exact_expressions_3d)(tm, TParams(**p))
+    jex = (jms.exact_expressions if dim == 2 else jms.exact_expressions_3d)(jm, JParams(**p))
+    pts = np.random.default_rng(2).uniform(0.0, 1.0, size=(dim, 50))
+    for tf, jf in zip(tex, jex):
+        tv = tf(*[torch.as_tensor(c) for c in pts])
+        jv = jf(*[jnp.asarray(c) for c in pts])
+        for a, b in zip(tv if isinstance(tv, tuple) else (tv,), jv if isinstance(jv, tuple) else (jv,)):
+            b = np.asarray(b)
+            assert np.abs(a.numpy() - b).max() <= 1e-14 * np.abs(b).max()
+
+
+@pytest.mark.parametrize("element,cells", CASES, ids=CASE_IDS)
+def test_boundary_grids_match(element, cells):
+    tm = tmesh.StructuredMesh(cells=cells, element=element)
+    jm = jmesh.StructuredMesh(cells=cells, element=element)
+    ex_t = tms.exact_expressions if tm.dim == 2 else tms.exact_expressions_3d
+    ex_j = jms.exact_expressions if jm.dim == 2 else jms.exact_expressions_3d
+    _, tp1, _, _ = ex_t(tm, TParams())
+    _, jp1, _, _ = ex_j(jm, JParams())
+    gt = tspaces._evaluate(tp1, tm, ())
+    gj = np.asarray(jspaces._evaluate(jp1, jm, ()))
+    assert gt.dtype == torch.float64 and tuple(gt.shape) == jm.node_shape
+    assert np.abs(gt.numpy() - gj).max() <= 1e-15 * np.abs(gj).max()
+    arr = np.random.default_rng(3).standard_normal(jm.node_shape)
+    assert np.array_equal(tspaces._evaluate(arr, tm, ()).numpy(), np.asarray(jspaces._evaluate(arr, jm, ())))
+
+
+def test_spaces_and_functions():
+    mesh = tmesh.create_mesh(3, 2)
+    U, V = tspaces.create_function_spaces(mesh)
+    jU, jV = jspaces.create_function_spaces(jmesh.create_mesh(3, 2))
+    assert (U.dim(), V.dim(), U.dof_shape, V.dof_shape) == (jU.dim(), jV.dim(), jU.dof_shape, jV.dof_shape)
+    W = tspaces.mixed_space(V)
+    assert W.device == torch.device("cpu") and W.dim() == jspaces.mixed_space(jV).dim()
+    assert W.sub(1).index == 1 and W.sub(1).device == W.device
+    f = tspaces.Function(W)
+    assert f.dat.shape == (W.dim(),) and f.data[0].dtype == default_dtype()
+    g = tspaces.Function(V).interpolate(lambda x, y: x + 2 * y)
+    assert torch.equal(g.data, torch.as_tensor(mesh.coordinates()[0] + 2 * mesh.coordinates()[1]))
+    p1, p2 = tspaces.Function(W, (g.data, 2 * g.data)).split()
+    assert torch.equal(p2.data, 2 * p1.data)
+    with pytest.raises(NotImplementedError, match="slice 8"):
+        tspaces.create_function_spaces(mesh, pressure_deg=2)
+
+
+def test_resolve_device():
+    assert resolve_device(None) == torch.device("cpu")
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").index == torch.cuda.current_device()
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            resolve_device("cuda")
+
+
+def test_presets_equal():
+    names = {n for n in dir(jparams) if n.isupper()}
+    assert {n for n in dir(tparams) if n.isupper()} == names
+    assert "TPU_DIRECT_PARAMS" in names and len([n for n in names if n.endswith("_PARAMS")]) >= 12
+    for name in sorted(names):
+        assert getattr(tparams, name) == getattr(jparams, name), name
+
+
+def test_option_plumbing_matches(monkeypatch):
+    nested = {"ksp_type": "gmres", "fieldsplit_0": {"ksp_type": "preonly", "pc_type": "lu"}}
+    assert tsolver._flatten_options(nested) == jsolver._flatten_options(nested)
+    assert tsolver._freeze(nested) == jsolver._freeze(nested)
+    flat = tsolver._flatten_options(nested)
+    assert tsolver._sub_options(flat, "fieldsplit_0_") == jsolver._sub_options(flat, "fieldsplit_0_")
+    monkeypatch.setenv("PERPHIL_TPU_OPTIONS", "dpp_ksp_rtol=1e-10 dpp_pc_type=ilu other_x=1")
+    base = {"ksp_type": "preonly"}
+    try:
+        toptions.set_options("dpp", ksp_max_it=7)
+        joptions.set_options("dpp", ksp_max_it=7)
+        assert toptions.apply_prefix_overrides(base, "dpp") == joptions.apply_prefix_overrides(base, "dpp")
+    finally:
+        toptions.clear_options("dpp")
+        joptions.clear_options("dpp")
+    assert toptions.apply_prefix_overrides(base, "none") is base
+
+
+def test_import_does_not_load_jax():
+    code = (
+        "import sys, pkgutil, importlib, perphil_tpu_torch\n"
+        "for m in pkgutil.walk_packages(perphil_tpu_torch.__path__, 'perphil_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'perphil_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
