@@ -6,15 +6,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
   1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
      versions, and switches TF32 off for f32 products (TF32 would stall the
      mixed-precision refinement);
-  2. builds the CUDA kernels K1-K3 from ``perphil_tpu_torch/csrc``;
+  2. builds the CUDA kernels K1-K5 from ``perphil_tpu_torch/csrc``;
   3. checks each kernel against its plain PyTorch twin on the card, at the
-     shapes the main path gives it;
-  4. drives the main path — ``solve_dpp`` with ``LINEAR_SOLVER_PARAMS`` at 2D
-     quad N=4 and N=16 (golden errors) and 3D tet nx=4, and with
+     shapes the main path gives it: K1-K3, then the fused GMRES roles K5
+     (2D N=8) and K4 (2D N=64 pc none and jacobi, 3D tet nx=16), which must
+     equal their twin in iteration count and within 1e-13 relative;
+  4. drives the direct path — ``solve_dpp`` with ``LINEAR_SOLVER_PARAMS`` at
+     2D quad N=4 and N=16 (golden errors) and 3D tet nx=4, and with
      ``TPU_DIRECT_PARAMS`` at 3D hex 64^3 and 128^3 (f64 relative residual
      < 1e-10) — with every launch counter reset just before, and fails if a
      kernel of the path did not run;
-  5. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
+  5. drives the Krylov path the same way — ``solve_dpp`` with
+     ``PLAIN_GMRES_PARAMS`` at 2D quad N=4/8/16/64 and 3D tet nx=4/16, held
+     to the published PETSc counts 10/40/292/3307 and 27/750, with
+     ``GMRES_JACOBI_PARAMS`` at 2D N=16 (33), and with ``PLAIN_GMRES_PARAMS``
+     at 2D N=128 beyond the fused envelope (the host loop with the K1
+     matvec, whose rounding differs from the CPU twin's: 11765 +- 2);
+  6. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
      events (medians).
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -40,13 +48,31 @@ GOLDEN = {
     4: (1965.7375371673206, 196572.59548715068, 30018.89318007683),
     16: (154.91204152557083, 15491.16888191997, 9247.8237859725),
 }
-KERNELS = {
+DIRECT_KERNELS = {
     "fused_dpp_apply": ("perphil_tpu_torch/csrc/dpp_apply.cu", "perphil_tpu/ops/pallas_kernels.py:85"),
     "fused_direct_solve": ("perphil_tpu_torch/csrc/fused_direct.cu", "perphil_tpu/ops/pallas_direct.py:228"),
     "fused_simplicial_direct_solve": (
         "perphil_tpu_torch/csrc/fused_pcg.cu", "perphil_tpu/ops/pallas_direct.py:491",
     ),
 }
+KRYLOV_KERNELS = {
+    "fused_gmres_df": ("perphil_tpu_torch/csrc/fused_gmres.cu", "perphil_tpu/ops/pallas_gmres.py:2368"),
+    "fused_gmres_ef64": ("perphil_tpu_torch/csrc/fused_gmres.cu", "perphil_tpu/ops/pallas_gmres.py:2323"),
+}
+KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS}
+# published PETSc counts of plain GMRES(30):
+# notebooks/results-conforming-2d/petsc_profiling/petsc_perf_breakdown.csv and
+# notebooks/results-conforming-3d/petsc_profiling/petsc_perf_breakdown_3d.csv
+KRYLOV_CASES = [  # element, N, preset, count, slack, kernel the route launches
+    ("quad", 4, "PLAIN_GMRES_PARAMS", 10, 0, "fused_gmres_ef64"),
+    ("quad", 8, "PLAIN_GMRES_PARAMS", 40, 0, "fused_gmres_ef64"),
+    ("quad", 16, "PLAIN_GMRES_PARAMS", 292, 0, "fused_gmres_df"),
+    ("quad", 64, "PLAIN_GMRES_PARAMS", 3307, 0, "fused_gmres_df"),
+    ("tet", 4, "PLAIN_GMRES_PARAMS", 27, 0, "fused_gmres_ef64"),
+    ("tet", 16, "PLAIN_GMRES_PARAMS", 750, 0, "fused_gmres_df"),
+    ("quad", 16, "GMRES_JACOBI_PARAMS", 33, 0, "fused_gmres_df"),
+    ("quad", 128, "PLAIN_GMRES_PARAMS", 11765, 2, "fused_dpp_apply"),
+]
 
 
 def check(cond: bool, what: str) -> None:
@@ -56,6 +82,17 @@ def check(cond: bool, what: str) -> None:
 
 def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
+
+
+def newton_rhs(op, bcs):
+    """The solver's Krylov right-hand side: ``b - A x0`` with x0 the BC lift."""
+    import torch
+
+    g1, g2 = (bc.grid_values(op.mesh) for bc in bcs)
+    b1, b2 = op.lifted_rhs(g1, g2)
+    bdry = op._mask_arrays[0]
+    x01, x02 = torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)
+    return torch.stack(op.residual(x01, x02, b1, b2)).contiguous()
 
 
 def time_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
@@ -113,6 +150,7 @@ def main() -> int:
     from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
     from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_plain
     from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
+    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver
     from perphil_tpu_torch.solvers import parameters as sp
     from perphil_tpu_torch.solvers import solve_dpp
     from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze
@@ -216,7 +254,40 @@ def main() -> int:
     )
     torch.cuda.synchronize()
 
-    # -- 4. the main path, counted ----------------------------------------
+    # the fused GMRES roles against their twin (on the card), on the
+    # solver's own right-hand sides; the twin is timed in its check run
+    gmres_kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    role_cases = [  # element, N, pc, role, timed kernel repeats
+        ("quad", 8, "none", "fused_gmres_ef64", 5), ("quad", 64, "none", "fused_gmres_df", 2),
+        ("quad", 64, "jacobi", "fused_gmres_df", 3), ("tet", 16, "none", "fused_gmres_df", 2),
+    ]
+    for element, n, pc, role, reps in role_cases:
+        W, params, bcs, _, _ = problem(element, n, dev)
+        op = DPPOperator(W, params)
+        r = newton_rhs(op, bcs)
+        solver = FusedGMRESSolver(op, pc, role, **gmres_kw)
+        got = solver.launch(r)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = solver.plain(r)
+        end.record()
+        torch.cuda.synchronize()
+        abs_err = float((got.x - ref.x).abs().max())
+        err = abs_err / float(ref.x.abs().max())
+        tag = f"{element} N={n} pc {pc}"
+        print(f"{role} {tag}: iterations {got.iterations} vs twin {ref.iterations}, "
+              f"max rel diff vs twin {err:.3e} (bound 1e-13), max abs diff {abs_err:.3e}")
+        check(got.iterations == ref.iterations and got.converged == ref.converged, f"{role} {tag} count")
+        check(err <= 1e-13, f"{role} {tag} vs twin")
+        results[f"{role}@{tag}"] = dict(
+            max_abs_err=abs_err, ms=time_ms(lambda: solver.launch(r), repeats=reps, warmup=0),
+            plain_ms=start.elapsed_time(end), shape=f"{tag}, {got.iterations} iterations",
+        )
+    results["fused_gmres_ef64"] = results["fused_gmres_ef64@quad N=8 pc none"]
+    results["fused_gmres_df"] = results["fused_gmres_df@quad N=64 pc none"]
+
+    # -- 4. the direct path, counted --------------------------------------
     cases = [("quad", 4, "LINEAR_SOLVER_PARAMS"), ("quad", 16, "LINEAR_SOLVER_PARAMS"),
              ("tet", 4, "LINEAR_SOLVER_PARAMS"), ("hex", 64, "TPU_DIRECT_PARAMS"),
              ("hex", 128, "TPU_DIRECT_PARAMS")]
@@ -231,9 +302,9 @@ def main() -> int:
                          if v != before.get(k, 0)})
     torch.cuda.synchronize()
     launches = dict(_cuda.KERNEL_LAUNCHES)
-    print(f"main-path kernel launches, all cases: {launches}")
-    for name in KERNELS:
-        check(launches.get(name, 0) > 0, f"{name} launched on the main path")
+    print(f"direct-path kernel launches, all cases: {launches}")
+    for name in DIRECT_KERNELS:
+        check(launches.get(name, 0) > 0, f"{name} launched on the direct path")
 
     for (element, n, preset), (W, params, bcs, p1e, p2e), sol, counts in zip(
         cases, setups, sols, per_case
@@ -269,7 +340,60 @@ def main() -> int:
         print(line)
     torch.cuda.synchronize()
 
-    # -- 5. end-to-end solve times ----------------------------------------
+    # -- 5. the Krylov path, counted --------------------------------------
+    ksetups = [problem(e, n, dev) for e, n, *_ in KRYLOV_CASES]
+    torch.cuda.synchronize()
+    _cuda.KERNEL_LAUNCHES.clear()
+    ksols, kcounts, kwall = [], [], []
+    for (W, params, bcs, _, _), (_, _, preset, *_) in zip(ksetups, KRYLOV_CASES):
+        before = dict(_cuda.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        ksols.append(solve_dpp(W, params, bcs, solver_parameters=getattr(sp, preset)))
+        torch.cuda.synchronize()
+        kwall.append(time.perf_counter() - t0)
+        kcounts.append({k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items()
+                        if v != before.get(k, 0)})
+    torch.cuda.synchronize()
+    krylov_launches = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"Krylov-path kernel launches, all cases: {krylov_launches}")
+    for name in KRYLOV_KERNELS:
+        check(krylov_launches.get(name, 0) > 0, f"{name} launched on the Krylov path")
+    launches.update({name: krylov_launches[name] for name in KRYLOV_KERNELS})
+
+    for (element, n, preset, count, slack, kernel), (W, params, bcs, _, _), sol, counts, wall in zip(
+        KRYLOV_CASES, ksetups, ksols, kcounts, kwall
+    ):
+        z1, z2 = sol.solution.data
+        its = sol.iteration_number
+        check(counts.get(kernel, 0) > 0, f"{element} N={n} {preset} ran {kernel}")
+        check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
+        check(z1.device == dev and tuple(z1.shape) == W.mesh.node_shape, "solution on the card")
+        # the true residual against the Newton-step system's initial one
+        op = DPPOperator(W, params)
+        r0 = float(newton_rhs(op, bcs).norm())
+        S = dpp_stencils(W.mesh, params)
+        g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
+        b1, b2 = fused_dpp_apply_plain(g1, g2, *S, mode="lift")
+        y1, y2 = fused_dpp_apply_plain(z1, z2, *S, mode="matvec")
+        rres = math.sqrt(float(((b1 - y1) ** 2).sum() + ((b2 - y2) ** 2).sum())) / r0
+        bound = 1e-5 if "JACOBI" in preset else 1e-7  # Jacobi stops on the preconditioned norm
+        line = (f"solve_dpp {element} N={n} {preset}: iterations {its} (published {count}"
+                f"{f' +-{slack}' if slack else ''}), launches {counts}, wall {wall * 1e3:.2f} ms "
+                f"({wall * 1e6 / max(its, 1):.2f} us/iteration), |b - A x| / |r0| {rres:.3e}")
+        check(abs(its - count) <= slack, f"{element} N={n} {preset} count")
+        check(rres < bound, f"{element} N={n} {preset} residual")
+        if n <= 16:
+            Wc, pc, bcc, _, _ = problem(element, n, "cpu")
+            ref = solve_dpp(Wc, pc, bcc, solver_parameters=getattr(sp, preset))
+            cpu_diff = max(rel(a.cpu(), r) for a, r in zip((z1, z2), ref.solution.data))
+            line += f", vs CPU twin path {cpu_diff:.3e} ({ref.iteration_number} iterations)"
+            # the inputs differ by K1's rounding of the lift; the solve
+            # amplifies that in plain GMRES's stagnation tail
+            check(ref.iteration_number == its and cpu_diff < 1e-8, f"{element} N={n} {preset} vs CPU")
+        print(line)
+    torch.cuda.synchronize()
+
+    # -- 6. end-to-end solve times ----------------------------------------
     for (element, n, preset), (W, params, bcs, _, _) in zip(cases, setups):
         if n < 64:
             continue
@@ -278,9 +402,9 @@ def main() -> int:
         ms = time_ms(lambda: solver(g1, g2), repeats=10)
         print(f"hex {n}^3 {preset}: lift + direct solve median {ms:.4f} ms (CUDA events, 10 runs) on {smi}")
     for name, r in results.items():
-        if name != "fused_dpp_apply":
+        if name not in ("fused_dpp_apply", "fused_gmres_df", "fused_gmres_ef64"):
             print(f"{name.split('@')[0]} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
-                  f"plain twin {r['plain_ms']:.4f} ms (median, CUDA events)")
+                  f"plain twin {r['plain_ms']:.4f} ms (median, CUDA events) on {smi}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],

@@ -57,6 +57,10 @@ _SIGNATURES = {
     # max_it, stream
     "perphil_fused_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _D, _I, _P],
+    # b, x0, dinv, x, V, result, weights, nz, ny, nx, dim, pc, rtol, atol,
+    # dtol, max_it, restart, stream
+    "perphil_fused_gmres": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _D, _D, _D, _I, _I, _P],
 }
 
 _LIB = None

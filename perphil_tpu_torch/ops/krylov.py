@@ -1,18 +1,168 @@
-"""Krylov solvers: preconditioned conjugate gradients.
+"""Krylov solvers: restarted GMRES and preconditioned conjugate gradients.
 
-Counterpart of ``perphil_tpu/ops/krylov.py::cg`` (GMRES is ROADMAP slice 2).
-The loop runs on the host and reads the residual norm back once per
-iteration; the operator and preconditioner run on the tensors' device.
+Counterpart of ``perphil_tpu/ops/krylov.py`` (``gmres``, ``gmres_ef64``,
+``cg``). The loops run on the host and read back once per iteration; the
+operator, the preconditioner and every vector operation run on the
+tensors' device.
+
+GMRES keeps PETSc's semantics so that iteration counts reproduce: restart
+30, classical Gram-Schmidt, left preconditioning with the preconditioned
+residual norm, ``rnorm <= max(rtol * rnorm0, atol)`` and divergence at
+``rnorm > dtol * rnorm0``. Its rounding is part of the specification: every
+dot product, norm and basis combination is a pairwise halving tree
+(:func:`tree_sum`), the Givens chain and the back-substitution are
+sequential scalar f64, and no multiply is fused into an add. The fused
+kernel (``ops/fused_gmres.py``, ``csrc/fused_gmres.cu``) reproduces this
+arithmetic bit for bit.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 Op = Callable[[torch.Tensor], torch.Tensor]
+
+#: PETSc's ``KSPConvergedDefault`` divergence tolerance (divtol) default.
+DEFAULT_DTOL = 1.0e4
+
+
+class KrylovResult(NamedTuple):
+    x: torch.Tensor
+    iterations: int
+    residual_norm: float
+    converged: bool
+
+
+def tree_sum(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum along ``dim`` as a pairwise halving tree: zero-pad to a power of
+    two ``L``, then ``p[:L/2] + p[L/2:]`` until one entry is left
+    (``perphil_tpu/ops/krylov.py:625-646``). Padding further with zeros
+    leaves the result unchanged, which lets the kernel pad to its thread
+    count."""
+    size = p.shape[dim]
+    width = 1 << max(0, (size - 1).bit_length())
+    if width != size:
+        pad = list(p.shape)
+        pad[dim] = width - size
+        p = torch.cat([p, p.new_zeros(pad)], dim=dim)
+    while width > 1:
+        width //= 2
+        p = p.narrow(dim, 0, width) + p.narrow(dim, width, width)
+    return p.select(dim, 0)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    v = v.reshape(-1)
+    return torch.sqrt(tree_sum(v * v))
+
+
+def _givens(col: List[float], cs: List[float], sn: List[float], j: int) -> Tuple[float, float]:
+    """Apply the stored rotations 0..j-1 to Hessenberg column ``col``
+    (entries 0..j+1), then the new rotation j that zeroes ``col[j+1]``;
+    stores rotation j in ``cs``/``sn`` and returns it as ``(c, s)``."""
+    for i in range(j):
+        hi, hi1 = col[i], col[i + 1]
+        col[i] = cs[i] * hi + sn[i] * hi1
+        col[i + 1] = -sn[i] * hi + cs[i] * hi1
+    a, b = col[j], col[j + 1]
+    denom = math.sqrt(a * a + b * b)
+    c, s = (a / denom, b / denom) if denom > 0.0 else (1.0, 0.0)
+    cs[j], sn[j] = c, s
+    col[j] = c * a + s * b
+    return c, s
+
+
+def _back_substitute(R: List[List[float]], g: List[float], j: int) -> List[float]:
+    """Solve the upper-triangular ``R[:j, :j] y = g[:j]`` (R by columns),
+    rows from the bottom, each sum left to right."""
+    y = [0.0] * j
+    for i in range(j - 1, -1, -1):
+        s = g[i]
+        for k in range(i + 1, j):
+            s = s - R[k][i] * y[k]
+        y[i] = s / R[i][i]
+    return y
+
+
+def gmres(
+    A: Op,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    rtol: float = 1.0e-5,
+    atol: float = 1.0e-50,
+    max_it: int = 10000,
+    restart: int = 30,
+    M_inv: Optional[Op] = None,
+    dtol: float = DEFAULT_DTOL,
+) -> KrylovResult:
+    """Left-preconditioned restarted GMRES, PETSc-compatible.
+
+    :param A: matrix-free operator on tensors of ``b``'s shape.
+    :param M_inv: left preconditioner application (None = identity).
+    Stops on convergence, ``max_it``, divergence, a non-finite residual
+    estimate, or a restart cycle that made no step. Returns
+    ``KrylovResult(x, iterations, residual_norm, converged)``.
+    """
+    P = M_inv or (lambda v: v)
+    shape, m = b.shape, int(restart)
+    x = torch.zeros_like(b) if x0 is None else x0
+    rnorm = float(_norm(P(b - A(x))))
+    tol = max(rtol * rnorm, atol)
+    div = dtol * rnorm
+    its = 0
+    done = rnorm <= tol
+    while not done:
+        r = P(b - A(x)).reshape(-1)
+        beta_t = _norm(r)
+        beta = float(beta_t)
+        V = r.new_zeros((m + 1, r.numel()))
+        V[0] = r / beta_t if beta > 0.0 else r
+        R = [[0.0] * m for _ in range(m)]  # R[k] is column k
+        g = [beta] + [0.0] * m
+        cs, sn = [0.0] * m, [0.0] * m
+        j, rnorm = 0, beta
+        while j < m and its < max_it and rnorm > max(tol, 0.0) and rnorm <= div:
+            w = P(A(V[j].view(shape))).reshape(-1)
+            h = tree_sum(V[: j + 1] * w, dim=1)
+            w = w - tree_sum(h[:, None] * V[: j + 1], dim=0)
+            hj1_t = _norm(w)
+            col = torch.cat([h, hj1_t[None]]).tolist()  # the one read-back
+            V[j + 1] = w / hj1_t if col[j + 1] > 0.0 else w
+            c, s = _givens(col, cs, sn, j)
+            R[j][: j + 1] = col[: j + 1]
+            gj = g[j]
+            g[j], g[j + 1] = c * gj, -s * gj
+            rnorm = abs(g[j + 1])
+            j += 1
+            its += 1
+        if j > 0:
+            y = torch.tensor(_back_substitute(R, g, j), dtype=b.dtype, device=b.device)
+            x = x + tree_sum(y[:, None] * V[:j], dim=0).view(shape)
+        done = (
+            rnorm <= tol or its >= max_it or rnorm > div or not math.isfinite(rnorm) or j == 0
+        )
+    return KrylovResult(x, its, rnorm, rnorm <= tol)
+
+
+def gmres_ef64(
+    A: Op,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    rtol: float = 1.0e-5,
+    atol: float = 1.0e-50,
+    max_it: int = 10000,
+    restart: int = 30,
+    dtol: float = DEFAULT_DTOL,
+) -> KrylovResult:
+    """Unpreconditioned :func:`gmres`: counterpart of
+    ``perphil_tpu/ops/krylov.py::gmres_ef64``, the twin of the f64-faithful
+    TPU kernel. The JAX package needs it apart because the TPU has no f64
+    and emulates it; in native f64, with the halving-tree reductions, it and
+    :func:`gmres` are one algorithm."""
+    return gmres(A, b, x0, rtol, atol, max_it, restart, None, dtol)
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

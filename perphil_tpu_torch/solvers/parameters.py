@@ -3,8 +3,8 @@
 Counterpart of ``perphil_tpu/solvers/parameters.py``: the same 11 preset
 dictionaries plus ``TPU_DIRECT_PARAMS``, with the same PETSc-style keys and
 values, so option dicts written for either package are interchangeable.
-``perphil_tpu_torch.solvers.solver`` runs the direct-solve presets
-(``ksp_type: preonly`` + ``pc_type: lu``); every other option path raises
+``perphil_tpu_torch.solvers.solver`` runs the direct-solve presets and the
+Krylov ones with ``pc_type`` none or jacobi; every other option path raises
 ``NotImplementedError`` naming the ROADMAP slice that ports it.
 """
 

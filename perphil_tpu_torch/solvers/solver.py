@@ -1,10 +1,11 @@
-"""Linear DPP solves: the direct-solve main path.
+"""Linear DPP solves: direct and Krylov.
 
-Counterpart of ``perphil_tpu/solvers/solver.py`` for ``ksp_type: preonly``
-with ``pc_type: lu`` (``LINEAR_SOLVER_PARAMS``, ``TPU_DIRECT_PARAMS``). The
-routing is the JAX package's accelerator route, the same on every device;
-the device only decides whether a kernel wrapper launches CUDA or runs its
-plain twin:
+Counterpart of ``perphil_tpu/solvers/solver.py`` for ``ksp_type`` preonly,
+gmres and cg with ``pc_type`` lu/cholesky, none and jacobi. The routing is
+the JAX package's accelerator route, the same on every device; the device
+only decides whether a kernel wrapper launches CUDA or runs its plain twin.
+
+Direct (``preonly`` + lu; ``LINEAR_SOLVER_PARAMS``, ``TPU_DIRECT_PARAMS``):
 
   - quad/hex inside the fused envelope   -> K2 ``fused_direct_solve``
   - quad/hex beyond it                   -> ``MixedPrecisionDPPDirect``
@@ -13,8 +14,19 @@ plain twin:
   - tri/tet beyond it                    -> ``cg`` to 1e-13 with the lumped
                                             fast-diag preconditioner (K1 matvec)
 
-The RHS lift is K1 in lift mode. A preonly solve reports 1 iteration and
-residual 0.0 (PETSc semantics). Every other option path raises
+A preonly solve reports 1 iteration and residual 0.0 (PETSc semantics).
+
+Krylov (``PLAIN_GMRES_PARAMS``, ``GMRES_JACOBI_PARAMS``, ``ksp_type: cg``)
+solves the Newton-step system ``A d = b - A x0`` with x0 the BC lift, as
+Firedrake's KSP-only SNES does, and returns ``x0 + d``:
+
+  - gmres, pc none, at most 512 DoF, inside the fused GMRES envelope
+                                         -> K5 ``fused_gmres_ef64``
+  - gmres, pc none/jacobi, inside it     -> K4 ``fused_gmres_df``
+  - gmres otherwise                      -> ``krylov.gmres`` (K1 matvec)
+  - cg                                   -> ``krylov.cg`` (K1 matvec)
+
+The RHS lift is K1 in lift mode. Every other option path raises
 ``NotImplementedError`` naming the ROADMAP slice that ports it.
 
 Solvers are cached on ``(W, params, frozen options)``; ``W`` carries the
@@ -25,7 +37,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Callable, Dict, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -39,7 +51,15 @@ from perphil_tpu_torch.ops.fused_direct import (
     fused_simplicial_direct_solve,
     fused_simplicial_direct_supported,
 )
-from perphil_tpu_torch.ops.krylov import cg
+from perphil_tpu_torch.ops.fused_gmres import (
+    EF64_MAX_DOF,
+    K4,
+    K5,
+    MAX_RESTART,
+    FusedGMRESSolver,
+    fused_gmres_supported,
+)
+from perphil_tpu_torch.ops.krylov import cg, gmres
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
 from perphil_tpu_torch.solvers.options import apply_prefix_overrides
 
@@ -48,8 +68,6 @@ _DIRECT_MAX_IT = 2000
 
 # pc_type -> the ROADMAP slice that ports it
 _PC_SLICES = {
-    "none": "slice 2 (Krylov)",
-    "jacobi": "slice 2 (Krylov)",
     "fieldsplit": "slice 3 (fieldsplit)",
     "ilu": "slice 4 (ILU)",
 }
@@ -115,6 +133,62 @@ def _monolithic_direct(op: DPPOperator) -> Callable:
     return solve
 
 
+def _monolithic_pc(op: DPPOperator, flat: Dict[str, object]) -> Optional[Callable]:
+    """Left preconditioner on stacked fields ``(2, *node_shape)`` from
+    PETSc-style options: None for pc none, else ``r -> P r``."""
+    pc_type = str(flat.get("pc_type", "none"))
+    if pc_type == "none":
+        return None
+    if pc_type == "jacobi":
+        dinv = (1.0 / op.diagonal()).reshape((2,) + op.grid_shape)
+        return lambda r: dinv * r
+    if pc_type in ("lu", "cholesky"):
+        direct = _monolithic_direct(op)
+        return lambda r: torch.stack(direct(r[0], r[1]))
+    where = _PC_SLICES.get(pc_type, "a later ROADMAP slice")
+    raise NotImplementedError(f"pc_type={pc_type!r} is ported in ROADMAP {where}")
+
+
+def _krylov_kind(op: DPPOperator, flat: Dict[str, object]) -> str:
+    """Which solver serves a Krylov solve, as the JAX package's accelerator
+    route picks it: K5 or K4 (the fused GMRES roles), or ``"gmres"`` /
+    ``"cg"`` (host loops with the K1 matvec)."""
+    ksp = str(flat.get("ksp_type", "gmres"))
+    pc_type = str(flat.get("pc_type", "none"))
+    restart = int(flat.get("ksp_gmres_restart", 30))
+    if ksp == "gmres" and restart <= MAX_RESTART and fused_gmres_supported(op, pc_type):
+        return K5 if pc_type == "none" and op.W.dim() <= EF64_MAX_DOF else K4
+    return ksp
+
+
+def _krylov_route(op: DPPOperator, flat: Dict[str, object]) -> Callable:
+    """The Krylov solve of ``A d = r`` from ``d = 0``,
+    ``r -> (d, iterations, residual_norm)``."""
+    kind = _krylov_kind(op, flat)
+    pc_type = str(flat.get("pc_type", "none"))
+    pc = _monolithic_pc(op, flat)
+    kw = dict(
+        rtol=float(flat.get("ksp_rtol", 1e-5)),
+        atol=float(flat.get("ksp_atol", 1e-50)),
+        max_it=int(flat.get("ksp_max_it", 10000)),
+    )
+    mv = op.stacked_matvec()
+    if kind == "cg":
+        return lambda r: cg(mv, r, M_inv=pc, **kw)
+    kw["restart"] = int(flat.get("ksp_gmres_restart", 30))
+    if kind in (K4, K5):
+        run = FusedGMRESSolver(op, pc_type, kind, **kw)
+    else:
+        def run(r: torch.Tensor):
+            return gmres(mv, r, M_inv=pc, **kw)
+
+    def solve(r: torch.Tensor):
+        res = run(r)
+        return res.x, res.iterations, res.residual_norm
+
+    return solve
+
+
 @lru_cache(maxsize=64)
 def _build_linear_solver(
     W: MixedFunctionSpace,
@@ -125,29 +199,53 @@ def _build_linear_solver(
     boundary-value grids g1, g2."""
     flat = dict(frozen_sp)
     ksp = str(flat.get("ksp_type", "gmres"))
-    if ksp != "preonly":
-        raise NotImplementedError(f"ksp_type={ksp!r} is ported in ROADMAP slice 2 (Krylov)")
-    pc_type = str(flat.get("pc_type", "lu"))
-    if pc_type not in ("lu", "cholesky"):
-        where = _PC_SLICES.get(pc_type, "a later ROADMAP slice")
-        raise NotImplementedError(f"pc_type={pc_type!r} is ported in ROADMAP {where}")
-    if (
-        str(flat.get("pc_factor_mat_solver_type", "")) == "fastdiag_mixed"
-        and not W.mesh.is_tensor_product
-    ):
-        raise ValueError("fastdiag_mixed needs quad/hex cells")
-    # on quad/hex meshes both direct presets take the mixed-precision route:
-    # K2 in the envelope, f32 fast-diag + K1 refinement beyond it
     op = DPPOperator(W, params)
-    direct = _monolithic_direct(op)
+    if ksp == "preonly":
+        pc_type = str(flat.get("pc_type", "lu"))
+        if pc_type in ("lu", "cholesky"):
+            if (
+                str(flat.get("pc_factor_mat_solver_type", "")) == "fastdiag_mixed"
+                and not W.mesh.is_tensor_product
+            ):
+                raise ValueError("fastdiag_mixed needs quad/hex cells")
+            # on quad/hex meshes both direct presets take the mixed-precision
+            # route: K2 in the envelope, f32 fast-diag + K1 refinement beyond it
+            direct = _monolithic_direct(op)
+        else:
+            pc = _monolithic_pc(op, flat)
 
-    def solve_preonly(g1: torch.Tensor, g2: torch.Tensor):
+            def direct(b1: torch.Tensor, b2: torch.Tensor):
+                return (b1, b2) if pc is None else tuple(pc(torch.stack([b1, b2])))
+
+        def solve_preonly(g1: torch.Tensor, g2: torch.Tensor):
+            b1, b2 = op.lifted_rhs(g1, g2)
+            z1, z2 = direct(b1, b2)
+            # preonly reports 1 iteration and residual 0.0 (PETSc semantics)
+            return z1, z2, 1, 0.0
+
+        return solve_preonly
+
+    if ksp not in ("gmres", "cg"):
+        raise ValueError(f"Unsupported ksp_type: {ksp!r}")
+    if flat.get("_x0_continuation"):
+        raise NotImplementedError(
+            "the chunked continuation (_x0_continuation) is ported in ROADMAP slice 10 "
+            "(experiments and tooling)"
+        )
+    krylov = _krylov_route(op, flat)
+    bdry = op._mask_arrays[0]
+
+    def solve_krylov(g1: torch.Tensor, g2: torch.Tensor):
+        # the Newton-step system A d = b - A x0 with x0 the BC lift: the
+        # convergence test is relative to the interior-scale ||r0||
         b1, b2 = op.lifted_rhs(g1, g2)
-        z1, z2 = direct(b1, b2)
-        # preonly reports 1 iteration and residual 0.0 (PETSc semantics)
-        return z1, z2, 1, 0.0
+        x01 = torch.where(bdry, g1, 0.0)
+        x02 = torch.where(bdry, g2, 0.0)
+        r1, r2 = op.residual(x01, x02, b1, b2)
+        d, its, rnorm = krylov(torch.stack([r1, r2]))
+        return x01 + d[0], x02 + d[1], its, rnorm
 
-    return solve_preonly
+    return solve_krylov
 
 
 def solve_dpp(

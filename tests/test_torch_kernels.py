@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K3 against their plain PyTorch twins, on the
+"""The port's CUDA kernels K1-K5 against their plain PyTorch twins, on the
 card. A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 (marker ``cuda``) and skips without one; run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``."""
@@ -12,6 +12,7 @@ from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_plain
 from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
+from perphil_tpu_torch.ops.fused_gmres import K4, K5, FusedGMRESSolver
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +99,44 @@ def test_k3_matches_twin(cuda, element, cells):
     xp, its_p = k3.plain(b)
     assert _rel(x, xp) <= 1e-11
     assert abs(int(its.item()) - its_p) <= 2
+
+
+GMRES_ROLES = [(K5, "none"), (K4, "none"), (K4, "jacobi")]
+
+
+@pytest.mark.parametrize("role,pc", GMRES_ROLES, ids=["k5", "k4-none", "k4-jacobi"])
+@pytest.mark.parametrize(
+    "element,cells", [("quad", (8, 8)), ("quad", (16, 16)), ("tet", (4, 4, 4))],
+    ids=["quad8", "quad16", "tet4"],
+)
+def test_fused_gmres_matches_twin(cuda, element, cells, role, pc):
+    """Bit-level agreement is the target: the kernel keeps the twin's
+    halving trees and rounds every multiply and add on its own."""
+    state = _state(element, cells, cuda, seed=3)
+    op = DPPOperator(state.W, state.params)
+    solver = FusedGMRESSolver(op, pc, role, rtol=1e-8, atol=1e-12, max_it=5000)
+    b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
+    before = _cuda.KERNEL_LAUNCHES[role]
+    got = solver.launch(b)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[role] == before + 1
+    ref = solver.plain(b)
+    assert got.iterations == ref.iterations > 0
+    assert got.converged == ref.converged
+    assert _rel(got.x, ref.x) <= 1e-13
+
+
+def test_fused_gmres_rejects_bad_inputs(cuda):
+    state = _state("quad", (4, 4), cuda)
+    solver = FusedGMRESSolver(DPPOperator(state.W, state.params), "jacobi")
+    b = torch.stack(state.grids).contiguous()
+    with pytest.raises(ValueError):
+        solver.launch(b.cpu())
+    with pytest.raises(ValueError):
+        solver.launch(b, x0=b.cpu())
+    with pytest.raises(TypeError):
+        solver.launch(b.float())
+    with pytest.raises(ValueError):
+        solver.launch(b[:, :-1].contiguous())
+    with pytest.raises(ValueError):
+        solver.launch(b.transpose(1, 2))

@@ -1,7 +1,7 @@
 """The port's main path end to end: ``solve_dpp`` with the direct presets
 against the reference's golden errors and against the JAX package's
-``solve_dpp`` on the same systems, the error norms, and the option paths
-that are not ported yet."""
+``solve_dpp`` on the same systems, the error norms, the Krylov option paths
+that now run, and the option paths that are not ported yet."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -143,12 +143,12 @@ def test_cpu_solve_launches_no_kernel_and_caches():
 
 
 NOT_PORTED = [
-    (sp.PLAIN_GMRES_PARAMS, "slice 2"),
-    (sp.GMRES_JACOBI_PARAMS, "slice 2"),
-    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS}, "slice 2"),
+    (sp.GMRES_ILU_PARAMS, "slice 4"),
+    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_ILU_PARAMS}, "slice 3"),
+    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS}, "slice 3"),
     ({"ksp_type": "preonly", "pc_type": "fieldsplit"}, "slice 3"),
     ({"ksp_type": "preonly", "pc_type": "ilu"}, "slice 4"),
-    ({"ksp_type": "preonly", "pc_type": "jacobi"}, "slice 2"),
+    ({**sp.PLAIN_GMRES_PARAMS, "_x0_continuation": True}, "slice 10"),
 ]
 
 
@@ -157,6 +157,27 @@ def test_unported_options_raise(params, where):
     state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
     with pytest.raises(NotImplementedError, match=where):
         solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
+
+
+# formerly in NOT_PORTED: the Krylov slice runs them (quad N=4, manufactured
+# solution; counts as in tests/test_torch_krylov.py)
+PORTED = [
+    (sp.PLAIN_GMRES_PARAMS, 10),
+    (sp.GMRES_JACOBI_PARAMS, 9),
+    ({"ksp_type": "preonly", "pc_type": "jacobi"}, 1),
+]
+
+
+@pytest.mark.parametrize("params,its", PORTED, ids=["plain-gmres", "gmres-jacobi", "preonly-jacobi"])
+def test_krylov_options_run(params, its):
+    mesh = create_mesh(4, 4)
+    _, V = create_function_spaces(mesh)
+    W = mixed_space(V)
+    p = DPPParameters()
+    _, p1e, _, p2e = exact_expressions(mesh, p)
+    sol = solve_dpp(W, p, [DirichletBC(W.sub(0), p1e), DirichletBC(W.sub(1), p2e)], solver_parameters=params)
+    assert sol.iteration_number == its
+    assert all(bool(torch.isfinite(d).all()) for d in sol.solution.data)
 
 
 def test_unported_entry_points_raise():
