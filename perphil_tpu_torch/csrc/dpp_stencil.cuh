@@ -140,8 +140,9 @@ __device__ __forceinline__ int node_to_interior(const Grid& g, int k, int j, int
   return ((D == 3 ? k - 1 : 0) * (g.ny - 2) + (j - 1)) * (g.nx - 2) + (i - 1);
 }
 
-// One axis of the separable eigen-transform on the interior grids of both
-// fields (2 * nint values, field-major). S is n x n, row-major, eigenvectors
+// One axis of the separable eigen-transform on the interior grids of
+// `nfields` fields (nfields * nint values, field-major; both by default). S
+// is n x n, row-major, eigenvectors
 // in its columns (scipy's eigh). kForward applies S^T (analysis), otherwise
 // S (synthesis). `stride` is the axis stride inside one interior grid. Each
 // thread writes distinct outputs; the caller synchronises after.
@@ -149,8 +150,9 @@ __device__ __forceinline__ int node_to_interior(const Grid& g, int k, int j, int
 // it would allow non-coherent (read-only cache) loads of data that changes
 // between phases.
 template <typename T, bool kForward>
-__device__ void transform_axis(const T* in, T* out, const T* S, int n, int stride, int nint) {
-  for (int e = threadIdx.x; e < 2 * nint; e += blockDim.x) {
+__device__ void transform_axis(const T* in, T* out, const T* S, int n, int stride, int nint,
+                               int nfields = 2) {
+  for (int e = threadIdx.x; e < nfields * nint; e += blockDim.x) {
     const int c = ((e % nint) / stride) % n;
     const T* line = in + (e - c * stride);
     T acc = T(0);
@@ -165,7 +167,7 @@ __device__ void transform_axis(const T* in, T* out, const T* S, int n, int strid
 // the buffer that holds the result (w0 or w1).
 template <typename T, int D, bool kForward>
 __device__ T* transform_all(T* w0, T* w1, const T* Sx, const T* Sy, const T* Sz,
-                            const Grid& g, int nint) {
+                            const Grid& g, int nint, int nfields = 2) {
   const int ix = g.nx - 2, iy = g.ny - 2, iz = D == 3 ? g.nz - 2 : 1;
   T* cur = w0;
   T* nxt = w1;
@@ -173,7 +175,7 @@ __device__ T* transform_all(T* w0, T* w1, const T* Sx, const T* Sy, const T* Sz,
   const int ns[3] = {ix, iy, iz};
   const int strides[3] = {1, ix, ix * iy};
   for (int a = 0; a < D; ++a) {
-    transform_axis<T, kForward>(cur, nxt, mats[a], ns[a], strides[a], nint);
+    transform_axis<T, kForward>(cur, nxt, mats[a], ns[a], strides[a], nint, nfields);
     __syncthreads();
     T* t = cur;
     cur = nxt;

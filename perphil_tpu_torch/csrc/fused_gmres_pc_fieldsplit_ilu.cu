@@ -1,0 +1,9 @@
+// The fused GMRES kernel for K8: pc fieldsplit_ilu (fused_gmres.cuh).
+
+#include "fused_gmres_kernel.cuh"
+
+namespace perphil {
+
+template void launch_fused_gmres<kPcFieldsplitIlu>(const GmresArgs&, cudaStream_t);
+
+}  // namespace perphil

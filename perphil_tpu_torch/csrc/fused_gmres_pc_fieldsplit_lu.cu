@@ -1,0 +1,9 @@
+// The fused GMRES kernel for K6: pc fieldsplit_lu (fused_gmres.cuh).
+
+#include "fused_gmres_kernel.cuh"
+
+namespace perphil {
+
+template void launch_fused_gmres<kPcFieldsplitLu>(const GmresArgs&, cudaStream_t);
+
+}  // namespace perphil

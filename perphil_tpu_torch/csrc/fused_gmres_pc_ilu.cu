@@ -1,0 +1,9 @@
+// The fused GMRES kernel for K7: pc ilu (fused_gmres.cuh).
+
+#include "fused_gmres_kernel.cuh"
+
+namespace perphil {
+
+template void launch_fused_gmres<kPcIlu>(const GmresArgs&, cudaStream_t);
+
+}  // namespace perphil

@@ -1,0 +1,10 @@
+// The fused GMRES kernel for K4/K5: pc none and jacobi (fused_gmres.cuh).
+
+#include "fused_gmres_kernel.cuh"
+
+namespace perphil {
+
+template void launch_fused_gmres<kPcNone>(const GmresArgs&, cudaStream_t);
+template void launch_fused_gmres<kPcJacobi>(const GmresArgs&, cudaStream_t);
+
+}  // namespace perphil

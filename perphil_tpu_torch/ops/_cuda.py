@@ -1,7 +1,8 @@
 """Build, load and launch the package's CUDA kernels.
 
 The sources under ``perphil_tpu_torch/csrc/`` (``*.cu``, ``*.cuh``) are
-compiled at first use with ``nvcc`` into one shared library with a plain C
+compiled at first use with ``nvcc`` (one process per ``.cu``, all started
+together, then one link) into one shared library with a plain C
 interface, loaded with ``ctypes``. The library's name carries a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree reuses the
 build. Nothing here runs at import; a machine without ``nvcc`` fails only
@@ -24,7 +25,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -32,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "perphil_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 #: Launches per kernel name since the last ``clear()``.
@@ -57,13 +58,17 @@ _SIGNATURES = {
     # max_it, stream
     "perphil_fused_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _D, _I, _P],
-    # b, x0, dinv, x, V, result, weights, nz, ny, nx, dim, pc, rtol, atol,
-    # dtol, max_it, restart, stream
-    "perphil_fused_gmres": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _D, _D, _D, _I, _I, _P],
+    # b, x0, x, V, work, result, weights, mass, dinv, F0, F1, level_ptr,
+    # level_rows, ilu_meta, Sx, Sy, Sz, sc, nz, ny, nx, dim, pc, noffs, nlev,
+    # rtol, atol, dtol, max_it, restart, coef, in_rtol, in_atol, in_max,
+    # stream
+    "perphil_fused_gmres": [_P] * 18 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _P],
+    # r, z, y, F, level_ptr, level_rows, meta, noffs, nrows, nlev, stream
+    "perphil_structured_ilu_apply": [_P] * 7 + [_I, _I, _I, _P],
 }
 
 _LIB = None
+_BUILD_ERROR: Optional[RuntimeError] = None  # a failed build is not retried
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -90,30 +95,49 @@ def build() -> Path:
         BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-        capture_output=True, text=True,
-    )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        # one nvcc per source, all at once, then one link
+        objs, procs = [], []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = str(Path(tmpdir) / f"{src.stem}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        tmp = str(Path(tmpdir) / lib.name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True, text=True
+            )
+            logs.append(link.stdout + link.stderr)
+            failed = [link.returncode] if link.returncode != 0 else []
+        log = "\n".join(logs)
+        lib.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(tmp, lib)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    lib.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
     BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, log=log)
     return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first call)."""
-    global _LIB
+    global _LIB, _BUILD_ERROR
+    if _BUILD_ERROR is not None:
+        raise _BUILD_ERROR
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        try:
+            path = build()
+        except RuntimeError as err:
+            _BUILD_ERROR = err
+            raise
+        lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -142,7 +166,10 @@ def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device):
-    """Validate one kernel argument: device, dtype and contiguity."""
+    """Validate one kernel argument: a CUDA tensor on ``device``, its dtype
+    and contiguity."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}: the kernels take CUDA tensors")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -1,10 +1,12 @@
 """Operator assembly with Dirichlet boundary conditions.
 
 Counterpart of ``perphil_tpu/ops/assembly.py`` (the matrix-free monolithic
-operator). Dirichlet BCs are eliminated symmetrically: boundary rows and
-columns are zeroed with a unit diagonal, and the RHS is lifted. Both the
-matvec and the lift go through K1 (``ops/fused_apply.py``), which folds the
-box-boundary masking into the stencil pass.
+operator, the fieldsplit blocks and their coupling). Dirichlet BCs are
+eliminated symmetrically: boundary rows and columns are zeroed with a unit
+diagonal, and the RHS is lifted. The monolithic matvec and lift go through
+K1 (``ops/fused_apply.py``), which folds the box-boundary masking into the
+stencil pass; the blocks (``FieldOperator``, ``coupling_apply``) are plain
+stencil passes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from perphil_tpu_torch.forms.spaces import Expr, FunctionSpace, MixedFunctionSpa
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply
-from perphil_tpu_torch.ops.stencil import compile_stencils
+from perphil_tpu_torch.ops.stencil import apply_stencil, compile_stencils
 
 
 @dataclass(frozen=True)
@@ -172,3 +174,73 @@ class DPPOperator:
             for S in (S1, S2)
         ]
         return torch.cat(d)
+
+
+@dataclass(frozen=True)
+class FieldOperator:
+    """One diagonal block ``(k/mu) K + (beta/mu) M`` with BC elimination:
+    the fieldsplit preconditioner blocks. Counterpart of
+    ``perphil_tpu/ops/assembly.py::FieldOperator`` (``matvec``,
+    ``mass_apply``, ``lifted_rhs``, ``stencil``), in ``apply_stencil``'s
+    order on the space's device."""
+
+    V: FunctionSpace
+    k: float
+    beta: float
+    mu: float
+    padding: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        _masks(self.V.mesh, self.padding)  # rejects padding
+
+    @property
+    def mesh(self) -> StructuredMesh:
+        return self.V.mesh
+
+    @cached_property
+    def _mask_arrays(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        bdry, interior = _masks(self.mesh)
+        dev = self.V.device
+        return torch.as_tensor(bdry, device=dev), torch.as_tensor(interior, device=dev)
+
+    @cached_property
+    def stencil(self) -> np.ndarray:
+        K_st, M_st = compile_stencils(self.mesh)
+        return (self.k / self.mu) * K_st + (self.beta / self.mu) * M_st
+
+    def matvec(self, z: torch.Tensor) -> torch.Tensor:
+        """Identity boundary rows, the stencil on the interior-masked input."""
+        bdry, interior = self._mask_arrays
+        y = apply_stencil(torch.where(interior, z, 0.0), self.stencil)
+        return torch.where(bdry, z, y)
+
+    def mass_apply(self, z: torch.Tensor) -> torch.Tensor:
+        """Interior-stencil consistent-mass application ``(beta/mu) M z``;
+        not exact on boundary rows (callers discard them)."""
+        _, M_st = compile_stencils(self.mesh)
+        return (self.beta / self.mu) * apply_stencil(z, M_st)
+
+    def lifted_rhs(self, g: torch.Tensor, f: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """RHS of ``A z = f`` with boundary values ``g``; ``f`` is a full
+        load vector or None for zero forcing."""
+        bdry, _ = self._mask_arrays
+        lift = apply_stencil(torch.where(bdry, g, 0.0), self.stencil)
+        b = -lift if f is None else f - lift
+        return torch.where(bdry, g, b)
+
+
+def coupling_apply(
+    mesh: StructuredMesh, params: DPPParameters, device: torch.device
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The off-diagonal block ``C = -(beta/mu) M`` with BC rows and columns
+    zeroed, on one field's grid: ``coef * apply_stencil(z_interior, M)``
+    (``perphil_tpu/solvers/solver.py::_coupling_apply``)."""
+    _, M_st = compile_stencils(mesh)
+    bdry = torch.as_tensor(mesh.boundary_mask(), device=device)
+    coef = -(params.beta / params.mu)
+
+    def C(z: torch.Tensor) -> torch.Tensor:
+        zi = torch.where(bdry, 0.0, z)
+        return torch.where(bdry, 0.0, coef * apply_stencil(zi, M_st))
+
+    return C

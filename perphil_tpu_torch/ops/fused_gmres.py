@@ -1,57 +1,86 @@
-"""K4 and K5: the whole restarted GMRES(m) solve in one kernel launch, on
-small meshes.
+"""K4-K8: the whole restarted GMRES(m) solve in one kernel launch, on small
+meshes, with the preconditioner inside the kernel.
 
-Counterpart of ``perphil_tpu/ops/pallas_gmres.py`` for pc ``none`` and
-``jacobi``:
+Counterpart of ``perphil_tpu/ops/pallas_gmres.py``:
 
-  - **K4** :func:`fused_gmres_df`, the TPU's double-float cycle kernel;
+  - **K4** :func:`fused_gmres_df` with pc ``none`` or ``jacobi``, the TPU's
+    double-float cycle kernel;
   - **K5** :func:`fused_gmres_ef64`, the TPU's f64-faithful kernel for
-    unpreconditioned systems of at most 512 DoF.
+    unpreconditioned systems of at most 512 DoF;
+  - **K6** pc ``fieldsplit_lu``: the multiplicative 2x2 fieldsplit whose
+    blocks are inner PCGs to 1e-13 with a fast-diag preconditioner (the
+    consistent eigenbasis on quad/hex meshes, the lumped one on tri/tet);
+  - **K7** pc ``ilu``: monolithic ILU(0) as wavefront sweeps;
+  - **K8** pc ``fieldsplit_ilu``: K6's frame with inner ILU(0)-PCG to
+    1e-8 / 1e-12 on the per-field factors.
 
-The TPU needs the two only because it has no f64. Here both roles run one
-native-f64 kernel, ``csrc/fused_gmres.cu``, whose arithmetic is
-:func:`perphil_tpu_torch.ops.krylov.gmres` with the plain matvec
-(``fused_dpp_apply_plain``) bit for bit; a launch counts under the role's
-TPU kernel name. Vectors are stacked ``(2, *node_shape)`` f64 tensors.
+K6-K8 are ``pc_type`` branches of the TPU's one cycle kernel
+(``_build_cycle``); here all five roles run one native-f64 kernel,
+``csrc/fused_gmres.cu``, whose arithmetic is :func:`krylov.gmres` with the
+plain matvec (``fused_dpp_apply_plain``) and the preconditioner of
+:meth:`FusedGMRESSolver.plain`. A launch counts under the role's name
+(:data:`ROLES`). Vectors are stacked ``(2, *node_shape)`` f64 tensors.
+
+The fieldsplit roles' inner solve is the TPU kernel's: PCG from zero,
+``z0 = M rhs``, stopping on ``||r|| <= max(rtol ||rhs||, atol)`` or a
+non-finite norm (``pallas_gmres.py:1416-1474``), with every dot a
+:func:`krylov.tree_sum`. It stands in for the presets' inner ``preonly`` +
+LU (K6) and GMRES + ILU (K8) at matched tolerances; the outer count is 4
+either way.
 
 The envelope restates the JAX gate (``pallas_gmres.py:1155-1196``) on node
 counts: the TPU's packed layout puts a row of ``cols + 2`` nodes in 128
-lanes, lane-packs ``128 // (cols + 2)`` planes of a 3D grid side by side,
-stacks the two fields (or, on narrow 2D grids, puts them side by side) and
-needs the padded row count ``Rp`` to be at most 512, so that the
-double-float basis fits its VMEM budget.
+lanes, stacks the two fields (for pc none/jacobi it may lane-pack
+``128 // (cols + 2)`` planes of a 3D grid side by side, or put the two
+fields of a narrow 2D grid side by side) and pads the row count to a power
+of two ``Rp``; the double-float basis (2 x 32 planes of ``Rp x 128`` f32)
+and, for ILU, the factor planes must fit a 20 MiB VMEM budget.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from perphil_tpu_torch.ops import _cuda
-from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
+from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, coupling_apply, dpp_stencils
+from perphil_tpu_torch.ops.direct import FastDiagFieldSolver
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain, pack_weights
-from perphil_tpu_torch.ops.fused_direct import _check_device, _grid_args
-from perphil_tpu_torch.ops.krylov import DEFAULT_DTOL, KrylovResult, gmres
+from perphil_tpu_torch.ops.fused_direct import _axis_ptrs, _check_device, _grid_args
+from perphil_tpu_torch.ops.ilu import StructuredILU0, build_field_system
+from perphil_tpu_torch.ops.krylov import DEFAULT_DTOL, KrylovResult, gmres, tree_sum
+from perphil_tpu_torch.ops.stencil import compile_stencils
 
 K4 = "fused_gmres_df"
 K5 = "fused_gmres_ef64"
-PC_KINDS = {"none": 0, "jacobi": 1}
+K6 = "fused_gmres_df[fieldsplit_lu]"
+K7 = "fused_gmres_df[ilu]"
+K8 = "fused_gmres_df[fieldsplit_ilu]"
+PC_KINDS = {"none": 0, "jacobi": 1, "fieldsplit_lu": 2, "ilu": 3, "fieldsplit_ilu": 4}
+#: the role (launch-count name) of each preconditioner; K5 is pc none's
+#: other role
+ROLES = {"none": K4, "jacobi": K4, "fieldsplit_lu": K6, "ilu": K7, "fieldsplit_ilu": K8}
+#: inner PCG (rtol, atol, max_it) of the fieldsplit roles
+#: (``pallas_gmres.py:1402,1414``)
+INNER_TOLS = {"fieldsplit_lu": (1e-13, 0.0, 1000), "fieldsplit_ilu": (1e-8, 1e-12, 50000)}
 #: the kernel keeps the m + 1 <= 32 basis rows' coefficients in shared memory
 MAX_RESTART = 31
 #: systems the K5 role serves (pc none): at most this many DoF
 EF64_MAX_DOF = 512
 
 _LANES = 128
-_MAX_PACKED_ROWS = 512
+_VMEM_BUDGET = 20 * 1024 * 1024
+_WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _within_envelope(node_shape: Tuple[int, ...]) -> bool:
+def _within_envelope(node_shape: Tuple[int, ...], pc_type: str) -> bool:
     if len(node_shape) == 2:
         planes, (rows, cols) = 1, node_shape
     elif len(node_shape) == 3:
@@ -60,34 +89,48 @@ def _within_envelope(node_shape: Tuple[int, ...]) -> bool:
         return False
     if cols + 2 > _LANES:
         return False
-    group = max(1, min(planes, _LANES // (cols + 2))) if len(node_shape) == 3 else 1
+    lane_packed = pc_type in ("none", "jacobi")
+    group = max(1, min(planes, _LANES // (cols + 2))) if lane_packed and len(node_shape) == 3 else 1
     nblocks = -(-planes // group)
     field_lanes = (
-        len(node_shape) == 2 and 2 * (cols + 2) <= _LANES and _next_pow2(2 * (rows + 2)) >= 128
+        lane_packed and len(node_shape) == 2
+        and 2 * (cols + 2) <= _LANES and _next_pow2(2 * (rows + 2)) >= 128
     )
-    fields = 1 if field_lanes else 2
-    return _next_pow2(fields * nblocks * (rows + 2)) <= _MAX_PACKED_ROWS
+    Rp = _next_pow2((1 if field_lanes else 2) * nblocks * (rows + 2))
+    vbytes = 2 * 32 * Rp * _LANES * 4  # the hi+lo basis
+    if pc_type in ("ilu", "fieldsplit_ilu"):
+        # factor planes: 3 block shifts of 3^d offsets (monolithic), 3^d per field
+        vbytes += 3 ** len(node_shape) * (3 if pc_type == "ilu" else 1) * Rp * _LANES * 4
+    return vbytes <= _VMEM_BUDGET
 
 
 def fused_gmres_supported(op: DPPOperator, pc_type: str = "none") -> bool:
-    """Whether K4/K5 cover this operator and preconditioner."""
-    return pc_type in PC_KINDS and _within_envelope(tuple(op.mesh.node_shape))
+    """Whether the fused kernel covers this operator and preconditioner."""
+    return pc_type in PC_KINDS and _within_envelope(tuple(op.mesh.node_shape), pc_type)
+
+
+def _tree_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return tree_sum((u * v).reshape(-1))
 
 
 class FusedGMRESSolver(nn.Module):
     """GMRES(``restart``) on ``A x = b`` from ``x0``, left-preconditioned
-    by ``pc_type`` (``none`` or ``jacobi``), the whole solve in one launch.
-    ``role`` is the TPU kernel a launch counts under (K4 or K5, pc none).
+    by ``pc_type`` (a key of :data:`PC_KINDS`), the whole solve in one
+    launch. ``role`` is the name a launch counts under: ``ROLES[pc_type]``
+    by default, or K5 for pc none.
 
-    Buffer: ``dinv``, the inverse diagonal of the BC-eliminated operator
-    (``DPPOperator.diagonal``), for Jacobi.
+    Buffers, by preconditioner: ``dinv`` (jacobi), the inverse diagonal of
+    the BC-eliminated operator; ``ilu`` (ilu), the monolithic
+    ``StructuredILU0``; ``field_ilu`` (fieldsplit_ilu), one per field on a
+    shared level schedule; ``field_fd`` (fieldsplit_lu), the per-field
+    ``FastDiagFieldSolver`` (1D eigenbases, mode scales ``sc``).
     """
 
     def __init__(
         self,
         op: DPPOperator,
         pc_type: str = "none",
-        role: str = K4,
+        role: Optional[str] = None,
         rtol: float = 1.0e-5,
         atol: float = 1.0e-50,
         max_it: int = 10000,
@@ -95,34 +138,138 @@ class FusedGMRESSolver(nn.Module):
         dtol: float = DEFAULT_DTOL,
     ):
         super().__init__()
-        if role not in (K4, K5) or (role == K5 and pc_type != "none"):
+        if pc_type not in PC_KINDS:
+            raise ValueError(f"pc_type {pc_type!r} is not one of {sorted(PC_KINDS)}")
+        role = ROLES[pc_type] if role is None else role
+        if role != ROLES[pc_type] and not (role == K5 and pc_type == "none"):
             raise ValueError(f"role {role!r} with pc_type={pc_type!r}: K5 runs pc none only")
         if not fused_gmres_supported(op, pc_type):
             raise ValueError(f"mesh {op.mesh} with pc_type={pc_type!r} is outside the fused GMRES envelope")
         if not 1 <= restart <= MAX_RESTART:
             raise ValueError(f"restart {restart} outside 1..{MAX_RESTART}")
-        self.node_shape = tuple(op.mesh.node_shape)
+        mesh, p = op.mesh, op.params
+        self.node_shape = tuple(mesh.node_shape)
         self.device = op.W.device
         self.pc_type, self.role = pc_type, role
         self.rtol, self.atol, self.dtol = float(rtol), float(atol), float(dtol)
         self.max_it, self.restart = int(max_it), int(restart)
-        self.stencils = dpp_stencils(op.mesh, op.params)
+        self.inner_solves = self.inner_iterations = 0
+        self.stencils = dpp_stencils(mesh, p)
         dinv = None
         if pc_type == "jacobi":
             dinv = (1.0 / op.diagonal()).reshape((2,) + self.node_shape).contiguous()
         self.register_buffer("dinv", dinv)
+        self.ilu = StructuredILU0.for_monolithic(mesh, p, self.device) if pc_type == "ilu" else None
+        self.field_ilu = self.field_fd = self.mass = None
+        self.coef = 0.0
+        self.register_buffer("sc", None)
+        if pc_type.startswith("fieldsplit"):
+            ks = (p.k1, p.k2)
+            self.field_ops = [FieldOperator(op.W.sub(f), ks[f], p.beta, p.mu) for f in (0, 1)]
+            self.coupling = coupling_apply(mesh, p, self.device)
+            self.coef = -(p.beta / p.mu)
+            M_st = np.asarray(compile_stencils(mesh)[1], np.float64).ravel()
+            self.mass = np.zeros(27)  # the kernel's layout: zero-padded to 27
+            self.mass[: M_st.size] = M_st
+            if pc_type == "fieldsplit_ilu":
+                self.field_ilu = nn.ModuleList(
+                    StructuredILU0(build_field_system(mesh, k, p.beta, p.mu), self.device) for k in ks
+                )
+            else:
+                self.field_fd = nn.ModuleList(
+                    FastDiagFieldSolver(
+                        mesh, k, p.beta, p.mu, lumped=not mesh.is_tensor_product, device=self.device
+                    )
+                    for k in ks
+                )
+                self.sc = torch.stack([fd.mode_scale.reshape(-1) for fd in self.field_fd]).contiguous()
+
+    # -- the plain twin ---------------------------------------------------
+
+    def _inner_pc(self, f: int) -> Callable[[torch.Tensor], torch.Tensor]:
+        if self.field_ilu is not None:
+            return self.field_ilu[f].plain_grid
+        return self.field_fd[f].solve
+
+    def _inner_pcg(self, f: int, rhs: torch.Tensor) -> torch.Tensor:
+        """The fieldsplit roles' inner block solve (``pallas_gmres.py:1416-1474``)."""
+        rtol, atol, max_it = INNER_TOLS[self.pc_type]
+        A, M = self.field_ops[f].matvec, self._inner_pc(f)
+        rn0 = float(torch.sqrt(_tree_dot(rhs, rhs)))
+        t_rel = rn0 * rtol
+        tol = t_rel if t_rel > atol else atol
+        z = M(rhs)
+        rz = _tree_dot(z, rhs)
+        x, r, p = torch.zeros_like(rhs), rhs, z
+        done, its = not rn0 > tol, 0
+        while not done and its < max_it:
+            Ap = A(p)
+            alpha = rz / _tree_dot(p, Ap)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = M(r)
+            rz_new = _tree_dot(z, r)
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
+            rn = float(torch.sqrt(_tree_dot(r, r)))
+            its += 1
+            done = not rn > tol or not np.isfinite(rn)
+        self.inner_iterations += its
+        self.inner_solves += 1
+        return x
+
+    def plain_pc(self) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        """The preconditioner the kernel applies, in plain PyTorch, on
+        stacked ``(2, *node_shape)`` tensors (None for pc none)."""
+        if self.pc_type == "none":
+            return None
+        if self.pc_type == "jacobi":
+            dinv = self.dinv
+            return lambda r: dinv * r
+        if self.pc_type == "ilu":
+            return lambda r: self.ilu.plain(r.reshape(-1)).reshape(r.shape)
+
+        def fieldsplit(v: torch.Tensor) -> torch.Tensor:
+            y1 = self._inner_pcg(0, v[0])
+            return torch.stack([y1, self._inner_pcg(1, v[1] - self.coupling(y1))])
+
+        return fieldsplit
 
     def plain(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
-        """Plain PyTorch twin: ``krylov.gmres`` with the plain matvec."""
+        """Plain PyTorch twin: ``krylov.gmres`` with the plain matvec and
+        :meth:`plain_pc`. Afterwards ``inner_solves`` and
+        ``inner_iterations`` count the fieldsplit roles' inner PCG work."""
+        self.inner_solves = self.inner_iterations = 0
 
         def mv(z: torch.Tensor) -> torch.Tensor:
             return torch.stack(fused_dpp_apply_plain(z[0], z[1], *self.stencils, mode="matvec"))
 
-        dinv = self.dinv
-        pc = None if dinv is None else (lambda r: dinv * r)
         return gmres(
             mv, b, x0, rtol=self.rtol, atol=self.atol, max_it=self.max_it,
-            restart=self.restart, M_inv=pc, dtol=self.dtol,
+            restart=self.restart, M_inv=self.plain_pc(), dtol=self.dtol,
+        )
+
+    # -- the kernel -------------------------------------------------------
+
+    def _pc_args(self) -> Tuple:
+        """The launcher's preconditioner pointers: dinv, F0, F1, level_ptr,
+        level_rows, offset table (host), Sx, Sy, Sz, sc; then noffs, nlev."""
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        F0 = F1 = sched = None
+        if self.ilu is not None:
+            F0, sched = self.ilu.factors, self.ilu
+        elif self.field_ilu is not None:
+            F0, F1, sched = self.field_ilu[0].factors, self.field_ilu[1].factors, self.field_ilu[0]
+        axes = (None, None, None) if self.field_fd is None else _axis_ptrs(self.field_fd[0].mats)
+        return (
+            ptr(self.dinv), ptr(F0), ptr(F1),
+            None if sched is None else sched.level_ptr.data_ptr(),
+            None if sched is None else sched.level_rows.data_ptr(),
+            None if sched is None else sched.meta.ctypes.data,
+            *axes, ptr(self.sc),
+            0 if sched is None else len(sched.deltas),
+            0 if sched is None else sched.num_levels,
         )
 
     def launch(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
@@ -137,14 +284,21 @@ class FusedGMRESSolver(nn.Module):
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         x = torch.empty_like(b)
         basis = torch.empty((self.restart + 1) * b.numel(), dtype=torch.float64, device=b.device)
+        work = None
+        if PC_KINDS[self.pc_type] >= 2:
+            work = torch.empty(_WORK_PER_NODE * b[0].numel(), dtype=torch.float64, device=b.device)
         result = torch.empty(3, dtype=torch.float64, device=b.device)
         w = pack_weights(*self.stencils)
+        (dinv, F0, F1, lptr, lrows, meta, Sx, Sy, Sz, sc, noffs, nlev) = self._pc_args()
+        rtol_in, atol_in, max_in = INNER_TOLS.get(self.pc_type, (0.0, 0.0, 0))
         _cuda.launch(
             self.role, "perphil_fused_gmres", b.device,
-            b.data_ptr(), x0.data_ptr(), None if self.dinv is None else self.dinv.data_ptr(),
-            x.data_ptr(), basis.data_ptr(), result.data_ptr(), w.ctypes.data,
-            *_grid_args(self.node_shape), PC_KINDS[self.pc_type],
+            b.data_ptr(), x0.data_ptr(), x.data_ptr(), basis.data_ptr(),
+            None if work is None else work.data_ptr(), result.data_ptr(), w.ctypes.data,
+            None if self.mass is None else self.mass.ctypes.data, dinv, F0, F1, lptr, lrows, meta,
+            Sx, Sy, Sz, sc, *_grid_args(self.node_shape), PC_KINDS[self.pc_type], noffs, nlev,
             self.rtol, self.atol, self.dtol, self.max_it, self.restart,
+            self.coef, rtol_in, atol_in, max_in,
         )
         its, rnorm, converged = result.tolist()
         return KrylovResult(x, int(its), rnorm, bool(converged))
@@ -165,8 +319,8 @@ def fused_gmres_df(
     dtol: float = DEFAULT_DTOL,
     pc_type: str = "none",
 ) -> KrylovResult:
-    """K4: GMRES with pc ``none`` or ``jacobi`` in one launch."""
-    return FusedGMRESSolver(op, pc_type, K4, rtol, atol, max_it, restart, dtol)(b, x0)
+    """K4 (pc none/jacobi), K6, K7 or K8 (by ``pc_type``) in one launch."""
+    return FusedGMRESSolver(op, pc_type, None, rtol, atol, max_it, restart, dtol)(b, x0)
 
 
 def fused_gmres_ef64(

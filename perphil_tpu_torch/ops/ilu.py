@@ -1,0 +1,351 @@
+"""Structured ILU(0) with a wavefront schedule.
+
+Counterpart of ``perphil_tpu/ops/ilu.py`` for PETSc's ``pc_type: ilu``
+(``pc_factor_levels: 0``) in the natural, lexicographic field-major order.
+
+Every row of the structured system holds the same static offset list
+(block shift times the 3^d geometric stencil offsets); entries outside the
+grid are masked. With the level function
+
+    level(field, x, y, z) = x + 2 y + 4 z + field * (max|level step| + 1)
+
+every row depends only on rows of strictly lower levels, so each level is a
+data-parallel batch. The factorisation runs once on the host (numpy,
+vectorised per level). The application ``z = U^{-1} L^{-1} r`` is two
+wavefront sweeps: the lower offsets over the levels in order, then the
+upper offsets over the reversed levels and a divide by the diagonal.
+
+:class:`StructuredILU0` applies it in native f64. On a CUDA tensor it
+launches ``csrc/ilu_apply.cu`` (counted as ``structured_ilu_apply``; in the
+JAX package this apply is XLA, not Pallas); on a CPU tensor it runs the
+plain sweep, the order the kernel keeps bit for bit. The fused GMRES
+kernel (K7, K8) runs the same sweep on the same buffers.
+
+Not ported: the parallel-prefix trisolves (``DirTriSolve``, ``PartriILU``,
+``PartriGS``, ``ops/partri.py``), a second trisolve backend;
+``GaussSeidelSweeper`` and ``ColoredNGSSweeper`` (ROADMAP slice 5); the
+double-float defect-corrected apply (a TPU workaround for emulated f64).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from perphil_tpu_torch.config import DeviceLike, resolve_device
+from perphil_tpu_torch.mesh.structured import StructuredMesh
+from perphil_tpu_torch.models.dpp.parameters import DPPParameters
+from perphil_tpu_torch.ops import _cuda
+from perphil_tpu_torch.ops.stencil import compile_stencils
+
+KERNEL = "structured_ilu_apply"
+#: the kernels' fixed offset tables hold at most this many offsets per side
+MAX_SIDE_OFFSETS = 40
+
+_LAMBDA = (1, 2, 4)  # level weights per coordinate (x, y, z)
+
+
+def _geom_offsets(d: int) -> List[Tuple[int, ...]]:
+    """All 3^d stencil offsets in coordinate order (x, y[, z])."""
+    rng = (-1, 0, 1)
+    if d == 2:
+        return [(dx, dy) for dy in rng for dx in rng]
+    return [(dx, dy, dz) for dz in rng for dy in rng for dx in rng]
+
+
+@dataclass
+class StructuredSystem:
+    """A block-structured sparse matrix with static per-row offset lists.
+
+    :param mesh: the structured mesh (geometry / strides).
+    :param nfields: 1 (single block) or 2 (monolithic DPP).
+    :param vals: (nrows, noffs) float array of entries.
+    :param deltas: global flat column deltas per offset.
+    :param valid: (nrows, noffs) bool mask of structurally-present entries.
+    :param levels: the wavefront levels, each an array of rows.
+    """
+
+    mesh: StructuredMesh
+    nfields: int
+    vals: np.ndarray
+    deltas: np.ndarray
+    blocks: np.ndarray
+    geoms: np.ndarray
+    valid: np.ndarray
+    levels: List[np.ndarray]
+
+    @property
+    def n_nodes(self) -> int:
+        return self.mesh.num_vertices
+
+    @property
+    def nrows(self) -> int:
+        return self.n_nodes * self.nfields
+
+    @property
+    def center_index(self) -> int:
+        return int(np.where((self.blocks == 0) & (self.geoms == 0).all(axis=1))[0][0])
+
+
+def _build_system(mesh: StructuredMesh, block_stencils, nfields: int) -> StructuredSystem:
+    """``block_stencils``: {(row_field, col_field): stencil ndarray}."""
+    d = mesh.dim
+    shape = mesh.node_shape  # slowest-first
+    n = mesh.num_vertices
+    geoms = _geom_offsets(d)
+    blocks = list(range(-(nfields - 1), nfields))  # {-1,0,1} or {0}
+    # strides in coordinate order (x fastest)
+    strides = [1]
+    for ax in range(1, d):
+        strides.append(strides[-1] * shape[d - ax])
+    strides = np.array(strides)
+
+    pos = np.stack(
+        [g.ravel() for g in np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")][::-1],
+        axis=1,
+    )  # (n, d) coordinate-ordered positions
+    bdry = mesh.boundary_mask().ravel()
+
+    noffs = len(blocks) * len(geoms)
+    nrows = n * nfields
+    vals = np.zeros((nrows, noffs))
+    valid = np.zeros((nrows, noffs), dtype=bool)
+    deltas = np.zeros(noffs, dtype=np.int64)
+    blk_arr = np.zeros(noffs, dtype=np.int64)
+    geom_arr = np.zeros((noffs, d), dtype=np.int64)
+
+    for t, (bd, g) in enumerate(((bd, g) for bd in blocks for g in geoms)):
+        deltas[t] = bd * n + int(np.dot(g, strides))
+        blk_arr[t] = bd
+        geom_arr[t] = g
+        gnp = np.asarray(g)
+        geo_ok = ((pos + gnp) >= 0).all(axis=1) & ((pos + gnp) < pos.max(axis=0) + 1).all(axis=1)
+        col_idx = np.clip(pos + gnp, 0, np.asarray(shape[::-1]) - 1)
+        col_bdry = bdry[col_idx @ strides]
+        for f in range(nfields):
+            cf = f + bd
+            if cf < 0 or cf >= nfields:
+                continue
+            st = block_stencils.get((f, cf))
+            if st is None:
+                continue
+            rows = slice(f * n, (f + 1) * n)
+            # stencil indexed slowest-first: reverse the geometric offset
+            w = float(st[tuple(int(o) + 1 for o in reversed(g))])
+            v = np.where(geo_ok, w, 0.0)
+            # symmetric BC elimination: zero bc rows and bc cols
+            v = np.where(bdry | col_bdry, 0.0, v)
+            if bd == 0 and (gnp == 0).all():
+                v = np.where(bdry, 1.0, v)  # unit diagonal at bc rows
+            vals[rows, t] = v
+            valid[rows, t] = geo_ok
+
+    lam = np.asarray(_LAMBDA[:d])
+    sched = pos @ lam
+    shift = int(np.abs(np.asarray(geoms) @ lam).max()) + 1
+    levels_key = np.concatenate([sched + f * shift for f in range(nfields)])
+    order = np.argsort(levels_key, kind="stable")
+    boundaries = np.flatnonzero(np.diff(levels_key[order])) + 1
+    levels = [lv.astype(np.int64) for lv in np.split(order, boundaries)]
+
+    return StructuredSystem(
+        mesh=mesh, nfields=nfields, vals=vals, deltas=deltas, blocks=blk_arr,
+        geoms=geom_arr, valid=valid, levels=levels,
+    )
+
+
+def build_monolithic_system(mesh: StructuredMesh, params: DPPParameters) -> StructuredSystem:
+    """Field-major 2-field DPP matrix in structured form."""
+    K_st, M_st = compile_stencils(mesh)
+    p = params
+    S1 = (p.k1 / p.mu) * K_st + (p.beta / p.mu) * M_st
+    S2 = (p.k2 / p.mu) * K_st + (p.beta / p.mu) * M_st
+    C = -(p.beta / p.mu) * M_st
+    return _build_system(mesh, {(0, 0): S1, (1, 1): S2, (0, 1): C, (1, 0): C}, 2)
+
+
+def build_field_system(mesh: StructuredMesh, k: float, beta: float, mu: float) -> StructuredSystem:
+    """One block ``(k/mu) K + (beta/mu) M`` in structured form."""
+    K_st, M_st = compile_stencils(mesh)
+    S = (k / mu) * K_st + (beta / mu) * M_st
+    return _build_system(mesh, {(0, 0): S}, 1)
+
+
+def _factorization_tables(sys: StructuredSystem):
+    """Lower-offset order, offset-difference map and per-k upper-update lists."""
+    deltas = sys.deltas
+    noffs = deltas.shape[0]
+    order_lower = [t for t in np.argsort(deltas) if deltas[t] < 0]
+    # m[k][j] = the offset whose (block, geom) is offset j's minus offset k's, or -1
+    key = {(int(b), tuple(int(x) for x in g)): t for t, (b, g) in enumerate(zip(sys.blocks, sys.geoms))}
+    mmap = -np.ones((noffs, noffs), dtype=np.int64)
+    for k in range(noffs):
+        for j in range(noffs):
+            db = int(sys.blocks[j] - sys.blocks[k])
+            dg = tuple(int(x) for x in (sys.geoms[j] - sys.geoms[k]))
+            mmap[k, j] = key.get((db, dg), -1)
+    uppers_of = {
+        k: [j for j in range(noffs) if deltas[j] > deltas[k] and mmap[k, j] >= 0]
+        for k in order_lower
+    }
+    return order_lower, mmap, uppers_of
+
+
+def ilu0_factorize(sys: StructuredSystem) -> np.ndarray:
+    """In-pattern incomplete LU with no fill outside the structural pattern,
+    level-vectorised on the host (the JAX package's numpy path, which it
+    keeps bit-identical to its C++ one). Returns a new (nrows, noffs) array
+    holding L (unit diagonal implied, entries at lower offsets) and U
+    (diagonal + upper offsets), like PETSc's combined factor storage."""
+    order_lower, mmap, uppers_of = _factorization_tables(sys)
+    vals = sys.vals.copy()
+    deltas = sys.deltas
+    center = sys.center_index
+    nrows = sys.nrows
+    for R in sys.levels:
+        for k in order_lower:
+            a_ik = vals[R, k]
+            nz = a_ik != 0.0
+            if not nz.any():
+                continue
+            pivot_rows = np.clip(R + deltas[k], 0, nrows - 1)
+            piv = vals[pivot_rows, center]
+            piv_safe = np.where(piv != 0.0, piv, 1.0)
+            f = np.where(nz, a_ik / piv_safe, 0.0)
+            vals[R, k] = f
+            for j in uppers_of[k]:
+                upd = f * vals[pivot_rows, mmap[k, j]]
+                # restrict fill to the structural pattern
+                vals[R, j] = np.where(sys.valid[R, j], vals[R, j] - upd, 0.0)
+    return vals
+
+
+class StructuredILU0(nn.Module):
+    """ILU(0) application ``z = U^{-1} L^{-1} r`` in native f64.
+
+    Buffers: ``factors`` (noffs, nrows), the f64 factor by offset;
+    ``level_ptr`` (nlev + 1,) and ``level_rows`` (nrows,) int32, the
+    wavefront schedule in CSR form. ``meta`` holds the kernels' int32 offset
+    table: ``[nlow, nup, center, low_t[40], up_t[40], delta[noffs]]``.
+    """
+
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = "cpu"):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.nrows, self.n_nodes = sys.nrows, sys.n_nodes
+        self.deltas = tuple(int(x) for x in sys.deltas)
+        self.center = sys.center_index
+        self.lower = tuple(t for t, d in enumerate(self.deltas) if d < 0)
+        self.upper = tuple(t for t, d in enumerate(self.deltas) if d > 0)
+        if max(len(self.lower), len(self.upper)) > MAX_SIDE_OFFSETS:
+            raise ValueError(f"at most {MAX_SIDE_OFFSETS} offsets per side")
+        fac = ilu0_factorize(sys)
+        ptr = np.cumsum([0] + [len(lv) for lv in sys.levels]).astype(np.int32)
+        rows = np.concatenate(sys.levels).astype(np.int32)
+        dev = self.device
+        self.register_buffer("factors", torch.tensor(np.ascontiguousarray(fac.T), device=dev))
+        self.register_buffer("level_ptr", torch.tensor(ptr, device=dev))
+        self.register_buffer("level_rows", torch.tensor(rows, device=dev))
+        meta = np.zeros(3 + 2 * MAX_SIDE_OFFSETS + len(self.deltas), np.int32)
+        meta[:3] = len(self.lower), len(self.upper), self.center
+        meta[3 : 3 + len(self.lower)] = self.lower
+        meta[3 + MAX_SIDE_OFFSETS : 3 + MAX_SIDE_OFFSETS + len(self.upper)] = self.upper
+        meta[3 + 2 * MAX_SIDE_OFFSETS :] = self.deltas
+        self.meta = meta
+        self._plan: Optional[Tuple[list, list]] = None
+
+    @classmethod
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = "cpu"):
+        return cls(build_monolithic_system(mesh, params), device)
+
+    @classmethod
+    def for_field(cls, fop):
+        """Of a ``FieldOperator`` block, on its space's device."""
+        return cls(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device)
+
+    @property
+    def num_levels(self) -> int:
+        return int(self.level_ptr.numel()) - 1
+
+    def _level_plan(self) -> Tuple[list, list]:
+        """Per level, the plain sweeps' gather tables: (rows, cols, factor
+        values[, diagonal]) for the lower and the upper offsets (built at
+        first use; only the plain sweep reads them)."""
+        if self._plan is None:
+            ptr = self.level_ptr.tolist()
+            nrows = self.nrows
+            F = self.factors
+            plans = []
+            for offs in (self.lower, self.upper):
+                d = torch.tensor([self.deltas[t] for t in offs], device=self.device)
+                sel = F[list(offs)]
+                plan = []
+                for lv in range(len(ptr) - 1):
+                    rows = self.level_rows[ptr[lv] : ptr[lv + 1]].long()
+                    cols = torch.clamp(rows[None, :] + d[:, None], 0, nrows)
+                    diag = F[self.center, rows] if offs is self.upper else None
+                    plan.append((rows, cols, sel[:, rows], diag))
+                plans.append(plan)
+            self._plan = (plans[0], plans[1])
+        return self._plan
+
+    def _sweep(self, rhs: torch.Tensor, plan: list) -> torch.Tensor:
+        """One wavefront sweep: per level, ``acc = rhs[rows] - f[t] * z[col]``
+        over the offsets in stored order (each product and difference
+        rounded apart), ``acc / diag`` on the upper sweep; ``z`` starts at
+        zero and a column past the last row reads zero."""
+        z = rhs.new_zeros(self.nrows + 1)
+        for rows, cols, F, diag in plan:
+            acc = rhs[rows]
+            prods = F * z[cols]
+            for t in range(prods.shape[0]):
+                acc = acc - prods[t]
+            if diag is not None:
+                acc = acc / diag
+            z[rows] = acc
+        return z[: self.nrows]
+
+    def plain(self, r: torch.Tensor) -> torch.Tensor:
+        """Plain PyTorch twin on a flat ``(nrows,)`` f64 tensor (any device)."""
+        lower, upper = self._level_plan()
+        return self._sweep(self._sweep(r, lower), upper[::-1])
+
+    def plain_grid(self, r: torch.Tensor) -> torch.Tensor:
+        """:meth:`plain` on a grid (or stacked grids): the same shape out."""
+        return self.plain(r.reshape(-1)).reshape(r.shape)
+
+    def launch(self, r: torch.Tensor) -> torch.Tensor:
+        """Run ``csrc/ilu_apply.cu`` on a flat ``(nrows,)`` f64 CUDA tensor."""
+        _cuda.require_cuda_tensor(r, "r", torch.float64, self.device)
+        if tuple(r.shape) != (self.nrows,):
+            raise ValueError(f"r has shape {tuple(r.shape)}, expected ({self.nrows},)")
+        z = torch.empty_like(r)
+        y = torch.empty_like(r)
+        _cuda.launch(
+            KERNEL, "perphil_structured_ilu_apply", r.device,
+            r.data_ptr(), z.data_ptr(), y.data_ptr(), self.factors.data_ptr(),
+            self.level_ptr.data_ptr(), self.level_rows.data_ptr(), self.meta.ctypes.data,
+            len(self.deltas), self.nrows, self.num_levels,
+        )
+        return z
+
+    def apply_flat(self, r: torch.Tensor) -> torch.Tensor:
+        """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor: the kernel on a
+        CUDA tensor, the plain sweep on a CPU one."""
+        if r.device != self.device:
+            raise ValueError(f"r on {r.device}, ILU built for {self.device}")
+        if r.device.type == "cpu":
+            return self.plain(r)
+        if r.device.type != "cuda":
+            raise ValueError(f"structured ILU runs on cpu or cuda, got {r.device}")
+        return self.launch(r)
+
+    def apply_grid(self, r: torch.Tensor) -> torch.Tensor:
+        """Grid (or stacked grids) in, the same shape out."""
+        return self.apply_flat(r.reshape(-1)).reshape(r.shape)
+
+    forward = apply_grid

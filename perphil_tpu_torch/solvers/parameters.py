@@ -4,8 +4,8 @@ Counterpart of ``perphil_tpu/solvers/parameters.py``: the same 11 preset
 dictionaries plus ``TPU_DIRECT_PARAMS``, with the same PETSc-style keys and
 values, so option dicts written for either package are interchangeable.
 ``perphil_tpu_torch.solvers.solver`` runs the direct-solve presets and the
-Krylov ones with ``pc_type`` none or jacobi; every other option path raises
-``NotImplementedError`` naming the ROADMAP slice that ports it.
+Krylov ones with every ``pc_type`` they use; the Picard presets raise
+``NotImplementedError`` naming the ROADMAP slice that ports them.
 """
 
 _MAX_ITERATION_NUMBER = 50000

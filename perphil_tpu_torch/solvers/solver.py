@@ -1,9 +1,10 @@
 """Linear DPP solves: direct and Krylov.
 
 Counterpart of ``perphil_tpu/solvers/solver.py`` for ``ksp_type`` preonly,
-gmres and cg with ``pc_type`` lu/cholesky, none and jacobi. The routing is
-the JAX package's accelerator route, the same on every device; the device
-only decides whether a kernel wrapper launches CUDA or runs its plain twin.
+gmres and cg with ``pc_type`` lu/cholesky, none, jacobi, ilu and fieldsplit.
+The routing is the JAX package's accelerator route, the same on every
+device; the device only decides whether a kernel wrapper launches CUDA or
+runs its plain twin.
 
 Direct (``preonly`` + lu; ``LINEAR_SOLVER_PARAMS``, ``TPU_DIRECT_PARAMS``):
 
@@ -16,18 +17,28 @@ Direct (``preonly`` + lu; ``LINEAR_SOLVER_PARAMS``, ``TPU_DIRECT_PARAMS``):
 
 A preonly solve reports 1 iteration and residual 0.0 (PETSc semantics).
 
-Krylov (``PLAIN_GMRES_PARAMS``, ``GMRES_JACOBI_PARAMS``, ``ksp_type: cg``)
-solves the Newton-step system ``A d = b - A x0`` with x0 the BC lift, as
-Firedrake's KSP-only SNES does, and returns ``x0 + d``:
+Krylov (``PLAIN_GMRES_PARAMS``, ``GMRES_JACOBI_PARAMS``, ``GMRES_ILU_PARAMS``,
+the fieldsplit presets, ``ksp_type: cg``) solves the Newton-step system
+``A d = b - A x0`` with x0 the BC lift, as Firedrake's KSP-only SNES does,
+and returns ``x0 + d``:
 
   - gmres, pc none, at most 512 DoF, inside the fused GMRES envelope
                                          -> K5 ``fused_gmres_ef64``
   - gmres, pc none/jacobi, inside it     -> K4 ``fused_gmres_df``
-  - gmres otherwise                      -> ``krylov.gmres`` (K1 matvec)
+  - gmres, multiplicative fieldsplit with preonly + lu blocks, inside it
+                                         -> K6 (inner PCG, fast-diag PC)
+  - gmres, ILU(0), inside it             -> K7 (monolithic ILU sweeps)
+  - gmres, multiplicative fieldsplit with gmres + ILU blocks at the
+    preset's inner tolerances, inside it -> K8 (inner ILU-PCG)
+  - gmres otherwise                      -> ``krylov.gmres`` (K1 matvec,
+                                            ``_monolithic_pc``)
   - cg                                   -> ``krylov.cg`` (K1 matvec)
 
-The RHS lift is K1 in lift mode. Every other option path raises
-``NotImplementedError`` naming the ROADMAP slice that ports it.
+The host preconditioners follow the JAX package's native-f64 route: f64
+fast-diag exact blocks, literal inner Krylov solves, ``StructuredILU0``
+(its kernel on the card). The RHS lift is K1 in lift mode. Every other
+option path raises ``NotImplementedError`` naming the ROADMAP slice that
+ports it.
 
 Solvers are cached on ``(W, params, frozen options)``; ``W`` carries the
 device. No builder reads the environment.
@@ -43,8 +54,14 @@ import torch
 
 from perphil_tpu_torch.forms.spaces import Function, MixedFunctionSpace
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
-from perphil_tpu_torch.ops.assembly import DirichletBC, DPPOperator, bc_values_per_field
-from perphil_tpu_torch.ops.direct import LumpedDPPPreconditioner
+from perphil_tpu_torch.ops.assembly import (
+    DirichletBC,
+    DPPOperator,
+    FieldOperator,
+    bc_values_per_field,
+    coupling_apply,
+)
+from perphil_tpu_torch.ops.direct import FastDiagFieldSolver, LumpedDPPPreconditioner
 from perphil_tpu_torch.ops.fused_direct import (
     fused_direct_solve,
     fused_direct_supported,
@@ -53,24 +70,19 @@ from perphil_tpu_torch.ops.fused_direct import (
 )
 from perphil_tpu_torch.ops.fused_gmres import (
     EF64_MAX_DOF,
-    K4,
     K5,
     MAX_RESTART,
+    ROLES,
     FusedGMRESSolver,
     fused_gmres_supported,
 )
+from perphil_tpu_torch.ops.ilu import StructuredILU0
 from perphil_tpu_torch.ops.krylov import cg, gmres
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
 from perphil_tpu_torch.solvers.options import apply_prefix_overrides
 
 _DIRECT_RTOL = 1e-13  # inner tolerance when "LU" is played by PCG
 _DIRECT_MAX_IT = 2000
-
-# pc_type -> the ROADMAP slice that ports it
-_PC_SLICES = {
-    "fieldsplit": "slice 3 (fieldsplit)",
-    "ilu": "slice 4 (ILU)",
-}
 
 
 @dataclass(frozen=True)
@@ -133,6 +145,84 @@ def _monolithic_direct(op: DPPOperator) -> Callable:
     return solve
 
 
+def _exact_field_solver(fop: FieldOperator) -> Callable:
+    """Exact "LU-class" solve of one BC-eliminated block: the f64
+    fast-diag solve on quad/hex meshes, PCG to 1e-13 with the lumped
+    fast-diag preconditioner on tri/tet meshes."""
+    mesh = fop.mesh
+    if mesh.is_tensor_product:
+        return FastDiagFieldSolver(mesh, fop.k, fop.beta, fop.mu, device=fop.V.device).solve
+    pc = FastDiagFieldSolver(mesh, fop.k, fop.beta, fop.mu, lumped=True, device=fop.V.device)
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        x, _, _ = cg(fop.matvec, b, rtol=_DIRECT_RTOL, atol=0.0, max_it=1000, M_inv=pc.solve)
+        return x
+
+    return solve
+
+
+def _field_pc(fop: FieldOperator, pc_type: str) -> Optional[Callable]:
+    """A fieldsplit block's preconditioner: none, jacobi, lu/cholesky or
+    ilu (``StructuredILU0``: the kernel on the card, the sweep on the CPU)."""
+    if pc_type == "none":
+        return None
+    if pc_type == "jacobi":
+        bdry = fop._mask_arrays[0]
+        dc = float(fop.stencil[(1,) * fop.mesh.dim])
+        dinv = torch.full(bdry.shape, 1.0 / dc, dtype=torch.float64, device=bdry.device)
+        dinv.masked_fill_(bdry, 1.0)
+        return lambda r: dinv * r
+    if pc_type in ("lu", "cholesky"):
+        return _exact_field_solver(fop)
+    if pc_type == "ilu":
+        return StructuredILU0.for_field(fop).apply_grid
+    raise ValueError(f"Unsupported block pc_type: {pc_type!r}")
+
+
+def _block_solver(fop: FieldOperator, sub: Dict[str, object]) -> Callable:
+    """Grid -> grid solver of one fieldsplit block from its sub-options
+    (``ksp_type`` preonly, gmres or cg; the JAX package's f64 route)."""
+    ksp = str(sub.get("ksp_type", "preonly"))
+    pc_type = str(sub.get("pc_type", "ilu"))
+    if ksp == "preonly":
+        if pc_type in ("lu", "cholesky"):
+            return _exact_field_solver(fop)
+        pc = _field_pc(fop, pc_type)
+        return pc if pc is not None else (lambda r: r)
+    if ksp not in ("gmres", "cg"):
+        raise ValueError(f"Unsupported block ksp_type: {ksp!r}")
+    kw = dict(
+        rtol=float(sub.get("ksp_rtol", 1e-5)),
+        atol=float(sub.get("ksp_atol", 1e-50)),
+        max_it=int(sub.get("ksp_max_it", 10000)),
+    )
+    pc = _field_pc(fop, pc_type)
+    if ksp == "cg":
+        return lambda b: cg(fop.matvec, b, M_inv=pc, **kw)[0]
+    restart = int(sub.get("ksp_gmres_restart", 30))
+    return lambda b: gmres(fop.matvec, b, restart=restart, M_inv=pc, **kw).x
+
+
+def _fieldsplit_pc(op: DPPOperator, flat: Dict[str, object]) -> Callable:
+    """The 2x2 fieldsplit: multiplicative (block Gauss-Seidel,
+    ``y2 = B1(r2 - C y1)``) or additive (block Jacobi)."""
+    fs_type = str(flat.get("pc_fieldsplit_type", "multiplicative"))
+    if fs_type not in ("multiplicative", "additive"):
+        raise ValueError(f"Unsupported pc_fieldsplit_type: {fs_type!r}")
+    p = op.params
+    B0 = _block_solver(FieldOperator(op.W.sub(0), p.k1, p.beta, p.mu), _sub_options(flat, "fieldsplit_0_"))
+    B1 = _block_solver(FieldOperator(op.W.sub(1), p.k2, p.beta, p.mu), _sub_options(flat, "fieldsplit_1_"))
+    if fs_type == "additive":
+        return lambda r: torch.stack([B0(r[0]), B1(r[1])])
+    C = coupling_apply(op.mesh, p, op.W.device)
+
+    def apply_fs(r: torch.Tensor) -> torch.Tensor:
+        y1 = B0(r[0])
+        return torch.stack([y1, B1(r[1] - C(y1))])
+
+    return apply_fs
+
+
 def _monolithic_pc(op: DPPOperator, flat: Dict[str, object]) -> Optional[Callable]:
     """Left preconditioner on stacked fields ``(2, *node_shape)`` from
     PETSc-style options: None for pc none, else ``r -> P r``."""
@@ -145,19 +235,55 @@ def _monolithic_pc(op: DPPOperator, flat: Dict[str, object]) -> Optional[Callabl
     if pc_type in ("lu", "cholesky"):
         direct = _monolithic_direct(op)
         return lambda r: torch.stack(direct(r[0], r[1]))
-    where = _PC_SLICES.get(pc_type, "a later ROADMAP slice")
-    raise NotImplementedError(f"pc_type={pc_type!r} is ported in ROADMAP {where}")
+    if pc_type == "ilu":
+        if int(flat.get("pc_factor_levels", 0) or 0) != 0:
+            raise NotImplementedError(
+                "Only ILU(0) is implemented (the only level any reference workload uses)"
+            )
+        return StructuredILU0.for_monolithic(op.mesh, op.params, op.W.device).apply_grid
+    if pc_type == "fieldsplit":
+        return _fieldsplit_pc(op, flat)
+    raise ValueError(f"Unsupported pc_type: {pc_type!r}")
+
+
+def _fused_pc(flat: Dict[str, object]) -> Optional[str]:
+    """The fused GMRES kernel's preconditioner for these options, by the
+    JAX package's accelerator predicates (``_build_linear_solver_df``), or
+    None where the kernel has no such role."""
+    pc_type = str(flat.get("pc_type", "none"))
+    if pc_type in ("none", "jacobi"):
+        return pc_type
+    if pc_type == "ilu":
+        return None if flat.get("pc_factor_levels") else "ilu"
+    if pc_type != "fieldsplit" or str(flat.get("pc_fieldsplit_type", "multiplicative")) != "multiplicative":
+        return None
+
+    def block(i: int, default_pc: str) -> Tuple[str, str]:
+        return (
+            str(flat.get(f"fieldsplit_{i}_ksp_type", "preonly")),
+            str(flat.get(f"fieldsplit_{i}_pc_type", default_pc)),
+        )
+
+    if all(block(i, "ilu") == ("gmres", "ilu") for i in (0, 1)) and all(
+        float(flat.get(f"fieldsplit_{i}_ksp_{k}", d)) == d
+        for i in (0, 1)
+        for k, d in (("rtol", 1e-8), ("atol", 1e-12))
+    ):
+        return "fieldsplit_ilu"  # the inner tolerances are the kernel's own
+    if all(block(i, "lu") in (("preonly", "lu"), ("preonly", "cholesky")) for i in (0, 1)):
+        return "fieldsplit_lu"
+    return None
 
 
 def _krylov_kind(op: DPPOperator, flat: Dict[str, object]) -> str:
     """Which solver serves a Krylov solve, as the JAX package's accelerator
-    route picks it: K5 or K4 (the fused GMRES roles), or ``"gmres"`` /
-    ``"cg"`` (host loops with the K1 matvec)."""
+    route picks it: a fused GMRES role (K4-K8), or ``"gmres"`` / ``"cg"``
+    (host loops with the K1 matvec and ``_monolithic_pc``)."""
     ksp = str(flat.get("ksp_type", "gmres"))
-    pc_type = str(flat.get("pc_type", "none"))
+    pc = _fused_pc(flat)
     restart = int(flat.get("ksp_gmres_restart", 30))
-    if ksp == "gmres" and restart <= MAX_RESTART and fused_gmres_supported(op, pc_type):
-        return K5 if pc_type == "none" and op.W.dim() <= EF64_MAX_DOF else K4
+    if ksp == "gmres" and restart <= MAX_RESTART and pc is not None and fused_gmres_supported(op, pc):
+        return K5 if pc == "none" and op.W.dim() <= EF64_MAX_DOF else ROLES[pc]
     return ksp
 
 
@@ -165,20 +291,20 @@ def _krylov_route(op: DPPOperator, flat: Dict[str, object]) -> Callable:
     """The Krylov solve of ``A d = r`` from ``d = 0``,
     ``r -> (d, iterations, residual_norm)``."""
     kind = _krylov_kind(op, flat)
-    pc_type = str(flat.get("pc_type", "none"))
-    pc = _monolithic_pc(op, flat)
     kw = dict(
         rtol=float(flat.get("ksp_rtol", 1e-5)),
         atol=float(flat.get("ksp_atol", 1e-50)),
         max_it=int(flat.get("ksp_max_it", 10000)),
     )
-    mv = op.stacked_matvec()
-    if kind == "cg":
-        return lambda r: cg(mv, r, M_inv=pc, **kw)
-    kw["restart"] = int(flat.get("ksp_gmres_restart", 30))
-    if kind in (K4, K5):
-        run = FusedGMRESSolver(op, pc_type, kind, **kw)
+    if kind not in ("gmres", "cg"):
+        run = FusedGMRESSolver(op, _fused_pc(flat), kind, restart=int(flat.get("ksp_gmres_restart", 30)), **kw)
     else:
+        mv = op.stacked_matvec()
+        pc = _monolithic_pc(op, flat)
+        if kind == "cg":
+            return lambda r: cg(mv, r, M_inv=pc, **kw)
+        kw["restart"] = int(flat.get("ksp_gmres_restart", 30))
+
         def run(r: torch.Tensor):
             return gmres(mv, r, M_inv=pc, **kw)
 
@@ -198,6 +324,14 @@ def _build_linear_solver(
     """Build a linear solve ``(g1, g2) -> (z1, z2, its, rnorm)`` for
     boundary-value grids g1, g2."""
     flat = dict(frozen_sp)
+    if (
+        str(flat.get("pc_type", "")) == "ilu"
+        and str(flat.get("pc_factor_mat_ordering_type", "natural")) == "rcm"
+    ):
+        raise NotImplementedError(
+            "the ordering-parity ILU (pc_factor_mat_ordering_type=rcm) is ported in "
+            "ROADMAP slice 6"
+        )
     ksp = str(flat.get("ksp_type", "gmres"))
     op = DPPOperator(W, params)
     if ksp == "preonly":

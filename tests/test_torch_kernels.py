@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1-K5 against their plain PyTorch twins, on the
+"""The port's CUDA kernels K1-K8 and ``structured_ilu_apply`` against their
+plain PyTorch twins, on the
 card. A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 (marker ``cuda``) and skips without one; run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``."""
@@ -9,10 +10,11 @@ import torch
 
 from perphil_tpu_torch.interop import from_numpy_state
 from perphil_tpu_torch.ops import _cuda
-from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
+from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_plain
 from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
 from perphil_tpu_torch.ops.fused_gmres import K4, K5, FusedGMRESSolver
+from perphil_tpu_torch.ops.ilu import StructuredILU0
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +142,64 @@ def test_fused_gmres_rejects_bad_inputs(cuda):
         solver.launch(b[:, :-1].contiguous())
     with pytest.raises(ValueError):
         solver.launch(b.transpose(1, 2))
+
+
+PC_ROLES = [  # pc, mesh, bound on the relative difference
+    ("ilu", ("quad", (16, 16)), 0.0),  # the twin's order: bit for bit
+    ("ilu", ("tet", (4, 4, 4)), 0.0),
+    ("fieldsplit_ilu", ("quad", (8, 8)), 0.0),
+    ("fieldsplit_ilu", ("tet", (4, 4, 4)), 0.0),
+    # per-axis loops against torch.matmul's sums: rounding apart
+    ("fieldsplit_lu", ("quad", (16, 16)), 1e-10),
+    ("fieldsplit_lu", ("tet", (4, 4, 4)), 1e-10),
+]
+
+
+@pytest.mark.parametrize(
+    "pc,mesh,tol", PC_ROLES, ids=[f"{pc}-{m[0]}{m[1][0]}" for pc, m, _ in PC_ROLES]
+)
+def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol):
+    """K6, K7, K8: equal counts; K7 and K8 keep the twin's order bit for bit."""
+    state = _state(*mesh, cuda, seed=4)
+    op = DPPOperator(state.W, state.params)
+    solver = FusedGMRESSolver(op, pc, rtol=1e-8, atol=1e-12, max_it=5000)
+    b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
+    before = _cuda.KERNEL_LAUNCHES[solver.role]
+    got = solver.launch(b)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[solver.role] == before + 1
+    ref = solver.plain(b)
+    assert got.iterations == ref.iterations > 0
+    assert got.converged == ref.converged
+    assert _rel(got.x, ref.x) <= tol
+
+
+@pytest.mark.parametrize("kind", ["monolithic", "field"])
+@pytest.mark.parametrize("element,cells", [("quad", (16, 16)), ("tet", (4, 4, 4))], ids=["quad16", "tet4"])
+def test_structured_ilu_apply_matches_plain_sweep(cuda, element, cells, kind):
+    state = _state(element, cells, cuda, seed=5)
+    p = state.params
+    if kind == "monolithic":
+        pc = StructuredILU0.for_monolithic(state.mesh, p, cuda)
+    else:
+        pc = StructuredILU0.for_field(FieldOperator(state.W.sub(1), p.k2, p.beta, p.mu))
+    r = torch.randn(pc.nrows, dtype=torch.float64, device=cuda)
+    before = _cuda.KERNEL_LAUNCHES["structured_ilu_apply"]
+    z = pc.apply_flat(r)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES["structured_ilu_apply"] == before + 1
+    assert float((z - pc.plain(r)).abs().max()) == 0.0
+
+
+def test_structured_ilu_apply_rejects_bad_inputs(cuda):
+    state = _state("quad", (4, 4), cuda)
+    pc = StructuredILU0.for_monolithic(state.mesh, state.params, cuda)
+    r = torch.zeros(pc.nrows, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        pc.launch(r.cpu())
+    with pytest.raises(TypeError):
+        pc.launch(r.float())
+    with pytest.raises(ValueError):
+        pc.launch(r[:-1])
+    with pytest.raises(ValueError):
+        pc.launch(torch.zeros(2 * pc.nrows, dtype=torch.float64, device=cuda)[::2])

@@ -38,6 +38,9 @@ from perphil_tpu_torch.ops.assembly import DPPOperator
 from perphil_tpu_torch.ops.fused_gmres import (
     K4,
     K5,
+    K6,
+    K7,
+    K8,
     FusedGMRESSolver,
     fused_gmres_df,
     fused_gmres_ef64,
@@ -245,20 +248,26 @@ def test_other_krylov_paths_match_jax(element, cells, params, count):
 
 # the JAX gate's edges: 2D rows of 128 lanes (126^2 nodes in, 127^2 out), 3D
 # lane-packed planes (29^3 in, 33^3 out), narrow 2D grids with both fields
-# side by side in lanes (301 rows in, 521 out)
+# side by side in lanes (301 rows in, 521 out). ILU and fieldsplit are not
+# lane-packed: the two fields stacked, and the ILU factor planes in the
+# budget (tet nx=9 in, 10 out; fieldsplit LU nx=14 in, 15 out).
+# (element, cells, inside for pc none/jacobi, ilu/fieldsplit_ilu, fieldsplit_lu)
 ENVELOPE = [
-    ("quad", (125, 125), True), ("quad", (126, 126), False),
-    ("tet", (28, 28, 28), True), ("tet", (32, 32, 32), False),
-    ("triangle", (40, 300), True), ("quad", (40, 520), False),
-    ("hex", (16, 16, 16), True),
+    ("quad", (125, 125), True, True, True), ("quad", (126, 126), False, False, False),
+    ("tet", (28, 28, 28), True, False, False), ("tet", (32, 32, 32), False, False, False),
+    ("triangle", (40, 300), True, False, False), ("quad", (40, 520), False, False, False),
+    ("hex", (16, 16, 16), True, False, False),
+    ("tet", (9, 9, 9), True, True, True), ("tet", (10, 10, 10), True, False, True),
+    ("tet", (14, 14, 14), True, False, True), ("tet", (15, 15, 15), True, False, False),
 ]
 
 
-@pytest.mark.parametrize("pc", ["none", "jacobi"])
+@pytest.mark.parametrize("pc", ["none", "jacobi", "ilu", "fieldsplit_ilu", "fieldsplit_lu"])
 @pytest.mark.parametrize(
-    "element,cells,inside", ENVELOPE, ids=[f"{e}{c[0]}x{c[1]}" for e, c, _ in ENVELOPE]
+    "element,cells,lane_packed,ilu,fieldsplit_lu", ENVELOPE,
+    ids=[f"{e}{c[0]}x{c[1]}" for e, c, *_ in ENVELOPE],
 )
-def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, inside, pc):
+def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, lane_packed, ilu, fieldsplit_lu, pc):
     monkeypatch.setenv("PERPHIL_TPU_FUSED_GMRES", "force")  # judge the gate off-TPU
     mesh = _jax_mesh(element, cells)
     _, jV = jspaces_of(mesh)
@@ -266,10 +275,13 @@ def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, inside, pc):
     zero = np.zeros(mesh.node_shape)
     state = from_numpy_state({}, cells, element, zero, zero)
     op = DPPOperator(state.W, state.params)
+    inside = {"none": lane_packed, "jacobi": lane_packed, "ilu": ilu, "fieldsplit_ilu": ilu,
+              "fieldsplit_lu": fieldsplit_lu}[pc]
     assert jax_fused_gmres_supported(jop, pc) == fused_gmres_supported(op, pc) == inside
-    assert not fused_gmres_supported(op, "ilu")  # K7 is not ported
 
 
+SS = {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS}
+SSI = {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_ILU_PARAMS}
 ROUTES = [
     ("quad", (8, 8), sp.PLAIN_GMRES_PARAMS, K5),  # 162 DoF
     ("tet", (4, 4, 4), sp.PLAIN_GMRES_PARAMS, K5),  # 250 DoF
@@ -281,6 +293,19 @@ ROUTES = [
     ("quad", (8, 8), {**sp.PLAIN_GMRES_PARAMS, "ksp_gmres_restart": 40}, "gmres"),
     ("quad", (8, 8), {**sp.GMRES_PARAMS, "pc_type": "lu"}, "gmres"),
     ("quad", (8, 8), {**sp.GMRES_JACOBI_PARAMS, "ksp_type": "cg"}, "cg"),
+    ("quad", (16, 16), sp.GMRES_ILU_PARAMS, K7),
+    ("tet", (9, 9, 9), sp.GMRES_ILU_PARAMS, K7),
+    ("tet", (10, 10, 10), sp.GMRES_ILU_PARAMS, "gmres"),  # ILU planes over the budget
+    ("quad", (128, 128), sp.GMRES_ILU_PARAMS, "gmres"),
+    ("quad", (8, 8), {**sp.GMRES_ILU_PARAMS, "pc_factor_levels": 1}, "gmres"),  # raises there
+    ("quad", (16, 16), SS, K6),
+    ("tet", (14, 14, 14), SS, K6),
+    ("quad", (256, 256), SS, "gmres"),
+    ("quad", (16, 16), {**SS, "pc_fieldsplit_type": "additive"}, "gmres"),
+    ("quad", (16, 16), SSI, K8),
+    ("quad", (16, 16), {**SSI, "fieldsplit_1_ksp_rtol": 1e-6}, "gmres"),  # not the kernel's inner tolerance
+    ("quad", (128, 128), SSI, "gmres"),
+    ("quad", (16, 16), {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_PARAMS}, "gmres"),  # no fused role
 ]
 
 
@@ -313,7 +338,10 @@ def test_fused_gmres_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="restart"):
         FusedGMRESSolver(op, restart=40)
     with pytest.raises(ValueError, match="envelope"):
-        FusedGMRESSolver(op, "ilu")
+        FusedGMRESSolver(DPPOperator(big.W, big.params), "ilu")
+    assert FusedGMRESSolver(op, "ilu").role == K7  # ILU runs in the envelope
+    with pytest.raises(ValueError, match="pc_type"):
+        FusedGMRESSolver(op, "sor")
     solver = FusedGMRESSolver(op)
     with pytest.raises(ValueError, match="solver built for"):
         solver(torch.zeros((2, 5, 6), device="meta"))

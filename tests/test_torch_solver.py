@@ -143,12 +143,12 @@ def test_cpu_solve_launches_no_kernel_and_caches():
 
 
 NOT_PORTED = [
-    (sp.GMRES_ILU_PARAMS, "slice 4"),
-    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_ILU_PARAMS}, "slice 3"),
-    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS}, "slice 3"),
-    ({"ksp_type": "preonly", "pc_type": "fieldsplit"}, "slice 3"),
-    ({"ksp_type": "preonly", "pc_type": "ilu"}, "slice 4"),
     ({**sp.PLAIN_GMRES_PARAMS, "_x0_continuation": True}, "slice 10"),
+    ({**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"}, "slice 6"),
+    ({"ksp_type": "preonly", "pc_type": "ilu", "pc_factor_mat_ordering_type": "rcm"}, "slice 6"),
+    ({**sp.GMRES_ILU_PARAMS, "_x0_continuation": True}, "slice 10"),
+    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS, "_x0_continuation": True}, "slice 10"),
+    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_ILU_PARAMS, "_x0_continuation": True}, "slice 10"),
 ]
 
 
@@ -159,16 +159,26 @@ def test_unported_options_raise(params, where):
         solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
 
 
-# formerly in NOT_PORTED: the Krylov slice runs them (quad N=4, manufactured
-# solution; counts as in tests/test_torch_krylov.py)
+# formerly in NOT_PORTED: the Krylov slice and the preconditioning slices run
+# them (quad N=4, manufactured solution; counts as in
+# tests/test_torch_krylov.py, test_torch_ilu.py and test_torch_fieldsplit.py)
 PORTED = [
     (sp.PLAIN_GMRES_PARAMS, 10),
     (sp.GMRES_JACOBI_PARAMS, 9),
     ({"ksp_type": "preonly", "pc_type": "jacobi"}, 1),
+    (sp.GMRES_ILU_PARAMS, 5),
+    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_ILU_PARAMS}, 4),
+    ({**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS}, 4),
+    ({"ksp_type": "preonly", "pc_type": "fieldsplit"}, 1),
+    ({"ksp_type": "preonly", "pc_type": "ilu"}, 1),
 ]
 
 
-@pytest.mark.parametrize("params,its", PORTED, ids=["plain-gmres", "gmres-jacobi", "preonly-jacobi"])
+@pytest.mark.parametrize(
+    "params,its", PORTED,
+    ids=["plain-gmres", "gmres-jacobi", "preonly-jacobi", "gmres-ilu", "ss-gmres-ilu", "ss-gmres",
+         "preonly-fieldsplit", "preonly-ilu"],
+)
 def test_krylov_options_run(params, its):
     mesh = create_mesh(4, 4)
     _, V = create_function_spaces(mesh)
