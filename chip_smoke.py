@@ -8,10 +8,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      mixed-precision refinement);
   2. builds the CUDA kernels K1-K8 and ``structured_ilu_apply`` from
      ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
-  3. checks each kernel against its plain PyTorch twin on the card, at the
+  3. checks that a space built with no ``device`` lies on the card, then each
+     kernel against its plain PyTorch twin on the card, at the
      shapes the main path gives it: K1-K3; the fused GMRES roles K5 (2D N=8)
-     and K4 (2D N=64 pc none and jacobi, 3D tet nx=16), equal to their twin
-     in iteration count and within 1e-13 relative; ``structured_ilu_apply``
+     and K4 (2D N=16 and N=64 pc none, N=64 jacobi, 3D tet nx=16), equal to
+     their twin in iteration count and bit for bit, and prints per case the
+     blocks of the cluster the launcher took, the time and the time per
+     iteration; ``structured_ilu_apply``
      at 2D N=128 (monolithic) and on a 129^2 field system, and K7 (ILU, 2D
      N=64), both bit-equal; K6 (fieldsplit LU, 2D N=64 and tet nx=8, within
      1e-10) and K8 (fieldsplit ILU, 2D N=16, within 1e-12), equal counts;
@@ -205,7 +208,9 @@ def problem(element: str, n: int, device):
     else:
         mesh = create_cube_mesh(n, n, n, hexahedral=element == "hex")
         _, p1e, _, p2e = exact_expressions_3d(mesh, DPPParameters())
-    _, V = create_function_spaces(mesh, device=device)
+    # the card is the port's default device: only the CPU is asked for by name
+    _, V = create_function_spaces(mesh, device=device) if device == "cpu" else create_function_spaces(mesh)
+    check(device == "cpu" or V.device == device, "a space built with no device lies on the card")
     W = mixed_space(V)
     params = DPPParameters()
     return W, params, [DirichletBC(W.sub(0), p1e), DirichletBC(W.sub(1), p2e)], p1e, p2e
@@ -356,11 +361,17 @@ def main() -> int:
     info = _cuda.BUILD_INFO
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s, cached={info['cached']})")
     print(f"library: {info['path']}")
+    # ptxas -v, one line a kernel: registers, stack, spills, static shared memory
+    entry, stack = "", ""
     for line in str(info.get("log", "")).splitlines():
+        text = line.split("ptxas info    :")[-1].strip()
         if "Compiling entry function" in line:
-            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
-        if "Used" in line or "spill" in line:
-            print("    ", line.split("ptxas info    :")[-1].strip())
+            entry = text.split("'")[1]
+        elif "spill" in line:
+            stack = text
+        elif "Used" in line and entry:
+            print(f"  ptxas {entry[:72]}: {text}; {stack}")
+            entry = ""
 
     # -- 3. kernels against their twins (not counted) ---------------------
     results = {}
@@ -468,10 +479,11 @@ def main() -> int:
     # solver's own right-hand sides; the twin is timed in its check run
     gmres_kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
     role_cases = [  # element, N, pc, role (None: the pc's), bound on the rel diff, kernel repeats
-        ("quad", 8, "none", "fused_gmres_ef64", 1e-13, 5),
-        ("quad", 64, "none", None, 1e-13, 2),
-        ("quad", 64, "jacobi", None, 1e-13, 3),
-        ("tet", 16, "none", None, 1e-13, 2),
+        ("quad", 8, "none", "fused_gmres_ef64", 0.0, 5),
+        ("quad", 16, "none", None, 0.0, 5),
+        ("quad", 64, "none", None, 0.0, 3),
+        ("quad", 64, "jacobi", None, 0.0, 3),
+        ("tet", 16, "none", None, 0.0, 3),
         ("quad", 64, "ilu", None, 0.0, 3),
         ("quad", 64, "fieldsplit_lu", None, 1e-10, 3),
         ("tet", 8, "fieldsplit_lu", None, 1e-10, 3),
@@ -494,10 +506,16 @@ def main() -> int:
                  if solver.inner_solves else ""))
         check(got.iterations == ref.iterations and got.converged == ref.converged, f"{solver.role} {tag} count")
         check(err <= tol, f"{solver.role} {tag} vs twin")
+        blocks, basis_shared, z_shared, input_shared = solver.last_geometry
+        check(blocks > 1 or r.numel() <= 512, f"{solver.role} {tag} spreads over more than one block")
+        ms = time_ms(lambda: solver.launch(r), repeats=reps, warmup=1)
+        print(f"  {solver.role} {tag}: {blocks} blocks, basis slice in shared memory: {basis_shared}, "
+              f"ILU z in shared memory: {z_shared}, matvec input in shared memory: {input_shared}, {ms:.4f} ms, "
+              f"{ms * 1e3 / max(got.iterations, 1):.3f} us/iteration")
         results[f"{solver.role}@{tag}"] = dict(
-            max_abs_err=abs_err, ms=time_ms(lambda: solver.launch(r), repeats=reps, warmup=0),
+            max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound=bound(*fused_gmres_work(solver, op, got.iterations)),
-            shape=f"{tag}, {got.iterations} iterations",
+            shape=f"{tag}, {got.iterations} iterations, {blocks} blocks",
         )
     results["fused_gmres_ef64"] = results["fused_gmres_ef64@quad N=8 pc none"]
     results["fused_gmres_df"] = results["fused_gmres_df@quad N=64 pc none"]
@@ -511,7 +529,7 @@ def main() -> int:
     # field's on 129^2 nodes, against the plain sweep, bit for bit
     W, params, _, _, _ = problem("quad", 128, dev)
     for tag, pc in (
-        ("monolithic 2D N=128", StructuredILU0.for_monolithic(W.mesh, params, dev)),
+        ("monolithic 2D N=128", StructuredILU0.for_monolithic(W.mesh, params)),
         ("field 129^2", StructuredILU0.for_field(FieldOperator(W.sub(0), params.k1, params.beta, params.mu))),
     ):
         r = randn(pc.nrows)
@@ -522,8 +540,13 @@ def main() -> int:
         print(f"structured_ilu_apply {tag}: {pc.nrows} rows, {pc.num_levels} levels, "
               f"max abs diff vs plain sweep {abs_err:.3e} (bound 0)")
         check(abs_err == 0.0, f"structured_ilu_apply {tag} vs plain sweep")
+        staged, z_shared, dyn_bytes = pc.last_geometry
+        ms = time_ms(lambda: pc.launch(r), repeats=20)
+        print(f"  structured_ilu_apply {tag}: widest level {pc.max_level_rows} rows, {staged} ring stages, "
+              f"z in shared memory: {z_shared}, {dyn_bytes} B dynamic, {ms:.4f} ms, "
+              f"{ms * 1e3 / (2 * pc.num_levels):.3f} us/level")
         results[f"structured_ilu_apply@{tag}"] = dict(
-            max_abs_err=abs_err, ms=time_ms(lambda: pc.launch(r), repeats=20), plain_ms=plain_ms,
+            max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
             bound=bound(ilu_bytes(pc) + 2 * 8 * pc.nrows, ilu_apply_flops(pc)), shape=tag,
         )
     results["structured_ilu_apply"] = results["structured_ilu_apply@monolithic 2D N=128"]

@@ -4,25 +4,32 @@
 #include "fused_gmres.cuh"
 
 // b, x0, x: (2, nz*ny*nx) f64; V: (restart + 1) * 2 * nodes f64 scratch;
-// work: 10 * nodes f64 scratch (pc >= 2, else unused); result: 3 f64
-// (iterations, residual norm, converged); weights: 81 host doubles
+// work: 10 * nodes f64 scratch (pc >= 2, else unused); xchg: 4096 f64 of
+// scratch (the reductions' exchange between blocks); result: 7 f64
+// (iterations, residual norm, converged, blocks launched, basis slice in
+// shared memory, ILU z in shared memory, matvec input in shared memory);
+// weights: 81 host doubles
 // [S1 | S2 | C]; mass: 27 host doubles (the M stencil; pc 2 and 4).
-// pc 1 (jacobi): dinv (2n). pc 3 (ilu): F0 (noffs, 2n), the level schedule
-// and the host offset table ilu_meta. pc 4 (fieldsplit_ilu): F0, F1 (noffs,
-// n) per field, their (shared) schedule and table. pc 2 (fieldsplit_lu):
+// pc 1 (jacobi): dinv (2n). pc 3 (ilu): F0L, F0U, the factor's lower and
+// upper sides packed by level, the level schedule and the host offset table
+// ilu_meta. pc 4 (fieldsplit_ilu): F0L, F0U, F1L, F1U per field, their
+// (shared) schedule and table. pc 2 (fieldsplit_lu):
 // Sx, Sy, Sz (n x n per axis; Sz unused in 2D) and sc (2, nint). Unused
-// pointers may be null. restart + 1 <= 32.
+// pointers may be null. restart + 1 <= 32. max_level_rows: the rows of the
+// schedule's widest level (pc 3, 4).
 extern "C" int perphil_fused_gmres(const double* b, const double* x0, double* x, double* V,
-                                   double* work, double* result, const double* weights,
-                                   const double* mass, const double* dinv, const double* F0,
-                                   const double* F1, const int* level_ptr, const int* level_rows,
+                                   double* work, double* xchg, double* result, const double* weights,
+                                   const double* mass, const double* dinv, const double* F0L,
+                                   const double* F0U, const double* F1L,
+                                   const double* F1U, const int* level_ptr, const int* level_rows,
                                    const int* ilu_meta, const double* Sx, const double* Sy,
                                    const double* Sz, const double* sc, int nz, int ny, int nx,
                                    int dim, int pc, int noffs, int nlev, double rtol, double atol,
                                    double dtol, int max_it, int restart, double coef,
-                                   double in_rtol, double in_atol, int in_max, void* stream) {
+                                   double in_rtol, double in_atol, int in_max,
+                                   int max_level_rows, void* stream) {
   using namespace perphil;
-  if ((dim != 2 && dim != 3) || nx < 1 || ny < 1 || nz < 1 || (dim == 2 && nz != 1) ||
+  if (xchg == nullptr || (dim != 2 && dim != 3) || nx < 1 || ny < 1 || nz < 1 || (dim == 2 && nz != 1) ||
       restart < 1 || restart + 1 > kMaxBasis || pc < kPcNone || pc > kPcFieldsplitIlu) {
     return (int)cudaErrorInvalidValue;
   }
@@ -30,34 +37,35 @@ extern "C" int perphil_fused_gmres(const double* b, const double* x0, double* x,
   const bool ilu = pc == kPcIlu || pc == kPcFieldsplitIlu;
   const bool fields = pc == kPcFieldsplitLu || pc == kPcFieldsplitIlu;
   if ((pc == kPcJacobi && dinv == nullptr) || (pc >= kPcFieldsplitLu && work == nullptr) ||
-      (ilu && (F0 == nullptr || level_ptr == nullptr || level_rows == nullptr || nlev < 1)) ||
-      (pc == kPcFieldsplitIlu && F1 == nullptr) ||
+      (ilu && (F0L == nullptr || F0U == nullptr || level_ptr == nullptr || level_rows == nullptr || nlev < 1)) ||
+      (pc == kPcFieldsplitIlu && (F1L == nullptr || F1U == nullptr)) ||
       (pc == kPcFieldsplitLu && (Sx == nullptr || Sy == nullptr || sc == nullptr ||
                                  nx < 3 || ny < 3 || (dim == 3 && nz < 3))) ||
       (fields && mass == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  int log_j = 0, log_jf = 0;
-  while (((long)kGmresThreads << log_j) < 2 * n) ++log_j;
+  int log_jf = 0;
   while (((long)kGmresThreads << log_jf) < n) ++log_jf;
-  if (log_j > kMaxLogLeaves) return (int)cudaErrorInvalidValue;
+  if (log_jf > kMaxLogLeaves || (ilu && max_level_rows < 1)) return (int)cudaErrorInvalidValue;
   PcTables tab{};
   if (ilu && !ilu_meta_from_host(ilu_meta, noffs, tab.meta)) return (int)cudaErrorInvalidValue;
   if (fields) {
     for (int o = 0; o < 27; ++o) tab.mass[o] = mass[o];
   }
-  const GmresArgs a{b, x0, x, V, result, weights_from_host<double>(weights), Grid{nz, ny, nx},
-                    GmresParams{rtol, atol, dtol, max_it, restart, log_j, log_jf, in_rtol,
-                                in_atol, in_max, coef},
-                    PcData{dinv, F0, F1, level_ptr, level_rows, nlev, Sx, Sy, Sz, sc, work},
+  const GmresArgs a{b, x0, x, V, xchg, result, max_level_rows, weights_from_host<double>(weights),
+                    Grid{nz, ny, nx},
+                    GmresParams{rtol, atol, dtol, max_it, restart, log_jf, in_rtol, in_atol, in_max,
+                                coef, stencil_masks(weights_from_host<double>(weights))},
+                    PcData{dinv, F0L, F0U, F1L, F1U, level_ptr, level_rows, nlev, Sx, Sy, Sz, sc, work},
                     tab, dim};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   switch (pc) {
-    case kPcJacobi: launch_fused_gmres<kPcJacobi>(a, st); break;
-    case kPcFieldsplitLu: launch_fused_gmres<kPcFieldsplitLu>(a, st); break;
-    case kPcIlu: launch_fused_gmres<kPcIlu>(a, st); break;
-    case kPcFieldsplitIlu: launch_fused_gmres<kPcFieldsplitIlu>(a, st); break;
-    default: launch_fused_gmres<kPcNone>(a, st); break;
+    case kPcJacobi: err = launch_fused_gmres<kPcJacobi>(a, st); break;
+    case kPcFieldsplitLu: err = launch_fused_gmres<kPcFieldsplitLu>(a, st); break;
+    case kPcIlu: err = launch_fused_gmres<kPcIlu>(a, st); break;
+    case kPcFieldsplitIlu: err = launch_fused_gmres<kPcFieldsplitIlu>(a, st); break;
+    default: err = launch_fused_gmres<kPcNone>(a, st); break;
   }
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

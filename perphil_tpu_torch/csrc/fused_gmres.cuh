@@ -34,25 +34,48 @@
 // transforms are plain per-axis loops, whose sums run in another order than
 // torch.matmul's, so K6 agrees with its twin to rounding.
 //
-// Bound on the H100: latency. A step is one stencil matvec, the
-// preconditioner and (j+1) dot products and axpys over a few thousand nodes,
-// so a host loop would spend its time in launches and in reading each
-// Hessenberg column back. Here the restart loop runs inside one block of
-// kGmresThreads threads; the basis (m+1) x 2n f64 lives in device scratch and
-// stays L2-resident (2.1 MB at 2D N=64); the Hessenberg, g and the rotations
-// live in shared memory, and thread 0 runs the scalar recurrences between
-// barriers. The ILU sweeps take one barrier per wavefront level (2D N=64:
-// 197 levels per sweep, at most ~66 rows each, so most threads idle); the
-// inner PCGs take ~8 barriers per iteration. Left for later PRs: several
-// blocks with a grid-wide barrier, levels merged where rows allow, the
-// fast-diag transforms as small matrix products.
+// Bound on the H100: latency, then the L2 reads of the basis. A step is one
+// stencil matvec, the preconditioner and (j+1) dot products and axpys over a
+// few thousand values: 0.08 ms of arithmetic for 3307 steps at 2D N=64. One
+// block on one SM spent 147 us a step there on dependent per-thread chains
+// and chunked reductions. What the design does about it:
+//   - One vector is spread over a thread block cluster of nb <= 16 blocks
+//     (cudaLaunchKernelEx, up to the non-portable size 16; a card that
+//     cannot place the cluster refuses the launch), joined by the hardware cluster barrier: 3 a step, 5 with a
+//     preconditioner that runs on block 0 (K6-K8) while the others wait. The
+//     launcher takes nb = min(16, Lt / 512), so K5's <= 512 DoF stay one
+//     block; a cooperative grid was not needed.
+//   - Ownership. With Lt = 512 * nb * S (S leaves a thread), value e belongs
+//     to thread tau = e mod (512 nb), tau = (h * nb + b) * 4 + lo: block b,
+//     7 bits h and 2 bits lo of the thread. A block so owns 32-byte pieces
+//     at a stride of 32 nb bytes: whole sectors, and a thread owns S values.
+//     Every phase of a step (matvec row, dots, Gram-Schmidt, scaling) works
+//     on the thread's own values; only the matvec's neighbours and the
+//     reductions cross threads.
+//   - The block's slice of the basis lives in dynamic shared memory where
+//     (m+1) slices fit (2D N=64 on 16 blocks: 131 KB); each new vector also
+//     goes to device memory, for the matvec, whose neighbours other blocks
+//     own. Larger systems keep the basis in device scratch, L2-resident.
+//   - The matvec's input: a block's values are scattered over the grid, so
+//     their neighbours are too, and every 8-byte load past L1 costs a
+//     32-byte sector (3D: 54 a value; the matvec alone took 16 of 30 us a
+//     step at tet nx=16). Where 2n doubles fit, each block first copies the
+//     whole vector to shared memory in 16-byte loads (68 KB at 2D N=64) and
+//     takes the stencil from there. It is given room before the basis slice.
+//   - All j+1 dots of a step go in one pass over w, one tree (below).
+//   - The Givens chain, R, g and the back-substitution run in every block
+//     on thread 0, redundantly: the same bits, no broadcast.
+//   - basis_comb is a fixed-depth tree over k with independent loads.
 //
-// Reductions. A halving tree over L values (zero-padded to a power of two
-// Lt = J * kGmresThreads) equals: thread c sums its strided set
-// {c + t * kGmresThreads} as a halving tree, then the kGmresThreads partials
-// are halved. A halving tree over J values is the balanced pairwise tree over
-// them in bit-reversed index order, so each thread pushes its leaves in that
-// order into a pairwise accumulator (TreeAcc). Loads stay coalesced.
+// Reductions. The halving tree over L values zero-padded to Lt reduces the
+// high bits of e first: s (the thread's own leaves, a pairwise tree in
+// bit-reversed order, TreeAcc), then h (the top 3 bits are lane bits:
+// shuffles; the low 4 are the warp: shared memory, one warp per row), then b
+// (4 values a row and block meet in a small device buffer; every block
+// finishes the tree redundantly), then lo. Padding leaves are +0.0 without a
+// load, but their additions are kept: x + (+0.0) changes no bit except
+// (-0.0) + (+0.0) = +0.0, which the twin's tree also produces, so dropping
+// an add could flip the sign of a zero.
 
 #pragma once
 
@@ -63,8 +86,10 @@ namespace perphil {
 
 constexpr int kGmresThreads = 512;
 constexpr int kMaxBasis = 32;     // m + 1
-constexpr int kRowChunk = 8;      // rows per batched block reduction
-constexpr int kMaxLogLeaves = 8;  // leaves per thread <= 256
+constexpr int kMaxLogLeaves = 8;  // one-block trees (the inner PCG): leaves per thread <= 256
+constexpr int kMaxLogS = 5;       // the frame: leaves per thread <= 32
+constexpr int kMaxCluster = 16;   // blocks sharing one vector
+constexpr int kXchgDoubles = 2 * kMaxBasis * 4 * kMaxCluster;  // two reduction exchange regions
 
 enum PcKind {
   kPcNone = 0,
@@ -74,22 +99,37 @@ enum PcKind {
   kPcFieldsplitIlu = 4,
 };
 
+// Per stencil, bit o set where weight o is not zero.
+struct StencilMasks {
+  unsigned s1, s2, c;
+};
+
+inline StencilMasks stencil_masks(const DppWeights<double>& w) {
+  StencilMasks m{0u, 0u, 0u};
+  for (int o = 0; o < 27; ++o) {
+    if (w.s1[o] != 0.0) m.s1 |= 1u << o;
+    if (w.s2[o] != 0.0) m.s2 |= 1u << o;
+    if (w.c[o] != 0.0) m.c |= 1u << o;
+  }
+  return m;
+}
+
 struct GmresParams {
   double rtol, atol, dtol;
   int max_it, restart;
-  int log_j;   // log2 of the leaves per thread, 2n values
-  int log_jf;  // the same for one field (n values)
+  int log_jf;  // one-block trees over one field (n values): log2 leaves per thread
   double in_rtol, in_atol;  // the fieldsplit roles' inner PCG
   int in_max;
   double coef;  // -(beta/mu), the coupling's scale
+  StencilMasks nz;
 };
 
 // The preconditioner's device data (pointers and sizes; the offset table and
 // the mass stencil travel in PcTables and are copied to shared memory).
 struct PcData {
   const double* dinv;                  // jacobi: (2n)
-  const double* F0;                    // ilu: (noffs, 2n); fieldsplit_ilu: field 0's (noffs, n)
-  const double* F1;                    // fieldsplit_ilu: field 1's (noffs, n)
+  const double *F0L, *F0U;             // ilu: the factor's packed sides; fieldsplit_ilu: field 0's
+  const double *F1L, *F1U;             // fieldsplit_ilu: field 1's
   const int* level_ptr;                // ilu / fieldsplit_ilu schedule
   const int* level_rows;
   int nlev;
@@ -102,13 +142,37 @@ struct PcTables {
   double mass[27];  // the consistent-mass stencil M (the coupling is coef * M)
 };
 
+// The launch geometry, chosen by the launcher from L = 2n and what fits.
+struct GmresGeom {
+  int nb, log_nb;   // blocks in the cluster (a power of two)
+  int log_s;        // log2 of the leaves per thread: Lt = 512 * nb << log_s
+  int nloc;         // values a block owns at most: the stride of its basis slice
+  int z_smem;       // 1: each block copies the matvec's input vector to shared memory
+  int basis_smem;   // 1: the block's basis slice lives in dynamic shared memory
+  IluPlan ilu;      // the ILU roles' stage (K7, K8), first in dynamic shared memory
+  int bytes;        // dynamic shared memory in all
+};
+
+// Host: blocks for L values: min(kMaxCluster, Lt / kGmresThreads).
+inline int gmres_blocks(long L) {
+  long Lt = kGmresThreads;
+  while (Lt < L) Lt *= 2;
+  int nb = 1;
+  while (nb * 2 <= kMaxCluster && (long)kGmresThreads * nb * 2 <= Lt) nb *= 2;
+  return nb;
+}
+
 // Everything one launch takes.
 struct GmresArgs {
   const double* b;
   const double* x0;
   double* x;
   double* V;
+  double* xchg;    // kXchgDoubles of scratch
+  // iterations, residual norm, converged, blocks, basis slice in shared
+  // memory, ILU z in shared memory, matvec input in shared memory
   double* result;
+  int max_level_rows;
   DppWeights<double> w;
   Grid g;
   GmresParams prm;
@@ -117,8 +181,9 @@ struct GmresArgs {
   int dim;
 };
 
-// Launch the kernel for preconditioner PC (instantiated in fused_gmres_pc_*.cu).
+// Choose the geometry and launch the kernel for preconditioner PC
+// (instantiated in fused_gmres_pc_*.cu).
 template <int PC>
-void launch_fused_gmres(const GmresArgs& a, cudaStream_t st);
+cudaError_t launch_fused_gmres(const GmresArgs& a, cudaStream_t st);
 
 }  // namespace perphil

@@ -4,6 +4,6 @@
 
 namespace perphil {
 
-template void launch_fused_gmres<kPcFieldsplitIlu>(const GmresArgs&, cudaStream_t);
+template cudaError_t launch_fused_gmres<kPcFieldsplitIlu>(const GmresArgs&, cudaStream_t);
 
 }  // namespace perphil

@@ -4,7 +4,7 @@
 
 namespace perphil {
 
-template void launch_fused_gmres<kPcNone>(const GmresArgs&, cudaStream_t);
-template void launch_fused_gmres<kPcJacobi>(const GmresArgs&, cudaStream_t);
+template cudaError_t launch_fused_gmres<kPcNone>(const GmresArgs&, cudaStream_t);
+template cudaError_t launch_fused_gmres<kPcJacobi>(const GmresArgs&, cudaStream_t);
 
 }  // namespace perphil

@@ -11,10 +11,18 @@
 //
 // Bound on the H100: latency. Two sweeps of nlev levels each (2D N=128:
 // 389), one barrier per level, and a level holds at most a few hundred rows,
-// so most of the 512 threads idle and one SM works. The factor (27 offsets x
-// 33,282 rows x 8 B = 7.2 MB at N=128) streams through L2 once per sweep.
-// Later PRs: several levels per barrier where rows allow, or the
-// parallel-prefix form across blocks.
+// so one SM works and the bytes (the factor, 27 offsets x 33,282 rows x 8 B =
+// 7.2 MB at N=128, once per apply) are far from what limits it, as long as
+// they come in runs: the factor is read packed by level. What the
+// design does about it (ilu_sweep.cuh): nothing but z[col] is loaded after a
+// level's barrier. Producer warps run ahead and bring each level's row
+// indices, factor entries, right-hand side and diagonal into a ring of
+// shared-memory stages with cp.async, signalled through mbarriers; only as
+// many consumer warps as the widest level needs meet at the per-level
+// barrier; a row's z loads go out together, ahead of its chain of
+// differences; and z lives in the block's dynamic shared memory where nrows
+// doubles fit beside the ring (a 129^2 field system: 133 KB), else in device
+// memory (2D N=128 monolithic: 266 KB), read back through L2 once a level.
 
 #include "ilu_sweep.cuh"
 
@@ -23,29 +31,45 @@ namespace perphil {
 constexpr int kIluThreads = 512;
 
 __global__ void __launch_bounds__(kIluThreads)
-ilu_apply_kernel(const double* r, double* z, double* y, const double* F, const int* level_ptr,
-                 const int* level_rows, IluMeta meta, int nrows, int nlev) {
+ilu_apply_kernel(const double* r, double* z, double* y, const double* PL, const double* PU,
+                 const int* level_ptr,
+                 const int* level_rows, IluMeta meta, IluPlan plan, int nrows, int nlev) {
+  extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ IluMeta m;
   if (threadIdx.x == 0) m = meta;
-  __syncthreads();
-  ilu_apply(F, nrows, m, level_ptr, level_rows, nlev, r, y, z);
+  const IluStage st = ilu_stage(plan, dyn, level_ptr, nrows, nlev);  // ends with a barrier
+  ilu_apply(PL, PU, nrows, m, st, level_rows, nlev, r, y, z);
 }
 
 }  // namespace perphil
 
-// r, z, y: (nrows,) f64 (y is scratch); F: (noffs, nrows) f64 factor;
+// r, z, y: (nrows,) f64 (y is scratch); PL, PU: the f64 factor's lower and
+// upper sides packed by level (ops/ilu.py StructuredILU0.packed_lower/upper);
 // level_ptr: (nlev + 1,) int32, level_rows: (nrows,) int32; meta: the host
-// int32 offset table (ops/ilu.py StructuredILU0.meta).
-extern "C" int perphil_structured_ilu_apply(const double* r, double* z, double* y, const double* F,
-                                            const int* level_ptr, const int* level_rows,
+// int32 offset table (ops/ilu.py StructuredILU0.meta); max_rows: the rows of
+// the widest level. geometry, when not null, receives on the host
+// [ring stages (0: the direct loop), z in shared memory, dynamic bytes].
+extern "C" int perphil_structured_ilu_apply(const double* r, double* z, double* y, const double* PL,
+                                            const double* PU, const int* level_ptr, const int* level_rows,
                                             const int* meta, int noffs, int nrows, int nlev,
-                                            void* stream) {
+                                            int max_rows, int* geometry, void* stream) {
   using namespace perphil;
   IluMeta m;
-  if (nrows < 1 || nlev < 1 || !ilu_meta_from_host(meta, noffs, m)) {
+  if (nrows < 1 || nlev < 1 || max_rows < 1 || !ilu_meta_from_host(meta, noffs, m)) {
     return (int)cudaErrorInvalidValue;
   }
-  ilu_apply_kernel<<<1, kIluThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      r, z, y, F, level_ptr, level_rows, m, nrows, nlev);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, ilu_apply_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const IluPlan plan = ilu_plan(m, nrows, nlev, max_rows, kMaxSmemPerBlock - (long)fa.sharedSizeBytes);
+  err = cudaFuncSetAttribute(ilu_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (geometry != nullptr) {
+    geometry[0] = plan.stages;
+    geometry[1] = plan.z_smem;
+    geometry[2] = plan.bytes;
+  }
+  ilu_apply_kernel<<<1, kIluThreads, plan.bytes, static_cast<cudaStream_t>(stream)>>>(
+      r, z, y, PL, PU, level_ptr, level_rows, m, plan, nrows, nlev);
   return (int)cudaGetLastError();
 }

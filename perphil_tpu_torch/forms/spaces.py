@@ -27,14 +27,14 @@ class FunctionSpace:
     :param family: "CG" (aliases "Lagrange", "Q", "P" accepted).
     :param degree: polynomial degree; only 1 is ported.
     :param value_shape: () for scalar, (dim,) for vector spaces.
-    :param device: where the space's tensors live (default: the CPU).
+    :param device: where the space's tensors live (default: the current CUDA device; pass "cpu" for the CPU).
     """
 
     mesh: StructuredMesh
     family: str = "CG"
     degree: int = 1
     value_shape: Tuple[int, ...] = ()
-    device: torch.device = torch.device("cpu")
+    device: DeviceLike = None
 
     def __post_init__(self):
         if self.family not in ("CG", "Lagrange", "Q", "P"):
@@ -127,7 +127,7 @@ def create_function_spaces(
     pressure_deg: int = 1,
     velocity_family: str = "CG",
     pressure_family: str = "CG",
-    device: DeviceLike = "cpu",
+    device: DeviceLike = None,
 ) -> Tuple[FunctionSpace, FunctionSpace]:
     """Build (velocity, pressure) spaces on ``device``."""
     device = resolve_device(device)
@@ -146,7 +146,7 @@ def _evaluate(
     expr: Expr,
     mesh: StructuredMesh,
     value_shape: Tuple[int, ...],
-    device: DeviceLike = "cpu",
+    device: DeviceLike = None,
 ) -> torch.Tensor:
     """Evaluate an expression (callable of coordinate tensors, constant, or
     array) at the mesh vertices, as a grid-shaped float64 tensor on

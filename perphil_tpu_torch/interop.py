@@ -39,7 +39,7 @@ def from_numpy_state(
     element: str,
     g1: np.ndarray,
     g2: np.ndarray,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = None,
 ) -> DPPState:
     """Port-side DPP state.
 
@@ -49,6 +49,8 @@ def from_numpy_state(
     :param element: "quad" | "triangle" | "hex" | "tet".
     :param g1, g2: per-field Dirichlet data on the node grid (only the
         boundary entries are used).
+    :param device: where the state lives: the current CUDA device when left
+        out, ``"cpu"`` for the CPU.
     """
     device = resolve_device(device)
     mesh = StructuredMesh(cells=tuple(int(c) for c in cells), element=element)

@@ -58,13 +58,14 @@ _SIGNATURES = {
     # max_it, stream
     "perphil_fused_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _D, _I, _P],
-    # b, x0, x, V, work, result, weights, mass, dinv, F0, F1, level_ptr,
-    # level_rows, ilu_meta, Sx, Sy, Sz, sc, nz, ny, nx, dim, pc, noffs, nlev,
+    # b, x0, x, V, work, xchg, result, weights, mass, dinv, F0L, F0U, F1L, F1U,
+    # level_ptr, level_rows, ilu_meta, Sx, Sy, Sz, sc, nz, ny, nx, dim, pc, noffs, nlev,
     # rtol, atol, dtol, max_it, restart, coef, in_rtol, in_atol, in_max,
-    # stream
-    "perphil_fused_gmres": [_P] * 18 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _P],
-    # r, z, y, F, level_ptr, level_rows, meta, noffs, nrows, nlev, stream
-    "perphil_structured_ilu_apply": [_P] * 7 + [_I, _I, _I, _P],
+    # max_level_rows, stream
+    "perphil_fused_gmres": [_P] * 21 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _P],
+    # r, z, y, packed_lower, packed_upper, level_ptr, level_rows, meta, noffs,
+    # nrows, nlev, max_level_rows, geometry(host, 3 ints), stream
+    "perphil_structured_ilu_apply": [_P] * 8 + [_I, _I, _I, _I, _P, _P],
 }
 
 _LIB = None

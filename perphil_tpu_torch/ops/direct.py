@@ -113,7 +113,7 @@ class FastDiagFieldSolver(_FastDiagBase):
         beta: float,
         mu: float,
         lumped: bool = False,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = None,
         dtype: torch.dtype = default_dtype(),
     ):
         if not (mesh.is_tensor_product or lumped):
@@ -141,7 +141,7 @@ class LumpedDPPPreconditioner(nn.Module):
     simplicial system: one lumped field solve per field on the interior,
     identity on the boundary. Acts on stacked ``(2, *node_shape)`` grids."""
 
-    def __init__(self, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = "cpu"):
+    def __init__(self, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
         super().__init__()
         p = params
         self.pc1 = FastDiagFieldSolver(mesh, p.k1, p.beta, p.mu, lumped=True, device=device)
@@ -166,7 +166,7 @@ class FastDiagDPPSolver(_FastDiagBase):
         self,
         mesh: StructuredMesh,
         params: DPPParameters,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = None,
         dtype: torch.dtype = default_dtype(),
     ):
         if not mesh.is_tensor_product:

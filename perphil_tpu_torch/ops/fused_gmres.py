@@ -39,7 +39,7 @@ and, for ILU, the factor planes must fit a 20 MiB VMEM budget.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +74,36 @@ EF64_MAX_DOF = 512
 _LANES = 128
 _VMEM_BUDGET = 20 * 1024 * 1024
 _WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
+_XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
+_THREADS = 512  # threads of a block
+#: blocks of one thread block cluster at most (the card's non-portable size)
+MAX_BLOCKS = 16
+#: leaves of a reduction tree a thread may own (``csrc/fused_gmres.cuh``)
+MAX_LEAVES = 32
+
+
+class LaunchGeometry(NamedTuple):
+    """How one launch spreads ``2n`` values: ``blocks`` of 512 threads in
+    one cluster, ``leaves`` values a thread."""
+
+    blocks: int
+    leaves: int
+
+
+def launch_geometry(num_values: int) -> LaunchGeometry:
+    """The launcher's choice (``csrc/fused_gmres.cuh::gmres_blocks``) for
+    vectors of ``num_values`` f64: pad to ``Lt``, the power of two that is
+    at least 512 and ``num_values``; take ``min(16, Lt / 512)`` blocks; a
+    thread owns ``Lt / (512 blocks)`` leaves. Raises where that exceeds the
+    kernel's per-thread tree."""
+    if num_values < 1:
+        raise ValueError("num_values must be positive")
+    padded = max(_THREADS, _next_pow2(num_values))
+    blocks = min(MAX_BLOCKS, padded // _THREADS)
+    leaves = padded // (_THREADS * blocks)
+    if leaves > MAX_LEAVES:
+        raise ValueError(f"{num_values} values on {blocks} blocks: {leaves} leaves a thread, at most {MAX_LEAVES}")
+    return LaunchGeometry(blocks, leaves)
 
 
 def _next_pow2(n: int) -> int:
@@ -154,6 +184,9 @@ class FusedGMRESSolver(nn.Module):
         self.rtol, self.atol, self.dtol = float(rtol), float(atol), float(dtol)
         self.max_it, self.restart = int(max_it), int(restart)
         self.inner_solves = self.inner_iterations = 0
+        #: what the last launch ran with: (blocks, basis slice in shared
+        #: memory, ILU z in shared memory, matvec input in shared memory)
+        self.last_geometry: Optional[Tuple[int, bool, bool, bool]] = None
         self.stencils = dpp_stencils(mesh, p)
         dinv = None
         if pc_type == "jacobi":
@@ -253,23 +286,32 @@ class FusedGMRESSolver(nn.Module):
     # -- the kernel -------------------------------------------------------
 
     def _pc_args(self) -> Tuple:
-        """The launcher's preconditioner pointers: dinv, F0, F1, level_ptr,
-        level_rows, offset table (host), Sx, Sy, Sz, sc; then noffs, nlev."""
+        """The launcher's preconditioner pointers: dinv, the packed factor
+        sides F0L, F0U, F1L, F1U, level_ptr,
+        level_rows, offset table (host), Sx, Sy, Sz, sc; then noffs, nlev
+        and the rows of the widest level."""
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        F0 = F1 = sched = None
+        first = second = sched = None
         if self.ilu is not None:
-            F0, sched = self.ilu.factors, self.ilu
+            first = sched = self.ilu
         elif self.field_ilu is not None:
-            F0, F1, sched = self.field_ilu[0].factors, self.field_ilu[1].factors, self.field_ilu[0]
+            first, second = self.field_ilu
+            sched = first
+        packed = [
+            None if f is None else side
+            for f in (first, second)
+            for side in ((None, None) if f is None else (f.packed_lower, f.packed_upper))
+        ]
         axes = (None, None, None) if self.field_fd is None else _axis_ptrs(self.field_fd[0].mats)
         return (
-            ptr(self.dinv), ptr(F0), ptr(F1),
+            ptr(self.dinv), *(ptr(t) for t in packed),
             None if sched is None else sched.level_ptr.data_ptr(),
             None if sched is None else sched.level_rows.data_ptr(),
             None if sched is None else sched.meta.ctypes.data,
             *axes, ptr(self.sc),
             0 if sched is None else len(sched.deltas),
             0 if sched is None else sched.num_levels,
+            0 if sched is None else sched.max_level_rows,
         )
 
     def launch(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
@@ -287,20 +329,24 @@ class FusedGMRESSolver(nn.Module):
         work = None
         if PC_KINDS[self.pc_type] >= 2:
             work = torch.empty(_WORK_PER_NODE * b[0].numel(), dtype=torch.float64, device=b.device)
-        result = torch.empty(3, dtype=torch.float64, device=b.device)
+        xchg = torch.empty(_XCHG_DOUBLES, dtype=torch.float64, device=b.device)
+        result = torch.empty(7, dtype=torch.float64, device=b.device)
         w = pack_weights(*self.stencils)
-        (dinv, F0, F1, lptr, lrows, meta, Sx, Sy, Sz, sc, noffs, nlev) = self._pc_args()
+        (dinv, F0L, F0U, F1L, F1U, lptr, lrows, meta, Sx, Sy, Sz, sc, noffs, nlev, max_rows) = self._pc_args()
         rtol_in, atol_in, max_in = INNER_TOLS.get(self.pc_type, (0.0, 0.0, 0))
         _cuda.launch(
             self.role, "perphil_fused_gmres", b.device,
             b.data_ptr(), x0.data_ptr(), x.data_ptr(), basis.data_ptr(),
-            None if work is None else work.data_ptr(), result.data_ptr(), w.ctypes.data,
-            None if self.mass is None else self.mass.ctypes.data, dinv, F0, F1, lptr, lrows, meta,
+            None if work is None else work.data_ptr(), xchg.data_ptr(), result.data_ptr(),
+            w.ctypes.data,
+            None if self.mass is None else self.mass.ctypes.data, dinv, F0L, F0U, F1L, F1U, lptr,
+            lrows, meta,
             Sx, Sy, Sz, sc, *_grid_args(self.node_shape), PC_KINDS[self.pc_type], noffs, nlev,
             self.rtol, self.atol, self.dtol, self.max_it, self.restart,
-            self.coef, rtol_in, atol_in, max_in,
+            self.coef, rtol_in, atol_in, max_in, max_rows,
         )
-        its, rnorm, converged = result.tolist()
+        its, rnorm, converged, blocks, basis_smem, ilu_z_smem, input_smem = result.tolist()
+        self.last_geometry = (int(blocks), bool(basis_smem), bool(ilu_z_smem), bool(input_smem))
         return KrylovResult(x, int(its), rnorm, bool(converged))
 
     def forward(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:

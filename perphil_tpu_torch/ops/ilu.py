@@ -227,13 +227,15 @@ def ilu0_factorize(sys: StructuredSystem) -> np.ndarray:
 class StructuredILU0(nn.Module):
     """ILU(0) application ``z = U^{-1} L^{-1} r`` in native f64.
 
-    Buffers: ``factors`` (noffs, nrows), the f64 factor by offset;
+    Buffers: ``factors`` (noffs, nrows), the f64 factor by offset (the plain
+    sweep's); ``packed_lower`` and ``packed_upper``, the same entries packed
+    by level (the kernels': a level's rows lie scattered in ``factors``);
     ``level_ptr`` (nlev + 1,) and ``level_rows`` (nrows,) int32, the
     wavefront schedule in CSR form. ``meta`` holds the kernels' int32 offset
     table: ``[nlow, nup, center, low_t[40], up_t[40], delta[noffs]]``.
     """
 
-    def __init__(self, sys: StructuredSystem, device: DeviceLike = "cpu"):
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
         super().__init__()
         self.device = resolve_device(device)
         self.nrows, self.n_nodes = sys.nrows, sys.n_nodes
@@ -248,6 +250,15 @@ class StructuredILU0(nn.Module):
         rows = np.concatenate(sys.levels).astype(np.int32)
         dev = self.device
         self.register_buffer("factors", torch.tensor(np.ascontiguousarray(fac.T), device=dev))
+        # each side packed by level for the kernels: level lv's block starts at
+        # items * ptr[lv] and holds [q][r], q the side's offsets in stored
+        # order (upper: then the diagonal), r the level's rows
+        by_level = fac.T[:, rows]
+        for name, offs in (("packed_lower", self.lower), ("packed_upper", self.upper + (self.center,))):
+            side = by_level[list(offs)]
+            blocks = [side[:, ptr[lv] : ptr[lv + 1]].ravel() for lv in range(len(ptr) - 1)]
+            packed = np.concatenate(blocks) if offs else np.zeros(0)
+            self.register_buffer(name, torch.tensor(packed, device=dev))
         self.register_buffer("level_ptr", torch.tensor(ptr, device=dev))
         self.register_buffer("level_rows", torch.tensor(rows, device=dev))
         meta = np.zeros(3 + 2 * MAX_SIDE_OFFSETS + len(self.deltas), np.int32)
@@ -256,10 +267,15 @@ class StructuredILU0(nn.Module):
         meta[3 + MAX_SIDE_OFFSETS : 3 + MAX_SIDE_OFFSETS + len(self.upper)] = self.upper
         meta[3 + 2 * MAX_SIDE_OFFSETS :] = self.deltas
         self.meta = meta
+        #: rows of the widest level: the kernels size their prefetch stage by it
+        self.max_level_rows = int(np.diff(ptr).max())
+        #: what the last launch chose: (stages of the prefetch ring or 0 for
+        #: the direct loop, whether z lives in shared memory, dynamic bytes)
+        self.last_geometry: Optional[Tuple[int, bool, int]] = None
         self._plan: Optional[Tuple[list, list]] = None
 
     @classmethod
-    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = "cpu"):
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
         return cls(build_monolithic_system(mesh, params), device)
 
     @classmethod
@@ -325,12 +341,15 @@ class StructuredILU0(nn.Module):
             raise ValueError(f"r has shape {tuple(r.shape)}, expected ({self.nrows},)")
         z = torch.empty_like(r)
         y = torch.empty_like(r)
+        geometry = np.zeros(3, np.int32)
         _cuda.launch(
             KERNEL, "perphil_structured_ilu_apply", r.device,
-            r.data_ptr(), z.data_ptr(), y.data_ptr(), self.factors.data_ptr(),
-            self.level_ptr.data_ptr(), self.level_rows.data_ptr(), self.meta.ctypes.data,
-            len(self.deltas), self.nrows, self.num_levels,
+            r.data_ptr(), z.data_ptr(), y.data_ptr(), self.packed_lower.data_ptr(),
+            self.packed_upper.data_ptr(), self.level_ptr.data_ptr(), self.level_rows.data_ptr(), self.meta.ctypes.data,
+            len(self.deltas), self.nrows, self.num_levels, self.max_level_rows,
+            geometry.ctypes.data,
         )
+        self.last_geometry = (int(geometry[0]), bool(geometry[1]), int(geometry[2]))
         return z
 
     def apply_flat(self, r: torch.Tensor) -> torch.Tensor:

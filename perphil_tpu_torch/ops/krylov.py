@@ -40,8 +40,8 @@ def tree_sum(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Sum along ``dim`` as a pairwise halving tree: zero-pad to a power of
     two ``L``, then ``p[:L/2] + p[L/2:]`` until one entry is left
     (``perphil_tpu/ops/krylov.py:625-646``). Padding further with zeros
-    leaves the result unchanged, which lets the kernel pad to its thread
-    count."""
+    leaves the result unchanged (but for the sign of a total of ``-0.0``),
+    which lets the kernel pad to its thread count."""
     size = p.shape[dim]
     width = 1 << max(0, (size - 1).bit_length())
     if width != size:
@@ -52,6 +52,53 @@ def tree_sum(p: torch.Tensor, dim: int = -1) -> torch.Tensor:
         width //= 2
         p = p.narrow(dim, 0, width) + p.narrow(dim, width, width)
     return p.select(dim, 0)
+
+
+def _halve(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The halving tree along ``dim`` (a power of two long), which it drops."""
+    width = t.shape[dim]
+    while width > 1:
+        width //= 2
+        t = t.narrow(dim, 0, width) + t.narrow(dim, width, width)
+    return t.select(dim, 0)
+
+
+#: threads of one block of the fused GMRES kernel
+CLUSTER_THREADS = 512
+
+
+def tree_sum_cluster(p: torch.Tensor, blocks: int) -> torch.Tensor:
+    """:func:`tree_sum` of a 1-D tensor, taken as the fused GMRES kernel
+    takes it on ``blocks`` thread blocks of 512 threads
+    (``csrc/fused_gmres.cuh``, "Ownership" and "Reductions"); the result
+    equals :func:`tree_sum` bit for bit.
+
+    With ``Lt`` the power of two that is at least 512 and the length, value
+    ``e`` belongs to thread ``tau = e mod (512 * blocks)``, ``tau = (h *
+    blocks + b) * 4 + lo``: block ``b``, thread ``(h, lo)``. The tree then
+    runs over the thread's own leaves ``s = e // (512 * blocks)``, over the top three bits of ``h`` (shuffles inside a warp),
+    over its other bits (the warps, through shared memory), over the blocks
+    (through device memory) and over ``lo``. A padding leaf is ``+0.0``
+    without a load, but its addition is made: ``x + 0.0`` changes no bit of
+    ``x`` except ``-0.0``, which becomes ``+0.0`` here as in
+    :func:`tree_sum`. The one difference: a length that is a power of two
+    below 512 is padded here and not there, so a total of exactly
+    ``-0.0`` comes out as ``+0.0``."""
+    if p.dim() != 1:
+        raise ValueError("tree_sum_cluster takes a 1-D tensor")
+    if blocks < 1 or blocks & (blocks - 1):
+        raise ValueError("blocks must be a power of two")
+    threads, size = CLUSTER_THREADS, p.shape[0]
+    padded = max(threads, 1 << max(0, (size - 1).bit_length()))
+    if threads * blocks > padded:
+        raise ValueError(f"{blocks} blocks of {threads} threads for {size} values: more threads than leaves")
+    leaves = padded // (threads * blocks)
+    if padded != size:
+        p = torch.cat([p, p.new_zeros(padded - size)])
+    t = p.reshape(leaves, 8, threads // 32, blocks, 4)  # s, h's lane bits, warp, b, lo
+    for _ in range(5):
+        t = _halve(t, 0)
+    return t
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:

@@ -43,7 +43,7 @@ class MixedPrecisionDPPDirect(nn.Module):
         mesh: StructuredMesh,
         params: DPPParameters,
         refinements: int = 5,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = None,
     ):
         super().__init__()
         self.mesh = mesh

@@ -34,7 +34,7 @@ def _pair(element, cells, seed=0):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal(mesh.node_shape) for _ in range(4)]
-    state = from_numpy_state(PARAMS, cells, element, arrs[0], arrs[1])
+    state = from_numpy_state(PARAMS, cells, element, arrs[0], arrs[1], device="cpu")
     _, jV = jspaces_of(mesh)
     jop = JOp(jmixed(jV), JParams(**PARAMS))
     return DPPOperator(state.W, state.params), jop, arrs, state
@@ -43,7 +43,7 @@ def _pair(element, cells, seed=0):
 def _stencils(element, cells, params=PARAMS):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     zero = np.zeros(mesh.node_shape)
-    state = from_numpy_state(params, cells, element, zero, zero)
+    state = from_numpy_state(params, cells, element, zero, zero, device="cpu")
     return mesh, dpp_stencils(state.mesh, state.params)
 
 
@@ -136,6 +136,6 @@ def test_box_boundary_and_weights():
 
 
 def test_padding_is_not_ported():
-    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
+    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 9"):
         DPPOperator(state.W, state.params, padding=(1, 0))

@@ -44,7 +44,7 @@ def _systems(element, cells, seed=0):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     rng = np.random.default_rng(seed)
     b1, b2 = (rng.standard_normal(mesh.node_shape) for _ in range(2))
-    state = from_numpy_state(PARAMS, cells, element, b1, b2)
+    state = from_numpy_state(PARAMS, cells, element, b1, b2, device="cpu")
     _, jV = jspaces_of(mesh)
     return state, JOp(jmixed(jV), JParams(**PARAMS)), b1, b2
 
@@ -63,12 +63,12 @@ def test_interior_eig_equal():
 @pytest.mark.parametrize("element,cells", TENSOR, ids=["quad16", "hex6"])
 def test_fastdiag_solvers_match_f64(element, cells):
     state, jop, b1, b2 = _systems(element, cells)
-    t = tdirect.FastDiagDPPSolver(state.mesh, state.params)
+    t = tdirect.FastDiagDPPSolver(state.mesh, state.params, device="cpu")
     j = jdirect.FastDiagDPPSolver(jop.mesh, jop.params)
     for a, b in zip(t.solve(torch.as_tensor(b1), torch.as_tensor(b2)), j.solve(jnp.asarray(b1), jnp.asarray(b2))):
         assert _rel(a, b) <= 1e-12
     for lumped in (False, True):
-        tf = tdirect.FastDiagFieldSolver(state.mesh, 1.0, 0.5, 1.0, lumped=lumped)
+        tf = tdirect.FastDiagFieldSolver(state.mesh, 1.0, 0.5, 1.0, lumped=lumped, device="cpu")
         jf = jdirect.FastDiagFieldSolver(jop.mesh, 1.0, 0.5, 1.0, lumped=lumped)
         assert _rel(tf.solve(torch.as_tensor(b1)), jf.solve(jnp.asarray(b1))) <= 1e-12
     assert {n for n, _ in t.named_buffers()} >= {"S0", "S1", "a11", "a22", "det"}
@@ -81,7 +81,7 @@ def test_mixed_and_k2_twin_match_jax_f64(element, cells):
     tb = (torch.as_tensor(b1), torch.as_tensor(b2))
     op = DPPOperator(state.W, state.params)
     assert fused_direct_supported(op)
-    mixed = MixedPrecisionDPPDirect(state.mesh, state.params)
+    mixed = MixedPrecisionDPPDirect(state.mesh, state.params, device="cpu")
     k2 = fused_direct_solve(op)
     assert isinstance(k2, FusedDirectSolver) and k2.fast32.S0.dtype == torch.float32
     for solver in (mixed.solve, k2):
@@ -94,7 +94,7 @@ def test_mixed_assemble_and_solve_matches_jax():
     state, jop, g1, g2 = _systems("quad", (16, 16), seed=2)
     jb = jop.lifted_rhs(jnp.asarray(g1), jnp.asarray(g2))
     ref = jdirect.FastDiagDPPSolver(jop.mesh, jop.params).solve(*jb)
-    out = MixedPrecisionDPPDirect(state.mesh, state.params).assemble_and_solve(*state.grids)
+    out = MixedPrecisionDPPDirect(state.mesh, state.params, device="cpu").assemble_and_solve(*state.grids)
     for a, b in zip(out, ref):
         assert _rel(a, b) <= 1e-10
 
@@ -127,7 +127,7 @@ def test_cg_matches_jax_cg(element, cells):
     op = DPPOperator(state.W, state.params)
     x, its, rnorm = cg(
         op.stacked_matvec(), torch.as_tensor(np.array(jb)), rtol=1e-10, atol=0.0, max_it=500,
-        M_inv=LumpedDPPPreconditioner(state.mesh, state.params),
+        M_inv=LumpedDPPPreconditioner(state.mesh, state.params, device="cpu"),
     )
     assert abs(its - int(jits)) <= 1
     assert _rel(x, jx) <= 1e-10 and np.isfinite(rnorm)
@@ -161,7 +161,7 @@ def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, inside):
     _, jV = jspaces_of(mesh)
     jop = JOp(jmixed(jV), JParams())
     zero = np.zeros(mesh.node_shape)
-    state = from_numpy_state({}, cells, element, zero, zero)
+    state = from_numpy_state({}, cells, element, zero, zero, device="cpu")
     op = DPPOperator(state.W, state.params)
     jax_gate = jax_fused_direct_supported(jop) or jax_fused_simplicial_supported(jop)
     port_gate = fused_direct_supported(op) or fused_simplicial_direct_supported(op)
@@ -169,10 +169,10 @@ def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, inside):
 
 
 def test_fused_solvers_reject_what_they_do_not_take():
-    big = from_numpy_state({}, (128, 128), "quad", np.zeros((129, 129)), np.zeros((129, 129)))
+    big = from_numpy_state({}, (128, 128), "quad", np.zeros((129, 129)), np.zeros((129, 129)), device="cpu")
     with pytest.raises(ValueError, match="envelope"):
         FusedDirectSolver(DPPOperator(big.W, big.params))
-    small = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
+    small = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     k2 = FusedDirectSolver(DPPOperator(small.W, small.params))
     with pytest.raises(ValueError):
         k2(small.grids[0].float(), small.grids[1].float())

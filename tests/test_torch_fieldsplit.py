@@ -68,7 +68,7 @@ def _pair(element, cells, params=PARAMS, g1=None, g2=None):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     _, jV = jspaces_of(mesh)
     zero = np.zeros(mesh.node_shape)
-    state = from_numpy_state(params, cells, element, zero if g1 is None else g1, zero if g2 is None else g2)
+    state = from_numpy_state(params, cells, element, zero if g1 is None else g1, zero if g2 is None else g2, device="cpu")
     return mesh, jV, state
 
 
@@ -132,7 +132,7 @@ def test_fieldsplit_presets_land_4(preset, element, cells):
     the true residual only up to cond(PA): measured up to 1.5e-7 ||r0||."""
     params, kind, fused_pc = PRESETS[preset]
     g1, g2 = _manufactured(element, cells)
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     op = DPPOperator(state.W, state.params)
     flat = dict(_freeze(params))
     assert _krylov_kind(op, flat) == kind
@@ -225,7 +225,7 @@ def test_fused_twins_match_jax(jax_f64_ilu, case, element, cells, tol):
     params, jparams = HOST_PARAMS[case]
     g1, g2 = _manufactured(element, cells)
     ref = _jax_solve(element, cells, g1, g2, jparams)
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
     assert sol.iteration_number == int(ref.iteration_number) == 4
     for a, b in zip(sol.solution.data, ref.solution.data):
@@ -240,7 +240,7 @@ def test_preonly_fieldsplit_matches_jax(sub):
     g1, g2 = _manufactured("quad", (8, 8))
     params = {**sub, "ksp_type": "preonly"}
     ref = _jax_solve("quad", (8, 8), g1, g2, params)
-    state = from_numpy_state({}, (8, 8), "quad", g1, g2)
+    state = from_numpy_state({}, (8, 8), "quad", g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
     assert (sol.iteration_number, sol.residual_error) == (1, 0.0)
     for a, b in zip(sol.solution.data, ref.solution.data):
@@ -249,7 +249,7 @@ def test_preonly_fieldsplit_matches_jax(sub):
 
 
 def test_unsupported_fieldsplit_options_raise():
-    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
+    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     for params, match in (
         ({**SS, "pc_fieldsplit_type": "schur"}, "pc_fieldsplit_type"),
         ({**SS, "fieldsplit_0_ksp_type": "bicg"}, "block ksp_type"),

@@ -50,7 +50,7 @@ def jax_f64_ilu(monkeypatch):
 
 def _systems(element, cells, kind):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
-    state = from_numpy_state(PARAMS, cells, element, np.zeros(mesh.node_shape), np.zeros(mesh.node_shape))
+    state = from_numpy_state(PARAMS, cells, element, np.zeros(mesh.node_shape), np.zeros(mesh.node_shape), device="cpu")
     jp = JParams(**PARAMS)
     if kind == "monolithic":
         return jilu.build_monolithic_system(mesh, jp), ilu.build_monolithic_system(state.mesh, state.params)
@@ -86,11 +86,11 @@ def test_system_and_factor_match_jax(element, cells, kind):
 def test_apply_flat_matches_jax(jax_f64_ilu, element, cells, kind):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     _, jV = jspaces_of(mesh)
-    state = from_numpy_state(PARAMS, cells, element, np.zeros(mesh.node_shape), np.zeros(mesh.node_shape))
+    state = from_numpy_state(PARAMS, cells, element, np.zeros(mesh.node_shape), np.zeros(mesh.node_shape), device="cpu")
     p = state.params
     if kind == "monolithic":
         jref = jilu.StructuredILU0.for_monolithic(JOp(jmixed(jV), JParams(**PARAMS)))
-        got = ilu.StructuredILU0.for_monolithic(state.mesh, p)
+        got = ilu.StructuredILU0.for_monolithic(state.mesh, p, "cpu")
     else:
         jref = jilu.StructuredILU0.for_field(JFieldOp(jV, p.k1, p.beta, p.mu))
         got = ilu.StructuredILU0.for_field(FieldOperator(state.W.sub(0), p.k1, p.beta, p.mu))
@@ -134,7 +134,7 @@ GMRES_ILU = [("quad", (4, 4), 5), ("quad", (8, 8), 7), ("quad", (16, 16), 11),
 @pytest.mark.parametrize("element,cells,count", GMRES_ILU, ids=[f"{e}{c[0]}" for e, c, _ in GMRES_ILU])
 def test_gmres_ilu_counts(element, cells, count):
     g1, g2 = _manufactured(element, cells)
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     assert _krylov_kind(DPPOperator(state.W, state.params), dict(_freeze(sp.GMRES_ILU_PARAMS))) == K7
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=sp.GMRES_ILU_PARAMS)
     assert sol.iteration_number == count
@@ -148,7 +148,7 @@ def test_gmres_ilu_matches_jax(jax_f64_ilu, element, cells, count):
     count, solutions within 1e-10 (the trisolves sum in two orders)."""
     g1, g2 = _manufactured(element, cells)
     ref = _jax_solve(element, cells, g1, g2, jsp.GMRES_ILU_PARAMS)
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=sp.GMRES_ILU_PARAMS)
     assert sol.iteration_number == int(ref.iteration_number) == count
     for a, b in zip(sol.solution.data, ref.solution.data):
@@ -160,7 +160,7 @@ def test_host_route_count_equals_k7_twin():
     """``_monolithic_pc`` (ilu) with the host ``krylov.gmres``, called
     directly, against the K7 twin on the solver's own right-hand side."""
     g1, g2 = _manufactured("quad", (16, 16))
-    state = from_numpy_state({}, (16, 16), "quad", g1, g2)
+    state = from_numpy_state({}, (16, 16), "quad", g1, g2, device="cpu")
     op = DPPOperator(state.W, state.params)
     b1, b2 = op.lifted_rhs(*state.grids)
     bdry = op._mask_arrays[0]
@@ -177,7 +177,7 @@ def test_preonly_ilu_matches_jax(jax_f64_ilu, element, cells):
     params = {"ksp_type": "preonly", "pc_type": "ilu"}
     g1, g2 = _manufactured(element, cells)
     ref = _jax_solve(element, cells, g1, g2, params)
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
     assert (sol.iteration_number, sol.residual_error) == (1, 0.0)
     for a, b in zip(sol.solution.data, ref.solution.data):
@@ -194,15 +194,35 @@ def test_preonly_ilu_matches_jax(jax_f64_ilu, element, cells):
     ids=["levels-1", "preonly-levels-2", "rcm"],
 )
 def test_unported_ilu_options_raise(params, exc, match):
-    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
+    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     with pytest.raises(exc, match=match):
         solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
 
 
 def test_ilu_rejects_what_it_does_not_take():
-    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
-    pc = ilu.StructuredILU0.for_monolithic(state.mesh, state.params)
+    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
+    pc = ilu.StructuredILU0.for_monolithic(state.mesh, state.params, "cpu")
     with pytest.raises(ValueError, match="built for"):
         pc.apply_flat(torch.zeros(pc.nrows, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
         pc.launch(torch.zeros(pc.nrows, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("kind", ["monolithic", "field"])
+@pytest.mark.parametrize("element,cells", MESHES, ids=[f"{e}{c[0]}" for e, c in MESHES])
+def test_packed_factor_is_the_factor_by_level(element, cells, kind):
+    """The kernels read each side of the factor packed by level: level lv's
+    block starts at items * level_ptr[lv] and holds [q][r], q the side's
+    offsets in stored order (the upper side: then the diagonal), r the
+    level's rows. Entry for entry it is ``factors``."""
+    _, sys = _systems(element, cells, kind)
+    pc = ilu.StructuredILU0(sys, "cpu")
+    ptr, rows, F = pc.level_ptr.numpy(), pc.level_rows.numpy(), pc.factors.numpy()
+    assert pc.max_level_rows == int(np.diff(ptr).max()) and ptr[-1] == pc.nrows
+    for name, offs in (("packed_lower", pc.lower), ("packed_upper", pc.upper + (pc.center,))):
+        packed = getattr(pc, name).numpy()
+        assert packed.size == len(offs) * pc.nrows
+        for lv in range(pc.num_levels):
+            beg, end = int(ptr[lv]), int(ptr[lv + 1])
+            block = packed[len(offs) * beg : len(offs) * end].reshape(len(offs), end - beg)
+            assert np.array_equal(block, F[list(offs)][:, rows[beg:end]])

@@ -13,7 +13,7 @@ from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_plain
 from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
-from perphil_tpu_torch.ops.fused_gmres import K4, K5, FusedGMRESSolver
+from perphil_tpu_torch.ops.fused_gmres import K4, K5, FusedGMRESSolver, launch_geometry
 from perphil_tpu_torch.ops.ilu import StructuredILU0
 
 pytestmark = pytest.mark.cuda
@@ -128,6 +128,44 @@ def test_fused_gmres_matches_twin(cuda, element, cells, role, pc):
     assert _rel(got.x, ref.x) <= 1e-13
 
 
+BLOCK_PCS = [  # pc, max_it, bound on the relative difference
+    ("none", 40, 0.0),  # one restart, then stops on max_it
+    ("jacobi", 40, 0.0),  # (converges at 50 on the smallest mesh)
+    ("ilu", 5000, 0.0),
+    ("fieldsplit_ilu", 5000, 0.0),
+    ("fieldsplit_lu", 5000, 1e-10),
+]
+BLOCK_MESHES = [  # blocks, cells: 2 (nx + 1) (ny + 1) values, no multiple of 512
+    (1, (12, 18)),  # 494
+    (2, (20, 22)),  # 966
+    (4, (30, 31)),  # 1984
+    (8, (44, 43)),  # 3960
+    (16, (48, 42)),  # 4214
+]
+
+
+@pytest.mark.parametrize("blocks,cells", BLOCK_MESHES, ids=[str(c[0]) for c in BLOCK_MESHES])
+@pytest.mark.parametrize("pc,max_it,tol", BLOCK_PCS, ids=[c[0] for c in BLOCK_PCS])
+def test_fused_gmres_every_block_count(cuda, pc, max_it, tol, blocks, cells):
+    """Every block count the launcher can choose, for every preconditioner:
+    the launcher takes its blocks from the length alone, so each count has
+    its mesh."""
+    state = _state("quad", cells, cuda, seed=6)
+    op = DPPOperator(state.W, state.params)
+    solver = FusedGMRESSolver(op, pc, rtol=1e-8, atol=1e-12, max_it=max_it)
+    b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
+    ref = solver.plain(b)
+    assert launch_geometry(b.numel()).blocks == blocks
+    got = solver.launch(b)
+    torch.cuda.synchronize()
+    assert solver.last_geometry[0] == blocks
+    assert got.iterations == ref.iterations > 0
+    assert got.converged == ref.converged
+    assert (got.iterations == max_it) == (pc in ("none", "jacobi"))
+    assert got.residual_norm == ref.residual_norm or tol > 0.0
+    assert _rel(got.x, ref.x) <= tol
+
+
 def test_fused_gmres_rejects_bad_inputs(cuda):
     state = _state("quad", (4, 4), cuda)
     solver = FusedGMRESSolver(DPPOperator(state.W, state.params), "jacobi")
@@ -174,8 +212,18 @@ def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol):
     assert _rel(got.x, ref.x) <= tol
 
 
+ILU_MESHES = [
+    ("quad", (16, 16)), ("tet", (4, 4, 4)),
+    # 129^2 rows of a field fit shared memory (133 KB), the monolithic
+    # system's 33,282 do not (266 KB)
+    ("quad", (128, 128)),
+    # 3D monolithic: 40 offsets a side, the widest stage rows
+    ("hex", (12, 12, 12)),
+]
+
+
 @pytest.mark.parametrize("kind", ["monolithic", "field"])
-@pytest.mark.parametrize("element,cells", [("quad", (16, 16)), ("tet", (4, 4, 4))], ids=["quad16", "tet4"])
+@pytest.mark.parametrize("element,cells", ILU_MESHES, ids=["quad16", "tet4", "quad128", "hex12"])
 def test_structured_ilu_apply_matches_plain_sweep(cuda, element, cells, kind):
     state = _state(element, cells, cuda, seed=5)
     p = state.params
@@ -189,6 +237,38 @@ def test_structured_ilu_apply_matches_plain_sweep(cuda, element, cells, kind):
     torch.cuda.synchronize()
     assert _cuda.KERNEL_LAUNCHES["structured_ilu_apply"] == before + 1
     assert float((z - pc.plain(r)).abs().max()) == 0.0
+    stages, z_shared, _ = pc.last_geometry
+    if cells == (128, 128):
+        assert stages >= 2 and z_shared == (kind == "field")
+
+
+ILU_DEPTHS = [  # monolithic mesh, ring stages (0: the direct loop), z in shared memory
+    # 40 offsets a side: the run-time offset loop
+    ("hex", (15, 15, 15), 3, True),
+    ("hex", (16, 16, 16), 2, True),
+    ("hex", (20, 20, 20), 2, False),
+    ("hex", (28, 28, 28), 0, False),  # 436 rows a level: no two stages fit
+    # 13 offsets a side: the straight code
+    ("quad", (512, 512), 3, False),
+    ("quad", (640, 640), 2, False),
+]
+
+
+@pytest.mark.parametrize(
+    "element,cells,stages,z_shared", ILU_DEPTHS, ids=[f"{c[0]}{c[1][0]}" for c in ILU_DEPTHS]
+)
+def test_structured_ilu_apply_shallow_rings(cuda, element, cells, stages, z_shared):
+    """Levels so wide that the ring holds fewer stages than the sweep has
+    producer warps, down to none (the direct loop): still the plain sweep's
+    bits."""
+    state = _state(element, cells, cuda, seed=7)
+    pc = StructuredILU0.for_monolithic(state.mesh, state.params, cuda)
+    r = torch.randn(pc.nrows, dtype=torch.float64, device=cuda)
+    z = pc.apply_flat(r)
+    torch.cuda.synchronize()
+    assert pc.last_geometry[:2] == (stages, z_shared)
+    assert float((z - pc.plain(r)).abs().max()) == 0.0
+    assert float((pc.apply_flat(r) - z).abs().max()) == 0.0  # and the same again
 
 
 def test_structured_ilu_apply_rejects_bad_inputs(cuda):

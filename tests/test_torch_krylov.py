@@ -101,7 +101,7 @@ PUBLISHED_PLAIN = [("quad", (4, 4), 10), ("quad", (8, 8), 40), ("quad", (16, 16)
 )
 def test_plain_gmres_lands_published_counts(element, cells, expected):
     g1, g2 = _manufactured(element, cells)
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=sp.PLAIN_GMRES_PARAMS)
     assert sol.iteration_number == expected
 
@@ -130,7 +130,7 @@ JAX_CASES = [
 def test_krylov_solve_matches_jax(element, cells, preset, count, tol):
     g1, g2 = _manufactured(element, cells)
     ref = _jax_solve(element, cells, g1, g2, getattr(jsp, preset))
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=getattr(sp, preset))
     assert sol.iteration_number == int(ref.iteration_number) == count
     for a, b in zip(sol.solution.data, ref.solution.data):
@@ -165,7 +165,7 @@ def test_fused_gmres_twins_match_jax(element, cells, role):
     jop = JOp(jmixed(jV), JParams(**params))
     rng = np.random.default_rng(3)
     b, x0 = (rng.standard_normal((2,) + mesh.node_shape) for _ in range(2))
-    state = from_numpy_state(params, cells, element, b[0], b[1])
+    state = from_numpy_state(params, cells, element, b[0], b[1], device="cpu")
     op = DPPOperator(state.W, state.params)
     kw = dict(rtol=1e-12, atol=1e-14, max_it=2000)
     bt, x0t = torch.tensor(b), torch.tensor(x0)
@@ -186,7 +186,7 @@ def test_fused_gmres_twins_match_jax(element, cells, role):
 
 
 def _small_op():
-    state = from_numpy_state({}, (5, 4), "quad", np.zeros((5, 6)), np.zeros((5, 6)))
+    state = from_numpy_state({}, (5, 4), "quad", np.zeros((5, 6)), np.zeros((5, 6)), device="cpu")
     return state, DPPOperator(state.W, state.params)
 
 
@@ -235,7 +235,7 @@ OTHER_PATHS = [
 def test_other_krylov_paths_match_jax(element, cells, params, count):
     g1, g2 = _manufactured(element, cells)
     ref = _jax_solve(element, cells, g1, g2, params)
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
     assert sol.iteration_number == int(ref.iteration_number) == count
     for a, b in zip(sol.solution.data, ref.solution.data):
@@ -273,7 +273,7 @@ def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, lane_packed,
     _, jV = jspaces_of(mesh)
     jop = JOp(jmixed(jV), JParams())
     zero = np.zeros(mesh.node_shape)
-    state = from_numpy_state({}, cells, element, zero, zero)
+    state = from_numpy_state({}, cells, element, zero, zero, device="cpu")
     op = DPPOperator(state.W, state.params)
     inside = {"none": lane_packed, "jacobi": lane_packed, "ilu": ilu, "fieldsplit_ilu": ilu,
               "fieldsplit_lu": fieldsplit_lu}[pc]
@@ -314,13 +314,13 @@ ROUTES = [
 )
 def test_route_of_each_preset(element, cells, params, kind):
     shape = tuple(c + 1 for c in reversed(cells))
-    state = from_numpy_state({}, cells, element, np.zeros(shape), np.zeros(shape))
+    state = from_numpy_state({}, cells, element, np.zeros(shape), np.zeros(shape), device="cpu")
     assert _krylov_kind(DPPOperator(state.W, state.params), dict(_freeze(params))) == kind
 
 
 def test_cpu_krylov_solves_launch_no_kernel():
     g1, g2 = _manufactured("quad", (8, 8))
-    state = from_numpy_state({}, (8, 8), "quad", g1, g2)
+    state = from_numpy_state({}, (8, 8), "quad", g1, g2, device="cpu")
     before = dict(_cuda.KERNEL_LAUNCHES)
     for preset in (sp.PLAIN_GMRES_PARAMS, sp.GMRES_JACOBI_PARAMS):
         sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=preset)
@@ -329,7 +329,7 @@ def test_cpu_krylov_solves_launch_no_kernel():
 
 
 def test_fused_gmres_rejects_what_it_does_not_take():
-    big = from_numpy_state({}, (128, 128), "quad", np.zeros((129, 129)), np.zeros((129, 129)))
+    big = from_numpy_state({}, (128, 128), "quad", np.zeros((129, 129)), np.zeros((129, 129)), device="cpu")
     with pytest.raises(ValueError, match="envelope"):
         FusedGMRESSolver(DPPOperator(big.W, big.params))
     state, op = _small_op()

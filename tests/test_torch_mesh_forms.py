@@ -131,17 +131,17 @@ def test_boundary_grids_match(element, cells):
     ex_j = jms.exact_expressions if jm.dim == 2 else jms.exact_expressions_3d
     _, tp1, _, _ = ex_t(tm, TParams())
     _, jp1, _, _ = ex_j(jm, JParams())
-    gt = tspaces._evaluate(tp1, tm, ())
+    gt = tspaces._evaluate(tp1, tm, (), "cpu")
     gj = np.asarray(jspaces._evaluate(jp1, jm, ()))
     assert gt.dtype == torch.float64 and tuple(gt.shape) == jm.node_shape
     assert np.abs(gt.numpy() - gj).max() <= 1e-15 * np.abs(gj).max()
     arr = np.random.default_rng(3).standard_normal(jm.node_shape)
-    assert np.array_equal(tspaces._evaluate(arr, tm, ()).numpy(), np.asarray(jspaces._evaluate(arr, jm, ())))
+    assert np.array_equal(tspaces._evaluate(arr, tm, (), "cpu").numpy(), np.asarray(jspaces._evaluate(arr, jm, ())))
 
 
 def test_spaces_and_functions():
     mesh = tmesh.create_mesh(3, 2)
-    U, V = tspaces.create_function_spaces(mesh)
+    U, V = tspaces.create_function_spaces(mesh, device="cpu")
     jU, jV = jspaces.create_function_spaces(jmesh.create_mesh(3, 2))
     assert (U.dim(), V.dim(), U.dof_shape, V.dof_shape) == (jU.dim(), jV.dim(), jU.dof_shape, jV.dof_shape)
     W = tspaces.mixed_space(V)
@@ -154,17 +154,88 @@ def test_spaces_and_functions():
     p1, p2 = tspaces.Function(W, (g.data, 2 * g.data)).split()
     assert torch.equal(p2.data, 2 * p1.data)
     with pytest.raises(NotImplementedError, match="slice 8"):
-        tspaces.create_function_spaces(mesh, pressure_deg=2)
+        tspaces.create_function_spaces(mesh, pressure_deg=2, device="cpu")
 
 
 def test_resolve_device():
-    assert resolve_device(None) == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
         assert resolve_device("cuda").index == torch.cuda.current_device()
+        assert resolve_device(None) == resolve_device("cuda")
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             resolve_device("cuda")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(None)
+
+
+def _default_device_constructors():
+    """(name, constructor taking ``device``) for everything whose ``device``
+    parameter defaults to the card."""
+    from perphil_tpu_torch.interop import from_numpy_state
+    from perphil_tpu_torch.ops import direct as tdirect
+    from perphil_tpu_torch.ops import ilu as tilu
+    from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
+
+    mesh, p = tmesh.create_mesh(4, 3), TParams()
+    zero = np.zeros(mesh.node_shape)
+    return {
+        "create_function_spaces": lambda **kw: tspaces.create_function_spaces(mesh, **kw)[1],
+        "FunctionSpace": lambda **kw: tspaces.FunctionSpace(mesh, **kw),
+        "_evaluate": lambda **kw: tspaces._evaluate(1.5, mesh, (), **kw),
+        "from_numpy_state": lambda **kw: from_numpy_state({}, (4, 3), "quad", zero, zero, **kw).W,
+        "StructuredILU0": lambda **kw: tilu.StructuredILU0(tilu.build_monolithic_system(mesh, p), **kw),
+        "StructuredILU0.for_monolithic": lambda **kw: tilu.StructuredILU0.for_monolithic(mesh, p, **kw),
+        "MixedPrecisionDPPDirect": lambda **kw: MixedPrecisionDPPDirect(mesh, p, **kw).fast32.det,
+        "FastDiagFieldSolver": lambda **kw: tdirect.FastDiagFieldSolver(mesh, 1.0, 0.5, 1.0, **kw).mode_scale,
+        "LumpedDPPPreconditioner": lambda **kw: tdirect.LumpedDPPPreconditioner(mesh, p, **kw).pc1.mode_scale,
+        "FastDiagDPPSolver": lambda **kw: tdirect.FastDiagDPPSolver(mesh, p, **kw).det,
+    }
+
+
+DEFAULT_DEVICE_NAMES = [
+    "create_function_spaces", "FunctionSpace", "_evaluate", "from_numpy_state", "StructuredILU0",
+    "StructuredILU0.for_monolithic", "MixedPrecisionDPPDirect", "FastDiagFieldSolver",
+    "LumpedDPPPreconditioner", "FastDiagDPPSolver",
+]
+
+
+@pytest.mark.parametrize("name", DEFAULT_DEVICE_NAMES)
+def test_default_device_is_the_card(name):
+    """With no ``device`` the port runs on the card: without one it raises
+    and names CUDA, with one the object lies there. Nothing falls back to
+    the CPU, which is had by name."""
+    make = _default_device_constructors()[name]
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_no_device_parameter_defaults_to_the_cpu():
+    """No signature under the port names the CPU as a default."""
+    import inspect
+    import pkgutil
+
+    import perphil_tpu_torch
+
+    seen = 0
+    for info in pkgutil.walk_packages(perphil_tpu_torch.__path__, "perphil_tpu_torch."):
+        module = __import__(info.name, fromlist=["_"])
+        for _, obj in inspect.getmembers(module, lambda o: inspect.isclass(o) or inspect.isfunction(o)):
+            if getattr(obj, "__module__", None) != info.name:
+                continue
+            fns = [obj] if inspect.isfunction(obj) else [
+                f for _, f in inspect.getmembers(obj, inspect.isfunction)
+            ]
+            for fn in fns:
+                prm = inspect.signature(fn).parameters.get("device")
+                if prm is not None and prm.default is not inspect.Parameter.empty:
+                    seen += 1
+                    assert prm.default is None, f"{info.name}.{fn.__qualname__}: device={prm.default!r}"
+    assert seen >= len(DEFAULT_DEVICE_NAMES)
 
 
 def test_presets_equal():

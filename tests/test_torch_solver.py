@@ -42,7 +42,7 @@ _L2_REFERENCE = {
 @pytest.mark.parametrize("N", [4, 16])
 def test_direct_solve_errors_match_reference(N):
     mesh = create_mesh(N, N)
-    _, V = create_function_spaces(mesh)
+    _, V = create_function_spaces(mesh, device="cpu")
     W = mixed_space(V)
     params = DPPParameters()
     _, p1e, _, p2e = exact_expressions(mesh, params)
@@ -88,7 +88,7 @@ SYSTEMS = [
 def test_solve_matches_jax(element, cells, preset):
     g1, g2 = _manufactured_grids(element, cells)
     ref = _jax_solution(element, cells, g1, g2, {})
-    state = from_numpy_state({}, cells, element, g1, g2)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
     sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=getattr(sp, preset))
     assert (sol.iteration_number, sol.residual_error) == (1, 0.0)
     for a, b in zip(sol.solution.data, ref.solution.data):
@@ -98,7 +98,7 @@ def test_solve_matches_jax(element, cells, preset):
 
 
 def test_large_simplicial_route_is_cg():
-    state = from_numpy_state({}, (128, 128), "triangle", np.zeros((129, 129)), np.zeros((129, 129)))
+    state = from_numpy_state({}, (128, 128), "triangle", np.zeros((129, 129)), np.zeros((129, 129)), device="cpu")
     assert not fused_simplicial_direct_supported(DPPOperator(state.W, state.params))
 
 
@@ -112,7 +112,7 @@ def test_error_norms_match_jax(element, cells, degree):
     one quadrature point per eager dispatch."""
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     u = np.random.default_rng(5).standard_normal(mesh.node_shape)
-    state = from_numpy_state({"k1": 2.0}, cells, element, u, u)
+    state = from_numpy_state({"k1": 2.0}, cells, element, u, u, device="cpu")
     _, jV = jspaces_of(mesh)
     ex_j = (jms.exact_expressions if mesh.dim == 2 else jms.exact_expressions_3d)(mesh, JParams(k1=2.0))
     ex_t = (exact_expressions if mesh.dim == 2 else exact_expressions_3d)(state.mesh, state.params)
@@ -154,7 +154,7 @@ NOT_PORTED = [
 
 @pytest.mark.parametrize("params,where", NOT_PORTED, ids=[f"np{i}" for i in range(len(NOT_PORTED))])
 def test_unported_options_raise(params, where):
-    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
+    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     with pytest.raises(NotImplementedError, match=where):
         solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
 
@@ -181,7 +181,7 @@ PORTED = [
 )
 def test_krylov_options_run(params, its):
     mesh = create_mesh(4, 4)
-    _, V = create_function_spaces(mesh)
+    _, V = create_function_spaces(mesh, device="cpu")
     W = mixed_space(V)
     p = DPPParameters()
     _, p1e, _, p2e = exact_expressions(mesh, p)
@@ -191,9 +191,9 @@ def test_krylov_options_run(params, its):
 
 
 def test_unported_entry_points_raise():
-    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)))
+    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         solve_dpp_nonlinear(state.W, state.params, state.bcs, sp.PICARD_LU_SOLVER_PARAMS)
-    tri = from_numpy_state({}, (4, 4), "triangle", np.zeros((5, 5)), np.zeros((5, 5)))
+    tri = from_numpy_state({}, (4, 4), "triangle", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     with pytest.raises(ValueError, match="quad/hex"):
         solve_dpp(tri.W, tri.params, tri.bcs, solver_parameters=sp.TPU_DIRECT_PARAMS)
