@@ -17,8 +17,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      iteration; ``structured_ilu_apply``
      at 2D N=128 (monolithic) and on a 129^2 field system, and K7 (ILU, 2D
      N=64), both bit-equal; K6 (fieldsplit LU, 2D N=64 and tet nx=8, within
-     1e-10) and K8 (fieldsplit ILU, 2D N=16, within 1e-12), equal counts;
-     and times K1 beside one ``conv3d`` on the same stacked fields;
+     1e-10) and K8 (fieldsplit ILU, 2D N=16 within 1e-12 and N=64 bit for
+     bit), equal counts, with their inner PCG's counts beside the twin's;
+     and times K1 beside one ``conv3d`` on the same stacked fields, and at
+     the host GMRES loop's shape (2D N=128);
   4. drives the direct path — ``solve_dpp`` with ``LINEAR_SOLVER_PARAMS`` at
      2D quad N=4 and N=16 (golden errors) and 3D tet nx=4, and with
      ``TPU_DIRECT_PARAMS`` at 3D hex 64^3 and 128^3 (f64 relative residual
@@ -428,6 +430,24 @@ def main() -> int:
         results["fused_dpp_apply@hex128"],
         library_ms=time_ms(lambda: F.conv3d(zin, wt, padding=1), repeats=50),
     )
+    # K1 at the shape the host GMRES loop gives it (2D N=128 beyond the fused
+    # envelope: one f64 matvec of 2 x 129^2 values an iteration)
+    Wq = problem("quad", 128, dev)[0]
+    S = dpp_stencils(Wq.mesh, params)
+    z1, z2 = randn(Wq.mesh.node_shape), randn(Wq.mesh.node_shape)
+    y, yp = fused_dpp_apply(z1, z2, *S), fused_dpp_apply_plain(z1, z2, *S)
+    err = max(rel(a, b) for a, b in zip(y, yp))
+    check(err <= 1e-13, "K1 quad128 matvec")
+    key = "fused_dpp_apply@quad128, the host loop's matvec"
+    results[key] = dict(
+        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(y, yp)),
+        ms=time_ms(lambda: fused_dpp_apply(z1, z2, *S), repeats=50),
+        plain_ms=time_ms(lambda: fused_dpp_apply_plain(z1, z2, *S), repeats=50),
+        bound=bound(4 * 8 * Wq.mesh.num_vertices, matvec_flops(Wq.mesh, params)),
+        shape="quad 129^2 f64 matvec",
+    )
+    print(f"K1 quad128 matvec (the host loop's shape): max rel diff vs twin {err:.3e}, "
+          f"{results[key]['ms']:.4f} ms (bound {results[key]['bound'][0]:.6f} ms)")
 
     for n in (4, 16):
         W, params, bcs, _, _ = problem("quad", n, dev)
@@ -488,6 +508,7 @@ def main() -> int:
         ("quad", 64, "fieldsplit_lu", None, 1e-10, 3),
         ("tet", 8, "fieldsplit_lu", None, 1e-10, 3),
         ("quad", 16, "fieldsplit_ilu", None, 1e-12, 3),
+        ("quad", 64, "fieldsplit_ilu", None, 0.0, 3),
     ]
     for element, n, pc, role, tol, reps in role_cases:
         W, params, bcs, _, _ = problem(element, n, dev)
@@ -506,12 +527,33 @@ def main() -> int:
                  if solver.inner_solves else ""))
         check(got.iterations == ref.iterations and got.converged == ref.converged, f"{solver.role} {tag} count")
         check(err <= tol, f"{solver.role} {tag} vs twin")
-        blocks, basis_shared, z_shared, input_shared = solver.last_geometry
+        geo = solver.last_geometry
+        blocks = geo.blocks
         check(blocks > 1 or r.numel() <= 512, f"{solver.role} {tag} spreads over more than one block")
         ms = time_ms(lambda: solver.launch(r), repeats=reps, warmup=1)
-        print(f"  {solver.role} {tag}: {blocks} blocks, basis slice in shared memory: {basis_shared}, "
-              f"ILU z in shared memory: {z_shared}, matvec input in shared memory: {input_shared}, {ms:.4f} ms, "
+        print(f"  {solver.role} {tag}: {blocks} blocks, basis slice in shared memory: {geo.basis_smem}, "
+              f"ILU z in shared memory: {geo.ilu_z_smem}, matvec input in shared memory: {geo.input_smem}, "
+              f"narrow ILU sweep: {geo.ilu_narrow}, inner p in shared memory: {geo.p_smem}, "
+              f"eigenbases in shared memory: {geo.s_smem}, {ms:.4f} ms, "
               f"{ms * 1e3 / max(got.iterations, 1):.3f} us/iteration")
+        if solver.inner_solves:
+            inner_its, inner_solves = solver.launch_inner
+            twin = (solver.inner_iterations, solver.inner_solves)
+            # krylov.gmres applies P(b - A x0) twice (the first norm, then the
+            # first cycle); the kernel once: its counts lack one application's
+            solver.inner_iterations = solver.inner_solves = 0
+            solver.plain_pc()(r)
+            once = (twin[0] - solver.inner_iterations, twin[1] - solver.inner_solves)
+            solver.inner_iterations, solver.inner_solves = twin
+            line = (f"  {solver.role} {tag}: kernel inner PCG {inner_its} iterations in {inner_solves} solves "
+                    f"(twin {twin[0]} in {twin[1]}, {once[0]} in {once[1]} "
+                    f"without its repeated first application), {ms * 1e3 / max(inner_its, 1):.3f} us per inner iteration")
+            if solver.field_ilu is not None:
+                # bit for bit, so the same inner work; the whole kernel's time over every level swept
+                check((inner_its, inner_solves) == once, f"{solver.role} {tag} inner counts")
+                levels = 2 * solver.field_ilu[0].num_levels * (inner_its + inner_solves)
+                line += f", {ms * 1e3 / levels:.4f} us per sweep level ({levels} levels)"
+            print(line)
         results[f"{solver.role}@{tag}"] = dict(
             max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound=bound(*fused_gmres_work(solver, op, got.iterations)),
@@ -521,7 +563,7 @@ def main() -> int:
     results["fused_gmres_df"] = results["fused_gmres_df@quad N=64 pc none"]
     results["fused_gmres_df[ilu]"] = results["fused_gmres_df[ilu]@quad N=64 pc ilu"]
     results["fused_gmres_df[fieldsplit_lu]"] = results["fused_gmres_df[fieldsplit_lu]@quad N=64 pc fieldsplit_lu"]
-    results["fused_gmres_df[fieldsplit_ilu]"] = results["fused_gmres_df[fieldsplit_ilu]@quad N=16 pc fieldsplit_ilu"]
+    results["fused_gmres_df[fieldsplit_ilu]"] = results["fused_gmres_df[fieldsplit_ilu]@quad N=64 pc fieldsplit_ilu"]
 
     print(f"[{time.perf_counter() - t_start:.1f} s] fused GMRES roles checked")
 
@@ -540,10 +582,10 @@ def main() -> int:
         print(f"structured_ilu_apply {tag}: {pc.nrows} rows, {pc.num_levels} levels, "
               f"max abs diff vs plain sweep {abs_err:.3e} (bound 0)")
         check(abs_err == 0.0, f"structured_ilu_apply {tag} vs plain sweep")
-        staged, z_shared, dyn_bytes = pc.last_geometry
+        geo = pc.last_geometry
         ms = time_ms(lambda: pc.launch(r), repeats=20)
-        print(f"  structured_ilu_apply {tag}: widest level {pc.max_level_rows} rows, {staged} ring stages, "
-              f"z in shared memory: {z_shared}, {dyn_bytes} B dynamic, {ms:.4f} ms, "
+        print(f"  structured_ilu_apply {tag}: widest level {pc.max_level_rows} rows, {geo.stages} stages, "
+              f"narrow sweep: {geo.narrow}, z in shared memory: {geo.z_smem}, {geo.bytes} B dynamic, {ms:.4f} ms, "
               f"{ms * 1e3 / (2 * pc.num_levels):.3f} us/level")
         results[f"structured_ilu_apply@{tag}"] = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,

@@ -5,19 +5,22 @@
 
 // b, x0, x: (2, nz*ny*nx) f64; V: (restart + 1) * 2 * nodes f64 scratch;
 // work: 10 * nodes f64 scratch (pc >= 2, else unused); xchg: 4096 f64 of
-// scratch (the reductions' exchange between blocks); result: 7 f64
-// (iterations, residual norm, converged, blocks launched, basis slice in
-// shared memory, ILU z in shared memory, matvec input in shared memory);
+// scratch (the reductions' exchange between blocks); result: kResultSlots
+// f64 (fused_gmres.cuh);
 // weights: 81 host doubles
 // [S1 | S2 | C]; mass: 27 host doubles (the M stencil; pc 2 and 4).
 // pc 1 (jacobi): dinv (2n). pc 3 (ilu): F0L, F0U, the factor's lower and
 // upper sides packed by level, the level schedule and the host offset table
 // ilu_meta. pc 4 (fieldsplit_ilu): F0L, F0U, F1L, F1U per field, their
 // (shared) schedule and table. pc 2 (fieldsplit_lu):
-// Sx, Sy, Sz (n x n per axis; Sz unused in 2D) and sc (2, nint). Unused
+// Sx, Sy, Sz (n x n per axis; Sz unused in 2D; equal matrices may share one
+// pointer, and are then copied to shared memory once) and sc (2, nint). Unused
 // pointers may be null. restart + 1 <= 32. max_level_rows: the rows of the
 // schedule's widest level (pc 3, 4).
-extern "C" int perphil_fused_gmres(const double* b, const double* x0, double* x, double* V,
+#ifndef PERPHIL_FUSED_GMRES_SYMBOL
+#define PERPHIL_FUSED_GMRES_SYMBOL perphil_fused_gmres
+#endif
+extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, double* x, double* V,
                                    double* work, double* xchg, double* result, const double* weights,
                                    const double* mass, const double* dinv, const double* F0L,
                                    const double* F0U, const double* F1L,
@@ -33,7 +36,6 @@ extern "C" int perphil_fused_gmres(const double* b, const double* x0, double* x,
       restart < 1 || restart + 1 > kMaxBasis || pc < kPcNone || pc > kPcFieldsplitIlu) {
     return (int)cudaErrorInvalidValue;
   }
-  const long n = (long)nz * ny * nx;
   const bool ilu = pc == kPcIlu || pc == kPcFieldsplitIlu;
   const bool fields = pc == kPcFieldsplitLu || pc == kPcFieldsplitIlu;
   if ((pc == kPcJacobi && dinv == nullptr) || (pc >= kPcFieldsplitLu && work == nullptr) ||
@@ -41,20 +43,21 @@ extern "C" int perphil_fused_gmres(const double* b, const double* x0, double* x,
       (pc == kPcFieldsplitIlu && (F1L == nullptr || F1U == nullptr)) ||
       (pc == kPcFieldsplitLu && (Sx == nullptr || Sy == nullptr || sc == nullptr ||
                                  nx < 3 || ny < 3 || (dim == 3 && nz < 3))) ||
-      (fields && mass == nullptr)) {
+      (fields && mass == nullptr) || (ilu && max_level_rows < 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  int log_jf = 0;
-  while (((long)kGmresThreads << log_jf) < n) ++log_jf;
-  if (log_jf > kMaxLogLeaves || (ilu && max_level_rows < 1)) return (int)cudaErrorInvalidValue;
   PcTables tab{};
   if (ilu && !ilu_meta_from_host(ilu_meta, noffs, tab.meta)) return (int)cudaErrorInvalidValue;
   if (fields) {
-    for (int o = 0; o < 27; ++o) tab.mass[o] = mass[o];
+    for (int o = 0; o < 27; ++o) {
+      tab.mass[o] = mass[o];
+      tab.sw[0][o] = weights[o];
+      tab.sw[1][o] = weights[27 + o];
+    }
   }
   const GmresArgs a{b, x0, x, V, xchg, result, max_level_rows, weights_from_host<double>(weights),
                     Grid{nz, ny, nx},
-                    GmresParams{rtol, atol, dtol, max_it, restart, log_jf, in_rtol, in_atol, in_max,
+                    GmresParams{rtol, atol, dtol, max_it, restart, in_rtol, in_atol, in_max,
                                 coef, stencil_masks(weights_from_host<double>(weights))},
                     PcData{dinv, F0L, F0U, F1L, F1U, level_ptr, level_rows, nlev, Sx, Sy, Sz, sc, work},
                     tab, dim};

@@ -31,8 +31,8 @@
 // then their sum), which is not dpp_apply_node's interleaved, contracted
 // order. The ILU sweeps (ilu_sweep.cuh) and the inner PCG keep the twin's
 // order too, so K7 and K8 equal their twins bit for bit; K6's fast-diag
-// transforms are plain per-axis loops, whose sums run in another order than
-// torch.matmul's, so K6 agrees with its twin to rounding.
+// transforms sum in another order than torch.matmul's, so K6 agrees with its
+// twin to rounding.
 //
 // Bound on the H100: latency, then the L2 reads of the basis. A step is one
 // stencil matvec, the preconditioner and (j+1) dot products and axpys over a
@@ -42,7 +42,7 @@
 //   - One vector is spread over a thread block cluster of nb <= 16 blocks
 //     (cudaLaunchKernelEx, up to the non-portable size 16; a card that
 //     cannot place the cluster refuses the launch), joined by the hardware cluster barrier: 3 a step, 5 with a
-//     preconditioner that runs on block 0 (K6-K8) while the others wait. The
+//     block preconditioner (K6-K8). The
 //     launcher takes nb = min(16, Lt / 512), so K5's <= 512 DoF stay one
 //     block; a cooperative grid was not needed.
 //   - Ownership. With Lt = 512 * nb * S (S leaves a thread), value e belongs
@@ -66,6 +66,14 @@
 //   - The Givens chain, R, g and the back-substitution run in every block
 //     on thread 0, redundantly: the same bits, no broadcast.
 //   - basis_comb is a fixed-depth tree over k with independent loads.
+//   - The fieldsplit roles' inner PCG (K6, K8) runs on every block too, with
+//     the frame's ownership over one field's n values, its slices in the
+//     shared memory the matvec's input copy leaves free while the
+//     preconditioner runs, and its dots on the cluster tree. K6's fast-diag
+//     is a small dense product per axis, lines spread over the blocks, one
+//     cluster barrier a phase; K8's ILU(0) sweeps stay on block 0 (a 2D
+//     field's levels hold at most ~N/2 rows: one warp's work), between two
+//     cluster barriers. K7 sweeps on block 0 alone.
 //
 // Reductions. The halving tree over L values zero-padded to Lt reduces the
 // high bits of e first: s (the thread's own leaves, a pairwise tree in
@@ -86,7 +94,6 @@ namespace perphil {
 
 constexpr int kGmresThreads = 512;
 constexpr int kMaxBasis = 32;     // m + 1
-constexpr int kMaxLogLeaves = 8;  // one-block trees (the inner PCG): leaves per thread <= 256
 constexpr int kMaxLogS = 5;       // the frame: leaves per thread <= 32
 constexpr int kMaxCluster = 16;   // blocks sharing one vector
 constexpr int kXchgDoubles = 2 * kMaxBasis * 4 * kMaxCluster;  // two reduction exchange regions
@@ -117,7 +124,6 @@ inline StencilMasks stencil_masks(const DppWeights<double>& w) {
 struct GmresParams {
   double rtol, atol, dtol;
   int max_it, restart;
-  int log_jf;  // one-block trees over one field (n values): log2 leaves per thread
   double in_rtol, in_atol;  // the fieldsplit roles' inner PCG
   int in_max;
   double coef;  // -(beta/mu), the coupling's scale
@@ -134,12 +140,13 @@ struct PcData {
   const int* level_rows;
   int nlev;
   const double *Sx, *Sy, *Sz, *sc;     // fieldsplit_lu: 1D eigenbases, (2, nint) mode scales
-  double* work;                        // scratch, 10n f64 (pc >= 2)
+  double* work;                        // scratch, 10n f64 (pc >= 2): t (2n), then the inner PCG's (below)
 };
 
 struct PcTables {
   IluMeta meta;
-  double mass[27];  // the consistent-mass stencil M (the coupling is coef * M)
+  double mass[27];   // the consistent-mass stencil M (the coupling is coef * M)
+  double sw[2][27];  // the fieldsplit roles' field stencils S1, S2 (for their inner matvec)
 };
 
 // The launch geometry, chosen by the launcher from L = 2n and what fits.
@@ -150,8 +157,25 @@ struct GmresGeom {
   int z_smem;       // 1: each block copies the matvec's input vector to shared memory
   int basis_smem;   // 1: the block's basis slice lives in dynamic shared memory
   IluPlan ilu;      // the ILU roles' stage (K7, K8), first in dynamic shared memory
+  // the fieldsplit roles' inner PCG (K6, K8), spread over the cluster as the
+  // frame's vectors are: the field's n values by the same ownership rule
+  int log_sf;       // log2 of a thread's leaves of one field
+  int nlocf;        // field values a block owns at most: the stride of its slices
+  int lines;        // K6: lines a block transforms in a pass, at most
+  int nmax;         // K6: the longest axis of the interior grid
+  int pc_bytes;     // the region of the matvec's input copy, which the inner PCG reuses while the preconditioner runs
+  int p_smem;       // 1: each block copies p to shared memory for the field matvec
+  int s_smem;       // 1 (K6): each block copies the eigenbases to shared memory for a transform
+  int budget;       // the dynamic shared memory the launch could have had
   int bytes;        // dynamic shared memory in all
 };
+
+// doubles of a launch's result before the profile units' phase counters:
+// iterations, residual norm, converged, blocks, basis slice in shared memory,
+// ILU z in shared memory, matvec input in shared memory, the narrow ILU
+// sweep, p in shared memory, eigenbases in shared memory, the budget, and
+// the fieldsplit roles' inner PCG iterations and solves
+constexpr int kResultSlots = 13;
 
 // Host: blocks for L values: min(kMaxCluster, Lt / kGmresThreads).
 inline int gmres_blocks(long L) {
@@ -169,9 +193,7 @@ struct GmresArgs {
   double* x;
   double* V;
   double* xchg;    // kXchgDoubles of scratch
-  // iterations, residual norm, converged, blocks, basis slice in shared
-  // memory, ILU z in shared memory, matvec input in shared memory
-  double* result;
+  double* result;  // kResultSlots (above)
   int max_level_rows;
   DppWeights<double> w;
   Grid g;

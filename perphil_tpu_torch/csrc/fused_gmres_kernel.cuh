@@ -13,14 +13,19 @@ namespace cg = cooperative_groups;
 
 // Phase clocks of one solve, for tools/profile_kernels.py alone: a
 // translation unit that defines PERPHIL_GMRES_PROFILE gets a kernel whose
-// block 0, thread 0 adds the cycles between marks to result[7 + phase].
+// thread 0 of each block adds the cycles between marks to its block's
+// counters; block 0's land in result[kResultSlots + phase]. The kIn* phases
+// split the fieldsplit roles' inner PCG (the rest of a preconditioner
+// application stays in kProfApply).
 enum ProfPhase {
-  kProfApply, kProfDots, kProfNorm, kProfGivens, kProfScale, kProfSync, kProfRestart, kProfPhases
+  kProfApply, kProfDots, kProfNorm, kProfGivens, kProfScale, kProfSync, kProfRestart,
+  kProfInPc, kProfInMatvec, kProfInDots, kProfInUpdate, kProfPhases
 };
 #ifdef PERPHIL_GMRES_PROFILE
+__shared__ long long prof[kProfPhases], prof_t0;
 #define PERPHIL_PROF(phase)                 \
   do {                                      \
-    if (tid == 0) {                         \
+    if (threadIdx.x == 0) {                 \
       const long long now_ = clock64();     \
       prof[phase] += now_ - prof_t0;        \
       prof_t0 = now_;                       \
@@ -71,46 +76,6 @@ struct TreeAcc {
     return r;
   }
 };
-
-// Halving tree over the kGmresThreads partials of each of `rows` rows
-// (red[r][c], c = thread); out[r] receives the sums. Begins and ends with a
-// barrier, so partials written before the call and out[] read after it are
-// safe.
-__device__ inline void block_tree_rows(double (*red)[kGmresThreads], int rows, double* out) {
-  __syncthreads();
-  for (int s = kGmresThreads / 2; s >= 32; s >>= 1) {
-    for (int idx = threadIdx.x; idx < rows * s; idx += blockDim.x) {
-      const int r = idx / s, c = idx - r * s;
-      red[r][c] = __dadd_rn(red[r][c], red[r][c + s]);
-    }
-    __syncthreads();
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp < rows) {
-    double v = red[warp][lane];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) v = __dadd_rn(v, __shfl_down_sync(0xffffffffu, v, s));
-    if (lane == 0) out[warp] = v;
-  }
-  __syncthreads();
-}
-
-// <u, v> over L values as one halving tree inside one block (the inner PCG
-// of K6/K8); every thread receives it. Begins with a barrier, so u and v may
-// have been written just before.
-__device__ inline double block_dot(const double* u, const double* v, int L, int log_j,
-                            double (*red)[kGmresThreads], double* out) {
-  __syncthreads();
-  TreeAcc<kMaxLogLeaves> acc;
-#pragma unroll 4
-  for (int t = 0; t < (1 << log_j); ++t) {
-    const int e = threadIdx.x + bit_reverse(t, log_j) * kGmresThreads;
-    acc.push(e < L ? __dmul_rn(u[e], v[e]) : 0.0);
-  }
-  red[0][threadIdx.x] = acc.result(log_j);
-  block_tree_rows(red, 1, out);
-  return out[0];
-}
 
 // One stencil application in apply_stencil's order: the nonzero weights in
 // itertools.product order, each term w * z rounded, then added; the input is
@@ -176,14 +141,31 @@ __device__ __forceinline__ double dpp_row_ordered(const double* z1, const double
   return __dadd_rn(a1, a2);
 }
 
-// Row idx of one field's block (FieldOperator.matvec): S_f z with the input
-// masked to the interior, identity on the boundary. `f` picks S1 or S2.
+// Node idx's coordinates in 32-bit arithmetic (every grid here has far
+// fewer than 2^31 nodes; a 64-bit division is a long software sequence).
 template <int D>
-__device__ __forceinline__ double field_apply_ordered(const double* z, const DppWeights<double>& w,
-                                                      int f, const Grid& g, long idx) {
+__device__ __forceinline__ void coords(const Grid& g, int idx, int& k, int& j, int& i) {
+  i = idx % g.nx;
+  const int t = idx / g.nx;
+  j = D == 3 ? t % g.ny : t;
+  k = D == 3 ? t / g.ny : 0;
+}
+
+// Loads of a vector in device memory that other blocks of the cluster wrote
+// go past L1 (kCg); a block's own copy in shared memory is read plainly.
+template <bool kCg>
+__device__ __forceinline__ double vload(const double* p) {
+  return kCg ? __ldcg(p) : *p;
+}
+
+// Row idx of one field's block (FieldOperator.matvec): S_f z with the input
+// masked to the interior, identity on the boundary; wf: S_f's 27 weights.
+template <int D, bool kCg>
+__device__ __forceinline__ double field_apply_ordered(const double* z, const double* wf, const Grid& g,
+                                                      int idx) {
   int k, j, i;
-  node_coords<D>(g, idx, k, j, i);
-  if (on_boundary<D>(g, k, j, i)) return z[idx];
+  coords<D>(g, idx, k, j, i);
+  if (on_boundary<D>(g, k, j, i)) return vload<kCg>(z + idx);
   double acc = 0.0;
   bool first = true;
 #pragma unroll
@@ -193,9 +175,9 @@ __device__ __forceinline__ double field_apply_ordered(const double* z, const Dpp
 #pragma unroll
       for (int dx = -1; dx <= 1; ++dx) {
         const int o = (D == 3 ? (dz + 1) * 9 : 0) + (dy + 1) * 3 + (dx + 1);
-        const long nb = idx + ((long)dz * g.ny + dy) * g.nx + dx;
-        const double u = on_boundary<D>(g, k + dz, j + dy, i + dx) ? 0.0 : z[nb];
-        accumulate(acc, first, f == 0 ? w.s1[o] : w.s2[o], u);
+        const int nb = idx + (dz * g.ny + dy) * g.nx + dx;
+        const double u = on_boundary<D>(g, k + dz, j + dy, i + dx) ? 0.0 : vload<kCg>(z + nb);
+        accumulate(acc, first, wf[o], u);
       }
     }
   }
@@ -203,12 +185,13 @@ __device__ __forceinline__ double field_apply_ordered(const double* z, const Dpp
 }
 
 // Row idx of the coupling C y (ops/assembly.py::coupling_apply):
-// coef * (M y_interior), zero on the boundary.
+// coef * (M y_interior), zero on the boundary; y in device memory, written
+// by other blocks of the cluster.
 template <int D>
 __device__ __forceinline__ double coupling_at(const double* y, const double* mass, double coef,
-                                              const Grid& g, long idx) {
+                                              const Grid& g, int idx) {
   int k, j, i;
-  node_coords<D>(g, idx, k, j, i);
+  coords<D>(g, idx, k, j, i);
   if (on_boundary<D>(g, k, j, i)) return 0.0;
   double acc = 0.0;
   bool first = true;
@@ -219,123 +202,13 @@ __device__ __forceinline__ double coupling_at(const double* y, const double* mas
 #pragma unroll
       for (int dx = -1; dx <= 1; ++dx) {
         const int o = (D == 3 ? (dz + 1) * 9 : 0) + (dy + 1) * 3 + (dx + 1);
-        const long nb = idx + ((long)dz * g.ny + dy) * g.nx + dx;
-        const double u = on_boundary<D>(g, k + dz, j + dy, i + dx) ? 0.0 : y[nb];
+        const int nb = idx + (dz * g.ny + dy) * g.nx + dx;
+        const double u = on_boundary<D>(g, k + dz, j + dy, i + dx) ? 0.0 : __ldcg(y + nb);
         accumulate(acc, first, mass[o], u);
       }
     }
   }
   return __dmul_rn(coef, acc);
-}
-
-// Everything a preconditioner application needs, built once per launch.
-struct PcView {
-  PcData d;
-  const PcTables* tab;  // shared memory
-  IluStage st;          // the ILU roles' shared-memory stage (block 0)
-  int n, nint;
-};
-
-// z = P_f r for one field's block (FastDiagFieldSolver.solve, K6): identity
-// on the boundary, the fast-diag interior solve with field f's mode scales
-// (the consistent eigenbasis on quad/hex meshes, the lumped one on tri/tet:
-// the reused K3 transforms). w0, w1: nint scratch each.
-template <int D>
-__device__ void fastdiag_field(const PcView& pv, int f, const double* r, double* z, double* w0,
-                               double* w1, const Grid& g) {
-  const int nint = pv.nint;
-  __syncthreads();
-  for (int e = threadIdx.x; e < nint; e += blockDim.x) w0[e] = r[interior_to_node<D>(g, e)];
-  __syncthreads();
-  double* cur = transform_all<double, D, true>(w0, w1, pv.d.Sx, pv.d.Sy, pv.d.Sz, g, nint, 1);
-  const double* sc = pv.d.sc + (size_t)f * nint;
-  for (int e = threadIdx.x; e < nint; e += blockDim.x) cur[e] = __ddiv_rn(cur[e], sc[e]);
-  __syncthreads();
-  double* other = cur == w0 ? w1 : w0;
-  cur = transform_all<double, D, false>(cur, other, pv.d.Sx, pv.d.Sy, pv.d.Sz, g, nint, 1);
-  for (long idx = threadIdx.x; idx < pv.n; idx += blockDim.x) {
-    int k, j, i;
-    node_coords<D>(g, idx, k, j, i);
-    z[idx] = on_boundary<D>(g, k, j, i) ? r[idx] : cur[node_to_interior<D>(g, k, j, i)];
-  }
-  __syncthreads();
-}
-
-// The inner block solve of the fieldsplit roles (pallas_gmres.py:1416-1474,
-// FusedGMRESSolver._inner_pcg): PCG on field f's block from x = 0, z0 = M r,
-// stopping on ||r|| <= max(rtol ||rhs||, atol) or a non-finite norm. x may
-// alias nothing else; ws holds 5n (+ 2 nint for K6) of scratch.
-template <int D, int PC>
-__device__ void inner_pcg(const PcView& pv, int f, const double* rhs, double* x, double* ws,
-                          const DppWeights<double>& w, const Grid& g, const GmresParams& prm,
-                          double (*red)[kGmresThreads], double* sh) {
-  const int n = pv.n;
-  double* r = ws;
-  double* z = r + n;
-  double* p = z + n;
-  double* Ap = p + n;
-  double* ys = Ap + n;  // the ILU sweeps' or the fast-diag's scratch
-  auto apply_pc = [&](const double* in, double* out) {
-    if constexpr (PC == kPcFieldsplitIlu) {
-      ilu_apply(f == 0 ? pv.d.F0L : pv.d.F1L, f == 0 ? pv.d.F0U : pv.d.F1U, n, pv.tab->meta, pv.st,
-                pv.d.level_rows, pv.d.nlev, in, ys, out);
-    } else {
-      fastdiag_field<D>(pv, f, in, out, ys, ys + pv.nint, g);
-    }
-  };
-  const double rn0 = __dsqrt_rn(block_dot(rhs, rhs, n, prm.log_jf, red, sh));
-  const double t_rel = __dmul_rn(rn0, prm.in_rtol);
-  const double tol = t_rel > prm.in_atol ? t_rel : prm.in_atol;
-  apply_pc(rhs, z);
-  double rz = block_dot(z, rhs, n, prm.log_jf, red, sh);
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    x[e] = 0.0;
-    r[e] = rhs[e];
-    p[e] = z[e];
-  }
-  bool done = !(rn0 > tol);
-  int its = 0;
-  while (!done && its < prm.in_max) {
-    __syncthreads();
-    for (long idx = threadIdx.x; idx < n; idx += blockDim.x) Ap[idx] = field_apply_ordered<D>(p, w, f, g, idx);
-    const double alpha = __ddiv_rn(rz, block_dot(p, Ap, n, prm.log_jf, red, sh));
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      x[e] = __dadd_rn(x[e], __dmul_rn(alpha, p[e]));
-      r[e] = __dsub_rn(r[e], __dmul_rn(alpha, Ap[e]));
-    }
-    apply_pc(r, z);
-    const double rz_new = block_dot(z, r, n, prm.log_jf, red, sh);
-    const double beta = __ddiv_rn(rz_new, rz);
-    for (int e = threadIdx.x; e < n; e += blockDim.x) p[e] = __dadd_rn(z[e], __dmul_rn(beta, p[e]));
-    rz = rz_new;
-    const double rn = __dsqrt_rn(block_dot(r, r, n, prm.log_jf, red, sh));
-    ++its;
-    done = !(rn > tol) || !isfinite(rn);
-  }
-  __syncthreads();
-}
-
-
-// The preconditioners that run in one block (K6-K8), on block 0 of the
-// cluster: out = P t with t (2n, device memory) the operator's output. ws:
-// the scratch behind t in PcData::work.
-template <int D, int PC>
-__device__ void apply_block_pc(double* t, double* out, const DppWeights<double>& w, const Grid& g,
-                               const PcView& pv, const GmresParams& prm,
-                               double (*red)[kGmresThreads], double* sh) {
-  const long n = g.nodes();
-  if constexpr (PC == kPcIlu) {
-    ilu_apply(pv.d.F0L, pv.d.F0U, (int)(2 * n), pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, t,
-              t + 2 * n, out);
-  } else {
-    // multiplicative fieldsplit: y1 = B0 t1, y2 = B1 (t2 - C y1)
-    double* ws = t + 2 * n;
-    inner_pcg<D, PC>(pv, 0, t, out, ws, w, g, prm, red, sh);
-    for (long idx = threadIdx.x; idx < n; idx += blockDim.x) {
-      t[n + idx] = __dsub_rn(t[n + idx], coupling_at<D>(out, pv.tab->mass, prm.coef, g, idx));
-    }
-    inner_pcg<D, PC>(pv, 1, t + n, out + n, ws, w, g, prm, red, sh);
-  }
 }
 
 // The thread's place in the cluster and the values it owns (fused_gmres.cuh,
@@ -488,8 +361,306 @@ __device__ __forceinline__ double basis_comb(const double* coef, int rows, Term 
   }
 }
 
+// The offsets a side of the structured ILU(0) has, for the straight code of
+// the sweeps: 4 (2D field), 13 (2D monolithic, 3D field), 40 (3D monolithic:
+// the run-time loop, 0). The launcher checks the table against them.
+template <int D>
+constexpr int kFieldOffsets = D == 2 ? 4 : 13;
+template <int D>
+constexpr int kMonolithicOffsets = D == 2 ? 13 : 0;
+
+// Everything a preconditioner application needs, built once per launch.
+struct PcView {
+  PcData d;
+  const PcTables* tab;  // shared memory
+  IluStage st;          // the ILU roles' shared-memory stage (block 0)
+  int n, nint;
+};
+
+// The fieldsplit roles' inner PCG, spread over the cluster as the frame's
+// GMRES is: a block owns the field's values by the frame's rule (o, with a
+// thread's leaves for n values), keeps its slices of x, r, z, p and A p in
+// shared memory and takes every dot on the cluster tree, which rounds as the
+// twin's tree_sum. Vectors that cross blocks (p for the field matvec, r for
+// the preconditioner, its z) go through device memory behind a cluster
+// barrier; the field matvec reads p from a shared-memory copy where it fits.
+struct FieldPcg {
+  Own o;
+  int n, lines, nmax;
+  double *xs, *rs, *zs, *ps, *aps;       // shared memory: the block's slices
+  double* lb;                            // K6: two line buffers of lines x nmax
+  double* pfull;                         // shared memory: p for the field matvec, or null
+  double* sm;                            // K6: the eigenbases' copy, or null
+  double *pbuf, *rbuf, *zbuf, *t1, *t2;  // device memory, n each
+  int* counts;                           // shared memory: inner iterations, solves
+};
+
+// z = P_f r for one field's block (FastDiagFieldSolver.solve, K6) on every
+// block of the cluster: identity on the boundary (left to the caller), the
+// fast-diag interior solve with field f's mode scales (the consistent
+// eigenbasis on quad/hex meshes, the lumped one on tri/tet). `in` is complete
+// in device memory; the interior of `out` is, when this returns.
+//
+// The 2d axis passes run as 2d - 1 phases, one cluster barrier each: the
+// forward passes along x (and y in 3D), then along the last axis forward,
+// the division by the mode scales and back (all three stay on one line),
+// then the inverse passes. In a phase a block takes the lines l = b + nb m
+// along its axis: it stages them in shared memory (past L1: other blocks
+// wrote them) and each thread computes one output column of four lines at
+// once, so one load of S feeds four sums; S is the block's shared-memory
+// copy (each distinct matrix once) where it fits. The sums run in another
+// order than the twin's torch.matmul: K6 agrees with its twin to rounding.
+template <int D>
+__device__ void fastdiag_cluster(const PcView& pv, const FieldPcg& fp, int f, const double* in, double* out,
+                                 const Grid& g) {
+  const int na[3] = {g.nx - 2, g.ny - 2, D == 3 ? g.nz - 2 : 1};
+  const int st[3] = {1, na[0], na[0] * na[1]};
+  const int nint = pv.nint, nb = fp.o.nb, b = fp.o.b;
+  const double* S[3] = {pv.d.Sx, pv.d.Sy, pv.d.Sz};
+  if (fp.sm != nullptr) {
+    const double* src[3] = {S[0], S[1], S[2]};
+    double* dst = fp.sm;
+    for (int a = 0; a < D; ++a) {
+      int same = -1;
+      for (int a2 = 0; a2 < a; ++a2) {
+        if (src[a2] == src[a]) same = a2;
+      }
+      if (same >= 0) {
+        S[a] = S[same];
+        continue;
+      }
+      for (int e = threadIdx.x; e < na[a] * na[a]; e += blockDim.x) dst[e] = __ldg(src[a] + e);
+      S[a] = dst;
+      dst += na[a] * na[a];
+    }
+  }
+  const double* sc = pv.d.sc + (size_t)f * nint;
+  double* L0 = fp.lb;
+  double* L1 = fp.lb + fp.lines * fp.nmax;
+  const double* from = in;
+  for (int ph = 0; ph < 2 * D - 1; ++ph) {
+    const int a = ph < D ? ph : 2 * D - 2 - ph;
+    const int n_a = na[a], s_a = st[a], nl = nint / n_a;
+    const int mine = nl > b ? (nl - b + nb - 1) / nb : 0;
+    const bool last = ph == 2 * D - 2;
+    double* to = last ? out : (ph % 2 == 0 ? fp.t1 : fp.t2);
+    auto base = [&](int m) {
+      const int l = b + nb * m;
+      return l % s_a + (l / s_a) * s_a * n_a;
+    };
+    for (int idx = threadIdx.x; idx < mine * n_a; idx += blockDim.x) {
+      const int m = idx / n_a, p = idx - m * n_a, q = base(m) + p * s_a;
+      L0[idx] = __ldcg(from + (ph == 0 ? interior_to_node<D>(g, q) : q));
+    }
+    __syncthreads();
+    const double* Sa = S[a];
+    // emit(m, c, v) for output c of line m: sum_p S[p][c] line[p] (forward)
+    // or S[c][p] line[p] (inverse)
+    auto product = [&](const double* lin, bool fwd, auto emit) {
+      const int groups = (mine + 3) / 4;
+      for (int t = threadIdx.x; t < groups * n_a; t += blockDim.x) {
+        const int c = t % n_a, m0 = (t / n_a) * 4;
+        const double* l[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) l[u] = lin + (m0 + u < mine ? m0 + u : mine - 1) * n_a;
+        double acc[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll 4
+        for (int p = 0; p < n_a; ++p) {
+          const double sv = fwd ? Sa[p * n_a + c] : Sa[c * n_a + p];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[u] = fma(sv, l[u][p], acc[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (m0 + u < mine) emit(m0 + u, c, acc[u]);
+        }
+      }
+    };
+    if (ph == D - 1) {
+      product(L0, true, [&](int m, int c, double v) { L1[m * n_a + c] = v / sc[base(m) + c * s_a]; });
+      __syncthreads();
+      product(L1, false, [&](int m, int c, double v) { to[base(m) + c * s_a] = v; });
+    } else {
+      product(L0, ph < D, [&](int m, int c, double v) {
+        const int q = base(m) + c * s_a;
+        to[last ? interior_to_node<D>(g, q) : q] = v;
+      });
+    }
+    cg::this_cluster().sync();
+    from = to;
+  }
+}
+
+// zbuf = M in for field f's block, complete in device memory afterwards; `in`
+// is complete in device memory. K8: the ILU(0) sweeps on block 0 (the
+// narrow sweep on one warp where the plan gave it), while the other blocks
+// wait at the cluster barrier; K6: the fast-diag transform on every block.
 template <int D, int PC>
-__global__ void __launch_bounds__(kGmresThreads)
+__device__ void field_pc(const PcView& pv, const FieldPcg& fp, int f, const double* in, const Grid& g) {
+  if constexpr (PC == kPcFieldsplitIlu) {
+    if (fp.o.b == 0) {
+      const double* PL = f == 0 ? pv.d.F0L : pv.d.F1L;
+      const double* PU = f == 0 ? pv.d.F0U : pv.d.F1U;
+      if (pv.st.narrow) {
+        ilu_apply_narrow<kFieldOffsets<D>>(PL, PU, fp.n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, in,
+                                           fp.zbuf);
+      } else {
+        // the ring reads its right-hand side through L1: a copy of this block's own
+        for (int e = threadIdx.x; e < fp.n; e += blockDim.x) fp.t1[e] = __ldcg(in + e);
+        ilu_apply<kFieldOffsets<D>>(PL, PU, fp.n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, fp.t1, fp.t2,
+                                    fp.zbuf);
+      }
+    }
+    cg::this_cluster().sync();
+  } else {
+    fastdiag_cluster<D>(pv, fp, f, in, fp.zbuf, g);
+  }
+}
+
+// The inner block solve of the fieldsplit roles (pallas_gmres.py:1416-1474,
+// FusedGMRESSolver._inner_pcg): PCG on field f's block from x = 0, z0 = M
+// rhs, stopping on ||r|| <= max(rtol ||rhs||, atol) or a non-finite norm.
+// Every thread of every block calls it; rhs (n values) is complete in device
+// memory, and so is xout after the caller's next cluster barrier. Each
+// iteration crosses the cluster barrier for p, for the dot <p, A p>, for r,
+// inside the preconditioner, for z and for the dots <z, r> and <r, r> (one
+// tree of two rows).
+// Not inlined into the frame: it gets registers of its own rather than the
+// frame's spilled ones, and takes what it reads into locals at entry (after
+// a barrier, anything read through a reference would be loaded again).
+template <int D, int PC>
+__device__ __noinline__ void inner_pcg(const PcView& pv_in, const FieldPcg& fp_in, int f, const double* rhs,
+                                       double* xout, const Grid g, const GmresParams& prm, Reducer& rd_in,
+                                       double* sh) {
+  PERPHIL_PROF(kProfApply);
+  const PcView pv = pv_in;
+  const FieldPcg fp = fp_in;
+  Reducer rd = rd_in;
+  const double in_rtol = prm.in_rtol, in_atol = prm.in_atol;
+  const int in_max = prm.in_max;
+  const double* const wf = pv.tab->sw[f];
+  const int n = fp.n;
+  auto own = [&](auto fn) {
+    for (int s = 0; s < (1 << fp.o.log_s); ++s) {
+      const int i = fp.o.slot(s), e = fp.o.elem(i);
+      if (e < n) fn(i, e);
+    }
+  };
+  auto tree = [&](int rows, auto val) {
+    cluster_tree_rows(rd, fp.o, rows, sh, [&](int k, int s) {
+      const int i = fp.o.slot(s), e = fp.o.elem(i);
+      return e < n ? val(k, i) : 0.0;
+    });
+  };
+  // z = M v for the slices (v: the slice that fed the preconditioner)
+  auto take_z = [&](const double* v) {
+    own([&](int i, int e) {
+      bool pass = false;  // K6 leaves the boundary rows to the identity
+      if (PC == kPcFieldsplitLu) {
+        int k, j, i2;
+        coords<D>(g, e, k, j, i2);
+        pass = on_boundary<D>(g, k, j, i2);
+      }
+      fp.zs[i] = pass ? v[i] : __ldcg(fp.zbuf + e);
+    });
+  };
+  own([&](int i, int e) { fp.rs[i] = __ldcg(rhs + e); });
+  tree(1, [&](int, int i) { return __dmul_rn(fp.rs[i], fp.rs[i]); });
+  const double rn0 = __dsqrt_rn(sh[0]);
+  const double t_rel = __dmul_rn(rn0, in_rtol);
+  const double tol = t_rel > in_atol ? t_rel : in_atol;
+  PERPHIL_PROF(kProfInDots);
+  field_pc<D, PC>(pv, fp, f, rhs, g);
+  take_z(fp.rs);
+  PERPHIL_PROF(kProfInPc);
+  tree(1, [&](int, int i) { return __dmul_rn(fp.zs[i], fp.rs[i]); });
+  double rz = sh[0];
+  own([&](int i, int) {
+    fp.xs[i] = 0.0;
+    fp.ps[i] = fp.zs[i];
+  });
+  bool done = !(rn0 > tol);
+  int its = 0;
+  PERPHIL_PROF(kProfInDots);
+  while (!done && its < in_max) {
+    own([&](int i, int e) { fp.pbuf[e] = fp.ps[i]; });
+    cg::this_cluster().sync();
+    if (fp.pfull != nullptr) {
+      for (int e = threadIdx.x; e < n; e += blockDim.x) fp.pfull[e] = __ldcg(fp.pbuf + e);
+      __syncthreads();
+      own([&](int i, int e) { fp.aps[i] = field_apply_ordered<D, false>(fp.pfull, wf, g, e); });
+    } else {
+      own([&](int i, int e) { fp.aps[i] = field_apply_ordered<D, true>(fp.pbuf, wf, g, e); });
+    }
+    PERPHIL_PROF(kProfInMatvec);
+    tree(1, [&](int, int i) { return __dmul_rn(fp.ps[i], fp.aps[i]); });
+    const double alpha = __ddiv_rn(rz, sh[0]);
+    PERPHIL_PROF(kProfInDots);
+    own([&](int i, int e) {
+      fp.xs[i] = __dadd_rn(fp.xs[i], __dmul_rn(alpha, fp.ps[i]));
+      fp.rs[i] = __dsub_rn(fp.rs[i], __dmul_rn(alpha, fp.aps[i]));
+      fp.rbuf[e] = fp.rs[i];
+    });
+    PERPHIL_PROF(kProfInUpdate);
+    cg::this_cluster().sync();
+    field_pc<D, PC>(pv, fp, f, fp.rbuf, g);
+    take_z(fp.rs);
+    PERPHIL_PROF(kProfInPc);
+    tree(2, [&](int k, int i) { return k == 0 ? __dmul_rn(fp.zs[i], fp.rs[i]) : __dmul_rn(fp.rs[i], fp.rs[i]); });
+    const double rz_new = sh[0], rn = __dsqrt_rn(sh[1]);
+    const double beta = __ddiv_rn(rz_new, rz);
+    PERPHIL_PROF(kProfInDots);
+    own([&](int i, int) { fp.ps[i] = __dadd_rn(fp.zs[i], __dmul_rn(beta, fp.ps[i])); });
+    rz = rz_new;
+    ++its;
+    done = !(rn > tol) || !isfinite(rn);
+    PERPHIL_PROF(kProfInUpdate);
+  }
+  own([&](int i, int e) { xout[e] = fp.xs[i]; });
+  if (threadIdx.x == 0) {
+    fp.counts[0] += its;
+    fp.counts[1] += 1;
+  }
+  rd_in = rd;
+}
+
+// The preconditioners with a block solve (K6-K8): out = P t, t (2n, device
+// memory) the operator's output, complete behind a cluster barrier; out is
+// complete after the caller's next one. K7 sweeps on block 0; the fieldsplit
+// roles' inner PCGs run on every block. The scratch behind t in
+// PcData::work: K7 2n of y and 2n for a copy of t; K6/K8 FieldPcg's buffers.
+template <int D, int PC>
+__device__ void apply_block_pc(double* t, double* out, const Grid& g, const PcView& pv, const FieldPcg& fp,
+                               int block, const GmresParams& prm, Reducer& rd, double* sh) {
+  const int n = pv.n;
+  if constexpr (PC == kPcIlu) {
+    if (block == 0) {
+      if (pv.st.narrow) {
+        ilu_apply_narrow<kMonolithicOffsets<D>>(pv.d.F0L, pv.d.F0U, 2 * n, pv.tab->meta, pv.st, pv.d.level_rows,
+                                                pv.d.nlev, t, out);
+      } else {
+        // the ring reads its right-hand side through L1: a copy of this block's own
+        double* tc = t + 4 * n;
+        for (int e = threadIdx.x; e < 2 * n; e += blockDim.x) tc[e] = __ldcg(t + e);
+        ilu_apply<kMonolithicOffsets<D>>(pv.d.F0L, pv.d.F0U, 2 * n, pv.tab->meta, pv.st, pv.d.level_rows,
+                                          pv.d.nlev, tc, t + 2 * n, out);
+      }
+    }
+  } else {
+    // multiplicative fieldsplit: y1 = B0 t1, y2 = B1 (t2 - C y1)
+    inner_pcg<D, PC>(pv, fp, 0, t, out, g, prm, rd, sh);
+    cg::this_cluster().sync();
+    for (int s = 0; s < (1 << fp.o.log_s); ++s) {
+      const int e = fp.o.elem(fp.o.slot(s));
+      if (e < n) t[n + e] = __dsub_rn(__ldcg(t + n + e), coupling_at<D>(out, pv.tab->mass, prm.coef, g, e));
+    }
+    cg::this_cluster().sync();
+    inner_pcg<D, PC>(pv, fp, 1, t + n, out + n, g, prm, rd, sh);
+  }
+}
+
+template <int D, int PC>
+__global__ void __launch_bounds__(kGmresThreads, 1)
 fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, double* xchg,
                    double* result, DppWeights<double> w, Grid g, GmresParams prm, PcData pd,
                    PcTables tables, GmresGeom geom) {
@@ -497,12 +668,12 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
   __shared__ double part[kMaxBasis][64];
   __shared__ double R[kMaxBasis][kMaxBasis];  // R[column][row]
   __shared__ double h[kMaxBasis + 1], gv[kMaxBasis + 1], cs[kMaxBasis], sn[kMaxBasis],
-      y[kMaxBasis], scal[2], pcs[1];
+      y[kMaxBasis], scal[2], pcs[2];
+  __shared__ int inner_counts[2];
   __shared__ PcTables tab;
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 #ifdef PERPHIL_GMRES_PROFILE
-  __shared__ long long prof[kProfPhases], prof_t0;
   if (tid == 0) {
     for (int i = 0; i < kProfPhases; ++i) prof[i] = 0;
     prof_t0 = clock64();
@@ -516,17 +687,44 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
               geom.log_s};
   Reducer rd{part, xchg, 0};
   // dynamic shared memory: the ILU stage, the copy of the matvec's input
-  // vector, the block's basis slice
+  // vector (the fieldsplit roles' inner PCG takes the same region while the
+  // preconditioner runs), the block's basis slice
   const bool vs = geom.basis_smem != 0;
   double* Zs = reinterpret_cast<double*>(dyn + geom.ilu.bytes);
-  double* Vs = Zs + (geom.z_smem ? L : 0);
+  double* Vs = reinterpret_cast<double*>(dyn + geom.ilu.bytes + geom.pc_bytes);
   const int ldS = geom.nloc;
-  if (PC >= kPcFieldsplitLu && tid == 0) tab = tables;
+  if (tid == 0) {
+    if (PC >= kPcFieldsplitLu) tab = tables;
+    inner_counts[0] = inner_counts[1] = 0;
+  }
   __syncthreads();
   const int nint = (g.nx - 2) * (g.ny - 2) * (D == 3 ? g.nz - 2 : 1);
   PcView pv{pd, &tab, IluStage{}, (int)n, nint};
   if ((PC == kPcIlu || PC == kPcFieldsplitIlu) && o.b == 0) {
     pv.st = ilu_stage(geom.ilu, dyn, pd.level_ptr, PC == kPcIlu ? L : (int)n, pd.nlev);
+  }
+  FieldPcg fp{};
+  if constexpr (PC == kPcFieldsplitLu || PC == kPcFieldsplitIlu) {
+    fp.o = Own{o.b, o.nb, o.lam, geom.log_sf};
+    fp.n = (int)n;
+    fp.lines = geom.lines;
+    fp.nmax = geom.nmax;
+    const int nl = geom.nlocf;
+    fp.xs = Zs;
+    fp.rs = Zs + nl;
+    fp.zs = Zs + 2 * nl;
+    fp.ps = Zs + 3 * nl;
+    fp.aps = Zs + 4 * nl;
+    fp.lb = Zs + 5 * nl;
+    double* extra = fp.lb + 2 * geom.lines * geom.nmax;  // p's copy, or the eigenbases'
+    fp.pfull = geom.p_smem ? extra : nullptr;
+    fp.sm = geom.s_smem ? extra : nullptr;
+    fp.pbuf = pd.work + 2 * n;
+    fp.rbuf = fp.pbuf + n;
+    fp.zbuf = fp.rbuf + n;
+    fp.t1 = fp.zbuf + n;
+    fp.t2 = fp.t1 + n;
+    fp.counts = inner_counts;
   }
 
   // the thread's own values of basis row k: slot i is value e
@@ -573,10 +771,7 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
     });
     if constexpr (PC >= kPcFieldsplitLu) {
       cluster.sync();
-      if (o.b == 0) {
-        apply_block_pc<D, PC>(pd.work, V + k * ld, w, g, pv, prm,
-                              reinterpret_cast<double(*)[kGmresThreads]>(part), pcs);
-      }
+      apply_block_pc<D, PC>(pd.work, V + k * ld, g, pv, fp, o.b, prm, rd, pcs);
       cluster.sync();
       if (vs) own([&](int i, int e) { Vs[k * ldS + i] = __ldcg(V + k * ld + e); });
     }
@@ -707,35 +902,80 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
     result[4] = (double)geom.basis_smem;
     result[5] = (double)geom.ilu.z_smem;
     result[6] = (double)geom.z_smem;
+    result[7] = (double)geom.ilu.narrow;
+    result[8] = (double)geom.p_smem;
+    result[9] = (double)geom.s_smem;
+    result[10] = (double)geom.budget;
+    result[11] = (double)inner_counts[0];
+    result[12] = (double)inner_counts[1];
 #ifdef PERPHIL_GMRES_PROFILE
     PERPHIL_PROF(kProfRestart);
-    for (int i = 0; i < kProfPhases; ++i) result[7 + i] = (double)prof[i];
+    for (int i = 0; i < kProfPhases; ++i) result[kResultSlots + i] = (double)prof[i];
 #endif
   }
 }
 
 // The geometry for L = 2n values within `budget` bytes of dynamic shared
-// memory; false where the leaves per thread exceed the frame's tree.
+// memory; false where the leaves per thread exceed the frame's tree or the
+// fieldsplit roles' slices do not fit. In order: the fieldsplit roles' slices
+// and K6's line buffers (needed), the ILU stage (K7, K8), the matvec's input
+// copy, then in the same region p's copy and K6's eigenbases (the inner PCG
+// uses it while the input copy is dead), then the basis slice.
 template <int PC>
 bool plan_geometry(const GmresArgs& a, long budget, GmresGeom& geo) {
+  constexpr bool fields = PC == kPcFieldsplitLu || PC == kPcFieldsplitIlu;
   const long n = a.g.nodes(), L = 2 * n;
   geo = GmresGeom{};
+  geo.budget = (int)budget;
   geo.nb = gmres_blocks(L);
   while ((1 << geo.log_nb) < geo.nb) ++geo.log_nb;
   while (((long)kGmresThreads * geo.nb << geo.log_s) < L) ++geo.log_s;
   if (geo.log_s > kMaxLogS) return false;
   const long piece = 4L * geo.nb;
   geo.nloc = (int)(4 * (L / piece) + (L % piece < 4 ? L % piece : 4));
+  long pc_min = 0, sbytes = 0;
+  if (fields) {
+    while (((long)kGmresThreads * geo.nb << geo.log_sf) < n) ++geo.log_sf;
+    if (geo.log_sf > kMaxLogS) return false;
+    geo.nlocf = (int)(4 * (n / piece) + (n % piece < 4 ? n % piece : 4));
+    pc_min = 5L * geo.nlocf * 8;
+  }
+  if (PC == kPcFieldsplitLu) {
+    const int na[3] = {a.g.nx - 2, a.g.ny - 2, a.dim == 3 ? a.g.nz - 2 : 1};
+    const double* S[3] = {a.pd.Sx, a.pd.Sy, a.pd.Sz};
+    const long nint = (long)na[0] * na[1] * na[2];
+    for (int ax = 0; ax < a.dim; ++ax) {
+      const int lines = (int)((nint / na[ax] + geo.nb - 1) / geo.nb);
+      geo.lines = lines > geo.lines ? lines : geo.lines;
+      geo.nmax = na[ax] > geo.nmax ? na[ax] : geo.nmax;
+      bool seen = false;
+      for (int a2 = 0; a2 < ax; ++a2) seen = seen || S[a2] == S[ax];
+      if (!seen) sbytes += 8L * na[ax] * na[ax];
+    }
+    pc_min += 16L * geo.lines * geo.nmax;
+  }
   long used = 0;
   if (PC == kPcIlu || PC == kPcFieldsplitIlu) {
-    geo.ilu = ilu_plan(a.tab.meta, (int)(PC == kPcIlu ? L : n), a.pd.nlev, a.max_level_rows, budget);
+    const int nt = PC == kPcIlu ? (a.dim == 2 ? kMonolithicOffsets<2> : kMonolithicOffsets<3>)
+                                : (a.dim == 2 ? kFieldOffsets<2> : kFieldOffsets<3>);
+    if (nt > 0 && (a.tab.meta.nlow != nt || a.tab.meta.nup != nt)) return false;
+    geo.ilu = ilu_plan(a.tab.meta, (int)(PC == kPcIlu ? L : n), a.pd.nlev, a.max_level_rows, budget - pc_min);
     used = geo.ilu.bytes;
   }
-  // the matvec's input first (it saves the most L2 traffic), then the slice
-  if (used + 8 * L <= budget) {
-    geo.z_smem = 1;
-    used += 8 * L;
-  }
+  pc_min = (pc_min + 15) / 16 * 16;  // the basis slice after the region starts on 16 bytes
+  auto grow = [&](long& x, long need) {
+    need = (need + 15) / 16 * 16;
+    if (used + (need > x ? need : x) > budget) return false;
+    x = need > x ? need : x;
+    return true;
+  };
+  long x = pc_min;
+  if (used + x > budget) return false;
+  geo.z_smem = grow(x, 8 * L);  // the matvec's input first (it saves the most L2 traffic)
+  if (fields) geo.p_smem = grow(x, pc_min + 8 * n);
+  if (PC == kPcFieldsplitLu) geo.s_smem = grow(x, pc_min + sbytes);
+  geo.pc_bytes = (int)x;
+  used += x;
   const long slice = (long)(a.prm.restart + 1) * geo.nloc * 8;
   if (used + slice <= budget) {
     geo.basis_smem = 1;

@@ -1,0 +1,11 @@
+// The fused GMRES kernel for pc ilu with its phase clocks compiled in
+// (fused_gmres_profile.cu holds the launcher).
+
+#define PERPHIL_GMRES_PROFILE 1
+#include "../fused_gmres_kernel.cuh"
+
+namespace perphil {
+
+template cudaError_t launch_fused_gmres<kPcIlu>(const GmresArgs&, cudaStream_t);
+
+}  // namespace perphil

@@ -24,7 +24,10 @@ plain matvec (``fused_dpp_apply_plain``) and the preconditioner of
 The fieldsplit roles' inner solve is the TPU kernel's: PCG from zero,
 ``z0 = M rhs``, stopping on ``||r|| <= max(rtol ||rhs||, atol)`` or a
 non-finite norm (``pallas_gmres.py:1416-1474``), with every dot a
-:func:`krylov.tree_sum`. It stands in for the presets' inner ``preonly`` +
+:func:`krylov.tree_sum`. The kernel runs it on every block of its cluster
+(dots on the cluster tree, bit-equal to ``tree_sum``); K8's ILU(0) sweeps
+take the narrow sweep of ``csrc/ilu_sweep.cuh`` (one warp) where the levels
+allow, K6's fast-diag transform is spread over the blocks. It stands in for the presets' inner ``preonly`` +
 LU (K6) and GMRES + ILU (K8) at matched tolerances; the outer count is 4
 either way.
 
@@ -49,8 +52,8 @@ from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, coupling_apply, dpp_stencils
 from perphil_tpu_torch.ops.direct import FastDiagFieldSolver
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain, pack_weights
-from perphil_tpu_torch.ops.fused_direct import _axis_ptrs, _check_device, _grid_args
-from perphil_tpu_torch.ops.ilu import StructuredILU0, build_field_system
+from perphil_tpu_torch.ops.fused_direct import _check_device, _grid_args
+from perphil_tpu_torch.ops.ilu import IluPlan, StructuredILU0, build_field_system, ilu_plan
 from perphil_tpu_torch.ops.krylov import DEFAULT_DTOL, KrylovResult, gmres, tree_sum
 from perphil_tpu_torch.ops.stencil import compile_stencils
 
@@ -76,6 +79,8 @@ _VMEM_BUDGET = 20 * 1024 * 1024
 _WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
 _XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
 _THREADS = 512  # threads of a block
+#: doubles of a launch's result (``csrc/fused_gmres.cuh::kResultSlots``)
+RESULT_SLOTS = 13
 #: blocks of one thread block cluster at most (the card's non-portable size)
 MAX_BLOCKS = 16
 #: leaves of a reduction tree a thread may own (``csrc/fused_gmres.cuh``)
@@ -108,6 +113,92 @@ def launch_geometry(num_values: int) -> LaunchGeometry:
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
+
+
+class KernelGeometry(NamedTuple):
+    """What a launch ran with: blocks of the cluster, and what lived in
+    shared memory (the basis slice, the ILU sweep's z, the matvec's input
+    copy, the narrow ILU sweep, the inner PCG's copy of p and K6's
+    eigenbases); ``budget``: the dynamic shared memory it could have had."""
+
+    blocks: int
+    basis_smem: bool
+    ilu_z_smem: bool
+    input_smem: bool
+    ilu_narrow: bool
+    p_smem: bool
+    s_smem: bool
+    budget: int
+
+
+class SmemPlan(NamedTuple):
+    """The launcher's use of dynamic shared memory (``plan_geometry`` in
+    ``csrc/fused_gmres_kernel.cuh``), in bytes and flags."""
+
+    ilu: Optional[IluPlan]
+    input_smem: bool
+    p_smem: bool
+    s_smem: bool
+    pc_bytes: int
+    basis_smem: bool
+    bytes: int
+
+
+def _slice_len(num_values: int, blocks: int) -> int:
+    piece = 4 * blocks
+    return 4 * (num_values // piece) + min(num_values % piece, 4)
+
+
+def plan_smem(
+    node_shape: Tuple[int, ...], pc_type: str, budget: int, restart: int = 30,
+    ilu_shape: Optional[Tuple[int, int, int, int]] = None, distinct: Optional[Tuple[bool, ...]] = None,
+) -> SmemPlan:
+    """Mirror of the launcher's plan for ``budget`` bytes: the fieldsplit
+    roles' slices (5 vectors of a block's share of one field) and K6's two
+    line buffers come first and must fit; then the ILU stage (``ilu_shape``:
+    nlow, nup, levels, rows of the widest level); the matvec's input copy
+    (2n doubles), and in the same region the inner PCG's copy of p (n
+    doubles) and K6's eigenbases (x first; ``distinct[a]``: axis a's matrix
+    equals no earlier one's, by default where its length is new); then the
+    basis slice."""
+    n = int(np.prod(node_shape))
+    L, blocks = 2 * n, launch_geometry(2 * n).blocks
+    fields = pc_type.startswith("fieldsplit")
+    pc_min = 5 * 8 * _slice_len(n, blocks) if fields else 0
+    sbytes = 0
+    if pc_type == "fieldsplit_lu":
+        axes = [m - 2 for m in reversed(node_shape)]  # x first
+        nint = int(np.prod(axes))
+        lines = max(-(-(nint // m) // blocks) for m in axes)
+        pc_min += 16 * lines * max(axes)
+        if distinct is None:
+            distinct = tuple(m not in axes[:a] for a, m in enumerate(axes))
+        sbytes = sum(8 * m * m for m, new in zip(axes, distinct) if new)
+    ilu, used = None, 0
+    if pc_type in ("ilu", "fieldsplit_ilu"):
+        nlow, nup, nlev, max_rows = ilu_shape
+        ilu = ilu_plan(nlow, nup, L if pc_type == "ilu" else n, nlev, max_rows, budget - pc_min)
+        used = ilu.bytes
+    pc_min = (pc_min + 15) // 16 * 16
+    if used + pc_min > budget:
+        raise ValueError("the fieldsplit roles' slices do not fit")
+    x = pc_min
+
+    def grow(need: int) -> bool:
+        nonlocal x
+        need = (need + 15) // 16 * 16
+        if used + max(x, need) > budget:
+            return False
+        x = max(x, need)
+        return True
+
+    input_smem = grow(8 * L)
+    p_smem = fields and grow(pc_min + 8 * n)
+    s_smem = pc_type == "fieldsplit_lu" and grow(pc_min + sbytes)
+    used += x
+    basis = used + (restart + 1) * 8 * _slice_len(L, blocks) <= budget
+    return SmemPlan(ilu, input_smem, p_smem, s_smem, x, basis,
+                    used + (restart + 1) * 8 * _slice_len(L, blocks) * basis)
 
 
 def _within_envelope(node_shape: Tuple[int, ...], pc_type: str) -> bool:
@@ -184,9 +275,10 @@ class FusedGMRESSolver(nn.Module):
         self.rtol, self.atol, self.dtol = float(rtol), float(atol), float(dtol)
         self.max_it, self.restart = int(max_it), int(restart)
         self.inner_solves = self.inner_iterations = 0
-        #: what the last launch ran with: (blocks, basis slice in shared
-        #: memory, ILU z in shared memory, matvec input in shared memory)
-        self.last_geometry: Optional[Tuple[int, bool, bool, bool]] = None
+        #: the last launch's inner PCG (iterations, solves): the fieldsplit roles
+        self.launch_inner: Tuple[int, int] = (0, 0)
+        #: what the last launch ran with (:class:`KernelGeometry`)
+        self.last_geometry: Optional[KernelGeometry] = None
         self.stencils = dpp_stencils(mesh, p)
         dinv = None
         if pc_type == "jacobi":
@@ -216,6 +308,14 @@ class FusedGMRESSolver(nn.Module):
                     for k in ks
                 )
                 self.sc = torch.stack([fd.mode_scale.reshape(-1) for fd in self.field_fd]).contiguous()
+                # equal eigenbases (a cube, a square) go to the kernel as one
+                # pointer, which it copies to shared memory once
+                mats = self.field_fd[0].mats
+                first = [next(b for b in range(a + 1) if mats[b].shape == S.shape and torch.equal(mats[b], S))
+                         for a, S in enumerate(mats)]
+                self._axes = tuple(mats[first[a]].data_ptr() for a in (0, 1, len(mats) - 1))
+                #: per axis (x first), whether its eigenbasis equals no earlier axis's
+                self.distinct_axes = tuple(first[a] == a for a in range(len(mats)))
 
     # -- the plain twin ---------------------------------------------------
 
@@ -302,7 +402,7 @@ class FusedGMRESSolver(nn.Module):
             for f in (first, second)
             for side in ((None, None) if f is None else (f.packed_lower, f.packed_upper))
         ]
-        axes = (None, None, None) if self.field_fd is None else _axis_ptrs(self.field_fd[0].mats)
+        axes = (None, None, None) if self.field_fd is None else self._axes
         return (
             ptr(self.dinv), *(ptr(t) for t in packed),
             None if sched is None else sched.level_ptr.data_ptr(),
@@ -314,9 +414,10 @@ class FusedGMRESSolver(nn.Module):
             0 if sched is None else sched.max_level_rows,
         )
 
-    def launch(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
-        """Run the kernel on stacked ``(2, *node_shape)`` f64 CUDA tensors;
-        reads the iteration count and residual norm back."""
+    def launch_args(self, b: torch.Tensor, x0: Optional[torch.Tensor], result: torch.Tensor) -> Tuple[tuple, torch.Tensor]:
+        """The launcher's arguments (all but the stream) for stacked
+        ``(2, *node_shape)`` f64 CUDA tensors, and the output ``x``; the
+        scratch they point to lives as long as the returned tuple."""
         if x0 is None:
             x0 = torch.zeros_like(b)
         shape = (2,) + self.node_shape
@@ -330,12 +431,10 @@ class FusedGMRESSolver(nn.Module):
         if PC_KINDS[self.pc_type] >= 2:
             work = torch.empty(_WORK_PER_NODE * b[0].numel(), dtype=torch.float64, device=b.device)
         xchg = torch.empty(_XCHG_DOUBLES, dtype=torch.float64, device=b.device)
-        result = torch.empty(7, dtype=torch.float64, device=b.device)
         w = pack_weights(*self.stencils)
         (dinv, F0L, F0U, F1L, F1U, lptr, lrows, meta, Sx, Sy, Sz, sc, noffs, nlev, max_rows) = self._pc_args()
         rtol_in, atol_in, max_in = INNER_TOLS.get(self.pc_type, (0.0, 0.0, 0))
-        _cuda.launch(
-            self.role, "perphil_fused_gmres", b.device,
+        args = (
             b.data_ptr(), x0.data_ptr(), x.data_ptr(), basis.data_ptr(),
             None if work is None else work.data_ptr(), xchg.data_ptr(), result.data_ptr(),
             w.ctypes.data,
@@ -345,8 +444,22 @@ class FusedGMRESSolver(nn.Module):
             self.rtol, self.atol, self.dtol, self.max_it, self.restart,
             self.coef, rtol_in, atol_in, max_in, max_rows,
         )
-        its, rnorm, converged, blocks, basis_smem, ilu_z_smem, input_smem = result.tolist()
-        self.last_geometry = (int(blocks), bool(basis_smem), bool(ilu_z_smem), bool(input_smem))
+        return (args, (x0, basis, work, xchg, w)), x
+
+    def launch(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
+        """Run the kernel on stacked ``(2, *node_shape)`` f64 CUDA tensors;
+        reads the iteration count and residual norm back."""
+        result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
+        (args, _keep), x = self.launch_args(b, x0, result)
+        _cuda.launch(self.role, "perphil_fused_gmres", b.device, *args)
+        return self.read_result(x, result)
+
+    def read_result(self, x: torch.Tensor, result: torch.Tensor) -> KrylovResult:
+        """The solve's outcome from a launch's ``result``; sets
+        ``last_geometry``."""
+        its, rnorm, converged, *geo, inner_its, inner_solves = result[:RESULT_SLOTS].tolist()
+        self.last_geometry = KernelGeometry(int(geo[0]), *(bool(v) for v in geo[1:7]), int(geo[7]))
+        self.launch_inner = (int(inner_its), int(inner_solves))
         return KrylovResult(x, int(its), rnorm, bool(converged))
 
     def forward(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:

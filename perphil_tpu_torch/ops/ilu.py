@@ -30,7 +30,7 @@ double-float defect-corrected apply (a TPU workaround for emulated f64).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,81 @@ KERNEL = "structured_ilu_apply"
 MAX_SIDE_OFFSETS = 40
 
 _LAMBDA = (1, 2, 4)  # level weights per coordinate (x, y, z)
+
+
+#: the sweep's plan (``csrc/ilu_sweep.cuh``): levels of at most this many
+#: rows, with at most this many offsets a side, take the narrow sweep, one
+#: warp with this many levels in flight
+NARROW_ROWS = 64
+NARROW_OFFSETS = 13
+NARROW_STAGES = 6
+_RING_MAX_STAGES = 8
+
+
+class IluPlan(NamedTuple):
+    """How a sweep lays out its shared memory (``ilu_sweep.cuh::IluPlan``):
+    ``cap`` rows of the widest level a stage holds (0: no stage, the direct
+    loop), ``slots`` doubles a row of a stage, ``stages``, whether z lives in
+    shared memory, whether the level bounds do, the region's bytes, and
+    whether the narrow sweep runs."""
+
+    cap: int
+    slots: int
+    stages: int
+    z_smem: bool
+    lp_smem: bool
+    bytes: int
+    narrow: bool
+
+
+class SweepGeometry(NamedTuple):
+    """What a launch of ``structured_ilu_apply`` ran with: ring stages (0:
+    the direct loop; the narrow sweep's levels in flight), z in shared
+    memory, dynamic bytes, the narrow sweep, and the dynamic shared memory
+    the kernel could have had (the plan's budget)."""
+
+    stages: int
+    z_smem: bool
+    bytes: int
+    narrow: bool
+    budget: int
+
+
+def _r16(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def ilu_plan(nlow: int, nup: int, nrows: int, nlev: int, max_rows: int, budget: int) -> IluPlan:
+    """The launcher's plan (``ilu_sweep.cuh::ilu_plan``) for a factor of
+    ``nrows`` rows with ``nlow``/``nup`` offsets a side and ``nlev`` levels,
+    the widest ``max_rows`` rows, in ``budget`` bytes. A narrow schedule
+    (and at most 13 offsets a side) takes the narrow sweep where its level
+    bounds, two arrays of ``nrows + 1`` doubles and its stages fit; otherwise the level bounds (where they
+    take at most a quarter), a ring as deep as leaves room for z (8 stages
+    at most, 2 at least), and z where it still fits."""
+    lp = 8 * ((nlev + 2) // 2)
+    if max_rows <= NARROW_ROWS and max(nlow, nup) <= NARROW_OFFSETS:
+        items = max(nlow, nup + 1)
+        ring = NARROW_STAGES * max_rows * items * 8 + 8 * ((NARROW_STAGES * max_rows + 1) // 2)
+        nbytes = _r16(lp + 16 * (nrows + 1) + ring)
+        if nbytes <= budget:
+            return IluPlan(max_rows, items, NARROW_STAGES, True, True, nbytes, True)
+    slots, used, cap, stages, z_smem, lp_smem = max(nlow, nup) + 2, 0, 0, 0, False, False
+    if lp <= budget // 4:
+        lp_smem, used = True, lp
+
+    def ring(st: int) -> int:
+        return st * max_rows * slots * 8 + 8 * ((st * max_rows + 1) // 2)
+
+    zbytes = 8 * (nrows + 1)
+    keep = zbytes if used + ring(2) + zbytes <= budget else 0
+    for st in range(_RING_MAX_STAGES, 1, -1):
+        if max_rows > 0 and used + ring(st) + keep <= budget:
+            cap, stages, used = max_rows, st, used + ring(st)
+            break
+    if cap > 0 and used + zbytes <= budget:
+        z_smem, used = True, used + zbytes
+    return IluPlan(cap, slots, stages, z_smem, lp_smem, (used + 15) // 16 * 16, False)
 
 
 def _geom_offsets(d: int) -> List[Tuple[int, ...]]:
@@ -269,9 +344,8 @@ class StructuredILU0(nn.Module):
         self.meta = meta
         #: rows of the widest level: the kernels size their prefetch stage by it
         self.max_level_rows = int(np.diff(ptr).max())
-        #: what the last launch chose: (stages of the prefetch ring or 0 for
-        #: the direct loop, whether z lives in shared memory, dynamic bytes)
-        self.last_geometry: Optional[Tuple[int, bool, int]] = None
+        #: what the last launch chose (:class:`SweepGeometry`)
+        self.last_geometry: Optional[SweepGeometry] = None
         self._plan: Optional[Tuple[list, list]] = None
 
     @classmethod
@@ -341,15 +415,18 @@ class StructuredILU0(nn.Module):
             raise ValueError(f"r has shape {tuple(r.shape)}, expected ({self.nrows},)")
         z = torch.empty_like(r)
         y = torch.empty_like(r)
-        geometry = np.zeros(3, np.int32)
+        geometry = np.zeros(5, np.int32)
         _cuda.launch(
             KERNEL, "perphil_structured_ilu_apply", r.device,
             r.data_ptr(), z.data_ptr(), y.data_ptr(), self.packed_lower.data_ptr(),
-            self.packed_upper.data_ptr(), self.level_ptr.data_ptr(), self.level_rows.data_ptr(), self.meta.ctypes.data,
+            self.packed_upper.data_ptr(), self.level_ptr.data_ptr(), self.level_rows.data_ptr(),
+            self.meta.ctypes.data,
             len(self.deltas), self.nrows, self.num_levels, self.max_level_rows,
             geometry.ctypes.data,
         )
-        self.last_geometry = (int(geometry[0]), bool(geometry[1]), int(geometry[2]))
+        self.last_geometry = SweepGeometry(
+            int(geometry[0]), bool(geometry[1]), int(geometry[2]), bool(geometry[3]), int(geometry[4])
+        )
         return z
 
     def apply_flat(self, r: torch.Tensor) -> torch.Tensor:

@@ -2,17 +2,21 @@
 card: ``python -m perphil_tpu_torch.tools.profile_kernels`` from the root of
 a checkout (needs an NVIDIA GPU and ``nvcc``).
 
-It builds the two translation units of ``csrc/profile/`` on their own
-(seconds, not the minute and a half of the whole library): the pc none GMRES
-kernel and ``structured_ilu_apply``, each with its cycle counters compiled
-in. The package's library holds neither counter.
+It builds the translation units of ``csrc/profile/`` on their own, one
+``nvcc`` each, in parallel (the fused GMRES kernel per preconditioner and
+``structured_ilu_apply``, each with its cycle counters compiled in). The
+package's library holds no counter.
 For plain GMRES at 2D N=8/16/64 and tet nx=16 it prints the blocks taken,
 the time (CUDA events, median) and the share of block 0's cycles in each
-phase of a step; for ``structured_ilu_apply`` at 2D N=64/128 monolithic and
-on a 129^2 field, the time, the time per level, and whether the result
-equals the plain sweep bit for bit, and the cycles one consumer and one
-producer thread spend in each part of a level. ``--only gmres|ilu`` profiles
-one kernel alone.
+phase of a step; for the fieldsplit roles (K6 at 2D N=64 and tet nx=8, K8
+at 2D N=16 and N=64) the same, with the inner PCG's phases (preconditioner,
+field matvec, dots, vector updates) per inner iteration and the
+preconditioner's cycles per sweep level (K8) or per transform pass (K6);
+for ``structured_ilu_apply`` at 2D N=64/128 monolithic and on a 65^2 (the
+narrow sweep) and 129^2 field, the time, the time per level, whether the
+result equals the plain sweep bit for bit, and on the ring the cycles one
+consumer and one producer thread spend in each part of a level. ``--only gmres|fieldsplit|ilu`` profiles one
+of the three alone.
 """
 
 from __future__ import annotations
@@ -29,14 +33,13 @@ import torch
 
 from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator
-from perphil_tpu_torch.ops.fused_apply import pack_weights
-from perphil_tpu_torch.ops.fused_direct import _grid_args
-from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver
+from perphil_tpu_torch.ops.fused_gmres import RESULT_SLOTS, FusedGMRESSolver
 from perphil_tpu_torch.ops.ilu import StructuredILU0
 from perphil_tpu_torch.solvers import parameters as sp
 
-PHASES = ["apply", "dots", "gram-schmidt+norm", "givens", "scale", "end barrier", "restart"]
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+PHASES = ["apply", "dots", "gram-schmidt+norm", "givens", "scale", "end barrier", "restart",
+          "inner: preconditioner", "inner: field matvec", "inner: dots", "inner: vector updates"]
+_P = ctypes.c_void_p
 
 
 def build() -> ctypes.CDLL:
@@ -51,11 +54,15 @@ def build() -> ctypes.CDLL:
         )
         for s in sources
     ]
-    for proc in procs:
+    for proc, src in zip(procs, sources):
         log = proc.communicate()[0]
+        entry = ""
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+            text = line.split("ptxas info    :")[-1].strip()
+            if "Compiling entry function" in line:
+                entry = text.split("'")[1][:60]
+            elif "spill" in line or "Used" in line:
+                print(f"  ptxas {src.stem} {entry}: {text}")
         if proc.returncode:
             raise RuntimeError(log)
     subprocess.run(
@@ -63,8 +70,8 @@ def build() -> ctypes.CDLL:
         check=True,
     )
     dll = ctypes.CDLL(str(lib))
-    dll.perphil_fused_gmres_profile.argtypes = [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I] * 2 + [_P]
-    dll.perphil_structured_ilu_apply.argtypes = [_P] * 8 + [_I] * 4 + [_P, _P]
+    dll.perphil_fused_gmres_profile.argtypes = _cuda._SIGNATURES["perphil_fused_gmres"]
+    dll.perphil_structured_ilu_apply.argtypes = _cuda._SIGNATURES["perphil_structured_ilu_apply"]
     dll.perphil_ilu_profile_take.argtypes = [_P]
     return dll
 
@@ -83,46 +90,52 @@ def median_ms(fn, repeats: int) -> float:
     return statistics.median(times)
 
 
-def profile_gmres(dll, element: str, n: int) -> None:
+def profile_gmres(dll, element: str, n: int, pc: str = "none") -> None:
     import chip_smoke
 
     W, params, bcs, _, _ = chip_smoke.problem(element, n, torch.device("cuda", torch.cuda.current_device()))
     op = DPPOperator(W, params)
     b = chip_smoke.newton_rhs(op, bcs)
     kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
-    solver = FusedGMRESSolver(op, "none", **kw)
-    x0, x = torch.zeros_like(b), torch.empty_like(b)
-    basis = torch.empty((solver.restart + 1) * b.numel(), dtype=torch.float64, device=b.device)
-    xchg = torch.empty(4096, dtype=torch.float64, device=b.device)
-    result = torch.zeros(7 + len(PHASES), dtype=torch.float64, device=b.device)
-    w = pack_weights(*solver.stencils)
+    solver = FusedGMRESSolver(op, pc, **kw)
+    result = torch.zeros(RESULT_SLOTS + len(PHASES), dtype=torch.float64, device=b.device)
+    (args, _keep), x = solver.launch_args(b, None, result)
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = dll.perphil_fused_gmres_profile(
-            b.data_ptr(), x0.data_ptr(), x.data_ptr(), basis.data_ptr(), xchg.data_ptr(),
-            result.data_ptr(), w.ctypes.data, *_grid_args(solver.node_shape),
-            solver.rtol, solver.atol, solver.dtol, solver.max_it, solver.restart, stream,
-        )
+        err = dll.perphil_fused_gmres_profile(*args, stream)
         if err:
             raise RuntimeError(f"perphil_fused_gmres_profile: CUDA error {err}")
 
     ms = median_ms(run, 3)
-    out = result.tolist()
-    its, blocks, cycles = int(out[0]), int(out[3]), out[7:]
-    total = sum(cycles)
-    print(f"fused GMRES pc none {element} N={n}: {its} iterations, {blocks} blocks, basis slice in shared "
-          f"memory {bool(out[4])}, matvec input in shared memory {bool(out[6])}, {ms:.4f} ms, {ms * 1e3 / its:.3f} us/iteration, "
-          f"{total / its:.0f} cycles/iteration on block 0")
+    got = solver.read_result(x, result)
+    cycles = result.tolist()[RESULT_SLOTS:]
+    its, total = got.iterations, sum(cycles)
+    print(f"fused GMRES pc {pc} {element} N={n}: {its} iterations, geometry {solver.last_geometry}, "
+          f"{ms:.4f} ms, {ms * 1e3 / its:.3f} us/iteration, {total / its:.0f} cycles/iteration on block 0")
     for name, c in zip(PHASES, cycles):
-        print(f"    {name:>18}: {100 * c / total:5.1f}%  {c / its:9.0f} cycles/iteration  "
-              f"{ms * 1e3 / its * c / total:7.3f} us/iteration")
+        if c:
+            print(f"    {name:>22}: {100 * c / total:5.1f}%  {c / its:11.0f} cycles/iteration  "
+                  f"{ms * 1e3 / its * c / total:9.3f} us/iteration")
+    if pc.startswith("fieldsplit"):
+        inner, solves = solver.launch_inner  # the kernel's own inner PCG counts
+        applications = inner + solves
+        pc_cycles = cycles[PHASES.index("inner: preconditioner")]
+        print(f"    inner PCG {inner} iterations in {solves} solves; {total / max(inner, 1):.0f} cycles/inner "
+              f"iteration, {pc_cycles / applications:.0f} preconditioner cycles/application")
+        if pc == "fieldsplit_ilu":
+            nlev = solver.field_ilu[0].num_levels
+            print(f"    {pc_cycles / (2 * nlev * applications):.0f} cycles/sweep level ({nlev} levels a sweep)")
+        else:
+            passes = 2 * len(solver.node_shape)
+            print(f"    {pc_cycles / (passes * applications):.0f} cycles/transform pass "
+                  f"({passes} passes an application)")
 
 
 def profile_ilu(dll, tag: str, pc: StructuredILU0) -> None:
     r = torch.randn(pc.nrows, dtype=torch.float64, generator=torch.Generator().manual_seed(0)).to(pc.device)
     z, y = torch.empty_like(r), torch.empty_like(r)
-    geometry = np.zeros(3, np.int32)
+    geometry = np.zeros(5, np.int32)
     cycles = np.zeros(5, np.int64)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -146,9 +159,12 @@ def profile_ilu(dll, tag: str, pc: StructuredILU0) -> None:
     levels = 2 * pc.num_levels
     names = ("consumer: wait for a full stage", "consumer: rows", "consumer: barrier",
              "producer: wait for an empty stage", "producer: issue copies")
+    if geometry[3]:  # the narrow sweep: one warp, its lane 0
+        names = ("wait for copies", "a level's rows", "issue copies, warp barrier")
     diff = float((z - pc.plain(r)).abs().max())
     print(f"structured_ilu_apply {tag}: {pc.nrows} rows, {pc.num_levels} levels (widest {pc.max_level_rows}), "
-          f"ring stages {geometry[0]}, z in shared memory {bool(geometry[1])}, {geometry[2]} B dynamic, "
+          f"{'narrow sweep' if geometry[3] else 'ring'}, stages {geometry[0]}, z in shared memory {bool(geometry[1])}, "
+          f"{geometry[2]} B dynamic, "
           f"{ms:.4f} ms, {ms * 1e3 / (2 * pc.num_levels):.3f} us/level, max abs diff vs plain sweep {diff:.1e}")
     for name, c in zip(names, cycles.tolist()):
         print(f"    {name:>34}: {c / levels:8.0f} cycles/level")
@@ -156,7 +172,7 @@ def profile_ilu(dll, tag: str, pc: StructuredILU0) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["gmres", "ilu"], help="profile one of the two kernels alone")
+    ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu"], help="profile one kind of kernel alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -165,17 +181,21 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dll = build()
-    for element, n in (("quad", 8), ("quad", 16), ("quad", 64), ("tet", 16)):
-        if args.only != "ilu":
+    if args.only in (None, "gmres"):
+        for element, n in (("quad", 8), ("quad", 16), ("quad", 64), ("tet", 16)):
             profile_gmres(dll, element, n)
-    if args.only == "gmres":
+    if args.only in (None, "fieldsplit"):
+        for element, n, pc in (("quad", 64, "fieldsplit_lu"), ("tet", 8, "fieldsplit_lu"),
+                               ("quad", 16, "fieldsplit_ilu"), ("quad", 64, "fieldsplit_ilu")):
+            profile_gmres(dll, element, n, pc)
+    if args.only not in (None, "ilu"):
         return 0
     import chip_smoke
 
     for n in (64, 128):
         W, params, _, _, _ = chip_smoke.problem("quad", n, torch.device("cuda", torch.cuda.current_device()))
         profile_ilu(dll, f"monolithic 2D N={n}", StructuredILU0.for_monolithic(W.mesh, params))
-    profile_ilu(dll, "field 129^2", StructuredILU0.for_field(FieldOperator(W.sub(0), params.k1, params.beta, params.mu)))
+        profile_ilu(dll, f"field {n + 1}^2", StructuredILU0.for_field(FieldOperator(W.sub(0), params.k1, params.beta, params.mu)))
     return 0
 
 

@@ -13,8 +13,8 @@ from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_plain
 from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
-from perphil_tpu_torch.ops.fused_gmres import K4, K5, FusedGMRESSolver, launch_geometry
-from perphil_tpu_torch.ops.ilu import StructuredILU0
+from perphil_tpu_torch.ops.fused_gmres import K4, K5, FusedGMRESSolver, launch_geometry, plan_smem
+from perphil_tpu_torch.ops.ilu import StructuredILU0, ilu_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -212,6 +212,81 @@ def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol):
     assert _rel(got.x, ref.x) <= tol
 
 
+ROLES_64 = [  # the preconditioned roles at 2D N=64, where they cost the most
+    ("fieldsplit_ilu", 0.0),  # K8: the narrow sweep, bit for bit
+    ("fieldsplit_lu", 1e-10),  # K6: the cluster's fast-diag transform
+    ("ilu", 0.0),  # K7: 66 rows a level, the ring
+]
+
+
+@pytest.mark.parametrize("pc,tol", ROLES_64, ids=["k8", "k6", "k7"])
+def test_preconditioned_gmres_at_quad64(cuda, pc, tol):
+    """K6-K8 at 2D N=64 on 16 blocks: equal counts (K8 also its inner PCG's),
+    and the shared memory the launcher reports is the Python mirror's."""
+    state = _state("quad", (64, 64), cuda, seed=8)
+    op = DPPOperator(state.W, state.params)
+    solver = FusedGMRESSolver(op, pc, rtol=1e-8, atol=1e-12, max_it=5000)
+    b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
+    got = solver.launch(b)
+    torch.cuda.synchronize()
+    ref = solver.plain(b)
+    assert got.iterations == ref.iterations > 0
+    assert got.converged == ref.converged
+    assert _rel(got.x, ref.x) <= tol
+    geo = solver.last_geometry
+    ilu = solver.ilu if pc == "ilu" else (solver.field_ilu[0] if solver.field_ilu is not None else None)
+    plan = plan_smem(
+        solver.node_shape, pc, geo.budget,
+        ilu_shape=None if ilu is None else (len(ilu.lower), len(ilu.upper), ilu.num_levels, ilu.max_level_rows),
+        distinct=getattr(solver, "distinct_axes", None),
+    )
+    assert geo.blocks == 16
+    assert (geo.input_smem, geo.p_smem, geo.s_smem, geo.basis_smem) == (
+        plan.input_smem, plan.p_smem, plan.s_smem, plan.basis_smem)
+    if ilu is not None:
+        assert geo.ilu_narrow == plan.ilu.narrow == (pc == "fieldsplit_ilu")
+    if pc == "fieldsplit_ilu":
+        # the twin applies P(b - A x0) twice, the kernel once
+        twin = (solver.inner_iterations, solver.inner_solves)
+        solver.inner_iterations = solver.inner_solves = 0
+        solver.plain_pc()(b)
+        assert solver.launch_inner == (twin[0] - solver.inner_iterations, twin[1] - solver.inner_solves)
+
+
+SWEEP_PATHS = [  # system, mesh, the narrow sweep (else the ring)
+    ("field", ("quad", (16, 16)), True),  # 4 offsets a side: both rows of a lane at once
+    ("field", ("tet", (4, 4, 4)), True),  # 13: a row at a time
+    ("monolithic", ("quad", (16, 16)), True),
+    ("monolithic", ("tet", (4, 4, 4)), False),  # 40 offsets: the ring's warps share a level
+    ("field", ("quad", (128, 128)), False),  # 65 rows a level
+    ("monolithic", ("quad", (64, 64)), False),  # 66 rows a level
+]
+
+
+@pytest.mark.parametrize(
+    "kind,mesh,narrow", SWEEP_PATHS, ids=[f"{k}-{m[0]}{m[1][0]}" for k, m, _ in SWEEP_PATHS]
+)
+def test_structured_ilu_sweep_paths(cuda, kind, mesh, narrow):
+    """Narrow levels on one warp, wider ones on the ring: each the plain
+    sweep's bits, on the path and with the layout ops/ilu.py::ilu_plan
+    gives for the kernel's budget."""
+    state = _state(*mesh, cuda, seed=9)
+    p = state.params
+    if kind == "monolithic":
+        pc = StructuredILU0.for_monolithic(state.mesh, p, cuda)
+    else:
+        pc = StructuredILU0.for_field(FieldOperator(state.W.sub(0), p.k1, p.beta, p.mu))
+    r = torch.randn(pc.nrows, dtype=torch.float64, device=cuda)
+    z = pc.apply_flat(r)
+    torch.cuda.synchronize()
+    assert float((z - pc.plain(r)).abs().max()) == 0.0
+    geo = pc.last_geometry
+    plan = ilu_plan(len(pc.lower), len(pc.upper), pc.nrows, pc.num_levels, pc.max_level_rows, geo.budget)
+    assert geo.narrow == plan.narrow == narrow
+    assert (geo.stages, geo.z_smem, geo.bytes) == (plan.stages, plan.z_smem, plan.bytes)
+    assert float((pc.apply_flat(r) - z).abs().max()) == 0.0  # and the same again
+
+
 ILU_MESHES = [
     ("quad", (16, 16)), ("tet", (4, 4, 4)),
     # 129^2 rows of a field fit shared memory (133 KB), the monolithic
@@ -237,9 +312,9 @@ def test_structured_ilu_apply_matches_plain_sweep(cuda, element, cells, kind):
     torch.cuda.synchronize()
     assert _cuda.KERNEL_LAUNCHES["structured_ilu_apply"] == before + 1
     assert float((z - pc.plain(r)).abs().max()) == 0.0
-    stages, z_shared, _ = pc.last_geometry
+    geo = pc.last_geometry
     if cells == (128, 128):
-        assert stages >= 2 and z_shared == (kind == "field")
+        assert geo.stages >= 2 and geo.z_smem == (kind == "field") and not geo.narrow
 
 
 ILU_DEPTHS = [  # monolithic mesh, ring stages (0: the direct loop), z in shared memory
