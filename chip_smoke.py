@@ -277,8 +277,8 @@ def gmres_flops(L: int, its: int, m: int, apply_flops: int):
 
 def fused_gmres_work(solver, op, its: int):
     """(bytes, f64 flops) of one fused GMRES solve of ``its`` steps; the
-    fieldsplit roles' inner work from the twin's counts (``solver.plain``
-    must have run on the same right-hand side)."""
+    fieldsplit roles' inner work from the kernel's own counts of its last
+    launch (``solver.launch_inner``: the twin applies P(b - A x0) once more)."""
     from perphil_tpu_torch.ops.fused_gmres import INNER_TOLS
 
     mesh, p = op.mesh, op.params
@@ -304,10 +304,11 @@ def fused_gmres_work(solver, op, its: int):
             inner_pc = 2 * transform_flops(mesh) + n_int
             nbytes += 8 * (solver.sc.numel() + sum(S.numel() for S in solver.field_fd[0].mats))
         coupling = n_int * (2 * _nnz(compile_stencils(mesh)[1]) + 1) + n
+        inner_its, inner_solves = solver.launch_inner
         pc = (
             applies * coupling
-            + solver.inner_solves * (inner_pc + 4 * n)
-            + solver.inner_iterations * (2 * n_int * _nnz(S1) + inner_pc + 12 * n)
+            + inner_solves * (inner_pc + 4 * n)
+            + inner_its * (2 * n_int * _nnz(S1) + inner_pc + 12 * n)
         )
     return nbytes, core + pc
 
@@ -533,7 +534,7 @@ def main() -> int:
         ms = time_ms(lambda: solver.launch(r), repeats=reps, warmup=1)
         print(f"  {solver.role} {tag}: {blocks} blocks, basis slice in shared memory: {geo.basis_smem}, "
               f"ILU z in shared memory: {geo.ilu_z_smem}, matvec input in shared memory: {geo.input_smem}, "
-              f"narrow ILU sweep: {geo.ilu_narrow}, inner p in shared memory: {geo.p_smem}, "
+              f"inner p in shared memory: {geo.p_smem}, "
               f"eigenbases in shared memory: {geo.s_smem}, {ms:.4f} ms, "
               f"{ms * 1e3 / max(got.iterations, 1):.3f} us/iteration")
         if solver.inner_solves:
@@ -585,7 +586,7 @@ def main() -> int:
         geo = pc.last_geometry
         ms = time_ms(lambda: pc.launch(r), repeats=20)
         print(f"  structured_ilu_apply {tag}: widest level {pc.max_level_rows} rows, {geo.stages} stages, "
-              f"narrow sweep: {geo.narrow}, z in shared memory: {geo.z_smem}, {geo.bytes} B dynamic, {ms:.4f} ms, "
+              f"z in shared memory: {geo.z_smem}, {geo.bytes} B dynamic, {ms:.4f} ms, "
               f"{ms * 1e3 / (2 * pc.num_levels):.3f} us/level")
         results[f"structured_ilu_apply@{tag}"] = dict(
             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,

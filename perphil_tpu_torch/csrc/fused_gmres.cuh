@@ -172,10 +172,10 @@ struct GmresGeom {
 
 // doubles of a launch's result before the profile units' phase counters:
 // iterations, residual norm, converged, blocks, basis slice in shared memory,
-// ILU z in shared memory, matvec input in shared memory, the narrow ILU
-// sweep, p in shared memory, eigenbases in shared memory, the budget, and
-// the fieldsplit roles' inner PCG iterations and solves
-constexpr int kResultSlots = 13;
+// ILU z in shared memory, matvec input in shared memory, p in shared
+// memory, eigenbases in shared memory, the budget, and the fieldsplit roles'
+// inner PCG iterations and solves
+constexpr int kResultSlots = 12;
 
 // Host: blocks for L values: min(kMaxCluster, Lt / kGmresThreads).
 inline int gmres_blocks(long L) {

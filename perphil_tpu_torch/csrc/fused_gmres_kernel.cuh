@@ -492,24 +492,19 @@ __device__ void fastdiag_cluster(const PcView& pv, const FieldPcg& fp, int f, co
 }
 
 // zbuf = M in for field f's block, complete in device memory afterwards; `in`
-// is complete in device memory. K8: the ILU(0) sweeps on block 0 (the
-// narrow sweep on one warp where the plan gave it), while the other blocks
-// wait at the cluster barrier; K6: the fast-diag transform on every block.
+// is complete in device memory. K8: the ILU(0) sweeps on block 0, while the
+// other blocks wait at the cluster barrier; K6: the fast-diag transform on
+// every block.
 template <int D, int PC>
 __device__ void field_pc(const PcView& pv, const FieldPcg& fp, int f, const double* in, const Grid& g) {
   if constexpr (PC == kPcFieldsplitIlu) {
     if (fp.o.b == 0) {
       const double* PL = f == 0 ? pv.d.F0L : pv.d.F1L;
       const double* PU = f == 0 ? pv.d.F0U : pv.d.F1U;
-      if (pv.st.narrow) {
-        ilu_apply_narrow<kFieldOffsets<D>>(PL, PU, fp.n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, in,
-                                           fp.zbuf);
-      } else {
-        // the ring reads its right-hand side through L1: a copy of this block's own
-        for (int e = threadIdx.x; e < fp.n; e += blockDim.x) fp.t1[e] = __ldcg(in + e);
-        ilu_apply<kFieldOffsets<D>>(PL, PU, fp.n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, fp.t1, fp.t2,
-                                    fp.zbuf);
-      }
+      // the ring reads its right-hand side through L1: a copy of this block's own
+      for (int e = threadIdx.x; e < fp.n; e += blockDim.x) fp.t1[e] = __ldcg(in + e);
+      ilu_apply<kFieldOffsets<D>>(PL, PU, fp.n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, fp.t1, fp.t2,
+                                  fp.zbuf);
     }
     cg::this_cluster().sync();
   } else {
@@ -635,16 +630,11 @@ __device__ void apply_block_pc(double* t, double* out, const Grid& g, const PcVi
   const int n = pv.n;
   if constexpr (PC == kPcIlu) {
     if (block == 0) {
-      if (pv.st.narrow) {
-        ilu_apply_narrow<kMonolithicOffsets<D>>(pv.d.F0L, pv.d.F0U, 2 * n, pv.tab->meta, pv.st, pv.d.level_rows,
-                                                pv.d.nlev, t, out);
-      } else {
-        // the ring reads its right-hand side through L1: a copy of this block's own
-        double* tc = t + 4 * n;
-        for (int e = threadIdx.x; e < 2 * n; e += blockDim.x) tc[e] = __ldcg(t + e);
-        ilu_apply<kMonolithicOffsets<D>>(pv.d.F0L, pv.d.F0U, 2 * n, pv.tab->meta, pv.st, pv.d.level_rows,
-                                          pv.d.nlev, tc, t + 2 * n, out);
-      }
+      // the ring reads its right-hand side through L1: a copy of this block's own
+      double* tc = t + 4 * n;
+      for (int e = threadIdx.x; e < 2 * n; e += blockDim.x) tc[e] = __ldcg(t + e);
+      ilu_apply<kMonolithicOffsets<D>>(pv.d.F0L, pv.d.F0U, 2 * n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev,
+                                        tc, t + 2 * n, out);
     }
   } else {
     // multiplicative fieldsplit: y1 = B0 t1, y2 = B1 (t2 - C y1)
@@ -902,12 +892,11 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
     result[4] = (double)geom.basis_smem;
     result[5] = (double)geom.ilu.z_smem;
     result[6] = (double)geom.z_smem;
-    result[7] = (double)geom.ilu.narrow;
-    result[8] = (double)geom.p_smem;
-    result[9] = (double)geom.s_smem;
-    result[10] = (double)geom.budget;
-    result[11] = (double)inner_counts[0];
-    result[12] = (double)inner_counts[1];
+    result[7] = (double)geom.p_smem;
+    result[8] = (double)geom.s_smem;
+    result[9] = (double)geom.budget;
+    result[10] = (double)inner_counts[0];
+    result[11] = (double)inner_counts[1];
 #ifdef PERPHIL_GMRES_PROFILE
     PERPHIL_PROF(kProfRestart);
     for (int i = 0; i < kProfPhases; ++i) result[kResultSlots + i] = (double)prof[i];

@@ -9,11 +9,6 @@
 // wavefront would cost ~15 launches per level, ~12,000 per apply at 2D
 // N=128; here it is one launch.
 //
-// Narrow schedules (at most 64 rows a level, e.g. a 2D field up to N=126)
-// take ilu_sweep.cuh's narrow sweep instead: one warp, z and the right-hand
-// side in shared memory, each lane's rows copied in kNarrowStages levels
-// ahead by cp.async.
-//
 // Bound on the H100: latency. Two sweeps of nlev levels each (2D N=128:
 // 389), one barrier per level, and a level holds at most a few hundred rows,
 // so one SM works and the bytes (the factor, 27 offsets x 33,282 rows x 8 B =
@@ -43,11 +38,7 @@ ilu_apply_kernel(const double* r, double* z, double* y, const double* PL, const 
   __shared__ IluMeta m;
   if (threadIdx.x == 0) m = meta;
   const IluStage st = ilu_stage(plan, dyn, level_ptr, nrows, nlev);  // ends with a barrier
-  if (st.narrow) {
-    ilu_apply_narrow(PL, PU, nrows, m, st, level_rows, nlev, r, z);
-  } else {
-    ilu_apply(PL, PU, nrows, m, st, level_rows, nlev, r, y, z);
-  }
+  ilu_apply(PL, PU, nrows, m, st, level_rows, nlev, r, y, z);
 }
 
 }  // namespace perphil
@@ -57,8 +48,8 @@ ilu_apply_kernel(const double* r, double* z, double* y, const double* PL, const 
 // level_ptr: (nlev + 1,) int32, level_rows: (nrows,) int32; meta: the host
 // int32 offset table (ops/ilu.py StructuredILU0.meta); max_rows: the rows of
 // the widest level. geometry, when not null, receives on the host
-// [stages (0: the direct loop), z in shared memory, dynamic bytes, the narrow
-// sweep, the dynamic shared memory the launch could have had].
+// [ring stages (0: the direct loop), z in shared memory, dynamic bytes, the
+// dynamic shared memory the launch could have had].
 extern "C" int perphil_structured_ilu_apply(const double* r, double* z, double* y, const double* PL,
                                             const double* PU, const int* level_ptr, const int* level_rows,
                                             const int* meta, int noffs, int nrows, int nlev,
@@ -79,8 +70,7 @@ extern "C" int perphil_structured_ilu_apply(const double* r, double* z, double* 
     geometry[0] = plan.stages;
     geometry[1] = plan.z_smem;
     geometry[2] = plan.bytes;
-    geometry[3] = plan.narrow;
-    geometry[4] = (int)budget;
+    geometry[3] = (int)budget;
   }
   ilu_apply_kernel<<<1, kIluThreads, plan.bytes, static_cast<cudaStream_t>(stream)>>>(
       r, z, y, PL, PU, level_ptr, level_rows, m, plan, nrows, nlev);

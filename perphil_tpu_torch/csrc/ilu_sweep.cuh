@@ -48,24 +48,6 @@
 //     level.
 // A schedule whose widest level does not fit two stages (very wide levels,
 // which have the parallelism to hide their loads) takes the direct loop.
-//
-// Narrow schedules (at most kNarrowRows rows a level: a 2D field's levels
-// hold up to ~N/2 rows, K8's at 2D N=64 33) take a third path, the narrow
-// sweep: no producer warps, no mbarriers and no named barrier. One warp
-// carries the whole sweep: each lane owns rows lane and lane + 32 of every
-// level, and brings their row indices and packed factor entries in itself,
-// by cp.async kNarrowStages levels ahead of the level it computes (one
-// commit group a level; a lane reads only what it copied, so
-// cp.async.wait_group alone orders it). z and the right-hand side live in
-// shared memory (two arrays of nrows + 1 doubles, the last a zero pad), so a
-// level's critical path is a few shared-memory loads, the chain of
-// differences and __syncwarp(); z goes to device memory once, at the end.
-// The block zeroes the arrays and copies r in around the warp's two sweeps:
-// the plain sweep starts from zeros, and a zero entry of the factor times a
-// stale value could still flip the sign of a zero or make a NaN. On an H100
-// a level costs about as much as on the ring (~0.4 us standalone): both
-// are bound by the level's chain of dependent instructions on one warp
-// (PERF.md).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -105,11 +87,6 @@ inline bool ilu_meta_from_host(const int* m, int noffs, IluMeta& out) {
 }
 
 constexpr int kIluProducerWarps = 4;
-constexpr int kNarrowRows = 64;   // the narrow sweep: at most two rows a lane
-constexpr int kNarrowOffsets = 13;  // and at most this many offsets a side (the straight code)
-constexpr int kNarrowStages = 6;  // its levels in flight: the computed one and 5 ahead
-
-
 constexpr int kIluMaxStages = 8;
 constexpr int kIluConsumerBarrier = 1;  // the named barrier of the consumer warps
 
@@ -118,31 +95,19 @@ constexpr int kIluConsumerBarrier = 1;  // the named barrier of the consumer war
 // the device (ilu_stage).
 struct IluPlan {
   int cap;         // rows of the widest level; 0: no stage, the direct loop
-  int slots;       // stage doubles per row of a level: max(nlow, nup) + 2 (narrow: max(nlow, nup + 1))
-  int stages;      // level buffers in the ring (2..kIluMaxStages; narrow: kNarrowStages)
+  int slots;       // stage doubles per row of a level: max(nlow, nup) + 2
+  int stages;      // level buffers in the ring (2..kIluMaxStages)
   int z_smem;      // 1: z (nrows + 1 doubles) lives in shared memory (only beside a ring)
   int lp_smem;     // 1: level_ptr (nlev + 1 ints) is copied to shared memory
   int bytes;       // the whole region
-  int narrow;      // 1: the narrow sweep (one warp; z and the right-hand side in shared memory)
 };
 
 // Host: the layout for a factor of nrows rows, nlev levels (the widest of
 // max_rows rows) within `budget` bytes: the level bounds, the ring, then z.
-// A narrow schedule of at most kNarrowOffsets offsets a side (one warp has
-// no parallelism for the 40 of a 3D monolithic row: there the ring's
-// consumer warps share a level) takes the narrow sweep where its region fits: the level
-// bounds, two arrays of nrows + 1 doubles, and kNarrowStages stages of cap
-// rows (items doubles and a row index each).
 inline IluPlan ilu_plan(const IluMeta& m, int nrows, int nlev, int max_rows, long budget) {
-  const long lp = 8 * (((long)nlev + 2) / 2);  // ints, kept 8-byte aligned
-  if (max_rows <= kNarrowRows && m.nlow <= kNarrowOffsets && m.nup <= kNarrowOffsets) {
-    const int items = m.nlow > m.nup + 1 ? m.nlow : m.nup + 1;
-    const long ring = (long)kNarrowStages * max_rows * items * 8 + 8 * (((long)kNarrowStages * max_rows + 1) / 2);
-    const long bytes = (lp + 16L * (nrows + 1) + ring + 15) / 16 * 16;
-    if (bytes <= budget) return IluPlan{max_rows, items, kNarrowStages, 1, 1, (int)bytes, 1};
-  }
-  IluPlan p{0, (m.nlow > m.nup ? m.nlow : m.nup) + 2, 0, 0, 0, 0, 0};
+  IluPlan p{0, (m.nlow > m.nup ? m.nlow : m.nup) + 2, 0, 0, 0, 0};
   long used = 0;
+  const long lp = 8 * (((long)nlev + 2) / 2);  // ints, kept 8-byte aligned
   if (lp <= budget / 4) {
     p.lp_smem = 1;
     used += lp;
@@ -175,27 +140,18 @@ struct IluStage {
   double* data;   // `stages` buffers of slots * cap doubles, or null
   int* rows;      // `stages` buffers of cap ints
   double* z;      // nrows + 1 doubles, or null
-  double* zb;     // narrow: the second array of nrows + 1 doubles
-  int cap, slots, stages, narrow;
+  int cap, slots, stages;
 };
 
 // Call with every thread of the block; ends with a barrier.
 __device__ inline IluStage ilu_stage(const IluPlan& p, unsigned char* base, const int* level_ptr,
                                      int nrows, int nlev) {
-  IluStage st{level_ptr, nullptr, nullptr, nullptr, nullptr, p.cap, p.slots, p.stages, p.narrow};
+  IluStage st{level_ptr, nullptr, nullptr, nullptr, p.cap, p.slots, p.stages};
   if (p.lp_smem) {
     int* lp = reinterpret_cast<int*>(base);
     for (int e = threadIdx.x; e <= nlev; e += blockDim.x) lp[e] = level_ptr[e];
     st.lp = lp;
     base += 8 * ((nlev + 2) / 2);
-  }
-  if (p.narrow) {
-    st.z = reinterpret_cast<double*>(base);
-    st.zb = st.z + nrows + 1;
-    st.data = st.zb + nrows + 1;
-    st.rows = reinterpret_cast<int*>(st.data + (long)p.stages * p.cap * p.slots);
-    __syncthreads();
-    return st;
   }
   if (p.cap > 0) {
     st.data = reinterpret_cast<double*>(base);
@@ -222,24 +178,6 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(smem)),
                "l"(__cvta_generic_to_global(gmem))
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async4_to(unsigned smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem), "l"(__cvta_generic_to_global(gmem))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8_to(unsigned smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem), "l"(__cvta_generic_to_global(gmem))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-// Waits until at most n of this thread's newest commit groups are in flight.
-template <int n>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
@@ -606,206 +544,10 @@ __device__ void ilu_sweep(const double* P, int nrows, const IluMeta& m, const Il
   }
 }
 
-// z in the narrow sweep: shared memory by address, nrows + 1 doubles of
-// which the last stays zero.
-struct NarrowZ {
-  unsigned s;
-  int nrows;
-  __device__ __forceinline__ double load(int col) const { return lds_f64(s + 8u * (unsigned)min(col, nrows)); }
-  __device__ __forceinline__ void store(int row, double v) const { sts_f64(s + 8u * (unsigned)row, v); }
-};
-
-struct NarrowSweep {
-  const double* P;        // the side's packed factor
-  const int* level_rows;  // device memory
-  unsigned lp;            // level bounds (shared memory)
-  const int* dq;          // the side's column deltas (shared memory)
-  unsigned rhs;           // right-hand side (shared memory, nrows doubles)
-  NarrowZ z;
-  unsigned data, rows;    // the stages: kNarrowStages x cap x items doubles, x cap ints
-  int nlev, nt, cap;
-};
-
-// One sweep by one warp (all 32 lanes; the caller's barrier follows it).
-// Lane l computes rows l and l + 32 of each level from what it copied
-// itself by cp.async kNarrowStages levels earlier: the stage holds the rows'
-// indices and their packed factor entries [q * cap + r]; a lane reads only
-// what it copied, so cp.async.wait_group alone orders it.
-//
-// A single warp hides no latency behind other warps, so the loop is
-// software-pipelined by hand: a level's critical path is its z and factor
-// loads (issued together), the chain of differences (and the divide) and
-// the store; behind the loads the lane waits for level s + 1's copies and
-// loads that level's row indices and right-hand sides, and behind the warp
-// barrier it issues the copies of level s + kNarrowStages. Every field of w
-// is taken into a register first: the shared-memory accesses are asm
-// statements that clobber memory, after which anything read through a
-// pointer or reference would be loaded again.
-// kNt: the side's offsets (4 or 13), known when compiling.
-template <bool kUpper, int kNt>
-__device__ __noinline__ void narrow_sweep(const NarrowSweep w) {
-  constexpr int K = kNarrowStages;
-  constexpr int kItems = kNt + (kUpper ? 1 : 0);  // the entries of a row: and the diagonal, upper
-  constexpr int kRows = kNt <= 4 ? 2 : 1;         // rows whose loads go out together
-  const int lane = threadIdx.x & 31;
-  const double* const P = w.P;
-  const int* const level_rows = w.level_rows;
-  const unsigned lp = w.lp, rhs = w.rhs, data = w.data, rows = w.rows;
-  const NarrowZ z = w.z;
-  const int nlev = w.nlev, cap = w.cap, last = z.nrows - 1;
-  const unsigned stage_bytes = 8u * (unsigned)(cap * kItems), rows_bytes = 4u * (unsigned)cap;
-  int dqr[kNt];
-#pragma unroll
-  for (int q = 0; q < kNt; ++q) dqr[q] = w.dq[q];
-  auto bounds = [=](int s, int& beg, int& cnt) {
-    const int lv = kUpper ? nlev - 1 - s : s;
-    beg = lds_s32(lp + 4u * (unsigned)lv);
-    cnt = lds_s32(lp + 4u * (unsigned)(lv + 1)) - beg;
-  };
-  auto issue = [=](int s) {
-    if (s < nlev) {
-      int beg, cnt;
-      bounds(s, beg, cnt);
-      const int slot = s % K;
-      const unsigned d = data + (unsigned)slot * stage_bytes, rw = rows + (unsigned)slot * rows_bytes;
-      const double* blk = P + (size_t)kItems * beg;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = lane + 32 * j;
-        if (r < cnt) {
-          cp_async4_to(rw + 4u * (unsigned)r, level_rows + beg + r);
-#pragma unroll
-          for (int q = 0; q < kItems; ++q) cp_async8_to(d + 8u * (unsigned)(q * cap + r), blk + q * cnt + r);
-        }
-      }
-    }
-    cp_async_commit();  // one group a level, empty past the last
-  };
-  IluClock clk(threadIdx.x == 0);  // a level's loads, its wait and chain, the warp barrier and issuing
-#pragma unroll 1
-  for (int s = 0; s < K; ++s) issue(s);
-
-  {
-    // level s's count, rows and right-hand sides, loaded a level ahead
-    int cnt, row[2];
-    double acc[2];
-    auto preload = [&](int s) {
-      int beg;
-      bounds(s, beg, cnt);
-      const unsigned rw = rows + (unsigned)(s % K) * rows_bytes;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = lane + 32 * j;
-        // past the level's rows the slot holds stale or no indices: clamped
-        row[j] = r < cap ? min(max(lds_s32(rw + 4u * (unsigned)r), 0), last) : 0;
-        acc[j] = lds_f64(rhs + 8u * (unsigned)row[j]);
-      }
-    };
-    cp_async_wait<K - 1>();
-    preload(0);
-#pragma unroll 1
-    for (int s = 0; s < nlev; ++s) {
-      const unsigned d = data + (unsigned)(s % K) * stage_bytes;
-      const int c = cnt, rr[2] = {row[0], row[1]};
-      const double a0[2] = {acc[0], acc[1]};
-      double out[2];
-#pragma unroll
-      for (int j0 = 0; j0 < 2; j0 += kRows) {
-        double zc[kRows][kNt], f[kRows][kItems];
-#pragma unroll
-        for (int u = 0; u < kRows; ++u) {
-          const int j = j0 + u, r = lane + 32 * j;
-          if (r < c) {
-#pragma unroll
-            for (int q = 0; q < kNt; ++q) zc[u][q] = z.load(max(rr[j] + dqr[q], 0));
-#pragma unroll
-            for (int q = 0; q < kItems; ++q) f[u][q] = lds_f64(d + 8u * (unsigned)(q * cap + r));
-          }
-        }
-        if (j0 == 0) {
-          clk.mark(0);
-          // behind the loads: level s + 1's copies, indices and right-hand sides
-          if (s + 1 < nlev) {
-            cp_async_wait<K - 2>();
-            preload(s + 1);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kRows; ++u) {
-          const int j = j0 + u;
-          double v = a0[j];
-#pragma unroll
-          for (int q = 0; q < kNt; ++q) v = __dsub_rn(v, __dmul_rn(f[u][q], zc[u][q]));
-          out[j] = kUpper ? __ddiv_rn(v, f[u][kItems - 1]) : v;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (lane + 32 * j < c) z.store(rr[j], out[j]);
-      }
-      clk.mark(1);
-      __syncwarp();  // the level's z, for the next level's lanes; the stage is read
-      issue(s + K);
-      clk.mark(2);
-    }
-    clk.flush(0, 3);
-  }
-  cp_async_wait<0>();
-}
-
-// kNt > 0: the offsets a side; else 4 or 13 from the table (ilu_plan takes
-// no other schedule to the narrow sweep).
-template <bool kUpper, int kNt>
-__device__ __forceinline__ void narrow_sweep_nt(const NarrowSweep& w) {
-  if constexpr (kNt > 0) {
-    narrow_sweep<kUpper, kNt>(w);
-  } else if (w.nt == 4) {
-    narrow_sweep<kUpper, 4>(w);
-  } else {
-    narrow_sweep<kUpper, 13>(w);
-  }
-}
-
-// z = U^{-1} L^{-1} r on the narrow path: r and zg in device memory (r read
-// past L1: other blocks of a cluster may have written it), PL, PU the
-// factor's packed sides; with every thread of the block, warp 0 sweeping.
-// Begins and ends with a barrier. kNt: as for ilu_sweep.
-template <int kNt = -1>
-__device__ inline void ilu_apply_narrow(const double* PL, const double* PU, int nrows, const IluMeta& m,
-                                        const IluStage& st, const int* level_rows, int nlev, const double* r,
-                                        double* zg) {
-  __shared__ int dq[2][kMaxSideOffsets];
-  __syncthreads();
-  for (int e = threadIdx.x; e <= nrows; e += blockDim.x) {
-    st.z[e] = 0.0;
-    st.zb[e] = e < nrows ? __ldcg(r + e) : 0.0;
-  }
-  if (threadIdx.x < m.nlow) dq[0][threadIdx.x] = m.delta[m.low[threadIdx.x]];
-  if (threadIdx.x < m.nup) dq[1][threadIdx.x] = m.delta[m.up[threadIdx.x]];
-  __syncthreads();
-  const unsigned a = smem_addr(st.z), bz = smem_addr(st.zb);
-  NarrowSweep w{PL, level_rows, smem_addr(st.lp), dq[0], bz, NarrowZ{a, nrows}, smem_addr(st.data),
-                smem_addr(st.rows), nlev, m.nlow, st.cap};
-  if (threadIdx.x < 32) narrow_sweep_nt<false, kNt>(w);  // y = L^{-1} r into the first array
-  __syncthreads();
-  for (int e = threadIdx.x; e < nrows; e += blockDim.x) st.zb[e] = 0.0;
-  __syncthreads();
-  w.P = PU;
-  w.dq = dq[1];
-  w.rhs = a;
-  w.z = NarrowZ{bz, nrows};
-  w.nt = m.nup;
-  if (threadIdx.x < 32) narrow_sweep_nt<true, kNt>(w);  // z = U^{-1} y into the second
-  __syncthreads();
-  // z stays in shared memory through both sweeps and goes out in one pass
-  for (int e = threadIdx.x; e < nrows; e += blockDim.x) zg[e] = st.zb[e];
-  __syncthreads();
-}
-
 // z = U^{-1} L^{-1} r, with y (nrows, device memory) as scratch; PL, PU: the
-// factor's packed lower and upper sides, on the ring or the direct loop
-// (st.narrow: ilu_apply_narrow). kNt: as for ilu_sweep (both sides have as
-// many offsets on the package's meshes).
+// factor's packed lower and upper sides, on the ring or the direct loop.
+// kNt: as for ilu_sweep (both sides have as many offsets on the package's
+// meshes).
 template <int kNt = -1>
 __device__ __forceinline__ void ilu_apply(const double* PL, const double* PU, int nrows,
                                           const IluMeta& m, const IluStage& st,

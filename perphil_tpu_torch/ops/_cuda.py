@@ -64,7 +64,7 @@ _SIGNATURES = {
     # max_level_rows, stream
     "perphil_fused_gmres": [_P] * 21 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _P],
     # r, z, y, packed_lower, packed_upper, level_ptr, level_rows, meta, noffs,
-    # nrows, nlev, max_level_rows, geometry(host, 5 ints), stream
+    # nrows, nlev, max_level_rows, geometry(host, 4 ints), stream
     "perphil_structured_ilu_apply": [_P] * 8 + [_I, _I, _I, _I, _P, _P],
 }
 

@@ -26,8 +26,8 @@ The fieldsplit roles' inner solve is the TPU kernel's: PCG from zero,
 non-finite norm (``pallas_gmres.py:1416-1474``), with every dot a
 :func:`krylov.tree_sum`. The kernel runs it on every block of its cluster
 (dots on the cluster tree, bit-equal to ``tree_sum``); K8's ILU(0) sweeps
-take the narrow sweep of ``csrc/ilu_sweep.cuh`` (one warp) where the levels
-allow, K6's fast-diag transform is spread over the blocks. It stands in for the presets' inner ``preonly`` +
+run on its first block (``csrc/ilu_sweep.cuh``), K6's fast-diag transform is
+spread over the blocks. It stands in for the presets' inner ``preonly`` +
 LU (K6) and GMRES + ILU (K8) at matched tolerances; the outer count is 4
 either way.
 
@@ -80,7 +80,7 @@ _WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
 _XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
 _THREADS = 512  # threads of a block
 #: doubles of a launch's result (``csrc/fused_gmres.cuh::kResultSlots``)
-RESULT_SLOTS = 13
+RESULT_SLOTS = 12
 #: blocks of one thread block cluster at most (the card's non-portable size)
 MAX_BLOCKS = 16
 #: leaves of a reduction tree a thread may own (``csrc/fused_gmres.cuh``)
@@ -118,14 +118,13 @@ def _next_pow2(n: int) -> int:
 class KernelGeometry(NamedTuple):
     """What a launch ran with: blocks of the cluster, and what lived in
     shared memory (the basis slice, the ILU sweep's z, the matvec's input
-    copy, the narrow ILU sweep, the inner PCG's copy of p and K6's
-    eigenbases); ``budget``: the dynamic shared memory it could have had."""
+    copy, the inner PCG's copy of p and K6's eigenbases); ``budget``: the
+    dynamic shared memory it could have had."""
 
     blocks: int
     basis_smem: bool
     ilu_z_smem: bool
     input_smem: bool
-    ilu_narrow: bool
     p_smem: bool
     s_smem: bool
     budget: int
@@ -458,7 +457,7 @@ class FusedGMRESSolver(nn.Module):
         """The solve's outcome from a launch's ``result``; sets
         ``last_geometry``."""
         its, rnorm, converged, *geo, inner_its, inner_solves = result[:RESULT_SLOTS].tolist()
-        self.last_geometry = KernelGeometry(int(geo[0]), *(bool(v) for v in geo[1:7]), int(geo[7]))
+        self.last_geometry = KernelGeometry(int(geo[0]), *(bool(v) for v in geo[1:6]), int(geo[6]))
         self.launch_inner = (int(inner_its), int(inner_solves))
         return KrylovResult(x, int(its), rnorm, bool(converged))
 

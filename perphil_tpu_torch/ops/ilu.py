@@ -49,21 +49,16 @@ MAX_SIDE_OFFSETS = 40
 _LAMBDA = (1, 2, 4)  # level weights per coordinate (x, y, z)
 
 
-#: the sweep's plan (``csrc/ilu_sweep.cuh``): levels of at most this many
-#: rows, with at most this many offsets a side, take the narrow sweep, one
-#: warp with this many levels in flight
-NARROW_ROWS = 64
-NARROW_OFFSETS = 13
-NARROW_STAGES = 6
+#: the ring's deepest plan (``csrc/ilu_sweep.cuh::kIluMaxStages``)
 _RING_MAX_STAGES = 8
 
 
 class IluPlan(NamedTuple):
     """How a sweep lays out its shared memory (``ilu_sweep.cuh::IluPlan``):
     ``cap`` rows of the widest level a stage holds (0: no stage, the direct
-    loop), ``slots`` doubles a row of a stage, ``stages``, whether z lives in
-    shared memory, whether the level bounds do, the region's bytes, and
-    whether the narrow sweep runs."""
+    loop), ``slots`` doubles a row of a stage, ring ``stages``, whether z
+    lives in shared memory, whether the level bounds do, and the region's
+    bytes."""
 
     cap: int
     slots: int
@@ -71,42 +66,27 @@ class IluPlan(NamedTuple):
     z_smem: bool
     lp_smem: bool
     bytes: int
-    narrow: bool
 
 
 class SweepGeometry(NamedTuple):
     """What a launch of ``structured_ilu_apply`` ran with: ring stages (0:
-    the direct loop; the narrow sweep's levels in flight), z in shared
-    memory, dynamic bytes, the narrow sweep, and the dynamic shared memory
-    the kernel could have had (the plan's budget)."""
+    the direct loop), z in shared memory, dynamic bytes, and the dynamic
+    shared memory the kernel could have had (the plan's budget)."""
 
     stages: int
     z_smem: bool
     bytes: int
-    narrow: bool
     budget: int
-
-
-def _r16(nbytes: int) -> int:
-    return (nbytes + 15) // 16 * 16
 
 
 def ilu_plan(nlow: int, nup: int, nrows: int, nlev: int, max_rows: int, budget: int) -> IluPlan:
     """The launcher's plan (``ilu_sweep.cuh::ilu_plan``) for a factor of
     ``nrows`` rows with ``nlow``/``nup`` offsets a side and ``nlev`` levels,
-    the widest ``max_rows`` rows, in ``budget`` bytes. A narrow schedule
-    (and at most 13 offsets a side) takes the narrow sweep where its level
-    bounds, two arrays of ``nrows + 1`` doubles and its stages fit; otherwise the level bounds (where they
-    take at most a quarter), a ring as deep as leaves room for z (8 stages
-    at most, 2 at least), and z where it still fits."""
-    lp = 8 * ((nlev + 2) // 2)
-    if max_rows <= NARROW_ROWS and max(nlow, nup) <= NARROW_OFFSETS:
-        items = max(nlow, nup + 1)
-        ring = NARROW_STAGES * max_rows * items * 8 + 8 * ((NARROW_STAGES * max_rows + 1) // 2)
-        nbytes = _r16(lp + 16 * (nrows + 1) + ring)
-        if nbytes <= budget:
-            return IluPlan(max_rows, items, NARROW_STAGES, True, True, nbytes, True)
+    the widest ``max_rows`` rows, in ``budget`` bytes: the level bounds
+    (where they take at most a quarter), a ring as deep as leaves room for z
+    (8 stages at most, 2 at least), and z where it still fits."""
     slots, used, cap, stages, z_smem, lp_smem = max(nlow, nup) + 2, 0, 0, 0, False, False
+    lp = 8 * ((nlev + 2) // 2)
     if lp <= budget // 4:
         lp_smem, used = True, lp
 
@@ -121,7 +101,7 @@ def ilu_plan(nlow: int, nup: int, nrows: int, nlev: int, max_rows: int, budget: 
             break
     if cap > 0 and used + zbytes <= budget:
         z_smem, used = True, used + zbytes
-    return IluPlan(cap, slots, stages, z_smem, lp_smem, (used + 15) // 16 * 16, False)
+    return IluPlan(cap, slots, stages, z_smem, lp_smem, (used + 15) // 16 * 16)
 
 
 def _geom_offsets(d: int) -> List[Tuple[int, ...]]:
@@ -415,7 +395,7 @@ class StructuredILU0(nn.Module):
             raise ValueError(f"r has shape {tuple(r.shape)}, expected ({self.nrows},)")
         z = torch.empty_like(r)
         y = torch.empty_like(r)
-        geometry = np.zeros(5, np.int32)
+        geometry = np.zeros(4, np.int32)
         _cuda.launch(
             KERNEL, "perphil_structured_ilu_apply", r.device,
             r.data_ptr(), z.data_ptr(), y.data_ptr(), self.packed_lower.data_ptr(),
@@ -425,7 +405,7 @@ class StructuredILU0(nn.Module):
             geometry.ctypes.data,
         )
         self.last_geometry = SweepGeometry(
-            int(geometry[0]), bool(geometry[1]), int(geometry[2]), bool(geometry[3]), int(geometry[4])
+            int(geometry[0]), bool(geometry[1]), int(geometry[2]), int(geometry[3])
         )
         return z
 

@@ -12,11 +12,18 @@ phase of a step; for the fieldsplit roles (K6 at 2D N=64 and tet nx=8, K8
 at 2D N=16 and N=64) the same, with the inner PCG's phases (preconditioner,
 field matvec, dots, vector updates) per inner iteration and the
 preconditioner's cycles per sweep level (K8) or per transform pass (K6);
-for ``structured_ilu_apply`` at 2D N=64/128 monolithic and on a 65^2 (the
-narrow sweep) and 129^2 field, the time, the time per level, whether the
-result equals the plain sweep bit for bit, and on the ring the cycles one
-consumer and one producer thread spend in each part of a level. ``--only gmres|fieldsplit|ilu`` profiles one
+for ``structured_ilu_apply`` at 2D N=64/128 monolithic and on a 65^2 and
+129^2 field, the time, the time per level, whether the result equals the
+plain sweep bit for bit, and the cycles one consumer and one producer thread
+spend in each part of a level. ``--only gmres|fieldsplit|ilu`` profiles one
 of the three alone.
+
+``--only sweeps`` builds nothing of its own: it times, with the package's
+kernels (CUDA events, median of 5), where the ILU(0) sweep runs: K7 at 2D
+N=16/32/64 and K8 at 2D N=16/64 (the kernel's time over every level it
+swept) and ``structured_ilu_apply`` on a 33^2, 65^2 and 129^2 field. It
+uses only what every version of the package has, so that a copy of it also
+runs against an older checkout, for a comparison on the same card.
 """
 
 from __future__ import annotations
@@ -135,7 +142,7 @@ def profile_gmres(dll, element: str, n: int, pc: str = "none") -> None:
 def profile_ilu(dll, tag: str, pc: StructuredILU0) -> None:
     r = torch.randn(pc.nrows, dtype=torch.float64, generator=torch.Generator().manual_seed(0)).to(pc.device)
     z, y = torch.empty_like(r), torch.empty_like(r)
-    geometry = np.zeros(5, np.int32)
+    geometry = np.zeros(4, np.int32)
     cycles = np.zeros(5, np.int64)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -159,20 +166,46 @@ def profile_ilu(dll, tag: str, pc: StructuredILU0) -> None:
     levels = 2 * pc.num_levels
     names = ("consumer: wait for a full stage", "consumer: rows", "consumer: barrier",
              "producer: wait for an empty stage", "producer: issue copies")
-    if geometry[3]:  # the narrow sweep: one warp, its lane 0
-        names = ("wait for copies", "a level's rows", "issue copies, warp barrier")
     diff = float((z - pc.plain(r)).abs().max())
     print(f"structured_ilu_apply {tag}: {pc.nrows} rows, {pc.num_levels} levels (widest {pc.max_level_rows}), "
-          f"{'narrow sweep' if geometry[3] else 'ring'}, stages {geometry[0]}, z in shared memory {bool(geometry[1])}, "
+          f"stages {geometry[0]}, z in shared memory {bool(geometry[1])}, "
           f"{geometry[2]} B dynamic, "
           f"{ms:.4f} ms, {ms * 1e3 / (2 * pc.num_levels):.3f} us/level, max abs diff vs plain sweep {diff:.1e}")
     for name, c in zip(names, cycles.tolist()):
         print(f"    {name:>34}: {c / levels:8.0f} cycles/level")
 
 
+def time_sweeps() -> None:
+    import chip_smoke
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    for n, pc in ((16, "ilu"), (32, "ilu"), (64, "ilu"), (16, "fieldsplit_ilu"), (64, "fieldsplit_ilu")):
+        W, params, bcs, _, _ = chip_smoke.problem("quad", n, dev)
+        op = DPPOperator(W, params)
+        b = chip_smoke.newton_rhs(op, bcs)
+        solver = FusedGMRESSolver(op, pc, **kw)
+        ms = median_ms(lambda: solver.launch(b), 5)
+        its = solver.launch(b).iterations
+        if pc == "ilu":  # one application a step and one a restart
+            nlev, applications = solver.ilu.num_levels, its + -(-its // solver.restart)
+        else:
+            nlev, applications = solver.field_ilu[0].num_levels, sum(solver.launch_inner)
+        print(f"{solver.role} quad N={n}: {its} iterations, {applications} ILU applications of 2 x {nlev} levels, "
+              f"{ms:.4f} ms, {ms * 1e3 / (2 * nlev * applications):.4f} us per level swept; {solver.last_geometry}")
+    for n in (32, 64, 128):
+        W, params, _, _, _ = chip_smoke.problem("quad", n, dev)
+        pc = StructuredILU0.for_field(FieldOperator(W.sub(0), params.k1, params.beta, params.mu))
+        r = torch.randn(pc.nrows, dtype=torch.float64, generator=torch.Generator().manual_seed(0)).to(dev)
+        ms = median_ms(lambda: pc.launch(r), 5)
+        print(f"structured_ilu_apply field {n + 1}^2: {pc.num_levels} levels (widest {pc.max_level_rows}), "
+              f"{ms:.4f} ms, {ms * 1e3 / (2 * pc.num_levels):.4f} us/level; {pc.last_geometry}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu"], help="profile one kind of kernel alone")
+    ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps"],
+                    help="profile one kind of kernel alone, or time the sweeps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -180,6 +213,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if args.only == "sweeps":
+        time_sweeps()
+        return 0
     dll = build()
     if args.only in (None, "gmres"):
         for element, n in (("quad", 8), ("quad", 16), ("quad", 64), ("tet", 16)):

@@ -213,7 +213,7 @@ def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol):
 
 
 ROLES_64 = [  # the preconditioned roles at 2D N=64, where they cost the most
-    ("fieldsplit_ilu", 0.0),  # K8: the narrow sweep, bit for bit
+    ("fieldsplit_ilu", 0.0),  # K8: the ring on 33 rows a level, bit for bit
     ("fieldsplit_lu", 1e-10),  # K6: the cluster's fast-diag transform
     ("ilu", 0.0),  # K7: 66 rows a level, the ring
 ]
@@ -244,7 +244,7 @@ def test_preconditioned_gmres_at_quad64(cuda, pc, tol):
     assert (geo.input_smem, geo.p_smem, geo.s_smem, geo.basis_smem) == (
         plan.input_smem, plan.p_smem, plan.s_smem, plan.basis_smem)
     if ilu is not None:
-        assert geo.ilu_narrow == plan.ilu.narrow == (pc == "fieldsplit_ilu")
+        assert geo.ilu_z_smem == plan.ilu.z_smem
     if pc == "fieldsplit_ilu":
         # the twin applies P(b - A x0) twice, the kernel once
         twin = (solver.inner_iterations, solver.inner_solves)
@@ -253,23 +253,22 @@ def test_preconditioned_gmres_at_quad64(cuda, pc, tol):
         assert solver.launch_inner == (twin[0] - solver.inner_iterations, twin[1] - solver.inner_solves)
 
 
-SWEEP_PATHS = [  # system, mesh, the narrow sweep (else the ring)
-    ("field", ("quad", (16, 16)), True),  # 4 offsets a side: both rows of a lane at once
-    ("field", ("tet", (4, 4, 4)), True),  # 13: a row at a time
-    ("monolithic", ("quad", (16, 16)), True),
-    ("monolithic", ("tet", (4, 4, 4)), False),  # 40 offsets: the ring's warps share a level
-    ("field", ("quad", (128, 128)), False),  # 65 rows a level
-    ("monolithic", ("quad", (64, 64)), False),  # 66 rows a level
+SWEEP_PATHS = [  # system, mesh, offsets a side and rows of the widest level
+    ("field", ("quad", (16, 16)), 4, 9),  # narrow levels: one consumer warp
+    ("field", ("tet", (4, 4, 4)), 13, 8),
+    ("monolithic", ("quad", (16, 16)), 13, 18),
+    ("monolithic", ("tet", (4, 4, 4)), 40, 15),
+    ("field", ("quad", (128, 128)), 4, 65),  # three consumer warps
+    ("monolithic", ("quad", (64, 64)), 13, 66),
 ]
 
 
 @pytest.mark.parametrize(
-    "kind,mesh,narrow", SWEEP_PATHS, ids=[f"{k}-{m[0]}{m[1][0]}" for k, m, _ in SWEEP_PATHS]
+    "kind,mesh,nt,widest", SWEEP_PATHS, ids=[f"{k}-{m[0]}{m[1][0]}" for k, m, _, _ in SWEEP_PATHS]
 )
-def test_structured_ilu_sweep_paths(cuda, kind, mesh, narrow):
-    """Narrow levels on one warp, wider ones on the ring: each the plain
-    sweep's bits, on the path and with the layout ops/ilu.py::ilu_plan
-    gives for the kernel's budget."""
+def test_structured_ilu_sweep_paths(cuda, kind, mesh, nt, widest):
+    """Narrow levels and wide ones, each the plain sweep's bits on the ring,
+    with the layout ops/ilu.py::ilu_plan gives for the kernel's budget."""
     state = _state(*mesh, cuda, seed=9)
     p = state.params
     if kind == "monolithic":
@@ -282,8 +281,8 @@ def test_structured_ilu_sweep_paths(cuda, kind, mesh, narrow):
     assert float((z - pc.plain(r)).abs().max()) == 0.0
     geo = pc.last_geometry
     plan = ilu_plan(len(pc.lower), len(pc.upper), pc.nrows, pc.num_levels, pc.max_level_rows, geo.budget)
-    assert geo.narrow == plan.narrow == narrow
-    assert (geo.stages, geo.z_smem, geo.bytes) == (plan.stages, plan.z_smem, plan.bytes)
+    assert (len(pc.lower), pc.max_level_rows) == (nt, widest)
+    assert geo.stages >= 2 and (geo.stages, geo.z_smem, geo.bytes) == (plan.stages, plan.z_smem, plan.bytes)
     assert float((pc.apply_flat(r) - z).abs().max()) == 0.0  # and the same again
 
 
@@ -314,7 +313,7 @@ def test_structured_ilu_apply_matches_plain_sweep(cuda, element, cells, kind):
     assert float((z - pc.plain(r)).abs().max()) == 0.0
     geo = pc.last_geometry
     if cells == (128, 128):
-        assert geo.stages >= 2 and geo.z_smem == (kind == "field") and not geo.narrow
+        assert geo.stages >= 2 and geo.z_smem == (kind == "field")
 
 
 ILU_DEPTHS = [  # monolithic mesh, ring stages (0: the direct loop), z in shared memory

@@ -7,26 +7,26 @@ mirrors on the card."""
 import pytest
 
 from perphil_tpu_torch.ops.fused_gmres import plan_smem
-from perphil_tpu_torch.ops.ilu import NARROW_STAGES, IluPlan, ilu_plan
+from perphil_tpu_torch.ops.ilu import IluPlan, ilu_plan
 
 ILU_PLANS = [
-    # 2D field at N=64 (K8): 33 rows a level, so the narrow sweep: level
-    # bounds 8 x 97, two arrays 16 x 4226, 6 stages of 33 rows x 5 doubles
-    # plus their row indices 8 x 99
-    ((4, 4, 4225, 193, 33, 205008), IluPlan(33, 5, NARROW_STAGES, True, True, 77104, True)),
+    # 2D field at N=64 (K8), narrow levels of 33 rows: level bounds 8 x 97,
+    # 8 stages of 33 rows x 6 doubles plus their row indices (13,728), z
+    # 8 x 4226; 48,312 bytes, rounded to 16
+    ((4, 4, 4225, 193, 33, 205008), IluPlan(33, 6, 8, True, True, 48320)),
     # a 129^2 field (65 rows a level): the ring, 8 stages of 65 x 6 doubles
     # (27,040) beside the level bounds (1,032) and z (133,136)
-    ((4, 4, 129 * 129, 257, 65, 231216), IluPlan(65, 6, 8, True, True, 161216, False)),
+    ((4, 4, 129 * 129, 257, 65, 231216), IluPlan(65, 6, 8, True, True, 161216)),
     # the 2D N=128 monolithic factor: the ring, z stays in device memory
-    ((13, 13, 2 * 129 * 129, 389, 130, 231216), IluPlan(130, 15, 8, False, True, 130528, False)),
-    # narrow levels whose arrays (320 KB) do not fit: the ring, 8 stages,
-    # without z (26,168 bytes, rounded to 16)
-    ((4, 4, 20000, 300, 60, 150000), IluPlan(60, 6, 8, False, True, 26176, False)),
+    ((13, 13, 2 * 129 * 129, 389, 130, 231216), IluPlan(130, 15, 8, False, True, 130528)),
+    # z (160 KB) does not fit beside two stages: the ring, 8 stages, without
+    # z (26,168 bytes, rounded to 16)
+    ((4, 4, 20000, 300, 60, 150000), IluPlan(60, 6, 8, False, True, 26176)),
     # 3D monolithic, 15 rows a level but 40 offsets a side: the ring, 8
     # stages of 15 x 42 doubles and their rows (40,800), bounds 152, z 2,008
-    ((40, 40, 250, 37, 15, 200000), IluPlan(15, 42, 8, True, True, 42960, False)),
+    ((40, 40, 250, 37, 15, 200000), IluPlan(15, 42, 8, True, True, 42960)),
     # levels too wide for two stages: the direct loop
-    ((40, 40, 1000, 10, 100, 10000), IluPlan(0, 42, 0, False, True, 48, False)),
+    ((40, 40, 1000, 10, 100, 10000), IluPlan(0, 42, 0, False, True, 48)),
 ]
 
 
@@ -49,12 +49,13 @@ def test_plan_smem_k6_quad64():
 
 
 def test_plan_smem_k8_quad64():
-    """K8 at 2D N=64: the narrow sweep's 77,104 bytes first, then the input
-    copy, with p beside it; no room is left for the basis slice."""
+    """K8 at 2D N=64: the ILU ring's 48,320 bytes first (8 stages, z in
+    shared memory), then the input copy, with p beside it; the basis slice
+    (131,440) no longer fits."""
     plan = plan_smem((65, 65), "fieldsplit_ilu", 204768, ilu_shape=(4, 4, 193, 33))
-    assert plan.ilu.narrow and plan.ilu.bytes == 77104
+    assert (plan.ilu.stages, plan.ilu.z_smem, plan.ilu.bytes) == (8, True, 48320)
     assert (plan.input_smem, plan.p_smem, plan.s_smem, plan.basis_smem) == (True, True, False, False)
-    assert plan.bytes == 77104 + 67600
+    assert plan.bytes == 48320 + 67600
 
 
 def test_plan_smem_small_and_tight():
