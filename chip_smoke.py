@@ -96,14 +96,21 @@ KRYLOV_CASES = [  # element, N, preset, count, slack, kernel the route launches
     ("tet", 4, "PLAIN_GMRES_PARAMS", 27, 0, "fused_gmres_ef64"),
     ("tet", 16, "PLAIN_GMRES_PARAMS", 750, 0, "fused_gmres_df"),
     ("quad", 16, "GMRES_JACOBI_PARAMS", 33, 0, "fused_gmres_df"),
-    ("quad", 128, "PLAIN_GMRES_PARAMS", 11765, 2, "fused_dpp_apply"),
+    ("quad", 128, "PLAIN_GMRES_PARAMS", 11765, 2, "fused_gmres_df"),
+    # 3D plain counts: petsc_perf_breakdown_3d.csv
+    ("tet", 12, "PLAIN_GMRES_PARAMS", 465, 0, "fused_gmres_df"),
+    ("tet", 20, "PLAIN_GMRES_PARAMS", 1068, 0, "fused_gmres_df"),
+    ("tet", 24, "PLAIN_GMRES_PARAMS", 1460, 0, "fused_gmres_df"),
+    ("tet", 32, "PLAIN_GMRES_PARAMS", 2439, 0, "fused_gmres_df"),
+    ("tet", 36, "PLAIN_GMRES_PARAMS", 3057, 0, "fused_gmres_df"),
+    ("tet", 40, "PLAIN_GMRES_PARAMS", 3652, 0, "fused_gmres_df"),
 ]
 # the preconditioned presets: 2D counts from petsc_perf_breakdown.csv
 # ("GMRES + ILU PC", "Scale-Splitting GMRES [+ ILU PC]"); the 3D ILU counts
 # are the natural-order structured ILU's (the published 3D row is the RCM
 # ordering-parity ILU's); FIELDSPLIT_GMRES_PARAMS at N=16: the JAX package's
-# count. Beyond the envelope the host loop's K1 rounding may move the ILU
-# counts (+-2, as for 11765).
+# count. The +-2 at 2D N=128/256 is the published counts' slack against the
+# route that serves them (the fused roles since the envelope is the card's).
 PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
     ("quad", 4, "GMRES_ILU_PARAMS", 5, 0, "fused_gmres_df[ilu]"),
     ("quad", 8, "GMRES_ILU_PARAMS", 7, 0, "fused_gmres_df[ilu]"),
@@ -117,11 +124,15 @@ PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
     ("tet", 8, "SS-GMRES", 4, 0, "fused_gmres_df[fieldsplit_lu]"),
     ("quad", 16, "SS-GMRES+ILU", 4, 0, "fused_gmres_df[fieldsplit_ilu]"),
     ("quad", 64, "SS-GMRES+ILU", 4, 0, "fused_gmres_df[fieldsplit_ilu]"),
-    ("quad", 128, "GMRES_ILU_PARAMS", 74, 2, "structured_ilu_apply"),
-    ("quad", 256, "GMRES_ILU_PARAMS", 117, 2, "structured_ilu_apply"),
+    ("quad", 128, "GMRES_ILU_PARAMS", 74, 2, "fused_gmres_df[ilu]"),
+    ("quad", 256, "GMRES_ILU_PARAMS", 117, 2, "fused_gmres_df[ilu]"),
+    # K6's slices and line buffers at N=256 exceed the launch budget: the host loop
     ("quad", 256, "SS-GMRES", 4, 0, "fused_dpp_apply"),
-    ("quad", 128, "SS-GMRES+ILU", 4, 0, "structured_ilu_apply"),
+    ("quad", 128, "SS-GMRES+ILU", 4, 0, "fused_gmres_df[fieldsplit_ilu]"),
     ("quad", 16, "FIELDSPLIT_GMRES_PARAMS", 4, 0, "fused_dpp_apply"),
+    # beyond the envelope (526,338 values), no published count: the host loop
+    # with the standalone ILU apply
+    ("quad", 512, "GMRES_ILU_PARAMS", None, 0, "structured_ilu_apply"),
 ]
 
 # NVIDIA's H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 outside the
@@ -181,6 +192,32 @@ def time_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(fn, calls: int = 100, repeats: int = 3) -> float:
+    """Device time of one ``fn()`` in ms (CUDA events, median of
+    ``repeats``): ``calls`` calls back to back, queued behind a sleep on the
+    stream, so that the host's time to launch them stays out of the window
+    (checked: the sleep outlasts the launching)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clocks
+        events[1].record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        events[2].record()
+        torch.cuda.synchronize()
+        check(events[0].elapsed_time(events[1]) > host_ms, "the sleep outlasts the launches it hides")
+        times.append(events[1].elapsed_time(events[2]) / calls)
     return statistics.median(times)
 
 
@@ -313,6 +350,35 @@ def fused_gmres_work(solver, op, its: int):
     return nbytes, core + pc
 
 
+def dense_system(op, b):
+    """The library yardstick of the direct kernels: the BC-eliminated
+    operator materialised as a dense (2n, 2n) f64 matrix on b's device (the
+    plain matvec of each unit vector) and b flat, for one
+    ``torch.linalg.solve`` call."""
+    import torch
+
+    from perphil_tpu_torch.ops.assembly import dpp_stencils
+    from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain
+
+    S = dpp_stencils(op.mesh, op.params)
+    units = torch.eye(b.numel(), dtype=torch.float64, device=b.device).reshape((-1,) + tuple(b.shape))
+    A = torch.stack([torch.stack(fused_dpp_apply_plain(e[0], e[1], *S)).reshape(-1) for e in units], dim=1)
+    return A, b.reshape(-1)
+
+
+def library_solve(op, b, x, what: str) -> float:
+    """Time one torch.linalg.solve on the dense system (CUDA events around
+    each call: it reads its status back) after holding it to the kernel's
+    solution x."""
+    import torch
+
+    A, rhs = dense_system(op, b)
+    err = rel(torch.linalg.solve(A, rhs), x.reshape(-1))
+    print(f"{what}: torch.linalg.solve on the dense {A.shape[0]} x {A.shape[1]} system, max rel diff vs the kernel {err:.3e}")
+    check(err <= 1e-10, f"{what}: the dense solve computes the kernel's solution")
+    return time_ms(lambda: torch.linalg.solve(A, rhs), repeats=20)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -330,13 +396,19 @@ def main() -> int:
     )
     from perphil_tpu_torch.ops import _cuda
     from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, dpp_stencils
-    from perphil_tpu_torch.ops.fused_apply import box_boundary, fused_dpp_apply, fused_dpp_apply_plain
+    from perphil_tpu_torch.ops.fused_apply import (
+        box_boundary,
+        fused_dpp_apply,
+        fused_dpp_apply_plain,
+        fused_dpp_apply_stacked,
+    )
     from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
-    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver
+    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver, launch_geometry
     from perphil_tpu_torch.ops.ilu import StructuredILU0
     from perphil_tpu_torch.solvers import parameters as sp
     from perphil_tpu_torch.solvers import solve_dpp
-    from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze
+    from perphil_tpu_torch.ops.krylov import gmres
+    from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze, _monolithic_pc
     from perphil_tpu_torch.utils.postprocessing import h1_seminorm_error, l2_error
 
     PRESETS = presets()
@@ -394,22 +466,26 @@ def main() -> int:
     ]
     for tag, W, dtype, tol in k1_cases:
         S = dpp_stencils(W.mesh, params)
-        z1, z2 = randn(W.mesh.node_shape, dtype), randn(W.mesh.node_shape, dtype)
+        z = torch.stack([randn(W.mesh.node_shape, dtype), randn(W.mesh.node_shape, dtype)])
+        z1, z2 = z[0], z[1]
         for mode in ("matvec", "lift"):
             y = fused_dpp_apply(z1, z2, *S, mode=mode)
+            ys = fused_dpp_apply_stacked(z, *S, mode=mode)
             yp = fused_dpp_apply_plain(z1, z2, *S, mode=mode)
             torch.cuda.synchronize()
             err = max(rel(a, b) for a, b in zip(y, yp))
-            print(f"K1 {tag} {mode}: max rel diff vs twin {err:.3e} (bound {tol:g})")
+            print(f"K1 {tag} {mode}: max rel diff vs twin {err:.3e} (bound {tol:g}), "
+                  f"max abs diff {max(float((a - b).abs().max()) for a, b in zip(y, yp)):.3e}")
             check(err <= tol, f"K1 {tag} {mode}")
+            check(torch.equal(ys, torch.stack(y)), f"K1 {tag} {mode}: the stacked entry is the pair entry")
         if tag in ("hex64", "hex128"):
             k1_inputs = (W, S, z1, z2)
-            y = fused_dpp_apply(z1, z2, *S)
+            y = fused_dpp_apply_stacked(z, *S)
             yp = fused_dpp_apply_plain(z1, z2, *S)
             n = W.mesh.num_vertices
             results[f"fused_dpp_apply@{tag}"] = dict(
                 max_abs_err=max(float((a - b).abs().max()) for a, b in zip(y, yp)),
-                ms=time_ms(lambda: fused_dpp_apply(z1, z2, *S), repeats=50),
+                ms=queued_ms(lambda: fused_dpp_apply_stacked(z, *S)),
                 plain_ms=time_ms(lambda: fused_dpp_apply_plain(z1, z2, *S), repeats=50),
                 bound=bound(4 * 8 * n, matvec_flops(W.mesh, params)),
                 shape=f"{tag} f64 matvec",
@@ -429,26 +505,36 @@ def main() -> int:
     check(conv_err <= 1e-12, "conv3d computes K1's interior rows")
     results["fused_dpp_apply"] = dict(
         results["fused_dpp_apply@hex128"],
-        library_ms=time_ms(lambda: F.conv3d(zin, wt, padding=1), repeats=50),
+        library_ms=queued_ms(lambda: F.conv3d(zin, wt, padding=1), calls=10),
     )
-    # K1 at the shape the host GMRES loop gives it (2D N=128 beyond the fused
-    # envelope: one f64 matvec of 2 x 129^2 values an iteration)
+    # K1 at 2D N=128 (one f64 matvec of 2 x 129^2 values: the shape the host
+    # loops gave it there): its device time, and the host wall of one
+    # op.stacked_matvec() call, 1000 back to back and one synchronise
     Wq = problem("quad", 128, dev)[0]
+    opq = DPPOperator(Wq, params)
     S = dpp_stencils(Wq.mesh, params)
-    z1, z2 = randn(Wq.mesh.node_shape), randn(Wq.mesh.node_shape)
-    y, yp = fused_dpp_apply(z1, z2, *S), fused_dpp_apply_plain(z1, z2, *S)
+    zq = torch.stack([randn(Wq.mesh.node_shape), randn(Wq.mesh.node_shape)])
+    mv = opq.stacked_matvec()
+    y, yp = mv(zq), fused_dpp_apply_plain(zq[0], zq[1], *S)
     err = max(rel(a, b) for a, b in zip(y, yp))
     check(err <= 1e-13, "K1 quad128 matvec")
-    key = "fused_dpp_apply@quad128, the host loop's matvec"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        mv(zq)
+    torch.cuda.synchronize()
+    host_ms = time.perf_counter() - t0  # ms a call: seconds over 1000
+    key = "fused_dpp_apply@quad128"
     results[key] = dict(
         max_abs_err=max(float((a - b).abs().max()) for a, b in zip(y, yp)),
-        ms=time_ms(lambda: fused_dpp_apply(z1, z2, *S), repeats=50),
-        plain_ms=time_ms(lambda: fused_dpp_apply_plain(z1, z2, *S), repeats=50),
+        ms=queued_ms(lambda: mv(zq)),
+        plain_ms=time_ms(lambda: fused_dpp_apply_plain(zq[0], zq[1], *S), repeats=50),
         bound=bound(4 * 8 * Wq.mesh.num_vertices, matvec_flops(Wq.mesh, params)),
         shape="quad 129^2 f64 matvec",
     )
-    print(f"K1 quad128 matvec (the host loop's shape): max rel diff vs twin {err:.3e}, "
-          f"{results[key]['ms']:.4f} ms (bound {results[key]['bound'][0]:.6f} ms)")
+    print(f"K1 quad128 matvec: max rel diff vs twin {err:.3e}, device {results[key]['ms']:.4f} ms "
+          f"(bound {results[key]['bound'][0]:.6f} ms), op.stacked_matvec() host wall {host_ms:.4f} ms a call "
+          f"(1000 calls, one synchronise)")
 
     for n in (4, 16):
         W, params, bcs, _, _ = problem("quad", n, dev)
@@ -474,6 +560,7 @@ def main() -> int:
                     (refine + 1) * solve32,
                 ),
                 shape="quad 16^2",
+                library_ms=library_solve(op, b, x, "K2 quad N=16"),
             )
 
     W, params, bcs, _, _ = problem("tet", 4, dev)
@@ -493,72 +580,105 @@ def main() -> int:
         plain_ms=time_ms(lambda: k3.plain(b)),
         bound=bound(4 * 8 * n, (its + 1) * pcg_step),
         shape=f"tet 4^3, {its} PCG iterations",
+        library_ms=library_solve(op, b, x, "K3 tet nx=4"),
     )
     torch.cuda.synchronize()
 
     # the fused GMRES roles against their twin (on the card), on the
     # solver's own right-hand sides; the twin is timed in its check run
     gmres_kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
-    role_cases = [  # element, N, pc, role (None: the pc's), bound on the rel diff, kernel repeats
-        ("quad", 8, "none", "fused_gmres_ef64", 0.0, 5),
-        ("quad", 16, "none", None, 0.0, 5),
-        ("quad", 64, "none", None, 0.0, 3),
-        ("quad", 64, "jacobi", None, 0.0, 3),
-        ("tet", 16, "none", None, 0.0, 3),
-        ("quad", 64, "ilu", None, 0.0, 3),
-        ("quad", 64, "fieldsplit_lu", None, 1e-10, 3),
-        ("tet", 8, "fieldsplit_lu", None, 1e-10, 3),
-        ("quad", 16, "fieldsplit_ilu", None, 1e-12, 3),
-        ("quad", 64, "fieldsplit_ilu", None, 0.0, 3),
+    role_cases = [  # element, N, pc, role (None: the pc's), bound on the rel diff, kernel repeats,
+        # the host loop's preset where the TPU's gate sent the case there (None: no host-loop run),
+        # max_it of the twin's comparison where the whole twin would take long (None: the whole solve)
+        ("quad", 8, "none", "fused_gmres_ef64", 0.0, 5, None, None),
+        ("quad", 16, "none", None, 0.0, 5, None, None),
+        ("quad", 64, "none", None, 0.0, 3, None, None),
+        ("quad", 64, "jacobi", None, 0.0, 3, None, None),
+        ("tet", 16, "none", None, 0.0, 3, None, None),
+        ("quad", 64, "ilu", None, 0.0, 3, None, None),
+        ("quad", 64, "fieldsplit_lu", None, 1e-10, 3, None, None),
+        ("tet", 8, "fieldsplit_lu", None, 1e-10, 3, None, None),
+        ("quad", 16, "fieldsplit_ilu", None, 1e-12, 3, None, None),
+        ("quad", 64, "fieldsplit_ilu", None, 0.0, 3, None, None),
+        # the published sizes the TPU's gate leaves to the host loop (8, 8,
+        # 32 and 8 leaves a thread in 2D); the host loop timed beside each
+        ("quad", 128, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),
+        ("quad", 128, "ilu", None, 0.0, 3, "GMRES_ILU_PARAMS", None),
+        ("quad", 256, "ilu", None, 0.0, 3, "GMRES_ILU_PARAMS", 20),
+        ("quad", 128, "fieldsplit_ilu", None, 0.0, 3, "SS-GMRES+ILU", 2),
+        ("tet", 32, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),  # 16 leaves
+        ("tet", 40, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),  # 32 leaves
     ]
-    for element, n, pc, role, tol, reps in role_cases:
+    for element, n, pc, role, tol, reps, host_preset, twin_its in role_cases:
         W, params, bcs, _, _ = problem(element, n, dev)
         op = DPPOperator(W, params)
         r = newton_rhs(op, bcs)
         solver = FusedGMRESSolver(op, pc, role, **gmres_kw)
         got = solver.launch(r)
         torch.cuda.synchronize()
-        ref, plain_ms = timed_once(lambda: solver.plain(r))
-        abs_err = float((got.x - ref.x).abs().max())
+        # the twin on the whole solve, or where that takes long on the first
+        # twin_its steps (the whole solve's count is held on the paths below)
+        cmp = solver if twin_its is None else FusedGMRESSolver(op, pc, role, **{**gmres_kw, "max_it": twin_its})
+        mine = got if twin_its is None else cmp.launch(r)
+        torch.cuda.synchronize()
+        ref, plain_ms = timed_once(lambda: cmp.plain(r))
+        abs_err = float((mine.x - ref.x).abs().max())
         err = abs_err / float(ref.x.abs().max())
         tag = f"{element} N={n} pc {pc}"
-        print(f"{solver.role} {tag}: iterations {got.iterations} vs twin {ref.iterations}, "
-              f"max rel diff vs twin {err:.3e} (bound {tol:g}), max abs diff {abs_err:.3e}"
-              + (f", twin inner PCG {solver.inner_iterations} iterations in {solver.inner_solves} solves"
-                 if solver.inner_solves else ""))
-        check(got.iterations == ref.iterations and got.converged == ref.converged, f"{solver.role} {tag} count")
+        print(f"{solver.role} {tag}: iterations {mine.iterations} vs twin {ref.iterations}"
+              + (f" (max_it {twin_its}; the whole solve {got.iterations})" if twin_its else "")
+              + f", max rel diff vs twin {err:.3e} (bound {tol:g}), max abs diff {abs_err:.3e}"
+              + (f", twin inner PCG {cmp.inner_iterations} iterations in {cmp.inner_solves} solves"
+                 if cmp.inner_solves else ""))
+        check(mine.iterations == ref.iterations and mine.converged == ref.converged, f"{solver.role} {tag} count")
         check(err <= tol, f"{solver.role} {tag} vs twin")
         geo = solver.last_geometry
         blocks = geo.blocks
         check(blocks > 1 or r.numel() <= 512, f"{solver.role} {tag} spreads over more than one block")
         ms = time_ms(lambda: solver.launch(r), repeats=reps, warmup=1)
-        print(f"  {solver.role} {tag}: {blocks} blocks, basis slice in shared memory: {geo.basis_smem}, "
+        print(f"  {solver.role} {tag}: {blocks} blocks, {launch_geometry(r.numel()).leaves} leaves a thread, "
+              f"{got.iterations} iterations, basis slice in shared memory: {geo.basis_smem}, "
               f"ILU z in shared memory: {geo.ilu_z_smem}, matvec input in shared memory: {geo.input_smem}, "
               f"inner p in shared memory: {geo.p_smem}, "
               f"eigenbases in shared memory: {geo.s_smem}, {ms:.4f} ms, "
               f"{ms * 1e3 / max(got.iterations, 1):.3f} us/iteration")
-        if solver.inner_solves:
-            inner_its, inner_solves = solver.launch_inner
-            twin = (solver.inner_iterations, solver.inner_solves)
+        if cmp.inner_solves:
+            twin = (cmp.inner_iterations, cmp.inner_solves)
             # krylov.gmres applies P(b - A x0) twice (the first norm, then the
             # first cycle); the kernel once: its counts lack one application's
-            solver.inner_iterations = solver.inner_solves = 0
-            solver.plain_pc()(r)
-            once = (twin[0] - solver.inner_iterations, twin[1] - solver.inner_solves)
-            solver.inner_iterations, solver.inner_solves = twin
+            cmp.inner_iterations = cmp.inner_solves = 0
+            cmp.plain_pc()(r)
+            once = (twin[0] - cmp.inner_iterations, twin[1] - cmp.inner_solves)
+            inner_its, inner_solves = solver.launch_inner
             line = (f"  {solver.role} {tag}: kernel inner PCG {inner_its} iterations in {inner_solves} solves "
-                    f"(twin {twin[0]} in {twin[1]}, {once[0]} in {once[1]} "
-                    f"without its repeated first application), {ms * 1e3 / max(inner_its, 1):.3f} us per inner iteration")
-            if solver.field_ilu is not None:
+                    f"(compared run: kernel {cmp.launch_inner[0]} in {cmp.launch_inner[1]}, twin {twin[0]} in "
+                    f"{twin[1]}, {once[0]} in {once[1]} without its repeated first application), "
+                    f"{ms * 1e3 / max(inner_its, 1):.3f} us per inner iteration")
+            if cmp.field_ilu is not None:
                 # bit for bit, so the same inner work; the whole kernel's time over every level swept
-                check((inner_its, inner_solves) == once, f"{solver.role} {tag} inner counts")
+                check(cmp.launch_inner == once, f"{solver.role} {tag} inner counts")
                 levels = 2 * solver.field_ilu[0].num_levels * (inner_its + inner_solves)
                 line += f", {ms * 1e3 / levels:.4f} us per sweep level ({levels} levels)"
             print(line)
+        if host_preset is not None:
+            # the same solve on the host loop, as solve_dpp ran it where the
+            # TPU's gate sent it: krylov.gmres, the K1 matvec, the preset's
+            # preconditioner
+            flat = dict(_freeze(PRESETS[host_preset]))
+            mv, pc_host = op.stacked_matvec(), _monolithic_pc(op, flat)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = gmres(mv, r, M_inv=pc_host, restart=int(flat.get("ksp_gmres_restart", 30)), **gmres_kw)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            print(f"  host loop {host_preset} {tag}: {host.iterations} iterations, {host_ms:.2f} ms "
+                  f"({host_ms * 1e3 / max(host.iterations, 1):.2f} us/iteration; host clock), "
+                  f"fused {ms:.4f} ms: {host_ms / ms:.1f}x")
         results[f"{solver.role}@{tag}"] = dict(
             max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound=bound(*fused_gmres_work(solver, op, got.iterations)),
-            shape=f"{tag}, {got.iterations} iterations, {blocks} blocks",
+            shape=f"{tag}, {got.iterations} iterations, {blocks} blocks"
+            + (f"; twin on the first {twin_its}" if twin_its else ""),
         )
     results["fused_gmres_ef64"] = results["fused_gmres_ef64@quad N=8 pc none"]
     results["fused_gmres_df"] = results["fused_gmres_df@quad N=64 pc none"]
@@ -615,8 +735,11 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels checked against their twins")
 
     # -- 4. the direct path, counted --------------------------------------
+    # tet nx=16 and 32 lie beyond K3's envelope: cg with the lumped
+    # fast-diag preconditioner and one K1 matvec an iteration
     cases = [("quad", 4, "LINEAR_SOLVER_PARAMS"), ("quad", 16, "LINEAR_SOLVER_PARAMS"),
-             ("tet", 4, "LINEAR_SOLVER_PARAMS"), ("hex", 64, "TPU_DIRECT_PARAMS"),
+             ("tet", 4, "LINEAR_SOLVER_PARAMS"), ("tet", 16, "LINEAR_SOLVER_PARAMS"),
+             ("tet", 32, "LINEAR_SOLVER_PARAMS"), ("hex", 64, "TPU_DIRECT_PARAMS"),
              ("hex", 128, "TPU_DIRECT_PARAMS")]
     setups, sols, per_case, _, launches = drive(cases)
     print(f"direct-path kernel launches, all cases: {launches}")
@@ -638,7 +761,8 @@ def main() -> int:
         rres = math.sqrt(float(((b1 - y1) ** 2).sum() + ((b2 - y2) ** 2).sum())) / math.sqrt(
             float((b1 ** 2).sum() + (b2 ** 2).sum())
         )
-        line = f"solve_dpp {element} N={n} {preset}: launches {counts}, f64 rel residual {rres:.3e}"
+        line = (f"solve_dpp {element} N={n} {preset}: launches {counts} "
+                f"(K1: {counts.get('fused_dpp_apply', 0)} a solve), f64 rel residual {rres:.3e}")
         check(rres < 1e-10, f"{element} N={n} residual")
         if n <= 16:
             p1h, p2h = sol.solution.split()
@@ -683,8 +807,9 @@ def main() -> int:
             rres = math.sqrt(float(((b1 - y1) ** 2).sum() + ((b2 - y2) ** 2).sum())) / r0
             # preconditioned presets stop on the preconditioned norm
             bound_r = 1e-7 if preset == "PLAIN_GMRES_PARAMS" else 1e-5
-            line = (f"solve_dpp {element} N={n} {preset}: iterations {its} (expected {count}"
-                    f"{f' +-{slack}' if slack else ''}), launches {counts}, wall {wall * 1e3:.2f} ms "
+            expected = "no published count" if count is None else f"expected {count}" + (f" +-{slack}" if slack else "")
+            line = (f"solve_dpp {element} N={n} {preset}: iterations {its} ({expected}), "
+                    f"launches {counts}, wall {wall * 1e3:.2f} ms "
                     f"({wall * 1e6 / max(its, 1):.2f} us/iteration), |b - A x| / |r0| {rres:.3e}")
             if preset not in ("PLAIN_GMRES_PARAMS", "GMRES_JACOBI_PARAMS"):
                 # the wall above includes the host set-up (ILU factor,
@@ -695,7 +820,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 solve = time.perf_counter() - t0
                 line += f", cached solve {solve * 1e3:.2f} ms ({solve * 1e6 / max(its, 1):.2f} us/iteration)"
-            check(abs(its - count) <= slack, f"{element} N={n} {preset} count")
+            check(its < sp.GMRES_PARAMS["ksp_max_it"] if count is None else abs(its - count) <= slack,
+                  f"{element} N={n} {preset} count")
             check(rres < bound_r, f"{element} N={n} {preset} residual")
             if n <= 16:
                 Wc, pc, bcc, _, _ = problem(element, n, "cpu")
@@ -726,8 +852,9 @@ def main() -> int:
     for name, r in results.items():
         if "@" in name or name not in KERNELS:
             print(f"{name.split('@')[0]} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
-                  f"plain twin {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]}) "
-                  f"(CUDA events) on {smi}")
+                  f"plain twin {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})"
+                  + (f", library call {r['library_ms']:.4f} ms" if r.get("library_ms") else "")
+                  + f" (CUDA events) on {smi}")
     print(f"[{time.perf_counter() - t_start:.1f} s] done")
 
     print(json.dumps({"kernels": [

@@ -97,6 +97,14 @@ constexpr int kMaxBasis = 32;     // m + 1
 constexpr int kMaxLogS = 5;       // the frame: leaves per thread <= 32
 constexpr int kMaxCluster = 16;   // blocks sharing one vector
 constexpr int kXchgDoubles = 2 * kMaxBasis * 4 * kMaxCluster;  // two reduction exchange regions
+// The dynamic shared memory every launch plans with, on every role: the
+// block's 227 KB (kMaxSmemPerBlock) less the kernel's static shared memory
+// (the reductions' partials, R, the Givens state and the tables: under
+// 28 KB on each role, its profile units' counters included). The host's gate
+// (ops/fused_gmres.py, which reads this line) and the launcher plan with
+// this one number, so a mesh the gate admits is one the launcher places; a
+// kernel whose static shared memory leaves less refuses to launch.
+constexpr int kGmresSmemBudget = 204544;
 
 enum PcKind {
   kPcNone = 0,
@@ -166,7 +174,7 @@ struct GmresGeom {
   int pc_bytes;     // the region of the matvec's input copy, which the inner PCG reuses while the preconditioner runs
   int p_smem;       // 1: each block copies p to shared memory for the field matvec
   int s_smem;       // 1 (K6): each block copies the eigenbases to shared memory for a transform
-  int budget;       // the dynamic shared memory the launch could have had
+  int budget;       // the dynamic shared memory the plan could use: kGmresSmemBudget
   int bytes;        // dynamic shared memory in all
 };
 

@@ -980,11 +980,12 @@ cudaError_t launch_fused_gmres_dim(const GmresArgs& a, cudaStream_t st) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, kern);
   if (err != cudaSuccess) return err;
-  const long budget = kMaxSmemPerBlock - (long)fa.sharedSizeBytes;
+  // the plan's budget is the gate's; a kernel that leaves less refuses
+  if (kMaxSmemPerBlock - (long)fa.sharedSizeBytes < kGmresSmemBudget) return cudaErrorLaunchOutOfResources;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   GmresGeom geo;
-  if (!plan_geometry<PC>(a, budget, geo)) return cudaErrorInvalidValue;
+  if (!plan_geometry<PC>(a, kGmresSmemBudget, geo)) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
   if (err != cudaSuccess) return err;
   // one cluster of geo.nb blocks; a card that cannot place it refuses the launch

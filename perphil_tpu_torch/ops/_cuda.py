@@ -20,6 +20,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -47,9 +48,10 @@ _F = ctypes.c_float
 # argtypes of every launcher (pointers and the stream as c_void_p, so no
 # pointer is cut to 32 bits)
 _SIGNATURES = {
-    # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode, stream
-    "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode,
+    # z planes a block walks (0: the launcher's choice), stream
+    "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # b, x, r, work, Sx, Sy, Sz, a11, a22, det, a12, weights, nz, ny, nx, dim,
     # refinements, stream
     "perphil_fused_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
@@ -71,6 +73,15 @@ _SIGNATURES = {
 _LIB = None
 _BUILD_ERROR: Optional[RuntimeError] = None  # a failed build is not retried
 BUILD_INFO: Dict[str, object] = {}
+
+
+def header_constant(header: str, name: str) -> int:
+    """The integer of ``constexpr int <name> = <value>;`` in
+    ``csrc/<header>``: a number the host's plans share with the kernels."""
+    found = re.search(rf"constexpr\s+int\s+{name}\s*=\s*(\d+)\s*;", (CSRC / header).read_text())
+    if found is None:
+        raise RuntimeError(f"no constexpr int {name} in {header}")
+    return int(found.group(1))
 
 
 def _sources():
@@ -160,8 +171,11 @@ def launch(kernel: str, symbol: str, device: torch.device, *args) -> None:
     """Call launcher ``symbol`` on ``device``'s current stream, check its
     error code and count one launch of ``kernel``."""
     fn = getattr(library(), symbol)
-    with torch.cuda.device(device):
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     check(err, symbol)
     KERNEL_LAUNCHES[kernel] += 1
 

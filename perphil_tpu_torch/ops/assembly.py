@@ -22,7 +22,7 @@ from perphil_tpu_torch.config import default_dtype
 from perphil_tpu_torch.forms.spaces import Expr, FunctionSpace, MixedFunctionSpace, _evaluate
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_stacked, pack_weights
 from perphil_tpu_torch.ops.stencil import apply_stencil, compile_stencils
 
 
@@ -89,6 +89,15 @@ def dpp_stencils(
     return S1, S2, C
 
 
+@lru_cache(maxsize=None)
+def dpp_weights(mesh: StructuredMesh, params: DPPParameters) -> np.ndarray:
+    """K1's host weight block of :func:`dpp_stencils`, packed once per
+    stencil set (read-only)."""
+    w = pack_weights(*dpp_stencils(mesh, params))
+    w.flags.writeable = False
+    return w
+
+
 @dataclass(frozen=True)
 class DPPOperator:
     """The BC-eliminated monolithic DPP operator:
@@ -127,9 +136,13 @@ class DPPOperator:
         dev = self.W.device
         return torch.as_tensor(bdry, device=dev), torch.as_tensor(interior, device=dev)
 
+    @property
+    def _packed(self) -> np.ndarray:
+        return dpp_weights(self.mesh, self.params)
+
     def matvec(self, z1: torch.Tensor, z2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Apply the BC-eliminated operator to grid-shaped fields (K1)."""
-        return fused_dpp_apply(z1, z2, *self._combined_stencils, mode="matvec")
+        return fused_dpp_apply(z1, z2, *self._combined_stencils, mode="matvec", packed=self._packed)
 
     def residual(
         self, z1: torch.Tensor, z2: torch.Tensor, b1: torch.Tensor, b2: torch.Tensor
@@ -142,25 +155,20 @@ class DPPOperator:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """RHS of the BC-eliminated system for zero forcing (K1): interior
         rows get ``-A[interior, boundary] g``, boundary rows get ``g``."""
-        return fused_dpp_apply(g1, g2, *self._combined_stencils, mode="lift")
+        return fused_dpp_apply(g1, g2, *self._combined_stencils, mode="lift", packed=self._packed)
 
     def flat_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        shape = self.grid_shape
-        n = int(np.prod(shape))
-
-        def mv(x: torch.Tensor) -> torch.Tensor:
-            y1, y2 = self.matvec(x[:n].reshape(shape), x[n:].reshape(shape))
-            return torch.cat([y1.reshape(-1), y2.reshape(-1)])
-
-        return mv
+        """Operator on the flat field-major vector ``(2 n,)`` (K1 on a view
+        of it, no concatenation)."""
+        shape = (2,) + tuple(self.grid_shape)
+        mv = self.stacked_matvec()
+        return lambda x: mv(x.reshape(shape)).reshape(-1)
 
     def stacked_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        """Operator on stacked fields ``(2, *node_shape)``."""
-
-        def mv(x: torch.Tensor) -> torch.Tensor:
-            return torch.stack(self.matvec(x[0], x[1]))
-
-        return mv
+        """Operator on stacked fields ``(2, *node_shape)`` (K1 on the stacked
+        tensor, no stack)."""
+        S, packed = self._combined_stencils, self._packed
+        return lambda x: fused_dpp_apply_stacked(x, *S, mode="matvec", packed=packed)
 
     def diagonal(self) -> torch.Tensor:
         """Flat diagonal of the BC-eliminated operator (field-major)."""

@@ -13,15 +13,16 @@ f32 and f64 and folds the masking in, in one of two modes:
   - ``"lift"``: ``DPPOperator.lifted_rhs`` — boundary-only input,
     ``-A[int, bd] g`` on the interior and ``g`` on the boundary.
 
-On a CUDA tensor :func:`fused_dpp_apply` launches the kernel in
-``csrc/dpp_apply.cu``; on a CPU tensor it runs the plain twin
+On a CUDA tensor :func:`fused_dpp_apply` (two grids) and
+:func:`fused_dpp_apply_stacked` (one ``(2, *grid)`` tensor) launch the kernel
+in ``csrc/dpp_apply.cu``; on a CPU tensor they run the plain twin
 :func:`fused_dpp_apply_plain`.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,34 +69,64 @@ def fused_dpp_apply_plain(
     return torch.where(bdry, z1, y1), torch.where(bdry, z2, y2)
 
 
+def _check(z: torch.Tensor, grids: int) -> None:
+    if z.dim() - grids not in (2, 3) or (grids and z.shape[0] != 2):
+        raise ValueError(f"need {'a stacked (2, *grid)' if grids else 'a'} 2D/3D grid, got {tuple(z.shape)}")
+    if z.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fused_dpp_apply takes float32/float64, got {z.dtype}")
+    if z.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_dpp_apply runs on cpu or cuda, got {z.device}")
+
+
+def _launch(z: torch.Tensor, ptrs: Tuple[int, int, int, int], grid: Tuple[int, ...], weights, mode: str):
+    """Launch K1 on ``grid`` (2D or 3D) with the fields at ``ptrs`` (z1, z2
+    in; y1, y2 out), of z's dtype and device."""
+    nz, ny, nx = (1,) * (3 - len(grid)) + tuple(grid)
+    symbol = "perphil_dpp_apply_f64" if z.dtype == torch.float64 else "perphil_dpp_apply_f32"
+    _cuda.launch(KERNEL, symbol, z.device, *ptrs, weights.ctypes.data, nz, ny, nx, len(grid), MODES[mode], 0)
+
+
 def fused_dpp_apply(
-    z1: torch.Tensor, z2: torch.Tensor, S1, S2, C, mode: str = "matvec"
+    z1: torch.Tensor, z2: torch.Tensor, S1, S2, C, mode: str = "matvec", packed: Optional[np.ndarray] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the BC-eliminated two-field operator (``mode="matvec"``) or
     lift boundary data (``mode="lift"``) on 2D/3D f32 or f64 node grids.
 
     :param S1, S2, C: ``(3,)*d`` host stencils (numpy), passed to the kernel
         by value.
+    :param packed: their :func:`pack_weights` block, where the caller keeps
+        one (packed on each call otherwise).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
-    if z1.shape != z2.shape or z1.dim() not in (2, 3):
+    if z1.shape != z2.shape:
         raise ValueError(f"need two equal 2D/3D grids, got {tuple(z1.shape)}, {tuple(z2.shape)}")
-    if z1.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_dpp_apply takes float32/float64, got {z1.dtype}")
+    _check(z1, 0)
     if z1.device.type == "cpu":
         return fused_dpp_apply_plain(z1, z2, S1, S2, C, mode)
-    if z1.device.type != "cuda":
-        raise ValueError(f"fused_dpp_apply runs on cpu or cuda, got {z1.device}")
     for name, t in (("z1", z1), ("z2", z2)):
         _cuda.require_cuda_tensor(t, name, z1.dtype, z1.device)
     y1 = torch.empty_like(z1)
     y2 = torch.empty_like(z2)
-    nz, ny, nx = (1,) * (3 - z1.dim()) + tuple(z1.shape)
-    w = pack_weights(S1, S2, C)
-    symbol = "perphil_dpp_apply_f64" if z1.dtype == torch.float64 else "perphil_dpp_apply_f32"
-    _cuda.launch(
-        KERNEL, symbol, z1.device, z1.data_ptr(), z2.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-        w.ctypes.data, nz, ny, nx, z1.dim(), MODES[mode],
-    )
+    ptrs = (z1.data_ptr(), z2.data_ptr(), y1.data_ptr(), y2.data_ptr())
+    _launch(z1, ptrs, z1.shape, pack_weights(S1, S2, C) if packed is None else packed, mode)
     return y1, y2
+
+
+def fused_dpp_apply_stacked(
+    z: torch.Tensor, S1, S2, C, mode: str = "matvec", packed: Optional[np.ndarray] = None
+) -> torch.Tensor:
+    """:func:`fused_dpp_apply` on the two fields stacked in one
+    ``(2, *grid)`` tensor, into one such tensor: no stack or concatenation
+    around the kernel."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    _check(z, 1)
+    if z.device.type == "cpu":
+        return torch.stack(fused_dpp_apply_plain(z[0], z[1], S1, S2, C, mode))
+    _cuda.require_cuda_tensor(z, "z", z.dtype, z.device)
+    y = torch.empty_like(z)
+    half = z.numel() // 2 * z.element_size()  # the second field's offset, in bytes
+    ptrs = (z.data_ptr(), z.data_ptr() + half, y.data_ptr(), y.data_ptr() + half)
+    _launch(z, ptrs, z.shape[1:], pack_weights(S1, S2, C) if packed is None else packed, mode)
+    return y

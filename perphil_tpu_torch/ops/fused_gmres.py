@@ -31,13 +31,17 @@ spread over the blocks. It stands in for the presets' inner ``preonly`` +
 LU (K6) and GMRES + ILU (K8) at matched tolerances; the outer count is 4
 either way.
 
-The envelope restates the JAX gate (``pallas_gmres.py:1155-1196``) on node
-counts: the TPU's packed layout puts a row of ``cols + 2`` nodes in 128
-lanes, stacks the two fields (for pc none/jacobi it may lane-pack
-``128 // (cols + 2)`` planes of a 3D grid side by side, or put the two
-fields of a narrow 2D grid side by side) and pads the row count to a power
-of two ``Rp``; the double-float basis (2 x 32 planes of ``Rp x 128`` f32)
-and, for ILU, the factor planes must fit a 20 MiB VMEM budget.
+The envelope is what the launcher can place (``plan_geometry`` in
+``csrc/fused_gmres_kernel.cuh``), mirrored on the host by
+:func:`fused_gmres_plan`: at most 32 leaves a thread on a cluster of 16
+blocks of 512 threads (262,144 values, :func:`launch_geometry`), and for the
+fieldsplit roles their slices and K6's line buffers within the dynamic
+shared memory every launch plans with (:data:`SMEM_BUDGET`, the header's
+``kGmresSmemBudget``: the H100's 227 KB a block less the kernel's static
+shared memory). The basis, the matvec's input copy and the ILU sweep's z go
+to device memory where shared memory is short, so they bound nothing. The
+routing is decided once, on the host, by this gate; a launch the launcher
+refuses raises.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, coupling_
 from perphil_tpu_torch.ops.direct import FastDiagFieldSolver
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain, pack_weights
 from perphil_tpu_torch.ops.fused_direct import _check_device, _grid_args
-from perphil_tpu_torch.ops.ilu import IluPlan, StructuredILU0, build_field_system, ilu_plan
+from perphil_tpu_torch.ops.ilu import IluPlan, StructuredILU0, build_field_system, ilu_plan, schedule_shape
 from perphil_tpu_torch.ops.krylov import DEFAULT_DTOL, KrylovResult, gmres, tree_sum
 from perphil_tpu_torch.ops.stencil import compile_stencils
 
@@ -74,8 +78,9 @@ MAX_RESTART = 31
 #: systems the K5 role serves (pc none): at most this many DoF
 EF64_MAX_DOF = 512
 
-_LANES = 128
-_VMEM_BUDGET = 20 * 1024 * 1024
+#: dynamic shared memory every launch plans with, in bytes (the launcher's
+#: ``kGmresSmemBudget``, read from its header)
+SMEM_BUDGET = _cuda.header_constant("fused_gmres.cuh", "kGmresSmemBudget")
 _WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
 _XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
 _THREADS = 512  # threads of a block
@@ -200,33 +205,29 @@ def plan_smem(
                     used + (restart + 1) * 8 * _slice_len(L, blocks) * basis)
 
 
-def _within_envelope(node_shape: Tuple[int, ...], pc_type: str) -> bool:
-    if len(node_shape) == 2:
-        planes, (rows, cols) = 1, node_shape
-    elif len(node_shape) == 3:
-        planes, rows, cols = node_shape
-    else:
-        return False
-    if cols + 2 > _LANES:
-        return False
-    lane_packed = pc_type in ("none", "jacobi")
-    group = max(1, min(planes, _LANES // (cols + 2))) if lane_packed and len(node_shape) == 3 else 1
-    nblocks = -(-planes // group)
-    field_lanes = (
-        lane_packed and len(node_shape) == 2
-        and 2 * (cols + 2) <= _LANES and _next_pow2(2 * (rows + 2)) >= 128
-    )
-    Rp = _next_pow2((1 if field_lanes else 2) * nblocks * (rows + 2))
-    vbytes = 2 * 32 * Rp * _LANES * 4  # the hi+lo basis
-    if pc_type in ("ilu", "fieldsplit_ilu"):
-        # factor planes: 3 block shifts of 3^d offsets (monolithic), 3^d per field
-        vbytes += 3 ** len(node_shape) * (3 if pc_type == "ilu" else 1) * Rp * _LANES * 4
-    return vbytes <= _VMEM_BUDGET
+def fused_gmres_plan(node_shape: Tuple[int, ...], pc_type: str, restart: int = 30) -> Optional[SmemPlan]:
+    """The launcher's plan for ``pc_type`` on a grid of ``node_shape`` nodes
+    (``plan_geometry`` at :data:`SMEM_BUDGET`), or None where the launcher
+    refuses it: more than :data:`MAX_LEAVES` leaves a thread, or the
+    fieldsplit roles' slices and K6's line buffers beyond the budget. The ILU
+    roles' schedule comes from the shape (:func:`ilu.schedule_shape`), with
+    the offset counts each role's sweeps are built for."""
+    if pc_type not in PC_KINDS or len(node_shape) not in (2, 3):
+        return None
+    try:
+        launch_geometry(2 * int(np.prod(node_shape)))
+        ilu_shape = None
+        if pc_type in ("ilu", "fieldsplit_ilu"):
+            ilu_shape = schedule_shape(node_shape, 2 if pc_type == "ilu" else 1)
+        return plan_smem(node_shape, pc_type, SMEM_BUDGET, restart, ilu_shape)
+    except ValueError:
+        return None
 
 
-def fused_gmres_supported(op: DPPOperator, pc_type: str = "none") -> bool:
-    """Whether the fused kernel covers this operator and preconditioner."""
-    return pc_type in PC_KINDS and _within_envelope(tuple(op.mesh.node_shape), pc_type)
+def fused_gmres_supported(op: DPPOperator, pc_type: str = "none", restart: int = 30) -> bool:
+    """Whether the fused kernel covers this operator and preconditioner: the
+    launcher can place it (:func:`fused_gmres_plan`)."""
+    return fused_gmres_plan(tuple(op.mesh.node_shape), pc_type, restart) is not None
 
 
 def _tree_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -263,10 +264,10 @@ class FusedGMRESSolver(nn.Module):
         role = ROLES[pc_type] if role is None else role
         if role != ROLES[pc_type] and not (role == K5 and pc_type == "none"):
             raise ValueError(f"role {role!r} with pc_type={pc_type!r}: K5 runs pc none only")
-        if not fused_gmres_supported(op, pc_type):
-            raise ValueError(f"mesh {op.mesh} with pc_type={pc_type!r} is outside the fused GMRES envelope")
         if not 1 <= restart <= MAX_RESTART:
             raise ValueError(f"restart {restart} outside 1..{MAX_RESTART}")
+        if not fused_gmres_supported(op, pc_type, restart):
+            raise ValueError(f"mesh {op.mesh} with pc_type={pc_type!r} is outside the fused GMRES envelope")
         mesh, p = op.mesh, op.params
         self.node_shape = tuple(mesh.node_shape)
         self.device = op.W.device

@@ -213,6 +213,27 @@ def _build_system(mesh: StructuredMesh, block_stencils, nfields: int) -> Structu
     )
 
 
+def schedule_shape(node_shape: Tuple[int, ...], nfields: int) -> Tuple[int, int, int, int]:
+    """(offsets a side below and above the diagonal, levels, rows of the
+    widest level) of the ILU(0) that :func:`_build_system` lays out for
+    ``nfields`` fields on a grid of ``node_shape`` nodes, from the shape
+    alone: a node's level key is ``x + 2 y (+ 4 z)``, field f's shifted by
+    ``f * shift``; every one of the ``(2 nfields - 1) 3^d`` offsets but the
+    diagonal lies on one side."""
+    d = len(node_shape)
+    counts = np.ones(1, dtype=np.int64)  # nodes of one field per level key
+    for lam, m in zip(_LAMBDA, reversed(node_shape)):  # x first
+        step = np.zeros(lam * (m - 1) + 1, dtype=np.int64)
+        step[::lam] = 1
+        counts = np.convolve(counts, step)
+    shift = sum(_LAMBDA[:d]) + 1
+    keys = np.zeros(counts.size + shift * (nfields - 1), dtype=np.int64)
+    for f in range(nfields):
+        keys[f * shift : f * shift + counts.size] += counts
+    side = ((2 * nfields - 1) * 3**d - 1) // 2
+    return side, side, int(np.count_nonzero(keys)), int(keys.max())
+
+
 def build_monolithic_system(mesh: StructuredMesh, params: DPPParameters) -> StructuredSystem:
     """Field-major 2-field DPP matrix in structured form."""
     K_st, M_st = compile_stencils(mesh)

@@ -282,7 +282,7 @@ def _krylov_kind(op: DPPOperator, flat: Dict[str, object]) -> str:
     ksp = str(flat.get("ksp_type", "gmres"))
     pc = _fused_pc(flat)
     restart = int(flat.get("ksp_gmres_restart", 30))
-    if ksp == "gmres" and restart <= MAX_RESTART and pc is not None and fused_gmres_supported(op, pc):
+    if ksp == "gmres" and restart <= MAX_RESTART and pc is not None and fused_gmres_supported(op, pc, restart):
         return K5 if pc == "none" and op.W.dim() <= EF64_MAX_DOF else ROLES[pc]
     return ksp
 

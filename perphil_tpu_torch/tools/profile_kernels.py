@@ -18,6 +18,21 @@ plain sweep bit for bit, and the cycles one consumer and one producer thread
 spend in each part of a level. ``--only gmres|fieldsplit|ilu`` profiles one
 of the three alone.
 
+``--only k1`` times K1 (``csrc/dpp_apply.cu``) with the package's library
+on f64 matvecs at 64^3, 128^3 (hex) and 2D N=128: the device time (CUDA
+events, launches queued behind a sleep) at the launcher's z chunk and at
+2-32 planes a block, and K1's share of the device time in the 64^3/128^3
+``TPU_DIRECT_PARAMS`` solves (``torch.profiler``) beside their wall time.
+Beside them: f32, and builds of the kernel alone (one ``nvcc`` each,
+``ptxas -v`` printed) with its copies alone and with its sums alone
+(``PERPHIL_K1_PHASE``) and with its tuning knobs set otherwise
+(``PERPHIL_K1_MIN_BLOCKS``, ``PERPHIL_K1_STAGES``, ``PERPHIL_K1_TILE_X``,
+``PERPHIL_K1_ROWS``), each first held to the package's bits.
+``--against DIR`` builds ``DIR``'s ``dpp_apply.cu`` alone (an older checkout
+unpacked under ``_checkout/``) and holds both kernels to each other, bit for
+bit in both modes and precisions, and times them in turns (older, this,
+this, older).
+
 ``--only sweeps`` builds nothing of its own: it times, with the package's
 kernels (CUDA events, median of 5), where the ILU(0) sweep runs: K7 at 2D
 N=16/32/64 and K8 at 2D N=16/64 (the kernel's time over every level it
@@ -30,10 +45,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import re
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -202,10 +221,140 @@ def time_sweeps() -> None:
               f"{ms:.4f} ms, {ms * 1e3 / (2 * pc.num_levels):.4f} us/level; {pc.last_geometry}")
 
 
+def k1_library(root: Path, *flags: str):
+    """``root``'s ``dpp_apply.cu`` built alone (with ``flags``), and its
+    launchers with the argument types its source declares (older ones take
+    no z chunk)."""
+    src = root / "perphil_tpu_torch" / "csrc" / "dpp_apply.cu"
+    out = _cuda.BUILD_DIR / "k1_alone"
+    out.mkdir(parents=True, exist_ok=True)
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    lib = out / f"libdpp_apply_{key}.so"
+    log = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-shared", "-I", str(src.parent), "-o",
+                          str(lib), str(src)], check=True, capture_output=True, text=True)
+    # ptxas -v of the 3D f64 matvec kernel: registers, spills
+    lines = (log.stdout + log.stderr).splitlines()
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and "IdLi3ELi0" in line:
+            print(f"    {root.name} {' '.join(flags)}: " + "; ".join(
+                x.split(":", 1)[-1].strip() for x in lines[k + 1:k + 4] if "spill" in x or "Used" in x))
+    dll = ctypes.CDLL(str(lib))
+    decl = re.search(r"perphil_dpp_apply_f64\((.*?)\)", src.read_text(), re.S).group(1)
+    ints = decl.count("int ")
+    for name in ("perphil_dpp_apply_f64", "perphil_dpp_apply_f32"):
+        getattr(dll, name).argtypes = [_P] * 5 + [ctypes.c_int] * ints + [_P]
+    return dll, ints
+
+
+def time_k1(against: Optional[Path]) -> None:
+    import chip_smoke
+    from perphil_tpu_torch.ops.assembly import dpp_stencils, dpp_weights
+    from perphil_tpu_torch.ops.fused_apply import MODES, fused_dpp_apply_stacked
+    from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _cuda.library()
+    old = None if against is None else k1_library(against)
+    # the kernel with its copies alone and with its sums alone (PERPHIL_K1_PHASE),
+    # and with other tuning knobs
+    here = Path(__file__).resolve().parents[2]
+    phases = {name: k1_library(here, f"-DPERPHIL_K1_PHASE={v}")[0] for name, v in (("copies", 1), ("sums", 2))}
+    knobs = {flags: k1_library(here, *flags)[0] for flags in (
+        (), ("-DPERPHIL_K1_MIN_BLOCKS=1",), ("-DPERPHIL_K1_STAGES=3",), ("-DPERPHIL_K1_TILE_X=32",),
+        ("-DPERPHIL_K1_ROWS=2",), ("-DPERPHIL_K1_ROWS=2", "-DPERPHIL_K1_MIN_BLOCKS=3"),
+        ("-DPERPHIL_K1_ROWS=2", "-DPERPHIL_K1_MIN_BLOCKS=2"), ("-DPERPHIL_K1_ROWS=2", "-DPERPHIL_K1_TILE_X=32"))}
+    gen = torch.Generator().manual_seed(0)
+
+    def call(dll, ints, dtype, z, y, w, shape, mode, chunk=0):
+        nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
+        half = z[0].numel() * z.element_size()
+        sym = "perphil_dpp_apply_f64" if dtype == torch.float64 else "perphil_dpp_apply_f32"
+        args = [z.data_ptr(), z.data_ptr() + half, y.data_ptr(), y.data_ptr() + half, w.ctypes.data,
+                nz, ny, nx, len(shape), MODES[mode]] + ([chunk] if ints == 6 else []) + [stream]
+        err = getattr(dll, sym)(*args)
+        if err:
+            raise RuntimeError(f"{sym}: CUDA error {err}")
+
+    for element, n in (("hex", 64), ("hex", 128), ("quad", 128)):
+        W, params, _, _, _ = chip_smoke.problem(element, n, dev)
+        shape, S, w = W.mesh.node_shape, dpp_stencils(W.mesh, params), dpp_weights(W.mesh, params)
+        z = torch.randn((2,) + tuple(shape), generator=gen, dtype=torch.float64).to(dev)
+        y = torch.empty_like(z)
+        nbytes = 4 * 8 * W.mesh.num_vertices
+        ms = chip_smoke.queued_ms(lambda: fused_dpp_apply_stacked(z, *S, packed=w))
+        line = (f"K1 {element} N={n} f64 matvec: {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                f"bytes bound {nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        line += "; " + ", ".join(
+            f"{name} alone {chip_smoke.queued_ms(lambda: call(d, 6, torch.float64, z, y, w, shape, 'matvec')):.4f}"
+            for name, d in phases.items())
+        # each build of the knobs computes the package's bits
+        for flags, d in knobs.items():
+            for mode in MODES:
+                call(d, 6, torch.float64, z, y, w, shape, mode)
+                if not torch.equal(y, fused_dpp_apply_stacked(z, *S, mode=mode, packed=w)):
+                    raise RuntimeError(f"K1 built with {flags} {mode}: not the package's bits")
+        line += "; " + ", ".join(
+            f"{' '.join(f[2:] for f in flags) or 'as built'} "
+            f"{chip_smoke.queued_ms(lambda: call(d, 6, torch.float64, z, y, w, shape, 'matvec')):.4f}"
+            for flags, d in knobs.items())
+        z32, y32 = z.float(), y.float()
+        line += f"; f32 {chip_smoke.queued_ms(lambda: call(lib, 6, torch.float32, z32, y32, w, shape, 'matvec')):.4f}"
+        if len(shape) == 3:
+            line += "; by z planes a block: " + ", ".join(
+                f"{c}: {chip_smoke.queued_ms(lambda: call(lib, 6, torch.float64, z, y, w, shape, 'matvec', c)):.4f}"
+                for c in (1, 2, 4, 8, 16, 32))
+        print(line)
+        if old is None:
+            continue
+        dll, ints = old
+        for dtype in (torch.float64, torch.float32):
+            zt, yt, ref = z.to(dtype), torch.empty_like(z, dtype=dtype), torch.empty_like(z, dtype=dtype)
+            for mode in MODES:
+                call(lib, 6, dtype, zt, yt, w, shape, mode)
+                call(dll, ints, dtype, zt, ref, w, shape, mode)
+                torch.cuda.synchronize()
+                print(f"    {dtype} {mode}: max abs diff against {against.name}'s kernel "
+                      f"{float((yt - ref).abs().max()):.1e}, bit-equal {torch.equal(yt, ref)}")
+        turns = [("older", dll, ints), ("this", lib, 6), ("this", lib, 6), ("older", dll, ints)]
+        print("    in turns (f64 matvec): " + ", ".join(
+            f"{name} {chip_smoke.queued_ms(lambda: call(d, k, torch.float64, z, y, w, shape, 'matvec')):.4f} ms"
+            for name, d, k in turns))
+
+    presets = chip_smoke.presets()
+    for n in (64, 128):
+        W, params, bcs, _, _ = chip_smoke.problem("hex", n, dev)
+        solver = _build_linear_solver(W, params, _freeze(presets["TPU_DIRECT_PARAMS"]))
+        g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
+        walls = []
+        for _ in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver(g1, g2)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls[1:])
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(5):
+                solver(g1, g2)
+            torch.cuda.synchronize()
+        # the device's own rows (kernels, copies): an operator's row repeats its kernels' time
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        device = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))  # noqa: E731
+        total = sum(device(e) for e in rows)
+        k1 = sum(device(e) for e in rows if "dpp_apply_kernel" in e.key)
+        share = "not measured (no device time in the trace)" if total == 0 else f"{100 * k1 / total:.1f}%"
+        print(f"hex {n}^3 TPU_DIRECT_PARAMS: wall {wall:.4f} ms a solve (host clock, median of 10), "
+              f"device busy {total / 5e3:.4f} ms a solve, K1's share of device time {share} "
+              f"({k1 / 5e3:.4f} ms a solve)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps"],
-                    help="profile one kind of kernel alone, or time the sweeps")
+    ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1"],
+                    help="profile one kind of kernel alone, or time the sweeps or K1")
+    ap.add_argument("--against", type=Path, help="with --only k1: an older checkout's K1 to compare with")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
@@ -215,6 +364,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     if args.only == "sweeps":
         time_sweeps()
+        return 0
+    if args.only == "k1":
+        time_k1(args.against)
         return 0
     dll = build()
     if args.only in (None, "gmres"):

@@ -21,6 +21,7 @@ from perphil_tpu_torch.ops.fused_apply import (
     box_boundary,
     fused_dpp_apply,
     fused_dpp_apply_plain,
+    fused_dpp_apply_stacked,
     pack_weights,
 )
 
@@ -124,6 +125,25 @@ def test_k1_wrapper_on_cpu_is_the_twin_and_checks_inputs():
         fused_dpp_apply(z1, z2[:-1], *S)
     with pytest.raises(TypeError):
         fused_dpp_apply(z1.to(torch.int64), z2.to(torch.int64), *S)
+
+
+@pytest.mark.parametrize("element,cells", CASES, ids=CASE_IDS)
+@pytest.mark.parametrize("mode", ["matvec", "lift"])
+def test_k1_stacked_entry_is_the_pair_path(element, cells, mode):
+    """On CPU tensors the stacked entry is the (z1, z2) twin, stacked, and
+    launches nothing; the operator's stacked and flat views go through it."""
+    op, _, (z1, z2, _, _), _ = _pair(element, cells, seed=5)
+    S = dpp_stencils(op.mesh, op.params)
+    z = torch.stack([torch.as_tensor(z1), torch.as_tensor(z2)])
+    before = dict(_cuda.KERNEL_LAUNCHES)
+    y = fused_dpp_apply_stacked(z, *S, mode=mode, packed=pack_weights(*S))
+    assert torch.equal(y, torch.stack(fused_dpp_apply(z[0], z[1], *S, mode=mode)))
+    if mode == "matvec":
+        assert torch.equal(op.stacked_matvec()(z), y)
+        assert torch.equal(op.flat_matvec()(z.reshape(-1)), y.reshape(-1))
+    assert dict(_cuda.KERNEL_LAUNCHES) == before
+    with pytest.raises(ValueError, match="stacked"):
+        fused_dpp_apply_stacked(z[0], *S, mode=mode)
 
 
 def test_box_boundary_and_weights():

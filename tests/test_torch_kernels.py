@@ -11,9 +11,23 @@ import torch
 from perphil_tpu_torch.interop import from_numpy_state
 from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, dpp_stencils
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_plain
+from perphil_tpu_torch.ops.fused_apply import (
+    fused_dpp_apply,
+    fused_dpp_apply_plain,
+    fused_dpp_apply_stacked,
+    pack_weights,
+)
 from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
-from perphil_tpu_torch.ops.fused_gmres import K4, K5, FusedGMRESSolver, launch_geometry, plan_smem
+from perphil_tpu_torch.ops.fused_gmres import (
+    K4,
+    K5,
+    SMEM_BUDGET,
+    FusedGMRESSolver,
+    fused_gmres_plan,
+    fused_gmres_supported,
+    launch_geometry,
+    plan_smem,
+)
 from perphil_tpu_torch.ops.ilu import StructuredILU0, ilu_plan
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +77,37 @@ def test_k1_matches_twin(cuda, element, cells, dtype, tol, mode):
         assert _rel(a, b) <= tol
 
 
+# node grids that are no multiple of the 16 x 16 tile, the first and last
+# z chunk short, and the largest the main path gives K1 (129^3)
+K1_TILES = [  # element, cells (node grid: each + 1, reversed)
+    ("quad", (2, 2)),  # 3 x 3
+    ("triangle", (6, 4)),  # 5 x 7
+    ("hex", (32, 44, 66)),  # 67 x 45 x 33
+    ("tet", (32, 44, 66)),
+    ("hex", (128, 128, 128)),  # 129^3
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 2e-6)], ids=["f64", "f32"])
+@pytest.mark.parametrize("element,cells", K1_TILES, ids=[f"{e}{'x'.join(map(str, c))}" for e, c in K1_TILES])
+@pytest.mark.parametrize("mode", ["matvec", "lift"])
+def test_k1_tiles_match_twin(cuda, element, cells, dtype, tol, mode):
+    """The tiled kernel on ragged tiles and chunks, in both entries: the
+    stacked one equals the (z1, z2) one bit for bit, one launch each."""
+    state = _state(element, cells, cuda, seed=10)
+    S = dpp_stencils(state.mesh, state.params)
+    z = torch.stack(state.grids).to(dtype)
+    before = _cuda.KERNEL_LAUNCHES["fused_dpp_apply"]
+    y1, y2 = fused_dpp_apply(z[0], z[1], *S, mode=mode)
+    y = fused_dpp_apply_stacked(z, *S, mode=mode, packed=pack_weights(*S))
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply"] == before + 2
+    assert y.shape == z.shape and y.dtype == dtype
+    assert torch.equal(y[0], y1) and torch.equal(y[1], y2)
+    for a, b in zip((y1, y2), fused_dpp_apply_plain(z[0], z[1], *S, mode=mode)):
+        assert _rel(a, b) <= tol
+
+
 def test_k1_rejects_bad_inputs(cuda):
     state = _state("quad", (4, 4), cuda)
     S = dpp_stencils(state.mesh, state.params)
@@ -73,6 +118,13 @@ def test_k1_rejects_bad_inputs(cuda):
         fused_dpp_apply(g1, g2.float(), *S)
     with pytest.raises(ValueError):
         fused_dpp_apply(g1.t(), g2.t(), *S)
+    z = torch.stack(state.grids)
+    with pytest.raises(ValueError):
+        fused_dpp_apply_stacked(z.transpose(1, 2), *S)
+    with pytest.raises(ValueError):
+        fused_dpp_apply_stacked(z[:1], *S)
+    with pytest.raises(TypeError):
+        fused_dpp_apply_stacked(z.to(torch.int64), *S)
 
 
 @pytest.mark.parametrize(
@@ -164,6 +216,50 @@ def test_fused_gmres_every_block_count(cuda, pc, max_it, tol, blocks, cells):
     assert (got.iterations == max_it) == (pc in ("none", "jacobi"))
     assert got.residual_norm == ref.residual_norm or tol > 0.0
     assert _rel(got.x, ref.x) <= tol
+
+
+LEAF_MESHES = [  # leaves a thread on 16 blocks, cells: 2 (nx + 1) (ny + 1) values, no multiple of 512
+    (4, (100, 110)),  # 22,422
+    (8, (150, 160)),  # 48,622
+    (16, (220, 230)),  # 102,102
+    (32, (300, 320)),  # 193,242
+]
+LEAF_PCS = [  # pc, max_it (the twins stay short), bound on the relative difference
+    ("none", 40, 0.0),
+    ("jacobi", 40, 0.0),
+    ("ilu", 10, 0.0),
+    ("fieldsplit_lu", 3, 1e-10),
+    ("fieldsplit_ilu", 1, 0.0),
+]
+# every role the gate admits there (the fieldsplit roles' slices leave out 32 leaves)
+LEAF_CASES = [(pc, it, tol, leaves, cells) for pc, it, tol in LEAF_PCS for leaves, cells in LEAF_MESHES
+              if leaves < 32 or not pc.startswith("fieldsplit")]
+
+
+@pytest.mark.parametrize(
+    "pc,max_it,tol,leaves,cells", LEAF_CASES, ids=[f"{c[0]}-{c[3]}" for c in LEAF_CASES]
+)
+def test_fused_gmres_every_leaf_count(cuda, pc, max_it, tol, leaves, cells):
+    """The 16-block cluster at 4 to 32 leaves a thread (the frame's and the
+    inner PCG's per-leaf loops, the many-leaf tree, the basis in device
+    memory), against the twin, with max_it bounded."""
+    state = _state("quad", cells, cuda, seed=11)
+    op = DPPOperator(state.W, state.params)
+    assert fused_gmres_supported(op, pc)
+    solver = FusedGMRESSolver(op, pc, rtol=1e-12, atol=1e-50, max_it=max_it)
+    b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
+    assert launch_geometry(b.numel()) == (16, leaves)
+    got = solver.launch(b)
+    torch.cuda.synchronize()
+    ref = solver.plain(b)
+    assert solver.last_geometry.blocks == 16
+    assert got.iterations == ref.iterations == max_it
+    assert got.converged == ref.converged
+    assert got.residual_norm == ref.residual_norm or tol > 0.0
+    assert _rel(got.x, ref.x) <= tol
+    plan = fused_gmres_plan(solver.node_shape, pc)
+    geo = solver.last_geometry
+    assert geo.budget == SMEM_BUDGET and (geo.basis_smem, geo.input_smem) == (plan.basis_smem, plan.input_smem)
 
 
 def test_fused_gmres_rejects_bad_inputs(cuda):

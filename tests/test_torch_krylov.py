@@ -7,8 +7,8 @@
   ``fused_gmres_df``) against JAX's ``krylov.gmres_ef64`` / ``krylov.gmres``
   on the same ``b`` and ``x0``;
 - ``krylov.gmres``'s exits, ``preonly`` with a preconditioner, ``cg``;
-- the fused GMRES envelope against the JAX gate, and the route of each
-  preset.
+- the fused GMRES envelope against the launcher's plan (and that it admits
+  all the JAX gate admits), and the route of each preset.
 
 On the CPU every kernel wrapper runs its plain twin; the kernels themselves
 are held to the twins on the card (``tests/test_torch_kernels.py``).
@@ -45,7 +45,10 @@ from perphil_tpu_torch.ops.fused_gmres import (
     fused_gmres_df,
     fused_gmres_ef64,
     fused_gmres_supported,
+    launch_geometry,
+    plan_smem,
 )
+from perphil_tpu_torch.ops.ilu import build_field_system, build_monolithic_system, schedule_shape
 from perphil_tpu_torch.ops.krylov import gmres, gmres_ef64, tree_sum
 from perphil_tpu_torch.solvers import solve_dpp
 from perphil_tpu_torch.solvers.solver import _freeze, _krylov_kind
@@ -246,38 +249,90 @@ def test_other_krylov_paths_match_jax(element, cells, params, count):
         assert abs(sol.residual_error - float(ref.residual_error)) <= 1e-9 * float(ref.residual_error)
 
 
-# the JAX gate's edges: 2D rows of 128 lanes (126^2 nodes in, 127^2 out), 3D
-# lane-packed planes (29^3 in, 33^3 out), narrow 2D grids with both fields
-# side by side in lanes (301 rows in, 521 out). ILU and fieldsplit are not
-# lane-packed: the two fields stacked, and the ILU factor planes in the
-# budget (tet nx=9 in, 10 out; fieldsplit LU nx=14 in, 15 out).
-# (element, cells, inside for pc none/jacobi, ilu/fieldsplit_ilu, fieldsplit_lu)
+# The port's envelope is what the launcher can place: at most 32 leaves a
+# thread on 16 blocks of 512 threads (262,144 values: 2D N=361 in, 362 out;
+# hex/tet nx=49 in, 50 out), and the fieldsplit roles' slices (5 x 8 bytes a
+# value a block owns) and K6's line buffers within the launch budget; no
+# 128-lane rows or 20 MiB budget (the TPU's Mosaic/VMEM rule, which the JAX
+# gate keeps). Out by the slices: K6 on a (40, 520) quad grid (33 lines of 519
+# a block), at 2D N=256 and tet nx=40; K8 at 2D N=361 and nx=49.
+# (element, cells, inside for pc none/jacobi, ilu, fieldsplit_ilu,
+# fieldsplit_lu, the JAX gate's answers in the same order or None)
 ENVELOPE = [
-    ("quad", (125, 125), True, True, True), ("quad", (126, 126), False, False, False),
-    ("tet", (28, 28, 28), True, False, False), ("tet", (32, 32, 32), False, False, False),
-    ("triangle", (40, 300), True, False, False), ("quad", (40, 520), False, False, False),
-    ("hex", (16, 16, 16), True, False, False),
-    ("tet", (9, 9, 9), True, True, True), ("tet", (10, 10, 10), True, False, True),
-    ("tet", (14, 14, 14), True, False, True), ("tet", (15, 15, 15), True, False, False),
+    ("quad", (125, 125), (True, True, True, True), (True, True, True, True)),
+    ("quad", (126, 126), (True, True, True, True), (False, False, False, False)),
+    ("tet", (28, 28, 28), (True, True, True, True), (True, False, False, False)),
+    ("tet", (32, 32, 32), (True, True, True, True), (False, False, False, False)),
+    ("triangle", (40, 300), (True, True, True, True), (True, False, False, False)),
+    ("quad", (40, 520), (True, True, True, False), (False, False, False, False)),
+    ("hex", (16, 16, 16), (True, True, True, True), (True, False, False, False)),
+    ("tet", (9, 9, 9), (True, True, True, True), (True, True, True, True)),
+    ("tet", (10, 10, 10), (True, True, True, True), (True, False, False, True)),
+    ("tet", (14, 14, 14), (True, True, True, True), (True, False, False, True)),
+    ("tet", (15, 15, 15), (True, True, True, True), (True, False, False, False)),
+    # the published sizes the TPU's gate sent to the host loop
+    ("quad", (128, 128), (True, True, True, True), None),
+    ("quad", (256, 256), (True, True, True, False), None),
+    ("tet", (40, 40, 40), (True, True, True, False), None),
+    # the last size in and the first out
+    ("quad", (361, 361), (True, True, False, False), None),
+    ("quad", (362, 362), (False, False, False, False), None),
+    ("hex", (49, 49, 49), (True, True, False, False), None),
+    ("hex", (50, 50, 50), (False, False, False, False), None),
+    ("tet", (49, 49, 49), (True, True, False, False), None),
+    ("tet", (50, 50, 50), (False, False, False, False), None),
 ]
+_COLUMN = {"none": 0, "jacobi": 0, "ilu": 1, "fieldsplit_ilu": 2, "fieldsplit_lu": 3}
+
+
+def _launcher_places(node_shape, pc):
+    """The launcher's own answer: its geometry, then its shared-memory plan
+    at the header's budget (the ILU schedule from the shape)."""
+    try:
+        launch_geometry(2 * math.prod(node_shape))
+        ilu = schedule_shape(node_shape, 2 if pc == "ilu" else 1) if "ilu" in pc else None
+        plan_smem(node_shape, pc, _cuda.header_constant("fused_gmres.cuh", "kGmresSmemBudget"), ilu_shape=ilu)
+    except ValueError:
+        return False
+    return True
 
 
 @pytest.mark.parametrize("pc", ["none", "jacobi", "ilu", "fieldsplit_ilu", "fieldsplit_lu"])
 @pytest.mark.parametrize(
-    "element,cells,lane_packed,ilu,fieldsplit_lu", ENVELOPE,
-    ids=[f"{e}{c[0]}x{c[1]}" for e, c, *_ in ENVELOPE],
+    "element,cells,inside,jax_inside", ENVELOPE, ids=[f"{e}{c[0]}x{c[1]}" for e, c, *_ in ENVELOPE]
 )
-def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, lane_packed, ilu, fieldsplit_lu, pc):
-    monkeypatch.setenv("PERPHIL_TPU_FUSED_GMRES", "force")  # judge the gate off-TPU
-    mesh = _jax_mesh(element, cells)
-    _, jV = jspaces_of(mesh)
-    jop = JOp(jmixed(jV), JParams())
-    zero = np.zeros(mesh.node_shape)
-    state = from_numpy_state({}, cells, element, zero, zero, device="cpu")
+def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, inside, jax_inside, pc):
+    """The gate is the launcher's plan, and admits everything the JAX gate
+    admits (the JAX package keeps its TPU rule, so the port's envelope is a
+    superset of it)."""
+    shape = tuple(c + 1 for c in reversed(cells))
+    state = from_numpy_state({}, cells, element, np.zeros(shape), np.zeros(shape), device="cpu")
     op = DPPOperator(state.W, state.params)
-    inside = {"none": lane_packed, "jacobi": lane_packed, "ilu": ilu, "fieldsplit_ilu": ilu,
-              "fieldsplit_lu": fieldsplit_lu}[pc]
-    assert jax_fused_gmres_supported(jop, pc) == fused_gmres_supported(op, pc) == inside
+    expected = inside[_COLUMN[pc]]
+    assert fused_gmres_supported(op, pc) == _launcher_places(shape, pc) == expected
+    if jax_inside is not None:
+        monkeypatch.setenv("PERPHIL_TPU_FUSED_GMRES", "force")  # judge the gate off-TPU
+        mesh = _jax_mesh(element, cells)
+        _, jV = jspaces_of(mesh)
+        jax_says = jax_fused_gmres_supported(JOp(jmixed(jV), JParams()), pc)
+        assert jax_says == jax_inside[_COLUMN[pc]]
+        assert expected or not jax_says
+
+
+SCHEDULES = [("quad", (8, 5)), ("triangle", (16, 16)), ("hex", (3, 5, 4)), ("tet", (3, 3, 3)), ("quad", (1, 1))]
+
+
+@pytest.mark.parametrize("nfields", [1, 2])
+@pytest.mark.parametrize("element,cells", SCHEDULES, ids=[f"{e}{c[0]}x{c[1]}" for e, c in SCHEDULES])
+def test_schedule_shape_is_the_built_systems(element, cells, nfields):
+    """The gate's ILU schedule from the shape is the one the factor is built on."""
+    shape = tuple(c + 1 for c in reversed(cells))
+    state = from_numpy_state({}, cells, element, np.zeros(shape), np.zeros(shape), device="cpu")
+    p = state.params
+    sys = build_monolithic_system(state.mesh, p) if nfields == 2 else build_field_system(state.mesh, p.k1, p.beta, p.mu)
+    built = (int((sys.deltas < 0).sum()), int((sys.deltas > 0).sum()), len(sys.levels),
+             max(len(lv) for lv in sys.levels))
+    assert schedule_shape(shape, nfields) == built
 
 
 SS = {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS}
@@ -289,22 +344,27 @@ ROUTES = [
     ("quad", (4, 4), sp.GMRES_JACOBI_PARAMS, K4),
     ("quad", (64, 64), sp.GMRES_JACOBI_PARAMS, K4),
     ("tet", (16, 16, 16), sp.PLAIN_GMRES_PARAMS, K4),
-    ("quad", (128, 128), sp.PLAIN_GMRES_PARAMS, "gmres"),  # beyond the envelope
+    ("quad", (128, 128), sp.PLAIN_GMRES_PARAMS, K4),  # 8 leaves a thread
+    ("quad", (362, 362), sp.PLAIN_GMRES_PARAMS, "gmres"),  # beyond the envelope
     ("quad", (8, 8), {**sp.PLAIN_GMRES_PARAMS, "ksp_gmres_restart": 40}, "gmres"),
     ("quad", (8, 8), {**sp.GMRES_PARAMS, "pc_type": "lu"}, "gmres"),
     ("quad", (8, 8), {**sp.GMRES_JACOBI_PARAMS, "ksp_type": "cg"}, "cg"),
     ("quad", (16, 16), sp.GMRES_ILU_PARAMS, K7),
     ("tet", (9, 9, 9), sp.GMRES_ILU_PARAMS, K7),
-    ("tet", (10, 10, 10), sp.GMRES_ILU_PARAMS, "gmres"),  # ILU planes over the budget
-    ("quad", (128, 128), sp.GMRES_ILU_PARAMS, "gmres"),
+    ("tet", (10, 10, 10), sp.GMRES_ILU_PARAMS, K7),
+    ("quad", (128, 128), sp.GMRES_ILU_PARAMS, K7),
+    ("quad", (256, 256), sp.GMRES_ILU_PARAMS, K7),  # 32 leaves a thread
     ("quad", (8, 8), {**sp.GMRES_ILU_PARAMS, "pc_factor_levels": 1}, "gmres"),  # raises there
     ("quad", (16, 16), SS, K6),
     ("tet", (14, 14, 14), SS, K6),
-    ("quad", (256, 256), SS, "gmres"),
+    ("quad", (256, 256), SS, "gmres"),  # the slices and line buffers beyond the budget
+    ("tet", (32, 32, 32), SS, K6),
     ("quad", (16, 16), {**SS, "pc_fieldsplit_type": "additive"}, "gmres"),
     ("quad", (16, 16), SSI, K8),
     ("quad", (16, 16), {**SSI, "fieldsplit_1_ksp_rtol": 1e-6}, "gmres"),  # not the kernel's inner tolerance
-    ("quad", (128, 128), SSI, "gmres"),
+    ("quad", (128, 128), SSI, K8),
+    ("quad", (361, 361), SSI, "gmres"),  # the slices beyond the budget
+    ("tet", (40, 40, 40), sp.PLAIN_GMRES_PARAMS, K4),
     ("quad", (16, 16), {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_PARAMS}, "gmres"),  # no fused role
 ]
 
@@ -329,7 +389,7 @@ def test_cpu_krylov_solves_launch_no_kernel():
 
 
 def test_fused_gmres_rejects_what_it_does_not_take():
-    big = from_numpy_state({}, (128, 128), "quad", np.zeros((129, 129)), np.zeros((129, 129)), device="cpu")
+    big = from_numpy_state({}, (362, 362), "quad", np.zeros((363, 363)), np.zeros((363, 363)), device="cpu")
     with pytest.raises(ValueError, match="envelope"):
         FusedGMRESSolver(DPPOperator(big.W, big.params))
     state, op = _small_op()

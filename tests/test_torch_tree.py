@@ -107,9 +107,13 @@ GEOMETRIES = [
     (2 * 33 * 33, (8, 1)),  # 2D N=32
     (2 * 65 * 65, (16, 2)),  # 2D N=64
     (2 * 17 ** 3, (16, 2)),  # tet nx=16
-    (2 * 126 * 126, (16, 4)),  # 2D 125 cells: the envelope's last 2D mesh
-    (2 * 127 * 127, (16, 4)),  # 2D 126 cells: beyond it, the same geometry rule
-    (2 * 30 ** 3, (16, 8)),  # tet nx=29, the largest 3D system of pc none
+    (2 * 126 * 126, (16, 4)),  # 2D 125 cells: the TPU gate's last 2D mesh
+    (2 * 127 * 127, (16, 4)),  # 2D 126 cells: beyond that gate, the same geometry rule
+    (2 * 30 ** 3, (16, 8)),  # tet nx=29, the TPU gate's largest 3D system of pc none
+    (2 * 129 * 129, (16, 8)),  # 2D N=128
+    (2 * 33 ** 3, (16, 16)),  # tet nx=32
+    (2 * 257 * 257, (16, MAX_LEAVES)),  # 2D N=256
+    (2 * 41 ** 3, (16, MAX_LEAVES)),  # tet nx=40
     (16 * 512 * MAX_LEAVES, (16, MAX_LEAVES)),
 ]
 
