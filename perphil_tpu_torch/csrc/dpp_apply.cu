@@ -49,21 +49,18 @@ namespace perphil {
 #ifndef PERPHIL_K1_TILE_X
 #define PERPHIL_K1_TILE_X 16
 #endif
-#ifndef PERPHIL_K1_ROWS
-#define PERPHIL_K1_ROWS 1
-#endif
 constexpr int kApplyThreads = 256;
-constexpr int kRows = PERPHIL_K1_ROWS;  // a thread's outputs in a plane: adjacent rows (y)
-constexpr int kTileX = PERPHIL_K1_TILE_X, kTileY = kRows * kApplyThreads / kTileX;  // a block's in a plane
+constexpr int kTileX = PERPHIL_K1_TILE_X, kTileY = kApplyThreads / kTileX;  // a block's outputs in a plane
 constexpr int kHaloX = kTileX + 2, kHaloY = kTileY + 2;
 constexpr int kPlaneValues = kHaloX * kHaloY;  // one field's staged plane
 // Tuning knobs, swept by tools/profile_kernels.py --only k1 (with the tile's
-// width and rows above; 128^3 f64 matvec on an NVIDIA H100 80GB HBM3 at
+// width above; 128^3 f64 matvec on an NVIDIA H100 80GB HBM3 at
 // 700 W): the blocks an SM must be able to hold, which bounds a thread's
 // registers (left free, nvcc took 134 and an SM held one block: 0.083 ms,
 // against 0.044 at 4 blocks and 64 registers; 5, 6 and 8 blocks spill), and
 // the planes a block stages, all but one in flight while it sums (4: 0.0432
-// ms, 3: 0.0438). Two rows a thread spill at 64 registers (0.051-0.057 ms).
+// ms, 3: 0.0438). Two rows a thread, built and measured, spilled at 64
+// registers (0.051-0.057 ms).
 #ifndef PERPHIL_K1_MIN_BLOCKS
 #define PERPHIL_K1_MIN_BLOCKS 4
 #endif
@@ -111,31 +108,20 @@ __device__ __forceinline__ void term(T& a1, T& a2, const DppWeights<T>& w, int o
   a2 += w.c[o] * u + w.s2[o] * v;
 }
 
-// The terms a staged plane adds to the three outputs of each of the
-// thread's rows it touches, each staged value loaded once: a (the plane
-// above it, weights 18..26), b (its own, 9..17; 2D: 0..8) and c (the plane
-// below, 0..8). The staged rows go in order, so each output's offsets stay
+// The terms a staged plane adds to the three outputs it touches, each
+// staged value loaded once: a (the plane above it, weights 18..26), b (its
+// own, 9..17; 2D: 0..8) and c (the plane below, 0..8), each chain's offsets
 // ascending. kA, kB, kC: which outputs this step computes.
 template <typename T, int D, bool kA, bool kB, bool kC>
-__device__ __forceinline__ void plane_terms(T (&a)[kRows][2], T (&b)[kRows][2], T (&c)[kRows][2],
-                                            const T* st, const DppWeights<T>& w) {
+__device__ __forceinline__ void plane_terms(T (&a)[2], T (&b)[2], T (&c)[2], const T* st,
+                                            const DppWeights<T>& w) {
 #pragma unroll
-  for (int r = 0; r < kRows + 2; ++r) {
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int off = (r - 1) * kHaloX + dx;
-      const T u = st[off], v = st[kPlaneValues + off];
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        const int dy = r - 1 - k;  // the staged row's offset from output row k
-        if (dy >= -1 && dy <= 1) {
-          const int q = (dy + 1) * 3 + dx + 1;
-          if constexpr (kA) term(a[k][0], a[k][1], w, 18 + q, u, v);
-          if constexpr (kB) term(b[k][0], b[k][1], w, (D == 3 ? 9 : 0) + q, u, v);
-          if constexpr (kC) term(c[k][0], c[k][1], w, q, u, v);
-        }
-      }
-    }
+  for (int q = 0; q < 9; ++q) {
+    const int off = (q / 3 - 1) * kHaloX + (q % 3 - 1);
+    const T u = st[off], v = st[kPlaneValues + off];
+    if constexpr (kA) term(a[0], a[1], w, 18 + q, u, v);
+    if constexpr (kB) term(b[0], b[1], w, (D == 3 ? 9 : 0) + q, u, v);
+    if constexpr (kC) term(c[0], c[1], w, q, u, v);
   }
 }
 
@@ -198,21 +184,13 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
   // boundary rows, the raw input: the tile's own on the faces (and on the
   // far sides, where the last tile reaches them), then the sides' columns
   // around the tile that this block owns
-  const int i = x0 + tx;
-  bool write[kRows];
-  long col[kRows];
-#pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    const int j = y0 + kRows * ty + k;
-    const bool column = i < g.nx && j < g.ny;
-    const bool side = i == g.nx - 1 || j == g.ny - 1;
-    if (column) {
-      for (int z = zo0; z < zo1; ++z) {
-        if (side || (D == 3 && (z == 0 || z == g.nz - 1))) raw(z, i, j);
-      }
+  const int i = x0 + tx, j = y0 + ty;
+  const bool column = i < g.nx && j < g.ny;
+  const bool side = i == g.nx - 1 || j == g.ny - 1;
+  if (column) {
+    for (int z = zo0; z < zo1; ++z) {
+      if (side || (D == 3 && (z == 0 || z == g.nz - 1))) raw(z, i, j);
     }
-    write[k] = column && !side;
-    col[k] = (long)j * g.nx + i;
   }
   if (threadIdx.x < 2 * kHaloX + 2 * kTileY) {
     const int t = threadIdx.x;
@@ -225,14 +203,13 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
       for (int z = zo0; z < zo1; ++z) raw(z, x, y);
     }
   }
-  const T* st0 = &stage[0][0][(kRows * ty + 1) * kHaloX + tx + 1];
-  auto put = [&](int p, const T (&acc)[kRows][2]) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-      if (write[k]) {
-        y1[p * plane + col[k]] = kMode == kLift ? -acc[k][0] : acc[k][0];
-        y2[p * plane + col[k]] = kMode == kLift ? -acc[k][1] : acc[k][1];
-      }
+  const bool write = column && !side;
+  const long col = (long)j * g.nx + i;
+  const T* st0 = &stage[0][0][(ty + 1) * kHaloX + tx + 1];
+  auto put = [&](int p, const T (&acc)[2]) {
+    if (write) {
+      y1[p * plane + col] = kMode == kLift ? -acc[0] : acc[0];
+      y2[p * plane + col] = kMode == kLift ? -acc[1] : acc[1];
     }
   };
 
@@ -243,19 +220,16 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
   }
   // a: the output plane p - 1 (its dz = -1, 0 terms so far); b: plane p
   // (dz = -1); c: plane p + 1
-  T a[kRows][2] = {}, b[kRows][2] = {};
+  T a[2] = {}, b[2] = {};
   for (int s = 0; s < steps; ++s) {
     const int p = pb + s;
     copies_wait<kStages - 2>();
     __syncthreads();
     const T* st = st0 + (s % kStages) * 2 * kPlaneValues;
-    T c[kRows][2] = {};
+    T c[2] = {};
     if constexpr (PERPHIL_K1_PHASE == 1) {
-#pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        a[k][0] = st[k * kHaloX];
-        a[k][1] = st[k * kHaloX + kPlaneValues];
-      }
+      a[0] = st[0];
+      a[1] = st[kPlaneValues];
       if (D == 2 || s >= 2) put(D == 3 ? p - 1 : p, a);
       if (D == 3 && s + kStages - 1 < steps) stage_plane(p + kStages - 1);
       copies_commit();
@@ -282,11 +256,9 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
       }
       if (ua) put(p - 1, a);
 #pragma unroll
-      for (int k = 0; k < kRows; ++k) {
-        a[k][0] = b[k][0];
-        a[k][1] = b[k][1];
-        b[k][0] = c[k][0];
-        b[k][1] = c[k][1];
+      for (int f = 0; f < 2; ++f) {
+        a[f] = b[f];
+        b[f] = c[f];
       }
       // the buffer of the plane kStages - 1 ahead held plane p - 1, which
       // every thread read before this step's barrier

@@ -26,8 +26,8 @@ events, launches queued behind a sleep) at the launcher's z chunk and at
 Beside them: f32, and builds of the kernel alone (one ``nvcc`` each,
 ``ptxas -v`` printed) with its copies alone and with its sums alone
 (``PERPHIL_K1_PHASE``) and with its tuning knobs set otherwise
-(``PERPHIL_K1_MIN_BLOCKS``, ``PERPHIL_K1_STAGES``, ``PERPHIL_K1_TILE_X``,
-``PERPHIL_K1_ROWS``), each first held to the package's bits.
+(``PERPHIL_K1_MIN_BLOCKS``, ``PERPHIL_K1_STAGES``, ``PERPHIL_K1_TILE_X``),
+each first held to the package's bits.
 ``--against DIR`` builds ``DIR``'s ``dpp_apply.cu`` alone (an older checkout
 unpacked under ``_checkout/``) and holds both kernels to each other, bit for
 bit in both modes and precisions, and times them in turns (older, this,
@@ -261,9 +261,8 @@ def time_k1(against: Optional[Path]) -> None:
     here = Path(__file__).resolve().parents[2]
     phases = {name: k1_library(here, f"-DPERPHIL_K1_PHASE={v}")[0] for name, v in (("copies", 1), ("sums", 2))}
     knobs = {flags: k1_library(here, *flags)[0] for flags in (
-        (), ("-DPERPHIL_K1_MIN_BLOCKS=1",), ("-DPERPHIL_K1_STAGES=3",), ("-DPERPHIL_K1_TILE_X=32",),
-        ("-DPERPHIL_K1_ROWS=2",), ("-DPERPHIL_K1_ROWS=2", "-DPERPHIL_K1_MIN_BLOCKS=3"),
-        ("-DPERPHIL_K1_ROWS=2", "-DPERPHIL_K1_MIN_BLOCKS=2"), ("-DPERPHIL_K1_ROWS=2", "-DPERPHIL_K1_TILE_X=32"))}
+        (), ("-DPERPHIL_K1_MIN_BLOCKS=1",), ("-DPERPHIL_K1_MIN_BLOCKS=5",), ("-DPERPHIL_K1_STAGES=3",),
+        ("-DPERPHIL_K1_TILE_X=32",))}
     gen = torch.Generator().manual_seed(0)
 
     def call(dll, ints, dtype, z, y, w, shape, mode, chunk=0):
