@@ -10,34 +10,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
   3. checks that a space built with no ``device`` lies on the card, then each
      kernel against its plain PyTorch twin on the card, at the
-     shapes the main path gives it: K1-K3; the fused GMRES roles K5 (2D N=8)
-     and K4 (2D N=16 and N=64 pc none, N=64 jacobi, 3D tet nx=16), equal to
-     their twin in iteration count and bit for bit, and prints per case the
-     blocks of the cluster the launcher took, the time and the time per
-     iteration; ``structured_ilu_apply``
-     at 2D N=128 (monolithic) and on a 129^2 field system, and K7 (ILU, 2D
-     N=64), both bit-equal; K6 (fieldsplit LU, 2D N=64 and tet nx=8, within
-     1e-10) and K8 (fieldsplit ILU, 2D N=16 within 1e-12 and N=64 bit for
-     bit), equal counts, with their inner PCG's counts beside the twin's;
-     and times K1 beside one ``conv3d`` on the same stacked fields, and at
-     the host GMRES loop's shape (2D N=128);
+     shapes the main path gives it: K1 in both modes and precisions and
+     both entries (the stacked one bit for bit the pair's), timed with its
+     launches queued, beside one ``conv3d``, and the host wall of one
+     ``stacked_matvec()`` call at 2D N=128; K2 and K3, beside one
+     ``torch.linalg.solve`` on the dense system; the fused GMRES roles K5
+     (2D N=8), K4 (2D N=16/64/128 pc none, N=64 jacobi, tet nx=16/32/40),
+     K7 (2D N=64/128/256), K6 (2D N=64, tet nx=8), K8 (2D N=16/64/128), equal
+     counts and bits (K6 within 1e-10; the twin bounded to a few steps at
+     N=256 ILU and N=128 SS-GMRES+ILU), with the blocks, the leaves a
+     thread, what lived in shared memory, the time and the time per
+     iteration, and beside the sizes the TPU's gate sent to the host loop,
+     that loop's time on the same case; ``structured_ilu_apply`` at 2D N=128
+     (monolithic) and on a 129^2 field system, bit-equal;
   4. drives the direct path — ``solve_dpp`` with ``LINEAR_SOLVER_PARAMS`` at
-     2D quad N=4 and N=16 (golden errors) and 3D tet nx=4, and with
-     ``TPU_DIRECT_PARAMS`` at 3D hex 64^3 and 128^3 (f64 relative residual
-     < 1e-10) — with every launch counter reset just before, and fails if a
-     kernel of the path did not run;
+     2D quad N=4 and N=16 (golden errors) and 3D tet nx=4, 16 and 32 (the
+     last two beyond K3: cg with K1), and with ``TPU_DIRECT_PARAMS`` at 3D
+     hex 64^3 and 128^3 (f64 relative residual < 1e-10) — with every launch
+     counter reset just before, and fails if a kernel of the path did not
+     run;
   5. drives the Krylov path the same way — ``solve_dpp`` with
-     ``PLAIN_GMRES_PARAMS`` at 2D quad N=4/8/16/64 and 3D tet nx=4/16, held
-     to the published PETSc counts 10/40/292/3307 and 27/750, with
-     ``GMRES_JACOBI_PARAMS`` at 2D N=16 (33), and with ``PLAIN_GMRES_PARAMS``
-     at 2D N=128 beyond the fused envelope (the host loop with the K1
-     matvec, whose rounding differs from the CPU twin's: 11765 +- 2);
+     ``PLAIN_GMRES_PARAMS`` at 2D quad N=4/8/16/64/128 and 3D tet
+     nx=4/12/16/20/24/32/36/40, held to the published PETSc counts
+     10/40/292/3307/11765 (+-2) and 27/465/750/1068/1460/2439/3057/3652, and
+     with ``GMRES_JACOBI_PARAMS`` at 2D N=16 (33);
   6. drives the preconditioned path the same way — ``GMRES_ILU_PARAMS`` at
-     2D N=4..64 (5/7/11/20/42, K7) and tet nx=4/8 (4/7), SS-GMRES at 2D
-     N=16/64 and tet nx=8 (4, K6), SS-GMRES+ILU at 2D N=16/64 (4, K8), and
-     beyond the envelope on the host loop (K1 and ``structured_ilu_apply``)
-     GMRES+ILU at N=128/256 (74/117 +- 2), SS-GMRES at N=256 and
-     SS-GMRES+ILU at N=128 (4); ``FIELDSPLIT_GMRES_PARAMS`` at N=16 (4);
+     2D N=4..256 (5/7/11/20/42/74/117, K7; +-2 at N=128/256) and tet nx=4/8
+     (4/7), SS-GMRES at 2D N=16/64 and tet nx=8 (4, K6) and at N=256 (4, the
+     host loop), SS-GMRES+ILU at 2D N=16/64/128 (4, K8);
+     ``FIELDSPLIT_GMRES_PARAMS`` at N=16 (4); GMRES+ILU at N=512 (no
+     published count; the host loop with ``structured_ilu_apply``);
   7. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
      events, and works out each kernel's bound from this run's shapes and
      iteration counts.

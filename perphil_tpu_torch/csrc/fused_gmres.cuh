@@ -174,16 +174,15 @@ struct GmresGeom {
   int pc_bytes;     // the region of the matvec's input copy, which the inner PCG reuses while the preconditioner runs
   int p_smem;       // 1: each block copies p to shared memory for the field matvec
   int s_smem;       // 1 (K6): each block copies the eigenbases to shared memory for a transform
-  int budget;       // the dynamic shared memory the plan could use: kGmresSmemBudget
   int bytes;        // dynamic shared memory in all
 };
 
 // doubles of a launch's result before the profile units' phase counters:
 // iterations, residual norm, converged, blocks, basis slice in shared memory,
 // ILU z in shared memory, matvec input in shared memory, p in shared
-// memory, eigenbases in shared memory, the budget, and the fieldsplit roles'
-// inner PCG iterations and solves
-constexpr int kResultSlots = 12;
+// memory, eigenbases in shared memory, and the fieldsplit roles' inner PCG
+// iterations and solves
+constexpr int kResultSlots = 11;
 
 // Host: blocks for L values: min(kMaxCluster, Lt / kGmresThreads).
 inline int gmres_blocks(long L) {

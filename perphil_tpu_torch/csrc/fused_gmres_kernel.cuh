@@ -894,9 +894,8 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
     result[6] = (double)geom.z_smem;
     result[7] = (double)geom.p_smem;
     result[8] = (double)geom.s_smem;
-    result[9] = (double)geom.budget;
-    result[10] = (double)inner_counts[0];
-    result[11] = (double)inner_counts[1];
+    result[9] = (double)inner_counts[0];
+    result[10] = (double)inner_counts[1];
 #ifdef PERPHIL_GMRES_PROFILE
     PERPHIL_PROF(kProfRestart);
     for (int i = 0; i < kProfPhases; ++i) result[kResultSlots + i] = (double)prof[i];
@@ -904,18 +903,18 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
   }
 }
 
-// The geometry for L = 2n values within `budget` bytes of dynamic shared
-// memory; false where the leaves per thread exceed the frame's tree or the
+// The geometry for L = 2n values within kGmresSmemBudget bytes of dynamic
+// shared memory; false where the leaves per thread exceed the frame's tree or the
 // fieldsplit roles' slices do not fit. In order: the fieldsplit roles' slices
 // and K6's line buffers (needed), the ILU stage (K7, K8), the matvec's input
 // copy, then in the same region p's copy and K6's eigenbases (the inner PCG
 // uses it while the input copy is dead), then the basis slice.
 template <int PC>
-bool plan_geometry(const GmresArgs& a, long budget, GmresGeom& geo) {
+bool plan_geometry(const GmresArgs& a, GmresGeom& geo) {
+  const long budget = kGmresSmemBudget;
   constexpr bool fields = PC == kPcFieldsplitLu || PC == kPcFieldsplitIlu;
   const long n = a.g.nodes(), L = 2 * n;
   geo = GmresGeom{};
-  geo.budget = (int)budget;
   geo.nb = gmres_blocks(L);
   while ((1 << geo.log_nb) < geo.nb) ++geo.log_nb;
   while (((long)kGmresThreads * geo.nb << geo.log_s) < L) ++geo.log_s;
@@ -985,7 +984,7 @@ cudaError_t launch_fused_gmres_dim(const GmresArgs& a, cudaStream_t st) {
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   GmresGeom geo;
-  if (!plan_geometry<PC>(a, kGmresSmemBudget, geo)) return cudaErrorInvalidValue;
+  if (!plan_geometry<PC>(a, geo)) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes);
   if (err != cudaSuccess) return err;
   // one cluster of geo.nb blocks; a card that cannot place it refuses the launch

@@ -85,7 +85,7 @@ _WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
 _XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
 _THREADS = 512  # threads of a block
 #: doubles of a launch's result (``csrc/fused_gmres.cuh::kResultSlots``)
-RESULT_SLOTS = 12
+RESULT_SLOTS = 11
 #: blocks of one thread block cluster at most (the card's non-portable size)
 MAX_BLOCKS = 16
 #: leaves of a reduction tree a thread may own (``csrc/fused_gmres.cuh``)
@@ -123,8 +123,8 @@ def _next_pow2(n: int) -> int:
 class KernelGeometry(NamedTuple):
     """What a launch ran with: blocks of the cluster, and what lived in
     shared memory (the basis slice, the ILU sweep's z, the matvec's input
-    copy, the inner PCG's copy of p and K6's eigenbases); ``budget``: the
-    dynamic shared memory it could have had."""
+    copy, the inner PCG's copy of p and K6's eigenbases), within
+    :data:`SMEM_BUDGET`."""
 
     blocks: int
     basis_smem: bool
@@ -132,7 +132,6 @@ class KernelGeometry(NamedTuple):
     input_smem: bool
     p_smem: bool
     s_smem: bool
-    budget: int
 
 
 class SmemPlan(NamedTuple):
@@ -458,7 +457,7 @@ class FusedGMRESSolver(nn.Module):
         """The solve's outcome from a launch's ``result``; sets
         ``last_geometry``."""
         its, rnorm, converged, *geo, inner_its, inner_solves = result[:RESULT_SLOTS].tolist()
-        self.last_geometry = KernelGeometry(int(geo[0]), *(bool(v) for v in geo[1:6]), int(geo[6]))
+        self.last_geometry = KernelGeometry(int(geo[0]), *(bool(v) for v in geo[1:6]))
         self.launch_inner = (int(inner_its), int(inner_solves))
         return KrylovResult(x, int(its), rnorm, bool(converged))
 
