@@ -13,10 +13,12 @@
 //
 // Bound on the H100: memory, with the arithmetic close behind in f64. A node
 // reads 2 values and writes 2: at 128^3 hex (129^3 nodes) in f64, 68.7 MB,
-// 20.5 us at 3.35 TB/s; its 27 offsets cost 108 f64 multiply-adds, 13.6 us
-// at the card's f64 rate. A thread per node that reads its 54 neighbours
-// through L1 (the first design) took 94 us there; 54 shared-memory loads a
-// node would take ~30 us of shared-memory bandwidth alone.
+// 20.5 us at 3.35 TB/s. Its 27 terms for each of its two outputs are 162
+// f64 instructions (the first design's DMUL, DFMA, DADD a term, kept for
+// its bits): ~20 us at the card's f64 rate. A thread per node that read its 54 neighbours through L1
+// (the first design) took 0.067 ms there, launches queued, on an NVIDIA H100
+// 80GB HBM3 at 700 W; this one 0.043 ms, its copies alone and its sums alone
+// 0.038-0.041 ms each (tools/profile_kernels.py --only k1).
 //
 // Design (a 2.5-D tiled stencil):
 //   - A block of 256 threads owns a 16 x 16 tile of the interior's (y, x)
