@@ -7,7 +7,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      versions, and switches TF32 off for f32 products (TF32 would stall the
      mixed-precision refinement);
   2. builds the CUDA kernels K1-K8 and ``structured_ilu_apply`` from
-     ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
+     ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel), and
+     checks that each fused GMRES role's static shared memory leaves the
+     budget its launches plan with;
   3. checks that a space built with no ``device`` lies on the card, then each
      kernel against its plain PyTorch twin on the card, at the
      shapes the main path gives it: K1 in both modes and precisions and
@@ -16,7 +18,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      ``stacked_matvec()`` call at 2D N=128; K2 and K3, beside one
      ``torch.linalg.solve`` on the dense system; the fused GMRES roles K5
      (2D N=8), K4 (2D N=16/64/128 pc none, N=64 jacobi, tet nx=16/32/40),
-     K7 (2D N=64/128/256), K6 (2D N=64, tet nx=8), K8 (2D N=16/64/128), equal
+     K7 (2D N=64/128/256), K6 (2D N=64, tet nx=8/32), K8 (2D N=16/64/128), equal
      counts and bits (K6 within 1e-10; the twin bounded to a few steps at
      N=256 ILU and N=128 SS-GMRES+ILU), with the blocks, the leaves a
      thread, what lived in shared memory, the time and the time per
@@ -36,7 +38,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      with ``GMRES_JACOBI_PARAMS`` at 2D N=16 (33);
   6. drives the preconditioned path the same way — ``GMRES_ILU_PARAMS`` at
      2D N=4..256 (5/7/11/20/42/74/117, K7; +-2 at N=128/256) and tet nx=4/8
-     (4/7), SS-GMRES at 2D N=16/64 and tet nx=8 (4, K6) and at N=256 (4, the
+     (4/7), SS-GMRES at 2D N=16/64 and tet nx=8/32 (4, K6) and at N=256 (4, the
      host loop), SS-GMRES+ILU at 2D N=16/64/128 (4, K8);
      ``FIELDSPLIT_GMRES_PARAMS`` at N=16 (4); GMRES+ILU at N=512 (no
      published count; the host loop with ``structured_ilu_apply``);
@@ -124,6 +126,7 @@ PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
     ("quad", 16, "SS-GMRES", 4, 0, "fused_gmres_df[fieldsplit_lu]"),
     ("quad", 64, "SS-GMRES", 4, 0, "fused_gmres_df[fieldsplit_lu]"),
     ("tet", 8, "SS-GMRES", 4, 0, "fused_gmres_df[fieldsplit_lu]"),
+    ("tet", 32, "SS-GMRES", 4, 0, "fused_gmres_df[fieldsplit_lu]"),
     ("quad", 16, "SS-GMRES+ILU", 4, 0, "fused_gmres_df[fieldsplit_ilu]"),
     ("quad", 64, "SS-GMRES+ILU", 4, 0, "fused_gmres_df[fieldsplit_ilu]"),
     ("quad", 128, "GMRES_ILU_PARAMS", 74, 2, "fused_gmres_df[ilu]"),
@@ -405,7 +408,13 @@ def main() -> int:
         fused_dpp_apply_stacked,
     )
     from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
-    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver, launch_geometry
+    from perphil_tpu_torch.ops.fused_gmres import (
+        MAX_SMEM_PER_BLOCK,
+        SMEM_BUDGET,
+        FusedGMRESSolver,
+        launch_geometry,
+        static_smem,
+    )
     from perphil_tpu_torch.ops.ilu import StructuredILU0
     from perphil_tpu_torch.solvers import parameters as sp
     from perphil_tpu_torch.solvers import solve_dpp
@@ -449,6 +458,13 @@ def main() -> int:
         elif "Used" in line and entry:
             print(f"  ptxas {entry[:72]}: {text}; {stack}")
             entry = ""
+    # what each fused GMRES role's static shared memory leaves of the budget
+    # its launches plan with (the launcher refuses a role that leaves less)
+    for pc in ("none", "jacobi", "ilu", "fieldsplit_lu", "fieldsplit_ilu"):
+        margins = [MAX_SMEM_PER_BLOCK - static_smem(pc, d) - SMEM_BUDGET for d in (2, 3)]
+        print(f"  fused GMRES pc {pc}: static shared memory {static_smem(pc, 3)} B, "
+              f"{min(margins)} B over the {SMEM_BUDGET} B budget")
+        check(min(margins) >= 0, f"fused GMRES pc {pc} leaves the shared-memory budget")
 
     # -- 3. kernels against their twins (not counted) ---------------------
     results = {}
@@ -610,6 +626,8 @@ def main() -> int:
         ("quad", 128, "fieldsplit_ilu", None, 0.0, 3, "SS-GMRES+ILU", 2),
         ("tet", 32, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),  # 16 leaves
         ("tet", 40, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),  # 32 leaves
+        # 3D preconditioned at 16 leaves: K6's eigenbases outside shared memory
+        ("tet", 32, "fieldsplit_lu", None, 1e-10, 3, "SS-GMRES", None),
     ]
     for element, n, pc, role, tol, reps, host_preset, twin_its in role_cases:
         W, params, bcs, _, _ = problem(element, n, dev)

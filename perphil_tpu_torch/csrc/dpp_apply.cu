@@ -17,8 +17,8 @@
 // f64 instructions (the first design's DMUL, DFMA, DADD a term, kept for
 // its bits): ~20 us at the card's f64 rate. A thread per node that read its 54 neighbours through L1
 // (the first design) took 0.067 ms there, launches queued, on an NVIDIA H100
-// 80GB HBM3 at 700 W; this one 0.043 ms, its copies alone and its sums alone
-// 0.038-0.041 ms each (tools/profile_kernels.py --only k1).
+// 80GB HBM3 at 700 W; this one 0.043 ms (tools/profile_kernels.py --only k1;
+// PERF.md says what bounds it).
 //
 // Design (a 2.5-D tiled stencil):
 //   - A block of 256 threads owns a 16 x 16 tile of the interior's (y, x)
@@ -48,40 +48,27 @@
 
 namespace perphil {
 
-#ifndef PERPHIL_K1_TILE_X
-#define PERPHIL_K1_TILE_X 16
-#endif
+// Tuning, each measured on 128^3 f64 matvecs on an NVIDIA H100 80GB HBM3 at
+// 700 W (tools/profile_kernels.py --only k1 builds the kernel alone with
+// other values):
+//   - kTileX: 16-wide tiles (32 x 8: 0.0437 ms against 0.0431);
+//   - kMinBlocks: the blocks an SM must be able to hold, which bounds a
+//     thread's registers (left free, nvcc took 134 and an SM held one block:
+//     0.081 ms, against 0.043 at 4 blocks and 64 registers; 5, 6 and 8 blocks
+//     spill); two rows a thread, built and measured, spilled at 64 registers
+//     (0.051-0.057 ms);
+//   - kStages: the planes a block stages, all but one in flight while it
+//     sums (4: 0.0431 ms, 3: 0.0438);
+//   - kChunk: the z planes a block walks (4 best of 1-32 at 64^3 and 128^3).
 constexpr int kApplyThreads = 256;
-constexpr int kTileX = PERPHIL_K1_TILE_X, kTileY = kApplyThreads / kTileX;  // a block's outputs in a plane
+constexpr int kTileX = 16;
+constexpr int kMinBlocks = 4;
+constexpr int kStages = 4;
+constexpr int kChunk = 4;
+constexpr int kTileY = kApplyThreads / kTileX;  // a block's outputs in a plane
 constexpr int kHaloX = kTileX + 2, kHaloY = kTileY + 2;
 constexpr int kPlaneValues = kHaloX * kHaloY;  // one field's staged plane
-// Tuning knobs, swept by tools/profile_kernels.py --only k1 (with the tile's
-// width above; 128^3 f64 matvec on an NVIDIA H100 80GB HBM3 at
-// 700 W): the blocks an SM must be able to hold, which bounds a thread's
-// registers (left free, nvcc took 134 and an SM held one block: 0.083 ms,
-// against 0.044 at 4 blocks and 64 registers; 5, 6 and 8 blocks spill), and
-// the planes a block stages, all but one in flight while it sums (4: 0.0432
-// ms, 3: 0.0438). Two rows a thread, built and measured, spilled at 64
-// registers (0.051-0.057 ms).
-#ifndef PERPHIL_K1_MIN_BLOCKS
-#define PERPHIL_K1_MIN_BLOCKS 4
-#endif
-#ifndef PERPHIL_K1_STAGES
-#define PERPHIL_K1_STAGES 4
-#endif
-constexpr int kStages = PERPHIL_K1_STAGES;
 constexpr int kStageLoads = (2 * kPlaneValues + kApplyThreads - 1) / kApplyThreads;
-// z planes a block walks: at 64^3 and 128^3 (f64) 4 measured best of 1-32
-// (tools/profile_kernels.py --only k1)
-constexpr int kDefaultChunk = 4;
-
-// Measurement builds only (tools/profile_kernels.py --only k1 compiles them
-// apart): PERPHIL_K1_PHASE 1 keeps the copies and drops the sums (an output
-// is its staged value), 2 keeps the sums and drops the copies after the
-// first planes (the sums read stale planes).
-#ifndef PERPHIL_K1_PHASE
-#define PERPHIL_K1_PHASE 0
-#endif
 
 // Copy one value to shared memory, or write a zero there (the zero fill:
 // no byte is read when keep is false).
@@ -128,9 +115,9 @@ __device__ __forceinline__ void plane_terms(T (&a)[2], T (&b)[2], T (&c)[2], con
 }
 
 template <typename T, int D, int kMode>
-__global__ void __launch_bounds__(kApplyThreads, PERPHIL_K1_MIN_BLOCKS)
+__global__ void __launch_bounds__(kApplyThreads, kMinBlocks)
 dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ y1,
-                 T* __restrict__ y2, DppWeights<T> w, Grid g, int chunk) {
+                 T* __restrict__ y2, DppWeights<T> w, Grid g) {
   __shared__ __align__(16) T stage[kStages][2][kPlaneValues];
   // the tile: interior columns x0.., y0.. (a 129-node axis is 8 tiles of 16)
   const int tx = threadIdx.x % kTileX, ty = threadIdx.x / kTileX;
@@ -138,8 +125,8 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
   const long plane = (long)g.ny * g.nx;
   // the interior planes this block computes, [kb, ke), and the planes it
   // stages, kb - 1 .. ke (2D: the one plane)
-  const int kb = D == 3 ? 1 + blockIdx.z * chunk : 0;
-  const int ke = D == 3 ? min(kb + chunk, g.nz - 1) : 1;
+  const int kb = D == 3 ? 1 + blockIdx.z * kChunk : 0;
+  const int ke = D == 3 ? min(kb + kChunk, g.nz - 1) : 1;
   const bool inner = g.nx > 2 && g.ny > 2 && ke > kb;
   const int steps = inner ? (D == 3 ? ke - kb + 2 : 1) : 0;
   const int pb = D == 3 ? kb - 1 : 0;
@@ -229,13 +216,7 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
     __syncthreads();
     const T* st = st0 + (s % kStages) * 2 * kPlaneValues;
     T c[2] = {};
-    if constexpr (PERPHIL_K1_PHASE == 1) {
-      a[0] = st[0];
-      a[1] = st[kPlaneValues];
-      if (D == 2 || s >= 2) put(D == 3 ? p - 1 : p, a);
-      if (D == 3 && s + kStages - 1 < steps) stage_plane(p + kStages - 1);
-      copies_commit();
-    } else if constexpr (D == 2) {
+    if constexpr (D == 2) {
       plane_terms<T, D, false, true, false>(a, b, c, st, w);
       put(p, b);
     } else {
@@ -264,7 +245,7 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
       }
       // the buffer of the plane kStages - 1 ahead held plane p - 1, which
       // every thread read before this step's barrier
-      if (s + kStages - 1 < steps && (PERPHIL_K1_PHASE != 2 || s == 0)) stage_plane(p + kStages - 1);
+      if (s + kStages - 1 < steps) stage_plane(p + kStages - 1);
       copies_commit();
     }
   }
@@ -272,47 +253,45 @@ dpp_apply_kernel(const T* __restrict__ z1, const T* __restrict__ z2, T* __restri
 
 template <typename T, int D>
 cudaError_t launch_dim(const T* z1, const T* z2, T* y1, T* y2, const DppWeights<T>& w, const Grid& g,
-                       int mode, int chunk, cudaStream_t st) {
+                       int mode, cudaStream_t st) {
   // tiles over the interior (at least one, which then writes the sides)
   auto tiles = [](int n, int t) { return n > 2 ? (n - 2 + t - 1) / t : 1; };
-  const dim3 grid(tiles(g.nx, kTileX), tiles(g.ny, kTileY), D == 3 ? tiles(g.nz, chunk) : 1);
+  const dim3 grid(tiles(g.nx, kTileX), tiles(g.ny, kTileY), D == 3 ? tiles(g.nz, kChunk) : 1);
   if (mode == kMatvec) {
-    dpp_apply_kernel<T, D, kMatvec><<<grid, kApplyThreads, 0, st>>>(z1, z2, y1, y2, w, g, chunk);
+    dpp_apply_kernel<T, D, kMatvec><<<grid, kApplyThreads, 0, st>>>(z1, z2, y1, y2, w, g);
   } else {
-    dpp_apply_kernel<T, D, kLift><<<grid, kApplyThreads, 0, st>>>(z1, z2, y1, y2, w, g, chunk);
+    dpp_apply_kernel<T, D, kLift><<<grid, kApplyThreads, 0, st>>>(z1, z2, y1, y2, w, g);
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch_dpp_apply(const T* z1, const T* z2, T* y1, T* y2, const double* weights, int nz, int ny,
-                     int nx, int dim, int mode, int chunk, void* stream) {
+                     int nx, int dim, int mode, void* stream) {
   const Grid g{nz, ny, nx};
   if (g.nodes() == 0) return (int)cudaSuccess;
-  if ((dim != 2 && dim != 3) || (dim == 2 && nz != 1) || (mode != kMatvec && mode != kLift) || chunk < 0 ||
+  if ((dim != 2 && dim != 3) || (dim == 2 && nz != 1) || (mode != kMatvec && mode != kLift) ||
       (long)g.ny * g.nx > (1L << 31) / 2) {
     return (int)cudaErrorInvalidValue;
   }
   const DppWeights<T> w = weights_from_host<T>(weights);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  chunk = chunk > 0 ? chunk : kDefaultChunk;
-  return (int)(dim == 3 ? launch_dim<T, 3>(z1, z2, y1, y2, w, g, mode, chunk, st)
-                        : launch_dim<T, 2>(z1, z2, y1, y2, w, g, mode, chunk, st));
+  return (int)(dim == 3 ? launch_dim<T, 3>(z1, z2, y1, y2, w, g, mode, st)
+                        : launch_dim<T, 2>(z1, z2, y1, y2, w, g, mode, st));
 }
 
 }  // namespace perphil
 
-// chunk: z planes a block walks (0: the launcher's choice)
 extern "C" int perphil_dpp_apply_f32(const float* z1, const float* z2, float* y1, float* y2,
                                      const double* weights, int nz, int ny, int nx, int dim, int mode,
-                                     int chunk, void* stream) {
-  return perphil::launch_dpp_apply<float>(z1, z2, y1, y2, weights, nz, ny, nx, dim, mode, chunk, stream);
+                                     void* stream) {
+  return perphil::launch_dpp_apply<float>(z1, z2, y1, y2, weights, nz, ny, nx, dim, mode, stream);
 }
 
 extern "C" int perphil_dpp_apply_f64(const double* z1, const double* z2, double* y1, double* y2,
                                      const double* weights, int nz, int ny, int nx, int dim, int mode,
-                                     int chunk, void* stream) {
-  return perphil::launch_dpp_apply<double>(z1, z2, y1, y2, weights, nz, ny, nx, dim, mode, chunk, stream);
+                                     void* stream) {
+  return perphil::launch_dpp_apply<double>(z1, z2, y1, y2, weights, nz, ny, nx, dim, mode, stream);
 }
 
 extern "C" const char* perphil_error_string(int err) {

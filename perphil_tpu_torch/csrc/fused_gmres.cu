@@ -72,3 +72,22 @@ extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, dou
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
+
+// The static shared memory of pc's kernel in `dim` dimensions, in bytes (-1
+// where the runtime cannot say, -2 for an unknown pc or dim): what each role
+// leaves of kMaxSmemPerBlock must hold kGmresSmemBudget.
+#ifndef PERPHIL_FUSED_GMRES_SMEM_SYMBOL
+#define PERPHIL_FUSED_GMRES_SMEM_SYMBOL perphil_fused_gmres_static_smem
+#endif
+extern "C" int PERPHIL_FUSED_GMRES_SMEM_SYMBOL(int pc, int dim) {
+  using namespace perphil;
+  if (dim != 2 && dim != 3) return -2;
+  switch (pc) {
+    case kPcNone: return fused_gmres_static_smem<kPcNone>(dim);
+    case kPcJacobi: return fused_gmres_static_smem<kPcJacobi>(dim);
+    case kPcFieldsplitLu: return fused_gmres_static_smem<kPcFieldsplitLu>(dim);
+    case kPcIlu: return fused_gmres_static_smem<kPcIlu>(dim);
+    case kPcFieldsplitIlu: return fused_gmres_static_smem<kPcFieldsplitIlu>(dim);
+    default: return -2;
+  }
+}

@@ -98,12 +98,15 @@ constexpr int kMaxLogS = 5;       // the frame: leaves per thread <= 32
 constexpr int kMaxCluster = 16;   // blocks sharing one vector
 constexpr int kXchgDoubles = 2 * kMaxBasis * 4 * kMaxCluster;  // two reduction exchange regions
 // The dynamic shared memory every launch plans with, on every role: the
-// block's 227 KB (kMaxSmemPerBlock) less the kernel's static shared memory
-// (the reductions' partials, R, the Givens state and the tables: under
-// 28 KB on each role, its profile units' counters included). The host's gate
-// (ops/fused_gmres.py, which reads this line) and the launcher plan with
-// this one number, so a mesh the gate admits is one the launcher places; a
-// kernel whose static shared memory leaves less refuses to launch.
+// block's 227 KB (kMaxSmemPerBlock, 232,448 B) less the kernel's static
+// shared memory (the reductions' partials, R, the Givens state and the
+// tables). It leaves 27,904 B for that; the largest static shared memory of
+// any unit is 27,888 B (K8's profile unit, its counters included), a margin
+// of 16 B: a unit that grows its static shared memory by more refuses every
+// launch, which tests/test_torch_kernels.py checks on the card for each
+// role (perphil_fused_gmres_static_smem). The host's gate (ops/fused_gmres.py,
+// which reads this line) and the launcher plan with this one number, so a
+// mesh the gate admits is one the launcher places.
 constexpr int kGmresSmemBudget = 204544;
 
 enum PcKind {
@@ -214,5 +217,9 @@ struct GmresArgs {
 // (instantiated in fused_gmres_pc_*.cu).
 template <int PC>
 cudaError_t launch_fused_gmres(const GmresArgs& a, cudaStream_t st);
+// The static shared memory of PC's kernel in `dim` dimensions, in bytes, or
+// -1 where the runtime cannot say (instantiated beside launch_fused_gmres).
+template <int PC>
+int fused_gmres_static_smem(int dim);
 
 }  // namespace perphil

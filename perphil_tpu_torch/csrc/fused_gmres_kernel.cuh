@@ -1009,4 +1009,12 @@ cudaError_t launch_fused_gmres(const GmresArgs& a, cudaStream_t st) {
   return a.dim == 3 ? launch_fused_gmres_dim<3, PC>(a, st) : launch_fused_gmres_dim<2, PC>(a, st);
 }
 
+template <int PC>
+int fused_gmres_static_smem(int dim) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = dim == 3 ? cudaFuncGetAttributes(&fa, fused_gmres_kernel<3, PC>)
+                                   : cudaFuncGetAttributes(&fa, fused_gmres_kernel<2, PC>);
+  return err == cudaSuccess ? (int)fa.sharedSizeBytes : -1;
+}
+
 }  // namespace perphil

@@ -5,5 +5,6 @@
 namespace perphil {
 
 template cudaError_t launch_fused_gmres<kPcFieldsplitLu>(const GmresArgs&, cudaStream_t);
+template int fused_gmres_static_smem<kPcFieldsplitLu>(int);
 
 }  // namespace perphil

@@ -5,5 +5,6 @@
 namespace perphil {
 
 template cudaError_t launch_fused_gmres<kPcIlu>(const GmresArgs&, cudaStream_t);
+template int fused_gmres_static_smem<kPcIlu>(int);
 
 }  // namespace perphil

@@ -5,6 +5,8 @@
 namespace perphil {
 
 template cudaError_t launch_fused_gmres<kPcNone>(const GmresArgs&, cudaStream_t);
+template int fused_gmres_static_smem<kPcNone>(int);
 template cudaError_t launch_fused_gmres<kPcJacobi>(const GmresArgs&, cudaStream_t);
+template int fused_gmres_static_smem<kPcJacobi>(int);
 
 }  // namespace perphil

@@ -7,13 +7,17 @@
 
 #define PERPHIL_GMRES_PROFILE 1
 #define PERPHIL_FUSED_GMRES_SYMBOL perphil_fused_gmres_profile
+#define PERPHIL_FUSED_GMRES_SMEM_SYMBOL perphil_fused_gmres_profile_static_smem
 #include "../fused_gmres_kernel.cuh"
 
 namespace perphil {  // built by the units beside this one, not here
 
 extern template cudaError_t launch_fused_gmres<kPcFieldsplitLu>(const GmresArgs&, cudaStream_t);
+extern template int fused_gmres_static_smem<kPcFieldsplitLu>(int);
 extern template cudaError_t launch_fused_gmres<kPcIlu>(const GmresArgs&, cudaStream_t);
+extern template int fused_gmres_static_smem<kPcIlu>(int);
 extern template cudaError_t launch_fused_gmres<kPcFieldsplitIlu>(const GmresArgs&, cudaStream_t);
+extern template int fused_gmres_static_smem<kPcFieldsplitIlu>(int);
 
 }  // namespace perphil
 
@@ -22,6 +26,8 @@ extern template cudaError_t launch_fused_gmres<kPcFieldsplitIlu>(const GmresArgs
 namespace perphil {
 
 template cudaError_t launch_fused_gmres<kPcNone>(const GmresArgs&, cudaStream_t);
+template int fused_gmres_static_smem<kPcNone>(int);
 template cudaError_t launch_fused_gmres<kPcJacobi>(const GmresArgs&, cudaStream_t);
+template int fused_gmres_static_smem<kPcJacobi>(int);
 
 }  // namespace perphil

@@ -7,5 +7,6 @@
 namespace perphil {
 
 template cudaError_t launch_fused_gmres<kPcFieldsplitIlu>(const GmresArgs&, cudaStream_t);
+template int fused_gmres_static_smem<kPcFieldsplitIlu>(int);
 
 }  // namespace perphil

@@ -48,10 +48,9 @@ _F = ctypes.c_float
 # argtypes of every launcher (pointers and the stream as c_void_p, so no
 # pointer is cut to 32 bits)
 _SIGNATURES = {
-    # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode,
-    # z planes a block walks (0: the launcher's choice), stream
-    "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode, stream
+    "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # b, x, r, work, Sx, Sy, Sz, a11, a22, det, a12, weights, nz, ny, nx, dim,
     # refinements, stream
     "perphil_fused_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
@@ -65,6 +64,8 @@ _SIGNATURES = {
     # rtol, atol, dtol, max_it, restart, coef, in_rtol, in_atol, in_max,
     # max_level_rows, stream
     "perphil_fused_gmres": [_P] * 21 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _P],
+    # pc, dim (returns the kernel's static shared memory in bytes, < 0: none)
+    "perphil_fused_gmres_static_smem": [_I, _I],
     # r, z, y, packed_lower, packed_upper, level_ptr, level_rows, meta, noffs,
     # nrows, nlev, max_level_rows, geometry(host, 4 ints), stream
     "perphil_structured_ilu_apply": [_P] * 8 + [_I, _I, _I, _I, _P, _P],

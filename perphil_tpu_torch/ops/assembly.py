@@ -22,7 +22,7 @@ from perphil_tpu_torch.config import default_dtype
 from perphil_tpu_torch.forms.spaces import Expr, FunctionSpace, MixedFunctionSpace, _evaluate
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_stacked, pack_weights
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_stacked
 from perphil_tpu_torch.ops.stencil import apply_stencil, compile_stencils
 
 
@@ -89,15 +89,6 @@ def dpp_stencils(
     return S1, S2, C
 
 
-@lru_cache(maxsize=None)
-def dpp_weights(mesh: StructuredMesh, params: DPPParameters) -> np.ndarray:
-    """K1's host weight block of :func:`dpp_stencils`, packed once per
-    stencil set (read-only)."""
-    w = pack_weights(*dpp_stencils(mesh, params))
-    w.flags.writeable = False
-    return w
-
-
 @dataclass(frozen=True)
 class DPPOperator:
     """The BC-eliminated monolithic DPP operator:
@@ -136,13 +127,9 @@ class DPPOperator:
         dev = self.W.device
         return torch.as_tensor(bdry, device=dev), torch.as_tensor(interior, device=dev)
 
-    @property
-    def _packed(self) -> np.ndarray:
-        return dpp_weights(self.mesh, self.params)
-
     def matvec(self, z1: torch.Tensor, z2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Apply the BC-eliminated operator to grid-shaped fields (K1)."""
-        return fused_dpp_apply(z1, z2, *self._combined_stencils, mode="matvec", packed=self._packed)
+        return fused_dpp_apply(z1, z2, *self._combined_stencils, mode="matvec")
 
     def residual(
         self, z1: torch.Tensor, z2: torch.Tensor, b1: torch.Tensor, b2: torch.Tensor
@@ -155,7 +142,7 @@ class DPPOperator:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """RHS of the BC-eliminated system for zero forcing (K1): interior
         rows get ``-A[interior, boundary] g``, boundary rows get ``g``."""
-        return fused_dpp_apply(g1, g2, *self._combined_stencils, mode="lift", packed=self._packed)
+        return fused_dpp_apply(g1, g2, *self._combined_stencils, mode="lift")
 
     def flat_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """Operator on the flat field-major vector ``(2 n,)`` (K1 on a view
@@ -167,8 +154,8 @@ class DPPOperator:
     def stacked_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """Operator on stacked fields ``(2, *node_shape)`` (K1 on the stacked
         tensor, no stack)."""
-        S, packed = self._combined_stencils, self._packed
-        return lambda x: fused_dpp_apply_stacked(x, *S, mode="matvec", packed=packed)
+        S = self._combined_stencils
+        return lambda x: fused_dpp_apply_stacked(x, *S, mode="matvec")
 
     def diagonal(self) -> torch.Tensor:
         """Flat diagonal of the BC-eliminated operator (field-major)."""

@@ -22,7 +22,7 @@ in ``csrc/dpp_apply.cu``; on a CPU tensor they run the plain twin
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -54,6 +54,19 @@ def pack_weights(S1: np.ndarray, S2: np.ndarray, C: np.ndarray) -> np.ndarray:
     return w
 
 
+@lru_cache(maxsize=64)
+def _packed(*stencils: bytes) -> np.ndarray:
+    w = pack_weights(*(np.frombuffer(st) for st in stencils))
+    w.flags.writeable = False
+    return w
+
+
+def packed_weights(S1, S2, C) -> np.ndarray:
+    """:func:`pack_weights`, packed once per stencil set (read-only): the
+    wrappers' weights, keyed by the stencils' values."""
+    return _packed(*(np.ascontiguousarray(st, dtype=np.float64).tobytes() for st in (S1, S2, C)))
+
+
 def fused_dpp_apply_plain(
     z1: torch.Tensor, z2: torch.Tensor, S1, S2, C, mode: str = "matvec"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,24 +91,23 @@ def _check(z: torch.Tensor, grids: int) -> None:
         raise ValueError(f"fused_dpp_apply runs on cpu or cuda, got {z.device}")
 
 
-def _launch(z: torch.Tensor, ptrs: Tuple[int, int, int, int], grid: Tuple[int, ...], weights, mode: str):
+def _launch(z: torch.Tensor, ptrs: Tuple[int, int, int, int], grid: Tuple[int, ...], S, mode: str):
     """Launch K1 on ``grid`` (2D or 3D) with the fields at ``ptrs`` (z1, z2
-    in; y1, y2 out), of z's dtype and device."""
+    in; y1, y2 out), of z's dtype and device, and the stencils ``S``."""
     nz, ny, nx = (1,) * (3 - len(grid)) + tuple(grid)
     symbol = "perphil_dpp_apply_f64" if z.dtype == torch.float64 else "perphil_dpp_apply_f32"
-    _cuda.launch(KERNEL, symbol, z.device, *ptrs, weights.ctypes.data, nz, ny, nx, len(grid), MODES[mode], 0)
+    weights = packed_weights(*S).ctypes.data
+    _cuda.launch(KERNEL, symbol, z.device, *ptrs, weights, nz, ny, nx, len(grid), MODES[mode])
 
 
 def fused_dpp_apply(
-    z1: torch.Tensor, z2: torch.Tensor, S1, S2, C, mode: str = "matvec", packed: Optional[np.ndarray] = None
+    z1: torch.Tensor, z2: torch.Tensor, S1, S2, C, mode: str = "matvec"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply the BC-eliminated two-field operator (``mode="matvec"``) or
     lift boundary data (``mode="lift"``) on 2D/3D f32 or f64 node grids.
 
     :param S1, S2, C: ``(3,)*d`` host stencils (numpy), passed to the kernel
-        by value.
-    :param packed: their :func:`pack_weights` block, where the caller keeps
-        one (packed on each call otherwise).
+        by value (:func:`packed_weights`).
     """
     if mode not in MODES:
         raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
@@ -109,12 +121,12 @@ def fused_dpp_apply(
     y1 = torch.empty_like(z1)
     y2 = torch.empty_like(z2)
     ptrs = (z1.data_ptr(), z2.data_ptr(), y1.data_ptr(), y2.data_ptr())
-    _launch(z1, ptrs, z1.shape, pack_weights(S1, S2, C) if packed is None else packed, mode)
+    _launch(z1, ptrs, z1.shape, (S1, S2, C), mode)
     return y1, y2
 
 
 def fused_dpp_apply_stacked(
-    z: torch.Tensor, S1, S2, C, mode: str = "matvec", packed: Optional[np.ndarray] = None
+    z: torch.Tensor, S1, S2, C, mode: str = "matvec"
 ) -> torch.Tensor:
     """:func:`fused_dpp_apply` on the two fields stacked in one
     ``(2, *grid)`` tensor, into one such tensor: no stack or concatenation
@@ -128,5 +140,5 @@ def fused_dpp_apply_stacked(
     y = torch.empty_like(z)
     half = z.numel() // 2 * z.element_size()  # the second field's offset, in bytes
     ptrs = (z.data_ptr(), z.data_ptr() + half, y.data_ptr(), y.data_ptr() + half)
-    _launch(z, ptrs, z.shape[1:], pack_weights(S1, S2, C) if packed is None else packed, mode)
+    _launch(z, ptrs, z.shape[1:], (S1, S2, C), mode)
     return y

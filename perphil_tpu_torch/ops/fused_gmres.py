@@ -81,6 +81,8 @@ EF64_MAX_DOF = 512
 #: dynamic shared memory every launch plans with, in bytes (the launcher's
 #: ``kGmresSmemBudget``, read from its header)
 SMEM_BUDGET = _cuda.header_constant("fused_gmres.cuh", "kGmresSmemBudget")
+#: shared memory of one block, static and dynamic, in bytes (the H100's 227 KB)
+MAX_SMEM_PER_BLOCK = _cuda.header_constant("ilu_sweep.cuh", "kMaxSmemPerBlock")
 _WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
 _XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
 _THREADS = 512  # threads of a block
@@ -90,6 +92,17 @@ RESULT_SLOTS = 11
 MAX_BLOCKS = 16
 #: leaves of a reduction tree a thread may own (``csrc/fused_gmres.cuh``)
 MAX_LEAVES = 32
+
+
+def static_smem(pc_type: str, dim: int) -> int:
+    """The static shared memory of ``pc_type``'s kernel in ``dim``
+    dimensions, in bytes, from the built library (the card's runtime): the
+    launcher refuses a kernel that leaves less than :data:`SMEM_BUDGET` of
+    :data:`MAX_SMEM_PER_BLOCK`."""
+    nbytes = _cuda.library().perphil_fused_gmres_static_smem(PC_KINDS[pc_type], dim)
+    if nbytes < 0:
+        raise RuntimeError(f"no static shared memory for pc {pc_type!r} in {dim}D ({nbytes})")
+    return nbytes
 
 
 class LaunchGeometry(NamedTuple):

@@ -25,7 +25,7 @@ from torch import nn
 from perphil_tpu_torch.config import DeviceLike
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
-from perphil_tpu_torch.ops.assembly import dpp_stencils, dpp_weights
+from perphil_tpu_torch.ops.assembly import dpp_stencils
 from perphil_tpu_torch.ops.direct import FastDiagDPPSolver
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply
 
@@ -51,11 +51,10 @@ class MixedPrecisionDPPDirect(nn.Module):
         self.refinements = refinements
         self.fast32 = FastDiagDPPSolver(mesh, params, device=device, dtype=torch.float32)
         self.stencils = dpp_stencils(mesh, params)
-        self.packed = dpp_weights(mesh, params)
 
     def lifted_rhs(self, g1: torch.Tensor, g2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """f64 RHS with BC lifting (K1, lift mode)."""
-        return fused_dpp_apply(g1, g2, *self.stencils, mode="lift", packed=self.packed)
+        return fused_dpp_apply(g1, g2, *self.stencils, mode="lift")
 
     def solve(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Solve A z = b to ~1e-12 relative accuracy; f64 in, f64 out."""
@@ -64,7 +63,7 @@ class MixedPrecisionDPPDirect(nn.Module):
         tol = 3e-13 * max(bnorm, 1e-30)
         it, rnorm, prev = 0, bnorm, math.inf
         while it < self.refinements and rnorm > tol and rnorm < 0.5 * prev:
-            y1, y2 = fused_dpp_apply(x1, x2, *self.stencils, mode="matvec", packed=self.packed)
+            y1, y2 = fused_dpp_apply(x1, x2, *self.stencils, mode="matvec")
             r1, r2 = b1 - y1, b2 - y2
             # scale the f32 correction solve to stay in f32 range
             s = torch.clamp(torch.maximum(r1.abs().max(), r2.abs().max()), min=1e-30)

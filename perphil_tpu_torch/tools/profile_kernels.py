@@ -20,23 +20,24 @@ of the three alone.
 
 ``--only k1`` times K1 (``csrc/dpp_apply.cu``) with the package's library
 on f64 matvecs at 64^3, 128^3 (hex) and 2D N=128: the device time (CUDA
-events, launches queued behind a sleep) at the launcher's z chunk and at
-2-32 planes a block, and K1's share of the device time in the 64^3/128^3
-``TPU_DIRECT_PARAMS`` solves (``torch.profiler``) beside their wall time.
-Beside them: f32, and builds of the kernel alone (one ``nvcc`` each,
-``ptxas -v`` printed) with its copies alone and with its sums alone
-(``PERPHIL_K1_PHASE``) and with its tuning knobs set otherwise
-(``PERPHIL_K1_MIN_BLOCKS``, ``PERPHIL_K1_STAGES``, ``PERPHIL_K1_TILE_X``),
-each first held to the package's bits.
+events, launches queued behind a sleep), f32 beside it, and K1's share of
+the device time in the 64^3/128^3 ``TPU_DIRECT_PARAMS`` solves
+(``torch.profiler``) beside their wall time. Beside them: copies of the
+kernel built alone (one ``nvcc`` each, in parallel, ``ptxas -v`` printed)
+with one of its tuning constants set otherwise (``kMinBlocks``, ``kStages``,
+``kTileX``, ``kChunk``), each first held to the package's bits.
 ``--against DIR`` builds ``DIR``'s ``dpp_apply.cu`` alone (an older checkout
 unpacked under ``_checkout/``) and holds both kernels to each other, bit for
 bit in both modes and precisions, and times them in turns (older, this,
 this, older).
 
 ``--only sweeps`` builds nothing of its own: it times, with the package's
-kernels (CUDA events, median of 5), where the ILU(0) sweep runs: K7 at 2D
-N=16/32/64 and K8 at 2D N=16/64 (the kernel's time over every level it
-swept) and ``structured_ilu_apply`` on a 33^2, 65^2 and 129^2 field. It
+kernels (CUDA events, median of 5), the frame's roles where ``chip_smoke.py``
+times them (K5 at 2D N=8, K4 at N=16/64, K6 at N=64 and tet nx=8) and the
+wall of ``solve_dpp`` at 2D N=8 (host clock), and
+where the ILU(0) sweep runs: K7 at 2D N=16/32/64 and K8 at 2D N=16/64 (the
+kernel's time over every level it swept) and ``structured_ilu_apply`` on a
+33^2, 65^2 and 129^2 field. It
 uses only what every version of the package has, so that a copy of it also
 runs against an older checkout, for a comparison on the same card.
 """
@@ -62,6 +63,7 @@ from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator
 from perphil_tpu_torch.ops.fused_gmres import RESULT_SLOTS, FusedGMRESSolver
 from perphil_tpu_torch.ops.ilu import StructuredILU0
 from perphil_tpu_torch.solvers import parameters as sp
+from perphil_tpu_torch.solvers import solve_dpp
 
 PHASES = ["apply", "dots", "gram-schmidt+norm", "givens", "scale", "end barrier", "restart",
           "inner: preconditioner", "inner: field matvec", "inner: dots", "inner: vector updates"]
@@ -99,6 +101,15 @@ def build() -> ctypes.CDLL:
     dll.perphil_fused_gmres_profile.argtypes = _cuda._SIGNATURES["perphil_fused_gmres"]
     dll.perphil_structured_ilu_apply.argtypes = _cuda._SIGNATURES["perphil_structured_ilu_apply"]
     dll.perphil_ilu_profile_take.argtypes = [_P]
+    # what each profile unit's static shared memory leaves of the launches'
+    # budget (imported here: --only sweeps runs against older checkouts too)
+    from perphil_tpu_torch.ops.fused_gmres import MAX_SMEM_PER_BLOCK, PC_KINDS, SMEM_BUDGET
+
+    smem = dll.perphil_fused_gmres_profile_static_smem
+    smem.argtypes = _cuda._SIGNATURES["perphil_fused_gmres_static_smem"]
+    print("  static shared memory, margin over the budget: " + ", ".join(
+        f"{pc} {d}D {smem(kind, d)} B ({MAX_SMEM_PER_BLOCK - smem(kind, d) - SMEM_BUDGET} B)"
+        for pc, kind in PC_KINDS.items() for d in (2, 3)))
     return dll
 
 
@@ -199,6 +210,30 @@ def time_sweeps() -> None:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    # the frame's roles where chip_smoke.py times them
+    for element, n, pc, role in (("quad", 8, "none", "fused_gmres_ef64"), ("quad", 16, "none", None),
+                                 ("quad", 64, "none", None), ("quad", 64, "fieldsplit_lu", None),
+                                 ("tet", 8, "fieldsplit_lu", None)):
+        W, params, bcs, _, _ = chip_smoke.problem(element, n, dev)
+        op = DPPOperator(W, params)
+        b = chip_smoke.newton_rhs(op, bcs)
+        solver = FusedGMRESSolver(op, pc, role, **kw)
+        ms = median_ms(lambda: solver.launch(b), 5)
+        its = solver.launch(b).iterations
+        print(f"{solver.role} {element} N={n} pc {pc}: {its} iterations, {ms:.4f} ms, "
+              f"{ms * 1e3 / its:.3f} us/iteration; {solver.last_geometry}")
+    # solve_dpp's wall at 2D N=8 plain GMRES (K5, as chip_smoke.py drives it):
+    # the first call (the solver's set-up included), then the median of ten
+    W, params, bcs, _, _ = chip_smoke.problem("quad", 8, dev)
+    walls = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        its = solve_dpp(W, params, bcs, solver_parameters=sp.PLAIN_GMRES_PARAMS).iteration_number
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"solve_dpp quad N=8 PLAIN_GMRES_PARAMS: {its} iterations, wall {walls[0]:.4f} ms first, "
+          f"{statistics.median(walls[1:]):.4f} ms after (host clock, median of 10)")
     for n, pc in ((16, "ilu"), (32, "ilu"), (64, "ilu"), (16, "fieldsplit_ilu"), (64, "fieldsplit_ilu")):
         W, params, bcs, _, _ = chip_smoke.problem("quad", n, dev)
         op = DPPOperator(W, params)
@@ -221,104 +256,106 @@ def time_sweeps() -> None:
               f"{ms:.4f} ms, {ms * 1e3 / (2 * pc.num_levels):.4f} us/level; {pc.last_geometry}")
 
 
-def k1_library(root: Path, *flags: str):
-    """``root``'s ``dpp_apply.cu`` built alone (with ``flags``), and its
-    launchers with the argument types its source declares (older ones take
-    no z chunk)."""
+def k1_libraries(root: Path, variants):
+    """``root``'s ``dpp_apply.cu`` built alone, once for each variant (a dict
+    of its ``constexpr int`` constants set otherwise), one ``nvcc`` each, in
+    parallel."""
     src = root / "perphil_tpu_torch" / "csrc" / "dpp_apply.cu"
     out = _cuda.BUILD_DIR / "k1_alone"
     out.mkdir(parents=True, exist_ok=True)
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib = out / f"libdpp_apply_{key}.so"
-    log = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-shared", "-I", str(src.parent), "-o",
-                          str(lib), str(src)], check=True, capture_output=True, text=True)
-    # ptxas -v of the 3D f64 matvec kernel: registers, spills
-    lines = (log.stdout + log.stderr).splitlines()
-    for k, line in enumerate(lines):
-        if "Compiling entry function" in line and "IdLi3ELi0" in line:
-            print(f"    {root.name} {' '.join(flags)}: " + "; ".join(
-                x.split(":", 1)[-1].strip() for x in lines[k + 1:k + 4] if "spill" in x or "Used" in x))
-    dll = ctypes.CDLL(str(lib))
-    decl = re.search(r"perphil_dpp_apply_f64\((.*?)\)", src.read_text(), re.S).group(1)
-    ints = decl.count("int ")
-    for name in ("perphil_dpp_apply_f64", "perphil_dpp_apply_f32"):
-        getattr(dll, name).argtypes = [_P] * 5 + [ctypes.c_int] * ints + [_P]
-    return dll, ints
+    jobs = []
+    for constants in variants:
+        text = src.read_text()
+        for name, value in constants.items():
+            text, found = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", text)
+            if found != 1:
+                raise RuntimeError(f"no constexpr int {name} in {src}")
+        key = hashlib.sha256(text.encode()).hexdigest()[:16]
+        copy, lib = out / f"dpp_apply_{key}.cu", out / f"libdpp_apply_{key}.so"
+        copy.write_text(text)
+        proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(src.parent), "-o",
+                                 str(lib), str(copy)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((constants, lib, proc))
+    dlls = []
+    for constants, lib, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(log)
+        tag = " ".join(f"{k}={v}" for k, v in constants.items()) or "as built"
+        # ptxas -v of the 3D f64 matvec kernel: registers, spills
+        lines = log.splitlines()
+        for k, line in enumerate(lines):
+            if "Compiling entry function" in line and "IdLi3ELi0" in line:
+                print(f"    {root.name} {tag}: " + "; ".join(
+                    x.split(":", 1)[-1].strip() for x in lines[k + 1:k + 4] if "spill" in x or "Used" in x))
+        dll = ctypes.CDLL(str(lib))
+        for name in ("perphil_dpp_apply_f64", "perphil_dpp_apply_f32"):
+            getattr(dll, name).argtypes = _cuda._SIGNATURES[name]
+        dlls.append((tag, dll))
+    return dlls
 
 
 def time_k1(against: Optional[Path]) -> None:
     import chip_smoke
-    from perphil_tpu_torch.ops.assembly import dpp_stencils, dpp_weights
-    from perphil_tpu_torch.ops.fused_apply import MODES, fused_dpp_apply_stacked
+    from perphil_tpu_torch.ops.assembly import dpp_stencils
+    from perphil_tpu_torch.ops.fused_apply import MODES, fused_dpp_apply_stacked, packed_weights
     from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze
 
     dev = torch.device("cuda", torch.cuda.current_device())
     stream = torch.cuda.current_stream().cuda_stream
     lib = _cuda.library()
-    old = None if against is None else k1_library(against)
-    # the kernel with its copies alone and with its sums alone (PERPHIL_K1_PHASE),
-    # and with other tuning knobs
+    old = None if against is None else k1_libraries(against, [{}])[0][1]
+    # the kernel with one tuning constant set otherwise
     here = Path(__file__).resolve().parents[2]
-    phases = {name: k1_library(here, f"-DPERPHIL_K1_PHASE={v}")[0] for name, v in (("copies", 1), ("sums", 2))}
-    knobs = {flags: k1_library(here, *flags)[0] for flags in (
-        (), ("-DPERPHIL_K1_MIN_BLOCKS=1",), ("-DPERPHIL_K1_MIN_BLOCKS=5",), ("-DPERPHIL_K1_STAGES=3",),
-        ("-DPERPHIL_K1_TILE_X=32",))}
+    knobs = k1_libraries(here, [{}, {"kMinBlocks": 1}, {"kMinBlocks": 5}, {"kStages": 3}, {"kTileX": 32},
+                                *({"kChunk": c} for c in (1, 2, 8, 16, 32))])
     gen = torch.Generator().manual_seed(0)
 
-    def call(dll, ints, dtype, z, y, w, shape, mode, chunk=0):
+    def call(dll, dtype, z, y, w, shape, mode):
         nz, ny, nx = (1,) * (3 - len(shape)) + tuple(shape)
         half = z[0].numel() * z.element_size()
         sym = "perphil_dpp_apply_f64" if dtype == torch.float64 else "perphil_dpp_apply_f32"
-        args = [z.data_ptr(), z.data_ptr() + half, y.data_ptr(), y.data_ptr() + half, w.ctypes.data,
-                nz, ny, nx, len(shape), MODES[mode]] + ([chunk] if ints == 6 else []) + [stream]
-        err = getattr(dll, sym)(*args)
+        err = getattr(dll, sym)(z.data_ptr(), z.data_ptr() + half, y.data_ptr(), y.data_ptr() + half,
+                                w.ctypes.data, nz, ny, nx, len(shape), MODES[mode], stream)
         if err:
             raise RuntimeError(f"{sym}: CUDA error {err}")
 
     for element, n in (("hex", 64), ("hex", 128), ("quad", 128)):
         W, params, _, _, _ = chip_smoke.problem(element, n, dev)
-        shape, S, w = W.mesh.node_shape, dpp_stencils(W.mesh, params), dpp_weights(W.mesh, params)
+        shape, S = W.mesh.node_shape, dpp_stencils(W.mesh, params)
+        w = packed_weights(*S)
         z = torch.randn((2,) + tuple(shape), generator=gen, dtype=torch.float64).to(dev)
         y = torch.empty_like(z)
         nbytes = 4 * 8 * W.mesh.num_vertices
-        ms = chip_smoke.queued_ms(lambda: fused_dpp_apply_stacked(z, *S, packed=w))
+        ms = chip_smoke.queued_ms(lambda: fused_dpp_apply_stacked(z, *S))
         line = (f"K1 {element} N={n} f64 matvec: {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
                 f"bytes bound {nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3:.4f} ms)")
-        line += "; " + ", ".join(
-            f"{name} alone {chip_smoke.queued_ms(lambda: call(d, 6, torch.float64, z, y, w, shape, 'matvec')):.4f}"
-            for name, d in phases.items())
         # each build of the knobs computes the package's bits
-        for flags, d in knobs.items():
+        for tag, d in knobs:
             for mode in MODES:
-                call(d, 6, torch.float64, z, y, w, shape, mode)
-                if not torch.equal(y, fused_dpp_apply_stacked(z, *S, mode=mode, packed=w)):
-                    raise RuntimeError(f"K1 built with {flags} {mode}: not the package's bits")
+                call(d, torch.float64, z, y, w, shape, mode)
+                if not torch.equal(y, fused_dpp_apply_stacked(z, *S, mode=mode)):
+                    raise RuntimeError(f"K1 built with {tag} {mode}: not the package's bits")
         line += "; " + ", ".join(
-            f"{' '.join(f[2:] for f in flags) or 'as built'} "
-            f"{chip_smoke.queued_ms(lambda: call(d, 6, torch.float64, z, y, w, shape, 'matvec')):.4f}"
-            for flags, d in knobs.items())
+            f"{tag} {chip_smoke.queued_ms(lambda: call(d, torch.float64, z, y, w, shape, 'matvec')):.4f}"
+            for tag, d in knobs)
         z32, y32 = z.float(), y.float()
-        line += f"; f32 {chip_smoke.queued_ms(lambda: call(lib, 6, torch.float32, z32, y32, w, shape, 'matvec')):.4f}"
-        if len(shape) == 3:
-            line += "; by z planes a block: " + ", ".join(
-                f"{c}: {chip_smoke.queued_ms(lambda: call(lib, 6, torch.float64, z, y, w, shape, 'matvec', c)):.4f}"
-                for c in (1, 2, 4, 8, 16, 32))
+        line += f"; f32 {chip_smoke.queued_ms(lambda: call(lib, torch.float32, z32, y32, w, shape, 'matvec')):.4f}"
         print(line)
         if old is None:
             continue
-        dll, ints = old
         for dtype in (torch.float64, torch.float32):
             zt, yt, ref = z.to(dtype), torch.empty_like(z, dtype=dtype), torch.empty_like(z, dtype=dtype)
             for mode in MODES:
-                call(lib, 6, dtype, zt, yt, w, shape, mode)
-                call(dll, ints, dtype, zt, ref, w, shape, mode)
+                call(lib, dtype, zt, yt, w, shape, mode)
+                call(old, dtype, zt, ref, w, shape, mode)
                 torch.cuda.synchronize()
                 print(f"    {dtype} {mode}: max abs diff against {against.name}'s kernel "
                       f"{float((yt - ref).abs().max()):.1e}, bit-equal {torch.equal(yt, ref)}")
-        turns = [("older", dll, ints), ("this", lib, 6), ("this", lib, 6), ("older", dll, ints)]
+        turns = [("older", old), ("this", lib), ("this", lib), ("older", old)]
         print("    in turns (f64 matvec): " + ", ".join(
-            f"{name} {chip_smoke.queued_ms(lambda: call(d, k, torch.float64, z, y, w, shape, 'matvec')):.4f} ms"
-            for name, d, k in turns))
+            f"{name} {chip_smoke.queued_ms(lambda: call(d, torch.float64, z, y, w, shape, 'matvec')):.4f} ms"
+            for name, d in turns))
 
     presets = chip_smoke.presets()
     for n in (64, 128):

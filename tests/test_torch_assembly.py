@@ -23,6 +23,7 @@ from perphil_tpu_torch.ops.fused_apply import (
     fused_dpp_apply_plain,
     fused_dpp_apply_stacked,
     pack_weights,
+    packed_weights,
 )
 
 PARAMS = dict(k1=1.3, beta=0.8, mu=1.1)
@@ -136,7 +137,7 @@ def test_k1_stacked_entry_is_the_pair_path(element, cells, mode):
     S = dpp_stencils(op.mesh, op.params)
     z = torch.stack([torch.as_tensor(z1), torch.as_tensor(z2)])
     before = dict(_cuda.KERNEL_LAUNCHES)
-    y = fused_dpp_apply_stacked(z, *S, mode=mode, packed=pack_weights(*S))
+    y = fused_dpp_apply_stacked(z, *S, mode=mode)
     assert torch.equal(y, torch.stack(fused_dpp_apply(z[0], z[1], *S, mode=mode)))
     if mode == "matvec":
         assert torch.equal(op.stacked_matvec()(z), y)
@@ -153,6 +154,11 @@ def test_box_boundary_and_weights():
     w = pack_weights(S1, S2, C)
     assert w.shape == (3, 27) and w.dtype == np.float64
     assert np.array_equal(w[:, :9], np.repeat([[1.0], [2.0], [3.0]], 9, axis=1)) and not w[:, 9:].any()
+    # the wrappers' weights: packed once per stencil set, by value, read-only
+    cached = packed_weights(S1, S2, C)
+    assert np.array_equal(cached, w) and not cached.flags.writeable
+    assert packed_weights(S1.copy(), S2, C) is cached
+    assert np.array_equal(packed_weights(S2, S1, C)[:2], w[[1, 0]])
 
 
 def test_padding_is_not_ported():

@@ -15,18 +15,19 @@ from perphil_tpu_torch.ops.fused_apply import (
     fused_dpp_apply,
     fused_dpp_apply_plain,
     fused_dpp_apply_stacked,
-    pack_weights,
 )
 from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
 from perphil_tpu_torch.ops.fused_gmres import (
     K4,
     K5,
+    MAX_SMEM_PER_BLOCK,
     SMEM_BUDGET,
     FusedGMRESSolver,
     fused_gmres_plan,
     fused_gmres_supported,
     launch_geometry,
     plan_smem,
+    static_smem,
 )
 from perphil_tpu_torch.ops.ilu import StructuredILU0, ilu_plan
 
@@ -99,7 +100,7 @@ def test_k1_tiles_match_twin(cuda, element, cells, dtype, tol, mode):
     z = torch.stack(state.grids).to(dtype)
     before = _cuda.KERNEL_LAUNCHES["fused_dpp_apply"]
     y1, y2 = fused_dpp_apply(z[0], z[1], *S, mode=mode)
-    y = fused_dpp_apply_stacked(z, *S, mode=mode, packed=pack_weights(*S))
+    y = fused_dpp_apply_stacked(z, *S, mode=mode)
     torch.cuda.synchronize()
     assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply"] == before + 2
     assert y.shape == z.shape and y.dtype == dtype
@@ -218,11 +219,19 @@ def test_fused_gmres_every_block_count(cuda, pc, max_it, tol, blocks, cells):
     assert _rel(got.x, ref.x) <= tol
 
 
-LEAF_MESHES = [  # leaves a thread on 16 blocks, cells: 2 (nx + 1) (ny + 1) values, no multiple of 512
-    (4, (100, 110)),  # 22,422
-    (8, (150, 160)),  # 48,622
-    (16, (220, 230)),  # 102,102
-    (32, (300, 320)),  # 193,242
+LEAF_MESHES = [  # leaves a thread on 16 blocks, element, cells: 2 (nx + 1) (ny + 1) [(nz + 1)] values,
+    # no multiple of 512
+    (4, "quad", (100, 110)),  # 22,422
+    (8, "quad", (150, 160)),  # 48,622
+    (16, "quad", (220, 230)),  # 102,102
+    (32, "quad", (300, 320)),  # 193,242
+    # 3D, the preconditioned roles only: K7's 40 offsets a side on the direct
+    # loop, K8's field sweep, K6's eigenbases in shared memory (8 leaves) and
+    # outside it (16)
+    (8, "hex", (30, 28, 26)),  # 48,546
+    (8, "tet", (30, 28, 26)),
+    (16, "hex", (40, 36, 34)),  # 106,190
+    (16, "tet", (40, 36, 34)),
 ]
 LEAF_PCS = [  # pc, max_it (the twins stay short), bound on the relative difference
     ("none", 40, 0.0),
@@ -231,19 +240,24 @@ LEAF_PCS = [  # pc, max_it (the twins stay short), bound on the relative differe
     ("fieldsplit_lu", 3, 1e-10),
     ("fieldsplit_ilu", 1, 0.0),
 ]
-# every role the gate admits there (the fieldsplit roles' slices leave out 32 leaves)
-LEAF_CASES = [(pc, it, tol, leaves, cells) for pc, it, tol in LEAF_PCS for leaves, cells in LEAF_MESHES
-              if leaves < 32 or not pc.startswith("fieldsplit")]
+# every role the gate admits there (the fieldsplit roles' slices leave out 32
+# leaves; plain and Jacobi GMRES run in 3D at 16 and 32 leaves in chip_smoke.py)
+LEAF_CASES = [(pc, it, tol, leaves, element, cells) for pc, it, tol in LEAF_PCS
+              for leaves, element, cells in LEAF_MESHES
+              if (leaves < 32 or not pc.startswith("fieldsplit")) and (element == "quad" or pc not in ("none", "jacobi"))]
 
 
 @pytest.mark.parametrize(
-    "pc,max_it,tol,leaves,cells", LEAF_CASES, ids=[f"{c[0]}-{c[3]}" for c in LEAF_CASES]
+    "pc,max_it,tol,leaves,element,cells", LEAF_CASES,
+    ids=[f"{c[0]}-{c[3]}" if c[4] == "quad" else f"{c[0]}-{c[4]}{c[3]}" for c in LEAF_CASES],
 )
-def test_fused_gmres_every_leaf_count(cuda, pc, max_it, tol, leaves, cells):
+def test_fused_gmres_every_leaf_count(cuda, pc, max_it, tol, leaves, element, cells):
     """The 16-block cluster at 4 to 32 leaves a thread (the frame's and the
     inner PCG's per-leaf loops, the many-leaf tree, the basis in device
-    memory), against the twin, with max_it bounded."""
-    state = _state("quad", cells, cuda, seed=11)
+    memory), in 2D and, for the preconditioned roles, 3D, against the twin,
+    with max_it bounded; the shared memory the launcher reports is the
+    gate's plan."""
+    state = _state(element, cells, cuda, seed=11)
     op = DPPOperator(state.W, state.params)
     assert fused_gmres_supported(op, pc)
     solver = FusedGMRESSolver(op, pc, rtol=1e-12, atol=1e-50, max_it=max_it)
@@ -259,7 +273,20 @@ def test_fused_gmres_every_leaf_count(cuda, pc, max_it, tol, leaves, cells):
     assert _rel(got.x, ref.x) <= tol
     plan = fused_gmres_plan(solver.node_shape, pc)
     geo = solver.last_geometry
-    assert (geo.basis_smem, geo.input_smem) == (plan.basis_smem, plan.input_smem)
+    assert (geo.basis_smem, geo.input_smem, geo.p_smem, geo.s_smem) == (
+        plan.basis_smem, plan.input_smem, plan.p_smem, plan.s_smem)
+    if plan.ilu is not None:
+        assert geo.ilu_z_smem == plan.ilu.z_smem
+
+
+@pytest.mark.parametrize("pc", ["none", "jacobi", "ilu", "fieldsplit_lu", "fieldsplit_ilu"])
+def test_fused_gmres_units_leave_the_budget(cuda, pc):
+    """Each role's kernel, 2D and 3D, leaves the launches' budget
+    (kGmresSmemBudget) of a block's shared memory beside its static shared
+    memory: the gate plans with that budget, so a unit that leaves less
+    would refuse every launch."""
+    for dim in (2, 3):
+        assert MAX_SMEM_PER_BLOCK - static_smem(pc, dim) >= SMEM_BUDGET
 
 
 def test_fused_gmres_rejects_bad_inputs(cuda):

@@ -46,7 +46,6 @@ from perphil_tpu_torch.ops.fused_gmres import (
     fused_gmres_ef64,
     fused_gmres_supported,
     launch_geometry,
-    plan_smem,
 )
 from perphil_tpu_torch.ops.ilu import build_field_system, build_monolithic_system, schedule_shape
 from perphil_tpu_torch.ops.krylov import gmres, gmres_ef64, tree_sum
@@ -285,31 +284,27 @@ ENVELOPE = [
 _COLUMN = {"none": 0, "jacobi": 0, "ilu": 1, "fieldsplit_ilu": 2, "fieldsplit_lu": 3}
 
 
-def _launcher_places(node_shape, pc):
-    """The launcher's own answer: its geometry, then its shared-memory plan
-    at the header's budget (the ILU schedule from the shape)."""
-    try:
-        launch_geometry(2 * math.prod(node_shape))
-        ilu = schedule_shape(node_shape, 2 if pc == "ilu" else 1) if "ilu" in pc else None
-        plan_smem(node_shape, pc, _cuda.header_constant("fused_gmres.cuh", "kGmresSmemBudget"), ilu_shape=ilu)
-    except ValueError:
-        return False
-    return True
-
-
 @pytest.mark.parametrize("pc", ["none", "jacobi", "ilu", "fieldsplit_ilu", "fieldsplit_lu"])
 @pytest.mark.parametrize(
     "element,cells,inside,jax_inside", ENVELOPE, ids=[f"{e}{c[0]}x{c[1]}" for e, c, *_ in ENVELOPE]
 )
 def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, inside, jax_inside, pc):
-    """The gate is the launcher's plan, and admits everything the JAX gate
-    admits (the JAX package keeps its TPU rule, so the port's envelope is a
+    """The gate is the launcher's plan (the table above, worked out from the
+    leaves a thread and the slices' bytes; the card's tests hold the plan to
+    what the launcher reports), and admits everything the JAX gate admits
+    (the JAX package keeps its TPU rule, so the port's envelope is a
     superset of it)."""
     shape = tuple(c + 1 for c in reversed(cells))
     state = from_numpy_state({}, cells, element, np.zeros(shape), np.zeros(shape), device="cpu")
     op = DPPOperator(state.W, state.params)
     expected = inside[_COLUMN[pc]]
-    assert fused_gmres_supported(op, pc) == _launcher_places(shape, pc) == expected
+    assert fused_gmres_supported(op, pc) == expected
+    if pc in ("none", "jacobi"):  # bounded by the leaves a thread alone
+        try:
+            placed = launch_geometry(2 * math.prod(shape)).leaves <= 32
+        except ValueError:
+            placed = False
+        assert placed == expected
     if jax_inside is not None:
         monkeypatch.setenv("PERPHIL_TPU_FUSED_GMRES", "force")  # judge the gate off-TPU
         mesh = _jax_mesh(element, cells)
