@@ -15,8 +15,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      shapes the main path gives it: K1 in both modes and precisions and
      both entries (the stacked one bit for bit the pair's), timed with its
      launches queued, beside one ``conv3d``, and the host wall of one
-     ``stacked_matvec()`` call at 2D N=128; K2 and K3, beside one
-     ``torch.linalg.solve`` on the dense system; the fused GMRES roles K5
+     ``stacked_matvec()`` call at 2D N=128; K2 (quad N=4/16/64, hex nx=16,
+     hex nx=32 on a cluster of 8 blocks) and K3 (tri N=8, tet nx=4/12, tet
+     nx=32 on 16 blocks), their device time (launches queued)
+     apart from their call time, beside an empty kernel's (the floor) and
+     one ``torch.linalg.solve`` on the dense system; the fused GMRES roles K5
      (2D N=8), K4 (2D N=16/64/128 pc none, N=64 jacobi, tet nx=16/32/40),
      K7 (2D N=64/128/256), K6 (2D N=64, tet nx=8/32), K8 (2D N=16/64/128), equal
      counts and bits (K6 within 1e-10; the twin bounded to a few steps at
@@ -27,7 +30,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (monolithic) and on a 129^2 field system, bit-equal;
   4. drives the direct path — ``solve_dpp`` with ``LINEAR_SOLVER_PARAMS`` at
      2D quad N=4 and N=16 (golden errors) and 3D tet nx=4, 16 and 32 (the
-     last two beyond K3: cg with K1), and with ``TPU_DIRECT_PARAMS`` at 3D
+     last two on K3's cluster placement), and with ``TPU_DIRECT_PARAMS`` at 3D
      hex 64^3 and 128^3 (f64 relative residual < 1e-10) — with every launch
      counter reset just before, and fails if a kernel of the path did not
      run;
@@ -43,8 +46,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      ``FIELDSPLIT_GMRES_PARAMS`` at N=16 (4); GMRES+ILU at N=512 (no
      published count; the host loop with ``structured_ilu_apply``);
   7. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
-     events, and works out each kernel's bound from this run's shapes and
-     iteration counts.
+     events, and the cached direct solves at 2D N=16 and tet nx=4 (K2, K3)
+     with the host clock, and works out each kernel's bound from this run's
+     shapes and iteration counts.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -554,52 +558,66 @@ def main() -> int:
           f"(bound {results[key]['bound'][0]:.6f} ms), op.stacked_matvec() host wall {host_ms:.4f} ms a call "
           f"(1000 calls, one synchronise)")
 
-    for n in (4, 16):
-        W, params, bcs, _, _ = problem("quad", n, dev)
+    # K2 and K3 against their twins at the main path's shapes (quad N=4/16,
+    # tet nx=4) and each placement's largest published shape (one block:
+    # quad N=64, hex nx=16, tet nx=12; a cluster: hex nx=32 on 8 blocks, tet
+    # nx=32 on 16); the device time (launches queued) apart from the call's
+    # (events around the Python call), beside the floor of both: an empty
+    # kernel through the same ctypes interface
+    lib, stream = _cuda.library(), torch.cuda.current_stream().cuda_stream
+
+    def empty():
+        _cuda.check(lib.perphil_empty_launch(stream), "perphil_empty_launch")
+
+    floor = (queued_ms(empty), time_ms(empty, repeats=50))
+    print(f"launch floor (an empty kernel through ctypes): device {floor[0]:.4f} ms, call {floor[1]:.4f} ms")
+    for element, n in (("quad", 4), ("quad", 16), ("quad", 64), ("hex", 16), ("hex", 32), ("triangle", 8),
+                       ("tet", 4), ("tet", 12), ("tet", 32)):
+        W, params, bcs, _, _ = problem(element, n, dev)
         op = DPPOperator(W, params)
-        k2 = fused_direct_solve(op)
         b = torch.stack(op.lifted_rhs(*[bc.grid_values(W.mesh) for bc in bcs])).contiguous()
-        x, xp = k2.launch(b), k2.plain(b)
+        name = "K2" if W.mesh.is_tensor_product else "K3"
+        if name == "K2":
+            solver = fused_direct_solve(op)
+            x, xp = solver.launch(b), solver.plain(b)
+            counts = ""
+        else:
+            solver = fused_simplicial_direct_solve(op)
+            (x, its), (xp, its_p) = solver.launch(b), solver.plain(b)
+            its = int(its.item())
+            counts = f", iterations {its} vs twin {its_p}"
+            check(abs(its - its_p) <= 2, f"K3 {element} N={n} iterations")
         torch.cuda.synchronize()
         err = rel(x, xp)
-        print(f"K2 quad N={n}: max rel diff vs twin {err:.3e} (bound 1e-11)")
-        check(err <= 1e-11, f"K2 quad N={n}")
-        if n == 16:
-            nint = W.mesh.num_interior_vertices
+        check(err <= 1e-11, f"{name} {element} N={n} vs twin")
+        device_ms = queued_ms(lambda: solver.launch(b))
+        call_ms = time_ms(lambda: solver.launch(b), repeats=20)
+        print(f"{name} {element} N={n}: {solver.last_placement}, max rel diff vs twin {err:.3e} (bound 1e-11)"
+              f"{counts}; device {device_ms:.4f} ms, call {call_ms:.4f} ms (floor {floor[0]:.4f} / {floor[1]:.4f})")
+        nv, nint = W.mesh.num_vertices, W.mesh.num_interior_vertices
+        if (element, n) == ("quad", 16):
             solve32 = 2 * 2 * transform_flops(W.mesh) + 10 * nint  # 2 fields, 2 ways, 2x2 solves
-            refine = k2.refinements
+            refine = solver.refinements
             results["fused_direct_solve"] = dict(
-                max_abs_err=float((x - xp).abs().max()),
-                ms=time_ms(lambda: k2.launch(b)),
-                plain_ms=time_ms(lambda: k2.plain(b)),
+                max_abs_err=float((x - xp).abs().max()), ms=device_ms, call_ms=call_ms,
+                plain_ms=time_ms(lambda: solver.plain(b)),
                 bound=bound(
-                    4 * 8 * W.mesh.num_vertices,
-                    refine * (matvec_flops(W.mesh, params) + 4 * W.mesh.num_vertices),
+                    4 * 8 * nv,
+                    refine * (matvec_flops(W.mesh, params) + 4 * nv),
                     (refine + 1) * solve32,
                 ),
                 shape="quad 16^2",
                 library_ms=library_solve(op, b, x, "K2 quad N=16"),
             )
-
-    W, params, bcs, _, _ = problem("tet", 4, dev)
-    op = DPPOperator(W, params)
-    k3 = fused_simplicial_direct_solve(op)
-    b = torch.stack(op.lifted_rhs(*[bc.grid_values(W.mesh) for bc in bcs])).contiguous()
-    (x, its), (xp, its_p) = k3.launch(b), k3.plain(b)
-    its = int(its.item())
-    err = rel(x, xp)
-    print(f"K3 tet nx=4: max rel diff vs twin {err:.3e} (bound 1e-11), iterations {its} vs twin {its_p}")
-    check(err <= 1e-11 and abs(its - its_p) <= 2, "K3 tet nx=4")
-    n, nint = W.mesh.num_vertices, W.mesh.num_interior_vertices
-    pcg_step = matvec_flops(W.mesh, params) + 2 * 2 * transform_flops(W.mesh) + 2 * nint + 24 * n
-    results["fused_simplicial_direct_solve"] = dict(
-        max_abs_err=float((x - xp).abs().max()),
-        ms=time_ms(lambda: k3.launch(b)),
-        plain_ms=time_ms(lambda: k3.plain(b)),
-        bound=bound(4 * 8 * n, (its + 1) * pcg_step),
-        shape=f"tet 4^3, {its} PCG iterations",
-        library_ms=library_solve(op, b, x, "K3 tet nx=4"),
-    )
+        elif (element, n) == ("tet", 4):
+            pcg_step = matvec_flops(W.mesh, params) + 2 * 2 * transform_flops(W.mesh) + 2 * nint + 24 * nv
+            results["fused_simplicial_direct_solve"] = dict(
+                max_abs_err=float((x - xp).abs().max()), ms=device_ms, call_ms=call_ms,
+                plain_ms=time_ms(lambda: solver.plain(b)),
+                bound=bound(4 * 8 * nv, (its + 1) * pcg_step),
+                shape=f"tet 4^3, {its} PCG iterations",
+                library_ms=library_solve(op, b, x, "K3 tet nx=4"),
+            )
     torch.cuda.synchronize()
 
     # the fused GMRES roles against their twin (on the card), on the
@@ -755,8 +773,7 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels checked against their twins")
 
     # -- 4. the direct path, counted --------------------------------------
-    # tet nx=16 and 32 lie beyond K3's envelope: cg with the lumped
-    # fast-diag preconditioner and one K1 matvec an iteration
+    # tet nx=16 and 32 run K3 on a thread block cluster (2 and 16 blocks)
     cases = [("quad", 4, "LINEAR_SOLVER_PARAMS"), ("quad", 16, "LINEAR_SOLVER_PARAMS"),
              ("tet", 4, "LINEAR_SOLVER_PARAMS"), ("tet", 16, "LINEAR_SOLVER_PARAMS"),
              ("tet", 32, "LINEAR_SOLVER_PARAMS"), ("hex", 64, "TPU_DIRECT_PARAMS"),
@@ -771,6 +788,10 @@ def main() -> int:
     ):
         z1, z2 = sol.solution.data
         check(sol.iteration_number == 1 and sol.residual_error == 0.0, "preonly reports 1 / 0.0")
+        # one launch of K2 (quad) or K3 (tet) a solve; the 64^3/128^3 hex
+        # solves lie beyond K2's plan (mixed precision, K1 residuals)
+        fused = {"quad": "fused_direct_solve", "tet": "fused_simplicial_direct_solve"}.get(element)
+        check(fused is None or counts.get(fused) == 1, f"{element} N={n} {preset} ran {fused} once")
         check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
         check(z1.device == dev and tuple(z1.shape) == W.mesh.node_shape, "solution on the card")
         # f64 relative residual with the plain operator (no kernel involved)
@@ -863,15 +884,25 @@ def main() -> int:
 
     # -- 7. end-to-end solve times, the kernel table ----------------------
     for (element, n, preset), (W, params, bcs, _, _) in zip(cases, setups):
-        if n < 64:
-            continue
         solver = _build_linear_solver(W, params, _freeze(PRESETS[preset]))
         g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
-        ms = time_ms(lambda: solver(g1, g2), repeats=10)
-        print(f"hex {n}^3 {preset}: lift + direct solve median {ms:.4f} ms (CUDA events, 10 runs) on {smi}")
+        if n >= 64:
+            ms = time_ms(lambda: solver(g1, g2), repeats=10)
+            print(f"hex {n}^3 {preset}: lift + direct solve median {ms:.4f} ms (CUDA events, 10 runs) on {smi}")
+        elif (element, n) in (("quad", 16), ("tet", 4)):  # the cached solve on K2 / K3
+            walls = []
+            for _ in range(11):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solver(g1, g2)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            print(f"solve_dpp {element} N={n} {preset}: cached solve (lift + K{2 if element == 'quad' else 3}) "
+                  f"median {statistics.median(walls[1:]):.4f} ms (host clock, 10 runs) on {smi}")
     for name, r in results.items():
         if "@" in name or name not in KERNELS:
-            print(f"{name.split('@')[0]} [{r['shape']}]: kernel {r['ms']:.4f} ms, "
+            print(f"{name.split('@')[0]} [{r['shape']}]: kernel {r['ms']:.4f} ms"
+                  + (f" (call {r['call_ms']:.4f} ms)" if r.get("call_ms") else "") + ", "
                   f"plain twin {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})"
                   + (f", library call {r['library_ms']:.4f} ms" if r.get("library_ms") else "")
                   + f" (CUDA events) on {smi}")

@@ -40,7 +40,7 @@
 //     is read from shared memory once per column (18 loads a node) and feeds
 //     all three.
 //   - Every output keeps the first design's order and expression: offsets
-//     dz, dy, dx ascending, a += s*u + c*v as dpp_apply_node writes it, so
+//     dz, dy, dx ascending, each term a += s*u + c*v (term below), so
 //     K1's bits are that design's (the host routes' counts rest on them).
 //   - 2D is the same kernel with one plane.
 
@@ -90,7 +90,7 @@ __device__ __forceinline__ void copies_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// One term of an output's sum, in dpp_apply_node's expression.
+// One term of an output's sum: a += s*u + c*v, as the compiler contracts it.
 template <typename T>
 __device__ __forceinline__ void term(T& a1, T& a2, const DppWeights<T>& w, int o, T u, T v) {
   a1 += w.s1[o] * u + w.c[o] * v;

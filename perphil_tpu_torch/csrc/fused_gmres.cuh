@@ -28,8 +28,7 @@
 // same pairwise halving tree as the twin's tree_sum, and every multiply and
 // add rounds on its own (__dmul_rn/__dadd_rn: nvcc would otherwise contract
 // them into FMAs). The matvecs keep apply_stencil's order (S pass, C pass,
-// then their sum), which is not dpp_apply_node's interleaved, contracted
-// order. The ILU sweeps (ilu_sweep.cuh) and the inner PCG keep the twin's
+// then their sum), which is not K1's interleaved, contracted order. The ILU sweeps (ilu_sweep.cuh) and the inner PCG keep the twin's
 // order too, so K7 and K8 equal their twins bit for bit; K6's fast-diag
 // transforms sum in another order than torch.matmul's, so K6 agrees with its
 // twin to rounding.

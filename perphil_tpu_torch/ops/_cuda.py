@@ -51,14 +51,15 @@ _SIGNATURES = {
     # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode, stream
     "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # b, x, r, work, Sx, Sy, Sz, a11, a22, det, a12, weights, nz, ny, nx, dim,
-    # refinements, stream
-    "perphil_fused_direct": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _P,
-                             _I, _I, _I, _I, _I, _P],
-    # b, x, its, work, Sx, Sy, Sz, sc, weights, nz, ny, nx, dim, rtol,
-    # max_it, stream
-    "perphil_fused_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _D, _I, _P],
+    # b, x, Sx, Sy, Sz, a11, a22, det, a12, weights, nz, ny, nx, dim,
+    # refinements, placement(host, 4 ints), stream
+    "perphil_fused_direct": [_P] * 8 + [_F, _P] + [_I] * 5 + [_P, _P],
+    # b, x, its, Sx, Sy, Sz, sc, dense, weights, nz, ny, nx, dim, rtol,
+    # max_it, placement(host, 4 ints), stream
+    "perphil_fused_pcg": [_P] * 9 + [_I] * 4 + [_D, _I, _P, _P],
+    # dim (returns the kernels' largest static shared memory in bytes, < 0: none)
+    "perphil_fused_direct_static_smem": [_I],
+    "perphil_fused_pcg_static_smem": [_I],
     # b, x0, x, V, work, xchg, result, weights, mass, dinv, F0L, F0U, F1L, F1U,
     # level_ptr, level_rows, ilu_meta, Sx, Sy, Sz, sc, nz, ny, nx, dim, pc, noffs, nlev,
     # rtol, atol, dtol, max_it, restart, coef, in_rtol, in_atol, in_max,
@@ -69,6 +70,8 @@ _SIGNATURES = {
     # r, z, y, packed_lower, packed_upper, level_ptr, level_rows, meta, noffs,
     # nrows, nlev, max_level_rows, geometry(host, 4 ints), stream
     "perphil_structured_ilu_apply": [_P] * 8 + [_I, _I, _I, _I, _P, _P],
+    # stream (an empty kernel: the floor of a launch through this interface)
+    "perphil_empty_launch": [_P],
 }
 
 _LIB = None

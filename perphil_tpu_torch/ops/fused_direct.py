@@ -13,48 +13,162 @@ Each returns an ``nn.Module`` whose call ``(b1, b2) -> (z1, z2)`` launches
 the kernel on CUDA tensors and runs the plain PyTorch twin (``.plain``) on
 CPU tensors.
 
-The envelope stands for the JAX gate ``_geometry(op).Rp <= 512``
-(``pallas_direct.py:49-76``) without the packed layout: that layout stacks
-both fields' planes of ``rows + 2`` halo'd rows into at most 512 rows
-(``planes * (rows + 2) <= 256`` per field) and puts one row of ``cols + 2``
-nodes in 128 lanes (``cols <= 126``).
+Which meshes they can take is the launchers' own plan (:func:`direct_plan`,
+``csrc/direct_smem.cuh``): one thread block whose shared memory holds the
+solve's working set (quad N <= 65, hex nx <= 17, tri N <= 51, tet nx <= 14),
+else a thread block cluster of 2-16 blocks that spread it (up to quad
+N=257, hex nx=41, tri N=241, tet nx=39), within one budget a block
+(:data:`SMEM_BUDGET`, the header's ``kDirectSmemBudget``). The TPU's gate
+(``_geometry(op).Rp <= 512``: its packed VMEM layout of 512 rows and 128
+lanes) does not bound the card. The solve route takes a kernel up to the
+largest mesh it was measured faster on than the route that mesh took before
+(:data:`JOIN_MAX_NODES`: quad N <= 96, tri N <= 170, every hex and tet mesh
+the plan places).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
 from perphil_tpu_torch.ops.direct import FastDiagDPPSolver, LumpedDPPPreconditioner
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain, pack_weights
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain, packed_weights
 from perphil_tpu_torch.ops.krylov import cg
 
 K2 = "fused_direct_solve"
 K3 = "fused_simplicial_direct_solve"
 
-_MAX_ROW_NODES = 126
-_MAX_HALO_ROWS = 256
+#: dynamic shared memory a launch may plan with, in bytes
+SMEM_BUDGET = _cuda.header_constant("direct_smem.cuh", "kDirectSmemBudget")
+#: threads of a block, at most
+MAX_THREADS = _cuda.header_constant("direct_smem.cuh", "kDirectMaxThreads")
+#: interior nodes of one field a thread owns, at most
+MAX_PER = _cuda.header_constant("direct_smem.cuh", "kDirectMaxPer")
+#: threads of K3's dense placement (its preconditioner one matrix a field)
+DENSE_THREADS = _cuda.header_constant("direct_smem.cuh", "kDenseThreads")
+#: blocks of a cluster placement, at most
+MAX_CLUSTER = _cuda.header_constant("direct_smem.cuh", "kDirectMaxCluster")
 
 
-def _within_envelope(node_shape: Tuple[int, ...]) -> bool:
+@dataclass(frozen=True)
+class DirectPlan:
+    """Where a launch runs: ``blocks`` blocks (one, or a thread block
+    cluster) of ``threads`` threads, each owning ``per`` interior nodes at
+    most, with ``bytes`` of dynamic shared memory a block."""
+
+    threads: int
+    per: int
+    bytes: int
+    blocks: int = 1
+
+
+def smem_bytes(kind: str, node_shape: Tuple[int, ...], mat_elems: int, threads: int) -> int:
+    """The shared memory of a solve on ``threads`` threads
+    (``direct_smem_bytes``): K3 holds p (2n f64), r, two transform buffers
+    and the mode scales (2 nint f64 each) and its f64 eigenbases, or on the
+    dense placement p, r, z and the two dense matrices (2 nint^2 f64); K2
+    holds x (2n f64), two f32 transform buffers (2 nint each), a11/a22/det
+    (nint f32 each) and its f32 eigenbases."""
+    n = int(np.prod(node_shape))
+    nint = int(np.prod([m - 2 for m in node_shape]))
+    if kind == K2:
+        return 16 * n + 28 * nint + 4 * mat_elems
+    if threads == DENSE_THREADS:
+        return 16 * n + 32 * nint + 16 * nint * nint
+    return 16 * n + 64 * nint + 8 * mat_elems
+
+
+def cluster_bytes(kind: str, node_shape: Tuple[int, ...], blocks: int) -> int:
+    """The shared memory of each block of a cluster placement
+    (``direct_cluster_bytes``): the vectors spread in chunks of
+    ``ceil(/ blocks)``, K3 p (2n f64) and r and two transform buffers (2 nint
+    f64 each), K2 x (2n f64) and two f32 transform buffers (2 nint each)."""
+    n = int(np.prod(node_shape))
+    nint = int(np.prod([m - 2 for m in node_shape]))
+    pc, ic = -(-2 * n // blocks), -(-2 * nint // blocks)
+    return 8 * pc + 24 * ic if kind == K3 else 8 * pc + 8 * ic
+
+
+def distinct_axes(mesh) -> Tuple[int, ...]:
+    """For each axis (x first), the first axis with the same eigenbasis
+    (equal cells and spacing): the launchers stage each distinct one once."""
+    keys = list(zip(mesh.cells, mesh.h))
+    return tuple(keys.index(k) for k in keys)
+
+
+def direct_plan(kind: str, node_shape: Tuple[int, ...], mat_elems: int) -> Optional[DirectPlan]:
+    """The launcher's plan (``direct_plan`` in ``csrc/direct_smem.cuh``) for
+    ``kind`` (:data:`K2` or :data:`K3`) on a grid of ``node_shape`` nodes
+    whose distinct eigenbases hold ``mat_elems`` entries, or None where it
+    places none."""
     if len(node_shape) not in (2, 3) or min(node_shape) < 3:
-        return False  # no interior
-    planes, rows, cols = (1,) * (3 - len(node_shape)) + tuple(node_shape)
-    return cols <= _MAX_ROW_NODES and planes * (rows + 2) <= _MAX_HALO_ROWS
+        return None  # no interior
+    nint = int(np.prod([m - 2 for m in node_shape]))
+    threads, per = 64, 1
+    while threads < MAX_THREADS and threads < 2 * nint:  # a thread for each output of a pass
+        threads *= 2
+    while per < MAX_PER and threads * per < nint:
+        per *= 2
+    nbytes = smem_bytes(kind, node_shape, mat_elems, threads)
+    if threads * per >= nint and nbytes <= SMEM_BUDGET:
+        return DirectPlan(threads, per, nbytes)
+    blocks = 2
+    while blocks <= MAX_CLUSTER:  # a cluster of MAX_THREADS-thread blocks, the fewest that hold it
+        per = 1
+        while per < MAX_PER and MAX_THREADS * blocks * per < nint:
+            per *= 2
+        nbytes = cluster_bytes(kind, node_shape, blocks)
+        if MAX_THREADS * blocks * per >= nint and nbytes <= SMEM_BUDGET:
+            return DirectPlan(MAX_THREADS, per, nbytes, blocks)
+        blocks *= 2
+    return None
+
+
+def _mat_elems(mesh) -> int:
+    first = distinct_axes(mesh)
+    return sum((c - 1) ** 2 for a, c in enumerate(mesh.cells) if first[a] == a)
+
+
+def mesh_plan(op: DPPOperator) -> Optional[DirectPlan]:
+    """The plan of ``op``'s mesh for the kernel its cells take."""
+    kind = K2 if op.mesh.is_tensor_product else K3
+    return direct_plan(kind, op.mesh.node_shape, _mat_elems(op.mesh))
+
+
+#: the largest mesh, in nodes, the solve route takes each kernel on, per
+#: dimension: the largest the kernel was measured faster on than the route
+#: the mesh took before (K2: ``MixedPrecisionDPPDirect``, about 2-4 ms of
+#: host time a solve; K3: ``cg`` with K1), in one run on an NVIDIA H100
+#: (PERF.md, ``tools/profile_kernels.py --only direct``): K2 on 2D N=96
+#: (1.49 against 2.65 ms; N=125 2.47 against 2.82, N=128 2.64 against
+#: 2.14, N=182 4.99 against 2.82) and on every hex mesh it places (hex
+#: nx=40 2.90 against 4.01); K3 on tri N=170 (9.15 against 10.89; N=240
+#: 14.97 against 10.41) and on every tet mesh it places (tet nx=39 3.86
+#: against 12.87).
+JOIN_MAX_NODES = {(K2, 2): 97 ** 2, (K2, 3): 42 ** 3, (K3, 2): 171 ** 2, (K3, 3): 40 ** 3}
+
+
+def _joins(op: DPPOperator) -> bool:
+    """Whether the solve route takes the kernel for ``op``'s mesh: a mesh
+    the plan places, up to :data:`JOIN_MAX_NODES`."""
+    kind = K2 if op.mesh.is_tensor_product else K3
+    return mesh_plan(op) is not None and op.mesh.num_vertices <= JOIN_MAX_NODES[(kind, op.mesh.dim)]
 
 
 def fused_direct_supported(op: DPPOperator) -> bool:
-    """Whether K2 covers this operator: a small quad/hex mesh."""
-    return op.mesh.is_tensor_product and _within_envelope(op.mesh.node_shape)
+    """Whether K2 takes this operator: a quad/hex mesh its plan places."""
+    return op.mesh.is_tensor_product and _joins(op)
 
 
 def fused_simplicial_direct_supported(op: DPPOperator) -> bool:
-    """Whether K3 covers this operator: a small tri/tet mesh."""
-    return not op.mesh.is_tensor_product and _within_envelope(op.mesh.node_shape)
+    """Whether K3 takes this operator: a tri/tet mesh its plan places."""
+    return not op.mesh.is_tensor_product and _joins(op)
 
 
 def _stacked(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
@@ -81,13 +195,37 @@ def _check_launch_rhs(b: torch.Tensor, device: torch.device, node_shape: Tuple[i
         raise ValueError(f"b has shape {tuple(b.shape)}, expected {(2,) + node_shape}")
 
 
-def _axis_ptrs(mats) -> Tuple[int, int, int]:
-    """Pointers of the x, y, z eigenvector matrices (2D passes x as the
+def _axis_ptrs(mesh, mats) -> Tuple[int, int, int]:
+    """Pointers of the x, y, z eigenvector matrices, an axis with the same
+    eigenbasis as an earlier one sharing its pointer (2D passes x as the
     unused z). The buffers are contiguous: they are built from numpy."""
-    return mats[0].data_ptr(), mats[1].data_ptr(), mats[-1].data_ptr()
+    first = distinct_axes(mesh)
+    ptrs = [mats[first[a]].data_ptr() for a in range(len(mats))]
+    return ptrs[0], ptrs[1], ptrs[-1] if len(ptrs) == 3 else ptrs[0]
 
 
-class FusedDirectSolver(nn.Module):
+class _Launched(nn.Module):
+    """What K2 and K3 share: the plan, the cached weights and the launch
+    placement the launcher last reported (threads, nodes a thread owns,
+    dynamic shared memory, blocks)."""
+
+    def _setup(self, op: DPPOperator, what: str, tensor: bool):
+        self.plan = mesh_plan(op)
+        if op.mesh.is_tensor_product != tensor or self.plan is None:
+            raise ValueError(f"mesh {op.mesh} is outside the {what} envelope: the launcher's plan places it nowhere")
+        self.node_shape = op.mesh.node_shape
+        self.device = op.W.device
+        self.stencils = dpp_stencils(op.mesh, op.params)
+        self._weights = packed_weights(*self.stencils)
+        self._placement = np.zeros(4, np.int32)
+
+    @property
+    def last_placement(self) -> DirectPlan:
+        threads, per, nbytes, blocks = (int(v) for v in self._placement)
+        return DirectPlan(threads, per, nbytes, blocks)
+
+
+class FusedDirectSolver(_Launched):
     """K2: the mixed-precision direct solve of a small quad/hex system.
 
     Buffers: the f32 fast-diag solver's per-axis eigenvectors and per-mode
@@ -97,13 +235,17 @@ class FusedDirectSolver(nn.Module):
 
     def __init__(self, op: DPPOperator, refinements: int = 5):
         super().__init__()
-        if not fused_direct_supported(op):
-            raise ValueError(f"mesh {op.mesh} is outside the fused direct envelope")
-        self.node_shape = op.mesh.node_shape
-        self.device = op.W.device
+        self._setup(op, "fused direct", True)
         self.refinements = refinements
-        self.stencils = dpp_stencils(op.mesh, op.params)
         self.fast32 = FastDiagDPPSolver(op.mesh, op.params, device=self.device, dtype=torch.float32)
+        fd = self.fast32
+        # the kernel multiplies by the determinants' inverses (the twin divides)
+        self.register_buffer("idet", (1.0 / fd.det.double()).float().reshape(-1))
+        # every launch's arguments but b and x
+        self._args = (
+            *_axis_ptrs(op.mesh, fd.mats), fd.a11.data_ptr(), fd.a22.data_ptr(), self.idet.data_ptr(), fd.a12,
+            self._weights.ctypes.data, *_grid_args(self.node_shape), refinements, self._placement.ctypes.data,
+        )
 
     def _correction(self, src: torch.Tensor) -> torch.Tensor:
         """``src`` on the boundary; ``s * fastdiag32(src / s)`` inside."""
@@ -128,17 +270,8 @@ class FusedDirectSolver(nn.Module):
     def launch(self, b: torch.Tensor) -> torch.Tensor:
         """Run K2 on stacked ``(2, *node_shape)`` f64 CUDA tensors."""
         _check_launch_rhs(b, self.device, self.node_shape)
-        fd = self.fast32
         x = torch.empty_like(b)
-        r = torch.empty_like(b)
-        work = torch.empty(4 * fd.a11.numel(), dtype=torch.float32, device=b.device)
-        w = pack_weights(*self.stencils)
-        _cuda.launch(
-            K2, "perphil_fused_direct", b.device,
-            b.data_ptr(), x.data_ptr(), r.data_ptr(), work.data_ptr(), *_axis_ptrs(fd.mats),
-            fd.a11.data_ptr(), fd.a22.data_ptr(), fd.det.data_ptr(), fd.a12,
-            w.ctypes.data, *_grid_args(self.node_shape), self.refinements,
-        )
+        _cuda.launch(K2, "perphil_fused_direct", b.device, b.data_ptr(), x.data_ptr(), *self._args)
         return x
 
     def forward(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -153,7 +286,20 @@ def fused_direct_solve(op: DPPOperator, refinements: int = 5) -> FusedDirectSolv
     return FusedDirectSolver(op, refinements)
 
 
-class FusedSimplicialSolver(nn.Module):
+def dense_preconditioner(pc: LumpedDPPPreconditioner) -> torch.Tensor:
+    """Each field's lumped fast-diag interior solve as one matrix,
+    ``T diag(1 / sc_f) T^T`` with ``T`` the Kronecker product of the axes'
+    eigenbases (slowest axis first, as the interior index runs): a
+    ``(2, nint, nint)`` f64 tensor on ``pc``'s device, for K3's dense
+    placement."""
+    T = np.ones((1, 1))
+    for S, _ in pc.pc1.eig:  # x first: each later axis is slower
+        T = np.kron(S, T)
+    mats = [T @ np.diag(1.0 / f.mode_scale.reshape(-1).cpu().numpy()) @ T.T for f in (pc.pc1, pc.pc2)]
+    return torch.as_tensor(np.stack(mats), device=pc.pc1.mode_scale.device)
+
+
+class FusedSimplicialSolver(_Launched):
     """K3: f64 PCG to ``rtol`` (at most ``max_it`` iterations) on a small
     tri/tet system, preconditioned by the lumped fast-diag per field.
 
@@ -163,16 +309,22 @@ class FusedSimplicialSolver(nn.Module):
 
     def __init__(self, op: DPPOperator, rtol: float = 1e-13, max_it: int = 2000):
         super().__init__()
-        if not fused_simplicial_direct_supported(op):
-            raise ValueError(f"mesh {op.mesh} is outside the fused simplicial envelope")
-        self.node_shape = op.mesh.node_shape
-        self.device = op.W.device
+        self._setup(op, "fused simplicial", False)
         self.rtol = rtol
         self.max_it = max_it
-        self.stencils = dpp_stencils(op.mesh, op.params)
         self.pc = LumpedDPPPreconditioner(op.mesh, op.params, device=self.device)
         self.register_buffer(
             "sc", torch.stack([self.pc.pc1.mode_scale.reshape(-1), self.pc.pc2.mode_scale.reshape(-1)])
+        )
+        dense = self.plan.threads == DENSE_THREADS and self.plan.blocks == 1
+        self.register_buffer("dense", dense_preconditioner(self.pc) if dense else None)
+        # the kernel multiplies by the mode scales' inverses (the twin divides)
+        self.register_buffer("isc", 1.0 / self.sc)
+        # every launch's arguments but b, x and the iteration count
+        self._args = (
+            *_axis_ptrs(op.mesh, self.pc.pc1.mats), self.isc.data_ptr(),
+            self.dense.data_ptr() if dense else None, self._weights.ctypes.data,
+            *_grid_args(self.node_shape), float(rtol), int(max_it), self._placement.ctypes.data,
         )
 
     def plain(self, b: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -190,14 +342,7 @@ class FusedSimplicialSolver(nn.Module):
         _check_launch_rhs(b, self.device, self.node_shape)
         x = torch.empty_like(b)
         its = torch.empty(1, dtype=torch.int32, device=b.device)
-        work = torch.empty(8 * b[0].numel() + 4 * self.sc.shape[1], dtype=torch.float64, device=b.device)
-        w = pack_weights(*self.stencils)
-        _cuda.launch(
-            K3, "perphil_fused_pcg", b.device,
-            b.data_ptr(), x.data_ptr(), its.data_ptr(), work.data_ptr(),
-            *_axis_ptrs(self.pc.pc1.mats), self.sc.data_ptr(),
-            w.ctypes.data, *_grid_args(self.node_shape), float(self.rtol), int(self.max_it),
-        )
+        _cuda.launch(K3, "perphil_fused_pcg", b.device, b.data_ptr(), x.data_ptr(), its.data_ptr(), *self._args)
         return x, its
 
     def forward(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

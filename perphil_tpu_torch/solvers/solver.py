@@ -8,10 +8,12 @@ runs its plain twin.
 
 Direct (``preonly`` + lu; ``LINEAR_SOLVER_PARAMS``, ``TPU_DIRECT_PARAMS``):
 
-  - quad/hex inside the fused envelope   -> K2 ``fused_direct_solve``
+  - quad/hex the K2 gate takes (its launcher's plan, up to the largest mesh
+    measured faster: ``ops/fused_direct.py``)
+                                         -> K2 ``fused_direct_solve``
   - quad/hex beyond it                   -> ``MixedPrecisionDPPDirect``
                                             (f32 fast-diag, K1 residuals)
-  - tri/tet inside the envelope          -> K3 ``fused_simplicial_direct_solve``
+  - tri/tet the K3 gate takes            -> K3 ``fused_simplicial_direct_solve``
   - tri/tet beyond it                    -> ``cg`` to 1e-13 with the lumped
                                             fast-diag preconditioner (K1 matvec)
 
@@ -130,7 +132,7 @@ def _monolithic_direct(op: DPPOperator) -> Callable:
         return MixedPrecisionDPPDirect(mesh, op.params, device=op.W.device).solve
     if fused_simplicial_direct_supported(op):
         return fused_simplicial_direct_solve(op, rtol=_DIRECT_RTOL, max_it=_DIRECT_MAX_IT)
-    # simplicial beyond the envelope: machine-tolerance PCG (the monolithic
+    # simplicial beyond the K3 gate: machine-tolerance PCG (the monolithic
     # matrix is SPD) with the block-diagonal lumped fast-diag preconditioner
     pc = LumpedDPPPreconditioner(mesh, op.params, device=op.W.device)
     mv = op.stacked_matvec()

@@ -1,7 +1,7 @@
 """Parity of the port's direct solvers with the JAX package: fast-diag
 (f64), the mixed-precision solver and K2's plain twin against JAX's f64
 ``FastDiagDPPSolver``, K3's plain twin and ``cg`` against JAX's XLA ``cg``
-route, and the fused envelope against the JAX gate."""
+route, and the fused envelope (the launchers' plan) beside the JAX gate."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,11 +25,13 @@ from perphil_tpu_torch.interop import from_numpy_state
 from perphil_tpu_torch.ops.assembly import DPPOperator
 from perphil_tpu_torch.ops.direct import LumpedDPPPreconditioner
 from perphil_tpu_torch.ops.fused_direct import (
+    DirectPlan,
     FusedDirectSolver,
     fused_direct_solve,
     fused_direct_supported,
     fused_simplicial_direct_solve,
     fused_simplicial_direct_supported,
+    mesh_plan,
 )
 from perphil_tpu_torch.ops.krylov import cg
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
@@ -74,7 +76,8 @@ def test_fastdiag_solvers_match_f64(element, cells):
     assert {n for n, _ in t.named_buffers()} >= {"S0", "S1", "a11", "a22", "det"}
 
 
-@pytest.mark.parametrize("element,cells", TENSOR, ids=["quad16", "hex6"])
+# hex nx=16: a mesh the plan joined (the JAX gate left it out)
+@pytest.mark.parametrize("element,cells", TENSOR + [("hex", (16, 16, 16))], ids=["quad16", "hex6", "hex16"])
 def test_mixed_and_k2_twin_match_jax_f64(element, cells):
     state, jop, b1, b2 = _systems(element, cells, seed=1)
     ref = jdirect.FastDiagDPPSolver(jop.mesh, jop.params).solve(jnp.asarray(b1), jnp.asarray(b2))
@@ -99,7 +102,8 @@ def test_mixed_assemble_and_solve_matches_jax():
         assert _rel(a, b) <= 1e-10
 
 
-@pytest.mark.parametrize("element,cells", SIMPLEX, ids=["tri8", "tet4"])
+# tet nx=16: a mesh the plan joined (on 2 blocks; the JAX gate left it out)
+@pytest.mark.parametrize("element,cells", SIMPLEX + [("tet", (16, 16, 16))], ids=["tri8", "tet4", "tet16"])
 def test_k3_twin_matches_jax_cg_route(element, cells):
     state, jop, b1, b2 = _systems(element, cells, seed=3)
     ref = jax_monolithic_direct(jop)(jnp.asarray(b1), jnp.asarray(b2))
@@ -144,32 +148,72 @@ def test_cg_stops_on_non_finite():
     assert its == 1 and not np.isfinite(rnorm)
 
 
-# verdicts of the JAX gate _geometry(op).Rp <= 512, read with the JAX package
-ENVELOPE = [
-    ("quad", (16, 16), True), ("quad", (64, 64), True), ("quad", (128, 128), False),
-    ("hex", (8, 8, 8), True), ("hex", (16, 16, 16), False),
-    ("tet", (4, 4, 4), True), ("tet", (8, 8, 8), True), ("tet", (16, 16, 16), False),
+# The launchers' plan (csrc/direct_smem.cuh), worked by hand, and the
+# solve route's gate. One block: threads the smallest of 64..512 with
+# threads >= 2 nint (else 512), per the smallest power of two with threads *
+# per >= nint (<= 8); shared memory K2 16 n + 28 nint + 4 (cells - 1)^2, K3
+# 16 n + 64 nint + 8 (cells - 1)^2 or, on 64 threads (dense), 16 n + 32 nint
+# + 16 nint^2, within 231,424 B (one eigenbasis for the cube's axes). Else
+# the fewest of 2, 4, 8, 16 blocks of 512 threads whose per (<= 8) covers
+# nint and whose chunks fit: K2 8 pc + 8 ic, K3 8 pc + 24 ic, pc = ceil(2n /
+# blocks), ic = ceil(2 nint / blocks); e.g. quad N=66: n = 4,489, nint =
+# 4,225, 2 blocks, per 8, 8 * 4,489 + 8 * 4,225 = 69,712 B. The gate takes
+# up to the largest mesh measured faster than the former route (quad N=96,
+# tri N=170, every hex and tet mesh placed). Beside each, the JAX gate's
+# verdict (_geometry(op).Rp <= 512, the TPU's packed VMEM layout), read with
+# the JAX package, where building its operator takes no long.
+ENVELOPE = [  # element, cells, JAX gate (None: not read), (threads, per, bytes, blocks) or None, gate
+    ("quad", (16, 16), True, (512, 1, 11824, 1), True),
+    ("quad", (64, 64), True, (512, 8, 194608, 1), True),
+    ("quad", (65, 65), True, (512, 8, 200768, 1), True),
+    ("quad", (66, 66), True, (512, 8, 69712, 2), True),
+    ("quad", (96, 96), True, (512, 8, 73744, 4), True),
+    ("quad", (97, 97), True, (512, 8, 75280, 4), False),
+    ("quad", (128, 128), False, (512, 8, 131088, 4), False),
+    ("quad", (258, 258), None, None, False),
+    ("hex", (8, 8, 8), True, (512, 1, 21464, 1), True),
+    ("hex", (16, 16, 16), False, (512, 8, 174008, 1), True),
+    ("hex", (17, 17, 17), False, (512, 8, 209024, 1), True),
+    ("hex", (18, 18, 18), False, (512, 8, 94176, 2), True),
+    ("hex", (41, 41, 41), None, (512, 8, 138088, 16), True),
+    ("hex", (42, 42, 42), None, None, False),
+    ("tet", (4, 4, 4), True, (64, 1, 14528, 1), True),  # dense
+    ("tet", (8, 8, 8), True, (512, 1, 34008, 1), True),
+    ("tet", (14, 14, 14), True, (512, 8, 195960, 1), True),
+    ("tet", (15, 15, 15), False, (512, 4, 98624, 2), True),
+    ("tet", (16, 16, 16), False, (512, 4, 120304, 2), True),
+    ("tet", (39, 39, 39), None, (512, 8, 228616, 16), True),
+    ("tet", (40, 40, 40), None, None, False),
+    ("triangle", (51, 51), True, (512, 8, 223264, 1), True),
+    ("triangle", (52, 52), True, (512, 4, 84896, 2), True),
+    ("triangle", (170, 170), None, (512, 8, 229872, 8), True),
+    ("triangle", (171, 171), None, (512, 4, 116296, 16), False),
+    ("triangle", (242, 242), None, None, False),
 ]
 
 
 @pytest.mark.parametrize(
-    "element,cells,inside", ENVELOPE, ids=[f"{e}{c[0]}" for e, c, _ in ENVELOPE]
+    "element,cells,jax_inside,plan,gate", ENVELOPE, ids=[f"{e}{c[0]}" for e, c, _, _, _ in ENVELOPE]
 )
-def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, inside):
+def test_envelope_agrees_with_jax_gate(monkeypatch, element, cells, jax_inside, plan, gate):
+    """The port's plan and gate, held to the hand-worked table; the JAX
+    gate's verdict on the same mesh stands beside them."""
     monkeypatch.setenv("PERPHIL_TPU_FUSED_DIRECT", "force")  # judge the gate off-TPU
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
-    _, jV = jspaces_of(mesh)
-    jop = JOp(jmixed(jV), JParams())
+    if jax_inside is not None:
+        _, jV = jspaces_of(mesh)
+        jop = JOp(jmixed(jV), JParams())
+        assert (jax_fused_direct_supported(jop) or jax_fused_simplicial_supported(jop)) == jax_inside
     zero = np.zeros(mesh.node_shape)
     state = from_numpy_state({}, cells, element, zero, zero, device="cpu")
     op = DPPOperator(state.W, state.params)
-    jax_gate = jax_fused_direct_supported(jop) or jax_fused_simplicial_supported(jop)
-    port_gate = fused_direct_supported(op) or fused_simplicial_direct_supported(op)
-    assert jax_gate == port_gate == inside
+    assert (fused_direct_supported(op) or fused_simplicial_direct_supported(op)) == gate
+    assert mesh_plan(op) == (None if plan is None else DirectPlan(*plan))
 
 
 def test_fused_solvers_reject_what_they_do_not_take():
-    big = from_numpy_state({}, (128, 128), "quad", np.zeros((129, 129)), np.zeros((129, 129)), device="cpu")
+    # 2D N=300: beyond a 16-block cluster's shared memory
+    big = from_numpy_state({}, (300, 300), "quad", np.zeros((301, 301)), np.zeros((301, 301)), device="cpu")
     with pytest.raises(ValueError, match="envelope"):
         FusedDirectSolver(DPPOperator(big.W, big.params))
     small = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")

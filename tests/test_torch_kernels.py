@@ -16,7 +16,8 @@ from perphil_tpu_torch.ops.fused_apply import (
     fused_dpp_apply_plain,
     fused_dpp_apply_stacked,
 )
-from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
+from perphil_tpu_torch.ops.fused_direct import K2, K3, fused_direct_solve, fused_simplicial_direct_solve, mesh_plan
+from perphil_tpu_torch.ops.fused_direct import SMEM_BUDGET as DIRECT_SMEM_BUDGET
 from perphil_tpu_torch.ops.fused_gmres import (
     K4,
     K5,
@@ -128,32 +129,94 @@ def test_k1_rejects_bad_inputs(cuda):
         fused_dpp_apply_stacked(z.to(torch.int64), *S)
 
 
-@pytest.mark.parametrize(
-    "element,cells", [("quad", (16, 16)), ("quad", (64, 64)), ("hex", (8, 8, 8))],
-    ids=["quad16", "quad64", "hex8"],
-)
+# each placement of the plan (direct_smem.cuh): one block of 64 (K3: the
+# dense one), 128, 256 and 512 threads owning 1 interior node, 512 owning 2,
+# 4 and 8; the last mesh one block holds (quad 65, hex 17, tri 51, tet 14);
+# clusters of 2, 4, 8 and 16 blocks (K2 quad 66/128/256, hex 18/24/32; K3
+# tri 52/128, tet 16/32); the published sizes; axes of unequal length (each
+# eigenbasis staged on its own)
+K2_CASES = [
+    ("quad", (4, 4)), ("quad", (8, 8)), ("quad", (10, 10)), ("quad", (16, 16)), ("quad", (30, 30)),
+    ("quad", (40, 40)), ("quad", (64, 64)), ("quad", (65, 65)), ("quad", (13, 9)),
+    ("hex", (8, 8, 8)), ("hex", (14, 14, 14)), ("hex", (17, 17, 17)), ("hex", (7, 6, 5)),
+    ("quad", (66, 66)), ("quad", (128, 128)), ("quad", (256, 256)), ("quad", (100, 70)),
+    ("hex", (18, 18, 18)), ("hex", (24, 24, 24)), ("hex", (32, 32, 32)),
+]
+K3_CASES = [
+    ("triangle", (5, 5)), ("tet", (3, 3, 3)), ("tet", (4, 4, 4)), ("triangle", (8, 8)), ("triangle", (13, 9)),
+    ("tet", (6, 6, 6)), ("tet", (8, 8, 8)), ("tet", (11, 11, 11)), ("triangle", (40, 40)),
+    ("tet", (14, 14, 14)), ("triangle", (51, 51)), ("tet", (7, 6, 5)),
+    ("triangle", (52, 52)), ("triangle", (128, 128)), ("tet", (16, 16, 16)), ("tet", (32, 32, 32)),
+    ("tet", (20, 18, 16)),
+]
+
+
+def _direct_id(case):
+    return f"{case[0]}{'x'.join(map(str, case[1]))}"
+
+
+@pytest.mark.parametrize("element,cells", K2_CASES, ids=[_direct_id(c) for c in K2_CASES])
 def test_k2_matches_twin(cuda, element, cells):
     state = _state(element, cells, cuda, seed=1)
-    k2 = fused_direct_solve(DPPOperator(state.W, state.params))
+    op = DPPOperator(state.W, state.params)
+    k2 = fused_direct_solve(op)
     b = torch.stack(state.grids)
+    before = _cuda.KERNEL_LAUNCHES[K2]
     x = k2.launch(b)
     torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[K2] == before + 1
     assert _rel(x, k2.plain(b)) <= 1e-11
+    assert k2.last_placement == mesh_plan(op)  # the launcher's shared memory is the plan's
 
 
-@pytest.mark.parametrize(
-    "element,cells", [("triangle", (8, 8)), ("tet", (4, 4, 4)), ("tet", (8, 8, 8))],
-    ids=["tri8", "tet4", "tet8"],
-)
+@pytest.mark.parametrize("element,cells", K3_CASES, ids=[_direct_id(c) for c in K3_CASES])
 def test_k3_matches_twin(cuda, element, cells):
     state = _state(element, cells, cuda, seed=2)
-    k3 = fused_simplicial_direct_solve(DPPOperator(state.W, state.params))
+    op = DPPOperator(state.W, state.params)
+    k3 = fused_simplicial_direct_solve(op)
     b = torch.stack(state.grids)
+    before = _cuda.KERNEL_LAUNCHES[K3]
     x, its = k3.launch(b)
     torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[K3] == before + 1
     xp, its_p = k3.plain(b)
     assert _rel(x, xp) <= 1e-11
     assert abs(int(its.item()) - its_p) <= 2
+    assert k3.last_placement == mesh_plan(op)
+
+
+@pytest.mark.parametrize("symbol,dims", [
+    ("perphil_fused_direct", (1, 301, 301, 2)), ("perphil_fused_direct", (49, 49, 49, 3)),
+    ("perphil_fused_pcg", (1, 257, 257, 2)), ("perphil_fused_pcg", (41, 41, 41, 3)),
+], ids=["k2-quad300", "k2-hex48", "k3-tri256", "k3-tet40"])
+def test_direct_launch_beyond_the_plan_refuses(cuda, symbol, dims):
+    """A launcher refuses (cudaErrorInvalidValue, 1) a grid its plan does not
+    place, before it reads any pointer: it never runs."""
+    lib = _cuda.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    weights = np.zeros(81)
+    sx = torch.zeros(1, dtype=torch.float64 if symbol == "perphil_fused_pcg" else torch.float32, device=cuda)
+    ptr = sx.data_ptr()  # one matrix for every axis: the fewest bytes the plan can count
+    placement = np.full(4, -1, np.int32)
+    if symbol == "perphil_fused_direct":
+        err = lib.perphil_fused_direct(None, None, ptr, ptr, ptr, None, None, None, 1.0, weights.ctypes.data,
+                                       *dims, 5, placement.ctypes.data, stream)
+    else:
+        err = lib.perphil_fused_pcg(None, None, None, ptr, ptr, ptr, None, None, weights.ctypes.data, *dims,
+                                    1e-13, 2000, placement.ctypes.data, stream)
+    torch.cuda.synchronize()
+    assert err == 1 and (placement == -1).all()
+
+
+def test_direct_kernels_leave_the_budget(cuda):
+    """Every placement's kernel, 2D and 3D, leaves the launches' budget
+    (kDirectSmemBudget) of a block's shared memory beside its static shared
+    memory."""
+    lib = _cuda.library()
+    for fn in (lib.perphil_fused_direct_static_smem, lib.perphil_fused_pcg_static_smem):
+        for dim in (2, 3):
+            nbytes = fn(dim)
+            assert 0 < nbytes and MAX_SMEM_PER_BLOCK - nbytes >= DIRECT_SMEM_BUDGET
 
 
 GMRES_ROLES = [(K5, "none"), (K4, "none"), (K4, "jacobi")]

@@ -77,8 +77,8 @@ SYSTEMS = [
     ("hex", (6, 6, 6), "LINEAR_SOLVER_PARAMS"),
     ("hex", (6, 6, 6), "TPU_DIRECT_PARAMS"),
     ("tet", (4, 4, 4), "LINEAR_SOLVER_PARAMS"),
-    ("triangle", (128, 128), "LINEAR_SOLVER_PARAMS"),  # beyond the envelope: cg + K1
-    ("quad", (128, 128), "TPU_DIRECT_PARAMS"),  # beyond the envelope: mixed + K1
+    ("triangle", (128, 128), "LINEAR_SOLVER_PARAMS"),  # K3 on 8 blocks (its twin, cg, on the CPU)
+    ("quad", (128, 128), "TPU_DIRECT_PARAMS"),  # beyond the K2 gate: mixed + K1
 ]
 
 
@@ -98,8 +98,13 @@ def test_solve_matches_jax(element, cells, preset):
 
 
 def test_large_simplicial_route_is_cg():
-    state = from_numpy_state({}, (128, 128), "triangle", np.zeros((129, 129)), np.zeros((129, 129)), device="cpu")
-    assert not fused_simplicial_direct_supported(DPPOperator(state.W, state.params))
+    """tri N=171 is the first triangle mesh the K3 gate leaves to cg (the
+    largest measured faster than cg is N=170; the launcher's plan places
+    up to N=241)."""
+    for n, fused in ((170, True), (171, False)):
+        zero = np.zeros((n + 1, n + 1))
+        state = from_numpy_state({}, (n, n), "triangle", zero, zero, device="cpu")
+        assert fused_simplicial_direct_supported(DPPOperator(state.W, state.params)) == fused
 
 
 NORM_CASES = [("quad", (8, 8), 14), ("triangle", (4, 4), 4), ("tet", (2, 2, 2), 2)]
