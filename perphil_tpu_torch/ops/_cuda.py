@@ -51,10 +51,10 @@ _SIGNATURES = {
     # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode, stream
     "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # b, x, Sx, Sy, Sz, a11, a22, det, a12, weights, nz, ny, nx, dim,
+    # b, x, Sx, Sy, Sz, a11, a22, idet, a12, weights, nz, ny, nx, dim,
     # refinements, placement(host, 4 ints), stream
     "perphil_fused_direct": [_P] * 8 + [_F, _P] + [_I] * 5 + [_P, _P],
-    # b, x, its, Sx, Sy, Sz, sc, dense, weights, nz, ny, nx, dim, rtol,
+    # b, x, its, Sx, Sy, Sz, isc, dense, weights, nz, ny, nx, dim, rtol,
     # max_it, placement(host, 4 ints), stream
     "perphil_fused_pcg": [_P] * 9 + [_I] * 4 + [_D, _I, _P, _P],
     # dim (returns the kernels' largest static shared memory in bytes, < 0: none)
