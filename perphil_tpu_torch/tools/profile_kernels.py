@@ -41,7 +41,7 @@ those shapes take without the kernels (``MixedPrecisionDPPDirect`` for
 quad/hex, ``cg`` with K1 for tri/tet; host clock, median of 10).
 ``--against DIR`` builds ``DIR``'s ``fused_direct.cu`` and ``fused_pcg.cu``
 alone, calls them as the package called them before the shared-memory
-redesign (``PR6_SIGNATURES``: scratch allocated and weights packed per
+redesign (``OLDER_SIGNATURES``: scratch allocated and weights packed per
 call), holds them to the package's kernels and times both in turns (older,
 this, this, older).
 
@@ -404,7 +404,7 @@ def time_k1(against: Optional[Path]) -> None:
 # b, x, r, work (4 nint f32), Sx, Sy, Sz, a11, a22, det, a12, weights, nz,
 # ny, nx, dim, refinements, stream; and b, x, its, work (8 n + 4 nint f64),
 # Sx, Sy, Sz, sc, weights, nz, ny, nx, dim, rtol, max_it, stream.
-PR6_SIGNATURES = {
+OLDER_SIGNATURES = {
     "perphil_fused_direct": [_P] * 10 + [ctypes.c_float, _P] + [ctypes.c_int] * 5 + [_P],
     "perphil_fused_pcg": [_P] * 9 + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_int, _P],
 }
@@ -413,7 +413,7 @@ PR6_SIGNATURES = {
 def direct_library(root: Path, profile: bool = False) -> ctypes.CDLL:
     """``root``'s K2 and K3 launchers built alone into one library (one
     ``nvcc`` each, in parallel): an older checkout's, bound with
-    :data:`PR6_SIGNATURES`, or (``profile``) this checkout's with the phase
+    :data:`OLDER_SIGNATURES`, or (``profile``) this checkout's with the phase
     clocks compiled in (``PERPHIL_DIRECT_PROFILE``), bound as the package
     binds them."""
     csrc = root / "perphil_tpu_torch" / "csrc"
@@ -433,8 +433,8 @@ def direct_library(root: Path, profile: bool = False) -> ctypes.CDLL:
     subprocess.run([_cuda._nvcc(), *flags, "-shared", "-o", str(lib),
                     *[str(out / f"{s.stem}.o") for s in sources]], check=True)
     dll = ctypes.CDLL(str(lib))
-    for name in PR6_SIGNATURES:
-        getattr(dll, name).argtypes = _cuda._SIGNATURES[name] if profile else PR6_SIGNATURES[name]
+    for name in OLDER_SIGNATURES:
+        getattr(dll, name).argtypes = _cuda._SIGNATURES[name] if profile else OLDER_SIGNATURES[name]
     if profile:
         for name in ("perphil_fused_direct_profile_take", "perphil_fused_pcg_profile_take"):
             getattr(dll, name).argtypes = [_P]
@@ -493,7 +493,7 @@ def profile_direct() -> None:
         print("    cycles a solve: " + ", ".join(f"{name} {c:.0f}" for name, c in zip(names, cycles)))
 
 
-def pr6_call(dll, op, b: torch.Tensor):
+def older_call(dll, op, b: torch.Tensor):
     """A function that solves ``op``'s system for ``b`` the way the package's
     K2/K3 wrapper did before the redesign: allocate x and the scratch, pack
     the weights, call the launcher. Returns x."""
@@ -608,7 +608,7 @@ def time_direct(against: Optional[Path]) -> None:
         else:
             line_plan = "; the plan places it nowhere"
         if old is not None:
-            fns["older"] = pr6_call(old, op, b)
+            fns["older"] = older_call(old, op, b)
         calls = 100 if W.mesh.num_vertices < 20000 else 10
         line = f"{name} {element} N={n} ({2 * W.mesh.num_vertices} values)"
         outs = {}
