@@ -29,11 +29,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      that loop's time on the same case; ``structured_ilu_apply`` at 2D N=128
      (monolithic) and on a 129^2 field system, bit-equal;
   4. drives the direct path — ``solve_dpp`` with ``LINEAR_SOLVER_PARAMS`` at
-     2D quad N=4 and N=16 (golden errors) and 3D tet nx=4, 16 and 32 (the
-     last two on K3's cluster placement), and with ``TPU_DIRECT_PARAMS`` at 3D
-     hex 64^3 and 128^3 (f64 relative residual < 1e-10) — with every launch
-     counter reset just before, and fails if a kernel of the path did not
-     run;
+     2D quad N=4 and N=16 (golden errors), 3D tet nx=4, 16 and 32 (the
+     last two on K3's cluster placement) and 2D tri N=151 (past K3's gate:
+     ``cg`` with K1), and with ``TPU_DIRECT_PARAMS`` at 3D hex 64^3 and
+     128^3 (f64 relative residual < 1e-10) — with every launch counter reset
+     just before, checks each solve's route by its launches, and fails if a
+     kernel of the path did not run;
   5. drives the Krylov path the same way — ``solve_dpp`` with
      ``PLAIN_GMRES_PARAMS`` at 2D quad N=4/8/16/64/128 and 3D tet
      nx=4/12/16/20/24/32/36/40, held to the published PETSc counts
@@ -411,7 +412,7 @@ def main() -> int:
         fused_dpp_apply_plain,
         fused_dpp_apply_stacked,
     )
-    from perphil_tpu_torch.ops.fused_direct import fused_direct_solve, fused_simplicial_direct_solve
+    from perphil_tpu_torch.ops.fused_direct import K2, K3, fused_direct_solve, fused_simplicial_direct_solve
     from perphil_tpu_torch.ops.fused_gmres import (
         MAX_SMEM_PER_BLOCK,
         SMEM_BUDGET,
@@ -773,25 +774,30 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f} s] kernels checked against their twins")
 
     # -- 4. the direct path, counted --------------------------------------
-    # tet nx=16 and 32 run K3 on a thread block cluster (2 and 16 blocks)
-    cases = [("quad", 4, "LINEAR_SOLVER_PARAMS"), ("quad", 16, "LINEAR_SOLVER_PARAMS"),
-             ("tet", 4, "LINEAR_SOLVER_PARAMS"), ("tet", 16, "LINEAR_SOLVER_PARAMS"),
-             ("tet", 32, "LINEAR_SOLVER_PARAMS"), ("hex", 64, "TPU_DIRECT_PARAMS"),
-             ("hex", 128, "TPU_DIRECT_PARAMS")]
+    # element, N, preset, route: K2 or K3 once a solve; "cg": the lumped
+    # fast-diag PCG on the host with one K1 matvec an iteration (tri N=151,
+    # the first triangle mesh past K3's gate); "mixed": past K2's plan, the
+    # mixed-precision solver with K1 residuals (64^3/128^3 hex). tet nx=16
+    # and 32 run K3 on a thread block cluster (2 and 16 blocks)
+    cases = [("quad", 4, "LINEAR_SOLVER_PARAMS", K2), ("quad", 16, "LINEAR_SOLVER_PARAMS", K2),
+             ("tet", 4, "LINEAR_SOLVER_PARAMS", K3), ("tet", 16, "LINEAR_SOLVER_PARAMS", K3),
+             ("tet", 32, "LINEAR_SOLVER_PARAMS", K3), ("triangle", 151, "LINEAR_SOLVER_PARAMS", "cg"),
+             ("hex", 64, "TPU_DIRECT_PARAMS", "mixed"), ("hex", 128, "TPU_DIRECT_PARAMS", "mixed")]
     setups, sols, per_case, _, launches = drive(cases)
     print(f"direct-path kernel launches, all cases: {launches}")
     for name in DIRECT_KERNELS:
         check(launches.get(name, 0) > 0, f"{name} launched on the direct path")
 
-    for (element, n, preset), (W, params, bcs, p1e, p2e), sol, counts in zip(
+    for (element, n, preset, route), (W, params, bcs, p1e, p2e), sol, counts in zip(
         cases, setups, sols, per_case
     ):
         z1, z2 = sol.solution.data
         check(sol.iteration_number == 1 and sol.residual_error == 0.0, "preonly reports 1 / 0.0")
-        # one launch of K2 (quad) or K3 (tet) a solve; the 64^3/128^3 hex
-        # solves lie beyond K2's plan (mixed precision, K1 residuals)
-        fused = {"quad": "fused_direct_solve", "tet": "fused_simplicial_direct_solve"}.get(element)
-        check(fused is None or counts.get(fused) == 1, f"{element} N={n} {preset} ran {fused} once")
+        if route in (K2, K3):
+            check(counts.get(route) == 1, f"{element} N={n} {preset} ran {route} once")
+        else:  # no fused direct kernel; K1 for the lift and each matvec or residual
+            check(counts.get(K2, 0) == counts.get(K3, 0) == 0 and counts.get("fused_dpp_apply", 0) > 1,
+                  f"{element} N={n} {preset} took the {route} route")
         check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
         check(z1.device == dev and tuple(z1.shape) == W.mesh.node_shape, "solution on the card")
         # f64 relative residual with the plain operator (no kernel involved)
@@ -883,10 +889,10 @@ def main() -> int:
                      if k in PRECOND_KERNELS})
 
     # -- 7. end-to-end solve times, the kernel table ----------------------
-    for (element, n, preset), (W, params, bcs, _, _) in zip(cases, setups):
+    for (element, n, preset, route), (W, params, bcs, _, _) in zip(cases, setups):
         solver = _build_linear_solver(W, params, _freeze(PRESETS[preset]))
         g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
-        if n >= 64:
+        if route == "mixed":
             ms = time_ms(lambda: solver(g1, g2), repeats=10)
             print(f"hex {n}^3 {preset}: lift + direct solve median {ms:.4f} ms (CUDA events, 10 runs) on {smi}")
         elif (element, n) in (("quad", 16), ("tet", 4)):  # the cached solve on K2 / K3

@@ -21,9 +21,9 @@ N=257, hex nx=41, tri N=241, tet nx=39), within one budget a block
 (:data:`SMEM_BUDGET`, the header's ``kDirectSmemBudget``). The TPU's gate
 (``_geometry(op).Rp <= 512``: its packed VMEM layout of 512 rows and 128
 lanes) does not bound the card. The solve route takes a kernel up to the
-largest mesh it was measured faster on than the route that mesh took before
-(:data:`JOIN_MAX_NODES`: quad N <= 96, tri N <= 170, every hex and tet mesh
-the plan places).
+largest mesh up to which it was measured faster than the route that mesh
+took before (:data:`JOIN_MAX_NODES`: quad N <= 120, hex nx <= 33, tri N <=
+150, every tet mesh the plan places).
 """
 
 from __future__ import annotations
@@ -142,16 +142,19 @@ def mesh_plan(op: DPPOperator) -> Optional[DirectPlan]:
 
 
 #: the largest mesh, in nodes, the solve route takes each kernel on, per
-#: dimension: the largest the kernel was measured faster on than the route
-#: the mesh took before (K2: ``MixedPrecisionDPPDirect``, about 2-4 ms of
-#: host time a solve; K3: ``cg`` with K1), in one run on an NVIDIA H100
-#: (PERF.md, ``tools/profile_kernels.py --only direct``): K2 on 2D N=96
-#: (1.49 against 2.65 ms; N=125 2.47 against 2.82, N=128 2.64 against
-#: 2.14, N=182 4.99 against 2.82) and on every hex mesh it places (hex
-#: nx=40 2.90 against 4.01); K3 on tri N=170 (9.15 against 10.89; N=240
-#: 14.97 against 10.41) and on every tet mesh it places (tet nx=39 3.86
-#: against 12.87).
-JOIN_MAX_NODES = {(K2, 2): 97 ** 2, (K2, 3): 42 ** 3, (K3, 2): 171 ** 2, (K3, 3): 40 ** 3}
+#: dimension: the largest N such that the kernel was faster than the route
+#: the mesh took before on every mesh measured up to N (K2:
+#: ``MixedPrecisionDPPDirect``, about 2-4 ms of host time a solve; K3:
+#: ``cg`` with K1), both timed in turns in one call on an NVIDIA H100
+#: (``tools/profile_kernels.py --only direct``; kernel, route, kernel,
+#: route; host clock, median of 10 each; ms; PERF.md): K2 on 2D N=120
+#: (2.42/2.50 against 2.69/3.06; N=125 2.58/2.59 against 1.98/1.90, N=129
+#: 3.66/3.70 against 2.23/2.82) and hex nx=33 (2.24/2.24 against 2.70/3.39;
+#: nx=40 2.97/2.96 against 2.72/2.73, nx=41 3.20/3.18 against 2.31/2.46);
+#: K3 on tri N=150 (5.81/5.86 against 11.76/8.13; N=160 7.88/7.82 against
+#: 6.41/7.74, N=170 9.49/9.53 against 6.58/8.31) and on every tet mesh it
+#: places (tet nx=39 4.04/4.02 against 7.01/7.05).
+JOIN_MAX_NODES = {(K2, 2): 121 ** 2, (K2, 3): 34 ** 3, (K3, 2): 151 ** 2, (K3, 3): 40 ** 3}
 
 
 def _joins(op: DPPOperator) -> bool:
@@ -195,11 +198,11 @@ def _check_launch_rhs(b: torch.Tensor, device: torch.device, node_shape: Tuple[i
         raise ValueError(f"b has shape {tuple(b.shape)}, expected {(2,) + node_shape}")
 
 
-def _axis_ptrs(mesh, mats) -> Tuple[int, int, int]:
+def _axis_ptrs(first: Tuple[int, ...], mats) -> Tuple[int, int, int]:
     """Pointers of the x, y, z eigenvector matrices, an axis with the same
-    eigenbasis as an earlier one sharing its pointer (2D passes x as the
-    unused z). The buffers are contiguous: they are built from numpy."""
-    first = distinct_axes(mesh)
+    eigenbasis as an earlier one (``first``, :func:`distinct_axes`) sharing
+    its pointer (2D passes x as the unused z). The buffers are contiguous:
+    they are built from numpy."""
     ptrs = [mats[first[a]].data_ptr() for a in range(len(mats))]
     return ptrs[0], ptrs[1], ptrs[-1] if len(ptrs) == 3 else ptrs[0]
 
@@ -207,17 +210,30 @@ def _axis_ptrs(mesh, mats) -> Tuple[int, int, int]:
 class _Launched(nn.Module):
     """What K2 and K3 share: the plan, the cached weights and the launch
     placement the launcher last reported (threads, nodes a thread owns,
-    dynamic shared memory, blocks)."""
+    dynamic shared memory, blocks). Each launch reads its buffers' pointers
+    anew, so a move or a copy of the module keeps working; a cast refuses
+    (the kernels read fixed element types)."""
 
     def _setup(self, op: DPPOperator, what: str, tensor: bool):
         self.plan = mesh_plan(op)
         if op.mesh.is_tensor_product != tensor or self.plan is None:
             raise ValueError(f"mesh {op.mesh} is outside the {what} envelope: the launcher's plan places it nowhere")
         self.node_shape = op.mesh.node_shape
-        self.device = op.W.device
+        self._first = distinct_axes(op.mesh)
         self.stencils = dpp_stencils(op.mesh, op.params)
         self._weights = packed_weights(*self.stencils)
         self._placement = np.zeros(4, np.int32)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.buffers()).device
+
+    def _apply(self, fn, recurse=True):
+        dtypes = [t.dtype for t in self.buffers()]
+        super()._apply(fn, recurse)
+        if [t.dtype for t in self.buffers()] != dtypes:
+            raise TypeError(f"{type(self).__name__} keeps its buffers' dtypes: build a new solver instead of a cast")
+        return self
 
     @property
     def last_placement(self) -> DirectPlan:
@@ -237,15 +253,16 @@ class FusedDirectSolver(_Launched):
         super().__init__()
         self._setup(op, "fused direct", True)
         self.refinements = refinements
-        self.fast32 = FastDiagDPPSolver(op.mesh, op.params, device=self.device, dtype=torch.float32)
-        fd = self.fast32
+        self.fast32 = FastDiagDPPSolver(op.mesh, op.params, device=op.W.device, dtype=torch.float32)
         # the kernel multiplies by the determinants' inverses (the twin divides)
-        self.register_buffer("idet", (1.0 / fd.det.double()).float().reshape(-1))
-        # every launch's arguments but b and x
-        self._args = (
-            *_axis_ptrs(op.mesh, fd.mats), fd.a11.data_ptr(), fd.a22.data_ptr(), self.idet.data_ptr(), fd.a12,
-            self._weights.ctypes.data, *_grid_args(self.node_shape), refinements, self._placement.ctypes.data,
-        )
+        self.register_buffer("idet", (1.0 / self.fast32.det.double()).float().reshape(-1))
+        self._grid = _grid_args(self.node_shape)
+
+    def launch_args(self) -> tuple:
+        """The launcher's arguments but b and x (and the stream)."""
+        fd = self.fast32
+        return (*_axis_ptrs(self._first, fd.mats), fd.a11.data_ptr(), fd.a22.data_ptr(), self.idet.data_ptr(),
+                fd.a12, self._weights.ctypes.data, *self._grid, self.refinements, self._placement.ctypes.data)
 
     def _correction(self, src: torch.Tensor) -> torch.Tensor:
         """``src`` on the boundary; ``s * fastdiag32(src / s)`` inside."""
@@ -271,7 +288,7 @@ class FusedDirectSolver(_Launched):
         """Run K2 on stacked ``(2, *node_shape)`` f64 CUDA tensors."""
         _check_launch_rhs(b, self.device, self.node_shape)
         x = torch.empty_like(b)
-        _cuda.launch(K2, "perphil_fused_direct", b.device, b.data_ptr(), x.data_ptr(), *self._args)
+        _cuda.launch(K2, "perphil_fused_direct", b.device, b.data_ptr(), x.data_ptr(), *self.launch_args())
         return x
 
     def forward(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -312,7 +329,7 @@ class FusedSimplicialSolver(_Launched):
         self._setup(op, "fused simplicial", False)
         self.rtol = rtol
         self.max_it = max_it
-        self.pc = LumpedDPPPreconditioner(op.mesh, op.params, device=self.device)
+        self.pc = LumpedDPPPreconditioner(op.mesh, op.params, device=op.W.device)
         self.register_buffer(
             "sc", torch.stack([self.pc.pc1.mode_scale.reshape(-1), self.pc.pc2.mode_scale.reshape(-1)])
         )
@@ -320,12 +337,14 @@ class FusedSimplicialSolver(_Launched):
         self.register_buffer("dense", dense_preconditioner(self.pc) if dense else None)
         # the kernel multiplies by the mode scales' inverses (the twin divides)
         self.register_buffer("isc", 1.0 / self.sc)
-        # every launch's arguments but b, x and the iteration count
-        self._args = (
-            *_axis_ptrs(op.mesh, self.pc.pc1.mats), self.isc.data_ptr(),
-            self.dense.data_ptr() if dense else None, self._weights.ctypes.data,
-            *_grid_args(self.node_shape), float(rtol), int(max_it), self._placement.ctypes.data,
-        )
+        self._grid = _grid_args(self.node_shape)
+
+    def launch_args(self) -> tuple:
+        """The launcher's arguments but b, x, the iteration count (and the
+        stream)."""
+        return (*_axis_ptrs(self._first, self.pc.pc1.mats), self.isc.data_ptr(),
+                None if self.dense is None else self.dense.data_ptr(), self._weights.ctypes.data, *self._grid,
+                float(self.rtol), int(self.max_it), self._placement.ctypes.data)
 
     def plain(self, b: torch.Tensor) -> Tuple[torch.Tensor, int]:
         """Plain PyTorch twin of K3 on stacked f64 grids: (x, iterations)."""
@@ -342,7 +361,8 @@ class FusedSimplicialSolver(_Launched):
         _check_launch_rhs(b, self.device, self.node_shape)
         x = torch.empty_like(b)
         its = torch.empty(1, dtype=torch.int32, device=b.device)
-        _cuda.launch(K3, "perphil_fused_pcg", b.device, b.data_ptr(), x.data_ptr(), its.data_ptr(), *self._args)
+        _cuda.launch(K3, "perphil_fused_pcg", b.device, b.data_ptr(), x.data_ptr(), its.data_ptr(),
+                     *self.launch_args())
         return x, its
 
     def forward(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -38,12 +38,14 @@ work included), beside the floor of both (an empty kernel through the same
 ctypes interface), at quad N=4/16/64, hex nx=8/14, tri N=8, tet nx=4/8/14
 and the shapes beyond the former envelope, where it also times the route
 those shapes take without the kernels (``MixedPrecisionDPPDirect`` for
-quad/hex, ``cg`` with K1 for tri/tet; host clock, median of 10).
-``--against DIR`` builds ``DIR``'s ``fused_direct.cu`` and ``fused_pcg.cu``
-alone, calls them as the package called them before the shared-memory
-redesign (``OLDER_SIGNATURES``: scratch allocated and weights packed per
-call), holds them to the package's kernels and times both in turns (older,
-this, this, older).
+quad/hex, ``cg`` with K1 for tri/tet) in turns with the kernel (kernel,
+route, kernel, route; host clock, median of 10 each).
+``--against DIR`` then times the solvers' ``launch`` of an older checkout
+(unpacked under ``_checkout/``) and of this one at the published meshes,
+each tree in a process of its own started from its root (``--only
+direct-wrapper``, older, this, this, older), so that each tree's wrapper
+calls its own launchers, and prints the largest difference between the two
+trees' solutions.
 
 ``--only sweeps`` builds nothing of its own: it times, with the package's
 kernels (CUDA events, median of 5), the frame's roles where ``chip_smoke.py``
@@ -400,27 +402,14 @@ def time_k1(against: Optional[Path]) -> None:
               f"({k1 / 5e3:.4f} ms a solve)")
 
 
-# The launchers' argument lists before the shared-memory redesign of K2/K3:
-# b, x, r, work (4 nint f32), Sx, Sy, Sz, a11, a22, det, a12, weights, nz,
-# ny, nx, dim, refinements, stream; and b, x, its, work (8 n + 4 nint f64),
-# Sx, Sy, Sz, sc, weights, nz, ny, nx, dim, rtol, max_it, stream.
-OLDER_SIGNATURES = {
-    "perphil_fused_direct": [_P] * 10 + [ctypes.c_float, _P] + [ctypes.c_int] * 5 + [_P],
-    "perphil_fused_pcg": [_P] * 9 + [ctypes.c_int] * 4 + [ctypes.c_double, ctypes.c_int, _P],
-}
-
-
-def direct_library(root: Path, profile: bool = False) -> ctypes.CDLL:
-    """``root``'s K2 and K3 launchers built alone into one library (one
-    ``nvcc`` each, in parallel): an older checkout's, bound with
-    :data:`OLDER_SIGNATURES`, or (``profile``) this checkout's with the phase
-    clocks compiled in (``PERPHIL_DIRECT_PROFILE``), bound as the package
-    binds them."""
-    csrc = root / "perphil_tpu_torch" / "csrc"
-    key = hashlib.sha256(f"{root.resolve()} {profile}".encode()).hexdigest()[:12]
-    out = _cuda.BUILD_DIR / "direct_alone" / key
+def phase_library() -> ctypes.CDLL:
+    """This checkout's K2 and K3 launchers built alone into one library with
+    the phase clocks compiled in (``PERPHIL_DIRECT_PROFILE``; one ``nvcc``
+    each, in parallel), bound as the package binds them."""
+    csrc = _cuda.CSRC
+    out = _cuda.BUILD_DIR / "direct_phases"
     out.mkdir(parents=True, exist_ok=True)
-    flags = [*_cuda.NVCC_FLAGS, *(["-DPERPHIL_DIRECT_PROFILE"] if profile else [])]
+    flags = [*_cuda.NVCC_FLAGS, "-DPERPHIL_DIRECT_PROFILE"]
     sources = [csrc / "fused_direct.cu", csrc / "fused_pcg.cu"]
     procs = [subprocess.Popen([_cuda._nvcc(), *flags, "-c", "-I", str(csrc), "-o", str(out / f"{s.stem}.o"),
                                str(s)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -429,15 +418,14 @@ def direct_library(root: Path, profile: bool = False) -> ctypes.CDLL:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(log)
-    lib = out / "libdirect_alone.so"
+    lib = out / "libdirect_phases.so"
     subprocess.run([_cuda._nvcc(), *flags, "-shared", "-o", str(lib),
                     *[str(out / f"{s.stem}.o") for s in sources]], check=True)
     dll = ctypes.CDLL(str(lib))
-    for name in OLDER_SIGNATURES:
-        getattr(dll, name).argtypes = _cuda._SIGNATURES[name] if profile else OLDER_SIGNATURES[name]
-    if profile:
-        for name in ("perphil_fused_direct_profile_take", "perphil_fused_pcg_profile_take"):
-            getattr(dll, name).argtypes = [_P]
+    for name in ("perphil_fused_direct", "perphil_fused_pcg"):
+        getattr(dll, name).argtypes = _cuda._SIGNATURES[name]
+    for name in ("perphil_fused_direct_profile_take", "perphil_fused_pcg_profile_take"):
+        getattr(dll, name).argtypes = [_P]
     return dll
 
 
@@ -455,7 +443,7 @@ def profile_direct() -> None:
     from perphil_tpu_torch.ops import fused_direct
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    dll = direct_library(Path(__file__).resolve().parents[2], profile=True)
+    dll = phase_library()
     stream = torch.cuda.current_stream().cuda_stream
     counters = np.zeros(16, np.uint64)
     for element, n in (("quad", 4), ("quad", 16), ("quad", 64), ("hex", 8), ("hex", 14),
@@ -468,12 +456,13 @@ def profile_direct() -> None:
         if W.mesh.is_tensor_product:
             solver = fused_direct.fused_direct_solve(op)
             names, take = K2_PHASES, dll.perphil_fused_direct_profile_take
-            run = lambda: dll.perphil_fused_direct(b.data_ptr(), x.data_ptr(), *solver._args, stream)  # noqa: E731
+            run = lambda: dll.perphil_fused_direct(  # noqa: E731
+                b.data_ptr(), x.data_ptr(), *solver.launch_args(), stream)
         else:
             solver = fused_direct.fused_simplicial_direct_solve(op)
             names, take = K3_PHASES, dll.perphil_fused_pcg_profile_take
             run = lambda: dll.perphil_fused_pcg(  # noqa: E731
-                b.data_ptr(), x.data_ptr(), its.data_ptr(), *solver._args, stream)
+                b.data_ptr(), x.data_ptr(), its.data_ptr(), *solver.launch_args(), stream)
         _cuda.check(run(), "profile launch")
         torch.cuda.synchronize()
         _cuda.check(take(counters.ctypes.data), "profile take")
@@ -491,47 +480,6 @@ def profile_direct() -> None:
               f"{total / ms / 1e6:.2f} GHz of thread 0's), "
               f"{loops} {'refinement steps' if W.mesh.is_tensor_product else 'iterations'}")
         print("    cycles a solve: " + ", ".join(f"{name} {c:.0f}" for name, c in zip(names, cycles)))
-
-
-def older_call(dll, op, b: torch.Tensor):
-    """A function that solves ``op``'s system for ``b`` the way the package's
-    K2/K3 wrapper did before the redesign: allocate x and the scratch, pack
-    the weights, call the launcher. Returns x."""
-    from perphil_tpu_torch.ops.assembly import dpp_stencils
-    from perphil_tpu_torch.ops.direct import FastDiagDPPSolver, LumpedDPPPreconditioner
-    from perphil_tpu_torch.ops.fused_apply import pack_weights
-
-    mesh, stencils = op.mesh, dpp_stencils(op.mesh, op.params)
-    nz, ny, nx = (1,) * (3 - mesh.dim) + tuple(mesh.node_shape)
-    stream = torch.cuda.current_stream().cuda_stream
-    if mesh.is_tensor_product:
-        fd = FastDiagDPPSolver(mesh, op.params, device=b.device, dtype=torch.float32)
-        mats = fd.mats
-
-        def run():
-            x, r = torch.empty_like(b), torch.empty_like(b)
-            work = torch.empty(4 * fd.a11.numel(), dtype=torch.float32, device=b.device)
-            w = pack_weights(*stencils)
-            _cuda.check(dll.perphil_fused_direct(
-                b.data_ptr(), x.data_ptr(), r.data_ptr(), work.data_ptr(), mats[0].data_ptr(),
-                mats[1].data_ptr(), mats[-1].data_ptr(), fd.a11.data_ptr(), fd.a22.data_ptr(),
-                fd.det.data_ptr(), fd.a12, w.ctypes.data, nz, ny, nx, mesh.dim, 5, stream), "older K2")
-            return x
-        return run
-    pc = LumpedDPPPreconditioner(mesh, op.params, device=b.device)
-    sc = torch.stack([pc.pc1.mode_scale.reshape(-1), pc.pc2.mode_scale.reshape(-1)]).contiguous()
-    mats = pc.pc1.mats
-
-    def run():
-        x = torch.empty_like(b)
-        its = torch.empty(1, dtype=torch.int32, device=b.device)
-        work = torch.empty(8 * b[0].numel() + 4 * sc.shape[1], dtype=torch.float64, device=b.device)
-        w = pack_weights(*stencils)
-        _cuda.check(dll.perphil_fused_pcg(
-            b.data_ptr(), x.data_ptr(), its.data_ptr(), work.data_ptr(), mats[0].data_ptr(), mats[1].data_ptr(),
-            mats[-1].data_ptr(), sc.data_ptr(), w.ctypes.data, nz, ny, nx, mesh.dim, 1e-13, 2000, stream), "older K3")
-        return x
-    return run
 
 
 def former_route(op):
@@ -566,25 +514,36 @@ def wall_ms(fn, repeats: int = 10) -> float:
 DIRECT_CASES = [  # element, N, also time the former route
     ("quad", 4, False), ("quad", 16, False), ("quad", 64, False), ("hex", 8, False), ("hex", 14, False),
     ("triangle", 8, False), ("tet", 4, False), ("tet", 8, False), ("tet", 14, False),
-    ("quad", 65, True), ("quad", 66, True), ("quad", 80, True), ("quad", 96, True), ("quad", 125, True),
-    ("quad", 128, True), ("quad", 256, True),
+    # beyond the former envelope: one block, then clusters of 2, 4, 8 and 16
+    ("quad", 65, True), ("quad", 66, True), ("quad", 80, True), ("quad", 96, True), ("quad", 100, True),
+    ("quad", 110, True), ("quad", 120, True), ("quad", 125, True), ("quad", 129, True), ("quad", 130, True),
+    ("quad", 160, True), ("quad", 182, True), ("quad", 256, True),
     ("hex", 16, True), ("hex", 17, True), ("hex", 18, True), ("hex", 24, True), ("hex", 32, True),
-    ("triangle", 48, True), ("triangle", 51, True), ("triangle", 52, True), ("triangle", 64, True),
-    ("triangle", 96, True), ("triangle", 125, True), ("triangle", 128, True),
-    ("tet", 14, True), ("tet", 16, True), ("tet", 24, True), ("tet", 32, True),
-    # the largest meshes of the cluster placements: 8 and 16 blocks
-    ("quad", 182, True), ("quad", 183, True), ("hex", 33, True), ("hex", 40, True),
-    ("triangle", 170, True), ("triangle", 240, True), ("tet", 31, True), ("tet", 39, True),
+    ("hex", 33, True), ("hex", 40, True), ("hex", 41, True),
+    ("triangle", 51, True), ("triangle", 52, True), ("triangle", 96, True), ("triangle", 128, True),
+    ("triangle", 150, True), ("triangle", 160, True), ("triangle", 170, True), ("triangle", 171, True),
+    ("triangle", 200, True), ("triangle", 240, True),
+    ("tet", 14, True), ("tet", 16, True), ("tet", 24, True), ("tet", 31, True), ("tet", 32, True),
+    ("tet", 39, True),
 ]
+#: the published meshes (``--against`` times both trees there)
+PUBLISHED = [(element, n) for element, n, beyond in DIRECT_CASES if not beyond]
 
 
-def time_direct(against: Optional[Path]) -> None:
+def _direct_problem(element: str, n: int, dev):
+    import chip_smoke
+
+    W, params, bcs, _, _ = chip_smoke.problem(element, n, dev)
+    op = DPPOperator(W, params)
+    return op, torch.stack(op.lifted_rhs(*[bc.grid_values(W.mesh) for bc in bcs])).contiguous()
+
+
+def time_direct() -> None:
     import chip_smoke
     from perphil_tpu_torch.ops import fused_direct
 
     dev = torch.device("cuda", torch.cuda.current_device())
     lib = _cuda.library()
-    old = None if against is None else direct_library(against)
     stream = torch.cuda.current_stream().cuda_stream
 
     def empty():
@@ -593,60 +552,97 @@ def time_direct(against: Optional[Path]) -> None:
     print(f"empty kernel through ctypes: device {chip_smoke.queued_ms(empty):.4f} ms, "
           f"call {chip_smoke.time_ms(empty, repeats=50):.4f} ms (CUDA events around the Python call)")
     for element, n, beyond in DIRECT_CASES:
-        W, params, bcs, _, _ = chip_smoke.problem(element, n, dev)
-        op = DPPOperator(W, params)
-        b = torch.stack(op.lifted_rhs(*[bc.grid_values(W.mesh) for bc in bcs])).contiguous()
-        tensor = W.mesh.is_tensor_product
-        name = "K2" if tensor else "K3"
-        joins = (fused_direct.fused_direct_supported if tensor
+        op, b = _direct_problem(element, n, dev)
+        mesh = op.mesh
+        name = "K2" if mesh.is_tensor_product else "K3"
+        line = f"{name} {element} N={n} ({2 * mesh.num_vertices} values)"
+        if fused_direct.mesh_plan(op) is None:
+            print(f"{line}: the plan places it nowhere", flush=True)
+            continue
+        # timed where the plan places it, joined or not
+        solver = (fused_direct.FusedDirectSolver if mesh.is_tensor_product else fused_direct.FusedSimplicialSolver)(op)
+        joins = (fused_direct.fused_direct_supported if mesh.is_tensor_product
                  else fused_direct.fused_simplicial_direct_supported)(op)
-        fns = {}
-        if fused_direct.mesh_plan(op) is not None:  # timed where the plan places it, joined or not
-            solver = (fused_direct.FusedDirectSolver if tensor else fused_direct.FusedSimplicialSolver)(op)
-            fns["this"] = (lambda s: (lambda: s.launch(b)))(solver)
-            line_plan = f"; {solver.plan}, {'joins' if joins else 'left to the former route'}"
-        else:
-            line_plan = "; the plan places it nowhere"
-        if old is not None:
-            fns["older"] = older_call(old, op, b)
-        calls = 100 if W.mesh.num_vertices < 20000 else 10
-        line = f"{name} {element} N={n} ({2 * W.mesh.num_vertices} values)"
-        outs = {}
-        for tag, fn in fns.items():
-            out = fn()
-            outs[tag] = out[0] if isinstance(out, tuple) else out
-        torch.cuda.synchronize()
-        if len(outs) == 2:
-            line += f": max rel diff this vs older {chip_smoke.rel(outs['this'], outs['older']):.2e}"
-        if fns:
-            turns = [t for t in ("older", "this", "this", "older") if t in fns]
-            line += "; device ms " + ", ".join(
-                f"{t} {chip_smoke.queued_ms(fns[t], calls=calls):.4f}" for t in turns)
-            line += "; call ms " + ", ".join(f"{t} {chip_smoke.time_ms(fns[t], repeats=20):.4f}" for t in turns)
-            line += "; wall ms " + ", ".join(f"{t} {wall_ms(fns[t]):.4f}" for t in turns)
-        line += line_plan
+        out = solver.launch(b)
+        got = out[0] if isinstance(out, tuple) else out
+        kernel = lambda: solver.launch(b)  # noqa: E731
+        calls = 100 if mesh.num_vertices < 20000 else 10
+        line += (f": device {chip_smoke.queued_ms(kernel, calls=calls):.4f} ms, "
+                 f"call {chip_smoke.time_ms(kernel, repeats=20):.4f} ms; {solver.plan}, "
+                 f"{'joins' if joins else 'left to the former route'}")
         if beyond:
             route = former_route(op)
             ref = route(b)
             torch.cuda.synchronize()
-            if outs:
-                got = next(iter(outs.values()))
-                line += f"; former route vs kernel max rel diff {chip_smoke.rel(got, ref):.2e}"
-            line += f"; former route wall {wall_ms(lambda: route(b)):.4f} ms (host clock, median of 10)"
+            walls = [wall_ms(fn) for fn in (kernel, lambda: route(b)) * 2]
+            line += (f"; former route vs kernel max rel diff {chip_smoke.rel(got, ref):.2e}; wall in turns "
+                     f"(host clock, median of 10; kernel, route, kernel, route): "
+                     + ", ".join(f"{w:.4f}" for w in walls) + " ms")
         print(line, flush=True)
+
+
+def wrapper_times(out: Path) -> None:
+    """``--only direct-wrapper``: device and call time of the K2/K3 solvers'
+    ``launch`` (the interface every version of the package has) at the
+    published meshes, with the package of the checkout the process was
+    started in; each solution and the two times saved to ``out`` (npz)."""
+    import chip_smoke
+    import perphil_tpu_torch
+    from perphil_tpu_torch.ops import fused_direct
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    print(f"  the package of {Path(perphil_tpu_torch.__file__).parent.parent}", flush=True)
+    saved = {}
+    for element, n in PUBLISHED:
+        op, b = _direct_problem(element, n, dev)
+        make = (fused_direct.fused_direct_solve if op.mesh.is_tensor_product
+                else fused_direct.fused_simplicial_direct_solve)
+        solver = make(op)
+        x = solver.launch(b)
+        saved[f"{element} N={n}"] = (x[0] if isinstance(x, tuple) else x).cpu().numpy()
+        run = lambda: solver.launch(b)  # noqa: E731
+        saved[f"{element} N={n} ms"] = np.array([chip_smoke.queued_ms(run), chip_smoke.time_ms(run, repeats=20)])
+    np.savez(out, **saved)
+
+
+def compare_direct(against: Path) -> None:
+    """K2/K3 of ``against`` (an older checkout) and of this one at the
+    published meshes, each tree timed by ``--only direct-wrapper`` in a
+    process started from its own root, in turns (older, this, this, older)."""
+    import os
+
+    here = Path.cwd()
+    out = _cuda.BUILD_DIR / "direct_wrapper"
+    out.mkdir(parents=True, exist_ok=True)
+    turns = [("older", against.resolve()), ("this", here), ("this", here), ("older", against.resolve())]
+    runs = []
+    for k, (_, root) in enumerate(turns):
+        path = out / f"turn{k}.npz"
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--only", "direct-wrapper", "--out", str(path)],
+                       cwd=root, env={**os.environ, "PYTHONPATH": str(root)}, check=True)
+        runs.append(np.load(path))
+    for element, n in PUBLISHED:
+        tag = f"{element} N={n}"
+        x_old, x_new = runs[0][tag], runs[1][tag]
+        diff = float(np.abs(x_new - x_old).max() / np.abs(x_old).max())
+        print(f"{tag}: max rel diff this vs older {diff:.2e}; device ms " + ", ".join(
+            f"{t} {r[tag + ' ms'][0]:.4f}" for (t, _), r in zip(turns, runs)) + "; call ms " + ", ".join(
+            f"{t} {r[tag + ' ms'][1]:.4f}" for (t, _), r in zip(turns, runs)), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases"],
+    ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
+                                       "direct-wrapper"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
+    ap.add_argument("--out", type=Path, help="with --only direct-wrapper: the npz file to write")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    sys.path.insert(0, str(Path.cwd()))  # the checkout's chip_smoke.py: run from its root
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     if args.only == "sweeps":
@@ -656,7 +652,12 @@ def main() -> int:
         time_k1(args.against)
         return 0
     if args.only == "direct":
-        time_direct(args.against)
+        time_direct()
+        if args.against is not None:
+            compare_direct(args.against)
+        return 0
+    if args.only == "direct-wrapper":
+        wrapper_times(args.out)
         return 0
     if args.only == "direct-phases":
         profile_direct()

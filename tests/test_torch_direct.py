@@ -3,6 +3,8 @@
 ``FastDiagDPPSolver``, K3's plain twin and ``cg`` against JAX's XLA ``cg``
 route, and the fused envelope (the launchers' plan) beside the JAX gate."""
 
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,8 +160,9 @@ def test_cg_stops_on_non_finite():
 # nint and whose chunks fit: K2 8 pc + 8 ic, K3 8 pc + 24 ic, pc = ceil(2n /
 # blocks), ic = ceil(2 nint / blocks); e.g. quad N=66: n = 4,489, nint =
 # 4,225, 2 blocks, per 8, 8 * 4,489 + 8 * 4,225 = 69,712 B. The gate takes
-# up to the largest mesh measured faster than the former route (quad N=96,
-# tri N=170, every hex and tet mesh placed). Beside each, the JAX gate's
+# up to the largest mesh measured faster than the former route, with every
+# mesh measured below it faster too (quad N=120, hex nx=33, tri N=150, every
+# tet mesh placed). Beside each, the JAX gate's
 # verdict (_geometry(op).Rp <= 512, the TPU's packed VMEM layout), read with
 # the JAX package, where building its operator takes no long.
 ENVELOPE = [  # element, cells, JAX gate (None: not read), (threads, per, bytes, blocks) or None, gate
@@ -168,14 +171,18 @@ ENVELOPE = [  # element, cells, JAX gate (None: not read), (threads, per, bytes,
     ("quad", (65, 65), True, (512, 8, 200768, 1), True),
     ("quad", (66, 66), True, (512, 8, 69712, 2), True),
     ("quad", (96, 96), True, (512, 8, 73744, 4), True),
-    ("quad", (97, 97), True, (512, 8, 75280, 4), False),
+    ("quad", (97, 97), True, (512, 8, 75280, 4), True),
+    ("quad", (120, 120), None, (512, 8, 115216, 4), True),
+    ("quad", (121, 121), None, (512, 8, 117136, 4), False),
     ("quad", (128, 128), False, (512, 8, 131088, 4), False),
     ("quad", (258, 258), None, None, False),
     ("hex", (8, 8, 8), True, (512, 1, 21464, 1), True),
     ("hex", (16, 16, 16), False, (512, 8, 174008, 1), True),
     ("hex", (17, 17, 17), False, (512, 8, 209024, 1), True),
     ("hex", (18, 18, 18), False, (512, 8, 94176, 2), True),
-    ("hex", (41, 41, 41), None, (512, 8, 138088, 16), True),
+    ("hex", (33, 33, 33), None, (512, 8, 144144, 8), True),
+    ("hex", (34, 34, 34), None, (512, 8, 78824, 16), False),
+    ("hex", (41, 41, 41), None, (512, 8, 138088, 16), False),
     ("hex", (42, 42, 42), None, None, False),
     ("tet", (4, 4, 4), True, (64, 1, 14528, 1), True),  # dense
     ("tet", (8, 8, 8), True, (512, 1, 34008, 1), True),
@@ -186,7 +193,9 @@ ENVELOPE = [  # element, cells, JAX gate (None: not read), (threads, per, bytes,
     ("tet", (40, 40, 40), None, None, False),
     ("triangle", (51, 51), True, (512, 8, 223264, 1), True),
     ("triangle", (52, 52), True, (512, 4, 84896, 2), True),
-    ("triangle", (170, 170), None, (512, 8, 229872, 8), True),
+    ("triangle", (150, 150), None, (512, 8, 178832, 8), True),
+    ("triangle", (151, 151), None, (512, 8, 181208, 8), False),
+    ("triangle", (170, 170), None, (512, 8, 229872, 8), False),
     ("triangle", (171, 171), None, (512, 4, 116296, 16), False),
     ("triangle", (242, 242), None, None, False),
 ]
@@ -222,3 +231,22 @@ def test_fused_solvers_reject_what_they_do_not_take():
         k2(small.grids[0].float(), small.grids[1].float())
     with pytest.raises(ValueError):
         fused_simplicial_direct_solve(DPPOperator(small.W, small.params))
+
+
+@pytest.mark.parametrize("element,cells,ntensors", [("quad", (4, 4), 6), ("tet", (3, 3, 3), 5)], ids=["k2", "k3"])
+def test_launch_reads_the_buffers_anew(element, cells, ntensors):
+    """The launch arguments are read when a launch runs: a copy of a solver
+    points its launcher at its own buffers, and a cast refuses (the kernels
+    read fixed element types)."""
+    zero = np.zeros(tuple(c + 1 for c in cells))
+    state = from_numpy_state({}, cells, element, zero, zero, device="cpu")
+    op = DPPOperator(state.W, state.params)
+    solver = (fused_direct_solve if element == "quad" else fused_simplicial_direct_solve)(op)
+    twin = copy.deepcopy(solver)
+    for s in (solver, twin):
+        args = s.launch_args()
+        assert set(args[:ntensors]) - {None} <= {t.data_ptr() for t in s.buffers()}
+        assert s._weights.ctypes.data in args and s._placement.ctypes.data in args
+    assert not set(twin.launch_args()[:ntensors]) & {t.data_ptr() for t in solver.buffers()}
+    with pytest.raises(TypeError, match="dtypes"):
+        solver.half()

@@ -133,21 +133,25 @@ def test_k1_rejects_bad_inputs(cuda):
 # dense one), 128, 256 and 512 threads owning 1 interior node, 512 owning 2,
 # 4 and 8; the last mesh one block holds (quad 65, hex 17, tri 51, tet 14);
 # clusters of 2, 4, 8 and 16 blocks (K2 quad 66/128/256, hex 18/24/32; K3
-# tri 52/128, tet 16/32); the published sizes; axes of unequal length (each
-# eigenbasis staged on its own)
+# tri 52/128, tet 16/32); the largest mesh the solve route takes each on
+# (quad 120, hex 33, tri 150, tet 39); the published sizes; axes of unequal
+# length (each eigenbasis staged on its own)
 K2_CASES = [
     ("quad", (4, 4)), ("quad", (8, 8)), ("quad", (10, 10)), ("quad", (16, 16)), ("quad", (30, 30)),
     ("quad", (40, 40)), ("quad", (64, 64)), ("quad", (65, 65)), ("quad", (13, 9)),
     ("hex", (8, 8, 8)), ("hex", (14, 14, 14)), ("hex", (17, 17, 17)), ("hex", (7, 6, 5)),
     ("quad", (66, 66)), ("quad", (128, 128)), ("quad", (256, 256)), ("quad", (100, 70)),
     ("hex", (18, 18, 18)), ("hex", (24, 24, 24)), ("hex", (32, 32, 32)),
+    ("quad", (120, 120)), ("hex", (33, 33, 33)),
 ]
 K3_CASES = [
     ("triangle", (5, 5)), ("tet", (3, 3, 3)), ("tet", (4, 4, 4)), ("triangle", (8, 8)), ("triangle", (13, 9)),
     ("tet", (6, 6, 6)), ("tet", (8, 8, 8)), ("tet", (11, 11, 11)), ("triangle", (40, 40)),
     ("tet", (14, 14, 14)), ("triangle", (51, 51)), ("tet", (7, 6, 5)),
     ("triangle", (52, 52)), ("triangle", (128, 128)), ("tet", (16, 16, 16)), ("tet", (32, 32, 32)),
-    ("tet", (20, 18, 16)),
+    ("tet", (20, 18, 16)), ("triangle", (150, 150)), ("tet", (39, 39, 39)),
+    # the dense placement (64 threads) on unequal axes: its matrix's Kronecker order
+    ("triangle", (4, 6)), ("tet", (3, 4, 2)),
 ]
 
 

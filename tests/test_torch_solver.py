@@ -78,6 +78,7 @@ SYSTEMS = [
     ("hex", (6, 6, 6), "TPU_DIRECT_PARAMS"),
     ("tet", (4, 4, 4), "LINEAR_SOLVER_PARAMS"),
     ("triangle", (128, 128), "LINEAR_SOLVER_PARAMS"),  # K3 on 8 blocks (its twin, cg, on the CPU)
+    ("triangle", (151, 151), "LINEAR_SOLVER_PARAMS"),  # past the K3 gate: cg with K1
     ("quad", (128, 128), "TPU_DIRECT_PARAMS"),  # beyond the K2 gate: mixed + K1
 ]
 
@@ -98,10 +99,10 @@ def test_solve_matches_jax(element, cells, preset):
 
 
 def test_large_simplicial_route_is_cg():
-    """tri N=171 is the first triangle mesh the K3 gate leaves to cg (the
-    largest measured faster than cg is N=170; the launcher's plan places
-    up to N=241)."""
-    for n, fused in ((170, True), (171, False)):
+    """tri N=151 is the first triangle mesh the K3 gate leaves to cg (the
+    largest up to which K3 was measured faster than cg is N=150; the
+    launcher's plan places up to N=241)."""
+    for n, fused in ((150, True), (151, False)):
         zero = np.zeros((n + 1, n + 1))
         state = from_numpy_state({}, (n, n), "triangle", zero, zero, device="cpu")
         assert fused_simplicial_direct_supported(DPPOperator(state.W, state.params)) == fused
