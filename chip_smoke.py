@@ -46,7 +46,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      host loop), SS-GMRES+ILU at 2D N=16/64/128 (4, K8);
      ``FIELDSPLIT_GMRES_PARAMS`` at N=16 (4); GMRES+ILU at N=512 (no
      published count; the host loop with ``structured_ilu_apply``);
-  7. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
+  7. drives the Picard path — first ``fused_ngs`` against its twin at 2D
+     N=16 and N=128 (equal counts, x within 1e-12), the Gauss-Seidel mode of
+     the ILU sweep (``structured_ilu_apply[gs]``) against its twin at tri
+     N=16 and tet nx=4 (bit for bit), and the host loop against the kernel at
+     N=64 and N=128 in turns (host clock); then, counted,
+     ``solve_dpp_nonlinear`` with ``PICARD_LU_SOLVER_PARAMS`` at 2D
+     N=4/8/16/32/64/128, held to the published 16/63/194/635/1673/5135 with
+     ``fn <= max(rtol f0, atol)`` and one ``fused_ngs`` launch a solve, the
+     lexicographic ngs at tri N=16 and tet nx=4 (one GS-mode launch an
+     iteration), and ``block_gs``, ``RICHARDSON_SOLVER_PARAMS`` and
+     ``KSP_PREONLY_PARAMS`` at N=16, each against the CPU twin path;
+  8. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
      events, and the cached direct solves at 2D N=16 and tet nx=4 (K2, K3)
      with the host clock, and works out each kernel's bound from this run's
      shapes and iteration counts.
@@ -93,7 +104,12 @@ PRECOND_KERNELS = {
     # the apply is XLA in the JAX package, not Pallas
     "structured_ilu_apply": (_CSRC + "ilu_apply.cu", "perphil_tpu/ops/ilu.py:716"),
 }
-KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS}
+PICARD_KERNELS = {
+    # the JAX package's ngs while-loop (XLA, no Pallas) and its GS sweep
+    "fused_ngs": (_CSRC + "fused_ngs.cu", "perphil_tpu/solvers/solver.py:1852"),
+    "structured_ilu_apply[gs]": (_CSRC + "ilu_apply.cu", "perphil_tpu/ops/ilu.py:840"),
+}
+KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS}
 # published PETSc counts of plain GMRES(30):
 # notebooks/results-conforming-2d/petsc_profiling/petsc_perf_breakdown.csv and
 # notebooks/results-conforming-3d/petsc_profiling/petsc_perf_breakdown_3d.csv
@@ -145,6 +161,18 @@ PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
     ("quad", 512, "GMRES_ILU_PARAMS", None, 0, "structured_ilu_apply"),
 ]
 
+# the reference's Picard column: petsc_perf_breakdown-with-picard.csv,
+# "Scaling-Splitting Picard with MUMPS"
+PICARD_COUNTS = {4: 16, 8: 63, 16: 194, 32: 635, 64: 1673, 128: 5135}
+PICARD_CASES = [  # element, N, preset, count (None: the CPU twin path's), kernel the route launches
+    *[("quad", n, "PICARD_LU_SOLVER_PARAMS", c, "fused_ngs") for n, c in PICARD_COUNTS.items()],
+    ("triangle", 16, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
+    ("tet", 4, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
+    ("quad", 16, "BLOCK_GS", None, "fused_dpp_apply"),
+    ("quad", 16, "RICHARDSON_SOLVER_PARAMS", None, "fused_dpp_apply"),
+    ("quad", 16, "KSP_PREONLY_PARAMS", 1, "fused_gmres_df[fieldsplit_lu]"),
+]
+
 # NVIDIA's H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 outside the
 # tensor cores (the kernels use none)
 HBM_BYTES_PER_S = 3.35e12
@@ -173,6 +201,10 @@ def presets():
         "FIELDSPLIT_GMRES_PARAMS": {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_GMRES_PARAMS},
         "LINEAR_SOLVER_PARAMS": sp.LINEAR_SOLVER_PARAMS,
         "TPU_DIRECT_PARAMS": sp.TPU_DIRECT_PARAMS,
+        "PICARD_LU_SOLVER_PARAMS": sp.PICARD_LU_SOLVER_PARAMS,
+        "BLOCK_GS": {**sp.PICARD_LU_SOLVER_PARAMS, "snes_type": "block_gs"},
+        "RICHARDSON_SOLVER_PARAMS": sp.RICHARDSON_SOLVER_PARAMS,
+        "KSP_PREONLY_PARAMS": sp.KSP_PREONLY_PARAMS,
     }
 
 
@@ -360,6 +392,31 @@ def fused_gmres_work(solver, op, its: int):
     return nbytes, core + pc
 
 
+def picard_inputs(op, bcs):
+    """The Picard solves' start: the lifted right-hand side b and the BC
+    lift x0, stacked."""
+    import torch
+
+    g1, g2 = (bc.grid_values(op.mesh) for bc in bcs)
+    bdry = op._mask_arrays[0]
+    b = torch.stack(op.lifted_rhs(g1, g2)).contiguous()
+    return b, torch.stack([torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)]).contiguous()
+
+
+def fused_ngs_work(solver, its: int):
+    """(bytes, f64 flops) of one fused NGS solve of ``its`` iterations: a
+    residual row is 18 products, 18 sums and a difference; an update a
+    divide and a sum; the norm a square and a sum a row; colour 0 reuses the
+    norm's residual."""
+    import numpy as np
+
+    colors = solver.sweeper.colors
+    interior = np.tile(~solver.sweeper.mesh.boundary_mask().ravel(), 2)
+    nint, c0 = int(interior.sum()), int((interior & (colors == 0)).sum())
+    per_it = (nint - c0) * 39 + c0 * 2 + nint * 39
+    return 3 * 8 * colors.size + 4 * (nint + solver.cptr.numel()), nint * 39 + its * per_it
+
+
 def dense_system(op, b):
     """The library yardstick of the direct kernels: the BC-eliminated
     operator materialised as a dense (2n, 2n) f64 matrix on b's device (the
@@ -423,8 +480,13 @@ def main() -> int:
     from perphil_tpu_torch.ops.ilu import StructuredILU0
     from perphil_tpu_torch.solvers import parameters as sp
     from perphil_tpu_torch.solvers import solve_dpp
-    from perphil_tpu_torch.ops.krylov import gmres
-    from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze, _monolithic_pc
+    from perphil_tpu_torch.ops.krylov import _norm, gmres
+    from perphil_tpu_torch.solvers.solver import (
+        _build_linear_solver,
+        _build_nonlinear_solver,
+        _freeze,
+        _monolithic_pc,
+    )
     from perphil_tpu_torch.utils.postprocessing import h1_seminorm_error, l2_error
 
     PRESETS = presets()
@@ -888,7 +950,153 @@ def main() -> int:
     launches.update({k: v for k, v in check_krylov("preconditioned path", PRECOND_CASES, PRECOND_KERNELS).items()
                      if k in PRECOND_KERNELS})
 
-    # -- 7. end-to-end solve times, the kernel table ----------------------
+    # -- 7. the Picard path ------------------------------------------------
+    from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop
+    from perphil_tpu_torch.ops.ilu import GaussSeidelSweeper
+    from perphil_tpu_torch.solvers import solve_dpp_nonlinear
+
+    picard = sp.PICARD_LU_SOLVER_PARAMS
+    snes_kw = dict(rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
+    # fused_ngs against its twin (not counted), at N=16 and the published
+    # column's largest mesh; the twin timed in its check run
+    ngs_solvers = {}
+    for n in (16, 128):
+        W, params, bcs, _, _ = problem("quad", n, dev)
+        op = DPPOperator(W, params)
+        b, x0 = picard_inputs(op, bcs)
+        solver = FusedNGSSolver(op, **snes_kw)
+        got = solver.launch(b, x0)
+        torch.cuda.synchronize()
+        ref, plain_ms = timed_once(lambda: solver.plain(b, x0))
+        abs_err = float((got.x - ref.x).abs().max())
+        err = abs_err / float(ref.x.abs().max())
+        print(f"fused_ngs quad N={n}: {solver.plan}, iterations {got.iterations} vs twin {ref.iterations} "
+              f"(published {PICARD_COUNTS[n]}), fn {got.residual_norm!r} vs twin {ref.residual_norm!r}, "
+              f"max rel diff vs twin {err:.3e} (bound 1e-12), max abs diff {abs_err:.3e}; twin {plain_ms:.1f} ms")
+        check(got.iterations == ref.iterations == PICARD_COUNTS[n], f"fused_ngs N={n} count")
+        check(err <= 1e-12, f"fused_ngs N={n} vs twin")
+        ngs_solvers[n] = (op, b, x0, solver)
+        if n == 128:
+            ms = time_ms(lambda: solver.launch(b, x0), repeats=5, warmup=1)
+            results["fused_ngs"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound=bound(*fused_ngs_work(solver, got.iterations)),
+                shape=f"quad 128^2, {got.iterations} iterations, {solver.plan.blocks} blocks, "
+                      f"{solver.sweeper.ncolors} colours",
+            )
+            print(f"  fused_ngs quad N=128: {ms:.3f} ms (CUDA events, median of 5), "
+                  f"{ms * 1e3 / got.iterations:.3f} us/iteration, "
+                  f"{ms * 1e3 / (got.iterations * (solver.sweeper.ncolors + 1)):.4f} us/phase")
+    # the host loop (the route beyond the kernel's plan) against the kernel,
+    # in turns host, kernel, kernel, host (host clock around a call and a
+    # synchronise)
+    for n in (64, 128):
+        if n not in ngs_solvers:
+            W, params, bcs, _, _ = problem("quad", n, dev)
+            op = DPPOperator(W, params)
+            ngs_solvers[n] = (op, *picard_inputs(op, bcs), FusedNGSSolver(op, **snes_kw))
+        op, b, x0, solver = ngs_solvers[n]
+        walls, counts = {"host loop": [], "kernel": []}, {}
+        for side in ("host loop", "kernel", "kernel", "host loop"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ngs_host_loop(op, solver.sweeper, b, x0, **snes_kw) if side == "host loop" else solver.launch(b, x0)
+            torch.cuda.synchronize()
+            walls[side].append((time.perf_counter() - t0) * 1e3)
+            counts[side] = res.iterations
+        print(f"NGS quad N={n}: host loop {counts['host loop']} iterations, "
+              f"{' / '.join(f'{w:.1f}' for w in walls['host loop'])} ms; kernel {counts['kernel']} iterations, "
+              f"{' / '.join(f'{w:.2f}' for w in walls['kernel'])} ms (host clock, in turns)")
+        check(counts["kernel"] == PICARD_COUNTS[n], f"fused_ngs N={n} count")
+        # K1 sums in another order than the kernel: a knife edge may move the host loop's count
+        check(abs(counts["host loop"] - counts["kernel"]) <= 2, f"NGS host loop N={n} count")
+    # the ILU sweep's Gauss-Seidel mode against its twin, bit for bit, on the
+    # lexicographic ngs meshes the path below drives
+    for element, n in (("triangle", 16), ("tet", 4)):
+        W, params, _, _, _ = problem(element, n, dev)
+        swp = GaussSeidelSweeper.for_monolithic(W.mesh, params)
+        x, bb = randn(swp.nrows), randn(swp.nrows)
+        z = swp.launch(x, bb)
+        torch.cuda.synchronize()
+        zp, plain_ms = timed_once(lambda: swp.plain(x, bb))
+        abs_err = float((z - zp).abs().max())
+        geo = swp.last_geometry
+        ms = time_ms(lambda: swp.launch(x, bb), repeats=20)
+        print(f"structured_ilu_apply[gs] {element} N={n}: {swp.nrows} rows, {swp.num_levels} levels, widest "
+              f"{swp.max_level_rows}, {geo.stages} stages, z in shared memory: {geo.z_smem}, max abs diff vs "
+              f"plain sweep {abs_err:.3e} (bound 0), {ms:.4f} ms, {ms * 1e3 / swp.num_levels:.3f} us/level")
+        check(abs_err == 0.0, f"structured_ilu_apply[gs] {element} N={n} vs plain sweep")
+        if element == "triangle":
+            noffs = len(swp.deltas)
+            results["structured_ilu_apply[gs]"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound=bound(8 * swp.nrows * (noffs + 3) + 4 * (swp.num_levels + 1 + swp.nrows),
+                            swp.nrows * (2 * (noffs - 1) + 1)),
+                shape=f"tri 16^2 monolithic, {swp.num_levels} levels",
+            )
+    print(f"[{time.perf_counter() - t_start:.1f} s] Picard kernels checked against their twins")
+
+    # the path, counted: every launch counter reset just before
+    psetups = [problem(c[0], c[1], dev) for c in PICARD_CASES]
+    f0s = []
+    for (W, params, bcs, _, _) in psetups:
+        op = DPPOperator(W, params)
+        b, x0 = picard_inputs(op, bcs)
+        f0s.append(float(_norm(b - op.stacked_matvec()(x0))))
+    torch.cuda.synchronize()
+    _cuda.KERNEL_LAUNCHES.clear()
+    psols, pcounts, pwalls = [], [], []
+    for (W, params, bcs, _, _), case in zip(psetups, PICARD_CASES):
+        before = dict(_cuda.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        psols.append(solve_dpp_nonlinear(W, params, bcs, solver_parameters=PRESETS[case[2]]))
+        torch.cuda.synchronize()
+        pwalls.append(time.perf_counter() - t0)
+        pcounts.append({k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)})
+    phase = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"Picard path kernel launches, all cases: {phase}")
+    for name in PICARD_KERNELS:
+        check(phase.get(name, 0) > 0, f"{name} launched on the Picard path")
+    launches.update({k: v for k, v in phase.items() if k in PICARD_KERNELS})
+    for (element, n, preset, count, kernel), (W, params, bcs, _, _), sol, counts, wall, f0 in zip(
+        PICARD_CASES, psetups, psols, pcounts, pwalls, f0s
+    ):
+        z1, z2 = sol.solution.data
+        its, fn = sol.iteration_number, sol.residual_error
+        check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
+        check(z1.device == dev and tuple(z1.shape) == W.mesh.node_shape, "solution on the card")
+        check(counts.get(kernel, 0) > 0, f"{element} N={n} {preset} ran {kernel}")
+        opts = PRESETS[preset]
+        tol = max(opts.get("snes_rtol", 1e-8) * f0, opts.get("snes_atol", 1e-50))
+        line = (f"solve_dpp_nonlinear {element} N={n} {preset}: iterations {its}"
+                + ("" if count is None else f" (expected {count})")
+                + f", fn {fn!r} (f0 {f0!r}, tol {tol!r}), launches {counts}, wall {wall * 1e3:.2f} ms "
+                f"({wall * 1e6 / max(its, 1):.2f} us/iteration)")
+        if kernel == "fused_ngs":
+            check(counts.get(kernel) == 1, f"{element} N={n} ran fused_ngs once")
+            # the cached solve: the lift (one K1) and the kernel
+            solver = _build_nonlinear_solver(W, params, _freeze(PRESETS[preset]))
+            g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
+            t0 = time.perf_counter()
+            solver(g1, g2)
+            torch.cuda.synchronize()
+            line += f", cached solve {(time.perf_counter() - t0) * 1e3:.2f} ms"
+        if kernel == "structured_ilu_apply[gs]":
+            check(counts.get(kernel) == its, f"{element} N={n}: one GS-mode launch an iteration")
+        if preset != "KSP_PREONLY_PARAMS":
+            check(fn <= tol, f"{element} N={n} {preset}: fn <= max(rtol f0, atol)")
+        if count is not None:
+            check(its == count, f"{element} N={n} {preset} count")
+        if n <= 16:
+            Wc, pc, bcc, _, _ = problem(element, n, "cpu")
+            ref = solve_dpp_nonlinear(Wc, pc, bcc, solver_parameters=PRESETS[preset])
+            cpu_diff = max(rel(a.cpu(), r) for a, r in zip((z1, z2), ref.solution.data))
+            line += f", vs CPU twin path {cpu_diff:.3e} ({ref.iteration_number} iterations)"
+            check(ref.iteration_number == its and cpu_diff < 1e-8, f"{element} N={n} {preset} vs CPU")
+        print(line)
+    torch.cuda.synchronize()
+    print(f"[{time.perf_counter() - t_start:.1f} s] Picard path done")
+
+    # -- 8. end-to-end solve times, the kernel table ----------------------
     for (element, n, preset, route), (W, params, bcs, _, _) in zip(cases, setups):
         solver = _build_linear_solver(W, params, _freeze(PRESETS[preset]))
         g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)

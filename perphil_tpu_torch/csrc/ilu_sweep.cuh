@@ -104,8 +104,10 @@ struct IluPlan {
 
 // Host: the layout for a factor of nrows rows, nlev levels (the widest of
 // max_rows rows) within `budget` bytes: the level bounds, the ring, then z.
-inline IluPlan ilu_plan(const IluMeta& m, int nrows, int nlev, int max_rows, long budget) {
-  IluPlan p{0, (m.nlow > m.nup ? m.nlow : m.nup) + 2, 0, 0, 0, 0};
+// gs: the Gauss-Seidel mode's stage, a row's every off-centre entry and its
+// diagonal (ilu_sweep's kGS).
+inline IluPlan ilu_plan(const IluMeta& m, int nrows, int nlev, int max_rows, long budget, bool gs = false) {
+  IluPlan p{0, (gs ? m.nlow + m.nup : (m.nlow > m.nup ? m.nlow : m.nup)) + 2, 0, 0, 0, 0};
   long used = 0;
   const long lp = 8 * (((long)nlev + 2) / 2);  // ints, kept 8-byte aligned
   if (lp <= budget / 4) {
@@ -405,8 +407,9 @@ __device__ void ilu_produce(const IluSweep& w, const IluStage& st, int pt, int w
 }
 
 // Consumer warps (`threads` threads, whole warps): a level's rows, then the
-// named barrier among themselves.
-template <bool kUpper, int kNt, bool kZShared>
+// named barrier among themselves. kGS: divide by the diagonal on the forward
+// walk (the Gauss-Seidel mode).
+template <bool kUpper, int kNt, bool kZShared, bool kGS = false>
 __device__ void ilu_consume(const IluSweep& w, const IluStage& st, int threads) {
   const IluZ<kZShared> z{w.z_shared, w.z_global, w.nrows};
   IluClock clk(threadIdx.x == 0);
@@ -436,7 +439,7 @@ __device__ void ilu_consume(const IluSweep& w, const IluStage& st, int threads) 
           lds_f64(d + 8u * (unsigned)(w.items * cap + r)), row, nt, z,
           [&](int q) { return kNt > 0 ? dqr[kNt > 0 ? q : 0] : w.dq[q]; },
           [&](int q) { return lds_f64(d + 8u * (unsigned)(q * cnt + r)); });
-      if (kUpper) acc = __ddiv_rn(acc, lds_f64(d + 8u * (unsigned)(nt * cnt + r)));
+      if (kUpper || kGS) acc = __ddiv_rn(acc, lds_f64(d + 8u * (unsigned)(nt * cnt + r)));
       z.store(row, acc);
     }
     clk.mark(1);
@@ -455,24 +458,36 @@ __device__ void ilu_consume(const IluSweep& w, const IluStage& st, int threads) 
 // barrier, so rhs written before the call and zg read after it are safe.
 // kNt >= 0: the side's offset count as the caller knows it when compiling
 // (0: any, at run time); -1: chosen here from the table.
-template <bool kUpper, int kNt>
+// kGS (with kUpper false): one forward Gauss-Seidel sweep of the matrix P
+// holds packed by level, zg = the iterate after it. z starts at z0; a row
+// takes rhs less every off-centre entry (all offsets but m.center, in stored
+// order) times z read in place, divided by the diagonal (P's last item).
+// Lower neighbours lie on earlier levels and hold the new iterate, upper
+// neighbours on later ones and still hold z0.
+template <bool kUpper, int kNt, bool kGS = false>
 __device__ void ilu_sweep(const double* P, int nrows, const IluMeta& m, const IluStage& st,
-                          const int* level_rows, int nlev, const double* rhs, double* zg) {
+                          const int* level_rows, int nlev, const double* rhs, double* zg,
+                          const double* z0 = nullptr) {
+  static_assert(!(kGS && kUpper), "the Gauss-Seidel mode walks the levels forward");
   __shared__ unsigned long long full[kIluMaxStages], empty[kIluMaxStages];
-  __shared__ int dq[kMaxSideOffsets];  // per offset of this side, its column delta
-  const int nt = kUpper ? m.nup : m.nlow;
+  __shared__ int dq[kGS ? kMaxOffsets : kMaxSideOffsets];  // per offset of this side, its column delta
+  const int nt = kGS ? m.nlow + m.nup : (kUpper ? m.nup : m.nlow);
   const int* offs = kUpper ? m.up : m.low;
   const int producers = kIluProducerWarps * 32;
   const int first_producer = (int)blockDim.x - producers;
   const IluSweep w{P, rhs, level_rows, st.lp, dq, st.z != nullptr ? smem_addr(st.z) : 0u, zg,
-                   nrows, nlev, nt, nt + (kUpper ? 1 : 0), full, empty};
+                   nrows, nlev, nt, nt + (kUpper || kGS ? 1 : 0), full, empty};
 
   if (st.z != nullptr) {
-    for (int e = threadIdx.x; e <= nrows; e += blockDim.x) st.z[e] = 0.0;
-  } else {
-    for (int e = threadIdx.x; e < nrows; e += blockDim.x) zg[e] = 0.0;
+    for (int e = threadIdx.x; e <= nrows; e += blockDim.x) st.z[e] = kGS && e < nrows ? z0[e] : 0.0;
   }
-  if (threadIdx.x < nt) dq[threadIdx.x] = m.delta[offs[threadIdx.x]];
+  if (st.z == nullptr || kGS) {
+    for (int e = threadIdx.x; e < nrows; e += blockDim.x) zg[e] = kGS ? z0[e] : 0.0;
+  }
+  if (threadIdx.x < nt) {
+    const int q = threadIdx.x;
+    dq[q] = m.delta[kGS ? q + (q >= m.center ? 1 : 0) : offs[q]];
+  }
   if (threadIdx.x == 0 && st.data != nullptr) {
     for (int i = 0; i < st.stages; ++i) {
       mbar_init(&full[i], 32);  // the lanes of the producer warp whose turn the level is
@@ -495,7 +510,7 @@ __device__ void ilu_sweep(const double* P, int nrows, const IluMeta& m, const Il
         const int row = level_rows[beg + r];
         double acc = ilu_row<0>(rhs[row], row, nt, z, [&](int q) { return dq[q]; },
                                 [&](int q) { return blk[q * cnt + r]; });
-        if (kUpper) acc = __ddiv_rn(acc, blk[nt * cnt + r]);
+        if (kUpper || kGS) acc = __ddiv_rn(acc, blk[nt * cnt + r]);
         z.store(row, acc);
       }
       __syncthreads();
@@ -519,12 +534,12 @@ __device__ void ilu_sweep(const double* P, int nrows, const IluMeta& m, const Il
       auto consume = [&](auto shared) {
         constexpr bool kZShared = decltype(shared)::value;
         if constexpr (kNt >= 0) {
-          ilu_consume<kUpper, kNt, kZShared>(w, st, threads);
+          ilu_consume<kUpper, kNt, kZShared, kGS>(w, st, threads);
         } else {
           switch (nt) {
-            case 4: ilu_consume<kUpper, 4, kZShared>(w, st, threads); break;
-            case 13: ilu_consume<kUpper, 13, kZShared>(w, st, threads); break;
-            default: ilu_consume<kUpper, 0, kZShared>(w, st, threads); break;
+            case 4: ilu_consume<kUpper, 4, kZShared, kGS>(w, st, threads); break;
+            case 13: ilu_consume<kUpper, 13, kZShared, kGS>(w, st, threads); break;
+            default: ilu_consume<kUpper, 0, kZShared, kGS>(w, st, threads); break;
           }
         }
       };

@@ -6,6 +6,14 @@ from perphil_tpu_torch.forms.spaces import (
     create_function_spaces,
     mixed_space,
 )
+from perphil_tpu_torch.forms.dpp import (
+    DPPResidualForm,
+    FieldBilinearForm,
+    FieldLinearForm,
+    dpp_delayed_form,
+    dpp_form,
+    dpp_splitted_form,
+)
 
 __all__ = [
     "Function",
@@ -14,4 +22,10 @@ __all__ = [
     "MixedFunctionSpace",
     "create_function_spaces",
     "mixed_space",
+    "DPPResidualForm",
+    "FieldBilinearForm",
+    "FieldLinearForm",
+    "dpp_form",
+    "dpp_delayed_form",
+    "dpp_splitted_form",
 ]

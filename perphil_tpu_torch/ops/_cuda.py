@@ -70,6 +70,12 @@ _SIGNATURES = {
     # r, z, y, packed_lower, packed_upper, level_ptr, level_rows, meta, noffs,
     # nrows, nlev, max_level_rows, geometry(host, 4 ints), stream
     "perphil_structured_ilu_apply": [_P] * 8 + [_I, _I, _I, _I, _P, _P],
+    # x, b, z, packed, level_ptr, level_rows, meta, noffs, nrows, nlev,
+    # max_level_rows, geometry(host, 4 ints), stream
+    "perphil_gs_sweep": [_P] * 7 + [_I] * 4 + [_P, _P],
+    # b, x0, x, lists, cptr, xchg, result, weights(host, 38 doubles), ny, nx,
+    # ncolors, rtol, atol, max_it, blocks, nloc, stream
+    "perphil_fused_ngs": [_P] * 8 + [_I] * 3 + [_D, _D] + [_I] * 3 + [_P],
     # stream (an empty kernel: the floor of a launch through this interface)
     "perphil_empty_launch": [_P],
 }

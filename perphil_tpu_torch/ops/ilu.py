@@ -21,16 +21,28 @@ JAX package this apply is XLA, not Pallas); on a CPU tensor it runs the
 plain sweep, the order the kernel keeps bit for bit. The fused GMRES
 kernel (K7, K8) runs the same sweep on the same buffers.
 
+The sweepers of the SNES ``ngs`` Picard solve live here too:
+
+  - :class:`GaussSeidelSweeper`: one forward lexicographic Gauss-Seidel
+    sweep of the monolithic system on the same level schedule (the JAX
+    package's wavefront ``_leveled_clip_sweep(..., scale_diag=True)``); on a
+    CUDA tensor the ILU sweep of ``csrc/ilu_apply.cu`` in its Gauss-Seidel
+    mode (counted as ``structured_ilu_apply[gs]``);
+  - :class:`ColoredNGSSweeper`: the pinned-colouring multicolour secant
+    sweep (quad meshes), whose whole Picard solve is one kernel
+    (``ops/fused_ngs.py``).
+
 Not ported: the parallel-prefix trisolves (``DirTriSolve``, ``PartriILU``,
-``PartriGS``, ``ops/partri.py``), a second trisolve backend;
-``GaussSeidelSweeper`` and ``ColoredNGSSweeper`` (ROADMAP slice 5); the
-double-float defect-corrected apply (a TPU workaround for emulated f64).
+``PartriGS``, ``ops/partri.py``), the JAX package's default trisolve
+backend, which computes the same functions with other bits (ROADMAP queue
+1); the double-float defect-corrected apply (a TPU workaround for emulated
+f64).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +52,12 @@ from perphil_tpu_torch.config import DeviceLike, resolve_device
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
 from perphil_tpu_torch.ops import _cuda
+from perphil_tpu_torch.ops.assembly import dpp_stencils
+from perphil_tpu_torch.ops.ordering import ngs_parity_coloring
 from perphil_tpu_torch.ops.stencil import compile_stencils
 
 KERNEL = "structured_ilu_apply"
+GS_KERNEL = "structured_ilu_apply[gs]"
 #: the kernels' fixed offset tables hold at most this many offsets per side
 MAX_SIDE_OFFSETS = 40
 
@@ -300,16 +315,41 @@ def ilu0_factorize(sys: StructuredSystem) -> np.ndarray:
     return vals
 
 
-class StructuredILU0(nn.Module):
-    """ILU(0) application ``z = U^{-1} L^{-1} r`` in native f64.
+def _pack_by_level(by_level: np.ndarray, offs: Sequence[int], ptr: np.ndarray) -> np.ndarray:
+    """``by_level[offs]`` (rows in level order) packed level by level: level
+    lv's block starts at ``len(offs) * ptr[lv]`` and holds ``[q][r]``, q the
+    offsets in the given order, r the level's rows."""
+    side = by_level[list(offs)]
+    blocks = [side[:, ptr[lv] : ptr[lv + 1]].ravel() for lv in range(len(ptr) - 1)]
+    return np.concatenate(blocks) if offs else np.zeros(0)
 
-    Buffers: ``factors`` (noffs, nrows), the f64 factor by offset (the plain
-    sweep's); ``packed_lower`` and ``packed_upper``, the same entries packed
-    by level (the kernels': a level's rows lie scattered in ``factors``);
-    ``level_ptr`` (nlev + 1,) and ``level_rows`` (nrows,) int32, the
-    wavefront schedule in CSR form. ``meta`` holds the kernels' int32 offset
-    table: ``[nlow, nup, center, low_t[40], up_t[40], delta[noffs]]``.
-    """
+
+def _clip_sweep(rhs: torch.Tensor, plan: list, nrows: int, z0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One wavefront sweep (the JAX package's ``_leveled_clip_sweep``): per
+    level, ``acc = rhs[rows] - v[t] * z[col]`` over the plan's offsets in
+    its order (each product and difference rounded apart), then ``acc /
+    diag`` where the plan has one; ``z`` starts at ``z0`` (zero by default)
+    and a column past the last row reads zero."""
+    z = rhs.new_zeros(nrows + 1)
+    if z0 is not None:
+        z[:nrows] = z0
+    for rows, cols, V, diag in plan:
+        acc = rhs[rows]
+        prods = V * z[cols]
+        for t in range(prods.shape[0]):
+            acc = acc - prods[t]
+        if diag is not None:
+            acc = acc / diag
+        z[rows] = acc
+    return z[:nrows]
+
+
+class _LevelSchedule(nn.Module):
+    """What a structured system's level-scheduled sweeps share: its offsets
+    (``deltas``, ``center``, the ``lower`` and ``upper`` sides), the
+    wavefront schedule in CSR form (``level_ptr`` (nlev + 1,), ``level_rows``
+    (nrows,) int32) and the kernels' int32 offset table ``meta``:
+    ``[nlow, nup, center, low_t[40], up_t[40], delta[noffs]]``."""
 
     def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
         super().__init__()
@@ -321,22 +361,10 @@ class StructuredILU0(nn.Module):
         self.upper = tuple(t for t, d in enumerate(self.deltas) if d > 0)
         if max(len(self.lower), len(self.upper)) > MAX_SIDE_OFFSETS:
             raise ValueError(f"at most {MAX_SIDE_OFFSETS} offsets per side")
-        fac = ilu0_factorize(sys)
-        ptr = np.cumsum([0] + [len(lv) for lv in sys.levels]).astype(np.int32)
-        rows = np.concatenate(sys.levels).astype(np.int32)
-        dev = self.device
-        self.register_buffer("factors", torch.tensor(np.ascontiguousarray(fac.T), device=dev))
-        # each side packed by level for the kernels: level lv's block starts at
-        # items * ptr[lv] and holds [q][r], q the side's offsets in stored
-        # order (upper: then the diagonal), r the level's rows
-        by_level = fac.T[:, rows]
-        for name, offs in (("packed_lower", self.lower), ("packed_upper", self.upper + (self.center,))):
-            side = by_level[list(offs)]
-            blocks = [side[:, ptr[lv] : ptr[lv + 1]].ravel() for lv in range(len(ptr) - 1)]
-            packed = np.concatenate(blocks) if offs else np.zeros(0)
-            self.register_buffer(name, torch.tensor(packed, device=dev))
-        self.register_buffer("level_ptr", torch.tensor(ptr, device=dev))
-        self.register_buffer("level_rows", torch.tensor(rows, device=dev))
+        self._ptr = np.cumsum([0] + [len(lv) for lv in sys.levels]).astype(np.int32)
+        self._rows = np.concatenate(sys.levels).astype(np.int32)
+        self.register_buffer("level_ptr", torch.tensor(self._ptr, device=self.device))
+        self.register_buffer("level_rows", torch.tensor(self._rows, device=self.device))
         meta = np.zeros(3 + 2 * MAX_SIDE_OFFSETS + len(self.deltas), np.int32)
         meta[:3] = len(self.lower), len(self.upper), self.center
         meta[3 : 3 + len(self.lower)] = self.lower
@@ -344,9 +372,68 @@ class StructuredILU0(nn.Module):
         meta[3 + 2 * MAX_SIDE_OFFSETS :] = self.deltas
         self.meta = meta
         #: rows of the widest level: the kernels size their prefetch stage by it
-        self.max_level_rows = int(np.diff(ptr).max())
+        self.max_level_rows = int(np.diff(self._ptr).max())
         #: what the last launch chose (:class:`SweepGeometry`)
         self.last_geometry: Optional[SweepGeometry] = None
+
+    @property
+    def num_levels(self) -> int:
+        return int(self.level_ptr.numel()) - 1
+
+    def _tables(self, M: torch.Tensor, offs: Sequence[int], with_diag: bool) -> list:
+        """Per level the plain sweep's gather table: (rows, cols, the values
+        of ``M`` (noffs, nrows) at ``offs``[, the diagonal])."""
+        ptr, nrows = self._ptr.tolist(), self.nrows
+        d = torch.tensor([self.deltas[t] for t in offs], device=self.device)
+        sel = M[list(offs)]
+        plan = []
+        for lv in range(len(ptr) - 1):
+            rows = self.level_rows[ptr[lv] : ptr[lv + 1]].long()
+            cols = torch.clamp(rows[None, :] + d[:, None], 0, nrows)
+            plan.append((rows, cols, sel[:, rows], M[self.center, rows] if with_diag else None))
+        return plan
+
+    def _geometry(self, geometry: np.ndarray) -> None:
+        self.last_geometry = SweepGeometry(
+            int(geometry[0]), bool(geometry[1]), int(geometry[2]), int(geometry[3])
+        )
+
+    def _check_flat(self, t: torch.Tensor, name: str) -> None:
+        _cuda.require_cuda_tensor(t, name, torch.float64, self.device)
+        if tuple(t.shape) != (self.nrows,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({self.nrows},)")
+
+    def _on_device(self, *ts: torch.Tensor) -> bool:
+        """True for CUDA tensors (launch), False for CPU ones (the plain
+        sweep); raises on another device than the schedule's."""
+        for t in ts:
+            if t.device != self.device:
+                raise ValueError(f"tensor on {t.device}, sweep built for {self.device}")
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"the sweeps run on cpu or cuda, got {self.device}")
+        return self.device.type == "cuda"
+
+
+class StructuredILU0(_LevelSchedule):
+    """ILU(0) application ``z = U^{-1} L^{-1} r`` in native f64.
+
+    Buffers: ``factors`` (noffs, nrows), the f64 factor by offset (the plain
+    sweep's); ``packed_lower`` and ``packed_upper``, the same entries packed
+    by level (the kernels': a level's rows lie scattered in ``factors``);
+    ``level_ptr`` (nlev + 1,) and ``level_rows`` (nrows,) int32, the
+    wavefront schedule in CSR form. ``meta`` holds the kernels' int32 offset
+    table: ``[nlow, nup, center, low_t[40], up_t[40], delta[noffs]]``.
+    """
+
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
+        super().__init__(sys, device)
+        fac = ilu0_factorize(sys)
+        dev = self.device
+        self.register_buffer("factors", torch.tensor(np.ascontiguousarray(fac.T), device=dev))
+        # each side packed by level for the kernels (upper: then the diagonal)
+        by_level = fac.T[:, self._rows]
+        for name, offs in (("packed_lower", self.lower), ("packed_upper", self.upper + (self.center,))):
+            self.register_buffer(name, torch.tensor(_pack_by_level(by_level, offs, self._ptr), device=dev))
         self._plan: Optional[Tuple[list, list]] = None
 
     @classmethod
@@ -358,52 +445,21 @@ class StructuredILU0(nn.Module):
         """Of a ``FieldOperator`` block, on its space's device."""
         return cls(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device)
 
-    @property
-    def num_levels(self) -> int:
-        return int(self.level_ptr.numel()) - 1
-
     def _level_plan(self) -> Tuple[list, list]:
         """Per level, the plain sweeps' gather tables: (rows, cols, factor
         values[, diagonal]) for the lower and the upper offsets (built at
         first use; only the plain sweep reads them)."""
         if self._plan is None:
-            ptr = self.level_ptr.tolist()
-            nrows = self.nrows
-            F = self.factors
-            plans = []
-            for offs in (self.lower, self.upper):
-                d = torch.tensor([self.deltas[t] for t in offs], device=self.device)
-                sel = F[list(offs)]
-                plan = []
-                for lv in range(len(ptr) - 1):
-                    rows = self.level_rows[ptr[lv] : ptr[lv + 1]].long()
-                    cols = torch.clamp(rows[None, :] + d[:, None], 0, nrows)
-                    diag = F[self.center, rows] if offs is self.upper else None
-                    plan.append((rows, cols, sel[:, rows], diag))
-                plans.append(plan)
-            self._plan = (plans[0], plans[1])
+            self._plan = (
+                self._tables(self.factors, self.lower, False),
+                self._tables(self.factors, self.upper, True),
+            )
         return self._plan
-
-    def _sweep(self, rhs: torch.Tensor, plan: list) -> torch.Tensor:
-        """One wavefront sweep: per level, ``acc = rhs[rows] - f[t] * z[col]``
-        over the offsets in stored order (each product and difference
-        rounded apart), ``acc / diag`` on the upper sweep; ``z`` starts at
-        zero and a column past the last row reads zero."""
-        z = rhs.new_zeros(self.nrows + 1)
-        for rows, cols, F, diag in plan:
-            acc = rhs[rows]
-            prods = F * z[cols]
-            for t in range(prods.shape[0]):
-                acc = acc - prods[t]
-            if diag is not None:
-                acc = acc / diag
-            z[rows] = acc
-        return z[: self.nrows]
 
     def plain(self, r: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch twin on a flat ``(nrows,)`` f64 tensor (any device)."""
         lower, upper = self._level_plan()
-        return self._sweep(self._sweep(r, lower), upper[::-1])
+        return _clip_sweep(_clip_sweep(r, lower, self.nrows), upper[::-1], self.nrows)
 
     def plain_grid(self, r: torch.Tensor) -> torch.Tensor:
         """:meth:`plain` on a grid (or stacked grids): the same shape out."""
@@ -411,9 +467,7 @@ class StructuredILU0(nn.Module):
 
     def launch(self, r: torch.Tensor) -> torch.Tensor:
         """Run ``csrc/ilu_apply.cu`` on a flat ``(nrows,)`` f64 CUDA tensor."""
-        _cuda.require_cuda_tensor(r, "r", torch.float64, self.device)
-        if tuple(r.shape) != (self.nrows,):
-            raise ValueError(f"r has shape {tuple(r.shape)}, expected ({self.nrows},)")
+        self._check_flat(r, "r")
         z = torch.empty_like(r)
         y = torch.empty_like(r)
         geometry = np.zeros(4, np.int32)
@@ -425,24 +479,149 @@ class StructuredILU0(nn.Module):
             len(self.deltas), self.nrows, self.num_levels, self.max_level_rows,
             geometry.ctypes.data,
         )
-        self.last_geometry = SweepGeometry(
-            int(geometry[0]), bool(geometry[1]), int(geometry[2]), int(geometry[3])
-        )
+        self._geometry(geometry)
         return z
 
     def apply_flat(self, r: torch.Tensor) -> torch.Tensor:
         """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor: the kernel on a
         CUDA tensor, the plain sweep on a CPU one."""
-        if r.device != self.device:
-            raise ValueError(f"r on {r.device}, ILU built for {self.device}")
-        if r.device.type == "cpu":
-            return self.plain(r)
-        if r.device.type != "cuda":
-            raise ValueError(f"structured ILU runs on cpu or cuda, got {r.device}")
-        return self.launch(r)
+        return self.launch(r) if self._on_device(r) else self.plain(r)
 
     def apply_grid(self, r: torch.Tensor) -> torch.Tensor:
         """Grid (or stacked grids) in, the same shape out."""
         return self.apply_flat(r.reshape(-1)).reshape(r.shape)
 
     forward = apply_grid
+
+
+class GaussSeidelSweeper(_LevelSchedule):
+    """Forward pointwise Gauss-Seidel sweeps over the BC-eliminated monolithic
+    system in lexicographic field-major order (the SNES ``ngs`` solve on
+    tri/hex/tet meshes; counterpart of ``perphil_tpu/ops/ilu.py``'s
+    ``GaussSeidelSweeper`` on its wavefront path). Every dependency of a row
+    lies on an earlier level, so the level schedule sweeps in row order.
+
+    Buffers: ``vals`` (noffs, nrows), the matrix by offset (the plain
+    sweep's); ``packed``, the same entries packed by level for the kernel:
+    per level ``[q][r]``, q the off-centre offsets in stored order, then the
+    diagonal.
+    """
+
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
+        super().__init__(sys, device)
+        self.offsets = tuple(t for t in range(len(self.deltas)) if t != self.center)
+        dev = self.device
+        self.register_buffer("vals", torch.tensor(np.ascontiguousarray(sys.vals.T), device=dev))
+        packed = _pack_by_level(sys.vals.T[:, self._rows], self.offsets + (self.center,), self._ptr)
+        self.register_buffer("packed", torch.tensor(packed, device=dev))
+        self._plan: Optional[list] = None
+
+    @classmethod
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
+        return cls(build_monolithic_system(mesh, params), device)
+
+    def plain(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Plain PyTorch twin on flat ``(nrows,)`` f64 tensors (any device):
+        per level ``(b - sum_{t != center} a_t z[col]) / a_center`` with
+        ``z`` read in place (the JAX package's ``_leveled_clip_sweep`` with
+        ``scale_diag``)."""
+        if self._plan is None:
+            self._plan = self._tables(self.vals, self.offsets, True)
+        return _clip_sweep(b, self._plan, self.nrows, x)
+
+    def launch(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Run the ILU sweep of ``csrc/ilu_apply.cu`` in its Gauss-Seidel
+        mode on flat ``(nrows,)`` f64 CUDA tensors."""
+        self._check_flat(x, "x")
+        self._check_flat(b, "b")
+        z = torch.empty_like(x)
+        geometry = np.zeros(4, np.int32)
+        _cuda.launch(
+            GS_KERNEL, "perphil_gs_sweep", x.device,
+            x.data_ptr(), b.data_ptr(), z.data_ptr(), self.packed.data_ptr(), self.level_ptr.data_ptr(),
+            self.level_rows.data_ptr(), self.meta.ctypes.data,
+            len(self.deltas), self.nrows, self.num_levels, self.max_level_rows, geometry.ctypes.data,
+        )
+        self._geometry(geometry)
+        return z
+
+    def sweep(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """One forward sweep from ``x``: ``x_i <- (b_i - sum_{j != i} a_ij
+        x_j) / a_ii`` in row order, on flat f64 tensors: the kernel on CUDA
+        tensors, the plain sweep on CPU ones."""
+        return self.launch(x, b) if self._on_device(x, b) else self.plain(x, b)
+
+
+class ColoredNGSSweeper(nn.Module):
+    """The multicolour secant Gauss-Seidel sweep of PETSc's SNES ``ngs``
+    under the pinned colouring draw (``ops/ordering.py::
+    ngs_parity_coloring``), on quad meshes: counterpart of
+    ``perphil_tpu/ops/ilu.py``'s ``ColoredNGSSweeper``. Per colour in
+    ascending order every DoF of the colour steps at once by the residual
+    at the current iterate over the diagonal (the secant slope of the linear
+    DPP residual).
+
+    The residual is the kernel's arithmetic (``csrc/fused_ngs.cu``), so
+    ``ops/fused_ngs.py`` takes this sweep as its twin: a row of field f at
+    an interior node is ``b - (0.0 + sum w[f][t] x[tap t])`` over field 0's
+    nine taps then field 1's (:attr:`weights`), boundary neighbours masked
+    to zero; a boundary row is the identity row, ``b - x``.
+
+    Buffers: ``masks`` (ncolors, 2, *node_shape) bool; ``diagonal`` (2,
+    *node_shape), the operator's diagonal (1 on boundary rows);
+    ``boundary`` (*node_shape) bool.
+    """
+
+    def __init__(self, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
+        super().__init__()
+        if mesh.element != "quad":
+            raise ValueError(f"ColoredNGSSweeper is pinned for quad meshes, got {mesh.element!r}")
+        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.shape = (2,) + tuple(mesh.node_shape)
+        S1, S2, C = (np.asarray(S, dtype=np.float64) for S in dpp_stencils(mesh, params))
+        #: per row field, its 18 taps: field 0's nine (offsets row-major), then field 1's
+        self.weights = np.stack([np.concatenate([S1.ravel(), C.ravel()]), np.concatenate([C.ravel(), S2.ravel()])])
+        #: the interior rows' diagonals, per field
+        self.diag = (float(S1[1, 1]), float(S2[1, 1]))
+        #: per DoF its colour, field-major flat (``ngs_parity_coloring``)
+        self.colors = ngs_parity_coloring(mesh)
+        self.ncolors = int(self.colors.max()) + 1
+        dev = self.device
+        self._taps = [torch.tensor(w, device=dev).reshape(2, 1, 1) for w in self.weights.T]
+        masks = np.stack([self.colors == c for c in range(self.ncolors)]).reshape((self.ncolors,) + self.shape)
+        self.register_buffer("masks", torch.tensor(masks, device=dev))
+        bdry = torch.tensor(mesh.boundary_mask(), device=dev)
+        self.register_buffer("boundary", bdry)
+        diagonal = torch.stack([torch.full(bdry.shape, d, dtype=torch.float64, device=dev) for d in self.diag])
+        self.register_buffer("diagonal", diagonal.masked_fill_(bdry, 1.0))
+
+    def residual(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``b - A x`` on stacked ``(2, *node_shape)`` f64 tensors."""
+        ny, nx = self.shape[1:]
+        xi = torch.where(self.boundary, 0.0, x)
+        acc = x.new_zeros((2, ny - 2, nx - 2))  # both fields' rows: tap t reads field t // 9
+        for t, w in enumerate(self._taps):
+            dy, dx = (t % 9) // 3 - 1, t % 3 - 1
+            acc = acc + w * xi[t // 9, 1 + dy : ny - 1 + dy, 1 + dx : nx - 1 + dx]
+        r = b - x
+        r[:, 1:-1, 1:-1] = b[:, 1:-1, 1:-1] - acc
+        return r
+
+    def sweep_stacked(self, x: torch.Tensor, b: torch.Tensor, r: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One NGS iteration on stacked tensors; ``r``, when given, is the
+        residual at ``x`` and serves colour 0."""
+        for c in range(self.ncolors):
+            if c > 0 or r is None:
+                r = self.residual(x, b)
+            x = torch.where(self.masks[c], x + r / self.diagonal, x)
+        return x
+
+    def sweep(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """One NGS iteration on flat field-major ``(2 n,)`` f64 tensors (the
+        JAX package's interface): ascending colours, each colour's DoFs
+        stepping at once by the residual at the current iterate."""
+        for t in (x, b):
+            if t.device != self.device:
+                raise ValueError(f"tensor on {t.device}, sweeper built for {self.device}")
+        return self.sweep_stacked(x.reshape(self.shape), b.reshape(self.shape)).reshape(-1)

@@ -3,9 +3,9 @@
 Counterpart of ``perphil_tpu/solvers/parameters.py``: the same 11 preset
 dictionaries plus ``TPU_DIRECT_PARAMS``, with the same PETSc-style keys and
 values, so option dicts written for either package are interchangeable.
-``perphil_tpu_torch.solvers.solver`` runs the direct-solve presets and the
-Krylov ones with every ``pc_type`` they use; the Picard presets raise
-``NotImplementedError`` naming the ROADMAP slice that ports them.
+``perphil_tpu_torch.solvers.solver`` runs all of them: the direct and Krylov
+presets through ``solve_dpp``, the Picard ones (``snes_*``) through
+``solve_dpp_nonlinear``.
 """
 
 _MAX_ITERATION_NUMBER = 50000

@@ -1,7 +1,8 @@
-"""Linear DPP solves: direct and Krylov.
+"""DPP solves: direct, Krylov and Picard.
 
 Counterpart of ``perphil_tpu/solvers/solver.py`` for ``ksp_type`` preonly,
-gmres and cg with ``pc_type`` lu/cholesky, none, jacobi, ilu and fieldsplit.
+gmres and cg with ``pc_type`` lu/cholesky, none, jacobi, ilu and fieldsplit,
+and for the Picard solves of ``solve_dpp_nonlinear``.
 The routing is the JAX package's accelerator route, the same on every
 device; the device only decides whether a kernel wrapper launches CUDA or
 runs its plain twin.
@@ -42,6 +43,23 @@ fast-diag exact blocks, literal inner Krylov solves, ``StructuredILU0``
 option path raises ``NotImplementedError`` naming the ROADMAP slice that
 ports it.
 
+Picard (``solve_dpp_nonlinear``; ``snes_type``, the JAX package's native-f64
+solves), from the BC lift, stopping on ``||F|| <= max(snes_rtol ||F0||,
+snes_atol)`` or ``snes_max_it``:
+
+  - ngs on quad meshes, the pinned-colouring multicolour sweep inside the
+    kernel's plan                        -> ``fused_ngs`` (one launch)
+  - ngs on quad meshes beyond it         -> ``ngs_host_loop`` (K1 residuals)
+  - ngs on tri/hex/tet meshes            -> ``GaussSeidelSweeper`` (one
+                                            ``structured_ilu_apply[gs]`` and
+                                            one K1 residual an iteration)
+  - block_gs                             -> exact alternating field solves
+  - nrichardson                          -> damped Richardson with
+                                            ``_monolithic_pc`` (the JAX
+                                            package's documented deviation)
+  - ksponly                              -> one linear solve, then the true
+                                            residual norm; iteration 1
+
 Solvers are cached on ``(W, params, frozen options)``; ``W`` carries the
 device. No builder reads the environment.
 """
@@ -78,8 +96,9 @@ from perphil_tpu_torch.ops.fused_gmres import (
     FusedGMRESSolver,
     fused_gmres_supported,
 )
-from perphil_tpu_torch.ops.ilu import StructuredILU0
-from perphil_tpu_torch.ops.krylov import cg, gmres
+from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop, picard_loop
+from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper, GaussSeidelSweeper, StructuredILU0
+from perphil_tpu_torch.ops.krylov import _norm, cg, gmres
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
 from perphil_tpu_torch.solvers.options import apply_prefix_overrides
 
@@ -401,6 +420,111 @@ def solve_dpp(
     return Solution(Function(W, (z1, z2)), int(its), float(rnorm))
 
 
+def _ngs_sweeper(mesh, params: DPPParameters, device) -> Union[ColoredNGSSweeper, GaussSeidelSweeper]:
+    """The SNES ngs sweep: the pinned-colouring multicolour sweeper on quad
+    meshes (the reference's exact Picard counts), the lexicographic
+    Gauss-Seidel sweeper elsewhere."""
+    if mesh.element == "quad":
+        return ColoredNGSSweeper(mesh, params, device)
+    return GaussSeidelSweeper.for_monolithic(mesh, params, device)
+
+
+@lru_cache(maxsize=64)
+def _build_nonlinear_solver(
+    W: MixedFunctionSpace,
+    params: DPPParameters,
+    frozen_sp: Tuple,
+) -> Callable:
+    """Build a Picard solve ``(g1, g2) -> (z1, z2, its, fnorm)`` for
+    boundary-value grids g1, g2 (``snes_type`` ngs, block_gs, nrichardson)."""
+    flat = dict(frozen_sp)
+    if flat.get("_x0_continuation"):
+        raise NotImplementedError(
+            "the chunked continuation (_x0_continuation) is ported in ROADMAP slice 10 "
+            "(experiments and tooling)"
+        )
+    snes = str(flat.get("snes_type", "ngs"))
+    rtol = float(flat.get("snes_rtol", 1e-8))
+    atol = float(flat.get("snes_atol", 1e-50))
+    max_it = int(flat.get("snes_max_it", 50))
+    op = DPPOperator(W, params)
+    mesh = W.mesh
+    bdry = op._mask_arrays[0]
+
+    def lift(g1: torch.Tensor, g2: torch.Tensor):
+        b = torch.stack(op.lifted_rhs(g1, g2))
+        x0 = torch.stack([torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)])
+        return b, x0
+
+    if snes == "ngs":
+        # PETSc's default SNES ngs is a colouring-based pointwise secant
+        # Gauss-Seidel; the fieldsplit keys of the Picard presets are inert
+        sweeper = _ngs_sweeper(mesh, params, W.device)
+        if isinstance(sweeper, ColoredNGSSweeper):
+            fused = FusedNGSSolver(op, sweeper, rtol, atol, max_it)
+
+            def solve_colored(g1: torch.Tensor, g2: torch.Tensor):
+                b, x0 = lift(g1, g2)
+                if W.device.type == "cuda" and fused.plan is None:
+                    res = ngs_host_loop(op, sweeper, b, x0, rtol, atol, max_it)
+                else:
+                    res = fused(b, x0)
+                return res.x[0], res.x[1], res.iterations, res.residual_norm
+
+            return solve_colored
+        mv = op.flat_matvec()
+
+        def solve_lexicographic(g1: torch.Tensor, g2: torch.Tensor):
+            b, x0 = (t.reshape(-1) for t in lift(g1, g2))
+            res = picard_loop(lambda x, r: sweeper.sweep(x, b), lambda x: b - mv(x), x0, rtol, atol, max_it)
+            x = res.x.reshape((2,) + tuple(mesh.node_shape))
+            return x[0], x[1], res.iterations, res.residual_norm
+
+        return solve_lexicographic
+
+    mv = op.stacked_matvec()
+    if snes == "block_gs":
+        # exact alternating field solves: the fixed-stress split the delayed
+        # form encodes
+        p = params
+        B0 = _block_solver(FieldOperator(W.sub(0), p.k1, p.beta, p.mu), _sub_options(flat, "fieldsplit_0_"))
+        B1 = _block_solver(FieldOperator(W.sub(1), p.k2, p.beta, p.mu), _sub_options(flat, "fieldsplit_1_"))
+        C = coupling_apply(mesh, p, W.device)
+
+        def solve_block_gs(g1: torch.Tensor, g2: torch.Tensor):
+            b, x0 = lift(g1, g2)
+
+            def step(z: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+                z1 = B0(b[0] - C(z[1]))
+                return torch.stack([z1, B1(b[1] - C(z1))])
+
+            res = picard_loop(step, lambda z: b - mv(z), x0, rtol, atol, max_it)
+            return res.x[0], res.x[1], res.iterations, res.residual_norm
+
+        return solve_block_gs
+
+    if snes == "nrichardson":
+        # DOCUMENTED DEVIATION from PETSc (as in the JAX package): PETSc's
+        # nrichardson without an inner npc is unpreconditioned and diverges
+        # on this system; the ksp/pc options serve as its preconditioner, so
+        # its counts are not PETSc's
+        damping = float(flat.get("snes_linesearch_damping", 1.0))
+        pc = _monolithic_pc(op, flat)
+
+        def solve_richardson(g1: torch.Tensor, g2: torch.Tensor):
+            b, x0 = lift(g1, g2)
+
+            def step(z: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+                return z + damping * (pc(r) if pc is not None else r)
+
+            res = picard_loop(step, lambda z: b - mv(z), x0, rtol, atol, max_it)
+            return res.x[0], res.x[1], res.iterations, res.residual_norm
+
+        return solve_richardson
+
+    raise ValueError(f"Unsupported snes_type: {snes!r}")
+
+
 def solve_dpp_nonlinear(
     W: MixedFunctionSpace,
     model_params: DPPParameters,
@@ -408,5 +532,21 @@ def solve_dpp_nonlinear(
     solver_parameters: Dict = {},
     options_prefix: str = "dpp_nonlinear",
 ) -> Solution:
-    """Picard-style nonlinear solve: not ported yet."""
-    raise NotImplementedError("solve_dpp_nonlinear is ported in ROADMAP slice 5 (nonlinear Picard)")
+    """Picard-style nonlinear solve on ``W``'s device (SNES ``ngs``,
+    ``block_gs``, ``nrichardson`` or ``ksponly``); returns a ``Solution``
+    with the SNES iteration count and the final function norm."""
+    _validate_mixed(W)
+    solver_parameters = apply_prefix_overrides(solver_parameters, options_prefix)
+    g1, g2 = bc_values_per_field(W, bcs)
+    flat = _flatten_options(solver_parameters)
+    if str(flat.get("snes_type", "ngs")) == "ksponly":
+        # PETSc semantics: SNESKSPONLY reports iteration 1 and the true
+        # residual norm after the one linear solve, not the KSP's
+        ksp_opts = {k: v for k, v in flat.items() if not k.startswith("snes_")}
+        z1, z2, _, _ = _build_linear_solver(W, model_params, _freeze(ksp_opts))(g1, g2)
+        op = DPPOperator(W, model_params)
+        b1, b2 = op.lifted_rhs(g1, g2)
+        return Solution(Function(W, (z1, z2)), 1, float(_norm(torch.stack(op.residual(z1, z2, b1, b2)))))
+    solver = _build_nonlinear_solver(W, model_params, _freeze(solver_parameters))
+    z1, z2, its, fnorm = solver(g1, g2)
+    return Solution(Function(W, (z1, z2)), int(its), float(fnorm))

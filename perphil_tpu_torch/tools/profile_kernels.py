@@ -47,6 +47,14 @@ direct-wrapper``, older, this, this, older), so that each tree's wrapper
 calls its own launchers, and prints the largest difference between the two
 trees' solutions.
 
+``--only ngs-phases`` builds ``csrc/fused_ngs.cu`` alone with its phase
+clocks (``PERPHIL_NGS_PROFILE``) and prints, for the Picard solve
+(``PICARD_LU_SOLVER_PARAMS``) at 2D N=16/64/128, the kernel's time with the
+clocks (CUDA events, median of 3; its result first held to the package's
+kernel bit for bit) and thread 0 of block 0's cycles an iteration in each
+phase: a colour's rows, the cluster barrier after them, the norm's residual
+rows and the norm's tree.
+
 ``--only sweeps`` builds nothing of its own: it times, with the package's
 kernels (CUDA events, median of 5), the frame's roles where ``chip_smoke.py``
 times them (K5 at 2D N=8, K4 at N=16/64, K6 at N=64 and tet nx=8) and the
@@ -436,6 +444,63 @@ K3_PHASES = ["setup", "first preconditioner", "matvec", "<p, A p>", "x, r update
     f"pass {i}" for i in range(6)] + ["dots, p update", "end"]
 
 
+def ngs_phase_library() -> ctypes.CDLL:
+    """``csrc/fused_ngs.cu`` built alone with its phase clocks compiled in
+    (``PERPHIL_NGS_PROFILE``), bound as the package binds it."""
+    out = _cuda.BUILD_DIR / "ngs_phases"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libngs_phases.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DPERPHIL_NGS_PROFILE", "-shared", "-I", str(_cuda.CSRC),
+                    "-o", str(lib), str(_cuda.CSRC / "fused_ngs.cu")], check=True, capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    dll.perphil_fused_ngs.argtypes = _cuda._SIGNATURES["perphil_fused_ngs"]
+    dll.perphil_fused_ngs_profile_take.argtypes = [_P]
+    return dll
+
+
+# the phases of the NGS kernel's clocks (fused_ngs.cu NgsPhase), in slot order
+NGS_PHASES = ["colour rows", "colour barrier", "norm residual", "norm tree"]
+
+
+def profile_ngs() -> None:
+    """Cycles of thread 0 of block 0 an iteration in each phase of
+    ``fused_ngs``, at 2D N=16/64/128."""
+    import chip_smoke
+    from perphil_tpu_torch.ops.fused_ngs import RESULT_SLOTS, FusedNGSSolver
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dll = ngs_phase_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    counters = np.zeros(len(NGS_PHASES), np.uint64)
+    picard = sp.PICARD_LU_SOLVER_PARAMS
+    for n in (16, 64, 128):
+        W, params, bcs, _, _ = chip_smoke.problem("quad", n, dev)
+        op = DPPOperator(W, params)
+        b, x0 = chip_smoke.picard_inputs(op, bcs)
+        solver = FusedNGSSolver(op, rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
+        ref = solver.launch(b, x0)
+        x = torch.empty_like(b)
+        result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=dev)
+        args, _scratch = solver.launch_args(b, x0, x, result)
+
+        def run():
+            _cuda.check(dll.perphil_fused_ngs(*args, stream), "profile launch")
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(x, ref.x):
+            raise RuntimeError(f"N={n}: the clocked kernel's solution is not the package's")
+        _cuda.check(dll.perphil_fused_ngs_profile_take(counters.ctypes.data), "profile take")
+        ms = median_ms(run, 3)  # four launches
+        _cuda.check(dll.perphil_fused_ngs_profile_take(counters.ctypes.data), "profile take")
+        its, phases = ref.iterations, solver.sweeper.ncolors + 1
+        cycles = counters.astype(np.float64) / 4 / its
+        print(f"fused_ngs quad N={n}: {solver.plan}, {its} iterations, {ms:.3f} ms with the clocks "
+              f"({ms * 1e3 / (its * phases):.3f} us a phase), {cycles.sum():.0f} cycles an iteration "
+              f"({cycles.sum() * its / ms / 1e6:.2f} GHz of thread 0's): " + ", ".join(
+                  f"{name} {c:.0f} ({c / cycles.sum() * 100:.1f}%)" for name, c in zip(NGS_PHASES, cycles)))
+
+
 def profile_direct() -> None:
     """Cycles of thread 0 in each phase of K2 and K3 (the phase clocks'
     build), per solve and per step or iteration, at the published sizes."""
@@ -633,7 +698,7 @@ def compare_direct(against: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
-                                       "direct-wrapper"],
+                                       "direct-wrapper", "ngs-phases"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -661,6 +726,9 @@ def main() -> int:
         return 0
     if args.only == "direct-phases":
         profile_direct()
+        return 0
+    if args.only == "ngs-phases":
+        profile_ngs()
         return 0
     dll = build()
     if args.only in (None, "gmres"):

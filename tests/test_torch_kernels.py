@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1-K8 and ``structured_ilu_apply`` against their
-plain PyTorch twins, on the
+"""The port's CUDA kernels K1-K8, ``structured_ilu_apply`` (and its
+Gauss-Seidel mode) and ``fused_ngs`` against their plain PyTorch twins, on the
 card. A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 (marker ``cuda``) and skips without one; run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``."""
@@ -8,9 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+import perphil_tpu_torch.solvers.parameters as sp
+from perphil_tpu_torch.forms import create_function_spaces, mixed_space
 from perphil_tpu_torch.interop import from_numpy_state
+from perphil_tpu_torch.mesh import create_mesh
+from perphil_tpu_torch.mesh.structured import StructuredMesh
+from perphil_tpu_torch.models.dpp import DPPParameters
 from perphil_tpu_torch.ops import _cuda
-from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, dpp_stencils
+from perphil_tpu_torch.ops.assembly import DirichletBC, DPPOperator, FieldOperator, dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import (
     fused_dpp_apply,
     fused_dpp_apply_plain,
@@ -30,7 +35,10 @@ from perphil_tpu_torch.ops.fused_gmres import (
     plan_smem,
     static_smem,
 )
-from perphil_tpu_torch.ops.ilu import StructuredILU0, ilu_plan
+from perphil_tpu_torch.ops.fused_ngs import KERNEL as NGS_KERNEL, FusedNGSSolver
+from perphil_tpu_torch.ops.ilu import GS_KERNEL, GaussSeidelSweeper, StructuredILU0, ilu_plan
+from perphil_tpu_torch.solvers import solve_dpp_nonlinear
+from perphil_tpu_torch.utils.manufactured_solutions import exact_expressions
 
 pytestmark = pytest.mark.cuda
 
@@ -547,3 +555,98 @@ def test_structured_ilu_apply_rejects_bad_inputs(cuda):
         pc.launch(r[:-1])
     with pytest.raises(ValueError):
         pc.launch(torch.zeros(2 * pc.nrows, dtype=torch.float64, device=cuda)[::2])
+
+
+# -- the Picard path: fused_ngs and the ILU sweep's Gauss-Seidel mode --------
+
+
+def _lifted(element, cells, device, seed=0):
+    """(operator, b, x0) of random boundary data on ``device``."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(c + 1 for c in reversed(cells))
+    state = from_numpy_state({"k1": 1.2, "beta": 0.9}, cells, element, rng.standard_normal(shape),
+                             rng.standard_normal(shape), device=device)
+    op = DPPOperator(state.W, state.params)
+    b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
+    bdry = op._mask_arrays[0]
+    x0 = torch.stack([torch.where(bdry, g, 0.0) for g in state.grids]).contiguous()
+    return op, b, x0
+
+
+@pytest.mark.parametrize("N", [4, 8, 16, 32, 64])
+def test_fused_ngs_matches_twin(cuda, N):
+    """One launch, every placement from one block to 16 (2 leaves a thread):
+    counts equal to the twin's, x within 1e-12 relative."""
+    op, b, x0 = _lifted("quad", (N, N), cuda)
+    solver = FusedNGSSolver(op, rtol=1e-8, atol=1e-12, max_it=50000)
+    before = _cuda.KERNEL_LAUNCHES[NGS_KERNEL]
+    got = solver.launch(b, x0)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[NGS_KERNEL] == before + 1
+    ref = solver.plain(b, x0)
+    assert got.iterations == ref.iterations > 0
+    assert _rel(got.x, ref.x) <= 1e-12
+    assert got.residual_norm <= max(1e-8 * got.initial_norm, 1e-12)
+
+
+@pytest.mark.parametrize("element,cells", [("triangle", (13, 9)), ("hex", (5, 4, 3)), ("tet", (5, 4, 3)), ("tet", (16, 16, 16))])
+def test_gs_mode_matches_twin(cuda, element, cells):
+    """The ILU sweep's Gauss-Seidel mode against the plain sweep, bit for
+    bit (the same products and differences in the same order), with the
+    layout ops/ilu.py::ilu_plan gives a stage of every off-centre entry."""
+    mesh = StructuredMesh(cells=cells, element=element)
+    op, _, _ = _lifted(element, cells, cuda)
+    swp = GaussSeidelSweeper.for_monolithic(mesh, op.params, cuda)
+    rng = np.random.default_rng(3)
+    x, b = (torch.tensor(rng.standard_normal(swp.nrows), device=cuda) for _ in range(2))
+    before = _cuda.KERNEL_LAUNCHES[GS_KERNEL]
+    z = swp.launch(x, b)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[GS_KERNEL] == before + 1
+    assert torch.equal(z, swp.plain(x, b))
+    geo, nt = swp.last_geometry, len(swp.offsets)
+    plan = ilu_plan(nt, nt, swp.nrows, swp.num_levels, swp.max_level_rows, geo.budget)
+    assert (geo.stages, geo.z_smem, geo.bytes) == (plan.stages, plan.z_smem, plan.bytes)
+
+
+def test_picard_on_the_card_launches_the_kernel_once(cuda):
+    """PICARD_LU_SOLVER_PARAMS at 2D N=8 on the manufactured solution: the
+    published 63, one launch."""
+    mesh = create_mesh(8, 8)
+    _, V = create_function_spaces(mesh, device=cuda)
+    W = mixed_space(V)
+    params = DPPParameters()
+    _, p1e, _, p2e = exact_expressions(mesh, params)
+    before = _cuda.KERNEL_LAUNCHES[NGS_KERNEL]
+    sol = solve_dpp_nonlinear(
+        W, params, [DirichletBC(W.sub(0), p1e), DirichletBC(W.sub(1), p2e)], sp.PICARD_LU_SOLVER_PARAMS
+    )
+    assert _cuda.KERNEL_LAUNCHES[NGS_KERNEL] == before + 1
+    assert sol.iteration_number == 63
+    assert sol.solution.data[0].device == cuda
+
+
+def test_picard_beyond_the_plan_takes_the_host_loop(cuda, monkeypatch):
+    """A mesh the kernel's plan refuses (here every mesh, the plan patched
+    away) runs the host loop on the card: K1 residuals, no fused_ngs
+    launch, the same published count."""
+    from perphil_tpu_torch.ops import fused_ngs
+    from perphil_tpu_torch.solvers.solver import _build_nonlinear_solver
+
+    monkeypatch.setattr(fused_ngs, "fused_ngs_plan", lambda node_shape, ncolors: None)
+    _build_nonlinear_solver.cache_clear()
+    mesh = create_mesh(8, 8)
+    _, V = create_function_spaces(mesh, device=cuda)
+    W = mixed_space(V)
+    params = DPPParameters()
+    _, p1e, _, p2e = exact_expressions(mesh, params)
+    before = dict(_cuda.KERNEL_LAUNCHES)
+    try:
+        sol = solve_dpp_nonlinear(
+            W, params, [DirichletBC(W.sub(0), p1e), DirichletBC(W.sub(1), p2e)], sp.PICARD_LU_SOLVER_PARAMS
+        )
+    finally:
+        _build_nonlinear_solver.cache_clear()
+    assert _cuda.KERNEL_LAUNCHES[NGS_KERNEL] == before.get(NGS_KERNEL, 0)
+    assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply"] - before.get("fused_dpp_apply", 0) > 63
+    assert sol.iteration_number == 63

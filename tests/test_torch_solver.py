@@ -198,8 +198,8 @@ def test_krylov_options_run(params, its):
 
 def test_unported_entry_points_raise():
     state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        solve_dpp_nonlinear(state.W, state.params, state.bcs, sp.PICARD_LU_SOLVER_PARAMS)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        solve_dpp_nonlinear(state.W, state.params, state.bcs, {**sp.PICARD_LU_SOLVER_PARAMS, "_x0_continuation": True})
     tri = from_numpy_state({}, (4, 4), "triangle", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
     with pytest.raises(ValueError, match="quad/hex"):
         solve_dpp(tri.W, tri.params, tri.bcs, solver_parameters=sp.TPU_DIRECT_PARAMS)
