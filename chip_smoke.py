@@ -6,7 +6,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
   1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
      versions, and switches TF32 off for f32 products (TF32 would stall the
      mixed-precision refinement);
-  2. builds the CUDA kernels K1-K8 and ``structured_ilu_apply`` from
+  2. builds the CUDA kernels K1-K8, ``structured_ilu_apply``, ``fused_ngs``
+     and ``band_trisolve`` from
      ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel), and
      checks that each fused GMRES role's static shared memory leaves the
      budget its launches plan with;
@@ -57,7 +58,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      lexicographic ngs at tri N=16 and tet nx=4 (one GS-mode launch an
      iteration), and ``block_gs``, ``RICHARDSON_SOLVER_PARAMS`` and
      ``KSP_PREONLY_PARAMS`` at N=16, each against the CPU twin path;
-  8. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
+  8. drives the ordering-parity ILU path (``parity_path``) — first
+     ``band_trisolve`` against its twin at tet nx=4/16/24/40 (a lower and an
+     upper factor, max abs diff over max abs <= 1e-13), timed with CUDA
+     events beside the twin, its bound and, at nx=16/24,
+     ``torch.linalg.solve_triangular`` on the dense factor; the whole band
+     apply at nx=40 against the sequential factor solves and its build's
+     device memory against ``band_plan``; then, counted, ``solve_dpp`` with
+     ``GMRES_ILU_PARAMS`` + ``pc_factor_mat_ordering_type: rcm`` on the
+     device engine at tet nx=4/8/12/16/20/24/32/36/40, held to the published
+     6/8/12/15/17/20/26/29/33 exactly with four ``band_trisolve`` launches an
+     apply and no K7 launch, and the host engine at nx=4 and 40 with the
+     same counts, timed in turns with the device engine (host clock);
+  9. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
      events, and the cached direct solves at 2D N=16 and tet nx=4 (K2, K3)
      with the host clock, and works out each kernel's bound from this run's
      shapes and iteration counts.
@@ -109,7 +122,11 @@ PICARD_KERNELS = {
     "fused_ngs": (_CSRC + "fused_ngs.cu", "perphil_tpu/solvers/solver.py:1852"),
     "structured_ilu_apply[gs]": (_CSRC + "ilu_apply.cu", "perphil_tpu/ops/ilu.py:840"),
 }
-KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS}
+PARITY_KERNELS = {
+    # the JAX package's band trisolve is a lax.scan of dense matvecs (XLA, no Pallas)
+    "band_trisolve": (_CSRC + "band_trisolve.cu", "perphil_tpu/ops/bandsolve.py:164"),
+}
+KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS, **PARITY_KERNELS}
 # published PETSc counts of plain GMRES(30):
 # notebooks/results-conforming-2d/petsc_profiling/petsc_perf_breakdown.csv and
 # notebooks/results-conforming-3d/petsc_profiling/petsc_perf_breakdown_3d.csv
@@ -173,6 +190,14 @@ PICARD_CASES = [  # element, N, preset, count (None: the CPU twin path's), kerne
     ("quad", 16, "KSP_PREONLY_PARAMS", 1, "fused_gmres_df[fieldsplit_lu]"),
 ]
 
+# the ordering-parity ILU's column (pc_factor_mat_ordering_type=rcm, "GMRES +
+# ILU PC", ordering rcm-parity): petsc_perf_breakdown_3d.csv, tet nx=4..40
+PARITY_COUNTS = {4: 6, 8: 8, 12: 12, 16: 15, 20: 17, 24: 20, 32: 26, 36: 29, 40: 33}
+PARITY_HOST_SIZES = (4, 40)  # the host engine, in turns with the device engine
+PARITY_KERNEL_SIZES = (4, 16, 24, 40)  # band_trisolve against its twin
+PARITY_LIBRARY_SIZES = (16, 24)  # torch.linalg.solve_triangular on the dense factor
+PARITY_TABLE_SIZE = 24  # the kernel line's shape: the largest with a library time
+
 # NVIDIA's H100 SXM data sheet: HBM3 bandwidth, FP64 and FP32 outside the
 # tensor cores (the kernels use none)
 HBM_BYTES_PER_S = 3.35e12
@@ -205,6 +230,9 @@ def presets():
         "BLOCK_GS": {**sp.PICARD_LU_SOLVER_PARAMS, "snes_type": "block_gs"},
         "RICHARDSON_SOLVER_PARAMS": sp.RICHARDSON_SOLVER_PARAMS,
         "KSP_PREONLY_PARAMS": sp.KSP_PREONLY_PARAMS,
+        "GMRES_ILU_RCM": {**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"},
+        "GMRES_ILU_RCM_HOST": {**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm",
+                               "pc_band_execution": "host"},
     }
 
 
@@ -444,6 +472,202 @@ def library_solve(op, b, x, what: str) -> float:
     print(f"{what}: torch.linalg.solve on the dense {A.shape[0]} x {A.shape[1]} system, max rel diff vs the kernel {err:.3e}")
     check(err <= 1e-10, f"{what}: the dense solve computes the kernel's solution")
     return time_ms(lambda: torch.linalg.solve(A, rhs), repeats=20)
+
+
+def parity_path(dev, smi, randn, results, t_start):
+    """Phase 8, the ordering-parity ILU (``pc_factor_mat_ordering_type=rcm``):
+    ``band_trisolve`` against its twin at tet nx=4/16/24/40 (a lower and an
+    upper factor, CUDA events beside the twin, the bound and, at nx=16/24,
+    ``torch.linalg.solve_triangular`` on the dense factor), the whole band
+    apply at nx=40 against the sequential factor solves and its build's
+    device memory against ``band_plan``; then, counted, ``solve_dpp`` on the
+    device engine at tet nx=4..40 held to the published
+    6/8/12/15/17/20/26/29/33 with four ``band_trisolve`` launches an apply
+    and no K7, and the host engine at nx=4 and 40 with the same counts, in
+    turns with the device engine. Adds the kernel's entries to ``results``
+    and returns the phase's launches of its kernels."""
+    import numpy as np
+    import scipy.sparse as sparse
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from perphil_tpu_torch.models.dpp import DPPParameters
+    from perphil_tpu_torch.ops import _cuda, _native
+    from perphil_tpu_torch.ops import bandsolve as bs
+    from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
+    from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain
+    from perphil_tpu_torch.ops.ordering import parity_system
+    from perphil_tpu_torch.solvers import solve_dpp
+    from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze
+
+    PRESETS = presets()
+
+    def parity_factor(nx):
+        """(mesh, perm, combined factor, bandwidth) of the tet nx parity system."""
+        mesh = problem("tet", nx, dev)[0].mesh
+        _, perm, Ap = parity_system(mesh, DPPParameters())
+        Fc, _ = _native.native_ilu0(Ap)
+        return mesh, perm, Fc, bs.factor_bandwidth(Fc, mesh.num_vertices)
+
+    # band_trisolve against its twin (not counted), a lower and an upper
+    # factor of field 1 at each size, on the factor's blocks; the library
+    # yardstick beside it where the dense factor fits comfortably
+    for nx in PARITY_KERNEL_SIZES:
+        mesh, perm, Fc, bw = parity_factor(nx)
+        nv = mesh.num_vertices
+        parts = bs.split_monolithic_factor(Fc, nv)
+        B = bs.band_block_size(bw)
+        for tag, M, lower in (("L11", parts[0], True), ("U11", parts[3], False)):
+            P = bs.build_blocks(M, B, lower, dev)
+            nb = P.shape[0]
+            r = randn(nb * B)
+            y = bs.tri_apply(P, r, lower, B - bw)
+            torch.cuda.synchronize()
+            yp, plain_ms = timed_once(lambda: bs.tri_apply_plain(P, r, lower, B - bw))
+            abs_err = float((y - yp).abs().max())
+            err = abs_err / float(yp.abs().max())
+            ms = time_ms(lambda: bs.tri_apply(P, r, lower, B - bw), repeats=20)
+            nbytes = 8 * nb * B * (B + 2)  # the packed blocks, r and y once
+            line = (f"band_trisolve tet nx={nx} {tag}: bandwidth {bw}, B {B}, nb {nb}, packed {nbytes / 1e6:.1f} MB, "
+                    f"max abs diff vs twin {abs_err:.3e} ({err:.3e} of max), {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+                    f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+            check(err <= 1e-13, f"band_trisolve tet nx={nx} {tag} vs twin")
+            entry = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         bound=bound(nbytes, 2.0 * nb * B * bw), shape=f"tet nx={nx} {tag}, B {B}, nb {nb}")
+            if nx in PARITY_LIBRARY_SIZES and lower:
+                D = bs.dense_factor(M, True, dev)
+                rd = r[:nv, None].contiguous()
+                ref = torch.linalg.solve_triangular(D, rd, upper=False, unitriangular=True)
+                lib_err = rel(y[:nv], ref[:, 0])
+                check(lib_err <= 1e-12, f"solve_triangular computes band_trisolve's solution at nx={nx}")
+                entry["library_ms"] = time_ms(
+                    lambda: torch.linalg.solve_triangular(D, rd, upper=False, unitriangular=True), repeats=10)
+                line += (f"; torch.linalg.solve_triangular on the dense {nv} x {nv} factor {entry['library_ms']:.4f} ms "
+                         f"(max rel diff {lib_err:.3e})")
+                del D, rd, ref
+            print(line)
+            results[f"band_trisolve@tet{nx}-{tag}"] = entry
+            del P, y, yp
+        if nx == max(PARITY_KERNEL_SIZES):
+            # the whole apply against the sequential factor solves (scipy), and
+            # the build's device memory against its plan
+            plan = bs.band_plan(nv, bw)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            band = bs.build_band_parity_ilu(Fc, perm, nv, mesh.node_shape, dev, bw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            print(f"band engine build tet nx={nx}: peak {peak} B of device memory, plan {plan.total_bytes} B "
+                  f"(packed {plan.packed_bytes} B)")
+            check(plan.packed_bytes <= peak <= plan.total_bytes, "the band engine's build stays within its plan")
+            rn = randn((2,) + tuple(mesh.node_shape))
+            z = band.apply(rn)
+            rp = rn.reshape(-1).cpu().numpy()[perm]
+            Lf = (sparse.tril(Fc, -1) + sparse.eye(Fc.shape[0])).tocsr()
+            Uf = sparse.triu(Fc).tocsr()
+            zref = spla.spsolve_triangular(Uf, spla.spsolve_triangular(Lf, rp, lower=True, unit_diagonal=True),
+                                           lower=False)
+            zp = z.reshape(-1).cpu().numpy()[perm]
+            apply_err = float(np.abs(zp - zref).max() / np.abs(zref).max())
+            apply_ms = time_ms(lambda: band.apply(rn), repeats=10)
+            print(f"BandParityILU.apply tet nx={nx}: {apply_ms:.4f} ms (4 band_trisolve launches, CUDA events), "
+                  f"max rel diff vs the sequential factor solves {apply_err:.3e}")
+            check(apply_err <= 1e-13, "the band apply computes U^-1 L^-1 r")
+            del band, z
+    torch.cuda.synchronize()
+    print(f"[{time.perf_counter() - t_start:.1f} s] band_trisolve checked against its twin")
+
+    # the path, counted: solve_dpp with pc_factor_mat_ordering_type=rcm on
+    # the device engine at every published size, each solve through
+    # band_trisolve and never through K7
+    rcm = PRESETS["GMRES_ILU_RCM"]
+    psetups = [problem("tet", n, dev) for n in PARITY_COUNTS]
+    torch.cuda.synchronize()
+    _cuda.KERNEL_LAUNCHES.clear()
+    psols, pcounts, pwalls = [], [], []
+    for W, params, bcs, _, _ in psetups:
+        before = dict(_cuda.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        psols.append(solve_dpp(W, params, bcs, solver_parameters=rcm))
+        torch.cuda.synchronize()
+        pwalls.append(time.perf_counter() - t0)
+        pcounts.append({k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)})
+    phase = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"ordering-parity path kernel launches, all cases: {phase}")
+    for name in PARITY_KERNELS:
+        check(phase.get(name, 0) > 0, f"{name} launched on the ordering-parity path")
+    check(phase.get("fused_gmres_df[ilu]", 0) == 0, "no K7 launch on the ordering-parity path")
+    parity_cached = {}
+    for (n, count), (W, params, bcs, _, _), sol, counts, wall in zip(PARITY_COUNTS.items(), psetups, psols, pcounts,
+                                                                     pwalls):
+        z1, z2 = sol.solution.data
+        its = sol.iteration_number
+        solver = _build_linear_solver(W, params, _freeze(rcm))
+        check(solver.engine == "device", f"tet nx={n}: the band engine serves the card")
+        applies = 1 + math.ceil(its / rcm.get("ksp_gmres_restart", 30)) + its
+        check(counts.get("band_trisolve", 0) == 4 * applies, f"tet nx={n}: four band_trisolve launches an apply")
+        check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
+        check(z1.device == dev and tuple(z1.shape) == W.mesh.node_shape, "solution on the card")
+        op = DPPOperator(W, params)
+        r0 = float(newton_rhs(op, bcs).norm())
+        S = dpp_stencils(W.mesh, params)
+        g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
+        b1, b2 = fused_dpp_apply_plain(g1, g2, *S, mode="lift")
+        y1, y2 = fused_dpp_apply_plain(z1, z2, *S, mode="matvec")
+        rres = math.sqrt(float(((b1 - y1) ** 2).sum() + ((b2 - y2) ** 2).sum())) / r0
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver(g1, g2)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        parity_cached[n] = statistics.median(walls)
+        line = (f"solve_dpp tet nx={n} GMRES+ILU rcm (device engine): iterations {its} (expected {count}), "
+                f"launches {counts}, first solve {wall * 1e3:.2f} ms (host set-up included), cached solve "
+                f"{parity_cached[n]:.2f} ms ({parity_cached[n] * 1e3 / its:.2f} us/iteration; host clock, median of 3), "
+                f"|b - A x| / |r0| {rres:.3e}")
+        check(its == count, f"tet nx={n} ordering-parity count")
+        check(rres < 1e-5, f"tet nx={n} ordering-parity residual")
+        if n <= 8:
+            Wc, pc, bcc, _, _ = problem("tet", n, "cpu")
+            ref = solve_dpp(Wc, pc, bcc, solver_parameters=rcm)  # the host engine on the CPU
+            cpu_diff = max(rel(a.cpu(), r) for a, r in zip((z1, z2), ref.solution.data))
+            line += f", vs the CPU's host engine {cpu_diff:.3e} ({ref.iteration_number} iterations)"
+            check(ref.iteration_number == its and cpu_diff < 1e-10, f"tet nx={n} rcm vs CPU")
+        print(line)
+    # the host engine at the smallest and largest published mesh: the same
+    # counts, the solve timed in turns with the device engine (host clock)
+    host = PRESETS["GMRES_ILU_RCM_HOST"]
+    for n in PARITY_HOST_SIZES:
+        W, params, bcs, _, _ = psetups[list(PARITY_COUNTS).index(n)]
+        before = dict(_cuda.KERNEL_LAUNCHES)
+        sol = solve_dpp(W, params, bcs, solver_parameters=host)
+        used = {k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)}
+        solvers = {"host": _build_linear_solver(W, params, _freeze(host)),
+                   "device": _build_linear_solver(W, params, _freeze(rcm))}
+        check(solvers["host"].engine == "host" and used.get("band_trisolve", 0) == 0, f"tet nx={n}: the host engine")
+        check(sol.iteration_number == PARITY_COUNTS[n], f"tet nx={n} host engine count")
+        dev_sol = psols[list(PARITY_COUNTS).index(n)]
+        diff = max(rel(a, b) for a, b in zip(sol.solution.data, dev_sol.solution.data))
+        check(sol.solution.data[0].device == dev and diff < 1e-8, f"tet nx={n}: host and device engines agree")
+        g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
+        walls = {"host": [], "device": []}
+        for side in ("host", "device", "device", "host"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solvers[side](g1, g2)
+            torch.cuda.synchronize()
+            walls[side].append((time.perf_counter() - t0) * 1e3)
+        print(f"solve_dpp tet nx={n} GMRES+ILU rcm: host engine {sol.iteration_number} iterations, launches {used}, "
+              f"fields within {diff:.3e} of the device engine's; cached solve host engine "
+              f"{' / '.join(f'{w:.2f}' for w in walls['host'])} ms, device engine "
+              f"{' / '.join(f'{w:.2f}' for w in walls['device'])} ms (host clock, in turns) on {smi}")
+    torch.cuda.synchronize()
+    print(f"[{time.perf_counter() - t_start:.1f} s] ordering-parity path done")
+    results["band_trisolve"] = results[f"band_trisolve@tet{PARITY_TABLE_SIZE}-L11"]
+    return {k: v for k, v in phase.items() if k in PARITY_KERNELS}
 
 
 def main() -> int:
@@ -1096,7 +1320,10 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[{time.perf_counter() - t_start:.1f} s] Picard path done")
 
-    # -- 8. end-to-end solve times, the kernel table ----------------------
+    # -- 8. the ordering-parity ILU path ------------------------------------
+    launches.update(parity_path(dev, smi, randn, results, t_start))
+
+    # -- 9. end-to-end solve times, the kernel table ----------------------
     for (element, n, preset, route), (W, params, bcs, _, _) in zip(cases, setups):
         solver = _build_linear_solver(W, params, _freeze(PRESETS[preset]))
         g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)

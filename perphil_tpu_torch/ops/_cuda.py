@@ -76,6 +76,8 @@ _SIGNATURES = {
     # b, x0, x, lists, cptr, xchg, result, weights(host, 38 doubles), ny, nx,
     # ncolors, rtol, atol, max_it, blocks, nloc, stream
     "perphil_fused_ngs": [_P] * 8 + [_I] * 3 + [_D, _D] + [_I] * 3 + [_P],
+    # P, r, y, u, barrier, nb, B, pad, lower, stream
+    "perphil_band_trisolve": [_P] * 5 + [_I] * 4 + [_P],
     # stream (an empty kernel: the floor of a launch through this interface)
     "perphil_empty_launch": [_P],
 }

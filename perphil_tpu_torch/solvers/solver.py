@@ -20,6 +20,18 @@ Direct (``preonly`` + lu; ``LINEAR_SOLVER_PARAMS``, ``TPU_DIRECT_PARAMS``):
 
 A preonly solve reports 1 iteration and residual 0.0 (PETSc semantics).
 
+The ordering-parity ILU (``pc_type: ilu`` with
+``pc_factor_mat_ordering_type: rcm``, whatever ``ksp_type`` says, as the JAX
+package routes it) is GMRES with ILU(0) in the reference's numbering and
+pattern, factored on the host once a solver:
+
+  - on the card, unless ``pc_band_execution: host`` or its plan does not fit
+    the card's free memory             -> ``krylov.gmres`` (K1 matvec) with
+                                          the dense-band ILU apply
+                                          (``band_trisolve``)
+  - on the CPU, or ``pc_band_execution: host``
+                                       -> the C++ CSR kernels' GMRES + ILU(0)
+
 Krylov (``PLAIN_GMRES_PARAMS``, ``GMRES_JACOBI_PARAMS``, ``GMRES_ILU_PARAMS``,
 the fieldsplit presets, ``ksp_type: cg``) solves the Newton-step system
 ``A d = b - A x0`` with x0 the BC lift, as Firedrake's KSP-only SNES does,
@@ -70,10 +82,12 @@ from dataclasses import dataclass
 from functools import lru_cache
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from perphil_tpu_torch.forms.spaces import Function, MixedFunctionSpace
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
+from perphil_tpu_torch.ops import _native
 from perphil_tpu_torch.ops.assembly import (
     DirichletBC,
     DPPOperator,
@@ -81,6 +95,7 @@ from perphil_tpu_torch.ops.assembly import (
     bc_values_per_field,
     coupling_apply,
 )
+from perphil_tpu_torch.ops.bandsolve import band_plan, build_band_parity_ilu, factor_bandwidth
 from perphil_tpu_torch.ops.direct import FastDiagFieldSolver, LumpedDPPPreconditioner
 from perphil_tpu_torch.ops.fused_direct import (
     fused_direct_solve,
@@ -100,6 +115,7 @@ from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop, picar
 from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper, GaussSeidelSweeper, StructuredILU0
 from perphil_tpu_torch.ops.krylov import _norm, cg, gmres
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
+from perphil_tpu_torch.ops.ordering import parity_system
 from perphil_tpu_torch.solvers.options import apply_prefix_overrides
 
 _DIRECT_RTOL = 1e-13  # inner tolerance when "LU" is played by PCG
@@ -336,6 +352,112 @@ def _krylov_route(op: DPPOperator, flat: Dict[str, object]) -> Callable:
     return solve
 
 
+def _free_device_bytes(device: torch.device) -> Optional[int]:
+    """The card's free memory in bytes, or None where no card memory is
+    used (the CPU)."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[0])
+
+
+def _choose_parity_engine(on_card: bool, option: str, need_bytes: Optional[int], free_bytes: Optional[int]) -> str:
+    """The parity ILU's engine: ``option`` (``pc_band_execution``) when the
+    user gave one, else the band engine on the card and the host engine on
+    the CPU, as the JAX package gives its accelerator the band engine. A
+    band engine whose plan (``need_bytes``) exceeds the card's free memory
+    goes to the host engine when the choice was left open, and raises when
+    the user asked for ``"device"``. ``need_bytes`` None: not yet planned."""
+    if option not in ("", "device", "host"):
+        raise ValueError(f"Unsupported pc_band_execution: {option!r} (device or host)")
+    engine = option or ("device" if on_card else "host")
+    if engine == "device" and need_bytes is not None and free_bytes is not None and need_bytes > free_bytes:
+        if option == "device":
+            raise MemoryError(
+                f"pc_band_execution=device: the band engine needs {need_bytes} bytes of device memory "
+                f"(packed blocks and build workspace), {free_bytes} are free"
+            )
+        return "host"
+    return engine
+
+
+def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple) -> Callable:
+    """The ordering-parity GMRES+ILU(0) (``pc_factor_mat_ordering_type=rcm``):
+    the reference's DMPlex numbering and finite-element fill pattern
+    (``ops/ordering.py::parity_system``), factored once on the host by the
+    C++ kernels (``ops/_native.py``), then solved by one of two engines
+    (:func:`_choose_parity_engine`): the band engine on the card
+    (:func:`_build_band_parity_ilu_solver`) or the host engine
+    (:func:`_build_host_parity_ilu_solver`). The returned solve's ``engine``
+    says which. ``pc_band_defect_correct`` is accepted and changes nothing:
+    the band blocks are f64, so the JAX package's double-float correction of
+    its f32 blocks has nothing to correct."""
+    flat = dict(frozen_sp)
+    option = str(flat.get("pc_band_execution", ""))
+    on_card = W.device.type == "cuda"
+    engine = _choose_parity_engine(on_card, option, None, None)
+    kw = dict(
+        rtol=float(flat.get("ksp_rtol", 1e-5)),
+        atol=float(flat.get("ksp_atol", 1e-50)),
+        max_it=int(flat.get("ksp_max_it", 10000)),
+        restart=int(flat.get("ksp_gmres_restart", 30)),
+    )
+    op = DPPOperator(W, params)
+    mesh = W.mesh
+    A, perm, Ap = parity_system(mesh, params)
+    if engine == "device":
+        Fc, _ = _native.native_ilu0(Ap)
+        nv = mesh.num_vertices
+        plan = band_plan(nv, factor_bandwidth(Fc, nv), mesh.dim)
+        engine = _choose_parity_engine(on_card, option, plan.total_bytes, _free_device_bytes(W.device))
+        if engine == "device":
+            solve = _build_band_parity_ilu_solver(op, perm, Fc, plan.bandwidth, kw)
+    if engine == "host":
+        solve = _build_host_parity_ilu_solver(op, A, perm, Ap, kw)
+    solve.engine = engine
+    return solve
+
+
+def _build_band_parity_ilu_solver(op: DPPOperator, perm, Fc, bandwidth: int, kw: Dict[str, object]) -> Callable:
+    """The band engine: GMRES (``ops/krylov.py::gmres``, the host loop; K1
+    matvecs on the card) on the Newton-step system ``A d = b - A x0``, left
+    preconditioned by the dense-band block ILU apply
+    (``ops/bandsolve.py::BandParityILU``, ``band_trisolve`` on the card)."""
+    band = build_band_parity_ilu(Fc, perm, op.mesh.num_vertices, op.grid_shape, op.W.device, bandwidth)
+    mv = op.stacked_matvec()
+    bdry = op._mask_arrays[0]
+
+    def solve_band(g1: torch.Tensor, g2: torch.Tensor):
+        b1, b2 = op.lifted_rhs(g1, g2)
+        x01 = torch.where(bdry, g1, 0.0)
+        x02 = torch.where(bdry, g2, 0.0)
+        r1, r2 = op.residual(x01, x02, b1, b2)
+        res = gmres(mv, torch.stack([r1, r2]), M_inv=band.apply, **kw)
+        return x01 + res.x[0], x02 + res.x[1], res.iterations, res.residual_norm
+
+    solve_band.band = band
+    return solve_band
+
+
+def _build_host_parity_ilu_solver(op: DPPOperator, A, perm, Ap, kw: Dict[str, object]) -> Callable:
+    """The host engine: ILU(0)-preconditioned GMRES by the C++ CSR kernels
+    (``ops/_native.py``), factored once here (PETSc's PCSetUp), on
+    ``(b - A x0)[perm]``; the fields come back on ``W``'s device."""
+    native_solve = _native.native_ilu_gmres_solver(Ap, **kw)
+    iperm = np.empty_like(perm)
+    iperm[perm] = np.arange(perm.shape[0])
+    bdry = op._mask_arrays[0]
+    shape = (2,) + tuple(op.grid_shape)
+
+    def solve_host(g1: torch.Tensor, g2: torch.Tensor):
+        b = torch.stack(op.lifted_rhs(g1, g2)).reshape(-1).cpu().numpy()
+        x0 = torch.stack([torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)]).reshape(-1).cpu().numpy()
+        its, dp, rnorm = native_solve((b - A @ x0)[perm])
+        x = torch.from_numpy(x0 + dp[iperm]).reshape(shape).to(op.W.device)
+        return x[0], x[1], its, rnorm
+
+    return solve_host
+
+
 @lru_cache(maxsize=64)
 def _build_linear_solver(
     W: MixedFunctionSpace,
@@ -349,10 +471,10 @@ def _build_linear_solver(
         str(flat.get("pc_type", "")) == "ilu"
         and str(flat.get("pc_factor_mat_ordering_type", "natural")) == "rcm"
     ):
-        raise NotImplementedError(
-            "the ordering-parity ILU (pc_factor_mat_ordering_type=rcm) is ported in "
-            "ROADMAP slice 6"
-        )
+        # before ksp_type, as the JAX package routes it: preonly + ilu + rcm
+        # runs GMRES there too; and never the fused roles (K7 is the
+        # structured lexicographic ILU)
+        return _build_parity_ilu_solver(W, params, frozen_sp)
     ksp = str(flat.get("ksp_type", "gmres"))
     op = DPPOperator(W, params)
     if ksp == "preonly":

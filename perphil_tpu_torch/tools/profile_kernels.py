@@ -55,6 +55,14 @@ kernel bit for bit) and thread 0 of block 0's cycles an iteration in each
 phase: a colour's rows, the cluster barrier after them, the norm's residual
 rows and the norm's tree.
 
+``--only band`` times ``band_trisolve`` (``csrc/band_trisolve.cu``) alone
+with the package's library, per factor (L11, L22, U11, U22) of the
+ordering-parity ILU at tet nx=4/8/16/24/32/40 (CUDA events, median of 20),
+beside the bound (the packed blocks, r and y once at 3.35 TB/s) and the
+rate it reached; for each size, and at nx=64 alone, it first prints the
+factor's bandwidth and ``band_plan`` (B, nb, packed and workspace bytes),
+computed on the host.
+
 ``--only sweeps`` builds nothing of its own: it times, with the package's
 kernels (CUDA events, median of 5), the frame's roles where ``chip_smoke.py``
 times them (K5 at 2D N=8, K4 at N=16/64, K6 at N=64 and tet nx=8) and the
@@ -695,10 +703,43 @@ def compare_direct(against: Path) -> None:
             f"{t} {r[tag + ' ms'][1]:.4f}" for (t, _), r in zip(turns, runs)), flush=True)
 
 
+def time_band() -> None:
+    """``--only band``: ``band_trisolve`` alone, per factor, at the
+    published tet sizes; the band plans up to nx=64."""
+    import chip_smoke
+    from perphil_tpu_torch.mesh.structured import StructuredMesh
+    from perphil_tpu_torch.models.dpp import DPPParameters
+    from perphil_tpu_torch.ops import _native
+    from perphil_tpu_torch.ops import bandsolve as bs
+    from perphil_tpu_torch.ops.ordering import parity_system
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for nx in (4, 8, 16, 24, 32, 40, 64):
+        mesh = StructuredMesh(cells=(nx,) * 3, element="tet")
+        _, perm, Ap = parity_system(mesh, DPPParameters())
+        Fc, _ = _native.native_ilu0(Ap)
+        nv = mesh.num_vertices
+        plan = bs.band_plan(nv, bs.factor_bandwidth(Fc, nv))
+        print(f"tet nx={nx}: {nv} vertices a field, {Ap.nnz} entries, {plan}")
+        if nx == 64:  # the plan only
+            continue
+        L11, _, L22, U11, _, U22 = bs.split_monolithic_factor(Fc, nv)
+        for name, M, lower in (("L11", L11, True), ("L22", L22, True), ("U11", U11, False), ("U22", U22, False)):
+            P = bs.build_blocks(M, plan.B, lower, dev)
+            r = torch.randn(P.shape[0] * plan.B, generator=gen, dtype=torch.float64).to(dev)
+            ms = chip_smoke.time_ms(lambda: bs.tri_apply(P, r, lower, plan.B - plan.bandwidth), repeats=20)
+            nbytes = 8 * P.shape[0] * plan.B * (plan.B + 2)
+            bound_ms = 1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S
+            print(f"  band_trisolve {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms, bytes; "
+                  f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s)")
+            del P
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
-                                       "direct-wrapper", "ngs-phases"],
+                                       "direct-wrapper", "ngs-phases", "band"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -729,6 +770,9 @@ def main() -> int:
         return 0
     if args.only == "ngs-phases":
         profile_ngs()
+        return 0
+    if args.only == "band":
+        time_band()
         return 0
     dll = build()
     if args.only in (None, "gmres"):

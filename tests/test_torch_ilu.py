@@ -184,14 +184,28 @@ def test_preonly_ilu_matches_jax(jax_f64_ilu, element, cells):
         assert _rel(a.numpy(), b) <= 1e-12
 
 
+@pytest.mark.parametrize("element,cells,its", [("quad", (8, 8), 7), ("tet", (4, 4, 4), 6)], ids=["quad8", "tet4"])
+def test_rcm_ilu_matches_jax(element, cells, its):
+    """Formerly a raise: the ordering-parity ILU (slice 6) against the JAX
+    package's solve, counts equal, fields within 1e-10 (tests in
+    test_torch_parity_ilu.py hold its pieces)."""
+    params = {**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"}
+    g1, g2 = _manufactured(element, cells)
+    ref = _jax_solve(element, cells, g1, g2, params)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
+    sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
+    assert sol.iteration_number == ref.iteration_number == its
+    for a, b in zip(sol.solution.data, ref.solution.data):
+        assert _rel(a.numpy(), np.asarray(b).reshape(a.shape)) <= 1e-10
+
+
 @pytest.mark.parametrize(
     "params,exc,match",
     [
         ({**sp.GMRES_ILU_PARAMS, "pc_factor_levels": 1}, NotImplementedError, "ILU\\(0\\)"),
         ({"ksp_type": "preonly", "pc_type": "ilu", "pc_factor_levels": 2}, NotImplementedError, "ILU\\(0\\)"),
-        ({**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"}, NotImplementedError, "slice 6"),
     ],
-    ids=["levels-1", "preonly-levels-2", "rcm"],
+    ids=["levels-1", "preonly-levels-2"],
 )
 def test_unported_ilu_options_raise(params, exc, match):
     state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")

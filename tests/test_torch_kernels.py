@@ -1,5 +1,5 @@
 """The port's CUDA kernels K1-K8, ``structured_ilu_apply`` (and its
-Gauss-Seidel mode) and ``fused_ngs`` against their plain PyTorch twins, on the
+Gauss-Seidel mode), ``fused_ngs`` and ``band_trisolve`` against their plain PyTorch twins, on the
 card. A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 (marker ``cuda``) and skips without one; run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``."""
@@ -14,7 +14,8 @@ from perphil_tpu_torch.interop import from_numpy_state
 from perphil_tpu_torch.mesh import create_mesh
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp import DPPParameters
-from perphil_tpu_torch.ops import _cuda
+from perphil_tpu_torch.ops import _cuda, _native
+from perphil_tpu_torch.ops import bandsolve as bs
 from perphil_tpu_torch.ops.assembly import DirichletBC, DPPOperator, FieldOperator, dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import (
     fused_dpp_apply,
@@ -37,6 +38,7 @@ from perphil_tpu_torch.ops.fused_gmres import (
 )
 from perphil_tpu_torch.ops.fused_ngs import KERNEL as NGS_KERNEL, FusedNGSSolver
 from perphil_tpu_torch.ops.ilu import GS_KERNEL, GaussSeidelSweeper, StructuredILU0, ilu_plan
+from perphil_tpu_torch.ops.ordering import parity_system
 from perphil_tpu_torch.solvers import solve_dpp_nonlinear
 from perphil_tpu_torch.utils.manufactured_solutions import exact_expressions
 
@@ -650,3 +652,34 @@ def test_picard_beyond_the_plan_takes_the_host_loop(cuda, monkeypatch):
     assert _cuda.KERNEL_LAUNCHES[NGS_KERNEL] == before.get(NGS_KERNEL, 0)
     assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply"] - before.get("fused_dpp_apply", 0) > 63
     assert sol.iteration_number == 63
+
+
+@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
+@pytest.mark.parametrize("B,nb,bw", [(64, 2, 34), (2144, 3, 2125)], ids=["B64", "B2144"])
+def test_band_trisolve_matches_twin(cuda, B, nb, bw, lower):
+    """The kernel against its twin on random packed blocks, entries outside
+    both supports included (neither may read them); one launch, counted."""
+    rng = np.random.default_rng(B)
+    P = torch.from_numpy(rng.standard_normal((nb, B, B)) * (0.5 / B)).to(cuda)
+    r = torch.from_numpy(rng.standard_normal(nb * B)).to(cuda)
+    before = _cuda.KERNEL_LAUNCHES[bs.KERNEL]
+    y = bs.tri_apply(P, r, lower, B - bw)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[bs.KERNEL] == before + 1
+    ref = bs.tri_apply_plain(P, r, lower, B - bw)
+    assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-13
+    assert torch.equal(y, bs.tri_apply(P, r, lower, B - bw))  # the sums in a fixed order
+
+
+def test_band_apply_on_the_card_matches_the_cpu(cuda):
+    """The whole parity ILU apply (four launches, the stencils, the
+    permutations) against the same apply on the CPU, at tet nx=8."""
+    mesh = StructuredMesh(cells=(8, 8, 8), element="tet")
+    _, perm, Ap = parity_system(mesh, DPPParameters())
+    Fc, _ = _native.native_ilu0(Ap)
+    r = torch.from_numpy(np.random.default_rng(6).standard_normal((2,) + mesh.node_shape))
+    ref = bs.build_band_parity_ilu(Fc, perm, mesh.num_vertices, mesh.node_shape, "cpu").apply(r)
+    before = _cuda.KERNEL_LAUNCHES[bs.KERNEL]
+    got = bs.build_band_parity_ilu(Fc, perm, mesh.num_vertices, mesh.node_shape, cuda).apply(r.to(cuda))
+    assert _cuda.KERNEL_LAUNCHES[bs.KERNEL] == before + 4
+    assert float((got.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-13
