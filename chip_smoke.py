@@ -474,6 +474,21 @@ def library_solve(op, b, x, what: str) -> float:
     return time_ms(lambda: torch.linalg.solve(A, rhs), repeats=20)
 
 
+def dense_factor(M, device):
+    """A strictly lower per-field factor block as the dense unit lower
+    triangular matrix on ``device``: the input of the library yardstick
+    ``torch.linalg.solve_triangular`` (the port never calls it)."""
+    import numpy as np
+    import torch
+
+    coo = M.tocoo()
+    D = torch.zeros(M.shape, dtype=torch.float64, device=device)
+    rows, cols = (torch.from_numpy(a.astype(np.int64)).to(device) for a in (coo.row, coo.col))
+    D[rows, cols] = torch.from_numpy(coo.data.astype(np.float64)).to(device)
+    D.diagonal().add_(1.0)
+    return D
+
+
 def parity_path(dev, smi, randn, results, t_start):
     """Phase 8, the ordering-parity ILU (``pc_factor_mat_ordering_type=rcm``):
     ``band_trisolve`` against its twin at tet nx=4/16/24/40 (a lower and an
@@ -535,7 +550,7 @@ def parity_path(dev, smi, randn, results, t_start):
             entry = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                          bound=bound(nbytes, 2.0 * nb * B * bw), shape=f"tet nx={nx} {tag}, B {B}, nb {nb}")
             if nx in PARITY_LIBRARY_SIZES and lower:
-                D = bs.dense_factor(M, True, dev)
+                D = dense_factor(M, dev)
                 rd = r[:nv, None].contiguous()
                 ref = torch.linalg.solve_triangular(D, rd, upper=False, unitriangular=True)
                 lib_err = rel(y[:nv], ref[:, 0])
@@ -555,7 +570,7 @@ def parity_path(dev, smi, randn, results, t_start):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            band = bs.build_band_parity_ilu(Fc, perm, nv, mesh.node_shape, dev, bw)
+            band = bs.build_band_parity_ilu(Fc, perm, nv, mesh.node_shape, dev)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - base
             print(f"band engine build tet nx={nx}: peak {peak} B of device memory, plan {plan.total_bytes} B "

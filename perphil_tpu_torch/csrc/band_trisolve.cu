@@ -26,16 +26,18 @@
 //
 // Design: a persistent grid, launched cooperatively (every block resident),
 // with a grid-wide barrier between the coupling half-step (u) and the
-// inverse half-step (y_k), and after it. A block owns a slab of rows; row q
-// of the slab order is row q/2 for even q and B-1-q/2 for odd q, so that a
-// block's rows pair a short and a long masked range in both half-steps (row
-// i's coupling range shrinks with i where its inverse range grows). A block
-// takes its rows kRows at a time: its threads walk the union of the rows'
-// column ranges, 32 consecutive columns a warp (coalesced), each thread
-// keeping one f64 sum a row, then the sums meet in a fixed order (warp
-// butterfly, then the warps in order), so a result does not depend on the
-// schedule. The vector (y_{k+-1} or u) is read through L2 (ld.global.cg:
-// another SM wrote it in this launch), the blocks with streaming loads.
+// inverse half-step (y_k), and after it. The rows go out in pairs, row p
+// with row B-1-p, so that a pair's masked ranges add up to about one row in
+// both half-steps (row i's coupling range shrinks with i where its inverse
+// range grows); the grid is two blocks an SM (at most a block a pair) and
+// each block takes an equal share of the pairs, one more at most. A block
+// takes its rows kBandRows at a time: its threads walk the union of the
+// rows' column ranges two columns a thread (16-byte loads), 64 consecutive
+// columns a warp, each thread keeping one f64 sum a row, then the sums meet
+// in a fixed order (warp butterfly, then the warps in order), so a result
+// does not depend on the schedule. The vector (y_{k+-1} or u) is read
+// through L2 (ld.global.cg: another SM wrote it in this launch), the blocks
+// with streaming loads.
 
 #include <cuda_runtime.h>
 
@@ -43,7 +45,8 @@ namespace perphil {
 
 constexpr int kBandThreads = 256;
 constexpr int kBandWarps = kBandThreads / 32;
-constexpr int kBandRows = 8;  // rows a pass: one f64 sum each a thread
+constexpr int kBandRows = 10;  // rows a pass: one f64 sum each a thread
+constexpr int kBandBlocksPerSm = 2;
 
 struct GridBarrier {
   unsigned int count;
@@ -70,7 +73,8 @@ __device__ __forceinline__ void grid_sync(GridBarrier* bar) {
   __syncthreads();
 }
 
-__device__ __forceinline__ int slab_row(int q, int B) { return (q & 1) ? B - 1 - (q >> 1) : (q >> 1); }
+// Row q of the pair order: row q/2 for even q, B-1-q/2 for odd q.
+__device__ __forceinline__ int pair_row(int q, int B) { return (q & 1) ? B - 1 - (q >> 1) : (q >> 1); }
 
 // The masked column range [lo, hi) of row i in one half-step.
 __device__ __forceinline__ void row_range(int i, int B, int pad, bool lower, bool coupling, int& lo, int& hi) {
@@ -82,8 +86,9 @@ __device__ __forceinline__ void row_range(int i, int B, int pad, bool lower, boo
   if (hi < lo) hi = lo;
 }
 
-// One half-step on this block's rows [q0, q1) of the slab order: for each
-// row i, s = sum over its masked range of Pk[i, j] * vec[j], then
+// One half-step on this block's rows [q0, q1) of the pair order: for each
+// row i, s = sum over its masked range of Pk[i, j] * vec[j] (increasing j
+// a thread), then
 //   coupling: u[i] = rk[i] - s
 //   inverse:  yk[i] = (lower ? u[i] : 0) + s
 __device__ void half_step(const double* __restrict__ Pk, const double* vec, const double* __restrict__ rk,
@@ -97,9 +102,9 @@ __device__ void half_step(const double* __restrict__ Pk, const double* vec, cons
 #pragma unroll
     for (int t = 0; t < kBandRows; ++t) {
       const int q = qb + t;
-      row[t] = q < q1 ? slab_row(q, B) : -1;
+      row[t] = q < q1 ? pair_row(q, B) : 0;
       lo[t] = hi[t] = 0;
-      if (row[t] >= 0) row_range(row[t], B, pad, lower, coupling, lo[t], hi[t]);
+      if (q < q1) row_range(row[t], B, pad, lower, coupling, lo[t], hi[t]);
       if (hi[t] > lo[t]) {
         jmin = min(jmin, lo[t]);
         jmax = max(jmax, hi[t]);
@@ -108,11 +113,20 @@ __device__ void half_step(const double* __restrict__ Pk, const double* vec, cons
     double acc[kBandRows];
 #pragma unroll
     for (int t = 0; t < kBandRows; ++t) acc[t] = 0.0;
-    for (int j = (jmin & ~31) + threadIdx.x; j < jmax; j += kBandThreads) {
-      const double v = __ldcg(vec + j);
+    // column pairs (2c, 2c+1): B is even and a row starts 256-byte aligned
+    for (int c = (jmin >> 6 << 5) + threadIdx.x; 2 * c < jmax; c += kBandThreads) {
+      const int j = 2 * c;
+      const double2 v = __ldcg(reinterpret_cast<const double2*>(vec) + c);
+      double2 p[kBandRows];
 #pragma unroll
       for (int t = 0; t < kBandRows; ++t) {
-        if (j >= lo[t] && j < hi[t]) acc[t] = fma(__ldcs(Pk + (size_t)row[t] * B + j), v, acc[t]);
+        p[t] = make_double2(0.0, 0.0);
+        if (j + 1 >= lo[t] && j < hi[t]) p[t] = __ldcs(reinterpret_cast<const double2*>(Pk + (size_t)row[t] * B) + c);
+      }
+#pragma unroll
+      for (int t = 0; t < kBandRows; ++t) {
+        if (j >= lo[t] && j < hi[t]) acc[t] = fma(p[t].x, v.x, acc[t]);
+        if (j + 1 >= lo[t] && j + 1 < hi[t]) acc[t] = fma(p[t].y, v.y, acc[t]);
       }
     }
 #pragma unroll
@@ -127,7 +141,7 @@ __device__ void half_step(const double* __restrict__ Pk, const double* vec, cons
     if (threadIdx.x < kBandRows && q < q1) {
       double s = 0.0;
       for (int w = 0; w < kBandWarps; ++w) s += part[w][threadIdx.x];
-      const int i = slab_row(q, B);
+      const int i = pair_row(q, B);
       if (coupling) {
         u[i] = rk[i] - s;
       } else {
@@ -138,11 +152,14 @@ __device__ void half_step(const double* __restrict__ Pk, const double* vec, cons
   }
 }
 
-__global__ void __launch_bounds__(kBandThreads)
+__global__ void __launch_bounds__(kBandThreads, kBandBlocksPerSm)
 band_trisolve_kernel(const double* __restrict__ P, const double* __restrict__ r, double* y, double* u,
-                     GridBarrier* bar, int nb, int B, int pad, int lower, int rows_per_block) {
-  const int q0 = blockIdx.x * rows_per_block;
-  const int q1 = min(q0 + rows_per_block, B);
+                     GridBarrier* bar, int nb, int B, int pad, int lower) {
+  // an equal share of the B/2 pairs a block, one more for the first ones
+  const int pairs = B / 2, share = pairs / gridDim.x, extra = pairs % gridDim.x;
+  const int b = blockIdx.x;
+  const int q0 = 2 * (b * share + min(b, extra));
+  const int q1 = q0 + 2 * (share + (b < extra ? 1 : 0));
   const size_t BB = (size_t)B * B;
   for (int step = 0; step < nb; ++step) {
     const int k = lower ? step : nb - 1 - step;
@@ -151,7 +168,7 @@ band_trisolve_kernel(const double* __restrict__ P, const double* __restrict__ r,
     if (step == 0) {
       // no block to couple to: u = r_k
       for (int q = q0 + (int)threadIdx.x; q < q1; q += kBandThreads) {
-        const int i = slab_row(q, B);
+        const int i = pair_row(q, B);
         u[i] = rk[i];
       }
     } else {
@@ -169,7 +186,8 @@ band_trisolve_kernel(const double* __restrict__ P, const double* __restrict__ r,
 // P: (nb, B, B) f64 packed [inverse | coupling] blocks; r, y: (nb * B,) f64
 // (right-hand side in, solution out); u: (B,) f64 scratch; barrier: two
 // zeroed 32-bit words; lower: 1 for the forward (unit-lower) recurrence, 0
-// for the backward one. B is a multiple of 32, 1 <= pad <= B.
+// for the backward one. B is a multiple of 32, 1 <= pad <= B; every pointer
+// 16-byte aligned.
 extern "C" int perphil_band_trisolve(const double* P, const double* r, double* y, double* u, void* barrier,
                                      int nb, int B, int pad, int lower, void* stream) {
   using namespace perphil;
@@ -182,16 +200,11 @@ extern "C" int perphil_band_trisolve(const double* P, const double* r, double* y
   }
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // as many blocks as kBandRows-row passes need, within what can be resident;
-  // an even slab a block keeps the row pairs together
-  const int resident = sms * per_sm, passes = (B + kBandRows - 1) / kBandRows;
-  int grid = resident < passes ? resident : passes;
-  int rows_per_block = (B + grid - 1) / grid;
-  rows_per_block += rows_per_block & 1;
-  grid = (B + rows_per_block - 1) / rows_per_block;
+  int grid = sms * (per_sm < kBandBlocksPerSm ? per_sm : kBandBlocksPerSm);
+  if (grid > B / 2) grid = B / 2;  // at least a pair a block
   GridBarrier* bar = static_cast<GridBarrier*>(barrier);
   void* args[] = {(void*)&P, (void*)&r, (void*)&y, (void*)&u, (void*)&bar,
-                  (void*)&nb, (void*)&B, (void*)&pad, (void*)&lower, (void*)&rows_per_block};
+                  (void*)&nb, (void*)&B, (void*)&pad, (void*)&lower};
   err = cudaLaunchCooperativeKernel((const void*)band_trisolve_kernel, dim3(grid), dim3(kBandThreads), args, 0,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -37,16 +37,15 @@ the sequential ``host_ilu_apply`` to ~5e-16 relative), so the port has none
 of it.
 
 The blocks are built on the card, one diagonal block at a time: scatter the
-factor's entries into a dense block, invert it with a batched triangular
-solve (setup, not a TPU kernel), keep the inverse's triangle and scatter the
-coupling entries around it. :func:`band_plan` gives what that costs in
+factor's entries into a dense block, invert it with a triangular solve
+(``torch.linalg.solve_triangular``: setup, not a TPU kernel), keep the
+inverse's triangle and scatter the coupling entries around it. :func:`band_plan` gives what that costs in
 device memory before anything is allocated; the solver checks it against
 the card's free memory (``solvers/solver.py``).
 """
 
 from __future__ import annotations
 
-import itertools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -121,16 +120,20 @@ def split_monolithic_factor(Fc: sp.csr_matrix, nv: int) -> Tuple[sp.csr_matrix, 
     return L[:nv, :nv], L[nv:, :nv], L[nv:, nv:], U[:nv, :nv], U[:nv, nv:], U[nv:, nv:]
 
 
-def factor_bandwidth(Fc: sp.csr_matrix, nv: int) -> int:
-    """The largest distance from the diagonal in the four per-field blocks
-    of the combined factor."""
-    L11, _, L22, U11, _, U22 = split_monolithic_factor(Fc, nv)
+def _parts_bandwidth(parts: Tuple[sp.csr_matrix, ...]) -> int:
+    L11, _, L22, U11, _, U22 = parts
     bw = 0
     for M, sign in ((L11, 1), (L22, 1), (U11, -1), (U22, -1)):
         coo = M.tocoo()
         if coo.nnz:
             bw = max(bw, int((sign * (coo.row.astype(np.int64) - coo.col)).max()))
     return bw
+
+
+def factor_bandwidth(Fc: sp.csr_matrix, nv: int) -> int:
+    """The largest distance from the diagonal in the four per-field blocks
+    of the combined factor."""
+    return _parts_bandwidth(split_monolithic_factor(Fc, nv))
 
 
 def _block_coo(M: sp.spmatrix, B: int, lower: bool):
@@ -275,15 +278,14 @@ def coupling_stencil_vals(M: sp.spmatrix, vperm: np.ndarray, grid_shape: Tuple[i
 
 def apply_varying_stencil(u: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """``y[p] = sum_o vals[o, p] * u[p + off_o]`` over the 3^d offsets, the
-    slowest axis first (the zero-padded shifts of ``stencil.apply_stencil``)."""
+    slowest axis first (the zero-padded shifts of ``stencil.apply_stencil``),
+    as one product with the 3^d shifted windows of the padded field (views)
+    and one sum over them."""
     d = u.dim()
-    up = F.pad(u, (1, 1) * d)
-    shape = u.shape
-    out = None
-    for n, idx in enumerate(itertools.product(range(3), repeat=d)):
-        term = vals[n] * up[tuple(slice(k, k + s) for k, s in zip(idx, shape))]
-        out = term if out is None else out + term
-    return out
+    windows = F.pad(u, (1, 1) * d)
+    for ax, s in enumerate(u.shape):
+        windows = windows.unfold(ax, s, 1)  # (3,) * d + u.shape
+    return (vals.view((3,) * d + tuple(u.shape)) * windows).sum(dim=tuple(range(d)))
 
 
 class BandParityILU(nn.Module):
@@ -334,37 +336,22 @@ class BandParityILU(nn.Module):
 
 
 def build_band_parity_ilu(
-    Fc: sp.csr_matrix, perm: np.ndarray, nv: int, grid_shape: Tuple[int, ...], device: DeviceLike = None,
-    bandwidth: int = None,
+    Fc: sp.csr_matrix, perm: np.ndarray, nv: int, grid_shape: Tuple[int, ...], device: DeviceLike = None
 ) -> BandParityILU:
     """The device apply of the host-factored parity system: ``Fc`` the
     combined ILU(0) factor of ``Ap = A[perm][:, perm]`` (``ordering.parity_system``,
     ``_native.native_ilu0``), ``perm`` the blocked DoF permutation (field 1's
     vertices first). The stencils first, then one factor at a time."""
     dev = resolve_device(device)
-    L11, L21, L22, U11, U12, U22 = split_monolithic_factor(Fc, nv)
-    bw = factor_bandwidth(Fc, nv) if bandwidth is None else int(bandwidth)
+    parts = split_monolithic_factor(Fc, nv)
+    L11, L21, L22, U11, U12, U22 = parts
+    bw = _parts_bandwidth(parts)
     B = band_block_size(bw)
     vperm = np.asarray(perm[:nv], dtype=np.int64)
     vals21 = coupling_stencil_vals(L21, vperm, grid_shape)
     vals12 = coupling_stencil_vals(U12, vperm, grid_shape)
     factors = tuple(build_blocks(M, B, lower, dev) for M, lower in ((L11, True), (L22, True), (U11, False), (U22, False)))
     return BandParityILU(nv, B, B - bw, grid_shape, vperm, factors, vals21, vals12)
-
-
-def dense_factor(M: sp.spmatrix, lower: bool, device: DeviceLike = None) -> torch.Tensor:
-    """One per-field factor block as a dense triangular matrix on
-    ``device`` (unit diagonal added to the strictly lower ones): the input
-    of the library yardstick ``torch.linalg.solve_triangular``."""
-    dev = resolve_device(device)
-    coo = M.tocoo()
-    D = torch.zeros(M.shape, dtype=torch.float64, device=dev)
-    D[torch.from_numpy(coo.row.astype(np.int64)).to(dev), torch.from_numpy(coo.col.astype(np.int64)).to(dev)] = (
-        torch.from_numpy(coo.data.astype(np.float64)).to(dev)
-    )
-    if lower:
-        D.diagonal().add_(1.0)
-    return D
 
 
 __all__ = [

@@ -352,6 +352,23 @@ def _krylov_route(op: DPPOperator, flat: Dict[str, object]) -> Callable:
     return solve
 
 
+def _newton_step_solver(op: DPPOperator, krylov: Callable) -> Callable:
+    """``(g1, g2) -> (z1, z2, its, rnorm)`` by ``krylov`` (``r -> (d, its,
+    rnorm)``) on the Newton-step system ``A d = b - A x0`` with x0 the BC
+    lift: the convergence test is relative to the interior-scale ``||r0||``."""
+    bdry = op._mask_arrays[0]
+
+    def solve_krylov(g1: torch.Tensor, g2: torch.Tensor):
+        b1, b2 = op.lifted_rhs(g1, g2)
+        x01 = torch.where(bdry, g1, 0.0)
+        x02 = torch.where(bdry, g2, 0.0)
+        r1, r2 = op.residual(x01, x02, b1, b2)
+        d, its, rnorm = krylov(torch.stack([r1, r2]))
+        return x01 + d[0], x02 + d[1], its, rnorm
+
+    return solve_krylov
+
+
 def _free_device_bytes(device: torch.device) -> Optional[int]:
     """The card's free memory in bytes, or None where no card memory is
     used (the CPU)."""
@@ -410,32 +427,26 @@ def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, froze
         plan = band_plan(nv, factor_bandwidth(Fc, nv), mesh.dim)
         engine = _choose_parity_engine(on_card, option, plan.total_bytes, _free_device_bytes(W.device))
         if engine == "device":
-            solve = _build_band_parity_ilu_solver(op, perm, Fc, plan.bandwidth, kw)
+            solve = _build_band_parity_ilu_solver(op, perm, Fc, kw)
     if engine == "host":
         solve = _build_host_parity_ilu_solver(op, A, perm, Ap, kw)
     solve.engine = engine
     return solve
 
 
-def _build_band_parity_ilu_solver(op: DPPOperator, perm, Fc, bandwidth: int, kw: Dict[str, object]) -> Callable:
+def _build_band_parity_ilu_solver(op: DPPOperator, perm, Fc, kw: Dict[str, object]) -> Callable:
     """The band engine: GMRES (``ops/krylov.py::gmres``, the host loop; K1
     matvecs on the card) on the Newton-step system ``A d = b - A x0``, left
     preconditioned by the dense-band block ILU apply
     (``ops/bandsolve.py::BandParityILU``, ``band_trisolve`` on the card)."""
-    band = build_band_parity_ilu(Fc, perm, op.mesh.num_vertices, op.grid_shape, op.W.device, bandwidth)
+    band = build_band_parity_ilu(Fc, perm, op.mesh.num_vertices, op.grid_shape, op.W.device)
     mv = op.stacked_matvec()
-    bdry = op._mask_arrays[0]
 
-    def solve_band(g1: torch.Tensor, g2: torch.Tensor):
-        b1, b2 = op.lifted_rhs(g1, g2)
-        x01 = torch.where(bdry, g1, 0.0)
-        x02 = torch.where(bdry, g2, 0.0)
-        r1, r2 = op.residual(x01, x02, b1, b2)
-        res = gmres(mv, torch.stack([r1, r2]), M_inv=band.apply, **kw)
-        return x01 + res.x[0], x02 + res.x[1], res.iterations, res.residual_norm
+    def krylov(r: torch.Tensor):
+        res = gmres(mv, r, M_inv=band.apply, **kw)
+        return res.x, res.iterations, res.residual_norm
 
-    solve_band.band = band
-    return solve_band
+    return _newton_step_solver(op, krylov)
 
 
 def _build_host_parity_ilu_solver(op: DPPOperator, A, perm, Ap, kw: Dict[str, object]) -> Callable:
@@ -509,20 +520,7 @@ def _build_linear_solver(
             "the chunked continuation (_x0_continuation) is ported in ROADMAP slice 10 "
             "(experiments and tooling)"
         )
-    krylov = _krylov_route(op, flat)
-    bdry = op._mask_arrays[0]
-
-    def solve_krylov(g1: torch.Tensor, g2: torch.Tensor):
-        # the Newton-step system A d = b - A x0 with x0 the BC lift: the
-        # convergence test is relative to the interior-scale ||r0||
-        b1, b2 = op.lifted_rhs(g1, g2)
-        x01 = torch.where(bdry, g1, 0.0)
-        x02 = torch.where(bdry, g2, 0.0)
-        r1, r2 = op.residual(x01, x02, b1, b2)
-        d, its, rnorm = krylov(torch.stack([r1, r2]))
-        return x01 + d[0], x02 + d[1], its, rnorm
-
-    return solve_krylov
+    return _newton_step_solver(op, _krylov_route(op, flat))
 
 
 def solve_dpp(
