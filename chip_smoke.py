@@ -489,6 +489,32 @@ def dense_factor(M, device):
     return D
 
 
+def parity_factor(nx: int):
+    """(mesh, perm, combined ILU(0) factor, bandwidth) of the tet nx parity
+    system, factored on the host."""
+    from perphil_tpu_torch.mesh import create_cube_mesh
+    from perphil_tpu_torch.models.dpp import DPPParameters
+    from perphil_tpu_torch.ops import _native
+    from perphil_tpu_torch.ops import bandsolve as bs
+    from perphil_tpu_torch.ops.ordering import parity_system
+
+    mesh = create_cube_mesh(nx, nx, nx)
+    _, perm, Ap = parity_system(mesh, DPPParameters())
+    Fc, _ = _native.native_ilu0(Ap)
+    return mesh, perm, Fc, bs.factor_bandwidth(Fc, mesh.num_vertices)
+
+
+def band_factor_time(P, r, lower: bool, n: int, bw: int, repeats: int = 20):
+    """``band_trisolve`` on one packed factor: (ms by CUDA events, bytes the
+    solve needs, its bound as ``bound`` gives it)."""
+    from perphil_tpu_torch.ops import bandsolve as bs
+
+    B = P.shape[1]
+    ms = time_ms(lambda: bs.tri_apply(P, r, lower, B - bw), repeats=repeats)
+    nbytes, flops = bs.tri_apply_traffic(n, B, B - bw, lower)
+    return ms, nbytes, bound(nbytes, flops)
+
+
 def parity_path(dev, smi, randn, results, t_start):
     """Phase 8, the ordering-parity ILU (``pc_factor_mat_ordering_type=rcm``):
     ``band_trisolve`` against its twin at tet nx=4/16/24/40 (a lower and an
@@ -497,8 +523,9 @@ def parity_path(dev, smi, randn, results, t_start):
     apply at nx=40 against the sequential factor solves and its build's
     device memory against ``band_plan``; then, counted, ``solve_dpp`` on the
     device engine at tet nx=4..40 held to the published
-    6/8/12/15/17/20/26/29/33 with four ``band_trisolve`` launches an apply
-    and no K7, and the host engine at nx=4 and 40 with the same counts, in
+    6/8/12/15/17/20/26/29/33 with four ``band_trisolve`` launches an apply,
+    K1 as the outer matvec (one an apply, plus the lift and the Newton-step
+    residual) and no K7, and the host engine at nx=4 and 40 with the same counts, in
     turns with the device engine. Adds the kernel's entries to ``results``
     and returns the phase's launches of its kernels."""
     import numpy as np
@@ -506,23 +533,14 @@ def parity_path(dev, smi, randn, results, t_start):
     import scipy.sparse.linalg as spla
     import torch
 
-    from perphil_tpu_torch.models.dpp import DPPParameters
-    from perphil_tpu_torch.ops import _cuda, _native
+    from perphil_tpu_torch.ops import _cuda
     from perphil_tpu_torch.ops import bandsolve as bs
     from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
     from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain
-    from perphil_tpu_torch.ops.ordering import parity_system
     from perphil_tpu_torch.solvers import solve_dpp
     from perphil_tpu_torch.solvers.solver import _build_linear_solver, _freeze
 
     PRESETS = presets()
-
-    def parity_factor(nx):
-        """(mesh, perm, combined factor, bandwidth) of the tet nx parity system."""
-        mesh = problem("tet", nx, dev)[0].mesh
-        _, perm, Ap = parity_system(mesh, DPPParameters())
-        Fc, _ = _native.native_ilu0(Ap)
-        return mesh, perm, Fc, bs.factor_bandwidth(Fc, mesh.num_vertices)
 
     # band_trisolve against its twin (not counted), a lower and an upper
     # factor of field 1 at each size, on the factor's blocks; the library
@@ -541,14 +559,14 @@ def parity_path(dev, smi, randn, results, t_start):
             yp, plain_ms = timed_once(lambda: bs.tri_apply_plain(P, r, lower, B - bw))
             abs_err = float((y - yp).abs().max())
             err = abs_err / float(yp.abs().max())
-            ms = time_ms(lambda: bs.tri_apply(P, r, lower, B - bw), repeats=20)
-            nbytes = 8 * nb * B * (B + 2)  # the packed blocks, r and y once
-            line = (f"band_trisolve tet nx={nx} {tag}: bandwidth {bw}, B {B}, nb {nb}, packed {nbytes / 1e6:.1f} MB, "
+            ms, nbytes, kbound = band_factor_time(P, r, lower, nv, bw)
+            line = (f"band_trisolve tet nx={nx} {tag}: bandwidth {bw}, B {B}, nb {nb}, "
+                    f"needs {nbytes / 1e6:.1f} MB (packed {8 * nb * B * B / 1e6:.1f} MB), "
                     f"max abs diff vs twin {abs_err:.3e} ({err:.3e} of max), {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-                    f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+                    f"bound {kbound[0]:.4f} ms, {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s of the needed bytes")
             check(err <= 1e-13, f"band_trisolve tet nx={nx} {tag} vs twin")
-            entry = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                         bound=bound(nbytes, 2.0 * nb * B * bw), shape=f"tet nx={nx} {tag}, B {B}, nb {nb}")
+            entry = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound=kbound,
+                         shape=f"tet nx={nx} {tag}, B {B}, nb {nb}")
             if nx in PARITY_LIBRARY_SIZES and lower:
                 D = dense_factor(M, dev)
                 rd = r[:nv, None].contiguous()
@@ -610,7 +628,7 @@ def parity_path(dev, smi, randn, results, t_start):
         pcounts.append({k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)})
     phase = dict(_cuda.KERNEL_LAUNCHES)
     print(f"ordering-parity path kernel launches, all cases: {phase}")
-    for name in PARITY_KERNELS:
+    for name in (*PARITY_KERNELS, "fused_dpp_apply"):
         check(phase.get(name, 0) > 0, f"{name} launched on the ordering-parity path")
     check(phase.get("fused_gmres_df[ilu]", 0) == 0, "no K7 launch on the ordering-parity path")
     parity_cached = {}
@@ -622,6 +640,8 @@ def parity_path(dev, smi, randn, results, t_start):
         check(solver.engine == "device", f"tet nx={n}: the band engine serves the card")
         applies = 1 + math.ceil(its / rcm.get("ksp_gmres_restart", 30)) + its
         check(counts.get("band_trisolve", 0) == 4 * applies, f"tet nx={n}: four band_trisolve launches an apply")
+        # K1: the lift and the Newton-step residual, then one matvec an apply
+        check(counts.get("fused_dpp_apply", 0) == 2 + applies, f"tet nx={n}: K1 is the outer matvec")
         check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
         check(z1.device == dev and tuple(z1.shape) == W.mesh.node_shape, "solution on the card")
         op = DPPOperator(W, params)
@@ -785,6 +805,7 @@ def main() -> int:
         ("quad16", problem("quad", 16, dev)[0], torch.float64, 1e-13),
         ("hex64", W64, torch.float64, 1e-13),
         ("hex128", W128, torch.float64, 1e-13),
+        ("tet40", problem("tet", 40, dev)[0], torch.float64, 1e-13),  # the ordering-parity path's largest
         ("hex64-f32", W64, torch.float32, 2e-6),
         ("hex128-f32", W128, torch.float32, 2e-6),
     ]

@@ -19,10 +19,11 @@
 //
 // Bound on the H100: bytes. A block is 36.8 MB at B = 2144 (tet nx=40), far
 // beyond shared memory or a cluster's, so each step is two dependent
-// matvecs over the whole card; the packed blocks (4.85 GB for the four
-// factors at nx=40) read once take 0.36 ms a factor at 3.35 TB/s. Each row
-// reads only its masked part: B - pad entries of the B a step, both halves
-// together.
+// matvecs over the whole card. Each row reads only its masked part: about
+// B - pad entries of the B a step, both halves together (the packed blocks
+// are 4.85 GB for the four factors at nx=40). The entries a factor needs
+// (ops/bandsolve.py::tri_apply_traffic: 1.15 GB at nx=40) read once take
+// 0.345 ms at 3.35 TB/s.
 //
 // Design: a persistent grid, launched cooperatively (every block resident),
 // with a grid-wide barrier between the coupling half-step (u) and the

@@ -256,6 +256,28 @@ def tri_apply(P: torch.Tensor, r: torch.Tensor, lower: bool, pad: int) -> torch.
     return y
 
 
+def tri_apply_traffic(n: int, B: int, pad: int, lower: bool) -> Tuple[int, int]:
+    """``(bytes, flops)`` that one banded triangular solve of ``n`` rows
+    (:func:`tri_apply`) needs: each masked block entry of a real row and
+    column read once (the first step takes no coupling; the padded tail is
+    left out), ``r`` read and ``y`` written once, and a multiply and an add
+    for each entry read. The bound of ``band_trisolve`` in the measurement
+    scripts."""
+    nb = -(-int(n) // B)
+    i = np.arange(B, dtype=np.int64)
+    entries = 0
+    for k in range(nb):
+        rows = min(B, n - k * B)
+        ii = i[:rows]
+        if lower:  # X_k at columns < i; C_k at columns >= i + pad of the full block k-1
+            x, c, first = ii, np.maximum(0, B - ii - pad), k == 0
+        else:  # X_k at columns >= i; C_k at columns <= i - pad of block k+1
+            after = min(B, n - (k + 1) * B) if k + 1 < nb else 0
+            x, c, first = rows - ii, np.clip(ii - pad + 1, 0, after), k == nb - 1
+        entries += int(x.sum()) + (0 if first else int(c.sum()))
+    return 8 * (entries + 2 * int(n)), 2 * entries
+
+
 def coupling_stencil_vals(M: sp.spmatrix, vperm: np.ndarray, grid_shape: Tuple[int, ...]) -> np.ndarray:
     """A permuted-space inter-field factor block as a varying-coefficient
     3^d stencil in the natural order, f64 ``(3^d, *grid_shape)``: ``M[i,
@@ -368,4 +390,5 @@ __all__ = [
     "split_monolithic_factor",
     "tri_apply",
     "tri_apply_plain",
+    "tri_apply_traffic",
 ]

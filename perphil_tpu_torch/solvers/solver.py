@@ -25,10 +25,12 @@ The ordering-parity ILU (``pc_type: ilu`` with
 package routes it) is GMRES with ILU(0) in the reference's numbering and
 pattern, factored on the host once a solver:
 
-  - on the card, unless ``pc_band_execution: host`` or its plan does not fit
-    the card's free memory             -> ``krylov.gmres`` (K1 matvec) with
+  - on the card, unless ``pc_band_execution: host``
+                                       -> ``krylov.gmres`` (K1 matvec) with
                                           the dense-band ILU apply
-                                          (``band_trisolve``)
+                                          (``band_trisolve``); a band plan
+                                          beyond the card's free memory
+                                          raises ``MemoryError``
   - on the CPU, or ``pc_band_execution: host``
                                        -> the C++ CSR kernels' GMRES + ILU(0)
 
@@ -377,24 +379,25 @@ def _free_device_bytes(device: torch.device) -> Optional[int]:
     return int(torch.cuda.mem_get_info(device)[0])
 
 
-def _choose_parity_engine(on_card: bool, option: str, need_bytes: Optional[int], free_bytes: Optional[int]) -> str:
+def _parity_engine(on_card: bool, option: str) -> str:
     """The parity ILU's engine: ``option`` (``pc_band_execution``) when the
     user gave one, else the band engine on the card and the host engine on
-    the CPU, as the JAX package gives its accelerator the band engine. A
-    band engine whose plan (``need_bytes``) exceeds the card's free memory
-    goes to the host engine when the choice was left open, and raises when
-    the user asked for ``"device"``. ``need_bytes`` None: not yet planned."""
+    the CPU, as the JAX package gives its accelerator the band engine."""
     if option not in ("", "device", "host"):
         raise ValueError(f"Unsupported pc_band_execution: {option!r} (device or host)")
-    engine = option or ("device" if on_card else "host")
-    if engine == "device" and need_bytes is not None and free_bytes is not None and need_bytes > free_bytes:
-        if option == "device":
-            raise MemoryError(
-                f"pc_band_execution=device: the band engine needs {need_bytes} bytes of device memory "
-                f"(packed blocks and build workspace), {free_bytes} are free"
-            )
-        return "host"
-    return engine
+    return option or ("device" if on_card else "host")
+
+
+def _check_band_memory(need_bytes: int, free_bytes: Optional[int]) -> None:
+    """Raise ``MemoryError`` when the band engine's plan (``need_bytes``,
+    :func:`~perphil_tpu_torch.ops.bandsolve.band_plan`) exceeds the card's
+    free memory; ``free_bytes`` None: the CPU twin, no card memory. The solve
+    never moves to the host engine on its own: the user asks for it."""
+    if free_bytes is not None and need_bytes > free_bytes:
+        raise MemoryError(
+            f"the band engine needs {need_bytes} bytes of device memory (packed blocks and build workspace), "
+            f"{free_bytes} are free; pc_band_execution=host runs this solve on the host engine"
+        )
 
 
 def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple) -> Callable:
@@ -402,7 +405,7 @@ def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, froze
     the reference's DMPlex numbering and finite-element fill pattern
     (``ops/ordering.py::parity_system``), factored once on the host by the
     C++ kernels (``ops/_native.py``), then solved by one of two engines
-    (:func:`_choose_parity_engine`): the band engine on the card
+    (:func:`_parity_engine`): the band engine on the card
     (:func:`_build_band_parity_ilu_solver`) or the host engine
     (:func:`_build_host_parity_ilu_solver`). The returned solve's ``engine``
     says which. ``pc_band_defect_correct`` is accepted and changes nothing:
@@ -410,8 +413,7 @@ def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, froze
     its f32 blocks has nothing to correct."""
     flat = dict(frozen_sp)
     option = str(flat.get("pc_band_execution", ""))
-    on_card = W.device.type == "cuda"
-    engine = _choose_parity_engine(on_card, option, None, None)
+    engine = _parity_engine(W.device.type == "cuda", option)
     kw = dict(
         rtol=float(flat.get("ksp_rtol", 1e-5)),
         atol=float(flat.get("ksp_atol", 1e-50)),
@@ -424,11 +426,10 @@ def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, froze
     if engine == "device":
         Fc, _ = _native.native_ilu0(Ap)
         nv = mesh.num_vertices
-        plan = band_plan(nv, factor_bandwidth(Fc, nv), mesh.dim)
-        engine = _choose_parity_engine(on_card, option, plan.total_bytes, _free_device_bytes(W.device))
-        if engine == "device":
-            solve = _build_band_parity_ilu_solver(op, perm, Fc, kw)
-    if engine == "host":
+        _check_band_memory(band_plan(nv, factor_bandwidth(Fc, nv), mesh.dim).total_bytes,
+                           _free_device_bytes(W.device))
+        solve = _build_band_parity_ilu_solver(op, perm, Fc, kw)
+    else:
         solve = _build_host_parity_ilu_solver(op, A, perm, Ap, kw)
     solve.engine = engine
     return solve

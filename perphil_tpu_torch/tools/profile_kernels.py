@@ -707,32 +707,24 @@ def time_band() -> None:
     """``--only band``: ``band_trisolve`` alone, per factor, at the
     published tet sizes; the band plans up to nx=64."""
     import chip_smoke
-    from perphil_tpu_torch.mesh.structured import StructuredMesh
-    from perphil_tpu_torch.models.dpp import DPPParameters
-    from perphil_tpu_torch.ops import _native
     from perphil_tpu_torch.ops import bandsolve as bs
-    from perphil_tpu_torch.ops.ordering import parity_system
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device="cpu").manual_seed(0)
     for nx in (4, 8, 16, 24, 32, 40, 64):
-        mesh = StructuredMesh(cells=(nx,) * 3, element="tet")
-        _, perm, Ap = parity_system(mesh, DPPParameters())
-        Fc, _ = _native.native_ilu0(Ap)
+        mesh, _, Fc, bw = chip_smoke.parity_factor(nx)
         nv = mesh.num_vertices
-        plan = bs.band_plan(nv, bs.factor_bandwidth(Fc, nv))
-        print(f"tet nx={nx}: {nv} vertices a field, {Ap.nnz} entries, {plan}")
+        plan = bs.band_plan(nv, bw)
+        print(f"tet nx={nx}: {nv} vertices a field, {plan}")
         if nx == 64:  # the plan only
             continue
         L11, _, L22, U11, _, U22 = bs.split_monolithic_factor(Fc, nv)
         for name, M, lower in (("L11", L11, True), ("L22", L22, True), ("U11", U11, False), ("U22", U22, False)):
             P = bs.build_blocks(M, plan.B, lower, dev)
             r = torch.randn(P.shape[0] * plan.B, generator=gen, dtype=torch.float64).to(dev)
-            ms = chip_smoke.time_ms(lambda: bs.tri_apply(P, r, lower, plan.B - plan.bandwidth), repeats=20)
-            nbytes = 8 * P.shape[0] * plan.B * (plan.B + 2)
-            bound_ms = 1e3 * nbytes / chip_smoke.HBM_BYTES_PER_S
-            print(f"  band_trisolve {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms, bytes; "
-                  f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s)")
+            ms, nbytes, (bound_ms, bound_by) = chip_smoke.band_factor_time(P, r, lower, nv, bw)
+            print(f"  band_trisolve {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}; "
+                  f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s of the needed bytes)")
             del P
 
 

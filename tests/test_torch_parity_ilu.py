@@ -48,7 +48,7 @@ from perphil_tpu_torch.ops import ilu
 from perphil_tpu_torch.ops import ordering as od
 from perphil_tpu_torch.solvers import solve_dpp
 from perphil_tpu_torch.solvers import solver
-from perphil_tpu_torch.solvers.solver import _build_linear_solver, _choose_parity_engine, _freeze
+from perphil_tpu_torch.solvers.solver import _build_linear_solver, _check_band_memory, _freeze, _parity_engine
 
 PARAMS = {"k1": 1.2, "beta": 0.9}
 RCM = {**sp_.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"}
@@ -193,6 +193,24 @@ def test_tri_apply_plain_matches_scipy(n, bw, lower):
     assert not y[n:].any()  # padded tail rows stay zero
 
 
+@pytest.mark.parametrize("lower", [True, False], ids=["forward", "backward"])
+@pytest.mark.parametrize("n,bw", [(600, 90), (125, 34), (64, 31), (15625, 797)], ids=["600", "125", "64", "15625"])
+def test_tri_apply_traffic_counts_the_masked_entries(n, bw, lower):
+    """The bound's bytes: the twin's masks counted entry by entry over the
+    real rows and columns, the first step's coupling left out."""
+    B = bs.band_block_size(bw)
+    nb = -(-n // B)
+    xmask, cmask = (m.numpy() for m in bs._masks(B, B - bw, lower, "cpu"))
+    real = [min(B, n - k * B) for k in range(nb)]
+    entries = 0
+    for k in range(nb):
+        entries += int(xmask[: real[k], : real[k]].sum())
+        nbr = k - 1 if lower else k + 1
+        if 0 <= nbr < nb:
+            entries += int(cmask[: real[k], : real[nbr]].sum())
+    assert bs.tri_apply_traffic(n, B, B - bw, lower) == (8 * (entries + 2 * n), 2 * entries)
+
+
 def test_tri_apply_on_the_cpu_is_the_twin_and_launches_nothing():
     M = _random_banded(200, 40, 5, True)
     P = bs.build_blocks(M, 64, True, "cpu")
@@ -325,15 +343,16 @@ def test_engine_is_keyed_on_the_option_and_reads_no_environment(monkeypatch):
 
 
 def test_engine_choice_and_memory_guard(monkeypatch):
-    assert _choose_parity_engine(True, "", None, None) == "device"
-    assert _choose_parity_engine(False, "", None, None) == "host"
-    assert _choose_parity_engine(True, "host", 1, 10**12) == "host"
-    assert _choose_parity_engine(False, "device", 10**12, None) == "device"  # the CPU twin: no card memory
-    assert _choose_parity_engine(True, "", 5 * 2**30, 6 * 2**30) == "device"
-    # left open: an oversized plan goes to the host engine
-    assert _choose_parity_engine(True, "", 6 * 2**30, 5 * 2**30) == "host"
-    with pytest.raises(MemoryError, match=f"{6 * 2**30} bytes"):
-        _choose_parity_engine(True, "device", 6 * 2**30, 5 * 2**30)
+    assert _parity_engine(True, "") == "device"
+    assert _parity_engine(False, "") == "host"
+    assert _parity_engine(True, "host") == "host"
+    assert _parity_engine(False, "device") == "device"
+    _check_band_memory(10**12, None)  # the CPU twin: no card memory
+    _check_band_memory(5 * 2**30, 6 * 2**30)
+    # an oversized plan raises, whether the choice was left open or not: the
+    # solve never moves to the host engine unasked
+    with pytest.raises(MemoryError, match=f"needs {6 * 2**30} bytes.*pc_band_execution=host"):
+        _check_band_memory(6 * 2**30, 5 * 2**30)
     # end to end, with the card's free memory stubbed: the plan is checked
     # before any block is built
     monkeypatch.setattr(solver, "_free_device_bytes", lambda device: 1000)
