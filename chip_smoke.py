@@ -46,7 +46,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (4/7), SS-GMRES at 2D N=16/64 and tet nx=8/32 (4, K6) and at N=256 (4, the
      host loop), SS-GMRES+ILU at 2D N=16/64/128 (4, K8);
      ``FIELDSPLIT_GMRES_PARAMS`` at N=16 (4); GMRES+ILU at N=512 (no
-     published count; the host loop with ``structured_ilu_apply``);
+     published count; the host loop with ``structured_ilu_apply``, the
+     ``trisolve_backend=wavefront`` option);
   7. drives the Picard path — first ``fused_ngs`` against its twin at 2D
      N=16 and N=128 (equal counts, x within 1e-12), the Gauss-Seidel mode of
      the ILU sweep (``structured_ilu_apply[gs]``) against its twin at tri
@@ -55,8 +56,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      ``solve_dpp_nonlinear`` with ``PICARD_LU_SOLVER_PARAMS`` at 2D
      N=4/8/16/32/64/128, held to the published 16/63/194/635/1673/5135 with
      ``fn <= max(rtol f0, atol)`` and one ``fused_ngs`` launch a solve, the
-     lexicographic ngs at tri N=16 and tet nx=4 (one GS-mode launch an
-     iteration), and ``block_gs``, ``RICHARDSON_SOLVER_PARAMS`` and
+     lexicographic ngs at tri N=16 and tet nx=4 with
+     ``trisolve_backend=wavefront`` (one GS-mode launch an iteration), and
+     ``block_gs``, ``RICHARDSON_SOLVER_PARAMS`` and
      ``KSP_PREONLY_PARAMS`` at N=16, each against the CPU twin path;
   8. drives the ordering-parity ILU path (``parity_path``) — first
      ``band_trisolve`` against its twin at tet nx=4/16/24/40 (a lower and an
@@ -70,7 +72,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      6/8/12/15/17/20/26/29/33 exactly with four ``band_trisolve`` launches an
      apply and no K7 launch, and the host engine at nx=4 and 40 with the
      same counts, timed in turns with the device engine (host clock);
-  9. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
+  9. drives the parallel-prefix trisolves (``partri_path``) — the partri
+     ILU apply against ``structured_ilu_apply`` on the same factor at 2D
+     N=128/256 monolithic, a 2D N=256 field and tet nx=16 monolithic, the
+     partri GS sweep against ``structured_ilu_apply[gs]`` at tri N=16 / tet
+     nx=4 (max rel diff <= 1e-12), both timed with CUDA events beside the
+     maps' bytes and bound; then, counted, the host GMRES loop with the ILU
+     option left open (partri) landing the published 74/117 exactly at 2D
+     N=128/256, and the lexicographic Picard at tri N=16 / tet nx=4 with the
+     option left open, beside the wavefront's counts and the CPU's;
+ 10. drives the conditioning analysis (``conditioning_path``) —
+     ``estimate_condition_numbers`` with Lanczos on the card at 2D
+     N=16/32/64 and hex N=8, the dense host SVD at hex N=4, each against the
+     published CSV (1e-8 at N=16/32, 1e-5 at N=64, 1e-10 in 3D), and tet
+     nx=4's Lanczos κ (the monolithic inverse through K3, counted) against
+     the dense SVD;
+ 11. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
      events, and the cached direct solves at 2D N=16 and tet nx=4 (K2, K3)
      with the host clock, and works out each kernel's bound from this run's
      shapes and iteration counts.
@@ -174,8 +191,8 @@ PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
     ("quad", 128, "SS-GMRES+ILU", 4, 0, "fused_gmres_df[fieldsplit_ilu]"),
     ("quad", 16, "FIELDSPLIT_GMRES_PARAMS", 4, 0, "fused_dpp_apply"),
     # beyond the envelope (526,338 values), no published count: the host loop
-    # with the standalone ILU apply
-    ("quad", 512, "GMRES_ILU_PARAMS", None, 0, "structured_ilu_apply"),
+    # with the standalone ILU apply (the wavefront backend; left open, partri)
+    ("quad", 512, "GMRES_ILU_WAVEFRONT", None, 0, "structured_ilu_apply"),
 ]
 
 # the reference's Picard column: petsc_perf_breakdown-with-picard.csv,
@@ -183,8 +200,9 @@ PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
 PICARD_COUNTS = {4: 16, 8: 63, 16: 194, 32: 635, 64: 1673, 128: 5135}
 PICARD_CASES = [  # element, N, preset, count (None: the CPU twin path's), kernel the route launches
     *[("quad", n, "PICARD_LU_SOLVER_PARAMS", c, "fused_ngs") for n, c in PICARD_COUNTS.items()],
-    ("triangle", 16, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
-    ("tet", 4, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
+    # the lexicographic GS on the wavefront kernel (left open: partri, phase 9)
+    ("triangle", 16, "PICARD_LU_WAVEFRONT", None, "structured_ilu_apply[gs]"),
+    ("tet", 4, "PICARD_LU_WAVEFRONT", None, "structured_ilu_apply[gs]"),
     ("quad", 16, "BLOCK_GS", None, "fused_dpp_apply"),
     ("quad", 16, "RICHARDSON_SOLVER_PARAMS", None, "fused_dpp_apply"),
     ("quad", 16, "KSP_PREONLY_PARAMS", 1, "fused_gmres_df[fieldsplit_lu]"),
@@ -233,6 +251,9 @@ def presets():
         "GMRES_ILU_RCM": {**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"},
         "GMRES_ILU_RCM_HOST": {**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm",
                                "pc_band_execution": "host"},
+        # the host routes' ILU and GS on the wavefront kernels (left open: partri where its maps fit)
+        "GMRES_ILU_WAVEFRONT": {**sp.GMRES_ILU_PARAMS, "trisolve_backend": "wavefront"},
+        "PICARD_LU_WAVEFRONT": {**sp.PICARD_LU_SOLVER_PARAMS, "trisolve_backend": "wavefront"},
     }
 
 
@@ -703,6 +724,203 @@ def parity_path(dev, smi, randn, results, t_start):
     print(f"[{time.perf_counter() - t_start:.1f} s] ordering-parity path done")
     results["band_trisolve"] = results[f"band_trisolve@tet{PARITY_TABLE_SIZE}-L11"]
     return {k: v for k, v in phase.items() if k in PARITY_KERNELS}
+
+
+PARTRI_APPLY_CASES = [("quad", 128, "monolithic"), ("quad", 256, "monolithic"), ("quad", 256, "field"),
+                      ("tet", 16, "monolithic")]  # PartriILU against structured_ilu_apply
+PARTRI_GS_CASES = [("triangle", 16), ("tet", 4)]  # PartriGS against structured_ilu_apply[gs]
+# the published GMRES + ILU counts (petsc_perf_breakdown.csv) the host loop
+# with the partri ILU lands exactly
+PARTRI_GMRES_COUNTS = {128: 74, 256: 117}
+PARTRI_PICARD_CASES = [("triangle", 16), ("tet", 4)]  # the lexicographic Picard, trisolve_backend open
+
+
+def partri_path(dev, smi, randn, t_start):
+    """Phase 9, the parallel-prefix trisolves (``trisolve_backend``): the
+    partri ILU apply (``PartriILU``, torch ops) against
+    ``structured_ilu_apply`` on the same factor at 2D N=128/256 monolithic,
+    one 2D N=256 field and tet nx=16 monolithic, and the partri GS sweep
+    against ``structured_ilu_apply[gs]`` at tri N=16 / tet nx=4 (max
+    relative difference <= 1e-12), both timed with CUDA events beside the
+    bytes of the maps an apply reads and their bound, the maps' build time
+    and peak memory beside ``partri_plan``; then, counted, the host GMRES
+    loop (``krylov.gmres``, K1, ``_monolithic_pc`` with the option left
+    open: partri) landing the published 74/117 exactly at 2D N=128/256, and
+    ``solve_dpp_nonlinear`` with the option left open at tri N=16 / tet nx=4
+    beside the wavefront's counts and the CPU's. Returns the phase's
+    launches."""
+    import torch
+
+    from perphil_tpu_torch.ops import _cuda
+    from perphil_tpu_torch.ops import ilu
+    from perphil_tpu_torch.ops.assembly import DPPOperator
+    from perphil_tpu_torch.ops.krylov import gmres
+    from perphil_tpu_torch.ops.partri import nbytes
+    from perphil_tpu_torch.solvers import parameters as sp
+    from perphil_tpu_torch.solvers import solve_dpp_nonlinear
+    from perphil_tpu_torch.solvers.solver import _freeze, _monolithic_pc
+
+    PRESETS = presets()
+    # the partri apply against the wavefront kernel on the same factor (not counted)
+    for element, n, kind in PARTRI_APPLY_CASES:
+        W, params, _, _, _ = problem(element, n, dev)
+        mesh = W.mesh
+        sys = (ilu.build_monolithic_system(mesh, params) if kind == "monolithic"
+               else ilu.build_field_system(mesh, params.k1, params.beta, params.mu))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pc, build_ms = timed_once(lambda: ilu.StructuredILU0(sys, dev, "partri"))  # the host factorisation too
+        peak = torch.cuda.max_memory_allocated() - base
+        plan = ilu.partri_plan(mesh.node_shape, sys.nfields)
+        maps = nbytes(pc.partri)
+        r = randn(pc.nrows)
+        z = pc.apply_flat(r)
+        zw = pc.launch(r)
+        torch.cuda.synchronize()
+        err = rel(z, zw)
+        check(err <= 1e-12, f"partri ILU {element} N={n} {kind} vs structured_ilu_apply")
+        ms = time_ms(lambda: pc.apply_flat(r), repeats=20)
+        wave_ms = time_ms(lambda: pc.launch(r), repeats=20)
+        nbytes_apply = maps + 2 * 8 * pc.nrows
+        pbound = bound(nbytes_apply, maps / 4)  # every stored map entry: one multiply and one add
+        wbound = bound(ilu_bytes(pc) + 2 * 8 * pc.nrows, ilu_apply_flops(pc))
+        print(f"partri ILU {element} N={n} {kind}: {pc.nrows} rows, max rel diff vs structured_ilu_apply {err:.3e} "
+              f"(bound 1e-12); apply {ms:.4f} ms, structured_ilu_apply {wave_ms:.4f} ms (CUDA events, median of 20); "
+              f"maps {maps} B read an apply (plan {plan} B), bound {pbound[0]:.4f} ms ({pbound[1]}, "
+              f"{nbytes_apply / (ms * 1e-3) / 1e12:.3f} TB/s of them), the wavefront's bound {wbound[0]:.4f} ms; "
+              f"build {build_ms:.1f} ms (the host factorisation included), peak {peak} B of device memory on {smi}")
+        del pc, z, zw
+    for element, n in PARTRI_GS_CASES:
+        W, params, _, _, _ = problem(element, n, dev)
+        swp = ilu.GaussSeidelSweeper.for_monolithic(W.mesh, params, dev, "partri")
+        x, bb = randn(swp.nrows), randn(swp.nrows)
+        z, zw = swp.sweep(x, bb), swp.launch(x, bb)
+        torch.cuda.synchronize()
+        err = rel(z, zw)
+        check(err <= 1e-12, f"partri GS {element} N={n} vs structured_ilu_apply[gs]")
+        ms = time_ms(lambda: swp.sweep(x, bb), repeats=20)
+        wave_ms = time_ms(lambda: swp.launch(x, bb), repeats=20)
+        print(f"partri GS {element} N={n}: {swp.nrows} rows, max rel diff vs structured_ilu_apply[gs] {err:.3e} "
+              f"(bound 1e-12); sweep {ms:.4f} ms, structured_ilu_apply[gs] {wave_ms:.4f} ms (CUDA events, median of "
+              f"20); maps {nbytes(swp.partri)} B on {smi}")
+    torch.cuda.synchronize()
+    print(f"[{time.perf_counter() - t_start:.1f} s] partri checked against the wavefront kernels")
+
+    # the path, counted: the host GMRES loop with the ILU left open (partri
+    # on the card) and the lexicographic Picard with the option left open
+    gsetups = {n: problem("quad", n, dev) for n in PARTRI_GMRES_COUNTS}
+    psetups = [problem(e, n, dev) for e, n in PARTRI_PICARD_CASES]
+    flat = dict(_freeze(sp.GMRES_ILU_PARAMS))
+    kw = {k: sp.GMRES_ILU_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    torch.cuda.synchronize()
+    _cuda.KERNEL_LAUNCHES.clear()
+    for n, count in PARTRI_GMRES_COUNTS.items():
+        W, params, bcs, _, _ = gsetups[n]
+        op = DPPOperator(W, params)
+        r = newton_rhs(op, bcs)
+        t0 = time.perf_counter()
+        pc = _monolithic_pc(op, flat)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        check(pc.__self__.trisolve_backend == "partri", f"2D N={n}: the open option takes partri on the card")
+        before = dict(_cuda.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        res = gmres(op.stacked_matvec(), r, M_inv=pc, restart=int(flat.get("ksp_gmres_restart", 30)), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = {k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)}
+        print(f"host GMRES + partri ILU 2D N={n}: iterations {res.iterations} (published {count}), launches {used}, "
+              f"ILU set-up {setup * 1e3:.1f} ms, solve {wall * 1e3:.2f} ms ({wall * 1e6 / res.iterations:.2f} "
+              f"us/iteration; host clock) on {smi}")
+        check(res.iterations == count, f"2D N={n}: the host GMRES + partri ILU lands {count}")
+        check(used.get("fused_dpp_apply", 0) > res.iterations and "structured_ilu_apply" not in used,
+              f"2D N={n}: K1 is the matvec, the ILU runs no wavefront kernel")
+        check(bool(torch.isfinite(res.x).all()), "finite solution")
+        del pc
+    for (element, n), (W, params, bcs, _, _) in zip(PARTRI_PICARD_CASES, psetups):
+        before = dict(_cuda.KERNEL_LAUNCHES)
+        t0 = time.perf_counter()
+        sol = solve_dpp_nonlinear(W, params, bcs, solver_parameters=PRESETS["PICARD_LU_SOLVER_PARAMS"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = {k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)}
+        wave = solve_dpp_nonlinear(W, params, bcs, solver_parameters=PRESETS["PICARD_LU_WAVEFRONT"])
+        Wc, pc_, bcc, _, _ = problem(element, n, "cpu")
+        ref = solve_dpp_nonlinear(Wc, pc_, bcc, solver_parameters=PRESETS["PICARD_LU_SOLVER_PARAMS"])
+        cpu_diff = max(rel(a.cpu(), b) for a, b in zip(sol.solution.data, ref.solution.data))
+        print(f"solve_dpp_nonlinear {element} N={n} PICARD_LU_SOLVER_PARAMS, trisolve_backend open (partri): "
+              f"iterations {sol.iteration_number}, wavefront {wave.iteration_number}, the CPU's partri "
+              f"{ref.iteration_number} (fields within {cpu_diff:.3e}); launches {used}, wall {wall * 1e3:.1f} ms")
+        check("structured_ilu_apply[gs]" not in used, f"{element} N={n}: the open option sweeps with partri")
+        check(sol.iteration_number == ref.iteration_number and cpu_diff < 1e-8, f"{element} N={n} partri vs CPU")
+        check(bool(all(torch.isfinite(d).all() for d in sol.solution.data)), "finite solution")
+    phase = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"partri path kernel launches, all cases: {phase}")
+    check(phase.get("fused_dpp_apply", 0) > 0, "fused_dpp_apply launched on the partri path")
+    torch.cuda.synchronize()
+    print(f"[{time.perf_counter() - t_start:.1f} s] partri path done")
+    return phase
+
+
+# the published condition numbers: notebooks/results-conforming-2d/conditioning/
+# conditioning.csv and results-conforming-3d/conditioning/conditioning_3d.csv
+COND_CASES = [  # element, N, sparse (Lanczos on the card) or dense (host SVD), bound on the rel error
+    ("quad", 16, True, 1e-8), ("quad", 32, True, 1e-8),
+    ("quad", 64, True, 1e-5),  # k = 100 Lanczos steps leave ~4.3e-6 (the route's own convergence)
+    ("hex", 4, False, 1e-10), ("hex", 8, True, 1e-10),
+]
+
+
+def conditioning_path(dev, smi, t_start):
+    """Phase 10, the conditioning analysis: ``estimate_condition_numbers``
+    with Lanczos on the card at 2D N=16/32/64 and hex N=8 and the dense host
+    SVD at hex N=4, each against the published CSV; then tet nx=4's Lanczos
+    κ (its inverse through K3) against the dense SVD, counted. Prints κ, the
+    relative error and the wall time of each."""
+    import numpy as np
+    import torch
+
+    from perphil_tpu_torch.experiments.iterative_bench import estimate_condition_numbers
+    from perphil_tpu_torch.ops import _cuda
+
+    keys = ("monolithic", "macro", "micro")
+
+    def published(path):
+        rows = np.loadtxt(HERE / "notebooks" / path, delimiter=",", skiprows=1, ndmin=2)
+        return {int(r[0]): tuple(r[2:5]) for r in rows}
+
+    tables = {"quad": published("results-conforming-2d/conditioning/conditioning.csv"),
+              "hex": published("results-conforming-3d/conditioning/conditioning_3d.csv")}
+    for element, n, sparse, tol in COND_CASES:
+        W = problem(element, n, dev)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conds = estimate_condition_numbers(W, num_of_factors=50 if sparse else None, use_sparse=sparse)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        errs = [abs(conds[k] - ref) / ref for k, ref in zip(keys, tables[element][n])]
+        print(f"conditioning {element} N={n} ({'Lanczos on the card' if sparse else 'dense host SVD'}): "
+              + ", ".join(f"{k} {conds[k]!r} (rel err {e:.3e})" for k, e in zip(keys, errs))
+              + f"; bound {tol:g}; wall {wall * 1e3:.1f} ms (host clock) on {smi}")
+        check(max(errs) <= tol, f"conditioning {element} N={n} against the published CSV")
+    W = problem("tet", 4, dev)[0]
+    torch.cuda.synchronize()
+    _cuda.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    conds = estimate_condition_numbers(W, num_of_factors=50, use_sparse=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    phase = dict(_cuda.KERNEL_LAUNCHES)
+    dense = estimate_condition_numbers(W, num_of_factors=None, use_sparse=False)
+    errs = [abs(conds[k] - dense[k]) / dense[k] for k in keys]
+    print(f"conditioning tet N=4 (Lanczos on the card, the monolithic inverse through K3): "
+          + ", ".join(f"{k} {conds[k]!r} (rel err vs the dense SVD {e:.3e})" for k, e in zip(keys, errs))
+          + f"; launches {phase}; wall {wall * 1e3:.1f} ms (host clock) on {smi}")
+    check(max(errs) <= 1e-6, "conditioning tet N=4: Lanczos against the dense SVD")
+    check(phase.get("fused_simplicial_direct_solve", 0) > 0, "K3 launched on the conditioning path")
+    print(f"[{time.perf_counter() - t_start:.1f} s] conditioning path done")
+    return phase
 
 
 def main() -> int:
@@ -1359,7 +1577,13 @@ def main() -> int:
     # -- 8. the ordering-parity ILU path ------------------------------------
     launches.update(parity_path(dev, smi, randn, results, t_start))
 
-    # -- 9. end-to-end solve times, the kernel table ----------------------
+    # -- 9. the parallel-prefix trisolves ----------------------------------
+    partri_path(dev, smi, randn, t_start)
+
+    # -- 10. the conditioning analysis --------------------------------------
+    conditioning_path(dev, smi, t_start)
+
+    # -- 11. end-to-end solve times, the kernel table ---------------------
     for (element, n, preset, route), (W, params, bcs, _, _) in zip(cases, setups):
         solver = _build_linear_solver(W, params, _freeze(PRESETS[preset]))
         g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)

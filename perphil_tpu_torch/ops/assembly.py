@@ -7,6 +7,11 @@ diagonal, and the RHS is lifted. The monolithic matvec and lift go through
 K1 (``ops/fused_apply.py``), which folds the box-boundary masking into the
 stencil pass; the blocks (``FieldOperator``, ``coupling_apply``) are plain
 stencil passes, as in the JAX package.
+
+For the conditioning analysis it also holds :class:`FullMassOperator` (the
+raw consistent mass matrix, exact on boundary rows) and the host CSR
+materialisations of the BC-eliminated blocks and monolithic matrix
+(:func:`materialize_field_csr`, :func:`materialize_monolithic_csr`; scipy).
 """
 
 from __future__ import annotations
@@ -16,9 +21,10 @@ from functools import cached_property, lru_cache
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
-from perphil_tpu_torch.config import default_dtype
+from perphil_tpu_torch.config import DeviceLike, default_dtype, resolve_device
 from perphil_tpu_torch.forms.spaces import Expr, FunctionSpace, MixedFunctionSpace, _evaluate
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
@@ -239,3 +245,111 @@ def coupling_apply(
         return torch.where(bdry, 0.0, coef * apply_stencil(zi, M_st))
 
     return C
+
+
+@dataclass(frozen=True)
+class FullMassOperator:
+    """The raw (no-BC) consistent mass matrix as a gather/scatter element
+    matvec, exact on boundary rows unlike the interior-only stencil path
+    (``perphil_tpu/ops/assembly.py::FullMassOperator``); its diagonal on
+    ``device``."""
+
+    mesh: StructuredMesh
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    @cached_property
+    def _subcells(self):
+        from perphil_tpu_torch.ops.element import cell_subcells
+
+        return cell_subcells(self.mesh.element, self.mesh.h, self.mesh.diagonal)
+
+    def _slices(self, off) -> Tuple[slice, ...]:
+        # vertex offsets are coordinate-ordered; grid axes are reversed
+        return tuple(slice(int(o), int(o) + c) for o, c in zip(reversed(off), reversed(self.mesh.cells)))
+
+    def matvec(self, u: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros_like(u)
+        for verts, _, Me in self._subcells:
+            for a in range(verts.shape[0]):
+                acc = None
+                for b in range(verts.shape[0]):
+                    term = float(Me[a, b]) * u[self._slices(verts[b])]
+                    acc = term if acc is None else acc + term
+                out[self._slices(verts[a])] += acc
+        return out
+
+    def diagonal(self) -> torch.Tensor:
+        d = torch.zeros(self.mesh.node_shape, dtype=default_dtype(), device=self.device)
+        for verts, _, Me in self._subcells:
+            for a in range(verts.shape[0]):
+                d[self._slices(verts[a])] += float(Me[a, a])
+        return d
+
+
+# -- CSR materialisation (host, scipy: the conditioning analysis) --------------
+
+
+def _block_csr(
+    mesh: StructuredMesh, stencil: np.ndarray, zero_bc_rows_cols: bool = True, unit_diagonal: bool = False
+) -> sp.csr_matrix:
+    """One stencil block as scipy CSR with BC elimination. Valid because
+    after symmetric elimination every surviving off-diagonal entry couples
+    two interior vertices, whose raw rows carry the full stencil weights."""
+    shape = mesh.node_shape
+    d = len(shape)
+    n = int(np.prod(shape))
+    bdry = mesh.boundary_mask().ravel()
+    strides = np.array([int(np.prod(shape[ax + 1 :])) for ax in range(d)])
+    idx_grids = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
+    flat = np.arange(n).reshape(shape)
+    rows, cols, vals = [], [], []
+    for off in np.ndindex(*((3,) * d)):
+        w = stencil[off]
+        if w == 0.0:
+            continue
+        delta = np.array(off) - 1
+        valid = np.ones(shape, dtype=bool)
+        for ax in range(d):
+            if delta[ax] == -1:
+                valid &= idx_grids[ax] >= 1
+            elif delta[ax] == 1:
+                valid &= idx_grids[ax] <= shape[ax] - 2
+        r = flat[valid]
+        c = r + int(np.dot(delta, strides))
+        keep = ~bdry[r] & ~bdry[c] if zero_bc_rows_cols else np.ones(r.shape, dtype=bool)
+        rows.append(r[keep])
+        cols.append(c[keep])
+        vals.append(np.full(keep.sum(), w))
+    if unit_diagonal and zero_bc_rows_cols:
+        db = np.where(bdry)[0]
+        rows.append(db)
+        cols.append(db)
+        vals.append(np.ones(db.shape[0]))
+    A = sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=(n, n))
+    return A.tocsr()
+
+
+def materialize_field_csr(op: FieldOperator) -> sp.csr_matrix:
+    """CSR of one BC-eliminated diagonal block."""
+    return _block_csr(op.mesh, np.asarray(op.stencil), True, True)
+
+
+def materialize_monolithic_csr(W: MixedFunctionSpace, params: DPPParameters) -> Tuple[sp.csr_matrix, int, int]:
+    """CSR of the BC-eliminated monolithic matrix in field-major DoF order,
+    and the two fields' block sizes: (csr, n0, n1)."""
+    if W.spaces[0].degree > 1:
+        raise NotImplementedError(
+            "CSR materialization covers the Q1 stencil pattern only; "
+            f"degree-{W.spaces[0].degree} conditioning analysis is not "
+            "supported (the published conditioning artifacts are all Q1)"
+        )
+    S1, S2, C = dpp_stencils(W.mesh, params)
+    A11 = _block_csr(W.mesh, S1, True, True)
+    A22 = _block_csr(W.mesh, S2, True, True)
+    A12 = _block_csr(W.mesh, C, True, False)
+    A = sp.bmat([[A11, A12], [A12, A22]], format="csr")
+    A.eliminate_zeros()
+    return A, W.sub(0).dim(), W.sub(1).dim()

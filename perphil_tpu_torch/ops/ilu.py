@@ -1,4 +1,4 @@
-"""Structured ILU(0) with a wavefront schedule.
+"""Structured ILU(0) and Gauss-Seidel: wavefront sweeps and parallel-prefix trisolves.
 
 Counterpart of ``perphil_tpu/ops/ilu.py`` for PETSc's ``pc_type: ilu``
 (``pc_factor_levels: 0``) in the natural, lexicographic field-major order.
@@ -32,11 +32,16 @@ The sweepers of the SNES ``ngs`` Picard solve live here too:
     sweep (quad meshes), whose whole Picard solve is one kernel
     (``ops/fused_ngs.py``).
 
-Not ported: the parallel-prefix trisolves (``DirTriSolve``, ``PartriILU``,
-``PartriGS``, ``ops/partri.py``), the JAX package's default trisolve
-backend, which computes the same functions with other bits (ROADMAP queue
-1); the double-float defect-corrected apply (a TPU workaround for emulated
-f64).
+The same applies and sweeps also run as parallel-prefix trisolves
+(:class:`PartriILU`, :class:`PartriGS`, per field a :class:`DirTriSolve`
+over ``ops/partri.py``), the JAX package's default backend: torch ops on
+either device, the same functions with other bits. Which one a class runs
+is its ``trisolve_backend`` (``wavefront`` by default; the solvers pass
+their option, ``solvers/solver.py``). :func:`partri_plan` gives the bytes
+of its maps.
+
+Not ported: the double-float defect-corrected apply (a TPU workaround for
+emulated f64).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from perphil_tpu_torch.models.dpp.parameters import DPPParameters
 from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import dpp_stencils
 from perphil_tpu_torch.ops.ordering import ngs_parity_coloring
+from perphil_tpu_torch.ops.partri import GridTriSolve2D, GridTriSolve3D, apply_varcoef_stencil
 from perphil_tpu_torch.ops.stencil import compile_stencils
 
 KERNEL = "structured_ilu_apply"
@@ -324,6 +330,189 @@ def _pack_by_level(by_level: np.ndarray, offs: Sequence[int], ptr: np.ndarray) -
     return np.concatenate(blocks) if offs else np.zeros(0)
 
 
+# ---------------------------------------------------------------------------
+# parallel-prefix (scan-tree) trisolves: ops/partri.py on the grid
+# ---------------------------------------------------------------------------
+
+#: the host budget of the partri maps: the JAX package's cap
+#: (``perphil_tpu/ops/ilu.py::_PARTRI_MAX_BYTES``), kept on the CPU so that
+#: both packages take the same route there; on the card the budget is its
+#: free memory (``solvers/solver.py``)
+CPU_PARTRI_MAX_BYTES = 6 * 1024**3
+
+
+def partri_plan(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8) -> int:
+    """Bytes of the composed maps of the parallel-prefix trisolves of one
+    ILU apply (or GS sweep) on ``nfields`` fields of a ``node_shape`` grid:
+    ~2 maps a row (2D, ``nx^2`` each) or a plane (3D, ``(ny nx)^2`` each) a
+    directional solve, two directional solves a field (the JAX package's
+    ``_partri_fits`` formula)."""
+    if len(node_shape) == 2:
+        ny, nx = node_shape
+        per = 2 * ny * nx * nx * itemsize
+    else:
+        nz, ny, nx = node_shape
+        per = 2 * nz * (ny * nx) ** 2 * itemsize
+    return 2 * nfields * per
+
+
+def _grid_entries(sys: StructuredSystem, values: np.ndarray, f: int, bd: int, device: torch.device):
+    """Per-offset entry grids of one (row field, block) pair of ``values``
+    (nrows, noffs): {coordinate-ordered geom offset: node_shape f64 grid}."""
+    n = sys.n_nodes
+    key = {(int(b), tuple(int(x) for x in g)): t for t, (b, g) in enumerate(zip(sys.blocks, sys.geoms))}
+    out = {}
+    for g in _geom_offsets(sys.mesh.dim):
+        t = key.get((bd, g))
+        if t is not None:
+            out[g] = torch.tensor(values[f * n : (f + 1) * n, t].reshape(sys.mesh.node_shape), device=device)
+    return out
+
+
+def _flip_all(a: torch.Tensor) -> torch.Tensor:
+    return torch.flip(a, dims=tuple(range(a.ndim)))
+
+
+def _is_lower_geom(g, shape) -> bool:
+    """Lexicographic comparison via strides: flat delta < 0 <=> lower."""
+    d = len(shape)
+    strides = [1]
+    for ax in range(1, d):
+        strides.append(strides[-1] * shape[d - ax])
+    return int(np.dot(g, strides)) < 0
+
+
+class _Stencil(nn.Module):
+    """Varying-coefficient stencil weights as one buffer ``w`` (noffs,
+    *node_shape) and their offsets; :meth:`grids` gives the
+    ``apply_varcoef_stencil`` dict."""
+
+    def __init__(self, entries: dict):
+        super().__init__()
+        self.offsets = tuple(entries)
+        self.register_buffer("w", torch.stack([entries[g] for g in self.offsets]))
+
+    def grids(self) -> dict:
+        return dict(zip(self.offsets, self.w.unbind(0)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_varcoef_stencil(x, self.grids())
+
+
+class DirTriSolve(nn.Module):
+    """Directional triangular solve ``(D? + A) x = r`` on one field's grid.
+
+    ``entries`` maps coordinate-ordered geometric offsets (the strictly
+    lower or upper part) to raw matrix-entry grids; ``diag`` is the diagonal
+    grid (None: unit). ``reverse=True`` solves in anti-lexicographic order
+    (upper solves) by flipping every axis."""
+
+    def __init__(self, dim: int, entries: dict, diag: Optional[torch.Tensor], reverse: bool):
+        super().__init__()
+        self.reverse = bool(reverse)
+        if reverse:
+            entries = {tuple(-int(o) for o in g): _flip_all(w) for g, w in entries.items()}
+            diag = _flip_all(diag) if diag is not None else None
+        self.register_buffer("diag", diag)
+
+        def nrm(g: Tuple[int, ...]) -> torch.Tensor:
+            w = -entries[g]
+            return w / diag if diag is not None else w
+
+        if dim == 2:
+            self.solver = GridTriSolve2D(nrm((-1, 0)), nrm((-1, -1)), nrm((0, -1)), nrm((1, -1)))
+        else:
+            plane = GridTriSolve2D(nrm((-1, 0, 0)), nrm((-1, -1, 0)), nrm((0, -1, 0)), nrm((1, -1, 0)))
+            bz = {(dx, dy): nrm((dx, dy, -1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)}
+            self.solver = GridTriSolve3D(plane, bz)
+
+    def forward(self, r: torch.Tensor) -> torch.Tensor:
+        if self.reverse:
+            r = _flip_all(r)
+        c = r / self.diag if self.diag is not None else r
+        x = self.solver.apply(c)
+        return _flip_all(x) if self.reverse else x
+
+
+def _split_entries(sys: StructuredSystem, values: np.ndarray, f: int, device: torch.device):
+    """Field f's own block: (diagonal grid, strictly lower entries, strictly
+    upper entries)."""
+    shape = sys.mesh.node_shape
+    center = (0,) * sys.mesh.dim
+    ent = _grid_entries(sys, values, f, 0, device)
+    low = {g: w for g, w in ent.items() if _is_lower_geom(g, shape)}
+    upp = {g: w for g, w in ent.items() if not _is_lower_geom(g, shape) and g != center}
+    return ent[center], low, upp
+
+
+class PartriILU(nn.Module):
+    """ILU(0) application ``z = U^{-1} L^{-1} r`` by parallel-prefix
+    triangular solves (field-major natural order; ``ops/partri.py``).
+
+    For the monolithic two-field system the lower factor visits every field-0
+    row before the field-1 rows, so L^{-1} is field 0's grid solve, then
+    field 1's with the cross-block contribution subtracted; U^{-1} mirrors it
+    bottom-up. ``factors``: the (nrows, noffs) ILU(0) factor."""
+
+    def __init__(self, sys: StructuredSystem, factors: np.ndarray, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        d = sys.mesh.dim
+        self.nfields, self.shape, self.n = sys.nfields, tuple(sys.mesh.node_shape), sys.n_nodes
+        lower, upper = [], []
+        for f in range(sys.nfields):
+            diag, low, upp = _split_entries(sys, factors, f, dev)
+            lower.append(DirTriSolve(d, low, None, reverse=False))
+            upper.append(DirTriSolve(d, upp, diag, reverse=True))
+        self.lower_solve, self.upper_solve = nn.ModuleList(lower), nn.ModuleList(upper)
+        if sys.nfields == 2:
+            self.cross_lower = _Stencil(_grid_entries(sys, factors, 1, -1, dev))  # field-1 rows
+            self.cross_upper = _Stencil(_grid_entries(sys, factors, 0, +1, dev))  # field-0 rows
+
+    def apply_flat(self, r: torch.Tensor) -> torch.Tensor:
+        n = self.n
+        if self.nfields == 1:
+            return self.upper_solve[0](self.lower_solve[0](r.reshape(self.shape))).reshape(r.shape)
+        y1 = self.lower_solve[0](r[:n].reshape(self.shape))
+        y2 = self.lower_solve[1](r[n:].reshape(self.shape) - self.cross_lower(y1))
+        z2 = self.upper_solve[1](y2)
+        z1 = self.upper_solve[0](y1 - self.cross_upper(z2))
+        return torch.cat([z1.reshape(-1), z2.reshape(-1)])
+
+
+class PartriGS(nn.Module):
+    """One forward pointwise Gauss-Seidel sweep by parallel-prefix solves:
+    ``x_new = (D + L)^{-1} (b - U x_old)`` in lexicographic field-major order
+    (the wavefront sweep's algebra). ``values``: the (nrows, noffs) matrix."""
+
+    def __init__(self, sys: StructuredSystem, values: np.ndarray, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        d = sys.mesh.dim
+        self.nfields, self.shape, self.n = sys.nfields, tuple(sys.mesh.node_shape), sys.n_nodes
+        ld, upper = [], []
+        for f in range(sys.nfields):
+            diag, low, upp = _split_entries(sys, values, f, dev)
+            ld.append(DirTriSolve(d, low, diag, reverse=False))
+            upper.append(_Stencil(upp))
+        self.ld_solve, self.upper_entries = nn.ModuleList(ld), nn.ModuleList(upper)
+        if sys.nfields == 2:
+            self.cross_lower = _Stencil(_grid_entries(sys, values, 1, -1, dev))
+            self.cross_upper = _Stencil(_grid_entries(sys, values, 0, +1, dev))
+
+    def sweep_flat(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        n, shape = self.n, self.shape
+        if self.nfields == 1:
+            c = b.reshape(shape) - self.upper_entries[0](x.reshape(shape))
+            return self.ld_solve[0](c).reshape(x.shape)
+        x1, x2 = x[:n].reshape(shape), x[n:].reshape(shape)
+        c1 = b[:n].reshape(shape) - self.upper_entries[0](x1) - self.cross_upper(x2)
+        y1 = self.ld_solve[0](c1)
+        c2 = b[n:].reshape(shape) - self.upper_entries[1](x2) - self.cross_lower(y1)
+        y2 = self.ld_solve[1](c2)
+        return torch.cat([y1.reshape(-1), y2.reshape(-1)])
+
+
 def _clip_sweep(rhs: torch.Tensor, plan: list, nrows: int, z0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One wavefront sweep (the JAX package's ``_leveled_clip_sweep``): per
     level, ``acc = rhs[rows] - v[t] * z[col]`` over the plan's offsets in
@@ -414,8 +603,22 @@ class _LevelSchedule(nn.Module):
         return self.device.type == "cuda"
 
 
+TRISOLVE_BACKENDS = ("partri", "wavefront")
+
+
+def _check_backend(trisolve_backend: str) -> None:
+    if trisolve_backend not in TRISOLVE_BACKENDS:
+        raise ValueError(f"trisolve_backend {trisolve_backend!r}: one of {TRISOLVE_BACKENDS}")
+
+
 class StructuredILU0(_LevelSchedule):
     """ILU(0) application ``z = U^{-1} L^{-1} r`` in native f64.
+
+    ``trisolve_backend``: ``wavefront`` (the level sweeps: the kernel on a
+    CUDA tensor, the plain sweep on a CPU one) or ``partri`` (submodule
+    ``partri``, a :class:`PartriILU`: the parallel-prefix trisolves in torch
+    ops on either device). The wavefront buffers are built either way (the
+    fused GMRES kernels K7/K8 read them).
 
     Buffers: ``factors`` (noffs, nrows), the f64 factor by offset (the plain
     sweep's); ``packed_lower`` and ``packed_upper``, the same entries packed
@@ -425,10 +628,12 @@ class StructuredILU0(_LevelSchedule):
     table: ``[nlow, nup, center, low_t[40], up_t[40], delta[noffs]]``.
     """
 
-    def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = None, trisolve_backend: str = "wavefront"):
         super().__init__(sys, device)
+        _check_backend(trisolve_backend)
         fac = ilu0_factorize(sys)
         dev = self.device
+        self.partri = PartriILU(sys, fac, dev) if trisolve_backend == "partri" else None
         self.register_buffer("factors", torch.tensor(np.ascontiguousarray(fac.T), device=dev))
         # each side packed by level for the kernels (upper: then the diagonal)
         by_level = fac.T[:, self._rows]
@@ -436,14 +641,20 @@ class StructuredILU0(_LevelSchedule):
             self.register_buffer(name, torch.tensor(_pack_by_level(by_level, offs, self._ptr), device=dev))
         self._plan: Optional[Tuple[list, list]] = None
 
-    @classmethod
-    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
-        return cls(build_monolithic_system(mesh, params), device)
+    @property
+    def trisolve_backend(self) -> str:
+        return "wavefront" if self.partri is None else "partri"
 
     @classmethod
-    def for_field(cls, fop):
+    def for_monolithic(
+        cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None, trisolve_backend: str = "wavefront"
+    ):
+        return cls(build_monolithic_system(mesh, params), device, trisolve_backend)
+
+    @classmethod
+    def for_field(cls, fop, trisolve_backend: str = "wavefront"):
         """Of a ``FieldOperator`` block, on its space's device."""
-        return cls(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device)
+        return cls(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device, trisolve_backend)
 
     def _level_plan(self) -> Tuple[list, list]:
         """Per level, the plain sweeps' gather tables: (rows, cols, factor
@@ -483,9 +694,13 @@ class StructuredILU0(_LevelSchedule):
         return z
 
     def apply_flat(self, r: torch.Tensor) -> torch.Tensor:
-        """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor: the kernel on a
-        CUDA tensor, the plain sweep on a CPU one."""
-        return self.launch(r) if self._on_device(r) else self.plain(r)
+        """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor: the partri
+        trisolves where built; else the kernel on a CUDA tensor, the plain
+        sweep on a CPU one."""
+        on_card = self._on_device(r)
+        if self.partri is not None:
+            return self.partri.apply_flat(r)
+        return self.launch(r) if on_card else self.plain(r)
 
     def apply_grid(self, r: torch.Tensor) -> torch.Tensor:
         """Grid (or stacked grids) in, the same shape out."""
@@ -501,14 +716,20 @@ class GaussSeidelSweeper(_LevelSchedule):
     ``GaussSeidelSweeper`` on its wavefront path). Every dependency of a row
     lies on an earlier level, so the level schedule sweeps in row order.
 
+    ``trisolve_backend``: ``wavefront`` (the level sweep) or ``partri``
+    (submodule ``partri``, a :class:`PartriGS`), as for
+    :class:`StructuredILU0`.
+
     Buffers: ``vals`` (noffs, nrows), the matrix by offset (the plain
     sweep's); ``packed``, the same entries packed by level for the kernel:
     per level ``[q][r]``, q the off-centre offsets in stored order, then the
     diagonal.
     """
 
-    def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = None, trisolve_backend: str = "wavefront"):
         super().__init__(sys, device)
+        _check_backend(trisolve_backend)
+        self.partri = PartriGS(sys, sys.vals, self.device) if trisolve_backend == "partri" else None
         self.offsets = tuple(t for t in range(len(self.deltas)) if t != self.center)
         dev = self.device
         self.register_buffer("vals", torch.tensor(np.ascontiguousarray(sys.vals.T), device=dev))
@@ -516,9 +737,15 @@ class GaussSeidelSweeper(_LevelSchedule):
         self.register_buffer("packed", torch.tensor(packed, device=dev))
         self._plan: Optional[list] = None
 
+    @property
+    def trisolve_backend(self) -> str:
+        return "wavefront" if self.partri is None else "partri"
+
     @classmethod
-    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
-        return cls(build_monolithic_system(mesh, params), device)
+    def for_monolithic(
+        cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None, trisolve_backend: str = "wavefront"
+    ):
+        return cls(build_monolithic_system(mesh, params), device, trisolve_backend)
 
     def plain(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch twin on flat ``(nrows,)`` f64 tensors (any device):
@@ -547,9 +774,13 @@ class GaussSeidelSweeper(_LevelSchedule):
 
     def sweep(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One forward sweep from ``x``: ``x_i <- (b_i - sum_{j != i} a_ij
-        x_j) / a_ii`` in row order, on flat f64 tensors: the kernel on CUDA
-        tensors, the plain sweep on CPU ones."""
-        return self.launch(x, b) if self._on_device(x, b) else self.plain(x, b)
+        x_j) / a_ii`` in row order, on flat f64 tensors: the partri solves
+        where built; else the kernel on CUDA tensors, the plain sweep on CPU
+        ones."""
+        on_card = self._on_device(x, b)
+        if self.partri is not None:
+            return self.partri.sweep_flat(x, b)
+        return self.launch(x, b) if on_card else self.plain(x, b)
 
 
 class ColoredNGSSweeper(nn.Module):

@@ -52,10 +52,17 @@ and returns ``x0 + d``:
   - cg                                   -> ``krylov.cg`` (K1 matvec)
 
 The host preconditioners follow the JAX package's native-f64 route: f64
-fast-diag exact blocks, literal inner Krylov solves, ``StructuredILU0``
-(its kernel on the card). The RHS lift is K1 in lift mode. Every other
-option path raises ``NotImplementedError`` naming the ROADMAP slice that
-ports it.
+fast-diag exact blocks, literal inner Krylov solves, ``StructuredILU0``.
+The RHS lift is K1 in lift mode. Every other option path raises
+``NotImplementedError`` naming the ROADMAP slice that ports it.
+
+Every ``StructuredILU0`` and ``GaussSeidelSweeper`` built here (the host
+ILU applies, the lexicographic GS) runs on the ``trisolve_backend`` option
+(:func:`_trisolve_backend`): ``partri`` (the parallel-prefix trisolves,
+torch ops), ``wavefront`` (the level sweeps: ``structured_ilu_apply`` and
+its GS mode on the card) or left open, the JAX package's default: partri
+where its maps fit (the card's free memory; on the CPU the JAX package's
+6 GiB), else the wavefront. The fused roles K7/K8 keep their own sweep.
 
 Picard (``solve_dpp_nonlinear``; ``snes_type``, the JAX package's native-f64
 solves), from the BC lift, stopping on ``||F|| <= max(snes_rtol ||F0||,
@@ -65,8 +72,9 @@ snes_atol)`` or ``snes_max_it``:
     kernel's plan                        -> ``fused_ngs`` (one launch)
   - ngs on quad meshes beyond it         -> ``ngs_host_loop`` (K1 residuals)
   - ngs on tri/hex/tet meshes            -> ``GaussSeidelSweeper`` (one
-                                            ``structured_ilu_apply[gs]`` and
-                                            one K1 residual an iteration)
+                                            sweep, partri or
+                                            ``structured_ilu_apply[gs]``,
+                                            and one K1 residual an iteration)
   - block_gs                             -> exact alternating field solves
   - nrichardson                          -> damped Richardson with
                                             ``_monolithic_pc`` (the JAX
@@ -114,7 +122,14 @@ from perphil_tpu_torch.ops.fused_gmres import (
     fused_gmres_supported,
 )
 from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop, picard_loop
-from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper, GaussSeidelSweeper, StructuredILU0
+from perphil_tpu_torch.ops.ilu import (
+    CPU_PARTRI_MAX_BYTES,
+    TRISOLVE_BACKENDS,
+    ColoredNGSSweeper,
+    GaussSeidelSweeper,
+    StructuredILU0,
+    partri_plan,
+)
 from perphil_tpu_torch.ops.krylov import _norm, cg, gmres
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
 from perphil_tpu_torch.ops.ordering import parity_system
@@ -200,9 +215,10 @@ def _exact_field_solver(fop: FieldOperator) -> Callable:
     return solve
 
 
-def _field_pc(fop: FieldOperator, pc_type: str) -> Optional[Callable]:
+def _field_pc(fop: FieldOperator, pc_type: str, trisolve: str) -> Optional[Callable]:
     """A fieldsplit block's preconditioner: none, jacobi, lu/cholesky or
-    ilu (``StructuredILU0``: the kernel on the card, the sweep on the CPU)."""
+    ilu (``StructuredILU0`` on the ``trisolve_backend`` option ``trisolve``,
+    :func:`_trisolve_backend`)."""
     if pc_type == "none":
         return None
     if pc_type == "jacobi":
@@ -214,19 +230,21 @@ def _field_pc(fop: FieldOperator, pc_type: str) -> Optional[Callable]:
     if pc_type in ("lu", "cholesky"):
         return _exact_field_solver(fop)
     if pc_type == "ilu":
-        return StructuredILU0.for_field(fop).apply_grid
+        backend = _trisolve_backend(trisolve, fop.mesh.node_shape, 1, fop.V.device)
+        return StructuredILU0.for_field(fop, backend).apply_grid
     raise ValueError(f"Unsupported block pc_type: {pc_type!r}")
 
 
-def _block_solver(fop: FieldOperator, sub: Dict[str, object]) -> Callable:
+def _block_solver(fop: FieldOperator, sub: Dict[str, object], trisolve: str = "") -> Callable:
     """Grid -> grid solver of one fieldsplit block from its sub-options
-    (``ksp_type`` preonly, gmres or cg; the JAX package's f64 route)."""
+    (``ksp_type`` preonly, gmres or cg; the JAX package's f64 route);
+    ``trisolve``: the solve's ``trisolve_backend`` option."""
     ksp = str(sub.get("ksp_type", "preonly"))
     pc_type = str(sub.get("pc_type", "ilu"))
     if ksp == "preonly":
         if pc_type in ("lu", "cholesky"):
             return _exact_field_solver(fop)
-        pc = _field_pc(fop, pc_type)
+        pc = _field_pc(fop, pc_type, trisolve)
         return pc if pc is not None else (lambda r: r)
     if ksp not in ("gmres", "cg"):
         raise ValueError(f"Unsupported block ksp_type: {ksp!r}")
@@ -235,11 +253,21 @@ def _block_solver(fop: FieldOperator, sub: Dict[str, object]) -> Callable:
         atol=float(sub.get("ksp_atol", 1e-50)),
         max_it=int(sub.get("ksp_max_it", 10000)),
     )
-    pc = _field_pc(fop, pc_type)
+    pc = _field_pc(fop, pc_type, trisolve)
     if ksp == "cg":
         return lambda b: cg(fop.matvec, b, M_inv=pc, **kw)[0]
     restart = int(sub.get("ksp_gmres_restart", 30))
     return lambda b: gmres(fop.matvec, b, restart=restart, M_inv=pc, **kw).x
+
+
+def _field_blocks(W: MixedFunctionSpace, p: DPPParameters, flat: Dict[str, object]) -> Tuple[Callable, Callable]:
+    """The two fieldsplit block solvers from the ``fieldsplit_{0,1}_``
+    sub-options, their ILUs on the solve's ``trisolve_backend``."""
+    trisolve = _trisolve_option(flat)
+    return tuple(
+        _block_solver(FieldOperator(W.sub(i), k, p.beta, p.mu), _sub_options(flat, f"fieldsplit_{i}_"), trisolve)
+        for i, k in ((0, p.k1), (1, p.k2))
+    )
 
 
 def _fieldsplit_pc(op: DPPOperator, flat: Dict[str, object]) -> Callable:
@@ -249,8 +277,7 @@ def _fieldsplit_pc(op: DPPOperator, flat: Dict[str, object]) -> Callable:
     if fs_type not in ("multiplicative", "additive"):
         raise ValueError(f"Unsupported pc_fieldsplit_type: {fs_type!r}")
     p = op.params
-    B0 = _block_solver(FieldOperator(op.W.sub(0), p.k1, p.beta, p.mu), _sub_options(flat, "fieldsplit_0_"))
-    B1 = _block_solver(FieldOperator(op.W.sub(1), p.k2, p.beta, p.mu), _sub_options(flat, "fieldsplit_1_"))
+    B0, B1 = _field_blocks(op.W, p, flat)
     if fs_type == "additive":
         return lambda r: torch.stack([B0(r[0]), B1(r[1])])
     C = coupling_apply(op.mesh, p, op.W.device)
@@ -279,7 +306,8 @@ def _monolithic_pc(op: DPPOperator, flat: Dict[str, object]) -> Optional[Callabl
             raise NotImplementedError(
                 "Only ILU(0) is implemented (the only level any reference workload uses)"
             )
-        return StructuredILU0.for_monolithic(op.mesh, op.params, op.W.device).apply_grid
+        backend = _trisolve_backend(_trisolve_option(flat), op.mesh.node_shape, 2, op.W.device)
+        return StructuredILU0.for_monolithic(op.mesh, op.params, op.W.device, backend).apply_grid
     if pc_type == "fieldsplit":
         return _fieldsplit_pc(op, flat)
     raise ValueError(f"Unsupported pc_type: {pc_type!r}")
@@ -377,6 +405,39 @@ def _free_device_bytes(device: torch.device) -> Optional[int]:
     if device.type != "cuda":
         return None
     return int(torch.cuda.mem_get_info(device)[0])
+
+
+def _trisolve_option(flat: Dict[str, object]) -> str:
+    """The ``trisolve_backend`` option: ``partri``, ``wavefront`` or ""
+    (left open)."""
+    option = str(flat.get("trisolve_backend", ""))
+    if option not in ("", *TRISOLVE_BACKENDS):
+        raise ValueError(f"Unsupported trisolve_backend: {option!r} (partri or wavefront)")
+    return option
+
+
+def _trisolve_backend(option: str, node_shape: Tuple[int, ...], nfields: int, device: torch.device) -> str:
+    """The trisolve of an ILU apply or a lexicographic GS sweep on
+    ``nfields`` fields: ``option`` when given, else the JAX package's
+    default, partri where its maps (``partri_plan``) fit, else the
+    wavefront. They fit within the card's free memory, or on the CPU within
+    the JAX package's cap (``CPU_PARTRI_MAX_BYTES``), so that both packages
+    route a test alike. Asking for partri where they do not fit raises
+    ``MemoryError``: nothing moves to another backend or device unasked."""
+    if option == "wavefront":
+        return option
+    need = partri_plan(tuple(node_shape), nfields)
+    free = _free_device_bytes(device)
+    budget = CPU_PARTRI_MAX_BYTES if free is None else free
+    if need <= budget:
+        return "partri"
+    if option == "partri":
+        where = "the card has" if free is not None else "the host budget is"
+        raise MemoryError(
+            f"the partri trisolves need {need} bytes of maps, {where} {budget}; "
+            "trisolve_backend=wavefront runs them as wavefront sweeps"
+        )
+    return "wavefront"
 
 
 def _parity_engine(on_card: bool, option: str) -> str:
@@ -541,13 +602,15 @@ def solve_dpp(
     return Solution(Function(W, (z1, z2)), int(its), float(rnorm))
 
 
-def _ngs_sweeper(mesh, params: DPPParameters, device) -> Union[ColoredNGSSweeper, GaussSeidelSweeper]:
+def _ngs_sweeper(mesh, params: DPPParameters, device, trisolve: str = "") -> Union[ColoredNGSSweeper, GaussSeidelSweeper]:
     """The SNES ngs sweep: the pinned-colouring multicolour sweeper on quad
     meshes (the reference's exact Picard counts), the lexicographic
-    Gauss-Seidel sweeper elsewhere."""
+    Gauss-Seidel sweeper elsewhere (on the ``trisolve_backend`` option
+    ``trisolve``, :func:`_trisolve_backend`)."""
     if mesh.element == "quad":
         return ColoredNGSSweeper(mesh, params, device)
-    return GaussSeidelSweeper.for_monolithic(mesh, params, device)
+    backend = _trisolve_backend(trisolve, mesh.node_shape, 2, device)
+    return GaussSeidelSweeper.for_monolithic(mesh, params, device, backend)
 
 
 @lru_cache(maxsize=64)
@@ -580,7 +643,7 @@ def _build_nonlinear_solver(
     if snes == "ngs":
         # PETSc's default SNES ngs is a colouring-based pointwise secant
         # Gauss-Seidel; the fieldsplit keys of the Picard presets are inert
-        sweeper = _ngs_sweeper(mesh, params, W.device)
+        sweeper = _ngs_sweeper(mesh, params, W.device, _trisolve_option(flat))
         if isinstance(sweeper, ColoredNGSSweeper):
             fused = FusedNGSSolver(op, sweeper, rtol, atol, max_it)
 
@@ -608,8 +671,7 @@ def _build_nonlinear_solver(
         # exact alternating field solves: the fixed-stress split the delayed
         # form encodes
         p = params
-        B0 = _block_solver(FieldOperator(W.sub(0), p.k1, p.beta, p.mu), _sub_options(flat, "fieldsplit_0_"))
-        B1 = _block_solver(FieldOperator(W.sub(1), p.k2, p.beta, p.mu), _sub_options(flat, "fieldsplit_1_"))
+        B0, B1 = _field_blocks(W, p, flat)
         C = coupling_apply(mesh, p, W.device)
 
         def solve_block_gs(g1: torch.Tensor, g2: torch.Tensor):

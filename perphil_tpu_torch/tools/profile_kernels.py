@@ -63,6 +63,15 @@ rate it reached; for each size, and at nx=64 alone, it first prints the
 factor's bandwidth and ``band_plan`` (B, nb, packed and workspace bytes),
 computed on the host.
 
+``--only partri`` builds nothing of its own: it times the partri ILU apply
+(``ops/ilu.py::PartriILU``, torch ops) at 2D N=128/256 and tet nx=16
+(monolithic) in turns (CUDA events, median of 20): issued op by op, as the
+solvers run it, and replayed from a CUDA graph captured once (the same
+kernels without the host between them; its result first held to the
+issued apply's bit for bit), beside ``structured_ilu_apply`` on the same
+factor, the maps' bytes and bound; and counts, with ``torch.profiler``, the
+device kernels of one apply and their summed time.
+
 ``--only sweeps`` builds nothing of its own: it times, with the package's
 kernels (CUDA events, median of 5), the frame's roles where ``chip_smoke.py``
 times them (K5 at 2D N=8, K4 at N=16/64, K6 at N=64 and tet nx=8) and the
@@ -728,10 +737,57 @@ def time_band() -> None:
             del P
 
 
+def time_partri() -> None:
+    """``--only partri``: the partri ILU apply issued op by op and replayed
+    from a CUDA graph, in turns, beside the wavefront kernel."""
+    import chip_smoke
+    from perphil_tpu_torch.ops import ilu
+    from perphil_tpu_torch.ops.partri import nbytes
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for element, n in (("quad", 128), ("quad", 256), ("tet", 16)):
+        W, params, _, _, _ = chip_smoke.problem(element, n, dev)
+        pc = ilu.StructuredILU0(ilu.build_monolithic_system(W.mesh, params), dev, "partri")
+        r = torch.randn(pc.nrows, generator=gen, dtype=torch.float64).to(dev)
+        # capture one apply on a side stream after a warm-up, as torch.cuda.graph asks
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                pc.partri.apply_flat(r)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            z_graph = pc.partri.apply_flat(r)
+        graph.replay()
+        z = pc.apply_flat(r)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(z, z_graph))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pc.apply_flat(r)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        times = {"issued": [], "graph": []}
+        for turn in ("issued", "graph", "graph", "issued"):
+            times[turn].append(median_ms((lambda: pc.apply_flat(r)) if turn == "issued" else graph.replay, 20))
+        wave_ms = median_ms(lambda: pc.launch(r), 20)
+        maps = nbytes(pc.partri)
+        bound_ms, _ = chip_smoke.bound(maps + 16 * pc.nrows, maps / 4)
+        print(f"partri ILU {element} N={n} monolithic: issued {' / '.join(f'{t:.4f}' for t in times['issued'])} ms, "
+              f"CUDA graph {' / '.join(f'{t:.4f}' for t in times['graph'])} ms (in turns; graph result equal to the "
+              f"issued one: {same}); structured_ilu_apply {wave_ms:.4f} ms; "
+              + (f"{len(kernels)} device kernels an apply, {busy_ms:.4f} ms of kernel time (torch.profiler); "
+                 if kernels else "device kernels not measured (the profiler saw none); ")
+              + f"maps {maps} B, bound {bound_ms:.4f} ms", flush=True)
+        del graph, pc
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
-                                       "direct-wrapper", "ngs-phases", "band"],
+                                       "direct-wrapper", "ngs-phases", "band", "partri"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -765,6 +821,9 @@ def main() -> int:
         return 0
     if args.only == "band":
         time_band()
+        return 0
+    if args.only == "partri":
+        time_partri()
         return 0
     dll = build()
     if args.only in (None, "gmres"):

@@ -1,15 +1,18 @@
 """The port's structured ILU(0) (slice 4) on the CPU against the JAX package.
 
 - the structured systems and the ILU(0) factor, bit for bit;
-- ``StructuredILU0.apply_flat`` against the JAX float64 apply (which sums
-  in the parallel-prefix order, so within a tolerance);
+- ``StructuredILU0.apply_flat`` on both trisolve backends (the wavefront
+  sweeps and the parallel-prefix partri) against the JAX float64 apply on
+  the same backend, within a tolerance (the same function summed in other
+  orders);
 - ``solve_dpp`` with ``GMRES_ILU_PARAMS`` through the K7 twin: the
   published 2D counts, the JAX count in 3D, solutions against the JAX
-  float64 route; the host route's count; ``preonly`` + ILU; the options
-  that raise.
+  float64 route; the host route's count on both backends; ``preonly`` +
+  ILU on both backends; the options that raise.
 
-The JAX ILU runs in float64 (``PERPHIL_TPU_ILU_DTYPE``, which its solver
-cache does not key on, hence the ``cache_clear``).
+The JAX ILU runs in float64 (``PERPHIL_TPU_ILU_DTYPE``) on its default
+partri backend or, for the wavefront cases, ``PERPHIL_TPU_TRISOLVE=wavefront``;
+its solver cache keys on neither, hence the ``cache_clear``.
 """
 
 import jax.numpy as jnp
@@ -48,6 +51,18 @@ def jax_f64_ilu(monkeypatch):
     jsolver._build_linear_solver.cache_clear()
 
 
+@pytest.fixture(params=["partri", "wavefront"])
+def trisolve(request, jax_f64_ilu, monkeypatch):
+    """One trisolve backend for both packages: the JAX package's default
+    (partri) or its wavefront sweeps; the port's ``trisolve_backend``."""
+    if request.param == "wavefront":
+        monkeypatch.setenv("PERPHIL_TPU_TRISOLVE", "wavefront")
+    else:
+        monkeypatch.delenv("PERPHIL_TPU_TRISOLVE", raising=False)
+    jsolver._build_linear_solver.cache_clear()
+    return request.param
+
+
 def _systems(element, cells, kind):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     state = from_numpy_state(PARAMS, cells, element, np.zeros(mesh.node_shape), np.zeros(mesh.node_shape), device="cpu")
@@ -83,22 +98,23 @@ def test_system_and_factor_match_jax(element, cells, kind):
 
 @pytest.mark.parametrize("kind", ["monolithic", "field"])
 @pytest.mark.parametrize("element,cells", MESHES, ids=[f"{e}{c[0]}" for e, c in MESHES])
-def test_apply_flat_matches_jax(jax_f64_ilu, element, cells, kind):
+def test_apply_flat_matches_jax(trisolve, element, cells, kind):
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     _, jV = jspaces_of(mesh)
     state = from_numpy_state(PARAMS, cells, element, np.zeros(mesh.node_shape), np.zeros(mesh.node_shape), device="cpu")
     p = state.params
     if kind == "monolithic":
         jref = jilu.StructuredILU0.for_monolithic(JOp(jmixed(jV), JParams(**PARAMS)))
-        got = ilu.StructuredILU0.for_monolithic(state.mesh, p, "cpu")
+        got = ilu.StructuredILU0.for_monolithic(state.mesh, p, "cpu", trisolve)
     else:
         jref = jilu.StructuredILU0.for_field(JFieldOp(jV, p.k1, p.beta, p.mu))
-        got = ilu.StructuredILU0.for_field(FieldOperator(state.W.sub(0), p.k1, p.beta, p.mu))
+        got = ilu.StructuredILU0.for_field(FieldOperator(state.W.sub(0), p.k1, p.beta, p.mu), trisolve)
+    assert (jref.partri is not None) == (trisolve == "partri") == (got.trisolve_backend == "partri")
     r = np.random.default_rng(7).standard_normal(got.nrows)
     ref = np.asarray(jref.apply_flat(jnp.asarray(r)))
     z = got.apply_flat(torch.tensor(r)).numpy()
-    # JAX sums the trisolves in the parallel-prefix order, the port in the
-    # wavefront order: the same factor, rounded apart
+    # the same factor, summed in other orders (the JAX wavefront's gathers,
+    # the JAX partri's einsums): rounded apart
     assert np.abs(z - ref).max() <= 1e-12 * np.abs(ref).max()
     grid = torch.tensor(r).reshape((2 if kind == "monolithic" else 1, *mesh.node_shape))
     assert np.array_equal(got.apply_grid(grid).reshape(-1).numpy(), z)
@@ -156,9 +172,11 @@ def test_gmres_ilu_matches_jax(jax_f64_ilu, element, cells, count):
     assert abs(sol.residual_error - float(ref.residual_error)) <= 1e-6 * float(ref.residual_error)
 
 
-def test_host_route_count_equals_k7_twin():
-    """``_monolithic_pc`` (ilu) with the host ``krylov.gmres``, called
-    directly, against the K7 twin on the solver's own right-hand side."""
+@pytest.mark.parametrize("trisolve", ["partri", "wavefront"])
+def test_host_route_count_equals_k7_twin(trisolve):
+    """``_monolithic_pc`` (ilu, on either trisolve backend) with the host
+    ``krylov.gmres``, called directly, against the K7 twin (its wavefront
+    sweep) on the solver's own right-hand side."""
     g1, g2 = _manufactured("quad", (16, 16))
     state = from_numpy_state({}, (16, 16), "quad", g1, g2, device="cpu")
     op = DPPOperator(state.W, state.params)
@@ -166,19 +184,20 @@ def test_host_route_count_equals_k7_twin():
     bdry = op._mask_arrays[0]
     r = torch.stack(op.residual(*(torch.where(bdry, g, 0.0) for g in state.grids), b1, b2))
     kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
-    host = gmres(op.stacked_matvec(), r, M_inv=_monolithic_pc(op, dict(_freeze(sp.GMRES_ILU_PARAMS))), **kw)
+    flat = dict(_freeze({**sp.GMRES_ILU_PARAMS, "trisolve_backend": trisolve}))
+    host = gmres(op.stacked_matvec(), r, M_inv=_monolithic_pc(op, flat), **kw)
     twin = FusedGMRESSolver(op, "ilu", **kw).plain(r)
     assert host.iterations == twin.iterations == 11
     assert _rel(host.x.numpy(), twin.x.numpy()) <= 1e-12
 
 
 @pytest.mark.parametrize("element,cells", [("quad", (8, 8)), ("tet", (4, 4, 4))], ids=["quad8", "tet4"])
-def test_preonly_ilu_matches_jax(jax_f64_ilu, element, cells):
+def test_preonly_ilu_matches_jax(trisolve, element, cells):
     params = {"ksp_type": "preonly", "pc_type": "ilu"}
     g1, g2 = _manufactured(element, cells)
     ref = _jax_solve(element, cells, g1, g2, params)
     state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
-    sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters=params)
+    sol = solve_dpp(state.W, state.params, state.bcs, solver_parameters={**params, "trisolve_backend": trisolve})
     assert (sol.iteration_number, sol.residual_error) == (1, 0.0)
     for a, b in zip(sol.solution.data, ref.solution.data):
         assert _rel(a.numpy(), b) <= 1e-12

@@ -2,11 +2,12 @@
 parts against the JAX package's on the CPU, in float64, on the same inputs
 (the manufactured boundary data, or numpy draws from a seed).
 
-The JAX package's lexicographic Gauss-Seidel sweep runs on its wavefront
-path (``PERPHIL_TPU_TRISOLVE=wavefront``; its default, the parallel-prefix
-partri scan, computes the same sweep with other bits and is not ported).
-Its solver caches do not key on the environment it reads, hence the
-``cache_clear``. The kernels themselves are held to their twins on the
+The lexicographic Gauss-Seidel sweep is compared on both trisolve backends:
+the JAX package's default, the parallel-prefix partri scan, against the
+port's ``trisolve_backend`` left open (partri on the CPU), and its wavefront
+path (``PERPHIL_TPU_TRISOLVE=wavefront``) against the port's
+``trisolve_backend=wavefront``. The JAX package's solver caches do not key
+on the environment it reads, hence the ``cache_clear``. The kernels themselves are held to their twins on the
 card in ``tests/test_torch_kernels.py`` (the machine with the card has no
 JAX)."""
 
@@ -60,11 +61,16 @@ PICARD_COUNTS = {4: 16, 8: 63, 16: 194, 32: 635}
 
 
 @pytest.fixture
-def jax_wavefront(monkeypatch):
-    """The JAX package's wavefront Gauss-Seidel sweep."""
-    monkeypatch.setenv("PERPHIL_TPU_TRISOLVE", "wavefront")
+def trisolve(request, monkeypatch):
+    """The JAX package's lexicographic Gauss-Seidel on one backend (the
+    parameter): its default partri scan, or its wavefront sweep; the port's
+    ``trisolve_backend`` option for the same backend (partri: left open)."""
+    if request.param == "wavefront":
+        monkeypatch.setenv("PERPHIL_TPU_TRISOLVE", "wavefront")
+    else:
+        monkeypatch.delenv("PERPHIL_TPU_TRISOLVE", raising=False)
     jsolver._build_nonlinear_solver.cache_clear()
-    yield
+    yield request.param
     jsolver._build_nonlinear_solver.cache_clear()
 
 
@@ -81,9 +87,10 @@ def _manufactured(element, cells):
     return np.asarray(p1(*coords)), np.asarray(p2(*coords))
 
 
-def _both(element, cells, preset):
+def _both(element, cells, preset, port_options=None):
     """The same Picard solve through both packages on the manufactured
-    boundary data: (JAX Solution, port Solution)."""
+    boundary data, the port's with ``port_options`` on top: (JAX Solution,
+    port Solution)."""
     g1, g2 = _manufactured(element, cells)
     mesh = jmesh.StructuredMesh(cells=cells, element=element)
     _, jV = jspaces_of(mesh)
@@ -91,7 +98,7 @@ def _both(element, cells, preset):
     jbcs = [JBC(jW.sub(0), jnp.asarray(g1)), JBC(jW.sub(1), jnp.asarray(g2))]
     ref = jsolve_nonlinear(jW, JParams(), jbcs, solver_parameters=preset)
     state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
-    got = solve_dpp_nonlinear(state.W, state.params, state.bcs, solver_parameters=preset)
+    got = solve_dpp_nonlinear(state.W, state.params, state.bcs, solver_parameters={**preset, **(port_options or {})})
     return ref, got
 
 
@@ -155,16 +162,18 @@ def test_colored_sweep_matches_jax():
 GS_MESHES = [("triangle", (4, 4)), ("hex", (3, 3, 3)), ("tet", (3, 3, 3))]
 
 
+@pytest.mark.parametrize("trisolve", ["wavefront", "partri"], indirect=True)
 @pytest.mark.parametrize("element,cells", GS_MESHES, ids=[m[0] for m in GS_MESHES])
-def test_gauss_seidel_sweep_matches_jax(jax_wavefront, element, cells):
-    """One forward sweep from a random iterate: <= 1e-13 relative (the same
-    terms in the same order)."""
+def test_gauss_seidel_sweep_matches_jax(trisolve, element, cells):
+    """One forward sweep from a random iterate on one backend: <= 1e-13
+    relative (the wavefront: the same terms in the same order; partri: the
+    same maps, composed by other matmuls)."""
     rng = np.random.default_rng(1)
     params = {"k1": 1.2, "beta": 0.9}
     jswp = jilu.GaussSeidelSweeper.for_monolithic(jmesh.StructuredMesh(cells=cells, element=element), JParams(**params))
-    assert jswp.partri is None
+    assert (jswp.partri is not None) == (trisolve == "partri")
     mesh = StructuredMesh(cells=cells, element=element)
-    swp = GaussSeidelSweeper.for_monolithic(mesh, DPPParameters(**params), "cpu")
+    swp = GaussSeidelSweeper.for_monolithic(mesh, DPPParameters(**params), "cpu", trisolve)
     n = 2 * mesh.num_vertices
     x, b = rng.standard_normal(n), rng.standard_normal(n)
     ref = np.asarray(jswp.sweep(jnp.asarray(x), jnp.asarray(b)))
@@ -187,25 +196,29 @@ def test_picard_ngs_lands_the_published_column(N):
 
 
 SNES_CASES = [
-    ("quad", (4, 4), "block_gs"), ("quad", (8, 8), "block_gs"),
-    ("quad", (4, 4), "RICHARDSON_SOLVER_PARAMS"), ("quad", (8, 8), "RICHARDSON_SOLVER_PARAMS"),
-    ("quad", (4, 4), "KSP_PREONLY_PARAMS"), ("quad", (8, 8), "KSP_PREONLY_PARAMS"),
-    ("triangle", (4, 4), "PICARD_LU_SOLVER_PARAMS"), ("tet", (3, 3, 3), "PICARD_LU_SOLVER_PARAMS"),
+    ("quad", (4, 4), "block_gs", "wavefront"), ("quad", (8, 8), "block_gs", "wavefront"),
+    ("quad", (4, 4), "RICHARDSON_SOLVER_PARAMS", "wavefront"), ("quad", (8, 8), "RICHARDSON_SOLVER_PARAMS", "wavefront"),
+    ("quad", (4, 4), "KSP_PREONLY_PARAMS", "wavefront"), ("quad", (8, 8), "KSP_PREONLY_PARAMS", "wavefront"),
+    ("triangle", (4, 4), "PICARD_LU_SOLVER_PARAMS", "wavefront"), ("tet", (3, 3, 3), "PICARD_LU_SOLVER_PARAMS", "wavefront"),
+    # the lexicographic GS on the JAX package's default path, the port's option left open
+    ("triangle", (4, 4), "PICARD_LU_SOLVER_PARAMS", "partri"), ("tet", (3, 3, 3), "PICARD_LU_SOLVER_PARAMS", "partri"),
 ]
 
 
 @pytest.mark.parametrize(
-    "element,cells,preset", SNES_CASES, ids=[f"{c[0]}{c[1][0]}-{c[2]}" for c in SNES_CASES]
+    "element,cells,preset,trisolve", SNES_CASES, ids=[f"{c[0]}{c[1][0]}-{c[2]}-{c[3]}" for c in SNES_CASES],
+    indirect=["trisolve"],
 )
-def test_snes_types_match_jax(jax_wavefront, element, cells, preset):
+def test_snes_types_match_jax(trisolve, element, cells, preset):
     """block_gs (exact field solves), nrichardson (fieldsplit-preconditioned,
     damping 0.5), ksponly (one GMRES + fieldsplit solve; iteration 1) and the
-    lexicographic ngs on tri/tet: counts equal to the JAX package's, fields
-    <= 1e-10 relative, final norms <= 1e-6 relative (_NORM_TOL)."""
+    lexicographic ngs on tri/tet on both trisolve backends: counts equal to
+    the JAX package's, fields <= 1e-10 relative, final norms <= 1e-6
+    relative (_NORM_TOL)."""
     options = (
         {**jsp.PICARD_LU_SOLVER_PARAMS, "snes_type": "block_gs"} if preset == "block_gs" else getattr(jsp, preset)
     )
-    ref, got = _both(element, cells, options)
+    ref, got = _both(element, cells, options, {"trisolve_backend": "wavefront"} if trisolve == "wavefront" else {})
     assert got.iteration_number == ref.iteration_number
     if preset == "KSP_PREONLY_PARAMS":
         assert got.iteration_number == 1
