@@ -46,8 +46,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (4/7), SS-GMRES at 2D N=16/64 and tet nx=8/32 (4, K6) and at N=256 (4, the
      host loop), SS-GMRES+ILU at 2D N=16/64/128 (4, K8);
      ``FIELDSPLIT_GMRES_PARAMS`` at N=16 (4); GMRES+ILU at N=512 (no
-     published count; the host loop with ``structured_ilu_apply``, the
-     ``trisolve_backend=wavefront`` option);
+     published count; the host loop with ``structured_ilu_apply``);
   7. drives the Picard path — first ``fused_ngs`` against its twin at 2D
      N=16 and N=128 (equal counts, x within 1e-12), the Gauss-Seidel mode of
      the ILU sweep (``structured_ilu_apply[gs]``) against its twin at tri
@@ -56,9 +55,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      ``solve_dpp_nonlinear`` with ``PICARD_LU_SOLVER_PARAMS`` at 2D
      N=4/8/16/32/64/128, held to the published 16/63/194/635/1673/5135 with
      ``fn <= max(rtol f0, atol)`` and one ``fused_ngs`` launch a solve, the
-     lexicographic ngs at tri N=16 and tet nx=4 with
-     ``trisolve_backend=wavefront`` (one GS-mode launch an iteration), and
-     ``block_gs``, ``RICHARDSON_SOLVER_PARAMS`` and
+     lexicographic ngs at tri N=16 and tet nx=4 (one GS-mode launch an
+     iteration), and ``block_gs``, ``RICHARDSON_SOLVER_PARAMS`` and
      ``KSP_PREONLY_PARAMS`` at N=16, each against the CPU twin path;
   8. drives the ordering-parity ILU path (``parity_path``) — first
      ``band_trisolve`` against its twin at tet nx=4/16/24/40 (a lower and an
@@ -77,10 +75,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      N=128/256 monolithic, a 2D N=256 field and tet nx=16 monolithic, the
      partri GS sweep against ``structured_ilu_apply[gs]`` at tri N=16 / tet
      nx=4 (max rel diff <= 1e-12), both timed with CUDA events beside the
-     maps' bytes and bound; then, counted, the host GMRES loop with the ILU
-     option left open (partri) landing the published 74/117 exactly at 2D
-     N=128/256, and the lexicographic Picard at tri N=16 / tet nx=4 with the
-     option left open, beside the wavefront's counts and the CPU's;
+     maps' bytes and bound and the build's peak memory within
+     ``partri_peak``; then, counted, the host GMRES loop with
+     ``trisolve_backend=partri`` landing the published 74/117 exactly at 2D
+     N=128/256, and the lexicographic Picard at tri N=16 / tet nx=4 with
+     ``trisolve_backend=partri``; after the count, the same Picard with the
+     option left open (the wavefront on the card) and on the CPU, with equal
+     counts;
  10. drives the conditioning analysis (``conditioning_path``) —
      ``estimate_condition_numbers`` with Lanczos on the card at 2D
      N=16/32/64 and hex N=8, the dense host SVD at hex N=4, each against the
@@ -191,8 +192,8 @@ PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
     ("quad", 128, "SS-GMRES+ILU", 4, 0, "fused_gmres_df[fieldsplit_ilu]"),
     ("quad", 16, "FIELDSPLIT_GMRES_PARAMS", 4, 0, "fused_dpp_apply"),
     # beyond the envelope (526,338 values), no published count: the host loop
-    # with the standalone ILU apply (the wavefront backend; left open, partri)
-    ("quad", 512, "GMRES_ILU_WAVEFRONT", None, 0, "structured_ilu_apply"),
+    # with the standalone ILU apply
+    ("quad", 512, "GMRES_ILU_PARAMS", None, 0, "structured_ilu_apply"),
 ]
 
 # the reference's Picard column: petsc_perf_breakdown-with-picard.csv,
@@ -200,9 +201,8 @@ PRECOND_CASES = [  # element, N, preset, count, slack, kernel the route launches
 PICARD_COUNTS = {4: 16, 8: 63, 16: 194, 32: 635, 64: 1673, 128: 5135}
 PICARD_CASES = [  # element, N, preset, count (None: the CPU twin path's), kernel the route launches
     *[("quad", n, "PICARD_LU_SOLVER_PARAMS", c, "fused_ngs") for n, c in PICARD_COUNTS.items()],
-    # the lexicographic GS on the wavefront kernel (left open: partri, phase 9)
-    ("triangle", 16, "PICARD_LU_WAVEFRONT", None, "structured_ilu_apply[gs]"),
-    ("tet", 4, "PICARD_LU_WAVEFRONT", None, "structured_ilu_apply[gs]"),
+    ("triangle", 16, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
+    ("tet", 4, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
     ("quad", 16, "BLOCK_GS", None, "fused_dpp_apply"),
     ("quad", 16, "RICHARDSON_SOLVER_PARAMS", None, "fused_dpp_apply"),
     ("quad", 16, "KSP_PREONLY_PARAMS", 1, "fused_gmres_df[fieldsplit_lu]"),
@@ -251,9 +251,9 @@ def presets():
         "GMRES_ILU_RCM": {**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"},
         "GMRES_ILU_RCM_HOST": {**sp.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm",
                                "pc_band_execution": "host"},
-        # the host routes' ILU and GS on the wavefront kernels (left open: partri where its maps fit)
-        "GMRES_ILU_WAVEFRONT": {**sp.GMRES_ILU_PARAMS, "trisolve_backend": "wavefront"},
-        "PICARD_LU_WAVEFRONT": {**sp.PICARD_LU_SOLVER_PARAMS, "trisolve_backend": "wavefront"},
+        # the host routes' ILU and GS on the parallel-prefix trisolves (left open: the wavefront on the card)
+        "GMRES_ILU_PARTRI": {**sp.GMRES_ILU_PARAMS, "trisolve_backend": "partri"},
+        "PICARD_LU_PARTRI": {**sp.PICARD_LU_SOLVER_PARAMS, "trisolve_backend": "partri"},
     }
 
 
@@ -732,7 +732,7 @@ PARTRI_GS_CASES = [("triangle", 16), ("tet", 4)]  # PartriGS against structured_
 # the published GMRES + ILU counts (petsc_perf_breakdown.csv) the host loop
 # with the partri ILU lands exactly
 PARTRI_GMRES_COUNTS = {128: 74, 256: 117}
-PARTRI_PICARD_CASES = [("triangle", 16), ("tet", 4)]  # the lexicographic Picard, trisolve_backend open
+PARTRI_PICARD_CASES = [("triangle", 16), ("tet", 4)]  # the lexicographic Picard on partri, then left open
 
 
 def partri_path(dev, smi, randn, t_start):
@@ -742,13 +742,14 @@ def partri_path(dev, smi, randn, t_start):
     one 2D N=256 field and tet nx=16 monolithic, and the partri GS sweep
     against ``structured_ilu_apply[gs]`` at tri N=16 / tet nx=4 (max
     relative difference <= 1e-12), both timed with CUDA events beside the
-    bytes of the maps an apply reads and their bound, the maps' build time
-    and peak memory beside ``partri_plan``; then, counted, the host GMRES
-    loop (``krylov.gmres``, K1, ``_monolithic_pc`` with the option left
-    open: partri) landing the published 74/117 exactly at 2D N=128/256, and
-    ``solve_dpp_nonlinear`` with the option left open at tri N=16 / tet nx=4
-    beside the wavefront's counts and the CPU's. Returns the phase's
-    launches."""
+    bytes of the maps an apply reads and their bound, the build's time and
+    its peak memory, held within ``partri_peak``; then, counted, the host
+    GMRES loop (``krylov.gmres``, K1, ``_monolithic_pc`` with
+    ``trisolve_backend=partri``) landing the published 74/117 exactly at 2D
+    N=128/256, and ``solve_dpp_nonlinear`` on partri at tri N=16 / tet nx=4;
+    after the count, the same Picard with the option left open (the
+    wavefront kernel on the card) and on the CPU (partri), with equal
+    counts. Returns the counted run's launches."""
     import torch
 
     from perphil_tpu_torch.ops import _cuda
@@ -756,9 +757,8 @@ def partri_path(dev, smi, randn, t_start):
     from perphil_tpu_torch.ops.assembly import DPPOperator
     from perphil_tpu_torch.ops.krylov import gmres
     from perphil_tpu_torch.ops.partri import nbytes
-    from perphil_tpu_torch.solvers import parameters as sp
     from perphil_tpu_torch.solvers import solve_dpp_nonlinear
-    from perphil_tpu_torch.solvers.solver import _freeze, _monolithic_pc
+    from perphil_tpu_torch.solvers.solver import _freeze, _monolithic_pc, _trisolve_backend
 
     PRESETS = presets()
     # the partri apply against the wavefront kernel on the same factor (not counted)
@@ -767,52 +767,57 @@ def partri_path(dev, smi, randn, t_start):
         mesh = W.mesh
         sys = (ilu.build_monolithic_system(mesh, params) if kind == "monolithic"
                else ilu.build_field_system(mesh, params.k1, params.beta, params.mu))
+        r = randn(sys.nrows)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        pc, build_ms = timed_once(lambda: ilu.StructuredILU0(sys, dev, "partri"))  # the host factorisation too
-        peak = torch.cuda.max_memory_allocated() - base
-        plan = ilu.partri_plan(mesh.node_shape, sys.nfields)
-        maps = nbytes(pc.partri)
-        r = randn(pc.nrows)
+        pc, build_ms = timed_once(lambda: ilu.PartriILU.for_system(sys, dev))  # the host factorisation too
         z = pc.apply_flat(r)
-        zw = pc.launch(r)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        plan, peak_plan = ilu.partri_plan(mesh.node_shape, sys.nfields), ilu.partri_peak(mesh.node_shape, sys.nfields)
+        check(peak <= peak_plan, f"partri ILU {element} N={n} {kind}: the build's peak within partri_peak")
+        maps = nbytes(pc)
+        wave = ilu.StructuredILU0(sys, dev)
+        zw = wave.launch(r)
         torch.cuda.synchronize()
         err = rel(z, zw)
         check(err <= 1e-12, f"partri ILU {element} N={n} {kind} vs structured_ilu_apply")
         ms = time_ms(lambda: pc.apply_flat(r), repeats=20)
-        wave_ms = time_ms(lambda: pc.launch(r), repeats=20)
+        wave_ms = time_ms(lambda: wave.launch(r), repeats=20)
         nbytes_apply = maps + 2 * 8 * pc.nrows
         pbound = bound(nbytes_apply, maps / 4)  # every stored map entry: one multiply and one add
-        wbound = bound(ilu_bytes(pc) + 2 * 8 * pc.nrows, ilu_apply_flops(pc))
+        wbound = bound(ilu_bytes(wave) + 2 * 8 * pc.nrows, ilu_apply_flops(wave))
         print(f"partri ILU {element} N={n} {kind}: {pc.nrows} rows, max rel diff vs structured_ilu_apply {err:.3e} "
               f"(bound 1e-12); apply {ms:.4f} ms, structured_ilu_apply {wave_ms:.4f} ms (CUDA events, median of 20); "
-              f"maps {maps} B read an apply (plan {plan} B), bound {pbound[0]:.4f} ms ({pbound[1]}, "
+              f"maps {maps} B read an apply (partri_plan {plan} B), bound {pbound[0]:.4f} ms ({pbound[1]}, "
               f"{nbytes_apply / (ms * 1e-3) / 1e12:.3f} TB/s of them), the wavefront's bound {wbound[0]:.4f} ms; "
-              f"build {build_ms:.1f} ms (the host factorisation included), peak {peak} B of device memory on {smi}")
-        del pc, z, zw
+              f"build {build_ms:.1f} ms (the host factorisation included), peak {peak} B of device memory with "
+              f"one apply (partri_peak {peak_plan} B) on {smi}")
+        del pc, wave, z, zw
     for element, n in PARTRI_GS_CASES:
         W, params, _, _, _ = problem(element, n, dev)
-        swp = ilu.GaussSeidelSweeper.for_monolithic(W.mesh, params, dev, "partri")
+        swp = ilu.PartriGS.for_monolithic(W.mesh, params, dev)
+        wave = ilu.GaussSeidelSweeper.for_monolithic(W.mesh, params, dev)
         x, bb = randn(swp.nrows), randn(swp.nrows)
-        z, zw = swp.sweep(x, bb), swp.launch(x, bb)
+        z, zw = swp.sweep(x, bb), wave.launch(x, bb)
         torch.cuda.synchronize()
         err = rel(z, zw)
         check(err <= 1e-12, f"partri GS {element} N={n} vs structured_ilu_apply[gs]")
         ms = time_ms(lambda: swp.sweep(x, bb), repeats=20)
-        wave_ms = time_ms(lambda: swp.launch(x, bb), repeats=20)
+        wave_ms = time_ms(lambda: wave.launch(x, bb), repeats=20)
         print(f"partri GS {element} N={n}: {swp.nrows} rows, max rel diff vs structured_ilu_apply[gs] {err:.3e} "
               f"(bound 1e-12); sweep {ms:.4f} ms, structured_ilu_apply[gs] {wave_ms:.4f} ms (CUDA events, median of "
-              f"20); maps {nbytes(swp.partri)} B on {smi}")
+              f"20); maps {nbytes(swp)} B on {smi}")
     torch.cuda.synchronize()
     print(f"[{time.perf_counter() - t_start:.1f} s] partri checked against the wavefront kernels")
 
-    # the path, counted: the host GMRES loop with the ILU left open (partri
-    # on the card) and the lexicographic Picard with the option left open
+    # the path, counted: the host GMRES loop and the lexicographic Picard
+    # with trisolve_backend=partri
     gsetups = {n: problem("quad", n, dev) for n in PARTRI_GMRES_COUNTS}
     psetups = [problem(e, n, dev) for e, n in PARTRI_PICARD_CASES]
-    flat = dict(_freeze(sp.GMRES_ILU_PARAMS))
-    kw = {k: sp.GMRES_ILU_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    flat = dict(_freeze(PRESETS["GMRES_ILU_PARTRI"]))
+    kw = {k: PRESETS["GMRES_ILU_PARTRI"][f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
     torch.cuda.synchronize()
     _cuda.KERNEL_LAUNCHES.clear()
     for n, count in PARTRI_GMRES_COUNTS.items():
@@ -823,7 +828,7 @@ def partri_path(dev, smi, randn, t_start):
         pc = _monolithic_pc(op, flat)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        check(pc.__self__.trisolve_backend == "partri", f"2D N={n}: the open option takes partri on the card")
+        check(pc.__self__.trisolve_backend == "partri", f"2D N={n}: trisolve_backend=partri builds partri")
         before = dict(_cuda.KERNEL_LAUNCHES)
         t0 = time.perf_counter()
         res = gmres(op.stacked_matvec(), r, M_inv=pc, restart=int(flat.get("ksp_gmres_restart", 30)), **kw)
@@ -838,26 +843,44 @@ def partri_path(dev, smi, randn, t_start):
               f"2D N={n}: K1 is the matvec, the ILU runs no wavefront kernel")
         check(bool(torch.isfinite(res.x).all()), "finite solution")
         del pc
+    picard = []
     for (element, n), (W, params, bcs, _, _) in zip(PARTRI_PICARD_CASES, psetups):
         before = dict(_cuda.KERNEL_LAUNCHES)
         t0 = time.perf_counter()
-        sol = solve_dpp_nonlinear(W, params, bcs, solver_parameters=PRESETS["PICARD_LU_SOLVER_PARAMS"])
+        sol = solve_dpp_nonlinear(W, params, bcs, solver_parameters=PRESETS["PICARD_LU_PARTRI"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         used = {k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)}
-        wave = solve_dpp_nonlinear(W, params, bcs, solver_parameters=PRESETS["PICARD_LU_WAVEFRONT"])
+        check("structured_ilu_apply[gs]" not in used and used.get("fused_dpp_apply", 0) > 0,
+              f"{element} N={n}: trisolve_backend=partri sweeps with partri, K1 residuals")
+        check(bool(all(torch.isfinite(d).all() for d in sol.solution.data)), "finite solution")
+        picard.append((sol, used, wall))
+    torch.cuda.synchronize()
+    phase = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"partri path kernel launches (the counted run): {phase}")
+    check(phase.get("fused_dpp_apply", 0) > 0, "fused_dpp_apply launched on the partri path")
+    check(not {"structured_ilu_apply", "structured_ilu_apply[gs]"} & set(phase),
+          "the partri path launches no wavefront kernel")
+
+    # after the count: the option left open (the wavefront on the card) and the CPU's partri
+    for (element, n), (W, params, bcs, _, _), (sol, used, wall) in zip(PARTRI_PICARD_CASES, psetups, picard):
+        check(_trisolve_backend("", W.mesh.node_shape, 2, W.device) == "wavefront",
+              f"{element} N={n}: left open, the card takes the wavefront")
+        before = dict(_cuda.KERNEL_LAUNCHES)
+        wave = solve_dpp_nonlinear(W, params, bcs, solver_parameters=PRESETS["PICARD_LU_SOLVER_PARAMS"])
+        torch.cuda.synchronize()
+        wave_used = {k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)}
         Wc, pc_, bcc, _, _ = problem(element, n, "cpu")
         ref = solve_dpp_nonlinear(Wc, pc_, bcc, solver_parameters=PRESETS["PICARD_LU_SOLVER_PARAMS"])
         cpu_diff = max(rel(a.cpu(), b) for a, b in zip(sol.solution.data, ref.solution.data))
-        print(f"solve_dpp_nonlinear {element} N={n} PICARD_LU_SOLVER_PARAMS, trisolve_backend open (partri): "
-              f"iterations {sol.iteration_number}, wavefront {wave.iteration_number}, the CPU's partri "
-              f"{ref.iteration_number} (fields within {cpu_diff:.3e}); launches {used}, wall {wall * 1e3:.1f} ms")
-        check("structured_ilu_apply[gs]" not in used, f"{element} N={n}: the open option sweeps with partri")
-        check(sol.iteration_number == ref.iteration_number and cpu_diff < 1e-8, f"{element} N={n} partri vs CPU")
-        check(bool(all(torch.isfinite(d).all() for d in sol.solution.data)), "finite solution")
-    phase = dict(_cuda.KERNEL_LAUNCHES)
-    print(f"partri path kernel launches, all cases: {phase}")
-    check(phase.get("fused_dpp_apply", 0) > 0, "fused_dpp_apply launched on the partri path")
+        print(f"solve_dpp_nonlinear {element} N={n} PICARD_LU_SOLVER_PARAMS, trisolve_backend=partri: iterations "
+              f"{sol.iteration_number}, launches {used}, wall {wall * 1e3:.1f} ms (host clock); left open (the "
+              f"wavefront) {wave.iteration_number}, launches {wave_used}; the CPU's partri {ref.iteration_number} "
+              f"(fields within {cpu_diff:.3e}) on {smi}")
+        check(wave_used.get("structured_ilu_apply[gs]") == wave.iteration_number,
+              f"{element} N={n}: left open, one GS-mode launch an iteration")
+        check(sol.iteration_number == wave.iteration_number == ref.iteration_number and cpu_diff < 1e-8,
+              f"{element} N={n} partri vs the wavefront and the CPU")
     torch.cuda.synchronize()
     print(f"[{time.perf_counter() - t_start:.1f} s] partri path done")
     return phase

@@ -35,10 +35,11 @@ The sweepers of the SNES ``ngs`` Picard solve live here too:
 The same applies and sweeps also run as parallel-prefix trisolves
 (:class:`PartriILU`, :class:`PartriGS`, per field a :class:`DirTriSolve`
 over ``ops/partri.py``), the JAX package's default backend: torch ops on
-either device, the same functions with other bits. Which one a class runs
-is its ``trisolve_backend`` (``wavefront`` by default; the solvers pass
-their option, ``solvers/solver.py``). :func:`partri_plan` gives the bytes
-of its maps.
+either device, the same functions with other bits, built and called like
+the wavefront classes. :data:`ILU_BACKENDS` and :data:`GS_BACKENDS` map
+each ``trisolve_backend`` to its class (the solvers pick by their option,
+``solvers/solver.py``). :func:`partri_plan` gives the bytes of the maps,
+:func:`partri_peak` those of a build at its peak.
 
 Not ported: the double-float defect-corrected apply (a TPU workaround for
 emulated f64).
@@ -337,7 +338,7 @@ def _pack_by_level(by_level: np.ndarray, offs: Sequence[int], ptr: np.ndarray) -
 #: the host budget of the partri maps: the JAX package's cap
 #: (``perphil_tpu/ops/ilu.py::_PARTRI_MAX_BYTES``), kept on the CPU so that
 #: both packages take the same route there; on the card the budget is its
-#: free memory (``solvers/solver.py``)
+#: free memory, against :func:`partri_peak` (``solvers/solver.py``)
 CPU_PARTRI_MAX_BYTES = 6 * 1024**3
 
 
@@ -354,6 +355,23 @@ def partri_plan(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8) ->
         nz, ny, nx = node_shape
         per = 2 * nz * (ny * nx) ** 2 * itemsize
     return 2 * nfields * per
+
+
+def partri_peak(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8) -> int:
+    """Bytes of device memory a :class:`PartriILU` (or :class:`PartriGS`)
+    build and its applies hold at their peak: the maps (:func:`partri_plan`)
+    plus the workspace of the directional solve built last, while the
+    others' maps are kept. That solve holds its dense couplings, their row
+    solves, the first tree level's products and copies next to its growing
+    maps: measured 3.1-3.7 map sets (one map a row) in 2D and 4.9-5.7 (one
+    map a plane) in 3D, on the CPU at 2D N=32/33 and tet nx=8/9 and on an
+    H100 at 2D N=128/256 and tet nx=16; counted as 5 and 7, a set of
+    margin. Add 64 values a row for the entry grids, the row scans and an
+    apply's vectors."""
+    n = int(np.prod(node_shape))
+    per_set = partri_plan(node_shape, 1, itemsize) // 4
+    return partri_plan(node_shape, nfields, itemsize) + (5 if len(node_shape) == 2 else 7) * per_set \
+        + 64 * nfields * n * itemsize
 
 
 def _grid_entries(sys: StructuredSystem, values: np.ndarray, f: int, bd: int, device: torch.device):
@@ -452,13 +470,19 @@ class PartriILU(nn.Module):
     For the monolithic two-field system the lower factor visits every field-0
     row before the field-1 rows, so L^{-1} is field 0's grid solve, then
     field 1's with the cross-block contribution subtracted; U^{-1} mirrors it
-    bottom-up. ``factors``: the (nrows, noffs) ILU(0) factor."""
+    bottom-up. ``factors``: the (nrows, noffs) ILU(0) factor.
+
+    The partri backend (:data:`ILU_BACKENDS`): torch ops on either device,
+    built and applied like :class:`StructuredILU0`."""
+
+    trisolve_backend = "partri"
 
     def __init__(self, sys: StructuredSystem, factors: np.ndarray, device: DeviceLike = None):
         super().__init__()
-        dev = resolve_device(device)
+        self.device = dev = resolve_device(device)
         d = sys.mesh.dim
         self.nfields, self.shape, self.n = sys.nfields, tuple(sys.mesh.node_shape), sys.n_nodes
+        self.nrows = sys.nrows
         lower, upper = [], []
         for f in range(sys.nfields):
             diag, low, upp = _split_entries(sys, factors, f, dev)
@@ -469,7 +493,23 @@ class PartriILU(nn.Module):
             self.cross_lower = _Stencil(_grid_entries(sys, factors, 1, -1, dev))  # field-1 rows
             self.cross_upper = _Stencil(_grid_entries(sys, factors, 0, +1, dev))  # field-0 rows
 
+    @classmethod
+    def for_system(cls, sys: StructuredSystem, device: DeviceLike = None):
+        """Factored here (the host ILU(0) of :class:`StructuredILU0`)."""
+        return cls(sys, ilu0_factorize(sys), device)
+
+    @classmethod
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
+        return cls.for_system(build_monolithic_system(mesh, params), device)
+
+    @classmethod
+    def for_field(cls, fop):
+        """Of a ``FieldOperator`` block, on its space's device."""
+        return cls.for_system(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device)
+
     def apply_flat(self, r: torch.Tensor) -> torch.Tensor:
+        """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor on the build's device."""
+        _check_device(r, self.device)
         n = self.n
         if self.nfields == 1:
             return self.upper_solve[0](self.lower_solve[0](r.reshape(self.shape))).reshape(r.shape)
@@ -479,17 +519,34 @@ class PartriILU(nn.Module):
         z1 = self.upper_solve[0](y1 - self.cross_upper(z2))
         return torch.cat([z1.reshape(-1), z2.reshape(-1)])
 
+    def apply_grid(self, r: torch.Tensor) -> torch.Tensor:
+        """Grid (or stacked grids) in, the same shape out."""
+        return self.apply_flat(r.reshape(-1)).reshape(r.shape)
+
+    forward = apply_grid
+
+
+def _check_device(t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"tensor on {t.device}, solve built for {device}")
+
 
 class PartriGS(nn.Module):
     """One forward pointwise Gauss-Seidel sweep by parallel-prefix solves:
     ``x_new = (D + L)^{-1} (b - U x_old)`` in lexicographic field-major order
-    (the wavefront sweep's algebra). ``values``: the (nrows, noffs) matrix."""
+    (the wavefront sweep's algebra). ``values``: the (nrows, noffs) matrix.
+
+    The partri backend (:data:`GS_BACKENDS`), built and swept like
+    :class:`GaussSeidelSweeper`."""
+
+    trisolve_backend = "partri"
 
     def __init__(self, sys: StructuredSystem, values: np.ndarray, device: DeviceLike = None):
         super().__init__()
-        dev = resolve_device(device)
+        self.device = dev = resolve_device(device)
         d = sys.mesh.dim
         self.nfields, self.shape, self.n = sys.nfields, tuple(sys.mesh.node_shape), sys.n_nodes
+        self.nrows = sys.nrows
         ld, upper = [], []
         for f in range(sys.nfields):
             diag, low, upp = _split_entries(sys, values, f, dev)
@@ -500,7 +557,18 @@ class PartriGS(nn.Module):
             self.cross_lower = _Stencil(_grid_entries(sys, values, 1, -1, dev))
             self.cross_upper = _Stencil(_grid_entries(sys, values, 0, +1, dev))
 
-    def sweep_flat(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    @classmethod
+    def for_system(cls, sys: StructuredSystem, device: DeviceLike = None):
+        return cls(sys, sys.vals, device)
+
+    @classmethod
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
+        return cls.for_system(build_monolithic_system(mesh, params), device)
+
+    def sweep(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """One forward sweep from ``x`` on flat f64 tensors on the build's device."""
+        _check_device(x, self.device)
+        _check_device(b, self.device)
         n, shape = self.n, self.shape
         if self.nfields == 1:
             c = b.reshape(shape) - self.upper_entries[0](x.reshape(shape))
@@ -603,22 +671,11 @@ class _LevelSchedule(nn.Module):
         return self.device.type == "cuda"
 
 
-TRISOLVE_BACKENDS = ("partri", "wavefront")
-
-
-def _check_backend(trisolve_backend: str) -> None:
-    if trisolve_backend not in TRISOLVE_BACKENDS:
-        raise ValueError(f"trisolve_backend {trisolve_backend!r}: one of {TRISOLVE_BACKENDS}")
-
-
 class StructuredILU0(_LevelSchedule):
     """ILU(0) application ``z = U^{-1} L^{-1} r`` in native f64.
 
-    ``trisolve_backend``: ``wavefront`` (the level sweeps: the kernel on a
-    CUDA tensor, the plain sweep on a CPU one) or ``partri`` (submodule
-    ``partri``, a :class:`PartriILU`: the parallel-prefix trisolves in torch
-    ops on either device). The wavefront buffers are built either way (the
-    fused GMRES kernels K7/K8 read them).
+    The wavefront backend (:data:`ILU_BACKENDS`): the kernel on a CUDA
+    tensor, the plain sweep on a CPU one.
 
     Buffers: ``factors`` (noffs, nrows), the f64 factor by offset (the plain
     sweep's); ``packed_lower`` and ``packed_upper``, the same entries packed
@@ -628,12 +685,12 @@ class StructuredILU0(_LevelSchedule):
     table: ``[nlow, nup, center, low_t[40], up_t[40], delta[noffs]]``.
     """
 
-    def __init__(self, sys: StructuredSystem, device: DeviceLike = None, trisolve_backend: str = "wavefront"):
+    trisolve_backend = "wavefront"
+
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
         super().__init__(sys, device)
-        _check_backend(trisolve_backend)
         fac = ilu0_factorize(sys)
         dev = self.device
-        self.partri = PartriILU(sys, fac, dev) if trisolve_backend == "partri" else None
         self.register_buffer("factors", torch.tensor(np.ascontiguousarray(fac.T), device=dev))
         # each side packed by level for the kernels (upper: then the diagonal)
         by_level = fac.T[:, self._rows]
@@ -641,20 +698,14 @@ class StructuredILU0(_LevelSchedule):
             self.register_buffer(name, torch.tensor(_pack_by_level(by_level, offs, self._ptr), device=dev))
         self._plan: Optional[Tuple[list, list]] = None
 
-    @property
-    def trisolve_backend(self) -> str:
-        return "wavefront" if self.partri is None else "partri"
+    @classmethod
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
+        return cls(build_monolithic_system(mesh, params), device)
 
     @classmethod
-    def for_monolithic(
-        cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None, trisolve_backend: str = "wavefront"
-    ):
-        return cls(build_monolithic_system(mesh, params), device, trisolve_backend)
-
-    @classmethod
-    def for_field(cls, fop, trisolve_backend: str = "wavefront"):
+    def for_field(cls, fop):
         """Of a ``FieldOperator`` block, on its space's device."""
-        return cls(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device, trisolve_backend)
+        return cls(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device)
 
     def _level_plan(self) -> Tuple[list, list]:
         """Per level, the plain sweeps' gather tables: (rows, cols, factor
@@ -694,13 +745,9 @@ class StructuredILU0(_LevelSchedule):
         return z
 
     def apply_flat(self, r: torch.Tensor) -> torch.Tensor:
-        """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor: the partri
-        trisolves where built; else the kernel on a CUDA tensor, the plain
-        sweep on a CPU one."""
-        on_card = self._on_device(r)
-        if self.partri is not None:
-            return self.partri.apply_flat(r)
-        return self.launch(r) if on_card else self.plain(r)
+        """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor: the kernel on a
+        CUDA tensor, the plain sweep on a CPU one."""
+        return self.launch(r) if self._on_device(r) else self.plain(r)
 
     def apply_grid(self, r: torch.Tensor) -> torch.Tensor:
         """Grid (or stacked grids) in, the same shape out."""
@@ -716,9 +763,7 @@ class GaussSeidelSweeper(_LevelSchedule):
     ``GaussSeidelSweeper`` on its wavefront path). Every dependency of a row
     lies on an earlier level, so the level schedule sweeps in row order.
 
-    ``trisolve_backend``: ``wavefront`` (the level sweep) or ``partri``
-    (submodule ``partri``, a :class:`PartriGS`), as for
-    :class:`StructuredILU0`.
+    The wavefront backend (:data:`GS_BACKENDS`).
 
     Buffers: ``vals`` (noffs, nrows), the matrix by offset (the plain
     sweep's); ``packed``, the same entries packed by level for the kernel:
@@ -726,10 +771,10 @@ class GaussSeidelSweeper(_LevelSchedule):
     diagonal.
     """
 
-    def __init__(self, sys: StructuredSystem, device: DeviceLike = None, trisolve_backend: str = "wavefront"):
+    trisolve_backend = "wavefront"
+
+    def __init__(self, sys: StructuredSystem, device: DeviceLike = None):
         super().__init__(sys, device)
-        _check_backend(trisolve_backend)
-        self.partri = PartriGS(sys, sys.vals, self.device) if trisolve_backend == "partri" else None
         self.offsets = tuple(t for t in range(len(self.deltas)) if t != self.center)
         dev = self.device
         self.register_buffer("vals", torch.tensor(np.ascontiguousarray(sys.vals.T), device=dev))
@@ -737,15 +782,9 @@ class GaussSeidelSweeper(_LevelSchedule):
         self.register_buffer("packed", torch.tensor(packed, device=dev))
         self._plan: Optional[list] = None
 
-    @property
-    def trisolve_backend(self) -> str:
-        return "wavefront" if self.partri is None else "partri"
-
     @classmethod
-    def for_monolithic(
-        cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None, trisolve_backend: str = "wavefront"
-    ):
-        return cls(build_monolithic_system(mesh, params), device, trisolve_backend)
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
+        return cls(build_monolithic_system(mesh, params), device)
 
     def plain(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch twin on flat ``(nrows,)`` f64 tensors (any device):
@@ -774,13 +813,16 @@ class GaussSeidelSweeper(_LevelSchedule):
 
     def sweep(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One forward sweep from ``x``: ``x_i <- (b_i - sum_{j != i} a_ij
-        x_j) / a_ii`` in row order, on flat f64 tensors: the partri solves
-        where built; else the kernel on CUDA tensors, the plain sweep on CPU
-        ones."""
-        on_card = self._on_device(x, b)
-        if self.partri is not None:
-            return self.partri.sweep_flat(x, b)
-        return self.launch(x, b) if on_card else self.plain(x, b)
+        x_j) / a_ii`` in row order, on flat f64 tensors: the kernel on CUDA
+        tensors, the plain sweep on CPU ones."""
+        return self.launch(x, b) if self._on_device(x, b) else self.plain(x, b)
+
+
+#: the ILU apply of each ``trisolve_backend`` (same constructors and apply methods)
+ILU_BACKENDS = {"partri": PartriILU, "wavefront": StructuredILU0}
+#: the lexicographic Gauss-Seidel sweeper of each ``trisolve_backend``
+GS_BACKENDS = {"partri": PartriGS, "wavefront": GaussSeidelSweeper}
+TRISOLVE_BACKENDS = tuple(ILU_BACKENDS)
 
 
 class ColoredNGSSweeper(nn.Module):

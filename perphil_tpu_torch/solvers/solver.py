@@ -56,13 +56,14 @@ fast-diag exact blocks, literal inner Krylov solves, ``StructuredILU0``.
 The RHS lift is K1 in lift mode. Every other option path raises
 ``NotImplementedError`` naming the ROADMAP slice that ports it.
 
-Every ``StructuredILU0`` and ``GaussSeidelSweeper`` built here (the host
-ILU applies, the lexicographic GS) runs on the ``trisolve_backend`` option
-(:func:`_trisolve_backend`): ``partri`` (the parallel-prefix trisolves,
-torch ops), ``wavefront`` (the level sweeps: ``structured_ilu_apply`` and
-its GS mode on the card) or left open, the JAX package's default: partri
-where its maps fit (the card's free memory; on the CPU the JAX package's
-6 GiB), else the wavefront. The fused roles K7/K8 keep their own sweep.
+Every host ILU apply and lexicographic GS sweep built here runs on the
+``trisolve_backend`` option (:func:`_trisolve_backend`): ``wavefront`` (the
+level sweeps: ``structured_ilu_apply`` and its GS mode on the card),
+``partri`` (the parallel-prefix trisolves, torch ops; on the card only when
+its build fits the free memory) or left open: the wavefront on the card,
+where partri was measured slower at every size, and on the CPU the JAX
+package's default, partri where its maps fit its 6 GiB, else the wavefront.
+The fused roles K7/K8 keep their own sweep.
 
 Picard (``solve_dpp_nonlinear``; ``snes_type``, the JAX package's native-f64
 solves), from the BC lift, stopping on ``||F|| <= max(snes_rtol ||F0||,
@@ -72,8 +73,8 @@ snes_atol)`` or ``snes_max_it``:
     kernel's plan                        -> ``fused_ngs`` (one launch)
   - ngs on quad meshes beyond it         -> ``ngs_host_loop`` (K1 residuals)
   - ngs on tri/hex/tet meshes            -> ``GaussSeidelSweeper`` (one
-                                            sweep, partri or
-                                            ``structured_ilu_apply[gs]``,
+                                            sweep, ``structured_ilu_apply[gs]``
+                                            or partri,
                                             and one K1 residual an iteration)
   - block_gs                             -> exact alternating field solves
   - nrichardson                          -> damped Richardson with
@@ -124,10 +125,13 @@ from perphil_tpu_torch.ops.fused_gmres import (
 from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop, picard_loop
 from perphil_tpu_torch.ops.ilu import (
     CPU_PARTRI_MAX_BYTES,
+    GS_BACKENDS,
+    ILU_BACKENDS,
     TRISOLVE_BACKENDS,
     ColoredNGSSweeper,
     GaussSeidelSweeper,
-    StructuredILU0,
+    PartriGS,
+    partri_peak,
     partri_plan,
 )
 from perphil_tpu_torch.ops.krylov import _norm, cg, gmres
@@ -217,7 +221,7 @@ def _exact_field_solver(fop: FieldOperator) -> Callable:
 
 def _field_pc(fop: FieldOperator, pc_type: str, trisolve: str) -> Optional[Callable]:
     """A fieldsplit block's preconditioner: none, jacobi, lu/cholesky or
-    ilu (``StructuredILU0`` on the ``trisolve_backend`` option ``trisolve``,
+    ilu (on the ``trisolve_backend`` option ``trisolve``,
     :func:`_trisolve_backend`)."""
     if pc_type == "none":
         return None
@@ -231,7 +235,7 @@ def _field_pc(fop: FieldOperator, pc_type: str, trisolve: str) -> Optional[Calla
         return _exact_field_solver(fop)
     if pc_type == "ilu":
         backend = _trisolve_backend(trisolve, fop.mesh.node_shape, 1, fop.V.device)
-        return StructuredILU0.for_field(fop, backend).apply_grid
+        return ILU_BACKENDS[backend].for_field(fop).apply_grid
     raise ValueError(f"Unsupported block pc_type: {pc_type!r}")
 
 
@@ -307,7 +311,7 @@ def _monolithic_pc(op: DPPOperator, flat: Dict[str, object]) -> Optional[Callabl
                 "Only ILU(0) is implemented (the only level any reference workload uses)"
             )
         backend = _trisolve_backend(_trisolve_option(flat), op.mesh.node_shape, 2, op.W.device)
-        return StructuredILU0.for_monolithic(op.mesh, op.params, op.W.device, backend).apply_grid
+        return ILU_BACKENDS[backend].for_monolithic(op.mesh, op.params, op.W.device).apply_grid
     if pc_type == "fieldsplit":
         return _fieldsplit_pc(op, flat)
     raise ValueError(f"Unsupported pc_type: {pc_type!r}")
@@ -418,24 +422,32 @@ def _trisolve_option(flat: Dict[str, object]) -> str:
 
 def _trisolve_backend(option: str, node_shape: Tuple[int, ...], nfields: int, device: torch.device) -> str:
     """The trisolve of an ILU apply or a lexicographic GS sweep on
-    ``nfields`` fields: ``option`` when given, else the JAX package's
-    default, partri where its maps (``partri_plan``) fit, else the
-    wavefront. They fit within the card's free memory, or on the CPU within
-    the JAX package's cap (``CPU_PARTRI_MAX_BYTES``), so that both packages
-    route a test alike. Asking for partri where they do not fit raises
-    ``MemoryError``: nothing moves to another backend or device unasked."""
+    ``nfields`` fields: ``option`` when given; left open, the wavefront on
+    the card (partri's apply, issued op by op, was measured 4-20x slower
+    than the wavefront kernel on an H100 at 2D N=128/256 and tet nx=16),
+    and on the CPU
+    the JAX package's default, partri where its maps (``partri_plan``) fit
+    the JAX package's cap (``CPU_PARTRI_MAX_BYTES``), else the wavefront, so
+    that both packages route a test alike. Partri on the card needs its
+    build's peak (``partri_peak``) free. Asking for partri where it does not
+    fit raises ``MemoryError``: nothing moves to another backend or device
+    unasked."""
     if option == "wavefront":
         return option
-    need = partri_plan(tuple(node_shape), nfields)
     free = _free_device_bytes(device)
-    budget = CPU_PARTRI_MAX_BYTES if free is None else free
+    if free is None:
+        need, budget = partri_plan(tuple(node_shape), nfields), CPU_PARTRI_MAX_BYTES
+        what = f"of maps, the host budget is {budget}"
+    elif not option:
+        return "wavefront"
+    else:
+        need, budget = partri_peak(tuple(node_shape), nfields), free
+        what = f"(maps and build workspace), the card has {free} free"
     if need <= budget:
         return "partri"
     if option == "partri":
-        where = "the card has" if free is not None else "the host budget is"
         raise MemoryError(
-            f"the partri trisolves need {need} bytes of maps, {where} {budget}; "
-            "trisolve_backend=wavefront runs them as wavefront sweeps"
+            f"the partri trisolves need {need} bytes {what}; trisolve_backend=wavefront runs them as wavefront sweeps"
         )
     return "wavefront"
 
@@ -602,7 +614,9 @@ def solve_dpp(
     return Solution(Function(W, (z1, z2)), int(its), float(rnorm))
 
 
-def _ngs_sweeper(mesh, params: DPPParameters, device, trisolve: str = "") -> Union[ColoredNGSSweeper, GaussSeidelSweeper]:
+def _ngs_sweeper(
+    mesh, params: DPPParameters, device, trisolve: str = ""
+) -> Union[ColoredNGSSweeper, GaussSeidelSweeper, PartriGS]:
     """The SNES ngs sweep: the pinned-colouring multicolour sweeper on quad
     meshes (the reference's exact Picard counts), the lexicographic
     Gauss-Seidel sweeper elsewhere (on the ``trisolve_backend`` option
@@ -610,7 +624,7 @@ def _ngs_sweeper(mesh, params: DPPParameters, device, trisolve: str = "") -> Uni
     if mesh.element == "quad":
         return ColoredNGSSweeper(mesh, params, device)
     backend = _trisolve_backend(trisolve, mesh.node_shape, 2, device)
-    return GaussSeidelSweeper.for_monolithic(mesh, params, device, backend)
+    return GS_BACKENDS[backend].for_monolithic(mesh, params, device)
 
 
 @lru_cache(maxsize=64)

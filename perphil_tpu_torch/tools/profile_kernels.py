@@ -748,18 +748,19 @@ def time_partri() -> None:
     gen = torch.Generator(device="cpu").manual_seed(0)
     for element, n in (("quad", 128), ("quad", 256), ("tet", 16)):
         W, params, _, _, _ = chip_smoke.problem(element, n, dev)
-        pc = ilu.StructuredILU0(ilu.build_monolithic_system(W.mesh, params), dev, "partri")
+        pc = ilu.PartriILU.for_monolithic(W.mesh, params, dev)
+        wave = ilu.StructuredILU0.for_monolithic(W.mesh, params, dev)
         r = torch.randn(pc.nrows, generator=gen, dtype=torch.float64).to(dev)
         # capture one apply on a side stream after a warm-up, as torch.cuda.graph asks
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(3):
-                pc.partri.apply_flat(r)
+                pc.apply_flat(r)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            z_graph = pc.partri.apply_flat(r)
+            z_graph = pc.apply_flat(r)
         graph.replay()
         z = pc.apply_flat(r)
         torch.cuda.synchronize()
@@ -772,8 +773,8 @@ def time_partri() -> None:
         times = {"issued": [], "graph": []}
         for turn in ("issued", "graph", "graph", "issued"):
             times[turn].append(median_ms((lambda: pc.apply_flat(r)) if turn == "issued" else graph.replay, 20))
-        wave_ms = median_ms(lambda: pc.launch(r), 20)
-        maps = nbytes(pc.partri)
+        wave_ms = median_ms(lambda: wave.launch(r), 20)
+        maps = nbytes(pc)
         bound_ms, _ = chip_smoke.bound(maps + 16 * pc.nrows, maps / 4)
         print(f"partri ILU {element} N={n} monolithic: issued {' / '.join(f'{t:.4f}' for t in times['issued'])} ms, "
               f"CUDA graph {' / '.join(f'{t:.4f}' for t in times['graph'])} ms (in turns; graph result equal to the "
@@ -781,7 +782,7 @@ def time_partri() -> None:
               + (f"{len(kernels)} device kernels an apply, {busy_ms:.4f} ms of kernel time (torch.profiler); "
                  if kernels else "device kernels not measured (the profiler saw none); ")
               + f"maps {maps} B, bound {bound_ms:.4f} ms", flush=True)
-        del graph, pc
+        del graph, pc, wave
 
 
 def main() -> int:

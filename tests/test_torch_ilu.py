@@ -105,10 +105,10 @@ def test_apply_flat_matches_jax(trisolve, element, cells, kind):
     p = state.params
     if kind == "monolithic":
         jref = jilu.StructuredILU0.for_monolithic(JOp(jmixed(jV), JParams(**PARAMS)))
-        got = ilu.StructuredILU0.for_monolithic(state.mesh, p, "cpu", trisolve)
+        got = ilu.ILU_BACKENDS[trisolve].for_monolithic(state.mesh, p, "cpu")
     else:
         jref = jilu.StructuredILU0.for_field(JFieldOp(jV, p.k1, p.beta, p.mu))
-        got = ilu.StructuredILU0.for_field(FieldOperator(state.W.sub(0), p.k1, p.beta, p.mu), trisolve)
+        got = ilu.ILU_BACKENDS[trisolve].for_field(FieldOperator(state.W.sub(0), p.k1, p.beta, p.mu))
     assert (jref.partri is not None) == (trisolve == "partri") == (got.trisolve_backend == "partri")
     r = np.random.default_rng(7).standard_normal(got.nrows)
     ref = np.asarray(jref.apply_flat(jnp.asarray(r)))

@@ -50,7 +50,7 @@ from perphil_tpu_torch.ops.fused_ngs import (
     ngs_host_loop,
     owner_lists,
 )
-from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper, GaussSeidelSweeper
+from perphil_tpu_torch.ops.ilu import GS_BACKENDS, ColoredNGSSweeper, GaussSeidelSweeper
 from perphil_tpu_torch.ops.ordering import colored_ngs_sweeps, ngs_parity_coloring
 from perphil_tpu_torch.solvers import solve_dpp_nonlinear
 from perphil_tpu_torch.solvers.solver import _build_nonlinear_solver, _freeze
@@ -173,7 +173,7 @@ def test_gauss_seidel_sweep_matches_jax(trisolve, element, cells):
     jswp = jilu.GaussSeidelSweeper.for_monolithic(jmesh.StructuredMesh(cells=cells, element=element), JParams(**params))
     assert (jswp.partri is not None) == (trisolve == "partri")
     mesh = StructuredMesh(cells=cells, element=element)
-    swp = GaussSeidelSweeper.for_monolithic(mesh, DPPParameters(**params), "cpu", trisolve)
+    swp = GS_BACKENDS[trisolve].for_monolithic(mesh, DPPParameters(**params), "cpu")
     n = 2 * mesh.num_vertices
     x, b = rng.standard_normal(n), rng.standard_normal(n)
     ref = np.asarray(jswp.sweep(jnp.asarray(x), jnp.asarray(b)))

@@ -18,6 +18,7 @@ The JAX package's solver caches do not key on the environment it reads,
 hence the ``cache_clear``.
 """
 
+import json
 from functools import lru_cache
 
 import jax.numpy as jnp
@@ -215,8 +216,8 @@ def test_partri_ilu_matches_jax_and_wavefront(jax_f64_ilu, element, cells, kind)
     jsys, sys = _systems(element, cells, kind)
     jref = jilu.StructuredILU0._from_system(jsys)
     assert jref.partri is not None  # the JAX package's default backend
-    got = ilu.StructuredILU0(sys, "cpu", "partri")
-    wave = ilu.StructuredILU0(sys, "cpu", "wavefront")
+    got = ilu.PartriILU.for_system(sys, "cpu")
+    wave = ilu.StructuredILU0(sys, "cpu")
     assert (got.trisolve_backend, wave.trisolve_backend) == ("partri", "wavefront")
     r = np.random.default_rng(11).standard_normal(sys.nrows)
     z = got.apply_flat(torch.tensor(r)).numpy()
@@ -237,8 +238,9 @@ def test_partri_gs_matches_jax_and_wavefront(monkeypatch, element, cells, kind):
         jsweep = jswp.sweep
     else:
         jsweep = jilu.build_partri_gs(jsys, jsys.vals, jnp.float64).sweep_flat
-    got = ilu.GaussSeidelSweeper(sys, "cpu", "partri")
-    wave = ilu.GaussSeidelSweeper(sys, "cpu", "wavefront")
+    got = ilu.PartriGS.for_system(sys, "cpu")
+    wave = ilu.GaussSeidelSweeper(sys, "cpu")
+    assert (got.trisolve_backend, wave.trisolve_backend) == ("partri", "wavefront")
     x, b = np.random.default_rng(12).standard_normal((2, sys.nrows))
     z = got.sweep(torch.tensor(x), torch.tensor(b)).numpy()
     assert _rel(z, np.asarray(jsweep(jnp.asarray(x), jnp.asarray(b)))) <= TOL
@@ -248,11 +250,12 @@ def test_partri_gs_matches_jax_and_wavefront(monkeypatch, element, cells, kind):
 def test_partri_rejects_what_it_does_not_take():
     _, sys = _systems("quad", (4, 4), "monolithic")
     with pytest.raises(ValueError, match="trisolve_backend"):
-        ilu.StructuredILU0(sys, "cpu", "scan")
-    pc = ilu.StructuredILU0(sys, "cpu", "partri")
+        solver._trisolve_option({"trisolve_backend": "scan"})
+    assert ilu.TRISOLVE_BACKENDS == tuple(ilu.GS_BACKENDS) == ("partri", "wavefront")
+    pc = ilu.PartriILU.for_system(sys, "cpu")
     with pytest.raises(ValueError, match="built for"):
         pc.apply_flat(torch.zeros(pc.nrows, device="meta"))
-    swp = ilu.GaussSeidelSweeper(sys, "cpu", "partri")
+    swp = ilu.PartriGS.for_system(sys, "cpu")
     with pytest.raises(ValueError, match="built for"):
         swp.sweep(torch.zeros(swp.nrows, device="meta"), torch.zeros(swp.nrows, device="meta"))
 
@@ -381,24 +384,77 @@ def test_partri_plan_table(monkeypatch, shape, nfields, nbytes):
 
 
 FREE = 8 * 2**30  # a fixed free-memory figure: 8 GiB
+CARD = torch.device("cuda")  # only its type is read: the free memory is stubbed
 ROUTES = [  # 2D N, option, backend (None: MemoryError)
-    (256, "", "partri"), (256, "partri", "partri"), (256, "wavefront", "wavefront"),
+    (256, "", "wavefront"), (256, "partri", "partri"), (256, "wavefront", "wavefront"),
     (512, "", "wavefront"), (512, "partri", None), (512, "wavefront", "wavefront"),
 ]
 
 
 @pytest.mark.parametrize("N,option,backend", ROUTES, ids=[f"{n}-{o or 'open'}" for n, o, _ in ROUTES])
 def test_routes_under_a_fixed_free_memory(monkeypatch, N, option, backend):
-    """The gate is the card's free memory (stubbed), not the JAX package's
-    6 GiB: 2D N=256's maps (1.09 GB) fit in 8 GiB, N=512's (8.64 GB) do
-    not; asking for partri there raises, naming the bytes and the way out."""
+    """On the card the open option takes the wavefront (partri measured
+    slower); asked for, partri is gated by the card's free memory (stubbed),
+    not the JAX package's 6 GiB: 2D N=256's build peak (1.83 GB) fits in 8
+    GiB, N=512's (14.3 GB) does not; asking for partri there raises, naming
+    the bytes and the way out."""
     monkeypatch.setattr(solver, "_free_device_bytes", lambda device: FREE)
     shape = (N + 1, N + 1)
     if backend is None:
-        with pytest.raises(MemoryError, match=f"need {ilu.partri_plan(shape, 2)} bytes.*trisolve_backend=wavefront"):
-            _trisolve_backend(option, shape, 2, torch.device("cpu"))
+        with pytest.raises(MemoryError, match=f"need {ilu.partri_peak(shape, 2)} bytes.*trisolve_backend=wavefront"):
+            _trisolve_backend(option, shape, 2, CARD)
     else:
-        assert _trisolve_backend(option, shape, 2, torch.device("cpu")) == backend
+        assert _trisolve_backend(option, shape, 2, CARD) == backend
+
+
+# worked by hand: the maps plus 5 (2D) or 7 (3D) map sets of one directional
+# solve, plus 64 values a row
+PEAK_TABLE = [
+    ((257, 257), 2, 4 * 2 * 257**3 * 8 + 5 * 257**3 * 8 + 64 * 2 * 257**2 * 8),  # 1,832,991,848 B
+    ((513, 513), 2, 4 * 2 * 513**3 * 8 + 5 * 513**3 * 8 + 64 * 2 * 513**2 * 8),  # 14,310,077,544 B
+    ((41, 41, 41), 2, 4 * 2 * 41**5 * 8 + 7 * 41**5 * 8 + 64 * 2 * 41**3 * 8),  # 13,973,319,224 B
+]
+
+
+@pytest.mark.parametrize("shape,nfields,nbytes", PEAK_TABLE, ids=["2d256", "2d512", "3d40"])
+def test_partri_peak_table(shape, nfields, nbytes):
+    assert ilu.partri_peak(shape, nfields) == nbytes
+    assert ilu.partri_peak(shape, nfields) > ilu.partri_plan(shape, nfields)
+
+
+@pytest.mark.parametrize("element,cells,kind", [("quad", (16, 16), "monolithic"), ("quad", (16, 16), "field"),
+                                                ("tet", (5, 5, 5), "monolithic")], ids=["2d", "field", "tet"])
+def test_partri_peak_bounds_a_build(tmp_path, element, cells, kind):
+    """A build and an apply on the CPU, their allocations followed by the
+    profiler's memory timeline: the peak above the start lies within
+    ``partri_peak`` and above the maps it keeps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, sys = _systems(element, cells, kind)
+    fac = ilu.ilu0_factorize(sys)
+    r = torch.tensor(np.random.default_rng(3).standard_normal(sys.nrows))
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True, record_shapes=True, with_stack=True) as prof:
+        ilu.PartriILU(sys, fac, "cpu").apply_flat(r)
+    prof.export_memory_timeline(str(tmp_path / "memory.json"), device="cpu")
+    _, sizes = json.loads((tmp_path / "memory.json").read_text())
+    totals = [sum(s) for s in sizes]
+    peak = max(totals) - totals[0]
+    shape = sys.mesh.node_shape
+    assert ilu.partri_plan(shape, sys.nfields) < peak <= ilu.partri_peak(shape, sys.nfields)
+
+
+def test_card_gate_counts_the_build_peak(monkeypatch):
+    """Free memory between the maps (``partri_plan``) and the build's peak
+    (``partri_peak``): asking for partri raises, the open option takes the
+    wavefront; with the peak free, partri is built."""
+    shape = (257, 257)
+    plan, peak = ilu.partri_plan(shape, 2), ilu.partri_peak(shape, 2)
+    monkeypatch.setattr(solver, "_free_device_bytes", lambda device: plan + 1)
+    assert _trisolve_backend("", shape, 2, CARD) == "wavefront"
+    with pytest.raises(MemoryError, match=f"need {peak} bytes.*has {plan + 1} free.*trisolve_backend=wavefront"):
+        _trisolve_backend("partri", shape, 2, CARD)
+    monkeypatch.setattr(solver, "_free_device_bytes", lambda device: peak)
+    assert _trisolve_backend("partri", shape, 2, CARD) == "partri"
 
 
 def test_cpu_budget_and_memory_guard(monkeypatch):
@@ -414,7 +470,7 @@ def test_cpu_budget_and_memory_guard(monkeypatch):
     def no_build(*args, **kwargs):
         raise AssertionError("maps built before the memory check")
 
-    monkeypatch.setattr(ilu, "PartriGS", no_build)
+    monkeypatch.setitem(ilu.GS_BACKENDS, "partri", no_build)
     state = from_numpy_state({"k2": 3.0}, (4, 4), "triangle", *_manufactured("triangle", (4, 4)), device="cpu")
     with pytest.raises(MemoryError, match=f"need {ilu.partri_plan((5, 5), 2)} bytes.*trisolve_backend=wavefront"):
         solve_dpp_nonlinear(state.W, state.params, state.bcs, {**sp.PICARD_LU_SOLVER_PARAMS, "trisolve_backend": "partri"})
