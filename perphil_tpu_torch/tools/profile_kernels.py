@@ -52,8 +52,20 @@ clocks (``PERPHIL_NGS_PROFILE``) and prints, for the Picard solve
 (``PICARD_LU_SOLVER_PARAMS``) at 2D N=16/64/128, the kernel's time with the
 clocks (CUDA events, median of 3; its result first held to the package's
 kernel bit for bit) and thread 0 of block 0's cycles an iteration in each
-phase: a colour's rows, the cluster barrier after them, the norm's residual
-rows and the norm's tree.
+phase: a colour's own rows, the halo (block barrier, arrivals, the wait for
+the neighbours), the norm's residual rows, the cluster barrier that
+publishes them to the tree and the tree.
+``--only ngs`` times ``fused_ngs`` in turns with the first port's kernel
+(``csrc/profile/fused_ngs_cluster.cu``, built alone, with its own host
+tables: older, this, this, older; CUDA events, median of 3) at 2D
+N=64/128/255 (255 capped at 2000 iterations), both held to each other bit
+for bit; the empty phase (the same launch with extra colours that hold no
+rows: a halo exchange alone) and the latency floor it gives; and every
+block count the launcher places at 2D N=32/64/128/255, in turns.
+``--only ngs-variants`` times it in turns with copies built with one
+choice made otherwise (cluster-scope ordering on the halo's mbarriers; a
+reciprocal's product for the divide, which does not keep the bits) and
+with its colour runs sorted by offset instead of dealt by bank.
 
 ``--only band`` times ``band_trisolve`` (``csrc/band_trisolve.cu``) alone
 with the package's library, per factor (L11, L22, U11, U22) of the
@@ -115,7 +127,7 @@ def build() -> ctypes.CDLL:
     out = _cuda.BUILD_DIR / "profile"
     out.mkdir(parents=True, exist_ok=True)
     lib = out / "libperphil_profile.so"
-    sources = sorted((_cuda.CSRC / "profile").glob("*.cu"))
+    sources = sorted(s for s in (_cuda.CSRC / "profile").glob("*.cu") if s.name != "fused_ngs_cluster.cu")
     procs = [
         subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-c", "-I", str(_cuda.CSRC), "-o", str(out / f"{s.stem}.o"), str(s)],
@@ -476,29 +488,38 @@ def ngs_phase_library() -> ctypes.CDLL:
 
 
 # the phases of the NGS kernel's clocks (fused_ngs.cu NgsPhase), in slot order
-NGS_PHASES = ["colour rows", "colour barrier", "norm residual", "norm tree"]
+NGS_PHASES = ["own rows", "halo send + wait", "norm rows", "squares to the tree", "tree"]
+
+
+def ngs_case(n: int, max_it: Optional[int] = None):
+    """(solver, b, x0, operator) of the Picard solve (``PICARD_LU_SOLVER_PARAMS``) at
+    2D N=n on the card, ``max_it`` iterations at most where given."""
+    import chip_smoke
+    from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver
+
+    W, params, bcs, _, _ = chip_smoke.problem("quad", n, torch.device("cuda", torch.cuda.current_device()))
+    op = DPPOperator(W, params)
+    b, x0 = chip_smoke.picard_inputs(op, bcs)
+    picard = sp.PICARD_LU_SOLVER_PARAMS
+    solver = FusedNGSSolver(op, rtol=picard["snes_rtol"], atol=picard["snes_atol"],
+                            max_it=picard["snes_max_it"] if max_it is None else max_it)
+    return solver, b, x0, op
 
 
 def profile_ngs() -> None:
     """Cycles of thread 0 of block 0 an iteration in each phase of
     ``fused_ngs``, at 2D N=16/64/128."""
-    import chip_smoke
-    from perphil_tpu_torch.ops.fused_ngs import RESULT_SLOTS, FusedNGSSolver
+    from perphil_tpu_torch.ops.fused_ngs import RESULT_SLOTS
 
-    dev = torch.device("cuda", torch.cuda.current_device())
     dll = ngs_phase_library()
     stream = torch.cuda.current_stream().cuda_stream
     counters = np.zeros(len(NGS_PHASES), np.uint64)
-    picard = sp.PICARD_LU_SOLVER_PARAMS
     for n in (16, 64, 128):
-        W, params, bcs, _, _ = chip_smoke.problem("quad", n, dev)
-        op = DPPOperator(W, params)
-        b, x0 = chip_smoke.picard_inputs(op, bcs)
-        solver = FusedNGSSolver(op, rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
+        solver, b, x0, _ = ngs_case(n)
         ref = solver.launch(b, x0)
         x = torch.empty_like(b)
-        result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=dev)
-        args, _scratch = solver.launch_args(b, x0, x, result)
+        result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
+        args = solver.launch_args(b, x0, x, result)
 
         def run():
             _cuda.check(dll.perphil_fused_ngs(*args, stream), "profile launch")
@@ -516,6 +537,227 @@ def profile_ngs() -> None:
               f"({ms * 1e3 / (its * phases):.3f} us a phase), {cycles.sum():.0f} cycles an iteration "
               f"({cycles.sum() * its / ms / 1e6:.2f} GHz of thread 0's): " + ", ".join(
                   f"{name} {c:.0f} ({c / cycles.sum() * 100:.1f}%)" for name, c in zip(NGS_PHASES, cycles)))
+
+
+def cluster_library() -> ctypes.CDLL:
+    """The first port's NGS kernel (``csrc/profile/fused_ngs_cluster.cu``:
+    the frame's ownership, remote reads, a cluster barrier a colour) built
+    alone."""
+    out = _cuda.BUILD_DIR / "ngs_cluster"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libngs_cluster.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(_cuda.CSRC), "-o", str(lib),
+                    str(_cuda.CSRC / "profile" / "fused_ngs_cluster.cu")], check=True, capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    # b, x0, x, lists, cptr, xchg, result, weights(host), ny, nx, ncolors,
+    # rtol, atol, max_it, blocks, nloc, stream
+    ints, dbl = [ctypes.c_int], [ctypes.c_double]
+    dll.perphil_fused_ngs_cluster.argtypes = [_P] * 8 + ints * 3 + dbl * 2 + ints * 3 + [_P]
+    return dll
+
+
+def cluster_tables(node_shape, colors: np.ndarray, blocks: int, nloc: int):
+    """The first port's colour lists: per block its interior rows' slots
+    sorted by (colour, slot), value e on block ``(e >> 2) mod blocks`` in
+    slot ``((e >> 2) // blocks) * 4 + e mod 4``, and each block's colour
+    bounds."""
+    ny, nx = node_shape
+    ncolors = int(colors.max()) + 1
+    e = np.arange(colors.size)
+    j, i = np.divmod(e % (ny * nx), nx)
+    interior = (j > 0) & (j < ny - 1) & (i > 0) & (i < nx - 1)
+    piece = e >> 2
+    owner, slot = piece % blocks, (piece // blocks) * 4 + (e & 3)
+    lists = np.zeros((blocks, nloc), np.int32)
+    cptr = np.zeros((blocks, ncolors + 1), np.int32)
+    for b in range(blocks):
+        mine = interior & (owner == b)
+        order = np.lexsort((slot[mine], colors[mine]))
+        lists[b, : order.size] = slot[mine][order]
+        cptr[b, 1:] = np.cumsum(np.bincount(colors[mine], minlength=ncolors))
+    return lists, cptr
+
+
+# 2D N=255 runs to this many iterations in --only ngs (its solve is some
+# 15,000), so that the turns stay short
+NGS_CAP_255 = 2000
+
+
+def time_ngs() -> None:
+    """``fused_ngs`` against the first port's kernel, in turns (older, this,
+    this, older; CUDA events, median of 3 each) at 2D N=64/128/255, both
+    held to each other bit for bit; the empty phase (the same launch with
+    as many empty colours again: a halo exchange with no rows) and the
+    latency floor it gives; then each block count the launcher places at
+    2D N=32/64/128/255, in turns."""
+    from perphil_tpu_torch.ops.fused_gmres import _slice_len, launch_geometry
+    from perphil_tpu_torch.ops.fused_ngs import MAX_COLORS, RESULT_SLOTS
+
+    old = cluster_library()
+    lib = _cuda.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    sizes = {64: None, 128: None, 255: NGS_CAP_255}
+    for n, cap in sizes.items():
+        solver, b, x0, _ = ngs_case(n, cap)
+        sw, plan = solver.sweeper, solver.plan
+        ny, nx = solver.node_shape
+        geo = launch_geometry(b.numel())
+        nloc = _slice_len(b.numel(), geo.blocks)
+        lists, cptr = (torch.tensor(t, device=b.device) for t in cluster_tables(solver.node_shape, sw.colors,
+                                                                                 geo.blocks, nloc))
+        x_old, x_new = torch.empty_like(b), torch.empty_like(b)
+        res_old = torch.empty(6, dtype=torch.float64, device=b.device)
+        res_new = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
+        xchg = torch.empty(4096, dtype=torch.float64, device=b.device)
+        old_args = (b.data_ptr(), x0.data_ptr(), x_old.data_ptr(), lists.data_ptr(), cptr.data_ptr(), xchg.data_ptr(),
+                    res_old.data_ptr(), solver.weights.ctypes.data, ny, nx, sw.ncolors, solver.rtol, solver.atol,
+                    solver.max_it, geo.blocks, nloc)
+        new_args = solver.launch_args(b, x0, x_new, res_new)
+        runs = {"older": lambda: _cuda.check(old.perphil_fused_ngs_cluster(*old_args, stream), "older kernel"),
+                "this": lambda: _cuda.check(lib.perphil_fused_ngs(*new_args, stream), "fused_ngs")}
+        times = {"older": [], "this": []}
+        for turn in ("older", "this", "this", "older"):
+            times[turn].append(median_ms(runs[turn], 3))
+        its = int(res_new[0])
+        same = torch.equal(x_old, x_new) and torch.equal(res_old[:3], res_new[:3])
+        phases = its * (sw.ncolors + 1)
+        print(f"fused_ngs quad N={n}" + (f" (capped at {cap} iterations)" if cap else "") + f": {its} iterations, "
+              f"{sw.ncolors} colours; older kernel {geo.blocks} blocks, "
+              f"{' / '.join(f'{t:.3f}' for t in times['older'])} ms; this {plan} "
+              f"{' / '.join(f'{t:.3f}' for t in times['this'])} ms ({statistics.mean(times['this']) * 1e3 / phases:.3f}"
+              f" us a phase, older {statistics.mean(times['older']) * 1e3 / phases:.3f}); x, its, fn and f0 equal: "
+              f"{same}", flush=True)
+        if not same:
+            raise RuntimeError(f"N={n}: the two kernels disagree")
+        # the empty phase: up to as many colours again (the kernel takes 32
+        # at most), with no rows and no pushes
+        c = min(sw.ncolors, MAX_COLORS - sw.ncolors)
+        cptr2 = torch.cat([solver.cptr, solver.cptr[:, -1:].expand(-1, c)], 1).contiguous()
+        sends2 = torch.cat([solver.sends, torch.zeros_like(solver.sends[:, :c])], 1).contiguous()
+        x_empty = torch.empty_like(b)
+        args2 = list(new_args)
+        args2[2], args2[4], args2[5], args2[10] = x_empty.data_ptr(), cptr2.data_ptr(), sends2.data_ptr(), sw.ncolors + c
+        ms = {}
+        for turn in ("this", "empty", "empty", "this"):
+            fn = runs["this"] if turn == "this" else (
+                lambda: _cuda.check(lib.perphil_fused_ngs(*args2, stream), "fused_ngs, empty colours"))
+            ms.setdefault(turn, []).append(median_ms(fn, 3))
+        if not torch.equal(x_empty, x_new):
+            raise RuntimeError(f"N={n}: empty colours changed the solution")
+        empty_us = (statistics.mean(ms["empty"]) - statistics.mean(ms["this"])) * 1e3 / (its * c)
+        print(f"  empty phase at N={n}: {' / '.join(f'{t:.3f}' for t in ms['empty'])} ms with {c} empty colours "
+              f"against {' / '.join(f'{t:.3f}' for t in ms['this'])}: {empty_us:.3f} us an empty phase; latency "
+              f"floor {phases} phases x that = {phases * empty_us / 1e3:.3f} ms", flush=True)
+    # the block-count sweep
+    from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver
+
+    for n in (32, 64, 128, 255):
+        first, b, x0, op = ngs_case(n, NGS_CAP_255 if n == 255 else None)
+        cases = {}
+        for nb in (1, 2, 4, 8, 16):
+            solver = FusedNGSSolver(op, first.sweeper, first.rtol, first.atol, first.max_it, blocks=nb)
+            if solver.plan is not None:
+                cases[nb] = solver
+        times = {nb: [] for nb in cases}
+        results = {}
+        for _ in range(2):
+            for nb, solver in cases.items():
+                times[nb].append(median_ms(lambda: solver.launch(b, x0), 3))
+        for nb, solver in cases.items():
+            results[nb] = solver.launch(b, x0)
+        ref = results[max(cases)]
+        same = all(torch.equal(r.x, ref.x) and r.iterations == ref.iterations for r in results.values())
+        print(f"block count at N={n} ({ref.iterations} iterations): " + ", ".join(
+            f"{nb} blocks {' / '.join(f'{t:.3f}' for t in times[nb])} ms" for nb in cases)
+            + f"; all equal bit for bit: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"N={n}: block counts disagree")
+
+
+# copies of csrc/fused_ngs.cu with one choice made otherwise (--only
+# ngs-variants): (name, replacements, whether the copy keeps the bits)
+_NGS_VARIANTS = [
+    ("cluster-scope halo ordering", [
+        ("mbarrier.arrive.expect_tx.shared::cluster.b64", "mbarrier.arrive.expect_tx.release.cluster.shared::cluster.b64"),
+        ("mbarrier.try_wait.parity.shared::cta.b64", "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64")], True),
+    ("a reciprocal's product for the divide", [
+        ("__ddiv_rn(r, dg[f])", "__dmul_rn(r, rdg[f])"),
+        ("__shared__ double ws[2][18], dg[2];", "__shared__ double ws[2][18], dg[2], rdg[2];"),
+        ("if (tid < 2) dg[tid] = wt.diag[tid];", "if (tid < 2) {\n    dg[tid] = wt.diag[tid];\n    rdg[tid] = 1.0 / dg[tid];\n  }")],
+     False),
+]
+
+
+def ngs_variants() -> None:
+    """``fused_ngs`` against copies of it built with one choice made
+    otherwise (:data:`_NGS_VARIANTS`, one ``nvcc`` each, in parallel) and
+    against its own kernel fed colour runs sorted by offset instead of dealt
+    by bank, in turns (package first, then the copies, then back; CUDA
+    events, median of 3 each) at 2D N=64/128/255 (255 capped at
+    :data:`NGS_CAP_255` iterations). Every copy runs the package's iteration
+    count (``rtol = atol = 0``); those that keep the bits are held to it."""
+    from perphil_tpu_torch.ops.fused_ngs import RESULT_SLOTS, FusedNGSSolver
+
+    out = _cuda.BUILD_DIR / "ngs_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    source = (_cuda.CSRC / "fused_ngs.cu").read_text()
+    procs = []
+    for k, (name, subs, _) in enumerate(_NGS_VARIANTS):
+        text = source
+        for old, new in subs:
+            if old not in text:
+                raise RuntimeError(f"variant {name!r}: {old!r} is not in fused_ngs.cu")
+            text = text.replace(old, new)
+        (out / f"v{k}.cu").write_text(text)
+        procs.append(subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(_cuda.CSRC),
+                                       "-o", str(out / f"v{k}.so"), str(out / f"v{k}.cu")],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for k, ((name, _, _), proc) in enumerate(zip(_NGS_VARIANTS, procs)):
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(log)
+        libs[name] = ctypes.CDLL(str(out / f"v{k}.so"))
+        libs[name].perphil_fused_ngs.argtypes = _cuda._SIGNATURES["perphil_fused_ngs"]
+    keeps = {"package": True, "colour runs sorted by offset": True, **{name: keep for name, _, keep in _NGS_VARIANTS}}
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in (64, 128, 255):
+        first, b, x0, op = ngs_case(n, NGS_CAP_255 if n == 255 else None)
+        ref = first.launch(b, x0)
+        solver = FusedNGSSolver(op, first.sweeper, 0.0, 0.0, ref.iterations)
+        x = torch.empty_like(b)
+        result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
+        args = solver.launch_args(b, x0, x, result)
+        runs = solver.lists.cpu().numpy().view(np.uint16).copy()
+        cptr = solver.cptr.cpu().numpy()
+        for blk in range(runs.shape[0]):
+            for c in range(cptr.shape[1] - 1):
+                runs[blk, cptr[blk, c]:cptr[blk, c + 1]].sort()
+        in_order = torch.tensor(runs.view(np.int16), device=b.device)
+        sorted_args = list(args)
+        sorted_args[3] = in_order.data_ptr()
+        lib = _cuda.library()
+        cases = {"package": lambda: _cuda.check(lib.perphil_fused_ngs(*args, stream), "fused_ngs"),
+                 "colour runs sorted by offset": lambda: _cuda.check(
+                     lib.perphil_fused_ngs(*sorted_args, stream), "fused_ngs, sorted runs")}
+        for name, dll in libs.items():
+            cases[name] = (lambda d=dll, nm=name: _cuda.check(d.perphil_fused_ngs(*args, stream), nm))
+        times = {name: [] for name in cases}
+        equal = {}
+        for order in (list(cases), list(cases)[::-1]):
+            for name in order:
+                times[name].append(median_ms(cases[name], 3))
+                torch.cuda.synchronize()
+                equal[name] = torch.equal(x, ref.x) and int(result[0]) == ref.iterations
+        phases = ref.iterations * (first.sweeper.ncolors + 1)
+        print(f"fused_ngs variants at quad N={n} ({ref.iterations} iterations, {first.plan.blocks} blocks): " + "; ".join(
+            f"{name} {' / '.join(f'{t:.3f}' for t in times[name])} ms "
+            f"({statistics.mean(times[name]) * 1e3 / phases:.3f} us a phase"
+            + (f", bits {'kept' if equal[name] else 'LOST'})" if keeps[name] else ", bits not kept by design)")
+            for name in cases), flush=True)
+        for name in cases:
+            if keeps[name] and not equal[name]:
+                raise RuntimeError(f"N={n}: {name} lost the package's bits")
 
 
 def profile_direct() -> None:
@@ -788,7 +1030,7 @@ def time_partri() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
-                                       "direct-wrapper", "ngs-phases", "band", "partri"],
+                                       "direct-wrapper", "ngs", "ngs-phases", "ngs-variants", "band", "partri"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -817,8 +1059,14 @@ def main() -> int:
     if args.only == "direct-phases":
         profile_direct()
         return 0
+    if args.only == "ngs":
+        time_ngs()
+        return 0
     if args.only == "ngs-phases":
         profile_ngs()
+        return 0
+    if args.only == "ngs-variants":
+        ngs_variants()
         return 0
     if args.only == "band":
         time_band()

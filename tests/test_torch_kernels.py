@@ -575,10 +575,10 @@ def _lifted(element, cells, device, seed=0):
     return op, b, x0
 
 
-@pytest.mark.parametrize("N", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("N", [4, 8, 16, 32, 64, 128])
 def test_fused_ngs_matches_twin(cuda, N):
-    """One launch, every placement from one block to 16 (2 leaves a thread):
-    counts equal to the twin's, x within 1e-12 relative."""
+    """One launch on the launcher's block count (1, 1, 2, 8, 16, 16 blocks):
+    counts equal to the twin's, x and both norms bit for bit."""
     op, b, x0 = _lifted("quad", (N, N), cuda)
     solver = FusedNGSSolver(op, rtol=1e-8, atol=1e-12, max_it=50000)
     before = _cuda.KERNEL_LAUNCHES[NGS_KERNEL]
@@ -587,8 +587,23 @@ def test_fused_ngs_matches_twin(cuda, N):
     assert _cuda.KERNEL_LAUNCHES[NGS_KERNEL] == before + 1
     ref = solver.plain(b, x0)
     assert got.iterations == ref.iterations > 0
-    assert _rel(got.x, ref.x) <= 1e-12
+    assert torch.equal(got.x, ref.x)
+    assert (got.residual_norm, got.initial_norm) == (ref.residual_norm, ref.initial_norm)
     assert got.residual_norm <= max(1e-8 * got.initial_norm, 1e-12)
+
+
+@pytest.mark.parametrize("N,blocks", [(32, 1), (32, 2), (32, 4), (64, 4), (128, 4), (128, 8), (255, 16)])
+def test_fused_ngs_block_counts_match_twin(cuda, N, blocks):
+    """The block counts the launcher's rule does not take, and N=255 (the
+    plan's largest mesh with 255 cells a side): the twin's bits at 20
+    iterations."""
+    op, b, x0 = _lifted("quad", (N, N), cuda)
+    solver = FusedNGSSolver(op, rtol=1e-8, atol=1e-12, max_it=20, blocks=blocks)
+    assert solver.plan.blocks == blocks
+    got = solver.launch(b, x0)
+    ref = solver.plain(b, x0)
+    assert got.iterations == ref.iterations == 20
+    assert torch.equal(got.x, ref.x) and got.residual_norm == ref.residual_norm
 
 
 @pytest.mark.parametrize("element,cells", [("triangle", (13, 9)), ("hex", (5, 4, 3)), ("tet", (5, 4, 3)), ("tet", (16, 16, 16))])
@@ -635,7 +650,7 @@ def test_picard_beyond_the_plan_takes_the_host_loop(cuda, monkeypatch):
     from perphil_tpu_torch.ops import fused_ngs
     from perphil_tpu_torch.solvers.solver import _build_nonlinear_solver
 
-    monkeypatch.setattr(fused_ngs, "fused_ngs_plan", lambda node_shape, ncolors: None)
+    monkeypatch.setattr(fused_ngs, "fused_ngs_plan", lambda node_shape, ncolors, blocks=None: None)
     _build_nonlinear_solver.cache_clear()
     mesh = create_mesh(8, 8)
     _, V = create_function_spaces(mesh, device=cuda)

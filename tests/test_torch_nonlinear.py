@@ -44,13 +44,18 @@ from perphil_tpu_torch.models.dpp import DPPParameters
 from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator
 from perphil_tpu_torch.ops.fused_ngs import (
+    BANKS,
     FusedNGSSolver,
+    _deal,
     NgsPlan,
     fused_ngs_plan,
     ngs_host_loop,
-    owner_lists,
+    ngs_tables,
+    slab_rows,
+    tree_slots,
 )
 from perphil_tpu_torch.ops.ilu import GS_BACKENDS, ColoredNGSSweeper, GaussSeidelSweeper
+from perphil_tpu_torch.ops.krylov import tree_sum, tree_sum_cluster
 from perphil_tpu_torch.ops.ordering import colored_ngs_sweeps, ngs_parity_coloring
 from perphil_tpu_torch.solvers import solve_dpp_nonlinear
 from perphil_tpu_torch.solvers.solver import _build_nonlinear_solver, _freeze
@@ -327,21 +332,26 @@ def test_nonlinear_solver_cache_is_keyed_on_options():
     assert a is not b
 
 
-# -- the kernel's plan and lists (host mirrors) ---------------------------------
+# -- the kernel's plan and tables (host mirrors) --------------------------------
 
-# worked by hand from csrc/fused_ngs.cu::ngs_geometry: L = 2 (N+1)^2 values,
-# padded to Lt (a power of two, at least 512); blocks = min(16, Lt / 512);
-# leaves = Lt / (512 blocks); a block owns nloc = 4 (L // 4b) + min(L % 4b, 4);
-# bytes = 28 nloc rounded up to 16, at most 230,400
+# worked by hand from csrc/fused_ngs.cu::ngs_geometry: L = 2 (N+1)^2 values;
+# blocks = the most of 16, 8, 4, 2, 1 that place the grid: at most the
+# N - 1 interior rows and Lt / 512 (Lt: the power of two at least 512 and
+# L), the tree at most 32 leaves a thread (leaves = the least power of two
+# with 512 blocks leaves >= L), and bytes within 230,400; rows = ceil((N - 1)
+# / blocks); nloc = 4 (L // 4b) + min(L % 4b, 4); width = 2 rows (N - 1);
+# bytes = 16 (rows + 2)(N + 1) [x and its halo] + 16 rows (N + 1) [b] +
+# 8 nloc [the tree's slice] + 2 width [the list], each rounded up to 16
 PLAN_TABLE = [
-    (4, NgsPlan(1, 1, 50, 1408)),
-    (8, NgsPlan(1, 1, 162, 4544)),
-    (16, NgsPlan(2, 1, 290, 8128)),
-    (32, NgsPlan(8, 1, 274, 7680)),
-    (64, NgsPlan(16, 2, 530, 14848)),
-    (128, NgsPlan(16, 8, 2082, 58304)),
-    (255, NgsPlan(16, 16, 8192, 229376)),  # the last 2D mesh in
-    (256, None),  # 32 leaves a thread: 8258 values a block, 231,224 B
+    (4, NgsPlan(1, 3, 1, 50, 18, 1088)),  # 400 + 240 + 400 + 48
+    (8, NgsPlan(1, 7, 1, 162, 98, 3808)),  # 1296 + 1008 + 1296 + 208
+    (16, NgsPlan(2, 8, 1, 290, 240, 7696)),  # 2720 + 2176 + 2320 + 480; Lt = 1024: 2 blocks at most
+    (32, NgsPlan(8, 4, 1, 274, 248, 7968)),  # 3168 + 2112 + 2192 + 496; Lt = 4096
+    (64, NgsPlan(16, 4, 2, 530, 504, 15648)),  # 6240 + 4160 + 4240 + 1008
+    (128, NgsPlan(16, 8, 8, 2082, 2032, 57872)),  # 20640 + 16512 + 16656 + 4064
+    (255, NgsPlan(16, 16, 16, 8192, 8128, 221056)),  # 73728 + 65536 + 65536 + 16256
+    (257, NgsPlan(16, 16, 32, 8324, 8192, 223328)),  # the last 2D mesh in: 74304 + 66048 + 66592 + 16384
+    (258, None),  # rows 17: 78736 + 70448 + 67080 + 17476 = 233,740 B on 16 blocks
 ]
 
 
@@ -355,24 +365,244 @@ def test_plan_refuses_what_the_launcher_refuses():
     assert fused_ngs_plan((9, 9), 33) is None
     assert fused_ngs_plan((9, 9), 0) is None
     assert fused_ngs_plan((5, 5, 5), 14) is None
+    # an explicit block count: a power of two, at most the interior rows, Lt / 512 and 16
+    assert fused_ngs_plan((129, 129), 14, blocks=4) == NgsPlan(4, 32, 32, 8322, 8128, 219056)
+    assert fused_ngs_plan((129, 129), 14, blocks=2) is None  # 64 leaves a thread
+    assert fused_ngs_plan((129, 129), 14, blocks=12) is None
+    assert fused_ngs_plan((17, 17), 14, blocks=4) is None  # Lt = 1024: 2 blocks at most
+    assert fused_ngs_plan((5, 5), 14, blocks=2) is None  # Lt = 512: 1 block
+    assert fused_ngs_plan((256, 256), 14, blocks=8) is None  # 32 rows: 270,464 B
 
 
-@pytest.mark.parametrize("N", [4, 16, 32])
-def test_owner_lists_cover_each_interior_row_once(N):
-    """Every interior row appears once, on its owner, in its colour's run
-    (the kernel's ownership: value e on block (e >> 2) mod nb, slot
-    ((e >> 2) // nb) * 4 + e mod 4)."""
+def _tables(N, blocks=None):
     mesh = StructuredMesh(cells=(N, N), element="quad")
     colors = ngs_parity_coloring(mesh)
-    plan = fused_ngs_plan(mesh.node_shape, int(colors.max()) + 1)
-    lists, cptr = owner_lists(mesh.node_shape, colors, plan.blocks, plan.nloc)
-    assert lists.shape == (plan.blocks, plan.nloc) and cptr.shape == (plan.blocks, int(colors.max()) + 2)
+    plan = fused_ngs_plan(mesh.node_shape, int(colors.max()) + 1, blocks)
+    return mesh, colors, plan, ngs_tables(mesh.node_shape, colors, plan)
+
+
+def _decode(code, plan, nx, r0):
+    """(field, node row, column) of a list entry on the block whose slab
+    starts at node row r0."""
+    fs = (plan.rows + 2) * nx
+    f = code // fs
+    row, i = np.divmod(code - f * fs, nx)
+    return f, r0 - 1 + row, i
+
+
+TABLE_SIZES = [4, 16, 32, 128]
+
+
+@pytest.mark.parametrize("N", TABLE_SIZES)
+def test_lists_hold_each_interior_row_once_in_its_colour_run(N):
+    """Every interior row lies on exactly one block, inside that block's
+    slab, in its colour's run, once; the padding is 0."""
+    mesh, colors, plan, (lists, cptr, sends) = _tables(N)
+    ny, nx = mesh.node_shape
+    ncolors = int(colors.max()) + 1
+    assert lists.dtype == np.uint16 and lists.shape == (plan.blocks, plan.width)
+    assert cptr.shape == (plan.blocks, ncolors + 1) and sends.shape == (plan.blocks, ncolors, 2)
     seen = []
-    for b in range(plan.blocks):
-        for c in range(cptr.shape[1] - 1):
-            slots = lists[b, cptr[b, c] : cptr[b, c + 1]]
-            e = ((slots >> 2) * plan.blocks + b) * 4 + (slots & 3)
-            assert np.all(colors[e] == c) and np.all(np.diff(slots) > 0)
+    for b, (r0, rows) in enumerate(slab_rows(ny, plan.blocks)):
+        assert rows <= plan.rows and np.all(lists[b, cptr[b, -1]:] == 0)
+        for c in range(ncolors):
+            run = lists[b, cptr[b, c] : cptr[b, c + 1]].astype(np.int64)
+            f, j, i = _decode(run, plan, nx, r0)
+            assert np.all((j >= r0) & (j < r0 + rows)) and np.all((i > 0) & (i < nx - 1))
+            e = f * ny * nx + j * nx + i
+            assert np.all(colors[e] == c) and np.unique(run).size == run.size
             seen.append(e)
     interior = np.tile(~mesh.boundary_mask().ravel(), 2)
     np.testing.assert_array_equal(np.sort(np.concatenate(seen)), np.flatnonzero(interior))
+
+
+def test_deal_takes_every_bank_in_turn():
+    """Rows of banks 0, 0, 0, 1, 1, 2 (offset order) go out one bank at a
+    time, the fullest first: 0, 1, 2, then 0, 1, then 0."""
+    np.testing.assert_array_equal(_deal(np.arange(6), np.array([0, 0, 0, 1, 1, 2])), [0, 3, 5, 1, 4, 2])
+
+
+@pytest.mark.parametrize("N", [128, 255])
+def test_colour_runs_are_dealt_by_bank(N):
+    """A warp's 32 rows of a colour meet fewer rows on their busiest bank
+    than the same runs in offset order (a tap's bank is the row's offset in
+    the field modulo 16 plus the tap's constant), where a block's colour
+    holds more than a warp's rows."""
+    mesh, colors, plan, (lists, cptr, _) = _tables(N)
+    fs = (plan.rows + 2) * mesh.node_shape[1]
+
+    def busiest(run):
+        within = run.astype(np.int64) % fs
+        return [np.bincount(within[g : g + 32] % BANKS, minlength=BANKS).max() for g in range(0, run.size, 32)]
+
+    dealt, in_order = [], []
+    for b in range(plan.blocks):
+        for c in range(cptr.shape[1] - 1):
+            run = lists[b, cptr[b, c] : cptr[b, c + 1]]
+            dealt += busiest(run)
+            in_order += busiest(np.sort(run))
+    assert np.mean(dealt) < 0.8 * np.mean(in_order)
+
+
+@pytest.mark.parametrize("N", TABLE_SIZES)
+def test_every_tap_is_owned_or_in_the_halo(N):
+    """A row's 18 taps land on an interior node of the block's own slab or
+    of its halo rows, or on a boundary node, which the slab holds as 0.0;
+    every offset stays within the block's x (2 (rows + 2) nx values)."""
+    mesh, colors, plan, (lists, cptr, _) = _tables(N)
+    ny, nx = mesh.node_shape
+    fs = (plan.rows + 2) * nx
+    for b, (r0, rows) in enumerate(slab_rows(ny, plan.blocks)):
+        run = lists[b, : cptr[b, -1]].astype(np.int64)
+        f, j, i = _decode(run, plan, nx, r0)
+        for t in range(18):
+            dy, dx = (t % 9) // 3 - 1, t % 3 - 1
+            jj, ii = j + dy, i + dx
+            assert np.all((jj >= r0 - 1) & (jj <= r0 + rows))  # own rows or a halo row
+            tap = (t // 9) * fs + run - f * fs + dy * nx + dx
+            assert np.all((tap >= 0) & (tap < 2 * fs))
+            np.testing.assert_array_equal(_decode(tap, plan, nx, r0), ((t // 9) + 0 * tap, jj, ii))
+
+
+@pytest.mark.parametrize("N", TABLE_SIZES)
+def test_every_halo_value_is_sent_by_its_owner_in_its_colour(N):
+    """Each interior value of a halo row is pushed by the block that owns
+    its row, in the phase of its colour, and nothing else is: the counts in
+    ``sends`` are the values of each colour on a block's first row (to the
+    block below) and last row (to the block above)."""
+    mesh, colors, plan, (lists, cptr, sends) = _tables(N)
+    ny, nx = mesh.node_shape
+    ncolors = int(colors.max()) + 1
+    slabs = slab_rows(ny, plan.blocks)
+    received = [dict() for _ in slabs]  # block -> {value e: colour of the phase that sent it}
+    for b, (r0, rows) in enumerate(slabs):
+        for c in range(ncolors):
+            run = lists[b, cptr[b, c] : cptr[b, c + 1]].astype(np.int64)
+            f, j, i = _decode(run, plan, nx, r0)
+            e = f * ny * nx + j * nx + i
+            down, up = (j == r0) & (b > 0), (j == r0 + rows - 1) & (b < plan.blocks - 1)
+            assert sends[b, c, 0] == down.sum() and sends[b, c, 1] == up.sum()
+            received[b - 1].update(dict.fromkeys(e[down].tolist(), c)) if b > 0 else None
+            received[b + 1].update(dict.fromkeys(e[up].tolist(), c)) if b < plan.blocks - 1 else None
+    for b, (r0, rows) in enumerate(slabs):
+        halo = [r for r in (r0 - 1, r0 + rows) if 0 < r < ny - 1]
+        want = {f * ny * nx + r * nx + i for f in (0, 1) for r in halo for i in range(1, nx - 1)}
+        assert set(received[b]) == want
+        assert all(colors[e] == c for e, c in received[b].items())
+
+
+@pytest.mark.parametrize("N", TABLE_SIZES)
+def test_tree_slots_place_the_squares_for_the_cluster_tree(N):
+    """The norm's map from a value to its tree owner's slot is a bijection
+    onto the blocks' first ``nloc`` slots, [0, L) in all, and the cluster
+    tree over the squares so placed equals tree_sum bit for bit."""
+    mesh, colors, plan, _ = _tables(N)
+    L = colors.size
+    owner, slot = tree_slots(L, plan.blocks)
+    flat = owner * plan.nloc + slot
+    assert slot.max() < plan.nloc and np.unique(flat).size == L
+    assert np.all(np.bincount(owner, minlength=plan.blocks) <= plan.nloc)
+    rng = np.random.default_rng(N)
+    r = rng.standard_normal(L) * np.tile(~mesh.boundary_mask().ravel(), 2)
+    held = np.zeros((plan.blocks, plan.nloc))
+    held[owner, slot] = r
+    # the kernel's leaves: thread tau of block b holds slot s * 512 + lam, value e = ((slot >> 2) nb + b) 4 + (slot & 3)
+    back = held[owner, slot]
+    sq = torch.tensor(back * back)
+    assert torch.equal(tree_sum_cluster(sq, plan.blocks), tree_sum(torch.tensor(r * r)))
+
+
+def _emulate_kernel(solver, b, x0):
+    """The kernel's algorithm in numpy, through its tables: per block a slab
+    of x with its halo rows (boundary nodes 0.0), b's slab, the residuals in
+    their tree slots; a colour's pushes reach the neighbours' halos before
+    the next phase, and each block's pushes in a colour are counted against
+    ``sends``. Returns (x, iterations, fn, f0)."""
+    plan, sw = solver.plan, solver.sweeper
+    ny, nx = solver.node_shape
+    n, L, nb, R = ny * nx, 2 * ny * nx, plan.blocks, plan.rows
+    fs = (R + 2) * nx
+    lists, cptr, sends = ngs_tables(solver.node_shape, sw.colors, plan)
+    slabs = slab_rows(ny, nb)
+    owner, slot = tree_slots(L, nb)
+    inner = np.zeros((ny, nx), bool)
+    inner[1:-1, 1:-1] = True
+    bf, xf = b.numpy().reshape(2, ny, nx), x0.numpy().reshape(2, ny, nx)
+    xs, bs = np.zeros((nb, 2 * fs)), np.zeros((nb, 2 * R * nx))
+    for k, (r0, rows) in enumerate(slabs):
+        for l in range(rows + 2):
+            xs[k, [l * nx, fs + l * nx] + np.arange(nx)[:, None]] = np.where(
+                inner[r0 - 1 + l], xf[:, r0 - 1 + l], 0.0).T
+        for f in (0, 1):
+            bs[k, f * R * nx : f * R * nx + rows * nx] = bf[f, r0 : r0 + rows].ravel()
+    rt = np.zeros((nb, plan.nloc))
+    w, diag = sw.weights, np.asarray(sw.diag)
+
+    def rows_of(k, lo, hi):
+        code = lists[k, lo:hi].astype(np.int64)
+        f = (code >= fs).astype(np.int64)
+        return code, f, code - f * fs + f * n + (slabs[k][0] - 1) * nx
+
+    def residual(k, code, f):
+        acc = np.zeros(code.size)
+        for t in range(18):
+            dy, dx = (t % 9) // 3 - 1, t % 3 - 1
+            acc = acc + w[f, t] * xs[k, (t // 9) * fs + code - f * fs + dy * nx + dx]
+        return bs[k, code - nx - 2 * nx * f] - acc
+
+    def norm():
+        for k in range(nb):
+            code, f, e = rows_of(k, 0, cptr[k, -1])
+            rt[owner[e], slot[e]] = residual(k, code, f)
+        v = torch.tensor(rt[owner, slot])
+        return float(torch.sqrt(tree_sum_cluster(v * v, nb)))
+
+    f0 = fn = norm()
+    tol = max(solver.rtol * f0, solver.atol)
+    its = 0
+    while fn > tol and its < solver.max_it:
+        for c in range(sw.ncolors):
+            pushes = []
+            for k, (r0, rows) in enumerate(slabs):
+                code, f, e = rows_of(k, cptr[k, c], cptr[k, c + 1])
+                r = rt[owner[e], slot[e]] if c == 0 else residual(k, code, f)
+                v = xs[k, code] + r / diag[f]
+                xs[k, code] = v
+                t = code - f * fs
+                down, up = (t < 2 * nx) & (k > 0), (t >= rows * nx) & (k < nb - 1)
+                assert (down.sum(), up.sum()) == tuple(sends[k, c])
+                if k > 0:
+                    pushes.append((k - 1, code[down] + slabs[k - 1][1] * nx, v[down]))
+                if k < nb - 1:
+                    pushes.append((k + 1, code[up] - rows * nx, v[up]))
+            for k, at, v in pushes:
+                xs[k, at] = v
+        fn = norm()
+        its += 1
+    x = xf.copy()
+    for k, (r0, rows) in enumerate(slabs):
+        for f in (0, 1):
+            x[f, r0 : r0 + rows, 1:-1] = xs[k, f * fs + nx : f * fs + (rows + 1) * nx].reshape(rows, nx)[:, 1:-1]
+    return x, its, fn, f0
+
+
+@pytest.mark.parametrize("N,blocks,max_it", [(4, 1, 50000), (8, 1, 50000), (16, 2, 50000), (16, 1, 50000),
+                                               (32, 8, 40), (32, 4, 40), (64, 16, 6)])
+def test_kernel_algorithm_equals_the_twin_bit_for_bit(N, blocks, max_it):
+    """The slab algorithm, run through the kernel's own tables in numpy,
+    equals FusedNGSSolver.plain bit for bit: x, the iteration count and both
+    norms, on the manufactured Picard problem (the published count where the
+    solve runs to convergence)."""
+    g1, g2 = _manufactured("quad", (N, N))
+    state = from_numpy_state({}, (N, N), "quad", g1, g2, device="cpu")
+    op = DPPOperator(state.W, state.params)
+    solver = FusedNGSSolver(op, rtol=1e-8, atol=1e-50, max_it=max_it, blocks=blocks)
+    assert solver.plan.blocks == blocks
+    b = torch.stack(op.lifted_rhs(*state.grids))
+    bdry = op._mask_arrays[0]
+    x0 = torch.stack([torch.where(bdry, g, 0.0) for g in state.grids])
+    twin = solver.plain(b, x0)
+    x, its, fn, f0 = _emulate_kernel(solver, b, x0)
+    assert its == twin.iterations == (PICARD_COUNTS[N] if max_it == 50000 else max_it)
+    assert (fn, f0) == (twin.residual_norm, twin.initial_norm)
+    assert np.array_equal(x, twin.x.numpy())
