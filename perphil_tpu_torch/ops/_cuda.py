@@ -76,8 +76,9 @@ _SIGNATURES = {
     # b, x0, x, lists, cptr, sends, result, weights(host, 38 doubles), ny,
     # nx, ncolors, rtol, atol, max_it, blocks, rows, nloc, width, stream
     "perphil_fused_ngs": [_P] * 8 + [_I] * 3 + [_D, _D] + [_I] * 5 + [_P],
-    # P, r, y, u, barrier, nb, B, pad, lower, stream
-    "perphil_band_trisolve": [_P] * 5 + [_I] * 4 + [_P],
+    # r, z, vec, blob, desc, perm, n, nlev_l, nlev_u, blocks, shared_vector,
+    # stages, stage_bytes, stream
+    "perphil_band_trisolve": [_P] * 6 + [_I] * 7 + [_P],
     # stream (an empty kernel: the floor of a launch through this interface)
     "perphil_empty_launch": [_P],
 }

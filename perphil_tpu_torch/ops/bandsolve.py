@@ -1,394 +1,464 @@
-"""The ordering-parity ILU apply on the card: a dense-band block trisolve.
+"""The ordering-parity ILU apply on the card: a level-scheduled sweep over
+the sparse ILU(0) factor.
 
 Counterpart of ``perphil_tpu/ops/bandsolve.py``, the device engine of
 ``pc_factor_mat_ordering_type=rcm`` (the published 3D tet "GMRES + ILU PC"
 column, ``petsc_perf_breakdown_3d.csv``). The ILU(0) factorisation is
 sequential and stays on the host (``ops/_native.py``, PETSc's division of
-labour); the applies run on the card, restructured around the band that the
-cell-RCM numbering creates:
+labour); the applies run on the card.
 
-- Per field, the numbering is a reverse Cuthill-McKee order, so the factor
-  blocks L11, L22, U11, U22 are banded (bandwidth 34/108/373/797/2125 at tet
-  nx=4/8/16/24/40), and the inter-field blocks L21, U12 share the band.
-- Each banded triangular factor is covered by ``nb = ceil(nv / B)`` dense
-  ``B x B`` diagonal blocks, ``B`` the smallest multiple of 32 (a warp's
-  width) above the bandwidth, so that a row couples at most one block back
-  (lower) or ahead (upper). The trisolve is then the block recurrence
-  ``u = r_k - C_k y_{k-1}``, ``y_k = u + X_k u`` (lower, unit diagonal; the
-  upper factor ``y_k = X_k u`` with ``y_{k+1}``), ``X_k`` the inverse of the
-  diagonal block, ``C_k`` the coupling to the neighbouring block. The two
-  have disjoint supports in a block (``pad = B - bandwidth >= 1``), so one
-  packed ``(nb, B, B)`` array holds both.
-- The inter-field couplings L21 and U12 apply as varying-coefficient 3^d
-  stencils in the natural order (their values scattered back through the
-  permutation at setup), between two permutation gathers: torch ops, as the
-  JAX package leaves them to XLA.
+What an apply computes is the host engine's ``ilu_apply``
+(``csrc/csr_solver.cpp``; its numpy twin ``ordering.host_ilu_apply``) on
+the combined two-field factor ``F`` of the permuted system, bit for bit:
+forward ``y[i] = r[i] - F[i,k] y[k]`` over the row's strictly lower
+entries, backward ``x[i] = (y[i] - F[i,k] x[k]) / F[i,i]`` over its strictly
+upper ones, each in the row's CSR order, every product, difference and
+quotient rounded on its own. The JAX package covers the per-field factors
+with dense band blocks for the TPU's matrix unit (a ``lax.scan``, no
+Pallas); the port keeps the sparse factor, which at tet nx=40 is 49 MB
+where one dense band factor alone reads 1.15 GB.
 
-The recurrence runs in ``csrc/band_trisolve.cu`` (:func:`tri_apply`, one
-cooperative launch a factor, counted as ``band_trisolve``); in the JAX
-package it is a ``lax.scan`` of dense matvecs, no Pallas.
-:func:`tri_apply_plain` is the kernel's twin and the CPU path.
+The sweep's schedule (:func:`level_schedule`, built once a solver on the
+host): each row's level in a sweep is 1 + the largest level among the rows
+it reads (:func:`sweep_levels`, Kahn's pass a level at a time), so the rows
+of a level are independent and a level schedule changes no row's
+arithmetic. The factor is stored in level order: row ``i`` is dealt to
+block ``i mod blocks``; a block's rows of a level, sorted by their entry
+count (so that a warp's 32 rows are of similar length) and cut into slices
+of 32 rows (one warp), are a segment, stored contiguously in one blob
+(values, diagonals, columns, rows words), its entries padded to the
+segment's widest row, entry-major (``[slice][k][lane]``: a warp's reads
+coalesce). A lane reads only its row's own entries; the twin's padding
+entries hold 0.0 and read the vector's zero slot ``n``.
 
-Precision: the blocks, their inverses and every apply are f64. The JAX
-package keeps its blocks in f32 for the TPU's MXU and recovers the published
-counts with Newton steps on the inverses and a double-float defect
-correction; in f64 none of that is needed (the f64 block apply agrees with
-the sequential ``host_ilu_apply`` to ~5e-16 relative), so the port has none
-of it.
-
-The blocks are built on the card, one diagonal block at a time: scatter the
-factor's entries into a dense block, invert it with a triangular solve
-(``torch.linalg.solve_triangular``: setup, not a TPU kernel), keep the
-inverse's triangle and scatter the coupling entries around it. :func:`band_plan` gives what that costs in
-device memory before anything is allocated; the solver checks it against
-the card's free memory (``solvers/solver.py``).
+The kernel (``csrc/band_trisolve.cu``, :func:`level_apply`, counted as
+``band_trisolve``) runs both sweeps in one launch: on one block with the
+vector in its shared memory, or on a cluster of 16 blocks with the vector
+spread over their shared memory (row ``i`` in block ``i mod 16``) or in
+device memory; a block barrier or an mbarrier exchange between levels; a
+producer warp streams each level's segment into a shared-memory ring by one
+bulk copy, up to three levels ahead. :func:`level_apply_plain` is its twin,
+a PyTorch level loop over the same blob, and the CPU path. :func:`band_plan`
+gives the device memory before anything is allocated; the solver checks it
+against the card's free memory (``solvers/solver.py``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.nn.functional import pad
 
 from perphil_tpu_torch.config import DeviceLike, resolve_device
 from perphil_tpu_torch.ops import _cuda
 
 KERNEL = "band_trisolve"
-#: the block size's quantum: a warp's width (the kernel's rows come in whole warps)
-BLOCK_QUANTUM = 32
+WARP = 32
+_SOURCE = "band_trisolve.cu"
+#: the launcher's limits, read from its source
+MAX_WIDTH = _cuda.header_constant(_SOURCE, "kLevelMaxWidth")
+MAX_STAGES = _cuda.header_constant(_SOURCE, "kLevelMaxStages")
+MAX_CLUSTER = _cuda.header_constant(_SOURCE, "kLevelMaxCluster")
+SMEM_BUDGET = _cuda.header_constant(_SOURCE, "kLevelSmemBudget")
+RULE_BLOCKS = _cuda.header_constant(_SOURCE, "kLevelRuleBlocks")
+_HEADER_BYTES = _cuda.header_constant(_SOURCE, "kLevelHeader")
+#: a lane's row index takes the low ROW_BITS bits of its ``rows`` word, its
+#: entry count in the sweep the bits above
+ROW_BITS = _cuda.header_constant(_SOURCE, "kLevelRowBits")
+#: what the caching allocator may add to a buffer: a large one takes a
+#: segment rounded up to 2 MiB, the rest of which it keeps when too small to
+#: split off
+_ALLOC_SLACK = 2 << 20
+_BUFFERS = 4  # blob, desc, perm, vec
+#: the block counts a placement takes (a cluster beyond one): powers of two
+BLOCK_COUNTS = tuple(1 << k for k in range(MAX_CLUSTER.bit_length()))
 
 
-def band_block_size(bandwidth: int) -> int:
-    """The smallest multiple of 32 that is at least ``bandwidth + 1`` (so a
-    row's couplings reach at most the neighbouring block)."""
-    return max(BLOCK_QUANTUM, -(-(int(bandwidth) + 1) // BLOCK_QUANTUM) * BLOCK_QUANTUM)
+def _ranges(starts: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """The concatenated ``arange(s, s + n)`` of each start and length."""
+    total = int(lengths.sum())
+    return np.repeat(starts - np.cumsum(lengths) + lengths, lengths) + np.arange(total)
+
+
+def sweep_levels(F: sp.csr_matrix, lower: bool) -> np.ndarray:
+    """Each row's level (int64) in one sweep over the combined factor: 0
+    for a row that reads no other row, else 1 + the largest level among
+    the rows it reads (the columns of its strictly lower entries forward,
+    of its strictly upper ones backward). Kahn's pass, one level at a
+    time: a level's rows release their dependents, and those whose last
+    dependency that was form the next level."""
+    n = F.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(F.indptr))
+    keep = F.indices < rows if lower else F.indices > rows
+    waiting = np.bincount(rows[keep], minlength=n)
+    # the dependents of each row: the sweep's triangle by column (CSC)
+    T = sp.csr_matrix((np.ones(int(waiting.sum()), np.int8), F.indices[keep],
+                       np.concatenate([[0], np.cumsum(waiting)])), shape=(n, n)).tocsc()
+    tptr, dependents = T.indptr.astype(np.int64), T.indices.astype(np.int64)
+    level = np.full(n, -1, dtype=np.int64)
+    frontier = np.flatnonzero(waiting == 0)
+    depth = 0
+    while frontier.size:
+        level[frontier] = depth
+        at = _ranges(tptr[frontier], tptr[frontier + 1] - tptr[frontier])
+        released, times = np.unique(dependents[at], return_counts=True)
+        waiting[released] -= times
+        frontier = released[waiting[released] == 0]
+        depth += 1
+    if (level < 0).any():
+        raise ValueError("the factor's dependencies have a cycle: not triangular")
+    return level
+
+
+class LevelSchedule(NamedTuple):
+    """Both sweeps of the combined factor in level order, as the kernel and
+    its twin read them. ``blob`` (uint8) holds the segments, one block's
+    slices of one level each: its entries' values (f64, ``slots = 32 m w``
+    of them, entry k of lane t of slice j at ``32 (j w + k) + t``), its
+    lanes' diagonals (f64, ``32 m``), the entries' columns (int32) and the
+    lanes' rows words (int32: the row, and its entry count in the sweep
+    above ``ROW_BITS``; -1 for padding). ``desc`` is int32 ``(levels,
+    blocks, 4)``: per level (the forward sweep's ``nlev[0]``, then the
+    backward one's) and block, ``[offset / 16 B, m, w, 0]``. Row ``i`` is
+    dealt to block ``i mod blocks``. ``perm`` maps a permuted row to its
+    natural (stacked) index. ``stage_bytes`` is the largest segment (a ring
+    stage), ``stages`` the ring's depth, ``shared_vector`` whether the
+    vector lives in shared memory (one block's, or spread over the
+    cluster's: row ``i`` in block ``i mod blocks``) or in device memory."""
+
+    n: int
+    nnz: int
+    nlev: Tuple[int, int]
+    blocks: int
+    shared_vector: bool
+    stages: int
+    stage_bytes: int
+    blob: np.ndarray
+    desc: np.ndarray
+    perm: np.ndarray
+
+    @property
+    def slots(self) -> int:
+        """Padded entries over both sweeps."""
+        m, w = self.desc[..., 1].astype(np.int64), self.desc[..., 2].astype(np.int64)
+        return int((WARP * m * w).sum())
+
+    @property
+    def slices(self) -> int:
+        return int(self.desc[..., 1].sum())
+
+
+def smem_bytes(n: int, levels: int, stages: int, stage_bytes: int, shared_vector: bool, blocks: int) -> int:
+    """The launcher's dynamic shared memory (``level_smem_bytes``): the
+    ring's mbarriers, the block's descriptors, the ring, and the block's
+    share of the vector where it lives in shared memory."""
+    head = -(-(_HEADER_BYTES + 16 * levels) // 128) * 128
+    return head + stages * stage_bytes + (8 * -(-n // blocks) if shared_vector else 0)
+
+
+def ring_stages(n: int, levels: int, stage_bytes: int, shared_vector: bool, blocks: int) -> int:
+    """The deepest ring (2..``MAX_STAGES`` stages) whose shared memory fits
+    the launcher's budget; 0 where none does."""
+    for stages in range(MAX_STAGES, 1, -1):
+        if smem_bytes(n, levels, stages, stage_bytes, shared_vector, blocks) <= SMEM_BUDGET:
+            return stages
+    return 0
+
+
+def _sweep_layout(F: sp.csr_matrix, entry_row: np.ndarray, diag_pos: np.ndarray, level: np.ndarray, lower: bool,
+                  blocks: int):
+    """One sweep's segments (``entry_row``: each stored entry's row;
+    ``level``: :func:`sweep_levels`): ``(blob, desc, levels)``, offsets
+    local to the sweep."""
+    n = F.shape[0]
+    count = diag_pos - F.indptr[:-1] if lower else F.indptr[1:] - diag_pos - 1
+    if n >= 1 << ROW_BITS:
+        raise ValueError(f"{n} rows: the kernel takes fewer than {1 << ROW_BITS}")
+    if count.max(initial=0) > MAX_WIDTH:
+        raise ValueError(f"a row has {int(count.max())} entries in a sweep, the kernel takes {MAX_WIDTH}")
+    nlev = int(level.max()) + 1
+    seg = level * blocks + np.arange(n) % blocks  # segments in (level, block) order
+    order = np.lexsort((-count, seg))  # a segment's longest rows first
+    seg_s, cnt_s = seg[order], count[order]
+    size = np.bincount(seg, minlength=nlev * blocks)
+    start = np.concatenate([[0], np.cumsum(size)])[:-1]
+    rank = np.arange(n) - start[seg_s]
+    j, lane = rank // WARP, rank % WARP  # slice within its segment, lane
+    m = -(-size // WARP)
+    w = np.where(size > 0, cnt_s[np.minimum(start, n - 1)], 0)  # a segment's first row is its longest
+    slots, lanes = WARP * m * w, WARP * m
+    off = np.concatenate([[0], np.cumsum(12 * (slots + lanes))])
+    blob = np.zeros(int(off[-1]), dtype=np.uint8)
+    f64, i32 = blob.view(np.float64), blob.view(np.int32)
+    o8, o4 = off[:-1] // 8, off[:-1] // 4
+    # padding first: diagonals 1.0, columns n, rows -1 (values stay 0.0)
+    f64[_ranges(o8 + slots, lanes)] = 1.0
+    i32[_ranges(o4 + 2 * (slots + lanes), slots)] = n
+    i32[_ranges(o4 + 3 * slots + 2 * lanes, lanes)] = -1
+    # each row's lane: its diagonal and rows word; where its entries start
+    at = WARP * j + lane
+    f64[o8[seg_s] + slots[seg_s] + at] = F.data[diag_pos[order]]
+    i32[o4[seg_s] + 3 * slots[seg_s] + 2 * lanes[seg_s] + at] = order | (cnt_s << ROW_BITS)
+    val_at, col_at = np.empty(n, dtype=np.int64), np.empty(n, dtype=np.int64)
+    val_at[order] = o8[seg_s] + WARP * j * w[seg_s] + lane
+    col_at[order] = o4[seg_s] + 2 * (slots[seg_s] + lanes[seg_s]) + WARP * j * w[seg_s] + lane
+    # each entry of the sweep, in CSR order: k-th of its row at 32 k past the row's start
+    keep = F.indices < entry_row if lower else F.indices > entry_row
+    erow = entry_row[keep]
+    k = WARP * (np.arange(erow.size) - np.repeat(np.cumsum(count) - count, count))
+    f64[val_at[erow] + k] = F.data[keep]
+    i32[col_at[erow] + k] = F.indices[keep]
+    desc = np.stack([off[:-1] // 16, m, w, np.zeros_like(m)], axis=1).reshape(nlev, blocks, 4)
+    return blob, desc, nlev
+
+
+def level_schedule(F: sp.csr_matrix, perm: np.ndarray, blocks: Optional[int] = None,
+                   shared_vector: Optional[bool] = None) -> LevelSchedule:
+    """The factor ``F`` (the combined ILU(0) factor of the permuted system,
+    sorted indices, every diagonal stored) and the permutation ``perm``
+    (natural index of each permuted row) in level order, on the plan's
+    placement: one block with the vector in its shared memory where the
+    vector and the ring fit the budget, else a cluster of ``RULE_BLOCKS``
+    (``kLevelRuleBlocks``) with the vector spread over their shared memory,
+    else the same cluster with the vector in device memory (the rule
+    measured fastest, ``tools/profile_kernels.py --only band``).
+    ``blocks`` asks for another block count and ``shared_vector`` for the
+    vector's place (in shared memory where it fits, unless ``False``), for
+    measurements; a placement that does not fit raises ``ValueError``."""
+    F = F.tocsr()
+    if not F.has_sorted_indices:
+        F = F.sorted_indices()
+    n = F.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(F.indptr))
+    on_diag = np.flatnonzero(F.indices == rows)
+    if on_diag.size != n or not np.array_equal(rows[on_diag], np.arange(n)):
+        raise ValueError("every row of the factor must store its diagonal")
+    levels = (sweep_levels(F, True), sweep_levels(F, False))
+    if blocks is None:
+        for count, shared in ((1, True), (RULE_BLOCKS, True), (RULE_BLOCKS, False)):
+            sched = _schedule(F, perm, rows, on_diag, levels, count, shared)
+            if sched is not None:
+                return sched
+        raise ValueError(f"the schedule fits no placement (a segment beyond {RULE_BLOCKS} blocks' ring)")
+    if blocks not in BLOCK_COUNTS:
+        raise ValueError(f"blocks {blocks} is not one of {BLOCK_COUNTS}")
+    sched = None
+    if shared_vector is not False:
+        sched = _schedule(F, perm, rows, on_diag, levels, blocks, True)
+    if sched is None and not shared_vector:
+        sched = _schedule(F, perm, rows, on_diag, levels, blocks, False)
+    if sched is None:
+        where = "shared memory" if shared_vector else "a ring"
+        raise ValueError(f"the schedule on {blocks} block(s) does not fit {where}")
+    return sched
+
+
+def _schedule(F, perm, rows, on_diag, levels, blocks: int, shared_vector: bool) -> Optional[LevelSchedule]:
+    """The schedule on ``blocks`` blocks, the vector in shared memory or
+    not; None where the ring (and the vector's share) do not fit."""
+    n = F.shape[0]
+    if shared_vector and 8 * -(-n // blocks) >= SMEM_BUDGET:
+        return None
+    (bl, desc_l, nl), (bu, desc_u, nu) = (_sweep_layout(F, rows, on_diag, lev, lower, blocks)
+                                          for lev, lower in zip(levels, (True, False)))
+    desc_u = desc_u.copy()
+    desc_u[..., 0] += bl.size // 16
+    desc = np.concatenate([desc_l, desc_u]).astype(np.int32)
+    stage_bytes = int((384 * desc[..., 1].astype(np.int64) * (desc[..., 2] + 1)).max())
+    stages = ring_stages(n, nl + nu, stage_bytes, shared_vector, blocks)
+    if stages == 0:
+        return None
+    return LevelSchedule(n, int(F.nnz), (nl, nu), blocks, shared_vector, stages, stage_bytes,
+                         np.concatenate([bl, bu]), desc, np.ascontiguousarray(perm, dtype=np.int32))
+
+
+def segment_arrays(blob: torch.Tensor, desc_row) -> Tuple[torch.Tensor, ...]:
+    """One segment of ``blob`` (uint8) as ``(vals (m, w, 32), diag (m, 32),
+    cols (m, w, 32), rows (m, 32))`` views, from its descriptor ``[offset /
+    16, m, w, 0]``."""
+    off, m, w = (int(x) for x in desc_row[:3])
+    slots, lanes = WARP * m * w, WARP * m
+    at = 16 * off
+    vals = blob[at : at + 8 * slots].view(torch.float64).view(m, w, WARP)
+    diag = blob[at + 8 * slots : at + 8 * (slots + lanes)].view(torch.float64).view(m, WARP)
+    at += 8 * (slots + lanes)
+    cols = blob[at : at + 4 * slots].view(torch.int32).view(m, w, WARP)
+    rows = blob[at + 4 * slots : at + 4 * (slots + lanes)].view(torch.int32).view(m, WARP)
+    return vals, diag, cols, rows
 
 
 class BandPlan(NamedTuple):
-    """What the band engine holds on the card for ``nv`` vertices a field:
-    block size ``B``, ``nb`` blocks a factor, ``packed_bytes`` for the four
-    packed factors, and ``workspace_bytes``, the rest at the build's peak
-    (the two coupling stencils, the permutations, one factor's scatter
-    lists, and one diagonal block's dense copy, identity, inverse and the
-    solve's own copy)."""
+    """What the band engine holds on the card: ``factor_bytes`` for the
+    level-ordered factor (12 B a padded entry and a lane, the descriptors,
+    the permutation) and ``workspace_bytes`` (the vector's ``n`` doubles in
+    device memory, and up to 2 MiB a buffer that the caching allocator may
+    add), nothing else at the build's peak."""
 
-    bandwidth: int
-    B: int
-    nb: int
-    packed_bytes: int
+    levels: int
+    blocks: int
+    factor_bytes: int
     workspace_bytes: int
 
     @property
     def total_bytes(self) -> int:
-        return self.packed_bytes + self.workspace_bytes
+        return self.factor_bytes + self.workspace_bytes
 
 
-def band_plan(nv: int, bandwidth: int, dim: int = 3) -> BandPlan:
-    """The band engine's device memory for ``nv`` vertices a field and the
-    factor's ``bandwidth`` (:func:`factor_bandwidth`)."""
-    B = band_block_size(bandwidth)
-    nb = -(-int(nv) // B)
-    taps = 3**dim
-    workspace = (
-        2 * taps * nv * 8  # the L21 / U12 stencils
-        + 2 * nv * 8  # the permutation and its inverse
-        + 2 * taps * nv * 16  # a factor's scatter lists (index, value), at most 3^d a row
-        + 4 * B * B * 8  # a diagonal block, the identity, its inverse, the solve's copy
-        + B * B  # the inverse's mask
-    )
-    return BandPlan(int(bandwidth), B, nb, 4 * nb * B * B * 8, workspace)
+def band_plan(n: int, slots: int, slices: int, levels: int, blocks: int) -> BandPlan:
+    """The band engine's device memory for ``n`` rows, ``slots`` padded
+    entries and ``slices`` slices of 32 lanes over both sweeps, ``levels``
+    levels on ``blocks`` blocks (:func:`plan_of` reads them off a
+    schedule)."""
+    factor = 12 * slots + 12 * WARP * slices + 16 * levels * blocks + 4 * n
+    return BandPlan(levels, blocks, factor, 8 * n + _BUFFERS * _ALLOC_SLACK)
 
 
-def split_monolithic_factor(Fc: sp.csr_matrix, nv: int) -> Tuple[sp.csr_matrix, ...]:
-    """The combined ILU(0) factor's six two-field blocks: L11, L21, L22
-    strictly lower (unit diagonal implied), U11, U12, U22 upper with the
-    diagonal. Index arrays are copied (``eliminate_zeros`` works in place)."""
-    n = Fc.shape[0]
-    rows = np.repeat(np.arange(n), np.diff(Fc.indptr))
-
-    def part(mask):
-        M = sp.csr_matrix((Fc.data * mask, Fc.indices.copy(), Fc.indptr.copy()), shape=Fc.shape)
-        M.eliminate_zeros()
-        return M
-
-    L = part(Fc.indices < rows)
-    U = part(Fc.indices >= rows)
-    return L[:nv, :nv], L[nv:, :nv], L[nv:, nv:], U[:nv, :nv], U[:nv, nv:], U[nv:, nv:]
+def plan_of(sched: LevelSchedule) -> BandPlan:
+    """:func:`band_plan` of a schedule."""
+    return band_plan(sched.n, sched.slots, sched.slices, sum(sched.nlev), sched.blocks)
 
 
-def _parts_bandwidth(parts: Tuple[sp.csr_matrix, ...]) -> int:
-    L11, _, L22, U11, _, U22 = parts
-    bw = 0
-    for M, sign in ((L11, 1), (L22, 1), (U11, -1), (U22, -1)):
-        coo = M.tocoo()
-        if coo.nnz:
-            bw = max(bw, int((sign * (coo.row.astype(np.int64) - coo.col)).max()))
-    return bw
-
-
-def factor_bandwidth(Fc: sp.csr_matrix, nv: int) -> int:
-    """The largest distance from the diagonal in the four per-field blocks
-    of the combined factor."""
-    return _parts_bandwidth(split_monolithic_factor(Fc, nv))
-
-
-def _block_coo(M: sp.spmatrix, B: int, lower: bool):
-    """Flat scatter positions into ``(nb, B, B)`` of a banded triangular
-    factor: ``(diag_idx, diag_vals, coup_idx, coup_vals, nb)``, f64 values.
-    ``lower``: couplings reach block k-1 (the forward recurrence); else block
-    k+1. Entries come in row order, so the diagonal entries of block k are
-    one contiguous run."""
-    n = M.shape[0]
-    nb = -(-n // B)
-    coo = M.tocoo()
-    r, c, v = coo.row.astype(np.int64), coo.col.astype(np.int64), coo.data.astype(np.float64)
-    order = np.lexsort((c, r))
-    r, c, v = r[order], c[order], v[order]
-    k = r // B
-    lr = r - k * B
-    in_diag = c // B == k
-    d_idx = (k[in_diag] * B + lr[in_diag]) * B + (c[in_diag] - k[in_diag] * B)
-    off = ~in_diag
-    kc = c[off] // B
-    if not np.array_equal(kc, k[off] - 1 if lower else k[off] + 1):
-        raise ValueError("bandwidth exceeds the block size: a coupling reaches beyond the adjacent block")
-    c_idx = (k[off] * B + lr[off]) * B + (c[off] - kc * B)
-    return d_idx, v[in_diag], c_idx, v[off], nb
-
-
-def _masks(B: int, pad: int, lower: bool, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(xmask, cmask)``: where a packed block holds the inverse's entries
-    and where the coupling's. Lower: the strict lower triangle (the unit
-    diagonal is implied) and columns ``>= row + pad``; upper: the upper
-    triangle with the diagonal and columns ``<= row - pad``."""
-    i = torch.arange(B, device=device)[:, None]
-    j = torch.arange(B, device=device)[None, :]
-    if lower:
-        return j < i, j >= i + pad
-    return j >= i, j <= i - pad
-
-
-def build_blocks(M: sp.spmatrix, B: int, lower: bool, device: DeviceLike = None) -> torch.Tensor:
-    """Pack one banded triangular factor into ``(nb, B, B)`` f64 on
-    ``device``: each diagonal block's inverse (its strict lower triangle for
-    the unit-lower factors, its upper triangle with the diagonal for the
-    upper ones) and the coupling entries in the complementary positions.
-    The blocks are inverted one at a time, so the workspace is a few
-    ``B x B`` matrices (:func:`band_plan`). Padded tail rows are identity
-    rows."""
-    dev = resolve_device(device)
-    d_idx, d_vals, c_idx, c_vals, nb = _block_coo(M, B, lower)
-    P = torch.zeros((nb, B, B), dtype=torch.float64, device=dev)
-    xmask, _ = _masks(B, 1, lower, dev)
-    eye = torch.eye(B, dtype=torch.float64, device=dev)
-    bounds = np.searchsorted(d_idx // (B * B), np.arange(nb + 1))
-    d_idx_t = torch.from_numpy(d_idx).to(dev)
-    d_vals_t = torch.from_numpy(d_vals).to(dev)
-    for k in range(nb):
-        s, e = int(bounds[k]), int(bounds[k + 1])
-        D = torch.zeros(B * B, dtype=torch.float64, device=dev)
-        D[d_idx_t[s:e] - k * B * B] = d_vals_t[s:e]
-        D = D.view(B, B)
-        diag = D.diagonal()
-        if lower:
-            diag.fill_(1.0)  # strictly lower storage: the unit diagonal
-        else:
-            diag.masked_fill_(diag == 0.0, 1.0)  # padded tail rows
-        X = torch.linalg.solve_triangular(D, eye, upper=not lower)
-        P[k] = X.masked_fill_(~xmask, 0.0)
-        del D, X
-    P.view(-1)[torch.from_numpy(c_idx).to(dev)] = torch.from_numpy(c_vals).to(dev)
-    return P
-
-
-def _check_blocks(P: torch.Tensor, r: torch.Tensor, pad: int) -> Tuple[int, int]:
-    if P.dim() != 3 or P.shape[1] != P.shape[2]:
-        raise ValueError(f"P has shape {tuple(P.shape)}, expected (nb, B, B)")
-    nb, B, _ = P.shape
-    if tuple(r.shape) != (nb * B,):
-        raise ValueError(f"r has shape {tuple(r.shape)}, expected ({nb * B},)")
-    if not 1 <= pad <= B:
-        raise ValueError(f"pad {pad} outside [1, {B}]")
-    return nb, B
-
-
-def tri_apply_plain(P: torch.Tensor, r: torch.Tensor, lower: bool, pad: int) -> torch.Tensor:
-    """The banded triangular solve as the block recurrence, one block at a
-    time with two matvecs (plain PyTorch twin of the kernel; any device).
-    ``P``: ``(nb, B, B)`` packed ``[inverse | coupling]`` blocks
-    (:func:`build_blocks`); ``r``: the ``(nb * B,)`` padded right-hand side;
-    ``pad``: ``B`` minus the bandwidth."""
-    nb, B = _check_blocks(P, r, pad)
-    xmask, cmask = _masks(B, pad, lower, P.device)
-    rk = r.view(nb, B)
-    y = torch.empty_like(rk)
-    carry = None
-    for k in range(nb) if lower else range(nb - 1, -1, -1):
-        u = rk[k] if carry is None else rk[k] - torch.where(cmask, P[k], 0.0) @ carry
-        xu = torch.where(xmask, P[k], 0.0) @ u
-        carry = u + xu if lower else xu
-        y[k] = carry
-    return y.view(-1)
-
-
-def tri_apply(P: torch.Tensor, r: torch.Tensor, lower: bool, pad: int) -> torch.Tensor:
-    """:func:`tri_apply_plain`'s function: on CUDA tensors one cooperative
-    launch of ``csrc/band_trisolve.cu`` (counted as ``band_trisolve``), on
-    CPU tensors the twin."""
-    nb, B = _check_blocks(P, r, pad)
-    if P.device.type == "cpu" and r.device.type == "cpu":
-        return tri_apply_plain(P, r, lower, pad)
-    dev = P.device
-    _cuda.require_cuda_tensor(P, "P", torch.float64, dev)
-    _cuda.require_cuda_tensor(r, "r", torch.float64, dev)
-    y = torch.empty_like(r)
-    u = torch.empty(B, dtype=torch.float64, device=dev)
-    barrier = torch.zeros(2, dtype=torch.int32, device=dev)
-    _cuda.launch(
-        KERNEL, "perphil_band_trisolve", dev,
-        P.data_ptr(), r.data_ptr(), y.data_ptr(), u.data_ptr(), barrier.data_ptr(),
-        nb, B, int(pad), int(bool(lower)),
-    )
-    return y
-
-
-def tri_apply_traffic(n: int, B: int, pad: int, lower: bool) -> Tuple[int, int]:
-    """``(bytes, flops)`` that one banded triangular solve of ``n`` rows
-    (:func:`tri_apply`) needs: each masked block entry of a real row and
-    column read once (the first step takes no coupling; the padded tail is
-    left out), ``r`` read and ``y`` written once, and a multiply and an add
-    for each entry read. The bound of ``band_trisolve`` in the measurement
-    scripts."""
-    nb = -(-int(n) // B)
-    i = np.arange(B, dtype=np.int64)
-    entries = 0
-    for k in range(nb):
-        rows = min(B, n - k * B)
-        ii = i[:rows]
-        if lower:  # X_k at columns < i; C_k at columns >= i + pad of the full block k-1
-            x, c, first = ii, np.maximum(0, B - ii - pad), k == 0
-        else:  # X_k at columns >= i; C_k at columns <= i - pad of block k+1
-            after = min(B, n - (k + 1) * B) if k + 1 < nb else 0
-            x, c, first = rows - ii, np.clip(ii - pad + 1, 0, after), k == nb - 1
-        entries += int(x.sum()) + (0 if first else int(c.sum()))
-    return 8 * (entries + 2 * int(n)), 2 * entries
-
-
-def coupling_stencil_vals(M: sp.spmatrix, vperm: np.ndarray, grid_shape: Tuple[int, ...]) -> np.ndarray:
-    """A permuted-space inter-field factor block as a varying-coefficient
-    3^d stencil in the natural order, f64 ``(3^d, *grid_shape)``: ``M[i,
-    j]`` couples natural vertices ``vperm[i]`` and ``vperm[j]``, which the
-    ILU(0) pattern (the finite-element adjacency) keeps grid-adjacent."""
-    d = len(grid_shape)
-    coo = M.tocoo()
-    rpos = np.stack(np.unravel_index(vperm[coo.row], grid_shape), axis=1)
-    cpos = np.stack(np.unravel_index(vperm[coo.col], grid_shape), axis=1)
-    delta = cpos - rpos
-    if coo.nnz and (delta.min() < -1 or delta.max() > 1):
-        raise ValueError("factor entry is not grid-adjacent")
-    oidx = np.zeros(coo.nnz, dtype=np.int64)
-    for ax in range(d):
-        oidx = oidx * 3 + (delta[:, ax] + 1)
-    vals = np.zeros((3**d,) + tuple(grid_shape), dtype=np.float64)
-    vals[(oidx,) + tuple(rpos.T)] = coo.data
-    return vals
-
-
-def apply_varying_stencil(u: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``y[p] = sum_o vals[o, p] * u[p + off_o]`` over the 3^d offsets, the
-    slowest axis first (the zero-padded shifts of ``stencil.apply_stencil``),
-    as one product with the 3^d shifted windows of the padded field (views)
-    and one sum over them."""
-    d = u.dim()
-    windows = F.pad(u, (1, 1) * d)
-    for ax, s in enumerate(u.shape):
-        windows = windows.unfold(ax, s, 1)  # (3,) * d + u.shape
-    return (vals.view((3,) * d + tuple(u.shape)) * windows).sum(dim=tuple(range(d)))
+def traffic(sched: LevelSchedule) -> Tuple[int, int]:
+    """``(bytes, flops)`` one apply needs: every entry of the factor with
+    its column read once (f64 + int32), ``r`` and ``perm`` read and ``z``
+    written once; a multiply and a subtraction for each off-diagonal
+    entry, a division a row. The bound of ``band_trisolve``."""
+    return 12 * sched.nnz + 20 * sched.n, 2 * (sched.nnz - sched.n) + sched.n
 
 
 class BandParityILU(nn.Module):
-    """The parity ILU apply, built once a solver (PCSetUp):
-    :meth:`apply` maps the stacked natural-order residual ``(2, *grid)`` to
-    ``P^T U^-1 L^-1 P r``. Buffers: the four packed factors ``PL1``, ``PL2``,
-    ``PU1``, ``PU2`` ``(nb, B, B)`` f64, the permutation ``vperm`` (natural
-    index of each permuted vertex) and its inverse ``ivperm``, and the
-    natural-order stencils ``vals21`` (L21) and ``vals12`` (U12)."""
+    """The parity ILU apply, built once a solver (PCSetUp): :meth:`apply`
+    maps the stacked natural-order residual ``(2, *grid)`` to ``P^T U^-1
+    L^-1 P r``. Buffers: the level-ordered factor ``blob`` (uint8), its
+    descriptors ``desc`` (int32), the permutation ``perm`` (int32) and the
+    kernel's vector ``vec`` (``n`` f64, where it lives in device memory)."""
 
-    def __init__(self, nv: int, B: int, pad: int, grid_shape: Tuple[int, ...], vperm: np.ndarray,
-                 factors: Tuple[torch.Tensor, ...], vals21: np.ndarray, vals12: np.ndarray):
+    def __init__(self, sched: LevelSchedule, device: DeviceLike = None):
         super().__init__()
-        dev = factors[0].device
-        self.nv, self.B, self.pad, self.grid_shape = int(nv), int(B), int(pad), tuple(grid_shape)
-        self.nb = int(factors[0].shape[0])
-        ivperm = np.empty_like(vperm)
-        ivperm[vperm] = np.arange(nv, dtype=vperm.dtype)
-        self.register_buffer("vperm", torch.from_numpy(vperm.astype(np.int64)).to(dev))
-        self.register_buffer("ivperm", torch.from_numpy(ivperm.astype(np.int64)).to(dev))
-        for name, P in zip(("PL1", "PL2", "PU1", "PU2"), factors):
-            self.register_buffer(name, P)
-        self.register_buffer("vals21", torch.from_numpy(vals21).to(dev))
-        self.register_buffer("vals12", torch.from_numpy(vals12).to(dev))
+        dev = resolve_device(device)
+        self.n, self.nlev = sched.n, tuple(sched.nlev)
+        self.blocks, self.shared_vector = sched.blocks, sched.shared_vector
+        self.stages, self.stage_bytes = sched.stages, sched.stage_bytes
+        for name in ("blob", "desc", "perm"):
+            self.register_buffer(name, torch.from_numpy(getattr(sched, name)).to(dev))
+        self.register_buffer("vec", torch.zeros(sched.n, dtype=torch.float64, device=dev))
+        self._desc_host = sched.desc
+        self._twin: Optional[Tuple[int, list]] = None
 
-    def _to_p(self, u: torch.Tensor) -> torch.Tensor:
-        """Natural grid -> permuted, zero-padded to ``nb * B``."""
-        out = u.new_zeros(self.nb * self.B)
-        out[: self.nv] = u.reshape(-1)[self.vperm]
-        return out
-
-    def _to_n(self, yp: torch.Tensor) -> torch.Tensor:
-        """Permuted padded -> natural grid."""
-        return yp[: self.nv][self.ivperm].reshape(self.grid_shape)
+    def levels(self) -> List[Tuple[bool, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
+        """Per level, its blocks' segments side by side, for the twin:
+        ``(upper, rows, entries (rows, width), columns (rows, width),
+        diagonals)``, padding lanes left out and each segment's entries
+        padded to the level's widest (0.0 at column ``n``); built at first
+        use and kept while the buffers stay where they are."""
+        key = self.blob.data_ptr()
+        if self._twin is None or self._twin[0] != key:
+            out, mask = [], (1 << ROW_BITS) - 1
+            for lev, per_block in enumerate(self._desc_host):
+                parts = []
+                width = int(per_block[:, 2].max())
+                for row in per_block:
+                    if row[1] == 0:
+                        continue
+                    vals, diag, cols, words = segment_arrays(self.blob, row)
+                    m, w = vals.shape[:2]
+                    words = words.reshape(-1).long()
+                    ok = words >= 0
+                    a = vals.permute(0, 2, 1).reshape(m * WARP, w)[ok]
+                    c = cols.permute(0, 2, 1).reshape(m * WARP, w)[ok].long()
+                    parts.append((words[ok] & mask, pad(a, (0, width - w)), pad(c, (0, width - w), value=self.n),
+                                  diag.reshape(-1)[ok]))
+                if parts:
+                    out.append((lev >= self.nlev[0], *(torch.cat(t) for t in zip(*parts))))
+            self._twin = (key, out)
+        return self._twin[1]
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """``z = P^T U^-1 L^-1 P r`` on stacked natural fields ``(2, *grid)``."""
-        y1 = tri_apply(self.PL1, self._to_p(r[0]), True, self.pad)
-        # r2' = r2 - L21 y1, in the natural order
-        y2 = tri_apply(self.PL2, self._to_p(r[1] - apply_varying_stencil(self._to_n(y1), self.vals21)), True, self.pad)
-        x2 = tri_apply(self.PU2, y2, False, self.pad)
-        x2n = self._to_n(x2)
-        # y1' = y1 - U12 x2
-        x1 = tri_apply(self.PU1, y1 - self._to_p(apply_varying_stencil(x2n, self.vals12)), False, self.pad)
-        return torch.stack([self._to_n(x1), x2n])
+        return level_apply(self, r.reshape(-1)).view(r.shape)
 
     forward = apply
 
 
-def build_band_parity_ilu(
-    Fc: sp.csr_matrix, perm: np.ndarray, nv: int, grid_shape: Tuple[int, ...], device: DeviceLike = None
-) -> BandParityILU:
-    """The device apply of the host-factored parity system: ``Fc`` the
-    combined ILU(0) factor of ``Ap = A[perm][:, perm]`` (``ordering.parity_system``,
-    ``_native.native_ilu0``), ``perm`` the blocked DoF permutation (field 1's
-    vertices first). The stencils first, then one factor at a time."""
-    dev = resolve_device(device)
-    parts = split_monolithic_factor(Fc, nv)
-    L11, L21, L22, U11, U12, U22 = parts
-    bw = _parts_bandwidth(parts)
-    B = band_block_size(bw)
-    vperm = np.asarray(perm[:nv], dtype=np.int64)
-    vals21 = coupling_stencil_vals(L21, vperm, grid_shape)
-    vals12 = coupling_stencil_vals(U12, vperm, grid_shape)
-    factors = tuple(build_blocks(M, B, lower, dev) for M, lower in ((L11, True), (L22, True), (U11, False), (U22, False)))
-    return BandParityILU(nv, B, B - bw, grid_shape, vperm, factors, vals21, vals12)
+def level_apply_plain(band: BandParityILU, r: torch.Tensor) -> torch.Tensor:
+    """The kernel's twin (plain PyTorch, any device): the vector takes ``r``
+    through the permutation (its slot ``n`` 0.0), then each level in
+    order updates its rows, ``s = s - a[:, k] * y[c[:, k]]`` for each
+    ``k`` (a padding entry, 0.0 times the zero slot, leaves ``s`` as it is),
+    divided by the diagonal in the backward sweep, and ``z`` takes the
+    vector back through the permutation."""
+    n = band.n
+    perm = band.perm.long()
+    vec = r.new_zeros(n + 1)
+    vec[:n] = r[perm]
+    for upper, rows, a, c, d in band.levels():
+        s = vec[rows]
+        for k in range(a.shape[1]):
+            s = s - a[:, k] * vec[c[:, k]]
+        if upper:
+            s = s / d
+        vec[rows] = s
+    z = torch.empty_like(r)
+    z[perm] = vec[:n]
+    return z
+
+
+def launch_args(band: BandParityILU, r: torch.Tensor, z: torch.Tensor, desc: Optional[torch.Tensor] = None,
+                nlev: Optional[Tuple[int, int]] = None) -> tuple:
+    """The launcher's arguments (``desc``/``nlev`` another schedule's
+    levels, for measurements)."""
+    desc = band.desc if desc is None else desc
+    nl, nu = band.nlev if nlev is None else nlev
+    return (
+        r.data_ptr(), z.data_ptr(), band.vec.data_ptr(), band.blob.data_ptr(), desc.data_ptr(),
+        band.perm.data_ptr(), band.n, nl, nu, band.blocks, int(band.shared_vector), band.stages, band.stage_bytes,
+    )
+
+
+def level_apply(band: BandParityILU, r: torch.Tensor) -> torch.Tensor:
+    """:func:`level_apply_plain`'s function on the flat ``(n,)`` f64 ``r``:
+    on CUDA tensors one launch of ``csrc/band_trisolve.cu`` (counted as
+    ``band_trisolve``), on CPU tensors the twin."""
+    if tuple(r.shape) != (band.n,):
+        raise ValueError(f"r has shape {tuple(r.shape)}, expected ({band.n},)")
+    if r.device.type == "cpu" and band.blob.device.type == "cpu":
+        return level_apply_plain(band, r)
+    dev = band.blob.device
+    _cuda.require_cuda_tensor(band.blob, "the factor", torch.uint8, dev)
+    r = r.contiguous()
+    _cuda.require_cuda_tensor(r, "r", torch.float64, dev)
+    z = torch.empty_like(r)
+    _cuda.launch(KERNEL, "perphil_band_trisolve", dev, *launch_args(band, r, z))
+    return z
+
+
+def build_band_parity_ilu(sched: LevelSchedule, device: DeviceLike = None) -> BandParityILU:
+    """The device apply of the host-factored parity system from its
+    schedule (:func:`level_schedule` of the combined ILU(0) factor of ``Ap
+    = A[perm][:, perm]``, ``ordering.parity_system``,
+    ``_native.native_ilu0``)."""
+    return BandParityILU(sched, device)
 
 
 __all__ = [
     "KERNEL",
     "BandPlan",
     "BandParityILU",
-    "apply_varying_stencil",
-    "band_block_size",
+    "LevelSchedule",
     "band_plan",
     "build_band_parity_ilu",
-    "build_blocks",
-    "coupling_stencil_vals",
-    "factor_bandwidth",
-    "split_monolithic_factor",
-    "tri_apply",
-    "tri_apply_plain",
-    "tri_apply_traffic",
+    "launch_args",
+    "level_apply",
+    "level_apply_plain",
+    "level_schedule",
+    "plan_of",
+    "ring_stages",
+    "segment_arrays",
+    "smem_bytes",
+    "sweep_levels",
+    "traffic",
 ]

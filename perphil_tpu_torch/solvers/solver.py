@@ -27,7 +27,7 @@ pattern, factored on the host once a solver:
 
   - on the card, unless ``pc_band_execution: host``
                                        -> ``krylov.gmres`` (K1 matvec) with
-                                          the dense-band ILU apply
+                                          the level-scheduled ILU apply
                                           (``band_trisolve``); a band plan
                                           beyond the card's free memory
                                           raises ``MemoryError``
@@ -106,7 +106,7 @@ from perphil_tpu_torch.ops.assembly import (
     bc_values_per_field,
     coupling_apply,
 )
-from perphil_tpu_torch.ops.bandsolve import band_plan, build_band_parity_ilu, factor_bandwidth
+from perphil_tpu_torch.ops.bandsolve import build_band_parity_ilu, level_schedule, plan_of
 from perphil_tpu_torch.ops.direct import FastDiagFieldSolver, LumpedDPPPreconditioner
 from perphil_tpu_torch.ops.fused_direct import (
     fused_direct_solve,
@@ -468,7 +468,7 @@ def _check_band_memory(need_bytes: int, free_bytes: Optional[int]) -> None:
     never moves to the host engine on its own: the user asks for it."""
     if free_bytes is not None and need_bytes > free_bytes:
         raise MemoryError(
-            f"the band engine needs {need_bytes} bytes of device memory (packed blocks and build workspace), "
+            f"the band engine needs {need_bytes} bytes of device memory (level-ordered factor and vector), "
             f"{free_bytes} are free; pc_band_execution=host runs this solve on the host engine"
         )
 
@@ -482,8 +482,9 @@ def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, froze
     (:func:`_build_band_parity_ilu_solver`) or the host engine
     (:func:`_build_host_parity_ilu_solver`). The returned solve's ``engine``
     says which. ``pc_band_defect_correct`` is accepted and changes nothing:
-    the band blocks are f64, so the JAX package's double-float correction of
-    its f32 blocks has nothing to correct."""
+    the band engine's apply is the host engine's f64 arithmetic, so the JAX
+    package's double-float correction of its f32 blocks has nothing to
+    correct."""
     flat = dict(frozen_sp)
     option = str(flat.get("pc_band_execution", ""))
     engine = _parity_engine(W.device.type == "cuda", option)
@@ -498,22 +499,22 @@ def _build_parity_ilu_solver(W: MixedFunctionSpace, params: DPPParameters, froze
     A, perm, Ap = parity_system(mesh, params)
     if engine == "device":
         Fc, _ = _native.native_ilu0(Ap)
-        nv = mesh.num_vertices
-        _check_band_memory(band_plan(nv, factor_bandwidth(Fc, nv), mesh.dim).total_bytes,
-                           _free_device_bytes(W.device))
-        solve = _build_band_parity_ilu_solver(op, perm, Fc, kw)
+        sched = level_schedule(Fc, perm)
+        _check_band_memory(plan_of(sched).total_bytes, _free_device_bytes(W.device))
+        solve = _build_band_parity_ilu_solver(op, sched, kw)
     else:
         solve = _build_host_parity_ilu_solver(op, A, perm, Ap, kw)
     solve.engine = engine
     return solve
 
 
-def _build_band_parity_ilu_solver(op: DPPOperator, perm, Fc, kw: Dict[str, object]) -> Callable:
+def _build_band_parity_ilu_solver(op: DPPOperator, sched, kw: Dict[str, object]) -> Callable:
     """The band engine: GMRES (``ops/krylov.py::gmres``, the host loop; K1
     matvecs on the card) on the Newton-step system ``A d = b - A x0``, left
-    preconditioned by the dense-band block ILU apply
-    (``ops/bandsolve.py::BandParityILU``, ``band_trisolve`` on the card)."""
-    band = build_band_parity_ilu(Fc, perm, op.mesh.num_vertices, op.grid_shape, op.W.device)
+    preconditioned by the level-scheduled ILU apply of the factor's schedule
+    ``sched`` (``ops/bandsolve.py::BandParityILU``, one ``band_trisolve``
+    launch an apply on the card)."""
+    band = build_band_parity_ilu(sched, op.W.device)
     mv = op.stacked_matvec()
 
     def krylov(r: torch.Tensor):

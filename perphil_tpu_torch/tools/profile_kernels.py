@@ -67,13 +67,28 @@ choice made otherwise (cluster-scope ordering on the halo's mbarriers; a
 reciprocal's product for the divide, which does not keep the bits) and
 with its colour runs sorted by offset instead of dealt by bank.
 
-``--only band`` times ``band_trisolve`` (``csrc/band_trisolve.cu``) alone
-with the package's library, per factor (L11, L22, U11, U22) of the
-ordering-parity ILU at tet nx=4/8/16/24/32/40 (CUDA events, median of 20),
-beside the bound (the packed blocks, r and y once at 3.35 TB/s) and the
-rate it reached; for each size, and at nx=64 alone, it first prints the
-factor's bandwidth and ``band_plan`` (B, nb, packed and workspace bytes),
-computed on the host.
+``--only band`` times ``band_trisolve`` (``csrc/band_trisolve.cu``, the
+level-scheduled sweep) with the package's library at tet nx=16/24/40: each
+engine's host set-up from the factor (host clock, in turns), the apply in
+turns with the first port's dense kernel
+(``csrc/profile/band_trisolve_dense.cu``, built alone, its packing
+``tools/band_dense.py``; dense, level, level, dense), each sweep alone beside
+the dense kernel's four factors, the cuSPARSE pair (``torch.triangular_solve``
+on the factor's sparse triangles) in turns, every placement the plan can take
+(1-16 blocks, the vector in shared or device memory) in turns, each held to
+the twin's bits, an empty level (the same launch with as many levels again
+that hold no rows) and the latency floor it gives, thread 0's cycles a level
+(stage wait, own rows, level barrier; a copy built with
+``PERPHIL_LEVEL_PROFILE``) and the sync-free variant
+(``csrc/profile/band_trisolve_syncfree.cu``: per-row ready flags in place of
+level barriers), a copy with the hardware cluster barrier in place of the
+mbarrier exchange (``PERPHIL_LEVEL_CLUSTER_SYNC``) and a copy whose lanes
+skip the vector's gathers (what they cost; its results are wrong) in turns;
+then
+``structured_ilu_apply`` at 2D N=128 in turns
+with the cuSPARSE pair on its factor. First it prints the plan's schedule
+(rows, entries, padding, levels, placement, ``band_plan``) at tet
+nx=4..64, computed on the host.
 
 ``--only partri`` builds nothing of its own: it times the partri ILU apply
 (``ops/ilu.py::PartriILU``, torch ops) at 2D N=128/256 and tet nx=16
@@ -127,7 +142,8 @@ def build() -> ctypes.CDLL:
     out = _cuda.BUILD_DIR / "profile"
     out.mkdir(parents=True, exist_ok=True)
     lib = out / "libperphil_profile.so"
-    sources = sorted(s for s in (_cuda.CSRC / "profile").glob("*.cu") if s.name != "fused_ngs_cluster.cu")
+    alone = ("fused_ngs_cluster.cu", "band_trisolve_dense.cu", "band_trisolve_syncfree.cu")  # built by their tools
+    sources = sorted(s for s in (_cuda.CSRC / "profile").glob("*.cu") if s.name not in alone)
     procs = [
         subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-c", "-I", str(_cuda.CSRC), "-o", str(out / f"{s.stem}.o"), str(s)],
@@ -954,29 +970,254 @@ def compare_direct(against: Path) -> None:
             f"{t} {r[tag + ' ms'][1]:.4f}" for (t, _), r in zip(turns, runs)), flush=True)
 
 
+def band_libraries() -> dict:
+    """The kernels ``--only band`` builds alone (one ``nvcc`` each, in
+    parallel): ``band_trisolve`` with its phase clocks
+    (``PERPHIL_LEVEL_PROFILE``), a copy with the hardware cluster barrier
+    (``PERPHIL_LEVEL_CLUSTER_SYNC``), a copy without the vector's gathers
+    (timing alone), the sync-free variant
+    (``csrc/profile/band_trisolve_syncfree.cu``) and the first port's dense
+    kernel (``csrc/profile/band_trisolve_dense.cu``, ``tools/band_dense.py``)."""
+    from perphil_tpu_torch.tools import band_dense
+
+    out = _cuda.BUILD_DIR / "band"
+    out.mkdir(parents=True, exist_ok=True)
+    # a copy whose lanes read their column indices in place of the vector's
+    # values (no gathers; for timing alone, its results are wrong)
+    no_gathers = out / "band_trisolve_no_gathers.cu"
+    no_gathers.write_text((_cuda.CSRC / "band_trisolve.cu").read_text().replace(
+        "v[k] = vec.load(cluster, sc[base + 32 * k]);", "v[k] = (double)sc[base + 32 * k];"))
+    units = {"phases": (_cuda.CSRC / "band_trisolve.cu", ["-DPERPHIL_LEVEL_PROFILE"]),
+             "cluster-sync": (_cuda.CSRC / "band_trisolve.cu", ["-DPERPHIL_LEVEL_CLUSTER_SYNC"]),
+             "no-gathers": (no_gathers, []),
+             "syncfree": (_cuda.CSRC / "profile" / "band_trisolve_syncfree.cu", [])}
+    procs = {name: subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, *flags, "-shared", "-I", str(_cuda.CSRC), "-o",
+                                     str(out / f"lib{name}.so"), str(src)], stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, (src, flags) in units.items()}
+    band_dense.library()
+    dlls = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(log)
+        dlls[name] = ctypes.CDLL(str(out / f"lib{name}.so"))
+    for name in ("phases", "cluster-sync", "no-gathers"):
+        dlls[name].perphil_band_trisolve.argtypes = _cuda._SIGNATURES["perphil_band_trisolve"]
+    dlls["phases"].perphil_band_trisolve_profile_take.argtypes = [_P]
+    # r, z, vy, vx, fy, fx, blob, slices, perm, nsl_l, nsl, epoch, stream
+    dlls["syncfree"].perphil_band_trisolve_syncfree.argtypes = [_P] * 9 + [ctypes.c_int] * 3 + [_P]
+    return dlls
+
+
+class SyncFree:
+    """The sync-free variant's launch on a schedule's factor laid out for one
+    block: per slice, in level order, the element offsets of its values,
+    diagonals, columns and rows words in the blob."""
+
+    def __init__(self, dll, Fc, perm, dev):
+        from perphil_tpu_torch.ops import bandsolve as bs
+
+        n = Fc.shape[0]
+        rows = np.repeat(np.arange(n), np.diff(Fc.indptr))
+        on_diag = np.flatnonzero(Fc.indices == rows)
+        parts = [bs._sweep_layout(Fc, rows, on_diag, bs.sweep_levels(Fc, lower), lower, 1) for lower in (True, False)]
+        (bl, dl, _), (bu, du, _) = parts
+        du = du.copy()
+        du[..., 0] += bl.size // 16
+        table = []
+        for off16, m, w, _ in np.concatenate([dl, du])[:, 0].tolist():
+            off, slots, lanes = 16 * off16, 32 * m * w, 32 * m
+            table += [((off + 256 * j * w) // 8, (off + 8 * slots + 256 * j) // 8,
+                       (off + 8 * (slots + lanes) + 128 * j * w) // 4, (off + 12 * slots + 8 * lanes + 128 * j) // 4)
+                      for j in range(m)]
+        self.dll, self.nsl_l, self.nsl = dll, int(dl[:, 0, 1].sum()), len(table)
+        self.blob = torch.from_numpy(np.concatenate([bl, bu])).to(dev)
+        self.slices = torch.tensor(table, dtype=torch.int32, device=dev)
+        self.perm = torch.from_numpy(perm.astype(np.int32)).to(dev)
+        self.vy, self.vx = (torch.zeros(n, dtype=torch.float64, device=dev) for _ in range(2))
+        self.fy, self.fx = (torch.zeros(n, dtype=torch.int32, device=dev) for _ in range(2))
+        self.epoch = 0
+
+    def launch(self, r, z):
+        self.epoch += 1
+        _cuda.check(self.dll.perphil_band_trisolve_syncfree(
+            r.data_ptr(), z.data_ptr(), self.vy.data_ptr(), self.vx.data_ptr(), self.fy.data_ptr(), self.fx.data_ptr(),
+            self.blob.data_ptr(), self.slices.data_ptr(), self.perm.data_ptr(), self.nsl_l, self.nsl, self.epoch,
+            torch.cuda.current_stream().cuda_stream), "sync-free variant")
+
+
+def _turns(runs: dict, order, repeats: int = 20) -> dict:
+    """Each run's median time (CUDA events) in the given order of turns."""
+    times = {}
+    for name in order:
+        times.setdefault(name, []).append(median_ms(runs[name], repeats))
+    return times
+
+
+def _fmt(times) -> str:
+    return " / ".join(f"{t:.4f}" for t in times)
+
+
 def time_band() -> None:
-    """``--only band``: ``band_trisolve`` alone, per factor, at the
-    published tet sizes; the band plans up to nx=64."""
+    """``--only band``: ``band_trisolve`` (the level-scheduled sweep) at tet
+    nx=16/24/40 in turns with the first port's dense kernel, per apply and
+    per sweep; every placement the plan can take, in turns; an empty level
+    (the latency floor); its phase clocks; the hardware cluster barrier and
+    the sync-free variant; the cuSPARSE pair (``torch.triangular_solve`` on
+    the factor's sparse triangles); each engine's host set-up from the
+    factor; and the same pair beside ``structured_ilu_apply`` at 2D N=128;
+    first the band plans up to nx=64 (host)."""
+    import scipy.sparse as sparse
+
     import chip_smoke
     from perphil_tpu_torch.ops import bandsolve as bs
+    from perphil_tpu_torch.tools import band_dense
 
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device="cpu").manual_seed(0)
     for nx in (4, 8, 16, 24, 32, 40, 64):
-        mesh, _, Fc, bw = chip_smoke.parity_factor(nx)
-        nv = mesh.num_vertices
-        plan = bs.band_plan(nv, bw)
-        print(f"tet nx={nx}: {nv} vertices a field, {plan}")
-        if nx == 64:  # the plan only
-            continue
-        L11, _, L22, U11, _, U22 = bs.split_monolithic_factor(Fc, nv)
-        for name, M, lower in (("L11", L11, True), ("L22", L22, True), ("U11", U11, False), ("U22", U22, False)):
-            P = bs.build_blocks(M, plan.B, lower, dev)
-            r = torch.randn(P.shape[0] * plan.B, generator=gen, dtype=torch.float64).to(dev)
-            ms, nbytes, (bound_ms, bound_by) = chip_smoke.band_factor_time(P, r, lower, nv, bw)
-            print(f"  band_trisolve {name}: {ms:.4f} ms (bound {bound_ms:.4f} ms, {bound_by}; "
-                  f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s of the needed bytes)")
-            del P
+        _, perm, Fc, _ = chip_smoke.parity_factor(nx)
+        t0 = time.perf_counter()
+        sched = bs.level_schedule(Fc, perm)
+        print(f"tet nx={nx}: {sched.n} rows, {sched.nnz} entries, {sched.slots} padded entries, {sched.slices} slices, "
+              f"levels {sched.nlev}, {sched.blocks} block(s), vector in {'shared' if sched.shared_vector else 'device'} "
+              f"memory, {sched.stages} stages of {sched.stage_bytes} B (schedule {time.perf_counter() - t0:.2f} s); "
+              f"{bs.plan_of(sched)}", flush=True)
+    dlls = band_libraries()
+    stream = torch.cuda.current_stream().cuda_stream
+    for nx in (16, 24, 40):
+        mesh, perm, Fc, _ = chip_smoke.parity_factor(nx)
+        n, grid = Fc.shape[0], (2,) + tuple(mesh.node_shape)
+        band = bs.build_band_parity_ilu(bs.level_schedule(Fc, perm), dev)
+        r = torch.randn(n, generator=gen, dtype=torch.float64).to(dev)
+        ref = bs.level_apply_plain(band, r)
+        z = torch.empty_like(r)
+        nl, nu = band.nlev
+
+        def level(b=band, desc=None, nlev=None, dll=None):
+            return lambda: _cuda.check((dll or _cuda.library()).perphil_band_trisolve(
+                *bs.launch_args(b, r, z, desc, nlev), stream), "band_trisolve")
+
+        # the host set-up of each engine from the same factor, in turns (host
+        # clock): the dense engine's bandwidth, plan and packed blocks against
+        # the level schedule, its plan and its upload
+        def setup(kind):
+            t0 = time.perf_counter()
+            if kind == "dense":
+                nv = mesh.num_vertices
+                band_dense.dense_band_plan(nv, band_dense.factor_bandwidth(Fc, nv))
+                built = band_dense.build_dense_band_ilu(Fc, perm, nv, tuple(mesh.node_shape), dev)
+            else:
+                sched = bs.level_schedule(Fc, perm)
+                bs.plan_of(sched)
+                built = bs.build_band_parity_ilu(sched, dev)
+            torch.cuda.synchronize()
+            return built, (time.perf_counter() - t0) * 1e3
+
+        walls = {}
+        for kind in ("dense", "level", "level", "dense"):
+            built, ms = setup(kind)
+            walls.setdefault(kind, []).append(ms)
+            del built
+        print(f"tet nx={nx} host set-up from the factor: dense engine {_fmt(walls['dense'])} ms, level schedule "
+              f"{_fmt(walls['level'])} ms (host clock, in turns)", flush=True)
+        # the first port's dense engine on the same factor
+        dense = band_dense.build_dense_band_ilu(Fc, perm, mesh.num_vertices, tuple(mesh.node_shape), dev)
+        rg = r.view(grid)
+        runs = {"dense": lambda: dense.apply(rg), "level": level()}
+        times = _turns(runs, ("dense", "level", "level", "dense"))
+        if not torch.equal(z, ref):
+            raise RuntimeError(f"nx={nx}: band_trisolve differs from its twin")
+        dense_err = chip_smoke.rel(dense.apply(rg).reshape(-1), ref)
+        sweeps = {"forward": level(nlev=(nl, 0)),
+                  "backward": level(desc=band.desc[nl:].contiguous(), nlev=(0, nu))}
+        for name, lower, P in (("L11", True, dense.PL1), ("L22", True, dense.PL2), ("U22", False, dense.PU2),
+                               ("U11", False, dense.PU1)):
+            rp = torch.randn(P.shape[0] * P.shape[1], generator=gen, dtype=torch.float64).to(dev)
+            sweeps[name] = (lambda P=P, rp=rp, lower=lower: band_dense.tri_apply(P, rp, lower, dense.pad))
+        st = _turns(sweeps, list(sweeps) + list(sweeps)[::-1])
+        # the cuSPARSE pair on the same factor, in turns
+        lib = chip_smoke.sparse_pair(sparse.tril(Fc, -1), sparse.triu(Fc), dev)
+        rp = r[band.perm.long()]
+        lib_err = chip_smoke.rel(lib(rp), ref[band.perm.long()])
+        lt = _turns({"level": level(), "cusparse": lambda: lib(rp)}, ("level", "cusparse", "cusparse", "level"), 10)
+        print(f"tet nx={nx} apply: band_trisolve {_fmt(times['level'])} ms, dense kernel {_fmt(times['dense'])} ms "
+              f"(in turns; its max rel diff {dense_err:.2e}); forward sweep {_fmt(st['forward'])} ms, backward "
+              f"{_fmt(st['backward'])}; dense factors L11 {_fmt(st['L11'])}, L22 {_fmt(st['L22'])}, U22 "
+              f"{_fmt(st['U22'])}, U11 {_fmt(st['U11'])} ms; cuSPARSE pair {_fmt(lt['cusparse'])} ms against "
+              f"{_fmt(lt['level'])} (max rel diff {lib_err:.2e}); plan {band.blocks} block(s), shared vector "
+              f"{band.shared_vector}", flush=True)
+        del dense, lib
+        # every placement, in turns, each held to the twin's bits
+        cases = {}
+        for blocks in bs.BLOCK_COUNTS:
+            for shared in (True, False):
+                try:
+                    cases[(blocks, shared)] = bs.build_band_parity_ilu(bs.level_schedule(Fc, perm, blocks, shared), dev)
+                except ValueError:
+                    continue
+        pt = _turns({k: level(b) for k, b in cases.items()}, list(cases) * 2)
+        for k, b in cases.items():
+            level(b)()
+            if not torch.equal(z, ref):
+                raise RuntimeError(f"nx={nx}: placement {k} differs from the twin")
+        print(f"  placements at nx={nx} ({nl + nu} levels): " + "; ".join(
+            f"{k[0]} block(s) {'shared' if k[1] else 'device'} {_fmt(pt[k])} ms" for k in cases), flush=True)
+        # the empty level: as many levels again with no rows, where they fit
+        L = nl + nu
+        if bs.smem_bytes(n, 2 * L, band.stages, band.stage_bytes, band.shared_vector, band.blocks) <= bs.SMEM_BUDGET:
+            desc2 = torch.cat([band.desc, torch.zeros_like(band.desc)]).contiguous()
+            et = _turns({"this": level(), "empty": level(desc=desc2, nlev=(nl, nu + L))},
+                        ("this", "empty", "empty", "this"))
+            empty_us = (statistics.mean(et["empty"]) - statistics.mean(et["this"])) * 1e3 / L
+            print(f"  empty level: {_fmt(et['empty'])} ms with {L} empty levels against {_fmt(et['this'])}: "
+                  f"{empty_us:.3f} us an empty level; latency floor {L} x that = {L * empty_us / 1e3:.4f} ms",
+                  flush=True)
+        # the phase clocks (thread 0 of block 0)
+        prof = dlls["phases"]
+        buf = (ctypes.c_ulonglong * 3)()
+        level(dll=prof)()
+        torch.cuda.synchronize()
+        prof.perphil_band_trisolve_profile_take(ctypes.addressof(buf))
+        for _ in range(10):
+            level(dll=prof)()
+        torch.cuda.synchronize()
+        prof.perphil_band_trisolve_profile_take(ctypes.addressof(buf))
+        print("  cycles a level (thread 0 of block 0): " + ", ".join(
+            f"{name} {b / 10 / L:.0f}" for name, b in zip(("stage wait", "own rows", "level barrier"), buf)), flush=True)
+        # the hardware cluster barrier in place of the mbarrier exchange, in turns
+        if band.blocks > 1:
+            ht = _turns({"this": level(), "barrier.cluster": level(dll=dlls["cluster-sync"])},
+                        ("this", "barrier.cluster", "barrier.cluster", "this"))
+            level(dll=dlls["cluster-sync"])()
+            if not torch.equal(z, ref):
+                raise RuntimeError(f"nx={nx}: the cluster-barrier copy differs from the twin")
+            print(f"  hardware cluster barrier {_fmt(ht['barrier.cluster'])} ms against the mbarrier exchange "
+                  f"{_fmt(ht['this'])} (in turns)", flush=True)
+        # what the vector's gathers cost: the copy without them, in turns
+        gt = _turns({"this": level(), "no gathers": level(dll=dlls["no-gathers"])},
+                    ("this", "no gathers", "no gathers", "this"))
+        print(f"  without the vector's gathers (wrong results, timing alone) {_fmt(gt['no gathers'])} ms against "
+              f"{_fmt(gt['this'])} (in turns)", flush=True)
+        # the sync-free variant, in turns
+        sync = SyncFree(dlls["syncfree"], Fc, perm, dev)
+        zs = torch.empty_like(r)
+        vt = _turns({"this": level(), "sync-free": lambda: sync.launch(r, zs)}, ("this", "sync-free", "sync-free", "this"))
+        print(f"  sync-free variant {_fmt(vt['sync-free'])} ms against {_fmt(vt['this'])} (in turns); bit for bit: "
+              f"{bool(torch.equal(zs, ref))}", flush=True)
+        del band, cases, sync
+    # the cuSPARSE pair beside structured_ilu_apply
+    from perphil_tpu_torch.ops.ilu import StructuredILU0
+
+    W, params, _, _, _ = chip_smoke.problem("quad", 128, dev)
+    pc = StructuredILU0.for_monolithic(W.mesh, params)
+    r = torch.randn(pc.nrows, generator=gen, dtype=torch.float64).to(dev)
+    lib = chip_smoke.sparse_pair(*chip_smoke.structured_factor(pc), dev)
+    err = chip_smoke.rel(lib(r), pc.launch(r))
+    lt = _turns({"kernel": lambda: pc.launch(r), "cusparse": lambda: lib(r)}, ("kernel", "cusparse", "cusparse", "kernel"))
+    print(f"structured_ilu_apply 2D N=128 monolithic: {_fmt(lt['kernel'])} ms, cuSPARSE pair {_fmt(lt['cusparse'])} ms "
+          f"(in turns; max rel diff {err:.2e})", flush=True)
 
 
 def time_partri() -> None:

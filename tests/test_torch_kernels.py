@@ -669,32 +669,55 @@ def test_picard_beyond_the_plan_takes_the_host_loop(cuda, monkeypatch):
     assert sol.iteration_number == 63
 
 
-@pytest.mark.parametrize("lower", [True, False], ids=["lower", "upper"])
-@pytest.mark.parametrize("B,nb,bw", [(64, 2, 34), (2144, 3, 2125)], ids=["B64", "B2144"])
-def test_band_trisolve_matches_twin(cuda, B, nb, bw, lower):
-    """The kernel against its twin on random packed blocks, entries outside
-    both supports included (neither may read them); one launch, counted."""
-    rng = np.random.default_rng(B)
-    P = torch.from_numpy(rng.standard_normal((nb, B, B)) * (0.5 / B)).to(cuda)
-    r = torch.from_numpy(rng.standard_normal(nb * B)).to(cuda)
+def _parity_factor(nx):
+    mesh = StructuredMesh(cells=(nx, nx, nx), element="tet")
+    _, perm, Ap = parity_system(mesh, DPPParameters())
+    Fc, diag = _native.native_ilu0(Ap)
+    return mesh, perm, Fc, diag
+
+
+# (tet nx, blocks, vector in shared memory; None: the plan's): the plan's
+# placements (nx=8, 24, 40), one block with the vector in device memory,
+# clusters of 2, 4 and 16 blocks with the vector spread over their shared
+# memory or in device memory
+BAND_PLACEMENTS = [(8, None, None), (24, None, None), (40, None, None), (8, 1, False), (12, 2, True),
+                   (12, 2, False), (12, 4, True), (16, 16, True), (16, 16, False)]
+
+
+@pytest.mark.parametrize("nx,blocks,shared", BAND_PLACEMENTS,
+                         ids=[f"nx{n}-{b or 'plan'}-{'smem' if s else 'l2' if s is False else ''}"
+                              for n, b, s in BAND_PLACEMENTS])
+def test_band_trisolve_matches_twin(cuda, nx, blocks, shared):
+    """The level-scheduled kernel against its twin bit for bit (torch.equal)
+    on each placement, one launch, counted; the same bits on a second
+    launch (no race between levels)."""
+    mesh, perm, Fc, _ = _parity_factor(nx)
+    sched = bs.level_schedule(Fc, perm, blocks, shared)
+    assert shared is None or (sched.blocks, sched.shared_vector) == (blocks, shared)
+    band = bs.build_band_parity_ilu(sched, cuda)
+    r = torch.from_numpy(np.random.default_rng(nx).standard_normal(Fc.shape[0])).to(cuda)
     before = _cuda.KERNEL_LAUNCHES[bs.KERNEL]
-    y = bs.tri_apply(P, r, lower, B - bw)
+    z = bs.level_apply(band, r)
     torch.cuda.synchronize()
     assert _cuda.KERNEL_LAUNCHES[bs.KERNEL] == before + 1
-    ref = bs.tri_apply_plain(P, r, lower, B - bw)
-    assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-13
-    assert torch.equal(y, bs.tri_apply(P, r, lower, B - bw))  # the sums in a fixed order
+    assert torch.equal(z, bs.level_apply_plain(band, r))
+    assert torch.equal(z, bs.level_apply(band, r))
 
 
 def test_band_apply_on_the_card_matches_the_cpu(cuda):
-    """The whole parity ILU apply (four launches, the stencils, the
-    permutations) against the same apply on the CPU, at tet nx=8."""
-    mesh = StructuredMesh(cells=(8, 8, 8), element="tet")
-    _, perm, Ap = parity_system(mesh, DPPParameters())
-    Fc, _ = _native.native_ilu0(Ap)
-    r = torch.from_numpy(np.random.default_rng(6).standard_normal((2,) + mesh.node_shape))
-    ref = bs.build_band_parity_ilu(Fc, perm, mesh.num_vertices, mesh.node_shape, "cpu").apply(r)
+    """The whole parity ILU apply (one launch) against the same apply on the
+    CPU (the twin) and the host engine's sequential apply, bit for bit, at
+    tet nx=8."""
+    from perphil_tpu_torch.ops.ordering import host_ilu_apply
+
+    mesh, perm, Fc, diag = _parity_factor(8)
+    sched = bs.level_schedule(Fc, perm)
+    r = np.random.default_rng(6).standard_normal((2,) + mesh.node_shape)
+    ref = bs.build_band_parity_ilu(sched, "cpu").apply(torch.from_numpy(r))
     before = _cuda.KERNEL_LAUNCHES[bs.KERNEL]
-    got = bs.build_band_parity_ilu(Fc, perm, mesh.num_vertices, mesh.node_shape, cuda).apply(r.to(cuda))
-    assert _cuda.KERNEL_LAUNCHES[bs.KERNEL] == before + 4
-    assert float((got.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-13
+    got = bs.build_band_parity_ilu(sched, cuda).apply(torch.from_numpy(r).to(cuda))
+    assert _cuda.KERNEL_LAUNCHES[bs.KERNEL] == before + 1
+    assert torch.equal(got.cpu(), ref)
+    host = np.empty(r.size)
+    host[perm] = host_ilu_apply(Fc, diag, r.ravel()[perm])
+    assert np.array_equal(got.cpu().numpy().ravel(), host)

@@ -4,9 +4,14 @@ CPU against the JAX package, on the same seeded inputs:
 - the orderings (``cell_rcm_parity``, ``cell_rcm``, ``blocked``), array for
   array; the CSR system in the reference's pattern; the ILU(0) factors (the
   port's numpy and C++ paths against the JAX package's C++ one);
-- the dense-band pieces: ``tri_apply_plain`` against scipy's triangular
-  solve, the coupling stencils against the SpMV, ``BandParityILU.apply``
-  against the JAX package's sequential ``host_ilu_apply``;
+- the level schedule of the band engine (every dependency in an earlier
+  level, every row once), its twin ``level_apply_plain`` bit for bit
+  against the port's and the JAX package's sequential ``host_ilu_apply``
+  on the same factor, ``BandParityILU.apply`` against the JAX package's
+  apply;
+- the first port's dense-band pieces, which ``tools/band_dense.py`` keeps
+  for measurements: ``tri_apply_plain`` against scipy's triangular solve,
+  the coupling stencils against the SpMV;
 - ``solve_dpp`` on both engines against the JAX package's solve (the
   published 6/8 at tet nx=4/8), the preonly routing quirk, the engine
   choice, its cache key, the memory guard and ``band_plan``'s table.
@@ -49,6 +54,7 @@ from perphil_tpu_torch.ops import ordering as od
 from perphil_tpu_torch.solvers import solve_dpp
 from perphil_tpu_torch.solvers import solver
 from perphil_tpu_torch.solvers.solver import _build_linear_solver, _check_band_memory, _freeze, _parity_engine
+from perphil_tpu_torch.tools import band_dense as bd
 
 PARAMS = {"k1": 1.2, "beta": 0.9}
 RCM = {**sp_.GMRES_ILU_PARAMS, "pc_factor_mat_ordering_type": "rcm"}
@@ -180,14 +186,14 @@ def _random_banded(n, bw, seed, lower):
 @pytest.mark.parametrize("n,bw", [(600, 90), (500, 70), (64, 31)], ids=["600", "500", "64"])
 def test_tri_apply_plain_matches_scipy(n, bw, lower):
     M = _random_banded(n, bw, 0 if lower else 3, lower)
-    B = bs.band_block_size(bw)
+    B = bd.band_block_size(bw)
     assert B % 32 == 0 and B >= bw + 1 and B - 32 < bw + 1
-    P = bs.build_blocks(M, B, lower, "cpu")
+    P = bd.build_blocks(M, B, lower, "cpu")
     assert P.dtype == torch.float64 and P.shape == (-(-n // B), B, B)
     r = np.random.default_rng(1).standard_normal(n)
     rp = np.zeros(P.shape[0] * B)
     rp[:n] = r
-    y = bs.tri_apply_plain(P, torch.from_numpy(rp), lower, B - bw).numpy()
+    y = bd.tri_apply_plain(P, torch.from_numpy(rp), lower, B - bw).numpy()
     ref = spsolve_triangular((M + sp.eye(n)).tocsr() if lower else M, r, lower=lower, unit_diagonal=lower)
     assert _rel(y[:n], ref) <= 1e-13
     assert not y[n:].any()  # padded tail rows stay zero
@@ -198,9 +204,9 @@ def test_tri_apply_plain_matches_scipy(n, bw, lower):
 def test_tri_apply_traffic_counts_the_masked_entries(n, bw, lower):
     """The bound's bytes: the twin's masks counted entry by entry over the
     real rows and columns, the first step's coupling left out."""
-    B = bs.band_block_size(bw)
+    B = bd.band_block_size(bw)
     nb = -(-n // B)
-    xmask, cmask = (m.numpy() for m in bs._masks(B, B - bw, lower, "cpu"))
+    xmask, cmask = (m.numpy() for m in bd._masks(B, B - bw, lower, "cpu"))
     real = [min(B, n - k * B) for k in range(nb)]
     entries = 0
     for k in range(nb):
@@ -208,23 +214,23 @@ def test_tri_apply_traffic_counts_the_masked_entries(n, bw, lower):
         nbr = k - 1 if lower else k + 1
         if 0 <= nbr < nb:
             entries += int(cmask[: real[k], : real[nbr]].sum())
-    assert bs.tri_apply_traffic(n, B, B - bw, lower) == (8 * (entries + 2 * n), 2 * entries)
+    assert bd.tri_apply_traffic(n, B, B - bw, lower) == (8 * (entries + 2 * n), 2 * entries)
 
 
 def test_tri_apply_on_the_cpu_is_the_twin_and_launches_nothing():
     M = _random_banded(200, 40, 5, True)
-    P = bs.build_blocks(M, 64, True, "cpu")
+    P = bd.build_blocks(M, 64, True, "cpu")
     r = torch.from_numpy(np.random.default_rng(2).standard_normal(P.shape[0] * 64))
     before = dict(_cuda.KERNEL_LAUNCHES)
-    y = bs.tri_apply(P, r, True, 64 - 40)
+    y = bd.tri_apply(P, r, True, 64 - 40)
     assert dict(_cuda.KERNEL_LAUNCHES) == before
-    assert torch.equal(y, bs.tri_apply_plain(P, r, True, 64 - 40))
+    assert torch.equal(y, bd.tri_apply_plain(P, r, True, 64 - 40))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        bs.tri_apply(P, r.to("meta"), True, 24)
+        bd.tri_apply(P, r.to("meta"), True, 24)
     with pytest.raises(ValueError, match="expected"):
-        bs.tri_apply(P, r[:-1], True, 24)
+        bd.tri_apply(P, r[:-1], True, 24)
     with pytest.raises(ValueError, match="bandwidth exceeds"):
-        bs.build_blocks(M, 32, True, "cpu")
+        bd.build_blocks(M, 32, True, "cpu")
 
 
 @pytest.mark.parametrize("element,cells", [("tet", (4, 4, 4)), ("triangle", (8, 8))], ids=["tet4", "tri8"])
@@ -233,36 +239,153 @@ def test_split_and_coupling_stencils_match_jax_and_the_spmv(element, cells):
     _, tm = _meshes(element, cells)
     nv, shape = tm.num_vertices, tm.node_shape
     F, _ = _native.native_ilu0(Ap)
-    parts = bs.split_monolithic_factor(F, nv)
+    parts = bd.split_monolithic_factor(F, nv)
     jparts = jbs.split_monolithic_factor(F, nv)
     assert all((a != b).nnz == 0 for a, b in zip(parts, jparts))
     vperm = perm[:nv]
     u = np.random.default_rng(4).standard_normal(shape)
     for M in (parts[1], parts[4]):  # L21, U12
-        vals = bs.coupling_stencil_vals(M, vperm, shape)
+        vals = bd.coupling_stencil_vals(M, vperm, shape)
         assert vals.dtype == np.float64
         assert np.array_equal(vals, jbs.coupling_stencil_vals_f64(M, vperm, shape))
-        y = bs.apply_varying_stencil(torch.from_numpy(u), torch.from_numpy(vals)).numpy()
+        y = bd.apply_varying_stencil(torch.from_numpy(u), torch.from_numpy(vals)).numpy()
         ref = M @ u.ravel()[vperm]
         assert np.abs(y.ravel()[vperm] - ref).max() <= 1e-14 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("element,cells", [("tet", (4, 4, 4)), ("tet", (8, 8, 8)), ("triangle", (8, 8)),
-                                           ("quad", (4, 4))], ids=["tet4", "tet8", "tri8", "quad4"])
+LEVEL_MESHES = [("tet", (4, 4, 4)), ("tet", (8, 8, 8)), ("triangle", (8, 8)), ("quad", (4, 4))]
+LEVEL_IDS = ["tet4", "tet8", "tri8", "quad4"]
+
+
+def _factor(element, cells):
+    (_, _, _), (_, perm, Ap) = _systems(element, cells)
+    F, diag = _native.native_ilu0(Ap)
+    return F, diag, perm
+
+
+@pytest.mark.parametrize("lower", [True, False], ids=["forward", "backward"])
+@pytest.mark.parametrize("element,cells", LEVEL_MESHES, ids=LEVEL_IDS)
+def test_sweep_levels_are_a_valid_schedule(element, cells, lower):
+    """Every row a sweep reads lies in an earlier level, and each row's
+    level is the least such (1 + its dependencies' largest, 0 without any);
+    the layout holds every row exactly once in its sweep, in level order,
+    and each row's entries in its CSR order."""
+    F, diag, perm = _factor(element, cells)
+    n = F.shape[0]
+    level = bs.sweep_levels(F, lower)
+    for i in range(n):
+        lo, hi = (F.indptr[i], diag[i]) if lower else (diag[i] + 1, F.indptr[i + 1])
+        deps = F.indices[lo:hi]
+        assert level[i] == (level[deps].max() + 1 if deps.size else 0)
+    sched = bs.level_schedule(F, perm, 2)  # rows dealt to two blocks by parity
+    blob = torch.from_numpy(sched.blob)
+    nl, nu = sched.nlev
+    assert (nl if lower else nu) == level.max() + 1
+    levels = range(nl) if lower else range(nl, nl + nu)
+    mask = (1 << bs.ROW_BITS) - 1
+    seen = []
+    for lev in levels:
+        for b, desc in enumerate(sched.desc[lev]):
+            vals, dg, cols, words = (t.numpy() for t in bs.segment_arrays(blob, desc))
+            m, w = vals.shape[:2]
+            assert (words[:-1] >= 0).all()  # padding lanes only in a segment's last slice
+            for (j, t), word in np.ndenumerate(words):
+                if word < 0:
+                    continue
+                i, count = word & mask, word >> bs.ROW_BITS
+                assert level[i] == lev - (0 if lower else nl) and i % 2 == b
+                lo, hi = (F.indptr[i], diag[i]) if lower else (diag[i] + 1, F.indptr[i + 1])
+                assert count == hi - lo <= w
+                assert np.array_equal(cols[j, :count, t], F.indices[lo:hi])
+                assert np.array_equal(vals[j, :count, t], F.data[lo:hi])
+                assert (cols[j, count:, t] == n).all() and not vals[j, count:, t].any()
+                assert dg[j, t] == F.data[diag[i]]
+                seen.append(i)
+    assert sorted(seen) == list(range(n))
+
+
+LEVEL_APPLIES = [("tet", (4, 4, 4), None, None), ("tet", (8, 8, 8), None, None), ("triangle", (8, 8), None, None),
+                 ("tet", (4, 4, 4), 4, True), ("tet", (8, 8, 8), 16, False), ("triangle", (8, 8), 2, False)]
+
+
+@pytest.mark.parametrize("element,cells,blocks,shared", LEVEL_APPLIES,
+                         ids=[f"{e}{c[0]}-{b or 'plan'}" for e, c, b, _ in LEVEL_APPLIES])
+def test_level_twin_is_bit_equal_to_host_ilu_apply(element, cells, blocks, shared):
+    """The kernel's twin on the plan's placement and on clusters (the
+    vector spread over their shared memory, or in device memory), bit for
+    bit (np.array_equal) against the port's and the JAX package's
+    sequential ``host_ilu_apply`` on the same factor."""
+    F, diag, perm = _factor(element, cells)
+    sched = bs.level_schedule(F, perm, blocks, shared)
+    assert sched.blocks == (blocks or 1) and sched.shared_vector == (shared is not False)
+    band = bs.build_band_parity_ilu(sched, "cpu")
+    r = np.random.default_rng(7).standard_normal(F.shape[0])
+    z = bs.level_apply_plain(band, torch.from_numpy(r)).numpy()
+    for host_ilu_apply in (od.host_ilu_apply, jod.host_ilu_apply):
+        ref = np.empty_like(r)
+        ref[perm] = host_ilu_apply(F, diag, r[perm])
+        assert np.array_equal(z, ref)
+
+
+@pytest.mark.parametrize("element,cells", LEVEL_MESHES, ids=LEVEL_IDS)
 def test_band_apply_matches_jax_host_ilu_apply(element, cells):
+    """``BandParityILU.apply`` on stacked natural fields: the JAX package's
+    sequential apply of the same factor at its bits, and of its own C++
+    factor (a rounding away, ``-march=native``) to 1e-13."""
     (_, jperm, jAp), (_, perm, Ap) = _systems(element, cells)
     _, tm = _meshes(element, cells)
-    nv = tm.num_vertices
-    jF, jdiag = jod.native_ilu0(jAp)
-    F, _ = _native.native_ilu0(Ap)
-    band = bs.build_band_parity_ilu(F, perm, nv, tm.node_shape, "cpu")
-    assert band.B == bs.band_block_size(bs.factor_bandwidth(F, nv)) and band.pad >= 1
+    F, diag = _native.native_ilu0(Ap)
+    band = bs.build_band_parity_ilu(bs.level_schedule(F, perm), "cpu")
     r = np.random.default_rng(9).standard_normal((2,) + tm.node_shape)
     z = band.apply(torch.from_numpy(r)).numpy().ravel()
     iperm = np.empty_like(jperm)
     iperm[jperm] = np.arange(jperm.size)
-    ref = jod.host_ilu_apply(jF, jdiag, r.ravel()[jperm])[iperm]
-    assert _rel(z, ref) <= 1e-13
+    assert np.array_equal(z, jod.host_ilu_apply(F, diag, r.ravel()[jperm])[iperm])
+    jF, jdiag = jod.native_ilu0(jAp)
+    assert _rel(z, jod.host_ilu_apply(jF, jdiag, r.ravel()[jperm])[iperm]) <= 1e-13
+
+
+def test_level_apply_on_the_cpu_is_the_twin_and_launches_nothing():
+    F, _, perm = _factor("tet", (4, 4, 4))
+    band = bs.build_band_parity_ilu(bs.level_schedule(F, perm), "cpu")
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal(F.shape[0]))
+    before = dict(_cuda.KERNEL_LAUNCHES)
+    z = bs.level_apply(band, r)
+    assert dict(_cuda.KERNEL_LAUNCHES) == before
+    assert torch.equal(z, bs.level_apply_plain(band, r))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bs.level_apply(band, r.to("meta"))
+    with pytest.raises(ValueError, match="expected"):
+        bs.level_apply(band, r[:-1])
+
+
+def test_level_schedule_placement_and_ring():
+    """The plan's placement: the vector in shared memory on the fewest
+    blocks whose share of it and a two-stage ring fit ``kLevelSmemBudget``,
+    else the rule's cluster with the vector in device memory; the ring as
+    deep as the budget allows, as the launcher computes it (worked by
+    hand)."""
+    F, _, perm = _factor("tet", (8, 8, 8))
+    sched = bs.level_schedule(F, perm)
+    assert (sched.blocks, sched.shared_vector, sched.nlev) == (1, True, (87, 87))
+    assert sched.stages == bs.ring_stages(F.shape[0], 174, sched.stage_bytes, True, 1) == 4
+    # mbarriers 64 B, 174 descriptors of 16 B (2,848 B, aligned to 2,944), the
+    # ring, the vector's 1,458 doubles (729 a block on two)
+    assert bs.smem_bytes(1458, 174, 4, 9600, True, 1) == 2944 + 38_400 + 11_664
+    assert bs.smem_bytes(1458, 174, 4, 9600, True, 2) == 2944 + 38_400 + 5_832
+    assert bs.smem_bytes(1458, 174, 4, 9600, False, 16) == 2944 + 38_400
+    assert bs.ring_stages(1458, 174, 60_000, True, 1) == 3  # 2944 + 180,000 + 11,664 = 194,608
+    assert bs.ring_stages(1458, 174, 80_000, True, 1) == 2
+    assert bs.ring_stages(1458, 174, 120_000, True, 1) == 0
+    assert bs.ring_stages(1458, 174, 114_000, False, 16) == 2  # 2944 + 228,000 = 230,944 <= 232,448
+    # a vector of 31,250 doubles (tet nx=24) takes two blocks' shared memory
+    assert bs.smem_bytes(31_250, 494, 4, 9600, True, 2) == 8064 + 38_400 + 125_000
+    cluster = bs.level_schedule(F, perm, 16, False)
+    assert (cluster.blocks, cluster.shared_vector) == (16, False)
+    assert cluster.desc.shape == (174, 16, 4) and cluster.stage_bytes < sched.stage_bytes
+    assert bs.level_schedule(F, perm, 4).shared_vector
+    with pytest.raises(ValueError, match="blocks"):
+        bs.level_schedule(F, perm, 3)
 
 
 def _manufactured(element, cells):
@@ -358,36 +481,44 @@ def test_engine_choice_and_memory_guard(monkeypatch):
     monkeypatch.setattr(solver, "_free_device_bytes", lambda device: 1000)
 
     def no_build(*args, **kwargs):
-        raise AssertionError("blocks built before the memory check")
+        raise AssertionError("the factor built before the memory check")
 
     monkeypatch.setattr(solver, "build_band_parity_ilu", no_build)
     zero = np.zeros((5, 5, 5))
     state = from_numpy_state({"k2": 3.0}, (4, 4, 4), "tet", zero, zero, device="cpu")
-    plan = bs.band_plan(125, 34)
+    _, perm, Ap = od.parity_system(state.W.mesh, state.params)
+    plan = bs.plan_of(bs.level_schedule(_native.native_ilu0(Ap)[0], perm))
+    assert plan.total_bytes > 1000
     with pytest.raises(MemoryError, match=f"needs {plan.total_bytes} bytes"):
         solve_dpp(state.W, state.params, state.bcs, solver_parameters={**RCM, "pc_band_execution": "device"})
 
 
-# band_plan worked by hand: B the smallest multiple of 32 above the
-# bandwidth, nb = ceil((nx+1)^3 / B), four packed factors of nb B^2 f64.
-# The bandwidths are the factors' (tet, cell-RCM parity draw); nx=64's,
-# 5317, from its factor (tools/profile_kernels.py --only band prints it).
-PLAN_TABLE = [  # nx, bandwidth, B, nb, packed bytes
-    (4, 34, 64, 2, 262_144),
-    (8, 108, 128, 6, 3_145_728),
-    (16, 373, 384, 13, 61_341_696),
-    (24, 797, 800, 20, 409_600_000),
-    (40, 2125, 2144, 33, 4_854_153_216),
-    (64, 5317, 5344, 52, 47_521_071_104),
+# band_plan worked by hand: the level-ordered factor is 12 B a padded entry
+# (f64 value, int32 column), 12 B a lane (row word, f64 diagonal) at 32
+# lanes a slice, 16 B a descriptor (levels x blocks) and 4 B a row of the
+# permutation; the workspace the vector's n doubles and 2 MiB for each of
+# the four buffers that the caching allocator may add. nx <= 16: the counts are the real
+# factor's (checked below); nx=24/40/64 the plan's schedule of the factor
+# (tools/profile_kernels.py --only band prints them).
+PLAN_TABLE = [  # nx, rows, padded entries, slices, levels, blocks, factor bytes, workspace bytes
+    (4, 250, 44_288, 94, 94, 1, 570_056, 8_390_608),
+    (8, 1_458, 115_008, 192, 174, 1, 1_462_440, 8_400_272),
+    (16, 9_826, 546_816, 797, 334, 1, 6_912_488, 8_467_216),
+    (24, 31_250, 4_276_864, 6_636, 494, 16, 54_122_056, 8_638_608),
+    (40, 137_842, 10_607_008, 15_561, 814, 16, 134_019_272, 9_491_344),
+    (64, 549_250, 31_465_600, 44_840, 1_294, 16, 397_334_024, 12_782_608),
 ]
 
 
-@pytest.mark.parametrize("nx,bw,B,nb,packed", PLAN_TABLE, ids=[f"nx{r[0]}" for r in PLAN_TABLE])
-def test_band_plan_table(nx, bw, B, nb, packed):
-    plan = bs.band_plan((nx + 1) ** 3, bw)
-    assert (plan.bandwidth, plan.B, plan.nb, plan.packed_bytes) == (bw, B, nb, packed)
-    assert 0 < plan.workspace_bytes < plan.packed_bytes or nx == 4
-    assert plan.total_bytes == plan.packed_bytes + plan.workspace_bytes
-    if nx <= 16:  # the bandwidth is the factor's
-        (_, _, _), (_, _, Ap) = _systems("tet", (nx,) * 3)
-        assert bs.factor_bandwidth(_native.native_ilu0(Ap)[0], (nx + 1) ** 3) == bw
+@pytest.mark.parametrize("nx,n,slots,slices,levels,blocks,factor,workspace", PLAN_TABLE,
+                         ids=[f"nx{r[0]}" for r in PLAN_TABLE])
+def test_band_plan_table(nx, n, slots, slices, levels, blocks, factor, workspace):
+    plan = bs.band_plan(n, slots, slices, levels, blocks)
+    assert (plan.levels, plan.blocks, plan.factor_bytes, plan.workspace_bytes) == (levels, blocks, factor, workspace)
+    assert plan.total_bytes == factor + workspace
+    assert n == 2 * (nx + 1) ** 3
+    if nx <= 16:  # the counts are the factor's
+        F, _, perm = _factor("tet", (nx,) * 3)
+        sched = bs.level_schedule(F, perm)
+        assert (sched.n, sched.slots, sched.slices, sum(sched.nlev), sched.blocks) == (n, slots, slices, levels, blocks)
+        assert bs.plan_of(sched) == plan
