@@ -6,8 +6,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
   1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA
      versions, and switches TF32 off for f32 products (TF32 would stall the
      mixed-precision refinement);
-  2. builds the CUDA kernels K1-K8, ``structured_ilu_apply``, ``fused_ngs``
-     and ``band_trisolve`` from
+  2. builds the CUDA kernels K1-K8, ``structured_ilu_apply``, ``fused_ngs``,
+     ``fused_gs`` and ``band_trisolve`` from
      ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel), and
      checks that each fused GMRES role's static shared memory leaves the
      budget its launches plan with;
@@ -54,13 +54,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      Gauss-Seidel mode of
      the ILU sweep (``structured_ilu_apply[gs]``) against its twin at tri
      N=16 and tet nx=4 (bit for bit), and the host loop against the kernel at
-     N=64 and N=128 in turns (host clock); then, counted,
-     ``solve_dpp_nonlinear`` with ``PICARD_LU_SOLVER_PARAMS`` at 2D
-     N=4/8/16/32/64/128, held to the published 16/63/194/635/1673/5135 with
-     ``fn <= max(rtol f0, atol)`` and one ``fused_ngs`` launch a solve, the
-     lexicographic ngs at tri N=16 and tet nx=4 (one GS-mode launch an
-     iteration), and ``block_gs``, ``RICHARDSON_SOLVER_PARAMS`` and
-     ``KSP_PREONLY_PARAMS`` at N=16, each against the CPU twin path;
+     N=64 and N=128 in turns (host clock); ``fused_gs`` against its twin
+     (x, the count and both norms bit for bit) in full solves at tri
+     N=16/64, tet nx=4/16 and hex nx=8 and capped at ``GS_CAP`` iterations at
+     tri N=128 and tet nx=34 (the plan's largest tet), each placement
+     printed (the twins run on the host's cores, ``gs_twin``, from the end
+     of the build on; at tri N=16 and tet nx=4 also on the card, with the
+     same bits), its time at tri N=64 (µs an iteration and a level), its
+     empty level and latency floor, and the host route (GS-mode sweep, K1,
+     a norm read back) against it in turns at tri N=16/64 and tet nx=16;
+     then, counted, ``solve_dpp_nonlinear`` with ``PICARD_LU_SOLVER_PARAMS``
+     at 2D N=4/8/16/32/64/128, held to the published
+     16/63/194/635/1673/5135 with ``fn <= max(rtol f0, atol)`` and one
+     ``fused_ngs`` launch a solve, the lexicographic ngs at tri N=16/64 and
+     tet nx=4/16 (one ``fused_gs`` launch a solve) and at tri N=256, past
+     ``fused_gs``'s plan, capped at 20 iterations (the host route: one
+     GS-mode launch an iteration), and ``block_gs``,
+     ``RICHARDSON_SOLVER_PARAMS`` and ``KSP_PREONLY_PARAMS`` at N=16, each
+     against the CPU twin path where N <= 16;
   8. drives the ordering-parity ILU path (``parity_path``) — first
      ``band_trisolve`` at tet nx=4/16/24/40 on the plan's placement, bit for
      bit against its twin and the host engine's sequential apply, timed with
@@ -83,8 +94,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      ``trisolve_backend=partri`` landing the published 74/117 exactly at 2D
      N=128/256, and the lexicographic Picard at tri N=16 / tet nx=4 with
      ``trisolve_backend=partri``; after the count, the same Picard with the
-     option left open (the wavefront on the card) and on the CPU, with equal
-     counts;
+     option left open (the wavefront on the card: one ``fused_gs`` launch a
+     solve) and on the CPU, with equal counts;
  10. drives the conditioning analysis (``conditioning_path``) —
      ``estimate_condition_numbers`` with Lanczos on the card at 2D
      N=16/32/64 and hex N=8, the dense host SVD at hex N=4, each against the
@@ -142,6 +153,8 @@ PICARD_KERNELS = {
     # the JAX package's ngs while-loop (XLA, no Pallas) and its GS sweep
     "fused_ngs": (_CSRC + "fused_ngs.cu", "perphil_tpu/solvers/solver.py:1852"),
     "structured_ilu_apply[gs]": (_CSRC + "ilu_apply.cu", "perphil_tpu/ops/ilu.py:840"),
+    # the JAX package's lexicographic ngs while-loop and its GS sweep (XLA, no Pallas)
+    "fused_gs": (_CSRC + "fused_gs.cu", "perphil_tpu/solvers/solver.py:1871-1911, perphil_tpu/ops/ilu.py:840"),
 }
 PARITY_KERNELS = {
     # the JAX package's band trisolve is a lax.scan of dense matvecs (XLA, no Pallas)
@@ -207,8 +220,13 @@ PICARD_COUNTS = {4: 16, 8: 63, 16: 194, 32: 635, 64: 1673, 128: 5135}
 NGS_CAP_255 = 100
 PICARD_CASES = [  # element, N, preset, count (None: the CPU twin path's), kernel the route launches
     *[("quad", n, "PICARD_LU_SOLVER_PARAMS", c, "fused_ngs") for n, c in PICARD_COUNTS.items()],
-    ("triangle", 16, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
-    ("tet", 4, "PICARD_LU_SOLVER_PARAMS", None, "structured_ilu_apply[gs]"),
+    ("triangle", 16, "PICARD_LU_SOLVER_PARAMS", None, "fused_gs"),
+    ("tet", 4, "PICARD_LU_SOLVER_PARAMS", None, "fused_gs"),
+    ("triangle", 64, "PICARD_LU_SOLVER_PARAMS", None, "fused_gs"),
+    ("tet", 16, "PICARD_LU_SOLVER_PARAMS", None, "fused_gs"),
+    # past fused_gs's plan (132,098 rows: the slabs leave the shared memory):
+    # the host route, capped
+    ("triangle", 256, "PICARD_LU_CAP20", None, "structured_ilu_apply[gs]"),
     ("quad", 16, "BLOCK_GS", None, "fused_dpp_apply"),
     ("quad", 16, "RICHARDSON_SOLVER_PARAMS", None, "fused_dpp_apply"),
     ("quad", 16, "KSP_PREONLY_PARAMS", 1, "fused_gmres_df[fieldsplit_lu]"),
@@ -216,6 +234,22 @@ PICARD_CASES = [  # element, N, preset, count (None: the CPU twin path's), kerne
 
 # the ordering-parity ILU's column (pc_factor_mat_ordering_type=rcm, "GMRES +
 # ILU PC", ordering rcm-parity): petsc_perf_breakdown_3d.csv, tet nx=4..40
+# fused_gs against its twin: (element, N, iteration cap; None: the full
+# solve). The twins run on the host's cores in GS_WORKERS worker processes
+# started after the build (gs_twin): a twin is ~6,400 small torch ops an
+# iteration at tri N=64, and its bits do not depend on the device (each
+# product, difference and quotient rounded on its own, the halving tree, a
+# correctly rounded square root: fused_ngs.picard_norm); the kernel gets the
+# inputs the twin had. Longest first.
+GS_CAP = 100
+GS_TWIN_CASES = [("triangle", 64, None), ("tet", 16, None), ("tet", 34, GS_CAP), ("triangle", 128, GS_CAP),
+                 ("hex", 8, None), ("triangle", 16, None), ("tet", 4, None)]
+GS_CARD_TWINS = (("triangle", 16), ("tet", 4))  # the twin on the card too: the same bits
+GS_TABLE_CASE = ("triangle", 64)  # the kernel line's shape
+GS_TURNS = (("triangle", 16), ("triangle", 64), ("tet", 16))  # the host route against the kernel
+GS_WORKERS = 3
+_GS_POOL = None
+
 PARITY_COUNTS = {4: 6, 8: 8, 12: 12, 16: 15, 20: 17, 24: 20, 32: 26, 36: 29, 40: 33}
 PARITY_HOST_SIZES = (4, 40)  # the host engine, in turns with the device engine
 PARITY_KERNEL_SIZES = (4, 16, 24, 40)  # band_trisolve against its twin and the host engine
@@ -250,6 +284,7 @@ def presets():
         "LINEAR_SOLVER_PARAMS": sp.LINEAR_SOLVER_PARAMS,
         "TPU_DIRECT_PARAMS": sp.TPU_DIRECT_PARAMS,
         "PICARD_LU_SOLVER_PARAMS": sp.PICARD_LU_SOLVER_PARAMS,
+        "PICARD_LU_CAP20": {**sp.PICARD_LU_SOLVER_PARAMS, "snes_max_it": 20},
         "BLOCK_GS": {**sp.PICARD_LU_SOLVER_PARAMS, "snes_type": "block_gs"},
         "RICHARDSON_SOLVER_PARAMS": sp.RICHARDSON_SOLVER_PARAMS,
         "KSP_PREONLY_PARAMS": sp.KSP_PREONLY_PARAMS,
@@ -471,6 +506,50 @@ def fused_ngs_work(solver, its: int):
     per_it = (nint - c0) * 39 + c0 * 2 + nint * 39
     tables = 2 * nint + 4 * (solver.cptr.numel() + solver.sends.numel())
     return 3 * 8 * colors.size + tables, nint * 39 + its * per_it
+
+
+def gs_twin(case):
+    """``FusedGSSolver.plain`` on the host's CPU for one of
+    ``GS_TWIN_CASES``, in a worker process: the manufactured Picard
+    problem's inputs (the lift on the CPU), the twin's x, count and norms,
+    and its wall time in seconds."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(HERE))
+    from perphil_tpu_torch.ops.assembly import DPPOperator
+    from perphil_tpu_torch.ops.fused_gs import FusedGSSolver
+    from perphil_tpu_torch.solvers.parameters import PICARD_LU_SOLVER_PARAMS as picard
+
+    element, n, cap = case
+    W, params, bcs, _, _ = problem(element, n, "cpu")
+    op = DPPOperator(W, params)
+    b, x0 = picard_inputs(op, bcs)
+    solver = FusedGSSolver(op, rtol=picard["snes_rtol"], atol=picard["snes_atol"],
+                           max_it=cap or picard["snes_max_it"])
+    t0 = time.perf_counter()
+    res = solver.plain(b, x0)
+    return (b.numpy(), x0.numpy(), res.x.numpy(), res.iterations, res.residual_norm, res.initial_norm,
+            time.perf_counter() - t0)
+
+
+def fused_gs_work(solver, its: int):
+    """(bytes, f64 flops) of one fused GS solve of ``its`` iterations: a
+    sweep row is one product and one difference an off-centre entry and a
+    divide, a residual row one of each an entry; the norm a square and a sum
+    a row, its = 0 included. Bytes: b and x0 read, x written, the lists (2
+    bytes an entry) and the level and push tables (4 bytes) read once."""
+    import numpy as np
+
+    from perphil_tpu_torch.ops.fused_gs import gs_taps
+
+    _, _, nc = gs_taps(solver.mesh, solver.params, solver.plan)
+    interior = np.tile(~solver.mesh.boundary_mask().ravel(), 2)
+    nint, nrows = int(interior.sum()), interior.size
+    live = int(nc[0])  # both fields hold as many entries
+    flops = its * nint * (2 * (live - 1) + 1) + (its + 1) * (nint * 2 * live + 2 * nrows)
+    nbytes = 3 * 8 * nrows + 2 * solver.lists.numel() + 4 * (solver.cptr.numel() + solver.sends.numel())
+    return nbytes, flops
 
 
 def dense_system(op, b):
@@ -884,8 +963,8 @@ def partri_path(dev, smi, randn, t_start):
               f"{sol.iteration_number}, launches {used}, wall {wall * 1e3:.1f} ms (host clock); left open (the "
               f"wavefront) {wave.iteration_number}, launches {wave_used}; the CPU's partri {ref.iteration_number} "
               f"(fields within {cpu_diff:.3e}) on {smi}")
-        check(wave_used.get("structured_ilu_apply[gs]") == wave.iteration_number,
-              f"{element} N={n}: left open, one GS-mode launch an iteration")
+        check(wave_used.get("fused_gs") == 1 and "structured_ilu_apply[gs]" not in wave_used,
+              f"{element} N={n}: left open, one fused_gs launch a solve")
         check(sol.iteration_number == wave.iteration_number == ref.iteration_number and cpu_diff < 1e-8,
               f"{element} N={n} partri vs the wavefront and the CPU")
     torch.cuda.synchronize()
@@ -1039,6 +1118,13 @@ def main() -> int:
         print(f"  fused GMRES pc {pc}: static shared memory {static_smem(pc, 3)} B, "
               f"{min(margins)} B over the {SMEM_BUDGET} B budget")
         check(min(margins) >= 0, f"fused GMRES pc {pc} leaves the shared-memory budget")
+    # fused_gs's twins on the host's cores, from here (after the build's nvcc
+    # processes) until phase 7 needs them
+    global _GS_POOL
+    import multiprocessing
+
+    _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS)
+    gs_twins = {case: _GS_POOL.apply_async(gs_twin, (case,)) for case in GS_TWIN_CASES}
 
     # -- 3. kernels against their twins (not counted) ---------------------
     results = {}
@@ -1556,6 +1642,81 @@ def main() -> int:
                             swp.nrows * (2 * (noffs - 1) + 1)),
                 shape=f"tri 16^2 monolithic, {swp.num_levels} levels",
             )
+    # fused_gs against its twin (not counted): x, the count and both norms
+    # bit for bit. The twins ran on the host's cores (gs_twin) from the
+    # inputs the kernel gets here; at tri N=16 / tet nx=4 the card's twin too
+    from perphil_tpu_torch.ops.fused_gs import RESULT_SLOTS as GS_SLOTS
+    from perphil_tpu_torch.ops.fused_gs import FusedGSSolver, gs_host_loop
+
+    gs_solvers = {}
+    for case in GS_TWIN_CASES:
+        element, n, cap = case
+        b_np, x0_np, x_np, its, fn, f0, twin_s = gs_twins[case].get(timeout=900)
+        W, params, _, _, _ = problem(element, n, dev)
+        op = DPPOperator(W, params)
+        b, x0 = torch.tensor(b_np, device=dev), torch.tensor(x0_np, device=dev)
+        solver = FusedGSSolver(op, **{**snes_kw, **({"max_it": cap} if cap else {})})
+        got = solver.launch(b, x0)
+        torch.cuda.synchronize()
+        twin_x = torch.tensor(x_np, device=dev)
+        abs_err = float((got.x - twin_x).abs().max())
+        p = solver.plan
+        where = ("one block, x and b in its shared memory" if p.blocks == 1 else
+                 f"a cluster of {p.blocks} blocks, x and b in slabs of {p.rows} planes over their shared memory")
+        line = (f"fused_gs {element} N={n}: {p}, {where} (the launch's: {solver.last_placement}); iterations "
+                f"{got.iterations} vs twin {its}" + (f" (capped at {cap})" if cap else "")
+                + f", fn {got.residual_norm!r} vs twin {fn!r}, f0 {got.initial_norm!r} vs twin {f0!r}, x bit-equal "
+                f"{torch.equal(got.x, twin_x)}, max abs diff {abs_err:.3e}; twin {twin_s:.1f} s on the host's CPU")
+        if (element, n) in GS_CARD_TWINS:
+            card = solver.plain(b, x0)
+            same = (torch.equal(card.x, twin_x)
+                    and (card.iterations, card.residual_norm, card.initial_norm) == (its, fn, f0))
+            line += f"; the twin on the card bit-equal to it: {same}"
+            check(same, f"fused_gs {element} N={n}: the twin's bits on the card and on the host")
+        print(line)
+        check(got.iterations == its and (cap is None or its == cap), f"fused_gs {element} N={n} count")
+        check(torch.equal(got.x, twin_x) and got.residual_norm == fn and got.initial_norm == f0,
+              f"fused_gs {element} N={n} bit for bit with its twin")
+        check(solver.last_placement[0] == p.blocks, f"fused_gs {element} N={n}: the launch placed the plan")
+        if cap is None:
+            check(fn <= max(snes_kw["rtol"] * f0, snes_kw["atol"]), f"fused_gs {element} N={n} converged")
+        gs_solvers[(element, n)] = (op, b, x0, solver, got, twin_s, abs_err)
+    # the kernel line's shape: its time, µs an iteration and a level, and the
+    # empty level (the same launch with as many empty levels again a sweep)
+    op, b, x0, solver, got, twin_s, abs_err = gs_solvers[GS_TABLE_CASE]
+    its, levels = got.iterations, solver.plan.levels
+    ms = time_ms(lambda: solver.launch(b, x0), repeats=5, warmup=1)
+    x_e, res_e = torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev)
+    empty_args = solver.launch_args(b, x0, x_e, res_e, extra_levels=levels)
+    ms_empty = time_ms(lambda: _cuda.launch("fused_gs", "perphil_fused_gs", dev, *empty_args), repeats=5, warmup=1)
+    empty_us = (ms_empty - ms) * 1e3 / (its * levels)
+    results["fused_gs"] = dict(
+        max_abs_err=abs_err, ms=ms, plain_ms=twin_s * 1e3, bound=bound(*fused_gs_work(solver, its)),
+        shape=f"tri 64^2, {its} iterations, {levels} levels, {solver.plan.blocks} block; the twin on the host's CPU",
+    )
+    print(f"  fused_gs tri N=64: {ms:.3f} ms (CUDA events, median of 5), {ms * 1e3 / its:.3f} us/iteration, "
+          f"{ms * 1e3 / (its * levels):.4f} us/level ({levels} levels); with {levels} empty levels more a sweep "
+          f"{ms_empty:.3f} ms: an empty level {empty_us:.4f} us, latency floor {its * levels * empty_us * 1e-3:.3f} ms "
+          f"({its} x {levels} levels); bound {results['fused_gs']['bound'][0]:.6f} ms "
+          f"({results['fused_gs']['bound'][1]}) on {smi}")
+    # the host route (the route beyond the plan: a GS-mode sweep, a K1
+    # residual and a norm read back an iteration) against the kernel, in turns
+    # host, kernel, kernel, host (host clock around a call and a synchronise)
+    for element, n in GS_TURNS:
+        op, b, x0, solver, _, _, _ = gs_solvers[(element, n)]
+        walls, counts = {"host route": [], "kernel": []}, {}
+        for side in ("host route", "kernel", "kernel", "host route"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = gs_host_loop(op, solver.sweeper, b, x0, **snes_kw) if side == "host route" else solver.launch(b, x0)
+            torch.cuda.synchronize()
+            walls[side].append((time.perf_counter() - t0) * 1e3)
+            counts[side] = res.iterations
+        print(f"lexicographic ngs {element} N={n}: host route {counts['host route']} iterations, "
+              f"{' / '.join(f'{w:.2f}' for w in walls['host route'])} ms; fused_gs {counts['kernel']} iterations, "
+              f"{' / '.join(f'{w:.2f}' for w in walls['kernel'])} ms (host clock, in turns) on {smi}")
+        # K1 sums the residual in another order than the kernel: a knife edge may move the count
+        check(abs(counts["host route"] - counts["kernel"]) <= 2, f"lexicographic ngs {element} N={n} host route count")
     print(f"[{time.perf_counter() - t_start:.1f} s] Picard kernels checked against their twins")
 
     # the path, counted: every launch counter reset just before
@@ -1594,8 +1755,8 @@ def main() -> int:
                 + ("" if count is None else f" (expected {count})")
                 + f", fn {fn!r} (f0 {f0!r}, tol {tol!r}), launches {counts}, wall {wall * 1e3:.2f} ms "
                 f"({wall * 1e6 / max(its, 1):.2f} us/iteration)")
-        if kernel == "fused_ngs":
-            check(counts.get(kernel) == 1, f"{element} N={n} ran fused_ngs once")
+        if kernel in ("fused_ngs", "fused_gs"):
+            check(counts.get(kernel) == 1, f"{element} N={n} ran {kernel} once")
             # the cached solve: the lift (one K1) and the kernel
             solver = _build_nonlinear_solver(W, params, _freeze(PRESETS[preset]))
             g1, g2 = (bc.grid_values(W.mesh) for bc in bcs)
@@ -1603,9 +1764,15 @@ def main() -> int:
             solver(g1, g2)
             torch.cuda.synchronize()
             line += f", cached solve {(time.perf_counter() - t0) * 1e3:.2f} ms"
+        if kernel == "fused_gs":
+            check(counts.get(kernel) == 1 and "structured_ilu_apply[gs]" not in counts,
+                  f"{element} N={n} ran fused_gs once")
         if kernel == "structured_ilu_apply[gs]":
-            check(counts.get(kernel) == its, f"{element} N={n}: one GS-mode launch an iteration")
-        if preset != "KSP_PREONLY_PARAMS":
+            check(counts.get(kernel) == its and "fused_gs" not in counts,
+                  f"{element} N={n}: past fused_gs's plan, one GS-mode launch an iteration")
+        if preset == "PICARD_LU_CAP20":
+            check(its == 20, f"{element} N={n}: capped at 20 iterations")
+        elif preset != "KSP_PREONLY_PARAMS":
             check(fn <= tol, f"{element} N={n} {preset}: fn <= max(rtol f0, atol)")
         if count is not None:
             check(its == count, f"{element} N={n} {preset} count")
@@ -1669,4 +1836,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if _GS_POOL is not None:  # the twins' workers stop with the script, whatever its end
+            _GS_POOL.terminate()
+            _GS_POOL.join()
+    sys.exit(code)

@@ -80,7 +80,8 @@
 
 #include <cstdint>
 
-#include "fused_gmres_kernel.cuh"
+#include "cluster_halo.cuh"
+#include "cluster_tree.cuh"
 
 namespace perphil {
 
@@ -162,53 +163,6 @@ inline bool ngs_geometry(int ny, int nx, int ncolors, int blocks, NgsGeom& g) {
   return false;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// p's address (shared::cta) in block `rank`'s shared memory (shared::cluster)
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
-
-// v into block `rank`'s copy of *slot, completing 8 bytes on its copy of *bar
-__device__ __forceinline__ void push(double* slot, double v, int rank, uint64_t* bar) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];"
-               :
-               : "r"(cluster_addr(slot, rank)), "l"(__double_as_longlong(v)), "r"(cluster_addr(bar, rank))
-               : "memory");
-}
-
-// one arrival on block `rank`'s copy of *bar, announcing `bytes` pushed
-__device__ __forceinline__ void arrive_remote(uint64_t* bar, int rank, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cluster.b64 _, [%0], %1;"
-               :
-               : "r"(cluster_addr(bar, rank)), "r"(bytes)
-               : "memory");
-}
-
-// A wait that outlasts kNgsWaitCycles (seconds, where a phase takes
-// microseconds) means a protocol fault: the kernel traps, and the launch's
-// error reaches the caller, rather than hang the card.
-constexpr long long kNgsWaitCycles = 1LL << 35;
-
-__device__ __forceinline__ void wait_parity(uint64_t* bar, int parity) {
-  const long long start = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > kNgsWaitCycles) __trap();
-  } while (!done);
-}
-
 __global__ void __launch_bounds__(kGmresThreads, 1)
 fused_ngs_kernel(const double* b, const double* x0, double* x, const uint16_t* lists, const int* cptr_g,
                  const int* sends_g, double* result, NgsWeights wt, int nx, int ny, int ncolors,
@@ -241,11 +195,7 @@ fused_ngs_kernel(const double* b, const double* x0, double* x, const uint16_t* l
   if (tid <= ncolors) cptr[tid] = cptr_g[o.b * (ncolors + 1) + tid];
   if (tid < 2 * ncolors) sends[tid >> 1][tid & 1] = sends_g[(o.b * ncolors + (tid >> 1)) * 2 + (tid & 1)];
   if (tid == 0 && nb > 1) {
-    const int neighbours = (down ? 1 : 0) + (up ? 1 : 0);
-    for (int k = 0; k < 2; ++k) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" : : "r"(smem_u32(bar + k)), "r"(neighbours) : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" : : : "memory");
+    init_halo_bars(bar, (down ? 1 : 0) + (up ? 1 : 0));
   }
   for (int i = tid; i < geom.nloc; i += kGmresThreads) rt[i] = 0.0;
   // x: interior nodes from the lift, boundary nodes 0.0; b: own rows
@@ -327,51 +277,7 @@ fused_ngs_kernel(const double* b, const double* x0, double* x, const uint16_t* l
     mark(kNgsNormRows);
     cluster.sync();  // every residual in its tree slot
     mark(kNgsSquares);
-    // the halving tree over the squares in cluster_tree_rows's order
-    // (fused_gmres_kernel.cuh), the blocks' partials exchanged through
-    // shared memory (xpart) in place of device memory
-    auto leaf = [&](int, int s) {
-      const int i = o.slot(s);
-      if (o.elem(i) >= L) return 0.0;
-      const double v = rt[i];
-      return __dmul_rn(v, v);
-    };
-    switch (o.log_s) {
-      case 0: warp_tree_rows<0>(part, 1, leaf); break;
-      case 1: warp_tree_rows<1>(part, 1, leaf); break;
-      case 2: warp_tree_rows<2>(part, 1, leaf); break;
-      default: {
-        TreeAcc<kMaxLogS> acc;
-        for (int t = 0; t < (1 << o.log_s); ++t) acc.push(leaf(0, bit_reverse(t, o.log_s)));
-        const double v = add_down(add_down(add_down(acc.result(o.log_s), 16), 8), 4);
-        if (lane < 4) part[0][warp * 4 + lane] = v;
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // the four bits of h that are the warp, then (one block) lo
-      double v = add_down(add_down(add_down(__dadd_rn(part[0][lane], part[0][lane + 32]), 16), 8), 4);
-      if (nb == 1) {
-        v = add_down(add_down(v, 2), 1);
-        if (lane == 0) scal[0] = v;
-      } else if (lane < 4) {
-        xpart[lane] = v;
-      }
-    }
-    if (nb > 1) {
-      cluster.sync();  // every block's four partials in place
-      if (warp == 0) {
-        // the blocks' bits, then lo, over value (b, lo) at 4 b + lo; every
-        // block finishes the tree itself
-        const int width = 4 * nb;
-        auto partial = [&](int at) { return *cluster.map_shared_rank(xpart + (at & 3), at >> 2); };
-        double v = lane < width ? partial(lane) : 0.0;
-        if (width == 64) v = __dadd_rn(v, partial(lane + 32));
-        for (int s = (width < 32 ? width : 32) / 2; s > 0; s >>= 1) v = add_down(v, s);
-        if (lane == 0) scal[0] = v;
-      }
-    }
-    __syncthreads();
+    cluster_square_tree(cluster, o, rt, L, part, xpart, scal);
     mark(kNgsTree);
     return __dsqrt_rn(scal[0]);
   };

@@ -76,6 +76,10 @@ _SIGNATURES = {
     # b, x0, x, lists, cptr, sends, result, weights(host, 38 doubles), ny,
     # nx, ncolors, rtol, atol, max_it, blocks, rows, nloc, width, stream
     "perphil_fused_ngs": [_P] * 8 + [_I] * 3 + [_D, _D] + [_I] * 5 + [_P],
+    # b, x0, x, lists, cptr, sends, result, tap_w, tap_d, tap_nc (host), dim,
+    # nz, ny, nx, rtol, atol, max_it, blocks, rows, nloc, width, nlev,
+    # sweep_warps, extra_levels, stream
+    "perphil_fused_gs": [_P] * 10 + [_I] * 4 + [_D, _D] + [_I] * 8 + [_P],
     # r, z, vec, blob, desc, perm, n, nlev_l, nlev_u, blocks, shared_vector,
     # stages, stage_bytes, stream
     "perphil_band_trisolve": [_P] * 6 + [_I] * 7 + [_P],

@@ -27,6 +27,7 @@ halos; the norm's residuals go to the fused GMRES frame's tree layout
 
 from __future__ import annotations
 
+import math
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,7 +38,7 @@ from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator
 from perphil_tpu_torch.ops.fused_gmres import MAX_BLOCKS, MAX_LEAVES, _next_pow2, _slice_len
 from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
-from perphil_tpu_torch.ops.krylov import CLUSTER_THREADS, _norm
+from perphil_tpu_torch.ops.krylov import CLUSTER_THREADS, tree_sum
 
 KERNEL = "fused_ngs"
 #: dynamic shared memory a launch may plan with, in bytes (the launcher's
@@ -79,6 +80,20 @@ def _align16(nbytes: int) -> int:
     return (nbytes + 15) // 16 * 16
 
 
+def tree_geometry(num_values: int, blocks: int) -> Optional[Tuple[int, int]]:
+    """(leaves a thread, values a block) of the norm's tree over
+    ``num_values`` values on ``blocks`` blocks of 512 threads (the fused
+    GMRES frame's layout), or None where the launchers refuse: more threads
+    than ``Lt`` (the power of two at least 512 and the length), or more than
+    32 leaves a thread."""
+    if CLUSTER_THREADS * blocks > max(CLUSTER_THREADS, _next_pow2(num_values)):
+        return None
+    leaves = 1
+    while CLUSTER_THREADS * blocks * leaves < num_values:
+        leaves *= 2
+    return (leaves, _slice_len(num_values, blocks)) if leaves <= MAX_LEAVES else None
+
+
 def _place(ny: int, nx: int, ncolors: int, blocks: int) -> Optional[NgsPlan]:
     """``ngs_place``: ``blocks`` blocks (a power of two, at most 16, the
     interior rows and ``Lt / 512``), the tree at most 32 leaves a thread,
@@ -87,15 +102,10 @@ def _place(ny: int, nx: int, ncolors: int, blocks: int) -> Optional[NgsPlan]:
         return None
     if not 1 <= blocks <= MAX_BLOCKS or blocks & (blocks - 1) or blocks > ny - 2:
         return None
-    L = 2 * nx * ny
-    if CLUSTER_THREADS * blocks > max(CLUSTER_THREADS, _next_pow2(L)):
+    tree = tree_geometry(2 * nx * ny, blocks)
+    if tree is None:
         return None
-    leaves = 1
-    while CLUSTER_THREADS * blocks * leaves < L:
-        leaves *= 2
-    if leaves > MAX_LEAVES:
-        return None
-    nloc, rows = _slice_len(L, blocks), -(-(ny - 2) // blocks)
+    (leaves, nloc), rows = tree, -(-(ny - 2) // blocks)
     width = 2 * rows * (nx - 2)
     nbytes = (_align16(16 * (rows + 2) * nx) + _align16(16 * rows * nx) + _align16(8 * nloc)
               + _align16(2 * width))
@@ -195,6 +205,15 @@ def ngs_tables(
     return lists, cptr, sends
 
 
+def picard_norm(r: torch.Tensor) -> float:
+    """``||r||`` as the Picard kernels take it: the halving tree over the
+    squares (:func:`krylov.tree_sum`), read back, and its correctly rounded
+    square root (the kernels' ``__dsqrt_rn``; the card's ``torch.sqrt`` is
+    too, but the CPU's is not always: 0.57 ulp off at one tri N=64 norm)."""
+    v = r.reshape(-1)
+    return math.sqrt(float(tree_sum(v * v)))
+
+
 def picard_loop(
     step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     residual: Callable[[torch.Tensor], torch.Tensor],
@@ -202,16 +221,16 @@ def picard_loop(
 ) -> NgsResult:
     """The SNES loop of the Picard solves, on the host: ``x = step(x, r)``
     while ``||r|| > max(rtol ||r0||, atol)`` and fewer than ``max_it``
-    iterations, ``r = residual(x)``; every norm a halving tree, read back."""
+    iterations, ``r = residual(x)``; every norm :func:`picard_norm`."""
     r = residual(x)
-    f0 = float(_norm(r))
+    f0 = picard_norm(r)
     rel = rtol * f0
     tol = rel if rel > atol else atol  # Python's max(rtol * f0, atol)
     fn, its = f0, 0
     while fn > tol and its < max_it:
         x = step(x, r)
         r = residual(x)
-        fn = float(_norm(r))
+        fn = picard_norm(r)
         its += 1
     return NgsResult(x, its, fn, f0)
 

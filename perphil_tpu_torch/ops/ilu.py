@@ -256,14 +256,21 @@ def schedule_shape(node_shape: Tuple[int, ...], nfields: int) -> Tuple[int, int,
     return side, side, int(np.count_nonzero(keys)), int(keys.max())
 
 
-def build_monolithic_system(mesh: StructuredMesh, params: DPPParameters) -> StructuredSystem:
-    """Field-major 2-field DPP matrix in structured form."""
+def monolithic_stencils(mesh: StructuredMesh, params: DPPParameters) -> dict:
+    """{(row field, column field): stencil} of the field-major 2-field DPP
+    matrix: the weights of its interior rows (:func:`_build_system` zeroes
+    the entries that point at boundary columns)."""
     K_st, M_st = compile_stencils(mesh)
     p = params
     S1 = (p.k1 / p.mu) * K_st + (p.beta / p.mu) * M_st
     S2 = (p.k2 / p.mu) * K_st + (p.beta / p.mu) * M_st
     C = -(p.beta / p.mu) * M_st
-    return _build_system(mesh, {(0, 0): S1, (1, 1): S2, (0, 1): C, (1, 0): C}, 2)
+    return {(0, 0): S1, (1, 1): S2, (0, 1): C, (1, 0): C}
+
+
+def build_monolithic_system(mesh: StructuredMesh, params: DPPParameters) -> StructuredSystem:
+    """Field-major 2-field DPP matrix in structured form."""
+    return _build_system(mesh, monolithic_stencils(mesh, params), 2)
 
 
 def build_field_system(mesh: StructuredMesh, k: float, beta: float, mu: float) -> StructuredSystem:

@@ -72,10 +72,13 @@ snes_atol)`` or ``snes_max_it``:
   - ngs on quad meshes, the pinned-colouring multicolour sweep inside the
     kernel's plan                        -> ``fused_ngs`` (one launch)
   - ngs on quad meshes beyond it         -> ``ngs_host_loop`` (K1 residuals)
-  - ngs on tri/hex/tet meshes            -> ``GaussSeidelSweeper`` (one
-                                            sweep, ``structured_ilu_apply[gs]``
-                                            or partri,
-                                            and one K1 residual an iteration)
+  - ngs on tri/hex/tet meshes, the       -> ``fused_gs`` (one launch; the
+    wavefront inside the kernel's plan      twin on the CPU)
+  - ngs on tri/hex/tet meshes beyond it  -> ``gs_host_loop``: one
+    on the card, or on partri               ``GaussSeidelSweeper`` sweep
+                                            (``structured_ilu_apply[gs]``) or
+                                            ``PartriGS`` sweep and one K1
+                                            residual an iteration
   - block_gs                             -> exact alternating field solves
   - nrichardson                          -> damped Richardson with
                                             ``_monolithic_pc`` (the JAX
@@ -122,6 +125,7 @@ from perphil_tpu_torch.ops.fused_gmres import (
     FusedGMRESSolver,
     fused_gmres_supported,
 )
+from perphil_tpu_torch.ops.fused_gs import FusedGSSolver, gs_host_loop
 from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop, picard_loop
 from perphil_tpu_torch.ops.ilu import (
     CPU_PARTRI_MAX_BYTES,
@@ -671,13 +675,18 @@ def _build_nonlinear_solver(
                 return res.x[0], res.x[1], res.iterations, res.residual_norm
 
             return solve_colored
-        mv = op.flat_matvec()
+        # the wavefront: the whole solve in one fused_gs launch within its
+        # plan (the twin on the CPU); partri, and the card beyond the plan:
+        # the host loop
+        fused = FusedGSSolver(op, sweeper, rtol, atol, max_it) if isinstance(sweeper, GaussSeidelSweeper) else None
 
         def solve_lexicographic(g1: torch.Tensor, g2: torch.Tensor):
-            b, x0 = (t.reshape(-1) for t in lift(g1, g2))
-            res = picard_loop(lambda x, r: sweeper.sweep(x, b), lambda x: b - mv(x), x0, rtol, atol, max_it)
-            x = res.x.reshape((2,) + tuple(mesh.node_shape))
-            return x[0], x[1], res.iterations, res.residual_norm
+            b, x0 = lift(g1, g2)
+            if fused is None or (W.device.type == "cuda" and fused.plan is None):
+                res = gs_host_loop(op, sweeper, b, x0, rtol, atol, max_it)
+            else:
+                res = fused(b, x0)
+            return res.x[0], res.x[1], res.iterations, res.residual_norm
 
         return solve_lexicographic
 

@@ -99,6 +99,18 @@ issued apply's bit for bit), beside ``structured_ilu_apply`` on the same
 factor, the maps' bytes and bound; and counts, with ``torch.profiler``, the
 device kernels of one apply and their summed time.
 
+``--only gs`` times ``fused_gs`` (``csrc/fused_gs.cu``, the lexicographic
+Picard solve in one launch): in turns with the host route it replaced
+(a ``structured_ilu_apply[gs]`` sweep, a K1 residual and a norm read back
+an iteration; host clock) at tri N=16/64 and tet nx=16; every placement the
+plan allows at tri N=64/128 and tet nx=16/24 in turns, 200 iterations each
+(``rtol = atol = 0``), bit for bit with one another, with each placement's
+empty level (as many empty levels again a sweep); the cycles of thread 0 of
+block 0 a level in its rows and in the level's barrier and halo wait, and
+an iteration's in the norm's rows and tree (``csrc/fused_gs.cu`` built alone
+with ``PERPHIL_GS_PROFILE``); and the GS mode's empty level (its launch on
+an all-empty schedule of 2L and L levels), its latency floor.
+
 ``--only sweeps`` builds nothing of its own: it times, with the package's
 kernels (CUDA events, median of 5), the frame's roles where ``chip_smoke.py``
 times them (K5 at 2D N=8, K4 at N=16/64, K6 at N=64 and tet nx=8) and the
@@ -716,7 +728,9 @@ def ngs_variants() -> None:
 
     out = _cuda.BUILD_DIR / "ngs_variants"
     out.mkdir(parents=True, exist_ok=True)
-    source = (_cuda.CSRC / "fused_ngs.cu").read_text()
+    # the halo helpers inlined, so that a variant may change them for this kernel alone
+    source = (_cuda.CSRC / "fused_ngs.cu").read_text().replace(
+        '#include "cluster_halo.cuh"', (_cuda.CSRC / "cluster_halo.cuh").read_text().replace("#pragma once", ""))
     procs = []
     for k, (name, subs, _) in enumerate(_NGS_VARIANTS):
         text = source
@@ -1268,10 +1282,143 @@ def time_partri() -> None:
         del graph, pc, wave
 
 
+# the Picard inputs of --only gs: (element, N) on the manufactured solution
+GS_TURNS = (("triangle", 16), ("triangle", 64), ("tet", 16))
+GS_PLACEMENTS = (("triangle", 64), ("triangle", 128), ("tet", 16), ("tet", 24))
+GS_ITERATIONS = 200
+# the phase clocks' slots (fused_gs.cu GsPhase)
+GS_PHASES = ["own rows", "level barrier + halo wait", "norm rows", "tree"]
+
+
+def gs_case(element: str, n: int, max_it: Optional[int] = None, blocks: Optional[int] = None):
+    """(solver, b, x0, operator) of the lexicographic Picard solve
+    (``PICARD_LU_SOLVER_PARAMS``) on the card; with ``max_it``, that many
+    iterations exactly (``rtol = atol = 0``)."""
+    import chip_smoke
+    from perphil_tpu_torch.ops.fused_gs import FusedGSSolver
+
+    W, params, bcs, _, _ = chip_smoke.problem(element, n, torch.device("cuda", torch.cuda.current_device()))
+    op = DPPOperator(W, params)
+    b, x0 = chip_smoke.picard_inputs(op, bcs)
+    picard = sp.PICARD_LU_SOLVER_PARAMS
+    kw = (dict(rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"]) if max_it is None
+          else dict(rtol=0.0, atol=0.0, max_it=max_it))
+    return FusedGSSolver(op, blocks=blocks, **kw), b, x0, op
+
+
+def gs_phase_library() -> ctypes.CDLL:
+    """``csrc/fused_gs.cu`` built alone with its phase clocks compiled in
+    (``PERPHIL_GS_PROFILE``), bound as the package binds it."""
+    out = _cuda.BUILD_DIR / "gs_phases"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libgs_phases.so"
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DPERPHIL_GS_PROFILE", "-shared", "-I", str(_cuda.CSRC),
+                    "-o", str(lib), str(_cuda.CSRC / "fused_gs.cu")], check=True, capture_output=True)
+    dll = ctypes.CDLL(str(lib))
+    dll.perphil_fused_gs.argtypes = _cuda._SIGNATURES["perphil_fused_gs"]
+    dll.perphil_fused_gs_profile_take.argtypes = [_P]
+    return dll
+
+
+def time_gs() -> None:
+    """``--only gs`` (the module's docstring)."""
+    from perphil_tpu_torch.ops.fused_gs import KERNEL, RESULT_SLOTS as GS_SLOTS, gs_host_loop
+    from perphil_tpu_torch.ops.ilu import GS_KERNEL
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream().cuda_stream
+    picard = sp.PICARD_LU_SOLVER_PARAMS
+    snes = dict(rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
+    # the host route against the kernel, in turns (host clock around a call and a synchronise)
+    for element, n in GS_TURNS:
+        solver, b, x0, op = gs_case(element, n)
+        solver.launch(b, x0)
+        walls, counts = {"host route": [], "kernel": []}, {}
+        for side in ("host route", "kernel", "kernel", "host route"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = gs_host_loop(op, solver.sweeper, b, x0, **snes) if side == "host route" else solver.launch(b, x0)
+            torch.cuda.synchronize()
+            walls[side].append((time.perf_counter() - t0) * 1e3)
+            counts[side] = res.iterations
+        its, levels = counts["kernel"], solver.plan.levels
+        host_us, kernel_us = (statistics.mean(walls[side]) * 1e3 / counts[side] for side in ("host route", "kernel"))
+        print(f"{element} N={n} ({solver.plan.blocks} block(s), {levels} levels): host route {counts['host route']} "
+              f"iterations, {_fmt(walls['host route'])} ms ({host_us:.2f} us/iteration); fused_gs {its} iterations, "
+              f"{_fmt(walls['kernel'])} ms ({kernel_us:.3f} us/iteration, {kernel_us / levels:.4f} us/level); "
+              f"host clock, in turns", flush=True)
+    # every placement, in turns, with its empty level
+    for element, n in GS_PLACEMENTS:
+        from perphil_tpu_torch.ops.fused_gs import _place
+
+        shape = gs_case(element, n, 1)[0].node_shape
+        counts = [nb for nb in (1, 2, 4, 8, 16) if _place(shape, nb) is not None]
+        cases = {nb: gs_case(element, n, GS_ITERATIONS, nb) for nb in counts}
+        runs, results = {}, {}
+        for nb, (solver, b, x0, _) in cases.items():
+            x, res = torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev)
+            for extra in (0, solver.plan.levels):
+                args = solver.launch_args(b, x0, x, res, extra_levels=extra)
+                # the closure keeps the buffers whose pointers it passes
+                runs[(nb, extra)] = (lambda a=args, keep=(x, res): _cuda.launch(KERNEL, "perphil_fused_gs", dev, *a))
+            results[nb] = solver.launch(b, x0)
+        times = _turns(runs, list(runs) + list(runs)[::-1], repeats=3)
+        ref = results[counts[0]]
+        same = all(torch.equal(r.x, ref.x) and r.residual_norm == ref.residual_norm for r in results.values())
+        levels = cases[counts[0]][0].plan.levels
+        line = f"{element} N={n}, {GS_ITERATIONS} iterations, {levels} levels:"
+        for nb in counts:
+            t, te = statistics.median(times[(nb, 0)]), statistics.median(times[(nb, levels)])
+            line += (f" {nb} block(s) {_fmt(times[(nb, 0)])} ms ({t * 1e3 / (GS_ITERATIONS * levels):.4f} us/level, "
+                     f"an empty level {(te - t) * 1e3 / (GS_ITERATIONS * levels):.4f} us);")
+        print(line + f" all bit-equal: {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"{element} N={n}: placements disagree")
+    # cycles of thread 0 of block 0 in each phase
+    dll = gs_phase_library()
+    counters = np.zeros(len(GS_PHASES), np.uint64)
+    for element, n in GS_PLACEMENTS[:1] + (("triangle", 16), ("tet", 4), ("hex", 8)) + GS_PLACEMENTS[1:]:
+        solver, b, x0, _ = gs_case(element, n, GS_ITERATIONS)
+        x, res = torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev)
+        args = solver.launch_args(b, x0, x, res)
+        _cuda.check(dll.perphil_fused_gs_profile_take(counters.ctypes.data), "profile take")
+        _cuda.check(dll.perphil_fused_gs(*args, stream), "profile launch")
+        torch.cuda.synchronize()
+        _cuda.check(dll.perphil_fused_gs_profile_take(counters.ctypes.data), "profile take")
+        per = counters.astype(np.float64) / GS_ITERATIONS
+        levels = solver.plan.levels
+        print(f"{element} N={n} ({solver.plan.blocks} block(s), {levels} levels): thread 0 of block 0, cycles a level: "
+              f"own rows {per[0] / levels:.0f}, barrier + halo wait {per[1] / levels:.0f}; an iteration: norm rows "
+              f"{per[2]:.0f}, tree {per[3]:.0f}; shares " + ", ".join(
+                  f"{name} {100 * v / per.sum():.1f}%" for name, v in zip(GS_PHASES, per)), flush=True)
+    # the GS mode's empty level: its launch on an all-empty schedule of 2L and L levels
+    for element, n in (("triangle", 16), ("triangle", 64)):
+        solver = gs_case(element, n, 1)[0]
+        swp = solver.sweeper
+        xg = torch.zeros(swp.nrows, dtype=torch.float64, device=dev)
+        z = torch.empty_like(xg)
+        geometry = np.zeros(4, np.int32)
+        runs = {}
+        for mult in (1, 2):
+            ptr = torch.zeros(mult * swp.num_levels + 1, dtype=torch.int32, device=dev)
+            args = (xg.data_ptr(), xg.data_ptr(), z.data_ptr(), swp.packed.data_ptr(), ptr.data_ptr(),
+                    swp.level_rows.data_ptr(), swp.meta.ctypes.data, len(swp.deltas), swp.nrows,
+                    mult * swp.num_levels, swp.max_level_rows, geometry.ctypes.data)
+            runs[mult] = (lambda a=args, keep=ptr: _cuda.launch(GS_KERNEL, "perphil_gs_sweep", dev, *a))
+        times = _turns(runs, [1, 2, 2, 1], repeats=20)
+        one, two = statistics.median(times[1]), statistics.median(times[2])
+        empty = (two - one) * 1e3 / swp.num_levels
+        full = median_ms(lambda: swp.launch(xg, xg), 20)
+        print(f"structured_ilu_apply[gs] {element} N={n}: a sweep {full:.4f} ms over {swp.num_levels} levels "
+              f"({full * 1e3 / swp.num_levels:.3f} us/level); an empty level {empty:.4f} us (all-empty schedules of "
+              f"{swp.num_levels} / {2 * swp.num_levels} levels: {_fmt(times[1])} / {_fmt(times[2])} ms), latency floor "
+              f"{empty * swp.num_levels * 1e-3:.4f} ms a sweep", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
-                                       "direct-wrapper", "ngs", "ngs-phases", "ngs-variants", "band", "partri"],
+                                       "direct-wrapper", "ngs", "ngs-phases", "ngs-variants", "band", "partri", "gs"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -1314,6 +1461,9 @@ def main() -> int:
         return 0
     if args.only == "partri":
         time_partri()
+        return 0
+    if args.only == "gs":
+        time_gs()
         return 0
     dll = build()
     if args.only in (None, "gmres"):

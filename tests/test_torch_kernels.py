@@ -1,5 +1,5 @@
 """The port's CUDA kernels K1-K8, ``structured_ilu_apply`` (and its
-Gauss-Seidel mode), ``fused_ngs`` and ``band_trisolve`` against their plain PyTorch twins, on the
+Gauss-Seidel mode), ``fused_ngs``, ``fused_gs`` and ``band_trisolve`` against their plain PyTorch twins, on the
 card. A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 (marker ``cuda``) and skips without one; run them on the card with
 ``python -m pytest tests/test_torch_kernels.py -q``."""
@@ -36,6 +36,7 @@ from perphil_tpu_torch.ops.fused_gmres import (
     plan_smem,
     static_smem,
 )
+from perphil_tpu_torch.ops.fused_gs import KERNEL as FUSED_GS_KERNEL, FusedGSSolver
 from perphil_tpu_torch.ops.fused_ngs import KERNEL as NGS_KERNEL, FusedNGSSolver
 from perphil_tpu_torch.ops.ilu import GS_KERNEL, GaussSeidelSweeper, StructuredILU0, ilu_plan
 from perphil_tpu_torch.ops.ordering import parity_system
@@ -667,6 +668,68 @@ def test_picard_beyond_the_plan_takes_the_host_loop(cuda, monkeypatch):
     assert _cuda.KERNEL_LAUNCHES[NGS_KERNEL] == before.get(NGS_KERNEL, 0)
     assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply"] - before.get("fused_dpp_apply", 0) > 63
     assert sol.iteration_number == 63
+
+
+# (element, cells, blocks, max_it): one placement of each kind, 2D and 3D --
+# one block (full solves; hex nx=16 and tet nx=17 at the one-block edge,
+# the taps' largest instance), a cluster by the launcher's rule (tri N=128
+# and tet nx=24 on 16 blocks) and asked for (tri N=48 on 16, tri N=128 and
+# tet nx=24 on 4), capped
+FUSED_GS_CASES = [("triangle", (16, 16), None, 50000), ("tet", (4, 4, 4), None, 50000),
+                  ("hex", (6, 6, 6), None, 50000), ("hex", (16, 16, 16), None, 3), ("tet", (17, 17, 17), None, 3),
+                  ("triangle", (128, 128), None, 10), ("tet", (24, 24, 24), None, 5), ("triangle", (48, 48), 16, 10),
+                  ("triangle", (128, 128), 4, 10), ("tet", (24, 24, 24), 4, 5)]
+
+
+@pytest.mark.parametrize("element,cells,blocks,max_it", FUSED_GS_CASES,
+                         ids=[f"{c[0]}{c[1][0]}-{c[2] or 'rule'}" for c in FUSED_GS_CASES])
+def test_fused_gs_matches_twin(cuda, element, cells, blocks, max_it):
+    """One launch a solve on the plan's placement: the count, x and both
+    norms bit for bit with FusedGSSolver.plain (the twin's count or the cap)."""
+    op, b, x0 = _lifted(element, cells, cuda)
+    solver = FusedGSSolver(op, rtol=1e-8, atol=1e-12, max_it=max_it, blocks=blocks)
+    before = _cuda.KERNEL_LAUNCHES[FUSED_GS_KERNEL]
+    got = solver.launch(b, x0)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[FUSED_GS_KERNEL] == before + 1
+    assert solver.last_placement[:2] == (solver.plan.blocks, solver.plan.rows)
+    ref = solver.plain(b, x0)
+    assert got.iterations == ref.iterations > 0 and (max_it == 50000 or got.iterations == max_it)
+    assert torch.equal(got.x, ref.x)
+    assert (got.residual_norm, got.initial_norm) == (ref.residual_norm, ref.initial_norm)
+
+
+def test_lexicographic_picard_on_the_card_launches_fused_gs_once(cuda):
+    """PICARD_LU_SOLVER_PARAMS on a tri N=8 mesh, the option left open (the
+    wavefront): one fused_gs launch, no GS-mode sweep, the CPU's count
+    (partri, K1 residuals) within the knife edge of the two norms' orders."""
+    state = _state("triangle", (8, 8), cuda)
+    before = dict(_cuda.KERNEL_LAUNCHES)
+    sol = solve_dpp_nonlinear(state.W, state.params, state.bcs, sp.PICARD_LU_SOLVER_PARAMS)
+    assert _cuda.KERNEL_LAUNCHES[FUSED_GS_KERNEL] == before.get(FUSED_GS_KERNEL, 0) + 1
+    assert _cuda.KERNEL_LAUNCHES[GS_KERNEL] == before.get(GS_KERNEL, 0)
+    cpu = _state("triangle", (8, 8), "cpu")
+    ref = solve_dpp_nonlinear(cpu.W, cpu.params, cpu.bcs, sp.PICARD_LU_SOLVER_PARAMS)
+    assert abs(sol.iteration_number - ref.iteration_number) <= 2
+
+
+def test_lexicographic_picard_beyond_the_plan_takes_the_host_route(cuda, monkeypatch):
+    """A mesh the plan refuses (here every mesh, the plan patched away): one
+    GS-mode sweep and K1 residuals an iteration, no fused_gs launch."""
+    from perphil_tpu_torch.ops import fused_gs
+    from perphil_tpu_torch.solvers.solver import _build_nonlinear_solver
+
+    monkeypatch.setattr(fused_gs, "fused_gs_plan", lambda node_shape, element, blocks=None: None)
+    _build_nonlinear_solver.cache_clear()
+    state = _state("tet", (4, 4, 4), cuda)
+    before = dict(_cuda.KERNEL_LAUNCHES)
+    try:
+        sol = solve_dpp_nonlinear(state.W, state.params, state.bcs, sp.PICARD_LU_SOLVER_PARAMS)
+    finally:
+        _build_nonlinear_solver.cache_clear()
+    assert _cuda.KERNEL_LAUNCHES[FUSED_GS_KERNEL] == before.get(FUSED_GS_KERNEL, 0)
+    assert _cuda.KERNEL_LAUNCHES[GS_KERNEL] - before.get(GS_KERNEL, 0) == sol.iteration_number > 0
+    assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply"] - before.get("fused_dpp_apply", 0) > sol.iteration_number
 
 
 def _parity_factor(nx):
