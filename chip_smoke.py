@@ -8,7 +8,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      mixed-precision refinement);
   2. builds the CUDA kernels K1-K8, ``structured_ilu_apply``, ``fused_ngs``,
      ``fused_gs`` and ``band_trisolve`` from
-     ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel), and
+     ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel) and
+     ``fused_gs``'s probe build beside them, while ``fused_gs``'s twins run
+     on the host's cores (all collected before anything is timed), and
      checks that each fused GMRES role's static shared memory leaves the
      budget its launches plan with;
   3. checks that a space built with no ``device`` lies on the card, then each
@@ -58,11 +60,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (x, the count and both norms bit for bit) in full solves at tri
      N=16/64, tet nx=4/16 and hex nx=8 and capped at ``GS_CAP`` iterations at
      tri N=128 and tet nx=34 (the plan's largest tet), each placement
-     printed (the twins run on the host's cores, ``gs_twin``, from the end
-     of the build on; at tri N=16 and tet nx=4 also on the card, with the
-     same bits), its time at tri N=64 (µs an iteration and a level), its
-     empty level and latency floor, and the host route (GS-mode sweep, K1,
-     a norm read back) against it in turns at tri N=16/64 and tet nx=16;
+     printed (the twins run on the host's cores, ``gs_twin``, during the
+     build; at tri N=16 and tet nx=4 also on the card, with the same bits),
+     and ``GS_REPEATS`` launches on every placement the plan allows, each
+     held to the twin; its time at tri N=64 (µs an iteration and a level),
+     its empty level and latency floor (its probe build,
+     ``fused_gs.probe_library``, built beside the package), and the host
+     route (GS-mode sweep, K1, a norm read back) against it in turns at tri
+     N=16/64 and tet nx=16;
      then, counted, ``solve_dpp_nonlinear`` with ``PICARD_LU_SOLVER_PARAMS``
      at 2D N=4/8/16/32/64/128, held to the published
      16/63/194/635/1673/5135 with ``fn <= max(rtol f0, atol)`` and one
@@ -236,7 +241,7 @@ PICARD_CASES = [  # element, N, preset, count (None: the CPU twin path's), kerne
 # ILU PC", ordering rcm-parity): petsc_perf_breakdown_3d.csv, tet nx=4..40
 # fused_gs against its twin: (element, N, iteration cap; None: the full
 # solve). The twins run on the host's cores in GS_WORKERS worker processes
-# started after the build (gs_twin): a twin is ~6,400 small torch ops an
+# beside the build's nvcc, stopped before anything is timed (gs_twin): a twin is ~6,400 small torch ops an
 # iteration at tri N=64, and its bits do not depend on the device (each
 # product, difference and quotient rounded on its own, the halving tree, a
 # correctly rounded square root: fused_ngs.picard_norm); the kernel gets the
@@ -248,6 +253,7 @@ GS_CARD_TWINS = (("triangle", 16), ("tet", 4))  # the twin on the card too: the 
 GS_TABLE_CASE = ("triangle", 64)  # the kernel line's shape
 GS_TURNS = (("triangle", 16), ("triangle", 64), ("tet", 16))  # the host route against the kernel
 GS_WORKERS = 3
+GS_REPEATS = 5  # launches of each placement the plan allows, each held to the twin
 _GS_POOL = None
 
 PARITY_COUNTS = {4: 6, 8: 8, 12: 12, 16: 15, 20: 17, 24: 20, 32: 26, 36: 29, 40: 33}
@@ -1095,6 +1101,20 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # -- 2. build ---------------------------------------------------------
+    # fused_gs's twins run on the host's cores while nvcc builds (they need
+    # no kernel), and its probe build beside the package's; both are
+    # collected, and the twins' workers stopped, before phase 3 times
+    # anything
+    global _GS_POOL
+    import multiprocessing
+    from concurrent.futures import ThreadPoolExecutor
+
+    from perphil_tpu_torch.ops.fused_gs import probe_library
+
+    _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS)
+    gs_pending = {case: _GS_POOL.apply_async(gs_twin, (case,)) for case in GS_TWIN_CASES}
+    probe_pool = ThreadPoolExecutor(1)
+    gs_probe_pending = probe_pool.submit(probe_library)
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.BUILD_INFO
@@ -1118,13 +1138,15 @@ def main() -> int:
         print(f"  fused GMRES pc {pc}: static shared memory {static_smem(pc, 3)} B, "
               f"{min(margins)} B over the {SMEM_BUDGET} B budget")
         check(min(margins) >= 0, f"fused GMRES pc {pc} leaves the shared-memory budget")
-    # fused_gs's twins on the host's cores, from here (after the build's nvcc
-    # processes) until phase 7 needs them
-    global _GS_POOL
-    import multiprocessing
-
-    _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS)
-    gs_twins = {case: _GS_POOL.apply_async(gs_twin, (case,)) for case in GS_TWIN_CASES}
+    t0 = time.perf_counter()
+    gs_twins = {case: pending.get(timeout=900) for case, pending in gs_pending.items()}
+    _GS_POOL.close()
+    _GS_POOL.join()
+    gs_probe = gs_probe_pending.result(timeout=900)
+    probe_pool.shutdown()
+    print(f"fused_gs's twins ({', '.join(f'{c[0]} N={c[1]} {gs_twins[c][-1]:.1f} s' for c in GS_TWIN_CASES)}, on "
+          f"{GS_WORKERS} workers beside nvcc) and its probe build ready {time.perf_counter() - t0:.1f} s after the "
+          f"package's build; the workers stopped")
 
     # -- 3. kernels against their twins (not counted) ---------------------
     results = {}
@@ -1646,12 +1668,12 @@ def main() -> int:
     # bit for bit. The twins ran on the host's cores (gs_twin) from the
     # inputs the kernel gets here; at tri N=16 / tet nx=4 the card's twin too
     from perphil_tpu_torch.ops.fused_gs import RESULT_SLOTS as GS_SLOTS
-    from perphil_tpu_torch.ops.fused_gs import FusedGSSolver, gs_host_loop
+    from perphil_tpu_torch.ops.fused_gs import FusedGSSolver, fused_gs_plan, gs_host_loop
 
     gs_solvers = {}
     for case in GS_TWIN_CASES:
         element, n, cap = case
-        b_np, x0_np, x_np, its, fn, f0, twin_s = gs_twins[case].get(timeout=900)
+        b_np, x0_np, x_np, its, fn, f0, twin_s = gs_twins[case]
         W, params, _, _, _ = problem(element, n, dev)
         op = DPPOperator(W, params)
         b, x0 = torch.tensor(b_np, device=dev), torch.tensor(x0_np, device=dev)
@@ -1681,22 +1703,41 @@ def main() -> int:
         if cap is None:
             check(fn <= max(snes_kw["rtol"] * f0, snes_kw["atol"]), f"fused_gs {element} N={n} converged")
         gs_solvers[(element, n)] = (op, b, x0, solver, got, twin_s, abs_err)
+        # every placement the plan allows, GS_REPEATS launches each: each
+        # launch's x, count and norms the twin's (a halo wait that hung now
+        # and then would trap, and the launch fail)
+        placed = [nb for nb in (1, 2, 4, 8, 16) if fused_gs_plan(W.mesh.node_shape, element, nb) is not None]
+        for nb in placed:
+            other = FusedGSSolver(op, **{**snes_kw, **({"max_it": cap} if cap else {})}, blocks=nb)
+            for _ in range(GS_REPEATS):
+                rep = other.launch(b, x0)
+                check(torch.equal(rep.x, twin_x) and (rep.iterations, rep.residual_norm, rep.initial_norm)
+                      == (its, fn, f0), f"fused_gs {element} N={n} on {nb} block(s) bit for bit with its twin")
+        print(f"  fused_gs {element} N={n}: {GS_REPEATS} launches on each of {placed} block(s), each bit for bit "
+              f"with the twin")
     # the kernel line's shape: its time, µs an iteration and a level, and the
-    # empty level (the same launch with as many empty levels again a sweep)
+    # empty level: the probe build's launch with as many empty levels again
+    # a sweep less its launch without them
     op, b, x0, solver, got, twin_s, abs_err = gs_solvers[GS_TABLE_CASE]
     its, levels = got.iterations, solver.plan.levels
     ms = time_ms(lambda: solver.launch(b, x0), repeats=5, warmup=1)
     x_e, res_e = torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev)
-    empty_args = solver.launch_args(b, x0, x_e, res_e, extra_levels=levels)
-    ms_empty = time_ms(lambda: _cuda.launch("fused_gs", "perphil_fused_gs", dev, *empty_args), repeats=5, warmup=1)
-    empty_us = (ms_empty - ms) * 1e3 / (its * levels)
+    probe_args = solver.launch_args(b, x0, x_e, res_e)
+
+    def probe(extra):
+        _cuda.check(gs_probe.perphil_fused_gs_probe(*probe_args, extra, 0, stream), "perphil_fused_gs_probe")
+
+    ms_probe, ms_empty = (time_ms(lambda: probe(extra), repeats=5, warmup=1) for extra in (0, levels))
+    check(torch.equal(x_e, got.x) and res_e[0].item() == its, "fused_gs's probe build: the same solve")
+    empty_us = (ms_empty - ms_probe) * 1e3 / (its * levels)
     results["fused_gs"] = dict(
         max_abs_err=abs_err, ms=ms, plain_ms=twin_s * 1e3, bound=bound(*fused_gs_work(solver, its)),
         shape=f"tri 64^2, {its} iterations, {levels} levels, {solver.plan.blocks} block; the twin on the host's CPU",
     )
     print(f"  fused_gs tri N=64: {ms:.3f} ms (CUDA events, median of 5), {ms * 1e3 / its:.3f} us/iteration, "
-          f"{ms * 1e3 / (its * levels):.4f} us/level ({levels} levels); with {levels} empty levels more a sweep "
-          f"{ms_empty:.3f} ms: an empty level {empty_us:.4f} us, latency floor {its * levels * empty_us * 1e-3:.3f} ms "
+          f"{ms * 1e3 / (its * levels):.4f} us/level ({levels} levels); the probe build {ms_probe:.3f} ms, with "
+          f"{levels} empty levels more a sweep {ms_empty:.3f} ms: an empty level {empty_us:.4f} us, latency floor "
+          f"{its * levels * empty_us * 1e-3:.3f} ms "
           f"({its} x {levels} levels); bound {results['fused_gs']['bound'][0]:.6f} ms "
           f"({results['fused_gs']['bound'][1]}) on {smi}")
     # the host route (the route beyond the plan: a GS-mode sweep, a K1

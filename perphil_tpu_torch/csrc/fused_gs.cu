@@ -143,12 +143,19 @@ struct GsGeom {
   int bytes;       // dynamic shared memory
 };
 
-// Phase clocks, for tools/profile_kernels.py --only gs alone: a build with
-// PERPHIL_GS_PROFILE adds thread 0 of block 0's cycles in each phase to
-// gs_prof (the package's library holds no counter): its rows of a level
-// (their loads, chains and divides, the pushes issued), the level barrier
-// and the halo wait, the norm's residual rows, and the tree (with its
-// cluster barriers).
+// The probe build (PERPHIL_GS_PROFILE; tools/profile_kernels.py --only gs
+// and chip_smoke.py build csrc/fused_gs.cu alone with it) adds the entry
+// point perphil_fused_gs_probe, whose launches may ask for
+//   - extra_levels empty levels after each sweep's last: the latency floor;
+//   - clocks: thread 0 of block 0's cycles in each phase summed into
+//     gs_prof: its rows of a level (their loads, chains and divides, the
+//     pushes sent), the level barrier and the halo wait, the norm's
+//     residual rows, and the tree (with its cluster barriers).
+// The package's library holds neither: its launches carry GsProbe{} and its
+// level loop runs the sweep's levels alone.
+struct GsProbe {
+  int extra_levels, clocks;
+};
 enum GsPhase { kGsRows, kGsWait, kGsNormRows, kGsTree, kGsPhases };
 #ifdef PERPHIL_GS_PROFILE
 __device__ unsigned long long gs_prof[kGsPhases];
@@ -222,7 +229,7 @@ template <int kTaps>
 __global__ void __launch_bounds__(kGmresThreads, 1)
 fused_gs_kernel(const double* b, const double* x0, double* x, const uint16_t* lists, const int* cptr_g,
                 const int* sends_g, double* result, GsTaps taps, int outer, int plane, int ny, int nx,
-                double rtol, double atol, int max_it, int sweep_warps, int extra_levels, GsGeom geom) {
+                double rtol, double atol, int max_it, int sweep_warps, GsGeom geom, GsProbe probe) {
   extern __shared__ __align__(16) unsigned char dyn[];
   constexpr int kPad = (kTaps + 3) / 4 * 4;
   __shared__ __align__(16) double rw[2][kPad], gw[2][kPad];
@@ -293,7 +300,7 @@ fused_gs_kernel(const double* b, const double* x0, double* x, const uint16_t* li
     __syncthreads();
   }
 #ifdef PERPHIL_GS_PROFILE
-  const bool clocked = o.b == 0 && tid == 0;
+  const bool clocked = probe.clocks != 0 && o.b == 0 && tid == 0;
   long long t0 = clock64(), clk[kGsPhases] = {};
   auto mark = [&](int phase) {
     if (clocked) {
@@ -384,7 +391,11 @@ fused_gs_kernel(const double* b, const double* x0, double* x, const uint16_t* li
   const double tol = atol > rel_tol ? atol : rel_tol;  // Python's max(rtol * f0, atol)
   double fn = f0;
   int its = 0, q = 0;  // q: levels so far, which picks the mbarrier and its parity
-  const int steps = nlev + extra_levels;  // levels past nlev are empty (the tool's latency floor)
+#ifdef PERPHIL_GS_PROFILE
+  const int steps = nlev + probe.extra_levels;  // levels past nlev are empty: the latency floor
+#else
+  const int steps = nlev;
+#endif
   while (fn > tol && its < max_it) {
     if (warp < sw) {
       // the thread's first row of a level, read before the barrier that ends
@@ -461,8 +472,6 @@ fused_gs_kernel(const double* b, const double* x0, double* x, const uint16_t* li
   if (nb > 1) cluster.sync();  // no block leaves while another may still reach its shared memory
 }
 
-}  // namespace perphil
-
 // b, x0, x: (2, [nz,] ny, nx) f64 (b the lifted right-hand side, x0 the BC
 // lift, x out); lists: (nb, width) uint16, per block its interior rows'
 // offsets in its slab sorted by level; cptr: (nb, nlev + 1) int32, each
@@ -473,16 +482,14 @@ fused_gs_kernel(const double* b, const double* x0, double* x, const uint16_t* li
 // [n0, n1, c0, c1] int32, host arrays: GsTaps. dim 2 (nz = 1) or 3; blocks
 // (0: the launcher's rule), rows, nloc, width and nlev: the host's plan,
 // which must be the launcher's; sweep_warps (1-16): the warps that take a
-// level's rows (the host's: the widest level a block holds); extra_levels:
-// empty levels added to each sweep (0; the tool's latency floor).
-extern "C" int perphil_fused_gs(const double* b, const double* x0, double* x, const uint16_t* lists,
-                                const int* cptr, const int* sends, double* result, const double* tap_w,
-                                const int* tap_d, const int* tap_nc, int dim, int nz, int ny, int nx,
-                                double rtol, double atol, int max_it, int blocks, int rows, int nloc, int width,
-                                int nlev, int sweep_warps, int extra_levels, void* stream) {
-  using namespace perphil;
+// level's rows (the host's: the widest level a block holds).
+inline int launch_fused_gs(const double* b, const double* x0, double* x, const uint16_t* lists, const int* cptr,
+                           const int* sends, double* result, const double* tap_w, const int* tap_d,
+                           const int* tap_nc, int dim, int nz, int ny, int nx, double rtol, double atol, int max_it,
+                           int blocks, int rows, int nloc, int width, int nlev, int sweep_warps, GsProbe probe,
+                           void* stream) {
   GsGeom geo;
-  if (max_it < 0 || extra_levels < 0 || sweep_warps < 1 || sweep_warps > kGmresThreads / 32 ||
+  if (max_it < 0 || probe.extra_levels < 0 || sweep_warps < 1 || sweep_warps > kGmresThreads / 32 ||
       !gs_geometry(dim, nz, ny, nx, blocks, geo) || geo.rows != rows || geo.nloc != nloc || geo.width != width ||
       geo.nlev != nlev) {
     return (int)cudaErrorInvalidValue;
@@ -503,7 +510,7 @@ extern "C" int perphil_fused_gs(const double* b, const double* x0, double* x, co
     t.dg[f] = t.rw[f][c];
   }
   using Kernel = void (*)(const double*, const double*, double*, const uint16_t*, const int*, const int*, double*,
-                          GsTaps, int, int, int, int, double, double, int, int, int, GsGeom);
+                          GsTaps, int, int, int, int, double, double, int, int, GsGeom, GsProbe);
   const int taps_needed = tap_nc[0] > tap_nc[1] ? tap_nc[0] : tap_nc[1];
   const Kernel kernel = taps_needed <= kGsTapCounts[0]   ? fused_gs_kernel<kGsTapCounts[0]>
                         : taps_needed <= kGsTapCounts[1] ? fused_gs_kernel<kGsTapCounts[1]>
@@ -532,11 +539,36 @@ extern "C" int perphil_fused_gs(const double* b, const double* x0, double* x, co
   cfg.numAttrs = 1;
   const int outer = dim == 2 ? ny : nz, plane = dim == 2 ? nx : ny * nx;
   err = cudaLaunchKernelEx(&cfg, kernel, b, x0, x, lists, cptr, sends, result, t, outer, plane, ny, nx, rtol, atol,
-                           max_it, sweep_warps, extra_levels, geo);
+                           max_it, sweep_warps, geo, probe);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+}  // namespace perphil
+
+extern "C" int perphil_fused_gs(const double* b, const double* x0, double* x, const uint16_t* lists,
+                                const int* cptr, const int* sends, double* result, const double* tap_w,
+                                const int* tap_d, const int* tap_nc, int dim, int nz, int ny, int nx,
+                                double rtol, double atol, int max_it, int blocks, int rows, int nloc, int width,
+                                int nlev, int sweep_warps, void* stream) {
+  return perphil::launch_fused_gs(b, x0, x, lists, cptr, sends, result, tap_w, tap_d, tap_nc, dim, nz, ny, nx, rtol,
+                                  atol, max_it, blocks, rows, nloc, width, nlev, sweep_warps, perphil::GsProbe{},
+                                  stream);
+}
+
 #ifdef PERPHIL_GS_PROFILE
+// perphil_fused_gs's launch with extra_levels empty levels after each
+// sweep's last and, where clocks is nonzero, the phase clocks (GsProbe).
+extern "C" int perphil_fused_gs_probe(const double* b, const double* x0, double* x, const uint16_t* lists,
+                                      const int* cptr, const int* sends, double* result, const double* tap_w,
+                                      const int* tap_d, const int* tap_nc, int dim, int nz, int ny, int nx,
+                                      double rtol, double atol, int max_it, int blocks, int rows, int nloc,
+                                      int width, int nlev, int sweep_warps, int extra_levels, int clocks,
+                                      void* stream) {
+  return perphil::launch_fused_gs(b, x0, x, lists, cptr, sends, result, tap_w, tap_d, tap_nc, dim, nz, ny, nx, rtol,
+                                  atol, max_it, blocks, rows, nloc, width, nlev, sweep_warps,
+                                  perphil::GsProbe{extra_levels, clocks}, stream);
+}
+
 // Copies the phase counters (GsPhase, cycles summed over the launches since
 // the last take) to `out` on the host, then zeroes them.
 extern "C" int perphil_fused_gs_profile_take(unsigned long long* out) {

@@ -78,8 +78,8 @@ _SIGNATURES = {
     "perphil_fused_ngs": [_P] * 8 + [_I] * 3 + [_D, _D] + [_I] * 5 + [_P],
     # b, x0, x, lists, cptr, sends, result, tap_w, tap_d, tap_nc (host), dim,
     # nz, ny, nx, rtol, atol, max_it, blocks, rows, nloc, width, nlev,
-    # sweep_warps, extra_levels, stream
-    "perphil_fused_gs": [_P] * 10 + [_I] * 4 + [_D, _D] + [_I] * 8 + [_P],
+    # sweep_warps, stream
+    "perphil_fused_gs": [_P] * 10 + [_I] * 4 + [_D, _D] + [_I] * 7 + [_P],
     # r, z, vec, blob, desc, perm, n, nlev_l, nlev_u, blocks, shared_vector,
     # stages, stage_bytes, stream
     "perphil_band_trisolve": [_P] * 6 + [_I] * 7 + [_P],
@@ -112,14 +112,19 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the kernels (if this source hash has no library yet) and
-    return the library path."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags) -> str:
+    """A hash of the flags and every source, for a library's name."""
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    lib = BUILD_DIR / f"libperphil_kernels_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if this source hash has no library yet) and
+    return the library path."""
+    lib = BUILD_DIR / f"libperphil_kernels_{_digest(NVCC_FLAGS)}.so"
     if lib.exists():
         BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
         return lib
@@ -175,6 +180,30 @@ def library() -> ctypes.CDLL:
         lib.perphil_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def variant_library(source: str, define: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """``csrc/<source>`` built alone with ``-D<define>`` (a measurement
+    build: what a kernel compiles in under that macro, such as phase clocks
+    or a probe's entry point), into the build directory under a hash of the
+    sources, the flags and the macro, loaded with ``signatures`` (launcher
+    name: argtypes) bound. Its launches are counted nowhere."""
+    flags = [*NVCC_FLAGS, f"-D{define}"]
+    lib = BUILD_DIR / "variants" / f"lib{Path(source).stem}_{define.lower()}_{_digest(flags)}.so"
+    if not lib.exists():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        run = subprocess.run([_nvcc(), *flags, "-shared", "-I", str(CSRC), "-o", str(tmp), str(CSRC / source)],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({run.returncode}) on {source} with -D{define}:\n{run.stdout}{run.stderr}")
+        os.replace(tmp, lib)
+    dll = ctypes.CDLL(str(lib))
+    for name, argtypes in signatures.items():
+        fn = getattr(dll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return dll
 
 
 def check(err: int, name: str) -> None:

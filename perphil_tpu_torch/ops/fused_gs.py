@@ -21,9 +21,10 @@ planes (3D) over a thread block cluster of the most blocks (2-16) that
 place it, a halo row or plane on either side, the halo pushed level by
 level (``fused_ngs``'s protocol).
 :func:`fused_gs_plan` mirrors its launcher, :func:`gs_tables` builds its
-level lists, :func:`gs_taps` its entries. Beyond the plan the solver runs
-:func:`gs_host_loop`: one ``structured_ilu_apply[gs]`` launch, one K1
-residual and one norm read back an iteration.
+level lists, :func:`gs_taps` its entries; :func:`probe_library` builds the
+kernel's measurement variant (empty levels, phase clocks). Beyond the plan
+the solver runs :func:`gs_host_loop`: one ``structured_ilu_apply[gs]``
+launch, one K1 residual and one norm read back an iteration.
 """
 
 from __future__ import annotations
@@ -75,6 +76,21 @@ class GsPlan(NamedTuple):
     width: int
     levels: int
     bytes: int
+
+
+def probe_library():
+    """``csrc/fused_gs.cu`` built alone with ``PERPHIL_GS_PROFILE`` (the
+    measurement build): ``perphil_fused_gs_probe(*launch_args, extra_levels,
+    clocks, stream)`` runs a launch with ``extra_levels`` empty levels after
+    each sweep's last and, where ``clocks`` is nonzero, sums thread 0 of
+    block 0's cycles in each phase, which ``perphil_fused_gs_profile_take``
+    copies out (four uint64) and zeroes. Not counted as ``fused_gs``."""
+    sig = _cuda._SIGNATURES["perphil_fused_gs"]
+    return _cuda.variant_library("fused_gs.cu", "PERPHIL_GS_PROFILE", {
+        "perphil_fused_gs": sig,
+        "perphil_fused_gs_probe": sig[:-1] + [_cuda._I, _cuda._I, _cuda._P],
+        "perphil_fused_gs_profile_take": [_cuda._P],
+    })
 
 
 def _align16(nbytes: int) -> int:
@@ -224,8 +240,9 @@ class FusedGSSolver(nn.Module):
     the kernel (one launch, counted as ``fused_gs``; a mesh beyond
     :func:`fused_gs_plan` raises), a CPU tensor the plain twin.
 
-    :param sweeper: the mesh's :class:`GaussSeidelSweeper` (built here when
-        not given).
+    :param sweeper: the mesh's :class:`GaussSeidelSweeper`, which the twin
+        and the host route beyond the plan sweep with; left out, it is built
+        at its first use (a launch within the plan needs none).
     :param blocks: the kernel's block count (left open: the launcher's
         rule; any count :func:`fused_gs_plan` places, for measurements).
     """
@@ -245,29 +262,38 @@ class FusedGSSolver(nn.Module):
             raise ValueError(f"the fused GS solve is the lexicographic ngs of tri/hex/tet meshes, got {mesh.element!r}")
         self.device = op.W.device
         self.mesh, self.params = mesh, op.params
-        self.sweeper = GaussSeidelSweeper.for_monolithic(mesh, op.params, self.device) if sweeper is None else sweeper
-        if self.sweeper.device != self.device or self.sweeper.nrows != 2 * mesh.num_vertices:
+        if sweeper is not None and (sweeper.device != self.device or sweeper.nrows != 2 * mesh.num_vertices):
             raise ValueError("the sweeper belongs to another mesh or device")
+        self._sweeper = sweeper
+        self._entries = None  # the twin's residual entries, taken from the sweeper at first use
         self.rtol, self.atol, self.max_it = float(rtol), float(atol), int(max_it)
         self.node_shape = tuple(mesh.node_shape)
         self.blocks = blocks
         self.plan = fused_gs_plan(self.node_shape, mesh.element, blocks=blocks)
-        # the twin's residual: the system's offsets that hold an entry, in stored order
-        vals, deltas = self.sweeper.vals, self.sweeper.deltas
-        self._entries = [(vals[t], deltas[t]) for t in range(len(deltas)) if bool(vals[t].any())]
-        self._pad = max(abs(d) for d in deltas)
         #: what the last launch ran with: (blocks, rows, leaves a thread, dynamic bytes, levels)
         self.last_placement: Optional[Tuple[int, ...]] = None
         self.register_buffer("lists", None)
         self.register_buffer("cptr", None)
         self.register_buffer("sends", None)
 
+    @property
+    def sweeper(self) -> GaussSeidelSweeper:
+        """The mesh's :class:`GaussSeidelSweeper` (the packed system and its
+        level schedule on the solver's device), built at first use."""
+        if self._sweeper is None:
+            self._sweeper = GaussSeidelSweeper.for_monolithic(self.mesh, self.params, self.device)
+        return self._sweeper
+
     def residual(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``b - A x`` on flat ``(nrows,)`` f64 tensors, the kernel's order:
         ``b`` less each entry's product in the system's stored offset order
-        (the diagonal at its place), each product and difference rounded
-        apart; a column past either end reads 0."""
-        p, n = self._pad, x.shape[0]
+        (the diagonal at its place; the offsets that hold no entry left
+        out), each product and difference rounded apart; a column past
+        either end reads 0."""
+        if self._entries is None:
+            vals, deltas = self.sweeper.vals, self.sweeper.deltas
+            self._entries = [(vals[t], deltas[t]) for t in range(len(deltas)) if bool(vals[t].any())]
+        p, n = max(abs(d) for _, d in self._entries), x.shape[0]
         xp = torch.nn.functional.pad(x, (p, p))
         r = b
         for v, d in self._entries:
@@ -286,12 +312,11 @@ class FusedGSSolver(nn.Module):
         """The warps that take a level's rows: the widest level a block holds."""
         return int(min(16, max(1, -(-int(np.diff(self.cptr.cpu().numpy(), axis=1).max()) // 32))))
 
-    def launch_args(self, b: torch.Tensor, x0: torch.Tensor, x: torch.Tensor, result: torch.Tensor,
-                    extra_levels: int = 0) -> tuple:
+    def launch_args(self, b: torch.Tensor, x0: torch.Tensor, x: torch.Tensor, result: torch.Tensor) -> tuple:
         """The launcher's arguments (all but the stream) for stacked f64
         CUDA tensors ``b``, ``x0``, the output ``x`` and ``result``
-        (:data:`RESULT_SLOTS` f64); ``extra_levels`` empty levels added to
-        each sweep (the tool's latency floor)."""
+        (:data:`RESULT_SLOTS` f64). They hold pointers only: the caller
+        keeps every tensor alive until the launch has run."""
         if self.plan is None:
             raise ValueError(f"{self.mesh.element} mesh {self.node_shape} is beyond the fused GS plan")
         shape = (2,) + self.node_shape
@@ -314,7 +339,7 @@ class FusedGSSolver(nn.Module):
             self.sends.data_ptr(), result.data_ptr(), w.ctypes.data, d.ctypes.data, nc.ctypes.data,
             len(self.node_shape), nz, ny, nx, self.rtol, self.atol, self.max_it,
             0 if self.blocks is None else p.blocks,  # 0: the launcher applies its own rule
-            p.rows, p.nloc, p.width, p.levels, self._sweep_warps, int(extra_levels),
+            p.rows, p.nloc, p.width, p.levels, self._sweep_warps,
         )
 
     def launch(self, b: torch.Tensor, x0: torch.Tensor) -> NgsResult:

@@ -620,15 +620,19 @@ def solve_dpp(
 
 
 def _ngs_sweeper(
-    mesh, params: DPPParameters, device, trisolve: str = ""
-) -> Union[ColoredNGSSweeper, GaussSeidelSweeper, PartriGS]:
+    mesh, params: DPPParameters, device, trisolve: str = "", build_wavefront: bool = True
+) -> Union[ColoredNGSSweeper, GaussSeidelSweeper, PartriGS, None]:
     """The SNES ngs sweep: the pinned-colouring multicolour sweeper on quad
     meshes (the reference's exact Picard counts), the lexicographic
     Gauss-Seidel sweeper elsewhere (on the ``trisolve_backend`` option
-    ``trisolve``, :func:`_trisolve_backend`)."""
+    ``trisolve``, :func:`_trisolve_backend`). With ``build_wavefront``
+    false, the wavefront's is None: ``FusedGSSolver`` builds it where its
+    twin or the host route sweeps."""
     if mesh.element == "quad":
         return ColoredNGSSweeper(mesh, params, device)
     backend = _trisolve_backend(trisolve, mesh.node_shape, 2, device)
+    if backend == "wavefront" and not build_wavefront:
+        return None
     return GS_BACKENDS[backend].for_monolithic(mesh, params, device)
 
 
@@ -662,7 +666,7 @@ def _build_nonlinear_solver(
     if snes == "ngs":
         # PETSc's default SNES ngs is a colouring-based pointwise secant
         # Gauss-Seidel; the fieldsplit keys of the Picard presets are inert
-        sweeper = _ngs_sweeper(mesh, params, W.device, _trisolve_option(flat))
+        sweeper = _ngs_sweeper(mesh, params, W.device, _trisolve_option(flat), build_wavefront=False)
         if isinstance(sweeper, ColoredNGSSweeper):
             fused = FusedNGSSolver(op, sweeper, rtol, atol, max_it)
 
@@ -676,14 +680,17 @@ def _build_nonlinear_solver(
 
             return solve_colored
         # the wavefront: the whole solve in one fused_gs launch within its
-        # plan (the twin on the CPU); partri, and the card beyond the plan:
-        # the host loop
-        fused = FusedGSSolver(op, sweeper, rtol, atol, max_it) if isinstance(sweeper, GaussSeidelSweeper) else None
+        # plan (the twin on the CPU); the card beyond the plan: the host loop
+        # on the solver's sweeper, which only the twin and that loop build;
+        # partri: the host loop
+        fused = FusedGSSolver(op, None, rtol, atol, max_it) if sweeper is None else None
 
         def solve_lexicographic(g1: torch.Tensor, g2: torch.Tensor):
             b, x0 = lift(g1, g2)
-            if fused is None or (W.device.type == "cuda" and fused.plan is None):
+            if fused is None:
                 res = gs_host_loop(op, sweeper, b, x0, rtol, atol, max_it)
+            elif W.device.type == "cuda" and fused.plan is None:
+                res = gs_host_loop(op, fused.sweeper, b, x0, rtol, atol, max_it)
             else:
                 res = fused(b, x0)
             return res.x[0], res.x[1], res.iterations, res.residual_norm

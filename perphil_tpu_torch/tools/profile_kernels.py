@@ -103,13 +103,20 @@ device kernels of one apply and their summed time.
 Picard solve in one launch): in turns with the host route it replaced
 (a ``structured_ilu_apply[gs]`` sweep, a K1 residual and a norm read back
 an iteration; host clock) at tri N=16/64 and tet nx=16; every placement the
-plan allows at tri N=64/128 and tet nx=16/24 in turns, 200 iterations each
-(``rtol = atol = 0``), bit for bit with one another, with each placement's
-empty level (as many empty levels again a sweep); the cycles of thread 0 of
-block 0 a level in its rows and in the level's barrier and halo wait, and
-an iteration's in the norm's rows and tree (``csrc/fused_gs.cu`` built alone
-with ``PERPHIL_GS_PROFILE``); and the GS mode's empty level (its launch on
-an all-empty schedule of 2L and L levels), its latency floor.
+plan allows at tri N=64/128 and tet nx=16/24/34 in turns, 200 iterations
+each (``rtol = atol = 0``), bit for bit with one another, the package's
+launch beside the probe build's (``fused_gs.probe_library``:
+``csrc/fused_gs.cu`` built alone with ``PERPHIL_GS_PROFILE``) with and
+without as many empty levels again a sweep, their difference the empty
+level; with the probe build's clocks, the cycles of thread 0 of block 0 a
+level in its rows and in the level's barrier and halo wait, and an
+iteration's in the norm's rows and tree; and the GS mode's empty level (its
+launch on an all-empty schedule of 2L and L levels), its latency floor.
+``--only gs-repeat`` launches every placement of those meshes 40 times on
+each build (the package's, the probe's with no and with as many empty
+levels again a sweep), queued back to back, each launch with buffers of its
+own, and holds every launch's x, count and norms to the first's bit for
+bit: a halo wait that hangs now and then traps and fails the run.
 
 ``--only sweeps`` builds nothing of its own: it times, with the package's
 kernels (CUDA events, median of 5), the frame's roles where ``chip_smoke.py``
@@ -504,15 +511,8 @@ K3_PHASES = ["setup", "first preconditioner", "matvec", "<p, A p>", "x, r update
 def ngs_phase_library() -> ctypes.CDLL:
     """``csrc/fused_ngs.cu`` built alone with its phase clocks compiled in
     (``PERPHIL_NGS_PROFILE``), bound as the package binds it."""
-    out = _cuda.BUILD_DIR / "ngs_phases"
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libngs_phases.so"
-    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DPERPHIL_NGS_PROFILE", "-shared", "-I", str(_cuda.CSRC),
-                    "-o", str(lib), str(_cuda.CSRC / "fused_ngs.cu")], check=True, capture_output=True)
-    dll = ctypes.CDLL(str(lib))
-    dll.perphil_fused_ngs.argtypes = _cuda._SIGNATURES["perphil_fused_ngs"]
-    dll.perphil_fused_ngs_profile_take.argtypes = [_P]
-    return dll
+    return _cuda.variant_library("fused_ngs.cu", "PERPHIL_NGS_PROFILE", {
+        "perphil_fused_ngs": _cuda._SIGNATURES["perphil_fused_ngs"], "perphil_fused_ngs_profile_take": [_P]})
 
 
 # the phases of the NGS kernel's clocks (fused_ngs.cu NgsPhase), in slot order
@@ -1284,8 +1284,9 @@ def time_partri() -> None:
 
 # the Picard inputs of --only gs: (element, N) on the manufactured solution
 GS_TURNS = (("triangle", 16), ("triangle", 64), ("tet", 16))
-GS_PLACEMENTS = (("triangle", 64), ("triangle", 128), ("tet", 16), ("tet", 24))
+GS_PLACEMENTS = (("triangle", 64), ("triangle", 128), ("tet", 16), ("tet", 24), ("tet", 34))
 GS_ITERATIONS = 200
+GS_REPEATS = 40  # --only gs-repeat: launches of each placement on each build
 # the phase clocks' slots (fused_gs.cu GsPhase)
 GS_PHASES = ["own rows", "level barrier + halo wait", "norm rows", "tree"]
 
@@ -1306,23 +1307,9 @@ def gs_case(element: str, n: int, max_it: Optional[int] = None, blocks: Optional
     return FusedGSSolver(op, blocks=blocks, **kw), b, x0, op
 
 
-def gs_phase_library() -> ctypes.CDLL:
-    """``csrc/fused_gs.cu`` built alone with its phase clocks compiled in
-    (``PERPHIL_GS_PROFILE``), bound as the package binds it."""
-    out = _cuda.BUILD_DIR / "gs_phases"
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libgs_phases.so"
-    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DPERPHIL_GS_PROFILE", "-shared", "-I", str(_cuda.CSRC),
-                    "-o", str(lib), str(_cuda.CSRC / "fused_gs.cu")], check=True, capture_output=True)
-    dll = ctypes.CDLL(str(lib))
-    dll.perphil_fused_gs.argtypes = _cuda._SIGNATURES["perphil_fused_gs"]
-    dll.perphil_fused_gs_profile_take.argtypes = [_P]
-    return dll
-
-
 def time_gs() -> None:
     """``--only gs`` (the module's docstring)."""
-    from perphil_tpu_torch.ops.fused_gs import KERNEL, RESULT_SLOTS as GS_SLOTS, gs_host_loop
+    from perphil_tpu_torch.ops.fused_gs import KERNEL, RESULT_SLOTS as GS_SLOTS, _place, gs_host_loop, probe_library
     from perphil_tpu_torch.ops.ilu import GS_KERNEL
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1347,44 +1334,48 @@ def time_gs() -> None:
               f"iterations, {_fmt(walls['host route'])} ms ({host_us:.2f} us/iteration); fused_gs {its} iterations, "
               f"{_fmt(walls['kernel'])} ms ({kernel_us:.3f} us/iteration, {kernel_us / levels:.4f} us/level); "
               f"host clock, in turns", flush=True)
-    # every placement, in turns, with its empty level
+    # every placement, in turns: the package's launch, and the probe build's
+    # with and without as many empty levels again a sweep (its empty level)
+    probe = probe_library()
     for element, n in GS_PLACEMENTS:
-        from perphil_tpu_torch.ops.fused_gs import _place
-
         shape = gs_case(element, n, 1)[0].node_shape
         counts = [nb for nb in (1, 2, 4, 8, 16) if _place(shape, nb) is not None]
         cases = {nb: gs_case(element, n, GS_ITERATIONS, nb) for nb in counts}
-        runs, results = {}, {}
+        levels = cases[counts[0]][0].plan.levels
+        runs, results, outputs = {}, {}, {}
         for nb, (solver, b, x0, _) in cases.items():
-            x, res = torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev)
-            for extra in (0, solver.plan.levels):
-                args = solver.launch_args(b, x0, x, res, extra_levels=extra)
-                # the closure keeps the buffers whose pointers it passes
-                runs[(nb, extra)] = (lambda a=args, keep=(x, res): _cuda.launch(KERNEL, "perphil_fused_gs", dev, *a))
             results[nb] = solver.launch(b, x0)
+            # the timed launches' outputs: they live as long as their runs
+            outputs[nb] = (torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev))
+            args = solver.launch_args(b, x0, *outputs[nb])
+            runs[(nb, "package")] = lambda a=args: _cuda.launch(KERNEL, "perphil_fused_gs", dev, *a)
+            for extra in (0, levels):
+                runs[(nb, extra)] = lambda a=args, e=extra: _cuda.check(
+                    probe.perphil_fused_gs_probe(*a, e, 0, stream), "perphil_fused_gs_probe")
         times = _turns(runs, list(runs) + list(runs)[::-1], repeats=3)
         ref = results[counts[0]]
         same = all(torch.equal(r.x, ref.x) and r.residual_norm == ref.residual_norm for r in results.values())
-        levels = cases[counts[0]][0].plan.levels
+        same = same and all(torch.equal(x, ref.x) and res[0].item() == GS_ITERATIONS
+                            and res[1].item() == ref.residual_norm for x, res in outputs.values())
         line = f"{element} N={n}, {GS_ITERATIONS} iterations, {levels} levels:"
+        per = GS_ITERATIONS * levels * 1e-3
         for nb in counts:
-            t, te = statistics.median(times[(nb, 0)]), statistics.median(times[(nb, levels)])
-            line += (f" {nb} block(s) {_fmt(times[(nb, 0)])} ms ({t * 1e3 / (GS_ITERATIONS * levels):.4f} us/level, "
-                     f"an empty level {(te - t) * 1e3 / (GS_ITERATIONS * levels):.4f} us);")
+            t, t0, te = (statistics.median(times[(nb, k)]) for k in ("package", 0, levels))
+            line += (f" {nb} block(s) {_fmt(times[(nb, 'package')])} ms ({t / per:.4f} us/level; probe build "
+                     f"{t0:.4f} ms, an empty level {(te - t0) / per:.4f} us);")
         print(line + f" all bit-equal: {same}", flush=True)
         if not same:
             raise RuntimeError(f"{element} N={n}: placements disagree")
     # cycles of thread 0 of block 0 in each phase
-    dll = gs_phase_library()
     counters = np.zeros(len(GS_PHASES), np.uint64)
     for element, n in GS_PLACEMENTS[:1] + (("triangle", 16), ("tet", 4), ("hex", 8)) + GS_PLACEMENTS[1:]:
         solver, b, x0, _ = gs_case(element, n, GS_ITERATIONS)
         x, res = torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev)
         args = solver.launch_args(b, x0, x, res)
-        _cuda.check(dll.perphil_fused_gs_profile_take(counters.ctypes.data), "profile take")
-        _cuda.check(dll.perphil_fused_gs(*args, stream), "profile launch")
+        _cuda.check(probe.perphil_fused_gs_profile_take(counters.ctypes.data), "profile take")
+        _cuda.check(probe.perphil_fused_gs_probe(*args, 0, 1, stream), "profile launch")
         torch.cuda.synchronize()
-        _cuda.check(dll.perphil_fused_gs_profile_take(counters.ctypes.data), "profile take")
+        _cuda.check(probe.perphil_fused_gs_profile_take(counters.ctypes.data), "profile take")
         per = counters.astype(np.float64) / GS_ITERATIONS
         levels = solver.plan.levels
         print(f"{element} N={n} ({solver.plan.blocks} block(s), {levels} levels): thread 0 of block 0, cycles a level: "
@@ -1415,10 +1406,44 @@ def time_gs() -> None:
               f"{empty * swp.num_levels * 1e-3:.4f} ms a sweep", flush=True)
 
 
+def repeat_gs() -> None:
+    """``--only gs-repeat`` (the module's docstring)."""
+    from perphil_tpu_torch.ops.fused_gs import KERNEL, RESULT_SLOTS as GS_SLOTS, _place, probe_library
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream().cuda_stream
+    probe = probe_library()
+    for element, n in GS_PLACEMENTS:
+        shape = gs_case(element, n, 1)[0].node_shape
+        counts = [nb for nb in (1, 2, 4, 8, 16) if _place(shape, nb) is not None]
+        ref, launches, t0 = None, 0, time.perf_counter()
+        for nb in counts:
+            solver, b, x0, _ = gs_case(element, n, GS_ITERATIONS, nb)
+            levels, outputs = solver.plan.levels, []
+            for _ in range(GS_REPEATS):  # queued back to back, the probe's between the package's
+                for extra in (None, 0, levels):
+                    outputs.append((torch.empty_like(b), torch.empty(GS_SLOTS, dtype=torch.float64, device=dev)))
+                    args = solver.launch_args(b, x0, *outputs[-1])
+                    if extra is None:
+                        _cuda.launch(KERNEL, "perphil_fused_gs", dev, *args)
+                    else:
+                        _cuda.check(probe.perphil_fused_gs_probe(*args, extra, 0, stream), "perphil_fused_gs_probe")
+            torch.cuda.synchronize()
+            ref = outputs[0] if ref is None else ref
+            bad = sum(not (torch.equal(x, ref[0]) and torch.equal(res[:3], ref[1][:3])) for x, res in outputs)
+            launches += len(outputs)
+            if bad:
+                raise RuntimeError(f"{element} N={n} on {nb} block(s): {bad} of {len(outputs)} launches disagree")
+        print(f"{element} N={n}, {GS_ITERATIONS} iterations: {launches} launches ({GS_REPEATS} a placement and "
+              f"build: the package's, the probe's with 0 and with {levels} empty levels more a sweep) on "
+              f"{counts} block(s), all bit-equal to the first; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
-                                       "direct-wrapper", "ngs", "ngs-phases", "ngs-variants", "band", "partri", "gs"],
+                                       "direct-wrapper", "ngs", "ngs-phases", "ngs-variants", "band", "partri", "gs",
+                                       "gs-repeat"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -1464,6 +1489,9 @@ def main() -> int:
         return 0
     if args.only == "gs":
         time_gs()
+        return 0
+    if args.only == "gs-repeat":
+        repeat_gs()
         return 0
     dll = build()
     if args.only in (None, "gmres"):

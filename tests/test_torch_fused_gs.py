@@ -44,7 +44,7 @@ from perphil_tpu_torch.ops.fused_ngs import slab_rows
 from perphil_tpu_torch.ops.ilu import GaussSeidelSweeper, PartriGS, build_monolithic_system
 from perphil_tpu_torch.ops.krylov import tree_sum
 from perphil_tpu_torch.solvers import solve_dpp_nonlinear
-from perphil_tpu_torch.solvers.solver import _build_nonlinear_solver
+from perphil_tpu_torch.solvers.solver import _build_nonlinear_solver, _ngs_sweeper
 
 # A final norm is that of a residual ~rtol times the first one: b - A x
 # cancels all but ~eps / rtol (1e-8) of its bits, which two packages
@@ -483,6 +483,24 @@ def test_partri_keeps_its_host_loop(monkeypatch):
     loop = gs_host_loop(op, sweeper, b, x0, **{k: v for k, v in SNES_KW.items()})
     assert sol.iteration_number == loop.iterations > 0
     assert all(torch.equal(a, t) for a, t in zip(sol.solution.data, loop.x))
+
+
+def test_the_sweeper_is_built_only_where_it_sweeps(monkeypatch):
+    """The route builds no GaussSeidelSweeper for the wavefront (a launch
+    within the plan needs none); FusedGSSolver builds its own once, at its
+    twin's first sweep, and sweeps with a sweeper given to it."""
+    built = []
+    build = GaussSeidelSweeper.for_monolithic.__func__
+    monkeypatch.setattr(GaussSeidelSweeper, "for_monolithic",
+                        classmethod(lambda cls, *a, **kw: built.append(1) or build(cls, *a, **kw)))
+    state = _state("tet", (4, 4, 4))
+    assert _ngs_sweeper(state.mesh, state.params, "cpu", "wavefront", build_wavefront=False) is None
+    op, solver, b, x0 = _problem("tet", (4, 4, 4), **SNES_KW)
+    assert solver.plan is not None and built == []
+    first, second = solver.plain(b, x0), solver.plain(b, x0)
+    assert built == [1] and torch.equal(first.x, second.x)
+    given = build(GaussSeidelSweeper, state.mesh, state.params, "cpu")
+    assert FusedGSSolver(op, given).sweeper is given and built == [1]
 
 
 def test_validation_errors():

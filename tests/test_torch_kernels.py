@@ -680,12 +680,15 @@ FUSED_GS_CASES = [("triangle", (16, 16), None, 50000), ("tet", (4, 4, 4), None, 
                   ("triangle", (128, 128), None, 10), ("tet", (24, 24, 24), None, 5), ("triangle", (48, 48), 16, 10),
                   ("triangle", (128, 128), 4, 10), ("tet", (24, 24, 24), 4, 5)]
 
+FUSED_GS_REPEATS = 10
+
 
 @pytest.mark.parametrize("element,cells,blocks,max_it", FUSED_GS_CASES,
                          ids=[f"{c[0]}{c[1][0]}-{c[2] or 'rule'}" for c in FUSED_GS_CASES])
 def test_fused_gs_matches_twin(cuda, element, cells, blocks, max_it):
     """One launch a solve on the plan's placement: the count, x and both
-    norms bit for bit with FusedGSSolver.plain (the twin's count or the cap)."""
+    norms bit for bit with FusedGSSolver.plain (the twin's count or the
+    cap); then FUSED_GS_REPEATS launches more, each with the same bits."""
     op, b, x0 = _lifted(element, cells, cuda)
     solver = FusedGSSolver(op, rtol=1e-8, atol=1e-12, max_it=max_it, blocks=blocks)
     before = _cuda.KERNEL_LAUNCHES[FUSED_GS_KERNEL]
@@ -697,6 +700,12 @@ def test_fused_gs_matches_twin(cuda, element, cells, blocks, max_it):
     assert got.iterations == ref.iterations > 0 and (max_it == 50000 or got.iterations == max_it)
     assert torch.equal(got.x, ref.x)
     assert (got.residual_norm, got.initial_norm) == (ref.residual_norm, ref.initial_norm)
+    # launched again and again, each launch the same bits (a halo wait that
+    # hung now and then would trap and fail one)
+    for _ in range(FUSED_GS_REPEATS):
+        again = solver.launch(b, x0)
+        assert torch.equal(again.x, ref.x) and again.iterations == ref.iterations
+        assert (again.residual_norm, again.initial_norm) == (ref.residual_norm, ref.initial_norm)
 
 
 def test_lexicographic_picard_on_the_card_launches_fused_gs_once(cuda):
