@@ -103,14 +103,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      solve) and on the CPU, with equal counts;
  10. drives the conditioning analysis (``conditioning_path``) —
      ``estimate_condition_numbers`` with Lanczos on the card at 2D
-     N=16/32/64 and hex N=8, the dense host SVD at hex N=4, each against the
-     published CSV (1e-8 at N=16/32, 1e-5 at N=64, 1e-10 in 3D), and tet
+     N=16/32/64 and hex N=6/8/10/12/14/16, the dense host SVD at hex N=4,
+     each against the published CSV (1e-8 at N=16/32 and hex N=6/10..16,
+     1e-5 at N=64, 1e-10 at hex N=4/8), and tet
      nx=4's Lanczos κ (the monolithic inverse through K3, counted) against
      the dense SVD;
  11. times each kernel and its twin, and the 64^3/128^3 solves, with CUDA
      events, and the cached direct solves at 2D N=16 and tet nx=4 (K2, K3)
      with the host clock, and works out each kernel's bound from this run's
-     shapes and iteration counts.
+     shapes and iteration counts;
+ 12. drives the h-convergence study (``convergence_path``) through the
+     study's entry points on the card: the published 2D table
+     (``convergence_2d.run_one`` with ``params_for``, quad N=4..128 x the
+     five approaches, 30 rows, counted: K2, K4, K6, K7 and K8 must launch)
+     against ``convergence.csv`` (``it`` exact, +-2 for GMRES and GMRES+ILU
+     at N=128; errors within each route's ``CONV_ERROR_BOUND``) and its EOC
+     against ``convergence_eoc.csv``; the study scripts' ``main`` (2D at N=4/8,
+     degree 1 and 2, and 3D at hex N=4/8, into a temporary directory);
+     ``convergence_3d.run_one_3d`` at hex
+     N=8/16/32 with both default solvers (N=8 against the CPU's rows, the
+     EOC in the JAX package's test bounds); Q2/Q3 at N=4/8/16 against
+     ``convergence_qp.csv`` and Q2 GMRES with jacobi and the fieldsplit
+     against the direct solve; P2 at tri N=8/16/32, the host ``splu`` stage
+     against GMRES+jacobi, L2 EOC near 3; the Darcy velocity and the
+     midline slice at N=16 (against the CPU) and N=128. Each row's wall and
+     cached solve time is printed beside the card's name and power limit;
+     nothing is written.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -984,13 +1002,15 @@ COND_CASES = [  # element, N, sparse (Lanczos on the card) or dense (host SVD), 
     ("quad", 16, True, 1e-8), ("quad", 32, True, 1e-8),
     ("quad", 64, True, 1e-5),  # k = 100 Lanczos steps leave ~4.3e-6 (the route's own convergence)
     ("hex", 4, False, 1e-10), ("hex", 8, True, 1e-10),
+    # the rest of conditioning_3d.csv, at the JAX package's 1e-8
+    *[("hex", n, True, 1e-8) for n in (6, 10, 12, 14, 16)],
 ]
 
 
 def conditioning_path(dev, smi, t_start):
     """Phase 10, the conditioning analysis: ``estimate_condition_numbers``
-    with Lanczos on the card at 2D N=16/32/64 and hex N=8 and the dense host
-    SVD at hex N=4, each against the published CSV; then tet nx=4's Lanczos
+    with Lanczos on the card at 2D N=16/32/64 and hex N=6/8/10/12/14/16 and
+    the dense host SVD at hex N=4, each against the published CSV; then tet nx=4's Lanczos
     κ (its inverse through K3) against the dense SVD, counted. Prints κ, the
     relative error and the wall time of each."""
     import numpy as np
@@ -1035,6 +1055,273 @@ def conditioning_path(dev, smi, t_start):
     check(max(errs) <= 1e-6, "conditioning tet N=4: Lanczos against the dense SVD")
     check(phase.get("fused_simplicial_direct_solve", 0) > 0, "K3 launched on the conditioning path")
     print(f"[{time.perf_counter() - t_start:.1f} s] conditioning path done")
+    return phase
+
+
+# phase 12, the h-convergence study. The published 2D table:
+# notebooks/results-conforming-2d/convergence.csv (quad N=4..128, five
+# approaches) and convergence_eoc.csv. Each approach's errors are held to the
+# CSV within 1.5e-10, but two routes. Plain GMRES: its iterate at rtol 1e-8
+# sits in a stagnation tail whose rounding it carries (at N=16 PETSc's
+# iterate is 2.4e-7 from the exact discrete solution in e1_L2; K4's, with
+# the same 292 iterations, 2.7e-9 from PETSc's, the CPU twin's 2.6e-10).
+# SS-GMRES+ILU: its route is K8, whose inner block solves are
+# tolerance-matched ILU-PCG, the JAX package's accelerator route, where PETSc
+# ran inner GMRES (2.4e-9 at N=8..32, 4.5e-8 at 64, 2.6e-5 at 128 in e1_L2,
+# on the card as on the CPU twin; the port's host route with literal inner
+# GMRES meets the CSV to 1.2e-12 at N=64). Iteration slack: the +-2 of the
+# Krylov phases at N=128.
+CONV_NS = (4, 8, 16, 32, 64, 128)
+CONV_ERROR_BOUND = {"GMRES": 1e-8, "Scale-Splitting GMRES + ILU PC": 1e-4}  # else 1.5e-10
+CONV_EOC_BOUND = {"Scale-Splitting GMRES + ILU PC": 1e-5}  # else 1e-8 (K8: 5.3e-6 on the CPU twin)
+CONV_SLACK = {("GMRES", 128): 2, ("GMRES + ILU PC", 128): 2}
+CONV_KERNELS = ("fused_gmres_df", "fused_gmres_df[fieldsplit_lu]", "fused_gmres_df[ilu]",
+                "fused_gmres_df[fieldsplit_ilu]", "fused_direct_solve")
+CONV_3D_NS = (8, 16, 32)
+# the two 3D solvers' errors: fieldsplit-LU GMRES stops at rtol 1e-8, which
+# leaves the small p1 field's error 4.5e-8 / 5.8e-7 relative from the direct
+# solve's at hex N=8/16 (the CPU twins); the card's rows against the CPU's at
+# N=8 within 1e-8
+CONV_3D_SOLVER_BOUND = 1e-4
+# convergence_qp.csv: the JAX package reproduces it exactly on the CPU, the
+# port to <= 7.3e-13 (Q3 N=16), the card to 1.1e-11 there (cuBLAS sums in
+# another order): Q3 N=16's e1_L2 is 0.26 against a p1 of ~2.2e4, so that is
+# 1.3e-16 of the field, the solve's rounding
+QP_BOUND = 1e-10
+QP_NS = (4, 8, 16)
+P2_NS = (8, 16, 32)
+DEGREE_P_GMRES = {  # against the direct solve, fields within 1e-8
+    "jacobi": {"ksp_type": "gmres", "pc_type": "jacobi", "ksp_rtol": 1e-13, "ksp_max_it": 20000},
+    "fieldsplit": {"ksp_type": "gmres", "pc_type": "fieldsplit", "pc_fieldsplit_type": "multiplicative",
+                   "ksp_rtol": 1e-12, "ksp_max_it": 20000},
+}
+
+
+def convergence_path(dev, smi, t_start):
+    """Phase 12, the h-convergence study through its entry points:
+    the published 2D table (30 rows, counted) and its EOC, the 3D study at
+    its defaults, the Qp rows against ``convergence_qp.csv``, the P2 rows,
+    and the postprocessing (velocity projection, midline slice) at N=128.
+    Prints each row's wall (the ``run_one`` call: set-up, solve, errors) and
+    cached solve time; returns the table's launches."""
+    import csv as _csv
+
+    import numpy as np
+    import torch
+
+    from perphil_tpu_torch.experiments import convergence_2d as c2
+    from perphil_tpu_torch.experiments import convergence_3d as c3
+    from perphil_tpu_torch.experiments.iterative_bench import Approach, params_for
+    from perphil_tpu_torch.forms import FunctionSpace, mixed_space
+    from perphil_tpu_torch.mesh import create_mesh
+    from perphil_tpu_torch.models.dpp import DPPParameters
+    from perphil_tpu_torch.ops import _cuda
+    from perphil_tpu_torch.ops.assembly import DirichletBC, bc_values_per_field
+    from perphil_tpu_torch.solvers import solve_dpp
+    from perphil_tpu_torch.solvers.parameters import LINEAR_SOLVER_PARAMS
+    from perphil_tpu_torch.solvers.solver import _degree_solver, _freeze
+    from perphil_tpu_torch.utils.manufactured_solutions import exact_expressions
+    from perphil_tpu_torch.utils.postprocessing import (
+        calculate_darcy_velocity_from_pressure,
+        h1_seminorm_error,
+        l2_error,
+        slice_along_x,
+    )
+
+    errors = ("e1_L2", "e2_L2", "e1_H1s", "e2_H1s")
+    params = DPPParameters()
+    results = HERE / "notebooks" / "results-conforming-2d"
+
+    def cached_solve_ms(W, bcs, opts):
+        """One more solve on the solver the row built (the lift, the solve)."""
+        solver = _degree_solver(W, params, _freeze(opts))
+        g1, g2 = bc_values_per_field(W, bcs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver(g1, g2)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def degree_problem(n, degree, quad=True):
+        mesh = create_mesh(n, n, quadrilateral=quad)
+        W = mixed_space(FunctionSpace(mesh, degree=degree))
+        check(W.device == dev, "a degree-p space built with no device lies on the card")
+        _, p1e, _, p2e = exact_expressions(mesh, params)
+        return W, [DirichletBC(W.sub(0), p1e), DirichletBC(W.sub(1), p2e)], p1e
+
+    phase_t0 = time.perf_counter()
+    # -- the published 2D table, counted
+    with (results / "convergence.csv").open() as f:
+        published = {(int(r["N"]), r["solver"]): r for r in _csv.DictReader(f)}
+    table = [a for a in Approach if a is not Approach.PICARD_MUMPS]
+    torch.cuda.synchronize()
+    _cuda.KERNEL_LAUNCHES.clear()
+    rows, walls = [], []
+    for n in CONV_NS:
+        for ap in table:
+            t0 = time.perf_counter()
+            rows.append(c2.run_one(n, c2.SolverSpec(ap.value, params_for(ap)), True, 1, params))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    table_wall = sum(walls)
+    phase = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"convergence table kernel launches (30 rows): {phase}")
+    for name in CONV_KERNELS:
+        check(phase.get(name, 0) > 0, f"{name} launched on the convergence table")
+    for row, wall in zip(rows, walls):
+        n, name = row["N"], row["solver"]
+        pub = published[(n, name)]
+        errs = [abs(row[k] - float(pub[k])) / float(pub[k]) for k in errors]
+        bound = CONV_ERROR_BOUND.get(name, 1.5e-10)
+        slack = CONV_SLACK.get((name, n), 0)
+        W, _, bcs, _, _ = problem("quad", n, dev)
+        solve_ms = cached_solve_ms(W, bcs, params_for(Approach(name)))
+        print(f"convergence N={n} {name}: it {row['it']} (csv {pub['it']}"
+              + (f" +-{slack}" if slack else "") + f"), errors max rel diff {max(errs):.3e} (bound {bound:g}), "
+              f"row {wall * 1e3:.1f} ms, cached solve {solve_ms:.2f} ms (host clock) on {smi}")
+        check(abs(row["it"] - int(pub["it"])) <= slack, f"convergence N={n} {name} iterations")
+        check(max(errs) <= bound, f"convergence N={n} {name} errors against convergence.csv")
+    eoc = c2.compute_eoc(rows)
+    with (results / "convergence_eoc.csv").open() as f:
+        pub_eoc = {(r["solver"], r["err"]): float(r["slope"]) for r in _csv.DictReader(f)}
+    check(len(eoc) == len(pub_eoc), "an EOC for every solver and error column")
+    worst = {}
+    for e in eoc:
+        diff = abs(e["slope"] - pub_eoc[(e["solver"], e["err"])])
+        worst[e["solver"]] = max(worst.get(e["solver"], 0.0), diff)
+        check(diff <= CONV_EOC_BOUND.get(e["solver"], 1e-8), f"EOC {e['solver']} {e['err']}")
+    print("convergence EOC, largest difference from convergence_eoc.csv per solver: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    print(f"convergence table: 30 rows in {table_wall:.2f} s (host clock) on {smi}")
+
+    # -- the study scripts' command lines on the card (their default device), into a
+    # temporary directory: 2D at N=4/8 (degree 1 and 2, with the EOC) and 3D at hex N=4/8
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        for degree in (1, 2):
+            c2.main(["--Ns", "4", "8", "--degree", str(degree), "--rtols", "1e-8",
+                     "--out", str(out / f"q{degree}.csv"), "--eoc-out", str(out / f"q{degree}_eoc.csv")])
+            with (out / f"q{degree}.csv").open() as f:
+                its = [int(r["it"]) for r in _csv.DictReader(f)]
+            with (out / f"q{degree}_eoc.csv").open() as f:
+                slopes = {(r["solver"], r["err"]): float(r["slope"]) for r in _csv.DictReader(f)}
+            print(f"convergence_2d.main --degree {degree} on the card: iterations {its}, "
+                  f"L2 EOC (N=4/8) {slopes[('mumps', 'e1_L2')]:.4f}")
+            check(len(its) == 6 and len(slopes) == 12 and its[0] == its[3] == 1, f"convergence_2d.main --degree {degree}")
+        c3.main(["--Ns", "4", "8", "--out", str(out / "c3.csv")])
+        with (out / "c3.csv").open() as f:
+            check([int(r["it"]) for r in _csv.DictReader(f)] == [1, 4, 1, 4], "convergence_3d.main")
+
+    # -- the 3D study at its defaults: hex N=8/16/32, direct and fieldsplit-LU GMRES
+    rows3 = []
+    for n in CONV_3D_NS:
+        pair = []
+        for spec in c3.default_solvers_3d():
+            t0 = time.perf_counter()
+            row = c3.run_one_3d(n, spec, hexahedral=True, params=params)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            line = (f"convergence 3D hex N={n} {spec.name}: it {row['it']}, e1_L2 {row['e1_L2']!r}, "
+                    f"e2_L2 {row['e2_L2']!r}, row {wall * 1e3:.1f} ms")
+            if n == CONV_3D_NS[0]:
+                ref = c3.run_one_3d(n, spec, hexahedral=True, params=params, device="cpu")
+                cpu = max(abs(row[k] - ref[k]) / ref[k] for k in errors)
+                line += f", vs the CPU's row {cpu:.3e}"
+                check(row["it"] == ref["it"] and cpu <= 1e-8, f"3D N={n} {spec.name} against the CPU")
+            print(line + f" on {smi}")
+            pair.append(row)
+        gap = max(abs(pair[1][k] - pair[0][k]) / pair[0][k] for k in errors)
+        print(f"convergence 3D hex N={n}: the two solvers' errors differ by {gap:.3e} (bound {CONV_3D_SOLVER_BOUND:g})")
+        check(pair[0]["it"] == 1 and pair[1]["it"] == 4 and gap <= CONV_3D_SOLVER_BOUND, f"3D N={n} solvers")
+        rows3 += pair
+    eoc3 = {(e["solver"], e["err"]): e["slope"] for e in c2.compute_eoc(rows3)}
+    print(f"convergence 3D EOC: {eoc3}")
+    for spec in c3.default_solvers_3d():
+        check(1.7 < eoc3[(spec.name, "e1_L2")] < 2.2 and 0.8 < eoc3[(spec.name, "e1_H1s")] < 1.2,
+              f"3D EOC {spec.name}")
+
+    # -- Qp: degree 2 and 3 at N=4/8/16 against convergence_qp.csv; degree-2
+    # GMRES with jacobi and with the fieldsplit against the direct solve
+    with (results / "convergence_qp.csv").open() as f:
+        qp_pub = {(int(r["degree"]), int(r["N"])): (float(r["e1_L2"]), float(r["e1_H1s"]))
+                  for r in _csv.DictReader(f)}
+    for degree in (2, 3):
+        for n in QP_NS:
+            W, bcs, p1e = degree_problem(n, degree)
+            sol = solve_dpp(W, params, bcs, solver_parameters=LINEAR_SOLVER_PARAMS)
+            p1h = sol.solution.sub(0)
+            got = (l2_error(p1h, p1e), h1_seminorm_error(p1h, p1e))
+            err = max(abs(g - w) / w for g, w in zip(got, qp_pub[(degree, n)]))
+            line = (f"Q{degree} N={n} direct (fast-diag on the card): e1_L2 {got[0]!r}, e1_H1s {got[1]!r}, "
+                    f"max rel diff from convergence_qp.csv {err:.3e} (bound {QP_BOUND:g}), "
+                    f"cached solve {cached_solve_ms(W, bcs, LINEAR_SOLVER_PARAMS):.2f} ms")
+            check(err <= QP_BOUND and sol.solution.data[0].device == dev, f"Q{degree} N={n} against the CSV")
+            if degree == 2:
+                for name, opts in DEGREE_P_GMRES.items():
+                    it = solve_dpp(W, params, bcs, solver_parameters=opts)
+                    diff = max(rel(a, b) for a, b in zip(it.solution.data, sol.solution.data))
+                    line += (f"; GMRES+{name} {it.iteration_number} its, vs direct {diff:.3e}, "
+                             f"cached solve {cached_solve_ms(W, bcs, opts):.2f} ms")
+                    check(diff <= 1e-8, f"Q2 N={n} GMRES+{name} against the direct solve")
+            print(line + f" (host clock) on {smi}")
+
+    # -- P2 on triangles: the host splu stage and GMRES + jacobi on the card
+    p2_errs = []
+    for n in P2_NS:
+        W, bcs, p1e = degree_problem(n, 2, quad=False)
+        line = f"P2 tri N={n}:"
+        sols, errs = [], []
+        for name, opts in (("direct (host splu)", LINEAR_SOLVER_PARAMS), ("GMRES+jacobi", DEGREE_P_GMRES["jacobi"])):
+            sols.append(solve_dpp(W, params, bcs, solver_parameters=opts))
+            check(sols[-1].solution.data[0].device == dev, "the P2 solution lies on the card")
+            errs.append(l2_error(sols[-1].solution.sub(0), p1e))
+            line += (f" {name} {sols[-1].iteration_number} its, e1_L2 {errs[-1]!r}, "
+                     f"cached solve {cached_solve_ms(W, bcs, opts):.2f} ms;")
+        diff = max(rel(a, b) for a, b in zip(sols[1].solution.data, sols[0].solution.data))
+        print(line + f" fields direct vs GMRES {diff:.3e}, e1_L2 {abs(errs[1] - errs[0]) / errs[0]:.3e} "
+              f"(host clock) on {smi}")
+        check(diff <= 1e-8, f"P2 tri N={n}: direct against GMRES+jacobi")
+        p2_errs.append(errs[0])
+    p2_eoc = float(np.polyfit(np.log([1.0 / n for n in P2_NS]), np.log(p2_errs), 1)[0])
+    print(f"P2 tri L2 EOC over N={P2_NS}: {p2_eoc:.4f}")
+    check(2.7 < p2_eoc < 3.3, "P2 L2 EOC near 3")
+
+    # -- postprocessing: the Darcy velocity and the midline slice at N=16
+    # (against the port's CPU run) and N=128 (closer to the exact fields)
+    post = {}
+    for n in (16, 128):
+        W, params_, bcs, p1e, _ = problem("quad", n, dev)
+        p1h = solve_dpp(W, params_, bcs, solver_parameters=LINEAR_SOLVER_PARAMS).solution.sub(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = calculate_darcy_velocity_from_pressure(p1h, params_.k1)
+        ys, vals = slice_along_x(p1h, 0.5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        u1e = exact_expressions(W.mesh, params_)[0]
+        X, Y = (torch.as_tensor(c, device=dev) for c in W.mesh.coordinates())
+        ue = torch.stack(u1e(X, Y), dim=-1)
+        u_err = rel(u.data, ue)
+        s_err = float(np.abs(vals - p1e(torch.full((len(ys),), 0.5), torch.as_tensor(ys)).numpy()).max()
+                      / np.abs(vals).max())
+        line = (f"postprocessing N={n} on the card: velocity {tuple(u.data.shape)} vs the exact u1 {u_err:.3e}, "
+                f"slice {len(ys)} points vs the exact p1 {s_err:.3e}, {wall * 1e3:.1f} ms (host clock)")
+        check(bool(torch.isfinite(u.data).all()) and u.data.device == dev, "finite velocity on the card")
+        if n == 16:
+            Wc, pc, bcc, _, _ = problem("quad", n, "cpu")
+            p1c = solve_dpp(Wc, pc, bcc, solver_parameters=LINEAR_SOLVER_PARAMS).solution.sub(0)
+            uc = calculate_darcy_velocity_from_pressure(p1c, pc.k1)
+            _, vc = slice_along_x(p1c, 0.5)
+            cpu = (rel(u.data.cpu(), uc.data), float(np.abs(vals - vc).max() / np.abs(vc).max()))
+            line += f"; vs the CPU run: velocity {cpu[0]:.3e}, slice {cpu[1]:.3e}"
+            check(cpu[0] <= 1e-9 and cpu[1] <= 1e-10, "postprocessing at N=16 against the CPU")
+        print(line + f" on {smi}")
+        post[n] = (u_err, s_err)
+    check(post[128][0] < post[16][0] and post[128][1] < post[16][1], "postprocessing converges from N=16 to 128")
+    print(f"[{time.perf_counter() - t_start:.1f} s] convergence study done in "
+          f"{time.perf_counter() - phase_t0:.1f} s (host clock) on {smi}")
     return phase
 
 
@@ -1860,6 +2147,8 @@ def main() -> int:
                   f"plain twin {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms ({r['bound'][1]})"
                   + (f", library call {r['library_ms']:.4f} ms" if r.get("library_ms") else "")
                   + f" (CUDA events) on {smi}")
+    # -- 12. the h-convergence study ----------------------------------------
+    convergence_path(dev, smi, t_start)
     print(f"[{time.perf_counter() - t_start:.1f} s] done")
 
     print(json.dumps({"kernels": [

@@ -1,15 +1,18 @@
 """Function spaces and Functions on structured meshes.
 
-Counterpart of ``perphil_tpu/forms/spaces.py`` for degree-1 continuous
-Lagrange spaces (Q1 on quad/hex, P1 on tri/tet). DoFs are grid-shaped
-tensors over ``mesh.node_shape``. A space carries its device: every tensor
-derived from it (boundary grids, operator and solver buffers, solutions)
-lives there.
+Counterpart of ``perphil_tpu/forms/spaces.py``: continuous Lagrange spaces
+of any degree on quad/hex meshes (Qp, ``ops/tensorfem.py``) and of degree 1
+or 2 on tri/tet meshes (P1, P2: ``ops/simplexfem.py``). DoFs are
+grid-shaped tensors over ``dof_mesh.node_shape``, the p-times refined
+lattice (equispaced Lagrange nodes are a refined uniform grid; P2's
+vertices and edge midpoints are the once-refined lattice). A space carries
+its device: every tensor derived from it (boundary grids, operator and
+solver buffers, solutions) lives there.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -21,11 +24,12 @@ from perphil_tpu_torch.mesh.structured import StructuredMesh
 
 @dataclass(frozen=True)
 class FunctionSpace:
-    """Scalar or vector CG1 space on a structured mesh.
+    """Scalar or vector CG space on a structured mesh.
 
     :param mesh: the structured mesh.
     :param family: "CG" (aliases "Lagrange", "Q", "P" accepted).
-    :param degree: polynomial degree; only 1 is ported.
+    :param degree: polynomial degree: any p on quad/hex meshes (Qp), 1 or 2
+        on simplex meshes (P1/P2).
     :param value_shape: () for scalar, (dim,) for vector spaces.
     :param device: where the space's tensors live (default: the current CUDA device; pass "cpu" for the CPU).
     """
@@ -41,28 +45,33 @@ class FunctionSpace:
             raise ValueError(f"Unsupported family {self.family!r}; only CG1-type spaces exist")
         if self.degree < 1:
             raise ValueError("degree must be >= 1")
-        if self.degree > 1:
-            raise NotImplementedError(
-                f"degree-{self.degree} spaces are ported in ROADMAP slice 8 "
-                "(degree-p: ops/tensorfem, ops/simplexfem)"
+        if self.degree > 2 and not self.mesh.is_tensor_product:
+            raise ValueError(
+                "Simplex meshes support degrees 1 and 2 (P2 DoFs are the "
+                "once-refined lattice, ops/simplexfem); degree > 2 has no "
+                "half-lattice structure. Tensor-product meshes support any "
+                "degree (Qp via ops/tensorfem)."
             )
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @property
     def dof_mesh(self) -> StructuredMesh:
-        """The lattice carrying the DoFs (the mesh itself at degree 1)."""
-        return self.mesh
+        """The lattice carrying the DoFs: the mesh itself at degree 1, the
+        p-times refined lattice at degree p."""
+        if self.degree == 1:
+            return self.mesh
+        return replace(self.mesh, cells=tuple(self.degree * c for c in self.mesh.cells))
 
     def dim(self) -> int:
         """Total number of degrees of freedom."""
-        return self.mesh.num_vertices * int(np.prod(self.value_shape, dtype=int) or 1)
+        return self.dof_mesh.num_vertices * int(np.prod(self.value_shape, dtype=int) or 1)
 
     def num_sub_spaces(self) -> int:
         return 0
 
     @property
     def dof_shape(self) -> Tuple[int, ...]:
-        return self.mesh.node_shape + self.value_shape
+        return self.dof_mesh.node_shape + self.value_shape
 
 
 @dataclass(frozen=True)
@@ -209,10 +218,11 @@ class Function:
         return self.data.reshape(-1)
 
     def interpolate(self, expr: Expr) -> "Function":
-        """Set DoFs to the expression's nodal values."""
+        """Set DoFs to the expression's nodal values (on the refined lattice
+        at degree p: the degree-p Lagrange interpolant)."""
         if isinstance(self.space, MixedFunctionSpace):
             raise ValueError("Interpolate into sub-functions individually")
-        self.data = _evaluate(expr, self.space.mesh, self.space.value_shape, self.space.device)
+        self.data = _evaluate(expr, self.space.dof_mesh, self.space.value_shape, self.space.device)
         return self
 
     def assign(self, other: Union["Function", Expr]) -> "Function":
@@ -220,6 +230,32 @@ class Function:
             self.data = other.data
             return self
         return self.interpolate(other)
+
+    def at(self, points) -> torch.Tensor:
+        """Values at physical points (n, dim) or one point (dim,), by
+        (bi/tri)linear interpolation on the DoF lattice: exact at the nodes;
+        at degree p, O(h^2/p^2) between them."""
+        if isinstance(self.space, MixedFunctionSpace):
+            raise ValueError("Evaluate sub-functions individually")
+        mesh = self.space.dof_mesh
+        pts = torch.as_tensor(points, dtype=default_dtype(), device=self.data.device)
+        single = pts.dim() == 1
+        pts = torch.atleast_2d(pts)
+        h = torch.as_tensor(mesh.h, dtype=pts.dtype, device=pts.device)
+        cells = torch.as_tensor(mesh.cells, device=pts.device)
+        t = pts / h
+        cell = torch.minimum(torch.clamp(torch.floor(t).long(), min=0), cells - 1)
+        loc = t - cell
+        vals = 0.0
+        for corner in np.ndindex(*((2,) * mesh.dim)):
+            w = 1.0
+            idx = []
+            for ax, c in enumerate(corner):
+                w = w * (loc[:, ax] if c == 1 else 1.0 - loc[:, ax])
+                idx.append(cell[:, ax] + c)
+            # grid tensors index slowest axis first: reverse the coordinate order
+            vals = vals + w * self.data[tuple(reversed(idx))]
+        return vals[0] if single else vals
 
     def copy(self) -> "Function":
         return Function(self.space, self.data, name=self.name)

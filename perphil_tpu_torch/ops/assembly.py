@@ -62,12 +62,13 @@ class DirichletBC:
 def bc_values_per_field(
     W: MixedFunctionSpace, bcs: Optional[Sequence[DirichletBC]]
 ) -> Tuple[torch.Tensor, ...]:
-    """Per-field boundary-value grids on ``W``'s device (zero where no BC)."""
+    """Per-field boundary-value grids on ``W``'s device (zero where no BC),
+    on each field's DoF lattice (the refined one at degree p)."""
     vals = [
         torch.zeros(s.dof_shape, dtype=default_dtype(), device=W.device) for s in W.spaces
     ]
     for bc in bcs or ():
-        vals[bc.sub_index] = bc.grid_values(W.mesh)
+        vals[bc.sub_index] = bc.grid_values(W.spaces[bc.sub_index].dof_mesh)
     return tuple(vals)
 
 

@@ -86,6 +86,28 @@ snes_atol)`` or ``snes_max_it``:
   - ksponly                              -> one linear solve, then the true
                                             residual norm; iteration 1
 
+Degree p (``W``'s spaces of degree > 1; the JAX package's
+``_build_tensor_linear_solver`` / ``_build_simplex_p2_linear_solver``):
+
+  - Qp on quad/hex, preonly + lu         -> ``TensorFastDiagDPP`` (exact
+                                            fast diagonalisation: dense
+                                            products on the device)
+  - Qp, gmres with pc none, jacobi or    -> ``krylov.gmres`` with the
+    the multiplicative fieldsplit with     ``TensorDPPOperator`` matvec
+    exact fast-diag blocks                 (ILU is refused, as there)
+  - P2 on tri/tet, gmres with pc none    -> ``krylov.gmres`` with the
+    or jacobi                              ``P2SimplexDPPOperator`` matvec
+  - P2, preonly + lu                     -> the host stage: scipy ``splu``
+                                            of ``assemble_p2_monolithic``,
+                                            the solution copied to ``W``'s
+                                            device (the JAX package factors
+                                            on the host too)
+
+These GMRES solves run from the BC lift on ``A x = b`` (not the Newton-step
+form), as the JAX package's degree-p solves do. The fused kernels are
+Q1/P1 stencils and take none of these operators; ``solve_dpp_nonlinear``
+takes degree p with ``snes_type: ksponly`` only.
+
 Solvers are cached on ``(W, params, frozen options)``; ``W`` carries the
 device. No builder reads the environment.
 """
@@ -98,6 +120,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from scipy.sparse.linalg import splu
 
 from perphil_tpu_torch.forms.spaces import Function, MixedFunctionSpace
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
@@ -141,6 +164,8 @@ from perphil_tpu_torch.ops.ilu import (
 from perphil_tpu_torch.ops.krylov import _norm, cg, gmres
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
 from perphil_tpu_torch.ops.ordering import parity_system
+from perphil_tpu_torch.ops.simplexfem import P2SimplexDPPOperator, assemble_p2_monolithic
+from perphil_tpu_torch.ops.tensorfem import TensorDPPOperator, TensorFastDiagDPP
 from perphil_tpu_torch.solvers.options import apply_prefix_overrides
 
 _DIRECT_RTOL = 1e-13  # inner tolerance when "LU" is played by PCG
@@ -602,6 +627,137 @@ def _build_linear_solver(
     return _newton_step_solver(op, _krylov_route(op, flat))
 
 
+def _lifted_gmres(op, pc: Optional[Callable], flat: Dict[str, object]) -> Callable:
+    """GMRES on the BC-eliminated system of a degree-p operator from the BC
+    lift: ``(g1, g2) -> (z1, z2, its, rnorm)``."""
+    mv = op.stacked_matvec()
+    bdry = op._bdry
+    kw = dict(
+        rtol=float(flat.get("ksp_rtol", 1e-5)),
+        atol=float(flat.get("ksp_atol", 1e-50)),
+        max_it=int(flat.get("ksp_max_it", 10000)),
+        restart=int(flat.get("ksp_gmres_restart", 30)),
+    )
+
+    def solve_gmres(g1: torch.Tensor, g2: torch.Tensor):
+        b = torch.stack(op.lifted_rhs(g1, g2))
+        x0 = torch.stack([torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)])
+        res = gmres(mv, b, x0=x0, M_inv=pc, **kw)
+        return res.x[0], res.x[1], res.iterations, res.residual_norm
+
+    return solve_gmres
+
+
+@lru_cache(maxsize=64)
+def _build_tensor_linear_solver(
+    W: MixedFunctionSpace,
+    params: DPPParameters,
+    frozen_sp: Tuple,
+) -> Callable:
+    """Degree-p (Qp) linear solve on quad/hex meshes on ``W``'s device: the
+    exact fast-diagonalisation solve for preonly + lu, GMRES with pc none,
+    jacobi or the multiplicative fieldsplit (exact fast-diag blocks)
+    otherwise."""
+    flat = dict(frozen_sp)
+    degree = W.spaces[0].degree
+    mesh, dev = W.mesh, W.device
+    op = TensorDPPOperator(mesh, params, degree, device=dev)
+    ksp = str(flat.get("ksp_type", "preonly"))
+    pc_type = str(flat.get("pc_type", "lu"))
+    if ksp == "preonly":
+        if pc_type != "lu":
+            raise ValueError(f"degree-{degree} preonly supports pc_type=lu only")
+        direct = TensorFastDiagDPP(mesh, params, degree, device=dev)
+
+        def solve_direct(g1: torch.Tensor, g2: torch.Tensor):
+            z1, z2 = direct.solve(*op.lifted_rhs(g1, g2))
+            return z1, z2, 1, 0.0
+
+        return solve_direct
+    if ksp != "gmres":
+        raise ValueError(f"degree-{degree} spaces support preonly/gmres, got {ksp!r}")
+    if pc_type in ("none", ""):
+        pc = None
+    elif pc_type == "jacobi":
+        dstack = op.diagonal_stacked()
+
+        def pc(r: torch.Tensor) -> torch.Tensor:
+            return r / dstack
+
+    elif pc_type == "fieldsplit":
+        # multiplicative 2x2 block Gauss-Seidel with exact fast-diag blocks
+        blocks = TensorFastDiagDPP(mesh, params, degree, device=dev)
+        bdry = op._bdry
+        beta_mu = params.beta / params.mu
+
+        def pc(r: torch.Tensor) -> torch.Tensor:
+            z1 = blocks.block_solve(r[0], 0)
+            # the second block sees the updated first field
+            coup = beta_mu * op._M(torch.where(bdry, 0.0, z1))
+            return torch.stack([z1, blocks.block_solve(r[1] + torch.where(bdry, 0.0, coup), 1)])
+
+    elif pc_type == "ilu":
+        raise ValueError(
+            f"pc_type=ilu has no degree-{degree} structured factorization; "
+            "use fieldsplit/jacobi or the preonly fast-diag direct solve"
+        )
+    else:
+        raise ValueError(f"Unsupported pc_type {pc_type!r} for degree>1")
+    return _lifted_gmres(op, pc, flat)
+
+
+@lru_cache(maxsize=16)
+def _build_simplex_p2_linear_solver(
+    W: MixedFunctionSpace,
+    params: DPPParameters,
+    frozen_sp: Tuple,
+) -> Callable:
+    """P2 linear solve on tri/tet meshes: GMRES with pc none or jacobi on
+    the parity-class stencil operator on ``W``'s device; preonly + lu is the
+    host stage, scipy ``splu`` of the assembled CSR (as in the JAX package;
+    P2 simplices have no fast-diagonalisation structure), with the solution
+    copied to ``W``'s device."""
+    flat = dict(frozen_sp)
+    mesh, dev = W.mesh, W.device
+    op = P2SimplexDPPOperator(mesh, params, device=dev)
+    ksp = str(flat.get("ksp_type", "preonly"))
+    pc_type = str(flat.get("pc_type", "lu"))
+    shape = op.dof_shape
+    if ksp == "preonly":
+        if pc_type not in ("lu", "cholesky"):
+            raise ValueError(f"P2 simplex preonly supports pc_type=lu, got {pc_type!r}")
+        lu = splu(assemble_p2_monolithic(mesh, params).tocsc())
+
+        def solve_direct(g1: torch.Tensor, g2: torch.Tensor):
+            b = torch.stack(op.lifted_rhs(g1, g2)).reshape(-1).cpu().numpy()
+            x = torch.from_numpy(lu.solve(b)).reshape((2,) + shape).to(dev)
+            return x[0], x[1], 1, 0.0
+
+        return solve_direct
+    if ksp != "gmres":
+        raise ValueError(f"P2 simplex spaces support preonly/gmres, got {ksp!r}")
+    if pc_type in ("none", ""):
+        pc = None
+    elif pc_type == "jacobi":
+        dstack = op.diagonal_stacked()
+
+        def pc(r: torch.Tensor) -> torch.Tensor:
+            return r / dstack
+
+    else:
+        raise ValueError(f"Unsupported pc_type {pc_type!r} for P2 simplex (none/jacobi/preonly+lu)")
+    return _lifted_gmres(op, pc, flat)
+
+
+def _degree_solver(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple) -> Callable:
+    """The cached linear solve of ``W``'s degree: Q1/P1, Qp or P2."""
+    if W.spaces[0].degree == 1:
+        return _build_linear_solver(W, params, frozen_sp)
+    if W.mesh.is_tensor_product:
+        return _build_tensor_linear_solver(W, params, frozen_sp)
+    return _build_simplex_p2_linear_solver(W, params, frozen_sp)
+
+
 def solve_dpp(
     W: MixedFunctionSpace,
     model_params: DPPParameters,
@@ -614,7 +770,7 @@ def solve_dpp(
     _validate_mixed(W)
     solver_parameters = apply_prefix_overrides(solver_parameters, options_prefix)
     g1, g2 = bc_values_per_field(W, bcs)
-    solver = _build_linear_solver(W, model_params, _freeze(solver_parameters))
+    solver = _degree_solver(W, model_params, _freeze(solver_parameters))
     z1, z2, its, rnorm = solver(g1, g2)
     return Solution(Function(W, (z1, z2)), int(its), float(rnorm))
 
@@ -753,14 +909,26 @@ def solve_dpp_nonlinear(
     solver_parameters = apply_prefix_overrides(solver_parameters, options_prefix)
     g1, g2 = bc_values_per_field(W, bcs)
     flat = _flatten_options(solver_parameters)
+    degree = W.spaces[0].degree
     if str(flat.get("snes_type", "ngs")) == "ksponly":
         # PETSc semantics: SNESKSPONLY reports iteration 1 and the true
         # residual norm after the one linear solve, not the KSP's
         ksp_opts = {k: v for k, v in flat.items() if not k.startswith("snes_")}
-        z1, z2, _, _ = _build_linear_solver(W, model_params, _freeze(ksp_opts))(g1, g2)
-        op = DPPOperator(W, model_params)
+        if degree > 1:
+            solver = _build_tensor_linear_solver(W, model_params, _freeze(ksp_opts))
+            op = TensorDPPOperator(W.mesh, model_params, degree, device=W.device)
+        else:
+            solver = _build_linear_solver(W, model_params, _freeze(ksp_opts))
+            op = DPPOperator(W, model_params)
+        z1, z2, _, _ = solver(g1, g2)
         b1, b2 = op.lifted_rhs(g1, g2)
         return Solution(Function(W, (z1, z2)), 1, float(_norm(torch.stack(op.residual(z1, z2, b1, b2)))))
+    if degree > 1:
+        raise ValueError(
+            f"solve_dpp_nonlinear supports degree-{degree} spaces only with "
+            "snes_type='ksponly'; the ngs/nrichardson/block_gs solves are "
+            "degree-1 (use the linear solve_dpp path for Qp systems)"
+        )
     solver = _build_nonlinear_solver(W, model_params, _freeze(solver_parameters))
     z1, z2, its, fnorm = solver(g1, g2)
     return Solution(Function(W, (z1, z2)), int(its), float(fnorm))

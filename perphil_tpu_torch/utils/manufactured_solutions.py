@@ -1,6 +1,7 @@
 """Manufactured (exact) solutions for the DPP model, 2D and 3D.
 
-Counterpart of ``perphil_tpu/utils/manufactured_solutions.py``. Each
+Counterpart of ``perphil_tpu/utils/manufactured_solutions.py``
+(``exact_expressions``, ``exact_expressions_3d``, ``interpolate_exact``). Each
 expression is a plain callable of coordinate tensors built from torch ops:
 evaluable at vertices (Dirichlet data) or quadrature points, and
 differentiable with ``torch.func.grad`` for H1-seminorm errors.
@@ -18,6 +19,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from perphil_tpu_torch.forms.spaces import Function, FunctionSpace
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
 
@@ -91,3 +93,19 @@ def exact_expressions_3d(
         return u
 
     return _vel(-1.0, k1), p1, _vel(1.0, k2), p2
+
+
+def interpolate_exact(
+    mesh: StructuredMesh,
+    velocity_space: FunctionSpace,
+    pressure_space: FunctionSpace,
+    dpp_params: DPPParameters,
+) -> Tuple[Function, Function, Function, Function]:
+    """The 2D exact (u1, p1, u2, p2) interpolated into Functions on the
+    spaces (and their device)."""
+    u1_e, p1_e, u2_e, p2_e = exact_expressions(mesh, dpp_params)
+    u1 = Function(velocity_space, name="u1_exact").interpolate(u1_e)
+    p1 = Function(pressure_space, name="p1_exact").interpolate(p1_e)
+    u2 = Function(velocity_space, name="u2_exact").interpolate(u2_e)
+    p2 = Function(pressure_space, name="p2_exact").interpolate(p2_e)
+    return u1, p1, u2, p2

@@ -1,7 +1,7 @@
-"""Cell quadrature tables for error norms (degree-1 spaces).
+"""Cell quadrature tables for error norms (degree-1 spaces and P2 simplices).
 
-Counterpart of ``perphil_tpu/utils/quadrature.py::cell_quadrature``,
-host-side numpy. Degree-14 rules reproduce the reference's committed error
+Counterpart of ``perphil_tpu/utils/quadrature.py`` (``cell_quadrature``,
+``cell_quadrature_p2``), host-side numpy. Degree-14 rules reproduce the reference's committed error
 CSVs (``DEFAULT_QUADRATURE_DEGREE``); simplices map the tensor
 Gauss-Legendre rule through the Duffy transform.
 """
@@ -162,3 +162,52 @@ def cell_quadrature(
     return _cell_quadrature_cached(
         mesh.cells, mesh.element, mesh.diagonal, mesh.extent, degree
     )
+
+
+@lru_cache(maxsize=None)
+def _cell_quadrature_p2_cached(
+    cells: Tuple[int, ...], element: str, diagonal: str, extent: Tuple[float, ...], degree: int
+) -> Tuple[QPoint, ...]:
+    from perphil_tpu_torch.ops.element import simplex_geometry
+    from perphil_tpu_torch.ops.simplexfem import _p2_basis, p2_local_nodes
+
+    mesh = StructuredMesh(cells=cells, element=element, diagonal=diagonal, extent=extent)
+    if mesh.is_tensor_product:
+        raise ValueError("P2 quadrature tables are for simplex meshes (Qp uses tensorfem)")
+    d = mesh.dim
+    h = mesh.h
+    n1 = max(1, (degree + 2) // 2)
+    xq, wq = gauss_legendre_01(n1)
+    qpts: List[QPoint] = []
+    for verts, _, _ in cell_subcells(element, h, diagonal):
+        verts_phys = verts.astype(float) * np.asarray(h)
+        detE, grads_l = simplex_geometry(verts, h)
+        detE = abs(detE)
+        nodes = p2_local_nodes(verts)
+        for idx in itertools.product(range(n1), repeat=d):
+            u = np.array([xq[i] for i in idx])
+            w = float(np.prod([wq[i] for i in idx]))
+            x, jac = _duffy(u)
+            lam = np.concatenate([[1.0 - x.sum()], x])
+            phi, grad = _p2_basis(lam, grads_l)
+            p = verts_phys[0] + (verts_phys[1:] - verts_phys[0]).T @ x
+            qpts.append(
+                QPoint(
+                    weight=w * jac * detE,
+                    point=tuple(p),
+                    vertex_offsets=tuple(tuple(int(c) for c in nn) for nn in nodes),
+                    basis=tuple(phi),
+                    basis_grad=tuple(tuple(row) for row in grad),
+                    stride=2,
+                )
+            )
+    return tuple(qpts)
+
+
+def cell_quadrature_p2(
+    mesh: StructuredMesh, degree: int = DEFAULT_QUADRATURE_DEGREE
+) -> Tuple[QPoint, ...]:
+    """P2 quadrature table for one grid cell of a simplex mesh: node offsets
+    on the once-refined lattice (``stride=2``), the quadratic Lagrange
+    basis values and gradients (``ops/simplexfem.py``)."""
+    return _cell_quadrature_p2_cached(mesh.cells, mesh.element, mesh.diagonal, mesh.extent, degree)

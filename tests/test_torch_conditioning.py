@@ -14,7 +14,6 @@ card in ``chip_smoke.py``).
 """
 
 from pathlib import Path
-from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,7 +108,7 @@ def test_condition_numbers_match_reference_2d(N, use_sparse):
 
 
 @pytest.mark.parametrize("use_sparse", [False, True], ids=["dense-svd", "lanczos"])
-@pytest.mark.parametrize("N", [4, 8])
+@pytest.mark.parametrize("N", [4, 6, 8])
 def test_condition_numbers_match_reference_3d_hex(N, use_sparse):
     W = _space(create_cube_mesh(N, N, N, hexahedral=True))
     conds = estimate_condition_numbers(W, num_of_factors=50 if use_sparse else None, use_sparse=use_sparse)
@@ -147,11 +146,15 @@ def test_sparse_mode_without_inverse_matches_dense():
 
 
 def test_csr_materialization_rejects_degree_p():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        FunctionSpace(create_mesh(4, 4), degree=2, device="cpu")
-    W2 = SimpleNamespace(spaces=(SimpleNamespace(degree=2),) * 2)  # a degree-2 space's view
-    with pytest.raises(NotImplementedError, match="Q1"):
-        assembly.materialize_monolithic_csr(W2, DPPParameters())
+    """Degree-2 spaces build on every element (Q2 on the refined lattice,
+    P2 on the once-refined one); the CSR stays Q1-only, as in the JAX
+    package."""
+    for mesh in (create_mesh(4, 4), create_mesh(4, 4, quadrilateral=False),
+                 create_cube_mesh(2, 2, 2, hexahedral=True), create_cube_mesh(2, 2, 2)):
+        W2 = mixed_space(FunctionSpace(mesh, degree=2, device="cpu"))
+        assert W2.spaces[0].dof_shape == tuple(2 * c + 1 for c in reversed(mesh.cells))
+        with pytest.raises(NotImplementedError, match="Q1"):
+            assembly.materialize_monolithic_csr(W2, DPPParameters())
 
 
 # -- the port against the JAX package on the same inputs ----------------------------

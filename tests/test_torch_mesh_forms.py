@@ -153,8 +153,18 @@ def test_spaces_and_functions():
     assert torch.equal(g.data, torch.as_tensor(mesh.coordinates()[0] + 2 * mesh.coordinates()[1]))
     p1, p2 = tspaces.Function(W, (g.data, 2 * g.data)).split()
     assert torch.equal(p2.data, 2 * p1.data)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tspaces.create_function_spaces(mesh, pressure_deg=2, device="cpu")
+    # degree p: the p-times refined DoF lattice, as in the JAX package;
+    # degree 3 on triangles raises its ValueError
+    _, V2 = tspaces.create_function_spaces(mesh, pressure_deg=2, device="cpu")
+    _, jV2 = jspaces.create_function_spaces(jmesh.create_mesh(3, 2), pressure_deg=2)
+    assert (V2.dim(), V2.dof_shape, V2.dof_mesh.cells) == (jV2.dim(), jV2.dof_shape, jV2.dof_mesh.cells) == (
+        35, (5, 7), (6, 4))
+    tri = tmesh.create_mesh(3, 2, quadrilateral=False)
+    assert tspaces.FunctionSpace(tri, degree=2, device="cpu").dof_shape == (5, 7)
+    with pytest.raises(ValueError, match="Simplex meshes support degrees 1 and 2"):
+        tspaces.FunctionSpace(tri, degree=3, device="cpu")
+    with pytest.raises(ValueError, match="Simplex meshes support degrees 1 and 2"):
+        jspaces.FunctionSpace(jmesh.create_mesh(3, 2, quadrilateral=False), degree=3)
 
 
 def test_resolve_device():
@@ -176,6 +186,8 @@ def _default_device_constructors():
     from perphil_tpu_torch.ops import direct as tdirect
     from perphil_tpu_torch.ops import ilu as tilu
     from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
+    from perphil_tpu_torch.ops.simplexfem import P2SimplexDPPOperator
+    from perphil_tpu_torch.ops.tensorfem import TensorDPPOperator, TensorFastDiagDPP
 
     mesh, p = tmesh.create_mesh(4, 3), TParams()
     zero = np.zeros(mesh.node_shape)
@@ -190,13 +202,18 @@ def _default_device_constructors():
         "FastDiagFieldSolver": lambda **kw: tdirect.FastDiagFieldSolver(mesh, 1.0, 0.5, 1.0, **kw).mode_scale,
         "LumpedDPPPreconditioner": lambda **kw: tdirect.LumpedDPPPreconditioner(mesh, p, **kw).pc1.mode_scale,
         "FastDiagDPPSolver": lambda **kw: tdirect.FastDiagDPPSolver(mesh, p, **kw).det,
+        "TensorDPPOperator": lambda **kw: TensorDPPOperator(mesh, p, 2, **kw)._bdry,
+        "TensorFastDiagDPP": lambda **kw: TensorFastDiagDPP(mesh, p, 2, **kw)._mode_data[0],
+        "P2SimplexDPPOperator": lambda **kw: P2SimplexDPPOperator(
+            tmesh.create_mesh(4, 3, quadrilateral=False), p, **kw)._bdry,
     }
 
 
 DEFAULT_DEVICE_NAMES = [
     "create_function_spaces", "FunctionSpace", "_evaluate", "from_numpy_state", "StructuredILU0",
     "StructuredILU0.for_monolithic", "MixedPrecisionDPPDirect", "FastDiagFieldSolver",
-    "LumpedDPPPreconditioner", "FastDiagDPPSolver",
+    "LumpedDPPPreconditioner", "FastDiagDPPSolver", "TensorDPPOperator", "TensorFastDiagDPP",
+    "P2SimplexDPPOperator",
 ]
 
 
