@@ -128,7 +128,28 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      against GMRES+jacobi, L2 EOC near 3; the Darcy velocity and the
      midline slice at N=16 (against the CPU) and N=128. Each row's wall and
      cached solve time is printed beside the card's name and power limit;
-     nothing is written.
+     nothing is written;
+ 13. drives the profiling studies (``profiling_path``) through their entry
+     points on the card, counted: the 2D table (``run_perf_once``, events
+     backend) at quad N=4..128 x the six approaches (repeats 2) and N=256 x
+     the five linear ones (repeats 1; plain GMRES without its warm-up solve),
+     each row's ``iterations`` against ``petsc_perf_breakdown.csv`` (the
+     Picard column from ``-with-picard.csv``; +-2 for GMRES and GMRES + ILU at
+     N >= 128), its backend ``events`` and ``time_total > 0``, the CSV's
+     header the committed one, K1, K2, K4-K8, ``fused_ngs`` and
+     ``structured_ilu_apply`` launched; the 3D table (``run_perf_once_3d``)
+     at tet nx=4/8/16/24/40 x the five linear approaches with the
+     ordering-parity ILU on the band engine (``petsc_perf_breakdown_3d.csv``
+     exactly, ``band_trisolve`` launched) and the envelope ILU
+     (``_envelope_ilu.csv``); one ``trace`` row (2D N=64 GMRES + ILU, device
+     time from ``torch.profiler``); the chunked drivers at N=64 against the
+     one-call solves (3307 in two K4 launches, fields within 1e-12; 1673 in
+     four ``fused_ngs`` launches, bit for bit); the ordering study at small
+     sizes against ``ordering_sensitivity.csv`` / ``ngs_coloring.csv``; K1
+     at 128^3 on the card's roofline (``utils/roofline.py``) and its chained
+     marginal at 64^3 (``utils/marginal.py``). A row that raises or falls
+     down the backend waterfall fails the phase. The kernel line's launches
+     add the profiling tables' to the main paths'.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -1325,6 +1346,230 @@ def convergence_path(dev, smi, t_start):
     return phase
 
 
+# phase 13, the profiling studies. The published counts: 2D
+# notebooks/results-conforming-2d/petsc_profiling/petsc_perf_breakdown.csv, the
+# Picard column from petsc_perf_breakdown-with-picard.csv (that file's other
+# rows are not read: its GMRES N=8 41 is stale); 3D
+# notebooks/results-conforming-3d/petsc_profiling/petsc_perf_breakdown_3d.csv
+# (GMRES + ILU: the ordering-parity rows) and, for the structured envelope
+# ILU, petsc_perf_breakdown_3d_envelope_ilu.csv
+PROF_NS = (4, 8, 16, 32, 64, 128)
+PROF_N256 = 256  # the five linear approaches, repeats=1; plain GMRES without the warm-up solve
+PROF_SLACK = 2  # GMRES and GMRES + ILU at N >= 128, as phases 5-6 allow
+PROF_3D_NS = (4, 8, 16, 24, 40)
+PROF_KERNELS = ("fused_dpp_apply", "fused_direct_solve", "fused_gmres_df", "fused_gmres_ef64",
+                "fused_gmres_df[fieldsplit_lu]", "fused_gmres_df[ilu]", "fused_gmres_df[fieldsplit_ilu]",
+                "fused_ngs", "structured_ilu_apply")
+
+
+def profiling_path(dev, smi, t_start, results):
+    """Phase 13, the profiling studies through their entry points: the 2D
+    table (``run_perf_once``, events backend) at quad N=4..128 x the six
+    approaches and N=256 x the five linear ones, the 3D table
+    (``run_perf_once_3d``) at tet nx=4/8/16/24/40 with the ordering-parity
+    ILU and the envelope ILU, one trace-backend row, the chunked drivers
+    against the one-call solves, the ordering study at small sizes, K1 on
+    the roofline and its chained marginal. Every row must be measured by
+    the backend it asked for; returns the tables' launches."""
+    import csv as _csv
+    import tempfile
+
+    import torch
+
+    from perphil_tpu_torch.experiments import ordering_study as ostudy
+    from perphil_tpu_torch.experiments.iterative_bench import Approach, params_for
+    from perphil_tpu_torch.experiments.profiling import (
+        build_chunked_ngs_solver,
+        build_chunked_plain_solver,
+        ensure_logging,
+        run_perf_once,
+        save_perf_csv,
+    )
+    from perphil_tpu_torch.experiments.profiling_3d import run_perf_once_3d
+    from perphil_tpu_torch.ops import _cuda
+    from perphil_tpu_torch.ops.assembly import DPPOperator, bc_values_per_field
+    from perphil_tpu_torch.solvers.solver import _build_linear_solver, _build_nonlinear_solver, _freeze
+    from perphil_tpu_torch.utils import roofline
+    from perphil_tpu_torch.utils.marginal import chained_marginal, fn_chain_maker
+
+    nb = HERE / "notebooks"
+    prof2 = nb / "results-conforming-2d" / "petsc_profiling"
+    prof3 = nb / "results-conforming-3d" / "petsc_profiling"
+
+    def published(path, approaches=None):
+        with path.open() as f:
+            rows = list(_csv.DictReader(f))
+        return {(r["approach"], int(r["nx"])): int(r["iterations"]) for r in rows
+                if approaches is None or r["approach"] in approaches}, list(rows[0])
+
+    pub2, header = published(prof2 / "petsc_perf_breakdown.csv")
+    picard = Approach.PICARD_MUMPS.value
+    pub2.update(published(prof2 / "petsc_perf_breakdown-with-picard.csv", {picard})[0])
+    pub3, header3 = published(prof3 / "petsc_perf_breakdown_3d.csv")
+    envelope = {nx: its for (_, nx), its in published(prof3 / "petsc_perf_breakdown_3d_envelope_ilu.csv")[0].items()}
+    check(header3 == header, "the 2D and 3D tables share one header")
+    check(ensure_logging(), "CUDA events work")
+
+    def show(tag, res, pub, slack=0):
+        t = res.times
+        print(f"profile {tag} {res.approach}: its {res.iterations} (csv {pub}" + (f" +-{slack}" if slack else "")
+              + f"), time_total {res.time_total * 1e3:.3f} ms, KSPSolve {t['KSPSolve'] * 1e3:.3f} ms, "
+              f"MatMult {t['MatMult'] * 1e3:.3f} ms, PCApply {t['PCApply'] * 1e3:.3f} ms, "
+              f"PCSetUp {t['PCSetUp'] * 1e3:.1f} ms, backend {res.metadata['backend']}"
+              + (f", engine {res.metadata['engine']}" if "engine" in res.metadata else "")
+              + f", {res.measurement_class} on {smi}")
+        check(res.metadata["backend"] == "events", f"profile {tag} {res.approach}: measured by the events backend")
+        check(res.time_total > 0.0, f"profile {tag} {res.approach}: time_total > 0")
+        check(abs(res.iterations - pub) <= slack, f"profile {tag} {res.approach}: iterations against the csv")
+
+    phase_t0 = time.perf_counter()
+    # -- the 2D table, counted
+    torch.cuda.synchronize()
+    _cuda.KERNEL_LAUNCHES.clear()
+    rows, t0 = [], time.perf_counter()
+    for n in PROF_NS:
+        for ap in Approach:
+            res = run_perf_once(n, n, ap, repeats=2, backend="events")
+            slack = PROF_SLACK if n >= 128 and ap in (Approach.PLAIN_GMRES, Approach.GMRES_ILU) else 0
+            show(f"2D N={n}", res, pub2[(ap.value, n)], slack)
+            rows.append(res.to_dict())
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for ap in Approach:
+        if ap is Approach.PICARD_MUMPS:
+            continue
+        t1 = time.perf_counter()
+        res = run_perf_once(PROF_N256, PROF_N256, ap, repeats=1, backend="events",
+                            eager=ap is not Approach.PLAIN_GMRES)
+        slack = PROF_SLACK if ap in (Approach.PLAIN_GMRES, Approach.GMRES_ILU) else 0
+        show(f"2D N={PROF_N256}", res, pub2[(ap.value, PROF_N256)], slack)
+        print(f"  row wall {time.perf_counter() - t1:.2f} s (host clock)")
+        rows.append(res.to_dict())
+    n256_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    phase = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"2D profiling table kernel launches ({len(rows)} rows): {phase}")
+    for name in PROF_KERNELS:
+        check(phase.get(name, 0) > 0, f"{name} launched on the 2D profiling table")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_perf_csv(rows, Path(tmp) / "perf.csv")
+        with (Path(tmp) / "perf.csv").open() as f:
+            check(next(_csv.reader(f)) == header, "the 2D table's CSV has the committed header")
+    print(f"2D profiling table: {len(PROF_NS) * len(Approach)} rows in {table_s:.2f} s, N={PROF_N256} x 5 in "
+          f"{n256_s:.2f} s (host clock) on {smi}")
+
+    # -- the 3D table, counted: the ordering-parity ILU, then the envelope ILU
+    _cuda.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for nx in PROF_3D_NS:
+        for ap in Approach:
+            if ap is Approach.PICARD_MUMPS:
+                continue
+            res = run_perf_once_3d(nx, ap, repeats=1, backend="events", ordering_parity=True)
+            show(f"3D tet nx={nx}", res, pub3[(ap.value, nx)])
+            if ap is Approach.GMRES_ILU:
+                check(res.metadata["engine"] == "device" and res.metadata["ordering"] == "rcm-parity",
+                      f"3D nx={nx}: the ordering-parity ILU on the band engine")
+    for nx in PROF_3D_NS:
+        res = run_perf_once_3d(nx, Approach.GMRES_ILU, repeats=1, backend="events")
+        show(f"3D tet nx={nx} envelope", res, envelope[nx])
+    torch.cuda.synchronize()
+    phase3 = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"3D profiling table kernel launches: {phase3}; {time.perf_counter() - t0:.2f} s (host clock)")
+    check(phase3.get("band_trisolve", 0) > 0, "band_trisolve launched on the 3D profiling table")
+    for name, count in phase3.items():
+        phase[name] = phase.get(name, 0) + count
+
+    # -- the trace backend: device time from torch.profiler's CUDA activity
+    res = run_perf_once(64, 64, Approach.GMRES_ILU, repeats=2, backend="trace")
+    t = res.times
+    print(f"profile 2D N=64 {res.approach} (trace): its {res.iterations}, KSPSolve {t['KSPSolve'] * 1e3:.3f} ms "
+          f"device, MatMult {t['MatMult'] * 1e3:.3f} ms, PCApply {t['PCApply'] * 1e3:.3f} ms, time_total "
+          f"{res.time_total * 1e3:.3f} ms (host clock), backend {res.metadata['backend']} on {smi}")
+    check(res.metadata["backend"] == "trace", "the trace row is measured by the trace backend")
+    check(t["KSPSolve"] > 0 and t["MatMult"] > 0 and t["PCApply"] > 0, "the trace row's device times")
+
+    # -- the chunked drivers against the one-call solves (2D N=64)
+    W, params, bcs, _, _ = problem("quad", 64, dev)
+    g1, g2 = bc_values_per_field(W, bcs)
+    plain = params_for(Approach.PLAIN_GMRES)
+    z1, z2, its, _ = _build_linear_solver(W, params, _freeze(plain))(g1, g2)
+    chunked = build_chunked_plain_solver(W, params, plain)
+    _cuda.KERNEL_LAUNCHES.clear()
+    c1, c2, total, _ = chunked(g1, g2)
+    k4 = _cuda.KERNEL_LAUNCHES.get("fused_gmres_df", 0)
+    diff = max(rel(a, b) for a, b in ((c1, z1), (c2, z2)))
+    print(f"chunked plain GMRES N=64: {total} iterations in {k4} K4 launches (one call: {its}), fields max rel "
+          f"diff {diff:.3e}")
+    check(total == its == 3307 and k4 == 2 and diff <= 1e-12, "the chunked plain GMRES is the one-call solve")
+    picard_opts = params_for(Approach.PICARD_MUMPS)
+    z1, z2, its, fn = _build_nonlinear_solver(W, params, _freeze(picard_opts))(g1, g2)
+    chunked = build_chunked_ngs_solver(W, params, picard_opts)
+    _cuda.KERNEL_LAUNCHES.clear()
+    c1, c2, total, cfn = chunked(g1, g2)
+    launched = _cuda.KERNEL_LAUNCHES.get("fused_ngs", 0)
+    same = torch.equal(c1, z1) and torch.equal(c2, z2)
+    print(f"chunked ngs N=64: {total} iterations in {launched} fused_ngs launches (one call: {its}), x bit for "
+          f"bit: {same}, fn {float(cfn):.6e} / {float(fn):.6e}")
+    check(total == its == 1673 and launched == 4 and same, "the chunked ngs is the one-call solve, bit for bit")
+
+    # -- the ordering study at small sizes (the host C++ GS kernel builds here)
+    t0 = time.perf_counter()
+    with (nb / "results-conforming-3d" / "ordering" / "ordering_sensitivity.csv").open() as f:
+        sens = {(int(r["dim"]), int(r["N"]), r["algorithm"], r["ordering"], r["pattern"]): int(r["its"])
+                for r in _csv.DictReader(f)}
+    cases = 0
+    for dim, n, pattern in ((3, 4, "envelope"), (3, 4, "fe"), (3, 8, "envelope"), (3, 8, "fe"),
+                            (2, 4, "envelope"), (2, 8, "envelope"), (2, 16, "envelope")):
+        for o in ostudy.ORDERINGS:
+            key = (dim, n, "gmres+ilu0", o, "envelope==fe" if dim == 2 else pattern)
+            its = ostudy.ilu_case(n, dim, o, pattern, quad_or_hex=dim == 2)
+            if key in sens:
+                check(its == sens[key], f"ordering study {key}")
+                cases += 1
+            elif dim == 3 and pattern == "fe":  # cell-rcm-parity: the published column
+                check(its == ostudy.REF_ILU_3D[n], f"ordering study {key}: the published count")
+                cases += 1
+    for n in (4, 8):
+        for o in ostudy.ORDERINGS:
+            for stol, crit in ((1e-8, "rtol+stol"), (0.0, "rtol-only")):
+                key = (2, n, "pointwise-gs", o, f"criterion={crit}")
+                if key in sens:
+                    check(ostudy.ngs_case(n, 2, o, stol=stol) == sens[key], f"ordering study {key}")
+                    cases += 1
+    with (nb / "results-conforming-2d" / "ordering" / "ngs_coloring.csv").open() as f:
+        coloring = {(int(r["N"]), r["variant"]): r for r in _csv.DictReader(f)}
+    for row in ostudy.run_ngs_coloring_study([4, 8, 16]):
+        ref = coloring[(row["N"], row["variant"])]
+        check(str(row["its"]) == ref["its"] and str(row["ncolors"]) == ref["ncolors"],
+              f"ngs coloring study N={row['N']} {row['variant']}")
+        cases += 1
+    print(f"ordering study: {cases} cases equal to ordering_sensitivity.csv / ngs_coloring.csv (or the "
+          f"published column), {time.perf_counter() - t0:.2f} s (host clock)")
+
+    # -- K1 on the roofline (phase 11's time at 128^3) and its chained marginal at 64^3
+    k1 = results["fused_dpp_apply"]
+    W128, _, _, _, _ = problem("hex", 128, dev)
+    nbytes = 4 * 8 * W128.mesh.num_vertices
+    point = roofline.analyze("fused_dpp_apply", k1["ms"] * 1e-3, matvec_flops(W128.mesh, params), nbytes)
+    print(f"roofline K1 hex128 f64 matvec: {point.seconds * 1e3:.4f} ms, {point.gbs:.1f} GB/s, hbm_frac "
+          f"{point.hbm_frac:.3f}, {point.gflops:.1f} GFLOP/s ({point.peak_frac:.4f} of f64), {point.bound} bound "
+          f"at {point.intensity:.3f} flop/B, on {torch.cuda.get_device_name(0)} ({smi})")
+    check(0.0 < point.hbm_frac <= 1.0, "K1 moves no more than the card's bandwidth")
+    W64 = problem("hex", 64, dev)[0]
+    mv = DPPOperator(W64, params).stacked_matvec()
+    x = torch.randn((2,) + W64.mesh.node_shape, dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    per = chained_marginal(fn_chain_maker(mv), (x,), 64, window=0.1)
+    print(f"chained marginal K1 hex64 (stacked_matvec + keep-alive sums, issued back to back): "
+          f"{per * 1e3:.4f} ms a trip, beside phase 11's queued {results['fused_dpp_apply@hex64']['ms']:.4f} ms "
+          f"on {smi}")
+    check(per > 0.0, "a positive marginal")
+    print(f"[{time.perf_counter() - t_start:.1f} s] profiling path done: phase 13 "
+          f"{time.perf_counter() - phase_t0:.1f} s (host clock) on {smi}")
+    return phase
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2149,6 +2394,11 @@ def main() -> int:
                   + f" (CUDA events) on {smi}")
     # -- 12. the h-convergence study ----------------------------------------
     convergence_path(dev, smi, t_start)
+
+    # -- 13. the profiling studies ------------------------------------------
+    for name, count in profiling_path(dev, smi, t_start, results).items():
+        if name in KERNELS:
+            launches[name] = launches.get(name, 0) + count
     print(f"[{time.perf_counter() - t_start:.1f} s] done")
 
     print(json.dumps({"kernels": [

@@ -12,9 +12,10 @@ numpy fallback (``ops/ordering.py``'s ``host_ilu0``, ``host_ilu_apply`` and
 ``host_gmres`` are the twins the tests hold these kernels to).
 
 The semantics are the JAX package's (``perphil_tpu/ops/ordering.py``
-``native_ilu0`` and ``native_ilu_gmres_solver``): IKJ ILU(0) on the stored
-pattern, and left-preconditioned GMRES(restart) from ``x = 0`` with
-classical Gram-Schmidt and the preconditioned residual norm. Indices go to
+``native_ilu0``, ``native_ilu_gmres_solver`` and ``host_gs_sweeps``): IKJ
+ILU(0) on the stored pattern, left-preconditioned GMRES(restart) from
+``x = 0`` with classical Gram-Schmidt and the preconditioned residual norm,
+and sequential pointwise Gauss-Seidel sweeps with SNES's stopping tests. Indices go to
 the kernels as int32 (PETSc's default ``PetscInt``) while the matrix has
 fewer than 2**31 rows and entries, as int64 beyond.
 """
@@ -84,6 +85,12 @@ def library() -> ctypes.CDLL:
                 _DP, _DP, _DP,  # x out, rnorm out, history (may be null)
             ]
             fn.restype = ctypes.c_int64
+            fn = getattr(lib, "csr_gs_sweeps" + suffix)
+            fn.argtypes = [
+                ctypes.c_int64, ip, ip, _DP, _DP, _DP,  # n, A, b, x (in: x0; out: the last sweep)
+                ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_int64,  # rtol, atol, stol, max_it
+            ]
+            fn.restype = ctypes.c_int64
         _LIB = lib
     return _LIB
 
@@ -151,3 +158,27 @@ def native_ilu_gmres_solver(
         return int(its), x, float(rnorm[0])
 
     return solve
+
+
+def native_gs_sweeps(
+    A: sp.spmatrix, b: np.ndarray, x0: np.ndarray, rtol: float, atol: float, stol: float, max_it: int
+) -> int:
+    """Sequential pointwise Gauss-Seidel sweeps on ``A x = b`` from ``x0``
+    (``csr_gs_sweeps``): the count until ``||b - A x|| <= max(rtol ||b - A
+    x0||, atol)``, ``||dx|| < stol ||x||`` or ``max_it``."""
+    A = _sorted_csr(A)
+    bits = _bits(A)
+    itype, ip = _index_types(bits)
+    n = A.shape[0]
+    ai = np.ascontiguousarray(A.indptr, dtype=itype)
+    aj = np.ascontiguousarray(A.indices, dtype=itype)
+    av = np.ascontiguousarray(A.data, dtype=np.float64)
+    bb = np.ascontiguousarray(b, dtype=np.float64)
+    x = np.array(x0, dtype=np.float64)
+    if bb.shape != (n,) or x.shape != (n,):
+        raise ValueError(f"b and x0 have shapes {bb.shape} and {x.shape}, expected ({n},)")
+    fn = library().csr_gs_sweeps_i32 if bits == 32 else library().csr_gs_sweeps
+    return int(fn(
+        n, ai.ctypes.data_as(ip), aj.ctypes.data_as(ip), av.ctypes.data_as(_DP), bb.ctypes.data_as(_DP),
+        x.ctypes.data_as(_DP), float(rtol), float(atol), float(stol), int(max_it),
+    ))

@@ -381,17 +381,25 @@ class FusedGMRESSolver(nn.Module):
 
         return fieldsplit
 
-    def plain(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
+    def tolerances(self, tols: Optional[Tuple[float, float]] = None) -> Tuple[float, float]:
+        """``(rtol, atol)`` of a call: ``tols`` where the caller gives them
+        (the chunked continuation's ``(0, atol)``), else the solver's own."""
+        return (self.rtol, self.atol) if tols is None else (float(tols[0]), float(tols[1]))
+
+    def plain(
+        self, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tols: Optional[Tuple[float, float]] = None
+    ) -> KrylovResult:
         """Plain PyTorch twin: ``krylov.gmres`` with the plain matvec and
         :meth:`plain_pc`. Afterwards ``inner_solves`` and
         ``inner_iterations`` count the fieldsplit roles' inner PCG work."""
         self.inner_solves = self.inner_iterations = 0
+        rtol, atol = self.tolerances(tols)
 
         def mv(z: torch.Tensor) -> torch.Tensor:
             return torch.stack(fused_dpp_apply_plain(z[0], z[1], *self.stencils, mode="matvec"))
 
         return gmres(
-            mv, b, x0, rtol=self.rtol, atol=self.atol, max_it=self.max_it,
+            mv, b, x0, rtol=rtol, atol=atol, max_it=self.max_it,
             restart=self.restart, M_inv=self.plain_pc(), dtol=self.dtol,
         )
 
@@ -426,10 +434,14 @@ class FusedGMRESSolver(nn.Module):
             0 if sched is None else sched.max_level_rows,
         )
 
-    def launch_args(self, b: torch.Tensor, x0: Optional[torch.Tensor], result: torch.Tensor) -> Tuple[tuple, torch.Tensor]:
+    def launch_args(
+        self, b: torch.Tensor, x0: Optional[torch.Tensor], result: torch.Tensor,
+        tols: Optional[Tuple[float, float]] = None,
+    ) -> Tuple[tuple, torch.Tensor]:
         """The launcher's arguments (all but the stream) for stacked
         ``(2, *node_shape)`` f64 CUDA tensors, and the output ``x``; the
-        scratch they point to lives as long as the returned tuple."""
+        scratch they point to lives as long as the returned tuple. ``tols``:
+        the call's ``(rtol, atol)`` (:meth:`tolerances`)."""
         if x0 is None:
             x0 = torch.zeros_like(b)
         shape = (2,) + self.node_shape
@@ -453,16 +465,18 @@ class FusedGMRESSolver(nn.Module):
             None if self.mass is None else self.mass.ctypes.data, dinv, F0L, F0U, F1L, F1U, lptr,
             lrows, meta,
             Sx, Sy, Sz, sc, *_grid_args(self.node_shape), PC_KINDS[self.pc_type], noffs, nlev,
-            self.rtol, self.atol, self.dtol, self.max_it, self.restart,
+            *self.tolerances(tols), self.dtol, self.max_it, self.restart,
             self.coef, rtol_in, atol_in, max_in, max_rows,
         )
         return (args, (x0, basis, work, xchg, w)), x
 
-    def launch(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
+    def launch(
+        self, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tols: Optional[Tuple[float, float]] = None
+    ) -> KrylovResult:
         """Run the kernel on stacked ``(2, *node_shape)`` f64 CUDA tensors;
         reads the iteration count and residual norm back."""
         result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
-        (args, _keep), x = self.launch_args(b, x0, result)
+        (args, _keep), x = self.launch_args(b, x0, result, tols)
         _cuda.launch(self.role, "perphil_fused_gmres", b.device, *args)
         return self.read_result(x, result)
 
@@ -474,9 +488,11 @@ class FusedGMRESSolver(nn.Module):
         self.launch_inner = (int(inner_its), int(inner_solves))
         return KrylovResult(x, int(its), rnorm, bool(converged))
 
-    def forward(self, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
+    def forward(
+        self, b: torch.Tensor, x0: Optional[torch.Tensor] = None, tols: Optional[Tuple[float, float]] = None
+    ) -> KrylovResult:
         _check_device(self.device, b)
-        return self.plain(b, x0) if b.device.type == "cpu" else self.launch(b, x0)
+        return self.plain(b, x0, tols) if b.device.type == "cpu" else self.launch(b, x0, tols)
 
 
 def fused_gmres_df(

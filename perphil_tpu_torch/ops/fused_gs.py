@@ -300,22 +300,31 @@ class FusedGSSolver(nn.Module):
             r = r - v * xp[p + d : p + d + n]
         return r
 
-    def plain(self, b: torch.Tensor, x0: torch.Tensor) -> NgsResult:
+    def tolerances(self, tols: Optional[Tuple[float, float]] = None) -> Tuple[float, float]:
+        """``(rtol, atol)`` of a call: ``tols`` where the caller gives them
+        (the chunked continuation's ``(0, atol)``), else the solver's own."""
+        return (self.rtol, self.atol) if tols is None else (float(tols[0]), float(tols[1]))
+
+    def plain(self, b: torch.Tensor, x0: torch.Tensor, tols: Optional[Tuple[float, float]] = None) -> NgsResult:
         """Plain PyTorch twin (any device): the kernel's arithmetic, the
         stop test on the host."""
         sw, bf = self.sweeper, b.reshape(-1)
         res = picard_loop(lambda x, r: sw.plain(x, bf), lambda x: self.residual(x, bf), x0.reshape(-1),
-                          self.rtol, self.atol, self.max_it)
+                          *self.tolerances(tols), self.max_it)
         return NgsResult(res.x.reshape(b.shape), res.iterations, res.residual_norm, res.initial_norm)
 
     def sweep_warps(self) -> int:
         """The warps that take a level's rows: the widest level a block holds."""
         return int(min(16, max(1, -(-int(np.diff(self.cptr.cpu().numpy(), axis=1).max()) // 32))))
 
-    def launch_args(self, b: torch.Tensor, x0: torch.Tensor, x: torch.Tensor, result: torch.Tensor) -> tuple:
+    def launch_args(
+        self, b: torch.Tensor, x0: torch.Tensor, x: torch.Tensor, result: torch.Tensor,
+        tols: Optional[Tuple[float, float]] = None,
+    ) -> tuple:
         """The launcher's arguments (all but the stream) for stacked f64
         CUDA tensors ``b``, ``x0``, the output ``x`` and ``result``
-        (:data:`RESULT_SLOTS` f64). They hold pointers only: the caller
+        (:data:`RESULT_SLOTS` f64); ``tols``: the call's ``(rtol, atol)``
+        (:meth:`tolerances`). They hold pointers only: the caller
         keeps every tensor alive until the launch has run."""
         if self.plan is None:
             raise ValueError(f"{self.mesh.element} mesh {self.node_shape} is beyond the fused GS plan")
@@ -337,30 +346,30 @@ class FusedGSSolver(nn.Module):
         return (
             b.data_ptr(), x0.data_ptr(), x.data_ptr(), self.lists.data_ptr(), self.cptr.data_ptr(),
             self.sends.data_ptr(), result.data_ptr(), w.ctypes.data, d.ctypes.data, nc.ctypes.data,
-            len(self.node_shape), nz, ny, nx, self.rtol, self.atol, self.max_it,
+            len(self.node_shape), nz, ny, nx, *self.tolerances(tols), self.max_it,
             0 if self.blocks is None else p.blocks,  # 0: the launcher applies its own rule
             p.rows, p.nloc, p.width, p.levels, self._sweep_warps,
         )
 
-    def launch(self, b: torch.Tensor, x0: torch.Tensor) -> NgsResult:
+    def launch(self, b: torch.Tensor, x0: torch.Tensor, tols: Optional[Tuple[float, float]] = None) -> NgsResult:
         """Run ``csrc/fused_gs.cu`` on stacked f64 CUDA tensors; reads the
         iteration count and the norms back."""
         x = torch.empty_like(b)
         result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
-        _cuda.launch(KERNEL, "perphil_fused_gs", b.device, *self.launch_args(b, x0, x, result))
+        _cuda.launch(KERNEL, "perphil_fused_gs", b.device, *self.launch_args(b, x0, x, result, tols))
         out = result.tolist()
         self.last_placement = tuple(int(v) for v in out[3:8])
         return NgsResult(x, int(out[0]), out[1], out[2])
 
-    def forward(self, b: torch.Tensor, x0: torch.Tensor) -> NgsResult:
+    def forward(self, b: torch.Tensor, x0: torch.Tensor, tols: Optional[Tuple[float, float]] = None) -> NgsResult:
         for t in (b, x0):
             if t.device != self.device:
                 raise ValueError(f"tensor on {t.device}, solver built for {self.device}")
         if self.device.type == "cpu":
-            return self.plain(b, x0)
+            return self.plain(b, x0, tols)
         if self.device.type != "cuda":
             raise ValueError(f"the GS solve runs on cpu or cuda, got {self.device}")
-        return self.launch(b, x0)
+        return self.launch(b, x0, tols)
 
 
 def gs_host_loop(

@@ -275,18 +275,27 @@ class FusedNGSSolver(nn.Module):
         self.register_buffer("cptr", None)
         self.register_buffer("sends", None)
 
-    def plain(self, b: torch.Tensor, x0: torch.Tensor) -> NgsResult:
+    def tolerances(self, tols: Optional[Tuple[float, float]] = None) -> Tuple[float, float]:
+        """``(rtol, atol)`` of a call: ``tols`` where the caller gives them
+        (the chunked continuation's ``(0, atol)``), else the solver's own."""
+        return (self.rtol, self.atol) if tols is None else (float(tols[0]), float(tols[1]))
+
+    def plain(self, b: torch.Tensor, x0: torch.Tensor, tols: Optional[Tuple[float, float]] = None) -> NgsResult:
         """Plain PyTorch twin (any device): the kernel's arithmetic, the
         stop test on the host."""
         sw = self.sweeper
         return picard_loop(
-            lambda x, r: sw.sweep_stacked(x, b, r), lambda x: sw.residual(x, b), x0, self.rtol, self.atol, self.max_it
+            lambda x, r: sw.sweep_stacked(x, b, r), lambda x: sw.residual(x, b), x0, *self.tolerances(tols), self.max_it
         )
 
-    def launch_args(self, b: torch.Tensor, x0: torch.Tensor, x: torch.Tensor, result: torch.Tensor) -> tuple:
+    def launch_args(
+        self, b: torch.Tensor, x0: torch.Tensor, x: torch.Tensor, result: torch.Tensor,
+        tols: Optional[Tuple[float, float]] = None,
+    ) -> tuple:
         """The launcher's arguments (all but the stream) for stacked f64
         CUDA tensors ``b``, ``x0``, the output ``x`` and ``result``
-        (:data:`RESULT_SLOTS` f64)."""
+        (:data:`RESULT_SLOTS` f64); ``tols``: the call's ``(rtol, atol)``
+        (:meth:`tolerances`)."""
         if self.plan is None:
             raise ValueError(f"mesh {self.node_shape} with {self.sweeper.ncolors} colours is beyond the fused NGS plan")
         shape = (2,) + self.node_shape
@@ -304,29 +313,29 @@ class FusedNGSSolver(nn.Module):
         return (
             b.data_ptr(), x0.data_ptr(), x.data_ptr(), self.lists.data_ptr(), self.cptr.data_ptr(),
             self.sends.data_ptr(), result.data_ptr(), self.weights.ctypes.data,
-            ny, nx, self.sweeper.ncolors, self.rtol, self.atol, self.max_it,
+            ny, nx, self.sweeper.ncolors, *self.tolerances(tols), self.max_it,
             0 if self.blocks is None else p.blocks,  # 0: the launcher applies its own rule
             p.rows, p.nloc, p.width,
         )
 
-    def launch(self, b: torch.Tensor, x0: torch.Tensor) -> NgsResult:
+    def launch(self, b: torch.Tensor, x0: torch.Tensor, tols: Optional[Tuple[float, float]] = None) -> NgsResult:
         """Run ``csrc/fused_ngs.cu`` on stacked f64 CUDA tensors; reads the
         iteration count and the norms back."""
         x = torch.empty_like(b)
         result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
-        _cuda.launch(KERNEL, "perphil_fused_ngs", b.device, *self.launch_args(b, x0, x, result))
+        _cuda.launch(KERNEL, "perphil_fused_ngs", b.device, *self.launch_args(b, x0, x, result, tols))
         its, fn, f0 = result[:3].tolist()
         return NgsResult(x, int(its), fn, f0)
 
-    def forward(self, b: torch.Tensor, x0: torch.Tensor) -> NgsResult:
+    def forward(self, b: torch.Tensor, x0: torch.Tensor, tols: Optional[Tuple[float, float]] = None) -> NgsResult:
         for t in (b, x0):
             if t.device != self.device:
                 raise ValueError(f"tensor on {t.device}, solver built for {self.device}")
         if self.device.type == "cpu":
-            return self.plain(b, x0)
+            return self.plain(b, x0, tols)
         if self.device.type != "cuda":
             raise ValueError(f"the NGS solve runs on cpu or cuda, got {self.device}")
-        return self.launch(b, x0)
+        return self.launch(b, x0, tols)
 
 
 def ngs_host_loop(

@@ -31,6 +31,12 @@ sequential numpy twins of the host engine's C++ kernels
 (``ops/_native.py``). The traversals run a level of the Cuthill-McKee queue
 at a time, with the queue's order, so that the largest published mesh
 (384,000 tets) takes seconds.
+
+For the ordering study (``experiments/ordering_study.py``):
+:func:`random_ordering`, numpy's seeded permutation, and
+:func:`host_gs_sweeps`, the sequential pointwise Gauss-Seidel sweep count
+by the C++ kernel (``ops/_native.py``; no Python fallback: a host without
+``g++`` raises).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
+from perphil_tpu_torch.ops import _native
 from perphil_tpu_torch.ops.stencil import compile_stencils
 
 __all__ = [
@@ -54,6 +61,8 @@ __all__ = [
     "vertex_rcm",
     "cell_rcm",
     "cell_rcm_parity",
+    "random_ordering",
+    "host_gs_sweeps",
     "host_ilu0",
     "host_ilu_apply",
     "host_gmres",
@@ -340,6 +349,11 @@ def vertex_rcm(A_vertex: sp.spmatrix) -> np.ndarray:
     return np.asarray(reverse_cuthill_mckee(adj.tocsr(), symmetric_mode=True))
 
 
+def random_ordering(n: int, seed: int = 0) -> np.ndarray:
+    """A seeded random vertex permutation (numpy's ``default_rng(seed)``)."""
+    return np.random.default_rng(seed).permutation(n)
+
+
 def greedy_coloring(A: sp.spmatrix, order: np.ndarray) -> np.ndarray:
     """Greedy distance-1 colouring of ``A``'s pattern, vertices taken in
     ``order`` (PETSc's MATCOLORINGGREEDY takes the largest weight first):
@@ -541,3 +555,21 @@ def host_gmres(
         if rnorm <= tol:
             break
     return (its, x, rnorm) if return_solution else its
+
+
+def host_gs_sweeps(
+    A: sp.csr_matrix,
+    b: np.ndarray,
+    x0: np.ndarray,
+    rtol: float = 1e-8,
+    atol: float = 1e-12,
+    stol: float = 1e-8,
+    max_it: int = 20000,
+) -> int:
+    """Sequential pointwise Gauss-Seidel sweep count with
+    SNESConvergedDefault-style stopping: ``||F|| <= max(rtol ||F0||, atol)``
+    or ``||dx|| < stol ||x||`` (PETSc's ``snes_stol``, default 1e-8). The
+    sweep is sequential: the C++ kernel runs it
+    (``csrc/csr_solver.cpp::csr_gs_sweeps``), built by ``ops/_native.py``,
+    which raises where ``g++`` is missing."""
+    return _native.native_gs_sweeps(A, b, x0, rtol, atol, stol, max_it)

@@ -378,41 +378,47 @@ def _fused_pc(flat: Dict[str, object]) -> Optional[str]:
 def _krylov_kind(op: DPPOperator, flat: Dict[str, object]) -> str:
     """Which solver serves a Krylov solve, as the JAX package's accelerator
     route picks it: a fused GMRES role (K4-K8), or ``"gmres"`` / ``"cg"``
-    (host loops with the K1 matvec and ``_monolithic_pc``)."""
+    (host loops with the K1 matvec and ``_monolithic_pc``). The chunked
+    continuation (``_x0_continuation``) never takes K5: the JAX package
+    keeps its f64-faithful mode for whole solves, and the continuation's
+    small systems run K4."""
     ksp = str(flat.get("ksp_type", "gmres"))
     pc = _fused_pc(flat)
     restart = int(flat.get("ksp_gmres_restart", 30))
     if ksp == "gmres" and restart <= MAX_RESTART and pc is not None and fused_gmres_supported(op, pc, restart):
-        return K5 if pc == "none" and op.W.dim() <= EF64_MAX_DOF else ROLES[pc]
+        if pc == "none" and op.W.dim() <= EF64_MAX_DOF and not flat.get("_x0_continuation"):
+            return K5
+        return ROLES[pc]
     return ksp
 
 
 def _krylov_route(op: DPPOperator, flat: Dict[str, object]) -> Callable:
     """The Krylov solve of ``A d = r`` from ``d = 0``,
-    ``r -> (d, iterations, residual_norm)``."""
+    ``(r, rtol, atol) -> (d, iterations, residual_norm)``; ``rtol`` and
+    ``atol`` default to the options'."""
     kind = _krylov_kind(op, flat)
-    kw = dict(
-        rtol=float(flat.get("ksp_rtol", 1e-5)),
-        atol=float(flat.get("ksp_atol", 1e-50)),
-        max_it=int(flat.get("ksp_max_it", 10000)),
-    )
+    rtol = float(flat.get("ksp_rtol", 1e-5))
+    atol = float(flat.get("ksp_atol", 1e-50))
+    max_it = int(flat.get("ksp_max_it", 10000))
+    restart = int(flat.get("ksp_gmres_restart", 30))
     if kind not in ("gmres", "cg"):
-        run = FusedGMRESSolver(op, _fused_pc(flat), kind, restart=int(flat.get("ksp_gmres_restart", 30)), **kw)
-    else:
-        mv = op.stacked_matvec()
-        pc = _monolithic_pc(op, flat)
+        fused = FusedGMRESSolver(op, _fused_pc(flat), kind, rtol=rtol, atol=atol, max_it=max_it, restart=restart)
+
+        def solve_fused(r: torch.Tensor, rtol_: float = rtol, atol_: float = atol):
+            res = fused(r, tols=(rtol_, atol_))
+            return res.x, res.iterations, res.residual_norm
+
+        return solve_fused
+    mv = op.stacked_matvec()
+    pc = _monolithic_pc(op, flat)
+
+    def solve_host(r: torch.Tensor, rtol_: float = rtol, atol_: float = atol):
         if kind == "cg":
-            return lambda r: cg(mv, r, M_inv=pc, **kw)
-        kw["restart"] = int(flat.get("ksp_gmres_restart", 30))
-
-        def run(r: torch.Tensor):
-            return gmres(mv, r, M_inv=pc, **kw)
-
-    def solve(r: torch.Tensor):
-        res = run(r)
+            return cg(mv, r, rtol=rtol_, atol=atol_, max_it=max_it, M_inv=pc)
+        res = gmres(mv, r, rtol=rtol_, atol=atol_, max_it=max_it, restart=restart, M_inv=pc)
         return res.x, res.iterations, res.residual_norm
 
-    return solve
+    return solve_host
 
 
 def _newton_step_solver(op: DPPOperator, krylov: Callable) -> Callable:
@@ -430,6 +436,26 @@ def _newton_step_solver(op: DPPOperator, krylov: Callable) -> Callable:
         return x01 + d[0], x02 + d[1], its, rnorm
 
     return solve_krylov
+
+
+def _continuation_solver(op: DPPOperator, krylov: Callable) -> Callable:
+    """PETSc's KSPSetInitialGuessNonzero analogue (the ``_x0_continuation``
+    option, set by the chunked drivers of ``experiments/profiling.py``):
+    ``(g1, g2, x01, x02, atol_abs) -> (z1, z2, its, rnorm)`` from the given
+    iterate, with ``rtol = 0`` and ``atol = atol_abs``, on the Newton-step
+    system of that iterate (``A d = b - A x``), as the JAX package's host
+    route solves it (``perphil_tpu/solvers/solver.py:1049-1078``). The
+    other linear routes build their two-argument solve whatever this option
+    says, as the JAX package's do, so a five-argument call raises there; so
+    do the entry points, which call with two."""
+
+    def solve_from(g1: torch.Tensor, g2: torch.Tensor, x01: torch.Tensor, x02: torch.Tensor, atol_abs: float):
+        b1, b2 = op.lifted_rhs(g1, g2)
+        r1, r2 = op.residual(x01, x02, b1, b2)
+        d, its, rnorm = krylov(torch.stack([r1, r2]), 0.0, float(atol_abs))
+        return x01 + d[0], x02 + d[1], its, rnorm
+
+    return solve_from
 
 
 def _free_device_bytes(device: torch.device) -> Optional[int]:
@@ -550,7 +576,9 @@ def _build_band_parity_ilu_solver(op: DPPOperator, sched, kw: Dict[str, object])
         res = gmres(mv, r, M_inv=band.apply, **kw)
         return res.x, res.iterations, res.residual_norm
 
-    return _newton_step_solver(op, krylov)
+    solve = _newton_step_solver(op, krylov)
+    solve.pc_apply = band.apply  # the preconditioner alone, for the profiling probes
+    return solve
 
 
 def _build_host_parity_ilu_solver(op: DPPOperator, A, perm, Ap, kw: Dict[str, object]) -> Callable:
@@ -620,10 +648,7 @@ def _build_linear_solver(
     if ksp not in ("gmres", "cg"):
         raise ValueError(f"Unsupported ksp_type: {ksp!r}")
     if flat.get("_x0_continuation"):
-        raise NotImplementedError(
-            "the chunked continuation (_x0_continuation) is ported in ROADMAP slice 10 "
-            "(experiments and tooling)"
-        )
+        return _continuation_solver(op, _krylov_route(op, flat))
     return _newton_step_solver(op, _krylov_route(op, flat))
 
 
@@ -799,13 +824,14 @@ def _build_nonlinear_solver(
     frozen_sp: Tuple,
 ) -> Callable:
     """Build a Picard solve ``(g1, g2) -> (z1, z2, its, fnorm)`` for
-    boundary-value grids g1, g2 (``snes_type`` ngs, block_gs, nrichardson)."""
+    boundary-value grids g1, g2 (``snes_type`` ngs, block_gs, nrichardson).
+    With ``_x0_continuation`` the ngs solve is the continuation
+    variant ``(g1, g2, x01, x02, atol_abs) -> (z1, z2, its, fnorm)``: from
+    the given iterate, stopping on ``fnorm <= atol_abs`` or ``snes_max_it``
+    (``perphil_tpu/solvers/solver.py:1869-1895``); the sweeps are
+    memoryless given the iterate, so a chunked solve is the whole one."""
     flat = dict(frozen_sp)
-    if flat.get("_x0_continuation"):
-        raise NotImplementedError(
-            "the chunked continuation (_x0_continuation) is ported in ROADMAP slice 10 "
-            "(experiments and tooling)"
-        )
+    continuation = bool(flat.get("_x0_continuation"))
     snes = str(flat.get("snes_type", "ngs"))
     rtol = float(flat.get("snes_rtol", 1e-8))
     atol = float(flat.get("snes_atol", 1e-50))
@@ -826,32 +852,39 @@ def _build_nonlinear_solver(
         if isinstance(sweeper, ColoredNGSSweeper):
             fused = FusedNGSSolver(op, sweeper, rtol, atol, max_it)
 
-            def solve_colored(g1: torch.Tensor, g2: torch.Tensor):
-                b, x0 = lift(g1, g2)
+            def run(b: torch.Tensor, x0: torch.Tensor, rtol_: float, atol_: float):
                 if W.device.type == "cuda" and fused.plan is None:
-                    res = ngs_host_loop(op, sweeper, b, x0, rtol, atol, max_it)
-                else:
-                    res = fused(b, x0)
+                    return ngs_host_loop(op, sweeper, b, x0, rtol_, atol_, max_it)
+                return fused(b, x0, tols=(rtol_, atol_))
+
+        else:
+            # the wavefront: the whole solve in one fused_gs launch within
+            # its plan (the twin on the CPU); the card beyond the plan: the
+            # host loop on the solver's sweeper, which only the twin and
+            # that loop build; partri: the host loop
+            fused = FusedGSSolver(op, None, rtol, atol, max_it) if sweeper is None else None
+
+            def run(b: torch.Tensor, x0: torch.Tensor, rtol_: float, atol_: float):
+                if fused is None:
+                    return gs_host_loop(op, sweeper, b, x0, rtol_, atol_, max_it)
+                if W.device.type == "cuda" and fused.plan is None:
+                    return gs_host_loop(op, fused.sweeper, b, x0, rtol_, atol_, max_it)
+                return fused(b, x0, tols=(rtol_, atol_))
+
+        if continuation:
+
+            def solve_ngs_from(g1: torch.Tensor, g2: torch.Tensor, x01: torch.Tensor, x02: torch.Tensor,
+                               atol_abs: float):
+                res = run(lift(g1, g2)[0], torch.stack([x01, x02]), 0.0, float(atol_abs))
                 return res.x[0], res.x[1], res.iterations, res.residual_norm
 
-            return solve_colored
-        # the wavefront: the whole solve in one fused_gs launch within its
-        # plan (the twin on the CPU); the card beyond the plan: the host loop
-        # on the solver's sweeper, which only the twin and that loop build;
-        # partri: the host loop
-        fused = FusedGSSolver(op, None, rtol, atol, max_it) if sweeper is None else None
+            return solve_ngs_from
 
-        def solve_lexicographic(g1: torch.Tensor, g2: torch.Tensor):
-            b, x0 = lift(g1, g2)
-            if fused is None:
-                res = gs_host_loop(op, sweeper, b, x0, rtol, atol, max_it)
-            elif W.device.type == "cuda" and fused.plan is None:
-                res = gs_host_loop(op, fused.sweeper, b, x0, rtol, atol, max_it)
-            else:
-                res = fused(b, x0)
+        def solve_ngs(g1: torch.Tensor, g2: torch.Tensor):
+            res = run(*lift(g1, g2), rtol, atol)
             return res.x[0], res.x[1], res.iterations, res.residual_norm
 
-        return solve_lexicographic
+        return solve_ngs
 
     mv = op.stacked_matvec()
     if snes == "block_gs":

@@ -451,7 +451,7 @@ def test_cpu_route_takes_the_twin_and_launches_nothing(monkeypatch):
     twin (called once), no kernel launched, the count and x its own."""
     calls = []
     plain = FusedGSSolver.plain
-    monkeypatch.setattr(FusedGSSolver, "plain", lambda self, b, x0: calls.append(1) or plain(self, b, x0))
+    monkeypatch.setattr(FusedGSSolver, "plain", lambda self, b, x0, *tols: calls.append(1) or plain(self, b, x0, *tols))
     _build_nonlinear_solver.cache_clear()
     state = _state("tet", (4, 4, 4))
     before = dict(_cuda.KERNEL_LAUNCHES)
@@ -469,7 +469,7 @@ def test_cpu_route_takes_the_twin_and_launches_nothing(monkeypatch):
 def test_partri_keeps_its_host_loop(monkeypatch):
     """trisolve_backend=partri: the host loop with PartriGS sweeps (the
     twin is not called), its result gs_host_loop's bit for bit."""
-    monkeypatch.setattr(FusedGSSolver, "plain", lambda self, b, x0: pytest.fail("the twin ran for partri"))
+    monkeypatch.setattr(FusedGSSolver, "plain", lambda self, b, x0, *tols: pytest.fail("the twin ran for partri"))
     _build_nonlinear_solver.cache_clear()
     state = _state("triangle", (4, 4))
     try:

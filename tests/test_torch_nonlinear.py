@@ -299,7 +299,7 @@ def test_forms_match_jax():
 
 def test_validation_errors():
     state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(TypeError, match="atol_abs"):  # the continuation's five-argument solve
         solve_dpp_nonlinear(state.W, state.params, state.bcs, {**sp.PICARD_LU_SOLVER_PARAMS, "_x0_continuation": True})
     with pytest.raises(ValueError, match="Unsupported snes_type"):
         solve_dpp_nonlinear(state.W, state.params, state.bcs, {"snes_type": "newtonls"})
