@@ -150,6 +150,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      marginal at 64^3 (``utils/marginal.py``). A row that raises or falls
      down the backend waterfall fails the phase. The kernel line's launches
      add the profiling tables' to the main paths'.
+ 14. drives the multi-device path (``multidevice_path``) — K1's halo form
+     (``fused_dpp_apply_halo``) over a world of one rank's block (edge
+     ghosts), 2, 4 and 8 loopback slabs and (2, 2) / (4, 2) pencils of 128^3 hex (phantom-padded to divisibility) and 2D
+     N=1023, matvec and lift, f64, bit for bit with K1 on the whole grid,
+     and with no ghost K1's bits; its time over 8 slabs beside K1's, its
+     twin, its bound and ``conv3d``; then, counted, on a world of one NCCL
+     rank (``init_process_group("nccl")`` on a free port), the six paths of
+     the JAX multichip dry run (``tools/dryrun.py``) held to the
+     single-device solves on the card and to ``MULTICHIP_r05.json``'s counts
+     (38/6/4/1/49/4), the halo matvec to K1 on the gathered vector (0), and
+     ``sharded_solve_dpp`` at full width: 64^3 hex ``TPU_DIRECT_PARAMS``
+     (f64 relative residual < 1e-10) and 2D N=64 ``PLAIN_GMRES_PARAMS`` on
+     the distributed host loop (exactly 3307), each wall beside the
+     single-device solve's; ``fused_dpp_apply_halo``, K2,
+     ``structured_ilu_apply`` and ``fused_ngs`` must launch; then
+     ``run_scaling`` (strong, one rank, 2D N=64, both default approaches)
+     in a world of its own, its rows printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises, so
@@ -204,7 +221,13 @@ PARITY_KERNELS = {
     # the JAX package's band trisolve is a lax.scan of dense matvecs (XLA, no Pallas)
     "band_trisolve": (_CSRC + "band_trisolve.cu", "perphil_tpu/ops/bandsolve.py:164"),
 }
-KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS, **PARITY_KERNELS}
+MULTIDEVICE_KERNELS = {
+    # K1's halo form: the explicit-halo stencil of the JAX package's
+    # shard_map matvec (XLA inside shard_map, no Pallas)
+    "fused_dpp_apply_halo": (_CSRC + "dpp_apply.cu", "perphil_tpu/parallel/halo.py:52"),
+}
+KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS, **PARITY_KERNELS,
+           **MULTIDEVICE_KERNELS}
 # published PETSc counts of plain GMRES(30):
 # notebooks/results-conforming-2d/petsc_profiling/petsc_perf_breakdown.csv and
 # notebooks/results-conforming-3d/petsc_profiling/petsc_perf_breakdown_3d.csv
@@ -1570,6 +1593,200 @@ def profiling_path(dev, smi, t_start, results):
     return phase
 
 
+# phase 14, the multi-device path. The JAX dry run's six counts on 8 devices
+# as (4, 2): MULTICHIP_r05.json; the published plain GMRES count at 2D N=64:
+# petsc_perf_breakdown.csv (KRYLOV_CASES)
+MULTICHIP_RECORD = "MULTICHIP_r05.json"
+# loopback blocks: a world of one rank's block (edge ghosts only, the main
+# path's form), slabs, then pencils
+HALO_MESHES = ((1, 1), (2,), (4,), (8,), (2, 2), (4, 2))
+
+
+def multichip_counts():
+    """The JAX dry run's iteration count a path, from its committed record."""
+    import re
+
+    tail = json.loads((HERE / MULTICHIP_RECORD).read_text())["tail"]
+    return {label: int(its) for label, its in re.findall(r"dryrun_multichip\[(.*?)\]: its=(\d+)", tail)}
+
+
+def multidevice_path(dev, smi, randn, results, t_start):
+    """Phase 14: K1's halo form over loopback blocks against K1 on the whole
+    grid; then, counted, the sharded solves on a world of one NCCL rank: the
+    six dry-run paths, 64^3 hex TPU_DIRECT_PARAMS and 2D N=64 plain GMRES at
+    full width; the scaling harness in a world of its own. Returns the
+    launches of the counted run."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from perphil_tpu_torch.experiments.scaling import run_scaling
+    from perphil_tpu_torch.ops import _cuda
+    from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
+    from perphil_tpu_torch.ops.fused_apply import (
+        box_boundary,
+        fused_dpp_apply_halo,
+        fused_dpp_apply_halo_plain,
+        fused_dpp_apply_plain,
+        fused_dpp_apply_stacked,
+    )
+    from perphil_tpu_torch.models.dpp import DPPParameters
+    from perphil_tpu_torch.parallel.halo import (
+        benchmark_vs_gathered,
+        block_geometry,
+        join_blocks,
+        loopback_apply,
+        loopback_extend,
+        split_blocks,
+    )
+    from perphil_tpu_torch.parallel.sharding import device_mesh, sharded_solve_dpp
+    from perphil_tpu_torch.solvers import solve_dpp
+    from perphil_tpu_torch.tools.dryrun import check_paths, dryrun_cases, path_record, solve_case
+
+    t_phase = time.perf_counter()
+    # -- (a) K1's halo form over k loopback blocks, bit for bit with K1 on
+    # the whole grid; 129^3 nodes are phantom-padded to divisibility
+    for element, n in (("hex", 128), ("quad", 1023)):
+        W, params = problem(element, n, dev)[:2]
+        shape = W.mesh.node_shape
+        S = dpp_stencils(W.mesh, params)
+        z = torch.stack([randn(shape), randn(shape)])
+        for mesh_shape in HALO_MESHES:
+            pad = [(-m) % s for m, s in zip(shape, mesh_shape)] + [0] * (len(shape) - len(mesh_shape))
+            zp = F.pad(z, [v for p in reversed(pad) for v in (0, p)])
+            crop = (slice(None),) + tuple(slice(0, m) for m in shape)
+            for mode in ("matvec", "lift"):
+                want = zp.clone()  # phantom rows: identity
+                want[crop] = fused_dpp_apply_stacked(z, *S, mode=mode)
+                got = loopback_apply(zp, S, mesh_shape, mode, n_phys=shape)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"K1 halo form {element} N={n} blocks {mesh_shape} {mode}: "
+                                              "equal to K1 on the whole grid bit for bit")
+            print(f"K1 halo form {element} N={n} on {len(shape)}D blocks {mesh_shape} (padded {tuple(zp.shape[1:])}): "
+                  "matvec and lift bit for bit with K1 on the whole grid")
+        # with no ghost, offset or padding the halo form is K1
+        for mode in ("matvec", "lift"):
+            check(torch.equal(fused_dpp_apply_halo(z, *S, mode=mode), fused_dpp_apply_stacked(z, *S, mode=mode)),
+                  f"K1 halo form {element} N={n} {mode} with no ghost: K1's bits")
+        # the kernel line's shape: 128^3 in 8 z-slabs, one launch a slab,
+        # beside K1 on the whole grid; 2D N=1023 in 8 slabs beside K1
+        k = 8
+        pad = [(-shape[0]) % k] + [0] * (len(shape) - 1)
+        zp = F.pad(z, [v for p in reversed(pad) for v in (0, p)])
+        blocks = loopback_extend(split_blocks(zp, (k,)), (k,))
+        local = [zp.shape[1] // k] + list(shape[1:])
+        geoms = {c: block_geometry((k,), c, local, shape) for c in blocks}
+
+        def halo_all(fn=fused_dpp_apply_halo):
+            return {c: fn(b, *S, "matvec", *geoms[c]) for c, b in blocks.items()}
+
+        y = join_blocks(halo_all(), (k,))
+        yp = join_blocks(halo_all(fused_dpp_apply_halo_plain), (k,))
+        err = float((y - yp).abs().max())
+        check(err <= 1e-13 * float(yp.abs().max()), f"K1 halo form {element} N={n}: against its twin")
+        ms = queued_ms(halo_all, calls=20)
+        k1_ms = queued_ms(lambda: fused_dpp_apply_stacked(z, *S), calls=20)
+        nbytes = 8 * sum(b.numel() + b[:, 1:-1].numel() for b in blocks.values())  # extended box in, owned out
+        flops = matvec_flops(W.mesh, params)
+        tag = f"{element}{n}"
+        results[f"fused_dpp_apply_halo@{tag}"] = dict(
+            max_abs_err=err, ms=ms,
+            plain_ms=time_ms(lambda: halo_all(fused_dpp_apply_halo_plain), repeats=5),
+            bound=bound(nbytes, flops), k1_ms=k1_ms,
+            shape=f"{element} {'x'.join(map(str, zp.shape[1:]))} in {k} slabs, {k} launches, f64 matvec",
+        )
+        print(f"K1 halo form {element} N={n}, {k} slabs ({k} launches): {ms:.4f} ms beside K1 on the whole grid "
+              f"{k1_ms:.4f} ms, bound {results[f'fused_dpp_apply_halo@{tag}']['bound'][0]:.6f} ms (bytes), "
+              f"max abs diff vs twin {err:.3e} (CUDA events) on {smi}")
+        if element == "hex":
+            # the library yardstick: one conv3d of the interior-masked
+            # stacked fields with the stencil weight, as for K1
+            inner = ~box_boundary(shape, dev)
+            zin = torch.stack([torch.where(inner, z[0], 0.0), torch.where(inner, z[1], 0.0)])[None].contiguous()
+            S1, S2, C = S
+            wt = torch.tensor(np.stack([np.stack([S1, C]), np.stack([C, S2])]), device=dev)
+            results["fused_dpp_apply_halo"] = dict(
+                results[f"fused_dpp_apply_halo@{tag}"],
+                library_ms=queued_ms(lambda: F.conv3d(zin, wt, padding=1), calls=10),
+            )
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (a) done")
+
+    # -- (b) a world of one NCCL rank: the six dry-run paths
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    check(dist.get_backend() == "nccl", "the world of one runs NCCL")
+    published = multichip_counts()
+    cases = dryrun_cases([1, 1], dev)
+    singles = [solve_case(c, False) for c in cases]  # the single-device solves on the card, not counted
+    full = []
+    for element, n, preset in (("hex", 64, "TPU_DIRECT_PARAMS"), ("quad", 64, "PLAIN_GMRES_PARAMS")):
+        Wf, pf, bf, _, _ = problem(element, n, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = solve_dpp(Wf, pf, bf, solver_parameters=presets()[preset])
+        torch.cuda.synchronize()
+        full.append((element, n, preset, Wf, pf, bf, ref, time.perf_counter() - t0))
+    _cuda.KERNEL_LAUNCHES.clear()
+    records, walls = [], []
+    for case, single in zip(cases, singles):
+        records.append(path_record(case, single, solve_case(case, True)))
+    for element, n, preset, Wf, pf, bf, ref, ref_wall in full:
+        dm = device_mesh([1, 1], axis_names=("z", "y") if element == "hex" else ("y", "x"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = sharded_solve_dpp(Wf, pf, bf, dm, solver_parameters=presets()[preset])
+        torch.cuda.synchronize()
+        walls.append((element, n, preset, Wf, pf, bf, ref, ref_wall, sol, time.perf_counter() - t0))
+    counts = dict(_cuda.KERNEL_LAUNCHES)
+    print(f"multi-device path kernel launches (the six paths and the two full-width solves): {counts}")
+    for name in ("fused_dpp_apply_halo", "fused_direct_solve", "structured_ilu_apply", "fused_ngs"):
+        check(counts.get(name, 0) > 0, f"{name} launched on the multi-device path")
+    _, W3, _, _, _, dm3 = cases[0]
+    records.append(dict(label="halo", **benchmark_vs_gathered(DPPOperator(W3, DPPParameters()), dm3, reps=3)))
+    check_paths(records)
+    for r in records[:-1]:
+        print(f"world of one NCCL rank [{r['label']}]: its={r['its']} (single-device on the card "
+              f"{r['single_its']}, {MULTICHIP_RECORD} {published[r['label']]}), max rel diff {r['rel_diff']:.2e}")
+        check(r["its"] == published[r["label"]], f"{r['label']}: the JAX dry run's count")
+    print(f"halo matvec against K1 on the gathered vector: diff {records[-1]['max_abs_diff']:.2e}, "
+          f"halo {records[-1]['halo_s'] * 1e3:.4f} ms, gathered {records[-1]['gathered_s'] * 1e3:.4f} ms a call")
+
+    # -- (c) full width: the residual guard and the published count
+    for element, n, preset, Wf, pf, bf, ref, ref_wall, sol, wall in walls:
+        z1, z2 = sol.solution.data
+        check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
+        check(z1.device == dev and tuple(z1.shape) == Wf.mesh.node_shape, "solution on the card")
+        S = dpp_stencils(Wf.mesh, pf)
+        g1, g2 = (bc.grid_values(Wf.mesh) for bc in bf)
+        b1, b2 = fused_dpp_apply_plain(g1, g2, *S, mode="lift")
+        y1, y2 = fused_dpp_apply_plain(z1, z2, *S, mode="matvec")
+        rres = math.sqrt(float(((b1 - y1) ** 2).sum() + ((b2 - y2) ** 2).sum())) / math.sqrt(
+            float((b1 ** 2).sum() + (b2 ** 2).sum()))
+        diff = max(rel(a, b) for a, b in zip(sol.solution.data, ref.solution.data))
+        print(f"sharded_solve_dpp {element} N={n} {preset} on a world of one NCCL rank: its={sol.iteration_number} "
+              f"(single-device {ref.iteration_number}), f64 rel residual {rres:.3e}, max rel diff vs single-device "
+              f"{diff:.2e}, wall {wall:.3f} s beside the single-device solve's {ref_wall:.3f} s on {smi}")
+        if preset == "TPU_DIRECT_PARAMS":
+            check(rres < 1e-10, f"sharded {element} N={n} residual")
+        else:
+            check(sol.iteration_number == 3307, f"sharded {element} N={n} plain GMRES lands the published 3307")
+    dist.destroy_process_group()
+
+    # -- (d) the scaling harness: a world of one NCCL rank of its own
+    rows = run_scaling(modes=("strong",), device_counts=(1,), base_n=64, dim=2, repeats=1, device=dev)
+    for r in rows:
+        print(f"scaling row: {json.dumps(r.to_dict())}")
+        check(r.iteration_parity and r.measurement_class == "gpu-nccl", f"scaling {r.approach}: parity on the card")
+    print(f"[{time.perf_counter() - t_start:.1f} s] multi-device path done: phase 14 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2397,6 +2614,11 @@ def main() -> int:
 
     # -- 13. the profiling studies ------------------------------------------
     for name, count in profiling_path(dev, smi, t_start, results).items():
+        if name in KERNELS:
+            launches[name] = launches.get(name, 0) + count
+
+    # -- 14. the multi-device path ------------------------------------------
+    for name, count in multidevice_path(dev, smi, randn, results, t_start).items():
         if name in KERNELS:
             launches[name] = launches.get(name, 0) + count
     print(f"[{time.perf_counter() - t_start:.1f} s] done")

@@ -51,6 +51,10 @@ _SIGNATURES = {
     # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode, stream
     "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode,
+    # geom(host, 12 ints: ghosts low, ghosts high, offsets, physical extents), stream
+    "perphil_dpp_apply_halo_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "perphil_dpp_apply_halo_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # b, x, Sx, Sy, Sz, a11, a22, idet, a12, weights, nz, ny, nx, dim,
     # refinements, placement(host, 4 ints), stream
     "perphil_fused_direct": [_P] * 8 + [_F, _P] + [_I] * 5 + [_P, _P],

@@ -28,7 +28,7 @@ from perphil_tpu_torch.config import DeviceLike, default_dtype, resolve_device
 from perphil_tpu_torch.forms.spaces import Expr, FunctionSpace, MixedFunctionSpace, _evaluate
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_stacked
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_halo, fused_dpp_apply_stacked
 from perphil_tpu_torch.ops.stencil import apply_stencil, compile_stencils
 
 
@@ -73,13 +73,25 @@ def bc_values_per_field(
 
 
 def _masks(mesh: StructuredMesh, padding: Tuple[int, ...] = ()):
-    """(boundary, interior) boolean node grids, numpy."""
-    if padding and any(padding):
-        raise NotImplementedError(
-            "phantom padding (sharding) is ported in ROADMAP slice 9 (multi-device)"
-        )
+    """(boundary, interior) boolean node grids, numpy. Phantom nodes (the
+    ``padding`` at the high end of each grid axis, which makes node counts
+    divisible by a device mesh) are boundary: identity rows with zero data,
+    so a solve on the padded grid has the unpadded iterates."""
     bdry = mesh.boundary_mask()
+    if padding and any(padding):
+        bdry = np.pad(bdry, [(0, p) for p in padding], mode="constant", constant_values=True)
     return bdry, ~bdry
+
+
+def normalize_padding(mesh: StructuredMesh, padding) -> Tuple[int, ...]:
+    """Validate and normalise a per-grid-axis (slowest first) padding
+    tuple: () means none."""
+    if not padding:
+        return (0,) * mesh.dim
+    padding = tuple(int(p) for p in padding)
+    if len(padding) != mesh.dim or any(p < 0 for p in padding):
+        raise ValueError(f"Bad padding {padding} for a {mesh.dim}D mesh")
+    return padding
 
 
 @lru_cache(maxsize=None)
@@ -105,6 +117,9 @@ class DPPOperator:
 
     with identity rows/columns at the boundary DoFs of each field. The
     stencil weights are host constants that K1 takes by value at launch.
+    With ``padding`` the fields carry phantom nodes at the high end of each
+    grid axis (boundary rows, zero data): the operator then runs K1's halo
+    form, which takes the boundary from the physical node grid.
     """
 
     W: MixedFunctionSpace
@@ -114,7 +129,7 @@ class DPPOperator:
     def __post_init__(self):
         if self.W.num_sub_spaces() != 2:
             raise ValueError(f"Expected a 2-field MixedFunctionSpace, got {type(self.W)}")
-        _masks(self.W.mesh, self.padding)  # rejects padding
+        object.__setattr__(self, "padding", normalize_padding(self.W.mesh, self.padding))
 
     @property
     def mesh(self) -> StructuredMesh:
@@ -122,7 +137,12 @@ class DPPOperator:
 
     @property
     def grid_shape(self) -> Tuple[int, ...]:
-        return self.mesh.node_shape
+        """Working grid shape: the node grid plus the phantom padding."""
+        return tuple(n + p for n, p in zip(self.mesh.node_shape, self.padding))
+
+    @property
+    def padded(self) -> bool:
+        return any(self.padding)
 
     @property
     def _combined_stencils(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -130,12 +150,18 @@ class DPPOperator:
 
     @cached_property
     def _mask_arrays(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        bdry, interior = _masks(self.mesh)
+        bdry, interior = _masks(self.mesh, self.padding)
         dev = self.W.device
         return torch.as_tensor(bdry, device=dev), torch.as_tensor(interior, device=dev)
 
+    def _padded_apply(self, z: torch.Tensor, mode: str) -> torch.Tensor:
+        """K1's halo form on the stacked padded grid."""
+        return fused_dpp_apply_halo(z, *self._combined_stencils, mode=mode, n_phys=self.mesh.node_shape)
+
     def matvec(self, z1: torch.Tensor, z2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Apply the BC-eliminated operator to grid-shaped fields (K1)."""
+        if self.padded:
+            return tuple(self._padded_apply(torch.stack([z1, z2]), "matvec"))
         return fused_dpp_apply(z1, z2, *self._combined_stencils, mode="matvec")
 
     def residual(
@@ -149,6 +175,8 @@ class DPPOperator:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """RHS of the BC-eliminated system for zero forcing (K1): interior
         rows get ``-A[interior, boundary] g``, boundary rows get ``g``."""
+        if self.padded:
+            return tuple(self._padded_apply(torch.stack([g1, g2]), "lift"))
         return fused_dpp_apply(g1, g2, *self._combined_stencils, mode="lift")
 
     def flat_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -161,6 +189,8 @@ class DPPOperator:
     def stacked_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """Operator on stacked fields ``(2, *node_shape)`` (K1 on the stacked
         tensor, no stack)."""
+        if self.padded:
+            return lambda x: self._padded_apply(x, "matvec")
         S = self._combined_stencils
         return lambda x: fused_dpp_apply_stacked(x, *S, mode="matvec")
 
@@ -184,7 +214,7 @@ class FieldOperator:
     the fieldsplit preconditioner blocks. Counterpart of
     ``perphil_tpu/ops/assembly.py::FieldOperator`` (``matvec``,
     ``mass_apply``, ``lifted_rhs``, ``stencil``), in ``apply_stencil``'s
-    order on the space's device."""
+    order on the space's device; ``padding`` as in :class:`DPPOperator`."""
 
     V: FunctionSpace
     k: float
@@ -193,7 +223,7 @@ class FieldOperator:
     padding: Tuple[int, ...] = ()
 
     def __post_init__(self):
-        _masks(self.V.mesh, self.padding)  # rejects padding
+        object.__setattr__(self, "padding", normalize_padding(self.V.mesh, self.padding))
 
     @property
     def mesh(self) -> StructuredMesh:
@@ -201,7 +231,7 @@ class FieldOperator:
 
     @cached_property
     def _mask_arrays(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        bdry, interior = _masks(self.mesh)
+        bdry, interior = _masks(self.mesh, self.padding)
         dev = self.V.device
         return torch.as_tensor(bdry, device=dev), torch.as_tensor(interior, device=dev)
 

@@ -14,6 +14,11 @@ dot product, norm and basis combination is a pairwise halving tree
 sequential scalar f64, and no multiply is fused into an add. The fused
 kernel (``ops/fused_gmres.py``, ``csrc/fused_gmres.cu``) reproduces this
 arithmetic bit for bit.
+
+Both solvers take ``allreduce``: where each rank holds one block of every
+vector (``parallel/sharding.py``), a dot product or norm is the local tree
+sum of the block followed by ``allreduce`` (a sum over the ranks), so every
+rank holds the same scalars and takes the same branches.
 """
 
 from __future__ import annotations
@@ -144,26 +149,35 @@ def gmres(
     restart: int = 30,
     M_inv: Optional[Op] = None,
     dtol: float = DEFAULT_DTOL,
+    allreduce: Optional[Op] = None,
 ) -> KrylovResult:
     """Left-preconditioned restarted GMRES, PETSc-compatible.
 
     :param A: matrix-free operator on tensors of ``b``'s shape.
     :param M_inv: left preconditioner application (None = identity).
+    :param allreduce: the sum over ranks of local partial sums (None: one
+        rank holds the whole vector).
     Stops on convergence, ``max_it``, divergence, a non-finite residual
     estimate, or a restart cycle that made no step. Returns
     ``KrylovResult(x, iterations, residual_norm, converged)``.
     """
     P = M_inv or (lambda v: v)
+    if allreduce is None:
+        norm = _norm
+        dots = lambda V, w: tree_sum(V * w, dim=1)  # noqa: E731
+    else:
+        norm = lambda v: torch.sqrt(allreduce(tree_sum(v.reshape(-1) * v.reshape(-1))))  # noqa: E731
+        dots = lambda V, w: allreduce(tree_sum(V * w, dim=1))  # noqa: E731
     shape, m = b.shape, int(restart)
     x = torch.zeros_like(b) if x0 is None else x0
-    rnorm = float(_norm(P(b - A(x))))
+    rnorm = float(norm(P(b - A(x))))
     tol = max(rtol * rnorm, atol)
     div = dtol * rnorm
     its = 0
     done = rnorm <= tol
     while not done:
         r = P(b - A(x)).reshape(-1)
-        beta_t = _norm(r)
+        beta_t = norm(r)
         beta = float(beta_t)
         V = r.new_zeros((m + 1, r.numel()))
         V[0] = r / beta_t if beta > 0.0 else r
@@ -173,9 +187,9 @@ def gmres(
         j, rnorm = 0, beta
         while j < m and its < max_it and rnorm > max(tol, 0.0) and rnorm <= div:
             w = P(A(V[j].view(shape))).reshape(-1)
-            h = tree_sum(V[: j + 1] * w, dim=1)
+            h = dots(V[: j + 1], w)
             w = w - tree_sum(h[:, None] * V[: j + 1], dim=0)
-            hj1_t = _norm(w)
+            hj1_t = norm(w)
             col = torch.cat([h, hj1_t[None]]).tolist()  # the one read-back
             V[j + 1] = w / hj1_t if col[j + 1] > 0.0 else w
             c, s = _givens(col, cs, sn, j)
@@ -212,7 +226,7 @@ def gmres_ef64(
     return gmres(A, b, x0, rtol, atol, max_it, restart, None, dtol)
 
 
-def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _local_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.dot(u.reshape(-1), v.reshape(-1))
 
 
@@ -224,15 +238,17 @@ def cg(
     atol: float = 1.0e-12,
     max_it: int = 10000,
     M_inv: Optional[Op] = None,
+    allreduce: Optional[Op] = None,
 ) -> Tuple[torch.Tensor, int, float]:
     """Preconditioned conjugate gradients for SPD operators.
 
     Converges on the unpreconditioned residual 2-norm,
     ``||r|| <= max(rtol ||r0||, atol)``; also stops on a non-finite residual.
-    Shape-agnostic (grid or flat tensors). Returns (x, iterations,
-    residual_norm).
+    Shape-agnostic (grid or flat tensors); ``allreduce`` as in
+    :func:`gmres`. Returns (x, iterations, residual_norm).
     """
     P = M_inv or (lambda v: v)
+    _dot = _local_dot if allreduce is None else (lambda u, v: allreduce(_local_dot(u, v)))
     x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - A(x)
     z = P(r)

@@ -217,8 +217,11 @@ class P2SimplexDPPOperator:
     """BC-eliminated two-field DPP operator for P2 on simplex meshes, on
     ``device``: the block structure and conventions of
     ``ops/assembly.py::DPPOperator`` (symmetric elimination, zero forcing),
-    with the fields on the refined lattice ``(2N+1,)^d``. ``padding`` (the
-    sharding's phantom rows) is ported with multi-device (slice 9)."""
+    with the fields on the refined lattice ``(2N+1,)^d``. ``padding`` appends
+    phantom lattice entries at the high end of each axis (the sharded path's
+    divisibility): they are marked boundary with zero data, identity rows
+    whose residual stays zero; padding shifts no index, so the parities of
+    the real nodes are unchanged."""
 
     mesh: StructuredMesh
     params: DPPParameters
@@ -231,10 +234,9 @@ class P2SimplexDPPOperator:
                 "P2SimplexDPPOperator is for simplex meshes; tensor-product "
                 "cells use ops/tensorfem.TensorDPPOperator"
             )
-        if self.padding and any(self.padding):
-            raise NotImplementedError(
-                "phantom padding (sharding) is ported in ROADMAP slice 9 (multi-device)"
-            )
+        if self.padding and len(self.padding) != self.mesh.dim:
+            raise ValueError(f"padding {self.padding} must have one entry per axis ({self.mesh.dim})")
+        object.__setattr__(self, "padding", tuple(int(p) for p in self.padding))
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @cached_property
@@ -243,11 +245,15 @@ class P2SimplexDPPOperator:
 
     @property
     def dof_shape(self) -> Tuple[int, ...]:
-        return self.dof_mesh.node_shape
+        base = self.dof_mesh.node_shape
+        return tuple(n + p for n, p in zip(base, self.padding)) if self.padding else base
 
     @cached_property
     def boundary_mask(self) -> np.ndarray:
-        return np.asarray(self.dof_mesh.boundary_mask())
+        mask = np.asarray(self.dof_mesh.boundary_mask())
+        if self.padding:
+            mask = np.pad(mask, [(0, p) for p in self.padding], constant_values=True)
+        return mask
 
     @cached_property
     def _bdry(self) -> torch.Tensor:

@@ -14,9 +14,10 @@ coupled two-field system, as ``ops/direct.py`` does for Q1.
 
 DoFs live on the refined lattice (p*N+1 nodes an axis, spacing h/p). The
 1D matrices and eigenbases are host numpy (scipy ``eigh``, the JAX
-package's own); every operator and solve runs on ``device``. The JAX
-package's ``padding`` (the sharding's phantom rows) is ported with
-multi-device, ROADMAP slice 9.
+package's own); every operator and solve runs on ``device``. ``padding``
+(the sharded path's phantom rows at the high end of each grid axis) extends
+each 1D factor by an identity block with no coupling, so phantom DoFs are
+inert in every tensor term and carry zero data.
 """
 
 from __future__ import annotations
@@ -95,11 +96,21 @@ def _apply_axis(u: torch.Tensor, A: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.movedim(torch.tensordot(A, u, dims=([1], [axis])), 0, axis)
 
 
-def _no_padding(padding: Tuple[int, ...]) -> None:
-    if padding and any(padding):
-        raise NotImplementedError(
-            "phantom padding (sharding) is ported in ROADMAP slice 9 (multi-device)"
-        )
+def _pad_identity(A: np.ndarray, pad: int) -> np.ndarray:
+    """A 1D factor matrix extended by an identity phantom block with zero
+    cross-coupling, ``[[A, 0], [0, I]]``."""
+    n = A.shape[0]
+    out = np.zeros((n + pad, n + pad), dtype=A.dtype)
+    out[:n, :n] = A
+    out[n:, n:] = np.eye(pad, dtype=A.dtype)
+    return out
+
+
+def _check_padding(padding, dim: int) -> Tuple[int, ...]:
+    pad = tuple(int(p) for p in padding) or (0,) * dim
+    if len(pad) != dim or any(p < 0 for p in pad):
+        raise ValueError(f"padding must be {dim} nonneg ints, got {padding}")
+    return pad
 
 
 def _lam_sum(eig, d: int) -> np.ndarray:
@@ -120,7 +131,9 @@ class TensorDPPOperator:
     mesh, on ``device``: the semantics of ``ops/assembly.py::DPPOperator``
     (boundary rows and columns replaced by identity) on the refined DoF
     lattice, with the same ``matvec``/``lifted_rhs``/``residual``
-    signatures."""
+    signatures. With ``padding`` per grid axis the 1D factors carry inert
+    identity blocks (:func:`_pad_identity`); the phantom rows are not
+    boundary rows."""
 
     mesh: StructuredMesh
     params: DPPParameters
@@ -133,17 +146,33 @@ class TensorDPPOperator:
             raise ValueError("Tensor-product degree-p spaces need quad/hex cells")
         if self.degree < 1:
             raise ValueError("degree must be >= 1")
-        _no_padding(self.padding)
+        object.__setattr__(self, "padding", _check_padding(self.padding, self.mesh.dim))
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @property
-    def dof_shape(self) -> Tuple[int, ...]:
+    def phys_shape(self) -> Tuple[int, ...]:
+        """The physical DoF lattice (no phantom rows)."""
         return tuple(self.degree * c + 1 for c in reversed(self.mesh.cells))
+
+    @property
+    def dof_shape(self) -> Tuple[int, ...]:
+        return tuple(n + p for n, p in zip(self.phys_shape, self.padding))
+
+    @property
+    def phys_interior(self) -> Tuple[slice, ...]:
+        """The physical interior: no boundary row, no phantom."""
+        return tuple(slice(1, n - 1) for n in self.phys_shape)
 
     @cached_property
     def _host_mats(self) -> Tuple[Tuple[np.ndarray, np.ndarray], ...]:
-        """(K1, M1) per coordinate axis (x first), host numpy."""
-        return tuple(assemble_1d(self.degree, c, h) for c, h in zip(self.mesh.cells, self.mesh.h))
+        """(K1, M1) per coordinate axis (x first), host numpy, extended by
+        the identity over that axis's phantom padding."""
+        d = self.mesh.dim
+        out = []
+        for c_ax, (c, h) in enumerate(zip(self.mesh.cells, self.mesh.h)):
+            pad = self.padding[d - 1 - c_ax]  # the grid axis of this coordinate axis
+            out.append(tuple(_pad_identity(A, pad) if pad else A for A in assemble_1d(self.degree, c, h)))
+        return tuple(out)
 
     @cached_property
     def _mats(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
@@ -155,13 +184,14 @@ class TensorDPPOperator:
 
     @cached_property
     def boundary_mask(self) -> np.ndarray:
-        """Boundary rows of the DoF lattice (identity rows)."""
+        """Physical boundary rows of the DoF lattice (identity rows); the
+        phantom rows are not marked."""
         m = np.zeros(self.dof_shape, dtype=bool)
-        for ax in range(m.ndim):
+        for ax, n in enumerate(self.phys_shape):
             sl = [slice(None)] * m.ndim
             sl[ax] = 0
             m[tuple(sl)] = True
-            sl[ax] = -1
+            sl[ax] = n - 1
             m[tuple(sl)] = True
         return m
 
@@ -248,7 +278,8 @@ class TensorFastDiagDPP:
     """Exact direct solve of the degree-p coupled DPP system by generalised
     fast diagonalisation (the MUMPS role at any degree), on ``device``; also
     the exact solve of one field's block (``block_solve``), the fieldsplit's
-    LU role."""
+    LU role. With ``padding`` the phantom rows pass through as identity
+    beside the boundary rows."""
 
     mesh: StructuredMesh
     params: DPPParameters
@@ -257,7 +288,7 @@ class TensorFastDiagDPP:
     device: DeviceLike = None
 
     def __post_init__(self):
-        _no_padding(self.padding)
+        object.__setattr__(self, "padding", _check_padding(self.padding, self.mesh.dim))
         object.__setattr__(self, "device", resolve_device(self.device))
 
     @cached_property
@@ -302,11 +333,13 @@ class TensorFastDiagDPP:
         return out
 
     def _inner(self, shape: Tuple[int, ...]) -> Tuple[slice, ...]:
-        return tuple(slice(1, n - 1) for n in shape)
+        """The physical interior of a (padded) DoF grid."""
+        return tuple(slice(1, n - p - 1) for n, p in zip(shape, self.padding))
 
     def solve(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Solve on full DoF grids: boundary rows pass through as identity
-        (the eliminated operator's), the interior is solved exactly."""
+        """Solve on full DoF grids: boundary rows (and phantom rows) pass
+        through as identity (the eliminated operator's), the interior is
+        solved exactly."""
         inner = self._inner(b1.shape)
         a11, a22, det = self._mode_data
         a12 = -self.params.beta / self.params.mu

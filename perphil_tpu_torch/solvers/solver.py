@@ -108,6 +108,13 @@ form), as the JAX package's degree-p solves do. The fused kernels are
 Q1/P1 stencils and take none of these operators; ``solve_dpp_nonlinear``
 takes degree p with ``snes_type: ksponly`` only.
 
+Padding (the sharded path's phantom nodes, ``parallel/sharding.py``): the
+builders take a trailing ``padding``; a padded solve, and every degree-p
+GMRES or fast-diag solve, is :func:`_linear_parts` (what a rank needs: the
+operator, the Q1 preconditioner or direct solve of the unpadded system on
+the cropped vector, the degree-p ones built padded) run on one device by
+:func:`_run_parts`, the same function the sharded entry runs on each rank.
+
 Solvers are cached on ``(W, params, frozen options)``; ``W`` carries the
 device. No builder reads the environment.
 """
@@ -116,7 +123,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -606,9 +613,20 @@ def _build_linear_solver(
     W: MixedFunctionSpace,
     params: DPPParameters,
     frozen_sp: Tuple,
+    padding: Tuple[int, ...] = (),
 ) -> Callable:
     """Build a linear solve ``(g1, g2) -> (z1, z2, its, rnorm)`` for
-    boundary-value grids g1, g2."""
+    boundary-value grids g1, g2.
+
+    With ``padding`` the grids carry phantom nodes at the high end of each
+    grid axis (identity rows, zero data): the solve is
+    :func:`_parts_solver` of :func:`_linear_parts`, the sharded path's
+    solve on one device. A padding of zeros is the unpadded call and its
+    cache entry."""
+    if padding:
+        if any(padding):
+            return _parts_solver(_linear_parts(W, params, frozen_sp, tuple(padding)))
+        return _build_linear_solver(W, params, frozen_sp)
     flat = dict(frozen_sp)
     if (
         str(flat.get("pc_type", "")) == "ilu"
@@ -652,66 +670,18 @@ def _build_linear_solver(
     return _newton_step_solver(op, _krylov_route(op, flat))
 
 
-def _lifted_gmres(op, pc: Optional[Callable], flat: Dict[str, object]) -> Callable:
-    """GMRES on the BC-eliminated system of a degree-p operator from the BC
-    lift: ``(g1, g2) -> (z1, z2, its, rnorm)``."""
-    mv = op.stacked_matvec()
-    bdry = op._bdry
-    kw = dict(
-        rtol=float(flat.get("ksp_rtol", 1e-5)),
-        atol=float(flat.get("ksp_atol", 1e-50)),
-        max_it=int(flat.get("ksp_max_it", 10000)),
-        restart=int(flat.get("ksp_gmres_restart", 30)),
-    )
-
-    def solve_gmres(g1: torch.Tensor, g2: torch.Tensor):
-        b = torch.stack(op.lifted_rhs(g1, g2))
-        x0 = torch.stack([torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)])
-        res = gmres(mv, b, x0=x0, M_inv=pc, **kw)
-        return res.x[0], res.x[1], res.iterations, res.residual_norm
-
-    return solve_gmres
-
-
-@lru_cache(maxsize=64)
-def _build_tensor_linear_solver(
-    W: MixedFunctionSpace,
-    params: DPPParameters,
-    frozen_sp: Tuple,
-) -> Callable:
-    """Degree-p (Qp) linear solve on quad/hex meshes on ``W``'s device: the
-    exact fast-diagonalisation solve for preonly + lu, GMRES with pc none,
-    jacobi or the multiplicative fieldsplit (exact fast-diag blocks)
-    otherwise."""
-    flat = dict(frozen_sp)
-    degree = W.spaces[0].degree
-    mesh, dev = W.mesh, W.device
-    op = TensorDPPOperator(mesh, params, degree, device=dev)
-    ksp = str(flat.get("ksp_type", "preonly"))
-    pc_type = str(flat.get("pc_type", "lu"))
-    if ksp == "preonly":
-        if pc_type != "lu":
-            raise ValueError(f"degree-{degree} preonly supports pc_type=lu only")
-        direct = TensorFastDiagDPP(mesh, params, degree, device=dev)
-
-        def solve_direct(g1: torch.Tensor, g2: torch.Tensor):
-            z1, z2 = direct.solve(*op.lifted_rhs(g1, g2))
-            return z1, z2, 1, 0.0
-
-        return solve_direct
-    if ksp != "gmres":
-        raise ValueError(f"degree-{degree} spaces support preonly/gmres, got {ksp!r}")
+def _tensor_pc(op: TensorDPPOperator, params: DPPParameters, pc_type: str) -> Optional[Callable]:
+    """The degree-p GMRES preconditioner on stacked (padded) DoF grids: none,
+    jacobi, or the multiplicative 2x2 block Gauss-Seidel with exact
+    fast-diag blocks; ILU is refused."""
+    degree = op.degree
     if pc_type in ("none", ""):
-        pc = None
-    elif pc_type == "jacobi":
+        return None
+    if pc_type == "jacobi":
         dstack = op.diagonal_stacked()
-
-        def pc(r: torch.Tensor) -> torch.Tensor:
-            return r / dstack
-
-    elif pc_type == "fieldsplit":
-        # multiplicative 2x2 block Gauss-Seidel with exact fast-diag blocks
-        blocks = TensorFastDiagDPP(mesh, params, degree, device=dev)
+        return lambda r: r / dstack
+    if pc_type == "fieldsplit":
+        blocks = TensorFastDiagDPP(op.mesh, params, degree, op.padding, device=op.device)
         bdry = op._bdry
         beta_mu = params.beta / params.mu
 
@@ -721,14 +691,40 @@ def _build_tensor_linear_solver(
             coup = beta_mu * op._M(torch.where(bdry, 0.0, z1))
             return torch.stack([z1, blocks.block_solve(r[1] + torch.where(bdry, 0.0, coup), 1)])
 
-    elif pc_type == "ilu":
+        return pc
+    if pc_type == "ilu":
         raise ValueError(
             f"pc_type=ilu has no degree-{degree} structured factorization; "
             "use fieldsplit/jacobi or the preonly fast-diag direct solve"
         )
-    else:
-        raise ValueError(f"Unsupported pc_type {pc_type!r} for degree>1")
-    return _lifted_gmres(op, pc, flat)
+    raise ValueError(f"Unsupported pc_type {pc_type!r} for degree>1")
+
+
+@lru_cache(maxsize=64)
+def _build_tensor_linear_solver(
+    W: MixedFunctionSpace,
+    params: DPPParameters,
+    frozen_sp: Tuple,
+    padding: Tuple[int, ...] = (),
+) -> Callable:
+    """Degree-p (Qp) linear solve on quad/hex meshes on ``W``'s device: the
+    exact fast-diagonalisation solve for preonly + lu, GMRES with pc none,
+    jacobi or the multiplicative fieldsplit (exact fast-diag blocks)
+    otherwise. ``padding`` as in :func:`_build_linear_solver`: the 1D
+    factors' inert identity blocks (``TensorDPPOperator.padding``)."""
+    if padding and not any(padding):
+        return _build_tensor_linear_solver(W, params, frozen_sp)
+    return _parts_solver(_linear_parts(W, params, frozen_sp, tuple(padding)))
+
+
+def _p2_pc(op: P2SimplexDPPOperator, pc_type: str) -> Optional[Callable]:
+    """The P2 GMRES preconditioner: none or jacobi."""
+    if pc_type in ("none", ""):
+        return None
+    if pc_type == "jacobi":
+        dstack = op.diagonal_stacked()
+        return lambda r: r / dstack
+    raise ValueError(f"Unsupported pc_type {pc_type!r} for P2 simplex (none/jacobi/preonly+lu)")
 
 
 @lru_cache(maxsize=16)
@@ -736,19 +732,24 @@ def _build_simplex_p2_linear_solver(
     W: MixedFunctionSpace,
     params: DPPParameters,
     frozen_sp: Tuple,
+    padding: Tuple[int, ...] = (),
 ) -> Callable:
     """P2 linear solve on tri/tet meshes: GMRES with pc none or jacobi on
     the parity-class stencil operator on ``W``'s device; preonly + lu is the
     host stage, scipy ``splu`` of the assembled CSR (as in the JAX package;
     P2 simplices have no fast-diagonalisation structure), with the solution
-    copied to ``W``'s device."""
+    copied to ``W``'s device. ``padding`` as in
+    :func:`_build_linear_solver` (phantom rows marked boundary,
+    ``P2SimplexDPPOperator.padding``); the host stage refuses it."""
+    if padding and not any(padding):
+        return _build_simplex_p2_linear_solver(W, params, frozen_sp)
     flat = dict(frozen_sp)
     mesh, dev = W.mesh, W.device
-    op = P2SimplexDPPOperator(mesh, params, device=dev)
     ksp = str(flat.get("ksp_type", "preonly"))
     pc_type = str(flat.get("pc_type", "lu"))
-    shape = op.dof_shape
-    if ksp == "preonly":
+    if ksp == "preonly" and not padding:
+        op = P2SimplexDPPOperator(mesh, params, device=dev)
+        shape = op.dof_shape
         if pc_type not in ("lu", "cholesky"):
             raise ValueError(f"P2 simplex preonly supports pc_type=lu, got {pc_type!r}")
         lu = splu(assemble_p2_monolithic(mesh, params).tocsc())
@@ -759,19 +760,172 @@ def _build_simplex_p2_linear_solver(
             return x[0], x[1], 1, 0.0
 
         return solve_direct
+    return _parts_solver(_linear_parts(W, params, frozen_sp, tuple(padding)))
+
+
+class LinearParts(NamedTuple):
+    """A linear solve taken apart for blocks of the grid (the sharded entry,
+    ``parallel/sharding.py``, and the padded builders):
+
+    - ``kind``: ``preonly``, ``gmres``, ``cg``, or ``whole`` (``apply`` is
+      the cached single-device solve ``(g1, g2) -> (z1, z2, its, rnorm)``,
+      run on the gathered boundary data);
+    - ``op``: the operator on the padded grid; ``boundary`` its boundary
+      rows (the BC lift's ``x0``);
+    - ``stencil``: Q1: the matvec and the lift are K1's, and the Krylov
+      solve is on the Newton-step system from the BC lift; else (Qp, P2) the
+      gathered operator's, on ``A x = b`` from ``x0``: each as its
+      single-device route;
+    - ``apply``: the direct solve (preonly) or the preconditioner on the
+      gathered, padded stacked vector; None is the identity;
+    - ``kw``: the Krylov settings.
+    """
+
+    kind: str
+    op: object
+    boundary: Optional[torch.Tensor]
+    stencil: bool
+    apply: Optional[Callable]
+    kw: Dict[str, float]
+
+
+def _cropped(fn: Optional[Callable], shape: Tuple[int, ...], padding: Tuple[int, ...]) -> Optional[Callable]:
+    """``fn`` on the unpadded stacked grid, applied to a padded one: the
+    phantoms cropped away before and zero after."""
+    if fn is None or not any(padding):
+        return fn
+    crop = (slice(None),) + tuple(slice(0, n) for n in shape)
+
+    def padded(r: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros_like(r)
+        out[crop] = fn(r[crop].contiguous())
+        return out
+
+    return padded
+
+
+@lru_cache(maxsize=64)
+def _linear_parts(
+    W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple, padding: Tuple[int, ...] = ()
+) -> LinearParts:
+    """The parts of the linear solve of ``(W, params, options)`` on the grid
+    padded by ``padding``: the Q1 preconditioners and direct solves are the
+    unpadded single-device ones (``_monolithic_pc``, ``_monolithic_direct``:
+    ILU, fieldsplit, K2/K3, ...) on the cropped vector; the degree-p ones
+    are built padded, as in the JAX package."""
+    flat = dict(frozen_sp)
+    padding = tuple(padding)
+    degree = W.spaces[0].degree
+    kw = dict(
+        rtol=float(flat.get("ksp_rtol", 1e-5)),
+        atol=float(flat.get("ksp_atol", 1e-50)),
+        max_it=int(flat.get("ksp_max_it", 10000)),
+        restart=int(flat.get("ksp_gmres_restart", 30)),
+    )
+    if degree == 1:
+        if str(flat.get("pc_type", "")) == "ilu" and str(flat.get("pc_factor_mat_ordering_type", "natural")) == "rcm":
+            if any(padding):
+                raise ValueError(
+                    "pc_factor_mat_ordering_type=rcm is a dedicated parity path; not available under sharding padding"
+                )
+            return LinearParts("whole", None, None, False, _build_linear_solver(W, params, frozen_sp), kw)
+        op = DPPOperator(W, params, padding)
+        base = DPPOperator(W, params)
+        shape = W.mesh.node_shape
+        ksp = str(flat.get("ksp_type", "gmres"))
+        if ksp == "preonly":
+            if str(flat.get("pc_type", "lu")) in ("lu", "cholesky"):
+                if str(flat.get("pc_factor_mat_solver_type", "")) == "fastdiag_mixed" and not W.mesh.is_tensor_product:
+                    raise ValueError("fastdiag_mixed needs quad/hex cells")
+                direct = _monolithic_direct(base)
+
+                def fn(b: torch.Tensor) -> torch.Tensor:
+                    return torch.stack(direct(b[0], b[1]))
+
+            else:
+                fn = _monolithic_pc(base, flat)
+            return LinearParts("preonly", op, op._mask_arrays[0], True, _cropped(fn, shape, padding), kw)
+        if ksp not in ("gmres", "cg"):
+            raise ValueError(f"Unsupported ksp_type: {ksp!r}")
+        pc = _cropped(_monolithic_pc(base, flat), shape, padding)
+        return LinearParts(ksp, op, op._mask_arrays[0], True, pc, kw)
+    mesh, dev = W.mesh, W.device
+    ksp = str(flat.get("ksp_type", "preonly"))
+    pc_type = str(flat.get("pc_type", "lu"))
+    if mesh.is_tensor_product:
+        op = TensorDPPOperator(mesh, params, degree, padding, device=dev)
+        if ksp == "preonly":
+            if pc_type != "lu":
+                raise ValueError(f"degree-{degree} preonly supports pc_type=lu only")
+            direct = TensorFastDiagDPP(mesh, params, degree, padding, device=dev)
+            return LinearParts("preonly", op, op._bdry, False, lambda b: torch.stack(direct.solve(b[0], b[1])), kw)
+        if ksp != "gmres":
+            raise ValueError(f"degree-{degree} spaces support preonly/gmres, got {ksp!r}")
+        return LinearParts("gmres", op, op._bdry, False, _tensor_pc(op, params, pc_type), kw)
+    op = P2SimplexDPPOperator(mesh, params, padding, device=dev)
+    if ksp == "preonly":
+        raise NotImplementedError(
+            "P2 simplex preonly+lu is a host sparse-direct path (scipy splu) with no distribution; "
+            "sharded P2 simplex solves support ksp_type=gmres with pc_type none/jacobi"
+        )
     if ksp != "gmres":
         raise ValueError(f"P2 simplex spaces support preonly/gmres, got {ksp!r}")
-    if pc_type in ("none", ""):
-        pc = None
-    elif pc_type == "jacobi":
-        dstack = op.diagonal_stacked()
+    return LinearParts("gmres", op, op._bdry, False, _p2_pc(op, pc_type), kw)
 
-        def pc(r: torch.Tensor) -> torch.Tensor:
-            return r / dstack
 
+def _run_parts(
+    parts: LinearParts,
+    g: torch.Tensor,
+    bdry: torch.Tensor,
+    mv: Callable,
+    lift: Callable,
+    gather: Callable,
+    cut: Callable,
+    allreduce: Optional[Callable],
+) -> Tuple[torch.Tensor, int, float]:
+    """Solve ``parts`` on a block: ``g`` the block's stacked boundary data,
+    ``bdry`` its boundary rows, ``mv`` / ``lift`` the operator and the lift
+    on blocks, ``gather`` / ``cut`` a block to the global vector and back,
+    ``allreduce`` the sum over the blocks' ranks (None: one block, the whole
+    grid). Returns the block of the solution, the iterations and the
+    residual norm, the last two equal on every rank."""
+    b = lift(g)
+    if parts.kind == "preonly":
+        # preonly reports 1 iteration and residual 0.0 (PETSc semantics)
+        return (b if parts.apply is None else cut(parts.apply(gather(b)))), 1, 0.0
+    pc = None if parts.apply is None else (lambda r: cut(parts.apply(gather(r))))
+    x0 = torch.where(bdry, g, 0.0)
+    kw = parts.kw
+    if not parts.stencil:
+        res = gmres(mv, b, x0=x0, M_inv=pc, allreduce=allreduce, **kw)
+        return res.x, res.iterations, res.residual_norm
+    r = b - mv(x0)
+    if parts.kind == "cg":
+        d, its, rnorm = cg(mv, r, rtol=kw["rtol"], atol=kw["atol"], max_it=kw["max_it"], M_inv=pc, allreduce=allreduce)
     else:
-        raise ValueError(f"Unsupported pc_type {pc_type!r} for P2 simplex (none/jacobi/preonly+lu)")
-    return _lifted_gmres(op, pc, flat)
+        res = gmres(mv, r, M_inv=pc, allreduce=allreduce, **kw)
+        d, its, rnorm = res.x, res.iterations, res.residual_norm
+    return x0 + d, its, rnorm
+
+
+def _parts_solver(parts: LinearParts) -> Callable:
+    """:func:`_run_parts` on one device over the whole (padded) grid:
+    ``(g1, g2) -> (z1, z2, its, rnorm)`` (the operator's own matvec and
+    lift; K1's halo form for padded Q1). The degree-p GMRES and direct
+    solves are this with no padding."""
+    mv = parts.op.stacked_matvec()
+
+    def lift(g: torch.Tensor) -> torch.Tensor:
+        return torch.stack(parts.op.lifted_rhs(g[0], g[1]))
+
+    def same(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def solve(g1: torch.Tensor, g2: torch.Tensor):
+        z, its, rnorm = _run_parts(parts, torch.stack([g1, g2]), parts.boundary, mv, lift, same, same, None)
+        return z[0], z[1], its, rnorm
+
+    return solve
 
 
 def _degree_solver(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple) -> Callable:

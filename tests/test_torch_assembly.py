@@ -17,6 +17,7 @@ from perphil_tpu.ops.pallas_kernels import fused_dpp_apply as jax_fused_dpp_appl
 from perphil_tpu_torch.interop import from_numpy_state
 from perphil_tpu_torch.ops import _cuda
 from perphil_tpu_torch.ops.assembly import DPPOperator, _masks, bc_values_per_field, dpp_stencils
+from perphil_tpu_torch.parallel.halo import loopback_apply
 from perphil_tpu_torch.ops.fused_apply import (
     box_boundary,
     fused_dpp_apply,
@@ -90,11 +91,17 @@ def test_bc_values_per_field_match(element, cells):
     assert not zero.any() and zero.dtype == torch.float64
 
 
-@pytest.mark.parametrize("element,cells", [("quad", (13, 9)), ("hex", (7, 6, 5))], ids=["2d", "3d"])
-def test_k1_twin_matches_pallas_interpret_f32(element, cells):
+@pytest.mark.parametrize(
+    "element,cells,blocks",
+    [("quad", (13, 9), None), ("hex", (7, 6, 5), None), ("quad", (15, 11), (4, 2)), ("hex", (7, 6, 5), (4,))],
+    ids=["2d", "3d", "2d-halo", "3d-halo-padded"],
+)
+def test_k1_twin_matches_pallas_interpret_f32(element, cells, blocks):
     """K1's twin in matvec mode vs the Pallas kernel on interior-masked f32
     input plus identity boundary rows. The combined stencil sums in another
-    order, so the tolerance is f32-level (rtol 1e-5)."""
+    order, so the tolerance is f32-level (rtol 1e-5). With ``blocks``, K1's
+    halo twin over loopback blocks of the (phantom-padded) grid, which also
+    equals the whole-grid twin bit for bit."""
     mesh, (S1, S2, C) = _stencils(element, cells)
     rng = np.random.default_rng(3)
     z1, z2 = (rng.standard_normal(mesh.node_shape).astype(np.float32) for _ in range(2))
@@ -106,6 +113,14 @@ def test_k1_twin_matches_pallas_interpret_f32(element, cells):
     )
     ref = [np.where(bdry, z, np.asarray(y)) for z, y in ((z1, y1), (z2, y2))]
     out = fused_dpp_apply_plain(torch.as_tensor(z1), torch.as_tensor(z2), S1, S2, C, mode="matvec")
+    if blocks is not None:
+        shape = mesh.node_shape
+        pad = [(-n) % b for n, b in zip(shape, blocks)] + [0] * (len(shape) - len(blocks))
+        zp = np.pad(np.stack([z1, z2]), [(0, 0)] + [(0, q) for q in pad])
+        crop = (slice(None),) + tuple(slice(0, n) for n in shape)
+        halo = loopback_apply(torch.as_tensor(zp), (S1, S2, C), blocks, "matvec", n_phys=shape)[crop]
+        assert torch.equal(halo, torch.stack(out))
+        out = tuple(halo)
     for a, b in zip(out, ref):
         assert a.dtype == torch.float32
         assert np.abs(a.numpy() - b).max() <= 1e-5 * (np.abs(b).max() + 1.0)
@@ -162,6 +177,14 @@ def test_box_boundary_and_weights():
 
 
 def test_padding_is_not_ported():
+    """Phantom padding is ported (the sharded path's): a padded operator
+    works on the padded grid, a bad padding tuple is refused as the JAX
+    package refuses it (the parity with it: tests/test_torch_halo.py)."""
     state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        DPPOperator(state.W, state.params, padding=(1, 0))
+    op = DPPOperator(state.W, state.params, padding=(1, 0))
+    assert op.grid_shape == (6, 5) and op.padding == (1, 0)
+    assert DPPOperator(state.W, state.params).padding == (0, 0)
+    with pytest.raises(ValueError, match="Bad padding"):
+        DPPOperator(state.W, state.params, padding=(1, 0, 0))
+    with pytest.raises(ValueError, match="Bad padding"):
+        DPPOperator(state.W, state.params, padding=(-1, 0))

@@ -39,6 +39,7 @@ from perphil_tpu_torch.ops.fused_gmres import (
 from perphil_tpu_torch.ops.fused_gs import KERNEL as FUSED_GS_KERNEL, FusedGSSolver
 from perphil_tpu_torch.ops.fused_ngs import KERNEL as NGS_KERNEL, FusedNGSSolver
 from perphil_tpu_torch.ops.ilu import GS_KERNEL, GaussSeidelSweeper, StructuredILU0, ilu_plan
+from perphil_tpu_torch.parallel.halo import loopback_apply
 from perphil_tpu_torch.ops.ordering import parity_system
 from perphil_tpu_torch.solvers import solve_dpp_nonlinear
 from perphil_tpu_torch.utils.manufactured_solutions import exact_expressions
@@ -92,24 +93,49 @@ def test_k1_matches_twin(cuda, element, cells, dtype, tol, mode):
 
 # node grids that are no multiple of the 16 x 16 tile, the first and last
 # z chunk short, and the largest the main path gives K1 (129^3)
-K1_TILES = [  # element, cells (node grid: each + 1, reversed)
-    ("quad", (2, 2)),  # 3 x 3
-    ("triangle", (6, 4)),  # 5 x 7
-    ("hex", (32, 44, 66)),  # 67 x 45 x 33
-    ("tet", (32, 44, 66)),
-    ("hex", (128, 128, 128)),  # 129^3
+K1_TILES = [  # element, cells (node grid: each + 1, reversed), halo blocks
+    ("quad", (2, 2), None),  # 3 x 3
+    ("triangle", (6, 4), None),  # 5 x 7
+    ("hex", (32, 44, 66), None),  # 67 x 45 x 33
+    ("tet", (32, 44, 66), None),
+    ("hex", (128, 128, 128), None),  # 129^3
+    # K1's halo form over loopback blocks of the phantom-padded grid
+    ("triangle", (6, 4), (2, 2)),
+    ("hex", (32, 44, 66), (4, 2)),
+    ("hex", (128, 128, 128), (8,)),
 ]
 
 
+def _k1_tile_id(element, cells, blocks):
+    return f"{element}{'x'.join(map(str, cells))}" + (f"-halo{'x'.join(map(str, blocks))}" if blocks else "")
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 2e-6)], ids=["f64", "f32"])
-@pytest.mark.parametrize("element,cells", K1_TILES, ids=[f"{e}{'x'.join(map(str, c))}" for e, c in K1_TILES])
+@pytest.mark.parametrize("element,cells,blocks", K1_TILES, ids=[_k1_tile_id(*c) for c in K1_TILES])
 @pytest.mark.parametrize("mode", ["matvec", "lift"])
-def test_k1_tiles_match_twin(cuda, element, cells, dtype, tol, mode):
+def test_k1_tiles_match_twin(cuda, element, cells, blocks, dtype, tol, mode):
     """The tiled kernel on ragged tiles and chunks, in both entries: the
-    stacked one equals the (z1, z2) one bit for bit, one launch each."""
+    stacked one equals the (z1, z2) one bit for bit, one launch each. With
+    ``blocks``: K1's halo form, one launch a block, equals K1 bit for bit on
+    the physical grid and its halo twin within ``tol``."""
     state = _state(element, cells, cuda, seed=10)
     S = dpp_stencils(state.mesh, state.params)
     z = torch.stack(state.grids).to(dtype)
+    if blocks is not None:
+        shape = tuple(z.shape[1:])
+        pad = [(-n) % b for n, b in zip(shape, blocks)] + [0] * (len(shape) - len(blocks))
+        zp = torch.nn.functional.pad(z, [v for q in reversed(pad) for v in (0, q)])
+        crop = (slice(None),) + tuple(slice(0, n) for n in shape)
+        before = _cuda.KERNEL_LAUNCHES["fused_dpp_apply_halo"]
+        y = loopback_apply(zp, S, blocks, mode, n_phys=shape)
+        torch.cuda.synchronize()
+        assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply_halo"] == before + int(np.prod(blocks))
+        want = zp.clone()  # phantom rows: the identity
+        want[crop] = fused_dpp_apply_stacked(z, *S, mode=mode)
+        assert torch.equal(y, want)
+        plain = loopback_apply(zp.cpu(), S, blocks, mode, n_phys=shape)
+        assert _rel(y.cpu(), plain) <= tol
+        return
     before = _cuda.KERNEL_LAUNCHES["fused_dpp_apply"]
     y1, y2 = fused_dpp_apply(z[0], z[1], *S, mode=mode)
     y = fused_dpp_apply_stacked(z, *S, mode=mode)

@@ -188,6 +188,7 @@ def _default_device_constructors():
     from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
     from perphil_tpu_torch.ops.simplexfem import P2SimplexDPPOperator
     from perphil_tpu_torch.ops.tensorfem import TensorDPPOperator, TensorFastDiagDPP
+    from perphil_tpu_torch.parallel import device_mesh, global_device_mesh
 
     mesh, p = tmesh.create_mesh(4, 3), TParams()
     zero = np.zeros(mesh.node_shape)
@@ -206,6 +207,9 @@ def _default_device_constructors():
         "TensorFastDiagDPP": lambda **kw: TensorFastDiagDPP(mesh, p, 2, **kw)._mode_data[0],
         "P2SimplexDPPOperator": lambda **kw: P2SimplexDPPOperator(
             tmesh.create_mesh(4, 3, quadrilateral=False), p, **kw)._bdry,
+        # a mesh of one rank (no process group): its ranks' tensors' device
+        "device_mesh": lambda **kw: device_mesh([1], **kw),
+        "global_device_mesh": lambda **kw: global_device_mesh([1, 1], ("y", "x"), **kw),
     }
 
 
@@ -213,7 +217,7 @@ DEFAULT_DEVICE_NAMES = [
     "create_function_spaces", "FunctionSpace", "_evaluate", "from_numpy_state", "StructuredILU0",
     "StructuredILU0.for_monolithic", "MixedPrecisionDPPDirect", "FastDiagFieldSolver",
     "LumpedDPPPreconditioner", "FastDiagDPPSolver", "TensorDPPOperator", "TensorFastDiagDPP",
-    "P2SimplexDPPOperator",
+    "P2SimplexDPPOperator", "device_mesh", "global_device_mesh",
 ]
 
 

@@ -147,5 +147,7 @@ def test_p2_option_paths():
         solve_dpp(W, PARAMS, [], solver_parameters={"ksp_type": "preonly", "pc_type": "jacobi"})
     with pytest.raises(ValueError, match="simplex meshes"):
         sf.P2SimplexDPPOperator(create_mesh(3, 3), PARAMS, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        sf.P2SimplexDPPOperator(mesh, PARAMS, padding=(1, 0), device="cpu")
+    # phantom padding is ported: the lattice grows, a bad tuple is refused
+    assert sf.P2SimplexDPPOperator(mesh, PARAMS, padding=(1, 0), device="cpu").dof_shape == (8, 7)
+    with pytest.raises(ValueError, match="one entry per axis"):
+        sf.P2SimplexDPPOperator(mesh, PARAMS, padding=(1, 0, 0), device="cpu")

@@ -238,7 +238,7 @@ def test_q2_hex_direct_matches_jax():
 def test_degree_p_option_paths():
     """ILU is refused, ksponly runs the degree-p linear solve (iteration 1,
     the true residual), the Picard solves refuse degree p, and the
-    sharding's padding is slice 9's."""
+    sharding's padding grows the lattice (a bad tuple is refused)."""
     mesh = create_mesh(4, 4)
     W = mixed_space(FunctionSpace(mesh, degree=2, device="cpu"))
     _, p1, _, p2 = exact_expressions(mesh, PARAMS)
@@ -259,5 +259,6 @@ def test_degree_p_option_paths():
         solve_dpp_nonlinear(W, PARAMS, bcs, solver_parameters=KSP_PREONLY_PARAMS)
     with pytest.raises(ValueError, match="ksponly"):
         solve_dpp_nonlinear(W, PARAMS, bcs, solver_parameters=PICARD_LU_SOLVER_PARAMS)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tf.TensorDPPOperator(mesh, PARAMS, 2, padding=(1, 0), device="cpu")
+    assert tf.TensorDPPOperator(mesh, PARAMS, 2, padding=(1, 0), device="cpu").dof_shape == (10, 9)
+    with pytest.raises(ValueError, match="nonneg ints"):
+        tf.TensorDPPOperator(mesh, PARAMS, 2, padding=(1,), device="cpu")
