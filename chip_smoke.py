@@ -151,15 +151,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      down the backend waterfall fails the phase. The kernel line's launches
      add the profiling tables' to the main paths'.
  14. drives the multi-device path (``multidevice_path``) — K1's halo form
-     (``fused_dpp_apply_halo``) over a world of one rank's block (edge
-     ghosts), 2, 4 and 8 loopback slabs and (2, 2) / (4, 2) pencils of 128^3 hex (phantom-padded to divisibility) and 2D
-     N=1023, matvec and lift, f64, bit for bit with K1 on the whole grid,
-     and with no ghost K1's bits; its time over 8 slabs beside K1's, its
-     twin, its bound and ``conv3d``; then, counted, on a world of one NCCL
+     (``fused_dpp_apply_halo_planes``: the owned block and the planes its
+     neighbours sent, read where they lie) over a world of one rank's block
+     (edge ghosts), 2, 4 and 8 loopback slabs and (2, 2) / (4, 2) pencils of
+     128^3 hex (phantom-padded to divisibility) and 2D N=1023, matvec and
+     lift, f64, bit for bit with K1 on the whole grid, and with no ghost
+     K1's bits in both entries; its times in turns with the first halo form
+     (the probe ``csrc/profile/dpp_apply_halo_box.cu``, built beside the
+     package): one 17-plane slab, the 8 slabs, the padded 136 x 129 x 129
+     box and the whole 129^3 box beside K1, 2D N=1023 in 8 slabs, each
+     beside its bound (the owned block in and out, the received planes in),
+     its twin and ``conv3d``; then, counted, on a world of one NCCL
      rank (``init_process_group("nccl")`` on a free port), the six paths of
      the JAX multichip dry run (``tools/dryrun.py``) held to the
      single-device solves on the card and to ``MULTICHIP_r05.json``'s counts
-     (38/6/4/1/49/4), the halo matvec to K1 on the gathered vector (0), and
+     (38/6/4/1/49/4), the halo matvec to K1 on the gathered vector (0), one
+     ``stacked_halo_apply`` at 64^3 and 128^3 in turns with the first
+     form's apply (the block extended whole, then the probe; device time
+     and host wall), and
      ``sharded_solve_dpp`` at full width: 64^3 hex ``TPU_DIRECT_PARAMS``
      (f64 relative residual < 1e-10) and 2D N=64 ``PLAIN_GMRES_PARAMS`` on
      the distributed host loop (exactly 3307), each wall beside the
@@ -176,6 +185,7 @@ device the script exits non-zero at once.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -1610,12 +1620,65 @@ def multichip_counts():
     return {label: int(its) for label, its in re.findall(r"dryrun_multichip\[(.*?)\]: its=(\d+)", tail)}
 
 
-def multidevice_path(dev, smi, randn, results, t_start):
+def in_turns(runs: dict, order, calls: int = 20) -> dict:
+    """Each run's device time (``queued_ms``) in the given order of turns:
+    name -> its times, in order."""
+    times = {}
+    for name in order:
+        times.setdefault(name, []).append(queued_ms(runs[name], calls=calls))
+    return times
+
+
+def turns_text(order, times) -> str:
+    """``in_turns``'s times in their order: "name t / name t / ..."."""
+    seen = collections.Counter()
+    parts = []
+    for name in order:
+        parts.append(f"{name} {times[name][seen[name]]:.4f}")
+        seen[name] += 1
+    return " / ".join(parts)
+
+
+def halo_bytes(owned: int, planes, itemsize: int = 8) -> int:
+    """The halo form's bytes: the owned block of both fields in and out,
+    each received plane in once."""
+    return itemsize * (2 * 2 * owned + sum(g.numel() for pair in planes for g in pair if g is not None))
+
+
+def first_form_apply(op, dmesh, probe, mode: str = "matvec"):
+    """The sharded apply as it stood before the halo form's redesign, for
+    timing beside today's: the block extended whole along each mesh axis
+    (its edge planes copied out, zero planes where no neighbour sends,
+    ``torch.cat``), then the first halo form (the probe) on the box. On a
+    world of one rank no plane is sent."""
+    import torch
+
+    from perphil_tpu_torch.ops.fused_apply import halo_probe_apply
+    from perphil_tpu_torch.parallel.halo import block_geometry
+
+    S = op._combined_stencils
+    ghosts, offsets, n_phys = block_geometry(dmesh.shape, dmesh.coords, dmesh.local_shape(op.grid_shape),
+                                             op.mesh.node_shape)
+    check(dmesh.size == 1, "the first form's apply is rebuilt for a world of one rank")
+
+    def apply(x):
+        for k in range(len(dmesh.shape)):
+            n = x.shape[1 + k]
+            lo, hi = x.narrow(1 + k, 0, 1).contiguous(), x.narrow(1 + k, n - 1, 1).contiguous()
+            x = torch.cat([torch.zeros_like(hi), x, torch.zeros_like(lo)], dim=1 + k)
+        return halo_probe_apply(probe, x, S, mode, ghosts, offsets, n_phys)
+
+    return apply
+
+
+def multidevice_path(dev, smi, randn, results, t_start, probe):
     """Phase 14: K1's halo form over loopback blocks against K1 on the whole
-    grid; then, counted, the sharded solves on a world of one NCCL rank: the
-    six dry-run paths, 64^3 hex TPU_DIRECT_PARAMS and 2D N=64 plain GMRES at
-    full width; the scaling harness in a world of its own. Returns the
-    launches of the counted run."""
+    grid, and its times in turns with the first form (``probe``:
+    ``fused_apply.halo_probe_library()``); then, counted, the sharded
+    solves on a world of one NCCL rank: the six dry-run paths, 64^3 hex
+    TPU_DIRECT_PARAMS and 2D N=64 plain GMRES at full width; one sharded
+    apply at 64^3 and 128^3 beside the first form's; the scaling harness in
+    a world of its own. Returns the launches of the counted run."""
     import socket
 
     import numpy as np
@@ -1629,24 +1692,32 @@ def multidevice_path(dev, smi, randn, results, t_start):
     from perphil_tpu_torch.ops.fused_apply import (
         box_boundary,
         fused_dpp_apply_halo,
-        fused_dpp_apply_halo_plain,
+        fused_dpp_apply_halo_planes,
+        fused_dpp_apply_halo_planes_plain,
         fused_dpp_apply_plain,
         fused_dpp_apply_stacked,
+        halo_plan,
+        halo_probe_apply,
+        halo_wave,
     )
     from perphil_tpu_torch.models.dpp import DPPParameters
     from perphil_tpu_torch.parallel.halo import (
         benchmark_vs_gathered,
         block_geometry,
+        halo_box,
         join_blocks,
         loopback_apply,
-        loopback_extend,
+        loopback_planes,
         split_blocks,
+        stacked_halo_apply,
     )
     from perphil_tpu_torch.parallel.sharding import device_mesh, sharded_solve_dpp
     from perphil_tpu_torch.solvers import solve_dpp
     from perphil_tpu_torch.tools.dryrun import check_paths, dryrun_cases, path_record, solve_case
 
     t_phase = time.perf_counter()
+    wave = halo_wave(dev, torch.float64, 3)
+    print(f"K1 halo form: the card holds {wave} of its blocks at once (occupancy x SMs), the plans' wave")
     # -- (a) K1's halo form over k loopback blocks, bit for bit with K1 on
     # the whole grid; 129^3 nodes are phantom-padded to divisibility
     for element, n in (("hex", 128), ("quad", 1023)):
@@ -1667,40 +1738,83 @@ def multidevice_path(dev, smi, randn, results, t_start):
                                               "equal to K1 on the whole grid bit for bit")
             print(f"K1 halo form {element} N={n} on {len(shape)}D blocks {mesh_shape} (padded {tuple(zp.shape[1:])}): "
                   "matvec and lift bit for bit with K1 on the whole grid")
-        # with no ghost, offset or padding the halo form is K1
+        # with no ghost, offset or padding the halo form is K1, in both
+        # entries, and so is the first form (the probe)
         for mode in ("matvec", "lift"):
-            check(torch.equal(fused_dpp_apply_halo(z, *S, mode=mode), fused_dpp_apply_stacked(z, *S, mode=mode)),
-                  f"K1 halo form {element} N={n} {mode} with no ghost: K1's bits")
-        # the kernel line's shape: 128^3 in 8 z-slabs, one launch a slab,
-        # beside K1 on the whole grid; 2D N=1023 in 8 slabs beside K1
+            k1 = fused_dpp_apply_stacked(z, *S, mode=mode)
+            check(torch.equal(fused_dpp_apply_halo(z, *S, mode=mode), k1)
+                  and torch.equal(fused_dpp_apply_halo_planes(z[0], z[1], (), *S, mode=mode), k1)
+                  and torch.equal(halo_probe_apply(probe, z, S, mode), k1),
+                  f"K1 halo form {element} N={n} {mode} with no ghost: K1's bits (both entries, the probe)")
+        # the times in turns with the first form (probe, this, this, probe;
+        # f64 matvecs, launches queued): 8 slabs of the padded grid, one
+        # launch a slab (the kernel line's shape); in 3D also one slab
+        # alone, the padded box and the whole box with no ghost, beside K1
         k = 8
         pad = [(-shape[0]) % k] + [0] * (len(shape) - 1)
         zp = F.pad(z, [v for p in reversed(pad) for v in (0, p)])
-        blocks = loopback_extend(split_blocks(zp, (k,)), (k,))
+        split = split_blocks(zp, (k,))
+        planes = loopback_planes(split, (k,))
+        boxes = {c: halo_box(b, planes[c]) for c, b in split.items()}
         local = [zp.shape[1] // k] + list(shape[1:])
-        geoms = {c: block_geometry((k,), c, local, shape) for c in blocks}
+        geoms = {c: block_geometry((k,), c, local, shape) for c in split}
 
-        def halo_all(fn=fused_dpp_apply_halo):
-            return {c: fn(b, *S, "matvec", *geoms[c]) for c, b in blocks.items()}
+        def slabs(cs, first=False, plain=False):
+            if first:
+                return {c: halo_probe_apply(probe, boxes[c], S, "matvec", *geoms[c]) for c in cs}
+            fn = fused_dpp_apply_halo_planes_plain if plain else fused_dpp_apply_halo_planes
+            return {c: fn(split[c][0], split[c][1], planes[c], *S, "matvec", *geoms[c][1:]) for c in cs}
 
-        y = join_blocks(halo_all(), (k,))
-        yp = join_blocks(halo_all(fused_dpp_apply_halo_plain), (k,))
+        every = list(split)
+        y = join_blocks(slabs(every), (k,))
+        yp = join_blocks(slabs(every, plain=True), (k,))
         err = float((y - yp).abs().max())
         check(err <= 1e-13 * float(yp.abs().max()), f"K1 halo form {element} N={n}: against its twin")
-        ms = queued_ms(halo_all, calls=20)
-        k1_ms = queued_ms(lambda: fused_dpp_apply_stacked(z, *S), calls=20)
-        nbytes = 8 * sum(b.numel() + b[:, 1:-1].numel() for b in blocks.values())  # extended box in, owned out
-        flops = matvec_flops(W.mesh, params)
+        check(torch.equal(y, join_blocks(slabs(every, first=True), (k,))), f"K1 halo form {element} N={n}: "
+              "the first form's bits")
+        owned = int(np.prod(local))
+        per_row = matvec_flops(W.mesh, params) // W.mesh.num_interior_vertices
+
+        def plan(box, geom):
+            return halo_plan(tuple(box.shape[1:]), *geom, wave=wave)
+
+        shapes = {f"{k} slabs": (lambda: slabs(every), lambda: slabs(every, first=True),
+                                 halo_bytes(owned * k, [p for c in every for p in planes[c]]),
+                                 matvec_flops(W.mesh, params), [plan(boxes[c], geoms[c]) for c in every])}
+        if element == "hex":
+            mid = (3,)
+            mid_plan = plan(boxes[mid], geoms[mid])
+            shapes["one slab"] = (lambda: slabs([mid]), lambda: slabs([mid], first=True),
+                                  halo_bytes(owned, planes[mid]),
+                                  per_row * int(np.prod([hi - lo for lo, hi in zip(mid_plan.c0, mid_plan.c1)])),
+                                  [mid_plan])
+            shapes["padded box"] = (
+                lambda: fused_dpp_apply_halo_planes(zp[0], zp[1], (), *S, n_phys=shape),
+                lambda: halo_probe_apply(probe, zp, S, "matvec", None, None, shape),
+                halo_bytes(zp[0].numel(), []), matvec_flops(W.mesh, params), [plan(zp, (None, None, shape))])
+            shapes["whole box"] = (lambda: fused_dpp_apply_halo(z, *S), lambda: halo_probe_apply(probe, z, S),
+                                   halo_bytes(z[0].numel(), []), matvec_flops(W.mesh, params),
+                                   [plan(z, (None, None, None))])
         tag = f"{element}{n}"
+        for label, (this, first, nbytes, flops, plans) in shapes.items():
+            runs = {"first": first, "this": this, "K1": lambda: fused_dpp_apply_stacked(z, *S)}
+            order = ("first", "this", "K1", "K1", "this", "first") if label == "whole box" else \
+                ("first", "this", "this", "first")
+            t = in_turns(runs, order)
+            b = bound(nbytes, flops)
+            blocks = sorted({(p.blocks, p.chunk) for p in plans})
+            results[f"fused_dpp_apply_halo@{tag} {label}"] = dict(ms=statistics.mean(t["this"]), turns=t, bound=b,
+                                                                 blocks=blocks)
+            print(f"K1 halo form {element} N={n} {label} ({len(plans)} launch(es); blocks (z, y, x) and chunk "
+                  f"{blocks}): in turns {turns_text(order, t)} ms; bound {b[0]:.6f} ms ({b[1]}, {nbytes} B) "
+                  f"(CUDA events, launches queued) on {smi}")
+        slab8 = results[f"fused_dpp_apply_halo@{tag} {k} slabs"]
         results[f"fused_dpp_apply_halo@{tag}"] = dict(
-            max_abs_err=err, ms=ms,
-            plain_ms=time_ms(lambda: halo_all(fused_dpp_apply_halo_plain), repeats=5),
-            bound=bound(nbytes, flops), k1_ms=k1_ms,
+            max_abs_err=err, ms=slab8["ms"], bound=slab8["bound"],
+            plain_ms=time_ms(lambda: slabs(every, plain=True), repeats=5),
+            k1_ms=queued_ms(lambda: fused_dpp_apply_stacked(z, *S), calls=20),
             shape=f"{element} {'x'.join(map(str, zp.shape[1:]))} in {k} slabs, {k} launches, f64 matvec",
         )
-        print(f"K1 halo form {element} N={n}, {k} slabs ({k} launches): {ms:.4f} ms beside K1 on the whole grid "
-              f"{k1_ms:.4f} ms, bound {results[f'fused_dpp_apply_halo@{tag}']['bound'][0]:.6f} ms (bytes), "
-              f"max abs diff vs twin {err:.3e} (CUDA events) on {smi}")
         if element == "hex":
             # the library yardstick: one conv3d of the interior-masked
             # stacked fields with the stencil weight, as for K1
@@ -1755,6 +1869,39 @@ def multidevice_path(dev, smi, randn, results, t_start):
         check(r["its"] == published[r["label"]], f"{r['label']}: the JAX dry run's count")
     print(f"halo matvec against K1 on the gathered vector: diff {records[-1]['max_abs_diff']:.2e}, "
           f"halo {records[-1]['halo_s'] * 1e3:.4f} ms, gathered {records[-1]['gathered_s'] * 1e3:.4f} ms a call")
+    # one sharded apply (stacked_halo_apply) at 64^3 and 128^3 beside the
+    # first form's (the block extended whole, then the probe): host wall of
+    # a call and a synchronise (median of 50), device time (launches queued)
+    for n in (64, 128):
+        Wn, pn = problem("hex", n, dev)[:2]
+        op = DPPOperator(Wn, pn)
+        dm = device_mesh([1, 1], axis_names=("z", "y"))
+        x = torch.stack([randn(Wn.mesh.node_shape), randn(Wn.mesh.node_shape)])
+        runs = {"first": lambda: first_form_apply(op, dm, probe)(x), "this": lambda: stacked_halo_apply(op, dm)(x)}
+        check(torch.equal(runs["this"](), runs["first"]()) and torch.equal(runs["this"](), op.stacked_matvec()(x)),
+              f"sharded apply hex {n}^3: the first form's bits and K1's")
+        apply_first, apply_this = first_form_apply(op, dm, probe), stacked_halo_apply(op, dm)
+        runs = {"first": lambda: apply_first(x), "this": lambda: apply_this(x)}
+
+        def wall(fn, reps=50):
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ts)
+
+        order = ("first", "this", "this", "first")
+        t = in_turns(runs, order)
+        host = {name: [] for name in runs}
+        for name in order:
+            host[name].append(wall(runs[name]))
+        results[f"stacked_halo_apply@hex{n}"] = dict(device=t, wall=host)
+        print(f"sharded apply hex {n}^3 on a world of one NCCL rank (mesh (1, 1)): device in turns "
+              f"{turns_text(order, t)} ms (CUDA events, launches queued); host wall a call "
+              f"{turns_text(order, host)} ms (median of 50, synchronised) on {smi}")
 
     # -- (c) full width: the residual guard and the published count
     for element, n, preset, Wf, pf, bf, ref, ref_wall, sol, wall in walls:
@@ -1858,12 +2005,14 @@ def main() -> int:
     import multiprocessing
     from concurrent.futures import ThreadPoolExecutor
 
+    from perphil_tpu_torch.ops.fused_apply import halo_probe_library
     from perphil_tpu_torch.ops.fused_gs import probe_library
 
     _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS)
     gs_pending = {case: _GS_POOL.apply_async(gs_twin, (case,)) for case in GS_TWIN_CASES}
-    probe_pool = ThreadPoolExecutor(1)
+    probe_pool = ThreadPoolExecutor(2)
     gs_probe_pending = probe_pool.submit(probe_library)
+    halo_probe_pending = probe_pool.submit(halo_probe_library)
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.BUILD_INFO
@@ -1892,6 +2041,7 @@ def main() -> int:
     _GS_POOL.close()
     _GS_POOL.join()
     gs_probe = gs_probe_pending.result(timeout=900)
+    halo_probe = halo_probe_pending.result(timeout=900)
     probe_pool.shutdown()
     print(f"fused_gs's twins ({', '.join(f'{c[0]} N={c[1]} {gs_twins[c][-1]:.1f} s' for c in GS_TWIN_CASES)}, on "
           f"{GS_WORKERS} workers beside nvcc) and its probe build ready {time.perf_counter() - t0:.1f} s after the "
@@ -2618,7 +2768,7 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + count
 
     # -- 14. the multi-device path ------------------------------------------
-    for name, count in multidevice_path(dev, smi, randn, results, t_start).items():
+    for name, count in multidevice_path(dev, smi, randn, results, t_start, halo_probe).items():
         if name in KERNELS:
             launches[name] = launches.get(name, 0) + count
     print(f"[{time.perf_counter() - t_start:.1f} s] done")

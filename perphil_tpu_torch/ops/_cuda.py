@@ -51,10 +51,12 @@ _SIGNATURES = {
     # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode, stream
     "perphil_dpp_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "perphil_dpp_apply_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # z1, z2, y1, y2, weights(host, 81 doubles), nz, ny, nx, dim, mode,
-    # geom(host, 12 ints: ghosts low, ghosts high, offsets, physical extents), stream
-    "perphil_dpp_apply_halo_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "perphil_dpp_apply_halo_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # regions(host, 7 x 5 int64: the two fields' addresses, off, sz, sy), y1, y2,
+    # weights(host, 81 doubles), dim, mode, plan(host, 25 ints: ops/fused_apply.py::HaloPlan), stream
+    "perphil_dpp_apply_halo_f32": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "perphil_dpp_apply_halo_f64": [_P, _P, _P, _P, _I, _I, _P, _P],
+    # dim, f64 (returns the halo form's blocks the device holds at once, < 0: an error)
+    "perphil_dpp_apply_halo_wave": [_I, _I],
     # b, x, Sx, Sy, Sz, a11, a22, idet, a12, weights, nz, ny, nx, dim,
     # refinements, placement(host, 4 ints), stream
     "perphil_fused_direct": [_P] * 8 + [_F, _P] + [_I] * 5 + [_P, _P],
@@ -193,7 +195,9 @@ def variant_library(source: str, define: str, signatures: Dict[str, list]) -> ct
     sources, the flags and the macro, loaded with ``signatures`` (launcher
     name: argtypes) bound. Its launches are counted nowhere."""
     flags = [*NVCC_FLAGS, f"-D{define}"]
-    lib = BUILD_DIR / "variants" / f"lib{Path(source).stem}_{define.lower()}_{_digest(flags)}.so"
+    # the package's sources and this one (a probe under csrc/profile/ is not among them)
+    key = _digest(flags + [hashlib.sha256((CSRC / source).read_bytes()).hexdigest()])
+    lib = BUILD_DIR / "variants" / f"lib{Path(source).stem}_{define.lower()}_{key}.so"
     if not lib.exists():
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")

@@ -28,7 +28,7 @@ from perphil_tpu_torch.config import DeviceLike, default_dtype, resolve_device
 from perphil_tpu_torch.forms.spaces import Expr, FunctionSpace, MixedFunctionSpace, _evaluate
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_halo, fused_dpp_apply_stacked
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_halo_planes, fused_dpp_apply_stacked
 from perphil_tpu_torch.ops.stencil import apply_stencil, compile_stencils
 
 
@@ -154,14 +154,16 @@ class DPPOperator:
         dev = self.W.device
         return torch.as_tensor(bdry, device=dev), torch.as_tensor(interior, device=dev)
 
-    def _padded_apply(self, z: torch.Tensor, mode: str) -> torch.Tensor:
-        """K1's halo form on the stacked padded grid."""
-        return fused_dpp_apply_halo(z, *self._combined_stencils, mode=mode, n_phys=self.mesh.node_shape)
+    def _padded_apply(self, z1: torch.Tensor, z2: torch.Tensor, mode: str) -> torch.Tensor:
+        """K1's halo form on the two padded fields, as they are: the stacked
+        result."""
+        return fused_dpp_apply_halo_planes(z1, z2, (), *self._combined_stencils, mode=mode,
+                                           n_phys=self.mesh.node_shape)
 
     def matvec(self, z1: torch.Tensor, z2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Apply the BC-eliminated operator to grid-shaped fields (K1)."""
         if self.padded:
-            return tuple(self._padded_apply(torch.stack([z1, z2]), "matvec"))
+            return tuple(self._padded_apply(z1, z2, "matvec"))
         return fused_dpp_apply(z1, z2, *self._combined_stencils, mode="matvec")
 
     def residual(
@@ -176,7 +178,7 @@ class DPPOperator:
         """RHS of the BC-eliminated system for zero forcing (K1): interior
         rows get ``-A[interior, boundary] g``, boundary rows get ``g``."""
         if self.padded:
-            return tuple(self._padded_apply(torch.stack([g1, g2]), "lift"))
+            return tuple(self._padded_apply(g1, g2, "lift"))
         return fused_dpp_apply(g1, g2, *self._combined_stencils, mode="lift")
 
     def flat_matvec(self) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -190,7 +192,7 @@ class DPPOperator:
         """Operator on stacked fields ``(2, *node_shape)`` (K1 on the stacked
         tensor, no stack)."""
         if self.padded:
-            return lambda x: self._padded_apply(x, "matvec")
+            return lambda x: self._padded_apply(x[0], x[1], "matvec")
         S = self._combined_stencils
         return lambda x: fused_dpp_apply_stacked(x, *S, mode="matvec")
 

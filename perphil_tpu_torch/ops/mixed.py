@@ -32,7 +32,7 @@ from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
 from perphil_tpu_torch.ops.assembly import dpp_stencils, normalize_padding
 from perphil_tpu_torch.ops.direct import FastDiagDPPSolver
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_halo
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_halo_planes
 
 
 class MixedPrecisionDPPDirect(nn.Module):
@@ -62,7 +62,7 @@ class MixedPrecisionDPPDirect(nn.Module):
     def _apply(self, z1: torch.Tensor, z2: torch.Tensor, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """K1 on the node grid, its halo form on a padded one."""
         if any(self.padding):
-            y = fused_dpp_apply_halo(torch.stack([z1, z2]), *self.stencils, mode=mode, n_phys=self.mesh.node_shape)
+            y = fused_dpp_apply_halo_planes(z1, z2, (), *self.stencils, mode=mode, n_phys=self.mesh.node_shape)
             return y[0], y[1]
         return fused_dpp_apply(z1, z2, *self.stencils, mode=mode)
 

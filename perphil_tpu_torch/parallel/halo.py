@@ -2,21 +2,23 @@
 
 Counterpart of ``perphil_tpu/parallel/halo.py``. Each rank holds one block
 of the stacked fields ``(2, *grid)``; mesh axis k splits grid axis k. An
-apply extends the block by one neighbour plane on each side of every split
-axis, one axis after the other on the block already extended along the
-previous axes, so that edge and corner neighbours arrive in d hops without
-messages of their own (PETSc's VecScatter ghost update, the JAX package's
-``ppermute`` exchange). Ranks at the edge of the grid receive zeros. K1's
-halo form (``ops/fused_apply.py::fused_dpp_apply_halo``) then applies the
-stencil to the extended block and writes the owned one, taking the boundary
-from the global node index.
+apply receives one neighbour plane on each side of every split axis, one
+axis after the other: the plane a rank sends along axis k is its block's
+first or last plane along k with the rows the earlier axes' received planes
+hold at its sides, so that edge and corner neighbours arrive in d hops
+without messages of their own (PETSc's VecScatter ghost update, the JAX
+package's ``ppermute`` exchange). Only plane-sized pieces are copied, never
+the block. K1's halo form (``ops/fused_apply.py::fused_dpp_apply_halo_planes``)
+then reads the owned block and the received planes where they lie and
+writes the owned block, taking the boundary from the global node index; a
+rank at the edge of the grid receives nothing there, and the kernel reads
+zeros.
 
-The packing and unpacking of planes (tensor code) is kept apart from their
-transport: :class:`RankTransport` moves them between ranks
-(``torch.distributed`` point-to-point, batched), :func:`loopback_apply`
-moves them between the blocks of one grid inside one process, so that the
-same pack, K1 and unpack can be checked on one card. The loopback is a
-check, not a route: no solve takes it.
+The building of planes (tensor code) is kept apart from their transport:
+:class:`RankTransport` moves them between ranks (``torch.distributed``
+point-to-point, batched), :func:`loopback_planes` between the blocks of one
+grid inside one process, so that the same planes and K1 can be checked on
+one card. The loopback is a check, not a route: no solve takes it.
 
 ``COLLECTIVES`` counts what the sharded path issues: ``exchange`` (one a
 split axis an apply: a rank's two planes out and two in), ``all_reduce``
@@ -33,23 +35,44 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_halo
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_halo_planes
 
 #: Collectives issued by the sharded path since the last ``clear()``.
 COLLECTIVES: Dict[str, int] = collections.Counter()
 
 
-def pack_planes(block: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first and the last plane of ``block`` along tensor dim ``dim``,
-    contiguous: what a rank sends to its lower and its upper neighbour."""
-    n = block.shape[dim]
-    return block.narrow(dim, 0, 1).contiguous(), block.narrow(dim, n - 1, 1).contiguous()
+def send_plane(block: torch.Tensor, planes: Sequence, k: int, side: int) -> torch.Tensor:
+    """What a rank sends along grid axis ``k`` to its lower (``side`` 0) or
+    upper (1) neighbour, contiguous: the stacked ``block``'s first or last
+    plane along ``k``, with the matching rows of the planes received along
+    the earlier axes (``planes``, ``(below, above)`` each, None: zeros) at
+    its sides."""
+    idx = 0 if side == 0 else block.shape[1 + k] - 1
+    plane = block.narrow(1 + k, idx, 1)
+    for j in range(k):
+        rows = []
+        for g in planes[j]:
+            if g is None:
+                shape = list(plane.shape)
+                shape[1 + j] = 1
+                rows.append(plane.new_zeros(shape))
+            else:
+                rows.append(g.narrow(1 + k, idx, 1))
+        plane = torch.cat([rows[0], plane, rows[1]], dim=1 + j)
+    return plane.contiguous()
 
 
-def unpack_planes(block: torch.Tensor, below: torch.Tensor, above: torch.Tensor, dim: int) -> torch.Tensor:
-    """``block`` extended by the lower neighbour's last plane and the upper
-    neighbour's first plane along ``dim``."""
-    return torch.cat([below, block, above], dim=dim)
+def halo_box(block: torch.Tensor, planes: Sequence) -> torch.Tensor:
+    """The stacked ``block`` extended by its received ``planes`` (zeros
+    where none arrived), built whole: the box the whole-box twin
+    (``fused_dpp_apply_halo_plain``) reads; the kernel reads the planes
+    where they lie."""
+    for k, pair in enumerate(planes):
+        shape = list(block.shape)
+        shape[1 + k] = 1
+        below, above = (block.new_zeros(shape) if g is None else g for g in pair)
+        block = torch.cat([below, block, above], dim=1 + k)
+    return block
 
 
 def block_geometry(
@@ -69,41 +92,46 @@ class RankTransport:
     """Planes between the ranks of a device mesh: along mesh axis ``k`` a
     rank sends its last plane up and its first plane down and receives the
     lower neighbour's last plane and the upper neighbour's first, in one
-    batch of point-to-point operations. Edge ranks receive zeros."""
+    batch of point-to-point operations. A plane is built and a buffer
+    allocated only where the neighbour exists; an edge rank receives None
+    there."""
 
     def __init__(self, dmesh):
         self.dmesh = dmesh
 
-    def exchange(self, k: int, lo: torch.Tensor, hi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        prev, nxt = self.dmesh.neighbour(k, -1), self.dmesh.neighbour(k, +1)
-        below, above = torch.zeros_like(hi), torch.zeros_like(lo)
-        ops = []
-        if prev is not None:
-            ops += [dist.P2POp(dist.isend, lo, prev), dist.P2POp(dist.irecv, below, prev)]
-        if nxt is not None:
-            ops += [dist.P2POp(dist.isend, hi, nxt), dist.P2POp(dist.irecv, above, nxt)]
+    def exchange(self, k: int, send: Callable[[int], torch.Tensor]):
+        """``(below, above)`` along mesh axis ``k``; ``send(side)`` builds
+        the plane for the lower (0) or upper (1) neighbour."""
+        received, ops = [None, None], []
+        for side, step in ((0, -1), (1, +1)):
+            peer = self.dmesh.neighbour(k, step)
+            if peer is None:
+                continue
+            out = send(side)
+            received[side] = torch.empty_like(out)
+            ops += [dist.P2POp(dist.isend, out, peer), dist.P2POp(dist.irecv, received[side], peer)]
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         COLLECTIVES["exchange"] += 1
-        return below, above
+        return tuple(received)
 
 
-def extend(block: torch.Tensor, n_axes: int, exchange: Callable) -> torch.Tensor:
-    """The stacked ``block`` extended along its first ``n_axes`` grid axes,
-    one after the other, by ``exchange(k, lo, hi) -> (below, above)``."""
+def exchange_planes(block: torch.Tensor, n_axes: int, exchange: Callable) -> list:
+    """The planes the stacked ``block`` receives along its first ``n_axes``
+    grid axes, one axis after the other, by ``exchange(k, send) -> (below,
+    above)``: ``(below, above)`` an axis."""
+    planes = []
     for k in range(n_axes):
-        lo, hi = pack_planes(block, 1 + k)
-        below, above = exchange(k, lo, hi)
-        block = unpack_planes(block, below, above, 1 + k)
-    return block
+        planes.append(exchange(k, lambda side, k=k: send_plane(block, planes, k, side)))
+    return planes
 
 
 def stacked_halo_apply(op, dmesh, mode: str = "matvec") -> Callable[[torch.Tensor], torch.Tensor]:
     """The BC-eliminated operator (``mode="matvec"``) or the lift
     (``mode="lift"``) of ``op`` (a ``DPPOperator``, padded or not) on this
     rank's stacked block: the exchange along every mesh axis, then K1's halo
-    form on the extended block."""
+    form on the owned block and the received planes."""
     S, grid = op._combined_stencils, op.grid_shape
     if len(dmesh.shape) > len(grid):
         raise ValueError(f"{len(dmesh.shape)}-axis mesh cannot shard a {len(grid)}-D grid")
@@ -111,12 +139,14 @@ def stacked_halo_apply(op, dmesh, mode: str = "matvec") -> Callable[[torch.Tenso
         if grid[k] % s:
             raise ValueError(f"Grid axis {k} (size {grid[k]}) not divisible by mesh axis {name!r} (size {s})")
     local = dmesh.local_shape(grid)
-    ghosts, offsets, n_phys = block_geometry(dmesh.shape, dmesh.coords, local, op.mesh.node_shape)
+    _, offsets, n_phys = block_geometry(dmesh.shape, dmesh.coords, local, op.mesh.node_shape)
     transport = RankTransport(dmesh)
 
     def apply(x_local: torch.Tensor) -> torch.Tensor:
-        ze = extend(x_local, len(dmesh.shape), transport.exchange)
-        return fused_dpp_apply_halo(ze, *S, mode=mode, ghosts=ghosts, offsets=offsets, n_phys=n_phys)
+        x_local = x_local.contiguous()
+        planes = exchange_planes(x_local, len(dmesh.shape), transport.exchange)
+        return fused_dpp_apply_halo_planes(x_local[0], x_local[1], planes, *S, mode=mode, offsets=offsets,
+                                           n_phys=n_phys)
 
     return apply
 
@@ -150,38 +180,38 @@ def join_blocks(blocks: Dict[Tuple[int, ...], torch.Tensor], mesh_shape: Sequenc
     return rows[()]
 
 
-def loopback_extend(blocks: Dict[Tuple[int, ...], torch.Tensor], mesh_shape: Sequence[int]):
-    """Every block extended as :func:`extend` extends it across ranks, the
-    planes moved between the blocks of one process (edges get zeros)."""
+def loopback_planes(blocks: Dict[Tuple[int, ...], torch.Tensor], mesh_shape: Sequence[int]):
+    """Every block's received planes, as :func:`exchange_planes` gives them
+    across ranks, moved between the blocks of one process (None at the
+    grid's edges)."""
+    planes = {c: [] for c in blocks}
     for k in range(len(mesh_shape)):
-        packs = {c: pack_planes(b, 1 + k) for c, b in blocks.items()}
-        new = {}
-        for c, b in blocks.items():
+        sends = {c: (send_plane(b, planes[c], k, 0), send_plane(b, planes[c], k, 1)) for c, b in blocks.items()}
+        for c in blocks:
             prev = c[:k] + (c[k] - 1,) + c[k + 1:]
             nxt = c[:k] + (c[k] + 1,) + c[k + 1:]
-            lo, hi = packs[c]
-            below = packs[prev][1] if c[k] > 0 else torch.zeros_like(hi)
-            above = packs[nxt][0] if c[k] < mesh_shape[k] - 1 else torch.zeros_like(lo)
-            new[c] = unpack_planes(b, below, above, 1 + k)
-        blocks = new
-    return blocks
+            planes[c].append((sends[prev][1] if c[k] > 0 else None,
+                              sends[nxt][0] if c[k] < mesh_shape[k] - 1 else None))
+    return planes
 
 
 def loopback_apply(
     x: torch.Tensor, S, mesh_shape: Sequence[int], mode: str = "matvec", n_phys=None
 ) -> torch.Tensor:
     """K1's halo form over the blocks of one stacked grid ``x`` in one
-    process: split on ``mesh_shape``, planes moved by :func:`loopback_extend`,
-    one halo launch a block, the owned blocks joined. With the same values it
-    equals the whole-grid apply bit for bit."""
+    process: split on ``mesh_shape``, planes moved by
+    :func:`loopback_planes`, one halo launch a block, the owned blocks
+    joined. With the same values it equals the whole-grid apply bit for
+    bit."""
     grid = tuple(x.shape[1:])
     n_phys = grid if n_phys is None else tuple(n_phys)
-    blocks = loopback_extend(split_blocks(x, mesh_shape), mesh_shape)
+    blocks = split_blocks(x, mesh_shape)
+    planes = loopback_planes(blocks, mesh_shape)
     local = [n // s for n, s in zip(grid, mesh_shape)] + list(grid[len(mesh_shape):])
     out = {}
     for c, b in blocks.items():
-        ghosts, offsets, nph = block_geometry(mesh_shape, c, local, n_phys)
-        out[c] = fused_dpp_apply_halo(b, *S, mode=mode, ghosts=ghosts, offsets=offsets, n_phys=nph)
+        _, offsets, nph = block_geometry(mesh_shape, c, local, n_phys)
+        out[c] = fused_dpp_apply_halo_planes(b[0], b[1], planes[c], *S, mode=mode, offsets=offsets, n_phys=nph)
     return join_blocks(out, mesh_shape)
 
 

@@ -31,6 +31,20 @@ unpacked under ``_checkout/``) and holds both kernels to each other, bit for
 bit in both modes and precisions, and times them in turns (older, this,
 this, older).
 
+``--only halo`` times K1's halo form (``dpp_apply_halo_kernel`` in
+``csrc/dpp_apply.cu``) on f64 matvecs of 128^3 hex phantom-padded to
+136 x 129 x 129 and cut into 8 z-slabs (loopback planes, the exchange's
+form): one slab alone (rank 3, ghosts on both sides; and rank 0 and 7, at
+the grid's edges), the 8 slabs (8 launches), the padded box and the whole
+129^3 box with no ghost (beside K1), and 2D N=1023 the same way. Each in
+turns (CUDA events, launches queued) with the first halo form
+(``csrc/profile/dpp_apply_halo_box.cu``, built alone, on the extended
+boxes), with the package's kernel at the plan's chunk and at z chunks 2-8,
+all held to each other bit for bit, and with copies of ``dpp_apply.cu``
+built alone that put every tile or no tile on the general staging (timed
+only: their results are wrong where it matters); the plans' blocks, the
+card's wave and ``ptxas -v`` of the halo kernels.
+
 ``--only direct`` times K2 (``csrc/fused_direct.cu``) and K3
 (``csrc/fused_pcg.cu``) two ways: the device time (launches queued behind a
 sleep) and the call time (CUDA events around the Python call, the host's
@@ -161,7 +175,8 @@ def build() -> ctypes.CDLL:
     out = _cuda.BUILD_DIR / "profile"
     out.mkdir(parents=True, exist_ok=True)
     lib = out / "libperphil_profile.so"
-    alone = ("fused_ngs_cluster.cu", "band_trisolve_dense.cu", "band_trisolve_syncfree.cu")  # built by their tools
+    alone = ("fused_ngs_cluster.cu", "band_trisolve_dense.cu", "band_trisolve_syncfree.cu",
+             "dpp_apply_halo_box.cu")  # built by their tools
     sources = sorted(s for s in (_cuda.CSRC / "profile").glob("*.cu") if s.name not in alone)
     procs = [
         subprocess.Popen(
@@ -472,6 +487,125 @@ def time_k1(against: Optional[Path]) -> None:
         print(f"hex {n}^3 TPU_DIRECT_PARAMS: wall {wall:.4f} ms a solve (host clock, median of 10), "
               f"device busy {total / 5e3:.4f} ms a solve, K1's share of device time {share} "
               f"({k1 / 5e3:.4f} ms a solve)")
+
+
+# copies of csrc/dpp_apply.cu built alone for --only halo, each with one
+# part of the halo form set otherwise: (name, [(text, replacement)]). Their
+# results are wrong where the part matters; they are timed, not checked.
+HALO_VARIANTS = [
+    ("every tile general", [("const bool general = (h.o0[2] > 0", "const bool general = true || (h.o0[2] > 0")]),
+    ("no tile general", [("const bool general = (h.o0[2] > 0", "const bool general = false && (h.o0[2] > 0")]),
+]
+
+
+def halo_variants() -> dict:
+    """:data:`HALO_VARIANTS` built alone (one ``nvcc`` each, in parallel),
+    the halo launchers bound: name -> library."""
+    src = _cuda.CSRC / "dpp_apply.cu"
+    out = _cuda.BUILD_DIR / "halo_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name, edits in HALO_VARIANTS:
+        text = src.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"halo variant {name!r}: {old!r} is not in dpp_apply.cu once")
+            text = text.replace(old, new)
+        key = hashlib.sha256(text.encode()).hexdigest()[:16]
+        copy, lib = out / f"dpp_apply_{key}.cu", out / f"libdpp_apply_{key}.so"
+        copy.write_text(text)
+        jobs.append((name, lib, subprocess.Popen(
+            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(src.parent), "-o", str(lib), str(copy)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    dlls = {}
+    for name, lib, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(log)
+        dll = ctypes.CDLL(str(lib))
+        for sym in ("perphil_dpp_apply_halo_f64", "perphil_dpp_apply_halo_f32"):
+            getattr(dll, sym).argtypes = _cuda._SIGNATURES[sym]
+        dlls[name] = dll
+    return dlls
+
+
+def time_halo() -> None:
+    """``--only halo`` (the module's docstring)."""
+    import chip_smoke
+    import torch.nn.functional as F
+
+    from perphil_tpu_torch.ops import fused_apply as fa
+    from perphil_tpu_torch.ops.assembly import dpp_stencils
+    from perphil_tpu_torch.parallel.halo import block_geometry, halo_box, loopback_planes, split_blocks
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream().cuda_stream
+    probe = fa.halo_probe_library()
+    variants = halo_variants()
+    _cuda.library()
+    entry = ""
+    for line in Path(_cuda.BUILD_INFO["path"]).with_suffix(".log").read_text().splitlines():
+        text = line.split("ptxas info    :")[-1].strip()
+        if "Compiling entry function" in line:
+            entry = text.split("'")[1]
+        elif "dpp_apply" in entry and ("Used" in line or "spill" in line):
+            print(f"  ptxas {entry[:72]}: {text}")
+    wave = fa.halo_wave(dev, torch.float64, 3)
+    print(f"the card's wave: {wave} blocks (occupancy x SMs)")
+    gen = torch.Generator().manual_seed(0)
+    k = 8
+    for element, n in (("hex", 128), ("quad", 1023)):
+        W, params, _, _, _ = chip_smoke.problem(element, n, dev)
+        shape, S = W.mesh.node_shape, dpp_stencils(W.mesh, params)
+        d = len(shape)
+        z = torch.randn((2,) + tuple(shape), generator=gen, dtype=torch.float64).to(dev)
+        zp = F.pad(z, [v for p in reversed([(-shape[0]) % k] + [0] * (d - 1)) for v in (0, p)])
+        split = split_blocks(zp, (k,))
+        planes = loopback_planes(split, (k,))
+        local = [zp.shape[1] // k] + list(shape[1:])
+        geoms = {c: block_geometry((k,), c, local, shape) for c in split}
+        # (own fields, planes, geometry, the extended box for the first form) a launch
+        cases = {f"slab {c[0]}": [(split[c][0], split[c][1], planes[c], geoms[c], halo_box(split[c], planes[c]))]
+                 for c in [(0,), (3,), (7,)]}
+        cases[f"{k} slabs"] = [(split[c][0], split[c][1], planes[c], geoms[c], halo_box(split[c], planes[c]))
+                               for c in split]
+        cases["padded box"] = [(zp[0], zp[1], (), (None, None, shape), zp)]
+        cases["whole box"] = [(z[0], z[1], (), (None, None, None), z)]
+        for label, launches in cases.items():
+            chunks = [None] + ([2, 3, 4, 5, 6, 8] if d == 3 else [])
+            runs = {"first": lambda L=launches: [fa.halo_probe_apply(probe, box, S, "matvec", *g)
+                                                 for _, _, _, g, box in L]}
+            if label == "whole box":
+                runs["K1"] = lambda: [fa.fused_dpp_apply_stacked(z, *S)]
+            plans = {}
+            for chunk in chunks:
+                name = "rule" if chunk is None else f"chunk {chunk}"
+                built = []
+                for z1, z2, pl, g, box in launches:
+                    planes_, box_, geom = fa._planes_geometry(z1, z2, pl, g[1], g[2])
+                    plan = fa.halo_plan(box_, *geom, wave=wave, chunk=chunk)
+                    built.append((plan, fa._plane_regions(plan, z1, z2, planes_)))
+                plans[name] = [p for p, _ in built]
+                runs[name] = lambda B=built: [fa._halo_launch(p, r, S, "matvec", torch.float64, dev, d) for p, r in B]
+                if chunk is None:
+                    for vname, dll in variants.items():
+                        def run(B=built, dll=dll):
+                            for p, r in B:
+                                sym, args, y, table = fa._halo_args(p, r, S, "matvec", torch.float64, dev, d)
+                                _cuda.check(getattr(dll, sym)(*args, stream), f"halo variant {sym}")
+                        runs[vname] = run
+            want = runs["first"]()
+            for name, fn in runs.items():
+                if name not in variants and name != "K1" and not all(torch.equal(a, b) for a, b in zip(fn(), want)):
+                    raise RuntimeError(f"halo {element} {label} {name}: not the first form's bits")
+            order = list(runs) + list(reversed(runs))
+            times = chip_smoke.in_turns(runs, order)
+            print(f"K1 halo form {element} N={n} {label} ({len(launches)} launch(es)): "
+                  + ", ".join(f"{name} {_fmt(t)} ms" + (f" ({sorted({(p.blocks, p.chunk) for p in plans[name]})})"
+                                                         if name in plans else "")
+                              for name, t in times.items()))
+        k1 = chip_smoke.in_turns({"K1": lambda: fa.fused_dpp_apply_stacked(z, *S)}, ["K1", "K1"])["K1"]
+        print(f"K1 {element} N={n} on the whole grid: {_fmt(k1)} ms")
 
 
 def phase_library() -> ctypes.CDLL:
@@ -1443,7 +1577,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
                                        "direct-wrapper", "ngs", "ngs-phases", "ngs-variants", "band", "partri", "gs",
-                                       "gs-repeat"],
+                                       "gs-repeat", "halo"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -1492,6 +1626,9 @@ def main() -> int:
         return 0
     if args.only == "gs-repeat":
         repeat_gs()
+        return 0
+    if args.only == "halo":
+        time_halo()
         return 0
     dll = build()
     if args.only in (None, "gmres"):

@@ -2,9 +2,12 @@
 CPU: the padded operators (``DPPOperator``, ``FieldOperator``,
 ``TensorDPPOperator`` / ``TensorFastDiagDPP``, ``P2SimplexDPPOperator``) and
 the padded solver builders against theirs, K1's halo twin over loopback
-blocks against the whole-grid twin bit for bit, the geometry it refuses, a
-world of one rank with no process group, and ``benchmark_vs_gathered`` in a
-world of two gloo ranks."""
+blocks against the whole-grid twin bit for bit, the planes entry (the owned
+block and the received planes, read through the kernel's regions) against
+the extended-box twin bit for bit, the launch plan's writes, the geometry it
+refuses, a world of one rank with no process group, and
+``benchmark_vs_gathered`` and the sharded apply against the JAX package's
+stacked matvec in a world of two gloo ranks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,9 +34,27 @@ from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp import DPPParameters
 from perphil_tpu_torch.ops import simplexfem as sf, tensorfem as tf
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, bc_values_per_field, dpp_stencils
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_halo, fused_dpp_apply_plain, halo_geometry
+from perphil_tpu_torch.ops.fused_apply import (
+    DEFAULT_WAVE,
+    fill_chunk,
+    fused_dpp_apply_halo,
+    fused_dpp_apply_halo_planes,
+    fused_dpp_apply_halo_plain,
+    fused_dpp_apply_plain,
+    halo_geometry,
+    halo_plan,
+    plan_writes,
+)
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
-from perphil_tpu_torch.parallel.halo import join_blocks, loopback_apply, split_blocks
+from perphil_tpu_torch.parallel.halo import (
+    block_geometry,
+    halo_box,
+    join_blocks,
+    loopback_apply,
+    loopback_planes,
+    send_plane,
+    split_blocks,
+)
 from perphil_tpu_torch.parallel.sharding import (
     device_mesh,
     field_spec,
@@ -206,6 +227,103 @@ def test_k1_halo_twin_over_loopback_blocks(element, cells, blocks, padded, mode)
     assert torch.equal(join_blocks(split_blocks(zp, blocks), blocks), zp)
 
 
+# the planes entry against the extended-box twin: (element, cells, blocks)
+PLANES = [
+    ("quad", (15, 11), (4,)), ("triangle", (10, 13), (2, 2)), ("quad", (12, 16), (4, 2)),
+    ("hex", (7, 5, 6), (4,)), ("tet", (5, 6, 7), (2, 2)), ("hex", (6, 4, 5), (4, 2)), ("hex", (5, 4, 4), (2, 1, 5)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", ["matvec", "lift"])
+@pytest.mark.parametrize("element,cells,blocks", PLANES, ids=[f"{c[0]}-{'x'.join(map(str, c[2]))}" for c in PLANES])
+def test_halo_planes_entry_equals_the_box_twin(element, cells, blocks, mode, dtype):
+    """Each block of a (phantom-padded) grid through the planes entry, its
+    planes as the exchange builds them (None at the grid's edges) and read
+    through the kernel's regions, equals the extended-box twin on the block
+    extended whole, bit for bit; the planes are plane-sized."""
+    shape = tuple(n + 1 for n in reversed(cells))
+    z = torch.as_tensor(np.random.default_rng(9).standard_normal((2,) + shape)).to(dtype)
+    S = dpp_stencils(StructuredMesh(cells=cells, element=element), DPPParameters(**PARAMS))
+    pad = [(-n) % b for n, b in zip(shape, blocks)] + [0] * (len(shape) - len(blocks))
+    zp = F.pad(z, [v for q in reversed(pad) for v in (0, q)])
+    split = split_blocks(zp, blocks)
+    planes = loopback_planes(split, blocks)
+    local = [n // b for n, b in zip(zp.shape[1:], blocks)] + list(zp.shape[1 + len(blocks):])
+    for c, b in split.items():
+        ghosts, offsets, n_phys = block_geometry(blocks, c, local, shape)
+        got = fused_dpp_apply_halo_planes(b[0], b[1], planes[c], *S, mode=mode, offsets=offsets, n_phys=n_phys)
+        box = halo_box(b, planes[c])
+        assert tuple(box.shape[1:]) == tuple(n + 2 * (k < len(blocks)) for k, n in enumerate(b.shape[1:]))
+        want = fused_dpp_apply_halo_plain(box, *S, mode=mode, ghosts=ghosts, offsets=offsets, n_phys=n_phys)
+        assert got.dtype == dtype and torch.equal(got, want)
+        assert torch.equal(fused_dpp_apply_halo(box, *S, mode=mode, ghosts=ghosts, offsets=offsets, n_phys=n_phys), want)
+        for k, pair in enumerate(planes[c]):
+            for side, g in enumerate(pair):
+                edge = c[k] == (0 if side == 0 else blocks[k] - 1)
+                assert (g is None) == edge
+                if g is not None:
+                    assert tuple(g.shape) == (2,) + tuple(box.shape[1:1 + k]) + (1,) + tuple(b.shape[2 + k:])
+    # what a rank sends along axis 1 carries the axis-0 ghosts' edge rows
+    c = (1,) + (0,) * (len(blocks) - 1)
+    if len(blocks) > 1:
+        sent = send_plane(split[c], planes[c][:1], 1, 0)
+        assert torch.equal(sent, halo_box(split[c], planes[c][:1]).narrow(2, 0, 1))
+
+
+# boxes for the plan: (box, ghosts, offsets, n_phys) — edge ranks, boxes
+# thinner than a chunk, 1-plane slabs, phantoms past the physical grid, 2D
+PLAN_BOXES = [
+    ((129, 129, 129), None, None, None),
+    ((136, 129, 129), None, None, (129, 129, 129)),
+    ((19, 129, 129), ((1, 1), (0, 0), (0, 0)), (0, 0, 0), (129, 129, 129)),
+    ((19, 129, 129), ((1, 1), (0, 0), (0, 0)), (51, 0, 0), (129, 129, 129)),
+    ((19, 129, 129), ((1, 1), (0, 0), (0, 0)), (119, 0, 0), (129, 129, 129)),
+    ((4, 20, 37), ((1, 1), (0, 0), (0, 0)), (5, 0, 0), (40, 20, 37)),  # 2 owned planes, thinner than a chunk
+    ((3, 18, 35), ((1, 1), (0, 0), (0, 0)), (7, 0, 0), (16, 18, 35)),  # a 1-plane slab
+    ((3, 18, 35), ((1, 1), (0, 0), (0, 0)), (15, 0, 0), (16, 18, 35)),  # a 1-plane slab on the boundary
+    ((3, 18, 35), ((1, 1), (0, 0), (0, 0)), (17, 0, 0), (16, 18, 35)),  # a slab of phantoms
+    ((7, 11, 35), ((1, 1), (1, 1), (0, 0)), (0, 9, 0), (12, 14, 35)),  # a pencil at the corner
+    ((10, 6, 9), ((0, 1), (1, 1), (1, 0)), (0, 4, 14), (8, 30, 15)),
+    ((2, 2, 2), None, None, None),  # no interior
+    ((130, 1026), ((1, 1), (0, 0)), (256, 0), (1024, 1024)),
+    ((18, 35), ((1, 1), (1, 1)), (16, 99), (1024, 110)),
+]
+
+
+@pytest.mark.parametrize("wave", [DEFAULT_WAVE, 1, 10 ** 6], ids=["h100", "one", "huge"])
+@pytest.mark.parametrize("box,ghosts,offsets,n_phys", PLAN_BOXES, ids=[str(i) for i in range(len(PLAN_BOXES))])
+def test_halo_plan_writes_every_owned_node_once(box, ghosts, offsets, n_phys, wave):
+    """Every owned node is written by exactly one block of the plan: by a
+    stencil tile where it is a global interior node, raw elsewhere; the
+    chunk is :func:`fill_chunk`'s; a 129^3 box with no ghost is tiled as K1
+    tiles it (8 x 8 x 32 blocks at K1's chunk of 4; 8 x 8 x 16 at the
+    rule's 8 for the H100's wave)."""
+    plan = halo_plan(box, ghosts, offsets, n_phys, wave)
+    count, stencil = plan_writes(plan)
+    assert (count == 1).all()
+    gh, off, nph = halo_geometry(box, ghosts, offsets, n_phys)
+    interior = np.ones(plan.nout, dtype=bool)
+    for a, (o, n, lo, nn) in enumerate(zip(off, plan.nout[3 - len(box):], gh, nph)):
+        g = np.arange(n) + o
+        shape = [1, 1, 1]
+        shape[3 - len(box) + a] = n
+        interior &= ((g >= 1) & (g <= nn - 2)).reshape(shape)
+    assert np.array_equal(stencil, interior)
+    if len(box) == 3:
+        columns, planes = plan.blocks[1] * plan.blocks[2], plan.c1[0] - plan.c0[0]
+        assert plan.chunk == fill_chunk(columns, planes, wave) and plan.chunk in (4, 8)
+        if wave == 10 ** 6:
+            assert plan.chunk == 4
+        if wave == 1 and columns * -(-planes // 8) >= 2:
+            assert plan.chunk == 8
+        for chunk in (1, 2, 3, 5):  # any chunk the launcher is given
+            assert (plan_writes(halo_plan(box, ghosts, offsets, n_phys, wave, chunk))[0] == 1).all()
+    if box == (129, 129, 129) and wave == DEFAULT_WAVE:
+        assert plan.blocks == (16, 8, 8) and plan.chunk == 8
+        assert halo_plan(box, chunk=4).blocks == (32, 8, 8)
+
+
 def test_halo_geometry_refuses():
     """Ghosts are 0 or 1 a side, and an owned interior node needs both
     neighbours in the box: the wrapper refuses other geometries on every
@@ -319,3 +437,32 @@ def test_benchmark_vs_gathered_on_two_ranks(world_of_two):
         assert bench["mesh"] == {"z": 2}
         assert r["coords"] == (rank,) and np.array_equal(r["block"], grid[4 * rank: 4 * rank + 4])
         assert r["scalar"] == 7.0
+
+
+@pytest.fixture(scope="module")
+def halo_world_of_two():
+    cases = [dict(element="hex", cells=(5, 4, 6), axes=[2], names=["z"], seed=1, params=PARAMS),
+             dict(element="quad", cells=(9, 6), axes=[1, 2], names=["y", "x"], seed=2, params=PARAMS),
+             dict(element="tet", cells=(4, 5, 3), axes=[2, 1], names=["z", "y"], seed=3, params=PARAMS)]
+    return cases, spawn_world(2, "halo_matvecs", {"device": "cpu", "cases": cases}, timeout=300.0)
+
+
+def test_sharded_apply_on_two_ranks_matches_jax(halo_world_of_two):
+    """The sharded matvec and lift (planes exchanged between two gloo ranks,
+    the planes entry on each block) gathered: the JAX package's padded
+    ``DPPOperator`` stacked matvec and lift on the gathered grid within
+    1e-13, the same on both ranks, one exchange a split axis an apply."""
+    cases, world = halo_world_of_two
+    for i, case in enumerate(cases):
+        shape = tuple(n + 1 for n in reversed(case["cells"]))
+        x = np.random.default_rng(case["seed"]).standard_normal((2,) + shape)
+        r0 = world[0][i]
+        pad = r0["padding"]
+        xp = np.pad(x, [(0, 0)] + [(0, p) for p in pad])
+        mesh = jmesh.StructuredMesh(cells=tuple(case["cells"]), element=case["element"])
+        jop = JOp(jmixed(jspaces(mesh)[1]), JParams(**PARAMS), pad)
+        _close(r0["matvec"], jop.stacked_matvec()(jnp.asarray(xp)), 1e-13)
+        _close(r0["lift"], np.stack(jop.lifted_rhs(jnp.asarray(xp[0]), jnp.asarray(xp[1]))), 1e-13)
+        for rank in world:
+            assert np.array_equal(rank[i]["matvec"], r0["matvec"]) and np.array_equal(rank[i]["lift"], r0["lift"])
+            assert rank[i]["collectives"]["exchange"] == 2 * len(case["axes"])

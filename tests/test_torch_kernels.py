@@ -18,9 +18,15 @@ from perphil_tpu_torch.ops import _cuda, _native
 from perphil_tpu_torch.ops import bandsolve as bs
 from perphil_tpu_torch.ops.assembly import DirichletBC, DPPOperator, FieldOperator, dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import (
+    fill_chunk,
     fused_dpp_apply,
+    fused_dpp_apply_halo,
+    fused_dpp_apply_halo_planes,
+    fused_dpp_apply_halo_planes_plain,
     fused_dpp_apply_plain,
     fused_dpp_apply_stacked,
+    halo_plan,
+    halo_wave,
 )
 from perphil_tpu_torch.ops.fused_direct import K2, K3, fused_direct_solve, fused_simplicial_direct_solve, mesh_plan
 from perphil_tpu_torch.ops.fused_direct import SMEM_BUDGET as DIRECT_SMEM_BUDGET
@@ -39,6 +45,7 @@ from perphil_tpu_torch.ops.fused_gmres import (
 from perphil_tpu_torch.ops.fused_gs import KERNEL as FUSED_GS_KERNEL, FusedGSSolver
 from perphil_tpu_torch.ops.fused_ngs import KERNEL as NGS_KERNEL, FusedNGSSolver
 from perphil_tpu_torch.ops.ilu import GS_KERNEL, GaussSeidelSweeper, StructuredILU0, ilu_plan
+from perphil_tpu_torch.parallel.halo import block_geometry, join_blocks, loopback_planes, split_blocks
 from perphil_tpu_torch.parallel.halo import loopback_apply
 from perphil_tpu_torch.ops.ordering import parity_system
 from perphil_tpu_torch.solvers import solve_dpp_nonlinear
@@ -165,6 +172,91 @@ def test_k1_rejects_bad_inputs(cuda):
     with pytest.raises(TypeError):
         fused_dpp_apply_stacked(z.to(torch.int64), *S)
 
+
+
+# K1's halo form on an owned block and the planes its neighbours sent:
+# slabs, (2, 2) and (4, 2) pencils and a 3-axis mesh, padded and not, 2D and 3D
+HALO_LAYOUTS = [  # element, cells (node grid: each + 1, reversed), blocks
+    ("quad", (32, 31), (4,)), ("triangle", (40, 27), (2, 2)), ("quad", (33, 40), (4, 2)),
+    ("hex", (34, 20, 47), (8,)), ("tet", (31, 33, 20), (2, 2)), ("hex", (20, 23, 17), (4, 2)),
+    ("hex", (17, 12, 15), (2, 3, 2)),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 2e-6)], ids=["f64", "f32"])
+@pytest.mark.parametrize("element,cells,blocks", HALO_LAYOUTS, ids=[_k1_tile_id(*c) for c in HALO_LAYOUTS])
+@pytest.mark.parametrize("mode", ["matvec", "lift"])
+def test_k1_halo_planes_match_twin_and_k1(cuda, element, cells, blocks, dtype, tol, mode):
+    """The planes entry, one launch a block, each block's planes read where
+    they lie: every block within ``tol`` of its twin, and the joined owned
+    blocks K1 on the whole grid bit for bit (phantom rows the identity)."""
+    state = _state(element, cells, cuda, seed=11)
+    S = dpp_stencils(state.mesh, state.params)
+    z = torch.stack(state.grids).to(dtype)
+    shape = tuple(z.shape[1:])
+    pad = [(-n) % b for n, b in zip(shape, blocks)] + [0] * (len(shape) - len(blocks))
+    zp = torch.nn.functional.pad(z, [v for q in reversed(pad) for v in (0, q)])
+    split = split_blocks(zp, blocks)
+    planes = loopback_planes(split, blocks)
+    local = [n // b for n, b in zip(zp.shape[1:], blocks)] + list(zp.shape[1 + len(blocks):])
+    before = _cuda.KERNEL_LAUNCHES["fused_dpp_apply_halo"]
+    out = {}
+    for c, b in split.items():
+        _, offsets, n_phys = block_geometry(blocks, c, local, shape)
+        out[c] = fused_dpp_apply_halo_planes(b[0], b[1], planes[c], *S, mode=mode, offsets=offsets, n_phys=n_phys)
+        cpu = [None if g is None else g.cpu() for pair in planes[c] for g in pair]
+        twin = fused_dpp_apply_halo_planes_plain(b[0].cpu(), b[1].cpu(), [cpu[i:i + 2] for i in range(0, len(cpu), 2)],
+                                                 *S, mode=mode, offsets=offsets, n_phys=n_phys)
+        assert _rel(out[c].cpu(), twin) <= tol
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply_halo"] == before + len(split)
+    want = zp.clone()
+    want[(slice(None),) + tuple(slice(0, n) for n in shape)] = fused_dpp_apply_stacked(z, *S, mode=mode)
+    assert torch.equal(join_blocks(out, blocks), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("element,cells,padding", [("hex", (128, 128, 128), (0, 0, 0)), ("hex", (128, 128, 128), (7, 0, 0)),
+                                                   ("quad", (40, 27), (3, 5)), ("tet", (9, 14, 20), (1, 2, 3))],
+                         ids=["hex128", "hex128-padded", "quad-padded", "tet-padded"])
+def test_k1_halo_with_no_ghost_is_k1(cuda, element, cells, padding, dtype):
+    """With no ghost the halo form is K1 bit for bit in both entries and
+    both modes, one launch each; on a padded grid the physical block is
+    K1's and the phantom rows the identity. A 129^3 box launches K1's 8 x 8
+    x 32 blocks."""
+    state = _state(element, cells, cuda, seed=12)
+    S = dpp_stencils(state.mesh, state.params)
+    z = torch.stack(state.grids).to(dtype)
+    shape = tuple(z.shape[1:])
+    zp = torch.nn.functional.pad(z, [v for q in reversed(padding) for v in (0, q)])
+    for mode in ("matvec", "lift"):
+        want = zp.clone()
+        want[(slice(None),) + tuple(slice(0, n) for n in shape)] = fused_dpp_apply_stacked(z, *S, mode=mode)
+        before = _cuda.KERNEL_LAUNCHES["fused_dpp_apply_halo"]
+        box = fused_dpp_apply_halo(zp, *S, mode=mode, n_phys=shape)
+        planes = fused_dpp_apply_halo_planes(zp[0], zp[1], (), *S, mode=mode, n_phys=shape)
+        torch.cuda.synchronize()
+        assert _cuda.KERNEL_LAUNCHES["fused_dpp_apply_halo"] == before + 2
+        assert torch.equal(box, want) and torch.equal(planes, want)
+    if not any(padding) and len(shape) == 3:
+        assert halo_plan(shape, chunk=4).blocks == (32, 8, 8)  # K1's tiles and chunk
+        assert halo_plan(shape, wave=halo_wave(cuda, dtype, 3)).blocks == (16, 8, 8)
+
+
+def test_k1_halo_fill_rule_at_a_slab(cuda):
+    """The card's wave (occupancy times SMs) and the plan at the slabs of
+    the padded 128^3 grid over 8 ranks: K1's chunk of 4 (8 only where a
+    launch at 8 holds one and a half waves, as on the whole grid)."""
+    wave = halo_wave(cuda, torch.float64, 3)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert wave >= 4 * sms and wave % sms == 0  # __launch_bounds__: at least kMinBlocks an SM
+    for rank in range(8):
+        plan = halo_plan((19, 129, 129), ((1, 1), (0, 0), (0, 0)), (17 * rank, 0, 0), (129, 129, 129), wave)
+        columns, planes = plan.blocks[1] * plan.blocks[2], plan.c1[0] - plan.c0[0]
+        assert plan.chunk == fill_chunk(columns, planes, wave) == 4
+        assert 2 * columns * -(-planes // 8) < 3 * wave
+    middle = halo_plan((19, 129, 129), ((1, 1), (0, 0), (0, 0)), (17 * 3, 0, 0), (129, 129, 129), wave)
+    assert middle.blocks == (-(-17 // middle.chunk), 8, 8)
 
 # each placement of the plan (direct_smem.cuh): one block of 64 (K3: the
 # dense one), 128, 256 and 512 threads owning 1 interior node, 512 owning 2,
