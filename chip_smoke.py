@@ -10,7 +10,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      ``fused_gs`` and ``band_trisolve`` from
      ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel) and
      ``fused_gs``'s probe build beside them, while ``fused_gs``'s twins run
-     on the host's cores (all collected before anything is timed), and
+     on the host's cores and the fused GMRES roles' long twins on the card
+     (all collected before anything is timed), and
      checks that each fused GMRES role's static shared memory leaves the
      budget its launches plan with;
   3. checks that a space built with no ``device`` lies on the card, then each
@@ -24,12 +25,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      apart from their call time, beside an empty kernel's (the floor) and
      one ``torch.linalg.solve`` on the dense system; the fused GMRES roles K5
      (2D N=8), K4 (2D N=16/64/128 pc none, N=64 jacobi, tet nx=16/32/40),
-     K7 (2D N=64/128/256), K6 (2D N=64, tet nx=8/32), K8 (2D N=16/64/128), equal
-     counts and bits (K6 within 1e-10; the twin bounded to a few steps at
-     N=256 ILU and N=128 SS-GMRES+ILU), with the blocks, the leaves a
-     thread, what lived in shared memory, the time and the time per
-     iteration, and beside the sizes the TPU's gate sent to the host loop,
-     that loop's time on the same case; ``structured_ilu_apply`` at 2D N=128
+     K7 (2D N=64/128/256), K6 (2D N=64, tet nx=8/32), K8 (2D N=16/64
+     with its literal inner GMRES + ILU blocks and at N=128 on its first
+     outer step, N=64 also with the TPU's PCG blocks), equal counts and bits,
+     K8's inner counts too (K6 within 1e-10; the twin on the first 20 steps
+     at 2D N=256 ILU; the long twins run on the card in worker processes
+     while nvcc builds, ``role_twin_remote``, and are collected before
+     anything is timed);
+     K8's two inner modes timed in turns at 2D N=16/64/128 (``k8_turns``),
+     at N=128 in turns with the literal host route (fields within 1e-12);
+     with the blocks, the leaves a thread, what lived in shared memory, the
+     time and the time per iteration, and beside the sizes the TPU's gate
+     sent to the host loop, that loop's time;
+     ``structured_ilu_apply`` at 2D N=128
      (monolithic, beside the cuSPARSE pair on its factor) and on a 129^2
      field system, bit-equal;
   4. drives the direct path — ``solve_dpp`` with ``LINEAR_SOLVER_PARAMS`` at
@@ -100,7 +108,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      N=128/256, and the lexicographic Picard at tri N=16 / tet nx=4 with
      ``trisolve_backend=partri``; after the count, the same Picard with the
      option left open (the wavefront on the card: one ``fused_gs`` launch a
-     solve) and on the CPU, with equal counts;
+     solve) and on the CPU, with equal counts; partri's grouped 2D pass
+     (``partri_group``) against the tree at 2D N=64/128/256 (G = 8/16/32,
+     1e-12), issued and from a CUDA graph in turns, and in the counted host
+     GMRES loop with ``partri_group=16`` landing 74/117 too;
  10. drives the conditioning analysis (``conditioning_path``) —
      ``estimate_condition_numbers`` with Lanczos on the card at 2D
      N=16/32/64 and hex N=6/8/10/12/14/16, the dense host SVD at hex N=4,
@@ -117,8 +128,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (``convergence_2d.run_one`` with ``params_for``, quad N=4..128 x the
      five approaches, 30 rows, counted: K2, K4, K6, K7 and K8 must launch)
      against ``convergence.csv`` (``it`` exact, +-2 for GMRES and GMRES+ILU
-     at N=128; errors within each route's ``CONV_ERROR_BOUND``) and its EOC
-     against ``convergence_eoc.csv``; the study scripts' ``main`` (2D at N=4/8,
+     at N=128; errors within 1.5e-10, plain GMRES within 1e-8) and its EOC
+     against ``convergence_eoc.csv`` (1e-8); where the card's plain GMRES at
+     N=16 first leaves the CPU's, stage by stage (``plain_gmres_stages``);
+     the study scripts' ``main`` (2D at N=4/8,
      degree 1 and 2, and 3D at hex N=4/8, into a temporary directory);
      ``convergence_3d.run_one_3d`` at hex
      N=8/16/32 with both default solvers (N=8 against the CPU's rows, the
@@ -327,6 +340,8 @@ GS_TURNS = (("triangle", 16), ("triangle", 64), ("tet", 16))  # the host route a
 GS_WORKERS = 3
 GS_REPEATS = 5  # launches of each placement the plan allows, each held to the twin
 _GS_POOL = None
+TWIN_WORKERS = 3  # the fused GMRES roles' long twins, on the card beside the build
+_TWIN_POOL = None
 
 PARITY_COUNTS = {4: 6, 8: 8, 12: 12, 16: 15, 20: 17, 24: 20, 32: 26, 36: 29, 40: 33}
 PARITY_HOST_SIZES = (4, 40)  # the host engine, in turns with the device engine
@@ -371,19 +386,28 @@ def presets():
                                "pc_band_execution": "host"},
         # the host routes' ILU and GS on the parallel-prefix trisolves (left open: the wavefront on the card)
         "GMRES_ILU_PARTRI": {**sp.GMRES_ILU_PARAMS, "trisolve_backend": "partri"},
+        "GMRES_ILU_PARTRI_GROUPED": {**sp.GMRES_ILU_PARAMS, "trisolve_backend": "partri", "partri_group": 16},
         "PICARD_LU_PARTRI": {**sp.PICARD_LU_SOLVER_PARAMS, "trisolve_backend": "partri"},
     }
 
 
-def newton_rhs(op, bcs):
-    """The solver's Krylov right-hand side: ``b - A x0`` with x0 the BC lift."""
+def newton_rhs(op, bcs, plain: bool = False):
+    """The solver's Krylov right-hand side: ``b - A x0`` with x0 the BC lift,
+    by K1 or, with ``plain``, by its twin (no kernel: before the build)."""
     import torch
 
+    from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain
+
     g1, g2 = (bc.grid_values(op.mesh) for bc in bcs)
-    b1, b2 = op.lifted_rhs(g1, g2)
     bdry = op._mask_arrays[0]
     x01, x02 = torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)
-    return torch.stack(op.residual(x01, x02, b1, b2)).contiguous()
+    if not plain:
+        b1, b2 = op.lifted_rhs(g1, g2)
+        return torch.stack(op.residual(x01, x02, b1, b2)).contiguous()
+    S = op._combined_stencils
+    b1, b2 = fused_dpp_apply_plain(g1, g2, *S, mode="lift")
+    y1, y2 = fused_dpp_apply_plain(x01, x02, *S, mode="matvec")
+    return torch.stack((b1 - y1, b2 - y2)).contiguous()
 
 
 def time_ms(fn, repeats: int = 10, warmup: int = 2) -> float:
@@ -524,7 +548,10 @@ def gmres_flops(L: int, its: int, m: int, apply_flops: int):
 def fused_gmres_work(solver, op, its: int):
     """(bytes, f64 flops) of one fused GMRES solve of ``its`` steps; the
     fieldsplit roles' inner work from the kernel's own counts of its last
-    launch (``solver.launch_inner``: the twin applies P(b - A x0) once more)."""
+    launch (``solver.launch_inner``: the twin applies P(b - A x0) once more).
+    K8's literal inner GMRES: each solve counted as GMRES(restart) of the
+    mean steps a solve, rounded down (the CGS work grows with the step, so
+    by convexity that undercounts the solves' sum: a lower bound)."""
     from perphil_tpu_torch.ops.fused_gmres import INNER_TOLS
 
     mesh, p = op.mesh, op.params
@@ -551,11 +578,17 @@ def fused_gmres_work(solver, op, its: int):
             nbytes += 8 * (solver.sc.numel() + sum(S.numel() for S in solver.field_fd[0].mats))
         coupling = n_int * (2 * _nnz(compile_stencils(mesh)[1]) + 1) + n
         inner_its, inner_solves = solver.launch_inner
-        pc = (
-            applies * coupling
-            + inner_solves * (inner_pc + 4 * n)
-            + inner_its * (2 * n_int * _nnz(S1) + inner_pc + 12 * n)
-        )
+        field_matvec = 2 * n_int * _nnz(S1)
+        restart = solver.inner_tols()[3]
+        if restart:  # the literal GMRES blocks
+            per_solve, _ = gmres_flops(n, inner_its // max(inner_solves, 1), restart, field_matvec + inner_pc)
+            pc = applies * coupling + inner_solves * per_solve
+        else:  # PCG
+            pc = (
+                applies * coupling
+                + inner_solves * (inner_pc + 4 * n)
+                + inner_its * (field_matvec + inner_pc + 12 * n)
+            )
     return nbytes, core + pc
 
 
@@ -896,7 +929,78 @@ PARTRI_GS_CASES = [("triangle", 16), ("tet", 4)]  # PartriGS against structured_
 # the published GMRES + ILU counts (petsc_perf_breakdown.csv) the host loop
 # with the partri ILU lands exactly
 PARTRI_GMRES_COUNTS = {128: 74, 256: 117}
+# partri's grouped 2D pass (partri_group) against the tree: 2D N, rows a group
+PARTRI_GROUP_CASES = [(64, 8), (128, 16), (256, 32)]
+PARTRI_GROUP = 16  # the host GMRES + ILU loop's rows a group (PARTRI_GMRES_COUNTS)
 PARTRI_PICARD_CASES = [("triangle", 16), ("tet", 4)]  # the lexicographic Picard on partri, then left open
+
+
+def graph_replayed(fn, shape, dev):
+    """``fn`` (a tensor of ``shape`` -> one of the same shape) captured in a
+    CUDA graph after a warm-up on a side stream: a function that copies its
+    argument in, replays the graph and returns a copy of the output."""
+    import torch
+
+    static_in = torch.zeros(shape, dtype=torch.float64, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn(static_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = fn(static_in)
+
+    def replay(r):
+        static_in.copy_(r)
+        graph.replay()
+        return static_out.clone()
+
+    return replay
+
+
+def partri_group_applies(dev, smi, randn):
+    """Partri's grouped 2D pass against the tree on the same factor (2D
+    N=64/128/256 monolithic, G = 8/16/32 rows a group): the results within
+    1e-12 relative; each apply issued op by op and replayed from a CUDA
+    graph, in turns (tree, grouped, grouped, tree), with its kernels an apply
+    (``torch.profiler``), the bytes of its maps and their bound."""
+    import torch
+
+    from perphil_tpu_torch.ops import ilu
+    from perphil_tpu_torch.ops.partri import nbytes
+
+    def kernels(pc, r) -> int:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pc.apply_flat(r)
+            torch.cuda.synchronize()
+        return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+    for n, G in PARTRI_GROUP_CASES:
+        W, params, _, _, _ = problem("quad", n, dev)
+        sys = ilu.build_monolithic_system(W.mesh, params)
+        fac = ilu.ilu0_factorize(sys)
+        r = randn(sys.nrows)
+        pcs = {"tree": ilu.PartriILU(sys, fac, dev), "grouped": ilu.PartriILU(sys, fac, dev, group=G)}
+        z = {k: pc.apply_flat(r) for k, pc in pcs.items()}
+        torch.cuda.synchronize()
+        err = rel(z["grouped"], z["tree"])
+        check(err <= 1e-12, f"partri grouped 2D N={n} G={G} vs the tree")
+        graphs = {k: graph_replayed(pc.apply_flat, r.shape, dev) for k, pc in pcs.items()}
+        same = all(torch.equal(graphs[k](r), z[k]) for k in pcs)
+        order = ("tree", "grouped", "grouped", "tree")
+        issued = in_turns({k: (lambda pc=pc: pc.apply_flat(r)) for k, pc in pcs.items()}, order, 3, per_call=True)
+        replayed = in_turns({k: (lambda g=graphs[k]: g(r)) for k in pcs}, order, 10, per_call=True)
+        maps = {k: nbytes(pc) for k, pc in pcs.items()}
+        bounds = {k: bound(maps[k] + 16 * sys.nrows, maps[k] / 4)[0] for k in pcs}
+        count = {k: kernels(pc, r) for k, pc in pcs.items()}
+        print(f"partri ILU 2D N={n} monolithic, grouped G={G} against the tree: max rel diff {err:.3e} (bound "
+              f"1e-12); issued {turns_text(order, issued)} ms; CUDA graph {turns_text(order, replayed)} ms (graph "
+              f"results equal to the issued: {same}); kernels an apply tree {count['tree']}, grouped "
+              f"{count['grouped']} (torch.profiler); maps tree {maps['tree']} B, grouped {maps['grouped']} B; bound "
+              f"tree {bounds['tree']:.4f} ms, grouped {bounds['grouped']:.4f} ms (CUDA events, medians) on {smi}")
+        del graphs, pcs, z
 
 
 def partri_path(dev, smi, randn, t_start):
@@ -974,13 +1078,13 @@ def partri_path(dev, smi, randn, t_start):
               f"(bound 1e-12); sweep {ms:.4f} ms, structured_ilu_apply[gs] {wave_ms:.4f} ms (CUDA events, median of "
               f"20); maps {nbytes(swp)} B on {smi}")
     torch.cuda.synchronize()
+    partri_group_applies(dev, smi, randn)
     print(f"[{time.perf_counter() - t_start:.1f} s] partri checked against the wavefront kernels")
 
     # the path, counted: the host GMRES loop and the lexicographic Picard
     # with trisolve_backend=partri
     gsetups = {n: problem("quad", n, dev) for n in PARTRI_GMRES_COUNTS}
     psetups = [problem(e, n, dev) for e, n in PARTRI_PICARD_CASES]
-    flat = dict(_freeze(PRESETS["GMRES_ILU_PARTRI"]))
     kw = {k: PRESETS["GMRES_ILU_PARTRI"][f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
     torch.cuda.synchronize()
     _cuda.KERNEL_LAUNCHES.clear()
@@ -988,25 +1092,35 @@ def partri_path(dev, smi, randn, t_start):
         W, params, bcs, _, _ = gsetups[n]
         op = DPPOperator(W, params)
         r = newton_rhs(op, bcs)
-        t0 = time.perf_counter()
-        pc = _monolithic_pc(op, flat)
-        torch.cuda.synchronize()
-        setup = time.perf_counter() - t0
-        check(pc.__self__.trisolve_backend == "partri", f"2D N={n}: trisolve_backend=partri builds partri")
-        before = dict(_cuda.KERNEL_LAUNCHES)
-        t0 = time.perf_counter()
-        res = gmres(op.stacked_matvec(), r, M_inv=pc, restart=int(flat.get("ksp_gmres_restart", 30)), **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        used = {k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)}
-        print(f"host GMRES + partri ILU 2D N={n}: iterations {res.iterations} (published {count}), launches {used}, "
-              f"ILU set-up {setup * 1e3:.1f} ms, solve {wall * 1e3:.2f} ms ({wall * 1e6 / res.iterations:.2f} "
-              f"us/iteration; host clock) on {smi}")
-        check(res.iterations == count, f"2D N={n}: the host GMRES + partri ILU lands {count}")
-        check(used.get("fused_dpp_apply", 0) > res.iterations and "structured_ilu_apply" not in used,
-              f"2D N={n}: K1 is the matvec, the ILU runs no wavefront kernel")
-        check(bool(torch.isfinite(res.x).all()), "finite solution")
-        del pc
+        for preset in ("GMRES_ILU_PARTRI", "GMRES_ILU_PARTRI_GROUPED"):
+            flat = dict(_freeze(PRESETS[preset]))
+            group = int(flat.get("partri_group", 0))
+            t0 = time.perf_counter()
+            pc = _monolithic_pc(op, flat)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+            ilu_pc = pc.__self__
+            check(ilu_pc.trisolve_backend == "partri" and all(s.solver.G == group for s in ilu_pc.lower_solve),
+                  f"2D N={n}: trisolve_backend=partri, partri_group={group} builds partri so grouped")
+            if group:
+                # the grouped apply's ~10^4 small ops, issued op by op, cost
+                # 0.3 s an apply: the loop replays it from a CUDA graph
+                # (bit for bit the issued apply: partri_group_applies)
+                pc = graph_replayed(pc, r.shape, dev)
+            before = dict(_cuda.KERNEL_LAUNCHES)
+            t0 = time.perf_counter()
+            res = gmres(op.stacked_matvec(), r, M_inv=pc, restart=int(flat.get("ksp_gmres_restart", 30)), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = {k: v - before.get(k, 0) for k, v in _cuda.KERNEL_LAUNCHES.items() if v != before.get(k, 0)}
+            print(f"host GMRES + partri ILU (partri_group={group}) 2D N={n}: iterations {res.iterations} "
+                  f"(published {count}), launches {used}, ILU set-up {setup * 1e3:.1f} ms, solve {wall * 1e3:.2f} "
+                  f"ms ({wall * 1e6 / res.iterations:.2f} us/iteration; host clock) on {smi}")
+            check(res.iterations == count, f"2D N={n}: the host GMRES + partri ILU (group {group}) lands {count}")
+            check(used.get("fused_dpp_apply", 0) > res.iterations and "structured_ilu_apply" not in used,
+                  f"2D N={n}: K1 is the matvec, the ILU runs no wavefront kernel")
+            check(bool(torch.isfinite(res.x).all()), "finite solution")
+            del pc, ilu_pc
     picard = []
     for (element, n), (W, params, bcs, _, _) in zip(PARTRI_PICARD_CASES, psetups):
         before = dict(_cuda.KERNEL_LAUNCHES)
@@ -1115,19 +1229,18 @@ def conditioning_path(dev, smi, t_start):
 # phase 12, the h-convergence study. The published 2D table:
 # notebooks/results-conforming-2d/convergence.csv (quad N=4..128, five
 # approaches) and convergence_eoc.csv. Each approach's errors are held to the
-# CSV within 1.5e-10, but two routes. Plain GMRES: its iterate at rtol 1e-8
-# sits in a stagnation tail whose rounding it carries (at N=16 PETSc's
-# iterate is 2.4e-7 from the exact discrete solution in e1_L2; K4's, with
-# the same 292 iterations, 2.7e-9 from PETSc's, the CPU twin's 2.6e-10).
-# SS-GMRES+ILU: its route is K8, whose inner block solves are
-# tolerance-matched ILU-PCG, the JAX package's accelerator route, where PETSc
-# ran inner GMRES (2.4e-9 at N=8..32, 4.5e-8 at 64, 2.6e-5 at 128 in e1_L2,
-# on the card as on the CPU twin; the port's host route with literal inner
-# GMRES meets the CSV to 1.2e-12 at N=64). Iteration slack: the +-2 of the
-# Krylov phases at N=128.
+# CSV within 1.5e-10 and its EOC within 1e-8, SS-GMRES+ILU too: its route is
+# K8 with the preset's own inner GMRES + ILU blocks, as PETSc ran them (the
+# JAX package's native-f64 route). One route is held at 1e-8: plain GMRES,
+# whose iterate at rtol 1e-8 sits in a stagnation tail whose rounding it
+# carries (at N=16 PETSc's iterate is 2.4e-7 from the exact discrete
+# solution in e1_L2; K4's, with the same 292 iterations, 2.7e-9 from
+# PETSc's, the CPU twin's 2.6e-10; where the card first departs from the
+# CPU: plain_gmres_stages). Iteration slack: the +-2 of the Krylov phases at
+# N=128.
 CONV_NS = (4, 8, 16, 32, 64, 128)
-CONV_ERROR_BOUND = {"GMRES": 1e-8, "Scale-Splitting GMRES + ILU PC": 1e-4}  # else 1.5e-10
-CONV_EOC_BOUND = {"Scale-Splitting GMRES + ILU PC": 1e-5}  # else 1e-8 (K8: 5.3e-6 on the CPU twin)
+CONV_ERROR_BOUND = {"GMRES": 1e-8}  # else 1.5e-10
+CONV_EOC_BOUND = 1e-8
 CONV_SLACK = {("GMRES", 128): 2, ("GMRES + ILU PC", 128): 2}
 CONV_KERNELS = ("fused_gmres_df", "fused_gmres_df[fieldsplit_lu]", "fused_gmres_df[ilu]",
                 "fused_gmres_df[fieldsplit_ilu]", "fused_direct_solve")
@@ -1149,6 +1262,60 @@ DEGREE_P_GMRES = {  # against the direct solve, fields within 1e-8
     "fieldsplit": {"ksp_type": "gmres", "pc_type": "fieldsplit", "pc_fieldsplit_type": "multiplicative",
                    "ksp_rtol": 1e-12, "ksp_max_it": 20000},
 }
+
+
+def plain_gmres_stages(dev, smi) -> str:
+    """Phase 12's plain GMRES row at 2D N=16 on the card against the CPU,
+    stage by stage, bit for bit: the BC data (``bc_values_per_field``: the
+    expressions evaluated on each device), the lifted right-hand side (K1's
+    lift mode on the card, its twin on the CPU), the first residual ``b - A
+    x0`` (K1's matvec, its twin), and the solve (K4, the twin). In the chain
+    each device goes on from its own previous stage; alone, the card's stage
+    takes the CPU's input. Prints each and returns the chain's first stage
+    that differs ("none" where every stage is equal)."""
+    import torch
+
+    from perphil_tpu_torch.ops.assembly import DPPOperator, bc_values_per_field
+    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver
+
+    kw = {k: presets()["PLAIN_GMRES_PARAMS"][f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    (W, params, bcs, _, _), (Wc, _, bcsc, _, _) = problem("quad", 16, dev), problem("quad", 16, "cpu")
+    op, opc = DPPOperator(W, params), DPPOperator(Wc, params)
+
+    def residual(o, g):
+        b = o.lifted_rhs(*g)
+        bdry = o._mask_arrays[0]
+        x0 = [torch.where(bdry, gi, 0.0) for gi in g]
+        return b, torch.stack(o.residual(*x0, *b)).contiguous()
+
+    def solve(o, r):
+        solver = FusedGMRESSolver(o, "none", **kw)
+        return solver(r).x  # K4 on the card, the twin on the CPU
+
+    g_card, g_cpu = bc_values_per_field(W, bcs), bc_values_per_field(Wc, bcsc)
+    (b_card, r_card), (b_cpu, r_cpu) = residual(op, g_card), residual(opc, g_cpu)
+    stages = [  # name, the chain's card value, the card's value from the CPU's input, the CPU's
+        ("BC data", g_card, g_card, g_cpu),
+        ("lifted right-hand side", b_card, op.lifted_rhs(*(g.to(dev) for g in g_cpu)), b_cpu),
+        ("first residual", r_card, residual(op, [g.to(dev) for g in g_cpu])[1], r_cpu),
+        ("solution (K4, 292 iterations)", solve(op, r_card), solve(op, r_cpu.to(dev)), solve(opc, r_cpu)),
+    ]
+
+    def diff(a, b) -> str:
+        a, b = torch.stack(list(a)).cpu(), torch.stack(list(b))
+        if torch.equal(a, b):
+            return "equal"
+        return f"max abs diff {float((a - b).abs().max()):.3e} ({int((a != b).sum())} of {a.numel()} values)"
+
+    first = "none"
+    for name, chain, alone, cpu in stages:
+        chained, isolated = diff(chain, cpu), diff(alone, cpu)
+        print(f"plain GMRES quad N=16, card against CPU, {name}: chain {chained}; from the CPU's input "
+              f"{isolated} on {smi}")
+        if first == "none" and chained != "equal":
+            first = name
+    print(f"plain GMRES quad N=16: the first stage where the card leaves the CPU: {first}")
+    return first
 
 
 def convergence_path(dev, smi, t_start):
@@ -1243,10 +1410,11 @@ def convergence_path(dev, smi, t_start):
     for e in eoc:
         diff = abs(e["slope"] - pub_eoc[(e["solver"], e["err"])])
         worst[e["solver"]] = max(worst.get(e["solver"], 0.0), diff)
-        check(diff <= CONV_EOC_BOUND.get(e["solver"], 1e-8), f"EOC {e['solver']} {e['err']}")
+        check(diff <= CONV_EOC_BOUND, f"EOC {e['solver']} {e['err']}")
     print("convergence EOC, largest difference from convergence_eoc.csv per solver: "
           + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     print(f"convergence table: 30 rows in {table_wall:.2f} s (host clock) on {smi}")
+    plain_gmres_stages(dev, smi)
 
     # -- the study scripts' command lines on the card (their default device), into a
     # temporary directory: 2D at N=4/8 (degree 1 and 2, with the EOC) and 3D at hex N=4/8
@@ -1620,12 +1788,16 @@ def multichip_counts():
     return {label: int(its) for label, its in re.findall(r"dryrun_multichip\[(.*?)\]: its=(\d+)", tail)}
 
 
-def in_turns(runs: dict, order, calls: int = 20) -> dict:
-    """Each run's device time (``queued_ms``) in the given order of turns:
-    name -> its times, in order."""
+def in_turns(runs: dict, order, calls: int = 20, per_call: bool = False) -> dict:
+    """Each run's device time (``queued_ms`` of ``calls`` calls) in the given
+    order of turns: name -> its times, in order. ``per_call``: each call's
+    time instead (``time_ms``, median of ``calls``), for calls that read a
+    result back (the fused solvers), which the queue cannot hide."""
     times = {}
     for name in order:
-        times.setdefault(name, []).append(queued_ms(runs[name], calls=calls))
+        fn = runs[name]
+        times.setdefault(name, []).append(
+            time_ms(fn, repeats=calls, warmup=0) if per_call else queued_ms(fn, calls=calls))
     return times
 
 
@@ -1934,6 +2106,158 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     return counts
 
 
+# K8's two inner modes in turns (literal, pcg, pcg, literal), and at 2D
+# N=128 the literal host route of the same semantics (krylov.gmres, K1, the
+# fieldsplit with the blocks' own GMRES + structured_ilu_apply) in turns with
+# the literal kernel
+K8_TURN_NS = (16, 64, 128)
+K8_ORDER = ("literal", "pcg", "pcg", "literal")
+
+
+class RoleCase(collections.namedtuple(
+        "RoleCase", "element n pc role tol reps host_preset twin_its inner early",
+        defaults=("literal", False))):
+    """One fused GMRES role case: element, N, pc, role (None: the pc's),
+    bound on the rel diff to the twin, kernel repeats, the host loop's preset
+    where the TPU's gate sent the case there (None: no host-loop run), max_it
+    of the twin's comparison where the whole twin would take long (None: the
+    whole solve), K8's inner block solve, and whether the twin runs on the
+    card while nvcc builds (the long ones: ``role_twin_remote``)."""
+
+
+ROLE_CASES = [
+    RoleCase("quad", 8, "none", "fused_gmres_ef64", 0.0, 5, None, None),
+    RoleCase("quad", 16, "none", None, 0.0, 5, None, None),
+    RoleCase("quad", 64, "none", None, 0.0, 3, None, None),
+    RoleCase("quad", 64, "jacobi", None, 0.0, 3, None, None),
+    RoleCase("tet", 16, "none", None, 0.0, 3, None, None),
+    RoleCase("quad", 64, "ilu", None, 0.0, 3, None, None),
+    RoleCase("quad", 64, "fieldsplit_lu", None, 1e-10, 3, None, None),
+    RoleCase("tet", 8, "fieldsplit_lu", None, 1e-10, 3, None, None),
+    RoleCase("quad", 16, "fieldsplit_ilu", None, 1e-12, 3, None, None),
+    RoleCase("quad", 64, "fieldsplit_ilu", None, 0.0, 3, None, None),
+    RoleCase("quad", 64, "fieldsplit_ilu", None, 0.0, 3, None, None, "pcg", True),  # the TPU's PCG blocks
+    # the first outer step at N=128 (the kernel's inner basis in device
+    # memory, ~90 inner steps a block solve); k8_turns times the whole solve
+    RoleCase("quad", 128, "fieldsplit_ilu", None, 0.0, 1, None, 1, "literal", True),
+    # the published sizes the TPU's gate leaves to the host loop (8, 8,
+    # 32 and 8 leaves a thread in 2D); the host loop timed beside each
+    RoleCase("quad", 128, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None, early=True),
+    RoleCase("quad", 128, "ilu", None, 0.0, 3, "GMRES_ILU_PARAMS", None, early=True),
+    RoleCase("quad", 256, "ilu", None, 0.0, 3, "GMRES_ILU_PARAMS", 20, early=True),
+    RoleCase("tet", 32, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None, early=True),  # 16 leaves
+    RoleCase("tet", 40, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None, early=True),  # 32 leaves
+    # 3D preconditioned at 16 leaves: K6's eigenbases outside shared memory
+    RoleCase("tet", 32, "fieldsplit_lu", None, 1e-10, 3, "SS-GMRES", None),
+]
+
+
+def role_twin(case, dev, gmres_kw):
+    """One role case's problem and its twin's run on the card: the operator,
+    the solver's right-hand side (by K1's twin: no kernel, so that it can run
+    before the build), the compared solver (max_it ``twin_its`` where the
+    case gives one), the twin's result and time (CUDA events), and its inner
+    block solves (iterations, solves), all of them and without its repeated
+    first application: ``krylov.gmres`` applies P(b - A x0) twice (the first
+    norm, then the first cycle), the kernel once."""
+    from perphil_tpu_torch.ops.assembly import DPPOperator
+    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver
+
+    W, params, bcs, _, _ = problem(case.element, case.n, dev)
+    op = DPPOperator(W, params)
+    r = newton_rhs(op, bcs, plain=True)  # the kernel takes the same r
+    max_it = gmres_kw["max_it"] if case.twin_its is None else case.twin_its
+    cmp = FusedGMRESSolver(op, case.pc, case.role, **{**gmres_kw, "max_it": max_it}, inner_ksp=case.inner)
+    seen = []  # the inner counts after each application of the twin's preconditioner
+    plain_pc = cmp.plain_pc
+
+    def counted():
+        pc = plain_pc()
+        if pc is None:
+            return None
+
+        def apply(v):
+            y = pc(v)
+            seen.append((cmp.inner_iterations, cmp.inner_solves))
+            return y
+
+        return apply
+
+    cmp.plain_pc = counted
+    try:
+        ref, plain_ms = timed_once(lambda: cmp.plain(r))
+    finally:
+        del cmp.plain_pc
+    twin = (cmp.inner_iterations, cmp.inner_solves)
+    once = (twin[0] - seen[0][0], twin[1] - seen[0][1]) if seen else twin
+    return op, r, cmp, ref, plain_ms, twin, once
+
+
+def role_twin_remote(case, gmres_kw):
+    """``role_twin`` on the card in a worker process, while nvcc builds: the
+    right-hand side and the twin's x (on the host), count, residual,
+    convergence, time and inner counts. A worker launches no kernel (its
+    process has no library built)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(HERE))
+    from perphil_tpu_torch.ops import _cuda
+
+    _, r, _, ref, plain_ms, twin, once = role_twin(case, torch.device("cuda", torch.cuda.current_device()), gmres_kw)
+    check(_cuda._LIB is None, f"the twin of {case} launched no kernel")
+    return (r.cpu().numpy(), ref.x.cpu().numpy(), ref.iterations, ref.residual_norm, ref.converged, plain_ms,
+            twin, once)
+
+
+def k8_turns(dev, smi, gmres_kw):
+    """Times K8 in its two inner modes in turns at 2D N=16/64/128 on the
+    solver's own right-hand side, with each mode's outer and inner counts and
+    the literal kernel's bound from its own inner work; at N=128 the host
+    route of the literal semantics in turns with the kernel."""
+    import torch
+
+    from perphil_tpu_torch.ops.assembly import DPPOperator
+    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver
+    from perphil_tpu_torch.ops.krylov import gmres
+    from perphil_tpu_torch.solvers.solver import _freeze, _monolithic_pc
+
+    for n in K8_TURN_NS:
+        W, params, bcs, _, _ = problem("quad", n, dev)
+        op = DPPOperator(W, params)
+        r = newton_rhs(op, bcs)
+        modes = {m: FusedGMRESSolver(op, "fieldsplit_ilu", **gmres_kw, inner_ksp=m) for m in ("literal", "pcg")}
+        runs = {m: s.launch(r) for m, s in modes.items()}
+        torch.cuda.synchronize()
+        reps = 2 if n >= 128 else 3
+        times = in_turns({m: (lambda s=s: s.launch(r)) for m, s in modes.items()}, K8_ORDER, reps, per_call=True)
+        counts = {m: (runs[m].iterations, *modes[m].launch_inner) for m in modes}
+        print(f"K8 quad N={n} in turns: {turns_text(K8_ORDER, times)} ms; "
+              f"literal {counts['literal'][0]} iterations, inner GMRES {counts['literal'][1]} in "
+              f"{counts['literal'][2]} solves; pcg {counts['pcg'][0]} iterations, inner PCG {counts['pcg'][1]} in "
+              f"{counts['pcg'][2]} solves (CUDA events, median of {reps}) on {smi}")
+        check(runs["literal"].iterations == runs["pcg"].iterations == 4, f"K8 quad N={n}: 4 outer iterations")
+        solver = modes["literal"]
+        literal_bound = bound(*fused_gmres_work(solver, op, runs["literal"].iterations))
+        print(f"  K8 literal quad N={n}: bound {literal_bound[0]:.4f} ms ({literal_bound[1]}; the kernel's own "
+              f"inner work, {counts['literal'][1]} inner steps)")
+        if n == 128:
+            flat = dict(_freeze(presets()["SS-GMRES+ILU"]))
+            mv, pc_host = op.stacked_matvec(), _monolithic_pc(op, flat)
+
+            def host():
+                return gmres(mv, r, M_inv=pc_host, restart=int(flat.get("ksp_gmres_restart", 30)), **gmres_kw)
+
+            host_res = host()
+            order = ("kernel", "host", "host", "kernel")
+            hosted = in_turns({"kernel": lambda: solver.launch(r), "host": host}, order, 1, per_call=True)
+            diff = rel(host_res.x, runs["literal"].x)
+            print(f"  K8 literal vs its host route at quad N=128 in turns: {turns_text(order, hosted)} ms "
+                  f"(CUDA events around each call); host route {host_res.iterations} iterations, fields "
+                  f"{diff:.3e} from the kernel's")
+            check(host_res.iterations == 4 and diff <= 1e-12, "K8 literal vs the literal host route at quad N=128")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1968,7 +2292,7 @@ def main() -> int:
     from perphil_tpu_torch.ops.ilu import StructuredILU0
     from perphil_tpu_torch.solvers import parameters as sp
     from perphil_tpu_torch.solvers import solve_dpp
-    from perphil_tpu_torch.ops.krylov import _norm, gmres
+    from perphil_tpu_torch.ops.krylov import KrylovResult, _norm, gmres
     from perphil_tpu_torch.solvers.solver import (
         _build_linear_solver,
         _build_nonlinear_solver,
@@ -2001,7 +2325,7 @@ def main() -> int:
     # no kernel), and its probe build beside the package's; both are
     # collected, and the twins' workers stopped, before phase 3 times
     # anything
-    global _GS_POOL
+    global _GS_POOL, _TWIN_POOL
     import multiprocessing
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2010,6 +2334,12 @@ def main() -> int:
 
     _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS)
     gs_pending = {case: _GS_POOL.apply_async(gs_twin, (case,)) for case in GS_TWIN_CASES}
+    # the fused GMRES roles' long twins run on the card (plain PyTorch, no
+    # kernel) in worker processes of their own
+    gmres_kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    _TWIN_POOL = multiprocessing.get_context("spawn").Pool(TWIN_WORKERS)
+    twins_pending = {case: _TWIN_POOL.apply_async(role_twin_remote, (case, gmres_kw))
+                     for case in ROLE_CASES if case.early}
     probe_pool = ThreadPoolExecutor(2)
     gs_probe_pending = probe_pool.submit(probe_library)
     halo_probe_pending = probe_pool.submit(halo_probe_library)
@@ -2018,6 +2348,9 @@ def main() -> int:
     info = _cuda.BUILD_INFO
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s, cached={info['cached']})")
     print(f"library: {info['path']}")
+    units = sorted(info.get("units", {}).items(), key=lambda kv: -kv[1])
+    if units:
+        print("  nvcc units, each done at (s): " + ", ".join(f"{name} {t:.1f}" for name, t in units))
     # ptxas -v, one line a kernel: registers, stack, spills, static shared memory
     entry, stack = "", ""
     for line in str(info.get("log", "")).splitlines():
@@ -2046,6 +2379,13 @@ def main() -> int:
     print(f"fused_gs's twins ({', '.join(f'{c[0]} N={c[1]} {gs_twins[c][-1]:.1f} s' for c in GS_TWIN_CASES)}, on "
           f"{GS_WORKERS} workers beside nvcc) and its probe build ready {time.perf_counter() - t0:.1f} s after the "
           f"package's build; the workers stopped")
+    t0 = time.perf_counter()
+    early_twins = {case: pending.get(timeout=900) for case, pending in twins_pending.items()}
+    _TWIN_POOL.close()
+    _TWIN_POOL.join()
+    done = ", ".join(f"{c.pc} {c.element} N={c.n} {early_twins[c][5] / 1e3:.1f} s" for c in early_twins)
+    print(f"the fused GMRES roles' long twins ({done}; CUDA events, on the card in {TWIN_WORKERS} workers beside "
+          f"nvcc) ready {time.perf_counter() - t0:.1f} s after fused_gs's; the workers stopped")
 
     # -- 3. kernels against their twins (not counted) ---------------------
     results = {}
@@ -2200,52 +2540,35 @@ def main() -> int:
 
     # the fused GMRES roles against their twin (on the card), on the
     # solver's own right-hand sides; the twin is timed in its check run
-    gmres_kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
-    role_cases = [  # element, N, pc, role (None: the pc's), bound on the rel diff, kernel repeats,
-        # the host loop's preset where the TPU's gate sent the case there (None: no host-loop run),
-        # max_it of the twin's comparison where the whole twin would take long (None: the whole solve)
-        ("quad", 8, "none", "fused_gmres_ef64", 0.0, 5, None, None),
-        ("quad", 16, "none", None, 0.0, 5, None, None),
-        ("quad", 64, "none", None, 0.0, 3, None, None),
-        ("quad", 64, "jacobi", None, 0.0, 3, None, None),
-        ("tet", 16, "none", None, 0.0, 3, None, None),
-        ("quad", 64, "ilu", None, 0.0, 3, None, None),
-        ("quad", 64, "fieldsplit_lu", None, 1e-10, 3, None, None),
-        ("tet", 8, "fieldsplit_lu", None, 1e-10, 3, None, None),
-        ("quad", 16, "fieldsplit_ilu", None, 1e-12, 3, None, None),
-        ("quad", 64, "fieldsplit_ilu", None, 0.0, 3, None, None),
-        # the published sizes the TPU's gate leaves to the host loop (8, 8,
-        # 32 and 8 leaves a thread in 2D); the host loop timed beside each
-        ("quad", 128, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),
-        ("quad", 128, "ilu", None, 0.0, 3, "GMRES_ILU_PARAMS", None),
-        ("quad", 256, "ilu", None, 0.0, 3, "GMRES_ILU_PARAMS", 20),
-        ("quad", 128, "fieldsplit_ilu", None, 0.0, 3, "SS-GMRES+ILU", 2),
-        ("tet", 32, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),  # 16 leaves
-        ("tet", 40, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None),  # 32 leaves
-        # 3D preconditioned at 16 leaves: K6's eigenbases outside shared memory
-        ("tet", 32, "fieldsplit_lu", None, 1e-10, 3, "SS-GMRES", None),
-    ]
-    for element, n, pc, role, tol, reps, host_preset, twin_its in role_cases:
-        W, params, bcs, _, _ = problem(element, n, dev)
-        op = DPPOperator(W, params)
-        r = newton_rhs(op, bcs)
-        solver = FusedGMRESSolver(op, pc, role, **gmres_kw)
-        got = solver.launch(r)
-        torch.cuda.synchronize()
+    # the fused GMRES roles against their twin (on the card), on the
+    # solver's own right-hand sides; the long twins ran during the build
+    for case in ROLE_CASES:
+        element, n, pc, role, tol, reps, host_preset, twin_its, inner, _ = case
+        if case.early:  # the twin ran in a worker: its right-hand side and result back on the card
+            r, x, its, rnorm, conv, plain_ms, twin, once = early_twins[case]
+            W, params, _, _, _ = problem(element, n, dev)
+            op = DPPOperator(W, params)
+            r = torch.from_numpy(r).to(dev)
+            cmp = FusedGMRESSolver(op, pc, role, **{**gmres_kw, "max_it": twin_its or gmres_kw["max_it"]},
+                                   inner_ksp=inner)
+            ref = KrylovResult(torch.from_numpy(x).to(dev), its, rnorm, conv)
+        else:
+            op, r, cmp, ref, plain_ms, twin, once = role_twin(case, dev, gmres_kw)
         # the twin on the whole solve, or where that takes long on the first
         # twin_its steps (the whole solve's count is held on the paths below)
-        cmp = solver if twin_its is None else FusedGMRESSolver(op, pc, role, **{**gmres_kw, "max_it": twin_its})
+        solver = cmp if twin_its is None else FusedGMRESSolver(op, pc, role, **gmres_kw, inner_ksp=inner)
+        got = solver.launch(r)
         mine = got if twin_its is None else cmp.launch(r)
         torch.cuda.synchronize()
-        ref, plain_ms = timed_once(lambda: cmp.plain(r))
         abs_err = float((mine.x - ref.x).abs().max())
         err = abs_err / float(ref.x.abs().max())
-        tag = f"{element} N={n} pc {pc}"
+        tag = f"{element} N={n} pc {pc}" + (" inner pcg" if inner == "pcg" else "")
+        kind = "GMRES" if solver.inner_tols()[3] else "PCG"
         print(f"{solver.role} {tag}: iterations {mine.iterations} vs twin {ref.iterations}"
               + (f" (max_it {twin_its}; the whole solve {got.iterations})" if twin_its else "")
               + f", max rel diff vs twin {err:.3e} (bound {tol:g}), max abs diff {abs_err:.3e}"
-              + (f", twin inner PCG {cmp.inner_iterations} iterations in {cmp.inner_solves} solves"
-                 if cmp.inner_solves else ""))
+              + (f", twin inner {kind} {twin[0]} iterations in {twin[1]} solves" if twin[1] else "")
+              + (" (twin run in a worker during the build)" if case.early else ""))
         check(mine.iterations == ref.iterations and mine.converged == ref.converged, f"{solver.role} {tag} count")
         check(err <= tol, f"{solver.role} {tag} vs twin")
         geo = solver.last_geometry
@@ -2258,15 +2581,9 @@ def main() -> int:
               f"inner p in shared memory: {geo.p_smem}, "
               f"eigenbases in shared memory: {geo.s_smem}, {ms:.4f} ms, "
               f"{ms * 1e3 / max(got.iterations, 1):.3f} us/iteration")
-        if cmp.inner_solves:
-            twin = (cmp.inner_iterations, cmp.inner_solves)
-            # krylov.gmres applies P(b - A x0) twice (the first norm, then the
-            # first cycle); the kernel once: its counts lack one application's
-            cmp.inner_iterations = cmp.inner_solves = 0
-            cmp.plain_pc()(r)
-            once = (twin[0] - cmp.inner_iterations, twin[1] - cmp.inner_solves)
+        if twin[1]:
             inner_its, inner_solves = solver.launch_inner
-            line = (f"  {solver.role} {tag}: kernel inner PCG {inner_its} iterations in {inner_solves} solves "
+            line = (f"  {solver.role} {tag}: kernel inner {kind} {inner_its} iterations in {inner_solves} solves "
                     f"(compared run: kernel {cmp.launch_inner[0]} in {cmp.launch_inner[1]}, twin {twin[0]} in "
                     f"{twin[1]}, {once[0]} in {once[1]} without its repeated first application), "
                     f"{ms * 1e3 / max(inner_its, 1):.3f} us per inner iteration")
@@ -2294,13 +2611,15 @@ def main() -> int:
             max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound=bound(*fused_gmres_work(solver, op, got.iterations)),
             shape=f"{tag}, {got.iterations} iterations, {blocks} blocks"
-            + (f"; twin on the first {twin_its}" if twin_its else ""),
+            + (f"; twin on the first {twin_its}" if twin_its else "")
+            + ("; twin timed in a worker during the build" if case.early else ""),
         )
     results["fused_gmres_ef64"] = results["fused_gmres_ef64@quad N=8 pc none"]
     results["fused_gmres_df"] = results["fused_gmres_df@quad N=64 pc none"]
     results["fused_gmres_df[ilu]"] = results["fused_gmres_df[ilu]@quad N=64 pc ilu"]
     results["fused_gmres_df[fieldsplit_lu]"] = results["fused_gmres_df[fieldsplit_lu]@quad N=64 pc fieldsplit_lu"]
     results["fused_gmres_df[fieldsplit_ilu]"] = results["fused_gmres_df[fieldsplit_ilu]@quad N=64 pc fieldsplit_ilu"]
+    k8_turns(dev, smi, gmres_kw)
 
     print(f"[{time.perf_counter() - t_start:.1f} s] fused GMRES roles checked")
 
@@ -2794,4 +3113,7 @@ if __name__ == "__main__":
         if _GS_POOL is not None:  # the twins' workers stop with the script, whatever its end
             _GS_POOL.terminate()
             _GS_POOL.join()
+        if _TWIN_POOL is not None:
+            _TWIN_POOL.terminate()
+            _TWIN_POOL.join()
     sys.exit(code)

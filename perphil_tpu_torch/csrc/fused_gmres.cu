@@ -4,7 +4,9 @@
 #include "fused_gmres.cuh"
 
 // b, x0, x: (2, nz*ny*nx) f64; V: (restart + 1) * 2 * nodes f64 scratch;
-// work: 10 * nodes f64 scratch (pc >= 2, else unused); xchg: 4096 f64 of
+// work: 10 * nodes f64 scratch (pc >= 2, else unused), and for pc 4 with
+// in_restart > 0 (the literal inner GMRES) (in_restart + 1) * nodes more and
+// kInnerStateDoubles for each block of the cluster; xchg: 4096 f64 of
 // scratch (the reductions' exchange between blocks); result: kResultSlots
 // f64 (fused_gmres.cuh);
 // weights: 81 host doubles
@@ -16,7 +18,9 @@
 // Sx, Sy, Sz (n x n per axis; Sz unused in 2D; equal matrices may share one
 // pointer, and are then copied to shared memory once) and sc (2, nint). Unused
 // pointers may be null. restart + 1 <= 32. max_level_rows: the rows of the
-// schedule's widest level (pc 3, 4).
+// schedule's widest level (pc 3, 4). in_rtol, in_atol, in_max: the
+// fieldsplit roles' inner block solve; in_restart > 0 (pc 4 only, at most
+// kMaxBasis - 1) makes it GMRES(in_restart) with divergence at in_dtol, 0 PCG.
 #ifndef PERPHIL_FUSED_GMRES_SYMBOL
 #define PERPHIL_FUSED_GMRES_SYMBOL perphil_fused_gmres
 #endif
@@ -30,10 +34,11 @@ extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, dou
                                    int dim, int pc, int noffs, int nlev, double rtol, double atol,
                                    double dtol, int max_it, int restart, double coef,
                                    double in_rtol, double in_atol, int in_max,
-                                   int max_level_rows, void* stream) {
+                                   int in_restart, double in_dtol, int max_level_rows, void* stream) {
   using namespace perphil;
   if (xchg == nullptr || (dim != 2 && dim != 3) || nx < 1 || ny < 1 || nz < 1 || (dim == 2 && nz != 1) ||
-      restart < 1 || restart + 1 > kMaxBasis || pc < kPcNone || pc > kPcFieldsplitIlu) {
+      restart < 1 || restart + 1 > kMaxBasis || pc < kPcNone || pc > kPcFieldsplitIlu || in_restart < 0 ||
+      in_restart + 1 > kMaxBasis || (in_restart > 0 && pc != kPcFieldsplitIlu)) {
     return (int)cudaErrorInvalidValue;
   }
   const bool ilu = pc == kPcIlu || pc == kPcFieldsplitIlu;
@@ -57,8 +62,8 @@ extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, dou
   }
   const GmresArgs a{b, x0, x, V, xchg, result, max_level_rows, weights_from_host<double>(weights),
                     Grid{nz, ny, nx},
-                    GmresParams{rtol, atol, dtol, max_it, restart, in_rtol, in_atol, in_max,
-                                coef, stencil_masks(weights_from_host<double>(weights))},
+                    GmresParams{rtol, atol, dtol, max_it, restart, in_rtol, in_atol, in_max, in_restart,
+                                in_dtol, coef, stencil_masks(weights_from_host<double>(weights))},
                     PcData{dinv, F0L, F0U, F1L, F1U, level_ptr, level_rows, nlev, Sx, Sy, Sz, sc, work},
                     tab, dim};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -13,8 +13,10 @@
 //       :1403-1414 and :1416-1481 apply it): multiplicative 2x2 fieldsplit
 //       whose blocks are inner PCGs to 1e-13 with a fast-diag preconditioner;
 //   K7  pc ilu (:1229-1231, :1375-1385): monolithic ILU(0) wavefront sweeps;
-//   K8  pc fieldsplit_ilu (:1232-1236, :1393-1402): K6's frame with inner
-//       ILU(0)-PCG to 1e-8 / 1e-12.
+//   K8  pc fieldsplit_ilu (:1232-1236, :1393-1402): K6's frame whose blocks
+//       are the preset's own GMRES(30) + ILU(0) to 1e-8 / 1e-12 (in_restart
+//       > 0, the JAX package's native-f64 _block_solver), or the TPU
+//       kernel's ILU(0)-PCG at those tolerances (in_restart 0).
 // The TPU needs double-float (K4, K6-K8) and f32 triples (K5) only because
 // Mosaic has no f64; here every role is native f64, and the wrapper counts
 // a launch under the role's name.
@@ -28,8 +30,10 @@
 // same pairwise halving tree as the twin's tree_sum, and every multiply and
 // add rounds on its own (__dmul_rn/__dadd_rn: nvcc would otherwise contract
 // them into FMAs). The matvecs keep apply_stencil's order (S pass, C pass,
-// then their sum), which is not K1's interleaved, contracted order. The ILU sweeps (ilu_sweep.cuh) and the inner PCG keep the twin's
-// order too, so K7 and K8 equal their twins bit for bit; K6's fast-diag
+// then their sum), which is not K1's interleaved, contracted order. The ILU
+// sweeps (ilu_sweep.cuh) and the inner block solves (PCG, or K8's literal
+// GMRES, the frame's own parts on one field) keep the twin's order too, so
+// K7 and K8 equal their twins bit for bit; K6's fast-diag
 // transforms sum in another order than torch.matmul's, so K6 agrees with its
 // twin to rounding.
 //
@@ -65,14 +69,20 @@
 //   - The Givens chain, R, g and the back-substitution run in every block
 //     on thread 0, redundantly: the same bits, no broadcast.
 //   - basis_comb is a fixed-depth tree over k with independent loads.
-//   - The fieldsplit roles' inner PCG (K6, K8) runs on every block too, with
+//   - The fieldsplit roles' inner block solves (K6, K8) run on every block
+//     too, with
 //     the frame's ownership over one field's n values, its slices in the
 //     shared memory the matvec's input copy leaves free while the
 //     preconditioner runs, and its dots on the cluster tree. K6's fast-diag
 //     is a small dense product per axis, lines spread over the blocks, one
 //     cluster barrier a phase; K8's ILU(0) sweeps stay on block 0 (a 2D
 //     field's levels hold at most ~N/2 rows: one warp's work), between two
-//     cluster barriers. K7 sweeps on block 0 alone.
+//     cluster barriers. K7 sweeps on block 0 alone. K8's literal inner
+//     GMRES keeps its basis ((in_restart + 1) n values) in device scratch
+//     and its Givens state (R, g, cs, sn) in device scratch of each block's
+//     own, read by thread 0; the frame's h, y and scal, dead while the
+//     preconditioner runs, carry its dots, back-substitution and norms. Its
+//     shared-memory plan is the PCG mode's.
 //
 // Reductions. The halving tree over L values zero-padded to Lt reduces the
 // high bits of e first: s (the thread's own leaves, a pairwise tree in
@@ -96,6 +106,10 @@ constexpr int kMaxBasis = 32;     // m + 1
 constexpr int kMaxLogS = 5;       // the frame: leaves per thread <= 32
 constexpr int kMaxCluster = 16;   // blocks sharing one vector
 constexpr int kXchgDoubles = 2 * kMaxBasis * 4 * kMaxCluster;  // two reduction exchange regions
+// f64 of one block's inner GMRES Givens state: R (kMaxBasis columns of
+// kMaxBasis), g (kMaxBasis + 1), cs and sn (kMaxBasis each), rounded up to
+// 256-byte pieces (ops/fused_gmres.py reads this line)
+constexpr int kInnerStateDoubles = 1152;
 // The dynamic shared memory every launch plans with, on every role: the
 // block's 227 KB (kMaxSmemPerBlock, 232,448 B) less the kernel's static
 // shared memory (the reductions' partials, R, the Givens state and the
@@ -134,8 +148,10 @@ inline StencilMasks stencil_masks(const DppWeights<double>& w) {
 struct GmresParams {
   double rtol, atol, dtol;
   int max_it, restart;
-  double in_rtol, in_atol;  // the fieldsplit roles' inner PCG
+  double in_rtol, in_atol;  // the fieldsplit roles' inner block solve
   int in_max;
+  int in_restart;           // K8: > 0 the literal inner GMRES(in_restart), 0 the PCG
+  double in_dtol;           // the inner GMRES's divergence tolerance
   double coef;  // -(beta/mu), the coupling's scale
   StencilMasks nz;
 };
@@ -150,7 +166,9 @@ struct PcData {
   const int* level_rows;
   int nlev;
   const double *Sx, *Sy, *Sz, *sc;     // fieldsplit_lu: 1D eigenbases, (2, nint) mode scales
-  double* work;                        // scratch, 10n f64 (pc >= 2): t (2n), then the inner PCG's (below)
+  double* work;                        // scratch (pc >= 2): t (2n), the inner solve's buffers (10n in
+                                       // all), then K8's literal inner GMRES: its basis
+                                       // ((in_restart + 1) n) and each block's kInnerStateDoubles
 };
 
 struct PcTables {
@@ -182,8 +200,8 @@ struct GmresGeom {
 // doubles of a launch's result before the profile units' phase counters:
 // iterations, residual norm, converged, blocks, basis slice in shared memory,
 // ILU z in shared memory, matvec input in shared memory, p in shared
-// memory, eigenbases in shared memory, and the fieldsplit roles' inner PCG
-// iterations and solves
+// memory, eigenbases in shared memory, and the fieldsplit roles' inner block
+// solves' iterations and solves (PCG or GMRES)
 constexpr int kResultSlots = 11;
 
 // Host: blocks for L values: min(kMaxCluster, Lt / kGmresThreads).

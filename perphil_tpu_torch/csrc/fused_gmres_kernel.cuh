@@ -15,11 +15,11 @@ namespace cg = cooperative_groups;
 // translation unit that defines PERPHIL_GMRES_PROFILE gets a kernel whose
 // thread 0 of each block adds the cycles between marks to its block's
 // counters; block 0's land in result[kResultSlots + phase]. The kIn* phases
-// split the fieldsplit roles' inner PCG (the rest of a preconditioner
-// application stays in kProfApply).
+// split the fieldsplit roles' inner block solves, PCG or GMRES (the rest of a
+// preconditioner application stays in kProfApply).
 enum ProfPhase {
   kProfApply, kProfDots, kProfNorm, kProfGivens, kProfScale, kProfSync, kProfRestart,
-  kProfInPc, kProfInMatvec, kProfInDots, kProfInUpdate, kProfPhases
+  kProfInPc, kProfInMatvec, kProfInDots, kProfInUpdate, kProfInGivens, kProfPhases
 };
 #ifdef PERPHIL_GMRES_PROFILE
 __shared__ long long prof[kProfPhases], prof_t0;
@@ -377,22 +377,34 @@ struct PcView {
   int n, nint;
 };
 
-// The fieldsplit roles' inner PCG, spread over the cluster as the frame's
-// GMRES is: a block owns the field's values by the frame's rule (o, with a
-// thread's leaves for n values), keeps its slices of x, r, z, p and A p in
-// shared memory and takes every dot on the cluster tree, which rounds as the
-// twin's tree_sum. Vectors that cross blocks (p for the field matvec, r for
-// the preconditioner, its z) go through device memory behind a cluster
-// barrier; the field matvec reads p from a shared-memory copy where it fits.
+// The fieldsplit roles' inner block solve (PCG, or K8's literal GMRES),
+// spread over the cluster as the frame's GMRES is: a block owns the field's
+// values by the frame's rule (o, with a thread's leaves for n values), keeps
+// its slices of the solve's vectors in shared memory and takes every dot on
+// the cluster tree, which rounds as the twin's tree_sum. Vectors that cross
+// blocks (p or a basis vector for the field matvec, r for the
+// preconditioner, its z) go through device memory behind a cluster barrier;
+// the field matvec reads its input from a shared-memory copy where it fits.
 struct FieldPcg {
   Own o;
   int n, lines, nmax;
   double *xs, *rs, *zs, *ps, *aps;       // shared memory: the block's slices
   double* lb;                            // K6: two line buffers of lines x nmax
-  double* pfull;                         // shared memory: p for the field matvec, or null
+  double* pfull;                         // shared memory: the field matvec's input, or null
   double* sm;                            // K6: the eigenbases' copy, or null
   double *pbuf, *rbuf, *zbuf, *t1, *t2;  // device memory, n each
+  double* vin;                           // K8 literal: the inner basis, (in_restart + 1) x n
+  double* gstate;                        // K8 literal: kInnerStateDoubles a block
   int* counts;                           // shared memory: inner iterations, solves
+};
+
+// The frame's scalars in shared memory that are dead while its
+// preconditioner runs (written again only after it): the inner solves take
+// them for their trees' outputs and back-substitution.
+struct FrameScalars {
+  double* h;     // kMaxBasis + 1
+  double* y;     // kMaxBasis
+  double* scal;  // 2
 };
 
 // z = P_f r for one field's block (FastDiagFieldSolver.solve, K6) on every
@@ -619,14 +631,189 @@ __device__ __noinline__ void inner_pcg(const PcView& pv_in, const FieldPcg& fp_i
   rd_in = rd;
 }
 
+// K8's literal inner block solve (FusedGMRESSolver._inner_gmres, the JAX
+// package's native _block_solver): krylov.gmres on field f's block from x =
+// 0, left-preconditioned by the field's ILU(0), GMRES(in_restart) with the
+// frame's arithmetic: CGS with the j + 1 dots of a step in one tree, the
+// update w -= sum_k h[k] V_k in tree_sum's order over the rows, the Givens
+// chain and back-substitution on thread 0 rounding each operation, and
+// PETSc's stopping tests (max(rtol ||P rhs||, atol), max_it, divergence at
+// in_dtol ||P rhs||, a non-finite estimate, a cycle with no step). The twin
+// computes P(rhs - A 0) twice before its first cycle, this once (the same
+// bits). Every thread of every block calls it; rhs (n values) is complete in
+// device memory, and so is xout after the caller's next cluster barrier.
+// A step crosses the cluster barrier for the basis vector, for A v (the
+// sweep's input), inside the preconditioner, in the dots' and the norm's
+// trees and for the new basis vector. The basis lives in device memory (own
+// values read back by their owner, whole vectors past L1); each block's
+// thread 0 keeps R, g, cs and sn in its piece of device scratch.
+template <int D, int PC>
+__device__ __noinline__ void inner_gmres(const PcView& pv_in, const FieldPcg& fp_in, int f, const double* rhs,
+                                         double* xout, const Grid g, const GmresParams& prm, Reducer& rd_in,
+                                         const FrameScalars& fs_in) {
+  PERPHIL_PROF(kProfApply);
+  const PcView pv = pv_in;
+  const FieldPcg fp = fp_in;
+  const FrameScalars fs = fs_in;
+  Reducer rd = rd_in;
+  const double rtol = prm.in_rtol, atol = prm.in_atol, dtol = prm.in_dtol;
+  const int max_it = prm.in_max, m = prm.in_restart;
+  const double* const wf = pv.tab->sw[f];
+  const int n = fp.n;
+  const size_t ldv = (size_t)n;
+  double* const V = fp.vin;
+  double* const R = fp.gstate + (size_t)fp.o.b * kInnerStateDoubles;  // R[column * kMaxBasis + row]
+  double* const gv = R + kMaxBasis * kMaxBasis;
+  double* const cs = gv + kMaxBasis + 1;
+  double* const sn = cs + kMaxBasis;
+  auto own = [&](auto fn) {
+    for (int s = 0; s < (1 << fp.o.log_s); ++s) {
+      const int i = fp.o.slot(s), e = fp.o.elem(i);
+      if (e < n) fn(i, e);
+    }
+  };
+  auto tree = [&](int rows, double* out, auto val) {
+    cluster_tree_rows(rd, fp.o, rows, out, [&](int k, int s) {
+      const int i = fp.o.slot(s), e = fp.o.elem(i);
+      return e < n ? val(k, i, e) : 0.0;
+    });
+  };
+  // zs = P(A v), or P(sub - A v) where sub is given: v complete in device
+  // memory behind a cluster barrier
+  auto apply = [&](const double* v, const double* sub) {
+    if (fp.pfull != nullptr) {
+      for (int e = threadIdx.x; e < n; e += blockDim.x) fp.pfull[e] = __ldcg(v + e);
+      __syncthreads();
+    }
+    own([&](int, int e) {
+      double a = fp.pfull != nullptr ? field_apply_ordered<D, false>(fp.pfull, wf, g, e)
+                                     : field_apply_ordered<D, true>(v, wf, g, e);
+      if (sub != nullptr) a = __dsub_rn(__ldcg(sub + e), a);
+      fp.rbuf[e] = a;
+    });
+    PERPHIL_PROF(kProfInMatvec);
+    cg::this_cluster().sync();
+    field_pc<D, PC>(pv, fp, f, fp.rbuf, g);
+    own([&](int i, int e) { fp.zs[i] = __ldcg(fp.zbuf + e); });
+    PERPHIL_PROF(kProfInPc);
+  };
+  // ||zs||
+  auto norm = [&]() {
+    tree(1, fs.scal, [&](int, int i, int) { return __dmul_rn(fp.zs[i], fp.zs[i]); });
+    PERPHIL_PROF(kProfInDots);
+    return __dsqrt_rn(fs.scal[0]);
+  };
+  // x = 0, and the twin's first residual P(rhs - A 0)
+  own([&](int i, int e) {
+    fp.xs[i] = 0.0;
+    fp.pbuf[e] = 0.0;
+  });
+  cg::this_cluster().sync();
+  apply(fp.pbuf, rhs);
+  double beta = norm();
+  const double t_rel = __dmul_rn(rtol, beta);
+  const double tol = atol > t_rel ? atol : t_rel;  // Python's max(rtol * rnorm, atol)
+  const double div = __dmul_rn(dtol, beta);
+  const double tol0 = 0.0 > tol ? 0.0 : tol;
+  double rnorm = beta;
+  bool done = rnorm <= tol;
+  int its = 0;
+  bool first = true;
+  while (!done) {
+    if (!first) {
+      // r = P(rhs - A x): x to device memory for the matvec
+      own([&](int i, int e) { fp.pbuf[e] = fp.xs[i]; });
+      cg::this_cluster().sync();
+      apply(fp.pbuf, rhs);
+      beta = norm();
+    }
+    first = false;
+    own([&](int i, int e) { V[e] = beta > 0.0 ? __ddiv_rn(fp.zs[i], beta) : fp.zs[i]; });
+    if (threadIdx.x == 0) {
+      gv[0] = beta;
+      for (int i = 1; i <= m; ++i) gv[i] = 0.0;
+    }
+    cg::this_cluster().sync();
+    PERPHIL_PROF(kProfInUpdate);
+    int j = 0;
+    rnorm = beta;
+    while (j < m && its < max_it && rnorm > tol0 && rnorm <= div) {
+      const double* const vj = V + j * ldv;
+      double* const vn = V + (j + 1) * ldv;
+      apply(vj, nullptr);
+      // h[k] = <V_k, w>, k <= j: one pass over w
+      tree(j + 1, fs.h, [&](int k, int i, int e) { return __dmul_rn(V[k * ldv + e], fp.zs[i]); });
+      PERPHIL_PROF(kProfInDots);
+      // w -= sum_k h[k] V_k (classical Gram-Schmidt), then ||w||^2
+      own([&](int i, int e) {
+        fp.zs[i] = __dsub_rn(fp.zs[i], basis_comb(fs.h, j + 1, [&](int k) { return V[k * ldv + e]; }));
+      });
+      PERPHIL_PROF(kProfInUpdate);
+      const double hj1 = norm();
+      if (threadIdx.x == 0) {
+        // the stored rotations, then the new one zeroing h[j+1]
+        double* const h = fs.h;
+        h[j + 1] = hj1;
+        for (int i = 0; i < j; ++i) {
+          const double hi = h[i], hi1 = h[i + 1];
+          h[i] = __dadd_rn(__dmul_rn(cs[i], hi), __dmul_rn(sn[i], hi1));
+          h[i + 1] = __dadd_rn(__dmul_rn(-sn[i], hi), __dmul_rn(cs[i], hi1));
+        }
+        const double a = h[j], bb = h[j + 1];
+        const double denom = __dsqrt_rn(__dadd_rn(__dmul_rn(a, a), __dmul_rn(bb, bb)));
+        const double c = denom > 0.0 ? __ddiv_rn(a, denom) : 1.0;
+        const double s = denom > 0.0 ? __ddiv_rn(bb, denom) : 0.0;
+        cs[j] = c;
+        sn[j] = s;
+        h[j] = __dadd_rn(__dmul_rn(c, a), __dmul_rn(s, bb));
+        for (int i = 0; i <= j; ++i) R[j * kMaxBasis + i] = h[i];
+        const double gj = gv[j];
+        gv[j] = __dmul_rn(c, gj);
+        gv[j + 1] = __dmul_rn(-s, gj);
+        fs.scal[1] = fabs(gv[j + 1]);
+      }
+      PERPHIL_PROF(kProfInGivens);
+      own([&](int i, int e) { vn[e] = hj1 > 0.0 ? __ddiv_rn(fp.zs[i], hj1) : fp.zs[i]; });
+      cg::this_cluster().sync();
+      rnorm = fs.scal[1];  // rewritten only after the next step's barriers
+      ++j;
+      ++its;
+      PERPHIL_PROF(kProfInUpdate);
+    }
+    if (j > 0) {
+      if (threadIdx.x == 0) {
+        // R[:j, :j] y = g[:j], rows from the bottom, each sum left to right
+        for (int i = j - 1; i >= 0; --i) {
+          double s = gv[i];
+          for (int k = i + 1; k < j; ++k) s = __dsub_rn(s, __dmul_rn(R[k * kMaxBasis + i], fs.y[k]));
+          fs.y[i] = __ddiv_rn(s, R[i * kMaxBasis + i]);
+        }
+      }
+      __syncthreads();
+      own([&](int i, int e) {
+        fp.xs[i] = __dadd_rn(fp.xs[i], basis_comb(fs.y, j, [&](int k) { return V[k * ldv + e]; }));
+      });
+      PERPHIL_PROF(kProfInGivens);
+    }
+    done = rnorm <= tol || its >= max_it || rnorm > div || !isfinite(rnorm) || j == 0;
+  }
+  own([&](int i, int e) { xout[e] = fp.xs[i]; });
+  if (threadIdx.x == 0) {
+    fp.counts[0] += its;
+    fp.counts[1] += 1;
+  }
+  rd_in = rd;
+}
+
 // The preconditioners with a block solve (K6-K8): out = P t, t (2n, device
 // memory) the operator's output, complete behind a cluster barrier; out is
 // complete after the caller's next one. K7 sweeps on block 0; the fieldsplit
-// roles' inner PCGs run on every block. The scratch behind t in
-// PcData::work: K7 2n of y and 2n for a copy of t; K6/K8 FieldPcg's buffers.
+// roles' inner block solves (PCG, or K8's literal GMRES where in_restart >
+// 0) run on every block. The scratch behind t in PcData::work: K7 2n of y
+// and 2n for a copy of t; K6/K8 FieldPcg's buffers.
 template <int D, int PC>
 __device__ void apply_block_pc(double* t, double* out, const Grid& g, const PcView& pv, const FieldPcg& fp,
-                               int block, const GmresParams& prm, Reducer& rd, double* sh) {
+                               int block, const GmresParams& prm, Reducer& rd, const FrameScalars& fs) {
   const int n = pv.n;
   if constexpr (PC == kPcIlu) {
     if (block == 0) {
@@ -638,14 +825,23 @@ __device__ void apply_block_pc(double* t, double* out, const Grid& g, const PcVi
     }
   } else {
     // multiplicative fieldsplit: y1 = B0 t1, y2 = B1 (t2 - C y1)
-    inner_pcg<D, PC>(pv, fp, 0, t, out, g, prm, rd, sh);
+    auto block_solve = [&](int f, const double* rhs, double* x) {
+      if constexpr (PC == kPcFieldsplitIlu) {
+        if (prm.in_restart > 0) {
+          inner_gmres<D, PC>(pv, fp, f, rhs, x, g, prm, rd, fs);
+          return;
+        }
+      }
+      inner_pcg<D, PC>(pv, fp, f, rhs, x, g, prm, rd, fs.scal);
+    };
+    block_solve(0, t, out);
     cg::this_cluster().sync();
     for (int s = 0; s < (1 << fp.o.log_s); ++s) {
       const int e = fp.o.elem(fp.o.slot(s));
       if (e < n) t[n + e] = __dsub_rn(__ldcg(t + n + e), coupling_at<D>(out, pv.tab->mass, prm.coef, g, e));
     }
     cg::this_cluster().sync();
-    inner_pcg<D, PC>(pv, fp, 1, t + n, out + n, g, prm, rd, sh);
+    block_solve(1, t + n, out + n);
   }
 }
 
@@ -658,7 +854,7 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
   __shared__ double part[kMaxBasis][64];
   __shared__ double R[kMaxBasis][kMaxBasis];  // R[column][row]
   __shared__ double h[kMaxBasis + 1], gv[kMaxBasis + 1], cs[kMaxBasis], sn[kMaxBasis],
-      y[kMaxBasis], scal[2], pcs[2];
+      y[kMaxBasis], scal[2];
   __shared__ int inner_counts[2];
   __shared__ PcTables tab;
   cg::cluster_group cluster = cg::this_cluster();
@@ -714,6 +910,8 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
     fp.zbuf = fp.rbuf + n;
     fp.t1 = fp.zbuf + n;
     fp.t2 = fp.t1 + n;
+    fp.vin = pd.work + 10 * n;
+    fp.gstate = fp.vin + (size_t)(prm.in_restart + 1) * n;
     fp.counts = inner_counts;
   }
 
@@ -761,7 +959,7 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
     });
     if constexpr (PC >= kPcFieldsplitLu) {
       cluster.sync();
-      apply_block_pc<D, PC>(pd.work, V + k * ld, g, pv, fp, o.b, prm, rd, pcs);
+      apply_block_pc<D, PC>(pd.work, V + k * ld, g, pv, fp, o.b, prm, rd, FrameScalars{h, y, scal});
       cluster.sync();
       if (vs) own([&](int i, int e) { Vs[k * ldS + i] = __ldcg(V + k * ld + e); });
     }

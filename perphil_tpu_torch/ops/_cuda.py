@@ -25,6 +25,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -69,8 +70,8 @@ _SIGNATURES = {
     # b, x0, x, V, work, xchg, result, weights, mass, dinv, F0L, F0U, F1L, F1U,
     # level_ptr, level_rows, ilu_meta, Sx, Sy, Sz, sc, nz, ny, nx, dim, pc, noffs, nlev,
     # rtol, atol, dtol, max_it, restart, coef, in_rtol, in_atol, in_max,
-    # max_level_rows, stream
-    "perphil_fused_gmres": [_P] * 21 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _P],
+    # in_restart, in_dtol, max_level_rows, stream
+    "perphil_fused_gmres": [_P] * 21 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _D, _I, _P],
     # pc, dim (returns the kernel's static shared memory in bytes, < 0: none)
     "perphil_fused_gmres_static_smem": [_I, _I],
     # r, z, y, packed_lower, packed_upper, level_ptr, level_rows, meta, noffs,
@@ -143,12 +144,22 @@ def build() -> Path:
         for src in (p for p in _sources() if p.suffix == ".cu"):
             obj = str(Path(tmpdir) / f"{src.stem}.o")
             objs.append(obj)
-            procs.append(subprocess.Popen(
+            procs.append((src.name, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", obj, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            ))
-        logs = [p.communicate()[0] for p in procs]
-        failed = [p.returncode for p in procs if p.returncode != 0]
+            )))
+        # each unit's output read on a thread of its own, so that each
+        # unit's end is seen when it comes
+        units: Dict[str, float] = {}
+
+        def wait(name, proc):
+            out = proc.communicate()[0]
+            units[name] = time.perf_counter() - t0
+            return out
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            logs = list(pool.map(lambda item: wait(*item), procs))
+        failed = [p.returncode for _, p in procs if p.returncode != 0]
         tmp = str(Path(tmpdir) / lib.name)
         if not failed:
             link = subprocess.run(
@@ -162,7 +173,7 @@ def build() -> Path:
             raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
         os.replace(tmp, lib)
     seconds = time.perf_counter() - t0
-    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, log=log)
+    BUILD_INFO.update(path=str(lib), seconds=seconds, cached=False, log=log, units=units)
     return lib
 
 

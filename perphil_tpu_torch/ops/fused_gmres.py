@@ -11,8 +11,10 @@ Counterpart of ``perphil_tpu/ops/pallas_gmres.py``:
     blocks are inner PCGs to 1e-13 with a fast-diag preconditioner (the
     consistent eigenbasis on quad/hex meshes, the lumped one on tri/tet);
   - **K7** pc ``ilu``: monolithic ILU(0) as wavefront sweeps;
-  - **K8** pc ``fieldsplit_ilu``: K6's frame with inner ILU(0)-PCG to
-    1e-8 / 1e-12 on the per-field factors.
+  - **K8** pc ``fieldsplit_ilu``: K6's frame whose blocks are each field's
+    own solve, GMRES(30) left-preconditioned by the field's ILU(0) to
+    1e-8 / 1e-12 (``inner_ksp="literal"``, the default), or the TPU kernel's
+    ILU(0)-PCG at those tolerances (``inner_ksp="pcg"``).
 
 K6-K8 are ``pc_type`` branches of the TPU's one cycle kernel
 (``_build_cycle``); here all five roles run one native-f64 kernel,
@@ -21,15 +23,22 @@ plain matvec (``fused_dpp_apply_plain``) and the preconditioner of
 :meth:`FusedGMRESSolver.plain`. A launch counts under the role's name
 (:data:`ROLES`). Vectors are stacked ``(2, *node_shape)`` f64 tensors.
 
-The fieldsplit roles' inner solve is the TPU kernel's: PCG from zero,
-``z0 = M rhs``, stopping on ``||r|| <= max(rtol ||rhs||, atol)`` or a
-non-finite norm (``pallas_gmres.py:1416-1474``), with every dot a
-:func:`krylov.tree_sum`. The kernel runs it on every block of its cluster
-(dots on the cluster tree, bit-equal to ``tree_sum``); K8's ILU(0) sweeps
-run on its first block (``csrc/ilu_sweep.cuh``), K6's fast-diag transform is
-spread over the blocks. It stands in for the presets' inner ``preonly`` +
-LU (K6) and GMRES + ILU (K8) at matched tolerances; the outer count is 4
-either way.
+The fieldsplit roles' inner block solves run on every block of the
+kernel's cluster, their dots on the cluster tree (bit-equal to
+:func:`krylov.tree_sum`); K8's ILU(0) sweeps run on its first block
+(``csrc/ilu_sweep.cuh``), K6's fast-diag transform is spread over the blocks.
+
+  - K6 and K8's ``"pcg"`` mode: the TPU kernel's PCG from zero, ``z0 = M
+    rhs``, stopping on ``||r|| <= max(rtol ||rhs||, atol)`` or a non-finite
+    norm (``pallas_gmres.py:1416-1474``). It stands in for the presets'
+    inner ``preonly`` + LU (K6, to 1e-13) and GMRES + ILU (K8, at matched
+    tolerances); the outer count is 4 either way.
+  - K8's ``"literal"`` mode: :func:`krylov.gmres` itself on the field's
+    operator with its ILU(0) (:data:`INNER_TOLS`: rtol, atol, max_it,
+    restart), what the JAX package's native-f64 route runs
+    (``_block_solver``). Its basis, (restart + 1) n values, and each block's
+    Givens state live in device scratch behind the frame's
+    (:func:`work_doubles`), so the shared-memory plan is the PCG mode's.
 
 The envelope is what the launcher can place (``plan_geometry`` in
 ``csrc/fused_gmres_kernel.cuh``), mirrored on the host by
@@ -70,9 +79,13 @@ PC_KINDS = {"none": 0, "jacobi": 1, "fieldsplit_lu": 2, "ilu": 3, "fieldsplit_il
 #: the role (launch-count name) of each preconditioner; K5 is pc none's
 #: other role
 ROLES = {"none": K4, "jacobi": K4, "fieldsplit_lu": K6, "ilu": K7, "fieldsplit_ilu": K8}
-#: inner PCG (rtol, atol, max_it) of the fieldsplit roles
-#: (``pallas_gmres.py:1402,1414``)
-INNER_TOLS = {"fieldsplit_lu": (1e-13, 0.0, 1000), "fieldsplit_ilu": (1e-8, 1e-12, 50000)}
+#: the fieldsplit roles' inner block solve (rtol, atol, max_it, restart): K6's
+#: PCG (``pallas_gmres.py:1414``; no restart), K8's GMRES(30) + ILU(0) at the
+#: preset's block options (``FIELDSPLIT_GMRES_ILU_PARAMS``; its ``"pcg"``
+#: mode runs PCG at the same rtol, atol and max_it, ``pallas_gmres.py:1402``)
+INNER_TOLS = {"fieldsplit_lu": (1e-13, 0.0, 1000, 0), "fieldsplit_ilu": (1e-8, 1e-12, 50000, 30)}
+#: K8's inner block solves: the blocks' own GMRES + ILU, or the TPU's PCG
+INNER_KSP = ("literal", "pcg")
 #: the kernel keeps the m + 1 <= 32 basis rows' coefficients in shared memory
 MAX_RESTART = 31
 #: systems the K5 role serves (pc none): at most this many DoF
@@ -84,6 +97,8 @@ SMEM_BUDGET = _cuda.header_constant("fused_gmres.cuh", "kGmresSmemBudget")
 #: shared memory of one block, static and dynamic, in bytes (the H100's 227 KB)
 MAX_SMEM_PER_BLOCK = _cuda.header_constant("ilu_sweep.cuh", "kMaxSmemPerBlock")
 _WORK_PER_NODE = 10  # f64 scratch per node for pc >= 2 (the kernel's layout)
+#: f64 of one block's inner GMRES Givens state (``kInnerStateDoubles``)
+INNER_STATE_DOUBLES = _cuda.header_constant("fused_gmres.cuh", "kInnerStateDoubles")
 _XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
 _THREADS = 512  # threads of a block
 #: doubles of a launch's result (``csrc/fused_gmres.cuh::kResultSlots``)
@@ -242,6 +257,15 @@ def fused_gmres_supported(op: DPPOperator, pc_type: str = "none", restart: int =
     return fused_gmres_plan(tuple(op.mesh.node_shape), pc_type, restart) is not None
 
 
+def work_doubles(n: int, blocks: int, inner_restart: int) -> int:
+    """f64 of the kernel's scratch for a fieldsplit or ILU role on ``n``
+    nodes (``PcData::work``): the frame's 10 n, then with a literal inner
+    GMRES (``inner_restart`` > 0) its basis, ``(inner_restart + 1) n``, and
+    each of the ``blocks`` blocks' Givens state."""
+    extra = (inner_restart + 1) * n + blocks * INNER_STATE_DOUBLES if inner_restart else 0
+    return _WORK_PER_NODE * n + extra
+
+
 def _tree_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return tree_sum((u * v).reshape(-1))
 
@@ -250,7 +274,9 @@ class FusedGMRESSolver(nn.Module):
     """GMRES(``restart``) on ``A x = b`` from ``x0``, left-preconditioned
     by ``pc_type`` (a key of :data:`PC_KINDS`), the whole solve in one
     launch. ``role`` is the name a launch counts under: ``ROLES[pc_type]``
-    by default, or K5 for pc none.
+    by default, or K5 for pc none. ``inner_ksp`` (:data:`INNER_KSP`): K8's
+    block solves, the blocks' own GMRES + ILU (``"literal"``) or the TPU
+    kernel's PCG (``"pcg"``); K6's are PCG either way.
 
     Buffers, by preconditioner: ``dinv`` (jacobi), the inverse diagonal of
     the BC-eliminated operator; ``ilu`` (ilu), the monolithic
@@ -269,8 +295,11 @@ class FusedGMRESSolver(nn.Module):
         max_it: int = 10000,
         restart: int = 30,
         dtol: float = DEFAULT_DTOL,
+        inner_ksp: str = "literal",
     ):
         super().__init__()
+        if inner_ksp not in INNER_KSP:
+            raise ValueError(f"inner_ksp {inner_ksp!r} is not one of {INNER_KSP}")
         if pc_type not in PC_KINDS:
             raise ValueError(f"pc_type {pc_type!r} is not one of {sorted(PC_KINDS)}")
         role = ROLES[pc_type] if role is None else role
@@ -283,11 +312,12 @@ class FusedGMRESSolver(nn.Module):
         mesh, p = op.mesh, op.params
         self.node_shape = tuple(mesh.node_shape)
         self.device = op.W.device
-        self.pc_type, self.role = pc_type, role
+        self.pc_type, self.role, self.inner_ksp = pc_type, role, inner_ksp
         self.rtol, self.atol, self.dtol = float(rtol), float(atol), float(dtol)
         self.max_it, self.restart = int(max_it), int(restart)
         self.inner_solves = self.inner_iterations = 0
-        #: the last launch's inner PCG (iterations, solves): the fieldsplit roles
+        #: the last launch's inner block solves (iterations, solves): the
+        #: fieldsplit roles
         self.launch_inner: Tuple[int, int] = (0, 0)
         #: what the last launch ran with (:class:`KernelGeometry`)
         self.last_geometry: Optional[KernelGeometry] = None
@@ -336,9 +366,27 @@ class FusedGMRESSolver(nn.Module):
             return self.field_ilu[f].plain_grid
         return self.field_fd[f].solve
 
+    def inner_tols(self) -> Tuple[float, float, int, int]:
+        """The inner block solve's (rtol, atol, max_it, restart); restart 0
+        is PCG (K6, K8's ``"pcg"`` mode), zeros for the other roles."""
+        tols = INNER_TOLS.get(self.pc_type, (0.0, 0.0, 0, 0))
+        return tols[:3] + (0,) if self.inner_ksp == "pcg" else tols
+
+    def _inner_gmres(self, f: int, rhs: torch.Tensor) -> torch.Tensor:
+        """K8's literal inner block solve: the field's own GMRES with its
+        ILU(0) from zero, the JAX package's native ``_block_solver``."""
+        rtol, atol, max_it, restart = self.inner_tols()
+        res = gmres(
+            self.field_ops[f].matvec, rhs, rtol=rtol, atol=atol, max_it=max_it,
+            restart=restart, M_inv=self._inner_pc(f),
+        )
+        self.inner_iterations += res.iterations
+        self.inner_solves += 1
+        return res.x
+
     def _inner_pcg(self, f: int, rhs: torch.Tensor) -> torch.Tensor:
-        """The fieldsplit roles' inner block solve (``pallas_gmres.py:1416-1474``)."""
-        rtol, atol, max_it = INNER_TOLS[self.pc_type]
+        """The TPU kernel's inner block solve (``pallas_gmres.py:1416-1474``)."""
+        rtol, atol, max_it, _ = self.inner_tols()
         A, M = self.field_ops[f].matvec, self._inner_pc(f)
         rn0 = float(torch.sqrt(_tree_dot(rhs, rhs)))
         t_rel = rn0 * rtol
@@ -375,9 +423,11 @@ class FusedGMRESSolver(nn.Module):
         if self.pc_type == "ilu":
             return lambda r: self.ilu.plain(r.reshape(-1)).reshape(r.shape)
 
+        block = self._inner_gmres if self.inner_tols()[3] else self._inner_pcg
+
         def fieldsplit(v: torch.Tensor) -> torch.Tensor:
-            y1 = self._inner_pcg(0, v[0])
-            return torch.stack([y1, self._inner_pcg(1, v[1] - self.coupling(y1))])
+            y1 = block(0, v[0])
+            return torch.stack([y1, block(1, v[1] - self.coupling(y1))])
 
         return fieldsplit
 
@@ -391,7 +441,7 @@ class FusedGMRESSolver(nn.Module):
     ) -> KrylovResult:
         """Plain PyTorch twin: ``krylov.gmres`` with the plain matvec and
         :meth:`plain_pc`. Afterwards ``inner_solves`` and
-        ``inner_iterations`` count the fieldsplit roles' inner PCG work."""
+        ``inner_iterations`` count the fieldsplit roles' inner block solves."""
         self.inner_solves = self.inner_iterations = 0
         rtol, atol = self.tolerances(tols)
 
@@ -451,13 +501,14 @@ class FusedGMRESSolver(nn.Module):
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         x = torch.empty_like(b)
         basis = torch.empty((self.restart + 1) * b.numel(), dtype=torch.float64, device=b.device)
+        rtol_in, atol_in, max_in, restart_in = self.inner_tols()
         work = None
         if PC_KINDS[self.pc_type] >= 2:
-            work = torch.empty(_WORK_PER_NODE * b[0].numel(), dtype=torch.float64, device=b.device)
+            blocks = launch_geometry(b.numel()).blocks
+            work = torch.empty(work_doubles(b[0].numel(), blocks, restart_in), dtype=torch.float64, device=b.device)
         xchg = torch.empty(_XCHG_DOUBLES, dtype=torch.float64, device=b.device)
         w = pack_weights(*self.stencils)
         (dinv, F0L, F0U, F1L, F1U, lptr, lrows, meta, Sx, Sy, Sz, sc, noffs, nlev, max_rows) = self._pc_args()
-        rtol_in, atol_in, max_in = INNER_TOLS.get(self.pc_type, (0.0, 0.0, 0))
         args = (
             b.data_ptr(), x0.data_ptr(), x.data_ptr(), basis.data_ptr(),
             None if work is None else work.data_ptr(), xchg.data_ptr(), result.data_ptr(),
@@ -466,7 +517,7 @@ class FusedGMRESSolver(nn.Module):
             lrows, meta,
             Sx, Sy, Sz, sc, *_grid_args(self.node_shape), PC_KINDS[self.pc_type], noffs, nlev,
             *self.tolerances(tols), self.dtol, self.max_it, self.restart,
-            self.coef, rtol_in, atol_in, max_in, max_rows,
+            self.coef, rtol_in, atol_in, max_in, restart_in, DEFAULT_DTOL, max_rows,
         )
         return (args, (x0, basis, work, xchg, w)), x
 

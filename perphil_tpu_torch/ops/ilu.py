@@ -349,22 +349,30 @@ def _pack_by_level(by_level: np.ndarray, offs: Sequence[int], ptr: np.ndarray) -
 CPU_PARTRI_MAX_BYTES = 6 * 1024**3
 
 
-def partri_plan(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8) -> int:
+def _grouped(node_shape: Tuple[int, ...], group: int) -> bool:
+    """Whether partri's 2D solves on this grid take the grouped pass
+    (``GridTriSolve2D``: unbatched, ``ny >= 2 group``)."""
+    return len(node_shape) == 2 and group > 0 and node_shape[0] >= 2 * group
+
+
+def partri_plan(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8, group: int = 0) -> int:
     """Bytes of the composed maps of the parallel-prefix trisolves of one
     ILU apply (or GS sweep) on ``nfields`` fields of a ``node_shape`` grid:
     ~2 maps a row (2D, ``nx^2`` each) or a plane (3D, ``(ny nx)^2`` each) a
     directional solve, two directional solves a field (the JAX package's
-    ``_partri_fits`` formula)."""
+    ``_partri_fits`` formula); the grouped 2D pass (``group`` > 0) keeps one
+    map a group of ``group`` rows, ``ceil(ny / group)``."""
     if len(node_shape) == 2:
         ny, nx = node_shape
-        per = 2 * ny * nx * nx * itemsize
+        maps = -(-ny // group) if _grouped(node_shape, group) else 2 * ny
+        per = maps * nx * nx * itemsize
     else:
         nz, ny, nx = node_shape
         per = 2 * nz * (ny * nx) ** 2 * itemsize
     return 2 * nfields * per
 
 
-def partri_peak(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8) -> int:
+def partri_peak(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8, group: int = 0) -> int:
     """Bytes of device memory a :class:`PartriILU` (or :class:`PartriGS`)
     build and its applies hold at their peak: the maps (:func:`partri_plan`)
     plus the workspace of the directional solve built last, while the
@@ -374,10 +382,13 @@ def partri_peak(node_shape: Tuple[int, ...], nfields: int, itemsize: int = 8) ->
     map a plane) in 3D, on the CPU at 2D N=32/33 and tet nx=8/9 and on an
     H100 at 2D N=128/256 and tet nx=16; counted as 5 and 7, a set of
     margin. Add 64 values a row for the entry grids, the row scans and an
-    apply's vectors."""
+    apply's vectors. The grouped 2D pass (``group``) keeps its maps in place
+    of the tree's; its build holds the dense couplings and the row maps (two
+    of the tree's sets) and the groups' products, within the same
+    workspace."""
     n = int(np.prod(node_shape))
     per_set = partri_plan(node_shape, 1, itemsize) // 4
-    return partri_plan(node_shape, nfields, itemsize) + (5 if len(node_shape) == 2 else 7) * per_set \
+    return partri_plan(node_shape, nfields, itemsize, group) + (5 if len(node_shape) == 2 else 7) * per_set \
         + 64 * nfields * n * itemsize
 
 
@@ -430,9 +441,10 @@ class DirTriSolve(nn.Module):
     ``entries`` maps coordinate-ordered geometric offsets (the strictly
     lower or upper part) to raw matrix-entry grids; ``diag`` is the diagonal
     grid (None: unit). ``reverse=True`` solves in anti-lexicographic order
-    (upper solves) by flipping every axis."""
+    (upper solves) by flipping every axis. ``group``: the 2D solve's grouped
+    pass (:class:`GridTriSolve2D`); 3D stays on the tree."""
 
-    def __init__(self, dim: int, entries: dict, diag: Optional[torch.Tensor], reverse: bool):
+    def __init__(self, dim: int, entries: dict, diag: Optional[torch.Tensor], reverse: bool, group: int = 0):
         super().__init__()
         self.reverse = bool(reverse)
         if reverse:
@@ -445,7 +457,7 @@ class DirTriSolve(nn.Module):
             return w / diag if diag is not None else w
 
         if dim == 2:
-            self.solver = GridTriSolve2D(nrm((-1, 0)), nrm((-1, -1)), nrm((0, -1)), nrm((1, -1)))
+            self.solver = GridTriSolve2D(nrm((-1, 0)), nrm((-1, -1)), nrm((0, -1)), nrm((1, -1)), group)
         else:
             plane = GridTriSolve2D(nrm((-1, 0, 0)), nrm((-1, -1, 0)), nrm((0, -1, 0)), nrm((1, -1, 0)))
             bz = {(dx, dy): nrm((dx, dy, -1)) for dy in (-1, 0, 1) for dx in (-1, 0, 1)}
@@ -480,39 +492,41 @@ class PartriILU(nn.Module):
     bottom-up. ``factors``: the (nrows, noffs) ILU(0) factor.
 
     The partri backend (:data:`ILU_BACKENDS`): torch ops on either device,
-    built and applied like :class:`StructuredILU0`."""
+    built and applied like :class:`StructuredILU0`. ``group``: the 2D
+    solves' grouped pass (the ``partri_group`` option)."""
 
     trisolve_backend = "partri"
 
-    def __init__(self, sys: StructuredSystem, factors: np.ndarray, device: DeviceLike = None):
+    def __init__(self, sys: StructuredSystem, factors: np.ndarray, device: DeviceLike = None, group: int = 0):
         super().__init__()
         self.device = dev = resolve_device(device)
+        self.group = int(group)
         d = sys.mesh.dim
         self.nfields, self.shape, self.n = sys.nfields, tuple(sys.mesh.node_shape), sys.n_nodes
         self.nrows = sys.nrows
         lower, upper = [], []
         for f in range(sys.nfields):
             diag, low, upp = _split_entries(sys, factors, f, dev)
-            lower.append(DirTriSolve(d, low, None, reverse=False))
-            upper.append(DirTriSolve(d, upp, diag, reverse=True))
+            lower.append(DirTriSolve(d, low, None, reverse=False, group=group))
+            upper.append(DirTriSolve(d, upp, diag, reverse=True, group=group))
         self.lower_solve, self.upper_solve = nn.ModuleList(lower), nn.ModuleList(upper)
         if sys.nfields == 2:
             self.cross_lower = _Stencil(_grid_entries(sys, factors, 1, -1, dev))  # field-1 rows
             self.cross_upper = _Stencil(_grid_entries(sys, factors, 0, +1, dev))  # field-0 rows
 
     @classmethod
-    def for_system(cls, sys: StructuredSystem, device: DeviceLike = None):
+    def for_system(cls, sys: StructuredSystem, device: DeviceLike = None, group: int = 0):
         """Factored here (the host ILU(0) of :class:`StructuredILU0`)."""
-        return cls(sys, ilu0_factorize(sys), device)
+        return cls(sys, ilu0_factorize(sys), device, group)
 
     @classmethod
-    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
-        return cls.for_system(build_monolithic_system(mesh, params), device)
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None, group: int = 0):
+        return cls.for_system(build_monolithic_system(mesh, params), device, group)
 
     @classmethod
-    def for_field(cls, fop):
+    def for_field(cls, fop, group: int = 0):
         """Of a ``FieldOperator`` block, on its space's device."""
-        return cls.for_system(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device)
+        return cls.for_system(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device, group)
 
     def apply_flat(self, r: torch.Tensor) -> torch.Tensor:
         """``z = U^{-1} (L^{-1} r)`` on a flat f64 tensor on the build's device."""
@@ -544,20 +558,21 @@ class PartriGS(nn.Module):
     (the wavefront sweep's algebra). ``values``: the (nrows, noffs) matrix.
 
     The partri backend (:data:`GS_BACKENDS`), built and swept like
-    :class:`GaussSeidelSweeper`."""
+    :class:`GaussSeidelSweeper`; ``group`` as :class:`PartriILU`'s."""
 
     trisolve_backend = "partri"
 
-    def __init__(self, sys: StructuredSystem, values: np.ndarray, device: DeviceLike = None):
+    def __init__(self, sys: StructuredSystem, values: np.ndarray, device: DeviceLike = None, group: int = 0):
         super().__init__()
         self.device = dev = resolve_device(device)
+        self.group = int(group)
         d = sys.mesh.dim
         self.nfields, self.shape, self.n = sys.nfields, tuple(sys.mesh.node_shape), sys.n_nodes
         self.nrows = sys.nrows
         ld, upper = [], []
         for f in range(sys.nfields):
             diag, low, upp = _split_entries(sys, values, f, dev)
-            ld.append(DirTriSolve(d, low, diag, reverse=False))
+            ld.append(DirTriSolve(d, low, diag, reverse=False, group=group))
             upper.append(_Stencil(upp))
         self.ld_solve, self.upper_entries = nn.ModuleList(ld), nn.ModuleList(upper)
         if sys.nfields == 2:
@@ -565,12 +580,12 @@ class PartriGS(nn.Module):
             self.cross_upper = _Stencil(_grid_entries(sys, values, 0, +1, dev))
 
     @classmethod
-    def for_system(cls, sys: StructuredSystem, device: DeviceLike = None):
-        return cls(sys, sys.vals, device)
+    def for_system(cls, sys: StructuredSystem, device: DeviceLike = None, group: int = 0):
+        return cls(sys, sys.vals, device, group)
 
     @classmethod
-    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None):
-        return cls.for_system(build_monolithic_system(mesh, params), device)
+    def for_monolithic(cls, mesh: StructuredMesh, params: DPPParameters, device: DeviceLike = None, group: int = 0):
+        return cls.for_system(build_monolithic_system(mesh, params), device, group)
 
     def sweep(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One forward sweep from ``x`` on flat f64 tensors on the build's device."""

@@ -31,9 +31,14 @@ tree's products, as the JAX package forms them with ``einsum`` outside any
 Pallas kernel). Internally the recurrence carries a trailing column axis, so
 one tree applies to many right-hand sides at once (the 3D densification).
 
+The grouped 2D pass (``GridTriSolve2D(..., group=G)``, the JAX package's
+``PERPHIL_TPU_PARTRI_GROUP``; the solver option ``partri_group``) keeps only
+one composite map a group of G rows and re-derives the rows inside a group
+from the banded coefficients: two passes of G dependent row steps and one
+chain over the groups, the same recurrence in another order.
+
 Not ported: the bf16 storage of the maps (``weight_dtype``, the TPU's df32
-mode; here the maps are f64) and the grouped 2D pass
-(``PERPHIL_TPU_PARTRI_GROUP``, ROADMAP queue 1).
+mode; here the maps are f64).
 """
 
 from __future__ import annotations
@@ -155,13 +160,28 @@ class GridTriSolve2D(nn.Module):
 
     The row maps ``M_y = T_y B_y`` are densified once; a solve runs the
     scalar tree within rows, then the affine tree across rows.
+
+    Grouped mode (``group`` G > 0, unbatched, ``ny >= 2 G``; else the tree,
+    ``self.G`` 0): rows go in groups of G (the last zero-padded: all-zero
+    coefficients decouple a padding row, whose output is cropped). It keeps
+    the banded coefficients and per-step row chains of each step inside a
+    group, batched over the groups, and one composite map a group,
+    ``Mhat_k = M_{kG+G-1} ... M_{kG}`` (``perphil_tpu/ops/partri.py:277-358``):
+    ny / G maps of nx^2 in place of the tree's ~2 ny. A solve
+    (:meth:`_grouped_apply`) runs the G steps from zero states, chains the
+    groups' last rows through the maps one group after another, and runs the
+    G steps again from the true boundary states.
     """
 
-    def __init__(self, wr: torch.Tensor, bm: torch.Tensor, b0: torch.Tensor, bp: torch.Tensor):
+    def __init__(self, wr: torch.Tensor, bm: torch.Tensor, b0: torch.Tensor, bp: torch.Tensor, group: int = 0):
         super().__init__()
         self.batch = tuple(wr.shape[:-2])
         ny, nx = int(wr.shape[-2]), int(wr.shape[-1])
         self.ny, self.nx = ny, nx
+        if group < 0:
+            raise ValueError(f"group {group} < 0")
+        grouped = bool(group) and not self.batch and ny >= 2 * group
+        self.G = int(group) if grouped else 0
         # within-row scalar chain over x, batched over (*batch, y)
         self.row_scan = AffineChainScan(torch.movedim(wr, -1, 0), scalar=True)
         # dense B_y: (*batch, ny, nx, nx); B[..., y, i, i+d] = b_d[..., y, i]
@@ -173,7 +193,36 @@ class GridTriSolve2D(nn.Module):
         # M_y = T_y B_y by the exact sequential row recurrence (set-up only),
         # element axis (y) first for the chain: (ny, *batch, nx, nx)
         M = torch.movedim(_unit_bidiag_solve(wr, B), len(self.batch), 0)
-        self.chain = AffineChainScan(M)
+        del B
+        if not grouped:
+            self.chain = AffineChainScan(M)
+            return
+        self.chain = None
+        G = self.G
+        self.ngroups = ngroups = -(-ny // G)
+        self.pad = ngroups * G - ny
+
+        def steps(a: torch.Tensor) -> torch.Tensor:  # (ny, nx) zero-padded -> (G, ngroups, nx)
+            return F.pad(a, (0, 0, 0, self.pad)).reshape(ngroups, G, nx).transpose(0, 1).contiguous()
+
+        # the banded coefficients of each step inside a group
+        self.register_buffer("g_bm", steps(bm))
+        self.register_buffer("g_b0", steps(b0))
+        self.register_buffer("g_bp", steps(bp))
+        # each step's within-row chains, batched over the groups: (nx, ngroups)
+        self.g_chains = nn.ModuleList(AffineChainScan(w.transpose(0, 1), scalar=True) for w in steps(wr))
+        # Mhat_k for the whole groups; group 0 holds row 0, whose map is
+        # zero, and a padded group a padding row's zero map: both Mhat are
+        # zero (the chain reads neither: group 0 starts from zero, the last
+        # group's end starts nothing)
+        whole = ny // G
+        Mhat = M.new_zeros((ngroups, nx, nx))
+        Mg = M[: whole * G].reshape(whole, G, nx, nx)
+        prod = Mg[1:, 0]
+        for s in range(1, G):
+            prod = torch.matmul(Mg[1:, s], prod)
+        Mhat[1:whole] = prod
+        self.register_buffer("g_Mhat", Mhat)
 
     def row_solve(self, c: torch.Tensor) -> torch.Tensor:
         """The within-row bidiagonal systems only, ``(I - L_y) g = c``, for
@@ -181,13 +230,47 @@ class GridTriSolve2D(nn.Module):
         return torch.movedim(self.row_scan.apply_columns(torch.movedim(c, -2, 0)), 0, -2)
 
     def apply_columns(self, c: torch.Tensor) -> torch.Tensor:
-        """Solve for ``x`` given ``c`` of shape ``(*batch, ny, nx, E)``."""
+        """Solve for ``x`` given ``c`` of shape ``(*batch, ny, nx, E)``
+        (the tree only)."""
+        if self.chain is None:
+            raise ValueError("the grouped pass solves one right-hand side at a time (apply)")
         g = torch.movedim(self.row_solve(c), -3, 0)  # (ny, *batch, nx, E)
         return torch.movedim(self.chain.apply_columns(g), 0, -3)
 
     def apply(self, c: torch.Tensor) -> torch.Tensor:
         """Solve for ``x`` given ``c`` of shape ``(*batch, ny, nx)``."""
+        if self.chain is None:
+            return self._grouped_apply(c)
         return self.apply_columns(c[..., None])[..., 0]
+
+    def _run_pass(self, cp: torch.Tensor, x_start: torch.Tensor, collect: bool):
+        """The G steps of every group at once from ``x_start`` (ngroups, nx),
+        each group's state one row above it: (the rows if ``collect``, the
+        last row)."""
+        x_prev, outs = x_start, []
+        for s, chain in enumerate(self.g_chains):
+            left = F.pad(x_prev[:, :-1], (1, 0))
+            right = F.pad(x_prev[:, 1:], (0, 1))
+            cc = cp[s] + self.g_bm[s] * left + self.g_b0[s] * x_prev + self.g_bp[s] * right
+            x_prev = chain.apply(cc.transpose(0, 1)).transpose(0, 1)
+            if collect:
+                outs.append(x_prev)
+        return outs, x_prev
+
+    def _grouped_apply(self, c: torch.Tensor) -> torch.Tensor:
+        """The grouped solve (``perphil_tpu/ops/partri.py:399-440``): the
+        homogeneous pass gives each group's last row from a zero start, zb_k;
+        the boundary chain xb_k = Mhat_k xb_{k-1} + zb_k runs over the groups
+        in order; the second pass runs from the true states above them."""
+        G, ngroups, nx = self.G, self.ngroups, self.nx
+        cp = F.pad(c, (0, 0, 0, self.pad)).reshape(ngroups, G, nx).transpose(0, 1)  # (G, ngroups, nx)
+        _, zb = self._run_pass(cp, c.new_zeros((ngroups, nx)), collect=False)
+        xb = [zb[0]]
+        for k in range(1, ngroups - 1):  # the last group's end starts nothing
+            xb.append(torch.matmul(self.g_Mhat[k], xb[-1]) + zb[k])
+        starts = torch.cat([c.new_zeros((1, nx)), torch.stack(xb)])
+        outs, _ = self._run_pass(cp, starts, collect=True)
+        return torch.stack(outs, dim=1).reshape(ngroups * G, nx)[: self.ny]
 
 
 class GridTriSolve3D(nn.Module):

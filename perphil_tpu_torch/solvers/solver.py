@@ -46,13 +46,18 @@ and returns ``x0 + d``:
                                          -> K6 (inner PCG, fast-diag PC)
   - gmres, ILU(0), inside it             -> K7 (monolithic ILU sweeps)
   - gmres, multiplicative fieldsplit with gmres + ILU blocks at the
-    preset's inner tolerances, inside it -> K8 (inner ILU-PCG)
+    preset's block options, inside it    -> K8 (the blocks' own GMRES(30) +
+                                            ILU, or with
+                                            ``fieldsplit_inner_ksp: pcg`` the
+                                            TPU kernel's ILU-PCG)
   - gmres otherwise                      -> ``krylov.gmres`` (K1 matvec,
                                             ``_monolithic_pc``)
   - cg                                   -> ``krylov.cg`` (K1 matvec)
 
 The host preconditioners follow the JAX package's native-f64 route: f64
 fast-diag exact blocks, literal inner Krylov solves, ``StructuredILU0``.
+K8 follows it too unless ``fieldsplit_inner_ksp`` (:func:`_inner_ksp_option`)
+asks for the TPU's PCG blocks.
 The RHS lift is K1 in lift mode. Every other option path raises
 ``NotImplementedError`` naming the ROADMAP slice that ports it.
 
@@ -63,7 +68,8 @@ level sweeps: ``structured_ilu_apply`` and its GS mode on the card),
 its build fits the free memory) or left open: the wavefront on the card,
 where partri was measured slower at every size, and on the CPU the JAX
 package's default, partri where its maps fit its 6 GiB, else the wavefront.
-The fused roles K7/K8 keep their own sweep.
+The fused roles K7/K8 keep their own sweep. ``partri_group``
+(:func:`_partri_group`) runs partri's 2D solves grouped.
 
 Picard (``solve_dpp_nonlinear``; ``snes_type``, the JAX package's native-f64
 solves), from the BC lift, stopping on ``||F|| <= max(snes_rtol ||F0||,
@@ -149,6 +155,8 @@ from perphil_tpu_torch.ops.fused_direct import (
 )
 from perphil_tpu_torch.ops.fused_gmres import (
     EF64_MAX_DOF,
+    INNER_KSP,
+    INNER_TOLS,
     K5,
     MAX_RESTART,
     ROLES,
@@ -255,10 +263,10 @@ def _exact_field_solver(fop: FieldOperator) -> Callable:
     return solve
 
 
-def _field_pc(fop: FieldOperator, pc_type: str, trisolve: str) -> Optional[Callable]:
+def _field_pc(fop: FieldOperator, pc_type: str, trisolve: str, group: int = 0) -> Optional[Callable]:
     """A fieldsplit block's preconditioner: none, jacobi, lu/cholesky or
     ilu (on the ``trisolve_backend`` option ``trisolve``,
-    :func:`_trisolve_backend`)."""
+    :func:`_trisolve_backend`; partri grouped by ``group``)."""
     if pc_type == "none":
         return None
     if pc_type == "jacobi":
@@ -270,21 +278,22 @@ def _field_pc(fop: FieldOperator, pc_type: str, trisolve: str) -> Optional[Calla
     if pc_type in ("lu", "cholesky"):
         return _exact_field_solver(fop)
     if pc_type == "ilu":
-        backend = _trisolve_backend(trisolve, fop.mesh.node_shape, 1, fop.V.device)
-        return ILU_BACKENDS[backend].for_field(fop).apply_grid
+        backend = _trisolve_backend(trisolve, fop.mesh.node_shape, 1, fop.V.device, group)
+        return ILU_BACKENDS[backend].for_field(fop, **_group_kw(backend, group)).apply_grid
     raise ValueError(f"Unsupported block pc_type: {pc_type!r}")
 
 
-def _block_solver(fop: FieldOperator, sub: Dict[str, object], trisolve: str = "") -> Callable:
+def _block_solver(fop: FieldOperator, sub: Dict[str, object], trisolve: str = "", group: int = 0) -> Callable:
     """Grid -> grid solver of one fieldsplit block from its sub-options
     (``ksp_type`` preonly, gmres or cg; the JAX package's f64 route);
-    ``trisolve``: the solve's ``trisolve_backend`` option."""
+    ``trisolve`` and ``group``: the solve's ``trisolve_backend`` and
+    ``partri_group`` options."""
     ksp = str(sub.get("ksp_type", "preonly"))
     pc_type = str(sub.get("pc_type", "ilu"))
     if ksp == "preonly":
         if pc_type in ("lu", "cholesky"):
             return _exact_field_solver(fop)
-        pc = _field_pc(fop, pc_type, trisolve)
+        pc = _field_pc(fop, pc_type, trisolve, group)
         return pc if pc is not None else (lambda r: r)
     if ksp not in ("gmres", "cg"):
         raise ValueError(f"Unsupported block ksp_type: {ksp!r}")
@@ -293,7 +302,7 @@ def _block_solver(fop: FieldOperator, sub: Dict[str, object], trisolve: str = ""
         atol=float(sub.get("ksp_atol", 1e-50)),
         max_it=int(sub.get("ksp_max_it", 10000)),
     )
-    pc = _field_pc(fop, pc_type, trisolve)
+    pc = _field_pc(fop, pc_type, trisolve, group)
     if ksp == "cg":
         return lambda b: cg(fop.matvec, b, M_inv=pc, **kw)[0]
     restart = int(sub.get("ksp_gmres_restart", 30))
@@ -303,9 +312,11 @@ def _block_solver(fop: FieldOperator, sub: Dict[str, object], trisolve: str = ""
 def _field_blocks(W: MixedFunctionSpace, p: DPPParameters, flat: Dict[str, object]) -> Tuple[Callable, Callable]:
     """The two fieldsplit block solvers from the ``fieldsplit_{0,1}_``
     sub-options, their ILUs on the solve's ``trisolve_backend``."""
-    trisolve = _trisolve_option(flat)
+    trisolve, group = _trisolve_option(flat), _partri_group(flat)
     return tuple(
-        _block_solver(FieldOperator(W.sub(i), k, p.beta, p.mu), _sub_options(flat, f"fieldsplit_{i}_"), trisolve)
+        _block_solver(
+            FieldOperator(W.sub(i), k, p.beta, p.mu), _sub_options(flat, f"fieldsplit_{i}_"), trisolve, group
+        )
         for i, k in ((0, p.k1), (1, p.k2))
     )
 
@@ -346,17 +357,42 @@ def _monolithic_pc(op: DPPOperator, flat: Dict[str, object]) -> Optional[Callabl
             raise NotImplementedError(
                 "Only ILU(0) is implemented (the only level any reference workload uses)"
             )
-        backend = _trisolve_backend(_trisolve_option(flat), op.mesh.node_shape, 2, op.W.device)
-        return ILU_BACKENDS[backend].for_monolithic(op.mesh, op.params, op.W.device).apply_grid
+        group = _partri_group(flat)
+        backend = _trisolve_backend(_trisolve_option(flat), op.mesh.node_shape, 2, op.W.device, group)
+        cls = ILU_BACKENDS[backend]
+        return cls.for_monolithic(op.mesh, op.params, op.W.device, **_group_kw(backend, group)).apply_grid
     if pc_type == "fieldsplit":
         return _fieldsplit_pc(op, flat)
     raise ValueError(f"Unsupported pc_type: {pc_type!r}")
 
 
+def _inner_ksp_option(flat: Dict[str, object]) -> str:
+    """The ``fieldsplit_inner_ksp`` option, the counterpart of the JAX
+    package's ``PERPHIL_TPU_INNER_KSP``: what K8's block solves run.
+
+      - ``literal`` (the default): each block's own ``ksp_type``, GMRES(30)
+        with the field's ILU(0) for ``FIELDSPLIT_GMRES_ILU_PARAMS``, the JAX
+        package's native-f64 route (``_block_solver``);
+      - ``pcg``: the TPU kernel's substitution, ILU-PCG at the blocks'
+        tolerances (``pallas_gmres.py:1416-1474``).
+
+    Beyond K8's envelope the host route runs the blocks' own solves either
+    way, as the JAX package's native route does. K6's exact blocks are PCG
+    to 1e-13 in both. Part of the solver caches' key (the options)."""
+    option = str(flat.get("fieldsplit_inner_ksp", "literal"))
+    if option not in INNER_KSP:
+        raise ValueError(f"Unsupported fieldsplit_inner_ksp: {option!r} ({' or '.join(INNER_KSP)})")
+    return option
+
+
 def _fused_pc(flat: Dict[str, object]) -> Optional[str]:
     """The fused GMRES kernel's preconditioner for these options, by the
     JAX package's accelerator predicates (``_build_linear_solver_df``), or
-    None where the kernel has no such role."""
+    None where the kernel has no such role. K8 takes blocks whose own
+    options are its inner solve's (:data:`INNER_TOLS`, the host route's
+    defaults where an option is left out): rtol and atol, and in the
+    literal mode (:func:`_inner_ksp_option`) max_it and the restart too."""
+    literal = _inner_ksp_option(flat) == "literal"
     pc_type = str(flat.get("pc_type", "none"))
     if pc_type in ("none", "jacobi"):
         return pc_type
@@ -371,12 +407,14 @@ def _fused_pc(flat: Dict[str, object]) -> Optional[str]:
             str(flat.get(f"fieldsplit_{i}_pc_type", default_pc)),
         )
 
+    rtol, atol, max_it, restart = INNER_TOLS["fieldsplit_ilu"]
+    kernel = [("ksp_rtol", rtol, 1e-5), ("ksp_atol", atol, 1e-50)]
+    if literal:
+        kernel += [("ksp_max_it", max_it, 10000), ("ksp_gmres_restart", restart, 30)]
     if all(block(i, "ilu") == ("gmres", "ilu") for i in (0, 1)) and all(
-        float(flat.get(f"fieldsplit_{i}_ksp_{k}", d)) == d
-        for i in (0, 1)
-        for k, d in (("rtol", 1e-8), ("atol", 1e-12))
+        float(flat.get(f"fieldsplit_{i}_{k}", default)) == want for i in (0, 1) for k, want, default in kernel
     ):
-        return "fieldsplit_ilu"  # the inner tolerances are the kernel's own
+        return "fieldsplit_ilu"  # the blocks' options are the kernel's own
     if all(block(i, "lu") in (("preonly", "lu"), ("preonly", "cholesky")) for i in (0, 1)):
         return "fieldsplit_lu"
     return None
@@ -409,7 +447,10 @@ def _krylov_route(op: DPPOperator, flat: Dict[str, object]) -> Callable:
     max_it = int(flat.get("ksp_max_it", 10000))
     restart = int(flat.get("ksp_gmres_restart", 30))
     if kind not in ("gmres", "cg"):
-        fused = FusedGMRESSolver(op, _fused_pc(flat), kind, rtol=rtol, atol=atol, max_it=max_it, restart=restart)
+        fused = FusedGMRESSolver(
+            op, _fused_pc(flat), kind, rtol=rtol, atol=atol, max_it=max_it, restart=restart,
+            inner_ksp=_inner_ksp_option(flat),
+        )
 
         def solve_fused(r: torch.Tensor, rtol_: float = rtol, atol_: float = atol):
             res = fused(r, tols=(rtol_, atol_))
@@ -482,7 +523,36 @@ def _trisolve_option(flat: Dict[str, object]) -> str:
     return option
 
 
-def _trisolve_backend(option: str, node_shape: Tuple[int, ...], nfields: int, device: torch.device) -> str:
+def _checked_options(frozen_sp: Tuple) -> Dict[str, object]:
+    """The options of a builder's frozen key, with the two that any route
+    may read later checked now: ``fieldsplit_inner_ksp`` and
+    ``partri_group``."""
+    flat = dict(frozen_sp)
+    _inner_ksp_option(flat)
+    _partri_group(flat)
+    return flat
+
+
+def _partri_group(flat: Dict[str, object]) -> int:
+    """The ``partri_group`` option, the counterpart of the JAX package's
+    ``PERPHIL_TPU_PARTRI_GROUP``: an int >= 0, the rows of a group of
+    partri's grouped 2D pass (``ops/partri.py::GridTriSolve2D``), 0 (the
+    default) the tree. It changes only partri's 2D solves with ``ny >= 2
+    group``; the 3D plane solves stay on the tree."""
+    option = flat.get("partri_group", 0)
+    if isinstance(option, bool) or not isinstance(option, (int, np.integer)) or option < 0:
+        raise ValueError(f"Unsupported partri_group: {option!r} (an int >= 0)")
+    return int(option)
+
+
+def _group_kw(backend: str, group: int) -> Dict[str, int]:
+    """The constructor's ``group`` where the backend is partri."""
+    return {"group": group} if backend == "partri" else {}
+
+
+def _trisolve_backend(
+    option: str, node_shape: Tuple[int, ...], nfields: int, device: torch.device, group: int = 0
+) -> str:
     """The trisolve of an ILU apply or a lexicographic GS sweep on
     ``nfields`` fields: ``option`` when given; left open, the wavefront on
     the card (partri's apply, issued op by op, was measured 4-20x slower
@@ -493,17 +563,18 @@ def _trisolve_backend(option: str, node_shape: Tuple[int, ...], nfields: int, de
     that both packages route a test alike. Partri on the card needs its
     build's peak (``partri_peak``) free. Asking for partri where it does not
     fit raises ``MemoryError``: nothing moves to another backend or device
-    unasked."""
+    unasked. ``group``: partri's grouped 2D pass (:func:`_partri_group`),
+    whose maps the plan and peak count."""
     if option == "wavefront":
         return option
     free = _free_device_bytes(device)
     if free is None:
-        need, budget = partri_plan(tuple(node_shape), nfields), CPU_PARTRI_MAX_BYTES
+        need, budget = partri_plan(tuple(node_shape), nfields, group=group), CPU_PARTRI_MAX_BYTES
         what = f"of maps, the host budget is {budget}"
     elif not option:
         return "wavefront"
     else:
-        need, budget = partri_peak(tuple(node_shape), nfields), free
+        need, budget = partri_peak(tuple(node_shape), nfields, group=group), free
         what = f"(maps and build workspace), the card has {free} free"
     if need <= budget:
         return "partri"
@@ -627,7 +698,7 @@ def _build_linear_solver(
         if any(padding):
             return _parts_solver(_linear_parts(W, params, frozen_sp, tuple(padding)))
         return _build_linear_solver(W, params, frozen_sp)
-    flat = dict(frozen_sp)
+    flat = _checked_options(frozen_sp)
     if (
         str(flat.get("pc_type", "")) == "ilu"
         and str(flat.get("pc_factor_mat_ordering_type", "natural")) == "rcm"
@@ -813,7 +884,7 @@ def _linear_parts(
     unpadded single-device ones (``_monolithic_pc``, ``_monolithic_direct``:
     ILU, fieldsplit, K2/K3, ...) on the cropped vector; the degree-p ones
     are built padded, as in the JAX package."""
-    flat = dict(frozen_sp)
+    flat = _checked_options(frozen_sp)
     padding = tuple(padding)
     degree = W.spaces[0].degree
     kw = dict(
@@ -955,20 +1026,21 @@ def solve_dpp(
 
 
 def _ngs_sweeper(
-    mesh, params: DPPParameters, device, trisolve: str = "", build_wavefront: bool = True
+    mesh, params: DPPParameters, device, trisolve: str = "", build_wavefront: bool = True, group: int = 0
 ) -> Union[ColoredNGSSweeper, GaussSeidelSweeper, PartriGS, None]:
     """The SNES ngs sweep: the pinned-colouring multicolour sweeper on quad
     meshes (the reference's exact Picard counts), the lexicographic
     Gauss-Seidel sweeper elsewhere (on the ``trisolve_backend`` option
-    ``trisolve``, :func:`_trisolve_backend`). With ``build_wavefront``
+    ``trisolve``, :func:`_trisolve_backend`; partri grouped by ``group``).
+    With ``build_wavefront``
     false, the wavefront's is None: ``FusedGSSolver`` builds it where its
     twin or the host route sweeps."""
     if mesh.element == "quad":
         return ColoredNGSSweeper(mesh, params, device)
-    backend = _trisolve_backend(trisolve, mesh.node_shape, 2, device)
+    backend = _trisolve_backend(trisolve, mesh.node_shape, 2, device, group)
     if backend == "wavefront" and not build_wavefront:
         return None
-    return GS_BACKENDS[backend].for_monolithic(mesh, params, device)
+    return GS_BACKENDS[backend].for_monolithic(mesh, params, device, **_group_kw(backend, group))
 
 
 @lru_cache(maxsize=64)
@@ -984,7 +1056,7 @@ def _build_nonlinear_solver(
     the given iterate, stopping on ``fnorm <= atol_abs`` or ``snes_max_it``
     (``perphil_tpu/solvers/solver.py:1869-1895``); the sweeps are
     memoryless given the iterate, so a chunked solve is the whole one."""
-    flat = dict(frozen_sp)
+    flat = _checked_options(frozen_sp)
     continuation = bool(flat.get("_x0_continuation"))
     snes = str(flat.get("snes_type", "ngs"))
     rtol = float(flat.get("snes_rtol", 1e-8))
@@ -1002,7 +1074,9 @@ def _build_nonlinear_solver(
     if snes == "ngs":
         # PETSc's default SNES ngs is a colouring-based pointwise secant
         # Gauss-Seidel; the fieldsplit keys of the Picard presets are inert
-        sweeper = _ngs_sweeper(mesh, params, W.device, _trisolve_option(flat), build_wavefront=False)
+        sweeper = _ngs_sweeper(
+            mesh, params, W.device, _trisolve_option(flat), build_wavefront=False, group=_partri_group(flat)
+        )
         if isinstance(sweeper, ColoredNGSSweeper):
             fused = FusedNGSSolver(op, sweeper, rtol, atol, max_it)
 

@@ -9,8 +9,10 @@ package's library holds no counter.
 For plain GMRES at 2D N=8/16/64 and tet nx=16 it prints the blocks taken,
 the time (CUDA events, median) and the share of block 0's cycles in each
 phase of a step; for the fieldsplit roles (K6 at 2D N=64 and tet nx=8, K8
-at 2D N=16 and N=64) the same, with the inner PCG's phases (preconditioner,
-field matvec, dots, vector updates) per inner iteration and the
+with its literal inner GMRES at 2D N=16/64/128 and its PCG mode at N=64)
+the same, with the inner block solve's phases (ILU sweep or fast-diag,
+field matvec, dots and norms, vector updates, and the literal GMRES's
+Givens chain and back-substitution on thread 0) per inner iteration and the
 preconditioner's cycles per sweep level (K8) or per transform pass (K6);
 for ``structured_ilu_apply`` at 2D N=64/128 monolithic and on a 65^2 and
 129^2 field, the time, the time per level, whether the result equals the
@@ -167,7 +169,8 @@ from perphil_tpu_torch.solvers import parameters as sp
 from perphil_tpu_torch.solvers import solve_dpp
 
 PHASES = ["apply", "dots", "gram-schmidt+norm", "givens", "scale", "end barrier", "restart",
-          "inner: preconditioner", "inner: field matvec", "inner: dots", "inner: vector updates"]
+          "inner: preconditioner", "inner: field matvec", "inner: dots", "inner: vector updates",
+          "inner: givens"]
 _P = ctypes.c_void_p
 
 
@@ -230,14 +233,14 @@ def median_ms(fn, repeats: int) -> float:
     return statistics.median(times)
 
 
-def profile_gmres(dll, element: str, n: int, pc: str = "none") -> None:
+def profile_gmres(dll, element: str, n: int, pc: str = "none", inner_ksp: str = "literal") -> None:
     import chip_smoke
 
     W, params, bcs, _, _ = chip_smoke.problem(element, n, torch.device("cuda", torch.cuda.current_device()))
     op = DPPOperator(W, params)
     b = chip_smoke.newton_rhs(op, bcs)
     kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
-    solver = FusedGMRESSolver(op, pc, **kw)
+    solver = FusedGMRESSolver(op, pc, **kw, inner_ksp=inner_ksp)
     result = torch.zeros(RESULT_SLOTS + len(PHASES), dtype=torch.float64, device=b.device)
     (args, _keep), x = solver.launch_args(b, None, result)
     stream = torch.cuda.current_stream().cuda_stream
@@ -251,18 +254,22 @@ def profile_gmres(dll, element: str, n: int, pc: str = "none") -> None:
     got = solver.read_result(x, result)
     cycles = result.tolist()[RESULT_SLOTS:]
     its, total = got.iterations, sum(cycles)
-    print(f"fused GMRES pc {pc} {element} N={n}: {its} iterations, geometry {solver.last_geometry}, "
+    mode = f" (inner {inner_ksp})" if pc == "fieldsplit_ilu" else ""
+    print(f"fused GMRES pc {pc}{mode} {element} N={n}: {its} iterations, geometry {solver.last_geometry}, "
           f"{ms:.4f} ms, {ms * 1e3 / its:.3f} us/iteration, {total / its:.0f} cycles/iteration on block 0")
     for name, c in zip(PHASES, cycles):
         if c:
             print(f"    {name:>22}: {100 * c / total:5.1f}%  {c / its:11.0f} cycles/iteration  "
                   f"{ms * 1e3 / its * c / total:9.3f} us/iteration")
     if pc.startswith("fieldsplit"):
-        inner, solves = solver.launch_inner  # the kernel's own inner PCG counts
+        inner, solves = solver.launch_inner  # the kernel's own inner counts
+        # PCG: one application a solve and one an iteration; GMRES: the same
+        # and one more a restart (not counted)
         applications = inner + solves
         pc_cycles = cycles[PHASES.index("inner: preconditioner")]
-        print(f"    inner PCG {inner} iterations in {solves} solves; {total / max(inner, 1):.0f} cycles/inner "
-              f"iteration, {pc_cycles / applications:.0f} preconditioner cycles/application")
+        kind = "GMRES" if solver.inner_tols()[3] else "PCG"
+        print(f"    inner {kind} {inner} iterations in {solves} solves; {total / max(inner, 1):.0f} cycles/inner "
+              f"iteration, {pc_cycles / applications:.0f} preconditioner cycles/application (at most)")
         if pc == "fieldsplit_ilu":
             nlev = solver.field_ilu[0].num_levels
             print(f"    {pc_cycles / (2 * nlev * applications):.0f} cycles/sweep level ({nlev} levels a sweep)")
@@ -1635,9 +1642,10 @@ def main() -> int:
         for element, n in (("quad", 8), ("quad", 16), ("quad", 64), ("tet", 16)):
             profile_gmres(dll, element, n)
     if args.only in (None, "fieldsplit"):
-        for element, n, pc in (("quad", 64, "fieldsplit_lu"), ("tet", 8, "fieldsplit_lu"),
-                               ("quad", 16, "fieldsplit_ilu"), ("quad", 64, "fieldsplit_ilu")):
-            profile_gmres(dll, element, n, pc)
+        for element, n, pc, inner in (("quad", 64, "fieldsplit_lu", "literal"), ("tet", 8, "fieldsplit_lu", "literal"),
+                                      ("quad", 16, "fieldsplit_ilu", "literal"), ("quad", 64, "fieldsplit_ilu", "literal"),
+                                      ("quad", 128, "fieldsplit_ilu", "literal"), ("quad", 64, "fieldsplit_ilu", "pcg")):
+            profile_gmres(dll, element, n, pc, inner)
     if args.only not in (None, "ilu"):
         return 0
     import chip_smoke

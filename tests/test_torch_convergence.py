@@ -8,13 +8,10 @@ to the JAX package and to the published 2D table
 - ``run_one`` at 2D N=4/8 for the five approaches of the published table:
   ``it`` equal to the CSV's, the four error columns within ``ERROR_BOUND``
   of it; at N=4 the same against the JAX package's ``run_one`` (which
-  reproduces the CSV bit for bit on the CPU). The bound is 1.5e-10 but for
-  "Scale-Splitting GMRES + ILU PC": its route is K8 (the twin here), whose
-  inner block solves are tolerance-matched ILU-PCG, the JAX package's
-  accelerator route, where PETSc and the JAX package's CPU route run inner
-  GMRES; the solution then differs at the inner tolerance's level (2.4e-9
-  relative in e1_L2 at N=8, 2.6e-5 at N=128; the port's host route with
-  literal inner GMRES meets the CSV to 1.2e-12 at N=64);
+  reproduces the CSV bit for bit on the CPU), within 1.5e-10. Every
+  approach's route is the JAX package's native-f64 one: "Scale-Splitting
+  GMRES + ILU PC" runs K8's twin, whose block solves are the preset's own
+  inner GMRES(30) + ILU, as PETSc's and the JAX package's;
 - ``compute_eoc`` against the JAX function on the published rows, and
   against ``convergence_eoc.csv``;
 - ``run_one_3d`` at hex N=4: the direct row against the JAX package's,
@@ -49,7 +46,6 @@ RESULTS = Path(__file__).resolve().parent.parent / "notebooks/results-conforming
 ERRORS = ("e1_L2", "e2_L2", "e1_H1s", "e2_H1s")
 TABLE = [a for a in ib.Approach if a is not ib.Approach.PICARD_MUMPS]
 ERROR_BOUND = {a: 1.5e-10 for a in TABLE}
-ERROR_BOUND[ib.Approach.SS_GMRES_ILU] = 1e-8
 
 
 def _published():

@@ -4,6 +4,10 @@ package.
 - ``FieldOperator`` (the fieldsplit blocks) against JAX's;
 - through ``solve_dpp``, SS-GMRES (K6 twin), SS-GMRES+ILU (K8 twin) and
   ``FIELDSPLIT_GMRES_PARAMS`` (host loop) land 4 iterations;
+- K8's inner modes (``fieldsplit_inner_ksp``): the literal GMRES + ILU
+  blocks against the JAX package's native route, the TPU kernel's PCG
+  blocks against a copy of that PCG; the option and ``partri_group`` in the
+  solver caches' key;
 - the host route's functions (``_monolithic_pc`` with fieldsplit,
   ``_block_solver``, ``_exact_field_solver``, the coupling), called directly
   with the outer ``krylov.gmres``, against JAX's same route;
@@ -34,11 +38,13 @@ from perphil_tpu.utils import manufactured_solutions as jms
 import perphil_tpu_torch.solvers.parameters as sp
 from perphil_tpu_torch.interop import from_numpy_state
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, coupling_apply
-from perphil_tpu_torch.ops.fused_gmres import K6, K8, FusedGMRESSolver
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain
+from perphil_tpu_torch.ops.fused_gmres import K6, K8, FusedGMRESSolver, _tree_dot
 from perphil_tpu_torch.ops.krylov import gmres
 from perphil_tpu_torch.solvers import solve_dpp
 from perphil_tpu_torch.solvers.solver import (
     _block_solver,
+    _build_linear_solver,
     _exact_field_solver,
     _freeze,
     _krylov_kind,
@@ -212,11 +218,12 @@ def _jax_solve(element, cells, g1, g2, params):
 
 
 # K6's inner PCG stops at 1e-13 where JAX's blocks solve exactly: measured
-# <= 4.8e-16 apart. K8's inner ILU-PCG stops at 1e-8 where JAX runs inner
-# GMRES + ILU to 1e-8: measured 1.6e-13 at quad N=4, 3.2e-9 at N=8.
+# <= 4.8e-16 apart. K8's literal blocks are JAX's own inner GMRES + ILU to
+# 1e-8, its dots halving trees where JAX's are XLA's: measured <= 4.7e-16
+# apart at quad N=4/8 and tet nx=4.
 TWIN_CASES = [
     ("ss", "quad", (4, 4), 1e-12), ("ss", "quad", (8, 8), 1e-12), ("ss", "tet", (4, 4, 4), 1e-12),
-    ("ssi", "quad", (4, 4), 1e-7), ("ssi", "quad", (8, 8), 1e-8),
+    ("ssi", "quad", (4, 4), 1e-12), ("ssi", "quad", (8, 8), 1e-12), ("ssi", "tet", (4, 4, 4), 1e-12),
 ]
 
 
@@ -230,6 +237,88 @@ def test_fused_twins_match_jax(jax_f64_ilu, case, element, cells, tol):
     assert sol.iteration_number == int(ref.iteration_number) == 4
     for a, b in zip(sol.solution.data, ref.solution.data):
         assert _rel(a.numpy(), b) <= tol
+
+
+def _tpu_pcg_block(solver: FusedGMRESSolver, f: int, rhs: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's inner PCG (``pallas_gmres.py:1416-1474``) as the
+    K8 twin ran it before its literal mode, written out here."""
+    A, M = solver.field_ops[f].matvec, solver.field_ilu[f].plain_grid
+    rn0 = float(torch.sqrt(_tree_dot(rhs, rhs)))
+    tol = max(rn0 * 1e-8, 1e-12)
+    z = M(rhs)
+    rz = _tree_dot(z, rhs)
+    x, r, p = torch.zeros_like(rhs), rhs, z
+    done, its = not rn0 > tol, 0
+    while not done and its < 50000:
+        Ap = A(p)
+        alpha = rz / _tree_dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = _tree_dot(z, r)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        rn = float(torch.sqrt(_tree_dot(r, r)))
+        its += 1
+        done = not rn > tol or not math.isfinite(rn)
+    solver.inner_iterations += its
+    solver.inner_solves += 1
+    return x
+
+
+@pytest.mark.parametrize("element,cells", [("quad", (8, 8)), ("tet", (4, 4, 4))], ids=["quad8", "tet4"])
+def test_k8_pcg_mode_keeps_the_tpu_blocks(element, cells):
+    """``fieldsplit_inner_ksp: pcg`` routes to K8 and its twin is the outer
+    ``krylov.gmres`` with the TPU kernel's PCG blocks bit for bit, inner
+    counts included; the literal mode's differs, its inner counts its own."""
+    g1, g2 = _manufactured(element, cells)
+    state = from_numpy_state({}, cells, element, g1, g2, device="cpu")
+    op = DPPOperator(state.W, state.params)
+    assert _krylov_kind(op, dict(_freeze({**SSI, "fieldsplit_inner_ksp": "pcg"}))) == K8
+    r = _newton_rhs(op, state.grids)
+    kw = dict(rtol=1e-8, atol=1e-12, max_it=50000)
+    pcg = FusedGMRESSolver(op, "fieldsplit_ilu", **kw, inner_ksp="pcg")
+    got = pcg.plain(r)
+    ref = FusedGMRESSolver(op, "fieldsplit_ilu", inner_ksp="pcg")  # its blocks' operators and factors
+
+    def fieldsplit(v):
+        y1 = _tpu_pcg_block(ref, 0, v[0])
+        return torch.stack([y1, _tpu_pcg_block(ref, 1, v[1] - ref.coupling(y1))])
+
+    def mv(z):
+        return torch.stack(fused_dpp_apply_plain(z[0], z[1], *pcg.stencils, mode="matvec"))
+
+    want = gmres(mv, r, **kw, restart=30, M_inv=fieldsplit)
+    assert got.iterations == want.iterations == 4
+    assert got.residual_norm == want.residual_norm and torch.equal(got.x, want.x)
+    assert (pcg.inner_iterations, pcg.inner_solves) == (ref.inner_iterations, ref.inner_solves)
+    lit = FusedGMRESSolver(op, "fieldsplit_ilu", **kw)
+    assert lit.inner_tols() == (1e-8, 1e-12, 50000, 30) and pcg.inner_tols() == (1e-8, 1e-12, 50000, 0)
+    assert not torch.equal(lit.plain(r).x, got.x)
+    assert lit.inner_solves == pcg.inner_solves and lit.inner_iterations != pcg.inner_iterations
+
+
+def test_inner_ksp_and_partri_group_options():
+    """Both options are validated and part of the solver caches' key: each
+    value builds its own solver; beyond K8's envelope, or with block options
+    other than the kernel's, the host route runs the blocks' own solves."""
+    state = from_numpy_state({}, (4, 4), "quad", np.zeros((5, 5)), np.zeros((5, 5)), device="cpu")
+    W, p = state.W, state.params
+    for bad in ({"fieldsplit_inner_ksp": "cg"}, {"partri_group": -1}, {"partri_group": 2.5},
+                {"partri_group": True}, {"partri_group": "8"}):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            solve_dpp(W, p, state.bcs, solver_parameters={**SSI, "trisolve_backend": "partri", **bad})
+    builds = {
+        _build_linear_solver(W, p, _freeze({**SSI, **extra}))
+        for extra in ({}, {"fieldsplit_inner_ksp": "literal"}, {"fieldsplit_inner_ksp": "pcg"},
+                      {"partri_group": 0}, {"partri_group": 2})
+    }
+    assert len(builds) == 5
+    assert _build_linear_solver(W, p, _freeze({**SSI, "fieldsplit_inner_ksp": "pcg"})) in builds
+    op = DPPOperator(W, p)
+    restart = {**SSI, "fieldsplit_0_ksp_gmres_restart": 20}
+    assert _krylov_kind(op, dict(_freeze(restart))) == "gmres"  # not the kernel's blocks
+    assert _krylov_kind(op, dict(_freeze({**restart, "fieldsplit_inner_ksp": "pcg"}))) == K8
 
 
 @pytest.mark.parametrize(

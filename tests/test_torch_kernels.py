@@ -501,25 +501,38 @@ def test_fused_gmres_rejects_bad_inputs(cuda):
         solver.launch(b.transpose(1, 2))
 
 
-PC_ROLES = [  # pc, mesh, bound on the relative difference
-    ("ilu", ("quad", (16, 16)), 0.0),  # the twin's order: bit for bit
-    ("ilu", ("tet", (4, 4, 4)), 0.0),
-    ("fieldsplit_ilu", ("quad", (8, 8)), 0.0),
-    ("fieldsplit_ilu", ("tet", (4, 4, 4)), 0.0),
+PC_ROLES = [  # pc, mesh, bound on the relative difference, K8's inner solve
+    ("ilu", ("quad", (16, 16)), 0.0, "literal"),  # the twin's order: bit for bit
+    ("ilu", ("tet", (4, 4, 4)), 0.0, "literal"),
+    ("fieldsplit_ilu", ("quad", (8, 8)), 0.0, "literal"),
+    ("fieldsplit_ilu", ("tet", (4, 4, 4)), 0.0, "literal"),
+    ("fieldsplit_ilu", ("quad", (8, 8)), 0.0, "pcg"),
+    ("fieldsplit_ilu", ("tet", (4, 4, 4)), 0.0, "pcg"),
     # per-axis loops against torch.matmul's sums: rounding apart
-    ("fieldsplit_lu", ("quad", (16, 16)), 1e-10),
-    ("fieldsplit_lu", ("tet", (4, 4, 4)), 1e-10),
+    ("fieldsplit_lu", ("quad", (16, 16)), 1e-10, "literal"),
+    ("fieldsplit_lu", ("tet", (4, 4, 4)), 1e-10, "literal"),
 ]
 
 
+def _inner_counts_match(solver, b):
+    """The kernel's inner counts are the twin's but for the twin's repeated
+    first application of P(b - A x0), two block solves."""
+    twin = (solver.inner_iterations, solver.inner_solves)
+    solver.inner_iterations = solver.inner_solves = 0
+    solver.plain_pc()(b)
+    return solver.launch_inner == (twin[0] - solver.inner_iterations, twin[1] - solver.inner_solves)
+
+
 @pytest.mark.parametrize(
-    "pc,mesh,tol", PC_ROLES, ids=[f"{pc}-{m[0]}{m[1][0]}" for pc, m, _ in PC_ROLES]
+    "pc,mesh,tol,inner", PC_ROLES,
+    ids=[f"{pc}-{m[0]}{m[1][0]}" + ("-pcg" if inner == "pcg" else "") for pc, m, _, inner in PC_ROLES],
 )
-def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol):
-    """K6, K7, K8: equal counts; K7 and K8 keep the twin's order bit for bit."""
+def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol, inner):
+    """K6, K7, K8: equal counts; K7 and K8 (both inner modes, their inner
+    counts too) keep the twin's order bit for bit."""
     state = _state(*mesh, cuda, seed=4)
     op = DPPOperator(state.W, state.params)
-    solver = FusedGMRESSolver(op, pc, rtol=1e-8, atol=1e-12, max_it=5000)
+    solver = FusedGMRESSolver(op, pc, rtol=1e-8, atol=1e-12, max_it=5000, inner_ksp=inner)
     b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
     before = _cuda.KERNEL_LAUNCHES[solver.role]
     got = solver.launch(b)
@@ -529,22 +542,26 @@ def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol):
     assert got.iterations == ref.iterations > 0
     assert got.converged == ref.converged
     assert _rel(got.x, ref.x) <= tol
+    if pc == "fieldsplit_ilu":
+        assert _inner_counts_match(solver, b)
 
 
 ROLES_64 = [  # the preconditioned roles at 2D N=64, where they cost the most
-    ("fieldsplit_ilu", 0.0),  # K8: the ring on 33 rows a level, bit for bit
-    ("fieldsplit_lu", 1e-10),  # K6: the cluster's fast-diag transform
-    ("ilu", 0.0),  # K7: 66 rows a level, the ring
+    ("fieldsplit_ilu", 0.0, "literal"),  # K8: the ring on 33 rows a level, bit for bit
+    ("fieldsplit_ilu", 0.0, "pcg"),
+    ("fieldsplit_lu", 1e-10, "literal"),  # K6: the cluster's fast-diag transform
+    ("ilu", 0.0, "literal"),  # K7: 66 rows a level, the ring
 ]
 
 
-@pytest.mark.parametrize("pc,tol", ROLES_64, ids=["k8", "k6", "k7"])
-def test_preconditioned_gmres_at_quad64(cuda, pc, tol):
-    """K6-K8 at 2D N=64 on 16 blocks: equal counts (K8 also its inner PCG's),
-    and the shared memory the launcher reports is the Python mirror's."""
+@pytest.mark.parametrize("pc,tol,inner", ROLES_64, ids=["k8", "k8-pcg", "k6", "k7"])
+def test_preconditioned_gmres_at_quad64(cuda, pc, tol, inner):
+    """K6-K8 at 2D N=64 on 16 blocks: equal counts (K8 also its inner block
+    solves'), and the shared memory the launcher reports is the Python
+    mirror's, in K8's two inner modes alike."""
     state = _state("quad", (64, 64), cuda, seed=8)
     op = DPPOperator(state.W, state.params)
-    solver = FusedGMRESSolver(op, pc, rtol=1e-8, atol=1e-12, max_it=5000)
+    solver = FusedGMRESSolver(op, pc, rtol=1e-8, atol=1e-12, max_it=5000, inner_ksp=inner)
     b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
     got = solver.launch(b)
     torch.cuda.synchronize()
@@ -565,11 +582,7 @@ def test_preconditioned_gmres_at_quad64(cuda, pc, tol):
     if ilu is not None:
         assert geo.ilu_z_smem == plan.ilu.z_smem
     if pc == "fieldsplit_ilu":
-        # the twin applies P(b - A x0) twice, the kernel once
-        twin = (solver.inner_iterations, solver.inner_solves)
-        solver.inner_iterations = solver.inner_solves = 0
-        solver.plain_pc()(b)
-        assert solver.launch_inner == (twin[0] - solver.inner_iterations, twin[1] - solver.inner_solves)
+        assert _inner_counts_match(solver, b)
 
 
 SWEEP_PATHS = [  # system, mesh, offsets a side and rows of the widest level

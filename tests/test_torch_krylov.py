@@ -357,6 +357,12 @@ ROUTES = [
     ("quad", (16, 16), {**SS, "pc_fieldsplit_type": "additive"}, "gmres"),
     ("quad", (16, 16), SSI, K8),
     ("quad", (16, 16), {**SSI, "fieldsplit_1_ksp_rtol": 1e-6}, "gmres"),  # not the kernel's inner tolerance
+    # K8 literal takes the blocks' own max_it and restart too; the pcg mode their tolerances only
+    ("quad", (16, 16), {**SSI, "fieldsplit_0_ksp_gmres_restart": 20}, "gmres"),
+    ("quad", (16, 16), {**SSI, "fieldsplit_1_ksp_max_it": 100}, "gmres"),
+    ("quad", (16, 16), {**SSI, "fieldsplit_inner_ksp": "pcg"}, K8),
+    ("quad", (16, 16), {**SSI, "fieldsplit_inner_ksp": "pcg", "fieldsplit_0_ksp_gmres_restart": 20}, K8),
+    ("quad", (16, 16), {**SSI, "fieldsplit_inner_ksp": "pcg", "fieldsplit_1_ksp_rtol": 1e-6}, "gmres"),
     ("quad", (128, 128), SSI, K8),
     ("quad", (361, 361), SSI, "gmres"),  # the slices beyond the budget
     ("tet", (40, 40, 40), sp.PLAIN_GMRES_PARAMS, K4),

@@ -6,7 +6,7 @@ mirrors on the card."""
 
 import pytest
 
-from perphil_tpu_torch.ops.fused_gmres import plan_smem
+from perphil_tpu_torch.ops.fused_gmres import INNER_STATE_DOUBLES, fused_gmres_plan, plan_smem, work_doubles
 from perphil_tpu_torch.ops.ilu import IluPlan, ilu_plan
 
 ILU_PLANS = [
@@ -77,3 +77,17 @@ def test_plan_smem_k6_tet8():
     plan = plan_smem((9, 9, 9), "fieldsplit_lu", 200000)
     assert (plan.input_smem, plan.p_smem, plan.s_smem, plan.basis_smem) == (True, True, True, True)
     assert (plan.pc_bytes, plan.bytes) == (14656, 14656 + 90768)
+
+
+def test_k8_literal_scratch_by_hand():
+    """K8's literal inner GMRES keeps its state in device scratch behind the
+    frame's 10 n: the basis, (restart + 1) n, and a block's Givens state (R
+    32 x 32, g 33, cs and sn 32 each: 1,121 doubles, rounded up to 256-byte
+    pieces) each block. The shared-memory plan is the PCG mode's, so every
+    mesh K8 placed still places (the published 2D N=16..128)."""
+    assert INNER_STATE_DOUBLES == 1152 >= 32 * 32 + 33 + 2 * 32
+    assert work_doubles(4225, 16, 0) == 42250  # PCG: the frame's scratch
+    assert work_doubles(4225, 16, 30) == 42250 + 31 * 4225 + 16 * 1152  # 2D N=64: 1.4 MB
+    assert 8 * 31 * 129 * 129 == 4126968  # the 2D N=128 basis, 4.1 MB
+    for n in (16, 64, 128):
+        assert fused_gmres_plan((n + 1, n + 1), "fieldsplit_ilu") is not None
