@@ -7,7 +7,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      versions, and switches TF32 off for f32 products (TF32 would stall the
      mixed-precision refinement);
   2. builds the CUDA kernels K1-K8, ``structured_ilu_apply``, ``fused_ngs``,
-     ``fused_gs`` and ``band_trisolve`` from
+     ``fused_gs``, ``band_trisolve`` and ``ngs_colour_halo`` from
      ``perphil_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel) and
      ``fused_gs``'s probe build beside them, while ``fused_gs``'s twins run
      on the host's cores and the fused GMRES roles' long twins on the card
@@ -174,19 +174,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      package): one 17-plane slab, the 8 slabs, the padded 136 x 129 x 129
      box and the whole 129^3 box beside K1, 2D N=1023 in 8 slabs, each
      beside its bound (the owned block in and out, the received planes in),
-     its twin and ``conv3d``; then, counted, on a world of one NCCL
-     rank (``init_process_group("nccl")`` on a free port), the six paths of
-     the JAX multichip dry run (``tools/dryrun.py``) held to the
-     single-device solves on the card and to ``MULTICHIP_r05.json``'s counts
-     (38/6/4/1/49/4), the halo matvec to K1 on the gathered vector (0), one
-     ``stacked_halo_apply`` at 64^3 and 128^3 in turns with the first
-     form's apply (the block extended whole, then the probe; device time
-     and host wall), and
-     ``sharded_solve_dpp`` at full width: 64^3 hex ``TPU_DIRECT_PARAMS``
-     (f64 relative residual < 1e-10) and 2D N=64 ``PLAIN_GMRES_PARAMS`` on
-     the distributed host loop (exactly 3307), each wall beside the
-     single-device solve's; ``fused_dpp_apply_halo``, K2,
-     ``structured_ilu_apply`` and ``fused_ngs`` must launch; then
+     its twin and ``conv3d``; the colour step of the sharded Picard solve
+     (``ngs_colour_halo``) over 1, 2, 4 and 8 loopback slabs of 2D N=128
+     (phantom-padded), a sweep of every colour and the residual mode bit for
+     bit with its twin, with its time a colour step (launches queued) and
+     the twin's; the blocked fast-diag (f64) and mixed-precision direct
+     solves over loopback slabs (2, 4, 8) and (2, 2) pencils of 128^3 hex
+     (``TPU_DIRECT_PARAMS``' solver at full width) against the whole-grid
+     solves (1e-12, f64 relative residual < 1e-10), with the all-to-all
+     moves' time; then, counted, on a world of one NCCL rank
+     (``init_process_group("nccl")`` on a free port), the six paths of the
+     JAX multichip dry run (``tools/dryrun.py``) held to the single-device
+     solves on the card and to ``MULTICHIP_r05.json``'s counts
+     (38/6/4/1/49/4), each with the collectives it issued, the halo matvec
+     to K1 on the gathered vector (0), one ``stacked_halo_apply`` at 64^3
+     and 128^3 in turns with the first form's apply (the block extended
+     whole, then the probe; device time and host wall), and
+     ``sharded_solve_dpp`` / ``sharded_solve_dpp_nonlinear`` at full width:
+     128^3 hex ``TPU_DIRECT_PARAMS`` (f64 relative residual < 1e-10), 2D
+     N=64 ``PLAIN_GMRES_PARAMS`` on the distributed host loop (exactly
+     3307), SS-GMRES at 2D N=64 (4), ``PICARD_LU_SOLVER_PARAMS`` at 2D N=64
+     and N=128 (exactly 1673 and 5135, a colour step a launch), each wall
+     beside the single-device solve's and with its collectives (one
+     all-gather where every part keeps its blocks); ``fused_dpp_apply_halo``,
+     ``structured_ilu_apply`` (the gathered ILU) and ``ngs_colour_halo``
+     must launch, K2 and ``fused_ngs`` must not (the port's blocked routes
+     take neither, at every size, by design); then
      ``run_scaling`` (strong, one rank, 2D N=64, both default approaches)
      in a world of its own, its rows printed.
 
@@ -248,6 +261,9 @@ MULTIDEVICE_KERNELS = {
     # K1's halo form: the explicit-halo stencil of the JAX package's
     # shard_map matvec (XLA inside shard_map, no Pallas)
     "fused_dpp_apply_halo": (_CSRC + "dpp_apply.cu", "perphil_tpu/parallel/halo.py:52"),
+    # the colour step of the sharded Picard solve: the JAX package's colour
+    # sweep, which its partitioner runs on every device (XLA, no Pallas)
+    "ngs_colour_halo": (_CSRC + "ngs_colour_halo.cu", "perphil_tpu/ops/ilu.py:924"),
 }
 KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS, **PARITY_KERNELS,
            **MULTIDEVICE_KERNELS}
@@ -1778,6 +1794,15 @@ MULTICHIP_RECORD = "MULTICHIP_r05.json"
 # loopback blocks: a world of one rank's block (edge ghosts only, the main
 # path's form), slabs, then pencils
 HALO_MESHES = ((1, 1), (2,), (4,), (8,), (2, 2), (4, 2))
+# the sharded solves at full width on a world of one rank: element, N,
+# preset, nonlinear; and their published counts (petsc_perf_breakdown.csv,
+# its -with-picard column; SS-GMRES: the fieldsplit-LU GMRES's 4)
+FULL_WIDTH = (("hex", 128, "TPU_DIRECT_PARAMS", False), ("quad", 64, "PLAIN_GMRES_PARAMS", False),
+              ("quad", 64, "SS-GMRES", False), ("quad", 64, "PICARD_LU_SOLVER_PARAMS", True),
+              ("quad", 128, "PICARD_LU_SOLVER_PARAMS", True))
+FULL_WIDTH_COUNTS = {("quad", 64, "PLAIN_GMRES_PARAMS"): 3307, ("quad", 64, "SS-GMRES"): 4,
+                     ("quad", 64, "PICARD_LU_SOLVER_PARAMS"): PICARD_COUNTS[64],
+                     ("quad", 128, "PICARD_LU_SOLVER_PARAMS"): PICARD_COUNTS[128]}
 
 
 def multichip_counts():
@@ -1817,6 +1842,31 @@ def halo_bytes(owned: int, planes, itemsize: int = 8) -> int:
     return itemsize * (2 * 2 * owned + sum(g.numel() for pair in planes for g in pair if g is not None))
 
 
+def colour_step_work(part, colour: int):
+    """(bytes, f64 operations) of one colour step of ``part`` (an
+    ``NgsBlock``), from its rows: each distinct x value the rows read, once
+    (a boundary row its own; an interior row both fields' 3 x 3 neighbours
+    that are not on the boundary, in the block or a received plane), b and
+    the int32 row list at the rows, the rows written, and the 38 weights;
+    39 operations an interior row (18 products, 18 sums, a difference, a
+    quotient, a sum), 3 a boundary row."""
+    import numpy as np
+
+    rows = part.rows[colour].cpu().numpy()
+    f, j, i = np.unravel_index(rows, part.shape)
+    ext = part.bdry.cpu().numpy()  # the block and a ring of ghosts: True on the boundary
+    ey, ex = ext.shape
+    inner = ~ext[j + 1, i + 1]
+    reads = [(f * ey + j + 1) * ex + i + 1]
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            jj, ii = j[inner] + dy + 1, i[inner] + dx + 1
+            keep = ~ext[jj, ii]
+            reads += [(g * ey + jj[keep]) * ex + ii[keep] for g in (0, 1)]
+    nbytes = 8 * np.unique(np.concatenate(reads)).size + (8 + 4 + 8) * rows.size + 8 * 38
+    return nbytes, 39 * int(inner.sum()) + 3 * int((~inner).sum())
+
+
 def first_form_apply(op, dmesh, probe, mode: str = "matvec"):
     """The sharded apply as it stood before the halo form's redesign, for
     timing beside today's: the block extended whole along each mesh axis
@@ -1846,11 +1896,14 @@ def first_form_apply(op, dmesh, probe, mode: str = "matvec"):
 def multidevice_path(dev, smi, randn, results, t_start, probe):
     """Phase 14: K1's halo form over loopback blocks against K1 on the whole
     grid, and its times in turns with the first form (``probe``:
-    ``fused_apply.halo_probe_library()``); then, counted, the sharded
-    solves on a world of one NCCL rank: the six dry-run paths, 64^3 hex
-    TPU_DIRECT_PARAMS and 2D N=64 plain GMRES at full width; one sharded
-    apply at 64^3 and 128^3 beside the first form's; the scaling harness in
-    a world of its own. Returns the launches of the counted run."""
+    ``fused_apply.halo_probe_library()``); the colour-step kernel against
+    its twin over loopback slabs; the blocked fast-diag and mixed direct
+    solves over loopback slabs and pencils of 128^3; then, counted, the
+    sharded solves on a world of one NCCL rank: the six dry-run paths,
+    128^3 hex TPU_DIRECT_PARAMS, 2D N=64 plain GMRES and SS-GMRES, and the
+    Picard solves at 2D N=64/128 at full width; one sharded apply at 64^3
+    and 128^3 beside the first form's; the scaling harness in a world of
+    its own. Returns the launches of the counted run."""
     import socket
 
     import numpy as np
@@ -1860,6 +1913,12 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
 
     from perphil_tpu_torch.experiments.scaling import run_scaling
     from perphil_tpu_torch.ops import _cuda
+    from perphil_tpu_torch.ops.direct import FastDiagDPPSolver, _fd_blocks
+    from perphil_tpu_torch.ops.fused_ngs import NgsBlock, colour_step_plain
+    from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
+    from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
+    from perphil_tpu_torch.parallel.halo import COLLECTIVES
+    from perphil_tpu_torch.parallel.transpose import LoopbackBlocks, Move
     from perphil_tpu_torch.ops.assembly import DPPOperator, dpp_stencils
     from perphil_tpu_torch.ops.fused_apply import (
         box_boundary,
@@ -1883,9 +1942,9 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
         split_blocks,
         stacked_halo_apply,
     )
-    from perphil_tpu_torch.parallel.sharding import device_mesh, sharded_solve_dpp
-    from perphil_tpu_torch.solvers import solve_dpp
-    from perphil_tpu_torch.tools.dryrun import check_paths, dryrun_cases, path_record, solve_case
+    from perphil_tpu_torch.parallel.sharding import device_mesh, sharded_solve_dpp, sharded_solve_dpp_nonlinear
+    from perphil_tpu_torch.solvers import solve_dpp, solve_dpp_nonlinear
+    from perphil_tpu_torch.tools.dryrun import check_paths, collectives_text, dryrun_cases, sharded_record, solve_case
 
     t_phase = time.perf_counter()
     wave = halo_wave(dev, torch.float64, 3)
@@ -2000,7 +2059,122 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
             )
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (a) done")
 
-    # -- (b) a world of one NCCL rank: the six dry-run paths
+    # -- (b) the colour step of the sharded Picard solve (ngs_colour_halo)
+    # over 1, 2, 4 and 8 loopback slabs of 2D N=128, phantom-padded: a sweep
+    # of every colour (a plane exchange before each) and the residual mode,
+    # bit for bit with the twin on the card; its time a colour step with the
+    # launches queued (the planes of the last exchange), the twin's beside
+    Wq, pq = problem("quad", 128, dev)[:2]
+    sweeper = ColoredNGSSweeper(Wq.mesh, pq, dev)
+    qshape = Wq.mesh.node_shape
+    xq, bq = (torch.stack([randn(qshape), randn(qshape)]) for _ in range(2))
+    colour_err = 0.0
+    for k in (1, 2, 4, 8):
+        pad_y = (-qshape[0]) % k
+        grid = (qshape[0] + pad_y, qshape[1])
+        L = LoopbackBlocks((k,))
+        parts = {c: NgsBlock(sweeper, grid, (k,), c) for c in L.coords}
+        xs, bs = (L.cut(F.pad(t, [0, 0, 0, pad_y]), lead=1) for t in (xq, bq))
+        twin = {c: v.clone() for c, v in xs.items()}
+
+        def twin_step(c, x, planes, colour=None):
+            part = parts[c]
+            return colour_step_plain(x, bs[c], planes, part.taps, part.diagonal, part.bdry,
+                                     None if colour is None else part.masks[colour])
+
+        for colour in range(sweeper.ncolors):
+            planes, tplanes = L.planes(xs), L.planes(twin)
+            xs = {c: parts[c].step(xs[c], bs[c], planes[c], colour) for c in L.coords}
+            twin = {c: twin_step(c, twin[c], tplanes[c], colour) for c in L.coords}
+        planes = L.planes(xs)
+        r_kernel = L.join({c: parts[c].residual(xs[c], bs[c], planes[c]) for c in L.coords})
+        r_twin = L.join({c: twin_step(c, xs[c], planes[c]) for c in L.coords})
+        torch.cuda.synchronize()
+        colour_err = max(colour_err, float((L.join(xs) - L.join(twin)).abs().max()), float((r_kernel - r_twin).abs().max()))
+        check(torch.equal(L.join(xs), L.join(twin)) and torch.equal(r_kernel, r_twin),
+              f"ngs_colour_halo 2D N=128 over {k} slab(s): a sweep and the residual bit for bit with the twin")
+
+        def sweep_kernel():
+            for colour in range(sweeper.ncolors):
+                for c in L.coords:
+                    parts[c].step(xs[c], bs[c], planes[c], colour)
+
+        def sweep_twin():
+            for colour in range(sweeper.ncolors):
+                for c in L.coords:
+                    twin_step(c, xs[c], planes[c], colour)
+
+        step_ms = queued_ms(sweep_kernel, calls=max(1, 16 // k)) / sweeper.ncolors
+        twin_ms = time_ms(sweep_twin, repeats=3) / sweeper.ncolors
+        rows = [int(parts[c].rows[colour].numel()) for c in L.coords for colour in range(sweeper.ncolors)]
+        print(f"ngs_colour_halo 2D N=128 over {k} slab(s) (padded {grid}): a sweep and the residual mode bit for "
+              f"bit with the twin; {step_ms:.4f} ms a colour step of all {k} block(s) ({k} launch(es), launches "
+              f"queued), twin {twin_ms:.4f} ms; {min(rows)}-{max(rows)} rows a block a colour (CUDA events) on {smi}")
+        if k == 1:  # the kernel line's shape: the main path's one block
+            # the bound of the mean step, as step_ms is the mean: the bytes
+            # and operations of all colours' steps over the colour count
+            work = [colour_step_work(parts[(0,)], colour) for colour in range(sweeper.ncolors)]
+            nbytes, flops = (sum(w[a] for w in work) / sweeper.ncolors for a in (0, 1))
+            results["ngs_colour_halo"] = dict(
+                ms=step_ms, plain_ms=twin_ms, bound=bound(nbytes, flops), library_ms=None,
+                shape=f"one colour step of 2D N=128 (a 2 x 129 x 129 block, {sweeper.ncolors} colours), f64",
+            )
+            print(f"ngs_colour_halo bound: {nbytes:.0f} B and {flops:.0f} f64 operations a colour step (the mean "
+                  f"of {sweeper.ncolors}, from the rows: x read, b and rows in, rows out), "
+                  f"{results['ngs_colour_halo']['bound'][0]:.6f} ms ({results['ngs_colour_halo']['bound'][1]})")
+    results["ngs_colour_halo"]["max_abs_err"] = colour_err
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (b) done")
+
+    # -- (c) the blocked fast-diag (f64) and mixed-precision direct solves
+    # over loopback slabs and pencils of 128^3 hex (TPU_DIRECT_PARAMS' solver
+    # at full width), phantom-padded, against the whole-grid solves; the
+    # all-to-all moves' time (the f32 transform's, forward and back)
+    Wh, ph = problem("hex", 128, dev)[:2]
+    hshape = Wh.mesh.node_shape
+    bh = torch.stack([randn(hshape), randn(hshape)])
+    Sh = dpp_stencils(Wh.mesh, ph)
+    fd64 = FastDiagDPPSolver(Wh.mesh, ph, device=dev)
+    whole_fd = torch.stack(fd64.solve(bh[0], bh[1]))
+    mixed = MixedPrecisionDPPDirect(Wh.mesh, ph, device=dev)
+    whole = torch.stack(mixed.solve(bh[0], bh[1]))
+    whole_ms = time_ms(lambda: mixed.solve(bh[0], bh[1]), repeats=3)
+    hcrop = (slice(None),) + tuple(slice(0, m) for m in hshape)
+    for mesh_shape in ((2,), (4,), (8,), (2, 2)):
+        pad = tuple([(-m) % s for m, s in zip(hshape, mesh_shape)] + [0] * (3 - len(mesh_shape)))
+        L = LoopbackBlocks(mesh_shape)
+        bs = L.cut(F.pad(bh, [v for p in reversed(pad) for v in (0, p)]), lead=1)
+        e_fd = rel(L.join(fd64.solve_blocks(bs, L, pad))[hcrop], whole_fd)
+        m = MixedPrecisionDPPDirect(Wh.mesh, ph, device=dev, padding=pad)
+        COLLECTIVES.clear()
+        z = L.join(m.solve_blocks(bs, L))[hcrop].contiguous()
+        moved = COLLECTIVES["all_to_all"]
+        e = rel(z, whole)
+        y = fused_dpp_apply_stacked(z, *Sh, mode="matvec")
+        rres = float(torch.linalg.vector_norm(bh - y) / torch.linalg.vector_norm(bh))
+        check(e_fd <= 1e-12 and e <= 1e-12 and rres < 1e-10,
+              f"blocked direct 128^3 over {mesh_shape}: fast-diag {e_fd:.2e}, mixed {e:.2e} of the whole grid, "
+              f"f64 relative residual {rres:.2e}")
+        moves = [st for st in _fd_blocks(m.fast32, L, pad).steps if isinstance(st, Move)]
+        x32 = {c: v.float() for c, v in bs.items()}
+
+        def shuffle():
+            y = x32
+            for mv in moves:
+                y = L.regrid(y, mv, 1)
+            for mv in reversed(moves):
+                y = L.regrid(y, mv.inverse(), 1)
+            return y
+
+        moves_ms = time_ms(shuffle, repeats=5)
+        blocked_ms = time_ms(lambda: m.solve_blocks(bs, L), repeats=3)
+        print(f"blocked direct hex 128^3 over loopback {mesh_shape} (padded {tuple(n + p for n, p in zip(hshape, pad))}): "
+              f"f64 fast-diag {e_fd:.2e}, mixed {e:.2e} of the whole-grid solves, f64 relative residual {rres:.3e}; "
+              f"{moved} all-to-all moves a solve; the f32 transform's {len(moves)} move(s) forward and back "
+              f"{moves_ms:.3f} ms; the blocked mixed solve {blocked_ms:.3f} ms beside the whole grid's "
+              f"{whole_ms:.3f} ms (CUDA events, one process) on {smi}")
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (c) done")
+
+    # -- (d) a world of one NCCL rank: the six dry-run paths
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
@@ -2010,34 +2184,40 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     cases = dryrun_cases([1, 1], dev)
     singles = [solve_case(c, False) for c in cases]  # the single-device solves on the card, not counted
     full = []
-    for element, n, preset in (("hex", 64, "TPU_DIRECT_PARAMS"), ("quad", 64, "PLAIN_GMRES_PARAMS")):
+    for element, n, preset, nonlinear in FULL_WIDTH:
         Wf, pf, bf, _, _ = problem(element, n, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = solve_dpp(Wf, pf, bf, solver_parameters=presets()[preset])
+        ref = (solve_dpp_nonlinear if nonlinear else solve_dpp)(Wf, pf, bf, solver_parameters=presets()[preset])
         torch.cuda.synchronize()
-        full.append((element, n, preset, Wf, pf, bf, ref, time.perf_counter() - t0))
+        full.append((element, n, preset, nonlinear, Wf, pf, bf, ref, time.perf_counter() - t0))
     _cuda.KERNEL_LAUNCHES.clear()
     records, walls = [], []
     for case, single in zip(cases, singles):
-        records.append(path_record(case, single, solve_case(case, True)))
-    for element, n, preset, Wf, pf, bf, ref, ref_wall in full:
+        records.append(sharded_record(case, single))
+    for element, n, preset, nonlinear, Wf, pf, bf, ref, ref_wall in full:
         dm = device_mesh([1, 1], axis_names=("z", "y") if element == "hex" else ("y", "x"))
         torch.cuda.synchronize()
+        COLLECTIVES.clear()
         t0 = time.perf_counter()
-        sol = sharded_solve_dpp(Wf, pf, bf, dm, solver_parameters=presets()[preset])
+        fn = sharded_solve_dpp_nonlinear if nonlinear else sharded_solve_dpp
+        sol = fn(Wf, pf, bf, dm, solver_parameters=presets()[preset])
         torch.cuda.synchronize()
-        walls.append((element, n, preset, Wf, pf, bf, ref, ref_wall, sol, time.perf_counter() - t0))
+        walls.append((element, n, preset, nonlinear, Wf, pf, bf, ref, ref_wall, sol, time.perf_counter() - t0,
+                      dict(COLLECTIVES)))
     counts = dict(_cuda.KERNEL_LAUNCHES)
-    print(f"multi-device path kernel launches (the six paths and the two full-width solves): {counts}")
-    for name in ("fused_dpp_apply_halo", "fused_direct_solve", "structured_ilu_apply", "fused_ngs"):
+    print(f"multi-device path kernel launches (the six paths and the full-width solves): {counts}")
+    for name in ("fused_dpp_apply_halo", "structured_ilu_apply", "ngs_colour_halo"):
         check(counts.get(name, 0) > 0, f"{name} launched on the multi-device path")
+    for name in ("fused_direct_solve", "fused_ngs"):
+        check(counts.get(name, 0) == 0, f"{name} not launched on blocks")
     _, W3, _, _, _, dm3 = cases[0]
     records.append(dict(label="halo", **benchmark_vs_gathered(DPPOperator(W3, DPPParameters()), dm3, reps=3)))
     check_paths(records)
     for r in records[:-1]:
         print(f"world of one NCCL rank [{r['label']}]: its={r['its']} (single-device on the card "
-              f"{r['single_its']}, {MULTICHIP_RECORD} {published[r['label']]}), max rel diff {r['rel_diff']:.2e}")
+              f"{r['single_its']}, {MULTICHIP_RECORD} {published[r['label']]}), max rel diff {r['rel_diff']:.2e}; "
+              f"collectives {collectives_text(r['collectives'], r['its'])}")
         check(r["its"] == published[r["label"]], f"{r['label']}: the JAX dry run's count")
     print(f"halo matvec against K1 on the gathered vector: diff {records[-1]['max_abs_diff']:.2e}, "
           f"halo {records[-1]['halo_s'] * 1e3:.4f} ms, gathered {records[-1]['gathered_s'] * 1e3:.4f} ms a call")
@@ -2075,8 +2255,8 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
               f"{turns_text(order, t)} ms (CUDA events, launches queued); host wall a call "
               f"{turns_text(order, host)} ms (median of 50, synchronised) on {smi}")
 
-    # -- (c) full width: the residual guard and the published count
-    for element, n, preset, Wf, pf, bf, ref, ref_wall, sol, wall in walls:
+    # -- (e) full width: the residual guard and the published counts
+    for element, n, preset, nonlinear, Wf, pf, bf, ref, ref_wall, sol, wall, coll in walls:
         z1, z2 = sol.solution.data
         check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
         check(z1.device == dev and tuple(z1.shape) == Wf.mesh.node_shape, "solution on the card")
@@ -2087,16 +2267,20 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
         rres = math.sqrt(float(((b1 - y1) ** 2).sum() + ((b2 - y2) ** 2).sum())) / math.sqrt(
             float((b1 ** 2).sum() + (b2 ** 2).sum()))
         diff = max(rel(a, b) for a, b in zip(sol.solution.data, ref.solution.data))
-        print(f"sharded_solve_dpp {element} N={n} {preset} on a world of one NCCL rank: its={sol.iteration_number} "
+        its = sol.iteration_number
+        print(f"sharded {element} N={n} {preset} on a world of one NCCL rank: its={its} "
               f"(single-device {ref.iteration_number}), f64 rel residual {rres:.3e}, max rel diff vs single-device "
-              f"{diff:.2e}, wall {wall:.3f} s beside the single-device solve's {ref_wall:.3f} s on {smi}")
+              f"{diff:.2e}, wall {wall:.3f} s beside the single-device solve's {ref_wall:.3f} s; collectives "
+              f"{collectives_text(coll, its)} on {smi}")
+        check(coll.get("all_gather", 0) == 1, f"sharded {element} N={n} {preset}: one all-gather, the solution's")
+        want = FULL_WIDTH_COUNTS.get((element, n, preset))
         if preset == "TPU_DIRECT_PARAMS":
             check(rres < 1e-10, f"sharded {element} N={n} residual")
         else:
-            check(sol.iteration_number == 3307, f"sharded {element} N={n} plain GMRES lands the published 3307")
+            check(its == want == ref.iteration_number, f"sharded {element} N={n} {preset} lands the published {want}")
     dist.destroy_process_group()
 
-    # -- (d) the scaling harness: a world of one NCCL rank of its own
+    # -- (f) the scaling harness: a world of one NCCL rank of its own
     rows = run_scaling(modes=("strong",), device_counts=(1,), base_n=64, dim=2, repeats=1, device=dev)
     for r in rows:
         print(f"scaling row: {json.dumps(r.to_dict())}")
@@ -2681,7 +2865,8 @@ def main() -> int:
     # element, N, preset, route: K2 or K3 once a solve; "cg": the lumped
     # fast-diag PCG on the host with one K1 matvec an iteration (tri N=151,
     # the first triangle mesh past K3's gate); "mixed": past K2's plan, the
-    # mixed-precision solver with K1 residuals (64^3/128^3 hex). tet nx=16
+    # mixed-precision solver with K1's lift and the halo form's residuals
+    # (64^3/128^3 hex). tet nx=16
     # and 32 run K3 on a thread block cluster (2 and 16 blocks)
     cases = [("quad", 4, "LINEAR_SOLVER_PARAMS", K2), ("quad", 16, "LINEAR_SOLVER_PARAMS", K2),
              ("tet", 4, "LINEAR_SOLVER_PARAMS", K3), ("tet", 16, "LINEAR_SOLVER_PARAMS", K3),
@@ -2699,9 +2884,10 @@ def main() -> int:
         check(sol.iteration_number == 1 and sol.residual_error == 0.0, "preonly reports 1 / 0.0")
         if route in (K2, K3):
             check(counts.get(route) == 1, f"{element} N={n} {preset} ran {route} once")
-        else:  # no fused direct kernel; K1 for the lift and each matvec or residual
-            check(counts.get(K2, 0) == counts.get(K3, 0) == 0 and counts.get("fused_dpp_apply", 0) > 1,
-                  f"{element} N={n} {preset} took the {route} route")
+        else:  # no fused direct kernel; K1 for the lift, and each matvec (cg) or residual (mixed: the halo form)
+            residual = "fused_dpp_apply_halo" if route == "mixed" else "fused_dpp_apply"
+            check(counts.get(K2, 0) == counts.get(K3, 0) == 0 and counts.get("fused_dpp_apply", 0) >= 1
+                  and counts.get(residual, 0) >= 1, f"{element} N={n} {preset} took the {route} route")
         check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()), "finite solution")
         check(z1.device == dev and tuple(z1.shape) == W.mesh.node_shape, "solution on the card")
         # f64 relative residual with the plain operator (no kernel involved)
@@ -2713,7 +2899,8 @@ def main() -> int:
             float((b1 ** 2).sum() + (b2 ** 2).sum())
         )
         line = (f"solve_dpp {element} N={n} {preset}: launches {counts} "
-                f"(K1: {counts.get('fused_dpp_apply', 0)} a solve), f64 rel residual {rres:.3e}")
+                f"(K1: {counts.get('fused_dpp_apply', 0)} a solve, its halo form "
+                f"{counts.get('fused_dpp_apply_halo', 0)}), f64 rel residual {rres:.3e}")
         check(rres < 1e-10, f"{element} N={n} residual")
         if n <= 16:
             p1h, p2h = sol.solution.split()

@@ -59,7 +59,7 @@ class ScalingRow:
     halo_bytes_per_exchange: int = 0
     # collectives counted in parallel/halo.py: the halo matvec's, and one
     # GMRES iteration's (cp = plane exchanges, ar = all-reduces,
-    # ag = all-gathers)
+    # ag = all-gathers, aa = all-to-all transposes)
     matvec_collectives: str = ""
     # iteration-count parity with the single-device solve of the system
     its_single_device: int = -1
@@ -100,7 +100,8 @@ def _count(fn) -> Dict[str, int]:
 
 
 def _fmt(c: Dict[str, int]) -> str:
-    return f"cp={c.get('exchange', 0)};ar={c.get('all_reduce', 0)};ag={c.get('all_gather', 0)}"
+    return (f"cp={c.get('exchange', 0)};ar={c.get('all_reduce', 0)};ag={c.get('all_gather', 0)};"
+            f"aa={c.get('all_to_all', 0)}")
 
 
 def _collectives(W, params, bcs, dmesh, sp_dict, padding) -> str:

@@ -87,6 +87,9 @@ _SIGNATURES = {
     # nz, ny, nx, rtol, atol, max_it, blocks, rows, nloc, width, nlev,
     # sweep_warps, stream
     "perphil_fused_gs": [_P] * 10 + [_I] * 4 + [_D, _D] + [_I] * 7 + [_P],
+    # x, b, y_lo, y_hi, x_lo, x_hi, rows, count, r, weights(host, 38 doubles),
+    # ly, lx, oy, ox, ny, nx, stream
+    "perphil_ngs_colour_halo": [_P] * 7 + [_I, _P, _P] + [_I] * 6 + [_P],
     # r, z, vec, blob, desc, perm, n, nlev_l, nlev_u, blocks, shared_vector,
     # stages, stage_bytes, stream
     "perphil_band_trisolve": [_P] * 6 + [_I] * 7 + [_P],

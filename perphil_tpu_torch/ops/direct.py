@@ -15,12 +15,24 @@ The solvers are ``nn.Module``s whose buffers (per-axis eigenvectors and
 per-mode coefficients) live on the device they were built for, in the dtype
 they were built with. The transforms are ``torch.tensordot`` products (the
 JAX package leaves them to XLA outside any kernel).
+
+On blocks (the sharded path, ``parallel/sharding.py``): each solver's
+``solve_blocks`` runs on the blocks of its node grid, phantom-padded to
+divisibility, that a process holds (``parallel/transpose.py``:
+``RankBlocks``, ``LoopbackBlocks``). The 1D eigenvector matrices are
+extended to the padded node axis with zero rows and columns at the
+boundary and phantom indices (:class:`FastDiagBlocks`), so a transform of
+the whole padded grid is the interior transform and nothing of the
+boundary enters it; each axis is contracted while it is whole, the mesh
+axes that split it moved to another axis by all-to-all transposes, and the
+mode data are sliced to the layout the forward transform ends in. Boundary
+and phantom rows pass ``b`` through, as ``solve`` does.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import scipy.linalg
@@ -30,6 +42,8 @@ from torch import nn
 from perphil_tpu_torch.config import DeviceLike, default_dtype, resolve_device
 from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
+
+Blocks = Dict[Tuple[int, ...], torch.Tensor]
 
 
 @lru_cache(maxsize=None)
@@ -75,6 +89,85 @@ def _lam_sum(eig) -> np.ndarray:
         shape[ax] = len(lams[d - 1 - ax])
         lam_sum = lam_sum + lams[d - 1 - ax].reshape(shape)
     return lam_sum
+
+
+def extended_modes(a: np.ndarray, node_shape: Sequence[int], grid: Sequence[int]) -> np.ndarray:
+    """Interior mode data ``a`` (one entry an interior mode) on the padded
+    node grid ``grid`` with one more entry an axis: 1 at every other mode
+    (boundary, phantom, and the last entry, which index -1 of a padded
+    layout reads)."""
+    out = np.ones(tuple(int(n) + 1 for n in grid))
+    out[tuple(slice(1, n - 1) for n in node_shape)] = a
+    return out
+
+
+class FastDiagBlocks:
+    """The per-axis transforms of a fast-diag solver (``solver.mats``) on
+    the blocks ``blocks`` holds of its node grid padded by ``padding``.
+
+    Each 1D eigenvector matrix ``S`` (interior rows and modes) is extended
+    to the padded node axis with zeros: ``E[1:n-1, 1:n-1] = S``. The forward
+    transform ``E^T`` then reads only interior nodes and writes zeros at
+    the boundary and phantom modes, the backward ``E`` writes zeros at the
+    boundary and phantom nodes. Axes are contracted in the order of
+    ``parallel/transpose.py::transform_plan``, the backward transform
+    undoing the forward's moves in reverse."""
+
+    def __init__(self, solver: "_FastDiagBase", padding: Sequence[int], blocks):
+        from perphil_tpu_torch.ops.assembly import _masks
+        from perphil_tpu_torch.parallel.transpose import layout_index, transform_plan
+
+        mesh = solver.mesh
+        d = mesh.dim
+        padding = tuple(padding) or (0,) * d
+        self.node_shape = tuple(mesh.node_shape)
+        self.grid = tuple(n + p for n, p in zip(self.node_shape, padding))
+        self.blocks = blocks
+        dev, dtype = solver.S0.device, solver.dtype
+        self.E = []
+        for a, (n, N) in enumerate(zip(self.node_shape, self.grid)):
+            E = np.zeros((N, N))
+            E[1:n - 1, 1:n - 1] = solver.eig[d - 1 - a][0]
+            self.E.append(torch.as_tensor(E, dtype=dtype, device=dev))
+        self.steps, splits = transform_plan(self.grid, blocks.mesh_shape)
+        self.at = {c: np.ix_(*layout_index(self.grid, splits, c, blocks.mesh_shape)) for c in blocks.coords}
+        self.interior = blocks.cut(torch.as_tensor(_masks(mesh, padding)[1], device=dev))
+        self.dtype, self.device = dtype, dev
+
+    def modes(self, a) -> Blocks:
+        """Interior mode data (array or tensor, one entry a mode) sliced to
+        each block's layout after the forward transform."""
+        ext = extended_modes(np.asarray(torch.as_tensor(a).cpu()), self.node_shape, self.grid)
+        return {c: torch.as_tensor(np.ascontiguousarray(ext[at]), dtype=self.dtype, device=self.device)
+                for c, at in self.at.items()}
+
+    def _contract(self, x: torch.Tensor, a: int, lead: int, forward: bool) -> torch.Tensor:
+        E = self.E[a].to(x.dtype)
+        return torch.movedim(torch.tensordot(E.T if forward else E, x, dims=([1], [lead + a])), 0, lead + a)
+
+    def forward(self, xs: Blocks, lead: int = 0) -> Blocks:
+        for step in self.steps:
+            if isinstance(step, tuple) and step[0] == "contract":
+                xs = {c: self._contract(x, step[1], lead, True) for c, x in xs.items()}
+            else:
+                xs = self.blocks.regrid(xs, step, lead)
+        return xs
+
+    def backward(self, xs: Blocks, lead: int = 0) -> Blocks:
+        for step in reversed(self.steps):
+            if isinstance(step, tuple) and step[0] == "contract":
+                xs = {c: self._contract(x, step[1], lead, False) for c, x in xs.items()}
+            else:
+                xs = self.blocks.regrid(xs, step.inverse(), lead)
+        return xs
+
+    def passthrough(self, u: Blocks, b: Blocks) -> Blocks:
+        """``u`` on interior rows, ``b`` on boundary and phantom rows."""
+        return {c: torch.where(self.interior[c], u[c], b[c]) for c in u}
+
+
+def _fd_blocks(solver: "_FastDiagBase", blocks, padding: Sequence[int]) -> FastDiagBlocks:
+    return blocks.built(("fastdiag", solver, tuple(padding)), lambda: FastDiagBlocks(solver, padding, blocks))
 
 
 class _FastDiagBase(nn.Module):
@@ -135,6 +228,34 @@ class FastDiagFieldSolver(_FastDiagBase):
         out[self.inner] = self.solve_interior(b[self.inner])
         return out
 
+    def solve_blocks(self, bs: Blocks, blocks, padding: Sequence[int] = ()) -> Blocks:
+        """:meth:`solve` on the blocks ``blocks`` holds of the node grid
+        padded by ``padding`` (:class:`FastDiagBlocks`)."""
+        fb = _fd_blocks(self, blocks, padding)
+        scale = blocks.built(("scale", self, tuple(padding)), lambda: fb.modes(self.mode_scale))
+        bh = fb.forward({c: b.to(self.dtype) for c, b in bs.items()})
+        u = fb.backward({c: v / scale[c] for c, v in bh.items()})
+        return fb.passthrough(u, bs)
+
+
+def field_pair_blocks(pc0: FastDiagFieldSolver, pc1: FastDiagFieldSolver, blocks, padding: Sequence[int] = ()):
+    """Two field solves on one mesh (stacked ``(2, *grid)`` blocks: field 0
+    by ``pc0``, field 1 by ``pc1``) on shared transforms, both fields in
+    every transpose: ``bs -> zs`` on the blocks ``blocks`` holds."""
+    if any(e0[0] is not e1[0] for e0, e1 in zip(pc0.eig, pc1.eig)):
+        raise ValueError("the two field solvers need the same eigenbasis")
+    fb = _fd_blocks(pc0, blocks, padding)
+    scale = blocks.built(("pair", pc0, pc1, tuple(padding)), lambda: {
+        c: torch.stack([a, b]) for (c, a), b in zip(fb.modes(pc0.mode_scale).items(),
+                                                    fb.modes(pc1.mode_scale).values())})
+
+    def solve(bs: Blocks) -> Blocks:
+        bh = fb.forward({c: b.to(pc0.dtype) for c, b in bs.items()}, lead=1)
+        u = fb.backward({c: v / scale[c] for c, v in bh.items()}, lead=1)
+        return {c: torch.where(fb.interior[c], u[c], bs[c]) for c in u}
+
+    return solve
+
 
 class LumpedDPPPreconditioner(nn.Module):
     """Block-diagonal lumped fast-diag preconditioner of the monolithic
@@ -149,6 +270,11 @@ class LumpedDPPPreconditioner(nn.Module):
 
     def forward(self, r: torch.Tensor) -> torch.Tensor:
         return torch.stack([self.pc1.solve(r[0]), self.pc2.solve(r[1])])
+
+    def solve_blocks(self, rs: Blocks, blocks, padding: Sequence[int] = ()) -> Blocks:
+        """:meth:`forward` on stacked blocks (:func:`field_pair_blocks`)."""
+        return blocks.built(("lumped", self, tuple(padding)),
+                            lambda: field_pair_blocks(self.pc1, self.pc2, blocks, padding))(rs)
 
 
 class FastDiagDPPSolver(_FastDiagBase):
@@ -204,3 +330,16 @@ class FastDiagDPPSolver(_FastDiagBase):
         z1[self.inner] = z1i
         z2[self.inner] = z2i
         return z1, z2
+
+    def solve_blocks(self, bs: Blocks, blocks, padding: Sequence[int] = ()) -> Blocks:
+        """:meth:`solve` on stacked ``(2, *grid)`` blocks of the node grid
+        padded by ``padding``: both fields in every transform and transpose,
+        the per-mode 2x2 solve in the forward transform's layout."""
+        fb = _fd_blocks(self, blocks, padding)
+        a11, a22, det = blocks.built(("dpp", self, tuple(padding)),
+                                     lambda: [fb.modes(t) for t in (self.a11, self.a22, self.det)])
+        a12 = self.a12
+        fh = fb.forward({c: b.to(self.dtype) for c, b in bs.items()}, lead=1)
+        uh = {c: torch.stack([(a22[c] * f[0] - a12 * f[1]) / det[c], (a11[c] * f[1] - a12 * f[0]) / det[c]])
+              for c, f in fh.items()}
+        return fb.passthrough(fb.backward(uh, lead=1), {c: b.to(self.dtype) for c, b in bs.items()})

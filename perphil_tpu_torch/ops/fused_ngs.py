@@ -23,12 +23,21 @@ halos; the norm's residuals go to the fused GMRES frame's tree layout
 (:func:`tree_slots`). :func:`fused_ngs_plan` mirrors its launcher,
 :func:`ngs_tables` builds its colour lists. Beyond the plan the solver runs
 :func:`ngs_host_loop` (K1 residuals, a norm read back each iteration).
+
+On blocks (the sharded Picard solve, ``parallel/sharding.py``): a rank
+holds one block of the grid and steps colour by colour, each colour after a
+plane exchange (``parallel/halo.py``), by :class:`NgsBlock`: its step is
+the kernel ``csrc/ngs_colour_halo.cu`` on a CUDA tensor (counted as
+``ngs_colour_halo``) and its plain twin :func:`colour_step_plain` on a CPU
+one, both bit for bit with :class:`ilu.ColoredNGSSweeper`'s rows;
+:func:`blocked_ngs` is the Picard loop over them, its norm the blocks'
+tree sums reduced over the ranks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +50,7 @@ from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
 from perphil_tpu_torch.ops.krylov import CLUSTER_THREADS, tree_sum
 
 KERNEL = "fused_ngs"
+COLOUR_KERNEL = "ngs_colour_halo"
 #: dynamic shared memory a launch may plan with, in bytes (the launcher's
 #: ``kNgsSmemBudget``, read from its source)
 SMEM_BUDGET = _cuda.header_constant("fused_ngs.cu", "kNgsSmemBudget")
@@ -218,21 +228,34 @@ def picard_loop(
     step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     residual: Callable[[torch.Tensor], torch.Tensor],
     x: torch.Tensor, rtol: float, atol: float, max_it: int,
+    norm: Callable[[torch.Tensor], float] = picard_norm,
 ) -> NgsResult:
     """The SNES loop of the Picard solves, on the host: ``x = step(x, r)``
     while ``||r|| > max(rtol ||r0||, atol)`` and fewer than ``max_it``
-    iterations, ``r = residual(x)``; every norm :func:`picard_norm`."""
+    iterations, ``r = residual(x)``; every norm ``norm`` (on blocks:
+    :func:`blocked_norm`)."""
     r = residual(x)
-    f0 = picard_norm(r)
+    f0 = norm(r)
     rel = rtol * f0
     tol = rel if rel > atol else atol  # Python's max(rtol * f0, atol)
     fn, its = f0, 0
     while fn > tol and its < max_it:
         x = step(x, r)
         r = residual(x)
-        fn = picard_norm(r)
+        fn = norm(r)
         its += 1
     return NgsResult(x, its, fn, f0)
+
+
+def blocked_norm(blocks) -> Callable[[Dict], float]:
+    """``||r||`` of a vector held as blocks (``parallel/transpose.py``):
+    each block's halving tree over its squares, the sum over every block,
+    the correctly rounded square root (one block: :func:`picard_norm`)."""
+
+    def norm(rs: Dict) -> float:
+        return math.sqrt(float(blocks.total({c: tree_sum((v * v).reshape(-1)) for c, v in rs.items()})))
+
+    return norm
 
 
 class FusedNGSSolver(nn.Module):
@@ -356,3 +379,143 @@ def ngs_host_loop(
         return x
 
     return picard_loop(step, lambda x: b - mv(x), x0, rtol, atol, max_it)
+
+
+def _owned_box(x: torch.Tensor, planes) -> torch.Tensor:
+    """The stacked 2D block ``x`` with a ghost row and column on every side:
+    the received planes (``halo.exchange_planes``; the x planes hold the
+    corners) where they arrived, zeros elsewhere."""
+    two, ly, lx = x.shape
+    box = x.new_zeros((two, ly + 2, lx + 2))
+    box[:, 1:-1, 1:-1] = x
+    for k, pair in enumerate(planes):
+        for side, g in enumerate(pair):
+            if g is None:
+                continue
+            if k == 0:
+                box[:, 0 if side == 0 else ly + 1, 1:-1] = g[:, 0]
+            else:
+                box[:, :, 0 if side == 0 else lx + 1] = g[:, :, 0]
+    return box
+
+
+def colour_step_plain(
+    x: torch.Tensor, b: torch.Tensor, planes, taps, diagonal: torch.Tensor, bdry: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Plain PyTorch twin of ``csrc/ngs_colour_halo.cu`` (any device) on a
+    stacked ``(2, ly, lx)`` block and its received planes: every row's
+    residual as :meth:`ilu.ColoredNGSSweeper.residual` computes it (the
+    taps ``taps``, per tap ``(field, dy, dx, weights (2, 1, 1))``; a
+    neighbour in ``bdry`` reads 0.0, ``bdry`` the box's boundary and
+    phantom nodes), then with ``mask`` (the colour's rows) ``x + r /
+    diagonal`` on them, without it (the residual mode) the residual."""
+    _, ly, lx = x.shape
+    box = _owned_box(x, planes)
+    xi = torch.where(bdry, 0.0, box)
+    acc = x.new_zeros(x.shape)
+    for f, dy, dx, w in taps:
+        acc = acc + w * xi[f, 1 + dy:1 + dy + ly, 1 + dx:1 + dx + lx]
+    r = torch.where(bdry[1:-1, 1:-1], b - x, b - acc)
+    if mask is None:
+        return r
+    return torch.where(mask, x + r / diagonal, x)
+
+
+class NgsBlock:
+    """The colour steps of :class:`ilu.ColoredNGSSweeper` on one block of
+    the 2D node grid (``grid``: the node grid, padded or not, blocked on
+    ``mesh_shape``) at ``coords``: per colour its rows (the kernel's int32
+    list, field-major offsets in the block) and mask (the twin's); phantom
+    nodes take no colour."""
+
+    def __init__(self, sweeper: ColoredNGSSweeper, grid: Sequence[int], mesh_shape: Sequence[int],
+                 coords: Sequence[int]):
+        from perphil_tpu_torch.parallel.transpose import block_slices
+
+        ny, nx = sweeper.mesh.node_shape
+        grid = tuple(int(n) for n in grid)
+        colors = np.full((2,) + grid, -1, np.int64)
+        colors[:, :ny, :nx] = sweeper.colors.reshape(2, ny, nx)
+        sl = block_slices(grid, mesh_shape, coords)
+        own = colors[(slice(None),) + sl]
+        self.shape = own.shape
+        self.offsets = tuple(s.start or 0 for s in sl)
+        self.n_phys = (ny, nx)
+        self.ncolors = sweeper.ncolors
+        dev = sweeper.device
+        self.rows = [torch.tensor(np.flatnonzero(own == c).astype(np.int32), device=dev)
+                     for c in range(self.ncolors)]
+        self.masks = torch.tensor(np.stack([own == c for c in range(self.ncolors)]), device=dev)
+        gy = np.arange(-1, self.shape[1] + 1) + self.offsets[0]
+        gx = np.arange(-1, self.shape[2] + 1) + self.offsets[1]
+        bdry = ((gy <= 0) | (gy >= ny - 1))[:, None] | ((gx <= 0) | (gx >= nx - 1))[None, :]
+        self.bdry = torch.tensor(bdry, device=dev)
+        inner = self.bdry[1:-1, 1:-1]
+        self.diagonal = torch.stack([torch.full(inner.shape, d, dtype=torch.float64, device=dev).masked_fill_(inner, 1.0)
+                                     for d in sweeper.diag])
+        self.taps = [(t // 9, (t % 9) // 3 - 1, t % 3 - 1, w) for t, w in enumerate(sweeper._taps)]
+        self.weights = np.ascontiguousarray(np.concatenate([sweeper.weights.ravel(), np.asarray(sweeper.diag)]))
+        self.device = dev
+
+    def _launch(self, x: torch.Tensor, b: torch.Tensor, planes, rows: Optional[torch.Tensor],
+                r: Optional[torch.Tensor]) -> None:
+        for name, t in (("x", x), ("b", b)):
+            _cuda.require_cuda_tensor(t, name, torch.float64, x.device)
+            if tuple(t.shape) != self.shape:
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, the block is {self.shape}")
+        ptrs = [0, 0, 0, 0]
+        for k, pair in enumerate(planes):
+            for side, g in enumerate(pair):
+                if g is not None:
+                    _cuda.require_cuda_tensor(g, "plane", torch.float64, x.device)
+                    ptrs[2 * k + side] = g.data_ptr()
+        count = int(rows.numel()) if rows is not None else x.numel()
+        _, ly, lx = self.shape
+        _cuda.launch(
+            COLOUR_KERNEL, "perphil_ngs_colour_halo", x.device, x.data_ptr(), b.data_ptr(), *ptrs,
+            0 if rows is None else rows.data_ptr(), count, 0 if r is None else r.data_ptr(),
+            self.weights.ctypes.data, ly, lx, *self.offsets, *self.n_phys,
+        )
+
+    def step(self, x: torch.Tensor, b: torch.Tensor, planes, colour: int) -> torch.Tensor:
+        """Colour ``colour``'s step: on a CUDA tensor the kernel, in place
+        (``x`` returned; no launch where the block holds no row of the
+        colour), on a CPU tensor the twin (a new tensor)."""
+        if x.device.type == "cpu":
+            return colour_step_plain(x, b, planes, self.taps, self.diagonal, self.bdry, self.masks[colour])
+        if self.rows[colour].numel():
+            self._launch(x, b, planes, self.rows[colour], None)
+        return x
+
+    def residual(self, x: torch.Tensor, b: torch.Tensor, planes) -> torch.Tensor:
+        """Every row's residual ``b - A x`` (the kernel's residual mode on a
+        CUDA tensor, the twin on a CPU one)."""
+        if x.device.type == "cpu":
+            return colour_step_plain(x, b, planes, self.taps, self.diagonal, self.bdry, None)
+        r = torch.empty_like(x)
+        self._launch(x, b, planes, None, r)
+        return r
+
+
+def blocked_ngs(blocks, parts: Dict, b: Dict, x0: Dict, rtol: float, atol: float, max_it: int) -> NgsResult:
+    """The pinned-colouring Picard solve on the blocks ``blocks`` holds
+    (``parallel/transpose.py``), ``parts`` their :class:`NgsBlock` s: per
+    iteration a plane exchange and the residual (which colour 0 steps by),
+    then for every further colour an exchange and its step; the norm
+    :func:`blocked_norm`. ``x0`` is stepped in place on the card."""
+    ncolors = next(iter(parts.values())).ncolors
+    seen = {}
+
+    def residual(x):
+        seen["planes"] = blocks.planes(x)
+        return {c: parts[c].residual(x[c], b[c], seen["planes"][c]) for c in x}
+
+    def step(x, r):
+        for k in range(ncolors):
+            planes = seen["planes"] if k == 0 else blocks.planes(x)
+            x = {c: parts[c].step(x[c], b[c], planes[c], k) for c in x}
+        return x
+
+    return picard_loop(step, residual, {c: v.contiguous() for c, v in x0.items()}, rtol, atol, max_it,
+                       norm=blocked_norm(blocks))

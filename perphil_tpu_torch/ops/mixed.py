@@ -4,7 +4,7 @@ Counterpart of ``perphil_tpu/ops/mixed.py::MixedPrecisionDPPDirect``, the
 "MUMPS role" solver for tensor meshes beyond the fused envelope:
 
   1. the tensor fast-diagonalization solve runs in float32;
-  2. residuals are computed in native float64 through K1
+  2. residuals are computed in native float64 through K1's halo form
      (``ops/fused_apply.py``), where the TPU package used double-float;
   3. iterative refinement contracts the error by ~kappa(A) * eps_f32 per
      step, so a handful of steps reach ~1e-12 relative.
@@ -13,16 +13,23 @@ The stopping rule is the reference's (``mixed.py:243-248``): at most
 ``refinements`` steps, while the residual is above ``3e-13 ||b||`` and still
 halves per step. Each step reads the residual norm back to the host.
 
-With ``padding`` (the sharded path's phantom nodes at the high end of each
-grid axis) the grids carry identity rows with zero data: the fast-diag solve
-passes them through, and the residuals run K1's halo form, which takes the
-boundary from the physical node grid.
+The solve runs on the blocks of the (padded) node grid that a process
+holds (``parallel/transpose.py``; :meth:`MixedPrecisionDPPDirect.solve` is
+:meth:`~MixedPrecisionDPPDirect.solve_blocks` with the whole grid as one
+block): the f32 fast-diag on blocks (``FastDiagDPPSolver.solve_blocks``,
+all-to-all transposes between blocks), the f64 residual by K1's halo form
+over exchanged planes, and ``||b||``, ``||r||`` and the scale ``s`` reduced
+over every block, so that every rank takes the same branch of the
+refinement loop. With ``padding`` (the sharded path's phantom nodes at the
+high end of each grid axis) the grids carry identity rows with zero data:
+the fast-diag passes them through and the halo form takes the boundary from
+the physical node grid.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -32,7 +39,8 @@ from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp.parameters import DPPParameters
 from perphil_tpu_torch.ops.assembly import dpp_stencils, normalize_padding
 from perphil_tpu_torch.ops.direct import FastDiagDPPSolver
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply, fused_dpp_apply_halo_planes
+from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply
+from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
 
 
 class MixedPrecisionDPPDirect(nn.Module):
@@ -58,35 +66,50 @@ class MixedPrecisionDPPDirect(nn.Module):
         self.padding = normalize_padding(mesh, padding)
         self.fast32 = FastDiagDPPSolver(mesh, params, device=device, dtype=torch.float32)
         self.stencils = dpp_stencils(mesh, params)
-
-    def _apply(self, z1: torch.Tensor, z2: torch.Tensor, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K1 on the node grid, its halo form on a padded one."""
-        if any(self.padding):
-            y = fused_dpp_apply_halo_planes(z1, z2, (), *self.stencils, mode=mode, n_phys=self.mesh.node_shape)
-            return y[0], y[1]
-        return fused_dpp_apply(z1, z2, *self.stencils, mode=mode)
+        # the whole grid as one block, kept: the blocked fast-diag's
+        # extended matrices and mode data are built once per set of blocks
+        self.whole = LoopbackBlocks(())
 
     def lifted_rhs(self, g1: torch.Tensor, g2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """f64 RHS with BC lifting (K1, lift mode)."""
-        return self._apply(g1, g2, "lift")
+        """f64 RHS with BC lifting (K1, lift mode) on the unpadded node grid."""
+        if any(self.padding):
+            raise ValueError("lifted_rhs takes the unpadded node grid; a padded grid's lift is DPPOperator.lifted_rhs")
+        return fused_dpp_apply(g1, g2, *self.stencils, mode="lift")
 
     def solve(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Solve A z = b to ~1e-12 relative accuracy; f64 in, f64 out."""
-        x1, x2 = (x.double() for x in self.fast32.solve(b1.float(), b2.float()))
-        bnorm = math.sqrt(float(torch.sum(b1 * b1) + torch.sum(b2 * b2)))
+        """Solve A z = b to ~1e-12 relative accuracy; f64 in, f64 out
+        (:meth:`solve_blocks` with the whole, padded or unpadded, grid as
+        one block)."""
+        z = self.solve_blocks({(): torch.stack([b1, b2])}, self.whole)[()]
+        return z[0], z[1]
+
+    def solve_blocks(self, bs: Dict[Tuple[int, ...], torch.Tensor], blocks) -> Dict[Tuple[int, ...], torch.Tensor]:
+        """:meth:`solve` on the stacked f64 blocks ``bs`` that ``blocks``
+        holds of the padded grid (``parallel/transpose.py``): f64 in, f64
+        out."""
+        grid = tuple(n + p for n, p in zip(self.mesh.node_shape, self.padding))
+
+        def fast(rs):
+            return {c: v.double() for c, v in self.fast32.solve_blocks(
+                {c: r.float() for c, r in rs.items()}, blocks, self.padding).items()}
+
+        def norm(rs) -> float:
+            return math.sqrt(float(blocks.total({c: torch.sum(r[0] * r[0]) + torch.sum(r[1] * r[1])
+                                                 for c, r in rs.items()})))
+
+        x = fast(bs)
+        bnorm = norm(bs)
         tol = 3e-13 * max(bnorm, 1e-30)
         it, rnorm, prev = 0, bnorm, math.inf
         while it < self.refinements and rnorm > tol and rnorm < 0.5 * prev:
-            y1, y2 = self._apply(x1, x2, "matvec")
-            r1, r2 = b1 - y1, b2 - y2
-            # scale the f32 correction solve to stay in f32 range
-            s = torch.clamp(torch.maximum(r1.abs().max(), r2.abs().max()), min=1e-30)
-            d1, d2 = self.fast32.solve((r1 / s).float(), (r2 / s).float())
-            x1 = x1 + d1.double() * s
-            x2 = x2 + d2.double() * s
-            prev, rnorm = rnorm, math.sqrt(float(torch.sum(r1 * r1) + torch.sum(r2 * r2)))
+            y = blocks.halo_apply(self.stencils, x, "matvec", grid, self.mesh.node_shape)
+            r = {c: bs[c] - y[c] for c in bs}
+            s = torch.clamp(blocks.largest({c: v.abs().max() for c, v in r.items()}), min=1e-30)
+            d = fast({c: v / s for c, v in r.items()})
+            x = {c: x[c] + d[c] * s for c in x}
+            prev, rnorm = rnorm, norm(r)
             it += 1
-        return x1, x2
+        return x
 
     def assemble_and_solve(
         self, g1: torch.Tensor, g2: torch.Tensor

@@ -21,8 +21,9 @@ grid inside one process, so that the same planes and K1 can be checked on
 one card. The loopback is a check, not a route: no solve takes it.
 
 ``COLLECTIVES`` counts what the sharded path issues: ``exchange`` (one a
-split axis an apply: a rank's two planes out and two in), ``all_reduce``
-and ``all_gather``.
+split axis an apply: a rank's two planes out and two in), ``all_to_all``
+(one a transpose of ``parallel/transpose.py``), ``all_reduce`` and
+``all_gather``.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_halo_planes
 
 #: Collectives issued by the sharded path since the last ``clear()``.
 COLLECTIVES: Dict[str, int] = collections.Counter()
@@ -131,24 +131,16 @@ def stacked_halo_apply(op, dmesh, mode: str = "matvec") -> Callable[[torch.Tenso
     """The BC-eliminated operator (``mode="matvec"``) or the lift
     (``mode="lift"``) of ``op`` (a ``DPPOperator``, padded or not) on this
     rank's stacked block: the exchange along every mesh axis, then K1's halo
-    form on the owned block and the received planes."""
+    form on the owned block and the received planes
+    (``parallel/transpose.py::RankBlocks.halo_apply``)."""
     S, grid = op._combined_stencils, op.grid_shape
     if len(dmesh.shape) > len(grid):
         raise ValueError(f"{len(dmesh.shape)}-axis mesh cannot shard a {len(grid)}-D grid")
     for k, (name, s) in enumerate(zip(dmesh.axis_names, dmesh.shape)):
         if grid[k] % s:
             raise ValueError(f"Grid axis {k} (size {grid[k]}) not divisible by mesh axis {name!r} (size {s})")
-    local = dmesh.local_shape(grid)
-    _, offsets, n_phys = block_geometry(dmesh.shape, dmesh.coords, local, op.mesh.node_shape)
-    transport = RankTransport(dmesh)
-
-    def apply(x_local: torch.Tensor) -> torch.Tensor:
-        x_local = x_local.contiguous()
-        planes = exchange_planes(x_local, len(dmesh.shape), transport.exchange)
-        return fused_dpp_apply_halo_planes(x_local[0], x_local[1], planes, *S, mode=mode, offsets=offsets,
-                                           n_phys=n_phys)
-
-    return apply
+    blocks = dmesh.blocks()
+    return blocks.one(lambda xs: blocks.halo_apply(S, xs, mode, grid, op.mesh.node_shape))
 
 
 def stacked_halo_matvec(op, dmesh) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -199,20 +191,15 @@ def loopback_apply(
     x: torch.Tensor, S, mesh_shape: Sequence[int], mode: str = "matvec", n_phys=None
 ) -> torch.Tensor:
     """K1's halo form over the blocks of one stacked grid ``x`` in one
-    process: split on ``mesh_shape``, planes moved by
-    :func:`loopback_planes`, one halo launch a block, the owned blocks
-    joined. With the same values it equals the whole-grid apply bit for
-    bit."""
+    process (``parallel/transpose.py::LoopbackBlocks.halo_apply``): split on
+    ``mesh_shape``, planes moved by :func:`loopback_planes`, one halo launch
+    a block, the owned blocks joined. With the same values it equals the
+    whole-grid apply bit for bit."""
+    from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
+
     grid = tuple(x.shape[1:])
-    n_phys = grid if n_phys is None else tuple(n_phys)
-    blocks = split_blocks(x, mesh_shape)
-    planes = loopback_planes(blocks, mesh_shape)
-    local = [n // s for n, s in zip(grid, mesh_shape)] + list(grid[len(mesh_shape):])
-    out = {}
-    for c, b in blocks.items():
-        _, offsets, nph = block_geometry(mesh_shape, c, local, n_phys)
-        out[c] = fused_dpp_apply_halo_planes(b[0], b[1], planes[c], *S, mode=mode, offsets=offsets, n_phys=nph)
-    return join_blocks(out, mesh_shape)
+    blocks = LoopbackBlocks(mesh_shape)
+    return blocks.join(blocks.halo_apply(S, blocks.cut(x, lead=1), mode, grid, grid if n_phys is None else n_phys))
 
 
 def benchmark_vs_gathered(op, dmesh, reps: int = 50, seed: int = 0) -> Dict[str, object]:

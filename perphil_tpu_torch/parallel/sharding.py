@@ -19,11 +19,27 @@ partitioner, so the distribution is written out here:
     rank's block: axpys local, every dot product and norm the block's tree
     sum and one all-reduce, so the Givens rotations and the stopping test
     see the same scalars on every rank;
-  - the preconditioners and direct solves (ILU, fieldsplit, fast-diag, K2,
-    K3, the Qp and P2 operators) and the Picard sweeps run on the gathered,
-    cropped global vector on every rank, from the builders cached for
-    ``(W, params, options)``, and each rank keeps its block of the result:
-    what the partitioner gave the JAX package for its sequential parts.
+  - the parts the JAX package lets its partitioner distribute keep their
+    blocks (``solvers/solver.py``: ``LinearParts.blocked``,
+    ``_nonlinear_parts``): the quad/hex direct solves (the mixed-precision
+    fast-diag on blocks, its transforms through all-to-all transposes,
+    ``parallel/transpose.py``), the tri/tet direct solves (``cg`` with the
+    lumped fast-diag preconditioner on blocks), both at every size by
+    design (the JAX package takes these routes only under padding; on a
+    divisible lattice its partitioner gathers K2/K3),
+    Jacobi, the fieldsplit with exact, Jacobi or Krylov blocks, and the
+    Picard sweeps: ``ngs`` on quad meshes colour by colour
+    (``csrc/ngs_colour_halo.cu`` after a plane exchange), ``block_gs`` and
+    ``nrichardson`` on the blocked field solves and preconditioners;
+  - gathered on every rank, the global vector cropped: ILU (monolithic, in
+    a fieldsplit block, the ordering-parity route) and the lexicographic
+    Gauss-Seidel / partri Picard sweeps on tri/hex/tet meshes, which the
+    JAX package gathers too; and the Qp and P2 operators and their
+    preconditioners, which its partitioner splits, gathered until the next
+    slice.
+
+Only planes (the exchange) and transposes (``all_to_all``) cross ranks in a
+blocked solve; its one ``all_gather`` returns the cropped solution.
 
 Ranks are NCCL ranks on the card and gloo ranks on the CPU
 (``parallel/distributed.py``); a mesh whose device does not match the
@@ -113,6 +129,15 @@ class DeviceMesh:
         dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
         halo.COLLECTIVES["all_reduce"] += 1
         return t
+
+    def blocks(self):
+        """This rank's block as ``parallel/transpose.py::RankBlocks`` (one
+        a mesh: what blocked solves build on it is kept there)."""
+        if getattr(self, "_blocks", None) is None:
+            from perphil_tpu_torch.parallel.transpose import RankBlocks
+
+            self._blocks = RankBlocks(self)
+        return self._blocks
 
     def barrier(self) -> None:
         if is_initialized():
@@ -205,9 +230,10 @@ def sharded_solve_dpp(
 ):
     """``solve_dpp`` over the ranks of ``dmesh``: the grids are phantom-padded
     to divisibility, each rank solves on its block with K1's halo form and
-    the distributed Krylov loop, the preconditioner or direct solve runs on
-    the gathered vector, and every rank returns the whole cropped solution
-    with the same iteration count and residual."""
+    the distributed Krylov loop, the preconditioner or direct solve on its
+    block (or, for ILU and the degree-p operators, on the gathered vector),
+    and every rank returns the whole cropped solution with the same
+    iteration count and residual."""
     from perphil_tpu_torch.ops.assembly import bc_values_per_field
     from perphil_tpu_torch.solvers.options import apply_prefix_overrides
     from perphil_tpu_torch.solvers.solver import (
@@ -264,9 +290,8 @@ def sharded_solve_dpp(
         bdry,
         mv,
         lift,
-        gather=lambda x: dmesh.gather(x, stacked=True),
-        cut=lambda x: dmesh.block(x, stacked=True),
         allreduce=dmesh.allreduce if is_initialized() else None,
+        blocks=dmesh.blocks(),
     )
     z = _crop_stacked(dmesh.gather(z, stacked=True), dof_shape)
     return Solution(Function(W, (z[0].contiguous(), z[1].contiguous())), int(its), float(rnorm))
@@ -281,17 +306,21 @@ def sharded_solve_dpp_nonlinear(
 ):
     """``solve_dpp_nonlinear`` over the ranks of ``dmesh``. ``ksponly`` is
     one linear solve through :func:`sharded_solve_dpp` (which pads). The
-    Picard sweeps (``ngs``, ``block_gs``, ``nrichardson``) run whole on the
-    gathered boundary data on every rank (the fused sweep kernels on the
-    card), so their trajectories are the single-device ones; the node grid
-    must be divisible, as in the JAX package, whose phantom nodes would
-    enter its pointwise sweeps."""
+    Picard sweeps run on each rank's block (``_nonlinear_parts``: ``ngs``
+    on quad meshes colour by colour after a plane exchange, ``block_gs``
+    and ``nrichardson`` on the blocked solves), their norms reduced over
+    the ranks, and every rank returns the whole solution; the lexicographic
+    ``ngs`` on tri/hex/tet meshes runs whole on the gathered boundary data
+    on every rank (the fused sweep kernel on the card), as in the JAX
+    package. The node grid must be divisible, as in the JAX package, whose
+    phantom nodes would enter its pointwise sweeps."""
     from perphil_tpu_torch.ops.assembly import bc_values_per_field
     from perphil_tpu_torch.solvers.options import apply_prefix_overrides
     from perphil_tpu_torch.solvers.solver import (
         Solution,
         _build_nonlinear_solver,
         _freeze,
+        _nonlinear_parts,
         _validate_mixed,
     )
 
@@ -317,6 +346,14 @@ def sharded_solve_dpp_nonlinear(
             "the Picard trajectory"
         )
     g1, g2 = bc_values_per_field(W, bcs)
-    solver = _build_nonlinear_solver(W, model_params, _freeze(solver_parameters))
-    z1, z2, its, fnorm = solver(g1, g2)
-    return Solution(Function(W, (z1, z2)), int(its), float(fnorm))
+    frozen = _freeze(solver_parameters)
+    build = _nonlinear_parts(W, model_params, frozen)
+    if build is None:
+        solver = _build_nonlinear_solver(W, model_params, frozen)
+        z1, z2, its, fnorm = solver(g1, g2)
+        return Solution(Function(W, (z1, z2)), int(its), float(fnorm))
+    blocks = dmesh.blocks()
+    solve = blocks.built(("nonlinear", build), lambda: build(blocks))
+    x, its, fnorm = solve(dmesh.block(torch.stack([g1, g2]), stacked=True))
+    z = dmesh.gather(x, stacked=True)
+    return Solution(Function(W, (z[0].contiguous(), z[1].contiguous())), int(its), float(fnorm))

@@ -13,7 +13,8 @@ Direct (``preonly`` + lu; ``LINEAR_SOLVER_PARAMS``, ``TPU_DIRECT_PARAMS``):
     measured faster: ``ops/fused_direct.py``)
                                          -> K2 ``fused_direct_solve``
   - quad/hex beyond it                   -> ``MixedPrecisionDPPDirect``
-                                            (f32 fast-diag, K1 residuals)
+                                            (f32 fast-diag, residuals by K1's
+                                            halo form, the grid one block)
   - tri/tet the K3 gate takes            -> K3 ``fused_simplicial_direct_solve``
   - tri/tet beyond it                    -> ``cg`` to 1e-13 with the lumped
                                             fast-diag preconditioner (K1 matvec)
@@ -114,12 +115,19 @@ form), as the JAX package's degree-p solves do. The fused kernels are
 Q1/P1 stencils and take none of these operators; ``solve_dpp_nonlinear``
 takes degree p with ``snes_type: ksponly`` only.
 
-Padding (the sharded path's phantom nodes, ``parallel/sharding.py``): the
-builders take a trailing ``padding``; a padded solve, and every degree-p
-GMRES or fast-diag solve, is :func:`_linear_parts` (what a rank needs: the
-operator, the Q1 preconditioner or direct solve of the unpadded system on
-the cropped vector, the degree-p ones built padded) run on one device by
-:func:`_run_parts`, the same function the sharded entry runs on each rank.
+Padding and blocks (the sharded path's phantom nodes and rank blocks,
+``parallel/sharding.py``): the builders take a trailing ``padding``; a
+padded solve, and every degree-p GMRES or fast-diag solve, is
+:func:`_linear_parts` (what a rank needs: the operator, and the direct
+solve or preconditioner either on blocks, ``LinearParts.blocked``, or on
+the gathered vector, ``LinearParts.apply``) run on one device by
+:func:`_run_parts` with the whole grid as one block, the same function the
+sharded entry runs on each rank's block. On blocks a quad/hex direct solve
+is the mixed-precision fast-diag at every size and a tri/tet one ``cg``
+with the lumped preconditioner, by design: the JAX package takes that
+route only under padding; on a divisible lattice its unpadded builder
+takes K2/K3, which its partitioner gathers. The sharded Picard solves are
+:func:`_nonlinear_parts`.
 
 Solvers are cached on ``(W, params, frozen options)``; ``W`` carries the
 device. No builder reads the environment.
@@ -146,7 +154,7 @@ from perphil_tpu_torch.ops.assembly import (
     coupling_apply,
 )
 from perphil_tpu_torch.ops.bandsolve import build_band_parity_ilu, level_schedule, plan_of
-from perphil_tpu_torch.ops.direct import FastDiagFieldSolver, LumpedDPPPreconditioner
+from perphil_tpu_torch.ops.direct import FastDiagFieldSolver, LumpedDPPPreconditioner, field_pair_blocks
 from perphil_tpu_torch.ops.fused_direct import (
     fused_direct_solve,
     fused_direct_supported,
@@ -164,7 +172,14 @@ from perphil_tpu_torch.ops.fused_gmres import (
     fused_gmres_supported,
 )
 from perphil_tpu_torch.ops.fused_gs import FusedGSSolver, gs_host_loop
-from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop, picard_loop
+from perphil_tpu_torch.ops.fused_ngs import (
+    FusedNGSSolver,
+    NgsBlock,
+    blocked_ngs,
+    blocked_norm,
+    ngs_host_loop,
+    picard_loop,
+)
 from perphil_tpu_torch.ops.ilu import (
     CPU_PARTRI_MAX_BYTES,
     GS_BACKENDS,
@@ -847,8 +862,20 @@ class LinearParts(NamedTuple):
       solve is on the Newton-step system from the BC lift; else (Qp, P2) the
       gathered operator's, on ``A x = b`` from ``x0``: each as its
       single-device route;
-    - ``apply``: the direct solve (preonly) or the preconditioner on the
-      gathered, padded stacked vector; None is the identity;
+    - ``blocked``: the direct solve (preonly) or the preconditioner on a
+      block: ``blocked(blocks)`` is the tensor function on the one block
+      ``blocks`` holds (``parallel/transpose.py``), its collectives the
+      plane exchange, the all-to-all transposes and all-reduces: the Q1
+      direct solves (the blocked mixed-precision fast-diag on quad/hex,
+      ``cg`` with the blocked lumped preconditioner on tri/tet), Jacobi, and
+      the fieldsplit whose blocks are exact, Jacobi, none or Krylov solves
+      with such preconditioners; ILU (monolithic or in a fieldsplit block),
+      which the JAX package gathers too, is the single-device one on the
+      gathered, cropped vector (``blocks.gathered``);
+    - ``apply``: the Qp and P2 operators' direct solve or preconditioner on
+      the gathered, padded stacked vector, run on every rank through
+      ``blocks.gathered`` (gathered until their slice; the ordering-parity
+      ILU route is ``whole``); both None: the identity;
     - ``kw``: the Krylov settings.
     """
 
@@ -858,6 +885,7 @@ class LinearParts(NamedTuple):
     stencil: bool
     apply: Optional[Callable]
     kw: Dict[str, float]
+    blocked: Optional[Callable] = None
 
 
 def _cropped(fn: Optional[Callable], shape: Tuple[int, ...], padding: Tuple[int, ...]) -> Optional[Callable]:
@@ -875,15 +903,180 @@ def _cropped(fn: Optional[Callable], shape: Tuple[int, ...], padding: Tuple[int,
     return padded
 
 
+def _halo_apply(op: DPPOperator, blocks, mode: str = "matvec") -> Callable[[torch.Tensor], torch.Tensor]:
+    """K1's halo form of ``op`` (padded or not) on the one stacked block
+    ``blocks`` holds, after the plane exchange."""
+    S, grid, n_phys = op._combined_stencils, op.grid_shape, op.mesh.node_shape
+    return blocks.one(lambda xs: blocks.halo_apply(S, xs, mode, grid, n_phys))
+
+
+def _blockable(flat: Dict[str, object]) -> bool:
+    """Whether the monolithic preconditioner of ``flat`` runs on blocks:
+    Jacobi, LU/Cholesky (the direct solves), and the fieldsplit without an
+    ILU block; ILU stays gathered, as in the JAX package."""
+    pc_type = str(flat.get("pc_type", "none"))
+    if pc_type in ("jacobi", "lu", "cholesky"):
+        return True
+    if pc_type == "fieldsplit":
+        return all(str(flat.get(f"fieldsplit_{i}_pc_type", "ilu")) != "ilu" for i in (0, 1))
+    return False
+
+
+def _blocked_direct(op: DPPOperator) -> Callable:
+    """The monolithic direct solve on blocks, ``blocks -> (b -> z)``: the
+    mixed-precision fast-diag (``MixedPrecisionDPPDirect.solve_blocks``) on
+    quad/hex meshes at every size, and on tri/tet ``cg`` to 1e-13 with the
+    blocked lumped fast-diag preconditioner. Neither takes K2/K3, by
+    design: the JAX package's padded builder takes no Pallas direct kernel
+    either, but on a divisible lattice its unpadded builder takes K2/K3,
+    which its partitioner gathers."""
+    mesh, dev = op.mesh, op.W.device
+    if mesh.is_tensor_product:
+        direct = MixedPrecisionDPPDirect(mesh, op.params, device=dev, padding=op.padding)
+        return lambda blocks: blocks.one(lambda bs: direct.solve_blocks(bs, blocks))
+    pc = LumpedDPPPreconditioner(mesh, op.params, device=dev)
+
+    def build(blocks):
+        mv = _halo_apply(op, blocks)
+        M = blocks.one(lambda rs: pc.solve_blocks(rs, blocks, op.padding))
+        return lambda b: cg(mv, b, rtol=_DIRECT_RTOL, atol=0.0, max_it=_DIRECT_MAX_IT, M_inv=M,
+                            allreduce=blocks.allreduce)[0]
+
+    return build
+
+
+def _blocked_field_solver(op: DPPOperator, i: int, sub: Dict[str, object]) -> Callable:
+    """Fieldsplit block ``i``'s solve on blocks, ``blocks -> (b -> z)`` on
+    the field's block: an exact solve (the blocked f64 fast-diag on
+    quad/hex, blocked ``cg`` with the lumped preconditioner on tri/tet),
+    Jacobi, none, or ``gmres`` / ``cg`` with such a preconditioner; the
+    field's matvec is K1's halo form with the other field zero."""
+    p, mesh, dev = op.params, op.mesh, op.W.device
+    k = p.k1 if i == 0 else p.k2
+    fop = FieldOperator(op.W.sub(i), k, p.beta, p.mu, op.padding)
+    ksp = str(sub.get("ksp_type", "preonly"))
+    pc_type = str(sub.get("pc_type", "ilu"))
+    if ksp not in ("preonly", "gmres", "cg"):
+        raise ValueError(f"Unsupported block ksp_type: {ksp!r}")
+    exact = None
+    if pc_type in ("lu", "cholesky"):
+        exact = FastDiagFieldSolver(mesh, k, p.beta, p.mu, lumped=not mesh.is_tensor_product, device=dev)
+    elif pc_type not in ("jacobi", "none"):
+        raise ValueError(f"Unsupported block pc_type: {pc_type!r}")
+
+    def build(blocks):
+        full = _halo_apply(op, blocks)
+
+        def mv(z: torch.Tensor) -> torch.Tensor:
+            zero = torch.zeros_like(z)
+            return full(torch.stack([z, zero] if i == 0 else [zero, z]))[i]
+
+        if pc_type == "jacobi":
+            bdry = blocks.cut(fop._mask_arrays[0])[blocks.coords[0]]
+            dinv = torch.full(bdry.shape, 1.0 / float(fop.stencil[(1,) * mesh.dim]), dtype=torch.float64,
+                              device=bdry.device).masked_fill_(bdry, 1.0)
+            pc = lambda r: dinv * r  # noqa: E731
+        elif exact is None:
+            pc = None
+        else:
+            solve = blocks.one(lambda bs: exact.solve_blocks(bs, blocks, op.padding))
+            if mesh.is_tensor_product:
+                pc = solve
+            else:
+                def pc(b: torch.Tensor) -> torch.Tensor:
+                    return cg(mv, b, rtol=_DIRECT_RTOL, atol=0.0, max_it=1000, M_inv=solve,
+                              allreduce=blocks.allreduce)[0]
+        if ksp == "preonly":
+            return pc if pc is not None else (lambda r: r)
+        kw = dict(rtol=float(sub.get("ksp_rtol", 1e-5)), atol=float(sub.get("ksp_atol", 1e-50)),
+                  max_it=int(sub.get("ksp_max_it", 10000)))
+        if ksp == "cg":
+            return lambda b: cg(mv, b, M_inv=pc, allreduce=blocks.allreduce, **kw)[0]
+        restart = int(sub.get("ksp_gmres_restart", 30))
+        return lambda b: gmres(mv, b, restart=restart, M_inv=pc, allreduce=blocks.allreduce, **kw).x
+
+    return build
+
+
+def _blocked_coupling(op: DPPOperator, blocks) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``C y`` on the field's block (:func:`coupling_apply` on blocks, its
+    boundary and phantom rows zero): K1's halo form on ``(0, y)``, whose
+    first field's interior rows are ``C y``."""
+    full = _halo_apply(op, blocks)
+    return lambda y: full(torch.stack([torch.zeros_like(y), y]))[0]
+
+
+def _blocked_field_blocks(op: DPPOperator, flat: Dict[str, object]) -> Tuple[Callable, Callable]:
+    """The two fieldsplit block solves on blocks (:func:`_blocked_field_solver`)."""
+    return tuple(_blocked_field_solver(op, i, _sub_options(flat, f"fieldsplit_{i}_")) for i in (0, 1))
+
+
+def _preconditioner(op: DPPOperator, flat: Dict[str, object]) -> Optional[Callable]:
+    """The monolithic preconditioner of ``flat`` for ``op``'s (padded) grid,
+    ``blocks -> (r -> P r)`` on the stacked block: on blocks where
+    :func:`_blockable` takes it, else the unpadded single-device one
+    (``_monolithic_pc``: ILU, which the JAX package gathers too) on the
+    gathered, cropped vector; None where there is none."""
+    if _blockable(flat):
+        return _blocked_pc(op, flat)
+    pc = _cropped(_monolithic_pc(DPPOperator(op.W, op.params), flat), op.mesh.node_shape, op.padding)
+    return None if pc is None else (lambda blocks: blocks.gathered(pc))
+
+
+def _blocked_pc(op: DPPOperator, flat: Dict[str, object]) -> Callable:
+    """The monolithic preconditioner of ``flat`` (:func:`_blockable`) on
+    blocks, ``blocks -> (r -> P r)`` on the stacked block."""
+    pc_type = str(flat.get("pc_type", "none"))
+    if pc_type == "jacobi":
+        diag = (1.0 / op.diagonal()).reshape((2,) + op.grid_shape)
+
+        def jacobi(blocks):
+            dinv = blocks.cut(diag, lead=1)[blocks.coords[0]]
+            return lambda r: dinv * r
+
+        return jacobi
+    if pc_type in ("lu", "cholesky"):
+        return _blocked_direct(op)
+    fs_type = str(flat.get("pc_fieldsplit_type", "multiplicative"))
+    if fs_type not in ("multiplicative", "additive"):
+        raise ValueError(f"Unsupported pc_fieldsplit_type: {fs_type!r}")
+    subs = [_sub_options(flat, f"fieldsplit_{i}_") for i in (0, 1)]
+    builds = _blocked_field_blocks(op, flat)
+    mesh, p = op.mesh, op.params
+    pair = None
+    if fs_type == "additive" and mesh.is_tensor_product and all(
+            str(sub.get("ksp_type", "preonly")) == "preonly" and str(sub.get("pc_type", "ilu")) in ("lu", "cholesky")
+            for sub in subs):
+        # both exact blocks on shared transforms: both fields in every transpose
+        pair = [FastDiagFieldSolver(mesh, k, p.beta, p.mu, device=op.W.device) for k in (p.k1, p.k2)]
+
+    def build(blocks):
+        if pair is not None:
+            return blocks.one(field_pair_blocks(*pair, blocks, op.padding))
+        B0, B1 = (b(blocks) for b in builds)
+        if fs_type == "additive":
+            return lambda r: torch.stack([B0(r[0]), B1(r[1])])
+        C = _blocked_coupling(op, blocks)
+
+        def apply_fs(r: torch.Tensor) -> torch.Tensor:
+            y1 = B0(r[0])
+            return torch.stack([y1, B1(r[1] - C(y1))])
+
+        return apply_fs
+
+    return build
+
+
 @lru_cache(maxsize=64)
 def _linear_parts(
     W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple, padding: Tuple[int, ...] = ()
 ) -> LinearParts:
     """The parts of the linear solve of ``(W, params, options)`` on the grid
-    padded by ``padding``: the Q1 preconditioners and direct solves are the
-    unpadded single-device ones (``_monolithic_pc``, ``_monolithic_direct``:
-    ILU, fieldsplit, K2/K3, ...) on the cropped vector; the degree-p ones
-    are built padded, as in the JAX package."""
+    padded by ``padding``: the Q1 direct solves and the preconditioners
+    that :func:`_blockable` takes run on blocks (``LinearParts.blocked``);
+    ILU is the unpadded single-device one (``_monolithic_pc``) on the
+    cropped, gathered vector; the degree-p parts are built padded, as in
+    the JAX package, and gathered."""
     flat = _checked_options(frozen_sp)
     padding = tuple(padding)
     degree = W.spaces[0].degree
@@ -901,25 +1094,15 @@ def _linear_parts(
                 )
             return LinearParts("whole", None, None, False, _build_linear_solver(W, params, frozen_sp), kw)
         op = DPPOperator(W, params, padding)
-        base = DPPOperator(W, params)
-        shape = W.mesh.node_shape
         ksp = str(flat.get("ksp_type", "gmres"))
-        if ksp == "preonly":
-            if str(flat.get("pc_type", "lu")) in ("lu", "cholesky"):
-                if str(flat.get("pc_factor_mat_solver_type", "")) == "fastdiag_mixed" and not W.mesh.is_tensor_product:
-                    raise ValueError("fastdiag_mixed needs quad/hex cells")
-                direct = _monolithic_direct(base)
-
-                def fn(b: torch.Tensor) -> torch.Tensor:
-                    return torch.stack(direct(b[0], b[1]))
-
-            else:
-                fn = _monolithic_pc(base, flat)
-            return LinearParts("preonly", op, op._mask_arrays[0], True, _cropped(fn, shape, padding), kw)
-        if ksp not in ("gmres", "cg"):
+        if ksp not in ("preonly", "gmres", "cg"):
             raise ValueError(f"Unsupported ksp_type: {ksp!r}")
-        pc = _cropped(_monolithic_pc(base, flat), shape, padding)
-        return LinearParts(ksp, op, op._mask_arrays[0], True, pc, kw)
+        bdry = op._mask_arrays[0]
+        if ksp == "preonly" and str(flat.get("pc_type", "lu")) in ("lu", "cholesky"):
+            if str(flat.get("pc_factor_mat_solver_type", "")) == "fastdiag_mixed" and not W.mesh.is_tensor_product:
+                raise ValueError("fastdiag_mixed needs quad/hex cells")
+            return LinearParts(ksp, op, bdry, True, None, kw, _blocked_direct(op))
+        return LinearParts(ksp, op, bdry, True, None, kw, _preconditioner(op, flat))
     mesh, dev = W.mesh, W.device
     ksp = str(flat.get("ksp_type", "preonly"))
     pc_type = str(flat.get("pc_type", "lu"))
@@ -950,31 +1133,36 @@ def _run_parts(
     bdry: torch.Tensor,
     mv: Callable,
     lift: Callable,
-    gather: Callable,
-    cut: Callable,
     allreduce: Optional[Callable],
+    blocks,
 ) -> Tuple[torch.Tensor, int, float]:
     """Solve ``parts`` on a block: ``g`` the block's stacked boundary data,
     ``bdry`` its boundary rows, ``mv`` / ``lift`` the operator and the lift
-    on blocks, ``gather`` / ``cut`` a block to the global vector and back,
-    ``allreduce`` the sum over the blocks' ranks (None: one block, the whole
-    grid). Returns the block of the solution, the iterations and the
-    residual norm, the last two equal on every rank."""
+    on blocks, ``allreduce`` the sum over the blocks' ranks (None: one
+    block, the whole grid), ``blocks`` the one block the process holds
+    (``parallel/transpose.py``: the blocked parts run on it, the gathered
+    ones through its ``gathered``). Returns the block of the solution, the
+    iterations and the residual norm, the last two equal on every rank."""
     b = lift(g)
+    if parts.blocked is not None:
+        fn = blocks.built(("parts", parts.blocked), lambda: parts.blocked(blocks))
+    elif parts.apply is not None:
+        fn = blocks.gathered(parts.apply)
+    else:
+        fn = None
     if parts.kind == "preonly":
         # preonly reports 1 iteration and residual 0.0 (PETSc semantics)
-        return (b if parts.apply is None else cut(parts.apply(gather(b)))), 1, 0.0
-    pc = None if parts.apply is None else (lambda r: cut(parts.apply(gather(r))))
+        return (b if fn is None else fn(b)), 1, 0.0
     x0 = torch.where(bdry, g, 0.0)
     kw = parts.kw
     if not parts.stencil:
-        res = gmres(mv, b, x0=x0, M_inv=pc, allreduce=allreduce, **kw)
+        res = gmres(mv, b, x0=x0, M_inv=fn, allreduce=allreduce, **kw)
         return res.x, res.iterations, res.residual_norm
     r = b - mv(x0)
     if parts.kind == "cg":
-        d, its, rnorm = cg(mv, r, rtol=kw["rtol"], atol=kw["atol"], max_it=kw["max_it"], M_inv=pc, allreduce=allreduce)
+        d, its, rnorm = cg(mv, r, rtol=kw["rtol"], atol=kw["atol"], max_it=kw["max_it"], M_inv=fn, allreduce=allreduce)
     else:
-        res = gmres(mv, r, M_inv=pc, allreduce=allreduce, **kw)
+        res = gmres(mv, r, M_inv=fn, allreduce=allreduce, **kw)
         d, its, rnorm = res.x, res.iterations, res.residual_norm
     return x0 + d, its, rnorm
 
@@ -982,18 +1170,19 @@ def _run_parts(
 def _parts_solver(parts: LinearParts) -> Callable:
     """:func:`_run_parts` on one device over the whole (padded) grid:
     ``(g1, g2) -> (z1, z2, its, rnorm)`` (the operator's own matvec and
-    lift; K1's halo form for padded Q1). The degree-p GMRES and direct
-    solves are this with no padding."""
+    lift; K1's halo form for padded Q1; the blocked parts on the whole grid
+    as one block). The degree-p GMRES and direct solves are this with no
+    padding."""
+    from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
+
     mv = parts.op.stacked_matvec()
+    whole = LoopbackBlocks(())
 
     def lift(g: torch.Tensor) -> torch.Tensor:
         return torch.stack(parts.op.lifted_rhs(g[0], g[1]))
 
-    def same(x: torch.Tensor) -> torch.Tensor:
-        return x
-
     def solve(g1: torch.Tensor, g2: torch.Tensor):
-        z, its, rnorm = _run_parts(parts, torch.stack([g1, g2]), parts.boundary, mv, lift, same, same, None)
+        z, its, rnorm = _run_parts(parts, torch.stack([g1, g2]), parts.boundary, mv, lift, None, whole)
         return z[0], z[1], its, rnorm
 
     return solve
@@ -1154,6 +1343,86 @@ def _build_nonlinear_solver(
         return solve_richardson
 
     raise ValueError(f"Unsupported snes_type: {snes!r}")
+
+
+@lru_cache(maxsize=64)
+def _nonlinear_parts(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple) -> Optional[Callable]:
+    """The Picard solve of ``(W, params, options)`` on blocks of the node
+    grid (the sharded entry, ``parallel/sharding.py``; the grid divisible by
+    the mesh): ``blocks -> solve``, ``solve(g) -> (x, its, fnorm)`` on the
+    one stacked block of boundary data ``blocks`` holds
+    (``parallel/transpose.py``), from the lift on blocks (K1's halo form),
+    every norm the blocks' tree sums reduced over the ranks:
+
+      - ngs on quad meshes: the colour steps on blocks
+        (``fused_ngs.blocked_ngs``: a plane exchange and a
+        ``ngs_colour_halo`` step a colour);
+      - block_gs: the blocked exact field solves and the coupling on
+        blocks;
+      - nrichardson: the preconditioner of :func:`_preconditioner` (on
+        blocks, or ILU on the gathered vector).
+
+    None for ngs on tri/hex/tet meshes: the lexicographic sweep is
+    sequential and runs whole on the gathered data, as in the JAX
+    package."""
+    flat = _checked_options(frozen_sp)
+    snes = str(flat.get("snes_type", "ngs"))
+    rtol = float(flat.get("snes_rtol", 1e-8))
+    atol = float(flat.get("snes_atol", 1e-50))
+    max_it = int(flat.get("snes_max_it", 50))
+    mesh, p = W.mesh, params
+    if snes == "ngs" and mesh.element != "quad":
+        return None
+    if snes not in ("ngs", "block_gs", "nrichardson"):
+        raise ValueError(f"Unsupported snes_type: {snes!r}")
+    op = DPPOperator(W, p)
+    grid = op.grid_shape
+    sweeper = ColoredNGSSweeper(mesh, p, W.device) if snes == "ngs" else None
+    if snes == "block_gs":
+        fields = _blocked_field_blocks(op, flat)
+    elif snes == "nrichardson":
+        damping = float(flat.get("snes_linesearch_damping", 1.0))
+        pc_build = _preconditioner(op, flat)
+
+    def build(blocks):
+        c = blocks.coords[0]
+        bdry = blocks.cut(op._mask_arrays[0])[c]
+        lift = _halo_apply(op, blocks, "lift")
+        if sweeper is not None:
+            parts = {c: NgsBlock(sweeper, grid, blocks.mesh_shape, c)}
+
+            def solve_ngs(g: torch.Tensor):
+                x0 = torch.where(bdry, g, 0.0)
+                res = blocked_ngs(blocks, parts, {c: lift(g)}, {c: x0}, rtol, atol, max_it)
+                return res.x[c], res.iterations, res.residual_norm
+
+            return solve_ngs
+        mv = _halo_apply(op, blocks)
+        if snes == "block_gs":
+            B0, B1 = (f(blocks) for f in fields)
+            C = _blocked_coupling(op, blocks)
+
+            def step(b: torch.Tensor, z: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+                z1 = B0(b[0] - C(z[1]))
+                return torch.stack([z1, B1(b[1] - C(z1))])
+
+        else:
+            pc = None if pc_build is None else pc_build(blocks)
+
+            def step(b: torch.Tensor, z: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+                return z + damping * (pc(r) if pc is not None else r)
+
+        norm = blocked_norm(blocks)
+
+        def solve(g: torch.Tensor):
+            b = lift(g)
+            res = picard_loop(lambda z, r: step(b, z, r), lambda z: b - mv(z), torch.where(bdry, g, 0.0), rtol, atol,
+                              max_it, norm=lambda r: norm({c: r}))
+            return res.x, res.iterations, res.residual_norm
+
+        return solve
+
+    return build
 
 
 def solve_dpp_nonlinear(

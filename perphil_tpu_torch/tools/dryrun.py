@@ -201,15 +201,36 @@ def solve_case(case, sharded: bool):
     return (solve_dpp_nonlinear if nonlinear else solve_dpp)(W, DPPParameters(), bcs, solver_parameters=sp)
 
 
-def path_record(case, single, sol, fields: bool = False) -> dict:
+#: the collectives a sharded solve issues (``parallel/halo.py::COLLECTIVES``)
+COLLECTIVE_KINDS = ("exchange", "all_to_all", "all_reduce", "all_gather")
+
+
+def sharded_record(case, single, fields: bool = False) -> dict:
+    """:func:`path_record` of the case's sharded solve, with the
+    collectives it issued."""
+    from perphil_tpu_torch.parallel.halo import COLLECTIVES
+
+    COLLECTIVES.clear()
+    sol = solve_case(case, True)
+    return path_record(case, single, sol, fields, collectives=dict(COLLECTIVES))
+
+
+def collectives_text(counts: dict, its: int) -> str:
+    """``kind=count (per iteration)`` for every collective kind."""
+    return ", ".join(f"{k}={counts.get(k, 0)} ({counts.get(k, 0) / max(its, 1):.2f}/it)" for k in COLLECTIVE_KINDS)
+
+
+def path_record(case, single, sol, fields: bool = False, collectives=None) -> dict:
     """A path's record: the sharded count and residual beside the
-    single-device count, the fields' relative max difference, the tolerance
-    (``fields``: and the sharded fields, numpy)."""
+    single-device count, the fields' relative max difference, the tolerance,
+    the collectives the sharded solve issued (``collectives``, by kind;
+    ``fields``: and the sharded fields, numpy)."""
     label = case[0]
     diff = max(_rel_max(a.cpu(), b.cpu()) for a, b in zip(sol.solution.data, single.solution.data))
     record = dict(
         label=label, its=sol.iteration_number, single_its=single.iteration_number,
         residual=float(sol.residual_error), rel_diff=diff, tol=TOLERANCES.get(label, DEFAULT_TOL),
+        collectives=dict(collectives or {}),
     )
     if fields:
         record["fields"] = [d.cpu().numpy() for d in sol.solution.data]
@@ -228,7 +249,7 @@ def run_paths(
     from perphil_tpu_torch.parallel.halo import benchmark_vs_gathered
 
     cases = dryrun_cases(axes, device, N)
-    records = [path_record(c, solve_case(c, False), solve_case(c, True), fields) for c in cases]
+    records = [sharded_record(c, solve_case(c, False), fields) for c in cases]
     _, W, _, _, _, dm3 = cases[0]
     bench = benchmark_vs_gathered(DPPOperator(W, DPPParameters()), dm3, reps=halo_reps)
     records.append(dict(label="halo", **bench))
@@ -252,7 +273,7 @@ def check_paths(records: List[dict]) -> None:
 def report_lines(records: List[dict], n_ranks: int, axes: Sequence[int], N: int) -> List[str]:
     lines = [
         f"dryrun_multichip[{r['label']}]: its={r['its']} (single-device match), residual={r['residual']:.3e}, "
-        f"max rel diff={r['rel_diff']:.2e}"
+        f"max rel diff={r['rel_diff']:.2e}; collectives {collectives_text(r['collectives'], r['its'])}"
         for r in records[:-1]
     ]
     lines.append(
@@ -370,9 +391,10 @@ def _manufactured_bcs(W):
 def sharded_cases(args: dict) -> List[dict]:
     """Sharded solves of ``args["cases"]`` (each: element, n, degree,
     options, axes, names, nonlinear) on the manufactured solution; per case
-    the count, the residual and the fields (numpy), or the error raised
-    (its type and message)."""
+    the count, the residual, the fields (numpy) and the collectives the
+    solve issued, or the error raised (its type and message)."""
     from perphil_tpu_torch.models.dpp import DPPParameters
+    from perphil_tpu_torch.parallel.halo import COLLECTIVES
     from perphil_tpu_torch.parallel.sharding import device_mesh, sharded_solve_dpp, sharded_solve_dpp_nonlinear
 
     out = []
@@ -380,6 +402,7 @@ def sharded_cases(args: dict) -> List[dict]:
         W = _space(c["element"], c["n"], c.get("degree", 1), args.get("device"))
         dm = device_mesh(c["axes"], c.get("names"), device=args.get("device"))
         fn = sharded_solve_dpp_nonlinear if c.get("nonlinear") else sharded_solve_dpp
+        COLLECTIVES.clear()
         try:
             sol = fn(W, DPPParameters(), _manufactured_bcs(W), dm, solver_parameters=c["options"])
         except (NotImplementedError, ValueError) as err:
@@ -387,7 +410,7 @@ def sharded_cases(args: dict) -> List[dict]:
             continue
         out.append(dict(
             its=sol.iteration_number, residual=float(sol.residual_error),
-            fields=[d.cpu().numpy() for d in sol.solution.data],
+            fields=[d.cpu().numpy() for d in sol.solution.data], collectives=dict(COLLECTIVES),
         ))
     return out
 

@@ -43,10 +43,11 @@ from perphil_tpu_torch.ops.fused_gmres import (
     static_smem,
 )
 from perphil_tpu_torch.ops.fused_gs import KERNEL as FUSED_GS_KERNEL, FusedGSSolver
-from perphil_tpu_torch.ops.fused_ngs import KERNEL as NGS_KERNEL, FusedNGSSolver
+from perphil_tpu_torch.ops.fused_ngs import COLOUR_KERNEL, KERNEL as NGS_KERNEL, FusedNGSSolver, NgsBlock, colour_step_plain
 from perphil_tpu_torch.ops.ilu import GS_KERNEL, GaussSeidelSweeper, StructuredILU0, ilu_plan
 from perphil_tpu_torch.parallel.halo import block_geometry, join_blocks, loopback_planes, split_blocks
 from perphil_tpu_torch.parallel.halo import loopback_apply
+from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
 from perphil_tpu_torch.ops.ordering import parity_system
 from perphil_tpu_torch.solvers import solve_dpp_nonlinear
 from perphil_tpu_torch.utils.manufactured_solutions import exact_expressions
@@ -924,3 +925,42 @@ def test_band_apply_on_the_card_matches_the_cpu(cuda):
     host = np.empty(r.size)
     host[perm] = host_ilu_apply(Fc, diag, r.ravel()[perm])
     assert np.array_equal(got.cpu().numpy().ravel(), host)
+
+
+@pytest.mark.parametrize("ms", [(1,), (2,), (4,), (2, 2)])
+def test_colour_step_kernel_against_twin(cuda, ms):
+    """``ngs_colour_halo``: a sweep of colour steps (a plane exchange before
+    each) and the residual mode over loopback blocks of 2D N=16
+    (phantom-padded where the mesh does not divide it) bit for bit with
+    the twin on the same card, one launch a block a step where the block
+    holds rows of the colour."""
+    from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
+
+    mesh = create_mesh(16, 16)
+    sw = ColoredNGSSweeper(mesh, DPPParameters(), cuda)
+    shape = mesh.node_shape
+    pad = [(-n) % s for n, s in zip(shape, ms)] + [0] * (2 - len(ms))
+    grid = tuple(n + p for n, p in zip(shape, pad))
+    L = LoopbackBlocks(ms)
+    parts = {c: NgsBlock(sw, grid, ms, c) for c in L.coords}
+    rng = np.random.default_rng(1)
+    x, b = (torch.nn.functional.pad(torch.as_tensor(rng.standard_normal((2,) + shape), device=cuda),
+                                    [0, pad[1], 0, pad[0]]) for _ in range(2))
+    xs, bs = L.cut(x, lead=1), L.cut(b, lead=1)
+    twin = {c: v.clone() for c, v in xs.items()}
+
+    def plain(c, v, planes, k=None):
+        part = parts[c]
+        return colour_step_plain(v, bs[c], planes, part.taps, part.diagonal, part.bdry,
+                                 None if k is None else part.masks[k])
+
+    _cuda.KERNEL_LAUNCHES.clear()
+    for k in range(sw.ncolors):
+        planes, tplanes = L.planes(xs), L.planes(twin)
+        xs = {c: parts[c].step(xs[c], bs[c], planes[c], k) for c in L.coords}
+        twin = {c: plain(c, twin[c], tplanes[c], k) for c in L.coords}
+    assert torch.equal(L.join(xs), L.join(twin))
+    assert _cuda.KERNEL_LAUNCHES[COLOUR_KERNEL] == sum(int(r.numel() > 0) for p in parts.values() for r in p.rows)
+    planes = L.planes(xs)
+    for c in L.coords:
+        assert torch.equal(parts[c].residual(xs[c], bs[c], planes[c]), plain(c, xs[c], planes[c]))

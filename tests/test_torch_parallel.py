@@ -3,10 +3,13 @@ four gloo ranks on the CPU, held against the port's single-device solves,
 the JAX package's dry-run record and the JAX package's sharded solves on its
 virtual devices (``tests/conftest.py``): the six paths of the multichip dry
 run on (2, 2) meshes, the 2D cases of ``tests/test_sharding.py`` on a
-("y", "x") mesh, the refusals, and the gloo halo matvec on (4,) slabs and
-(2, 2) pencils. The world runs once for the module (its ranks are processes
-of ``perphil_tpu_torch/tools/dryrun.py``), beside the JAX side in this
-process."""
+("y", "x") mesh, the refusals, the gloo halo matvec on (4,) slabs and
+(2, 2) pencils, and the blocked paths (direct, Jacobi, fieldsplit, Picard)
+on (2, 2) pencils and (4,) slabs, each with the collectives it issued: one
+all-gather a solve where every part keeps its blocks, more where ILU or a
+degree-p part is gathered. The world runs once for the module (its ranks
+are processes of ``perphil_tpu_torch/tools/dryrun.py``), beside the JAX side
+in this process."""
 
 import json
 import re
@@ -36,7 +39,7 @@ from perphil_tpu_torch.interop import from_numpy_state
 from perphil_tpu_torch.models.dpp import DPPParameters
 from perphil_tpu_torch.ops.assembly import dpp_stencils
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain
-from perphil_tpu_torch.solvers import solve_dpp
+from perphil_tpu_torch.solvers import solve_dpp, solve_dpp_nonlinear
 from perphil_tpu_torch.tools.dryrun import TOLERANCES, _manufactured_bcs, _space, spawn_world
 
 REPO = Path(__file__).resolve().parents[1]
@@ -75,6 +78,28 @@ REFUSALS = {
                    "ValueError", "not available under sharding padding"),
     "degree2-picard": ("quad", 8, 2, sp.PICARD_LU_SOLVER_PARAMS, True, "NotImplementedError", "degree-1"),
 }
+# the blocked paths: id -> (element, n, options, nonlinear), on each mesh of
+# BLOCKED_MESHES (names ("y", "x") / ("y",) in 2D, ("z", "y") / ("z",) in 3D)
+BLOCKED = {
+    "hex-direct": ("hex", 7, sp.LINEAR_SOLVER_PARAMS, False),
+    "hex-direct-fastdiag": ("hex", 7, sp.TPU_DIRECT_PARAMS, False),
+    "quad-direct": ("quad", 15, sp.LINEAR_SOLVER_PARAMS, False),
+    "tet-direct": ("tet", 7, sp.LINEAR_SOLVER_PARAMS, False),
+    "triangle-direct": ("triangle", 15, sp.LINEAR_SOLVER_PARAMS, False),
+    "gmres-jacobi": ("quad", 15, sp.GMRES_JACOBI_PARAMS, False),
+    "fieldsplit-lu-multiplicative": ("quad", 15, {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS}, False),
+    "fieldsplit-lu-additive": ("quad", 15, {**sp.GMRES_PARAMS, **sp.FIELDSPLIT_LU_PARAMS,
+                                            "pc_fieldsplit_type": "additive"}, False),
+    "picard-ngs-7": ("quad", 7, sp.PICARD_LU_SOLVER_PARAMS, True),
+    "picard-ngs-15": ("quad", 15, sp.PICARD_LU_SOLVER_PARAMS, True),
+    "picard-block-gs": ("quad", 15, {**sp.PICARD_LU_SOLVER_PARAMS, "snes_type": "block_gs"}, True),
+    "picard-nrichardson": ("quad", 15, sp.RICHARDSON_SOLVER_PARAMS, True),
+}
+BLOCKED_MESHES = {"pencils": [2, 2], "slabs": [4]}
+BLOCKED_TOL, PICARD_TOL = 1e-12, 1e-10
+# the six paths and the 2D cases whose parts stay gathered: ILU, degree p
+GATHERED = {"gmres-ilu-3d", "degree2-fieldsplit-2d", "gmres-ilu-2d", "degree2-direct", "degree2-fieldsplit",
+            "p2-jacobi", "p2-none"}
 # the gloo halo matvec: id -> (element, cells, axes, names)
 HALO = {
     "quad-slabs": ("quad", (15, 15), [4], ("y",)),
@@ -92,6 +117,10 @@ def _case(element, n, degree, options, nonlinear=False, axes=AXES, names=("y", "
     return dict(element=element, n=n, degree=degree, options=options, axes=axes, names=names, nonlinear=nonlinear)
 
 
+def _names(element, axes):
+    return (("y", "x") if element in ("quad", "triangle") else ("z", "y"))[:len(axes)]
+
+
 def _jax_space(element, n, degree):
     if element in ("quad", "triangle"):
         mesh = jmesh.create_mesh(n, n, quadrilateral=element == "quad")
@@ -104,9 +133,9 @@ def _jax_space(element, n, degree):
     return W, [JBC(W.sub(0), p1), JBC(W.sub(1), p2)]
 
 
-def _jax_sharded(element, n, degree, options, nonlinear, names):
+def _jax_sharded(element, n, degree, options, nonlinear, names, axes=AXES):
     W, bcs = _jax_space(element, n, degree)
-    dm = jdevice_mesh(AXES, axis_names=names)
+    dm = jdevice_mesh(axes, axis_names=names)
     sol = (jsharded_nonlinear if nonlinear else jsharded)(W, JParams(), bcs, dm, solver_parameters=options)
     return sol.iteration_number, [np.asarray(d) for d in sol.solution.data]
 
@@ -136,10 +165,14 @@ def runs():
                            + [_case(*c[:5]) for c in REFUSALS.values()]}],
         ["halo_matvecs", {"cases": [dict(element=e, cells=c, axes=a, names=nm, seed=i, params=PARAMS)
                                     for i, (e, c, a, nm) in enumerate(HALO.values())]}],
+        *[["sharded_cases", {"cases": [_case(e, n, 1, o, nl, axes, _names(e, axes))
+                                       for e, n, o, nl in BLOCKED.values()]}] for axes in BLOCKED_MESHES.values()],
     ]
     jobs = {("six", k): (e, n, d, o, nl, ("y", "x") if e == "quad" else ("z", "y"))
             for k, (e, n, d, o, nl) in SIX_JAX.items()}
     jobs.update({("2d", k): (e, n, d, o, False, ("y", "x")) for k, (e, n, d, o, _) in CASES_2D.items()})
+    jobs.update({(mesh, k): (e, n, 1, o, nl, _names(e, axes), axes) for mesh, axes in BLOCKED_MESHES.items()
+                 for k, (e, n, o, nl) in BLOCKED.items()})
     jobs[("halo", JAX_HALO)] = (JAX_HALO,)
     with ThreadPoolExecutor(1) as pool, ThreadPoolExecutor(4) as jax_pool:
         world = pool.submit(spawn_world, WORLD, "batch", {"device": "cpu", "tasks": tasks}, 600.0)
@@ -149,8 +182,9 @@ def runs():
         jax_six = {k: v for (kind, k), v in done.items() if kind == "six"}
         jax_2d = {k: v for (kind, k), v in done.items() if kind == "2d"}
         jax_halo = {JAX_HALO: done[("halo", JAX_HALO)]}
+        jax_blocked = {(kind, k): v for (kind, k), v in done.items() if kind in BLOCKED_MESHES}
         results = world.result()
-    return results, jax_six, jax_2d, jax_halo
+    return results, jax_six, jax_2d, jax_halo, jax_blocked
 
 
 def _rel(a, b) -> float:
@@ -169,10 +203,12 @@ def test_dryrun_paths_match_single_device_and_jax(runs, label):
     solve, of the JAX dry run's record and of the JAX sharded solve; the
     fields within the JAX dry run's tolerances of the single-device solve
     and of the JAX sharded solve."""
-    results, jax_six, _, _ = runs
+    results, jax_six, *_ = runs
     rec = {r["label"]: r for r in results[0][0]}[label]
     jits, jfields = jax_six[label]
     assert rec["its"] == rec["single_its"] == _published_counts()[label] == jits
+    gathers = rec["collectives"].get("all_gather", 0)
+    assert gathers > 1 if label in GATHERED else gathers == 1, rec["collectives"]
     tol = TOLERANCES.get(label, 1e-9)
     assert rec["rel_diff"] < tol and np.isfinite(rec["residual"])
     for a, b in zip(rec["fields"], jfields):
@@ -197,9 +233,11 @@ def test_jax_sharding_cases_2d(runs, key):
     """The 2D cases of the JAX sharding tests: the count of the port's
     single-device solve and of the JAX sharded solve, the fields cropped
     back and within the tests' tolerances."""
-    results, _, jax_2d, _ = runs
+    results, _, jax_2d, *_ = runs
     element, n, degree, options, tol = CASES_2D[key]
     got = results[0][1][list(CASES_2D).index(key)]
+    gathers = got["collectives"].get("all_gather", 0)
+    assert gathers > 1 if key in GATHERED else gathers == 1, got["collectives"]
     W = _space(element, n, degree, "cpu")
     single = solve_dpp(W, DPPParameters(), _manufactured_bcs(W), solver_parameters=options)
     jits, jfields = jax_2d[key]
@@ -227,7 +265,7 @@ def test_gloo_halo_matvec(runs, key):
     grid bit for bit (phantom rows: identity), and the matvec equals the
     JAX package's shard_map matvec to 1e-13 relative; one exchange a split
     axis an apply."""
-    results, _, _, jax_halo = runs
+    results, _, _, jax_halo, _ = runs
     element, cells, axes, names = HALO[key]
     i = list(HALO).index(key)
     x = _halo_input(element, cells, i)
@@ -246,3 +284,32 @@ def test_gloo_halo_matvec(runs, key):
                 assert np.array_equal(got[mode], full)
     if key in jax_halo:
         assert _rel(results[0][2][i]["matvec"], jax_halo[key]) <= 1e-13
+
+
+@pytest.mark.parametrize("mesh", list(BLOCKED_MESHES))
+@pytest.mark.parametrize("key", list(BLOCKED))
+def test_blocked_paths(runs, mesh, key):
+    """The parts that keep their blocks, on (2, 2) pencils and (4,) slabs:
+    the count of the port's single-device solve and of the JAX package's
+    sharded solve, the fields within 1e-12 relative of both (Picard
+    1e-10), the same on every rank, and exactly one all-gather a solve (the
+    cropped solution's): only planes and transposes cross ranks before it."""
+    results, *_, jax_blocked = runs
+    element, n, options, nonlinear = BLOCKED[key]
+    task = 3 + list(BLOCKED_MESHES).index(mesh)
+    got = results[0][task][list(BLOCKED).index(key)]
+    W = _space(element, n, 1, "cpu")
+    solve = solve_dpp_nonlinear if nonlinear else solve_dpp
+    single = solve(W, DPPParameters(), _manufactured_bcs(W), solver_parameters=options)
+    jits, jfields = jax_blocked[(mesh, key)]
+    assert got["its"] == single.iteration_number == jits
+    tol = PICARD_TOL if nonlinear else BLOCKED_TOL
+    for a, b, c in zip(got["fields"], single.solution.data, jfields):
+        assert a.shape == tuple(b.shape) == c.shape
+        assert _rel(a, b.numpy()) <= tol and _rel(a, c) <= tol
+    for rank in results[1:]:
+        other = rank[task][list(BLOCKED).index(key)]
+        assert other["its"] == got["its"] and all(np.array_equal(x, y) for x, y in zip(other["fields"], got["fields"]))
+    assert got["collectives"]["all_gather"] == 1, got["collectives"]
+    if not nonlinear or options.get("snes_type") != "ngs":
+        assert got["collectives"].get("all_to_all", 0) > 0 or options.get("pc_type") == "jacobi"

@@ -54,10 +54,14 @@ def test_rows_on_gloo_ranks(rows, approach):
         assert r.halo_bytes_per_exchange == (0 if r.devices == 1 else 2 * nodes * 2 * 8)
         assert r.halo_bytes_per_exchange == _halo_bytes((padded_y, nodes), (r.devices,))
         # one plane exchange a matvec; an iteration: the matvec's exchange,
-        # two all-reduces (the Hessenberg column, the norm), the gathered
-        # preconditioner's all-gather
-        assert r.matvec_collectives == "matvec:cp=1;ar=0;ag=0|iteration:cp=1;ar=2;ag=1"
-        assert re.fullmatch(r"matvec:cp=\d+;ar=\d+;ag=\d+\|iteration:cp=\d+;ar=\d+;ag=\d+", r.matvec_collectives)
+        # two all-reduces (the Hessenberg column, the norm), and the
+        # preconditioner's collectives: the gathered ILU's all-gather, or
+        # the blocked fieldsplit's coupling exchange and its two field
+        # solves' transposes (one all-to-all each way a split axis)
+        step = "cp=1;ar=2;ag=1;aa=0" if approach == Approach.GMRES_ILU.value else "cp=2;ar=2;ag=0;aa=4"
+        assert r.matvec_collectives == "matvec:cp=1;ar=0;ag=0;aa=0|iteration:" + step
+        assert re.fullmatch(r"matvec:cp=\d+;ar=\d+;ag=\d+;aa=\d+\|iteration:cp=\d+;ar=\d+;ag=\d+;aa=\d+",
+                            r.matvec_collectives)
 
 
 def test_environment_contract(monkeypatch):
