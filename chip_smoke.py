@@ -214,6 +214,7 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -264,6 +265,8 @@ MULTIDEVICE_KERNELS = {
     # the colour step of the sharded Picard solve: the JAX package's colour
     # sweep, which its partitioner runs on every device (XLA, no Pallas)
     "ngs_colour_halo": (_CSRC + "ngs_colour_halo.cu", "perphil_tpu/ops/ilu.py:924"),
+    # its norm and stop test: the ngs while-loop's cond and norm (XLA, no Pallas)
+    "ngs_colour_norm": (_CSRC + "ngs_colour_halo.cu", "perphil_tpu/solvers/solver.py:1872-1879"),
 }
 KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS, **PARITY_KERNELS,
            **MULTIDEVICE_KERNELS}
@@ -356,7 +359,14 @@ GS_TURNS = (("triangle", 16), ("triangle", 64), ("tet", 16))  # the host route a
 GS_WORKERS = 3
 GS_REPEATS = 5  # launches of each placement the plan allows, each held to the twin
 _GS_POOL = None
-TWIN_WORKERS = 3  # the fused GMRES roles' long twins, on the card beside the build
+TWIN_WORKERS = 3  # the fused GMRES roles' and fused_ngs's long twins, on the card beside the build
+NGS_REMOTE_NS = (128, 64)  # fused_ngs's twins run there at these 2D N, longest first
+# the twins' workers run at a lower priority (os.nice), so that they take
+# the cores nvcc leaves: the build's long pole is one nvcc process
+TWIN_NICENESS = 10
+# the host loop beside a fused GMRES role that the TPU's gate left to it is
+# timed over this many iterations at most (its time an iteration)
+HOST_LOOP_CAP = 1500
 _TWIN_POOL = None
 
 PARITY_COUNTS = {4: 6, 8: 8, 12: 12, 16: 15, 20: 17, 24: 20, 32: 26, 36: 29, 40: 33}
@@ -608,15 +618,41 @@ def fused_gmres_work(solver, op, its: int):
     return nbytes, core + pc
 
 
-def picard_inputs(op, bcs):
-    """The Picard solves' start: the lifted right-hand side b and the BC
-    lift x0, stacked."""
+def picard_inputs(op, bcs, plain: bool = False):
+    """The Picard solves' start: the lifted right-hand side b (by K1 or,
+    with ``plain``, by its twin: no kernel) and the BC lift x0, stacked."""
     import torch
+
+    from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain
 
     g1, g2 = (bc.grid_values(op.mesh) for bc in bcs)
     bdry = op._mask_arrays[0]
-    b = torch.stack(op.lifted_rhs(g1, g2)).contiguous()
+    lift = fused_dpp_apply_plain(g1, g2, *op._combined_stencils, mode="lift") if plain else op.lifted_rhs(g1, g2)
+    b = torch.stack(lift).contiguous()
     return b, torch.stack([torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0)]).contiguous()
+
+
+def ngs_twin_remote(n: int, snes_kw: dict):
+    """``fused_ngs``'s twin at 2D N=n on the card in a worker process, while
+    nvcc builds: the Picard inputs (the lift by K1's twin), on the host, and
+    the twin's x, count, norms and time (CUDA events); the kernel is then
+    launched on the same inputs. A worker launches no kernel (its process
+    has no library built)."""
+    import torch
+
+    torch.set_num_threads(1)
+    sys.path.insert(0, str(HERE))
+    from perphil_tpu_torch.ops import _cuda
+    from perphil_tpu_torch.ops.assembly import DPPOperator
+    from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver
+
+    W, params, bcs, _, _ = problem("quad", n, torch.device("cuda", torch.cuda.current_device()))
+    op = DPPOperator(W, params)
+    b, x0 = picard_inputs(op, bcs, plain=True)
+    ref, plain_ms = timed_once(lambda: FusedNGSSolver(op, **snes_kw).plain(b, x0))
+    check(_cuda._LIB is None, f"fused_ngs's twin at 2D N={n} launched no kernel")
+    return (b.cpu().numpy(), x0.cpu().numpy(), ref.x.cpu().numpy(), ref.iterations, ref.residual_norm,
+            ref.initial_norm, plain_ms)
 
 
 def fused_ngs_work(solver, its: int):
@@ -1794,6 +1830,10 @@ MULTICHIP_RECORD = "MULTICHIP_r05.json"
 # loopback blocks: a world of one rank's block (edge ghosts only, the main
 # path's form), slabs, then pencils
 HALO_MESHES = ((1, 1), (2,), (4,), (8,), (2, 2), (4, 2))
+# the blocked Picard iteration's kernels: loopback layouts of 2D N=128, and
+# whether the neighbours go through the exchange buffers
+COLOUR_LAYOUTS = (((1,), False), ((2,), False), ((4,), False), ((8,), False), ((8,), True), ((2, 2), False),
+                  ((2, 2), True))
 # the sharded solves at full width on a world of one rank: element, N,
 # preset, nonlinear; and their published counts (petsc_perf_breakdown.csv,
 # its -with-picard column; SS-GMRES: the fieldsplit-LU GMRES's 4)
@@ -1867,6 +1907,20 @@ def colour_step_work(part, colour: int):
     return nbytes, 39 * int(inner.sum()) + 3 * int((~inner).sum())
 
 
+def norm_work(sweep):
+    """(bytes, f64 operations) of the norm kernel on ``sweep``'s blocks (an
+    ``NgsSweep``): x and b of every row read once, the state written; 39
+    operations an interior row (18 products, 18 sums, a difference, the
+    square, its sum), 3 a boundary or phantom row."""
+    nbytes, ops = 8 * 16, 0
+    for part in sweep.parts.values():
+        inner = int((~part.bdry[1:-1, 1:-1]).sum()) * 2
+        rows = 2 * part.shape[1] * part.shape[2]
+        nbytes += 8 * 2 * rows
+        ops += 39 * inner + 3 * (rows - inner)
+    return nbytes, ops
+
+
 def first_form_apply(op, dmesh, probe, mode: str = "matvec"):
     """The sharded apply as it stood before the halo form's redesign, for
     timing beside today's: the block extended whole along each mesh axis
@@ -1904,8 +1958,6 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     Picard solves at 2D N=64/128 at full width; one sharded apply at 64^3
     and 128^3 beside the first form's; the scaling harness in a world of
     its own. Returns the launches of the counted run."""
-    import socket
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1914,7 +1966,16 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     from perphil_tpu_torch.experiments.scaling import run_scaling
     from perphil_tpu_torch.ops import _cuda
     from perphil_tpu_torch.ops.direct import FastDiagDPPSolver, _fd_blocks
-    from perphil_tpu_torch.ops.fused_ngs import NgsBlock, colour_step_plain
+    from perphil_tpu_torch.ops.fused_ngs import (
+        FN as NGS_FN,
+        ITERATIONS_PER_READ,
+        FusedNGSSolver,
+        NgsBlock,
+        NgsSweep,
+        blocked_ngs,
+        blocked_ngs_probe,
+        probe_library,
+    )
     from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
     from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
     from perphil_tpu_torch.parallel.halo import COLLECTIVES
@@ -1944,7 +2005,15 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     )
     from perphil_tpu_torch.parallel.sharding import device_mesh, sharded_solve_dpp, sharded_solve_dpp_nonlinear
     from perphil_tpu_torch.solvers import solve_dpp, solve_dpp_nonlinear
-    from perphil_tpu_torch.tools.dryrun import check_paths, collectives_text, dryrun_cases, sharded_record, solve_case
+    from perphil_tpu_torch.solvers.solver import _freeze, ngs_on_one_rank_whole
+    from perphil_tpu_torch.tools.dryrun import (
+        check_paths,
+        collectives_text,
+        dryrun_cases,
+        rendezvous_store,
+        sharded_record,
+        solve_case,
+    )
 
     t_phase = time.perf_counter()
     wave = halo_wave(dev, torch.float64, 3)
@@ -2059,70 +2128,73 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
             )
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (a) done")
 
-    # -- (b) the colour step of the sharded Picard solve (ngs_colour_halo)
-    # over 1, 2, 4 and 8 loopback slabs of 2D N=128, phantom-padded: a sweep
-    # of every colour (a plane exchange before each) and the residual mode,
-    # bit for bit with the twin on the card; its time a colour step with the
-    # launches queued (the planes of the last exchange), the twin's beside
+    # -- (b) the blocked Picard iteration's kernels over 1, 2, 4 and 8
+    # loopback slabs and (2, 2) pencils of 2D N=128, phantom-padded, the
+    # neighbours read in place (and, on 8 slabs and the pencils, through the
+    # exchange buffers, copied in memory): a sweep of every colour
+    # (ngs_colour_halo, a launch a colour over every block) and the norm
+    # with its residuals and the stop test (ngs_colour_norm), bit for bit
+    # with the twins on the card; a colour step's time over all the blocks
+    # and the norm's (launches queued), the twins' beside, the bounds
     Wq, pq = problem("quad", 128, dev)[:2]
     sweeper = ColoredNGSSweeper(Wq.mesh, pq, dev)
     qshape = Wq.mesh.node_shape
     xq, bq = (torch.stack([randn(qshape), randn(qshape)]) for _ in range(2))
-    colour_err = 0.0
-    for k in (1, 2, 4, 8):
-        pad_y = (-qshape[0]) % k
-        grid = (qshape[0] + pad_y, qshape[1])
-        L = LoopbackBlocks((k,))
-        parts = {c: NgsBlock(sweeper, grid, (k,), c) for c in L.coords}
-        xs, bs = (L.cut(F.pad(t, [0, 0, 0, pad_y]), lead=1) for t in (xq, bq))
-        twin = {c: v.clone() for c, v in xs.items()}
-
-        def twin_step(c, x, planes, colour=None):
-            part = parts[c]
-            return colour_step_plain(x, bs[c], planes, part.taps, part.diagonal, part.bdry,
-                                     None if colour is None else part.masks[colour])
-
-        for colour in range(sweeper.ncolors):
-            planes, tplanes = L.planes(xs), L.planes(twin)
-            xs = {c: parts[c].step(xs[c], bs[c], planes[c], colour) for c in L.coords}
-            twin = {c: twin_step(c, twin[c], tplanes[c], colour) for c in L.coords}
-        planes = L.planes(xs)
-        r_kernel = L.join({c: parts[c].residual(xs[c], bs[c], planes[c]) for c in L.coords})
-        r_twin = L.join({c: twin_step(c, xs[c], planes[c]) for c in L.coords})
-        torch.cuda.synchronize()
-        colour_err = max(colour_err, float((L.join(xs) - L.join(twin)).abs().max()), float((r_kernel - r_twin).abs().max()))
-        check(torch.equal(L.join(xs), L.join(twin)) and torch.equal(r_kernel, r_twin),
-              f"ngs_colour_halo 2D N=128 over {k} slab(s): a sweep and the residual bit for bit with the twin")
-
-        def sweep_kernel():
+    colour_err = norm_err = 0.0
+    for ms, remote in COLOUR_LAYOUTS:
+        pad = [(-n) % s for n, s in zip(qshape, ms)] + [0] * (2 - len(ms))
+        grid = (qshape[0] + pad[0], qshape[1] + pad[1])
+        L = LoopbackBlocks(ms)
+        xs, bs = (L.cut(F.pad(t, [0, pad[1], 0, pad[0]]), lead=1) for t in (xq, bq))
+        runs = {}
+        for plain in (False, True):
+            sweep = NgsSweep(sweeper, grid, L, remote=remote, plain=plain)
+            sweep.reset(0.0, 0.0, 2 ** 30)  # tol 0: never done, so that every launch runs
+            sweep.load(bs, xs)
             for colour in range(sweeper.ncolors):
-                for c in L.coords:
-                    parts[c].step(xs[c], bs[c], planes[c], colour)
+                sweep.step(colour)
+            r = {c: torch.empty_like(v) for c, v in xs.items()}
+            sweep.norm(init=True, residuals=r)
+            torch.cuda.synchronize()
+            runs[plain] = (sweep, L.join(sweep.x), L.join(r), float(sweep.state[NGS_FN]))
+        (kern, xk, rk, fk), (twin, xt, rt, ft) = runs[False], runs[True]
+        colour_err = max(colour_err, float((xk - xt).abs().max()))
+        norm_err = max(norm_err, float((rk - rt).abs().max()), abs(fk - ft))
+        where = f"2D N=128 over loopback {ms}{' through the exchange buffers' if remote else ''}"
+        check(torch.equal(xk, xt), f"ngs_colour_halo {where}: a sweep bit for bit with the twin")
+        check(torch.equal(rk, rt) and fk == ft, f"ngs_colour_norm {where}: residuals and norm bit for bit")
 
-        def sweep_twin():
+        def steps(s):
             for colour in range(sweeper.ncolors):
-                for c in L.coords:
-                    twin_step(c, xs[c], planes[c], colour)
+                s.step(colour)
 
-        step_ms = queued_ms(sweep_kernel, calls=max(1, 16 // k)) / sweeper.ncolors
-        twin_ms = time_ms(sweep_twin, repeats=3) / sweeper.ncolors
-        rows = [int(parts[c].rows[colour].numel()) for c in L.coords for colour in range(sweeper.ncolors)]
-        print(f"ngs_colour_halo 2D N=128 over {k} slab(s) (padded {grid}): a sweep and the residual mode bit for "
-              f"bit with the twin; {step_ms:.4f} ms a colour step of all {k} block(s) ({k} launch(es), launches "
-              f"queued), twin {twin_ms:.4f} ms; {min(rows)}-{max(rows)} rows a block a colour (CUDA events) on {smi}")
-        if k == 1:  # the kernel line's shape: the main path's one block
-            # the bound of the mean step, as step_ms is the mean: the bytes
-            # and operations of all colours' steps over the colour count
-            work = [colour_step_work(parts[(0,)], colour) for colour in range(sweeper.ncolors)]
-            nbytes, flops = (sum(w[a] for w in work) / sweeper.ncolors for a in (0, 1))
-            results["ngs_colour_halo"] = dict(
-                ms=step_ms, plain_ms=twin_ms, bound=bound(nbytes, flops), library_ms=None,
-                shape=f"one colour step of 2D N=128 (a 2 x 129 x 129 block, {sweeper.ncolors} colours), f64",
-            )
-            print(f"ngs_colour_halo bound: {nbytes:.0f} B and {flops:.0f} f64 operations a colour step (the mean "
-                  f"of {sweeper.ncolors}, from the rows: x read, b and rows in, rows out), "
-                  f"{results['ngs_colour_halo']['bound'][0]:.6f} ms ({results['ngs_colour_halo']['bound'][1]})")
+        # the buffers' exchange is torch copies issued from the host: fewer calls fit behind the sleep
+        step_ms = queued_ms(lambda: steps(kern), calls=3 if remote else 20) / sweeper.ncolors
+        norm_ms = queued_ms(kern.norm, calls=50)
+        if ms == (1,):  # the twins timed on the kernel line's shape
+            twin_step_ms = time_ms(lambda: steps(twin), repeats=3) / sweeper.ncolors
+            twin_norm_ms = time_ms(twin.norm, repeats=3)
+        # the bounds of the mean step (step_ms is the mean over the colours)
+        # and of the norm, from the rows and the blocks
+        work = [tuple(map(sum, zip(*(colour_step_work(kern.parts[c], colour) for c in L.coords))))
+                for colour in range(sweeper.ncolors)]
+        step_bound = bound(sum(w[0] for w in work) / sweeper.ncolors, sum(w[1] for w in work) / sweeper.ncolors)
+        norm_bound = bound(*norm_work(kern))
+        rows = [end - start for start, _, end in kern.spans]
+        print(f"ngs_colour_halo {where} (padded {grid}): bit for bit with the twin; {step_ms:.4f} ms a colour step "
+              f"of all {len(L.coords)} block(s) (one launch; {min(rows)}-{max(rows)} rows a colour; launches queued), "
+              f"bound {step_bound[0]:.6f} ms ({step_bound[1]}); ngs_colour_norm {norm_ms:.4f} ms ({kern.ctas} "
+              f"CTAs), bound {norm_bound[0]:.6f} ms ({norm_bound[1]}) (CUDA events) on {smi}")
+        if ms == (1,):  # the kernel line's shape: the main path's one block
+            shape = f"2D N=128 (a 2 x 129 x 129 block, {sweeper.ncolors} colours), f64"
+            results["ngs_colour_halo"] = dict(ms=step_ms, plain_ms=twin_step_ms, bound=step_bound, library_ms=None,
+                                              shape="one colour step of " + shape)
+            results["ngs_colour_norm"] = dict(ms=norm_ms, plain_ms=twin_norm_ms, bound=norm_bound, library_ms=None,
+                                              shape="the norm and stop test of " + shape)
+            print(f"  the twins on that block: a colour step {twin_step_ms:.4f} ms, the norm {twin_norm_ms:.4f} ms "
+                  f"(CUDA events) on {smi}")
     results["ngs_colour_halo"]["max_abs_err"] = colour_err
+    results["ngs_colour_norm"]["max_abs_err"] = norm_err
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (b) done")
 
     # -- (c) the blocked fast-diag (f64) and mixed-precision direct solves
@@ -2175,10 +2247,8 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (c) done")
 
     # -- (d) a world of one NCCL rank: the six dry-run paths
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    store = rendezvous_store(1)  # bound to a port the system picks, held until the group ends
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
     check(dist.get_backend() == "nccl", "the world of one runs NCCL")
     published = multichip_counts()
     cases = dryrun_cases([1, 1], dev)
@@ -2191,6 +2261,17 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
         ref = (solve_dpp_nonlinear if nonlinear else solve_dpp)(Wf, pf, bf, solver_parameters=presets()[preset])
         torch.cuda.synchronize()
         full.append((element, n, preset, nonlinear, Wf, pf, bf, ref, time.perf_counter() - t0))
+    # the blocked Picard iteration on the rank's block at 2D N=64, driven
+    # through blocked_ngs itself: the world of one takes fused_ngs by the
+    # route's rule (solver.py::ngs_on_one_rank_whole)
+    picard = presets()["PICARD_LU_SOLVER_PARAMS"]
+    tols = (float(picard["snes_rtol"]), float(picard["snes_atol"]), int(picard["snes_max_it"]))
+    Wb, pb, bcb, _, _ = problem("quad", 64, dev)
+    opb = DPPOperator(Wb, pb)
+    b64, x064 = picard_inputs(opb, bcb)
+    rank_blocks = device_mesh([1, 1], axis_names=("y", "x"), device=dev).blocks()
+    rank_sweep = NgsSweep(ColoredNGSSweeper(Wb.mesh, pb, dev), Wb.mesh.node_shape, rank_blocks)
+    rank_c = rank_blocks.coords[0]
     _cuda.KERNEL_LAUNCHES.clear()
     records, walls = [], []
     for case, single in zip(cases, singles):
@@ -2205,12 +2286,20 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
         torch.cuda.synchronize()
         walls.append((element, n, preset, nonlinear, Wf, pf, bf, ref, ref_wall, sol, time.perf_counter() - t0,
                       dict(COLLECTIVES)))
+    blocked64 = blocked_ngs(rank_sweep, {rank_c: b64}, {rank_c: x064}, *tols)
     counts = dict(_cuda.KERNEL_LAUNCHES)
-    print(f"multi-device path kernel launches (the six paths and the full-width solves): {counts}")
-    for name in ("fused_dpp_apply_halo", "structured_ilu_apply", "ngs_colour_halo"):
+    print(f"multi-device path kernel launches (the six paths, the full-width solves and the blocked Picard "
+          f"iteration at 2D N=64 on the rank's block): {counts}")
+    for name in ("fused_dpp_apply_halo", "structured_ilu_apply", "ngs_colour_halo", "ngs_colour_norm"):
         check(counts.get(name, 0) > 0, f"{name} launched on the multi-device path")
-    for name in ("fused_direct_solve", "fused_ngs"):
-        check(counts.get(name, 0) == 0, f"{name} not launched on blocks")
+    check(counts.get("fused_direct_solve", 0) == 0, "fused_direct_solve not launched on blocks")
+    # fused_ngs: once a Picard ngs solve on the world of one (the dry run's
+    # and the two full-width ones), by the route's rule, and nowhere else
+    picard_solves = sum(c[0] == "picard-ngs-2d" for c in cases) + sum(w[3] for w in walls)
+    check(counts.get("fused_ngs", 0) == picard_solves,
+          f"fused_ngs launched once a world-of-one Picard solve ({picard_solves}), got {counts.get('fused_ngs', 0)}")
+    check(blocked64.iterations == PICARD_COUNTS[64], f"the blocked Picard iteration at 2D N=64 on the rank's block: "
+          f"{blocked64.iterations} iterations, published {PICARD_COUNTS[64]}")
     _, W3, _, _, _, dm3 = cases[0]
     records.append(dict(label="halo", **benchmark_vs_gathered(DPPOperator(W3, DPPParameters()), dm3, reps=3)))
     check_paths(records)
@@ -2255,6 +2344,63 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
               f"{turns_text(order, t)} ms (CUDA events, launches queued); host wall a call "
               f"{turns_text(order, host)} ms (median of 50, synchronised) on {smi}")
 
+    # -- (d2) the whole Picard solve at 2D N=64 / 128 in turns (host wall, a
+    # solve from its start to its result on the host): the blocked iteration
+    # on the rank's block ("this") and over 8 loopback slabs of the
+    # phantom-padded grid ("slabs"), the first blocked loop on the rank's block
+    # ("first": the probe kernel, a launch a colour and a norm read back every
+    # iteration) and fused_ngs ("fused", the world of one's route); all land
+    # the published count with the same iterate, bit for bit (the fused
+    # kernel held to its twin in phase 9)
+    ngs_probe = probe_library()
+    picard_walls = {}
+    for n in (64, 128):
+        Wp, pp, bcp, _, _ = problem("quad", n, dev)
+        opp = DPPOperator(Wp, pp)
+        b, x0 = picard_inputs(opp, bcp)
+        swp = ColoredNGSSweeper(Wp.mesh, pp, dev)
+        shape = Wp.mesh.node_shape
+        fused = FusedNGSSolver(opp, swp, *tols)
+        sweep1 = NgsSweep(swp, shape, rank_blocks)
+        parts1 = {rank_c: NgsBlock(swp, shape, rank_blocks.mesh_shape, rank_c)}
+        pad = (-shape[0]) % 8
+        grid8 = (shape[0] + pad, shape[1])
+        L8 = LoopbackBlocks((8,))
+        sweep8 = NgsSweep(swp, grid8, L8)
+        b8, x08 = (L8.cut(F.pad(t, [0, 0, 0, pad]), lead=1) for t in (b, x0))
+        runs = {
+            "first": lambda: blocked_ngs_probe(ngs_probe, rank_blocks, parts1, {rank_c: b}, {rank_c: x0.clone()},
+                                              *tols),
+            "this": lambda: blocked_ngs(sweep1, {rank_c: b}, {rank_c: x0}, *tols),
+            "slabs": lambda: blocked_ngs(sweep8, b8, x08, *tols),
+            "fused": lambda: fused(b, x0),
+        }
+        # the first loop (seconds at N=128) takes the middle turn once there
+        order = (("first", "this", "slabs", "fused", "fused", "slabs", "this", "first") if n == 64 else
+                 ("this", "slabs", "fused", "first", "fused", "slabs", "this"))
+        fused(b, x0)  # its tables are built at its first launch
+        times, out = {}, {}
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = runs[name]()
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(time.perf_counter() - t0)
+            x = res.x if name == "fused" else (L8.join(res.x)[:, :shape[0]] if name == "slabs" else res.x[rank_c])
+            out.setdefault(name, (res.iterations, x))
+        for name, (its, x) in out.items():
+            check(its == PICARD_COUNTS[n] and torch.equal(x, out["fused"][1]),
+                  f"Picard 2D N={n} [{name}]: {its} iterations, the published {PICARD_COUNTS[n]}, fused_ngs's iterate")
+        picard_walls[n] = times
+        print(f"Picard 2D N={n} PICARD_LU_SOLVER_PARAMS, {PICARD_COUNTS[n]} iterations each, bit for bit: in turns "
+              + " / ".join(f"{name} {times[name][k]:.4f}" for name, k in
+                           zip(order, [order[:i].count(nm) for i, nm in enumerate(order)]))
+              + f" s (host clock, a solve; every {ITERATIONS_PER_READ} iterations read back) on {smi}")
+        # the world of one's rule (solver.py::ngs_on_one_rank_whole) takes
+        # fused_ngs here: it must be the faster
+        check(max(times["fused"]) < min(times["this"]), f"Picard 2D N={n}: fused_ngs faster than the blocked "
+                                                        "iteration on the world of one, as the route's rule says")
+
     # -- (e) full width: the residual guard and the published counts
     for element, n, preset, nonlinear, Wf, pf, bf, ref, ref_wall, sol, wall, coll in walls:
         z1, z2 = sol.solution.data
@@ -2272,7 +2418,10 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
               f"(single-device {ref.iteration_number}), f64 rel residual {rres:.3e}, max rel diff vs single-device "
               f"{diff:.2e}, wall {wall:.3f} s beside the single-device solve's {ref_wall:.3f} s; collectives "
               f"{collectives_text(coll, its)} on {smi}")
-        check(coll.get("all_gather", 0) == 1, f"sharded {element} N={n} {preset}: one all-gather, the solution's")
+        # the world of one's Picard ngs runs whole (ngs_on_one_rank_whole): no gather
+        whole = nonlinear and ngs_on_one_rank_whole(Wf, _freeze(presets()[preset]), 1)
+        check(coll.get("all_gather", 0) == (0 if whole else 1),
+              f"sharded {element} N={n} {preset}: {'no all-gather' if whole else 'one all-gather, the solution'}")
         want = FULL_WIDTH_COUNTS.get((element, n, preset))
         if preset == "TPU_DIRECT_PARAMS":
             check(rres < 1e-10, f"sharded {element} N={n} residual")
@@ -2516,14 +2665,19 @@ def main() -> int:
     from perphil_tpu_torch.ops.fused_apply import halo_probe_library
     from perphil_tpu_torch.ops.fused_gs import probe_library
 
-    _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS)
+    _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS, initializer=os.nice, initargs=(TWIN_NICENESS,))
     gs_pending = {case: _GS_POOL.apply_async(gs_twin, (case,)) for case in GS_TWIN_CASES}
     # the fused GMRES roles' long twins run on the card (plain PyTorch, no
     # kernel) in worker processes of their own
     gmres_kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
-    _TWIN_POOL = multiprocessing.get_context("spawn").Pool(TWIN_WORKERS)
+    _TWIN_POOL = multiprocessing.get_context("spawn").Pool(TWIN_WORKERS, initializer=os.nice,
+                                                           initargs=(TWIN_NICENESS,))
     twins_pending = {case: _TWIN_POOL.apply_async(role_twin_remote, (case, gmres_kw))
                      for case in ROLE_CASES if case.early}
+    # and fused_ngs's long twins (the published column's two largest meshes)
+    picard = sp.PICARD_LU_SOLVER_PARAMS
+    snes_kw = dict(rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
+    ngs_twins_pending = {n: _TWIN_POOL.apply_async(ngs_twin_remote, (n, snes_kw)) for n in NGS_REMOTE_NS}
     probe_pool = ThreadPoolExecutor(2)
     gs_probe_pending = probe_pool.submit(probe_library)
     halo_probe_pending = probe_pool.submit(halo_probe_library)
@@ -2565,11 +2719,13 @@ def main() -> int:
           f"package's build; the workers stopped")
     t0 = time.perf_counter()
     early_twins = {case: pending.get(timeout=900) for case, pending in twins_pending.items()}
+    ngs_twins = {n: pending.get(timeout=900) for n, pending in ngs_twins_pending.items()}
     _TWIN_POOL.close()
     _TWIN_POOL.join()
-    done = ", ".join(f"{c.pc} {c.element} N={c.n} {early_twins[c][5] / 1e3:.1f} s" for c in early_twins)
-    print(f"the fused GMRES roles' long twins ({done}; CUDA events, on the card in {TWIN_WORKERS} workers beside "
-          f"nvcc) ready {time.perf_counter() - t0:.1f} s after fused_gs's; the workers stopped")
+    done = ", ".join([f"{c.pc} {c.element} N={c.n} {early_twins[c][5] / 1e3:.1f} s" for c in early_twins]
+                     + [f"fused_ngs quad N={n} {ngs_twins[n][-1] / 1e3:.1f} s" for n in ngs_twins])
+    print(f"the fused GMRES roles' and fused_ngs's long twins ({done}; CUDA events, on the card in {TWIN_WORKERS} "
+          f"workers beside nvcc) ready {time.perf_counter() - t0:.1f} s after fused_gs's; the workers stopped")
 
     # -- 3. kernels against their twins (not counted) ---------------------
     results = {}
@@ -2781,16 +2937,21 @@ def main() -> int:
             # the same solve on the host loop, as solve_dpp ran it where the
             # TPU's gate sent it: krylov.gmres, the K1 matvec, the preset's
             # preconditioner
+            # (timed over its first HOST_LOOP_CAP iterations at most: its
+            # time an iteration against the kernel's)
             flat = dict(_freeze(PRESETS[host_preset]))
             mv, pc_host = op.stacked_matvec(), _monolithic_pc(op, flat)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            host = gmres(mv, r, M_inv=pc_host, restart=int(flat.get("ksp_gmres_restart", 30)), **gmres_kw)
+            host = gmres(mv, r, M_inv=pc_host, restart=int(flat.get("ksp_gmres_restart", 30)),
+                         **{**gmres_kw, "max_it": min(gmres_kw["max_it"], HOST_LOOP_CAP)})
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
-            print(f"  host loop {host_preset} {tag}: {host.iterations} iterations, {host_ms:.2f} ms "
-                  f"({host_ms * 1e3 / max(host.iterations, 1):.2f} us/iteration; host clock), "
-                  f"fused {ms:.4f} ms: {host_ms / ms:.1f}x")
+            host_us, kernel_us = host_ms * 1e3 / max(host.iterations, 1), ms * 1e3 / max(got.iterations, 1)
+            print(f"  host loop {host_preset} {tag}: {host.iterations} iterations"
+                  + (f" (capped at {HOST_LOOP_CAP} of {got.iterations})" if host.iterations < got.iterations else "")
+                  + f", {host_ms:.2f} ms ({host_us:.2f} us/iteration; host clock), fused {kernel_us:.2f} "
+                  f"us/iteration: {host_us / kernel_us:.1f}x")
         results[f"{solver.role}@{tag}"] = dict(
             max_abs_err=abs_err, ms=ms,
             plain_ms=plain_ms, bound=bound(*fused_gmres_work(solver, op, got.iterations)),
@@ -2980,25 +3141,30 @@ def main() -> int:
                      if k in PRECOND_KERNELS})
 
     # -- 7. the Picard path ------------------------------------------------
-    from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, ngs_host_loop
+    from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, NgsResult, ngs_host_loop
     from perphil_tpu_torch.ops.ilu import GaussSeidelSweeper
     from perphil_tpu_torch.solvers import solve_dpp_nonlinear
 
-    picard = sp.PICARD_LU_SOLVER_PARAMS
-    snes_kw = dict(rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
     # fused_ngs against its twin (not counted), bit for bit, at N=16/64 and
     # the published column's largest mesh, and at the plan's last published
     # size N=255 with both capped at NGS_CAP_255 iterations; the twin timed
-    # in its check run
+    # in its check run (at N=64/128 in a worker during the build, the
+    # kernel launched on the twin's inputs)
     ngs_solvers = {}
     for n in (16, 64, 128, 255):
         W, params, bcs, _, _ = problem("quad", n, dev)
         op = DPPOperator(W, params)
-        b, x0 = picard_inputs(op, bcs)
         solver = FusedNGSSolver(op, **{**snes_kw, **({"max_it": NGS_CAP_255} if n == 255 else {})})
-        got = solver.launch(b, x0)
-        torch.cuda.synchronize()
-        ref, plain_ms = timed_once(lambda: solver.plain(b, x0))
+        if n in ngs_twins:
+            b, x0, tx, tits, tfn, tf0, plain_ms = ngs_twins[n]
+            b, x0 = (torch.as_tensor(t, device=dev) for t in (b, x0))
+            ref = NgsResult(torch.as_tensor(tx, device=dev), tits, tfn, tf0)
+            got = solver.launch(b, x0)
+        else:
+            b, x0 = picard_inputs(op, bcs)
+            got = solver.launch(b, x0)
+            torch.cuda.synchronize()
+            ref, plain_ms = timed_once(lambda: solver.plain(b, x0))
         abs_err = float((got.x - ref.x).abs().max())
         count = NGS_CAP_255 if n == 255 else PICARD_COUNTS[n]
         print(f"fused_ngs quad N={n}: {solver.plan}, iterations {got.iterations} vs twin {ref.iterations} "

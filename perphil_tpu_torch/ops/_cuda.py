@@ -11,7 +11,8 @@ when a kernel is launched.
 Every ``extern "C"`` launcher returns ``cudaGetLastError()`` after its
 launch; :func:`check` raises on a non-zero code. ``KERNEL_LAUNCHES`` counts
 launches per kernel name: each wrapper adds one where it launches, and
-nowhere else.
+nowhere else; launches captured in a CUDA graph (:class:`CapturedLaunches`)
+count at each replay, not at the capture.
 """
 
 from __future__ import annotations
@@ -87,9 +88,14 @@ _SIGNATURES = {
     # nz, ny, nx, rtol, atol, max_it, blocks, rows, nloc, width, nlev,
     # sweep_warps, stream
     "perphil_fused_gs": [_P] * 10 + [_I] * 4 + [_D, _D] + [_I] * 7 + [_P],
-    # x, b, y_lo, y_hi, x_lo, x_hi, rows, count, r, weights(host, 38 doubles),
-    # ly, lx, oy, ox, ny, nx, stream
-    "perphil_ngs_colour_halo": [_P] * 7 + [_I, _P, _P] + [_I] * 6 + [_P],
+    # parts, words(host: the table's copy), nparts, rows, start, edge, end,
+    # weights(host, 38 doubles), ny, nx, state, stream
+    "perphil_ngs_colour_step": [_P, _P, _I, _P] + [_I] * 3 + [_P, _I, _I, _P, _P],
+    # parts, words(host), nparts, ctas, weights(host), ny, nx, state, partials,
+    # arrivals, init, local, stream
+    "perphil_ngs_norm": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    # state, init, stream
+    "perphil_ngs_finish": [_P, _I, _P],
     # r, z, vec, blob, desc, perm, n, nlev_l, nlev_u, blocks, shared_vector,
     # stages, stage_bytes, stream
     "perphil_band_trisolve": [_P] * 6 + [_I] * 7 + [_P],
@@ -259,3 +265,24 @@ def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, device: 
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+class CapturedLaunches:
+    """The launches ``issue()`` makes through :func:`launch` on ``device``,
+    captured once in a CUDA graph (``torch.cuda.CUDAGraph``) and replayed
+    by :meth:`replay`. The capture launches nothing, so it counts nothing;
+    each replay counts the launches it makes."""
+
+    def __init__(self, device: torch.device, issue) -> None:
+        library()  # built and loaded before the capture
+        before = collections.Counter(KERNEL_LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(self.graph):
+            issue()
+        self.launches = KERNEL_LAUNCHES - before
+        KERNEL_LAUNCHES.clear()
+        KERNEL_LAUNCHES.update(before)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        KERNEL_LAUNCHES.update(self.launches)

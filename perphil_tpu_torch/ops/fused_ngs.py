@@ -24,14 +24,22 @@ halos; the norm's residuals go to the fused GMRES frame's tree layout
 :func:`ngs_tables` builds its colour lists. Beyond the plan the solver runs
 :func:`ngs_host_loop` (K1 residuals, a norm read back each iteration).
 
-On blocks (the sharded Picard solve, ``parallel/sharding.py``): a rank
-holds one block of the grid and steps colour by colour, each colour after a
-plane exchange (``parallel/halo.py``), by :class:`NgsBlock`: its step is
-the kernel ``csrc/ngs_colour_halo.cu`` on a CUDA tensor (counted as
-``ngs_colour_halo``) and its plain twin :func:`colour_step_plain` on a CPU
-one, both bit for bit with :class:`ilu.ColoredNGSSweeper`'s rows;
-:func:`blocked_ngs` is the Picard loop over them, its norm the blocks'
-tree sums reduced over the ranks.
+On blocks (the sharded Picard solve, ``parallel/sharding.py``): a process
+holds one block of the grid (a rank) or several (loopback), and
+:class:`NgsSweep` runs the iteration on all of them with no round trip to
+the host: a colour step of every block is one launch of
+``csrc/ngs_colour_halo.cu`` (counted as ``ngs_colour_halo``), a ghost read
+in the neighbour block where it is in the process and in a fixed receive
+buffer where it is on another rank; the norm and the stop test are one
+launch (``ngs_colour_norm``) that leaves done, the count and the norms in a
+state on the card. :func:`blocked_ngs` issues :data:`ITERATIONS_PER_READ`
+iterations between read-backs of that state, from a CUDA graph where no
+peer is involved. The twins (:func:`colour_step_box`, :func:`stop_plain`)
+run the same loop on CPU tensors, bit for bit with
+:class:`ilu.ColoredNGSSweeper`'s rows and :func:`blocked_ngs_loop`, the
+first blocked loop (a norm read back every iteration), which stays as the
+reference and, with the first kernel (:func:`blocked_ngs_probe`), as the
+probe it is timed against.
 """
 
 from __future__ import annotations
@@ -399,19 +407,20 @@ def _owned_box(x: torch.Tensor, planes) -> torch.Tensor:
     return box
 
 
-def colour_step_plain(
-    x: torch.Tensor, b: torch.Tensor, planes, taps, diagonal: torch.Tensor, bdry: torch.Tensor,
+def colour_step_box(
+    box: torch.Tensor, b: torch.Tensor, taps, diagonal: torch.Tensor, bdry: torch.Tensor,
     mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """Plain PyTorch twin of ``csrc/ngs_colour_halo.cu`` (any device) on a
-    stacked ``(2, ly, lx)`` block and its received planes: every row's
-    residual as :meth:`ilu.ColoredNGSSweeper.residual` computes it (the
-    taps ``taps``, per tap ``(field, dy, dx, weights (2, 1, 1))``; a
-    neighbour in ``bdry`` reads 0.0, ``bdry`` the box's boundary and
-    phantom nodes), then with ``mask`` (the colour's rows) ``x + r /
-    diagonal`` on them, without it (the residual mode) the residual."""
+    """Plain PyTorch twin of a colour step of ``csrc/ngs_colour_halo.cu``
+    (any device) on a block extended by a ghost row and column on every
+    side (``box``, ``(2, ly + 2, lx + 2)``): every row's residual as
+    :meth:`ilu.ColoredNGSSweeper.residual` computes it (the taps ``taps``,
+    per tap ``(field, dy, dx, weights (2, 1, 1))``; a neighbour in ``bdry``
+    reads 0.0, ``bdry`` the box's boundary and phantom nodes), then with
+    ``mask`` (the colour's rows) ``x + r / diagonal`` on them, without it
+    (the norm's residual) the residual."""
+    x = box[:, 1:-1, 1:-1]
     _, ly, lx = x.shape
-    box = _owned_box(x, planes)
     xi = torch.where(bdry, 0.0, box)
     acc = x.new_zeros(x.shape)
     for f, dy, dx, w in taps:
@@ -422,12 +431,22 @@ def colour_step_plain(
     return torch.where(mask, x + r / diagonal, x)
 
 
+def colour_step_plain(
+    x: torch.Tensor, b: torch.Tensor, planes, taps, diagonal: torch.Tensor, bdry: torch.Tensor,
+    mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """:func:`colour_step_box` on a stacked ``(2, ly, lx)`` block and its
+    received planes (``halo.exchange_planes``)."""
+    return colour_step_box(_owned_box(x, planes), b, taps, diagonal, bdry, mask)
+
+
 class NgsBlock:
     """The colour steps of :class:`ilu.ColoredNGSSweeper` on one block of
     the 2D node grid (``grid``: the node grid, padded or not, blocked on
-    ``mesh_shape``) at ``coords``: per colour its rows (the kernel's int32
-    list, field-major offsets in the block) and mask (the twin's); phantom
-    nodes take no colour."""
+    ``mesh_shape``) at ``coords``: per colour its rows (field-major offsets
+    in the block, int32) and mask (the twin's); phantom nodes take no
+    colour. The twins' steps (:meth:`step`, :meth:`residual`) take the
+    received planes; :class:`NgsSweep` runs every block of a process."""
 
     def __init__(self, sweeper: ColoredNGSSweeper, grid: Sequence[int], mesh_shape: Sequence[int],
                  coords: Sequence[int]):
@@ -439,6 +458,7 @@ class NgsBlock:
         colors[:, :ny, :nx] = sweeper.colors.reshape(2, ny, nx)
         sl = block_slices(grid, mesh_shape, coords)
         own = colors[(slice(None),) + sl]
+        self.colors = own
         self.shape = own.shape
         self.offsets = tuple(s.start or 0 for s in sl)
         self.n_phys = (ny, nx)
@@ -458,64 +478,502 @@ class NgsBlock:
         self.weights = np.ascontiguousarray(np.concatenate([sweeper.weights.ravel(), np.asarray(sweeper.diag)]))
         self.device = dev
 
-    def _launch(self, x: torch.Tensor, b: torch.Tensor, planes, rows: Optional[torch.Tensor],
-                r: Optional[torch.Tensor]) -> None:
-        for name, t in (("x", x), ("b", b)):
-            _cuda.require_cuda_tensor(t, name, torch.float64, x.device)
-            if tuple(t.shape) != self.shape:
-                raise ValueError(f"{name} has shape {tuple(t.shape)}, the block is {self.shape}")
+    def interior(self) -> np.ndarray:
+        """``(ly, lx)`` bool: the nodes whose rows take the kernel's
+        straight path, every tap in the block and none on the boundary."""
+        _, ly, lx = self.shape
+        ny, nx = self.n_phys
+        j, i = np.arange(ly)[:, None], np.arange(lx)[None, :]
+        gj, gi = j + self.offsets[0], i + self.offsets[1]
+        return ((j >= 1) & (j <= ly - 2) & (i >= 1) & (i <= lx - 2)
+                & (gj >= 2) & (gj <= ny - 3) & (gi >= 2) & (gi <= nx - 3))
+
+    def _plain_only(self, x: torch.Tensor) -> None:
+        if x.device.type != "cpu":
+            raise ValueError("NgsBlock's steps are the twins (CPU tensors); on the card the kernel runs "
+                             "every block of a process at once (NgsSweep)")
+
+    def step(self, x: torch.Tensor, b: torch.Tensor, planes, colour: int) -> torch.Tensor:
+        """Colour ``colour``'s step by the twin, a new tensor (CPU)."""
+        self._plain_only(x)
+        return colour_step_plain(x, b, planes, self.taps, self.diagonal, self.bdry, self.masks[colour])
+
+    def residual(self, x: torch.Tensor, b: torch.Tensor, planes) -> torch.Tensor:
+        """Every row's residual ``b - A x`` by the twin (CPU)."""
+        self._plain_only(x)
+        return colour_step_plain(x, b, planes, self.taps, self.diagonal, self.bdry, None)
+
+
+# -- the blocked iteration on the card: csrc/ngs_colour_halo.cu -------------
+
+COLOUR_SOURCE = "ngs_colour_halo.cu"
+NORM_KERNEL = "ngs_colour_norm"
+NORM_THREADS = _cuda.header_constant(COLOUR_SOURCE, "kNormThreads")
+#: the leaves a norm thread sums where the block allows (the CTAs of a
+#: block: its padded length over NORM_THREADS * NORM_LEAVES, 1 to 256): one
+#: row a thread, as many CTAs as that takes (on an H100 at 700 W, 4 rows a
+#: thread on 64 CTAs took 0.0176 ms at 2D N=128, one row on 256 0.0100:
+#: ``chip_smoke.py`` phase 14)
+NORM_LEAVES = 1
+MAX_PARTS = _cuda.header_constant(COLOUR_SOURCE, "kNgsMaxParts")
+MAX_EXTENT = _cuda.header_constant(COLOUR_SOURCE, "kNgsMaxExtent")
+MAX_LEAVES = _cuda.header_constant(COLOUR_SOURCE, "kNgsMaxLeaves")
+STATE_SLOTS = _cuda.header_constant(COLOUR_SOURCE, "kNgsStateSlots")
+#: the state's slots (``kState*``)
+DONE, ITS, F0, FN, TOL, TOTAL, RTOL, ATOL, MAX_IT = range(9)
+#: int64 words of one block's ``NgsPart``: x, b, 9 sources and 9 send
+#: buffers of 4 words, ly, lx, oy, ox, cta0, ctas, leaves, r
+PART_WORDS = 2 + 2 * 9 * 4 + 8
+_SRC, _SND, _META = 2, 2 + 36, 2 + 72
+#: Iterations issued between two read-backs of the stop state (done, its,
+#: fn). Issued past the stop, an iteration costs its launches and changes
+#: nothing; a read-back costs a host round trip with the card idle. Timed
+#: on one block in turns (``tools/profile_kernels.py --only ngs-blocked``;
+#: an H100 at 700 W): 8 / 16 / 32 / 64 took 0.163-0.126 / 0.134-0.128 /
+#: 0.136-0.128 / 0.158-0.114 s at 2D N=64 (1673 iterations) and 0.381-0.374
+#: / 0.348-0.369 / 0.360-0.373 / 0.384-0.350 s at N=128 (5135), an
+#: iteration 63-65 µs from the graph at every k: the read-backs are lost in
+#: the noise from 16 on, and 32 wastes at most 31 iterations (~2 ms).
+ITERATIONS_PER_READ = 32
+
+
+def directions(mesh_shape: Sequence[int], coords: Sequence[int]) -> Dict[int, Tuple[int, ...]]:
+    """The neighbours of the block at ``coords`` of a 2D grid blocked on
+    ``mesh_shape`` (mesh axis k splits grid axis k): direction ``(sy + 1) * 3
+    + (sx + 1)`` -> the neighbour's coords, the eight directions of a 9-point
+    stencil (a corner neighbour across two split axes)."""
+    out = {}
+    for sy in (-1, 0, 1):
+        for sx in (-1, 0, 1):
+            if (sy, sx) == (0, 0) or (sx and len(mesh_shape) < 2):
+                continue
+            c = (coords[0] + sy,) + ((coords[1] + sx,) if len(mesh_shape) > 1 else ())
+            if all(0 <= v < int(m) for v, m in zip(c, mesh_shape)):
+                out[(sy + 1) * 3 + sx + 1] = tuple(c)
+    return out
+
+
+def side_shape(d: int, ly: int, lx: int) -> Tuple[int, ...]:
+    """The send / receive buffer of direction ``d``: a row (2, lx), a
+    column (2, ly) or a corner (2,)."""
+    sy, sx = d // 3 - 1, d % 3 - 1
+    return (2,) if sy and sx else ((2, lx) if sy else (2, ly))
+
+
+def side_strides(d: int, ly: int, lx: int) -> Tuple[int, int, int]:
+    """(field, row, column) strides of direction ``d``'s buffer, as the
+    kernel indexes it at a ghost's (or an edge row's) local (j, i)."""
+    sy, sx = d // 3 - 1, d % 3 - 1
+    return (1, 0, 0) if sy and sx else ((lx, 0, 1) if sy else (ly, 1, 0))
+
+
+def edge_of(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The rows of the stacked block ``x`` that direction ``d``'s neighbour
+    reads: its first / last row, column or corner, in the buffer's shape."""
+    sy, sx = d // 3 - 1, d % 3 - 1
+    rows = slice(None) if sy == 0 else (0 if sy < 0 else -1)
+    cols = slice(None) if sx == 0 else (0 if sx < 0 else -1)
+    return x[:, rows, cols]
+
+
+def norm_geometry(n_values: int) -> Tuple[int, int]:
+    """(CTAs, leaves a thread) of the norm kernel's tree over a block of
+    ``n_values`` values: the padded length (the power of two at least
+    ``n_values``, and at least a CTA's threads) over NORM_THREADS *
+    NORM_LEAVES CTAs, 1 to NORM_THREADS, and the leaves that cover it."""
+    size = max(NORM_THREADS, 1 << max(0, (n_values - 1).bit_length()))
+    ctas = min(NORM_THREADS, max(1, size // (NORM_THREADS * NORM_LEAVES)))
+    return ctas, size // (ctas * NORM_THREADS)
+
+
+def tree_sum_norm(v: torch.Tensor, ctas: int, leaves: int) -> torch.Tensor:
+    """:func:`krylov.tree_sum` of a 1-D tensor as the norm kernel takes it
+    (``ctas``, ``leaves``: :func:`norm_geometry`): value ``e = k * 256 ctas +
+    t * ctas + b`` is leaf k of thread t of CTA b; each thread halves over
+    its leaves, each CTA over its threads, the last over the CTAs. Equal to
+    ``tree_sum`` bit for bit where no total is -0.0 (a sum of squares)."""
+    size = ctas * NORM_THREADS * leaves
+    if v.numel() > size:
+        raise ValueError(f"{v.numel()} values for a tree of {size}")
+    p = torch.cat([v, v.new_zeros(size - v.numel())]).reshape(leaves, NORM_THREADS, ctas)
+    for _ in range(3):
+        p = tree_sum(p, dim=0)
+    return p
+
+
+class NgsSweep:
+    """The colour steps and the norm of the pinned-colouring Picard
+    iteration on every block ``blocks`` holds (``parallel/transpose.py``:
+    ``LoopbackBlocks``, every block of a grid in this process, or
+    ``RankBlocks``, this rank's), over the 2D node grid ``grid`` (padded or
+    not). It owns each block's x and b and the exchange buffers, so that
+    what the kernels read is built once:
+
+      - on a CUDA device, ``csrc/ngs_colour_halo.cu``: a colour step is one
+        launch over every block (counted as ``ngs_colour_halo``), the norm
+        one launch with the stop test (``ngs_colour_norm``); the table of
+        blocks (:data:`PART_WORDS` int64 a block) and each colour's rows
+        (:meth:`row_lists`) live on the card;
+      - on the CPU, the twins: :func:`colour_step_box` per block on the
+        ghosts the kernel reads, and the plain norm and stop test
+        (:meth:`_norm_plain`), with the same state.
+
+    A ghost reads the neighbour block's x where that block is in this
+    process; where it is on another rank (``RankBlocks`` in a world with
+    peers, or ``remote=True``: loopback blocks that exchange through the
+    same buffers, copied in memory, to check that path on one card) it
+    reads a receive buffer, and the block's edge rows are written to a send
+    buffer by the step that writes them (the kernel; the twin copies them).
+    The exchange after each step moves them (:meth:`_exchange`: one
+    ``batch_isend_irecv`` of up to eight neighbours, corners included).
+    ``plain=True`` runs the twins on any device (the card's comparisons and
+    the twins' times)."""
+
+    def __init__(self, sweeper: ColoredNGSSweeper, grid: Sequence[int], blocks, remote: bool = False,
+                 plain: bool = False):
+        from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
+
+        self.blocks = blocks
+        self.coords = tuple(blocks.coords)
+        if not 1 <= len(self.coords) <= MAX_PARTS:
+            raise ValueError(f"{len(self.coords)} blocks: the kernel's table holds 1 to {MAX_PARTS}")
+        self.parts = {c: NgsBlock(sweeper, grid, blocks.mesh_shape, c) for c in self.coords}
+        part = self.parts[self.coords[0]]
+        self.ncolors, self.n_phys, self.weights = sweeper.ncolors, part.n_phys, part.weights
+        _, ly, lx = self.shape = part.shape
+        if max(ly, lx) > MAX_EXTENT:
+            raise ValueError(f"block {self.shape}: the kernel's rows take extents up to {MAX_EXTENT}")
+        dev = self.device = sweeper.device
+        self.kernel = dev.type == "cuda" and not plain
+        self.loopback = isinstance(blocks, LoopbackBlocks)
+        # a world with peers: the exchange crosses ranks, the norm's total an all-reduce
+        self.peers = not self.loopback and blocks.dmesh.size > 1
+        self.remote = bool(remote) or self.peers
+        if remote and not self.loopback:
+            raise ValueError("remote=True is the loopback check of the exchange buffers")
+        f64 = dict(dtype=torch.float64, device=dev)
+        self.x = {c: torch.zeros(self.shape, **f64) for c in self.coords}
+        self.b = {c: torch.zeros(self.shape, **f64) for c in self.coords}
+        self.neighbours = {c: directions(blocks.mesh_shape, c) for c in self.coords}
+        self.send, self.recv = {}, {}
+        for c in self.coords:
+            ds = self.neighbours[c] if self.remote else {}
+            self.send[c] = {d: torch.zeros(side_shape(d, ly, lx), **f64) for d in ds}
+            self.recv[c] = {d: torch.zeros(side_shape(d, ly, lx), **f64) for d in ds}
+        self.state = torch.zeros(STATE_SLOTS, **f64)
+        self.geometry = {c: norm_geometry(2 * ly * lx) for c in self.coords}
+        if max(k for _, k in self.geometry.values()) > MAX_LEAVES:
+            raise ValueError(f"block {self.shape}: the norm kernel's threads sum up to {MAX_LEAVES} rows each")
+        self.ctas = sum(g for g, _ in self.geometry.values())
+        self.spans, codes = self.row_lists()
+        self._graph = None
+        if self.kernel:
+            self.rows = torch.tensor(codes.view(np.int32), device=dev)  # the kernel reads uint32
+            self.words = self.table_words()  # the launchers read x, b, offsets and the norm's CTAs from it
+            self.table = torch.tensor(self.words, device=dev)
+            self.partials = torch.zeros(self.ctas, **f64)
+            self.arrivals = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    # -- tables ---------------------------------------------------------
+    def row_lists(self) -> Tuple[List[Tuple[int, int, int]], np.ndarray]:
+        """Each colour's rows over every block, packed ``part << 27 | field
+        << 26 | j << 13 | i`` (uint32): per colour the interior rows of
+        every block (:meth:`NgsBlock.interior`), then the edge rows; returns
+        each colour's ``(start, edge, end)`` and the codes."""
+        spans, lists = [], []
+        at = 0
+        for colour in range(self.ncolors):
+            inner, edge = [], []
+            for p, c in enumerate(self.coords):
+                part = self.parts[c]
+                f, j, i = np.nonzero(part.colors == colour)
+                code = (np.uint32(p) << 27) | (f.astype(np.uint32) << 26) | (j.astype(np.uint32) << 13) | i.astype(np.uint32)
+                straight = part.interior()[j, i]
+                inner.append(code[straight])
+                edge.append(code[~straight])
+            inner, edge = np.concatenate(inner), np.concatenate(edge)
+            spans.append((at, at + inner.size, at + inner.size + edge.size))
+            at += inner.size + edge.size
+            lists += [inner, edge]
+        return spans, np.concatenate(lists).astype(np.uint32)
+
+    def table_words(self) -> np.ndarray:
+        """The kernel's table: ``NgsPart`` a block, int64 words."""
+        _, ly, lx = self.shape
+        words = np.zeros((len(self.coords), PART_WORDS), np.int64)
+        cta0 = 0
+        for p, c in enumerate(self.coords):
+            w = words[p]
+            w[0], w[1] = self.x[c].data_ptr(), self.b[c].data_ptr()
+            for d, q in self.neighbours[c].items():
+                sy, sx = d // 3 - 1, d % 3 - 1
+                if self.remote:
+                    src = [self.recv[c][d].data_ptr(), *side_strides(d, ly, lx)]
+                    w[_SND + 4 * d:_SND + 4 * d + 4] = [self.send[c][d].data_ptr(), *side_strides(d, ly, lx)]
+                else:  # the neighbour's x, at the ghost's local (j, i) shifted by a block
+                    src = [self.x[q].data_ptr() - 8 * (sy * ly * lx + sx * lx), ly * lx, lx, 1]
+                w[_SRC + 4 * d:_SRC + 4 * d + 4] = src
+            ctas, leaves = self.geometry[c]
+            w[_META:_META + 8] = [ly, lx, *self.parts[c].offsets, cta0, ctas, leaves, 0]
+            cta0 += ctas
+        return words
+
+    # -- the pieces of an iteration -------------------------------------
+    def load(self, b: Dict, x0: Dict) -> None:
+        """Each block's b and starting iterate into the sweep's buffers, and
+        the edges of x0 to the neighbours."""
+        for c in self.coords:
+            self.b[c].copy_(b[c])
+            self.x[c].copy_(x0[c])
+        if self.remote:
+            self._fill_sends()
+            self._exchange()
+
+    def _fill_sends(self) -> None:
+        for c in self.coords:
+            for d, buf in self.send[c].items():
+                buf.copy_(edge_of(self.x[c], d))
+
+    def _exchange(self) -> None:
+        """The edges a step wrote, into the neighbours' receive buffers:
+        copied in memory (loopback), or one ``batch_isend_irecv`` with every
+        peer, which blocks the host only on the CPU (gloo)."""
+        if not self.remote:
+            return
+        if self.loopback:
+            for c in self.coords:
+                for d, q in self.neighbours[c].items():
+                    self.recv[c][d].copy_(self.send[q][8 - d])
+            return
+        import torch.distributed as dist
+
+        from perphil_tpu_torch.parallel import halo
+
+        (c,) = self.coords
+        dm = self.blocks.dmesh
+        ops = []
+        for d, q in self.neighbours[c].items():
+            peer = int(np.ravel_multi_index(q, dm.shape))
+            ops += [dist.P2POp(dist.isend, self.send[c][d], peer), dist.P2POp(dist.irecv, self.recv[c][d], peer)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        halo.COLLECTIVES["exchange"] += 1
+
+    def _box(self, c) -> torch.Tensor:
+        """Block ``c`` with the ghosts the kernel reads around it (the
+        twin's input)."""
+        x = self.x[c]
+        _, ly, lx = x.shape
+        box = x.new_zeros((2, ly + 2, lx + 2))
+        box[:, 1:-1, 1:-1] = x
+        spans = {-1: (slice(0, 1), slice(-1, None)), 0: (slice(1, -1), slice(None)), 1: (slice(-1, None), slice(0, 1))}
+        for d, q in self.neighbours[c].items():
+            sy, sx = d // 3 - 1, d % 3 - 1
+            (by, qy), (bx, qx) = spans[sy], spans[sx]
+            if self.remote:
+                box[:, by, bx] = self.recv[c][d].reshape(box[:, by, bx].shape)
+            else:
+                box[:, by, bx] = self.x[q][:, qy, qx]
+        return box
+
+    def step(self, colour: int) -> None:
+        """Colour ``colour``'s step on every block, in place (the kernel on
+        the card, the twin on the CPU), then the exchange. No step once the
+        state says done."""
+        if self.kernel:
+            start, edge, end = self.spans[colour]
+            _cuda.launch(COLOUR_KERNEL, "perphil_ngs_colour_step", self.device, self.table.data_ptr(),
+                         self.words.ctypes.data, len(self.coords), self.rows.data_ptr(), start, edge, end,
+                         self.weights.ctypes.data, *self.n_phys, self.state.data_ptr())
+        else:
+            if self.state[DONE]:
+                return
+            boxes = {c: self._box(c) for c in self.coords}
+            for c in self.coords:
+                part = self.parts[c]
+                self.x[c].copy_(colour_step_box(boxes[c], self.b[c], part.taps, part.diagonal, part.bdry,
+                                                part.masks[colour]))
+            if self.remote:
+                self._fill_sends()
+        self._exchange()
+
+    def norm(self, init: bool = False, residuals: Optional[Dict] = None) -> None:
+        """The norm of every block's residual and the stop test, into the
+        state (``init``: the first norm, which sets f0 and tol).
+        ``residuals`` (a tensor a block) receives the residual (checks)."""
+        if not self.kernel:
+            return self._norm_plain(init, residuals)
+        words = self.words
+        if residuals is not None:  # the residuals' outputs
+            words = words.copy()
+            for p, c in enumerate(self.coords):
+                _cuda.require_cuda_tensor(residuals[c], "residual", torch.float64, self.device)
+                words[p, _META + 7] = residuals[c].data_ptr()
+        _cuda.launch(NORM_KERNEL, "perphil_ngs_norm", self.device, self.table.data_ptr(), words.ctypes.data,
+                     len(self.coords), self.ctas, self.weights.ctypes.data, *self.n_phys, self.state.data_ptr(),
+                     self.partials.data_ptr(), self.arrivals.data_ptr(), int(init), int(not self.peers))
+        if self.peers:
+            import torch.distributed as dist
+
+            from perphil_tpu_torch.parallel import halo
+
+            dist.all_reduce(self.state[TOTAL:TOTAL + 1])
+            halo.COLLECTIVES["all_reduce"] += 1
+            _cuda.launch(NORM_KERNEL, "perphil_ngs_finish", self.device, self.state.data_ptr(), int(init))
+
+    def _norm_plain(self, init: bool, residuals: Optional[Dict]) -> None:
+        """The twin of the norm: each block's residual and its tree
+        (:func:`krylov.tree_sum`), the blocks' total (``blocks.total``: in
+        coordinate order, or all-reduced over the ranks), the stop test."""
+        if self.state[DONE]:
+            return
+        sums = {}
+        for c in self.coords:
+            part = self.parts[c]
+            r = colour_step_box(self._box(c), self.b[c], part.taps, part.diagonal, part.bdry, None)
+            if residuals is not None:
+                residuals[c].copy_(r)
+            sums[c] = tree_sum((r * r).reshape(-1))
+        if self.peers:
+            total = self.blocks.total(sums)
+        else:  # the kernel's order: the blocks' sums one after the other
+            total = sums[self.coords[0]]
+            for c in self.coords[1:]:
+                total = total + sums[c]
+        stop_plain(self.state, float(total), init)
+
+    def iteration(self) -> None:
+        """One Picard iteration: every colour's step, then the norm."""
+        for colour in range(self.ncolors):
+            self.step(colour)
+        self.norm()
+
+    def issue(self, k: int) -> None:
+        """``k`` iterations, without reading anything back: from a CUDA
+        graph captured once where the blocks need no peer, else launch by
+        launch (with the exchanges)."""
+        if not self.kernel or self.peers:
+            for _ in range(k):
+                self.iteration()
+            return
+        if self._graph is None or self._graph[0] != k:
+            self._graph = (k, _cuda.CapturedLaunches(self.device, lambda: [self.iteration() for _ in range(k)]))
+        self._graph[1].replay()
+
+    def reset(self, rtol: float, atol: float, max_it: int) -> None:
+        self.state.zero_()
+        self.state[RTOL], self.state[ATOL], self.state[MAX_IT] = float(rtol), float(atol), float(max_it)
+
+
+def stop_plain(state: torch.Tensor, total: float, init: bool) -> None:
+    """The kernels' root and stop test (``finish`` in
+    ``csrc/ngs_colour_halo.cu``) on the host: ``fn = sqrt(total)``
+    correctly rounded; the first sets f0 and ``tol = rtol * f0 if that is >
+    atol else atol``; then ``its`` counts, and ``done`` is set once ``fn >
+    tol and its < max_it`` fails."""
+    fn = math.sqrt(total)
+    if init:
+        rel = float(state[RTOL]) * fn
+        tol = rel if rel > float(state[ATOL]) else float(state[ATOL])
+        state[F0], state[TOL], its = fn, tol, 0.0
+    else:
+        tol, its = float(state[TOL]), float(state[ITS]) + 1.0
+    state[FN], state[ITS] = fn, its
+    state[DONE] = 0.0 if (fn > tol and its < float(state[MAX_IT])) else 1.0
+
+
+def blocked_ngs(sweep: NgsSweep, b: Dict, x0: Dict, rtol: float, atol: float, max_it: int,
+                every: int = ITERATIONS_PER_READ) -> NgsResult:
+    """The pinned-colouring Picard solve on the blocks of ``sweep``
+    (:class:`NgsSweep`) from ``x0`` (a tensor a block): the first norm,
+    then ``every`` iterations issued between two read-backs of the state
+    (done, its, fn) until it says done. The iterations issued past the stop
+    change nothing, so the count, the norm and the iterate are those of
+    :func:`picard_loop` with the blocks' norm (:func:`blocked_norm`)."""
+    if every < 1:
+        raise ValueError(f"every={every}: at least one iteration between read-backs")
+    sweep.reset(rtol, atol, max_it)
+    sweep.load(b, x0)
+    sweep.norm(init=True)
+    while True:
+        done, its, f0, fn = sweep.state[[DONE, ITS, F0, FN]].tolist()
+        if done:
+            break
+        sweep.issue(every)
+    return NgsResult({c: v.clone() for c, v in sweep.x.items()}, int(its), fn, f0)
+
+
+def blocked_ngs_loop(blocks, parts: Dict, b: Dict, x0: Dict, rtol: float, atol: float, max_it: int,
+                     step: Optional[Callable] = None, residual: Optional[Callable] = None) -> NgsResult:
+    """The first blocked Picard loop (as it stood before the iteration
+    moved to the card), kept as the reference of :func:`blocked_ngs` on the
+    CPU and, with the probe's launches (:func:`blocked_ngs_probe`), to be
+    timed beside it: per iteration a plane exchange and the residual, then
+    for every further colour an exchange and a step (``step(c, x, b,
+    planes, colour)``, ``residual(c, x, b, planes)``; default the twins of
+    ``parts``), the norm :func:`blocked_norm` read back every iteration."""
+    ncolors = next(iter(parts.values())).ncolors
+    step = step or (lambda c, x, bc, planes, k: parts[c].step(x, bc, planes, k))
+    residual = residual or (lambda c, x, bc, planes: parts[c].residual(x, bc, planes))
+    seen = {}
+
+    def res(x):
+        seen["planes"] = blocks.planes(x)
+        return {c: residual(c, x[c], b[c], seen["planes"][c]) for c in x}
+
+    def sweep(x, r):
+        for k in range(ncolors):
+            planes = seen["planes"] if k == 0 else blocks.planes(x)
+            x = {c: step(c, x[c], b[c], planes[c], k) for c in x}
+        return x
+
+    return picard_loop(sweep, res, {c: v.contiguous() for c, v in x0.items()}, rtol, atol, max_it,
+                       norm=blocked_norm(blocks))
+
+
+def probe_library():
+    """``csrc/profile/ngs_colour_halo_first.cu`` built alone: the first
+    colour-step kernel (one launch a block a colour,
+    ``perphil_ngs_colour_halo_first``), kept to time the first blocked loop
+    in turns with :func:`blocked_ngs` (:func:`blocked_ngs_probe`). A
+    measurement build: its launches are counted nowhere."""
+    sig = [_cuda._P] * 7 + [_cuda._I, _cuda._P, _cuda._P] + [_cuda._I] * 6 + [_cuda._P]
+    return _cuda.variant_library("profile/ngs_colour_halo_first.cu", "PERPHIL_NGS_PROBE",
+                                 {"perphil_ngs_colour_halo_first": sig})
+
+
+def blocked_ngs_probe(dll, blocks, parts: Dict, b: Dict, x0: Dict, rtol: float, atol: float,
+                      max_it: int) -> NgsResult:
+    """:func:`blocked_ngs_loop` on the card with the first kernel (``dll``:
+    :func:`probe_library`): per colour a plane exchange and one launch a
+    block that holds rows of the colour, the residual by its residual mode,
+    the norm as torch ops and one read-back an iteration. ``x0`` is stepped
+    in place."""
+
+    def run(c, x, bc, planes, rows, r):
+        part = parts[c]
         ptrs = [0, 0, 0, 0]
         for k, pair in enumerate(planes):
             for side, g in enumerate(pair):
                 if g is not None:
-                    _cuda.require_cuda_tensor(g, "plane", torch.float64, x.device)
                     ptrs[2 * k + side] = g.data_ptr()
         count = int(rows.numel()) if rows is not None else x.numel()
-        _, ly, lx = self.shape
-        _cuda.launch(
-            COLOUR_KERNEL, "perphil_ngs_colour_halo", x.device, x.data_ptr(), b.data_ptr(), *ptrs,
-            0 if rows is None else rows.data_ptr(), count, 0 if r is None else r.data_ptr(),
-            self.weights.ctypes.data, ly, lx, *self.offsets, *self.n_phys,
-        )
+        _, ly, lx = part.shape
+        err = dll.perphil_ngs_colour_halo_first(
+            x.data_ptr(), bc.data_ptr(), *ptrs, 0 if rows is None else rows.data_ptr(), count,
+            0 if r is None else r.data_ptr(), part.weights.ctypes.data, ly, lx, *part.offsets, *part.n_phys,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _cuda.check(err, "perphil_ngs_colour_halo_first")
 
-    def step(self, x: torch.Tensor, b: torch.Tensor, planes, colour: int) -> torch.Tensor:
-        """Colour ``colour``'s step: on a CUDA tensor the kernel, in place
-        (``x`` returned; no launch where the block holds no row of the
-        colour), on a CPU tensor the twin (a new tensor)."""
-        if x.device.type == "cpu":
-            return colour_step_plain(x, b, planes, self.taps, self.diagonal, self.bdry, self.masks[colour])
-        if self.rows[colour].numel():
-            self._launch(x, b, planes, self.rows[colour], None)
+    def step(c, x, bc, planes, k):
+        rows = parts[c].rows[k]
+        if rows.numel():
+            run(c, x, bc, planes, rows, None)
         return x
 
-    def residual(self, x: torch.Tensor, b: torch.Tensor, planes) -> torch.Tensor:
-        """Every row's residual ``b - A x`` (the kernel's residual mode on a
-        CUDA tensor, the twin on a CPU one)."""
-        if x.device.type == "cpu":
-            return colour_step_plain(x, b, planes, self.taps, self.diagonal, self.bdry, None)
+    def residual(c, x, bc, planes):
         r = torch.empty_like(x)
-        self._launch(x, b, planes, None, r)
+        run(c, x, bc, planes, None, r)
         return r
 
-
-def blocked_ngs(blocks, parts: Dict, b: Dict, x0: Dict, rtol: float, atol: float, max_it: int) -> NgsResult:
-    """The pinned-colouring Picard solve on the blocks ``blocks`` holds
-    (``parallel/transpose.py``), ``parts`` their :class:`NgsBlock` s: per
-    iteration a plane exchange and the residual (which colour 0 steps by),
-    then for every further colour an exchange and its step; the norm
-    :func:`blocked_norm`. ``x0`` is stepped in place on the card."""
-    ncolors = next(iter(parts.values())).ncolors
-    seen = {}
-
-    def residual(x):
-        seen["planes"] = blocks.planes(x)
-        return {c: parts[c].residual(x[c], b[c], seen["planes"][c]) for c in x}
-
-    def step(x, r):
-        for k in range(ncolors):
-            planes = seen["planes"] if k == 0 else blocks.planes(x)
-            x = {c: parts[c].step(x[c], b[c], planes[c], k) for c in x}
-        return x
-
-    return picard_loop(step, residual, {c: v.contiguous() for c, v in x0.items()}, rtol, atol, max_it,
-                       norm=blocked_norm(blocks))
+    return blocked_ngs_loop(blocks, parts, b, x0, rtol, atol, max_it, step, residual)

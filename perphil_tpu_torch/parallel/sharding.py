@@ -29,7 +29,11 @@ partitioner, so the distribution is written out here:
     divisible lattice its partitioner gathers K2/K3),
     Jacobi, the fieldsplit with exact, Jacobi or Krylov blocks, and the
     Picard sweeps: ``ngs`` on quad meshes colour by colour
-    (``csrc/ngs_colour_halo.cu`` after a plane exchange), ``block_gs`` and
+    (``csrc/ngs_colour_halo.cu``: a colour step a launch, the norm and the
+    stop test on the card, the ghosts exchanged through fixed buffers;
+    on a world of one rank, where the fused kernel's plan places the grid,
+    the single-device ``fused_ngs`` solve, measured faster:
+    ``solvers/solver.py::ngs_on_one_rank_whole``), ``block_gs`` and
     ``nrichardson`` on the blocked field solves and preconditioners;
   - gathered on every rank, the global vector cropped: ILU (monolithic, in
     a fieldsplit block, the ordering-parity route) and the lexicographic
@@ -309,7 +313,8 @@ def sharded_solve_dpp_nonlinear(
     Picard sweeps run on each rank's block (``_nonlinear_parts``: ``ngs``
     on quad meshes colour by colour after a plane exchange, ``block_gs``
     and ``nrichardson`` on the blocked solves), their norms reduced over
-    the ranks, and every rank returns the whole solution; the lexicographic
+    the ranks, and every rank returns the whole solution (a world of one
+    runs the quad ``ngs`` whole, ``ngs_on_one_rank_whole``); the lexicographic
     ``ngs`` on tri/hex/tet meshes runs whole on the gathered boundary data
     on every rank (the fused sweep kernel on the card), as in the JAX
     package. The node grid must be divisible, as in the JAX package, whose
@@ -322,6 +327,7 @@ def sharded_solve_dpp_nonlinear(
         _freeze,
         _nonlinear_parts,
         _validate_mixed,
+        ngs_on_one_rank_whole,
     )
 
     _validate_mixed(W)
@@ -347,7 +353,7 @@ def sharded_solve_dpp_nonlinear(
         )
     g1, g2 = bc_values_per_field(W, bcs)
     frozen = _freeze(solver_parameters)
-    build = _nonlinear_parts(W, model_params, frozen)
+    build = None if ngs_on_one_rank_whole(W, frozen, dmesh.size) else _nonlinear_parts(W, model_params, frozen)
     if build is None:
         solver = _build_nonlinear_solver(W, model_params, frozen)
         z1, z2, its, fnorm = solver(g1, g2)

@@ -174,9 +174,10 @@ from perphil_tpu_torch.ops.fused_gmres import (
 from perphil_tpu_torch.ops.fused_gs import FusedGSSolver, gs_host_loop
 from perphil_tpu_torch.ops.fused_ngs import (
     FusedNGSSolver,
-    NgsBlock,
+    NgsSweep,
     blocked_ngs,
     blocked_norm,
+    fused_ngs_plan,
     ngs_host_loop,
     picard_loop,
 )
@@ -1354,9 +1355,10 @@ def _nonlinear_parts(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tu
     (``parallel/transpose.py``), from the lift on blocks (K1's halo form),
     every norm the blocks' tree sums reduced over the ranks:
 
-      - ngs on quad meshes: the colour steps on blocks
-        (``fused_ngs.blocked_ngs``: a plane exchange and a
-        ``ngs_colour_halo`` step a colour);
+      - ngs on quad meshes: the Picard iteration on blocks
+        (``fused_ngs.blocked_ngs`` on a ``NgsSweep``: a colour step of
+        every held block a launch, the norm and the stop test on the card,
+        the iterations issued in batches between read-backs);
       - block_gs: the blocked exact field solves and the coupling on
         blocks;
       - nrichardson: the preconditioner of :func:`_preconditioner` (on
@@ -1389,11 +1391,11 @@ def _nonlinear_parts(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tu
         bdry = blocks.cut(op._mask_arrays[0])[c]
         lift = _halo_apply(op, blocks, "lift")
         if sweeper is not None:
-            parts = {c: NgsBlock(sweeper, grid, blocks.mesh_shape, c)}
+            sweep = NgsSweep(sweeper, grid, blocks)
 
             def solve_ngs(g: torch.Tensor):
                 x0 = torch.where(bdry, g, 0.0)
-                res = blocked_ngs(blocks, parts, {c: lift(g)}, {c: x0}, rtol, atol, max_it)
+                res = blocked_ngs(sweep, {c: lift(g)}, {c: x0}, rtol, atol, max_it)
                 return res.x[c], res.iterations, res.residual_norm
 
             return solve_ngs
@@ -1423,6 +1425,24 @@ def _nonlinear_parts(W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tu
         return solve
 
     return build
+
+
+def ngs_on_one_rank_whole(W: MixedFunctionSpace, frozen_sp: Tuple, world: int) -> bool:
+    """The route of the sharded Picard ngs on a world of one rank: True
+    where it runs the single-device solve (``_build_nonlinear_solver``: one
+    ``fused_ngs`` launch), False where it runs the blocked iteration
+    (``_nonlinear_parts``). The rule: the single-device solve wherever the
+    fused kernel's plan places the grid (2D quad N <= 255), the blocked
+    iteration beyond it, where the single-device route is the host loop
+    (``ngs_host_loop``: a norm read back every iteration). Measured on one
+    NCCL rank of an H100 at 700 W, in turns (``chip_smoke.py`` phase 14,
+    ``tools/profile_kernels.py --only ngs-blocked``): 2D N=64 ``fused_ngs``
+    0.021 s, the blocked iteration 0.11-0.18 s; N=128 0.085 s against
+    0.35-0.39 s (the blocked iteration's launches, ~64 µs an iteration
+    from a graph, against the fused kernel's ~17 µs)."""
+    flat = _checked_options(frozen_sp)
+    return (world == 1 and str(flat.get("snes_type", "ngs")) == "ngs" and W.mesh.element == "quad"
+            and fused_ngs_plan(W.mesh.node_shape, 1) is not None)
 
 
 def solve_dpp_nonlinear(

@@ -19,9 +19,12 @@ interpreters through ``initialize_from_env``'s environment contract and
 solves 2D N=16 fieldsplit GMRES on a (P,) mesh against one process.
 
 :func:`spawn_world` is the launcher the tests and ``experiments/scaling.py``
-use: it starts one interpreter a rank with the environment contract
-(``PERPHIL_COORDINATOR`` on a port bound to 0), runs a named task of
-:data:`TASKS` on every rank and returns every rank's result.
+use: it starts one interpreter a rank with the environment contract, runs a
+named task of :data:`TASKS` on every rank and returns every rank's result.
+The world's rendezvous store is held by the launcher itself, bound to port
+0 and kept open until the ranks end (``PERPHIL_COORDINATOR`` names it, and
+every rank joins it as a client, as under an elastic agent), so that no
+other process can take the port between its choice and its use.
 """
 
 from __future__ import annotations
@@ -29,7 +32,6 @@ from __future__ import annotations
 import json
 import os
 import pickle
-import socket
 import subprocess
 import sys
 import tempfile
@@ -53,10 +55,13 @@ def task(fn: Callable) -> Callable:
     return fn
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def rendezvous_store(world_size: int):
+    """A ``torch.distributed.TCPStore`` server on a port the system picks
+    (bound to 0 and held), for a world of ``world_size`` ranks that join it
+    as clients; its ``.port`` names it."""
+    import torch.distributed as dist
+
+    return dist.TCPStore("127.0.0.1", 0, world_size, is_master=True, wait_for_workers=False)
 
 
 def spawn_world(
@@ -65,10 +70,11 @@ def spawn_world(
     """Run task ``name`` on ``n_ranks`` new interpreters joined into one
     process group; return every rank's result, by rank. A rank that fails
     or a world that outlasts ``timeout`` seconds raises, and every process
-    is stopped."""
+    is stopped. The rendezvous store is this process's
+    (:func:`rendezvous_store`), held until every rank has ended."""
     args = dict(args or {})
     root = str(Path(__file__).resolve().parents[2])
-    port = free_port()
+    store = rendezvous_store(n_ranks)
     with tempfile.TemporaryDirectory() as tmp:
         procs = []
         for rank in range(n_ranks):
@@ -76,7 +82,9 @@ def spawn_world(
             env.update(
                 PERPHIL_NUM_PROCESSES=str(n_ranks),
                 PERPHIL_PROCESS_ID=str(rank),
-                PERPHIL_COORDINATOR=f"127.0.0.1:{port}",
+                PERPHIL_COORDINATOR=f"127.0.0.1:{store.port}",
+                # every rank a client of the launcher's store (rank 0 binds nothing)
+                TORCHELASTIC_USE_AGENT_STORE="True",
                 OMP_NUM_THREADS=str(threads),
                 PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""),
             )

@@ -83,6 +83,21 @@ choice made otherwise (cluster-scope ordering on the halo's mbarriers; a
 reciprocal's product for the divide, which does not keep the bits) and
 with its colour runs sorted by offset instead of dealt by bank.
 
+``--only ngs-blocked`` times the sharded Picard's blocked iteration
+(``ops/fused_ngs.py::blocked_ngs`` on a ``NgsSweep``:
+``csrc/ngs_colour_halo.cu``'s colour steps and norm) at 2D N=64/128 on
+one block with 8, 16, 32 and 64 iterations between read-backs (beside an
+empty kernel's launch, queued and from a graph, and a colour step beside
+builds of ``ngs_colour_halo.cu`` that skip parts of it: the row's work,
+the taps, the divide), in turns
+with ``fused_ngs`` and the first blocked loop (``blocked_ngs_probe``: the
+first colour-step kernel, ``csrc/profile/ngs_colour_halo_first.cu``, built
+alone, a norm read back every iteration), every run held to ``fused_ngs``'s
+count and iterate bit for bit (host clock, a solve); an iteration's device
+time from the graph of k iterations, issued launch by launch and queued;
+and at N=64 the loopback slabs and pencils of the phantom-padded grid, in
+turns with ``fused_ngs`` (and the first loop on some).
+
 ``--only band`` times ``band_trisolve`` (``csrc/band_trisolve.cu``, the
 level-scheduled sweep) with the package's library at tet nx=16/24/40: each
 engine's host set-up from the factor (host clock, in turns), the apply in
@@ -1580,11 +1595,164 @@ def repeat_gs() -> None:
               f"{counts} block(s), all bit-equal to the first; {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# --only ngs-blocked: the iterations issued between read-backs
+NGS_EVERY = (8, 16, 32, 64)
+# loopback layouts of the blocked iteration at 2D N=64, and those on which
+# the first blocked loop runs too (its solves take seconds)
+NGS_LAYOUTS = ((2,), (4,), (8,), (2, 2))
+NGS_FIRST_LAYOUTS = ((2,), (2, 2))
+# the measurement builds of the colour step (csrc/ngs_colour_halo.cu)
+NGS_STEP_VARIANTS = ("EMPTY_STEP", "NO_TAPS", "NO_DIVIDE", "BARE")
+
+
+def _walls_in_turns(runs: dict, order) -> dict:
+    """Host wall of a whole call (synchronised before and after) of each
+    run, in the given order of turns: name -> (seconds in order, last
+    result)."""
+    out = {}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = runs[name]()
+        torch.cuda.synchronize()
+        times, _ = out.get(name, ([], None))
+        out[name] = (times + [time.perf_counter() - t0], res)
+    return out
+
+
+def _turns_text(order, walls: dict) -> str:
+    seen = {}
+    parts = []
+    for name in order:
+        k = seen[name] = seen.get(name, -1) + 1
+        parts.append(f"{name} {walls[name][0][k]:.4f}")
+    return " / ".join(parts)
+
+
+def time_ngs_blocked() -> None:
+    """``--only ngs-blocked`` (the module's docstring)."""
+    import chip_smoke
+    from perphil_tpu_torch.ops.fused_ngs import (
+        FusedNGSSolver,
+        NgsBlock,
+        NgsSweep,
+        blocked_ngs,
+        blocked_ngs_probe,
+        probe_library,
+    )
+    from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
+    from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    probe = probe_library()
+    # the floor of a launch through ctypes: an empty kernel, queued and from
+    # a graph of as many launches as 32 iterations make (15 an iteration)
+    lib = _cuda.library()
+
+    def empty():
+        _cuda.check(lib.perphil_empty_launch(torch.cuda.current_stream().cuda_stream), "perphil_empty_launch")
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(15 * 32):
+            empty()
+    print(f"an empty launch: queued {chip_smoke.queued_ms(empty, calls=200) * 1e3:.2f} us, from a graph "
+          f"{median_ms(graph.replay, 5) / (15 * 32) * 1e3:.2f} us")
+    step_sig = [_cuda._P, _cuda._P, _cuda._I, _cuda._P] + [_cuda._I] * 3 + [_cuda._P, _cuda._I, _cuda._I, _cuda._P, _cuda._P]
+    variants = {name.lower(): _cuda.variant_library("ngs_colour_halo.cu", f"PERPHIL_NGS_{name}",
+                                                    {"perphil_ngs_colour_step": step_sig})
+                for name in NGS_STEP_VARIANTS}
+    picard = sp.PICARD_LU_SOLVER_PARAMS
+    tols = (float(picard["snes_rtol"]), float(picard["snes_atol"]), int(picard["snes_max_it"]))
+    for n in (64, 128):
+        W, params, bcs, _, _ = chip_smoke.problem("quad", n, dev)
+        op = DPPOperator(W, params)
+        b, x0 = chip_smoke.picard_inputs(op, bcs)
+        sw = ColoredNGSSweeper(W.mesh, params, dev)
+        shape = W.mesh.node_shape
+        fused = FusedNGSSolver(op, sw, *tols)
+        want = fused(b, x0)
+        one = LoopbackBlocks((1,))
+        c = one.coords[0]
+        sweep = NgsSweep(sw, shape, one)
+
+        def held(name, res, x):
+            if res.iterations != want.iterations or not torch.equal(x, want.x):
+                raise AssertionError(f"2D N={n} {name}: {res.iterations} iterations, not fused_ngs's "
+                                     f"{want.iterations} and its iterate")
+
+        # the iterations between read-backs, in turns with fused_ngs
+        runs = {f"every {k}": (lambda k=k: blocked_ngs(sweep, {c: b}, {c: x0}, *tols, every=k)) for k in NGS_EVERY}
+        runs["fused"] = lambda: fused(b, x0)
+        runs["first"] = lambda: blocked_ngs_probe(probe, one, {c: NgsBlock(sw, shape, (1,), c)}, {c: b},
+                                                 {c: x0.clone()}, *tols)
+        order = ["first", *[f"every {k}" for k in NGS_EVERY], "fused"]
+        order = order + order[::-1]
+        walls = _walls_in_turns(runs, order)
+        for name, (_, res) in walls.items():
+            held(name, res, res.x if name == "fused" else res.x[c])
+        print(f"blocked Picard 2D N={n} on one block, {want.iterations} iterations, bit for bit with fused_ngs: in "
+              f"turns {_turns_text(order, walls)} s (host clock, a solve)")
+        # an iteration on the card: k iterations that never stop, from the
+        # graph and issued launch by launch (CUDA events around the calls)
+        sweep.reset(0.0, 0.0, 2 ** 30)
+        sweep.load({c: b}, {c: x0})
+        sweep.norm(init=True)
+        per_it = {}
+        for k in NGS_EVERY:
+            per_it[f"graph {k}"] = median_ms(lambda k=k: sweep.issue(k), 5) / k
+        per_it["issued"] = median_ms(sweep.iteration, 20)
+        per_it["queued"] = chip_smoke.queued_ms(sweep.iteration, calls=50)
+        # a colour step (the mean of the colours, queued) beside the
+        # measurement builds of ngs_colour_halo.cu, in turns
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def steps(fn):
+            for colour in range(sweep.ncolors):
+                start, edge, end = sweep.spans[colour]
+                _cuda.check(fn(sweep.table.data_ptr(), sweep.words.ctypes.data, len(sweep.coords),
+                               sweep.rows.data_ptr(), start, edge, end, sweep.weights.ctypes.data, *sweep.n_phys,
+                               sweep.state.data_ptr(), stream), "perphil_ngs_colour_step")
+
+        step_fns = {"package": lib.perphil_ngs_colour_step, **{name: v.perphil_ngs_colour_step for name, v in variants.items()}}
+        order = list(step_fns) + list(step_fns)[::-1]
+        step_us = {name: [] for name in step_fns}
+        for name in order:
+            step_us[name].append(chip_smoke.queued_ms(lambda fn=step_fns[name]: steps(fn), calls=20) / sweep.ncolors * 1e3)
+        print(f"blocked Picard 2D N={n}: a colour step in turns "
+              + ", ".join(f"{name} {' / '.join(f'{t:.2f}' for t in ts)} us" for name, ts in step_us.items())
+              + " (CUDA events, launches queued; the variants' results are wrong)")
+        print(f"blocked Picard 2D N={n}: an iteration {', '.join(f'{k} {v * 1e3:.2f} us' for k, v in per_it.items())}"
+              " (from the graph of k iterations; issued: a call of 14 step launches and a norm, host included;"
+              " queued: the same behind a sleep)")
+        if n != 64:
+            continue
+        # loopback layouts of the phantom-padded grid, the first loop on some
+        for ms in NGS_LAYOUTS:
+            pad = [(-v) % s for v, s in zip(shape, ms)] + [0] * (2 - len(ms))
+            grid = (shape[0] + pad[0], shape[1] + pad[1])
+            L = LoopbackBlocks(ms)
+            bs, xs = (L.cut(torch.nn.functional.pad(t, [0, pad[1], 0, pad[0]]), lead=1) for t in (b, x0))
+            swl = NgsSweep(sw, grid, L)
+            runs = {"this": lambda: blocked_ngs(swl, bs, xs, *tols), "fused": lambda: fused(b, x0)}
+            order = ["this", "fused", "fused", "this"]
+            if ms in NGS_FIRST_LAYOUTS:
+                parts = {q: NgsBlock(sw, grid, ms, q) for q in L.coords}
+                runs["first"] = lambda: blocked_ngs_probe(probe, L, parts, bs, {q: v.clone() for q, v in xs.items()},
+                                                         *tols)
+                order = ["first"] + order + ["first"]
+            walls = _walls_in_turns(runs, order)
+            for name, (_, res) in walls.items():
+                held(name, res, res.x if name == "fused" else L.join(res.x)[:, :shape[0], :shape[1]])
+            print(f"blocked Picard 2D N={n} over loopback {ms} (padded {grid}), bit for bit with fused_ngs: in turns "
+                  f"{_turns_text(order, walls)} s (host clock, a solve)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=["gmres", "fieldsplit", "ilu", "sweeps", "k1", "direct", "direct-phases",
                                        "direct-wrapper", "ngs", "ngs-phases", "ngs-variants", "band", "partri", "gs",
-                                       "gs-repeat", "halo"],
+                                       "gs-repeat", "halo", "ngs-blocked"],
                     help="profile one kind of kernel alone, or time the sweeps, K1 or K2/K3")
     ap.add_argument("--against", type=Path,
                     help="with --only k1 or direct: an older checkout's kernels to compare with")
@@ -1636,6 +1804,9 @@ def main() -> int:
         return 0
     if args.only == "halo":
         time_halo()
+        return 0
+    if args.only == "ngs-blocked":
+        time_ngs_blocked()
         return 0
     dll = build()
     if args.only in (None, "gmres"):

@@ -25,7 +25,7 @@ from perphil_tpu_torch.mesh.structured import StructuredMesh
 from perphil_tpu_torch.models.dpp import DPPParameters
 from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, bc_values_per_field, coupling_apply
 from perphil_tpu_torch.ops.direct import FastDiagDPPSolver, FastDiagFieldSolver, LumpedDPPPreconditioner
-from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, NgsBlock, blocked_ngs
+from perphil_tpu_torch.ops.fused_ngs import FusedNGSSolver, NgsBlock, NgsSweep, blocked_ngs
 from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
 from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
 from perphil_tpu_torch.parallel.halo import COLLECTIVES
@@ -269,10 +269,11 @@ def test_colour_steps_bit_for_bit(n, meshes):
 
 
 def test_blocked_ngs_loop_equals_single_device():
-    """The blocked Picard loop over loopback slabs and pencils at 2D N=7 on
-    the manufactured solution: the single-device twin's 49 iterations and
-    its iterate bit for bit (the norm, the blocks' tree sums added, may
-    differ in its last bits)."""
+    """The blocked Picard loop (``blocked_ngs`` on a ``NgsSweep``: the
+    iterations issued in batches between read-backs of the stop state) over
+    loopback slabs and pencils at 2D N=7 on the manufactured solution: the
+    single-device twin's 49 iterations and its iterate bit for bit (the
+    norm, the blocks' tree sums added, may differ in its last bits)."""
     n = 7
     W = _space("quad", n, 1, "cpu")
     op = DPPOperator(W, DPPParameters())
@@ -284,8 +285,8 @@ def test_blocked_ngs_loop_equals_single_device():
     ref = FusedNGSSolver(op, sw, 1e-8, 1e-12, 50000).plain(b, x0)
     for ms in [(2,), (2, 2)]:
         L = LoopbackBlocks(ms)
-        parts = {c: NgsBlock(sw, W.mesh.node_shape, ms, c) for c in L.coords}
-        res = blocked_ngs(L, parts, L.cut(b, lead=1), L.cut(x0, lead=1), 1e-8, 1e-12, 50000)
+        sweep = NgsSweep(sw, W.mesh.node_shape, L)
+        res = blocked_ngs(sweep, L.cut(b, lead=1), L.cut(x0, lead=1), 1e-8, 1e-12, 50000)
         assert res.iterations == ref.iterations == 49
         assert torch.equal(L.join(res.x), ref.x)
         assert abs(res.residual_norm - ref.residual_norm) <= 1e-14 * ref.initial_norm

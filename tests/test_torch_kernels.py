@@ -43,7 +43,7 @@ from perphil_tpu_torch.ops.fused_gmres import (
     static_smem,
 )
 from perphil_tpu_torch.ops.fused_gs import KERNEL as FUSED_GS_KERNEL, FusedGSSolver
-from perphil_tpu_torch.ops.fused_ngs import COLOUR_KERNEL, KERNEL as NGS_KERNEL, FusedNGSSolver, NgsBlock, colour_step_plain
+from perphil_tpu_torch.ops.fused_ngs import COLOUR_KERNEL, KERNEL as NGS_KERNEL, FusedNGSSolver
 from perphil_tpu_torch.ops.ilu import GS_KERNEL, GaussSeidelSweeper, StructuredILU0, ilu_plan
 from perphil_tpu_torch.parallel.halo import block_geometry, join_blocks, loopback_planes, split_blocks
 from perphil_tpu_torch.parallel.halo import loopback_apply
@@ -927,40 +927,71 @@ def test_band_apply_on_the_card_matches_the_cpu(cuda):
     assert np.array_equal(got.cpu().numpy().ravel(), host)
 
 
+@pytest.mark.parametrize("remote", [False, True], ids=["in-place", "buffers"])
 @pytest.mark.parametrize("ms", [(1,), (2,), (4,), (2, 2)])
-def test_colour_step_kernel_against_twin(cuda, ms):
-    """``ngs_colour_halo``: a sweep of colour steps (a plane exchange before
-    each) and the residual mode over loopback blocks of 2D N=16
-    (phantom-padded where the mesh does not divide it) bit for bit with
-    the twin on the same card, one launch a block a step where the block
-    holds rows of the colour."""
+def test_colour_step_kernel_against_twin(cuda, ms, remote):
+    """``ngs_colour_halo``: a sweep of colour steps, one launch a colour over
+    every loopback block of 2D N=16 (phantom-padded where the mesh does not
+    divide it), the neighbours read in place or through the exchange
+    buffers, then the norm kernel with its residuals, bit for bit with the
+    twin (the same sweep on the CPU): iterate, residuals and norm."""
+    from perphil_tpu_torch.ops.fused_ngs import FN, NORM_KERNEL, NgsSweep
     from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
 
     mesh = create_mesh(16, 16)
-    sw = ColoredNGSSweeper(mesh, DPPParameters(), cuda)
     shape = mesh.node_shape
     pad = [(-n) % s for n, s in zip(shape, ms)] + [0] * (2 - len(ms))
     grid = tuple(n + p for n, p in zip(shape, pad))
     L = LoopbackBlocks(ms)
-    parts = {c: NgsBlock(sw, grid, ms, c) for c in L.coords}
     rng = np.random.default_rng(1)
-    x, b = (torch.nn.functional.pad(torch.as_tensor(rng.standard_normal((2,) + shape), device=cuda),
-                                    [0, pad[1], 0, pad[0]]) for _ in range(2))
-    xs, bs = L.cut(x, lead=1), L.cut(b, lead=1)
-    twin = {c: v.clone() for c, v in xs.items()}
+    x, b = (torch.nn.functional.pad(torch.as_tensor(rng.standard_normal((2,) + shape)), [0, pad[1], 0, pad[0]])
+            for _ in range(2))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        sweep = NgsSweep(ColoredNGSSweeper(mesh, DPPParameters(), dev), grid, L, remote=remote)
+        sweep.reset(0.0, 0.0, 1)
+        sweep.load(L.cut(b.to(dev), lead=1), L.cut(x.to(dev), lead=1))
+        _cuda.KERNEL_LAUNCHES.clear()
+        for k in range(sweep.ncolors):
+            sweep.step(k)
+        r = {c: torch.empty(sweep.shape, dtype=torch.float64, device=dev) for c in L.coords}
+        sweep.norm(init=True, residuals=r)
+        out[dev.type] = (L.join(sweep.x).cpu(), L.join(r).cpu(), float(sweep.state[FN]))
+        if dev.type == "cuda":
+            assert _cuda.KERNEL_LAUNCHES[COLOUR_KERNEL] == sum(int(end > start) for start, _, end in sweep.spans)
+            assert _cuda.KERNEL_LAUNCHES[NORM_KERNEL] == 1
+    assert torch.equal(out["cuda"][0], out["cpu"][0]) and torch.equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2] == out["cpu"][2]
 
-    def plain(c, v, planes, k=None):
-        part = parts[c]
-        return colour_step_plain(v, bs[c], planes, part.taps, part.diagonal, part.bdry,
-                                 None if k is None else part.masks[k])
 
-    _cuda.KERNEL_LAUNCHES.clear()
-    for k in range(sw.ncolors):
-        planes, tplanes = L.planes(xs), L.planes(twin)
-        xs = {c: parts[c].step(xs[c], bs[c], planes[c], k) for c in L.coords}
-        twin = {c: plain(c, twin[c], tplanes[c], k) for c in L.coords}
-    assert torch.equal(L.join(xs), L.join(twin))
-    assert _cuda.KERNEL_LAUNCHES[COLOUR_KERNEL] == sum(int(r.numel() > 0) for p in parts.values() for r in p.rows)
-    planes = L.planes(xs)
-    for c in L.coords:
-        assert torch.equal(parts[c].residual(xs[c], bs[c], planes[c]), plain(c, xs[c], planes[c]))
+@pytest.mark.parametrize("every", [1, 3, 16])
+@pytest.mark.parametrize("ms", [(1,), (2,), (2, 2)])
+def test_blocked_ngs_device_stop(cuda, ms, every):
+    """The blocked Picard solve with the norm and stop test on the card
+    (``every`` iterations between read-backs; from a CUDA graph) at 2D N=16
+    on the manufactured solution: the twin's count (194), norms and iterate
+    bit for bit, with both kernels launched."""
+    from perphil_tpu_torch.ops.assembly import bc_values_per_field
+    from perphil_tpu_torch.ops.fused_ngs import NORM_KERNEL, NgsSweep, blocked_ngs
+    from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
+
+    # the inputs made once, on the CPU (K1 on the card sums the lift in
+    # another order than its twin)
+    W = mixed_space(create_function_spaces(create_mesh(16, 16), device="cpu")[1])
+    _, p1e, _, p2e = exact_expressions(W.mesh, DPPParameters())
+    g = torch.stack(bc_values_per_field(W, [DirichletBC(W.sub(0), p1e), DirichletBC(W.sub(1), p2e)]))
+    op = DPPOperator(W, DPPParameters())
+    b = torch.stack(op.lifted_rhs(g[0], g[1]))
+    x0 = torch.where(op._mask_arrays[0], g, 0.0)
+    L = LoopbackBlocks(ms)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        sweep = NgsSweep(ColoredNGSSweeper(W.mesh, DPPParameters(), dev), W.mesh.node_shape, L)
+        _cuda.KERNEL_LAUNCHES.clear()
+        res = blocked_ngs(sweep, L.cut(b.to(dev), lead=1), L.cut(x0.to(dev), lead=1), 1e-8, 1e-50, 50000,
+                          every=every)
+        out[dev.type] = (res.iterations, res.residual_norm, res.initial_norm, L.join(res.x).cpu())
+        if dev.type == "cuda":
+            assert _cuda.KERNEL_LAUNCHES[COLOUR_KERNEL] > 0 and _cuda.KERNEL_LAUNCHES[NORM_KERNEL] > 0
+    assert out["cuda"][0] == out["cpu"][0] == 194
+    assert out["cuda"][1:3] == out["cpu"][1:3] and torch.equal(out["cuda"][3], out["cpu"][3])
