@@ -182,24 +182,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      solves over loopback slabs (2, 4, 8) and (2, 2) pencils of 128^3 hex
      (``TPU_DIRECT_PARAMS``' solver at full width) against the whole-grid
      solves (1e-12, f64 relative residual < 1e-10), with the all-to-all
-     moves' time; then, counted, on a world of one NCCL rank
-     (``init_process_group("nccl")`` on a free port), the six paths of the
-     JAX multichip dry run (``tools/dryrun.py``) held to the single-device
-     solves on the card and to ``MULTICHIP_r05.json``'s counts
-     (38/6/4/1/49/4), each with the collectives it issued, the halo matvec
-     to K1 on the gathered vector (0), one ``stacked_halo_apply`` at 64^3
-     and 128^3 in turns with the first form's apply (the block extended
-     whole, then the probe; device time and host wall), and
-     ``sharded_solve_dpp`` / ``sharded_solve_dpp_nonlinear`` at full width:
-     128^3 hex ``TPU_DIRECT_PARAMS`` (f64 relative residual < 1e-10), 2D
-     N=64 ``PLAIN_GMRES_PARAMS`` on the distributed host loop (exactly
-     3307), SS-GMRES at 2D N=64 (4), ``PICARD_LU_SOLVER_PARAMS`` at 2D N=64
-     and N=128 (exactly 1673 and 5135, a colour step a launch), each wall
-     beside the single-device solve's and with its collectives (one
-     all-gather where every part keeps its blocks); ``fused_dpp_apply_halo``,
-     ``structured_ilu_apply`` (the gathered ILU) and ``ngs_colour_halo``
-     must launch, K2 and ``fused_ngs`` must not (the port's blocked routes
-     take neither, at every size, by design); then
+     moves' time; the degree-p parts on blocks (``degree_p_blocks``): Q2 2D
+     N=128 direct and fieldsplit GMRES, Q2 hex N=32 direct and fieldsplit,
+     P2 tri N=64 Jacobi GMRES (rtol 1e-8) with every part on loopback (4,)
+     slabs and (2, 2) pencils of the phantom-padded lattice, each held to
+     the whole-grid solve (equal counts, fields 1e-12; the P2 matvec and
+     lift bit for bit, the Qp ones 1e-13), with the collectives of one
+     application of each part and both routes' walls in turns; then,
+     counted, on a world of one NCCL rank (``init_process_group("nccl")``
+     on a free port), the six paths of the JAX multichip dry run
+     (``tools/dryrun.py``) held to the single-device solves on the card
+     and to ``MULTICHIP_r05.json``'s counts (38/6/4/1/49/4): through
+     ``sharded_solve_dpp``, which on a world of one runs the single-device
+     solve (``linear_on_one_rank_whole``; no collective), and the linear
+     ones on the blocked route too (``blocked_solve_dpp``: one all-gather),
+     the halo matvec to K1 on the gathered vector (0), one
+     ``stacked_halo_apply`` at 64^3 and 128^3 in turns with the first
+     form's apply (the block extended whole, then the probe; device time
+     and host wall), and ``sharded_solve_dpp`` /
+     ``sharded_solve_dpp_nonlinear`` at full width: 128^3 hex
+     ``TPU_DIRECT_PARAMS`` (f64 relative residual < 1e-10), 2D N=64
+     ``PLAIN_GMRES_PARAMS`` (exactly 3307), SS-GMRES at 2D N=64 (4),
+     ``PICARD_LU_SOLVER_PARAMS`` at 2D N=64 and N=128 (exactly 1673 and
+     5135), each wall beside the single-device solve's, with no collective
+     (the world of one's routes), and the three linear ones' two routes in
+     turns (blocked, whole, blocked, whole), the single-device route the
+     faster; ``fused_dpp_apply_halo``, ``structured_ilu_apply`` (the
+     gathered ILU on the blocked route) and ``ngs_colour_halo`` must
+     launch, K2 once for the world of one's direct path at hex N=7 and
+     ``fused_ngs`` once a world-of-one Picard solve; then
      ``run_scaling`` (strong, one rank, 2D N=64, both default approaches)
      in a world of its own, its rows printed.
 
@@ -1843,6 +1854,17 @@ FULL_WIDTH = (("hex", 128, "TPU_DIRECT_PARAMS", False), ("quad", 64, "PLAIN_GMRE
 FULL_WIDTH_COUNTS = {("quad", 64, "PLAIN_GMRES_PARAMS"): 3307, ("quad", 64, "SS-GMRES"): 4,
                      ("quad", 64, "PICARD_LU_SOLVER_PARAMS"): PICARD_COUNTS[64],
                      ("quad", 128, "PICARD_LU_SOLVER_PARAMS"): PICARD_COUNTS[128]}
+# the degree-p parts on blocks at full width (phase 14 (c2)): element, N,
+# degree, solve; on loopback slabs and pencils of the phantom-padded lattice,
+# held to the whole-grid solve (the CPU tests' tolerances,
+# tests/test_torch_blocked_degree_p.py)
+DEGREE_P_CASES = (("quad", 128, 2, "direct"), ("quad", 128, 2, "fieldsplit"), ("hex", 32, 2, "direct"),
+                  ("hex", 32, 2, "fieldsplit"), ("triangle", 64, 2, "jacobi"))
+DEGREE_P_OPTIONS = {"direct": {"ksp_type": "preonly", "pc_type": "lu"},
+                    "fieldsplit": {"ksp_type": "gmres", "pc_type": "fieldsplit", "ksp_rtol": 1e-8},
+                    "jacobi": {"ksp_type": "gmres", "pc_type": "jacobi", "ksp_rtol": 1e-8}}
+DEGREE_P_MESHES = ((4,), (2, 2))
+DEGREE_P_OP_TOL, DEGREE_P_SOLVE_TOL = 1e-13, 1e-12
 
 
 def multichip_counts():
@@ -1947,6 +1969,85 @@ def first_form_apply(op, dmesh, probe, mode: str = "matvec"):
     return apply
 
 
+def degree_p_blocks(dev, smi, randn, cases=DEGREE_P_CASES, meshes=DEGREE_P_MESHES):
+    """Phase 14 (c2), the degree-p parts on blocks at full width: the Qp and
+    P2 solves of ``cases`` with every part on loopback slabs and pencils
+    (``meshes``) of the phantom-padded lattice (``tools/dryrun.py::
+    loopback_solve``: ``solvers/solver.py::_run_parts`` with the operator
+    on boxes of p or 2 ghost planes, the fast-diag through the transposes,
+    GMRES on the joined vector) against the whole-grid solve (the
+    single-device route): equal counts, the fields within 1e-12, the P2
+    matvec and lift bit for bit, the Qp ones within 1e-13; the collectives
+    of one application of each part; both routes' walls in turns (whole,
+    blocked, blocked, whole; host clock, synchronised), both warm: each
+    route's solver and block data are built by the checked solve before
+    them (``loopback_solve`` keeps one ``JoinedBlocks`` a mesh)."""
+    import torch
+
+    from perphil_tpu_torch.models.dpp import DPPParameters
+    from perphil_tpu_torch.ops.simplexfem import P2SimplexDPPOperator
+    from perphil_tpu_torch.ops.tensorfem import TensorDPPOperator
+    from perphil_tpu_torch.parallel.halo import COLLECTIVES
+    from perphil_tpu_torch.solvers import solve_dpp
+    from perphil_tpu_torch.tools.dryrun import _manufactured_bcs, _space, collectives_text, loopback_solve
+
+    def solve_wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for element, n, degree, solve in cases:
+        options = DEGREE_P_OPTIONS[solve]
+        Wd = _space(element, n, degree, dev)
+        bd, pd = _manufactured_bcs(Wd), DPPParameters()
+        dof = Wd.spaces[0].dof_mesh.node_shape
+        single = solve_dpp(Wd, pd, bd, solver_parameters=options)
+        zs = torch.stack(single.solution.data)
+        check(bool(torch.isfinite(zs).all()) and zs.device == dev, f"degree-{degree} {element} N={n} {solve}: "
+              "a finite whole-grid solution on the card")
+        for ms in meshes:
+            where = f"degree-{degree} {element} N={n} {solve} over loopback {ms}"
+            COLLECTIVES.clear()
+            z, its, _, apply = loopback_solve(Wd, pd, bd, ms, options)
+            coll = dict(COLLECTIVES)
+            e = rel(z, zs)
+            check(its == single.iteration_number and e <= DEGREE_P_SOLVE_TOL,
+                  f"{where}: {its} iterations against the whole grid's {single.iteration_number}, "
+                  f"fields {e:.2e} of it")
+            pad = tuple([(-m) % s for m, s in zip(dof, ms)] + [0] * (len(dof) - len(ms)))
+            v = torch.stack([randn(tuple(m + q for m, q in zip(dof, pad))) for _ in range(2)])
+            whole_op = (TensorDPPOperator(Wd.mesh, pd, degree, pad, device=dev) if Wd.mesh.is_tensor_product
+                        else P2SimplexDPPOperator(Wd.mesh, pd, pad, device=dev))
+            per = {}
+            for part in ("matvec", "lift", "pc"):
+                COLLECTIVES.clear()
+                got = apply[part](v)
+                torch.cuda.synchronize()
+                per[part] = dict(COLLECTIVES)
+                if part == "pc":
+                    continue
+                want = torch.stack(whole_op.matvec(v[0], v[1]) if part == "matvec" else
+                                   whole_op.lifted_rhs(v[0], v[1]))
+                if element in ("hex", "quad"):
+                    check(rel(got, want) <= DEGREE_P_OP_TOL, f"{where}: the {part} within 1e-13 of the whole grid's")
+                else:
+                    check(torch.equal(got, want), f"{where}: the P2 {part} bit for bit with the whole lattice's")
+            runs = {"whole": lambda: solve_dpp(Wd, pd, bd, solver_parameters=options),
+                    "blocked": lambda: loopback_solve(Wd, pd, bd, ms, options)}
+            order = ("whole", "blocked", "blocked", "whole")
+            walls_c2 = {name: [] for name in runs}
+            for name in order:
+                walls_c2[name].append(solve_wall(runs[name]))
+            print(f"{where} (padded {tuple(m + q for m, q in zip(dof, pad))}, {2 * math.prod(dof)} DoF): its={its} "
+                  f"(whole grid {single.iteration_number}), fields {e:.2e} of the whole grid's; collectives a solve "
+                  f"{collectives_text(coll, its)}; an application: matvec {per['matvec']}, lift {per['lift']}, "
+                  f"{'direct solve' if solve == 'direct' else 'preconditioner'} {per['pc']}; walls in turns "
+                  + " / ".join(f"{name} {walls_c2[name][order[:i].count(name)]:.4f}" for i, name in enumerate(order))
+                  + f" s (host clock, a solve) on {smi}")
+
+
 def multidevice_path(dev, smi, randn, results, t_start, probe):
     """Phase 14: K1's halo form over loopback blocks against K1 on the whole
     grid, and its times in turns with the first form (``probe``:
@@ -2003,9 +2104,15 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
         split_blocks,
         stacked_halo_apply,
     )
-    from perphil_tpu_torch.parallel.sharding import device_mesh, sharded_solve_dpp, sharded_solve_dpp_nonlinear
+    from perphil_tpu_torch.parallel.sharding import (
+        blocked_solve_dpp,
+        device_mesh,
+        sharded_solve_dpp,
+        sharded_solve_dpp_nonlinear,
+    )
     from perphil_tpu_torch.solvers import solve_dpp, solve_dpp_nonlinear
-    from perphil_tpu_torch.solvers.solver import _freeze, ngs_on_one_rank_whole
+    from perphil_tpu_torch.solvers.solver import _freeze, linear_on_one_rank_whole, ngs_on_one_rank_whole
+    from perphil_tpu_torch.ops.fused_direct import fused_direct_supported
     from perphil_tpu_torch.tools.dryrun import (
         check_paths,
         collectives_text,
@@ -2246,6 +2353,11 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
               f"{whole_ms:.3f} ms (CUDA events, one process) on {smi}")
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (c) done")
 
+    # -- (c2) the degree-p parts on blocks at full width
+    t_c2 = time.perf_counter()
+    degree_p_blocks(dev, smi, randn)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 (c2) done: {time.perf_counter() - t_c2:.1f} s")
+
     # -- (d) a world of one NCCL rank: the six dry-run paths
     store = rendezvous_store(1)  # bound to a port the system picks, held until the group ends
     dist.init_process_group("nccl", store=store, rank=0, world_size=1)
@@ -2276,6 +2388,11 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     records, walls = [], []
     for case, single in zip(cases, singles):
         records.append(sharded_record(case, single))
+    # the blocked route of the linear paths on the rank's block
+    # (blocked_solve_dpp: _run_parts on the rank's RankBlocks), which the
+    # world of one does not take (linear_on_one_rank_whole)
+    blocked_records = [sharded_record(case, single, blocked=True) for case, single in zip(cases, singles)
+                       if not case[4]]
     for element, n, preset, nonlinear, Wf, pf, bf, ref, ref_wall in full:
         dm = device_mesh([1, 1], axis_names=("z", "y") if element == "hex" else ("y", "x"))
         torch.cuda.synchronize()
@@ -2292,7 +2409,13 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
           f"iteration at 2D N=64 on the rank's block): {counts}")
     for name in ("fused_dpp_apply_halo", "structured_ilu_apply", "ngs_colour_halo", "ngs_colour_norm"):
         check(counts.get(name, 0) > 0, f"{name} launched on the multi-device path")
-    check(counts.get("fused_direct_solve", 0) == 0, "fused_direct_solve not launched on blocks")
+    # K2: once a world-of-one direct solve whose mesh its gate takes (the
+    # single-device route); the blocked route never takes it
+    k2_solves = sum(c[0] == "direct-fastdiag-3d" and fused_direct_supported(DPPOperator(c[1], DPPParameters()))
+                    for c in cases)
+    check(counts.get("fused_direct_solve", 0) == k2_solves,
+          f"fused_direct_solve launched once a world-of-one direct solve its gate takes ({k2_solves}), "
+          f"none on blocks: got {counts.get('fused_direct_solve', 0)}")
     # fused_ngs: once a Picard ngs solve on the world of one (the dry run's
     # and the two full-width ones), by the route's rule, and nowhere else
     picard_solves = sum(c[0] == "picard-ngs-2d" for c in cases) + sum(w[3] for w in walls)
@@ -2303,11 +2426,24 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     _, W3, _, _, _, dm3 = cases[0]
     records.append(dict(label="halo", **benchmark_vs_gathered(DPPOperator(W3, DPPParameters()), dm3, reps=3)))
     check_paths(records)
+    check_paths(blocked_records + records[-1:])
     for r in records[:-1]:
         print(f"world of one NCCL rank [{r['label']}]: its={r['its']} (single-device on the card "
               f"{r['single_its']}, {MULTICHIP_RECORD} {published[r['label']]}), max rel diff {r['rel_diff']:.2e}; "
               f"collectives {collectives_text(r['collectives'], r['its'])}")
         check(r["its"] == published[r["label"]], f"{r['label']}: the JAX dry run's count")
+        # the world of one runs the single-device solves: no collective
+        check(not any(r["collectives"].values()), f"{r['label']}: no collective on the world of one")
+    for r in blocked_records:
+        print(f"world of one NCCL rank, the blocked route [{r['label']}]: its={r['its']} (single-device "
+              f"{r['single_its']}), max rel diff {r['rel_diff']:.2e}; collectives "
+              f"{collectives_text(r['collectives'], r['its'])}")
+        check(r["its"] == published[r["label"]], f"{r['label']} on the blocked route: the JAX dry run's count")
+        # one all-gather, the solution's, where every part keeps its blocks;
+        # the gathered ILU one more an application
+        gathers = r["collectives"].get("all_gather", 0)
+        check(gathers > 1 if "ilu" in r["label"] else gathers == 1,
+              f"{r['label']} on the blocked route: {gathers} all-gathers")
     print(f"halo matvec against K1 on the gathered vector: diff {records[-1]['max_abs_diff']:.2e}, "
           f"halo {records[-1]['halo_s'] * 1e3:.4f} ms, gathered {records[-1]['gathered_s'] * 1e3:.4f} ms a call")
     # one sharded apply (stacked_halo_apply) at 64^3 and 128^3 beside the
@@ -2418,10 +2554,48 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
               f"(single-device {ref.iteration_number}), f64 rel residual {rres:.3e}, max rel diff vs single-device "
               f"{diff:.2e}, wall {wall:.3f} s beside the single-device solve's {ref_wall:.3f} s; collectives "
               f"{collectives_text(coll, its)} on {smi}")
-        # the world of one's Picard ngs runs whole (ngs_on_one_rank_whole): no gather
-        whole = nonlinear and ngs_on_one_rank_whole(Wf, _freeze(presets()[preset]), 1)
-        check(coll.get("all_gather", 0) == (0 if whole else 1),
-              f"sharded {element} N={n} {preset}: {'no all-gather' if whole else 'one all-gather, the solution'}")
+        # the world of one runs whole: the linear solves (linear_on_one_rank_whole)
+        # and the quad Picard ngs (ngs_on_one_rank_whole); no collective
+        whole = (ngs_on_one_rank_whole(Wf, _freeze(presets()[preset]), 1) if nonlinear else
+                 linear_on_one_rank_whole(1))
+        check(whole and not any(coll.values()), f"sharded {element} N={n} {preset}: the single-device route, "
+                                                f"no collective, got {coll}")
+        if not nonlinear:
+            # the route's rule: the single-device solve against the blocked
+            # route on the rank's block, in turns (blocked, whole, blocked,
+            # whole; host clock, a solve: the first blocked one builds its
+            # parts); the blocked route lands the same count
+            dm = device_mesh([1, 1], axis_names=("z", "y") if element == "hex" else ("y", "x"))
+            sp_ = presets()[preset]
+            runs = {"whole": lambda: sharded_solve_dpp(Wf, pf, bf, dm, solver_parameters=sp_),
+                    "blocked": lambda: blocked_solve_dpp(Wf, pf, bf, dm, solver_parameters=sp_)}
+            order = ("blocked", "whole", "blocked", "whole")
+            route_walls, outs = {name: [] for name in runs}, {}
+            for name in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = runs[name]()
+                torch.cuda.synchronize()
+                route_walls[name].append(time.perf_counter() - t0)
+            bdiff = max(rel(a, b) for a, b in zip(outs["blocked"].solution.data, ref.solution.data))
+            check(outs["blocked"].iteration_number == ref.iteration_number,
+                  f"sharded {element} N={n} {preset}: the blocked route's count")
+            check(all(torch.equal(a, b) for a, b in zip(outs["whole"].solution.data, ref.solution.data)),
+                  f"sharded {element} N={n} {preset}: the world of one is solve_dpp bit for bit")
+            results[f"world-of-one@{element}{n} {preset}"] = route_walls
+            print(f"sharded {element} N={n} {preset} on a world of one NCCL rank, the two routes in turns: "
+                  + " / ".join(f"{name} {route_walls[name][order[:i].count(name)]:.4f}" for i, name in enumerate(order))
+                  + f" s (host clock, a solve); the blocked route {outs['blocked'].iteration_number} iterations, "
+                  f"fields {bdiff:.2e} of the single-device solve's, on {smi}")
+            # the Krylov presets differ by 10-100x (K4/K6 against the host
+            # loop); the direct solve is the same fast-diag on both routes,
+            # apart by less than the runs' spread (0.041-0.079 s against
+            # 0.049-0.095 s warm in two runs): no slower than the blocked
+            # route by more than that
+            slack = 1.5 if preset == "TPU_DIRECT_PARAMS" else 1.0
+            check(min(route_walls["whole"]) < slack * min(route_walls["blocked"]),
+                  f"sharded {element} N={n} {preset}: the single-device route faster (direct: within {slack}x), "
+                  "as the route's rule says")
         want = FULL_WIDTH_COUNTS.get((element, n, preset))
         if preset == "TPU_DIRECT_PARAMS":
             check(rres < 1e-10, f"sharded {element} N={n} residual")

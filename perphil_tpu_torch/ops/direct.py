@@ -102,37 +102,47 @@ def extended_modes(a: np.ndarray, node_shape: Sequence[int], grid: Sequence[int]
 
 
 class FastDiagBlocks:
-    """The per-axis transforms of a fast-diag solver (``solver.mats``) on
-    the blocks ``blocks`` holds of its node grid padded by ``padding``.
+    """The per-axis transforms of a fast-diag solve on the blocks ``blocks``
+    holds of a node lattice ``node_shape`` padded by ``padding``; ``bases``
+    holds, per grid axis, the interior eigenvector matrix of that axis (its
+    1D generalised eigenproblem, interior rows and modes): Q1's
+    ``solver.eig`` (:meth:`of`), or a degree-p lattice's
+    (``ops/tensorfem.py::interior_eig_1d``).
 
-    Each 1D eigenvector matrix ``S`` (interior rows and modes) is extended
-    to the padded node axis with zeros: ``E[1:n-1, 1:n-1] = S``. The forward
-    transform ``E^T`` then reads only interior nodes and writes zeros at
-    the boundary and phantom modes, the backward ``E`` writes zeros at the
-    boundary and phantom nodes. Axes are contracted in the order of
-    ``parallel/transpose.py::transform_plan``, the backward transform
-    undoing the forward's moves in reverse."""
+    Each ``S`` is extended to the padded node axis with zeros:
+    ``E[1:n-1, 1:n-1] = S``. The forward transform ``E^T`` then reads only
+    interior nodes and writes zeros at the boundary and phantom modes, the
+    backward ``E`` writes zeros at the boundary and phantom nodes. Axes are
+    contracted in the order of ``parallel/transpose.py::transform_plan``,
+    the backward transform undoing the forward's moves in reverse."""
 
-    def __init__(self, solver: "_FastDiagBase", padding: Sequence[int], blocks):
-        from perphil_tpu_torch.ops.assembly import _masks
+    def __init__(self, bases: Sequence[np.ndarray], node_shape: Sequence[int], padding: Sequence[int], blocks,
+                 dtype: torch.dtype, device: torch.device):
         from perphil_tpu_torch.parallel.transpose import layout_index, transform_plan
 
-        mesh = solver.mesh
-        d = mesh.dim
-        padding = tuple(padding) or (0,) * d
-        self.node_shape = tuple(mesh.node_shape)
+        self.node_shape = tuple(int(n) for n in node_shape)
+        padding = tuple(padding) or (0,) * len(self.node_shape)
         self.grid = tuple(n + p for n, p in zip(self.node_shape, padding))
         self.blocks = blocks
-        dev, dtype = solver.S0.device, solver.dtype
         self.E = []
-        for a, (n, N) in enumerate(zip(self.node_shape, self.grid)):
+        for S, n, N in zip(bases, self.node_shape, self.grid):
             E = np.zeros((N, N))
-            E[1:n - 1, 1:n - 1] = solver.eig[d - 1 - a][0]
-            self.E.append(torch.as_tensor(E, dtype=dtype, device=dev))
+            E[1:n - 1, 1:n - 1] = S
+            self.E.append(torch.as_tensor(E, dtype=dtype, device=device))
         self.steps, splits = transform_plan(self.grid, blocks.mesh_shape)
         self.at = {c: np.ix_(*layout_index(self.grid, splits, c, blocks.mesh_shape)) for c in blocks.coords}
-        self.interior = blocks.cut(torch.as_tensor(_masks(mesh, padding)[1], device=dev))
-        self.dtype, self.device = dtype, dev
+        interior = np.zeros(self.grid, dtype=bool)
+        interior[tuple(slice(1, n - 1) for n in self.node_shape)] = True
+        self.interior = blocks.cut(torch.as_tensor(interior, device=device))
+        self.dtype, self.device = dtype, device
+
+    @classmethod
+    def of(cls, solver: "_FastDiagBase", padding: Sequence[int], blocks) -> "FastDiagBlocks":
+        """The transforms of a Q1 fast-diag solver (``solver.eig``) on its
+        mesh's node grid."""
+        d = solver.mesh.dim
+        return cls([solver.eig[d - 1 - a][0] for a in range(d)], solver.mesh.node_shape, padding, blocks,
+                   solver.dtype, solver.S0.device)
 
     def modes(self, a) -> Blocks:
         """Interior mode data (array or tensor, one entry a mode) sliced to
@@ -167,7 +177,7 @@ class FastDiagBlocks:
 
 
 def _fd_blocks(solver: "_FastDiagBase", blocks, padding: Sequence[int]) -> FastDiagBlocks:
-    return blocks.built(("fastdiag", solver, tuple(padding)), lambda: FastDiagBlocks(solver, padding, blocks))
+    return blocks.built(("fastdiag", solver, tuple(padding)), lambda: FastDiagBlocks.of(solver, padding, blocks))
 
 
 class _FastDiagBase(nn.Module):

@@ -15,6 +15,13 @@ the shifted views stacked and summed against them: a few torch ops a stencil
 instead of a few hundred. There is no hand-written kernel on this path; the
 JAX package has no Pallas kernel for it either.
 
+On blocks (the sharded path, and the single-device solves with the whole
+lattice as one block): the whole lattice's weight fields are cut to each
+block and read against the block extended by 2 planes a side (the plane
+exchange of ``parallel/halo.py``), so a block at any offset reads the
+parities of its global indices; with the fixed-order sum of
+:func:`_weighted_sum` the blocked rows are the whole lattice's, bit for bit.
+
 ``assemble_p2_monolithic`` is the host scipy CSR of the BC-eliminated
 system: the analysis path and the factor of the preonly + lu solve, which
 runs on the host (``scipy.sparse.linalg.splu``) in both packages.
@@ -43,7 +50,6 @@ __all__ = [
     "p2_local_nodes",
     "p2_simplex_matrices",
     "p2_class_stencils",
-    "apply_p2_stencil",
     "p2_stencil_diagonal",
     "P2SimplexDPPOperator",
     "assemble_p2_monolithic",
@@ -197,11 +203,25 @@ def p2_stencil(shape: Tuple[int, ...], W: np.ndarray, dtype, device: DeviceLike 
     return P2Stencil(tuple(slices), torch.stack(fields))
 
 
-def apply_p2_stencil(u: torch.Tensor, st: P2Stencil) -> torch.Tensor:
-    """``y[r] = sum_D W[class(r), D] u[r+D]`` on a refined-lattice grid
-    (reads beyond the lattice are zero)."""
-    up = F.pad(u, (2, 2) * u.dim())
-    return (st.weights * torch.stack([up[sl] for sl in st.slices])).sum(0)
+def _weighted_sum(up: torch.Tensor, slices, weights: torch.Tensor) -> torch.Tensor:
+    """``y[r] = sum_i weights[i, r] * up[slices[i]][r]`` (``up`` the input
+    padded by 2, reads beyond the lattice zero; a leading field axis rides
+    along, the weights broadcast over it): the products in one op,
+    the n - m products past the largest power of two m <= n added onto the
+    first ones, then summed pairwise by halves, in a fixed order of
+    elementwise adds, so that every entry's bits depend on its own terms
+    alone, not on the lattice's shape (a block of the lattice gives the
+    whole lattice's bits); 1 + log2(m) adds."""
+    t = weights * torch.stack([up[sl] for sl in slices])
+    n = t.shape[0]
+    m = 1 << (n.bit_length() - 1)
+    if m < n:
+        t[: n - m] += t[m:]
+    t = t[:m]
+    while m > 1:
+        m //= 2
+        t = t[:m] + t[m:]
+    return t[0]
 
 
 def p2_stencil_diagonal(shape: Tuple[int, ...], W: np.ndarray, dtype, device: DeviceLike = None) -> torch.Tensor:
@@ -265,24 +285,33 @@ class P2SimplexDPPOperator:
             p2_stencil(self.dof_shape, W, default_dtype(), self.device) for W in p2_class_stencils(self.mesh)
         )
 
-    def _raw_blocks(self, z1: torch.Tensor, z2: torch.Tensor):
-        p = self.params
-        Kst, Mst = self._stencils
-        Kz1 = apply_p2_stencil(z1, Kst)
-        Kz2 = apply_p2_stencil(z2, Kst)
-        Md = apply_p2_stencil(z1 - z2, Mst)
-        return (p.k1 / p.mu) * Kz1 + (p.beta / p.mu) * Md, (p.k2 / p.mu) * Kz2 - (p.beta / p.mu) * Md
+    @cached_property
+    def _coefficients(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(k_i / mu)`` and ``(+-beta / mu)`` a field, shaped to scale the
+        stacked ``(2, *grid)`` fields."""
+        p, shape = self.params, (2,) + (1,) * len(self.dof_shape)
+        return tuple(torch.tensor(v, dtype=default_dtype(), device=self.device).reshape(shape)
+                     for v in ((p.k1 / p.mu, p.k2 / p.mu), (p.beta / p.mu, -p.beta / p.mu)))
+
+    @cached_property
+    def whole(self):
+        """The whole (padded) lattice as one block (``LoopbackBlocks(())``),
+        kept: :meth:`matvec` and :meth:`lifted_rhs` are :meth:`apply_blocks`
+        on it."""
+        from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
+
+        return LoopbackBlocks(())
+
+    def _whole_apply(self, z1: torch.Tensor, z2: torch.Tensor, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        y = self.apply_blocks({(): torch.stack([z1, z2])}, self.whole, mode)[()]
+        return y[0], y[1]
 
     def matvec(self, z1: torch.Tensor, z2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        bdry = self._bdry
-        y1, y2 = self._raw_blocks(torch.where(bdry, 0.0, z1), torch.where(bdry, 0.0, z2))
-        return torch.where(bdry, z1, y1), torch.where(bdry, z2, y2)
+        return self._whole_apply(z1, z2, "matvec")
 
     def lifted_rhs(self, g1: torch.Tensor, g2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Boundary rows get ``g``, interior rows ``-A[interior, boundary] g``."""
-        bdry = self._bdry
-        a1, a2 = self._raw_blocks(torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0))
-        return torch.where(bdry, g1, -a1), torch.where(bdry, g2, -a2)
+        return self._whole_apply(g1, g2, "lift")
 
     def residual(self, z1, z2, b1, b2):
         y1, y2 = self.matvec(z1, z2)
@@ -305,6 +334,59 @@ class P2SimplexDPPOperator:
         d1 = torch.where(bdry, 1.0, (p.k1 / p.mu) * dK + (p.beta / p.mu) * dM)
         d2 = torch.where(bdry, 1.0, (p.k2 / p.mu) * dK + (p.beta / p.mu) * dM)
         return torch.stack([d1, d2])
+
+    # -- on blocks ------------------------------------------------------------
+
+    def block_stencils(self, blocks):
+        """Per block ``blocks`` holds, both class stencils (K, M) as the
+        block reads them: the whole lattice's weight fields
+        (:attr:`_stencils`, the parities of the global indices) cut to the
+        block, ``(n, 1, *block)`` to scale both fields at once, and the same
+        offsets as slices of its stacked box extended by 2 a side. Cut once
+        per set of blocks; raises ``ValueError`` where a
+        block is thinner than 2 planes (``parallel/halo.py::check_halo_width``).
+        Never a stencil laid out on the block's own shape: that would take
+        the parities from the block's origin."""
+        from perphil_tpu_torch.parallel.halo import check_halo_width
+        from perphil_tpu_torch.parallel.transpose import block_slices
+
+        def cut():
+            check_halo_width(self.dof_shape, blocks.mesh_shape, 2)
+            out = {}
+            for c in blocks.coords:
+                sl = block_slices(self.dof_shape, blocks.mesh_shape, c)
+                local = tuple((s.stop if s.stop is not None else n) - (s.start or 0)
+                              for s, n in zip(sl, self.dof_shape))
+                out[c] = tuple(
+                    (tuple((slice(None),) + tuple(slice(o.start, o.start + n) for o, n in zip(offs, local))
+                           for offs in st.slices),
+                     st.weights[(slice(None),) + sl].unsqueeze(1).contiguous())
+                    for st in self._stencils)
+            return out
+
+        return blocks.built(("p2-stencils", self), cut)
+
+    def apply_blocks(self, xs, blocks, mode: str = "matvec"):
+        """The BC-eliminated operator (``mode="matvec"``) or the lift
+        (``"lift"``) on the stacked ``(2, *block)`` blocks ``xs``: the
+        boundary rows masked, one exchange of 2 planes a side along every
+        split axis, the unsplit axes padded with zeros, then the whole
+        lattice's offsets and weights in its order (:meth:`block_stencils`):
+        bit for bit the whole lattice's rows. K goes over both fields in
+        one sum, M over ``z1 - z2``."""
+        from perphil_tpu_torch.parallel.halo import eliminated_apply
+
+        bdry = blocks.built(("p2-boundary", self), lambda: blocks.cut(self._bdry))
+        stencils, split = self.block_stencils(blocks), len(blocks.mesh_shape)
+        ck, cm = self._coefficients
+
+        def raw(c, box):
+            pad = [v for ax in reversed(range(split, box.dim() - 1)) for v in (2, 2)]
+            up = F.pad(box, pad) if pad else box
+            (ks, kw), (ms, mw) = stencils[c]
+            return ck * _weighted_sum(up, ks, kw) + cm * _weighted_sum((up[0] - up[1])[None], ms, mw)
+
+        return eliminated_apply(blocks, xs, bdry, 2, raw, mode)
 
 
 def _assemble_p2_scalar(mesh: StructuredMesh) -> Tuple[sp.csr_matrix, sp.csr_matrix]:

@@ -18,13 +18,25 @@ package's own); every operator and solve runs on ``device``. ``padding``
 (the sharded path's phantom rows at the high end of each grid axis) extends
 each 1D factor by an identity block with no coupling, so phantom DoFs are
 inert in every tensor term and carry zero data.
+
+On blocks (the sharded path, ``parallel/sharding.py``; the blocks a
+process holds, ``parallel/transpose.py``): the operator's ``apply_blocks``
+exchanges ``p`` planes a side along every split axis (both fields and every
+tensor term on one exchange) and contracts each grid axis of the extended
+box with the band of the 1D factor its block needs, the rows at the owned
+indices and the columns p further on either side (:meth:`TensorDPPOperator.bands`);
+the fast-diag solves' ``solve_blocks`` / ``block_solve_blocks`` run the
+transforms of ``ops/direct.py::FastDiagBlocks`` on the degree-p lattice
+through the all-to-all transposes. With the whole grid as one block
+(``LoopbackBlocks(())``, the single-device solves) no plane moves and the
+bands are the whole factors: the operator's whole-grid arithmetic.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import cached_property, lru_cache
-from typing import Callable, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import scipy.linalg
@@ -199,42 +211,56 @@ class TensorDPPOperator:
     def _bdry(self) -> torch.Tensor:
         return torch.as_tensor(self.boundary_mask, device=self.device)
 
-    def _K(self, u: torch.Tensor) -> torch.Tensor:
-        """Stiffness: the sum over axes of K1 on that axis, M1 on the others."""
+    @property
+    def _grid_mats(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+        """(K1, M1) per grid axis (the coordinate axes reversed)."""
+        return self._mats[::-1]
+
+    def _K(self, u: torch.Tensor, mats: Sequence) -> torch.Tensor:
+        """Stiffness: the sum over axes of K1 on that axis, M1 on the others;
+        ``mats``: (K1, M1) per grid axis (a block's :meth:`bands`)."""
         d = u.dim()
-        out = torch.zeros_like(u)
+        out = torch.zeros(tuple(m[0].shape[0] for m in mats), dtype=u.dtype, device=u.device)
         for kax in range(d):
             term = u
             for ax in range(d):
-                K1, M1 = self._mats[d - 1 - ax]  # grid axes are the coordinate axes reversed
+                K1, M1 = mats[ax]
                 term = _apply_axis(term, K1 if ax == kax else M1, ax)
             out = out + term
         return out
 
-    def _M(self, u: torch.Tensor) -> torch.Tensor:
-        d = u.dim()
-        for ax in range(d):
-            u = _apply_axis(u, self._mats[d - 1 - ax][1], ax)
+    def _M(self, u: torch.Tensor, mats: Sequence) -> torch.Tensor:
+        for ax in range(u.dim()):
+            u = _apply_axis(u, mats[ax][1], ax)
         return u
 
-    def _raw_blocks(self, z1: torch.Tensor, z2: torch.Tensor):
+    def _raw_blocks(self, z1: torch.Tensor, z2: torch.Tensor, mats: Sequence):
         p = self.params
-        K1z = self._K(z1)
-        K2z = self._K(z2)
-        Md = self._M(z1 - z2)
+        K1z = self._K(z1, mats)
+        K2z = self._K(z2, mats)
+        Md = self._M(z1 - z2, mats)
         return (p.k1 / p.mu) * K1z + (p.beta / p.mu) * Md, (p.k2 / p.mu) * K2z - (p.beta / p.mu) * Md
 
+    @cached_property
+    def whole(self):
+        """The whole (padded) lattice as one block (``LoopbackBlocks(())``),
+        kept: :meth:`matvec` and :meth:`lifted_rhs` are :meth:`apply_blocks`
+        on it, with the whole factors as its bands."""
+        from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
+
+        return LoopbackBlocks(())
+
+    def _whole_apply(self, z1: torch.Tensor, z2: torch.Tensor, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        y = self.apply_blocks({(): torch.stack([z1, z2])}, self.whole, mode)[()]
+        return y[0], y[1]
+
     def matvec(self, z1: torch.Tensor, z2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        bdry = self._bdry
-        y1, y2 = self._raw_blocks(torch.where(bdry, 0.0, z1), torch.where(bdry, 0.0, z2))
-        return torch.where(bdry, z1, y1), torch.where(bdry, z2, y2)
+        return self._whole_apply(z1, z2, "matvec")
 
     def lifted_rhs(self, g1: torch.Tensor, g2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """RHS of the BC-eliminated system for zero forcing: interior rows
         get ``-A[interior, boundary] g``, boundary rows ``g``."""
-        bdry = self._bdry
-        a1, a2 = self._raw_blocks(torch.where(bdry, g1, 0.0), torch.where(bdry, g2, 0.0))
-        return torch.where(bdry, g1, -a1), torch.where(bdry, g2, -a2)
+        return self._whole_apply(g1, g2, "lift")
 
     def residual(self, z1, z2, b1, b2):
         y1, y2 = self.matvec(z1, z2)
@@ -272,14 +298,75 @@ class TensorDPPOperator:
         stacked = np.where(self.boundary_mask, 1.0, np.stack([d1, d2]))
         return torch.as_tensor(stacked, dtype=default_dtype(), device=self.device)
 
+    # -- on blocks ------------------------------------------------------------
+
+    def bands(self, blocks) -> Dict[Tuple[int, ...], Tuple[Tuple[torch.Tensor, torch.Tensor], ...]]:
+        """Per block ``blocks`` holds, per grid axis, the (K1, M1) that
+        contract its extended box: along a split axis the band of the padded
+        factor with the rows at the block's owned indices and the columns at
+        those indices less and plus the degree p (zero where they fall off
+        the lattice: the box's zero ghosts), along the others the whole
+        factor. Cut once per set of blocks; raises ``ValueError`` where a
+        block is thinner than p planes
+        (``parallel/halo.py::check_halo_width``)."""
+        from perphil_tpu_torch.parallel.halo import check_halo_width
+        from perphil_tpu_torch.parallel.transpose import block_slices
+
+        def cut():
+            grid, p, split = self.dof_shape, self.degree, len(blocks.mesh_shape)
+            check_halo_width(grid, blocks.mesh_shape, p)
+            host = self._host_mats[::-1]
+            out = {}
+            for c in blocks.coords:
+                mats = []
+                for ax, sl in enumerate(block_slices(grid, blocks.mesh_shape, c)):
+                    if ax >= split:
+                        mats.append(self._grid_mats[ax])
+                        continue
+                    cols = np.arange(sl.start - p, sl.stop + p)
+                    keep = (cols >= 0) & (cols < grid[ax])
+                    pair = []
+                    for A in host[ax]:
+                        B = np.zeros((sl.stop - sl.start, cols.size))
+                        B[:, keep] = A[sl.start:sl.stop, cols[keep]]
+                        pair.append(torch.as_tensor(B, dtype=default_dtype(), device=self.device))
+                    mats.append(tuple(pair))
+                out[c] = tuple(mats)
+            return out
+
+        return blocks.built(("tensor-bands", self), cut)
+
+    def _boundary_blocks(self, blocks) -> Dict[Tuple[int, ...], torch.Tensor]:
+        return blocks.built(("tensor-boundary", self), lambda: blocks.cut(self._bdry))
+
+    def apply_blocks(self, xs, blocks, mode: str = "matvec"):
+        """The BC-eliminated operator (``mode="matvec"``) or the lift
+        (``"lift"``) on the stacked ``(2, *block)`` blocks ``xs``: the
+        boundary rows masked, one exchange of p planes a side along every
+        split axis, both fields' d stiffness terms and the mass term
+        contracted from the box with the block's :meth:`bands`."""
+        from perphil_tpu_torch.parallel.halo import eliminated_apply
+
+        bands = self.bands(blocks)
+        return eliminated_apply(blocks, xs, self._boundary_blocks(blocks), self.degree,
+                                lambda c, box: torch.stack(self._raw_blocks(box[0], box[1], bands[c])), mode)
+
+    def mass_blocks(self, zs, blocks):
+        """``M z`` on the blocks ``zs`` of one field, its boundary rows read
+        as zero (the fieldsplit's coupling), after one exchange of p planes
+        a side; every row written."""
+        bdry, bands = self._boundary_blocks(blocks), self.bands(blocks)
+        masked = {c: torch.where(bdry[c], 0.0, z)[None] for c, z in zs.items()}
+        return {c: self._M(box[0], bands[c]) for c, box in blocks.boxes(masked, self.degree).items()}
+
 
 @dataclass(frozen=True)
 class TensorFastDiagDPP:
     """Exact direct solve of the degree-p coupled DPP system by generalised
-    fast diagonalisation (the MUMPS role at any degree), on ``device``; also
-    the exact solve of one field's block (``block_solve``), the fieldsplit's
-    LU role. With ``padding`` the phantom rows pass through as identity
-    beside the boundary rows."""
+    fast diagonalisation (the MUMPS role at any degree), on ``device``; on
+    blocks also the exact solve of one field's block
+    (``block_solve_blocks``), the fieldsplit's LU role. With ``padding``
+    the phantom rows pass through as identity beside the boundary rows."""
 
     mesh: StructuredMesh
     params: DPPParameters
@@ -294,15 +381,6 @@ class TensorFastDiagDPP:
     @cached_property
     def _eig(self):
         return tuple(interior_eig_1d(self.degree, c, h) for c, h in zip(self.mesh.cells, self.mesh.h))
-
-    @cached_property
-    def _bases(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
-        """(S, S^T) per coordinate axis on the device."""
-        dtype = default_dtype()
-        return tuple(
-            (torch.as_tensor(S, dtype=dtype, device=self.device), torch.as_tensor(S.T, dtype=dtype, device=self.device))
-            for S, _ in self._eig
-        )
 
     @cached_property
     def _mode_data(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -324,41 +402,65 @@ class TensorFastDiagDPP:
             for k in (p.k1, p.k2)
         )
 
-    def _transform(self, f: torch.Tensor, transpose: bool) -> torch.Tensor:
-        d = f.dim()
-        out = f
-        for ax in range(d):
-            S, St = self._bases[d - 1 - ax]
-            out = _apply_axis(out, St if transpose else S, ax)
-        return out
+    @cached_property
+    def whole(self):
+        """The whole (padded) lattice as one block, kept (:meth:`solve`)."""
+        from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
 
-    def _inner(self, shape: Tuple[int, ...]) -> Tuple[slice, ...]:
-        """The physical interior of a (padded) DoF grid."""
-        return tuple(slice(1, n - p - 1) for n, p in zip(shape, self.padding))
+        return LoopbackBlocks(())
 
     def solve(self, b1: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Solve on full DoF grids: boundary rows (and phantom rows) pass
-        through as identity (the eliminated operator's), the interior is
-        solved exactly."""
-        inner = self._inner(b1.shape)
-        a11, a22, det = self._mode_data
-        a12 = -self.params.beta / self.params.mu
-        f1h = self._transform(b1[inner], transpose=True)
-        f2h = self._transform(b2[inner], transpose=True)
-        u1h = (a22 * f1h - a12 * f2h) / det
-        u2h = (a11 * f2h - a12 * f1h) / det
-        z1, z2 = b1.clone(), b2.clone()
-        z1[inner] = self._transform(u1h, transpose=False)
-        z2[inner] = self._transform(u2h, transpose=False)
-        return z1, z2
+        """Solve on full (padded) DoF grids: boundary rows (and phantom
+        rows) pass through as identity (the eliminated operator's), the
+        interior is solved exactly (:meth:`solve_blocks` with the whole
+        lattice as one block)."""
+        z = self.solve_blocks({(): torch.stack([b1, b2])}, self.whole)[()]
+        return z[0], z[1]
 
-    def block_solve(self, r: torch.Tensor, field: int) -> torch.Tensor:
-        """Exact solve of field ``field``'s BC-eliminated block
-        ``(k/mu) K + (beta/mu) M`` on a full DoF grid."""
-        inner = self._inner(r.shape)
-        z = r.clone()
-        z[inner] = self._transform(self._transform(r[inner], True) / self._field_scales[field], False)
-        return z
+    def _fd_blocks(self, blocks):
+        """The transforms on the degree-p lattice padded by ``padding``, on
+        the blocks ``blocks`` holds (``ops/direct.py::FastDiagBlocks``)."""
+        from perphil_tpu_torch.ops.direct import FastDiagBlocks
+
+        d = self.mesh.dim
+        lattice = tuple(self.degree * c + 1 for c in reversed(self.mesh.cells))
+        return blocks.built(("tensor-fastdiag", self), lambda: FastDiagBlocks(
+            [self._eig[d - 1 - a][0] for a in range(d)], lattice, self.padding, blocks, default_dtype(), self.device))
+
+    def solve_blocks(self, bs, blocks):
+        """The coupled solve on stacked ``(2, *block)`` blocks: both fields in
+        every transform and transpose, the per-mode 2x2 solve in the forward
+        transform's layout; boundary and phantom rows pass ``b`` through."""
+        fb = self._fd_blocks(blocks)
+        a11, a22, det = blocks.built(("tensor-dpp", self), lambda: [fb.modes(t) for t in self._mode_data])
+        a12 = -self.params.beta / self.params.mu
+        fh = fb.forward(bs, lead=1)
+        uh = {c: torch.stack([(a22[c] * f[0] - a12 * f[1]) / det[c], (a11[c] * f[1] - a12 * f[0]) / det[c]])
+              for c, f in fh.items()}
+        return fb.passthrough(fb.backward(uh, lead=1), bs)
+
+    def block_solve_blocks(self, rs, blocks, field: int):
+        """The exact solve of field ``field``'s BC-eliminated block
+        ``(k/mu) K + (beta/mu) M`` on its blocks ``rs``."""
+        fb = self._fd_blocks(blocks)
+        scale = blocks.built(("tensor-field", self, field), lambda: fb.modes(self._field_scales[field]))
+        u = fb.backward({c: v / scale[c] for c, v in fb.forward(rs).items()})
+        return fb.passthrough(u, rs)
+
+    def fieldsplit_blocks(self, rs, blocks, op: TensorDPPOperator):
+        """The multiplicative 2x2 block Gauss-Seidel with exact blocks on
+        stacked ``(2, *block)`` blocks: field 0's solve, the coupling
+        ``beta/mu M z1`` by ``op`` (the boundary read as zero, one exchange
+        of p planes a side) added to field 1's interior rows, field 1's
+        solve."""
+        bdry = op._boundary_blocks(blocks)
+        z1 = self.block_solve_blocks({c: r[0] for c, r in rs.items()}, blocks, 0)
+        coup = op.mass_blocks(z1, blocks)
+        beta_mu = self.params.beta / self.params.mu
+        # the second block sees the updated first field
+        z2 = self.block_solve_blocks(
+            {c: r[1] + torch.where(bdry[c], 0.0, beta_mu * coup[c]) for c, r in rs.items()}, blocks, 1)
+        return {c: torch.stack([z1[c], z2[c]]) for c in rs}
 
 
 # -- degree-aware error norms (tensor-product quadrature with the Qp basis) ------

@@ -2,11 +2,12 @@
 
 Counterpart of ``perphil_tpu/parallel/halo.py``. Each rank holds one block
 of the stacked fields ``(2, *grid)``; mesh axis k splits grid axis k. An
-apply receives one neighbour plane on each side of every split axis, one
-axis after the other: the plane a rank sends along axis k is its block's
-first or last plane along k with the rows the earlier axes' received planes
-hold at its sides, so that edge and corner neighbours arrive in d hops
-without messages of their own (PETSc's VecScatter ghost update, the JAX
+apply receives one neighbour plane (``w`` of them for the degree-p
+operators, whose 1D factors couple nodes p apart) on each side of every
+split axis, one axis after the other: the plane a rank sends along axis k
+is its block's first or last plane along k with the rows the earlier axes'
+received planes hold at its sides, so that edge and corner neighbours
+arrive in d hops without messages of their own (PETSc's VecScatter ghost update, the JAX
 package's ``ppermute`` exchange). Only plane-sized pieces are copied, never
 the block. K1's halo form (``ops/fused_apply.py::fused_dpp_apply_halo_planes``)
 then reads the owned block and the received planes where they lie and
@@ -41,38 +42,63 @@ import torch.distributed as dist
 COLLECTIVES: Dict[str, int] = collections.Counter()
 
 
-def send_plane(block: torch.Tensor, planes: Sequence, k: int, side: int) -> torch.Tensor:
+def send_plane(block: torch.Tensor, planes: Sequence, k: int, side: int, w: int = 1) -> torch.Tensor:
     """What a rank sends along grid axis ``k`` to its lower (``side`` 0) or
     upper (1) neighbour, contiguous: the stacked ``block``'s first or last
-    plane along ``k``, with the matching rows of the planes received along
-    the earlier axes (``planes``, ``(below, above)`` each, None: zeros) at
-    its sides."""
-    idx = 0 if side == 0 else block.shape[1 + k] - 1
-    plane = block.narrow(1 + k, idx, 1)
+    ``w`` planes along ``k``, with the matching rows of the planes received
+    along the earlier axes (``planes``, ``(below, above)`` each, None:
+    zeros) at its sides."""
+    idx = 0 if side == 0 else block.shape[1 + k] - w
+    plane = block.narrow(1 + k, idx, w)
     for j in range(k):
         rows = []
         for g in planes[j]:
             if g is None:
                 shape = list(plane.shape)
-                shape[1 + j] = 1
+                shape[1 + j] = w
                 rows.append(plane.new_zeros(shape))
             else:
-                rows.append(g.narrow(1 + k, idx, 1))
+                rows.append(g.narrow(1 + k, idx, w))
         plane = torch.cat([rows[0], plane, rows[1]], dim=1 + j)
     return plane.contiguous()
 
 
-def halo_box(block: torch.Tensor, planes: Sequence) -> torch.Tensor:
-    """The stacked ``block`` extended by its received ``planes`` (zeros
-    where none arrived), built whole: the box the whole-box twin
-    (``fused_dpp_apply_halo_plain``) reads; the kernel reads the planes
-    where they lie."""
+def halo_box(block: torch.Tensor, planes: Sequence, w: int = 1) -> torch.Tensor:
+    """The stacked ``block`` extended by its received ``planes``, ``w`` a
+    side (zeros where none arrived), built whole: the box the whole-box twin
+    (``fused_dpp_apply_halo_plain``) and the degree-p operators read; K1's
+    halo form reads the planes where they lie."""
     for k, pair in enumerate(planes):
         shape = list(block.shape)
-        shape[1 + k] = 1
+        shape[1 + k] = w
         below, above = (block.new_zeros(shape) if g is None else g for g in pair)
         block = torch.cat([below, block, above], dim=1 + k)
     return block
+
+
+def check_halo_width(grid: Sequence[int], mesh_shape: Sequence[int], w: int) -> None:
+    """Raise ``ValueError`` where a block of the lattice ``grid`` (phantom
+    padded to divisibility) blocked on ``mesh_shape`` is thinner than the
+    ``w`` planes a side that a degree-``w`` operator (Qp at p = w, P2 at
+    w = 2) reads along a split axis: its neighbour could not send them. The
+    message names the grid, the mesh and the smallest N (cells along that
+    axis, a lattice of ``w N + 1`` nodes) that divides evenly into blocks of
+    ``w`` planes, or, where no such N exists, the smallest whose padded
+    blocks hold them. (The JAX package's partitioner gathers such a grid
+    instead.)"""
+    for k, s in enumerate(mesh_shape):
+        s = int(s)
+        if int(grid[k]) // s >= w:
+            continue
+        thick = [n for n in range(1, 4 * s * w + 2) if -(-(w * n + 1) // s) >= w]
+        even = [n for n in thick if (w * n + 1) % s == 0]
+        hint = (f"the smallest N that divides evenly into blocks of {w} planes is N={even[0]}" if even else
+                f"no N divides evenly; the smallest whose padded blocks hold {w} planes is N={thick[0]}")
+        raise ValueError(
+            f"grid {tuple(int(n) for n in grid)} on mesh {tuple(int(m) for m in mesh_shape)}: blocks of "
+            f"{int(grid[k]) // s} planes along grid axis {k}, thinner than the {w}-plane halo of a degree-{w} "
+            f"operator; {hint} cells along that axis"
+        )
 
 
 def block_geometry(
@@ -86,6 +112,28 @@ def block_geometry(
     ghosts = tuple((1, 1) if ax < k else (0, 0) for ax in range(d))
     offsets = tuple(int(coords[ax]) * int(local[ax]) if ax < k else 0 for ax in range(d))
     return ghosts, offsets, tuple(int(n) for n in n_phys)
+
+
+def eliminated_apply(blocks, xs, bdry, w: int, raw: Callable, mode: str = "matvec"):
+    """The BC-eliminated operator (``mode="matvec"``: boundary rows
+    identity, the interior rows of the operator on the boundary-masked
+    input) or the lift (``"lift"``: boundary rows the data, interior rows
+    the negated operator on the boundary data) on the stacked blocks ``xs``
+    that ``blocks`` holds (``parallel/transpose.py``): the masked blocks
+    exchanged ``w`` planes deep along every split axis, ``raw(c, box) -> y``
+    the operator's two fields, stacked, on block ``c``'s box; ``bdry`` the
+    boundary rows by block."""
+    if mode == "matvec":
+        masked = {c: torch.where(bdry[c], 0.0, x) for c, x in xs.items()}
+    elif mode == "lift":
+        masked = {c: torch.where(bdry[c], x, 0.0) for c, x in xs.items()}
+    else:
+        raise ValueError(f"mode must be matvec or lift, got {mode!r}")
+    out = {}
+    for c, box in blocks.boxes(masked, w).items():
+        y = raw(c, box)
+        out[c] = torch.where(bdry[c], xs[c], -y if mode == "lift" else y)
+    return out
 
 
 class RankTransport:
@@ -117,13 +165,13 @@ class RankTransport:
         return tuple(received)
 
 
-def exchange_planes(block: torch.Tensor, n_axes: int, exchange: Callable) -> list:
-    """The planes the stacked ``block`` receives along its first ``n_axes``
-    grid axes, one axis after the other, by ``exchange(k, send) -> (below,
-    above)``: ``(below, above)`` an axis."""
+def exchange_planes(block: torch.Tensor, n_axes: int, exchange: Callable, w: int = 1) -> list:
+    """The planes, ``w`` deep, the stacked ``block`` receives along its
+    first ``n_axes`` grid axes, one axis after the other, by ``exchange(k,
+    send) -> (below, above)``: ``(below, above)`` an axis."""
     planes = []
     for k in range(n_axes):
-        planes.append(exchange(k, lambda side, k=k: send_plane(block, planes, k, side)))
+        planes.append(exchange(k, lambda side, k=k: send_plane(block, planes, k, side, w)))
     return planes
 
 
@@ -172,13 +220,13 @@ def join_blocks(blocks: Dict[Tuple[int, ...], torch.Tensor], mesh_shape: Sequenc
     return rows[()]
 
 
-def loopback_planes(blocks: Dict[Tuple[int, ...], torch.Tensor], mesh_shape: Sequence[int]):
-    """Every block's received planes, as :func:`exchange_planes` gives them
-    across ranks, moved between the blocks of one process (None at the
-    grid's edges)."""
+def loopback_planes(blocks: Dict[Tuple[int, ...], torch.Tensor], mesh_shape: Sequence[int], w: int = 1):
+    """Every block's received planes, ``w`` deep, as :func:`exchange_planes`
+    gives them across ranks, moved between the blocks of one process (None
+    at the grid's edges)."""
     planes = {c: [] for c in blocks}
     for k in range(len(mesh_shape)):
-        sends = {c: (send_plane(b, planes[c], k, 0), send_plane(b, planes[c], k, 1)) for c, b in blocks.items()}
+        sends = {c: (send_plane(b, planes[c], k, 0, w), send_plane(b, planes[c], k, 1, w)) for c, b in blocks.items()}
         for c in blocks:
             prev = c[:k] + (c[k] - 1,) + c[k + 1:]
             nxt = c[:k] + (c[k] + 1,) + c[k + 1:]

@@ -14,7 +14,8 @@ partitioner, so the distribution is written out here:
   - node grids are phantom-padded to divisibility (:func:`mesh_padding`;
     identity rows with zero data, inert);
   - the matvec and the lift are K1's halo form on each rank's block after a
-    plane exchange (``parallel/halo.py``);
+    plane exchange (``parallel/halo.py``; the degree-p operators' own on a
+    box of p or 2 ghost planes a side);
   - the Krylov loop (``ops/krylov.py``: ``gmres``, ``cg``) runs on each
     rank's block: axpys local, every dot product and norm the block's tree
     sum and one all-reduce, so the Givens rotations and the stopping test
@@ -35,15 +36,26 @@ partitioner, so the distribution is written out here:
     the single-device ``fused_ngs`` solve, measured faster:
     ``solvers/solver.py::ngs_on_one_rank_whole``), ``block_gs`` and
     ``nrichardson`` on the blocked field solves and preconditioners;
+  - the degree-p parts, which the JAX package's partitioner splits, keep
+    their blocks too: the Qp operator (its 1D factors' bands on a box of p
+    ghost planes a side), the Qp fast-diag direct solve and fieldsplit
+    blocks (through the all-to-all transposes), the P2 stencils (the whole
+    lattice's weight fields cut to the block, on a box of 2 planes a side:
+    the whole lattice's bits), Jacobi;
   - gathered on every rank, the global vector cropped: ILU (monolithic, in
     a fieldsplit block, the ordering-parity route) and the lexicographic
     Gauss-Seidel / partri Picard sweeps on tri/hex/tet meshes, which the
-    JAX package gathers too; and the Qp and P2 operators and their
-    preconditioners, which its partitioner splits, gathered until the next
-    slice.
+    JAX package gathers too;
+  - a world of one rank runs the single-device linear solve
+    (``solvers/solver.py::linear_on_one_rank_whole``: K2-K8 or the mixed
+    route, no collective), as the JAX package does on a one-device mesh;
+    :func:`blocked_solve_dpp` keeps the blocked route callable there.
 
 Only planes (the exchange) and transposes (``all_to_all``) cross ranks in a
-blocked solve; its one ``all_gather`` returns the cropped solution.
+blocked solve; its one ``all_gather`` returns the cropped solution. A block
+thinner than the planes its operator reads (p a side for Qp, 2 for P2)
+raises ``ValueError`` (``halo.check_halo_width``), where the JAX package's
+partitioner would gather.
 
 Ranks are NCCL ranks on the card and gloo ranks on the CPU
 (``parallel/distributed.py``); a mesh whose device does not match the
@@ -225,39 +237,21 @@ def _check_device(W: MixedFunctionSpace, dmesh: DeviceMesh) -> None:
         raise ValueError(f"the space lies on {W.device}, the mesh's ranks on {dmesh.device}")
 
 
-def sharded_solve_dpp(
-    W: MixedFunctionSpace,
-    model_params,
-    bcs,
-    dmesh: DeviceMesh,
-    solver_parameters: Dict = {},
-):
-    """``solve_dpp`` over the ranks of ``dmesh``: the grids are phantom-padded
-    to divisibility, each rank solves on its block with K1's halo form and
-    the distributed Krylov loop, the preconditioner or direct solve on its
-    block (or, for ILU and the degree-p operators, on the gathered vector),
-    and every rank returns the whole cropped solution with the same
-    iteration count and residual."""
+def _linear_inputs(W: MixedFunctionSpace, bcs, dmesh: DeviceMesh, solver_parameters: Dict):
+    """What both routes of a sharded linear solve start from: the checked
+    space and mesh, the options with ``solve_dpp``'s prefix overrides (a
+    ``set_options("dpp", ...)`` changes sharded and single-device runs
+    alike), the boundary data; P2 preonly + lu is refused for every sharded
+    call, divisible or not, as in the JAX package: the host splu stage has
+    no distribution."""
     from perphil_tpu_torch.ops.assembly import bc_values_per_field
     from perphil_tpu_torch.solvers.options import apply_prefix_overrides
-    from perphil_tpu_torch.solvers.solver import (
-        Solution,
-        _freeze,
-        _linear_parts,
-        _run_parts,
-        _validate_mixed,
-    )
+    from perphil_tpu_torch.solvers.solver import _validate_mixed
 
     _validate_mixed(W)
     _check_device(W, dmesh)
-    # the options-prefix overrides of solve_dpp, so that a set_options("dpp",
-    # ...) changes sharded and single-device runs alike
     solver_parameters = apply_prefix_overrides(solver_parameters, "dpp")
-    g1, g2 = bc_values_per_field(W, bcs)
-    dof_shape = W.spaces[0].dof_mesh.node_shape
     if W.spaces[0].degree > 1 and not W.mesh.is_tensor_product:
-        # refused for every sharded call, divisible or not: the host splu
-        # stage has no distribution
         if str(solver_parameters.get("ksp_type", "preonly")) == "preonly":
             raise NotImplementedError(
                 "P2 simplex preonly+lu is a host sparse-direct path "
@@ -265,6 +259,49 @@ def sharded_solve_dpp(
                 "simplex solves support ksp_type=gmres with "
                 "pc_type none/jacobi"
             )
+    return solver_parameters, bc_values_per_field(W, bcs)
+
+
+def sharded_solve_dpp(
+    W: MixedFunctionSpace,
+    model_params,
+    bcs,
+    dmesh: DeviceMesh,
+    solver_parameters: Dict = {},
+):
+    """``solve_dpp`` over the ranks of ``dmesh``: on a world of one rank the
+    single-device solve, with no collective
+    (``solvers/solver.py::linear_on_one_rank_whole``), else
+    :func:`blocked_solve_dpp`. Every rank returns the whole solution with
+    the same iteration count and residual."""
+    from perphil_tpu_torch.solvers.solver import Solution, _degree_solver, _freeze, linear_on_one_rank_whole
+
+    if not linear_on_one_rank_whole(dmesh.size):
+        return blocked_solve_dpp(W, model_params, bcs, dmesh, solver_parameters)
+    solver_parameters, (g1, g2) = _linear_inputs(W, bcs, dmesh, solver_parameters)
+    z1, z2, its, rnorm = _degree_solver(W, model_params, _freeze(solver_parameters))(g1, g2)
+    return Solution(Function(W, (z1, z2)), int(its), float(rnorm))
+
+
+def blocked_solve_dpp(
+    W: MixedFunctionSpace,
+    model_params,
+    bcs,
+    dmesh: DeviceMesh,
+    solver_parameters: Dict = {},
+):
+    """The blocked route of :func:`sharded_solve_dpp`, on any world (a world
+    of one too, where the route's rule does not take it: the check that it
+    runs there): the grids are phantom-padded to divisibility, each rank
+    solves on its block with the operator on blocks (K1's halo form; the Qp
+    and P2 operators on boxes of p and 2 planes a side) and the distributed
+    Krylov loop, the preconditioner or direct solve on its block (ILU on
+    the gathered vector), and every rank returns the whole cropped
+    solution, gathered once."""
+    from perphil_tpu_torch.solvers.solver import Solution, _freeze, _linear_parts, _run_parts
+
+    solver_parameters, (g1, g2) = _linear_inputs(W, bcs, dmesh, solver_parameters)
+    dof_shape = W.spaces[0].dof_mesh.node_shape
     # a divisible lattice shares the unpadded builders' cache entries
     padding = mesh_padding(dof_shape, dmesh)
     if not any(padding):
@@ -272,31 +309,11 @@ def sharded_solve_dpp(
     parts = _linear_parts(W, model_params, _freeze(solver_parameters), padding)
     if parts.kind == "whole":
         # boundary data is replicated: the gathered vector is every rank's
-        z1, z2, its, rnorm = parts.apply(g1, g2)
+        z1, z2, its, rnorm = parts.whole(g1, g2)
         return Solution(Function(W, (z1, z2)), int(its), float(rnorm))
     g = _pad_stacked(torch.stack([g1, g2]), padding or (0,) * len(dof_shape))
-    bdry = dmesh.block(parts.boundary)
-    if parts.stencil:
-        mv = halo.stacked_halo_apply(parts.op, dmesh, "matvec")
-        lift = halo.stacked_halo_apply(parts.op, dmesh, "lift")
-    else:
-        whole_mv = parts.op.stacked_matvec()
-
-        def mv(x: torch.Tensor) -> torch.Tensor:
-            return dmesh.block(whole_mv(dmesh.gather(x, stacked=True)), stacked=True)
-
-        def lift(x: torch.Tensor) -> torch.Tensor:
-            return dmesh.block(torch.stack(parts.op.lifted_rhs(*dmesh.gather(x, stacked=True))), stacked=True)
-
-    z, its, rnorm = _run_parts(
-        parts,
-        dmesh.block(g, stacked=True),
-        bdry,
-        mv,
-        lift,
-        allreduce=dmesh.allreduce if is_initialized() else None,
-        blocks=dmesh.blocks(),
-    )
+    z, its, rnorm = _run_parts(parts, dmesh.block(g, stacked=True), dmesh.blocks(),
+                               dmesh.allreduce if is_initialized() else None)
     z = _crop_stacked(dmesh.gather(z, stacked=True), dof_shape)
     return Solution(Function(W, (z[0].contiguous(), z[1].contiguous())), int(its), float(rnorm))
 

@@ -23,8 +23,11 @@ plane exchange of ``parallel/halo.py``, the all-to-all transposes on the
 mesh's row and column groups, all-reduces over the process group) or on
 :class:`LoopbackBlocks` (every block of a grid in one process, the same
 planes and pieces moved in memory: the check on one card, and the
-one-block form the padded single-device builders run). Both count what
-they issue in ``halo.COLLECTIVES`` (``all_to_all``: one a move).
+one-block form the padded single-device builders run; :class:`JoinedBlocks`
+shows them to a solve as the joined grid). Both count what
+they issue in ``halo.COLLECTIVES`` (``exchange``: one a split axis an
+exchange; ``all_to_all``: one a move), the loopback what each rank of its
+mesh would.
 """
 
 from __future__ import annotations
@@ -215,6 +218,11 @@ class _Blocks:
         grid = tuple(x.shape[lead:])
         return {c: x[(slice(None),) * lead + block_slices(grid, self.mesh_shape, c)].contiguous() for c in self.coords}
 
+    def own(self, x: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        """The share of the global array ``x`` that the tensor functions of
+        :meth:`one` take: the one held block."""
+        return self.cut(x, lead)[self.coords[0]]
+
     def offsets(self, grid: Sequence[int], c: Coords) -> Tuple[int, ...]:
         return tuple(s.start or 0 for s in block_slices(grid, self.mesh_shape, c))
 
@@ -225,6 +233,13 @@ class _Blocks:
         return {c: fused_dpp_apply_halo_planes(x[0], x[1], planes[c], *S, mode=mode, offsets=self.offsets(grid, c),
                                                n_phys=n_phys) for c, x in xs.items()}
 
+    def boxes(self, xs: Blocks, w: int) -> Blocks:
+        """Each held stacked block extended by ``w`` ghost planes a side
+        along every split axis, after the plane exchange: the neighbours'
+        planes, zeros where there is no neighbour (``halo.halo_box``)."""
+        planes = self.planes(xs, w)
+        return {c: halo.halo_box(x, planes[c], w) for c, x in xs.items()}
+
     def total(self, values: Blocks) -> torch.Tensor:
         """The sum of the blocks' values (0-d tensors) over every block."""
         raise NotImplementedError
@@ -232,7 +247,9 @@ class _Blocks:
     def largest(self, values: Blocks) -> torch.Tensor:
         raise NotImplementedError
 
-    def planes(self, xs: Blocks) -> Dict[Coords, list]:
+    def planes(self, xs: Blocks, w: int = 1) -> Dict[Coords, list]:
+        """Each held stacked block's received planes, ``w`` deep
+        (``halo.exchange_planes``)."""
         raise NotImplementedError
 
     def regrid(self, xs: Blocks, move: Move, lead: int = 0) -> Blocks:
@@ -272,8 +289,8 @@ class RankBlocks(_Blocks):
         self.coords = (dmesh.coords,)
         self.transport = halo.RankTransport(dmesh)
 
-    def planes(self, xs: Blocks) -> Dict[Coords, list]:
-        return {c: halo.exchange_planes(x.contiguous(), len(self.mesh_shape), self.transport.exchange)
+    def planes(self, xs: Blocks, w: int = 1) -> Dict[Coords, list]:
+        return {c: halo.exchange_planes(x.contiguous(), len(self.mesh_shape), self.transport.exchange, w)
                 for c, x in xs.items()}
 
     def regrid(self, xs: Blocks, move: Move, lead: int = 0) -> Blocks:
@@ -300,8 +317,9 @@ class LoopbackBlocks(_Blocks):
         self.mesh_shape = tuple(int(s) for s in mesh_shape)
         self.coords = tuple(tuple(int(v) for v in c) for c in np.ndindex(*self.mesh_shape))
 
-    def planes(self, xs: Blocks) -> Dict[Coords, list]:
-        return halo.loopback_planes({c: x.contiguous() for c, x in xs.items()}, self.mesh_shape)
+    def planes(self, xs: Blocks, w: int = 1) -> Dict[Coords, list]:
+        halo.COLLECTIVES["exchange"] += len(self.mesh_shape)  # what a rank of the mesh would issue
+        return halo.loopback_planes({c: x.contiguous() for c, x in xs.items()}, self.mesh_shape, w)
 
     def regrid(self, xs: Blocks, move: Move, lead: int = 0) -> Blocks:
         return loopback_regrid(xs, self.mesh_shape, move, lead)
@@ -325,3 +343,33 @@ class LoopbackBlocks(_Blocks):
         if lead == 1:
             return halo.join_blocks(xs, self.mesh_shape)
         return halo.join_blocks({c: x[None] for c, x in xs.items()}, self.mesh_shape)[0]
+
+
+class JoinedBlocks(LoopbackBlocks):
+    """Every block of a ``ndim``-dimensional grid blocked on ``mesh_shape``,
+    in one process, seen by a solve's tensor functions as the joined global
+    grid: :meth:`one` cuts its argument into the blocks, runs the blocks'
+    function on every block and joins the result, and a Krylov loop runs on
+    the global vector (its dots whole). ``solvers/solver.py::_run_parts``
+    on it computes what a world of ``mesh_shape`` ranks computes, on one
+    device."""
+
+    def __init__(self, mesh_shape: Sequence[int], ndim: int):
+        super().__init__(mesh_shape)
+        self.ndim = int(ndim)
+
+    def one(self, fn: Callable[[Blocks], Blocks]) -> Callable[[torch.Tensor], torch.Tensor]:
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            lead = x.dim() - self.ndim
+            return self.join(fn(self.cut(x, lead)), lead)
+
+        return apply
+
+    def own(self, x: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        return x
+
+    def gathered(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> Callable[[torch.Tensor], torch.Tensor]:
+        return fn
+
+    def allreduce(self, t: torch.Tensor) -> torch.Tensor:
+        return t

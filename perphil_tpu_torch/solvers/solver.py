@@ -98,7 +98,8 @@ Degree p (``W``'s spaces of degree > 1; the JAX package's
 
   - Qp on quad/hex, preonly + lu         -> ``TensorFastDiagDPP`` (exact
                                             fast diagonalisation: dense
-                                            products on the device)
+                                            products on the device, the
+                                            grid as one block)
   - Qp, gmres with pc none, jacobi or    -> ``krylov.gmres`` with the
     the multiplicative fieldsplit with     ``TensorDPPOperator`` matvec
     exact fast-diag blocks                 (ILU is refused, as there)
@@ -118,16 +119,20 @@ takes degree p with ``snes_type: ksponly`` only.
 Padding and blocks (the sharded path's phantom nodes and rank blocks,
 ``parallel/sharding.py``): the builders take a trailing ``padding``; a
 padded solve, and every degree-p GMRES or fast-diag solve, is
-:func:`_linear_parts` (what a rank needs: the operator, and the direct
-solve or preconditioner either on blocks, ``LinearParts.blocked``, or on
-the gathered vector, ``LinearParts.apply``) run on one device by
-:func:`_run_parts` with the whole grid as one block, the same function the
-sharded entry runs on each rank's block. On blocks a quad/hex direct solve
-is the mixed-precision fast-diag at every size and a tri/tet one ``cg``
-with the lumped preconditioner, by design: the JAX package takes that
-route only under padding; on a divisible lattice its unpadded builder
-takes K2/K3, which its partitioner gathers. The sharded Picard solves are
-:func:`_nonlinear_parts`.
+:func:`_linear_parts` (what a rank needs: the operator and the lift on
+blocks, ``LinearParts.operator``, and the direct solve or preconditioner
+on blocks, ``LinearParts.blocked``, or, for ILU, on the gathered vector)
+run on one device by :func:`_run_parts` with the whole grid as one block,
+the same function the sharded entry runs on each rank's block. On blocks
+a quad/hex direct solve is the mixed-precision fast-diag at every size
+and a tri/tet one ``cg`` with the lumped preconditioner, by design: the
+JAX package takes that route only under padding; on a divisible lattice
+its unpadded builder takes K2/K3, which its partitioner gathers. The
+degree-p parts run on blocks too (the Qp operator on its factors' bands,
+the Qp fast-diag through the transposes, the P2 stencils on the whole
+lattice's weight fields; :func:`_degree_pc`). A world of one rank runs
+the single-device solve (:func:`linear_on_one_rank_whole`). The sharded
+Picard solves are :func:`_nonlinear_parts`.
 
 Solvers are cached on ``(W, params, frozen options)``; ``W`` carries the
 device. No builder reads the environment.
@@ -757,31 +762,39 @@ def _build_linear_solver(
     return _newton_step_solver(op, _krylov_route(op, flat))
 
 
-def _tensor_pc(op: TensorDPPOperator, params: DPPParameters, pc_type: str) -> Optional[Callable]:
-    """The degree-p GMRES preconditioner on stacked (padded) DoF grids: none,
-    jacobi, or the multiplicative 2x2 block Gauss-Seidel with exact
-    fast-diag blocks; ILU is refused."""
-    degree = op.degree
+def _degree_pc(op, params: DPPParameters, flat: Dict[str, object]) -> Optional[Callable]:
+    """The degree-p direct solve (``preonly`` + lu) or GMRES preconditioner
+    on blocks, ``(rs, blocks) -> zs`` on the stacked blocks of the (padded)
+    DoF lattice that ``blocks`` holds; None: the identity. Qp: the exact
+    fast-diag solve, none, jacobi (the diagonal cut to each block), or the
+    multiplicative 2x2 block Gauss-Seidel with exact fast-diag blocks
+    (``TensorFastDiagDPP.fieldsplit_blocks``); ILU is refused. P2: none or
+    jacobi."""
+    tensor = isinstance(op, TensorDPPOperator)
+    ksp = str(flat.get("ksp_type", "preonly"))
+    pc_type = str(flat.get("pc_type", "lu"))
+    if tensor and (ksp == "preonly" or pc_type == "fieldsplit"):
+        if ksp == "preonly" and pc_type != "lu":
+            raise ValueError(f"degree-{op.degree} preonly supports pc_type=lu only")
+        direct = TensorFastDiagDPP(op.mesh, params, op.degree, op.padding, device=op.device)
+        if ksp == "preonly":
+            return direct.solve_blocks
+        return lambda rs, blocks: direct.fieldsplit_blocks(rs, blocks, op)
     if pc_type in ("none", ""):
         return None
     if pc_type == "jacobi":
-        dstack = op.diagonal_stacked()
-        return lambda r: r / dstack
-    if pc_type == "fieldsplit":
-        blocks = TensorFastDiagDPP(op.mesh, params, degree, op.padding, device=op.device)
-        bdry = op._bdry
-        beta_mu = params.beta / params.mu
+        diagonal = op.diagonal_stacked()
 
-        def pc(r: torch.Tensor) -> torch.Tensor:
-            z1 = blocks.block_solve(r[0], 0)
-            # the second block sees the updated first field
-            coup = beta_mu * op._M(torch.where(bdry, 0.0, z1))
-            return torch.stack([z1, blocks.block_solve(r[1] + torch.where(bdry, 0.0, coup), 1)])
+        def jacobi(rs, blocks):
+            d = blocks.built(("jacobi", jacobi), lambda: blocks.cut(diagonal, lead=1))
+            return {c: r / d[c] for c, r in rs.items()}
 
-        return pc
+        return jacobi
+    if not tensor:
+        raise ValueError(f"Unsupported pc_type {pc_type!r} for P2 simplex (none/jacobi/preonly+lu)")
     if pc_type == "ilu":
         raise ValueError(
-            f"pc_type=ilu has no degree-{degree} structured factorization; "
+            f"pc_type=ilu has no degree-{op.degree} structured factorization; "
             "use fieldsplit/jacobi or the preonly fast-diag direct solve"
         )
     raise ValueError(f"Unsupported pc_type {pc_type!r} for degree>1")
@@ -802,16 +815,6 @@ def _build_tensor_linear_solver(
     if padding and not any(padding):
         return _build_tensor_linear_solver(W, params, frozen_sp)
     return _parts_solver(_linear_parts(W, params, frozen_sp, tuple(padding)))
-
-
-def _p2_pc(op: P2SimplexDPPOperator, pc_type: str) -> Optional[Callable]:
-    """The P2 GMRES preconditioner: none or jacobi."""
-    if pc_type in ("none", ""):
-        return None
-    if pc_type == "jacobi":
-        dstack = op.diagonal_stacked()
-        return lambda r: r / dstack
-    raise ValueError(f"Unsupported pc_type {pc_type!r} for P2 simplex (none/jacobi/preonly+lu)")
 
 
 @lru_cache(maxsize=16)
@@ -852,41 +855,43 @@ def _build_simplex_p2_linear_solver(
 
 class LinearParts(NamedTuple):
     """A linear solve taken apart for blocks of the grid (the sharded entry,
-    ``parallel/sharding.py``, and the padded builders):
+    ``parallel/sharding.py``, and the padded and degree-p single-device
+    builders, on the whole grid as one block):
 
-    - ``kind``: ``preonly``, ``gmres``, ``cg``, or ``whole`` (``apply`` is
+    - ``kind``: ``preonly``, ``gmres``, ``cg``, or ``whole`` (``whole`` is
       the cached single-device solve ``(g1, g2) -> (z1, z2, its, rnorm)``,
-      run on the gathered boundary data);
+      run on the replicated boundary data: the ordering-parity ILU);
     - ``op``: the operator on the padded grid; ``boundary`` its boundary
       rows (the BC lift's ``x0``);
-    - ``stencil``: Q1: the matvec and the lift are K1's, and the Krylov
-      solve is on the Newton-step system from the BC lift; else (Qp, P2) the
-      gathered operator's, on ``A x = b`` from ``x0``: each as its
+    - ``newton``: Q1: the Krylov solve is on the Newton-step system from the
+      BC lift; else (Qp, P2) on ``A x = b`` from ``x0``: each as its
       single-device route;
+    - ``operator``: ``operator(blocks, mode)`` is the matvec (``"matvec"``)
+      or the lift (``"lift"``) on the one stacked block ``blocks`` holds
+      (``parallel/transpose.py``) after the plane exchange: K1's halo form
+      (Q1), the Qp operator's bands on a box of p planes a side, the P2
+      stencils on a box of 2;
     - ``blocked``: the direct solve (preonly) or the preconditioner on a
       block: ``blocked(blocks)`` is the tensor function on the one block
-      ``blocks`` holds (``parallel/transpose.py``), its collectives the
-      plane exchange, the all-to-all transposes and all-reduces: the Q1
-      direct solves (the blocked mixed-precision fast-diag on quad/hex,
-      ``cg`` with the blocked lumped preconditioner on tri/tet), Jacobi, and
-      the fieldsplit whose blocks are exact, Jacobi, none or Krylov solves
-      with such preconditioners; ILU (monolithic or in a fieldsplit block),
+      ``blocks`` holds, its collectives the plane exchange, the all-to-all
+      transposes and all-reduces: the direct solves (Q1: the blocked
+      mixed-precision fast-diag on quad/hex, ``cg`` with the blocked lumped
+      preconditioner on tri/tet; Qp: the exact fast-diag), Jacobi, and the
+      fieldsplit whose blocks are exact, Jacobi, none or Krylov solves with
+      such preconditioners; ILU (monolithic or in a fieldsplit block),
       which the JAX package gathers too, is the single-device one on the
-      gathered, cropped vector (``blocks.gathered``);
-    - ``apply``: the Qp and P2 operators' direct solve or preconditioner on
-      the gathered, padded stacked vector, run on every rank through
-      ``blocks.gathered`` (gathered until their slice; the ordering-parity
-      ILU route is ``whole``); both None: the identity;
+      gathered, cropped vector (``blocks.gathered``); None: the identity;
     - ``kw``: the Krylov settings.
     """
 
     kind: str
     op: object
     boundary: Optional[torch.Tensor]
-    stencil: bool
-    apply: Optional[Callable]
+    newton: bool
+    operator: Optional[Callable]
     kw: Dict[str, float]
     blocked: Optional[Callable] = None
+    whole: Optional[Callable] = None
 
 
 def _cropped(fn: Optional[Callable], shape: Tuple[int, ...], padding: Tuple[int, ...]) -> Optional[Callable]:
@@ -973,7 +978,7 @@ def _blocked_field_solver(op: DPPOperator, i: int, sub: Dict[str, object]) -> Ca
             return full(torch.stack([z, zero] if i == 0 else [zero, z]))[i]
 
         if pc_type == "jacobi":
-            bdry = blocks.cut(fop._mask_arrays[0])[blocks.coords[0]]
+            bdry = blocks.own(fop._mask_arrays[0])
             dinv = torch.full(bdry.shape, 1.0 / float(fop.stencil[(1,) * mesh.dim]), dtype=torch.float64,
                               device=bdry.device).masked_fill_(bdry, 1.0)
             pc = lambda r: dinv * r  # noqa: E731
@@ -1032,7 +1037,7 @@ def _blocked_pc(op: DPPOperator, flat: Dict[str, object]) -> Callable:
         diag = (1.0 / op.diagonal()).reshape((2,) + op.grid_shape)
 
         def jacobi(blocks):
-            dinv = blocks.cut(diag, lead=1)[blocks.coords[0]]
+            dinv = blocks.own(diag, lead=1)
             return lambda r: dinv * r
 
         return jacobi
@@ -1073,11 +1078,12 @@ def _linear_parts(
     W: MixedFunctionSpace, params: DPPParameters, frozen_sp: Tuple, padding: Tuple[int, ...] = ()
 ) -> LinearParts:
     """The parts of the linear solve of ``(W, params, options)`` on the grid
-    padded by ``padding``: the Q1 direct solves and the preconditioners
-    that :func:`_blockable` takes run on blocks (``LinearParts.blocked``);
-    ILU is the unpadded single-device one (``_monolithic_pc``) on the
-    cropped, gathered vector; the degree-p parts are built padded, as in
-    the JAX package, and gathered."""
+    padded by ``padding``: the operator, and the direct solves and the
+    preconditioners that :func:`_blockable` takes, on blocks; ILU is the
+    unpadded single-device one (``_monolithic_pc``) on the cropped,
+    gathered vector. The degree-p parts are built padded, as in the JAX
+    package, and run on blocks too: the Qp operator and its fast-diag
+    solves, the P2 stencils, Jacobi."""
     flat = _checked_options(frozen_sp)
     padding = tuple(padding)
     degree = W.spaces[0].degree
@@ -1093,70 +1099,70 @@ def _linear_parts(
                 raise ValueError(
                     "pc_factor_mat_ordering_type=rcm is a dedicated parity path; not available under sharding padding"
                 )
-            return LinearParts("whole", None, None, False, _build_linear_solver(W, params, frozen_sp), kw)
+            return LinearParts("whole", None, None, False, None, kw, whole=_build_linear_solver(W, params, frozen_sp))
         op = DPPOperator(W, params, padding)
         ksp = str(flat.get("ksp_type", "gmres"))
         if ksp not in ("preonly", "gmres", "cg"):
             raise ValueError(f"Unsupported ksp_type: {ksp!r}")
         bdry = op._mask_arrays[0]
+        operator = lambda blocks, mode: _halo_apply(op, blocks, mode)  # noqa: E731
         if ksp == "preonly" and str(flat.get("pc_type", "lu")) in ("lu", "cholesky"):
             if str(flat.get("pc_factor_mat_solver_type", "")) == "fastdiag_mixed" and not W.mesh.is_tensor_product:
                 raise ValueError("fastdiag_mixed needs quad/hex cells")
-            return LinearParts(ksp, op, bdry, True, None, kw, _blocked_direct(op))
-        return LinearParts(ksp, op, bdry, True, None, kw, _preconditioner(op, flat))
+            return LinearParts(ksp, op, bdry, True, operator, kw, _blocked_direct(op))
+        return LinearParts(ksp, op, bdry, True, operator, kw, _preconditioner(op, flat))
     mesh, dev = W.mesh, W.device
     ksp = str(flat.get("ksp_type", "preonly"))
-    pc_type = str(flat.get("pc_type", "lu"))
     if mesh.is_tensor_product:
         op = TensorDPPOperator(mesh, params, degree, padding, device=dev)
-        if ksp == "preonly":
-            if pc_type != "lu":
-                raise ValueError(f"degree-{degree} preonly supports pc_type=lu only")
-            direct = TensorFastDiagDPP(mesh, params, degree, padding, device=dev)
-            return LinearParts("preonly", op, op._bdry, False, lambda b: torch.stack(direct.solve(b[0], b[1])), kw)
-        if ksp != "gmres":
+        if ksp not in ("preonly", "gmres"):
             raise ValueError(f"degree-{degree} spaces support preonly/gmres, got {ksp!r}")
-        return LinearParts("gmres", op, op._bdry, False, _tensor_pc(op, params, pc_type), kw)
-    op = P2SimplexDPPOperator(mesh, params, padding, device=dev)
-    if ksp == "preonly":
-        raise NotImplementedError(
-            "P2 simplex preonly+lu is a host sparse-direct path (scipy splu) with no distribution; "
-            "sharded P2 simplex solves support ksp_type=gmres with pc_type none/jacobi"
-        )
-    if ksp != "gmres":
-        raise ValueError(f"P2 simplex spaces support preonly/gmres, got {ksp!r}")
-    return LinearParts("gmres", op, op._bdry, False, _p2_pc(op, pc_type), kw)
+    else:
+        op = P2SimplexDPPOperator(mesh, params, padding, device=dev)
+        if ksp == "preonly":
+            raise NotImplementedError(
+                "P2 simplex preonly+lu is a host sparse-direct path (scipy splu) with no distribution; "
+                "sharded P2 simplex solves support ksp_type=gmres with pc_type none/jacobi"
+            )
+        if ksp != "gmres":
+            raise ValueError(f"P2 simplex spaces support preonly/gmres, got {ksp!r}")
+    pc = _degree_pc(op, params, flat)
+    operator = lambda blocks, mode: blocks.one(lambda xs: op.apply_blocks(xs, blocks, mode))  # noqa: E731
+    blocked = None if pc is None else (lambda blocks: blocks.one(lambda rs: pc(rs, blocks)))
+    return LinearParts(ksp, op, op._bdry, False, operator, kw, blocked)
+
+
+def parts_on(parts: LinearParts, blocks) -> Tuple[Callable, Callable, torch.Tensor, Optional[Callable]]:
+    """``parts`` as tensor functions on the block ``blocks`` holds (the
+    joined grid on ``parallel/transpose.py::JoinedBlocks``), built once per
+    set of blocks: the matvec, the lift, the block's boundary rows, and the
+    direct solve or preconditioner (None: none)."""
+    mv, lift, bdry = blocks.built(("operator", parts.operator), lambda: (
+        parts.operator(blocks, "matvec"), parts.operator(blocks, "lift"), blocks.own(parts.boundary)))
+    fn = None if parts.blocked is None else blocks.built(("parts", parts.blocked), lambda: parts.blocked(blocks))
+    return mv, lift, bdry, fn
 
 
 def _run_parts(
     parts: LinearParts,
     g: torch.Tensor,
-    bdry: torch.Tensor,
-    mv: Callable,
-    lift: Callable,
-    allreduce: Optional[Callable],
     blocks,
+    allreduce: Optional[Callable],
 ) -> Tuple[torch.Tensor, int, float]:
-    """Solve ``parts`` on a block: ``g`` the block's stacked boundary data,
-    ``bdry`` its boundary rows, ``mv`` / ``lift`` the operator and the lift
-    on blocks, ``allreduce`` the sum over the blocks' ranks (None: one
-    block, the whole grid), ``blocks`` the one block the process holds
-    (``parallel/transpose.py``: the blocked parts run on it, the gathered
-    ones through its ``gathered``). Returns the block of the solution, the
+    """Solve ``parts`` on a block: ``g`` the stacked boundary data of the
+    one block ``blocks`` holds (``parallel/transpose.py``: the operator,
+    the lift and the blocked parts run on it, the gathered ones through its
+    ``gathered``), ``allreduce`` the sum over the blocks' ranks (None: one
+    block, the whole grid). Returns the block of the solution, the
     iterations and the residual norm, the last two equal on every rank."""
+    mv, lift, bdry, fn = parts_on(parts, blocks)
     b = lift(g)
-    if parts.blocked is not None:
-        fn = blocks.built(("parts", parts.blocked), lambda: parts.blocked(blocks))
-    elif parts.apply is not None:
-        fn = blocks.gathered(parts.apply)
-    else:
-        fn = None
     if parts.kind == "preonly":
         # preonly reports 1 iteration and residual 0.0 (PETSc semantics)
         return (b if fn is None else fn(b)), 1, 0.0
     x0 = torch.where(bdry, g, 0.0)
     kw = parts.kw
-    if not parts.stencil:
+    if not parts.newton:
         res = gmres(mv, b, x0=x0, M_inv=fn, allreduce=allreduce, **kw)
         return res.x, res.iterations, res.residual_norm
     r = b - mv(x0)
@@ -1169,21 +1175,16 @@ def _run_parts(
 
 
 def _parts_solver(parts: LinearParts) -> Callable:
-    """:func:`_run_parts` on one device over the whole (padded) grid:
-    ``(g1, g2) -> (z1, z2, its, rnorm)`` (the operator's own matvec and
-    lift; K1's halo form for padded Q1; the blocked parts on the whole grid
-    as one block). The degree-p GMRES and direct solves are this with no
-    padding."""
+    """:func:`_run_parts` on one device over the whole (padded) grid as one
+    block (``LoopbackBlocks(())``: no plane moves, the blocked parts'
+    whole-grid arithmetic): ``(g1, g2) -> (z1, z2, its, rnorm)``; the
+    padded Q1 solves and every degree-p solve but P2's host direct stage."""
     from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
 
-    mv = parts.op.stacked_matvec()
     whole = LoopbackBlocks(())
 
-    def lift(g: torch.Tensor) -> torch.Tensor:
-        return torch.stack(parts.op.lifted_rhs(g[0], g[1]))
-
     def solve(g1: torch.Tensor, g2: torch.Tensor):
-        z, its, rnorm = _run_parts(parts, torch.stack([g1, g2]), parts.boundary, mv, lift, None, whole)
+        z, its, rnorm = _run_parts(parts, torch.stack([g1, g2]), whole, None)
         return z[0], z[1], its, rnorm
 
     return solve
@@ -1443,6 +1444,25 @@ def ngs_on_one_rank_whole(W: MixedFunctionSpace, frozen_sp: Tuple, world: int) -
     flat = _checked_options(frozen_sp)
     return (world == 1 and str(flat.get("snes_type", "ngs")) == "ngs" and W.mesh.element == "quad"
             and fused_ngs_plan(W.mesh.node_shape, 1) is not None)
+
+
+def linear_on_one_rank_whole(world: int) -> bool:
+    """The route of the sharded linear solve (``parallel/sharding.py::
+    sharded_solve_dpp``, and so the sharded ``ksponly``): True where it runs
+    the single-device solve (:func:`_degree_solver`: K2-K8, the mixed
+    route, the degree-p solves on the grid as one block; no collective),
+    False where it runs the blocked route (:func:`_linear_parts` on the
+    rank's block). The rule: a world of one rank runs the single-device
+    solve, as the JAX package does on a one-device mesh (its padding is
+    empty there and it calls ``solve_dpp``'s builder). Measured on one NCCL
+    rank of an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 14
+    (e), the two routes in turns, host wall of a warm solve, two runs): 2D
+    N=64 SS-GMRES 0.003-0.004 s (K6) against 0.039-0.052 s, plain GMRES
+    0.056-0.059 s (K4) against 6.14-7.01 s (the distributed host loop);
+    128^3 hex ``TPU_DIRECT_PARAMS`` 0.041-0.079 s against the blocked
+    route's 0.049-0.095 s (the same mixed fast-diag, the blocked one with
+    its moves on groups of one: apart by less than the runs' spread)."""
+    return world == 1
 
 
 def solve_dpp_nonlinear(

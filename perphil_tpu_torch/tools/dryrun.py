@@ -35,8 +35,9 @@ import pickle
 import subprocess
 import sys
 import tempfile
+from functools import lru_cache
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -196,30 +197,69 @@ def dryrun_cases(axes: Sequence[int], device, N: Optional[int] = None) -> List[t
     ]
 
 
-def solve_case(case, sharded: bool):
-    """One dry-run case, single-device or sharded: its ``Solution``."""
+def solve_case(case, sharded: bool, blocked: bool = False):
+    """One dry-run case, single-device or sharded: its ``Solution``;
+    ``blocked``: a linear case on the sharded entry's blocked route
+    (``blocked_solve_dpp``) whatever the world's size."""
     from perphil_tpu_torch.models.dpp import DPPParameters
-    from perphil_tpu_torch.parallel.sharding import sharded_solve_dpp, sharded_solve_dpp_nonlinear
+    from perphil_tpu_torch.parallel.sharding import blocked_solve_dpp, sharded_solve_dpp, sharded_solve_dpp_nonlinear
     from perphil_tpu_torch.solvers import solve_dpp, solve_dpp_nonlinear
 
     _, W, bcs, sp, nonlinear, dm = case
     if sharded:
-        fn = sharded_solve_dpp_nonlinear if nonlinear else sharded_solve_dpp
+        fn = sharded_solve_dpp_nonlinear if nonlinear else (blocked_solve_dpp if blocked else sharded_solve_dpp)
         return fn(W, DPPParameters(), bcs, dm, solver_parameters=sp)
     return (solve_dpp_nonlinear if nonlinear else solve_dpp)(W, DPPParameters(), bcs, solver_parameters=sp)
+
+
+@lru_cache(maxsize=None)
+def joined_blocks(mesh_shape: Tuple[int, ...], ndim: int):
+    """One ``parallel/transpose.py::JoinedBlocks`` a mesh and a lattice's
+    dimension, kept: the parts' block data (bands, stencils, transforms)
+    are built once for it, so every solve after the first is warm."""
+    from perphil_tpu_torch.parallel.transpose import JoinedBlocks
+
+    return JoinedBlocks(mesh_shape, ndim)
+
+
+def loopback_solve(W, params, bcs, mesh_shape: Sequence[int], options: dict):
+    """The blocked route of a linear solve on the blocks of one lattice in
+    one process: ``solvers/solver.py::_run_parts`` of the parts of
+    ``_linear_parts`` (the lattice phantom-padded to divisibility) on
+    :func:`joined_blocks` of ``mesh_shape``, whose parts run on every block
+    (the operator and the lift on boxes of ghost planes, the direct solve or
+    preconditioner with its transposes) while the Krylov loop runs on the
+    joined vector. What a world of ``mesh_shape`` ranks computes, on one
+    device. Returns ``(z, its, rnorm, parts)``: the cropped stacked
+    solution, the count, the residual norm, and the parts (``matvec``,
+    ``lift``, ``pc``) as functions of a padded stacked vector."""
+    import torch
+
+    from perphil_tpu_torch.ops.assembly import bc_values_per_field
+    from perphil_tpu_torch.parallel.sharding import _crop_stacked, _pad_stacked
+    from perphil_tpu_torch.solvers.solver import _freeze, _linear_parts, _run_parts, parts_on
+
+    dof = W.spaces[0].dof_mesh.node_shape
+    pad = tuple([(-n) % int(s) for n, s in zip(dof, mesh_shape)] + [0] * (len(dof) - len(mesh_shape)))
+    parts = _linear_parts(W, params, _freeze(options), pad if any(pad) else ())
+    blocks = joined_blocks(tuple(int(s) for s in mesh_shape), len(dof))
+    g = _pad_stacked(torch.stack(bc_values_per_field(W, bcs)), pad)
+    z, its, rnorm = _run_parts(parts, g, blocks, None)
+    mv, lift, _, pc = parts_on(parts, blocks)
+    return _crop_stacked(z, dof), its, rnorm, {"matvec": mv, "lift": lift, "pc": pc or (lambda v: v)}
 
 
 #: the collectives a sharded solve issues (``parallel/halo.py::COLLECTIVES``)
 COLLECTIVE_KINDS = ("exchange", "all_to_all", "all_reduce", "all_gather")
 
 
-def sharded_record(case, single, fields: bool = False) -> dict:
-    """:func:`path_record` of the case's sharded solve, with the
-    collectives it issued."""
+def sharded_record(case, single, fields: bool = False, blocked: bool = False) -> dict:
+    """:func:`path_record` of the case's sharded solve (``blocked``: on the
+    blocked route), with the collectives it issued."""
     from perphil_tpu_torch.parallel.halo import COLLECTIVES
 
     COLLECTIVES.clear()
-    sol = solve_case(case, True)
+    sol = solve_case(case, True, blocked)
     return path_record(case, single, sol, fields, collectives=dict(COLLECTIVES))
 
 

@@ -4,10 +4,11 @@ the JAX package's dry-run record and the JAX package's sharded solves on its
 virtual devices (``tests/conftest.py``): the six paths of the multichip dry
 run on (2, 2) meshes, the 2D cases of ``tests/test_sharding.py`` on a
 ("y", "x") mesh, the refusals, the gloo halo matvec on (4,) slabs and
-(2, 2) pencils, and the blocked paths (direct, Jacobi, fieldsplit, Picard)
-on (2, 2) pencils and (4,) slabs, each with the collectives it issued: one
-all-gather a solve where every part keeps its blocks, more where ILU or a
-degree-p part is gathered. The world runs once for the module (its ranks
+(2, 2) pencils, the blocked paths (direct, Jacobi, fieldsplit, Picard)
+on (2, 2) pencils and (4,) slabs, and a hex Q2 fieldsplit on (2, 2) ("z",
+"y") pencils, each with the collectives it issued: one all-gather a solve
+where every part keeps its blocks (the degree-p parts too), more where ILU
+is gathered. The world runs once for the module (its ranks
 are processes of ``perphil_tpu_torch/tools/dryrun.py``), beside the JAX side
 in this process."""
 
@@ -67,6 +68,9 @@ CASES_2D = {
     "p2-none": ("triangle", 8, 2, {"ksp_type": "gmres", "pc_type": "none", "ksp_rtol": 1e-8}, 1e-12),
     "gmres-ilu-2d": ("quad", 15, 1, sp.GMRES_ILU_PARAMS, 1e-6),
 }
+# the 3D degree-p case, on (2, 2) ("z", "y") pencils of the phantom-padded
+# 15^3 lattice: id -> (element, n, degree, options, tolerance on the fields)
+CASES_3D = {"degree2-fieldsplit-hex": ("hex", 7, 2, FS_Q2, 1e-10)}
 # what the sharded entries refuse: id -> (element, n, degree, options,
 # nonlinear, error, the substance of the JAX package's message)
 REFUSALS = {
@@ -97,9 +101,8 @@ BLOCKED = {
 }
 BLOCKED_MESHES = {"pencils": [2, 2], "slabs": [4]}
 BLOCKED_TOL, PICARD_TOL = 1e-12, 1e-10
-# the six paths and the 2D cases whose parts stay gathered: ILU, degree p
-GATHERED = {"gmres-ilu-3d", "degree2-fieldsplit-2d", "gmres-ilu-2d", "degree2-direct", "degree2-fieldsplit",
-            "p2-jacobi", "p2-none"}
+# the six paths and the 2D cases whose parts stay gathered: ILU
+GATHERED = {"gmres-ilu-3d", "gmres-ilu-2d"}
 # the gloo halo matvec: id -> (element, cells, axes, names)
 HALO = {
     "quad-slabs": ("quad", (15, 15), [4], ("y",)),
@@ -167,10 +170,12 @@ def runs():
                                     for i, (e, c, a, nm) in enumerate(HALO.values())]}],
         *[["sharded_cases", {"cases": [_case(e, n, 1, o, nl, axes, _names(e, axes))
                                        for e, n, o, nl in BLOCKED.values()]}] for axes in BLOCKED_MESHES.values()],
+        ["sharded_cases", {"cases": [_case(*c[:4], names=("z", "y")) for c in CASES_3D.values()]}],
     ]
     jobs = {("six", k): (e, n, d, o, nl, ("y", "x") if e == "quad" else ("z", "y"))
             for k, (e, n, d, o, nl) in SIX_JAX.items()}
     jobs.update({("2d", k): (e, n, d, o, False, ("y", "x")) for k, (e, n, d, o, _) in CASES_2D.items()})
+    jobs.update({("3d", k): (e, n, d, o, False, ("z", "y")) for k, (e, n, d, o, _) in CASES_3D.items()})
     jobs.update({(mesh, k): (e, n, 1, o, nl, _names(e, axes), axes) for mesh, axes in BLOCKED_MESHES.items()
                  for k, (e, n, o, nl) in BLOCKED.items()})
     jobs[("halo", JAX_HALO)] = (JAX_HALO,)
@@ -180,7 +185,7 @@ def runs():
         done = dict(zip(jobs, jax_pool.map(
             lambda job: _jax_halo(*job) if len(job) == 1 else _jax_sharded(*job), jobs.values())))
         jax_six = {k: v for (kind, k), v in done.items() if kind == "six"}
-        jax_2d = {k: v for (kind, k), v in done.items() if kind == "2d"}
+        jax_2d = {k: v for (kind, k), v in done.items() if kind in ("2d", "3d")}
         jax_halo = {JAX_HALO: done[("halo", JAX_HALO)]}
         jax_blocked = {(kind, k): v for (kind, k), v in done.items() if kind in BLOCKED_MESHES}
         results = world.result()
@@ -313,3 +318,28 @@ def test_blocked_paths(runs, mesh, key):
     assert got["collectives"]["all_gather"] == 1, got["collectives"]
     if not nonlinear or options.get("snes_type") != "ngs":
         assert got["collectives"].get("all_to_all", 0) > 0 or options.get("pc_type") == "jacobi"
+
+
+@pytest.mark.parametrize("key", list(CASES_3D))
+def test_degree_p_hex_pencils(runs, key):
+    """The hex Q2 fieldsplit on (2, 2) pencils, its operator, fast-diag
+    blocks and coupling on each rank's block: the count of the port's
+    single-device solve and of the JAX package's sharded solve, the fields
+    within 1e-10 relative of both, the same on every rank, and exactly one
+    all-gather a solve."""
+    results, _, jax_2d, *_ = runs
+    element, n, degree, options, tol = CASES_3D[key]
+    task = 3 + len(BLOCKED_MESHES)
+    got = results[0][task][list(CASES_3D).index(key)]
+    assert got["collectives"]["all_gather"] == 1, got["collectives"]
+    assert got["collectives"]["all_to_all"] > 0 and got["collectives"]["exchange"] > 0, got["collectives"]
+    W = _space(element, n, degree, "cpu")
+    single = solve_dpp(W, DPPParameters(), _manufactured_bcs(W), solver_parameters=options)
+    jits, jfields = jax_2d[key]
+    assert got["its"] == single.iteration_number == jits
+    for a, b, c in zip(got["fields"], single.solution.data, jfields):
+        assert a.shape == tuple(b.shape) == c.shape
+        assert _rel(a, b.numpy()) <= tol and _rel(a, c) <= tol
+    for rank in results[1:]:
+        other = rank[task][list(CASES_3D).index(key)]
+        assert other["its"] == got["its"] and all(np.array_equal(x, y) for x, y in zip(other["fields"], got["fields"]))
