@@ -27,13 +27,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (2D N=8), K4 (2D N=16/64/128 pc none, N=64 jacobi, tet nx=16/32/40),
      K7 (2D N=64/128/256), K6 (2D N=64, tet nx=8/32), K8 (2D N=16/64
      with its literal inner GMRES + ILU blocks and at N=128 on its first
-     outer step, N=64 also with the TPU's PCG blocks), equal counts and bits,
-     K8's inner counts too (K6 within 1e-10; the twin on the first 20 steps
+     outer step, N=64 also with the TPU's PCG blocks, its 2D field sweeps on
+     the line pipeline of ceil(ny / 32) warps; tet nx=8 on the ring), equal
+     counts and bits, K8's inner counts too (K6 within 1e-10; the twin on the first 20 steps
      at 2D N=256 ILU; the long twins run on the card in worker processes
      while nvcc builds, ``role_twin_remote``, and are collected before
      anything is timed);
-     K8's two inner modes timed in turns at 2D N=16/64/128 (``k8_turns``),
-     at N=128 in turns with the literal host route (fields within 1e-12);
+     K8's two inner modes timed in turns at 2D N=16/64/128 with the ring
+     kernel it replaced (``k8_turns``: the probe build
+     ``csrc/profile/fused_gmres_k8_ring.cu``, built beside the package, bit
+     for bit with the package's K8), at N=128 in turns with the literal host
+     route (fields within 1e-12);
      with the blocks, the leaves a thread, what lived in shared memory, the
      time and the time per iteration, and beside the sizes the TPU's gate
      sent to the host loop, that loop's time;
@@ -2613,12 +2617,12 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     return counts
 
 
-# K8's two inner modes in turns (literal, pcg, pcg, literal), and at 2D
-# N=128 the literal host route of the same semantics (krylov.gmres, K1, the
-# fieldsplit with the blocks' own GMRES + structured_ilu_apply) in turns with
-# the literal kernel
+# K8's two inner modes and the ring kernel the line pipeline replaced (the
+# probe, literal blocks) in turns, and at 2D N=128 the literal host route of
+# the same semantics (krylov.gmres, K1, the fieldsplit with the blocks' own
+# GMRES + structured_ilu_apply) in turns with the literal kernel
 K8_TURN_NS = (16, 64, 128)
-K8_ORDER = ("literal", "pcg", "pcg", "literal")
+K8_ORDER = ("literal", "ring", "pcg", "pcg", "ring", "literal")
 
 
 class RoleCase(collections.namedtuple(
@@ -2647,6 +2651,7 @@ ROLE_CASES = [
     # the first outer step at N=128 (the kernel's inner basis in device
     # memory, ~90 inner steps a block solve); k8_turns times the whole solve
     RoleCase("quad", 128, "fieldsplit_ilu", None, 0.0, 1, None, 1, "literal", True),
+    RoleCase("tet", 8, "fieldsplit_ilu", None, 0.0, 3, None, None),  # 3D fields: the ring
     # the published sizes the TPU's gate leaves to the host loop (8, 8,
     # 32 and 8 leaves a thread in 2D); the host loop timed beside each
     RoleCase("quad", 128, "none", None, 0.0, 3, "PLAIN_GMRES_PARAMS", None, early=True),
@@ -2717,18 +2722,24 @@ def role_twin_remote(case, gmres_kw):
             twin, once)
 
 
-def k8_turns(dev, smi, gmres_kw):
-    """Times K8 in its two inner modes in turns at 2D N=16/64/128 on the
-    solver's own right-hand side, with each mode's outer and inner counts and
-    the literal kernel's bound from its own inner work; at N=128 the host
-    route of the literal semantics in turns with the kernel."""
+def k8_turns(dev, smi, gmres_kw, probe):
+    """Times K8 in its two inner modes in turns with the ring kernel
+    (``probe``: ``fused_gmres.k8_probe_library``, literal blocks, bit for bit
+    with the package's) at 2D N=16/64/128 on the solver's own right-hand
+    side, with each mode's outer and inner counts and the literal kernel's
+    bound from its own inner work; at N=128 the host route of the literal
+    semantics in turns with the kernel. Returns the literal kernel's and the
+    ring's median ms a size."""
+    import statistics
+
     import torch
 
     from perphil_tpu_torch.ops.assembly import DPPOperator
-    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver
+    from perphil_tpu_torch.ops.fused_gmres import FusedGMRESSolver, launch_k8_probe
     from perphil_tpu_torch.ops.krylov import gmres
     from perphil_tpu_torch.solvers.solver import _freeze, _monolithic_pc
 
+    medians = {}
     for n in K8_TURN_NS:
         W, params, bcs, _, _ = problem("quad", n, dev)
         op = DPPOperator(W, params)
@@ -2736,15 +2747,25 @@ def k8_turns(dev, smi, gmres_kw):
         modes = {m: FusedGMRESSolver(op, "fieldsplit_ilu", **gmres_kw, inner_ksp=m) for m in ("literal", "pcg")}
         runs = {m: s.launch(r) for m, s in modes.items()}
         torch.cuda.synchronize()
-        reps = 2 if n >= 128 else 3
-        times = in_turns({m: (lambda s=s: s.launch(r)) for m, s in modes.items()}, K8_ORDER, reps, per_call=True)
         counts = {m: (runs[m].iterations, *modes[m].launch_inner) for m in modes}
+        solver = modes["literal"]
+        warps = solver.last_geometry.line_warps
+        ring = launch_k8_probe(solver, probe, r)
+        torch.cuda.synchronize()
+        check(ring.iterations == runs["literal"].iterations and solver.launch_inner == counts["literal"][1:]
+              and torch.equal(ring.x, runs["literal"].x) and solver.last_geometry.line_warps == 0,
+              f"K8 quad N={n}: the ring kernel bit for bit with the line pipeline")
+        check(warps == -(-(n + 1) // 32), f"K8 quad N={n}: its field sweeps on the line pipeline ({warps} warps)")
+        reps = 2 if n >= 128 else 3
+        times = in_turns({**{m: (lambda s=s: s.launch(r)) for m, s in modes.items()},
+                          "ring": lambda: launch_k8_probe(solver, probe, r)}, K8_ORDER, reps, per_call=True)
+        medians[n] = (statistics.median(times["literal"]), statistics.median(times["ring"]))
         print(f"K8 quad N={n} in turns: {turns_text(K8_ORDER, times)} ms; "
               f"literal {counts['literal'][0]} iterations, inner GMRES {counts['literal'][1]} in "
-              f"{counts['literal'][2]} solves; pcg {counts['pcg'][0]} iterations, inner PCG {counts['pcg'][1]} in "
+              f"{counts['literal'][2]} solves, field sweeps on {warps} warps (ring: the kernel before the line "
+              f"pipeline); pcg {counts['pcg'][0]} iterations, inner PCG {counts['pcg'][1]} in "
               f"{counts['pcg'][2]} solves (CUDA events, median of {reps}) on {smi}")
         check(runs["literal"].iterations == runs["pcg"].iterations == 4, f"K8 quad N={n}: 4 outer iterations")
-        solver = modes["literal"]
         literal_bound = bound(*fused_gmres_work(solver, op, runs["literal"].iterations))
         print(f"  K8 literal quad N={n}: bound {literal_bound[0]:.4f} ms ({literal_bound[1]}; the kernel's own "
               f"inner work, {counts['literal'][1]} inner steps)")
@@ -2837,6 +2858,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from perphil_tpu_torch.ops.fused_apply import halo_probe_library
+    from perphil_tpu_torch.ops.fused_gmres import k8_probe_library
     from perphil_tpu_torch.ops.fused_gs import probe_library
 
     _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS, initializer=os.nice, initargs=(TWIN_NICENESS,))
@@ -2852,9 +2874,10 @@ def main() -> int:
     picard = sp.PICARD_LU_SOLVER_PARAMS
     snes_kw = dict(rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
     ngs_twins_pending = {n: _TWIN_POOL.apply_async(ngs_twin_remote, (n, snes_kw)) for n in NGS_REMOTE_NS}
-    probe_pool = ThreadPoolExecutor(2)
+    probe_pool = ThreadPoolExecutor(3)
     gs_probe_pending = probe_pool.submit(probe_library)
     halo_probe_pending = probe_pool.submit(halo_probe_library)
+    k8_probe_pending = probe_pool.submit(k8_probe_library)  # the ring kernel K8's line pipeline replaced
     t0 = time.perf_counter()
     _cuda.library()
     info = _cuda.BUILD_INFO
@@ -2887,6 +2910,7 @@ def main() -> int:
     _GS_POOL.join()
     gs_probe = gs_probe_pending.result(timeout=900)
     halo_probe = halo_probe_pending.result(timeout=900)
+    k8_probe = k8_probe_pending.result(timeout=900)
     probe_pool.shutdown()
     print(f"fused_gs's twins ({', '.join(f'{c[0]} N={c[1]} {gs_twins[c][-1]:.1f} s' for c in GS_TWIN_CASES)}, on "
           f"{GS_WORKERS} workers beside nvcc) and its probe build ready {time.perf_counter() - t0:.1f} s after the "
@@ -3088,12 +3112,16 @@ def main() -> int:
         geo = solver.last_geometry
         blocks = geo.blocks
         check(blocks > 1 or r.numel() <= 512, f"{solver.role} {tag} spreads over more than one block")
+        if pc == "fieldsplit_ilu":  # 2D fields sweep on the line pipeline, ceil(ny / 32) warps; 3D on the ring
+            check(geo.line_warps == (-(-(n + 1) // 32) if element == "quad" else 0),
+                  f"{solver.role} {tag}: field sweeps on {geo.line_warps} line-pipeline warps")
         ms = time_ms(lambda: solver.launch(r), repeats=reps, warmup=1)
         print(f"  {solver.role} {tag}: {blocks} blocks, {launch_geometry(r.numel()).leaves} leaves a thread, "
               f"{got.iterations} iterations, basis slice in shared memory: {geo.basis_smem}, "
               f"ILU z in shared memory: {geo.ilu_z_smem}, matvec input in shared memory: {geo.input_smem}, "
               f"inner p in shared memory: {geo.p_smem}, "
-              f"eigenbases in shared memory: {geo.s_smem}, {ms:.4f} ms, "
+              f"eigenbases in shared memory: {geo.s_smem}, field sweep line-pipeline warps: {geo.line_warps}, "
+              f"{ms:.4f} ms, "
               f"{ms * 1e3 / max(got.iterations, 1):.3f} us/iteration")
         if twin[1]:
             inner_its, inner_solves = solver.launch_inner
@@ -3138,7 +3166,7 @@ def main() -> int:
     results["fused_gmres_df[ilu]"] = results["fused_gmres_df[ilu]@quad N=64 pc ilu"]
     results["fused_gmres_df[fieldsplit_lu]"] = results["fused_gmres_df[fieldsplit_lu]@quad N=64 pc fieldsplit_lu"]
     results["fused_gmres_df[fieldsplit_ilu]"] = results["fused_gmres_df[fieldsplit_ilu]@quad N=64 pc fieldsplit_ilu"]
-    k8_turns(dev, smi, gmres_kw)
+    k8_turns(dev, smi, gmres_kw, k8_probe)
 
     print(f"[{time.perf_counter() - t_start:.1f} s] fused GMRES roles checked")
 

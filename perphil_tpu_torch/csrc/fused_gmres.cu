@@ -14,7 +14,9 @@
 // pc 1 (jacobi): dinv (2n). pc 3 (ilu): F0L, F0U, the factor's lower and
 // upper sides packed by level, the level schedule and the host offset table
 // ilu_meta. pc 4 (fieldsplit_ilu): F0L, F0U, F1L, F1U per field, their
-// (shared) schedule and table. pc 2 (fieldsplit_lu):
+// (shared) schedule and table, and on a 2D field L0L, L0U, L1L, L1U, the
+// same sides laid out by row for the line pipeline (field_sweep.cuh; null:
+// every sweep on the ring). pc 2 (fieldsplit_lu):
 // Sx, Sy, Sz (n x n per axis; Sz unused in 2D; equal matrices may share one
 // pointer, and are then copied to shared memory once) and sc (2, nint). Unused
 // pointers may be null. restart + 1 <= 32. max_level_rows: the rows of the
@@ -28,7 +30,9 @@ extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, dou
                                    double* work, double* xchg, double* result, const double* weights,
                                    const double* mass, const double* dinv, const double* F0L,
                                    const double* F0U, const double* F1L,
-                                   const double* F1U, const int* level_ptr, const int* level_rows,
+                                   const double* F1U, const double* L0L, const double* L0U,
+                                   const double* L1L, const double* L1U, const int* level_ptr,
+                                   const int* level_rows,
                                    const int* ilu_meta, const double* Sx, const double* Sy,
                                    const double* Sz, const double* sc, int nz, int ny, int nx,
                                    int dim, int pc, int noffs, int nlev, double rtol, double atol,
@@ -64,10 +68,15 @@ extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, dou
                     Grid{nz, ny, nx},
                     GmresParams{rtol, atol, dtol, max_it, restart, in_rtol, in_atol, in_max, in_restart,
                                 in_dtol, coef, stencil_masks(weights_from_host<double>(weights))},
-                    PcData{dinv, F0L, F0U, F1L, F1U, level_ptr, level_rows, nlev, Sx, Sy, Sz, sc, work},
+                    PcData{dinv, F0L, F0U, F1L, F1U, L0L, L0U, L1L, L1U, level_ptr, level_rows, nlev, Sx, Sy, Sz,
+                           sc, work},
                     tab, dim};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+#ifdef PERPHIL_FUSED_GMRES_ONLY
+  // a probe unit that builds one role
+  err = pc == PERPHIL_FUSED_GMRES_ONLY ? launch_fused_gmres<PERPHIL_FUSED_GMRES_ONLY>(a, st) : cudaErrorInvalidValue;
+#else
   switch (pc) {
     case kPcJacobi: err = launch_fused_gmres<kPcJacobi>(a, st); break;
     case kPcFieldsplitLu: err = launch_fused_gmres<kPcFieldsplitLu>(a, st); break;
@@ -75,6 +84,7 @@ extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, dou
     case kPcFieldsplitIlu: err = launch_fused_gmres<kPcFieldsplitIlu>(a, st); break;
     default: err = launch_fused_gmres<kPcNone>(a, st); break;
   }
+#endif
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -87,6 +97,9 @@ extern "C" int PERPHIL_FUSED_GMRES_SYMBOL(const double* b, const double* x0, dou
 extern "C" int PERPHIL_FUSED_GMRES_SMEM_SYMBOL(int pc, int dim) {
   using namespace perphil;
   if (dim != 2 && dim != 3) return -2;
+#ifdef PERPHIL_FUSED_GMRES_ONLY
+  return pc == PERPHIL_FUSED_GMRES_ONLY ? fused_gmres_static_smem<PERPHIL_FUSED_GMRES_ONLY>(dim) : -2;
+#else
   switch (pc) {
     case kPcNone: return fused_gmres_static_smem<kPcNone>(dim);
     case kPcJacobi: return fused_gmres_static_smem<kPcJacobi>(dim);
@@ -95,4 +108,5 @@ extern "C" int PERPHIL_FUSED_GMRES_SMEM_SYMBOL(int pc, int dim) {
     case kPcFieldsplitIlu: return fused_gmres_static_smem<kPcFieldsplitIlu>(dim);
     default: return -2;
   }
+#endif
 }

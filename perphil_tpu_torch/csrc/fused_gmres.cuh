@@ -75,9 +75,10 @@
 //     shared memory the matvec's input copy leaves free while the
 //     preconditioner runs, and its dots on the cluster tree. K6's fast-diag
 //     is a small dense product per axis, lines spread over the blocks, one
-//     cluster barrier a phase; K8's ILU(0) sweeps stay on block 0 (a 2D
-//     field's levels hold at most ~N/2 rows: one warp's work), between two
-//     cluster barriers. K7 sweeps on block 0 alone. K8's literal inner
+//     cluster barrier a phase; K8's ILU(0) sweeps stay on block 0, between
+//     two cluster barriers: on 2D fields a line pipeline on ceil(ny / 32)
+//     warps (field_sweep.cuh), no handshake a level; on 3D fields the ring
+//     of ilu_sweep.cuh. K7 sweeps on block 0 alone. K8's literal inner
 //     GMRES keeps its basis ((in_restart + 1) n values) in device scratch
 //     and its Givens state (R, g, cs, sn) in device scratch of each block's
 //     own, read by thread 0; the frame's h, y and scal, dead while the
@@ -162,6 +163,8 @@ struct PcData {
   const double* dinv;                  // jacobi: (2n)
   const double *F0L, *F0U;             // ilu: the factor's packed sides; fieldsplit_ilu: field 0's
   const double *F1L, *F1U;             // fieldsplit_ilu: field 1's
+  const double *L0L, *L0U, *L1L, *L1U; // fieldsplit_ilu on a 2D field: each field's sides by row, for the line
+                                       // pipeline (field_sweep.cuh), or null (the ring)
   const int* level_ptr;                // ilu / fieldsplit_ilu schedule
   const int* level_rows;
   int nlev;
@@ -185,6 +188,7 @@ struct GmresGeom {
   int z_smem;       // 1: each block copies the matvec's input vector to shared memory
   int basis_smem;   // 1: the block's basis slice lives in dynamic shared memory
   IluPlan ilu;      // the ILU roles' stage (K7, K8), first in dynamic shared memory
+  int line_warps;   // K8 on a 2D field: the line pipeline's warps (its edge lines are ilu.bytes), 0: the ring
   // the fieldsplit roles' inner PCG (K6, K8), spread over the cluster as the
   // frame's vectors are: the field's n values by the same ownership rule
   int log_sf;       // log2 of a thread's leaves of one field
@@ -200,9 +204,10 @@ struct GmresGeom {
 // doubles of a launch's result before the profile units' phase counters:
 // iterations, residual norm, converged, blocks, basis slice in shared memory,
 // ILU z in shared memory, matvec input in shared memory, p in shared
-// memory, eigenbases in shared memory, and the fieldsplit roles' inner block
-// solves' iterations and solves (PCG or GMRES)
-constexpr int kResultSlots = 11;
+// memory, eigenbases in shared memory, the fieldsplit roles' inner block
+// solves' iterations and solves (PCG or GMRES), and K8's line pipeline's
+// warps (0: the ring)
+constexpr int kResultSlots = 12;
 
 // Host: blocks for L values: min(kMaxCluster, Lt / kGmresThreads).
 inline int gmres_blocks(long L) {

@@ -5,6 +5,7 @@
 
 #include <cooperative_groups.h>
 
+#include "field_sweep.cuh"
 #include "fused_gmres.cuh"
 
 namespace perphil {
@@ -373,8 +374,10 @@ constexpr int kMonolithicOffsets = D == 2 ? 13 : 0;
 struct PcView {
   PcData d;
   const PcTables* tab;  // shared memory
-  IluStage st;          // the ILU roles' shared-memory stage (block 0)
+  IluStage st;          // the ILU roles' shared-memory stage (block 0), the ring's
+  double* edges;        // K8's line pipeline: its edge lines (block 0), or null
   int n, nint;
+  int line_warps;       // K8's line pipeline's warps, 0: the ring
 };
 
 // The fieldsplit roles' inner block solve (PCG, or K8's literal GMRES),
@@ -505,7 +508,8 @@ __device__ void fastdiag_cluster(const PcView& pv, const FieldPcg& fp, int f, co
 
 // zbuf = M in for field f's block, complete in device memory afterwards; `in`
 // is complete in device memory. K8: the ILU(0) sweeps on block 0, while the
-// other blocks wait at the cluster barrier; K6: the fast-diag transform on
+// other blocks wait at the cluster barrier (2D fields: the line pipeline,
+// which reads `in` directly; else the ring); K6: the fast-diag transform on
 // every block.
 template <int D, int PC>
 __device__ void field_pc(const PcView& pv, const FieldPcg& fp, int f, const double* in, const Grid& g) {
@@ -513,10 +517,20 @@ __device__ void field_pc(const PcView& pv, const FieldPcg& fp, int f, const doub
     if (fp.o.b == 0) {
       const double* PL = f == 0 ? pv.d.F0L : pv.d.F1L;
       const double* PU = f == 0 ? pv.d.F0U : pv.d.F1U;
-      // the ring reads its right-hand side through L1: a copy of this block's own
-      for (int e = threadIdx.x; e < fp.n; e += blockDim.x) fp.t1[e] = __ldcg(in + e);
-      ilu_apply<kFieldOffsets<D>>(PL, PU, fp.n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, fp.t1, fp.t2,
-                                  fp.zbuf);
+      bool lines = false;
+      if constexpr (D == 2) {
+        if (pv.line_warps > 0) {
+          line_sweep_pair(f == 0 ? pv.d.L0L : pv.d.L1L, f == 0 ? pv.d.L0U : pv.d.L1U, in, fp.t2, fp.zbuf, pv.edges,
+                          g.nx, g.ny, pv.line_warps);
+          lines = true;
+        }
+      }
+      if (!lines) {
+        // the ring reads its right-hand side through L1: a copy of this block's own
+        for (int e = threadIdx.x; e < fp.n; e += blockDim.x) fp.t1[e] = __ldcg(in + e);
+        ilu_apply<kFieldOffsets<D>>(PL, PU, fp.n, pv.tab->meta, pv.st, pv.d.level_rows, pv.d.nlev, fp.t1, fp.t2,
+                                    fp.zbuf);
+      }
     }
     cg::this_cluster().sync();
   } else {
@@ -885,8 +899,10 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
   }
   __syncthreads();
   const int nint = (g.nx - 2) * (g.ny - 2) * (D == 3 ? g.nz - 2 : 1);
-  PcView pv{pd, &tab, IluStage{}, (int)n, nint};
-  if ((PC == kPcIlu || PC == kPcFieldsplitIlu) && o.b == 0) {
+  PcView pv{pd, &tab, IluStage{}, nullptr, (int)n, nint, geom.line_warps};
+  if (geom.line_warps > 0) {
+    pv.edges = reinterpret_cast<double*>(dyn);
+  } else if ((PC == kPcIlu || PC == kPcFieldsplitIlu) && o.b == 0) {
     pv.st = ilu_stage(geom.ilu, dyn, pd.level_ptr, PC == kPcIlu ? L : (int)n, pd.nlev);
   }
   FieldPcg fp{};
@@ -1094,9 +1110,14 @@ fused_gmres_kernel(const double* b, const double* x0, double* x, double* V, doub
     result[8] = (double)geom.s_smem;
     result[9] = (double)inner_counts[0];
     result[10] = (double)inner_counts[1];
+    result[11] = (double)geom.line_warps;
 #ifdef PERPHIL_GMRES_PROFILE
     PERPHIL_PROF(kProfRestart);
     for (int i = 0; i < kProfPhases; ++i) result[kResultSlots + i] = (double)prof[i];
+    for (int i = 0; i < kLineProfSlots; ++i) {
+      result[kResultSlots + kProfPhases + i] = (double)line_prof[i];
+      line_prof[i] = 0;
+    }
 #endif
   }
 }
@@ -1145,7 +1166,17 @@ bool plan_geometry(const GmresArgs& a, GmresGeom& geo) {
     const int nt = PC == kPcIlu ? (a.dim == 2 ? kMonolithicOffsets<2> : kMonolithicOffsets<3>)
                                 : (a.dim == 2 ? kFieldOffsets<2> : kFieldOffsets<3>);
     if (nt > 0 && (a.tab.meta.nlow != nt || a.tab.meta.nup != nt)) return false;
-    geo.ilu = ilu_plan(a.tab.meta, (int)(PC == kPcIlu ? L : n), a.pd.nlev, a.max_level_rows, budget - pc_min);
+    if (PC == kPcFieldsplitIlu && a.pd.L0L != nullptr && a.pd.L0U != nullptr && a.pd.L1L != nullptr &&
+        a.pd.L1U != nullptr) {
+      geo.line_warps = line_warps(a.tab.meta, a.dim, a.g.nx, a.g.ny, a.pd.nlev);
+      // where the pipeline's rings leave the slices no room, the ring sweep (which shrinks to fit) runs
+      if ((line_bytes(geo.line_warps, a.g.nx) + 15) / 16 * 16 + (pc_min + 15) / 16 * 16 > budget) geo.line_warps = 0;
+    }
+    if (geo.line_warps > 0) {
+      geo.ilu.bytes = (int)((line_bytes(geo.line_warps, a.g.nx) + 15) / 16 * 16);
+    } else {
+      geo.ilu = ilu_plan(a.tab.meta, (int)(PC == kPcIlu ? L : n), a.pd.nlev, a.max_level_rows, budget - pc_min);
+    }
     used = geo.ilu.bytes;
   }
   pc_min = (pc_min + 15) / 16 * 16;  // the basis slice after the region starts on 16 bytes

@@ -69,10 +69,10 @@ _SIGNATURES = {
     "perphil_fused_direct_static_smem": [_I],
     "perphil_fused_pcg_static_smem": [_I],
     # b, x0, x, V, work, xchg, result, weights, mass, dinv, F0L, F0U, F1L, F1U,
-    # level_ptr, level_rows, ilu_meta, Sx, Sy, Sz, sc, nz, ny, nx, dim, pc, noffs, nlev,
-    # rtol, atol, dtol, max_it, restart, coef, in_rtol, in_atol, in_max,
-    # in_restart, in_dtol, max_level_rows, stream
-    "perphil_fused_gmres": [_P] * 21 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _D, _I, _P],
+    # L0L, L0U, L1L, L1U, level_ptr, level_rows, ilu_meta, Sx, Sy, Sz, sc, nz, ny, nx,
+    # dim, pc, noffs, nlev, rtol, atol, dtol, max_it, restart, coef, in_rtol, in_atol,
+    # in_max, in_restart, in_dtol, max_level_rows, stream
+    "perphil_fused_gmres": [_P] * 25 + [_I] * 7 + [_D, _D, _D, _I, _I, _D, _D, _D, _I, _I, _D, _I, _P],
     # pc, dim (returns the kernel's static shared memory in bytes, < 0: none)
     "perphil_fused_gmres_static_smem": [_I, _I],
     # r, z, y, packed_lower, packed_upper, level_ptr, level_rows, meta, noffs,

@@ -25,8 +25,10 @@ plain matvec (``fused_dpp_apply_plain``) and the preconditioner of
 
 The fieldsplit roles' inner block solves run on every block of the
 kernel's cluster, their dots on the cluster tree (bit-equal to
-:func:`krylov.tree_sum`); K8's ILU(0) sweeps run on its first block
-(``csrc/ilu_sweep.cuh``), K6's fast-diag transform is spread over the blocks.
+:func:`krylov.tree_sum`); K8's ILU(0) sweeps run on its first block (2D
+fields: a line pipeline, ``csrc/field_sweep.cuh``, planned by
+:func:`ilu.line_plan`; 3D fields: the ring of ``csrc/ilu_sweep.cuh``), K6's
+fast-diag transform is spread over the blocks.
 
   - K6 and K8's ``"pcg"`` mode: the TPU kernel's PCG from zero, ``z0 = M
     rhs``, stopping on ``||r|| <= max(rtol ||rhs||, atol)`` or a non-finite
@@ -66,7 +68,9 @@ from perphil_tpu_torch.ops.assembly import DPPOperator, FieldOperator, coupling_
 from perphil_tpu_torch.ops.direct import FastDiagFieldSolver
 from perphil_tpu_torch.ops.fused_apply import fused_dpp_apply_plain, pack_weights
 from perphil_tpu_torch.ops.fused_direct import _check_device, _grid_args
-from perphil_tpu_torch.ops.ilu import IluPlan, StructuredILU0, build_field_system, ilu_plan, schedule_shape
+from perphil_tpu_torch.ops.ilu import (
+    IluPlan, StructuredILU0, build_field_system, ilu_plan, line_plan, schedule_shape,
+)
 from perphil_tpu_torch.ops.krylov import DEFAULT_DTOL, KrylovResult, gmres, tree_sum
 from perphil_tpu_torch.ops.stencil import compile_stencils
 
@@ -102,7 +106,7 @@ INNER_STATE_DOUBLES = _cuda.header_constant("fused_gmres.cuh", "kInnerStateDoubl
 _XCHG_DOUBLES = 4096  # the reductions' exchange between blocks (two regions)
 _THREADS = 512  # threads of a block
 #: doubles of a launch's result (``csrc/fused_gmres.cuh::kResultSlots``)
-RESULT_SLOTS = 11
+RESULT_SLOTS = _cuda.header_constant("fused_gmres.cuh", "kResultSlots")
 #: blocks of one thread block cluster at most (the card's non-portable size)
 MAX_BLOCKS = 16
 #: leaves of a reduction tree a thread may own (``csrc/fused_gmres.cuh``)
@@ -152,7 +156,8 @@ class KernelGeometry(NamedTuple):
     """What a launch ran with: blocks of the cluster, and what lived in
     shared memory (the basis slice, the ILU sweep's z, the matvec's input
     copy, the inner PCG's copy of p and K6's eigenbases), within
-    :data:`SMEM_BUDGET`."""
+    :data:`SMEM_BUDGET`; K8's line pipeline's warps (0: the ring, or no
+    field sweep)."""
 
     blocks: int
     basis_smem: bool
@@ -160,6 +165,7 @@ class KernelGeometry(NamedTuple):
     input_smem: bool
     p_smem: bool
     s_smem: bool
+    line_warps: int = 0
 
 
 class SmemPlan(NamedTuple):
@@ -173,6 +179,7 @@ class SmemPlan(NamedTuple):
     pc_bytes: int
     basis_smem: bool
     bytes: int
+    line_warps: int = 0
 
 
 def _slice_len(num_values: int, blocks: int) -> int:
@@ -187,7 +194,10 @@ def plan_smem(
     """Mirror of the launcher's plan for ``budget`` bytes: the fieldsplit
     roles' slices (5 vectors of a block's share of one field) and K6's two
     line buffers come first and must fit; then the ILU stage (``ilu_shape``:
-    nlow, nup, levels, rows of the widest level); the matvec's input copy
+    nlow, nup, levels, rows of the widest level; K8 on a 2D field the line
+    pipeline's edge lines and rings instead, :func:`ilu.line_plan`, with
+    ``ilu`` None, where they fit beside the slices);
+    the matvec's input copy
     (2n doubles), and in the same region the inner PCG's copy of p (n
     doubles) and K6's eigenbases (x first; ``distinct[a]``: axis a's matrix
     equals no earlier one's, by default where its length is new); then the
@@ -205,8 +215,14 @@ def plan_smem(
         if distinct is None:
             distinct = tuple(m not in axes[:a] for a, m in enumerate(axes))
         sbytes = sum(8 * m * m for m, new in zip(axes, distinct) if new)
-    ilu, used = None, 0
-    if pc_type in ("ilu", "fieldsplit_ilu"):
+    ilu, used, lines = None, 0, None
+    if pc_type == "fieldsplit_ilu":
+        lines = line_plan(tuple(node_shape))
+        if lines is not None and lines.bytes + (pc_min + 15) // 16 * 16 > budget:
+            lines = None  # the pipeline's rings leave the slices no room: the ring sweep, which shrinks to fit
+    if lines is not None:
+        used = lines.bytes
+    elif pc_type in ("ilu", "fieldsplit_ilu"):
         nlow, nup, nlev, max_rows = ilu_shape
         ilu = ilu_plan(nlow, nup, L if pc_type == "ilu" else n, nlev, max_rows, budget - pc_min)
         used = ilu.bytes
@@ -229,7 +245,7 @@ def plan_smem(
     used += x
     basis = used + (restart + 1) * 8 * _slice_len(L, blocks) <= budget
     return SmemPlan(ilu, input_smem, p_smem, s_smem, x, basis,
-                    used + (restart + 1) * 8 * _slice_len(L, blocks) * basis)
+                    used + (restart + 1) * 8 * _slice_len(L, blocks) * basis, 0 if lines is None else lines.warps)
 
 
 def fused_gmres_plan(node_shape: Tuple[int, ...], pc_type: str, restart: int = 30) -> Optional[SmemPlan]:
@@ -328,6 +344,7 @@ class FusedGMRESSolver(nn.Module):
         self.register_buffer("dinv", dinv)
         self.ilu = StructuredILU0.for_monolithic(mesh, p, self.device) if pc_type == "ilu" else None
         self.field_ilu = self.field_fd = self.mass = None
+        self.line_sweep = False
         self.coef = 0.0
         self.register_buffer("sc", None)
         if pc_type.startswith("fieldsplit"):
@@ -342,6 +359,11 @@ class FusedGMRESSolver(nn.Module):
                 self.field_ilu = nn.ModuleList(
                     StructuredILU0(build_field_system(mesh, k, p.beta, p.mu), self.device) for k in ks
                 )
+                #: the field sweeps run as the line pipeline (the launcher's plan), on tables by row
+                self.line_sweep = fused_gmres_plan(self.node_shape, pc_type, restart).line_warps > 0
+                if self.line_sweep:
+                    for ilu in self.field_ilu:
+                        ilu.line_tables()
             else:
                 self.field_fd = nn.ModuleList(
                     FastDiagFieldSolver(
@@ -457,7 +479,8 @@ class FusedGMRESSolver(nn.Module):
 
     def _pc_args(self) -> Tuple:
         """The launcher's preconditioner pointers: dinv, the packed factor
-        sides F0L, F0U, F1L, F1U, level_ptr,
+        sides F0L, F0U, F1L, F1U, the sides by row L0L, L0U, L1L, L1U (K8's
+        line pipeline; null where the field keeps the ring), level_ptr,
         level_rows, offset table (host), Sx, Sy, Sz, sc; then noffs, nlev
         and the rows of the widest level."""
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -472,9 +495,12 @@ class FusedGMRESSolver(nn.Module):
             for f in (first, second)
             for side in ((None, None) if f is None else (f.packed_lower, f.packed_upper))
         ]
+        lines = [None] * 4
+        if self.field_ilu is not None and self.line_sweep:
+            lines = [t.data_ptr() for f in self.field_ilu for t in f.line_tables()]
         axes = (None, None, None) if self.field_fd is None else self._axes
         return (
-            ptr(self.dinv), *(ptr(t) for t in packed),
+            ptr(self.dinv), *(ptr(t) for t in packed), *lines,
             None if sched is None else sched.level_ptr.data_ptr(),
             None if sched is None else sched.level_rows.data_ptr(),
             None if sched is None else sched.meta.ctypes.data,
@@ -508,13 +534,14 @@ class FusedGMRESSolver(nn.Module):
             work = torch.empty(work_doubles(b[0].numel(), blocks, restart_in), dtype=torch.float64, device=b.device)
         xchg = torch.empty(_XCHG_DOUBLES, dtype=torch.float64, device=b.device)
         w = pack_weights(*self.stencils)
-        (dinv, F0L, F0U, F1L, F1U, lptr, lrows, meta, Sx, Sy, Sz, sc, noffs, nlev, max_rows) = self._pc_args()
+        (dinv, F0L, F0U, F1L, F1U, L0L, L0U, L1L, L1U, lptr, lrows, meta, Sx, Sy, Sz, sc, noffs, nlev,
+         max_rows) = self._pc_args()
         args = (
             b.data_ptr(), x0.data_ptr(), x.data_ptr(), basis.data_ptr(),
             None if work is None else work.data_ptr(), xchg.data_ptr(), result.data_ptr(),
             w.ctypes.data,
-            None if self.mass is None else self.mass.ctypes.data, dinv, F0L, F0U, F1L, F1U, lptr,
-            lrows, meta,
+            None if self.mass is None else self.mass.ctypes.data, dinv, F0L, F0U, F1L, F1U, L0L, L0U, L1L, L1U,
+            lptr, lrows, meta,
             Sx, Sy, Sz, sc, *_grid_args(self.node_shape), PC_KINDS[self.pc_type], noffs, nlev,
             *self.tolerances(tols), self.dtol, self.max_it, self.restart,
             self.coef, rtol_in, atol_in, max_in, restart_in, DEFAULT_DTOL, max_rows,
@@ -534,8 +561,8 @@ class FusedGMRESSolver(nn.Module):
     def read_result(self, x: torch.Tensor, result: torch.Tensor) -> KrylovResult:
         """The solve's outcome from a launch's ``result``; sets
         ``last_geometry``."""
-        its, rnorm, converged, *geo, inner_its, inner_solves = result[:RESULT_SLOTS].tolist()
-        self.last_geometry = KernelGeometry(int(geo[0]), *(bool(v) for v in geo[1:6]))
+        its, rnorm, converged, *geo, inner_its, inner_solves, line_warps = result[:RESULT_SLOTS].tolist()
+        self.last_geometry = KernelGeometry(int(geo[0]), *(bool(v) for v in geo[1:6]), int(line_warps))
         self.launch_inner = (int(inner_its), int(inner_solves))
         return KrylovResult(x, int(its), rnorm, bool(converged))
 
@@ -544,6 +571,34 @@ class FusedGMRESSolver(nn.Module):
     ) -> KrylovResult:
         _check_device(self.device, b)
         return self.plain(b, x0, tols) if b.device.type == "cpu" else self.launch(b, x0, tols)
+
+
+def k8_probe_library(define: str = "PERPHIL_K8_PROBE"):
+    """K8 as it stood before its 2D field sweeps became a line pipeline:
+    ``csrc/profile/fused_gmres_k8_ring.cu`` built alone, every field sweep on
+    the ring with the ring's plan; with ``define``
+    ``PERPHIL_K8_LINE_SLOTS=k`` instead the pipeline with k lines a lane.
+    Its launcher ``perphil_fused_gmres_k8_probe`` takes
+    ``perphil_fused_gmres``'s arguments (pc fieldsplit_ilu only); its
+    launches are counted nowhere (:func:`launch_k8_probe`)."""
+    return _cuda.variant_library(
+        "profile/fused_gmres_k8_ring.cu", define,
+        {"perphil_fused_gmres_k8_probe": _cuda._SIGNATURES["perphil_fused_gmres"]},
+    )
+
+
+def launch_k8_probe(solver: FusedGMRESSolver, dll, b: torch.Tensor, x0: Optional[torch.Tensor] = None) -> KrylovResult:
+    """One solve of ``solver`` (pc fieldsplit_ilu) on the probe ``dll``
+    (:func:`k8_probe_library`); sets ``solver.last_geometry`` and
+    ``launch_inner`` as :meth:`FusedGMRESSolver.launch` does, counts
+    nothing."""
+    if solver.pc_type != "fieldsplit_ilu":
+        raise ValueError("the K8 probe runs pc fieldsplit_ilu only")
+    result = torch.empty(RESULT_SLOTS, dtype=torch.float64, device=b.device)
+    (args, _keep), x = solver.launch_args(b, x0, result)
+    err = dll.perphil_fused_gmres_k8_probe(*args, torch.cuda.current_stream(b.device).cuda_stream)
+    _cuda.check(err, "perphil_fused_gmres_k8_probe")
+    return solver.read_result(x, result)
 
 
 def fused_gmres_df(

@@ -48,6 +48,7 @@ emulated f64).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -124,6 +125,161 @@ def ilu_plan(nlow: int, nup: int, nrows: int, nlev: int, max_rows: int, budget: 
     if cap > 0 and used + zbytes <= budget:
         z_smem, used = True, used + zbytes
     return IluPlan(cap, slots, stages, z_smem, lp_smem, (used + 15) // 16 * 16)
+
+
+#: K8's line pipeline on 2D fields (``csrc/field_sweep.cuh``): lines a lane
+#: owns, the narrowest field it takes, warps at most
+LINE_SLOTS = _cuda.header_constant("field_sweep.cuh", "kLineSlots")
+LINE_MIN_NX = _cuda.header_constant("field_sweep.cuh", "kLineMinNx")
+LINE_MAX_WARPS = _cuda.header_constant("field_sweep.cuh", "kLineMaxWarps")
+_LINE_ROWS_AHEAD = _cuda.header_constant("field_sweep.cuh", "kLineRowsAhead")
+_LINE_ROW_BYTES = _cuda.header_constant("field_sweep.cuh", "kLineRowBytes")
+
+
+class LinePlan(NamedTuple):
+    """K8's line pipeline for one 2D field: its ``warps`` and its shared
+    memory in ``bytes`` (the edge lines and the warps' rings of row stages,
+    rounded to 16)."""
+
+    warps: int
+    bytes: int
+
+
+def line_plan(node_shape: Tuple[int, ...], slots: int = LINE_SLOTS) -> Optional[LinePlan]:
+    """The launcher's choice (``field_sweep.cuh::line_warps`` /
+    ``line_bytes``) for a field of ``node_shape`` nodes, ``slots`` lines a
+    lane: ``ceil(ny / (32 slots))`` warps, two edge lines of ``nx`` doubles
+    for each warp but the last, and each lane's ring of row stages (64 bytes
+    a row, ``max(1, 8 // slots)`` steps of ``slots`` rows); None where the
+    field keeps the ring
+    (3D, fewer than :data:`LINE_MIN_NX` nodes a line, one line, more than
+    :data:`LINE_MAX_WARPS` warps)."""
+    if len(node_shape) != 2:
+        return None
+    ny, nx = node_shape
+    warps = -(-ny // (32 * slots))
+    if nx < LINE_MIN_NX or ny < 2 or warps > LINE_MAX_WARPS:
+        return None
+    ahead = max(1, _LINE_ROWS_AHEAD // slots)
+    ring = warps * ahead * slots * 32 * _LINE_ROW_BYTES
+    return LinePlan(warps, (16 * (warps - 1) * nx + ring + 15) // 16 * 16)
+
+
+def _fma(a: float, b: float, c: float) -> np.float64:
+    """``a b + c`` rounded once (exact rational arithmetic, then the
+    correctly rounded double)."""
+    return np.float64(float(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))))
+
+
+def line_div(acc: np.float64, d: np.float64, r: np.float64) -> np.float64:
+    """The line pipeline's divide (``csrc/field_sweep.cuh::line_div``) on
+    the host: ``acc / d`` correctly rounded from ``r = RN(1 / d)``, ``q =
+    RN(acc r)`` corrected by two FMAs; zero as ``acc r``, a quotient far
+    from 1 or non-finite by the plain divide. Equal to ``acc / d`` bit for
+    bit (``tests/test_torch_line_sweep.py``)."""
+    if acc == 0.0:
+        return acc * r
+    q = acc * r
+    q = _fma(_fma(-q, d, acc), r, q)
+    return q if 2.0**-960 <= abs(q) <= 2.0**960 else acc / d
+
+
+def line_sweep_replay(ilu: "StructuredILU0", r: np.ndarray, slots: int = LINE_SLOTS) -> np.ndarray:
+    """K8's line pipeline (``csrc/field_sweep.cuh``) replayed on the host in
+    numpy f64: ``U^{-1} L^{-1} r`` for a 2D field's :class:`StructuredILU0`,
+    each warp's lanes and slots step by step, a lane's value passed to the
+    lane above a step later, a warp's top line through its edge line, the
+    entries read from :meth:`StructuredILU0.line_tables` as the kernel reads
+    them, and every edge rule of the kernel's. Asserts on the way
+    that each row is computed once, that every value a row reads was
+    computed before it (an edge value before the warp above reads it) and is
+    the column the plain sweep reads at that level (a column outside the
+    grid or not yet computed: the rule's zero). Warps run one after the
+    other: a warp waits only on the one below."""
+    ny, nx = ilu.node_shape
+    plan = line_plan((ny, nx), slots)
+    assert plan is not None, "the field takes the ring"
+    steps, nrows = nx + 2 * (ny - 1), ilu.nrows
+    level = np.add.outer(2 * np.arange(ny), np.arange(nx)).ravel()  # x + 2y, flat y * nx + x
+    lower, upper_t = (t.cpu().numpy() for t in ilu.line_tables())
+    sides = {False: (lower, [ilu.deltas[t] for t in ilu.lower]), True: (upper_t, [ilu.deltas[t] for t in ilu.upper])}
+
+    def sweep(upper: bool, rhs: np.ndarray) -> np.ndarray:
+        F, deltas = sides[upper]
+        items = 6 if upper else 4
+        out, done = np.zeros(nrows), np.zeros(nrows, dtype=int)
+        zero = (0.0, -1)  # a register's value and the row that computed it (-1: the rule's zero)
+        edge = [dict() for _ in range(plan.warps)]
+
+        def expected(row: int, q: int) -> int:
+            col = min(max(row + deltas[q], 0), nrows)
+            if col == nrows or (level[col] >= level[row] if not upper else level[col] <= level[row]):
+                return -1
+            return col
+
+        for w in range(plan.warps):
+            j0 = 32 * slots * w
+            lines = [[j0 + 32 * k + lane for k in range(slots)] for lane in range(32)]
+            jlast = min(ny, j0 + 32 * slots) - 1
+            t0, t1 = (2 * j0 - 1 if j0 > 0 else 0), min(steps, nx + 2 * jlast)
+            h = [[[zero] * 3 for _ in range(slots)] for _ in range(32)]  # h1, h2, h3
+            own = [[zero] * slots for _ in range(32)]
+            first = [[zero] * slots for _ in range(32)]
+            for s in range(t0, t1):
+                sent = [[own[lane][k] for k in range(slots)] for lane in range(32)]
+                for lane in range(32):
+                    for k in range(slots):
+                        if lane > 0:
+                            got = sent[lane - 1][k]
+                        elif k > 0:
+                            got = sent[31][k - 1]
+                        elif w > 0:
+                            at = s - 2 * j0 + 1
+                            got = zero
+                            if 0 <= at < nx:
+                                assert at in edge[w - 1], "an edge value read before it was written"
+                                got = edge[w - 1][at]
+                        else:
+                            got = zero
+                        h[lane][k] = [got, h[lane][k][0], h[lane][k][1]]
+                for lane in range(32):
+                    for k in range(slots):
+                        jj, (h1, h2, h3) = lines[lane][k], h[lane][k]
+                        p = s - 2 * jj
+                        if not (0 <= p < nx and jj < ny):
+                            continue
+                        o, fi = own[lane][k], first[lane][k]
+                        if not upper:
+                            a = [(h3 if p >= 1 else (h2 if jj == 1 else zero)) if jj >= 1 else (fi if p >= 1 else zero),
+                                 h2 if jj >= 1 else (fi if p >= 1 else zero),
+                                 (h1 if p < nx - 1 else fi) if jj >= 1 else (fi if p >= 1 else zero),
+                                 o if p >= 1 else zero]
+                        else:
+                            a = [o if p >= 1 else zero,
+                                 fi if p == nx - 1 else (h1 if jj >= 1 else zero),
+                                 h2 if jj >= 1 else zero,
+                                 h3 if jj >= 1 and p >= 1 else zero]
+                        lv = steps - 1 - s if upper else s
+                        y, x = (ny - 1 - jj, nx - 1 - p) if upper else (jj, p)
+                        row = x + y * nx
+                        assert level[row] == lv
+                        acc = np.float64(rhs[row])
+                        for q in range(4):
+                            assert a[q][1] == expected(row, q), (upper, row, q, a[q][1])
+                            acc = acc - np.float64(F[items * row + q]) * np.float64(a[q][0])
+                        if upper:
+                            acc = line_div(acc, np.float64(F[items * row + 4]), np.float64(F[items * row + 5]))
+                        own[lane][k] = (acc, row)
+                        if p == 0:
+                            first[lane][k] = (acc, row)
+                        out[row] = acc
+                        done[row] += 1
+                        if k == slots - 1 and lane == 31 and w < plan.warps - 1:
+                            edge[w][p] = (acc, row)
+        assert (done == 1).all(), "a row computed other than once"
+        return out
+
+    return sweep(True, sweep(False, np.asarray(r, dtype=np.float64)))
 
 
 def _geom_offsets(d: int) -> List[Tuple[int, ...]]:
@@ -634,6 +790,7 @@ class _LevelSchedule(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
         self.nrows, self.n_nodes = sys.nrows, sys.n_nodes
+        self.node_shape = tuple(sys.mesh.node_shape)
         self.deltas = tuple(int(x) for x in sys.deltas)
         self.center = sys.center_index
         self.lower = tuple(t for t, d in enumerate(self.deltas) if d < 0)
@@ -728,6 +885,24 @@ class StructuredILU0(_LevelSchedule):
     def for_field(cls, fop):
         """Of a ``FieldOperator`` block, on its space's device."""
         return cls(build_field_system(fop.mesh, fop.k, fop.beta, fop.mu), fop.V.device)
+
+    def line_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The factor laid out by row for K8's line pipeline
+        (``csrc/field_sweep.cuh``), built at first call and kept as the
+        buffers ``line_lower`` (nrows x 4: a row's lower entries in stored
+        order) and ``line_upper`` (nrows x 6: its upper entries in stored
+        order, the diagonal and the diagonal's reciprocal, correctly rounded,
+        for the kernel's divide), flat f64 on the schedule's device. The
+        entries are ``factors``' own."""
+        if getattr(self, "line_lower", None) is None:
+            fac = self.factors.cpu().numpy()
+            upper = np.zeros((6, self.nrows))
+            upper[:5] = fac[list(self.upper) + [self.center]]
+            with np.errstate(divide="ignore"):
+                upper[5] = 1.0 / upper[4]
+            for name, side in (("line_lower", fac[list(self.lower)]), ("line_upper", upper)):
+                self.register_buffer(name, torch.tensor(np.ascontiguousarray(side.T).ravel(), device=self.device))
+        return self.line_lower, self.line_upper
 
     def _level_plan(self) -> Tuple[list, list]:
         """Per level, the plain sweeps' gather tables: (rows, cols, factor

@@ -344,7 +344,8 @@ class P2SimplexDPPOperator:
         block, ``(n, 1, *block)`` to scale both fields at once, and the same
         offsets as slices of its stacked box extended by 2 a side. Cut once
         per set of blocks; raises ``ValueError`` where a
-        block is thinner than 2 planes (``parallel/halo.py::check_halo_width``).
+        block is thinner than 2 planes (``parallel/halo.py::check_halo_width``;
+        the solver's parts run such blocks gathered).
         Never a stencil laid out on the block's own shape: that would take
         the parities from the block's origin."""
         from perphil_tpu_torch.parallel.halo import check_halo_width

@@ -308,7 +308,8 @@ class TensorDPPOperator:
         the lattice: the box's zero ghosts), along the others the whole
         factor. Cut once per set of blocks; raises ``ValueError`` where a
         block is thinner than p planes
-        (``parallel/halo.py::check_halo_width``)."""
+        (``parallel/halo.py::check_halo_width``; the solver's parts run such
+        blocks gathered, ``solvers/solver.py::_linear_parts``)."""
         from perphil_tpu_torch.parallel.halo import check_halo_width
         from perphil_tpu_torch.parallel.transpose import block_slices
 

@@ -86,6 +86,22 @@ def initialize_from_env(device: DeviceLike = None) -> bool:
     return dist.get_world_size() > 1
 
 
+def shutdown() -> None:
+    """End this rank's part of the process group, the same way on every
+    rank: a barrier, so that no rank tears its connections down while a peer
+    still uses them; the mesh axes' subgroups released
+    (``parallel/transpose.py::release_groups``), so that they are destroyed
+    with the group rather than at the interpreter's exit, after their peers
+    have gone; then the group destroyed. Nothing where no group is up."""
+    if not is_initialized():
+        return
+    from perphil_tpu_torch.parallel.transpose import release_groups
+
+    dist.barrier()
+    release_groups()
+    dist.destroy_process_group()
+
+
 def global_device_mesh(
     axis_sizes: Sequence[int],
     axis_names: Optional[Sequence[str]] = None,

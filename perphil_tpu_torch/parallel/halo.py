@@ -76,16 +76,25 @@ def halo_box(block: torch.Tensor, planes: Sequence, w: int = 1) -> torch.Tensor:
     return block
 
 
+def halo_fits(grid: Sequence[int], mesh_shape: Sequence[int], w: int) -> bool:
+    """Whether every block of the lattice ``grid`` (phantom padded to
+    divisibility) blocked on ``mesh_shape`` holds the ``w`` planes a side
+    that a degree-``w`` operator (Qp at p = w, P2 at w = 2) reads along each
+    split axis, so that its neighbours can send them. Where it does not,
+    the solver's degree-p parts run gathered (``solvers/solver.py::
+    _linear_parts``), as the JAX package's partitioner does."""
+    return all(int(grid[k]) // int(s) >= w for k, s in enumerate(mesh_shape))
+
+
 def check_halo_width(grid: Sequence[int], mesh_shape: Sequence[int], w: int) -> None:
-    """Raise ``ValueError`` where a block of the lattice ``grid`` (phantom
-    padded to divisibility) blocked on ``mesh_shape`` is thinner than the
-    ``w`` planes a side that a degree-``w`` operator (Qp at p = w, P2 at
-    w = 2) reads along a split axis: its neighbour could not send them. The
-    message names the grid, the mesh and the smallest N (cells along that
-    axis, a lattice of ``w N + 1`` nodes) that divides evenly into blocks of
-    ``w`` planes, or, where no such N exists, the smallest whose padded
-    blocks hold them. (The JAX package's partitioner gathers such a grid
-    instead.)"""
+    """Raise ``ValueError`` where :func:`halo_fits` does not hold: a block
+    of the lattice ``grid`` blocked on ``mesh_shape`` is thinner than the
+    ``w`` planes a side its operator reads along a split axis. The blocked
+    operators call it (``apply_blocks`` on such blocks raises); the solver
+    takes the gathered form first. The message names the grid, the mesh and
+    the smallest N (cells along that axis, a lattice of ``w N + 1`` nodes)
+    that divides evenly into blocks of ``w`` planes, or, where no such N
+    exists, the smallest whose padded blocks hold them."""
     for k, s in enumerate(mesh_shape):
         s = int(s)
         if int(grid[k]) // s >= w:

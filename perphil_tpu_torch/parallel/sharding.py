@@ -52,10 +52,12 @@ partitioner, so the distribution is written out here:
     :func:`blocked_solve_dpp` keeps the blocked route callable there.
 
 Only planes (the exchange) and transposes (``all_to_all``) cross ranks in a
-blocked solve; its one ``all_gather`` returns the cropped solution. A block
-thinner than the planes its operator reads (p a side for Qp, 2 for P2)
-raises ``ValueError`` (``halo.check_halo_width``), where the JAX package's
-partitioner would gather.
+blocked solve; its one ``all_gather`` returns the cropped solution. Where a
+block is thinner than the planes its operator reads (p a side for Qp, 2 for
+P2; ``halo.halo_fits``), the degree-p parts run gathered instead, as the JAX
+package's partitioner runs them: the whole grid's operator, lift and
+preconditioner or direct solve on the gathered vector, one ``all_gather`` an
+application.
 
 Ranks are NCCL ranks on the card and gloo ranks on the CPU
 (``parallel/distributed.py``); a mesh whose device does not match the

@@ -151,6 +151,12 @@ def axis_group(dmesh, m: int):
     return _GROUPS[key][1][m]
 
 
+def release_groups() -> None:
+    """Drop the axis groups :func:`axis_group` keeps (before the world is
+    destroyed: ``parallel/distributed.py::shutdown``)."""
+    _GROUPS.clear()
+
+
 def regrid(x: torch.Tensor, dmesh, move: Move, lead: int = 0) -> torch.Tensor:
     """This rank's block after ``move`` (grid axis k at dim ``lead + k``),
     by one ``all_to_all_single`` in the mesh axis's group. A mesh of one
@@ -369,7 +375,11 @@ class JoinedBlocks(LoopbackBlocks):
         return x
 
     def gathered(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> Callable[[torch.Tensor], torch.Tensor]:
-        return fn
+        def apply(x: torch.Tensor) -> torch.Tensor:
+            halo.COLLECTIVES["all_gather"] += 1  # what a rank of the mesh would issue
+            return fn(x)
+
+        return apply
 
     def allreduce(self, t: torch.Tensor) -> torch.Tensor:
         return t

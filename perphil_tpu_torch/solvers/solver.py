@@ -202,6 +202,7 @@ from perphil_tpu_torch.ops.mixed import MixedPrecisionDPPDirect
 from perphil_tpu_torch.ops.ordering import parity_system
 from perphil_tpu_torch.ops.simplexfem import P2SimplexDPPOperator, assemble_p2_monolithic
 from perphil_tpu_torch.ops.tensorfem import TensorDPPOperator, TensorFastDiagDPP
+from perphil_tpu_torch.parallel.halo import halo_fits
 from perphil_tpu_torch.solvers.options import apply_prefix_overrides
 
 _DIRECT_RTOL = 1e-13  # inner tolerance when "LU" is played by PCG
@@ -1083,7 +1084,11 @@ def _linear_parts(
     unpadded single-device one (``_monolithic_pc``) on the cropped,
     gathered vector. The degree-p parts are built padded, as in the JAX
     package, and run on blocks too: the Qp operator and its fast-diag
-    solves, the P2 stencils, Jacobi."""
+    solves, the P2 stencils, Jacobi; where a block is thinner than the
+    planes the operator reads (p a side for Qp, 2 for P2;
+    ``parallel/halo.py::halo_fits``), they run gathered instead: the whole
+    grid's operator, lift and preconditioner or direct solve on the
+    gathered vector, cut back to the block."""
     flat = _checked_options(frozen_sp)
     padding = tuple(padding)
     degree = W.spaces[0].degree
@@ -1127,8 +1132,19 @@ def _linear_parts(
         if ksp != "gmres":
             raise ValueError(f"P2 simplex spaces support preonly/gmres, got {ksp!r}")
     pc = _degree_pc(op, params, flat)
-    operator = lambda blocks, mode: blocks.one(lambda xs: op.apply_blocks(xs, blocks, mode))  # noqa: E731
-    blocked = None if pc is None else (lambda blocks: blocks.one(lambda rs: pc(rs, blocks)))
+    width = degree if mesh.is_tensor_product else 2  # the planes a side the operator reads
+
+    def on(blocks, fn):
+        """``fn(xs, blocks)`` on the blocks, or, where a block is thinner
+        than the operator's halo, the whole grid's ``fn`` on the gathered
+        vector, the result cut back: one all-gather an application."""
+        if halo_fits(op.dof_shape, blocks.mesh_shape, width):
+            return blocks.one(lambda xs: fn(xs, blocks))
+        whole = op.whole
+        return blocks.gathered(whole.one(lambda xs: fn(xs, whole)))
+
+    operator = lambda blocks, mode: on(blocks, lambda xs, b: op.apply_blocks(xs, b, mode))  # noqa: E731
+    blocked = None if pc is None else (lambda blocks: on(blocks, pc))
     return LinearParts(ksp, op, op._bdry, False, operator, kw, blocked)
 
 

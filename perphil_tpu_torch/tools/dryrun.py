@@ -119,16 +119,18 @@ def _rank_main(name: str, args_json: str, out: str) -> None:
     import torch
     import torch.distributed as dist
 
-    from perphil_tpu_torch.parallel.distributed import initialize_from_env
+    from perphil_tpu_torch.parallel.distributed import initialize_from_env, shutdown
 
     torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "1")))
     args = json.loads(args_json)
     initialize_from_env(device=args.get("device"))
     try:
         result = TASKS[name](args)
-    finally:
+    except BaseException:
         if dist.is_initialized():
-            dist.destroy_process_group()
+            dist.destroy_process_group()  # no barrier: the peers may never reach one
+        raise
+    shutdown()
     with open(out, "wb") as f:
         pickle.dump(result, f)
 

@@ -18,7 +18,10 @@ for ``structured_ilu_apply`` at 2D N=64/128 monolithic and on a 65^2 and
 129^2 field, the time, the time per level, whether the result equals the
 plain sweep bit for bit, and the cycles one consumer and one producer thread
 spend in each part of a level. ``--only gmres|fieldsplit|ilu`` profiles one
-of the three alone.
+of the three alone; ``--only fieldsplit`` first times K8 literal at 2D
+N=16/64/128 in turns with its probe builds (``time_k8_lines``: the ring
+kernel its line pipeline replaced, 2 or 3 lines a lane, the PCG mode) and
+measures an empty step of the pipeline and the latency floor it gives.
 
 ``--only k1`` times K1 (``csrc/dpp_apply.cu``) with the package's library
 on f64 matvecs at 64^3, 128^3 (hex) and 2D N=128: the device time (CUDA
@@ -183,6 +186,8 @@ from perphil_tpu_torch.ops.ilu import StructuredILU0
 from perphil_tpu_torch.solvers import parameters as sp
 from perphil_tpu_torch.solvers import solve_dpp
 
+#: the line pipeline's parts of a step on its head warp (``csrc/field_sweep.cuh``, ``kLineProfSlots``)
+LINE_PARTS = ["shuffle + wait for the rows", "the row", "the next rows' copies"]
 PHASES = ["apply", "dots", "gram-schmidt+norm", "givens", "scale", "end barrier", "restart",
           "inner: preconditioner", "inner: field matvec", "inner: dots", "inner: vector updates",
           "inner: givens"]
@@ -194,7 +199,7 @@ def build() -> ctypes.CDLL:
     out.mkdir(parents=True, exist_ok=True)
     lib = out / "libperphil_profile.so"
     alone = ("fused_ngs_cluster.cu", "band_trisolve_dense.cu", "band_trisolve_syncfree.cu",
-             "dpp_apply_halo_box.cu")  # built by their tools
+             "dpp_apply_halo_box.cu", "fused_gmres_k8_ring.cu")  # built by their tools
     sources = sorted(s for s in (_cuda.CSRC / "profile").glob("*.cu") if s.name not in alone)
     procs = [
         subprocess.Popen(
@@ -256,7 +261,7 @@ def profile_gmres(dll, element: str, n: int, pc: str = "none", inner_ksp: str = 
     b = chip_smoke.newton_rhs(op, bcs)
     kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
     solver = FusedGMRESSolver(op, pc, **kw, inner_ksp=inner_ksp)
-    result = torch.zeros(RESULT_SLOTS + len(PHASES), dtype=torch.float64, device=b.device)
+    result = torch.zeros(RESULT_SLOTS + len(PHASES) + len(LINE_PARTS), dtype=torch.float64, device=b.device)
     (args, _keep), x = solver.launch_args(b, None, result)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -268,6 +273,7 @@ def profile_gmres(dll, element: str, n: int, pc: str = "none", inner_ksp: str = 
     ms = median_ms(run, 3)
     got = solver.read_result(x, result)
     cycles = result.tolist()[RESULT_SLOTS:]
+    line_cycles, cycles = cycles[len(PHASES):], cycles[:len(PHASES)]
     its, total = got.iterations, sum(cycles)
     mode = f" (inner {inner_ksp})" if pc == "fieldsplit_ilu" else ""
     print(f"fused GMRES pc {pc}{mode} {element} N={n}: {its} iterations, geometry {solver.last_geometry}, "
@@ -288,10 +294,76 @@ def profile_gmres(dll, element: str, n: int, pc: str = "none", inner_ksp: str = 
         if pc == "fieldsplit_ilu":
             nlev = solver.field_ilu[0].num_levels
             print(f"    {pc_cycles / (2 * nlev * applications):.0f} cycles/sweep level ({nlev} levels a sweep)")
+            if solver.last_geometry.line_warps:
+                # the line pipeline's head warp, thread 0: its steps' parts (the
+                # warp runs its own lines' steps, ny / warps + nx of them a sweep)
+                steps = 2 * applications * (nx_steps := solver.node_shape[1] + 2 * min(
+                    solver.node_shape[0], 32) - 2)
+                print("    line pipeline, thread 0 a step: " + ", ".join(
+                    f"{name} {c / steps:.0f}" for name, c in zip(LINE_PARTS, line_cycles))
+                    + f" cycles ({nx_steps} steps a sweep on warp 0, {solver.last_geometry.line_warps} warps)")
         else:
             passes = 2 * len(solver.node_shape)
             print(f"    {pc_cycles / (passes * applications):.0f} cycles/transform pass "
                   f"({passes} passes an application)")
+
+
+#: K8's probe builds (``csrc/profile/fused_gmres_k8_ring.cu``): the ring
+#: kernel the line pipeline replaced, the pipeline with 2 and 3 lines a lane
+#: (fewer warps), and the package's pipeline with K8_EXTRA empty steps a
+#: warp's sweep
+K8_EXTRA = 200
+K8_PROBES = {"ring": "PERPHIL_K8_PROBE", "slots2": "PERPHIL_K8_LINE_SLOTS=2", "slots3": "PERPHIL_K8_LINE_SLOTS=3",
+             "empty": f"PERPHIL_K8_EXTRA_STEPS={K8_EXTRA}"}
+
+
+def time_k8_lines() -> None:
+    """K8 literal at 2D N=16/64/128 in turns with its probe builds (each
+    first held bit for bit, with its counts, to the package's K8): the ring
+    kernel it replaced, the pipeline with 2 or 3 lines a lane, and the PCG
+    mode; then an empty step of the pipeline, (the empty-step build's time
+    less the package's) over the empty steps it ran (K8_EXTRA a sweep, two
+    sweeps an application), and the latency floor it gives: applications x
+    2 x levels x the empty step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke
+    from perphil_tpu_torch.ops.fused_gmres import k8_probe_library, launch_k8_probe
+
+    with ThreadPoolExecutor(len(K8_PROBES)) as pool:
+        probes = dict(zip(K8_PROBES, pool.map(k8_probe_library, K8_PROBES.values())))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kw = {k: sp.GMRES_PARAMS[f"ksp_{k}"] for k in ("rtol", "atol", "max_it")}
+    order = ("package", "ring", "slots2", "slots3", "pcg", "pcg", "slots3", "slots2", "ring", "package")
+    for n in (16, 64, 128):
+        W, params, bcs, _, _ = chip_smoke.problem("quad", n, dev)
+        op = DPPOperator(W, params)
+        r = chip_smoke.newton_rhs(op, bcs)
+        s = FusedGMRESSolver(op, "fieldsplit_ilu", **kw)
+        pcg = FusedGMRESSolver(op, "fieldsplit_ilu", **kw, inner_ksp="pcg")
+        ref = s.launch(r)
+        torch.cuda.synchronize()
+        counts, warps = s.launch_inner, s.last_geometry.line_warps
+        for name, dll in probes.items():
+            got = launch_k8_probe(s, dll, r)
+            torch.cuda.synchronize()
+            if not (torch.equal(got.x, ref.x) and got.iterations == ref.iterations and s.launch_inner == counts):
+                raise RuntimeError(f"K8 probe {name} at N={n} is not the package's K8 bit for bit")
+            print(f"  K8 probe {name} quad N={n}: bit for bit, {s.last_geometry}")
+        runs = {"package": lambda: s.launch(r), "pcg": lambda: pcg.launch(r),
+                **{name: (lambda dll=dll: launch_k8_probe(s, dll, r)) for name, dll in probes.items()}}
+        reps = 2 if n >= 128 else 3
+        times = {}
+        for name in order + ("empty", "package", "package", "empty"):
+            times.setdefault(name, []).append(median_ms(runs[name], reps))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        apps, nlev = counts[0] + counts[1], s.field_ilu[0].num_levels
+        empty_us = (med["empty"] - med["package"]) * 1e3 / (2 * K8_EXTRA * apps)
+        print(f"K8 literal quad N={n} ({warps} warps, {counts[0]} inner steps in {counts[1]} solves) in turns, ms: "
+              + " / ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
+              + f"; an empty step {empty_us:.4f} us ({K8_EXTRA} more a sweep), latency floor "
+              f"{apps * 2 * nlev * empty_us / 1e3:.4f} ms ({apps} applications x 2 x {nlev} levels); "
+              f"{(med['package'] * 1e3) / (2 * nlev * apps):.4f} us a step of the whole kernel's time")
 
 
 def profile_ilu(dll, tag: str, pc: StructuredILU0) -> None:
@@ -1813,6 +1885,7 @@ def main() -> int:
         for element, n in (("quad", 8), ("quad", 16), ("quad", 64), ("tet", 16)):
             profile_gmres(dll, element, n)
     if args.only in (None, "fieldsplit"):
+        time_k8_lines()
         for element, n, pc, inner in (("quad", 64, "fieldsplit_lu", "literal"), ("tet", 8, "fieldsplit_lu", "literal"),
                                       ("quad", 16, "fieldsplit_ilu", "literal"), ("quad", 64, "fieldsplit_ilu", "literal"),
                                       ("quad", 128, "fieldsplit_ilu", "literal"), ("quad", 64, "fieldsplit_ilu", "pcg")):

@@ -16,7 +16,10 @@ slabs and (2, 2) pencils, phantom-padded and divisible lattices):
 - the P2 operator on blocks (``ops/simplexfem.py::P2SimplexDPPOperator.
   apply_blocks``, tri and tet): the matvec and the lift bit for bit the
   whole lattice's, blocks at odd global offsets included;
-- a block thinner than the halo raises ``ValueError``;
+- a block thinner than the halo raises ``ValueError`` in the blocked
+  operator, and the solver's parts run such a mesh gathered instead
+  (``parallel/halo.py::halo_fits``): the whole grid's count and fields, one
+  all-gather an application;
 - ``tools/degree_p_walls.py``'s rows and operator counts run on the CPU;
 - on a world of one rank, ``sharded_solve_dpp`` is ``solve_dpp`` bit for
   bit and issues no collective.
@@ -247,6 +250,65 @@ def test_thin_block_names_the_smallest_divisible_n():
         check_halo_width((7, 7), (4,), 3)
     with pytest.raises(ValueError, match="no N divides evenly; the smallest whose padded blocks hold 2 planes is N=2 "):
         check_halo_width((4, 4), (4,), 2)
+
+
+THIN = {  # the thin meshes of test_thin_block_raises: (element, n, degree, mesh_shape)
+    "q3-slabs": ("quad", 2, 3, (4,)),
+    "q3-hex-pencils": ("hex", 1, 3, (2, 2)),
+    "p2-slabs": ("triangle", 1, 2, (4,)),
+}
+THIN_SOLVES = {
+    "jacobi": {"ksp_type": "gmres", "pc_type": "jacobi", "ksp_rtol": 1e-10},
+    "direct": {"ksp_type": "preonly", "pc_type": "lu"},
+    "fieldsplit": FS_Q2,
+}
+
+
+def test_halo_fits_is_the_check():
+    """``halo_fits`` holds exactly where ``check_halo_width`` passes: every
+    block along every split axis at least ``w`` planes."""
+    from perphil_tpu_torch.parallel.halo import check_halo_width, halo_fits
+
+    for grid, mesh_shape, w in [((7, 7), (4,), 3), ((8, 8), (4,), 2), ((16, 16), (4,), 3), ((4, 4, 4), (2, 2), 3),
+                                ((4, 4, 4), (2, 2), 2), ((5, 8), (1, 4), 2), ((3, 3), (4,), 2)]:
+        fits = halo_fits(grid, mesh_shape, w)
+        assert fits == all(g // m >= w for g, m in zip(grid, mesh_shape))
+        if fits:
+            check_halo_width(grid, mesh_shape, w)
+        else:
+            with pytest.raises(ValueError):
+                check_halo_width(grid, mesh_shape, w)
+
+
+THIN_CASES = [(key, solve) for key in THIN for solve in THIN_SOLVES if THIN[key][0] != "triangle" or solve == "jacobi"]
+
+
+@pytest.mark.parametrize("key,solve", THIN_CASES, ids=[f"{k}-{s}" for k, s in THIN_CASES])
+def test_thin_blocks_solve_gathered(key, solve):
+    """The thin meshes of ``test_thin_block_raises`` through the solver's
+    parts on the loopback blocks (``loopback_solve``): the whole grid's
+    count, the fields within 1e-12, and every part (the matvec, the lift,
+    the preconditioner or direct solve) one all-gather an application and
+    no plane exchange, as the JAX package's partitioner gathers them. (P2
+    takes GMRES with Jacobi: its preonly + lu is refused sharded.)"""
+    element, n, degree, mesh_shape = THIN[key]
+    options = THIN_SOLVES[solve]
+    W = _space(element, n, degree, "cpu")
+    z, its, _, parts = loopback_solve(W, DPPParameters(), _manufactured_bcs(W), mesh_shape, options)
+    single = solve_dpp(W, DPPParameters(), _manufactured_bcs(W), solver_parameters=options)
+    assert its == single.iteration_number
+    assert _rel(z, torch.stack(single.solution.data)) <= SOLVE_TOL
+    v = torch.ones((2,) + _linear_shape(W, mesh_shape), dtype=torch.float64)
+    for name in ("matvec", "lift", "pc"):
+        COLLECTIVES.clear()
+        parts[name](v)
+        assert {k: c for k, c in COLLECTIVES.items() if c} == {"all_gather": 1}, (name, dict(COLLECTIVES))
+
+
+def _linear_shape(W, mesh_shape):
+    """The padded lattice a loopback solve of ``W`` on ``mesh_shape`` runs on."""
+    dof = W.spaces[0].dof_mesh.node_shape
+    return tuple(n + p for n, p in zip(dof, _padding(dof, mesh_shape)))
 
 
 WORLD_OF_ONE = {

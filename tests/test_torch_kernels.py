@@ -472,6 +472,7 @@ def test_fused_gmres_every_leaf_count(cuda, pc, max_it, tol, leaves, element, ce
     geo = solver.last_geometry
     assert (geo.basis_smem, geo.input_smem, geo.p_smem, geo.s_smem) == (
         plan.basis_smem, plan.input_smem, plan.p_smem, plan.s_smem)
+    assert geo.line_warps == plan.line_warps
     if plan.ilu is not None:
         assert geo.ilu_z_smem == plan.ilu.z_smem
 
@@ -547,8 +548,40 @@ def test_preconditioned_gmres_matches_twin(cuda, pc, mesh, tol, inner):
         assert _inner_counts_match(solver, b)
 
 
+K8_LINES = [  # element, cells, K8's inner solve, max_it (the twin stays short at N=128)
+    ("quad", (8, 8), "literal", 5000),       # one warp
+    ("quad", (64, 64), "literal", 5000),     # three warps
+    ("quad", (40, 40), "literal", 5000),     # 41 lines: not a multiple of a warp's 32
+    ("quad", (128, 128), "literal", 1),      # 129 lines, five warps: the first outer step
+    ("quad", (40, 40), "pcg", 5000),         # the PCG blocks sweep on the pipeline too
+    ("tet", (4, 4, 4), "literal", 5000),     # 3D fields: the ring
+    ("hex", (5, 5, 5), "literal", 5000),
+]
+
+
+@pytest.mark.parametrize("element,cells,inner,max_it", K8_LINES,
+                         ids=[f"{c[0]}{c[1][0]}-{c[2]}" for c in K8_LINES])
+def test_k8_line_pipeline_matches_twin(cuda, element, cells, inner, max_it):
+    """K8 with its 2D field sweeps on the line pipeline
+    (``csrc/field_sweep.cuh``; 3D fields on the ring): bit for bit with the
+    twin, equal outer and inner counts, the pipeline's warps the plan's
+    (ceil(ny / 32) in 2D, none in 3D)."""
+    state = _state(element, cells, cuda, seed=5)
+    op = DPPOperator(state.W, state.params)
+    solver = FusedGMRESSolver(op, "fieldsplit_ilu", rtol=1e-8, atol=1e-12, max_it=max_it, inner_ksp=inner)
+    b = torch.stack(op.lifted_rhs(*state.grids)).contiguous()
+    got = solver.launch(b)
+    torch.cuda.synchronize()
+    ref = solver.plain(b)
+    assert got.iterations == ref.iterations > 0 and got.converged == ref.converged
+    assert torch.equal(got.x, ref.x)
+    assert _inner_counts_match(solver, b)
+    lines = -(-solver.node_shape[0] // 32) if element == "quad" else 0
+    assert solver.last_geometry.line_warps == fused_gmres_plan(solver.node_shape, "fieldsplit_ilu").line_warps == lines
+
+
 ROLES_64 = [  # the preconditioned roles at 2D N=64, where they cost the most
-    ("fieldsplit_ilu", 0.0, "literal"),  # K8: the ring on 33 rows a level, bit for bit
+    ("fieldsplit_ilu", 0.0, "literal"),  # K8: the line pipeline on 3 warps, bit for bit
     ("fieldsplit_ilu", 0.0, "pcg"),
     ("fieldsplit_lu", 1e-10, "literal"),  # K6: the cluster's fast-diag transform
     ("ilu", 0.0, "literal"),  # K7: 66 rows a level, the ring
@@ -580,7 +613,8 @@ def test_preconditioned_gmres_at_quad64(cuda, pc, tol, inner):
     assert geo.blocks == 16
     assert (geo.input_smem, geo.p_smem, geo.s_smem, geo.basis_smem) == (
         plan.input_smem, plan.p_smem, plan.s_smem, plan.basis_smem)
-    if ilu is not None:
+    assert geo.line_warps == plan.line_warps  # K8: the line pipeline, no ILU stage
+    if plan.ilu is not None:
         assert geo.ilu_z_smem == plan.ilu.z_smem
     if pc == "fieldsplit_ilu":
         assert _inner_counts_match(solver, b)

@@ -103,6 +103,13 @@ BLOCKED_MESHES = {"pencils": [2, 2], "slabs": [4]}
 BLOCKED_TOL, PICARD_TOL = 1e-12, 1e-10
 # the six paths and the 2D cases whose parts stay gathered: ILU
 GATHERED = {"gmres-ilu-3d", "gmres-ilu-2d"}
+# blocks thinner than the operator's halo (Q3 on 2 cells: a 7-node lattice,
+# padded to 8, on 4 slabs of 2 planes; Q3 reads 3): the degree-p parts run
+# gathered, as the JAX package's partitioner runs them
+THIN = {
+    "q3-slabs-jacobi": ("quad", 2, 3, {"ksp_type": "gmres", "pc_type": "jacobi", "ksp_rtol": 1e-10}),
+    "q3-slabs-direct": ("quad", 2, 3, {"ksp_type": "preonly", "pc_type": "lu"}),
+}
 # the gloo halo matvec: id -> (element, cells, axes, names)
 HALO = {
     "quad-slabs": ("quad", (15, 15), [4], ("y",)),
@@ -171,6 +178,7 @@ def runs():
         *[["sharded_cases", {"cases": [_case(e, n, 1, o, nl, axes, _names(e, axes))
                                        for e, n, o, nl in BLOCKED.values()]}] for axes in BLOCKED_MESHES.values()],
         ["sharded_cases", {"cases": [_case(*c[:4], names=("z", "y")) for c in CASES_3D.values()]}],
+        ["sharded_cases", {"cases": [_case(*c, axes=[WORLD], names=("y",)) for c in THIN.values()]}],
     ]
     jobs = {("six", k): (e, n, d, o, nl, ("y", "x") if e == "quad" else ("z", "y"))
             for k, (e, n, d, o, nl) in SIX_JAX.items()}
@@ -342,4 +350,28 @@ def test_degree_p_hex_pencils(runs, key):
         assert _rel(a, b.numpy()) <= tol and _rel(a, c) <= tol
     for rank in results[1:]:
         other = rank[task][list(CASES_3D).index(key)]
+        assert other["its"] == got["its"] and all(np.array_equal(x, y) for x, y in zip(other["fields"], got["fields"]))
+
+
+@pytest.mark.parametrize("key", list(THIN))
+def test_thin_blocks_solve_gathered_on_gloo(runs, key):
+    """Q3 on 2 cells on 4 gloo slabs, blocks thinner than the 3 planes the
+    operator reads: ``sharded_solve_dpp`` runs the degree-p parts gathered
+    (no plane crosses ranks, one all-gather an application and the
+    solution's) and lands ``solve_dpp``'s count, the fields within 1e-12,
+    the same on every rank."""
+    results = runs[0]
+    element, n, degree, options = THIN[key]
+    task = 4 + len(BLOCKED_MESHES)
+    got = results[0][task][list(THIN).index(key)]
+    assert "error" not in got, got
+    W = _space(element, n, degree, "cpu")
+    single = solve_dpp(W, DPPParameters(), _manufactured_bcs(W), solver_parameters=options)
+    assert got["its"] == single.iteration_number
+    for a, b in zip(got["fields"], single.solution.data):
+        assert a.shape == tuple(b.shape) and _rel(a, b.numpy()) <= 1e-12
+    assert got["collectives"].get("exchange", 0) == 0 and got["collectives"].get("all_to_all", 0) == 0
+    assert got["collectives"]["all_gather"] >= 3, got["collectives"]  # the lift, the solve, the solution
+    for rank in results[1:]:
+        other = rank[task][list(THIN).index(key)]
         assert other["its"] == got["its"] and all(np.array_equal(x, y) for x, y in zip(other["fields"], got["fields"]))
