@@ -182,9 +182,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      (``ngs_colour_halo``) over 1, 2, 4 and 8 loopback slabs of 2D N=128
      (phantom-padded), a sweep of every colour and the residual mode bit for
      bit with its twin, with its time a colour step (launches queued) and
-     the twin's; the blocked fast-diag (f64) and mixed-precision direct
-     solves over loopback slabs (2, 4, 8) and (2, 2) pencils of 128^3 hex
-     (``TPU_DIRECT_PARAMS``' solver at full width) against the whole-grid
+     the twin's, and the norm (``ngs_colour_norm``: its residuals and norm
+     bit for bit with the twin and with the first norm kernel, the probe
+     ``csrc/profile/ngs_colour_norm_first.cu`` built beside the package, on
+     every layout, timed in turns with it beside its bound); the blocked
+     fast-diag (f64) and mixed-precision direct solves over loopback slabs
+     (2, 4, 8) and (2, 2) pencils of 128^3 hex (``TPU_DIRECT_PARAMS``'
+     solver at full width) against the whole-grid
      solves (1e-12, f64 relative residual < 1e-10), with the all-to-all
      moves' time; the degree-p parts on blocks (``degree_p_blocks``): Q2 2D
      N=128 direct and fieldsplit GMRES, Q2 hex N=32 direct and fieldsplit,
@@ -280,7 +284,9 @@ MULTIDEVICE_KERNELS = {
     # the colour step of the sharded Picard solve: the JAX package's colour
     # sweep, which its partitioner runs on every device (XLA, no Pallas)
     "ngs_colour_halo": (_CSRC + "ngs_colour_halo.cu", "perphil_tpu/ops/ilu.py:924"),
-    # its norm and stop test: the ngs while-loop's cond and norm (XLA, no Pallas)
+    # its norm and stop test: the ngs while-loop's cond and norm (XLA, no
+    # Pallas); counted once a call, which issues two launches (the rows
+    # stage, then the tree and the tail)
     "ngs_colour_norm": (_CSRC + "ngs_colour_halo.cu", "perphil_tpu/solvers/solver.py:1872-1879"),
 }
 KERNELS = {**DIRECT_KERNELS, **KRYLOV_KERNELS, **PRECOND_KERNELS, **PICARD_KERNELS, **PARITY_KERNELS,
@@ -2052,17 +2058,20 @@ def degree_p_blocks(dev, smi, randn, cases=DEGREE_P_CASES, meshes=DEGREE_P_MESHE
                   + f" s (host clock, a solve) on {smi}")
 
 
-def multidevice_path(dev, smi, randn, results, t_start, probe):
+def multidevice_path(dev, smi, randn, results, t_start, probe, norm_probe):
     """Phase 14: K1's halo form over loopback blocks against K1 on the whole
     grid, and its times in turns with the first form (``probe``:
-    ``fused_apply.halo_probe_library()``); the colour-step kernel against
-    its twin over loopback slabs; the blocked fast-diag and mixed direct
-    solves over loopback slabs and pencils of 128^3; then, counted, the
-    sharded solves on a world of one NCCL rank: the six dry-run paths,
-    128^3 hex TPU_DIRECT_PARAMS, 2D N=64 plain GMRES and SS-GMRES, and the
-    Picard solves at 2D N=64/128 at full width; one sharded apply at 64^3
-    and 128^3 beside the first form's; the scaling harness in a world of
-    its own. Returns the launches of the counted run."""
+    ``fused_apply.halo_probe_library()``); the colour-step kernel and the
+    norm against their twins over loopback slabs and pencils, the norm also
+    against the first norm kernel (``norm_probe``:
+    ``fused_ngs.norm_probe_library()``) and in turns with it; the blocked
+    fast-diag and mixed direct solves over loopback slabs and pencils of
+    128^3; then, counted, the sharded solves on a world of one NCCL rank:
+    the six dry-run paths, 128^3 hex TPU_DIRECT_PARAMS, 2D N=64 plain GMRES
+    and SS-GMRES, and the Picard solves at 2D N=64/128 at full width; one
+    sharded apply at 64^3 and 128^3 beside the first form's; the scaling
+    harness in a world of its own. Returns the launches of the counted
+    run."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2074,6 +2083,7 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     from perphil_tpu_torch.ops.fused_ngs import (
         FN as NGS_FN,
         ITERATIONS_PER_READ,
+        FirstNormSweep,
         FusedNGSSolver,
         NgsBlock,
         NgsSweep,
@@ -2245,8 +2255,10 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     # exchange buffers, copied in memory): a sweep of every colour
     # (ngs_colour_halo, a launch a colour over every block) and the norm
     # with its residuals and the stop test (ngs_colour_norm), bit for bit
-    # with the twins on the card; a colour step's time over all the blocks
-    # and the norm's (launches queued), the twins' beside, the bounds
+    # with the twins on the card and, the norm, with the first norm kernel
+    # (the probe); a colour step's time over all the blocks and the norm's
+    # in turns with the probe's (launches queued), the twins' beside, the
+    # bounds
     Wq, pq = problem("quad", 128, dev)[:2]
     sweeper = ColoredNGSSweeper(Wq.mesh, pq, dev)
     qshape = Wq.mesh.node_shape
@@ -2269,11 +2281,23 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
             torch.cuda.synchronize()
             runs[plain] = (sweep, L.join(sweep.x), L.join(r), float(sweep.state[NGS_FN]))
         (kern, xk, rk, fk), (twin, xt, rt, ft) = runs[False], runs[True]
+        # the first norm kernel on the same sweep's iterate, its own state
+        first = FirstNormSweep(norm_probe, sweeper, grid, L, remote=remote)
+        first.reset(0.0, 0.0, 2 ** 30)
+        first.load(bs, xs)
+        for colour in range(sweeper.ncolors):
+            first.step(colour)
+        rp = {c: torch.empty_like(v) for c, v in xs.items()}
+        first.norm(init=True, residuals=rp)
+        torch.cuda.synchronize()
+        rp, fp = L.join(rp), float(first.state[NGS_FN])
         colour_err = max(colour_err, float((xk - xt).abs().max()))
         norm_err = max(norm_err, float((rk - rt).abs().max()), abs(fk - ft))
         where = f"2D N=128 over loopback {ms}{' through the exchange buffers' if remote else ''}"
         check(torch.equal(xk, xt), f"ngs_colour_halo {where}: a sweep bit for bit with the twin")
         check(torch.equal(rk, rt) and fk == ft, f"ngs_colour_norm {where}: residuals and norm bit for bit")
+        check(torch.equal(L.join(first.x), xk) and torch.equal(rp, rt) and fp == ft,
+              f"ngs_colour_norm {where}: the first norm kernel's bits")
 
         def steps(s):
             for colour in range(sweeper.ncolors):
@@ -2281,7 +2305,9 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
 
         # the buffers' exchange is torch copies issued from the host: fewer calls fit behind the sleep
         step_ms = queued_ms(lambda: steps(kern), calls=3 if remote else 20) / sweeper.ncolors
-        norm_ms = queued_ms(kern.norm, calls=50)
+        norm_order = ("first", "this", "this", "first")
+        norm_turns = in_turns({"first": first.norm, "this": kern.norm}, norm_order, calls=50)
+        norm_ms = statistics.mean(norm_turns["this"])
         if ms == (1,):  # the twins timed on the kernel line's shape
             twin_step_ms = time_ms(lambda: steps(twin), repeats=3) / sweeper.ncolors
             twin_norm_ms = time_ms(twin.norm, repeats=3)
@@ -2294,8 +2320,9 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
         rows = [end - start for start, _, end in kern.spans]
         print(f"ngs_colour_halo {where} (padded {grid}): bit for bit with the twin; {step_ms:.4f} ms a colour step "
               f"of all {len(L.coords)} block(s) (one launch; {min(rows)}-{max(rows)} rows a colour; launches queued), "
-              f"bound {step_bound[0]:.6f} ms ({step_bound[1]}); ngs_colour_norm {norm_ms:.4f} ms ({kern.ctas} "
-              f"CTAs), bound {norm_bound[0]:.6f} ms ({norm_bound[1]}) (CUDA events) on {smi}")
+              f"bound {step_bound[0]:.6f} ms ({step_bound[1]}); ngs_colour_norm bit for bit with the twin and the "
+              f"first norm kernel, in turns {turns_text(norm_order, norm_turns)} ms ({kern.ctas} tree CTAs), "
+              f"bound {norm_bound[0]:.6f} ms ({norm_bound[1]}) (CUDA events, launches queued) on {smi}")
         if ms == (1,):  # the kernel line's shape: the main path's one block
             shape = f"2D N=128 (a 2 x 129 x 129 block, {sweeper.ncolors} colours), f64"
             results["ngs_colour_halo"] = dict(ms=step_ms, plain_ms=twin_step_ms, bound=step_bound, library_ms=None,
@@ -2489,9 +2516,10 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
     # on the rank's block ("this") and over 8 loopback slabs of the
     # phantom-padded grid ("slabs"), the first blocked loop on the rank's block
     # ("first": the probe kernel, a launch a colour and a norm read back every
-    # iteration) and fused_ngs ("fused", the world of one's route); all land
-    # the published count with the same iterate, bit for bit (the fused
-    # kernel held to its twin in phase 9)
+    # iteration), the blocked iteration on the rank's block with the first
+    # norm kernel ("first norm": norm_probe), and fused_ngs ("fused", the
+    # world of one's route); all land the published count with the same
+    # iterate, bit for bit (the fused kernel held to its twin in phase 9)
     ngs_probe = probe_library()
     picard_walls = {}
     for n in (64, 128):
@@ -2502,6 +2530,7 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
         shape = Wp.mesh.node_shape
         fused = FusedNGSSolver(opp, swp, *tols)
         sweep1 = NgsSweep(swp, shape, rank_blocks)
+        sweep_first = FirstNormSweep(norm_probe, swp, shape, rank_blocks)
         parts1 = {rank_c: NgsBlock(swp, shape, rank_blocks.mesh_shape, rank_c)}
         pad = (-shape[0]) % 8
         grid8 = (shape[0] + pad, shape[1])
@@ -2512,12 +2541,14 @@ def multidevice_path(dev, smi, randn, results, t_start, probe):
             "first": lambda: blocked_ngs_probe(ngs_probe, rank_blocks, parts1, {rank_c: b}, {rank_c: x0.clone()},
                                               *tols),
             "this": lambda: blocked_ngs(sweep1, {rank_c: b}, {rank_c: x0}, *tols),
+            "first norm": lambda: blocked_ngs(sweep_first, {rank_c: b}, {rank_c: x0}, *tols),
             "slabs": lambda: blocked_ngs(sweep8, b8, x08, *tols),
             "fused": lambda: fused(b, x0),
         }
         # the first loop (seconds at N=128) takes the middle turn once there
-        order = (("first", "this", "slabs", "fused", "fused", "slabs", "this", "first") if n == 64 else
-                 ("this", "slabs", "fused", "first", "fused", "slabs", "this"))
+        order = (("first", "this", "first norm", "slabs", "fused", "fused", "slabs", "first norm", "this", "first")
+                 if n == 64 else ("this", "first norm", "slabs", "fused", "first", "fused", "slabs", "first norm",
+                                  "this"))
         fused(b, x0)  # its tables are built at its first launch
         times, out = {}, {}
         for name in order:
@@ -2860,6 +2891,7 @@ def main() -> int:
     from perphil_tpu_torch.ops.fused_apply import halo_probe_library
     from perphil_tpu_torch.ops.fused_gmres import k8_probe_library
     from perphil_tpu_torch.ops.fused_gs import probe_library
+    from perphil_tpu_torch.ops.fused_ngs import norm_probe_library
 
     _GS_POOL = multiprocessing.get_context("spawn").Pool(GS_WORKERS, initializer=os.nice, initargs=(TWIN_NICENESS,))
     gs_pending = {case: _GS_POOL.apply_async(gs_twin, (case,)) for case in GS_TWIN_CASES}
@@ -2874,8 +2906,9 @@ def main() -> int:
     picard = sp.PICARD_LU_SOLVER_PARAMS
     snes_kw = dict(rtol=picard["snes_rtol"], atol=picard["snes_atol"], max_it=picard["snes_max_it"])
     ngs_twins_pending = {n: _TWIN_POOL.apply_async(ngs_twin_remote, (n, snes_kw)) for n in NGS_REMOTE_NS}
-    probe_pool = ThreadPoolExecutor(3)
+    probe_pool = ThreadPoolExecutor(4)
     gs_probe_pending = probe_pool.submit(probe_library)
+    norm_probe_pending = probe_pool.submit(norm_probe_library)  # the norm kernel the two-stage norm replaced
     halo_probe_pending = probe_pool.submit(halo_probe_library)
     k8_probe_pending = probe_pool.submit(k8_probe_library)  # the ring kernel K8's line pipeline replaced
     t0 = time.perf_counter()
@@ -2911,6 +2944,7 @@ def main() -> int:
     gs_probe = gs_probe_pending.result(timeout=900)
     halo_probe = halo_probe_pending.result(timeout=900)
     k8_probe = k8_probe_pending.result(timeout=900)
+    norm_probe = norm_probe_pending.result(timeout=900)
     probe_pool.shutdown()
     print(f"fused_gs's twins ({', '.join(f'{c[0]} N={c[1]} {gs_twins[c][-1]:.1f} s' for c in GS_TWIN_CASES)}, on "
           f"{GS_WORKERS} workers beside nvcc) and its probe build ready {time.perf_counter() - t0:.1f} s after the "
@@ -3642,7 +3676,8 @@ def main() -> int:
             launches[name] = launches.get(name, 0) + count
 
     # -- 14. the multi-device path ------------------------------------------
-    for name, count in multidevice_path(dev, smi, randn, results, t_start, halo_probe).items():
+    for name, count in multidevice_path(dev, smi, randn, results, t_start, halo_probe,
+                                              norm_probe).items():
         if name in KERNELS:
             launches[name] = launches.get(name, 0) + count
     print(f"[{time.perf_counter() - t_start:.1f} s] done")

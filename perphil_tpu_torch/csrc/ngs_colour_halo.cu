@@ -9,14 +9,15 @@
 // perphil_tpu/ops/ilu.py:924) that XLA's partitioner runs on every device,
 // with a halo exchange a sweep (perphil_tpu/parallel/sharding.py:222-240).
 //
-// Two kernels and a small third:
+// The kernels:
 //   ngs_colour_step_kernel  one colour step of every block the process
 //     holds, in one launch: a thread a row of the colour, from one int32
 //     list of the colour's rows over all blocks (part, field, j, i packed);
-//   ngs_norm_kernel  every row's residual squared and summed, a block at a
-//     time, in krylov.tree_sum's order, the blocks' sums added in
-//     coordinate order (LoopbackBlocks.total), the correctly rounded square
-//     root and the SNES stop test, all on the card;
+//   ngs_norm_rows_kernel, ngs_norm_tree_kernel  the norm, two dependent
+//     launches: every row's residual squared into a scratch in natural
+//     order, then each block's sum of squares in krylov.tree_sum's order,
+//     the blocks' sums added in coordinate order (LoopbackBlocks.total), the
+//     correctly rounded square root and the SNES stop test, all on the card;
 //   ngs_finish_kernel  the root and stop test alone, after the blocks'
 //     total was all-reduced over the ranks (a world with peers).
 //
@@ -58,14 +59,28 @@
 // The norm's order: for a block of n values (both fields, flat), the
 // halving tree of krylov.tree_sum over the squares zero-padded to L, a
 // power of two at least n (more zero padding changes no sum of squares).
-// CTA b of the block's G, thread t of 256, owns the residue r = t * G + b
-// and the K = L / (256 G) leaves r + k * 256 G: it sums them in the tree's
-// order (the top bits of the index first), the CTA then over t by halving
-// in shared memory, and the last CTA of the launch to arrive over b, block
-// by block, and the blocks in order. What bounds it: a step reads the
-// colour's rows' neighbourhoods and writes its rows (~256 KB at 2D N=128
-// on one block, L2-resident), so it is latency: the launch, the row's code,
-// its taps (all loaded before the first sum), the divide, the store. The
+// The tree combines index bit log2(L) - 1 first and bit 0 last, so with L =
+// K * 256 * G (ops/fused_ngs.py::norm_geometry): a tree thread's K leaves
+// are the top bits, a CTA's 256 threads the next eight, the block's G CTAs
+// the low bits, last. A leaf's row is no thread's choice, though: the rows
+// stage computes row e on thread e of the block's rows in natural order, so
+// that a warp reads 32 consecutive rows' x and b, and writes the square to
+// the block's L squares (the padding past n is never read: the tree takes
+// 0 there). The tree stage's thread t of CTA b then reads its leaves t * G
+// + b + k * 256 G, one 8-byte load each, sums them (the top bits first),
+// stores once to shared memory, and after the one barrier warp 0 runs the
+// CTA's levels: t + 128, t + 64, t + 32 in registers, t + 16 ... t + 1 by
+// shuffles. The tail: each CTA's thread 0 arrives on one counter
+// (acquire-release); the last CTA's warps make the blocks' trees over
+// their partials side by side, and one thread adds the blocks' sums in
+// order and runs the stop test, its state loaded ahead. So the tail is one
+// arrival and three barriers in the last CTA, whatever the blocks. The two
+// stages are programmatic dependent launches: the tree's CTAs take their
+// places while the rows run and wait on them (griddepcontrol), so the
+// second launch costs little. What bounds it: the norm reads every row's
+// neighbourhood (~800 KB at 2D N=128 on one block, L2-resident) and the
+// squares once, so it is latency: a launch, a row's loads, the tree's one
+// load a leaf, a barrier, the arrival and the tail's dependent adds. The
 // design takes the host out of the iteration, so that k iterations run
 // queued or from a CUDA graph.
 
@@ -242,93 +257,223 @@ __global__ void __launch_bounds__(kColourThreads)
   }
 }
 
+// what the stop test reads of the state, loaded ahead of the total
+struct NgsStop {
+  double rtol, atol, tol, its, max_it;
+};
+
+__device__ __forceinline__ NgsStop stop_of(const double* state) {
+  return NgsStop{state[kStateRtol], state[kStateAtol], state[kStateTol], state[kStateIts], state[kStateMaxIt]};
+}
+
 // the root and the stop test on the total ``total`` of the squares over
-// every block (one thread)
-__device__ __forceinline__ void finish(double* state, double total, int init) {
+// every block (one thread; st: the state's stop values)
+__device__ __forceinline__ void finish(double* state, double total, int init, const NgsStop& st) {
   const double fn = __dsqrt_rn(total);
   double its, tol;
   if (init) {
-    const double rel = __dmul_rn(state[kStateRtol], fn);
-    tol = rel > state[kStateAtol] ? rel : state[kStateAtol];  // Python's max(rtol * f0, atol)
+    const double rel = __dmul_rn(st.rtol, fn);
+    tol = rel > st.atol ? rel : st.atol;  // Python's max(rtol * f0, atol)
     state[kStateF0] = fn;
     state[kStateTol] = tol;
     its = 0.0;
   } else {
-    tol = state[kStateTol];
-    its = state[kStateIts] + 1.0;
+    tol = st.tol;
+    its = st.its + 1.0;
   }
   state[kStateFn] = fn;
   state[kStateIts] = its;
-  state[kStateDone] = (fn > tol && its < state[kStateMaxIt]) ? 0.0 : 1.0;
+  state[kStateDone] = (fn > tol && its < st.max_it) ? 0.0 : 1.0;
+}
+
+__device__ __forceinline__ void finish(double* state, double total, int init) {
+  finish(state, total, init, stop_of(state));
+}
+
+// Measurement builds of the norm (tools/profile_kernels.py --only
+// ngs-blocked), parts skipped, timed only (their results are wrong):
+// PERPHIL_NGS_NORM_EMPTY returns at once from both stages (the launches),
+// PERPHIL_NGS_NORM_NO_ROWS from the rows stage, PERPHIL_NGS_NORM_NO_TAPS
+// takes b - x for every row, PERPHIL_NGS_NORM_NO_TAIL stops each CTA once
+// its partial is written.
+#ifdef PERPHIL_NGS_NORM_EMPTY
+#define PERPHIL_NGS_NORM_NO_ROWS
+#endif
+
+// programmatic dependent launch: wait for the grid this one depends on (its
+// writes visible), and let the grid that depends on this one launch now
+__device__ __forceinline__ void wait_on_prior_grid() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void launch_dependent_grid() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// one arrival on a counter, its old value: release of this thread's writes
+// before it, acquire of the others' released writes after it
+__device__ __forceinline__ unsigned arrive(unsigned* counter) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;" : "=r"(old) : "l"(counter) : "memory");
+  return old;
+}
+
+// rows [c * 256, c * 256 + 256) of block pi (chunk = pi * chunks + c) in
+// natural order, field-major: a thread a row, so that a warp's loads of x
+// and b are consecutive; the residual into the block's output (where set)
+// and its square into the block's L squares at sq + pi * L. A row whose
+// taps all lie in the block loads them together, a tap on the grid's
+// boundary masked to 0.0: row_residual's straight and general paths, the
+// same sums, with no read of the table; a boundary row and a row with a tap
+// in a neighbour's block take row_residual. done guards the stores.
+__device__ __forceinline__ void norm_rows(const NgsPart* parts, const NgsBlocks& k, const NgsWeights& cw, double done,
+                                          double* sq, long long L, int chunk, int chunks) {
+  const int pi = chunk / chunks, lx = k.lx, nf = k.ly * lx;
+  const int e = (chunk - pi * chunks) * kNormThreads + threadIdx.x;
+  if (e >= 2 * nf) return;
+  const int f = e >= nf, rem = e - f * nf, j = rem / lx, i = rem - j * lx;
+  double r;
+  bool bdry;
+#ifdef PERPHIL_NGS_NORM_NO_TAPS
+  r = __dsub_rn(reinterpret_cast<const double*>(k.b[pi])[e], reinterpret_cast<const double*>(k.x[pi])[e]);
+#else
+  const int gj = k.oy[pi] + j, gi = k.ox[pi] + i;
+  if (j >= 1 && j <= k.ly - 2 && i >= 1 && i <= lx - 2 && !on_boundary(gj, gi, k.ny, k.nx)) {
+    const double* c = reinterpret_cast<const double*>(k.x[pi]) + j * lx + i;
+    double u[18];
+#pragma unroll
+    for (int q = 0; q < 18; ++q) {
+      const int g = q / 9, dy = (q % 9) / 3 - 1, dx = q % 3 - 1;
+      const double v = c[g * nf + dy * lx + dx];
+      u[q] = on_boundary(gj + dy, gi + dx, k.ny, k.nx) ? 0.0 : v;
+    }
+    double acc = 0.0;
+#pragma unroll
+    for (int q = 0; q < 18; ++q) acc = __dadd_rn(acc, __dmul_rn(weight(cw, f, q), u[q]));
+    r = __dsub_rn(reinterpret_cast<const double*>(k.b[pi])[e], acc);
+  } else {
+    r = row_residual(parts, k, cw, pi, f, j, i, bdry);
+  }
+#endif
+  if (done != 0.0) return;
+  double* rout = reinterpret_cast<double*>(k.r[pi]);
+  if (rout) rout[e] = r;
+  sq[pi * L + e] = __dmul_rn(r, r);
+}
+
+// the halving tree over v[l + 32 m] (lane l's v[m], m < 8) of a warp's 32
+// lanes: the three cross-warp levels (t with t + 128, t + 64, t + 32) in
+// registers, then the five lane levels by shuffles (lane l adds lane l + w:
+// s[t] + s[t + w] exactly); lane 0 ends with the sum
+__device__ __forceinline__ double warp_tree(const double (&v)[8]) {
+  const double a0 = __dadd_rn(v[0], v[4]), a1 = __dadd_rn(v[1], v[5]);
+  const double a2 = __dadd_rn(v[2], v[6]), a3 = __dadd_rn(v[3], v[7]);
+  double s = __dadd_rn(__dadd_rn(a0, a2), __dadd_rn(a1, a3));
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) s = __dadd_rn(s, __shfl_down_sync(0xffffffffu, s, w));
+  return s;
+}
+
+// block q's tree over its G partials (a power of two up to 256,
+// zero-padded) by one warp, lane l reading partials l + 32 m; lane 0's sum
+__device__ __forceinline__ double block_tree(const NgsBlocks& k, const double* partials, int q, int l) {
+  const int g0 = k.cta0[q], G = k.ctas[q];
+  double v[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) v[m] = l + 32 * m < G ? __ldcg(partials + g0 + l + 32 * m) : 0.0;
+  return warp_tree(v);
+}
+
+// the stop test on the blocks' total, or the total left for the all-reduce
+__device__ __forceinline__ void conclude(double* state, double total, int init, int local, const NgsStop& st) {
+  if (local) {
+    finish(state, total, init, st);
+  } else {
+    state[kStateTotal] = total;
+  }
+}
+
+// CTA cta of the tree stage: block pi's CTA cb of G, thread t of 256 sums
+// its K leaves t * G + cb + k * 256 G of the block's squares (e < n; the
+// padding reads as 0) in the tree's order (k and k + K/2 first: a binary
+// counter over k bit-reversed); one barrier, then warp 0 the CTA's tree
+// (warp_tree) into partials[cta]. The tail: thread 0 arrives on the
+// launch's counter (arrivals[0]); one more barrier tells the CTA's warps
+// whether it was the last; the last CTA's warp w makes the trees of blocks
+// w, w + 8, ... over their partials (block_tree), and after a third barrier
+// thread 0 adds the blocks' sums in coordinate order, resets the counter
+// and runs the stop test (local) or leaves the total for the all-reduce.
+__device__ __forceinline__ void norm_tree(const NgsBlocks& k, double* state, const double* sq, double* partials,
+                                          unsigned* arrivals, long long L, int cta, int init, int local) {
+  __shared__ double s[kNormThreads];
+  __shared__ double block_sums[kNgsMaxParts];
+  __shared__ unsigned last;
+  int pi = 0;
+  while (pi + 1 < k.nparts && cta >= k.cta0[pi + 1]) ++pi;
+  const int G = k.ctas[pi], K = k.leaves[pi], cb = cta - k.cta0[pi], t = threadIdx.x;
+  const long long n = 2LL * k.ly * k.lx, stride = static_cast<long long>(G) * kNormThreads;
+  const double* q = sq + pi * L;
+  const NgsStop st = stop_of(state);  // in flight with the leaves: used by the last CTA's thread 0
+  const int logK = 31 - __clz(K);
+  double stack[8];
+  int depth = 0;
+  for (int m = 0; m < K; ++m) {
+    const int kk = logK ? static_cast<int>(__brev(static_cast<unsigned>(m)) >> (32 - logK)) : 0;
+    const long long e = static_cast<long long>(t) * G + cb + kk * stride;
+    double v = e < n ? __ldcg(q + e) : 0.0;
+    for (int z = m; z & 1; z >>= 1) v = __dadd_rn(stack[--depth], v);
+    stack[depth++] = v;
+  }
+  s[t] = stack[0];
+  __syncthreads();
+  if (t < 32) {
+    double v[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) v[m] = s[t + 32 * m];
+    const double part = warp_tree(v);
+#ifdef PERPHIL_NGS_NORM_NO_TAIL
+    if (t == 0) partials[cta] = part;
+#else
+    if (t == 0) {
+      partials[cta] = part;
+      last = arrive(arrivals) == static_cast<unsigned>(k.cta0[k.nparts - 1] + k.ctas[k.nparts - 1] - 1);
+    }
+#endif
+  }
+#ifdef PERPHIL_NGS_NORM_NO_TAIL
+  return;
+#endif
+  __syncthreads();
+  if (!last) return;
+  for (int p = t >> 5; p < k.nparts; p += kNormThreads / 32) {
+    const double sum = block_tree(k, partials, p, t & 31);
+    if ((t & 31) == 0) block_sums[p] = sum;
+  }
+  __syncthreads();
+  if (t != 0) return;
+  double total = block_sums[0];
+  for (int p = 1; p < k.nparts; ++p) total = __dadd_rn(total, block_sums[p]);
+  arrivals[0] = 0u;
+  conclude(state, total, init, local, st);
 }
 
 __global__ void __launch_bounds__(kNormThreads)
-    ngs_norm_kernel(const NgsPart* __restrict__ parts, NgsBlocks k, NgsWeights cw, double* state, double* partials,
-                    unsigned* arrivals, int init, int local) {
-  __shared__ double s[kNormThreads];
-  __shared__ bool last;
-  const double done = state[kStateDone];
-  int pi = 0;
-  while (pi + 1 < k.nparts && static_cast<int>(blockIdx.x) >= k.cta0[pi + 1]) ++pi;
-  const int lx = k.lx, n = k.ly * lx;
-  const int G = k.ctas[pi], K = k.leaves[pi], cb = blockIdx.x - k.cta0[pi], t = threadIdx.x;
-  double* rout = reinterpret_cast<double*>(k.r[pi]);
-  const long long stride = static_cast<long long>(G) * kNormThreads;
-  const int logK = 31 - __clz(K);
-  // the thread's leaves in bit-reversed order, summed by a binary counter:
-  // the halving tree over k (k and k + K/2 first)
-  double stack[8];
-  int depth = 0;
-  for (int q = 0; q < K; ++q) {
-    const int kk = logK ? static_cast<int>(__brev(static_cast<unsigned>(q)) >> (32 - logK)) : 0;
-    const long long e = static_cast<long long>(t) * G + cb + kk * stride;
-    double v = 0.0;
-    if (e < 2LL * n) {
-      const int f = e >= n, rem = static_cast<int>(e) - f * n, j = rem / lx, i = rem - j * lx;
-      bool bdry;
-      const double r = row_residual(parts, k, cw, pi, f, j, i, bdry);
-      if (rout && done == 0.0) rout[e] = r;
-      v = __dmul_rn(r, r);
-    }
-    for (int m = q; m & 1; m >>= 1) v = __dadd_rn(stack[--depth], v);
-    stack[depth++] = v;
-  }
-  if (done != 0.0) return;
-  s[t] = stack[0];
-  __syncthreads();
-  for (int w = kNormThreads / 2; w >= 1; w >>= 1) {
-    if (t < w) s[t] = __dadd_rn(s[t], s[t + w]);
-    __syncthreads();
-  }
-  if (t == 0) {
-    partials[blockIdx.x] = s[0];
-    __threadfence();
-    last = atomicAdd(arrivals, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the last CTA: each block's tree over its CTAs, the blocks in order
-  double total = 0.0;
-  for (int q = 0; q < k.nparts; ++q) {
-    const int g0 = k.cta0[q], gq = k.ctas[q];
-    __syncthreads();
-    s[t] = t < gq ? __ldcg(partials + g0 + t) : 0.0;
-    __syncthreads();
-    for (int w = kNormThreads / 2; w >= 1; w >>= 1) {
-      if (t < w && t + w < gq) s[t] = __dadd_rn(s[t], s[t + w]);
-      __syncthreads();
-    }
-    if (t == 0) total = q == 0 ? s[0] : __dadd_rn(total, s[0]);
-  }
-  if (t == 0) {
-    *arrivals = 0u;
-    if (local) {
-      finish(state, total, init);
-    } else {
-      state[kStateTotal] = total;
-    }
-  }
+    ngs_norm_rows_kernel(const NgsPart* __restrict__ parts, NgsBlocks k, NgsWeights cw, const double* state,
+                         double* sq, long long L, int chunks) {
+  launch_dependent_grid();  // the tree stage's CTAs may take their places and wait
+  wait_on_prior_grid();     // the last colour step's x
+#ifdef PERPHIL_NGS_NORM_NO_ROWS
+  return;
+#endif
+  norm_rows(parts, k, cw, state[kStateDone], sq, L, blockIdx.x, chunks);
+}
+
+__global__ void __launch_bounds__(kNormThreads)
+    ngs_norm_tree_kernel(NgsBlocks k, double* state, const double* sq, double* partials, unsigned* arrivals,
+                         long long L, int init, int local) {
+  wait_on_prior_grid();  // the rows stage's squares
+#ifdef PERPHIL_NGS_NORM_EMPTY
+  return;
+#endif
+  if (state[kStateDone] != 0.0) return;
+  norm_tree(k, state, sq, partials, arrivals, L, blockIdx.x, init, local);
 }
 
 __global__ void ngs_finish_kernel(double* state, int init) {
@@ -393,21 +538,52 @@ extern "C" int perphil_ngs_colour_step(const void* parts, const long long* words
   return (int)cudaGetLastError();
 }
 
-// parts, words, nparts, ctas (the norm's CTAs over every block), weights
-// (host), ny, nx, state, partials (ctas doubles), arrivals (one unsigned,
-// 0 between launches), init (1: the first norm, f0 and tol), local (1: the
-// root and stop test here; 0: the blocks' total left in the state for an
-// all-reduce and ngs_finish_kernel), stream
+// parts, words, nparts, ctas (the tree's CTAs over every block: the table's
+// cta0 runs over them in order, every block the same count and leaves),
+// weights (host), ny, nx, state, work (nparts * L squares, L = ctas a block
+// * 256 * leaves, then ctas partials), arrivals (one unsigned, 0 between
+// launches), init (1: the first norm, f0 and tol), local (1: the root and
+// stop test here; 0: the blocks' total left in the state for an all-reduce
+// and ngs_finish_kernel), stream. Two
+// launches, each a programmatic dependent launch: the rows (ceil(n / 256)
+// CTAs a block), then the tree and the tail.
 extern "C" int perphil_ngs_norm(const void* parts, const long long* words, int nparts, int ctas,
-                                const double* weights, int ny, int nx, double* state, double* partials,
+                                const double* weights, int ny, int nx, double* state, double* work,
                                 unsigned* arrivals, int init, int local, void* stream) {
   using namespace perphil;
   NgsBlocks k;
-  if (!parts || !state || !partials || !arrivals || ctas < nparts || !blocks_of(words, nparts, ny, nx, k)) {
+  if (!parts || !state || !work || !arrivals || ctas < nparts || !blocks_of(words, nparts, ny, nx, k)) {
     return (int)cudaErrorInvalidValue;
   }
-  ngs_norm_kernel<<<ctas, kNormThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const NgsPart*>(parts), k, weights_of(weights), state, partials, arrivals, init, local);
+  const long long n = 2LL * k.ly * k.lx, L = static_cast<long long>(k.ctas[0]) * kNormThreads * k.leaves[0];
+  int cta0 = 0;
+  for (int q = 0; q < nparts; ++q) {
+    if (k.ctas[q] != k.ctas[0] || k.leaves[q] != k.leaves[0] || k.cta0[q] != cta0 || k.ctas[q] > kNormThreads) {
+      return (int)cudaErrorInvalidValue;
+    }
+    cta0 += k.ctas[q];
+  }
+  if (cta0 != ctas || L < n) return (int)cudaErrorInvalidValue;
+  const int chunks = static_cast<int>((n + kNormThreads - 1) / kNormThreads), row_ctas = nparts * chunks;
+  double* partials = work + nparts * L;
+  const NgsWeights cw = weights_of(weights);
+  const NgsPart* p = static_cast<const NgsPart*>(parts);
+  cudaLaunchConfig_t cfg{};
+  cfg.blockDim = dim3(kNormThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.gridDim = dim3(row_ctas);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, ngs_norm_rows_kernel, p, k, cw, static_cast<const double*>(state), work,
+                                       L, chunks);
+  if (err != cudaSuccess) return (int)err;
+  cfg.gridDim = dim3(ctas);
+  err = cudaLaunchKernelEx(&cfg, ngs_norm_tree_kernel, k, state, static_cast<const double*>(work), partials,
+                           arrivals, L, init, local);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -91,8 +91,8 @@ _SIGNATURES = {
     # parts, words(host: the table's copy), nparts, rows, start, edge, end,
     # weights(host, 38 doubles), ny, nx, state, stream
     "perphil_ngs_colour_step": [_P, _P, _I, _P] + [_I] * 3 + [_P, _I, _I, _P, _P],
-    # parts, words(host), nparts, ctas, weights(host), ny, nx, state, partials,
-    # arrivals, init, local, stream
+    # parts, words(host), nparts, ctas, weights(host), ny, nx, state, work
+    # (the squares and partials), arrivals, init, local, stream
     "perphil_ngs_norm": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     # state, init, stream
     "perphil_ngs_finish": [_P, _I, _P],

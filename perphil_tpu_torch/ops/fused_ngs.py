@@ -31,8 +31,8 @@ the host: a colour step of every block is one launch of
 ``csrc/ngs_colour_halo.cu`` (counted as ``ngs_colour_halo``), a ghost read
 in the neighbour block where it is in the process and in a fixed receive
 buffer where it is on another rank; the norm and the stop test are one
-launch (``ngs_colour_norm``) that leaves done, the count and the norms in a
-state on the card. :func:`blocked_ngs` issues :data:`ITERATIONS_PER_READ`
+call of two dependent launches (``ngs_colour_norm``, counted once a call)
+that leaves done, the count and the norms in a state on the card. :func:`blocked_ngs` issues :data:`ITERATIONS_PER_READ`
 iterations between read-backs of that state, from a CUDA graph where no
 peer is involved. The twins (:func:`colour_step_box`, :func:`stop_plain`)
 run the same loop on CPU tensors, bit for bit with
@@ -509,11 +509,14 @@ class NgsBlock:
 COLOUR_SOURCE = "ngs_colour_halo.cu"
 NORM_KERNEL = "ngs_colour_norm"
 NORM_THREADS = _cuda.header_constant(COLOUR_SOURCE, "kNormThreads")
-#: the leaves a norm thread sums where the block allows (the CTAs of a
-#: block: its padded length over NORM_THREADS * NORM_LEAVES, 1 to 256): one
-#: row a thread, as many CTAs as that takes (on an H100 at 700 W, 4 rows a
-#: thread on 64 CTAs took 0.0176 ms at 2D N=128, one row on 256 0.0100:
-#: ``chip_smoke.py`` phase 14)
+#: the leaves a norm tree thread sums where the block allows (the tree's
+#: CTAs of a block: its padded length over NORM_THREADS * NORM_LEAVES, 1 to
+#: 256): one leaf a thread, as many CTAs as that takes. The rows stage does
+#: not depend on it (a thread a row, ceil(n / 256) CTAs a block). The first
+#: norm kernel computed its rows in the tree's layout: 4 rows a thread on 64
+#: CTAs took 0.0176 ms at 2D N=128, one row on 256 0.0100 (an H100 at 700 W,
+#: ``chip_smoke.py`` phase 14); 2 leaves a thread against 1 in the two-stage
+#: norm: tied on one block, slower on 8 slabs (``--only ngs-blocked``).
 NORM_LEAVES = 1
 MAX_PARTS = _cuda.header_constant(COLOUR_SOURCE, "kNgsMaxParts")
 MAX_EXTENT = _cuda.header_constant(COLOUR_SOURCE, "kNgsMaxExtent")
@@ -601,6 +604,56 @@ def tree_sum_norm(v: torch.Tensor, ctas: int, leaves: int) -> torch.Tensor:
     return p
 
 
+def _warp_tree(s: torch.Tensor) -> torch.Tensor:
+    """Warp 0's tree over ``s`` (256 values along dim 0, as the CTA's shared
+    memory holds them): lane l's ``v[m] = s[l + 32 m]``, m < 8; the levels t
+    + 128, t + 64, t + 32 in its registers; then t + 16 ... t + 1 as
+    ``__shfl_down_sync`` (lane l adds lane l + w's value, a lane past 31
+    reads its own); lane 0's sum."""
+    v = s.reshape(8, 32, *s.shape[1:])
+    a = [v[m] + v[m + 4] for m in range(4)]
+    lane = (a[0] + a[2]) + (a[1] + a[3])
+    for w in (16, 8, 4, 2, 1):
+        lane = lane + torch.cat([lane[w:], lane[32 - w:]])
+    return lane[0]
+
+
+def norm_replay(squares: Sequence[torch.Tensor], ctas: int, leaves: int) -> torch.Tensor:
+    """The norm kernel's sum of squares over the blocks, replayed step by
+    step: ``squares`` holds each block's n squares as the rows stage writes
+    them (natural order, the block's L = ``leaves * 256 * ctas`` scratch,
+    :func:`norm_geometry`); tree thread t of CTA b takes its leaves ``e = k
+    * 256 ctas + t * ctas + b`` (0 where e >= n) in the kernel's order (k
+    bit-reversed, a binary counter: the halving over k); the CTA stores its
+    256 sums once and warp 0 reduces them (:func:`_warp_tree`); the block's
+    last CTA reduces the ``ctas`` partials zero-padded to 256 the same way;
+    the blocks' sums are added in order. The total, a 0-dim tensor (its root
+    is ``finish``'s). Equal to :func:`krylov.tree_sum` of each block, added
+    in order, bit for bit where no total is -0.0 (a sum of squares)."""
+    size = ctas * NORM_THREADS * leaves
+    e = torch.arange(size).reshape(leaves, NORM_THREADS, ctas)
+    log_k = leaves.bit_length() - 1
+    total = None
+    for sq in squares:
+        n = sq.numel()
+        if n > size:
+            raise ValueError(f"{n} values for a tree of {size}")
+        scratch = torch.cat([sq.reshape(-1), sq.new_zeros(size - n)])
+        leaf = torch.where(e < n, scratch[e], 0.0)
+        stack = []
+        for m in range(leaves):
+            v = leaf[int(format(m, f"0{log_k}b")[::-1], 2) if log_k else 0]
+            z = m
+            while z & 1:
+                v = stack.pop() + v
+                z >>= 1
+            stack.append(v)
+        partials = _warp_tree(stack[0])
+        block = _warp_tree(torch.cat([partials, partials.new_zeros(NORM_THREADS - ctas)]))
+        total = block if total is None else total + block
+    return total
+
+
 class NgsSweep:
     """The colour steps and the norm of the pinned-colouring Picard
     iteration on every block ``blocks`` holds (``parallel/transpose.py``:
@@ -611,7 +664,8 @@ class NgsSweep:
 
       - on a CUDA device, ``csrc/ngs_colour_halo.cu``: a colour step is one
         launch over every block (counted as ``ngs_colour_halo``), the norm
-        one launch with the stop test (``ngs_colour_norm``); the table of
+        with the stop test two dependent launches, the rows then the tree
+        (counted once a call as ``ngs_colour_norm``); the table of
         blocks (:data:`PART_WORDS` int64 a block) and each colour's rows
         (:meth:`row_lists`) live on the card;
       - on the CPU, the twins: :func:`colour_step_box` per block on the
@@ -671,7 +725,11 @@ class NgsSweep:
             self.rows = torch.tensor(codes.view(np.int32), device=dev)  # the kernel reads uint32
             self.words = self.table_words()  # the launchers read x, b, offsets and the norm's CTAs from it
             self.table = torch.tensor(self.words, device=dev)
-            self.partials = torch.zeros(self.ctas, **f64)
+            # the norm's scratch: each block's squares (padded to L, never
+            # read past n) and the tree's partials; its arrival word (reset
+            # on the card)
+            ctas, leaves = self.geometry[self.coords[0]]
+            self.work = torch.zeros(len(self.coords) * ctas * NORM_THREADS * leaves + self.ctas, **f64)
             self.arrivals = torch.zeros(1, dtype=torch.int32, device=dev)
 
     # -- tables ---------------------------------------------------------
@@ -803,15 +861,7 @@ class NgsSweep:
         ``residuals`` (a tensor a block) receives the residual (checks)."""
         if not self.kernel:
             return self._norm_plain(init, residuals)
-        words = self.words
-        if residuals is not None:  # the residuals' outputs
-            words = words.copy()
-            for p, c in enumerate(self.coords):
-                _cuda.require_cuda_tensor(residuals[c], "residual", torch.float64, self.device)
-                words[p, _META + 7] = residuals[c].data_ptr()
-        _cuda.launch(NORM_KERNEL, "perphil_ngs_norm", self.device, self.table.data_ptr(), words.ctypes.data,
-                     len(self.coords), self.ctas, self.weights.ctypes.data, *self.n_phys, self.state.data_ptr(),
-                     self.partials.data_ptr(), self.arrivals.data_ptr(), int(init), int(not self.peers))
+        _cuda.launch(NORM_KERNEL, "perphil_ngs_norm", self.device, *self.norm_args(init, residuals))
         if self.peers:
             import torch.distributed as dist
 
@@ -820,6 +870,25 @@ class NgsSweep:
             dist.all_reduce(self.state[TOTAL:TOTAL + 1])
             halo.COLLECTIVES["all_reduce"] += 1
             _cuda.launch(NORM_KERNEL, "perphil_ngs_finish", self.device, self.state.data_ptr(), int(init))
+
+    def norm_args(self, init: bool = False, residuals: Optional[Dict] = None, work: Optional[torch.Tensor] = None,
+                  arrivals: Optional[torch.Tensor] = None) -> tuple:
+        """The norm launcher's arguments but the stream (``perphil_ngs_norm``
+        and the launchers of its signature: the measurement builds, the
+        probe's): ``residuals`` (a tensor a block) patched into the table's
+        copy, ``work`` / ``arrivals`` in place of the sweep's own."""
+        words = self.words
+        if residuals is not None:  # the residuals' outputs
+            words = words.copy()
+            for p, c in enumerate(self.coords):
+                _cuda.require_cuda_tensor(residuals[c], "residual", torch.float64, self.device)
+                words[p, _META + 7] = residuals[c].data_ptr()
+        work = self.work if work is None else work
+        arrivals = self.arrivals if arrivals is None else arrivals
+        # words.ctypes (not its address) keeps a patched copy alive until the call
+        return (self.table.data_ptr(), words.ctypes, len(self.coords), self.ctas, self.weights.ctypes.data,
+                *self.n_phys, self.state.data_ptr(), work.data_ptr(), arrivals.data_ptr(), int(init),
+                int(not self.peers))
 
     def _norm_plain(self, init: bool, residuals: Optional[Dict]) -> None:
         """The twin of the norm: each block's residual and its tree
@@ -940,6 +1009,47 @@ def probe_library():
     sig = [_cuda._P] * 7 + [_cuda._I, _cuda._P, _cuda._P] + [_cuda._I] * 6 + [_cuda._P]
     return _cuda.variant_library("profile/ngs_colour_halo_first.cu", "PERPHIL_NGS_PROBE",
                                  {"perphil_ngs_colour_halo_first": sig})
+
+
+def norm_probe_library():
+    """``csrc/profile/ngs_colour_norm_first.cu`` built alone: the first norm
+    kernel (the rows in the tree's layout, a barrier a tree level, the last
+    CTA's tail block by block; ``perphil_ngs_norm_first``, the
+    launcher's signature), kept to hold the package's norm to it bit for bit
+    and to time the two in turns (:class:`FirstNormSweep`). A measurement
+    build: its launches are counted nowhere."""
+    sig = _cuda._SIGNATURES["perphil_ngs_norm"]
+    return _cuda.variant_library("profile/ngs_colour_norm_first.cu", "PERPHIL_NGS_NORM_PROBE",
+                                 {"perphil_ngs_norm_first": sig})
+
+
+def norm_variant_library(define: str):
+    """``csrc/ngs_colour_halo.cu`` built alone with ``-D<define>``
+    (``PERPHIL_NGS_NORM_*``: the measurement builds of the norm, a part
+    skipped), its
+    ``perphil_ngs_norm`` bound; launched with :meth:`NgsSweep.norm_args`.
+    Counted nowhere."""
+    return _cuda.variant_library(COLOUR_SOURCE, define, {"perphil_ngs_norm": _cuda._SIGNATURES["perphil_ngs_norm"]})
+
+
+class FirstNormSweep(NgsSweep):
+    """A :class:`NgsSweep` on the card whose norm is the first norm kernel
+    (``dll``: :func:`norm_probe_library`) on its own partials and arrival
+    word, in place of the package's: to hold the two norms' bits together
+    and to time the whole blocked solve with each in turns. Its colour steps
+    are the package's (counted); its norms are counted nowhere. No peers."""
+
+    def __init__(self, dll, sweeper: ColoredNGSSweeper, grid: Sequence[int], blocks, remote: bool = False):
+        super().__init__(sweeper, grid, blocks, remote)
+        if not self.kernel or self.peers:
+            raise ValueError("the first norm kernel runs on the card, on the blocks of one process")
+        self._first = dll.perphil_ngs_norm_first
+        self._first_partials = torch.zeros(self.ctas, dtype=torch.float64, device=self.device)
+        self._first_arrivals = torch.zeros(1, dtype=torch.int32, device=self.device)
+
+    def norm(self, init: bool = False, residuals: Optional[Dict] = None) -> None:
+        args = self.norm_args(init, residuals, self._first_partials, self._first_arrivals)
+        _cuda.check(self._first(*args, torch.cuda.current_stream(self.device).cuda_stream), "perphil_ngs_norm_first")
 
 
 def blocked_ngs_probe(dll, blocks, parts: Dict, b: Dict, x0: Dict, rtol: float, atol: float,

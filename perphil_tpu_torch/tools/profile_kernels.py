@@ -86,20 +86,29 @@ choice made otherwise (cluster-scope ordering on the halo's mbarriers; a
 reciprocal's product for the divide, which does not keep the bits) and
 with its colour runs sorted by offset instead of dealt by bank.
 
-``--only ngs-blocked`` times the sharded Picard's blocked iteration
-(``ops/fused_ngs.py::blocked_ngs`` on a ``NgsSweep``:
+``--only ngs-blocked`` first holds the blocked iteration's norm
+(``ngs_colour_norm``: the rows stage, then the tree and tail) over
+``chip_smoke.COLOUR_LAYOUTS`` to its twin, to the first norm kernel
+(``csrc/profile/ngs_colour_norm_first.cu``, built alone), to its
+one-launch build and to itself at 2 leaves a thread, bit for bit, and
+times them in turns; splits it by the builds that skip a part (launches,
+rows, taps, tree, tail); and times an iteration from a graph with each
+norm (``time_ngs_norm``). Then it times the sharded Picard's blocked
+iteration (``ops/fused_ngs.py::blocked_ngs`` on a ``NgsSweep``:
 ``csrc/ngs_colour_halo.cu``'s colour steps and norm) at 2D N=64/128 on
 one block with 8, 16, 32 and 64 iterations between read-backs (beside an
 empty kernel's launch, queued and from a graph, and a colour step beside
 builds of ``ngs_colour_halo.cu`` that skip parts of it: the row's work,
 the taps, the divide), in turns
-with ``fused_ngs`` and the first blocked loop (``blocked_ngs_probe``: the
+with ``fused_ngs``, the first blocked loop (``blocked_ngs_probe``: the
 first colour-step kernel, ``csrc/profile/ngs_colour_halo_first.cu``, built
-alone, a norm read back every iteration), every run held to ``fused_ngs``'s
+alone, a norm read back every iteration) and the blocked iteration with the
+first norm kernel (``FirstNormSweep``), every run held to ``fused_ngs``'s
 count and iterate bit for bit (host clock, a solve); an iteration's device
 time from the graph of k iterations, issued launch by launch and queued;
 and at N=64 the loopback slabs and pencils of the phantom-padded grid, in
-turns with ``fused_ngs`` (and the first loop on some).
+turns with ``fused_ngs`` and the first norm kernel (and the first loop on
+some).
 
 ``--only band`` times ``band_trisolve`` (``csrc/band_trisolve.cu``, the
 level-scheduled sweep) with the package's library at tet nx=16/24/40: each
@@ -1675,6 +1684,9 @@ NGS_LAYOUTS = ((2,), (4,), (8,), (2, 2))
 NGS_FIRST_LAYOUTS = ((2,), (2, 2))
 # the measurement builds of the colour step (csrc/ngs_colour_halo.cu)
 NGS_STEP_VARIANTS = ("EMPTY_STEP", "NO_TAPS", "NO_DIVIDE", "BARE")
+# the measurement builds of the norm (PERPHIL_NGS_NORM_*): the launches
+# alone, no rows stage, no taps, no tail
+NGS_NORM_PARTS = ("EMPTY", "NO_ROWS", "NO_TAPS", "NO_TAIL")
 
 
 def _walls_in_turns(runs: dict, order) -> dict:
@@ -1705,11 +1717,13 @@ def time_ngs_blocked() -> None:
     """``--only ngs-blocked`` (the module's docstring)."""
     import chip_smoke
     from perphil_tpu_torch.ops.fused_ngs import (
+        FirstNormSweep,
         FusedNGSSolver,
         NgsBlock,
         NgsSweep,
         blocked_ngs,
         blocked_ngs_probe,
+        norm_probe_library,
         probe_library,
     )
     from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
@@ -1717,6 +1731,8 @@ def time_ngs_blocked() -> None:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     probe = probe_library()
+    first_norm = norm_probe_library()
+    time_ngs_norm(dev, first_norm)  # the norm's checks first: a wrong norm fails the solves' checks below
     # the floor of a launch through ctypes: an empty kernel, queued and from
     # a graph of as many launches as 32 iterations make (15 an iteration)
     lib = _cuda.library()
@@ -1758,7 +1774,9 @@ def time_ngs_blocked() -> None:
         runs["fused"] = lambda: fused(b, x0)
         runs["first"] = lambda: blocked_ngs_probe(probe, one, {c: NgsBlock(sw, shape, (1,), c)}, {c: b},
                                                  {c: x0.clone()}, *tols)
-        order = ["first", *[f"every {k}" for k in NGS_EVERY], "fused"]
+        first_sweep = FirstNormSweep(first_norm, sw, shape, one)
+        runs["first norm"] = lambda: blocked_ngs(first_sweep, {c: b}, {c: x0}, *tols)
+        order = ["first", "first norm", *[f"every {k}" for k in NGS_EVERY], "fused"]
         order = order + order[::-1]
         walls = _walls_in_turns(runs, order)
         for name, (_, res) in walls.items():
@@ -1806,8 +1824,10 @@ def time_ngs_blocked() -> None:
             L = LoopbackBlocks(ms)
             bs, xs = (L.cut(torch.nn.functional.pad(t, [0, pad[1], 0, pad[0]]), lead=1) for t in (b, x0))
             swl = NgsSweep(sw, grid, L)
-            runs = {"this": lambda: blocked_ngs(swl, bs, xs, *tols), "fused": lambda: fused(b, x0)}
-            order = ["this", "fused", "fused", "this"]
+            swf = FirstNormSweep(first_norm, sw, grid, L)
+            runs = {"this": lambda: blocked_ngs(swl, bs, xs, *tols), "fused": lambda: fused(b, x0),
+                    "first norm": lambda: blocked_ngs(swf, bs, xs, *tols)}
+            order = ["first norm", "this", "fused", "fused", "this", "first norm"]
             if ms in NGS_FIRST_LAYOUTS:
                 parts = {q: NgsBlock(sw, grid, ms, q) for q in L.coords}
                 runs["first"] = lambda: blocked_ngs_probe(probe, L, parts, bs, {q: v.clone() for q, v in xs.items()},
@@ -1818,6 +1838,121 @@ def time_ngs_blocked() -> None:
                 held(name, res, res.x if name == "fused" else L.join(res.x)[:, :shape[0], :shape[1]])
             print(f"blocked Picard 2D N={n} over loopback {ms} (padded {grid}), bit for bit with fused_ngs: in turns "
                   f"{_turns_text(order, walls)} s (host clock, a solve)")
+
+
+def time_ngs_norm(dev, first_norm) -> None:
+    """The blocked Picard norm (``ngs_colour_norm``: the rows stage, then
+    the tree and tail) over ``chip_smoke.COLOUR_LAYOUTS`` (2D N=128, random
+    x and b): bit for bit with the twin, the first norm kernel
+    (``first_norm``: :func:`fused_ngs.norm_probe_library`) and the package
+    at ``NORM_LEAVES`` 2; all in turns (launches queued) beside the bound;
+    the measurement builds that skip a part, in turns (the split: launches,
+    rows, taps, tree, tail); and on one block and 8 slabs an iteration from
+    a graph of 32 with each norm."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke
+    from perphil_tpu_torch.ops import fused_ngs
+    from perphil_tpu_torch.ops.fused_ngs import FN, FirstNormSweep, NgsSweep, norm_variant_library
+    from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
+    from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
+
+    with ThreadPoolExecutor(len(NGS_NORM_PARTS)) as pool:
+        built = dict(zip(NGS_NORM_PARTS, pool.map(lambda v: norm_variant_library(f"PERPHIL_NGS_NORM_{v}"),
+                                                  NGS_NORM_PARTS)))
+    _cuda.library()
+    nvcc = subprocess.run([_cuda._nvcc(), "--version"], capture_output=True, text=True).stdout.strip().splitlines()
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), {nvcc[-1] if nvcc else 'nvcc ?'}, driver {driver}")
+    entry = ""  # ptxas -v of the package's norm kernels (where this process built the package)
+    for line in str(_cuda.BUILD_INFO.get("log", "")).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else ""
+        elif "Used" in line and "ngs_norm" in entry:
+            print(f"ptxas {entry}: {line.split('ptxas info    :')[-1].strip()}")
+            entry = ""
+    W, params = chip_smoke.problem("quad", 128, dev)[:2]
+    sw = ColoredNGSSweeper(W.mesh, params, dev)
+    shape = W.mesh.node_shape
+    gen = torch.Generator(device="cpu").manual_seed(24)
+    xq, bq = (torch.randn((2,) + shape, generator=gen, dtype=torch.float64).to(dev) for _ in range(2))
+
+    def launcher(dll, sweep):
+        def norm(init=False, residuals=None):
+            _cuda.check(dll.perphil_ngs_norm(*sweep.norm_args(init, residuals),
+                                             torch.cuda.current_stream().cuda_stream), "perphil_ngs_norm")
+        return norm
+
+    for ms, remote in chip_smoke.COLOUR_LAYOUTS:
+        pad = [(-v) % s for v, s in zip(shape, ms)] + [0] * (2 - len(ms))
+        grid = (shape[0] + pad[0], shape[1] + pad[1])
+        L = LoopbackBlocks(ms)
+        xs, bs = (L.cut(torch.nn.functional.pad(t, [0, pad[1], 0, pad[0]]), lead=1) for t in (xq, bq))
+
+        def ready(sweep):
+            sweep.reset(0.0, 0.0, 2 ** 30)  # tol 0: never done, so that every launch runs
+            sweep.load(bs, xs)
+            return sweep
+
+        kern = ready(NgsSweep(sw, grid, L, remote=remote))
+        twin = ready(NgsSweep(sw, grid, L, remote=remote, plain=True))
+        first = ready(FirstNormSweep(first_norm, sw, grid, L, remote=remote))
+        fused_ngs.NORM_LEAVES = 2
+        try:
+            kern2 = ready(NgsSweep(sw, grid, L, remote=remote))
+        finally:
+            fused_ngs.NORM_LEAVES = 1
+        norms = {"this": (kern, kern.norm), "first": (first, first.norm), "leaves 2": (kern2, kern2.norm),
+                 "twin": (twin, twin.norm)}
+        got = {}
+        for name, (sweep, norm) in norms.items():
+            r = {c: torch.empty_like(v) for c, v in xs.items()}
+            norm(init=True, residuals=r)
+            torch.cuda.synchronize()
+            got[name] = (L.join(r), float(sweep.state[FN]))
+        where = f"2D N=128 over loopback {ms}{' through the exchange buffers' if remote else ''}"
+        for name, (r, f) in got.items():
+            if not (torch.equal(r, got["twin"][0]) and f == got["twin"][1]):
+                raise AssertionError(f"ngs_colour_norm {where} [{name}]: residuals and norm not the twin's bits")
+        nb = chip_smoke.bound(*chip_smoke.norm_work(kern))
+        runs = {name: fn for name, (_, fn) in norms.items() if name != "twin"}
+        order = (*runs, *reversed(runs))
+        t = chip_smoke.in_turns(runs, order, calls=20)
+        print(f"ngs_colour_norm {where} (padded {grid}; {kern.ctas} tree CTAs, {kern2.ctas} at 2 leaves): bit for "
+              f"bit with the twin ({', '.join(n for n in got if n != 'twin')}); in turns "
+              f"{chip_smoke.turns_text(order, t)} ms (CUDA events, launches queued); bound {nb[0]:.6f} ms ({nb[1]})",
+              flush=True)
+        # the split: the builds that skip a part, in turns with the package
+        parts = {"this": kern.norm, **{v.lower(): launcher(built[v], kern) for v in NGS_NORM_PARTS}}
+        order = (*parts, *reversed(parts))
+        t = chip_smoke.in_turns(parts, order, calls=20)
+        med = {name: statistics.median(ts) * 1e3 for name, ts in t.items()}
+        tail = med["this"] - med["no_tail"]
+        print(f"  the split (us, medians of 2 turns): package {med['this']:.2f}, launches alone {med['empty']:.2f}, "
+              f"no rows {med['no_rows']:.2f}, no taps {med['no_taps']:.2f}, no tail {med['no_tail']:.2f}: rows "
+              f"{med['this'] - med['no_rows']:.2f} (taps {med['this'] - med['no_taps']:.2f}), tail {tail:.2f}, "
+              f"tree {med['no_rows'] - med['empty'] - tail:.2f}", flush=True)
+        if remote or ms not in ((1,), (8,)):
+            continue
+        # an iteration from a graph of 32 (every colour's step and a norm)
+        per_it = {}
+        for name, (sweep, norm) in norms.items():
+            if name == "twin":
+                continue
+
+            def issue(sweep=sweep, norm=norm):
+                for _ in range(32):
+                    for colour in range(sw.ncolors):
+                        sweep.step(colour)
+                    norm()
+
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                issue()
+            per_it[name] = median_ms(g.replay, 5) / 32 * 1e3
+        print("  an iteration from a graph of 32, us: " + ", ".join(f"{k} {v:.2f}" for k, v in per_it.items()),
+              flush=True)
 
 
 def main() -> int:

@@ -4,7 +4,10 @@
 iterations between read-backs, the stop test in the state) against the
 first blocked loop (``blocked_ngs_loop``: a norm read back every iteration)
 in count, norms and bits; the plain norm against ``blocked_norm`` and the
-norm kernel's tree order against ``krylov.tree_sum``; the blocked solve
+norm kernel's tree order against ``krylov.tree_sum``, and its layout
+(the squares in natural order, the tree's leaves, the CTA's one-barrier
+tree with shuffles, the per-block one-warp tail, the blocks in order)
+replayed step by step against it; the blocked solve
 against the single-device twin and the JAX package; each colour's rows
 split once into the straight and the general path; the kernels' reads and
 writes through the blocks' table, replayed in numpy, against the twin; the
@@ -49,8 +52,10 @@ from perphil_tpu_torch.ops.fused_ngs import (
     blocked_ngs_loop,
     blocked_norm,
     norm_geometry,
+    norm_replay,
     tree_sum_norm,
 )
+from perphil_tpu_torch.ops import fused_ngs
 from perphil_tpu_torch.ops.ilu import ColoredNGSSweeper
 from perphil_tpu_torch.ops.krylov import tree_sum
 from perphil_tpu_torch.parallel.transpose import LoopbackBlocks
@@ -170,6 +175,39 @@ def test_plain_norm_equals_blocked_norm(ms):
         ctas, leaves = norm_geometry(n)
         assert ctas * leaves * NORM_THREADS >= n and leaves & (leaves - 1) == 0
         assert torch.equal(tree_sum_norm(v, ctas, leaves), tree_sum(v))
+
+
+@pytest.mark.parametrize("leaves", [1, 2])
+@pytest.mark.parametrize("ms", [(1,), (2,), (4,), (8,), (2, 2)], ids=str)
+@pytest.mark.parametrize("n", [4, 5, 64, 128])
+def test_norm_replay_equals_tree_sum(n, ms, leaves, monkeypatch):
+    """The norm kernel's layout replayed step by step (``norm_replay``: each
+    block's squares in natural order, a tree thread's leaves, the CTA's
+    tree after one barrier with the lane levels as shuffles, the block's
+    one-warp tail over its CTAs' partials zero-padded to 256, the blocks in
+    coordinate order) on the blocks of 2D N=n (n + 1 nodes a side,
+    phantom-padded to the layout) at ``NORM_LEAVES`` 1 and 2: bit for bit
+    :func:`krylov.tree_sum` of each block, the sums added in order. The
+    squares spread over 2^-26 ... 2^27, so that an addition made in another
+    order shows in the bits; once over every leaf, once over the leaves of
+    each block's first tree CTA alone (its tree then carries the whole sum)
+    and once over each CTA's thread 0 alone (the tail does)."""
+    monkeypatch.setattr(fused_ngs, "NORM_LEAVES", leaves)
+    shape = [n + 1 + (-(n + 1)) % m for m in ms] + [n + 1] * (2 - len(ms))
+    ly, lx = shape[0] // ms[0], shape[1] // (ms[1] if len(ms) > 1 else 1)
+    size = 2 * ly * lx
+    rng = np.random.default_rng(n * 100 + len(ms) * 10 + leaves)
+    ctas, k = norm_geometry(size)
+    assert ctas * k * NORM_THREADS >= size and ctas <= NORM_THREADS and k & (k - 1) == 0
+    e = np.arange(size)
+    for sel in (e >= 0, e % ctas == 0, (e // ctas) % NORM_THREADS == 0):
+        squares = [torch.as_tensor(np.where(sel, np.ldexp(1.0 + rng.random(size), rng.integers(-26, 27, size)), 0.0))
+                   for _ in range(int(np.prod(ms)))]
+        want = tree_sum(squares[0])
+        for sq in squares[1:]:
+            want = want + tree_sum(sq)
+        assert torch.equal(norm_replay(squares, ctas, k), want)
+        assert torch.equal(tree_sum_norm(squares[0], ctas, k), tree_sum(squares[0]))
 
 
 @pytest.mark.parametrize("ms", MESHES + [(1,)], ids=str)
@@ -317,43 +355,24 @@ def _replay_step(sweep, mem, words, colour):
 
 
 def _replay_norm(sweep, mem, words):
-    """``ngs_norm_kernel``'s sum of squares over every block, in its order."""
+    """The norm kernels' sum of squares over every block, in their order:
+    the rows stage's squares in natural order (``row_residual``'s loads; a
+    row with every tap in the block reads the same values), then the tree
+    and tail (``norm_replay``) at the table's geometry."""
     cw = sweep.weights[:36].reshape(2, 18)
     ny, nx = sweep.n_phys
-    total = None
+    squares = []
     for w in words:
         ly, lx = int(w[74]), int(w[75])
-        n, G, K = ly * lx, int(w[79]), int(w[80])
-        log_k = K.bit_length() - 1
-        partials = []
-        for cb in range(G):
-            sums = []
-            for t in range(NORM_THREADS):
-                stack = []
-                for q in range(K):
-                    k = int(format(q, f"0{log_k}b")[::-1], 2) if log_k else 0
-                    e = t * G + cb + k * G * NORM_THREADS
-                    v = 0.0
-                    if e < 2 * n:
-                        f, rem = int(e >= n), e - int(e >= n) * n
-                        r, _ = _kernel_residual(mem, w, cw, f, rem // lx, rem % lx, ny, nx, False)
-                        v = r * r
-                    m = q
-                    while m & 1:
-                        v = stack.pop() + v
-                        m >>= 1
-                    stack.append(v)
-                sums.append(stack[0])
-            width = NORM_THREADS
-            while width > 1:
-                width //= 2
-                sums = [sums[t] + sums[t + width] for t in range(width)]
-            partials.append(sums[0])
-        while len(partials) > 1:
-            half = len(partials) // 2
-            partials = [partials[b] + partials[b + half] for b in range(half)]
-        total = partials[0] if total is None else total + partials[0]
-    return math.sqrt(total)
+        sq = []
+        for e in range(2 * ly * lx):
+            f, rem = divmod(e, ly * lx)
+            r, _ = _kernel_residual(mem, w, cw, f, rem // lx, rem % lx, ny, nx, False)
+            sq.append(r * r)
+        squares.append(torch.tensor(sq, dtype=torch.float64))
+    ctas, leaves = int(words[0][79]), int(words[0][80])
+    assert all((int(w[79]), int(w[80])) == (ctas, leaves) for w in words)
+    return math.sqrt(float(norm_replay(squares, ctas, leaves)))
 
 
 @pytest.mark.parametrize("remote", [False, True], ids=["in-place", "buffers"])
